@@ -8,8 +8,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
 
 1. device  — `nvidia-smi` name and power limit, torch and CUDA versions
    (exits non-zero when `torch.cuda.is_available()` is false);
-2. build   — compiles every kernel source under `src/repro_torch/csrc/`
-   (one `nvcc` per source, started together) and prints ptxas's report;
+2. build   — compiles the kernel source `src/repro_torch/csrc/rf_predict.cu`
+   with `nvcc` and prints ptxas's report;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal, on the paper's forest (100 trees,
    depth 10, trained by `train_default_forest(600)`) over all dataset
@@ -19,10 +19,13 @@ Every phase is fatal: a failure exits non-zero before the result line.
    (noisy simulator, seed 0) for 24 ticks through the kernel: one launch
    per tick, per-DC budgets within `m_total`, finite positive achieved
    BW, and records equal to the same fleet run on the host's plain
-   version; tick latency median / p90 and the predict share;
+   version; tick latency median / p90 from this run, with span tracing
+   off. A run of the same fleet with `obs="on"` just before it must give
+   the same records and supplies the per-stage breakdown (predict share);
 5. backend — the README's two-job fleet for 5 ticks, each job's capture
-   through `BwPredictor` backends `cuda` and `torch` on the card,
-   bit-equal to each other and to the tick's own prediction.
+   through `BwPredictor` backends `cuda`, `torch` and the default (no
+   backend named) on the card, bit-equal to each other and to the
+   tick's own prediction.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -231,7 +234,7 @@ def run_fleet(forest, device, ticks: int = TICKS, n_jobs: int = N_JOBS,
                             m_total=M_TOTAL, jobs=jobs, obs=obs)
     if counted:
         ops.rf_predict.launches = 0
-        fleet.predictor.kernel_calls = 0
+        fleet.predictor.metrics.counter("kernel_calls").reset()
     records, secs = [], []
     for _ in range(ticks):
         t0 = time.perf_counter()
@@ -263,6 +266,8 @@ def check_backends(forest, device, ticks: int = BACKEND_TICKS) -> int:
             a = bp.predict_matrix(*args, backend=kernel_backend)
             b = bp.predict_matrix(*args, backend="torch")
             np.testing.assert_array_equal(a, b)
+            # no backend named: the device picks it (the kernel on the card)
+            np.testing.assert_array_equal(bp.predict_matrix(*args), a)
             np.testing.assert_array_equal(a, job.controller.last_pred)
             checked += 1
     return checked
@@ -286,12 +291,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.compile_all()
+    text = build.compile_source("rf_predict")
     results["build_s"] = time.perf_counter() - t0
-    log(f"[build] {build.sources()} in {results['build_s']:.1f} s")
-    for name, text in build.BUILD_LOGS.items():
-        for line in text.strip().splitlines():
-            log(f"[build] {name}: {line}")
+    log(f"[build] rf_predict in {results['build_s']:.1f} s")
+    for line in text.strip().splitlines():
+        log(f"[build] rf_predict: {line}")
 
     # 3. kernel
     t0 = time.perf_counter()
@@ -320,21 +324,27 @@ def main() -> int:
             f"call: none (no single PyTorch call computes a forest)")
     results["rf_predict"] = timing
 
-    # 4. main path: 16 jobs x 24 ticks through the kernel
-    fleet, records, secs, counts = run_fleet(paper, dev, obs="on",
-                                             counted=True)
+    # 4. the same fleet with span tracing on, first: it supplies only the
+    # stage breakdown (its ticks carry the tracer's cost) and takes the
+    # host path's first-tick warm-up out of the timed run below
+    traced, traced_records, traced_secs, _ = run_fleet(paper, dev, obs="on")
+    # main path: 16 jobs x 24 ticks through the kernel, tracing off
+    fleet, records, secs, counts = run_fleet(paper, dev, counted=True)
     if counts["rf_predict"] != TICKS or fleet.predictor.kernel_calls != TICKS:
         raise AssertionError(f"launches {counts} / kernel_calls "
                              f"{fleet.predictor.kernel_calls} != {TICKS}")
+    rows = fleet.predictor.metrics.counter("rows_total").value / TICKS
+    if rows != TICK_ROWS:
+        raise AssertionError(f"{rows} rows per tick, expected {TICK_ROWS}")
     _, host_records, _, _ = run_fleet(paper, torch.device("cpu"))
     if host_records != records:
         raise AssertionError("tick records on the card differ from the "
                              "host's plain version")
-    stages = fleet.tracer.by_stage()
-    rows = fleet.predictor.metrics.counter("rows_total").value / TICKS
-    if rows != TICK_ROWS:
-        raise AssertionError(f"{rows} rows per tick, expected {TICK_ROWS}")
+    if traced_records != records:           # tracing is passive
+        raise AssertionError("obs='on' changed the tick records")
+    stages = traced.tracer.by_stage()
     ms = np.asarray(secs) * 1e3
+    traced_ms = np.asarray(traced_secs) * 1e3
     tick_ms, p90 = float(np.median(ms)), float(np.percentile(ms, 90))
     predict_share = stages["predict"]["total_s"] / stages["tick"]["total_s"]
     kernel_share = timing[f"n{TICK_ROWS}"]["ms"] / tick_ms
@@ -342,14 +352,21 @@ def main() -> int:
         "jobs": N_JOBS, "ticks": TICKS, "rows_per_tick": TICK_ROWS,
         "launches": counts["rf_predict"], "tick_ms": ms.tolist(),
         "tick_ms_median": tick_ms, "tick_ms_p90": p90,
-        "predict_share": predict_share, "kernel_share": kernel_share,
-        "stages_s": {k: v["total_s"] for k, v in stages.items()}}
-    log(f"[main] {N_JOBS} jobs x {TICKS} ticks: {counts['rf_predict']} "
-        f"launches, {TICK_ROWS} rows/tick, tick {tick_ms:.3f} ms median / "
-        f"{p90:.3f} ms p90, predict span {predict_share:.2%} of the tick, "
-        f"kernel {kernel_share:.3%}; records equal to the host run")
-    log("[main] stages (s over all ticks): " + ", ".join(
-        f"{k} {v['total_s']:.4f}" for k, v in stages.items()))
+        "kernel_share": kernel_share,
+        "traced_tick_ms": traced_ms.tolist(),
+        "traced_tick_ms_median": float(np.median(traced_ms)),
+        "traced_predict_share": predict_share,
+        "traced_stages_s": {k: v["total_s"] for k, v in stages.items()}}
+    log(f"[main] {N_JOBS} jobs x {TICKS} ticks, obs off: "
+        f"{counts['rf_predict']} launches, {TICK_ROWS} rows/tick, tick "
+        f"{tick_ms:.3f} ms median / {p90:.3f} ms p90, kernel "
+        f"{kernel_share:.3%} of the median tick; records equal to the "
+        f"host run")
+    log(f"[main] obs on (breakdown run): tick "
+        f"{float(np.median(traced_ms)):.3f} ms median, predict span "
+        f"{predict_share:.2%} of the tick span; stages (s over all "
+        f"ticks): " + ", ".join(f"{k} {v['total_s']:.4f}"
+                                for k, v in stages.items()))
 
     # 5. BwPredictor backends on the README fleet
     checked = check_backends(demo, dev)

@@ -17,10 +17,6 @@ controller owns it once, shared by training, serving, and planning:
     (:meth:`observe_step_time`), explicit topology change
     (:meth:`topology_changed`), elastic rescale (:meth:`rescale`,
     paper §3.3.2) and on-demand (:meth:`replan`, e.g. serve-side);
-  * plan cache   — :meth:`compiled` memoizes consumer-built artifacts
-    (jitted steps, lowered migrations) on ``WanPlan.signature()`` so
-    oscillating plans never recompile; `cache_builds`/`cache_hits`
-    count lowerings vs reuses;
   * event log    — human-readable `events` (shareable with a consumer's
     own log) plus a structured `record` of every replan, mirrored to an
     optional `trace_hook` callable (the scenario engine's tap); the
@@ -30,12 +26,14 @@ controller owns it once, shared by training, serving, and planning:
 Port of `repro/control/controller.py`. The loop is host numpy, as in
 the JAX package, so replans are bit-identical. Not yet ported, and
 raising `NotImplementedError`: the overlay gate (``overlay="on"``),
-a predictor lifecycle, and an attached fault plane.
+a predictor lifecycle, and an attached fault plane. The plan cache
+(`compiled`) and `add_trace_hook` serve consumers that are not ported
+yet (the wire lowering, the placement planner) and come with them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -131,14 +129,7 @@ class WanifyController:
         self.events: List[str] = events if events is not None else []
         self.record: List[Dict[str, Any]] = []
         self.trace_hook = trace_hook
-        self.plan_cache: Dict[Tuple, Any] = {}
-        # ad-hoc counters live on the obs registry;
-        # `cache_builds`/`cache_hits` stay readable as properties
         self.metrics = MetricsRegistry("controller")
-        self._m_builds = self.metrics.counter(
-            "cache_builds", help="plan-cache misses (artifacts lowered)")
-        self._m_hits = self.metrics.counter(
-            "cache_hits", help="plan-cache reuses")
         self._m_replans = self.metrics.counter(
             "replans_total", help="full loop iterations run")
         # span tracer: NULL_TRACER unless a harness installs a real one
@@ -170,19 +161,6 @@ class WanifyController:
         """Adopt (or clear) an arbitrated budget/throttle envelope; it
         takes effect at the next replan."""
         self.envelope = envelope
-
-    def add_trace_hook(self, fn: Callable[[Dict[str, Any]], None]) -> None:
-        """Compose `fn` onto the replan trace stream, keeping any hook
-        already installed — the scenario engine's tap and a placement
-        planner's re-place trigger can both listen to one controller."""
-        prev = self.trace_hook
-        if prev is None:
-            self.trace_hook = fn
-        else:
-            def both(rec, _prev=prev, _fn=fn):
-                _prev(rec)
-                _fn(rec)
-            self.trace_hook = both
 
     def replan(self, skew_w: Optional[np.ndarray] = None,
                reason: str = "explicit",
@@ -292,9 +270,7 @@ class WanifyController:
         downstream (a diverging water-fill): re-adopt the previous
         plan and reseat every AIMD agent's connection vector on it, so
         the next step runs a configuration that is known to have
-        executed. The restored plan's signature is already in the plan
-        cache, so the consumer's re-lower is a cache hit, not a
-        rebuild. Returns the restored plan, or None when there is no
+        executed. Returns the restored plan, or None when there is no
         previous plan to roll back to (the bad plan stays in force)."""
         prev = self._prev_plan
         if prev is None:
@@ -386,39 +362,3 @@ class WanifyController:
         self._last_straggler = None
         self.events.append(f"rescaled controller to {n_pods} pods")
         return self.replan(skew_w=skew_w, reason=f"rescale:{n_pods}")
-
-    # ------------------------------------------------------------------
-    # Plan cache
-    # ------------------------------------------------------------------
-    def compiled(self, extra_key: Tuple, build: Callable[[WanPlan], Any]):
-        """Memoize `build(plan)` on (plan.signature(), *extra_key):
-        re-plans that oscillate back to a seen signature reuse the
-        compiled artifact instead of re-lowering."""
-        key = (self.plan.signature(),) + tuple(extra_key)
-        if key not in self.plan_cache:
-            self._m_builds.inc()
-            self.plan_cache[key] = build(self.plan)
-        else:
-            self._m_hits.inc()
-        return self.plan_cache[key]
-
-    # -- back-compat aliases onto the obs registry ---------------------
-    @property
-    def cache_builds(self) -> int:
-        """Plan-cache misses (artifacts lowered); registry-backed."""
-        return int(self._m_builds.value)
-
-    @cache_builds.setter
-    def cache_builds(self, v: int) -> None:
-        """Legacy reset path (tests zero the tally between phases)."""
-        self._m_builds.reset(int(v))
-
-    @property
-    def cache_hits(self) -> int:
-        """Plan-cache reuses; registry-backed."""
-        return int(self._m_hits.value)
-
-    @cache_hits.setter
-    def cache_hits(self, v: int) -> None:
-        """Legacy reset path for the reuse tally."""
-        self._m_hits.reset(int(v))

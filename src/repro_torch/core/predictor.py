@@ -1,12 +1,18 @@
 """Runtime-BW prediction (paper §3.1): Table-3 feature assembly + forest
 inference. Inference has three interchangeable backends:
-  numpy  — RandomForest.predict (training-side)
-  torch  — forest_predict_torch (the plain PyTorch version, any device)
+  numpy  — RandomForest.predict (training-side; divides the sum by T,
+           so it is not bit-equal to the other two)
+  torch  — kernels.ref.rf_predict_ref (the plain PyTorch version, any
+           device)
   cuda   — kernels.ops.rf_predict on a CUDA device (the hand-written
            kernel; bit-equal to the torch backend)
+Unless the caller names one, the backend follows the predictor's
+device: `cuda` on the card (the default device), `torch` for
+``device="cpu"``.
 
 Port of `repro/core/predictor.py`, whose `jnp` and `pallas` backends
-these replace.
+these replace (the reference's `forest_predict_jnp` is
+`rf_predict_ref` here).
 """
 from __future__ import annotations
 
@@ -25,23 +31,6 @@ FEATURE_NAMES = ("n_dcs", "snapshot_bw", "mem_util", "cpu_load",
                  "retransmissions", "distance_miles")
 
 
-def assemble_features_loop(n_dcs: int, snap_bw: np.ndarray,
-                           mem_util: np.ndarray, cpu_load: np.ndarray,
-                           retrans: np.ndarray,
-                           dist: np.ndarray) -> np.ndarray:
-    """Reference double-loop form of :func:`assemble_features` (the
-    historical implementation, kept as the bit-identity test oracle)."""
-    N = snap_bw.shape[0]
-    rows = []
-    for i in range(N):
-        for j in range(N):
-            if i == j:
-                continue
-            rows.append([n_dcs, snap_bw[i, j], mem_util[j], cpu_load[i],
-                         retrans[i, j], dist[i, j]])
-    return np.asarray(rows, np.float32)
-
-
 def assemble_features(n_dcs: int, snap_bw: np.ndarray, mem_util: np.ndarray,
                       cpu_load: np.ndarray, retrans: np.ndarray,
                       dist: np.ndarray) -> np.ndarray:
@@ -49,10 +38,8 @@ def assemble_features(n_dcs: int, snap_bw: np.ndarray, mem_util: np.ndarray,
 
     snap_bw/retrans/dist: [N,N]; mem_util (receiver)/cpu_load (sender): [N].
     Returns X [N*(N-1), 6] for all ordered off-diagonal pairs, in
-    row-major (i, j) order skipping the diagonal — bit-identical to
-    :func:`assemble_features_loop` (this is the per-tick AND harvest
-    hot path, so it builds the [N,N,6] block in one shot and masks the
-    diagonal instead of appending N*(N-1) Python lists)."""
+    row-major (i, j) order skipping the diagonal (built as one [N,N,6]
+    block with the diagonal masked out)."""
     snap_bw = np.asarray(snap_bw)
     N = snap_bw.shape[0]
     block = np.empty((N, N, 6), np.float64)
@@ -66,48 +53,21 @@ def assemble_features(n_dcs: int, snap_bw: np.ndarray, mem_util: np.ndarray,
     return block[off].astype(np.float32)
 
 
-def matrix_from_pairs_loop(vals: np.ndarray, N: int,
-                           diag: float = 0.0) -> np.ndarray:
-    """Reference loop form of :func:`matrix_from_pairs` (test oracle)."""
-    out = np.full((N, N), diag, np.float64)
-    k = 0
-    for i in range(N):
-        for j in range(N):
-            if i != j:
-                out[i, j] = vals[k]
-                k += 1
-    return out
-
-
 def matrix_from_pairs(vals: np.ndarray, N: int,
                       diag: float = 0.0) -> np.ndarray:
     """Inverse of `assemble_features`'s row order: fold N*(N-1)
     per-pair values back into an [N,N] matrix with `diag` filled in
-    (one boolean-mask scatter; bit-identical to
-    :func:`matrix_from_pairs_loop`, whose row-major order the mask
-    indexing reproduces)."""
+    (one boolean-mask scatter in row-major order)."""
     out = np.full((N, N), diag, np.float64)
     out[~np.eye(N, dtype=bool)] = np.asarray(vals, np.float64)
     return out
 
 
-# ----------------------------------------------------------------------
-# forest inference over the complete-binary-tree layout, in torch
-# ----------------------------------------------------------------------
-def forest_predict_torch(feat: torch.Tensor, thr: torch.Tensor,
-                         leaf: torch.Tensor, X: torch.Tensor,
-                         depth: int) -> torch.Tensor:
-    """feat [T, 2^d-1] int32, thr [T, 2^d-1] f32, leaf [T, 2^d] f32,
-    X [n, F] f32 -> [n] predictions on X's device: `depth` gather
-    steps, then the tree-ordered f32 sum times the f32 reciprocal of T
-    (the plain version of the CUDA kernel)."""
-    return rf_predict_ref(feat, thr, leaf, X, depth)
-
-
 @dataclass
 class BwPredictor:
     """End-to-end: snapshot features -> predicted runtime BW matrix.
-    `device` serves the torch and cuda backends (None = CUDA)."""
+    `device` serves the torch and cuda backends and picks the default
+    one (None = CUDA, which raises without a card)."""
     forest: RandomForest
     device: Optional[Union[str, torch.device]] = None
 
@@ -115,16 +75,18 @@ class BwPredictor:
                        mem_util: np.ndarray, cpu_load: np.ndarray,
                        retrans: np.ndarray, dist: np.ndarray,
                        intra_dc_bw: float = 10000.0,
-                       backend: str = "numpy") -> np.ndarray:
+                       backend: Optional[str] = None) -> np.ndarray:
         """Snapshot features -> predicted runtime BW matrix [N,N]
         (floored at 1 Mbps, `intra_dc_bw` on the diagonal); `backend`
-        picks numpy / torch / cuda inference."""
+        picks numpy / torch / cuda inference (None: by the device)."""
         X = assemble_features(n_dcs, snap_bw, mem_util, cpu_load,
                               retrans, dist)
         if backend == "numpy":
             vals = self.forest.predict(X)
-        elif backend in ("torch", "cuda"):
+        elif backend in (None, "torch", "cuda"):
             dev = resolve_device(self.device)
+            if backend is None:
+                backend = "cuda" if dev.type == "cuda" else "torch"
             if backend == "cuda" and dev.type != "cuda":
                 raise ValueError("backend 'cuda' needs a CUDA device, "
                                  f"got {dev}")
@@ -132,7 +94,7 @@ class BwPredictor:
                       for a in self.forest.packed()]
             Xt = torch.from_numpy(X).to(dev)
             if backend == "torch":
-                out = forest_predict_torch(*packed, Xt, self.forest.depth)
+                out = rf_predict_ref(*packed, Xt, self.forest.depth)
             else:
                 out = ops.rf_predict(*packed, Xt, depth=self.forest.depth)
             vals = out.cpu().numpy()
@@ -153,7 +115,7 @@ class SnapshotPredictor:
                        mem_util: np.ndarray, cpu_load: np.ndarray,
                        retrans: np.ndarray, dist: np.ndarray,
                        intra_dc_bw: float = 10000.0,
-                       backend: str = "numpy") -> np.ndarray:
+                       backend: Optional[str] = None) -> np.ndarray:
         """Return the snapshot itself as the 'prediction' (`backend`
         is accepted for interface parity and ignored)."""
         out = np.maximum(np.asarray(snap_bw, np.float64).copy(), 1.0)

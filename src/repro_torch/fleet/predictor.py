@@ -40,8 +40,8 @@ class BatchedRfPredictor:
         self._packed = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in forest.packed())
-        # launch accounting on the obs registry; `kernel_calls` stays
-        # readable as a back-compat property
+        # launch accounting on the obs registry, read through
+        # `kernel_calls`
         self.metrics = MetricsRegistry("predictor")
         self._m_calls = self.metrics.counter(
             "kernel_calls", help="batched RF kernel launches")
@@ -64,13 +64,8 @@ class BatchedRfPredictor:
 
     @property
     def kernel_calls(self) -> int:
-        """Total batched launches (registry-backed back-compat alias)."""
+        """Total batched launches (registry-backed)."""
         return int(self._m_calls.value)
-
-    @kernel_calls.setter
-    def kernel_calls(self, v: int) -> None:
-        """Legacy reset path (tests zero the tally between phases)."""
-        self._m_calls.reset(int(v))
 
     def split_rows(self, vals: np.ndarray,
                    row_counts: Sequence[int]) -> list:

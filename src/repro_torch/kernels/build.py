@@ -15,15 +15,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-# nvcc's output (with ptxas's register / shared-memory report) per source
-BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -37,11 +35,6 @@ def nvcc_path() -> str:
                        "kernels build only where the CUDA toolkit is")
 
 
-def sources() -> list:
-    """Names of every kernel source under csrc/."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
 def library_path(name: str) -> Path:
     """Where the built library of `csrc/<name>.cu` lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
@@ -49,40 +42,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
-def compile_all(names: Optional[Iterable[str]] = None) -> None:
-    """Compile every named source (default: all) that is not built yet,
-    one `nvcc` per source, all started together; waits for every one
-    and raises with the compiler's output if any failed."""
-    names = sources() if names is None else list(names)
+def compile_source(name: str) -> str:
+    """Compile `csrc/<name>.cu` unless it is built already. Returns
+    nvcc's output (ptxas's register / shared-memory report; empty when
+    the library was there); raises with it if nvcc failed."""
+    out = library_path(name)
+    if out.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in running.items():
-        BUILD_LOGS[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{BUILD_LOGS[name]}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build of {name} failed: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        compile_all([name])
+        compile_source(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

@@ -2,8 +2,8 @@
 
 The paper dedicates an axis to WAN monitoring *cost* (§1, Eq. 1), yet
 until this plane existed the repo's own runtime was observed only
-through scattered ad-hoc counters (`WanifyController.cache_builds`,
-`WanSimulator.fill_calls`, `BatchedRfPredictor.kernel_calls`, ...).
+through scattered ad-hoc counters (`WanSimulator.fill_calls`,
+`BatchedRfPredictor.kernel_calls`, ...).
 The registry gives every subsystem the same four primitives:
 
   * :class:`Counter`   — monotone accumulator (ints or Eq. 1 dollars);
@@ -41,8 +41,8 @@ def _label_name(name: str, labels: Optional[Mapping[str, str]]) -> str:
 
 
 class Counter:
-    """Monotone accumulator; `inc` only (use `reset` for back-compat
-    attribute setters, never on the hot path)."""
+    """Monotone accumulator; `inc` only on the hot path (`reset` zeroes
+    it between a harness's phases)."""
 
     __slots__ = ("name", "help", "_value")
     kind = "counter"
@@ -60,7 +60,7 @@ class Counter:
         self._value += n
 
     def reset(self, value: float = 0) -> None:
-        """Back-compat escape hatch for the legacy attribute setters."""
+        """Set the tally outright (a harness zeroing it between phases)."""
         self._value = value
 
     @property

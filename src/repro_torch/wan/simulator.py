@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -124,8 +124,8 @@ class WanSimulator:
         self._reachable: Optional[np.ndarray] = None
         # convergence accounting of the most recent / all fills (the
         # historical loop capped silently at 8*N*N; now surfaced) —
-        # kept on the obs registry, with `fill_calls` /
-        # `last_fill_iters` as back-compat property aliases
+        # kept on the obs registry, read through `fill_calls` /
+        # `last_fill_iters`
         self.metrics = MetricsRegistry("sim")
         self._m_fill_calls = self.metrics.counter(
             "fill_calls", help="water-fill invocations")
@@ -142,7 +142,7 @@ class WanSimulator:
         """The fill's iteration bound (divergence past this raises)."""
         return 8 * self.N * self.N
 
-    # -- back-compat aliases onto the obs registry ---------------------
+    # -- fill accounting on the obs registry ---------------------------
     def _note_fill(self, iters: int) -> None:
         self._m_fill_calls.inc()
         self._m_last_iters.set(int(iters))
@@ -154,20 +154,10 @@ class WanSimulator:
         """Total water-fill invocations (registry-backed)."""
         return int(self._m_fill_calls.value)
 
-    @fill_calls.setter
-    def fill_calls(self, v: int) -> None:
-        """Legacy reset path (tests zero the tally between phases)."""
-        self._m_fill_calls.reset(int(v))
-
     @property
     def last_fill_iters(self) -> int:
         """Iterations of the most recent fill (registry-backed)."""
         return int(self._m_last_iters.value)
-
-    @last_fill_iters.setter
-    def last_fill_iters(self, v: int) -> None:
-        """Legacy reset path for the iteration gauge."""
-        self._m_last_iters.set(int(v))
 
     def _rebuild_base(self) -> None:
         self.base = topo.bw_single_matrix(self.regions)
@@ -324,45 +314,6 @@ class WanSimulator:
         c = self._contending_conns(own, tenant)
         rate = self._fill_rates(c, cap)
         bw = rate * own              # uncredited traffic earns nothing
-        np.fill_diagonal(bw, topo.INTRA_DC_BW)
-        return bw
-
-    def waterfill_routed(self, direct: np.ndarray,
-                         relays: Sequence[Tuple[int, int, int, float]],
-                         cap: Optional[np.ndarray] = None,
-                         tenant: Optional[str] = None) -> np.ndarray:
-        """Achieved END-TO-END BW per pair [N,N] for a routed workload
-        (overlay routing): `direct` is the [N,N] direct-path connection
-        matrix; each relay ``(i, k, j, conns)`` sends `conns` extra
-        connections over the one-hop path i -> k -> j.
-
-        Relay flows are charged on BOTH hops: the fill solves one
-        expanded connection matrix in which a relay's connections
-        appear on (i, k) AND (k, j), contending with every direct flow
-        there (and with background / rival tenants, exactly like
-        :meth:`waterfill`). Crediting is store-and-forward: each relay
-        connection sustains ``min(rate[i,k], rate[k,j])`` — the
-        bottleneck hop's per-connection rate — so a relay through a
-        DC whose NIC is saturated buys nothing. The faster hop's
-        surplus is NOT redistributed (conservative; the surplus decays
-        as AIMD rebalances), and the credit lands on the end-to-end
-        pair (i, j), which is what a shuffle/ring consumer observes.
-        """
-        own = np.asarray(direct, np.float64).copy()
-        np.fill_diagonal(own, 0.0)
-        expanded = own.copy()
-        for i, k, j, cr in relays:
-            if i == j or cr <= 0:
-                continue
-            expanded[i, k] += cr
-            expanded[k, j] += cr
-        c = self._contending_conns(expanded, tenant)
-        rate = self._fill_rates(c, cap)
-        bw = rate * own
-        for i, k, j, cr in relays:
-            if i == j or cr <= 0:
-                continue
-            bw[i, j] += cr * min(float(rate[i, k]), float(rate[k, j]))
         np.fill_diagonal(bw, topo.INTRA_DC_BW)
         return bw
 

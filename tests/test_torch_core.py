@@ -122,11 +122,14 @@ def test_bw_predictor_backends_equal(forest_pair, seed):
             rng.uniform(0, 9000, (N, N)))
     ref_p = ref_pred.BwPredictor(ref)
     port_p = predictor.BwPredictor(port, device="cpu")
-    np.testing.assert_array_equal(port_p.predict_matrix(*args),
-                                  ref_p.predict_matrix(*args))
     np.testing.assert_array_equal(
-        port_p.predict_matrix(*args, backend="torch"),
-        ref_p.predict_matrix(*args, backend="jnp"))
+        port_p.predict_matrix(*args, backend="numpy"),
+        ref_p.predict_matrix(*args, backend="numpy"))
+    want = ref_p.predict_matrix(*args, backend="jnp")
+    np.testing.assert_array_equal(
+        port_p.predict_matrix(*args, backend="torch"), want)
+    # no backend named: device "cpu" picks the torch backend
+    np.testing.assert_array_equal(port_p.predict_matrix(*args), want)
     with pytest.raises(ValueError, match="CUDA"):
         port_p.predict_matrix(*args, backend="cuda")
     np.testing.assert_array_equal(
@@ -147,11 +150,23 @@ def test_feature_assembly_equal(N):
                                   ref_pred.matrix_from_pairs(vals, N, 7.0))
 
 
+class _JnpPredictor:
+    """The reference's BwPredictor on its `jnp` backend, the one the
+    port's default on ``device="cpu"`` (backend `torch`) is bit-equal
+    to."""
+
+    def __init__(self, forest):
+        self.inner = ref_pred.BwPredictor(forest)
+
+    def predict_matrix(self, *args, **kw):
+        return self.inner.predict_matrix(*args, backend="jnp", **kw)
+
+
 def test_controller_replans_equal(forest_pair):
     """A standalone controller: periodic, straggler, rescale and
     topology triggers replan to the same records as the reference."""
     ref_rf, port_rf = forest_pair
-    ref = RefCtl(RefSim(seed=1), ref_pred.BwPredictor(ref_rf), n_pods=6,
+    ref = RefCtl(RefSim(seed=1), _JnpPredictor(ref_rf), n_pods=6,
                  cfg=RefCfg(replan_every=2))
     port = WanifyController(WanSimulator(seed=1),
                             predictor.BwPredictor(port_rf, device="cpu"),

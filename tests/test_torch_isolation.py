@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.control import BudgetEnvelope, WanifyController
 from repro_torch.core.forest import RandomForest
-from repro_torch.core.predictor import SnapshotPredictor
+from repro_torch.core.predictor import BwPredictor, SnapshotPredictor
 from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
@@ -66,6 +66,19 @@ def test_batched_predictor_defaults_to_cuda_and_raises_without_it(
         BatchedRfPredictor(default_fleet_forest())
     assert BatchedRfPredictor(default_fleet_forest(),
                               device="cpu").device.type == "cpu"
+
+
+def test_bw_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    args = (4, rng.uniform(50, 3000, (4, 4)), rng.uniform(0.1, 0.9, 4),
+            rng.uniform(0.1, 0.9, 4), np.zeros((4, 4)),
+            rng.uniform(0, 9000, (4, 4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BwPredictor(default_fleet_forest()).predict_matrix(*args)
+    out = BwPredictor(default_fleet_forest(), device="cpu").predict_matrix(
+        *args)
+    assert out.shape == (4, 4) and np.isfinite(out).all()
 
 
 def test_batched_predictor_one_call_per_predict():

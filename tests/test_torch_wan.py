@@ -80,9 +80,6 @@ def test_waterfill_tenants_bit_equal(seed):
     _eq(ref.waterfill(b, tenant="a"), port.waterfill(b, tenant="a"))
     _eq(ref.measure_static_independent(2, tenant="a"),
         port.measure_static_independent(2, tenant="a"))
-    relays = [(0, 2, 5, 2.0), (3, 1, 7, 1.5), (4, 4, 6, 3.0)]
-    _eq(ref.waterfill_routed(a, relays, cap=cap, tenant="a"),
-        port.waterfill_routed(a, relays, cap=cap, tenant="a"))
 
 
 def test_static_independent_and_scripted_dynamics_equal():
