@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -42,31 +42,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
-def compile_source(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless it is built already. Returns
-    nvcc's output (ptxas's register / shared-memory report; empty when
-    the library was there); raises with it if nvcc failed."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build of {name} failed: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+def compile_sources(names: Sequence[str]) -> Dict[str, str]:
+    """Compile each `csrc/<name>.cu` that is not built yet, one `nvcc`
+    per source, all started together. Returns nvcc's output per name
+    (ptxas's register / shared-memory report; empty when the library
+    was there); raises with it if an nvcc failed."""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    texts = {name: "" for name in names}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        texts[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          f"{texts[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return texts
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        compile_source(name)
+        compile_sources([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

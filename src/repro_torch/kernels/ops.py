@@ -9,10 +9,13 @@ reads to show that its main path went through the kernel.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import rf_predict as _rf
-from repro_torch.kernels.ref import rf_predict_ref
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import rf_predict_ref, ssd_chunk_ref
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -69,3 +72,70 @@ def rf_predict(feat: torch.Tensor, thr: torch.Tensor, leaf: torch.Tensor,
 
 
 rf_predict.launches = 0
+
+
+def _check_ssd(xq, Bq, Cq, da) -> None:
+    tensors = {"xq": xq, "Bq": Bq, "Cq": Cq, "da": da}
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != xq.device:
+            raise ValueError(f"{name} on {t.device}, xq on {xq.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xq.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"xq must be bfloat16 or float32, got {xq.dtype}")
+    for name in ("Bq", "Cq"):
+        if tensors[name].dtype != xq.dtype:
+            raise TypeError(f"{name} must be {xq.dtype} like xq, got "
+                            f"{tensors[name].dtype}")
+    if da.dtype != torch.float32:
+        raise TypeError(f"da must be float32, got {da.dtype}")
+    if xq.dim() != 5 or min(xq.shape) < 1:
+        raise ValueError(f"xq must be [B,nC,Q,H,P] with no empty dim, got "
+                         f"{tuple(xq.shape)}")
+    B, nC, Q, H, P = xq.shape
+    if Bq.dim() != 4 or tuple(Bq.shape[:3]) != (B, nC, Q) or \
+            Bq.shape[3] < 1:
+        raise ValueError(f"Bq must be [{B},{nC},{Q},N], got "
+                         f"{tuple(Bq.shape)}")
+    if tuple(Cq.shape) != tuple(Bq.shape):
+        raise ValueError(f"Cq must be {tuple(Bq.shape)} like Bq, got "
+                         f"{tuple(Cq.shape)}")
+    if tuple(da.shape) != (B, nC, H, Q):
+        raise ValueError(f"da must be [{B},{nC},{H},{Q}], got "
+                         f"{tuple(da.shape)}")
+    N = Bq.shape[3]
+    if P > _ssd.MAX_P or N > _ssd.MAX_N or Q > _ssd.MAX_Q or \
+            H > _ssd.MAX_HEADS or B * nC >= 2 ** 31:
+        raise ValueError(f"ssd_chunk takes P <= {_ssd.MAX_P}, N <= "
+                         f"{_ssd.MAX_N}, Q <= {_ssd.MAX_Q}, H <= "
+                         f"{_ssd.MAX_HEADS}; got P={P}, N={N}, Q={Q}, "
+                         f"H={H}")
+
+
+def ssd_chunk(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+              da: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD within each chunk: xq [B,nC,Q,H,P] (pre-multiplied by
+    dt), Bq/Cq [B,nC,Q,N] (all bf16 or all f32), da [B,nC,H,Q] f32 ->
+    (y_diag [B,nC,Q,H,P] f32, states [B,nC,H,P,N] f32).
+
+    CUDA tensors go to the hand-written kernel (csrc/ssd_chunk.cu);
+    CPU tensors to :func:`repro_torch.kernels.ref.ssd_chunk_ref`. Both
+    compute in f32 from the stored dtype, as the JAX package's
+    `ssd_chunk` does; they sum in different orders."""
+    _check_ssd(xq, Bq, Cq, da)
+    if xq.device.type == "cpu":
+        return ssd_chunk_ref(xq, Bq, Cq, da)
+    if xq.device.type != "cuda":
+        raise ValueError(f"ssd_chunk runs on cuda or cpu, not {xq.device}")
+    B, nC, Q, H, P = xq.shape
+    y = torch.empty(xq.shape, dtype=torch.float32, device=xq.device)
+    st = torch.empty((B, nC, H, P, Bq.shape[3]), dtype=torch.float32,
+                     device=xq.device)
+    _ssd.launch(xq, Bq, Cq, da, y, st)
+    ssd_chunk.launches += 1
+    return y, st
+
+
+ssd_chunk.launches = 0

@@ -2,7 +2,10 @@
 oracle the CUDA kernels are held against on the card)."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.rf_predict import inv_trees
 
@@ -35,3 +38,52 @@ def rf_predict_ref(feat: torch.Tensor, thr: torch.Tensor,
     inv = torch.tensor(float(inv_trees(T)), dtype=torch.float32,
                        device=X.device)
     return acc * inv
+
+
+# ----------------------------------------------------------------------
+# SSD within-chunk scan (Mamba-2): diagonal block + chunk-end states
+# ----------------------------------------------------------------------
+def chunk_cumsum(da: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last axis in the kernel's order
+    (csrc/ssd_chunk.cu `chunk_cumsum`): a Hillis-Steele scan within each
+    32-element segment, then each segment plus the running total of the
+    ones before. The sums are the same as `torch.cumsum`'s, rounded in
+    that order, so the decay factors exp(cum[q] - cum[k]) of the two
+    versions agree to the bit: with log-decays summing to ~1e3 over a
+    chunk (as the served model's do) another order moves them by
+    ~1e-4 relative."""
+    Q = da.shape[-1]
+    n_seg = -(-Q // 32)
+    v = F.pad(da, (0, n_seg * 32 - Q)).reshape(*da.shape[:-1], n_seg, 32)
+    for o in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :o], v[..., o:] + v[..., :-o]], dim=-1)
+    segs, carry = [], torch.zeros_like(v[..., 0, 0])
+    for s in range(n_seg):
+        seg = v[..., s, :] + carry[..., None]
+        segs.append(seg)
+        carry = seg[..., 31]
+    return torch.cat(segs, dim=-1)[..., :Q]
+
+
+def ssd_chunk_ref(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+                  da: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xq [B,nC,Q,H,P] (pre-multiplied by dt), Bq/Cq [B,nC,Q,N], da
+    [B,nC,H,Q] -> (y_diag [B,nC,Q,H,P], states [B,nC,H,P,N]), both f32,
+    computed in f32 from the stored dtype: the cumulative log-decay (in
+    the kernel's order, `chunk_cumsum`), the causal decay mask (masked
+    BEFORE exp: the upper triangle is positive and would overflow),
+    y = (C B^T * L) x, and the chunk-end states
+    sum_k exp(cum[Q-1] - cum[k]) x[k] B[k]^T."""
+    x, Bf, Cf = xq.float(), Bq.float(), Cq.float()
+    Q = xq.shape[2]
+    cum = chunk_cumsum(da.float())                           # [B,nC,H,Q]
+    seg = cum[..., :, None] - cum[..., None, :]              # [B,nC,H,Q,Q]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xq.device).tril()
+    L = torch.exp(torch.where(tri, seg, -1e30))
+    cb = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)             # [B,nC,Q,Q]
+    scores = cb[:, :, None] * L                              # [B,nC,H,Q,Q]
+    y = torch.einsum("bchqk,bckhp->bcqhp", scores, x)
+    dec_r = torch.exp(cum[..., -1:] - cum)                   # [B,nC,H,Q]
+    xw = x.permute(0, 1, 3, 2, 4) * dec_r[..., None]         # [B,nC,H,Q,P]
+    states = torch.einsum("bchkp,bckn->bchpn", xw, Bf)
+    return y, states

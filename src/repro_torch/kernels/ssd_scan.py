@@ -1,0 +1,77 @@
+"""Mamba-2 SSD within-chunk scan: the hand-written CUDA kernel.
+
+Port of `repro/kernels/ssd_scan.py::ssd_chunk_pallas`. The kernel
+source is `repro_torch/csrc/ssd_chunk.cu`; its head comment says what
+bounds it on an H100 and how the design answers that. The TPU cell's
+[8, Q, Q] decay mask and scores do not fit a Hopper block's shared
+memory, so the kernel tiles Q into 64-row tiles and computes C B^T and
+the decay on the fly. The inter-chunk recurrence stays outside, in
+`repro_torch/models/ssm.py::ssd_chunked`, as the reference keeps it.
+
+This module binds the library (built at first use by
+:mod:`repro_torch.kernels.build`) and launches it. Call it through
+:func:`repro_torch.kernels.ops.ssd_chunk`, which checks the inputs,
+takes the plain version for CPU tensors and counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# the kernel's limits (csrc/ssd_chunk.cu kMaxP, kMaxN, kMaxQ)
+MAX_P, MAX_N, MAX_Q = 64, 128, 4096
+MAX_HEADS = 65535
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd_chunk")
+    if not getattr(lib, "_typed", False):
+        lib.ssd_chunk_launch.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        lib.ssd_chunk_launch.restype = _I
+        lib.ssd_chunk_error_string.argtypes = [_I]
+        lib.ssd_chunk_error_string.restype = ctypes.c_char_p
+        lib.ssd_chunk_smem_bytes.argtypes = [_I] * 4
+        lib.ssd_chunk_smem_bytes.restype = ctypes.c_longlong
+        for fn in ("ssd_chunk_max_p", "ssd_chunk_max_n", "ssd_chunk_max_q"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = _I
+        limits = (lib.ssd_chunk_max_p(), lib.ssd_chunk_max_n(),
+                  lib.ssd_chunk_max_q())
+        if limits != (MAX_P, MAX_N, MAX_Q):
+            raise RuntimeError(f"ssd_chunk library limits {limits} differ "
+                               f"from {(MAX_P, MAX_N, MAX_Q)}")
+        lib._typed = True
+    return lib
+
+
+def smem_bytes(Q: int, P: int, N: int) -> dict:
+    """Dynamic shared memory (bytes) one block of each kernel takes at
+    (Q, P, N), as the launcher requests it."""
+    lib = _lib()
+    return {"ssd_diag_kernel": lib.ssd_chunk_smem_bytes(Q, P, N, 0),
+            "ssd_state_kernel": lib.ssd_chunk_smem_bytes(Q, P, N, 1)}
+
+
+def launch(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+           da: torch.Tensor, y: torch.Tensor, st: torch.Tensor) -> None:
+    """Launch both kernels (y, then the states) on the current stream of
+    xq's device; inputs are checked by the caller. Raises if a launch
+    was refused."""
+    lib = _lib()
+    B, nC, Q, H, P = xq.shape
+    N = Bq.shape[-1]
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = lib.ssd_chunk_launch(
+            xq.data_ptr(), Bq.data_ptr(), Cq.data_ptr(), da.data_ptr(),
+            y.data_ptr(), st.data_ptr(), int(xq.dtype == torch.bfloat16),
+            B * nC, Q, H, P, N, stream)
+    if err != 0:
+        msg = lib.ssd_chunk_error_string(err).decode()
+        raise RuntimeError(f"ssd_chunk launch failed: {msg} ({err})")

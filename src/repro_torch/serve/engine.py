@@ -1,0 +1,173 @@
+"""Serving engine: batched prefill + greedy decode with the model's
+decode cache, and the WANify plan for cross-pod cache migration.
+
+Port of `repro/serve/engine.py`. Plans come from the port's WANify
+control plane: hand the engine a `repro_torch.control.WanifyController`
+and call :meth:`Engine.replan` whenever the WAN shifts.
+`kv_migrate`, which moves a cache between pods, needs several pods
+(`torch.distributed`) and is not yet ported.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.control import WanifyController, offset_schedule
+from repro_torch.core.plan import WanPlan
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+
+
+@dataclass
+class Request:
+    """One generation request (prompt in, generated ids out)."""
+
+    rid: int
+    prompt: np.ndarray                  # [S_prompt] int32
+    max_new: int = 16
+    out: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+@dataclass
+class ServeConfig:
+    """Engine shape: slot count and max sequence. `s_max` sizes the
+    attention families' caches; the SSM's cache does not grow."""
+
+    batch: int = 8
+    s_max: int = 256
+    greedy: bool = True
+
+
+class Engine:
+    """Static-batch engine: each group of up to `batch` requests is
+    left-padded with token 0 into one prefill, then decoded greedily
+    for its longest `max_new`."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, sc: ServeConfig,
+                 controller: Optional[WanifyController] = None,
+                 plan: Optional[WanPlan] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        dev = resolve_device(device)
+        if params.device.type != dev.type:
+            raise ValueError(f"the model is on {params.device}, the engine "
+                             f"on {dev}")
+        if not sc.greedy:
+            raise NotImplementedError("sampling is not yet ported; the "
+                                      "engine decodes greedily")
+        self.cfg, self.params, self.sc = cfg, params, sc
+        self.device = params.device
+        self._prefill = registry.prefill_fn(cfg)
+        self._decode = registry.decode_fn(cfg)
+        self.cache = None
+        self.last_logits: Optional[torch.Tensor] = None
+        # host seconds of each prefill / decode call (each ends when its
+        # ids reach the host, so the device work is inside)
+        self.timings: Dict[str, List[float]] = {"prefill_s": [],
+                                                "decode_s": []}
+        # WANify control plane for cache-migration plans
+        self.controller = controller
+        self._static_plan = plan
+
+    @property
+    def plan(self) -> Optional[WanPlan]:
+        """The migration plan in force — always the shared controller's
+        latest (never a stale snapshot), unless an explicit static plan
+        was handed in."""
+        if self._static_plan is not None:
+            return self._static_plan
+        return self.controller.plan if self.controller is not None else None
+
+    @plan.setter
+    def plan(self, value: Optional[WanPlan]) -> None:
+        """Pin a static plan (overrides the live controller)."""
+        self._static_plan = value
+
+    # ------------------------------------------------------------------
+    # WANify control plane hooks
+    # ------------------------------------------------------------------
+    def replan(self, skew_w: Optional[np.ndarray] = None) -> WanPlan:
+        """Run one control-loop iteration (snapshot -> prediction ->
+        optimization -> AIMD) and adopt the resulting migration plan
+        (dropping any static override in favor of the live controller)."""
+        if self.controller is None:
+            raise RuntimeError("Engine.replan() needs a WanifyController")
+        self._static_plan = None
+        self.controller.replan(skew_w=skew_w, reason="serve")
+        return self.plan
+
+    def migration_schedule(self) -> List[Dict[str, int]]:
+        """Per-offset chunk/bits schedule a cache migration would use
+        under the current plan."""
+        if self.plan is None:
+            raise RuntimeError("no migration plan (pass controller/plan)")
+        return offset_schedule(self.plan)
+
+    # ------------------------------------------------------------------
+    def _ids(self, logits: torch.Tensor, t0: float, key: str) -> np.ndarray:
+        self.last_logits = logits
+        ids = logits.argmax(dim=-1).cpu().numpy()
+        self.timings[key].append(time.perf_counter() - t0)
+        return ids
+
+    @torch.inference_mode()
+    def prefill(self, batch_tokens: np.ndarray) -> np.ndarray:
+        """Run prefill over a token batch [B,S]; returns next-token
+        argmax [B]."""
+        t0 = time.perf_counter()
+        toks = torch.from_numpy(np.asarray(batch_tokens, np.int64)).to(
+            self.device)
+        logits, self.cache = self._prefill(self.params, toks)
+        return self._ids(logits, t0, "prefill_s")
+
+    @torch.inference_mode()
+    def decode(self, tokens: np.ndarray) -> np.ndarray:
+        """Advance every slot one step; returns next-token argmax [B]."""
+        t0 = time.perf_counter()
+        toks = torch.from_numpy(np.asarray(tokens, np.int64)[:, None]).to(
+            self.device)
+        logits, self.cache = self._decode(self.params, self.cache, toks)
+        return self._ids(logits, t0, "decode_s")
+
+    def batch_tokens(self, group: List[Request]) -> np.ndarray:
+        """The group's prompts left-padded with token 0 into [batch, S]
+        (S the longest prompt; the SSM reads the pads as tokens, as the
+        reference's does)."""
+        S = max(len(r.prompt) for r in group)
+        toks = np.zeros((self.sc.batch, S), np.int32)
+        for gi, r in enumerate(group):
+            toks[gi, S - len(r.prompt):] = r.prompt
+        return toks
+
+    def serve(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Batched generation over a request list (pads to the engine
+        batch; greedy decoding)."""
+        out: Dict[int, List[int]] = {}
+        B = self.sc.batch
+        for i in range(0, len(requests), B):
+            group = requests[i:i + B]
+            cur = self.prefill(self.batch_tokens(group))
+            maxn = max(r.max_new for r in group)
+            gen = [[] for _ in range(B)]
+            for _ in range(maxn):
+                for gi in range(len(group)):
+                    gen[gi].append(int(cur[gi]))
+                cur = self.decode(cur)
+            for gi, r in enumerate(group):
+                r.out = gen[gi][:r.max_new]
+                r.done = True
+                out[r.rid] = r.out
+        return out
+
+
+def kv_migrate(*args, **kwargs):
+    """Broadcast a prefill pod's cache to the decode pods under the
+    plan's per-offset schedule: not yet ported (it needs several pods
+    and `torch.distributed`)."""
+    raise NotImplementedError("kv_migrate is not yet ported: it needs "
+                              "pods and torch.distributed")

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the reference
 package, its entry points do not fall back to the CPU, its kernel
-wrapper refuses what the kernel does not take, and every gate that is
+wrappers refuse what their kernels do not take, and every gate that is
 not yet ported raises `NotImplementedError`."""
 import ast
 import os
@@ -12,12 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS, PORTED, get_config
+from repro_torch.configs.base import reduced
 from repro_torch.control import BudgetEnvelope, WanifyController
 from repro_torch.core.forest import RandomForest
 from repro_torch.core.predictor import BwPredictor, SnapshotPredictor
 from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
+from repro_torch.models import registry
+from repro_torch.serve.engine import Engine, ServeConfig, kv_migrate
 from repro_torch.wan.simulator import WanSimulator
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -34,12 +38,17 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    mods = set(out.stdout.split())
+    assert len(mods) >= 35
+    assert {"repro_torch.configs.mamba2_2_7b", "repro_torch.kernels.ssd_scan",
+            "repro_torch.models.ssm", "repro_torch.models.transformer",
+            "repro_torch.models.registry", "repro_torch.control.schedule",
+            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= mods
 
 
 def _imports(path):
@@ -52,7 +61,7 @@ def _imports(path):
 
 def test_no_source_names_jax_or_reference():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 25
+    assert len(files) >= 40
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -179,3 +188,95 @@ def test_device_waterfill_not_yet_ported(monkeypatch):
     monkeypatch.setenv("REPRO_WATERFILL_BACKEND", "cuda")
     with pytest.raises(ValueError, match="unknown waterfill backend"):
         WanSimulator(seed=0).waterfill(np.ones((8, 8)))
+
+
+def _tiny_cfg():
+    return reduced(get_config("mamba2-2.7b")).replace(n_layers=1)
+
+
+def test_model_and_engine_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_cfg()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.build_model(cfg, torch.Generator())
+    model = registry.build_model(cfg, torch.Generator(), device="cpu")
+    assert model.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model, ServeConfig(batch=1))
+    assert Engine(cfg, model, ServeConfig(batch=1),
+                  device="cpu").device.type == "cpu"
+
+
+def _ssd_inputs(dtype=torch.float32, B=1, nC=2, Q=16, H=4, P=8, N=16):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((B, nC, Q, H, P), generator=g).to(dtype),
+            torch.randn((B, nC, Q, N), generator=g).to(dtype),
+            torch.randn((B, nC, Q, N), generator=g).to(dtype),
+            -torch.rand((B, nC, H, Q), generator=g))
+
+
+@pytest.mark.parametrize("case", ["mixed", "da_dtype", "int", "xshape",
+                                  "bshape", "cshape", "dashape", "contig",
+                                  "wide_p", "wide_n", "empty", "type",
+                                  "device"])
+def test_ssd_wrapper_rejects_bad_inputs(case):
+    xq, Bq, Cq, da = _ssd_inputs()
+    if case == "mixed":
+        Bq = Bq.bfloat16()
+    elif case == "da_dtype":
+        da = da.bfloat16()
+    elif case == "int":
+        xq, Bq, Cq = (t.to(torch.int32) for t in (xq, Bq, Cq))
+    elif case == "xshape":
+        xq = xq[0]
+    elif case == "bshape":
+        Bq = Bq[:, :, :-1].contiguous()
+    elif case == "cshape":
+        Cq = Cq[..., :-1].contiguous()
+    elif case == "dashape":
+        da = da.transpose(2, 3).contiguous()
+    elif case == "contig":
+        xq = xq.transpose(3, 4).contiguous().transpose(3, 4)
+    elif case == "wide_p":
+        xq, Bq, Cq, da = _ssd_inputs(P=65)
+    elif case == "wide_n":
+        xq, Bq, Cq, da = _ssd_inputs(N=129)
+    elif case == "empty":
+        xq, Bq, Cq, da = _ssd_inputs(B=0)
+    elif case == "type":
+        xq = xq.numpy()
+    elif case == "device":
+        xq, Bq, Cq, da = (t.to("meta") for t in (xq, Bq, Cq, da))
+    with pytest.raises((TypeError, ValueError)):
+        ops.ssd_chunk(xq, Bq, Cq, da)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_wrapper_counts_no_launch_on_cpu(dtype):
+    before = ops.ssd_chunk.launches
+    y, st = ops.ssd_chunk(*_ssd_inputs(dtype))
+    assert y.shape == (1, 2, 16, 4, 8) and st.shape == (1, 2, 4, 8, 16)
+    assert y.dtype == st.dtype == torch.float32
+    assert ops.ssd_chunk.launches == before
+
+
+def test_model_side_gates_not_yet_ported():
+    assert PORTED == ["mamba2-2.7b"] and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        if arch not in PORTED:
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("gpt-5")
+    dense = _tiny_cfg().replace(family="dense")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.build_model(dense, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.prefill_fn(dense)
+    cfg = _tiny_cfg()
+    model = registry.build_model(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Engine(cfg, model, ServeConfig(greedy=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        kv_migrate({}, None, 0)

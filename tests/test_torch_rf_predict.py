@@ -6,9 +6,9 @@ version for CPU tensors. Both add the leaf values tree by tree in f32
 and multiply by the f32 reciprocal of T, so the outputs are compared
 bit for bit (`assert_array_equal`), not within a tolerance.
 
-The reference is imported by a fixture, so the card-only case runs
-where jax is not installed:
-``python -m pytest -q tests/test_torch_rf_predict.py -k on_card``.
+The reference is imported by a fixture, so the card-only case (marked
+`cuda`) runs where jax is not installed:
+``python -m pytest -q -m cuda tests/test_torch_rf_predict.py``.
 """
 import types
 
@@ -132,15 +132,22 @@ def test_out_of_range_feature_reads_zero(ref):
     np.testing.assert_array_equal(got.numpy(), [2.0, 2.0, 2.0])
 
 
-@pytest.mark.skipif("not torch.cuda.is_available()",
-                    reason="needs a CUDA card: the kernel has no CPU mode")
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where there is none (decided at
+    setup, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 191, 4099])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"T{s[0]}d{s[1]}")
-def test_rf_kernel_bit_equal_plain_on_card(data, forests, shape, n):
+def test_rf_kernel_bit_equal_plain_on_card(card, data, forests, shape, n):
     rf = forests[shape]
-    dev = torch.device("cuda")
-    packed = [torch.from_numpy(a).to(dev) for a in rf.packed()]
-    Xq = torch.from_numpy(_queries(data, n, seed=n)).to(dev)
+    packed = [torch.from_numpy(a).to(card) for a in rf.packed()]
+    Xq = torch.from_numpy(_queries(data, n, seed=n)).to(card)
     before = ops.rf_predict.launches
     got = ops.rf_predict(*packed, Xq, depth=rf.depth)
     torch.cuda.synchronize()
