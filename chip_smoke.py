@@ -8,8 +8,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
 
 1. device  — `nvidia-smi` name and power limit, torch and CUDA versions
    (exits non-zero when `torch.cuda.is_available()` is false);
-2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`
-   and `ssd_chunk.cu` with `nvcc`, one process each, started together,
+2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`,
+   `ssd_chunk.cu` and `quantize.cu` with `nvcc`, one process each, started
+   together,
    and prints ptxas's reports (registers, static shared memory, spills)
    and the dynamic shared memory of a ssd_chunk block at the serve shape;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
@@ -53,6 +54,33 @@ Every phase is fatal: a failure exits non-zero before the result line.
    weights: prefill and 4 decode steps' logits (both fed the card's
    ids) within atol/rtol 1e-3, and equal greedy ids wherever the top-2
    gap exceeds that.
+9. quantize — the quantize and dequantize CUDA kernels against their
+   plain versions on the card, bit-equal (payload, scales, f32 and bf16
+   outputs): the tile form on f32 and bf16 at 256^2, 1024^2 and 4096^2,
+   8 and 4 bits; the grouped form with G = 1 and 4 at ragged lengths and
+   at the migrate phase's parts (21 M f32 state elements, 516 K bf16
+   conv elements); times at 4096^2 and at each part, beside the bound;
+10. migrate — the slice's main path: the serve engine's cache after
+   group 1's prefill (64 layers, B=4: state [64,4,80,64,128] f32, conv
+   [64,4,3,5376] bf16) moved by `kv_migrate` from pod 0 to 4 ranks
+   (processes on the one card, gloo) under (a) the plan of
+   `Engine.replan()` with a 4-pod controller and (b) `fixed_plan()`, with
+   and without compression. Each rank zeroes the launch counts just
+   before each run and reads them after; they must equal the schedule's
+   (48 quantize + 48 dequantize per rank under (b)). Every receiving
+   rank's cache is bit-equal to the plain codec's round trip of pod 0's
+   leaves on the host, and to pod 0's own without compression. Pod 1's
+   cache goes back to the engine, which continues group 1's decode for
+   16 steps: the ids equal its own continuation without compression;
+   with 8 bits the agreement is printed. Per offset phase: wall ms, wire
+   bytes and encode / decode device ms;
+11. wansync — the engine freed, a gradient tree with the shapes of
+   `mamba2-2.7b`'s stacked parameters at full width and 32 of its 64
+   layers (inputs, outputs and psum of all 64 do not fit 80 GB), pod r's
+   values base * (r + 1), 4 pods: `psum_allreduce_batched`, then
+   `wan_allreduce_batched` under plan (b) uncompressed (within rtol 1e-5
+   of psum) and compressed (within the quantization bound), each timed
+   twice; launches equal to the schedule's; peak device memory.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -61,8 +89,10 @@ the last line `{"ok": true, "device": {...}}`. All numbers also go to
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -73,16 +103,29 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import compat  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.control import WanifyController  # noqa: E402
+from repro_torch.control.schedule import (offset_schedule,  # noqa: E402
+                                          wire_decode, wire_encode)
+from repro_torch.core.plan import WanPlan  # noqa: E402
 from repro_torch.core.predictor import BwPredictor  # noqa: E402
+from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
+                                      wan_allreduce_batched)
 from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E402
                                JobSpec, default_fleet_forest)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
-from repro_torch.kernels.ref import rf_predict_ref, ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels.quantize import qmax  # noqa: E402
+from repro_torch.kernels.ref import (dequantize_groups_ref,  # noqa: E402
+                                     dequantize_ref, quantize_groups_ref,
+                                     quantize_ref, rf_predict_ref,
+                                     ssd_chunk_ref)
 from repro_torch.models import registry, ssm  # noqa: E402
-from repro_torch.models.transformer import MambaLM  # noqa: E402
-from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: E402
+from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
+                                            unstack_cache)
+from repro_torch.obs.spans import SpanTracer  # noqa: E402
+from repro_torch.serve.engine import (Engine, Request,  # noqa: E402
+                                      ServeConfig, kv_migrate)
 from repro_torch.wan.dataset import (generate_dataset,  # noqa: E402
                                      train_default_forest)
 from repro_torch.wan.simulator import WanSimulator  # noqa: E402
@@ -101,6 +144,26 @@ SERVE_BATCH, S_MAX, N_REQUESTS, MAX_NEW = 4, 1024, 8, 16
 PROMPT_LEN = (300, 700)
 SSD_TOL = 1e-4            # kernel vs plain: the same f32 sums, reordered
 PARITY_LAYERS, PARITY_STEPS, PARITY_TOL = 2, 4, 1e-3
+
+QUANT_TILES = ((256, 256), (1024, 1024), (4096, 4096))
+QUANT_LENGTHS = (1, 255, 65537)         # ragged group lengths
+N_PODS, POD_DEADLINE = 4, 600           # seconds for the 4 ranks' run
+# pod 1 continues group 1's decode from its migrated cache; the serve
+# phase's 16 steps
+MIGRATE_STEPS = MAX_NEW
+WANSYNC_LAYERS = 32     # of 64: inputs, outputs and psum do not fit 80 GB
+
+
+def fixed_plan() -> WanPlan:
+    """`tests/test_system.py`'s 4-pod plan: 6 connections and 150 Mbps
+    between pods two or more apart on the ring, 2 and 900 Mbps between
+    neighbours; its schedule is 8 chunks at 8 bits on every offset."""
+    far = [[abs(i - j) % 4 > 1 for j in range(4)] for i in range(4)]
+    return WanPlan(n_pods=4,
+                   conns=tuple(tuple(6 if f else 2 for f in r) for r in far),
+                   pred_bw=tuple(tuple(150.0 if f else 900.0 for f in r)
+                                 for r in far),
+                   compress_bits=(8, 8, 8, 8))
 
 
 def log(msg: str) -> None:
@@ -168,36 +231,60 @@ def work_of(forest, X: np.ndarray):
     return nbytes, nops
 
 
+def roofline(nbytes: int, nops: int):
+    """The least time the card could take for this work, in ms, and what
+    bounds it: the bytes over the HBM rate or the f32 operations over
+    the f32 rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def bound(forest, X):
     nbytes, nops = work_of(forest, X)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, nbytes, nops
+    return roofline(nbytes, nops) + (nbytes, nops)
 
 
-def kernel_device_ms(forest, X, launches: int = 50, reps: int = 21):
-    """Median device time of one kernel launch: `launches` back-to-back
-    launches captured in a CUDA graph, replayed `reps` times between
-    CUDA events (the graph keeps the host's per-call cost out)."""
-    dev = torch.device("cuda")
-    packed = packed_on(forest, dev)
-    Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+def graph_ms(fn, launches: int = 20, reps: int = 11) -> float:
+    """Median device time of one call: `launches` back-to-back calls
+    captured in a CUDA graph, replayed `reps` times between CUDA events
+    (the graph keeps the host's per-call cost out)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            ops.rf_predict(*packed, Xt, depth=forest.depth)
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
-            ops.rf_predict(*packed, Xt, depth=forest.depth)
+            fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Median device time of one call: `launches` back-to-back calls
+    between CUDA events, `reps` times, after warm-up (at milliseconds a
+    call, the host's per-call cost is hidden)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / launches)
@@ -230,7 +317,9 @@ def time_kernel(forest, X):
     return {
         "n": len(X), "trees": int(forest.feat.shape[0]),
         "depth": forest.depth,
-        "ms": kernel_device_ms(forest, X),
+        "ms": graph_ms(lambda: ops.rf_predict(*packed, Xt,
+                                              depth=forest.depth),
+                       launches=50, reps=21),
         "wrapper_ms": call_ms(
             lambda: ops.rf_predict(*packed, Xt, depth=forest.depth)),
         "plain_ms": call_ms(
@@ -375,36 +464,15 @@ def ssd_work(xq, Bq):
 
 def ssd_bound(xq, Bq):
     nbytes, nops = ssd_work(xq, Bq)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, nbytes, nops
-
-
-def ssd_device_ms(args, launches: int = 20, reps: int = 5) -> float:
-    """Median device time of one launch: `launches` back-to-back wrapper
-    calls between CUDA events, `reps` times, after warm-up (at
-    milliseconds a launch, the host's per-call cost is hidden)."""
-    for _ in range(3):
-        ops.ssd_chunk(*args)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(launches):
-            ops.ssd_chunk(*args)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return float(np.median(times))
+    return roofline(nbytes, nops) + (nbytes, nops)
 
 
 def time_ssd(args):
     bound_ms, by, nbytes, nops = ssd_bound(args[0], args[1])
     return {"shape": list(args[0].shape) + [args[1].shape[-1]],
             "dtype": str(args[0].dtype).replace("torch.", ""),
-            "ms": ssd_device_ms(args),
+            "ms": device_ms(lambda: ops.ssd_chunk(*args), launches=20,
+                            reps=5),
             "wrapper_ms": call_ms(lambda: ops.ssd_chunk(*args), reps=11),
             "plain_ms": call_ms(lambda: ssd_chunk_ref(*args), reps=11),
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
@@ -524,6 +592,429 @@ def check_parity(card: Engine, host: Engine, tokens: np.ndarray,
     return err, mag, compared, equal
 
 
+# ----------------------------------------------------------------------
+# quantize phase
+# ----------------------------------------------------------------------
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_quant_tile(x: torch.Tensor, bits: int) -> float:
+    """The tile kernels (on the CPU: the wrappers' plain paths) against
+    the plain versions on the same inputs: payload, scales and both
+    dequantized outputs bit-equal. Returns max |diff| (0)."""
+    q, s = ops.quantize(x, bits)
+    outs = [ops.dequantize(q, s, out_dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)]
+    qp, sp = quantize_ref(x, bits)
+    sync(x.device)
+    pairs = [(q, qp), (s, sp)] + [
+        (o, dequantize_ref(q, s, dtype=o.dtype)) for o in outs]
+    for got, want in pairs:
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"quantize tile {tuple(x.shape)} "
+                                 f"{x.dtype} {bits} bits: kernel != plain")
+    return 0.0
+
+
+def check_quant_groups(x2d: torch.Tensor, bits: int) -> float:
+    """The grouped kernels against the plain versions, bit-equal."""
+    q, s = ops.quantize_groups(x2d, bits)
+    outs = [ops.dequantize_groups(q, s, dt)
+            for dt in (torch.float32, torch.bfloat16)]
+    qp, sp = quantize_groups_ref(x2d, bits)
+    sync(x2d.device)
+    pairs = [(q, qp), (s, sp)] + [
+        (o, dequantize_groups_ref(q, s, o.dtype)) for o in outs]
+    for got, want in pairs:
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"quantize groups {tuple(x2d.shape)} "
+                                 f"{x2d.dtype} {bits} bits: kernel != "
+                                 f"plain")
+    return 0.0
+
+
+def quant_bound(n: int, n_scales: int, wide_bytes: int, dequant: bool):
+    """Bytes the call must move (the wide side: 4 B f32 or 2 B bf16 per
+    element; the payload 1 B; the scales 4 B each) and its f32
+    operations (quantize: |x|, max, divide, round, two clamps per
+    element; dequantize: one multiply), as (ms, bound_by, bytes, ops)."""
+    nbytes = n * (wide_bytes + 1) + 4 * n_scales
+    nops = n * (1 if dequant else 6) + n_scales
+    return roofline(nbytes, nops) + (nbytes, nops)
+
+
+def time_quant(x: torch.Tensor, grouped: bool, bits: int = 8) -> dict:
+    """Kernel (a CUDA graph of 20 wrapper calls) and plain version
+    (events over back-to-back calls) times of quantize and of dequantize
+    (to x's dtype) at x, beside their bounds."""
+    if grouped:
+        q, s = ops.quantize_groups(x, bits)
+        enc = (lambda: ops.quantize_groups(x, bits),
+               lambda: quantize_groups_ref(x, bits))
+        dec = (lambda: ops.dequantize_groups(q, s, x.dtype),
+               lambda: dequantize_groups_ref(q, s, x.dtype))
+    else:
+        q, s = ops.quantize(x, bits)
+        enc = (lambda: ops.quantize(x, bits), lambda: quantize_ref(x, bits))
+        dec = (lambda: ops.dequantize(q, s, out_dtype=x.dtype),
+               lambda: dequantize_ref(q, s, dtype=x.dtype))
+    out = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+           "form": "groups" if grouped else "tiles", "bits": bits}
+    for name, (kernel, plain) in (("quantize", enc), ("dequantize", dec)):
+        b_ms, by, nbytes, nops = quant_bound(
+            x.numel(), s.numel(), x.element_size(), name == "dequantize")
+        out[name] = {"ms": graph_ms(kernel), "plain_ms": device_ms(
+            plain, launches=3, reps=3), "bound_ms": b_ms, "bound_by": by,
+            "bytes": nbytes, "ops": nops}
+    return out
+
+
+def migrate_parts(cfg, batch: int, chunks: int = 8):
+    """[(name, elements, dtype)] of one chunk of each leaf of the
+    model's stacked cache (the reference's layout) at `batch`."""
+    spec = ssm.ssm_cache_spec(cfg, batch,
+                              getattr(torch, cfg.dtype))
+    return [(k, -(-cfg.n_layers * int(np.prod(shape)) // chunks), dt)
+            for k, (shape, dt) in spec.items()]
+
+
+def sync_parts(shape, chunks: int) -> int:
+    """How many parts `wan_allreduce_batched` cuts a leaf of this shape
+    (the pod dim left out) into in a phase of `chunks`: the chunks where
+    they divide its first axis, else one (the whole leaf)."""
+    return chunks if len(shape) and chunks > 1 and \
+        shape[0] % chunks == 0 else 1
+
+
+def wansync_lengths(shapes: dict, plan: WanPlan) -> list:
+    """The distinct group lengths L of the [P, L] parts that
+    `wan_allreduce_batched` encodes for leaves of `shapes` in the plan's
+    quantized phases."""
+    return sorted({int(np.prod(shape)) // sync_parts(shape, ph["chunks"])
+                   for shape in shapes.values()
+                   for ph in offset_schedule(plan) if ph["bits"] <= 8})
+
+
+def check_quantize(cfg, batch: int, device, tiles=QUANT_TILES,
+                   lengths=QUANT_LENGTHS, sync_lengths=()):
+    """The quantize phase's comparisons; returns (cases, max |diff|).
+    `sync_lengths` are the wansync phase's part lengths: [P, L] with pod
+    r's row scaled by r + 1, as that phase's gradients are."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    cases, err = [], 0.0
+    for shape in tiles:
+        base = torch.randn(shape, generator=gen, device=device) * 3
+        for dtype in (torch.float32, torch.bfloat16):
+            for bits in (8, 4):
+                err = max(err, check_quant_tile(base.to(dtype), bits))
+                cases.append({"form": "tiles", "shape": list(shape),
+                              "dtype": str(dtype), "bits": bits})
+    groups = [(G, L, torch.float32, 3.0) for G in (1, 4) for L in lengths]
+    for name, n, dt in migrate_parts(cfg, batch):
+        groups += [(1, n, dt, 3.0), (4, n // 4, dt, 3.0)]
+    pods = torch.arange(1, N_PODS + 1, dtype=torch.float32, device=device)
+    groups += [(N_PODS, L, torch.float32, pods[:, None]) for L in sync_lengths]
+    for G, L, dt, mul in groups:
+        base = torch.randn((G, L), generator=gen, device=device) * mul
+        for bits in (8, 4):
+            err = max(err, check_quant_groups(base.to(dt), bits))
+            cases.append({"form": "groups", "shape": [G, L],
+                          "dtype": str(dt), "bits": bits})
+        del base
+    return cases, err
+
+
+# ----------------------------------------------------------------------
+# migrate phase: kv_migrate across 4 ranks (processes) on one card
+# ----------------------------------------------------------------------
+def roundtrip_host(x: torch.Tensor, chunks: int, bits: int) -> torch.Tensor:
+    """What a receiving pod should hold: the leaf flattened, zero-padded
+    and split into `chunks` parts, each through the plain codec on the
+    host (wire_encode / wire_decode on CPU tensors), joined."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % chunks
+    flat = torch.nn.functional.pad(flat, (0, pad)) if pad else flat
+    parts = [wire_decode(*wire_encode(p, bits), x.dtype, bits)
+             for p in flat.chunk(chunks)]
+    return torch.cat(parts)[:x.numel()].reshape(x.shape)
+
+
+def wire_bytes(leaves, plan: WanPlan, compress: bool) -> list:
+    """Bytes one pod puts on the wire in each offset phase of
+    `kv_migrate`, from the schedule and the leaves alone: per leaf the
+    payload, zero-padded to a multiple of the phase's chunks, at the
+    phase's bits (1 B an element below 16 bits, 2 B at 16, the leaf's
+    own width at 32), and one 4-byte scale per part below 16 bits."""
+    out = []
+    for ph in offset_schedule(plan):
+        bits, chunks = ph["bits"] if compress else 32, ph["chunks"]
+        n = 0
+        for x in leaves:
+            width = 1 if bits <= 8 else 2 if bits == 16 else x.element_size()
+            n += -(-x.numel() // chunks) * chunks * width
+            n += 4 * chunks if bits <= 8 else 0
+        out.append(n)
+    return out
+
+
+def expected_launches(plan: WanPlan, n_leaves: int, compress: bool) -> int:
+    """Quantize (and dequantize) launches of one pod's kv_migrate: one
+    per part of every leaf in every phase with an int8 payload."""
+    return 0 if not compress else n_leaves * sum(
+        ph["chunks"] for ph in offset_schedule(plan) if ph["bits"] <= 8)
+
+
+def phase_codec_ms(cfg, batch: int, sched, compress: bool,
+                   q_timing: dict) -> list:
+    """Per offset phase, the device ms of one pod's quantize and
+    dequantize launches in `kv_migrate`: the phase's parts times the
+    quantize phase's time at that part (0 where the phase launches no
+    kernel)."""
+    out = []
+    for ph in sched:
+        c, lossy = ph["chunks"], compress and ph["bits"] <= 8
+        out.append({k: sum(c * q_timing[f"part_{name}_c{c}"][k]["ms"]
+                           for name, _, _ in migrate_parts(cfg, batch, c))
+                    if lossy else 0.0 for k in ("quantize", "dequantize")})
+    return out
+
+
+def _migrate_pod(rank: int, n_pods: int, cache_path: str, runs, out_dir: str,
+                 device: str):
+    """One pod of the migrate phase. Pod 0 loads the engine's cache;
+    pod r > 0 starts from it times (r + 1). Each run zeroes the launch
+    counts, migrates from pod 0 and reads the counts; then every pod
+    checks what it holds: pod 0 its own cache; a receiving pod, the
+    plain codec's round trip of pod 0's leaves on the host under its
+    phase (offset r). Pod 1 saves what it received for the engine."""
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    host = torch.load(cache_path)                        # pod 0's cache
+    mine = {"blocks": [{k: (v if rank == 0 else
+                            (v.float() * (rank + 1)).to(v.dtype)).to(dev)
+                        for k, v in layer.items()}
+                       for layer in host["blocks"]]}
+    ref_leaves = stack_cache(host)["blocks"]
+    out = {}
+    for name, plan, compress in runs:
+        sync(dev)
+        torch.distributed.barrier()     # the pods start each run together
+        ops.quantize.launches = 0
+        ops.dequantize.launches = 0
+        tracer = SpanTracer()
+        t0 = time.perf_counter()
+        moved = kv_migrate(mine, plan, 0, compress=compress, tracer=tracer)
+        sync(dev)
+        wall_s = time.perf_counter() - t0
+        phase_ms = {}
+        for row in tracer.spans:
+            o = row["attrs"]["offset"]
+            phase_ms[o] = phase_ms.get(o, 0.0) + row["dur_s"] * 1e3
+        counts = {"quantize": ops.quantize.launches,
+                  "dequantize": ops.dequantize.launches}
+        # (the plain versions on the CPU launch nothing)
+        want_n = expected_launches(plan, len(ref_leaves), compress) \
+            if dev.type == "cuda" else 0
+        if counts != {"quantize": want_n, "dequantize": want_n}:
+            raise AssertionError(f"pod {rank} run {name}: launches "
+                                 f"{counts}, expected {want_n} each")
+        got = {k: v.cpu() for k, v in stack_cache(moved)["blocks"].items()}
+        t1 = time.perf_counter()
+        if rank == 0 or not compress:
+            want = ref_leaves
+        else:
+            ph = offset_schedule(plan)[rank - 1]
+            want = {k: roundtrip_host(v, ph["chunks"], ph["bits"])
+                    for k, v in ref_leaves.items()}
+        for k, v in want.items():
+            if not torch.equal(got[k], v):
+                raise AssertionError(f"pod {rank} run {name}: leaf {k} is "
+                                     f"not bit-equal to the expected cache")
+        check_s = time.perf_counter() - t1
+        if rank == 1 and name in ("b", "b_raw"):
+            torch.save(unstack_cache({"blocks": got}),
+                       os.path.join(out_dir, f"pod1_{name}.pt"))
+        out[name] = {"counts": counts, "expected": want_n,
+                     "phase_wall_ms": [phase_ms[ph["offset"]] for ph in
+                                       offset_schedule(plan)],
+                     "wall_s": wall_s, "host_check_s": check_s}
+    return out
+
+
+def decode_from(eng: Engine, cache, first_ids: np.ndarray, steps: int):
+    """Greedy decode `steps` steps from `cache`, fed `first_ids` first;
+    returns (ids [steps, B], logits [steps, B, V] f32 on the host)."""
+    eng.cache = cache
+    cur, ids, logits = first_ids, [], []
+    for _ in range(steps):
+        cur = eng.decode(cur)
+        ids.append(cur)
+        logits.append(eng.last_logits.float().cpu())
+    return np.stack(ids), torch.stack(logits)
+
+
+def run_migrate(eng: Engine, tokens: np.ndarray, plans, device,
+                steps: int = MIGRATE_STEPS) -> dict:
+    """Prefill `tokens`, then move the engine's cache from pod 0 to 4
+    ranks under each (name, plan, compress) of `plans`, and continue
+    the decode on the engine from what pod 1 received under plan (b)."""
+    first = eng.prefill(tokens)
+    cache0 = eng.cache
+    leaves = list(stack_cache(cache0)["blocks"].values())
+    wire = {name: wire_bytes(leaves, plan, compress)
+            for name, plan, compress in plans}
+    del leaves
+    own_ids, own_logits = decode_from(eng, cache0, first, steps)
+    with tempfile.TemporaryDirectory(prefix="migrate-") as tmp:
+        path = os.path.join(tmp, "pod0.pt")
+        torch.save({"blocks": [{k: v.cpu() for k, v in layer.items()}
+                               for layer in cache0["blocks"]]}, path)
+        t0 = time.perf_counter()
+        per_pod = compat.run_pods(_migrate_pod, N_PODS, path, plans, tmp,
+                                  device.type, timeout=POD_DEADLINE)
+        pods_s = time.perf_counter() - t0
+        cont = {}
+        for name in ("b", "b_raw"):
+            back = torch.load(os.path.join(tmp, f"pod1_{name}.pt"))
+            cache = {"blocks": [{k: v.to(device) for k, v in layer.items()}
+                                for layer in back["blocks"]]}
+            ids, logits = decode_from(eng, cache, first, steps)
+            cont[name] = {"ids_equal": int((ids == own_ids).sum()),
+                          "ids": int(ids.size),
+                          "max_abs_logit_diff": float(
+                              (logits - own_logits).abs().max()),
+                          "max_abs_logit": float(own_logits.abs().max())}
+    if cont["b_raw"]["ids_equal"] != cont["b_raw"]["ids"]:
+        raise AssertionError(f"decode from pod 1's uncompressed cache: "
+                             f"{cont['b_raw']} ids differ from the "
+                             f"engine's own continuation")
+    return {"per_pod": per_pod, "pods_s": pods_s, "continue": cont,
+            "wire_bytes": wire,
+            "cache_bytes": sum(v.numel() * v.element_size()
+                               for layer in cache0["blocks"]
+                               for v in layer.values())}
+
+
+# ----------------------------------------------------------------------
+# wansync phase: the batched all-reduce over a gradient tree with the
+# shapes of the model's (stacked) parameters
+# ----------------------------------------------------------------------
+def grad_shapes(cfg) -> dict:
+    """{path: shape} of the reference's parameter tree (the layers
+    stacked along a leading axis), from the port's modules on `meta`."""
+    model = MambaLM(cfg, torch.device("meta"), torch.float32)
+    shapes = {"embed": tuple(model.embed.shape),
+              "final_norm": tuple(model.final_norm.shape),
+              "lm_head": tuple(model.lm_head.shape)}
+    blk = model.blocks[0]
+    shapes["blocks/ln1"] = (cfg.n_layers,) + tuple(blk.ln1.shape)
+    for n, p in blk.ssm.named_parameters():
+        shapes[f"blocks/ssm/{n}"] = (cfg.n_layers,) + tuple(p.shape)
+    return shapes
+
+
+def make_grads(shapes: dict, device, pods: int = N_PODS) -> dict:
+    """Pod r's gradient = base * (r + 1), base from a seeded generator
+    (`tests/test_system.py`'s contract): [P, ...] f32 per leaf."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    scale = torch.arange(1, pods + 1, dtype=torch.float32, device=device)
+    out = {}
+    for path, shape in shapes.items():
+        base = torch.randn(shape, generator=gen, device=device)
+        out[path] = base[None] * scale.view((pods,) + (1,) * len(shape))
+        del base
+    return out
+
+
+def _blocks(t: torch.Tensor, n: int = 1 << 26):
+    flat = t.reshape(-1)
+    for i in range(0, flat.numel(), n):
+        yield flat[i:i + n]
+
+
+def sync_error(got: dict, want: dict, bound_of) -> float:
+    """Max over leaves and pods of max |got - want| / bound_of(path,
+    pod, want) (<= 1 passes), pod slice by pod slice in blocks of 64 M
+    elements (no leaf-sized temporaries; `want` may be a broadcast
+    view)."""
+    worst = 0.0
+    for path in got:
+        for r in range(got[path].shape[0]):
+            for g, w in zip(_blocks(got[path][r]), _blocks(want[path][r])):
+                worst = max(worst, ((g - w).abs() /
+                                    bound_of(path, r, w)).max().item())
+    return worst
+
+
+def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
+    """psum, then the WANify schedule uncompressed and compressed; each
+    timed on the host clock around a synchronised call, twice. Checks:
+    uncompressed within rtol 1e-5 (atol 1e-8) of psum, the reference's
+    own contract; compressed within the quantization bound: on pod r,
+    per leaf, the sum over the lossy phases o of half a step of the
+    slice it received there (pod r - o's amax / qmax / 2, plus the
+    payload division's rounding at |x / scale| = qmax), over P pods,
+    plus rtol 1e-5 for the f32 sums."""
+    res, P = {}, plan.n_pods
+    sched = offset_schedule(plan)
+
+    def timed(fn):
+        ms, out = [], None
+        for _ in range(2):
+            out = None                  # free the first call's output
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    psum, res["psum_ms"] = timed(lambda: psum_allreduce_batched(grads, P))
+    raw, res["raw_ms"] = timed(lambda: wan_allreduce_batched(grads, plan))
+    res["raw_err"] = sync_error(
+        raw, psum, lambda p, r, w: 1e-8 + 1e-5 * w.abs())
+    del raw
+    ops.quantize.launches = 0
+    ops.dequantize.launches = 0
+    comp, res["compressed_ms"] = timed(
+        lambda: wan_allreduce_batched(grads, plan, compress=True))
+    res["launches"] = {"quantize": ops.quantize.launches,
+                       "dequantize": ops.dequantize.launches}
+    # per call: a launch per part (chunks along axis 1 where they
+    # divide it, else the whole leaf) of each leaf in each int8 phase;
+    # two timed calls
+    want_n = 2 * sum(sync_parts(g.shape[1:], ph["chunks"])
+                     for g in grads.values() for ph in sched
+                     if ph["bits"] <= 8) if device.type == "cuda" else 0
+    amax = {p: [max(b.abs().max().item() for b in _blocks(g[r]))
+                for r in range(P)] for p, g in grads.items()}
+    # half a step at each lossy phase, of the slice pod r received there;
+    # 2**-22 for the scale's own rounding
+    half = {p: [sum((0.5 + qmax(ph["bits"]) * 2 ** -23) / qmax(ph["bits"])
+                    * a[(r - ph["offset"]) % P] for ph in sched
+                    if ph["bits"] <= 8) * (1 + 2 ** -22) for r in range(P)]
+            for p, a in amax.items()}
+    res["compressed_err"] = sync_error(
+        comp, psum, lambda p, r, w: half[p][r] / P + 1e-5 * w.abs())
+    res["expected_launches"] = {"quantize": want_n, "dequantize": want_n}
+    if device.type == "cuda":
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if res["raw_err"] > 1 or res["compressed_err"] > 1:
+        raise AssertionError(f"wansync off its bound: uncompressed "
+                             f"{res['raw_err']:.3g}, compressed "
+                             f"{res['compressed_err']:.3g} (<= 1 passes)")
+    if res["launches"] != res["expected_launches"]:
+        raise AssertionError(f"wansync launches {res['launches']}, "
+                             f"expected {res['expected_launches']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -545,9 +1036,10 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    texts = build.compile_sources(["rf_predict", "ssd_chunk"])
+    texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize"])
     results["build_s"] = time.perf_counter() - t0
-    log(f"[build] rf_predict + ssd_chunk in {results['build_s']:.1f} s")
+    log(f"[build] rf_predict + ssd_chunk + quantize in "
+        f"{results['build_s']:.1f} s")
     for name, text in texts.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
@@ -778,8 +1270,115 @@ def main() -> int:
         f"clear top-2 gaps ({equal} of {(PARITY_STEPS + 1) * SERVE_BATCH} "
         f"equal in all)")
 
+    # the migrate phase's plans, made here since the quantize phase
+    # times the parts they cut: (a) from Engine.replan() with a 4-pod
+    # controller, (b) fixed
+    eng.controller = WanifyController(
+        WanSimulator(seed=0), BwPredictor(paper, device=dev), n_pods=N_PODS)
+    runs = [("a", eng.replan(), True), ("b", fixed_plan(), True),
+            ("b_raw", fixed_plan(), False)]
+    scheds = {name: offset_schedule(plan) for name, plan, _ in runs}
+    wcfg = cfg.replace(n_layers=WANSYNC_LAYERS)
+    sync_lengths = wansync_lengths(grad_shapes(wcfg), runs[1][1])
+
+    # 9. quantize: both kernels against their plain versions, bit-equal
+    t0 = time.perf_counter()
+    q_cases, q_err = check_quantize(cfg, SERVE_BATCH, dev,
+                                    sync_lengths=sync_lengths)
+    log(f"[quantize] {len(q_cases)} cases bit-equal to plain (payload, "
+        f"scales, f32 and bf16 dequantized): tiles "
+        f"{[list(t) for t in QUANT_TILES]} f32/bf16 x 8/4 bits; groups "
+        f"G=1,4 at L={list(QUANT_LENGTHS)}, at the migrate parts "
+        f"{[(n, k, str(d)) for n, k, d in migrate_parts(cfg, SERVE_BATCH)]}"
+        f" and at the wansync parts G={N_PODS}, L={sync_lengths} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q_timing = {"tiles_4096": time_quant(
+        torch.randn((4096, 4096), generator=gen, device=dev), False)}
+    for c in sorted({ph["chunks"] for sched in scheds.values()
+                     for ph in sched if ph["bits"] <= 8}):
+        for name, n, dt in migrate_parts(cfg, SERVE_BATCH, c):
+            q_timing[f"part_{name}_c{c}"] = time_quant(
+                torch.randn((1, n), generator=gen, device=dev).to(dt), True)
+    for key, t in q_timing.items():
+        for kname in ("quantize", "dequantize"):
+            k = t[kname]
+            log(f"[quantize] {kname} {t['form']} {t['shape']} {t['dtype']} "
+                f"{t['bits']} bits: kernel {k['ms']:.5f} ms (device, graph "
+                f"of 20 calls) | plain {k['plain_ms']:.5f} ms | bound "
+                f"{k['bound_ms']:.5f} ms by {k['bound_by']} ({k['bytes']} B)"
+                f" | library call: none (no PyTorch call computes a "
+                f"symmetric abs-max quantization with these semantics)")
+    results["quantize"] = {"cases": q_cases, "max_abs_err": q_err,
+                           "timing": q_timing}
+
+    # 10. migrate: the engine's cache from pod 0 to 4 ranks on the card
+    log(f"[migrate] plan (a), Engine.replan() with a 4-pod controller: "
+        f"{scheds['a']}; plan (b), fixed: {scheds['b']}")
+    t0 = time.perf_counter()
+    mig = run_migrate(eng, eng.batch_tokens(groups_of(reqs)[0]), runs, dev)
+    mig["s"] = time.perf_counter() - t0
+    mig["schedules"] = scheds
+    mig["codec_ms"] = {name: phase_codec_ms(cfg, SERVE_BATCH, scheds[name],
+                                            compress, q_timing)
+                       for name, _, compress in runs}
+    mig_launches = {k: sum(p["b"]["counts"][k] for p in mig["per_pod"])
+                    for k in ("quantize", "dequantize")}
+    log(f"[migrate] cache {mig['cache_bytes']} B ({cfg.n_layers} layers, "
+        f"B={SERVE_BATCH}) from pod 0 to {N_PODS} ranks on one card over "
+        f"gloo; every receiving pod bit-equal to the plain codec's round "
+        f"trip on the host, launches equal to the schedule's; pods "
+        f"{mig['pods_s']:.1f} s in all")
+    for name, _, compress in runs:
+        log(f"[migrate] run {name}, per phase: bytes on the wire per pod "
+            f"(from the schedule and the leaves) and device ms of the "
+            f"codec's launches (parts x the quantize phase's time at the "
+            f"part): " + "; ".join(
+                f"o={ph['offset']} {ph['chunks']}x"
+                f"{ph['bits'] if compress else 32}b {wire} B, encode "
+                f"{cm['quantize']:.3f} ms, decode {cm['dequantize']:.3f} ms"
+                for ph, wire, cm in zip(scheds[name], mig["wire_bytes"][name],
+                                        mig["codec_ms"][name])))
+        for r, pod in enumerate(mig["per_pod"]):
+            run = pod[name]
+            log(f"[migrate] run {name} pod {r}: {run['wall_s'] * 1e3:.1f} "
+                f"ms, launches {run['counts']} (schedule: "
+                f"{run['expected']}), host check "
+                f"{run['host_check_s']:.1f} s; wall ms per phase (host): " +
+                ", ".join(f"o={ph['offset']} {ms:.1f}" for ph, ms in
+                          zip(scheds[name], run["phase_wall_ms"])))
+    for name, c in mig["continue"].items():
+        log(f"[migrate] decode {MIGRATE_STEPS} steps from pod 1's cache "
+            f"({name}): {c['ids_equal']} of {c['ids']} ids equal to the "
+            f"engine's own continuation, max |logit diff| "
+            f"{c['max_abs_logit_diff']:.4g} (max |logit| "
+            f"{c['max_abs_logit']:.4g})")
+    results["migrate"] = mig
+
+    # 11. wansync: the engine freed, a gradient tree of the model's
+    # parameter shapes (layers stacked), 4 pods on the card
+    del eng, model, card_model, captured
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grads = make_grads(grad_shapes(wcfg), dev)
+    sync(dev)
+    n_values = sum(g[0].numel() for g in grads.values())
+    ws = run_wansync(grads, runs[1][1], dev)
+    del grads
+    ws.update({"layers": WANSYNC_LAYERS, "values_per_pod": n_values,
+               "s": time.perf_counter() - t0})
+    log(f"[wansync] {wcfg.n_layers} of {cfg.n_layers} layers, {n_values} "
+        f"values per pod x {N_PODS} pods f32, plan (b): psum "
+        f"{ws['psum_ms']} ms, uncompressed {ws['raw_ms']} ms (error "
+        f"{ws['raw_err']:.3g} of rtol 1e-5), compressed "
+        f"{ws['compressed_ms']} ms (error {ws['compressed_err']:.3g} of "
+        f"the quantization bound), launches {ws['launches']}; peak device "
+        f"memory {ws['peak_bytes'] / 2**30:.3f} GiB")
+    results["wansync"] = ws
+
     t = timing[f"n{TICK_ROWS}"]
     s0 = ssd_timing[0]
+    qs = q_timing["part_state_c8"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -793,7 +1392,15 @@ def main() -> int:
         "launches": serve_counts["ssd_chunk"], "max_abs_err": ssd_err,
         "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}] + [{
+        "name": kname, "route": "cuda",
+        "source": "src/repro_torch/csrc/quantize.cu",
+        "replaces": f"src/repro/kernels/quantize.py:{line}",
+        "launches": mig_launches[kname], "max_abs_err": q_err,
+        "ms": qs[kname]["ms"], "plain_ms": qs[kname]["plain_ms"],
+        "bound_ms": qs[kname]["bound_ms"],
+        "bound_by": qs[kname]["bound_by"], "library_ms": None}
+        for kname, line in (("quantize", 37), ("dequantize", 61))]}
     results["kernels"] = kernels["kernels"]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

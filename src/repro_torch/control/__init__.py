@@ -1,15 +1,18 @@
 """repro_torch.control — the WANify control plane's closed loop
 (snapshot -> prediction -> global optimization -> AIMD -> plan) and the
-plan -> per-offset schedule lowering (`schedule.py`; its wire codec is
-not yet ported)."""
+plan -> wire lowering (`schedule.py`: the per-offset schedule and the
+quantizing wire codec)."""
 from repro_torch.control.controller import (BudgetEnvelope,
                                             ControllerConfig,
                                             WanifyController)
-from repro_torch.control.schedule import offset_schedule
+from repro_torch.control.schedule import (offset_schedule, wire_decode,
+                                          wire_encode)
 
 __all__ = [
     "BudgetEnvelope",
     "ControllerConfig",
     "WanifyController",
     "offset_schedule",
+    "wire_decode",
+    "wire_encode",
 ]

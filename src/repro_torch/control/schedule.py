@@ -1,21 +1,33 @@
-"""Plan -> wire lowering: the per-offset schedule.
+"""Plan -> wire lowering: the per-offset schedule and the wire codec.
 
-Port of `offset_schedule` in `repro/control/schedule.py`: per offset
-class (pod ``i <-> (i+o) % P``, the paper's closeness classes on a
-geo-ring), the chunk multiplicity (heterogeneous parallel connections)
-and the wire bits (from the weakest predicted link in the class). The
-quantizing wire codec (`wire_encode` / `wire_decode`) comes with
-`kv_migrate`, which is not yet ported.
+Port of `repro/control/schedule.py`. Every path that moves bytes
+between pods (`serve/engine.py::kv_migrate`, `core/wansync.py`) lowers
+a `WanPlan` to the same two primitives:
+
+  * :func:`offset_schedule` — per offset class (pod ``i <-> (i+o) % P``,
+    the paper's closeness classes on a geo-ring), the chunk
+    multiplicity (heterogeneous parallel connections) and the wire bits
+    (from the weakest predicted link in the class).
+  * :func:`wire_encode` / :func:`wire_decode` — the quantizing wire
+    codec. At 8 bits and below it runs on the quantize / dequantize
+    kernels' grouped form (`kernels/ops.py::quantize_groups`), bit-equal
+    to the reference's codec under `jax.jit`.
+
+``pick_bits`` (the BW -> bits policy) is re-exported from
+``core/plan.py`` so consumers need only this module.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.plan import WanPlan
+from repro_torch.core.plan import WanPlan, pick_bits
+from repro_torch.kernels import ops
 
-__all__ = ["offset_schedule", "MAX_CHUNKS"]
+__all__ = ["offset_schedule", "wire_encode", "wire_decode", "pick_bits",
+           "MAX_CHUNKS"]
 
 MAX_CHUNKS = 16
 
@@ -34,3 +46,55 @@ def offset_schedule(plan: WanPlan) -> List[Dict[str, int]]:
         sched.append({"offset": o, "chunks": min(chunks, MAX_CHUNKS),
                       "bits": bits[o - 1]})
     return sched
+
+
+# ----------------------------------------------------------------------
+# Wire codec (segment-scalar or per-slice scale)
+# ----------------------------------------------------------------------
+def _groups(x: torch.Tensor, axes: Optional[Tuple[int, ...]]) -> int:
+    """The number of scales: 1 for axes=None, the leading dim for
+    axes = (1, ..., ndim-1)."""
+    if axes is None:
+        return 1
+    if tuple(axes) != tuple(range(1, x.dim())):
+        raise ValueError(f"axes must be None or {tuple(range(1, x.dim()))} "
+                         f"(one scale per leading index), got {axes}")
+    return x.shape[0] if x.dim() else 1
+
+
+def wire_encode(x: torch.Tensor, bits: int,
+                axes: Optional[Tuple[int, ...]] = None):
+    """Quantize `x` for the wire. Returns (payload, scale-or-None).
+
+    bits >= 32 is the identity and bits 16 a cast to bf16, both without
+    a scale. At 8 bits and below (int8 payload):
+    axes=None            -> one 0-d f32 scale over the whole segment;
+    axes=(1, ..., ndim-1) -> one scale per leading index, keepdims
+                            ([G, 1, ...]: per pod slice).
+    """
+    if bits >= 32:
+        return x, None
+    if bits == 16:
+        return x.to(torch.bfloat16), None
+    G = _groups(x, axes)
+    q, scale = ops.quantize_groups(x.contiguous().reshape(G, -1), bits)
+    keep = () if axes is None else x.shape[:1] + (1,) * (x.dim() - 1)
+    return q.reshape(x.shape), scale.reshape(keep)
+
+
+def wire_decode(q: torch.Tensor, scale: Optional[torch.Tensor],
+                dtype: torch.dtype, bits: int) -> torch.Tensor:
+    """Inverse of :func:`wire_encode` (scalar and per-slice scales share
+    one decode path): f32(q) * scale, cast to `dtype`."""
+    if bits >= 32:
+        return q
+    if bits == 16:
+        return q.to(dtype)
+    G = scale.numel()
+    if scale.dim() and tuple(scale.shape) != \
+            q.shape[:1] + (1,) * (q.dim() - 1):
+        raise ValueError(f"scale {tuple(scale.shape)} is neither 0-d nor "
+                         f"one per leading index of q {tuple(q.shape)}")
+    out = ops.dequantize_groups(q.contiguous().reshape(G, -1),
+                                scale.reshape(G).contiguous(), dtype)
+    return out.reshape(q.shape)

@@ -5,7 +5,9 @@ anything its kernel does not take. It runs the plain version
 (`ref.py`) only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises — there is no fallback. Each keeps a plain
 integer count of kernel launches (`<wrapper>.launches`), which a run
-reads to show that its main path went through the kernel.
+reads to show that its main path went through the kernel. The quantize
+kernel's two forms (per tile, per group) share `quantize.launches`, and
+the dequantize kernel's share `dequantize.launches`.
 """
 from __future__ import annotations
 
@@ -13,9 +15,12 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import rf_predict_ref, ssd_chunk_ref
+from repro_torch.kernels.ref import (dequantize_groups_ref, dequantize_ref,
+                                     quantize_groups_ref, quantize_ref,
+                                     rf_predict_ref, ssd_chunk_ref)
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -139,3 +144,152 @@ def ssd_chunk(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
 
 
 ssd_chunk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# quantize / dequantize
+# ----------------------------------------------------------------------
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_tensors(dtypes, **tensors) -> torch.device:
+    """Each a contiguous torch.Tensor of its dtype(s), all on one
+    device, on cuda or cpu. Returns the device."""
+    dev = None
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        dev = t.device if dev is None else dev
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, not {dev} like the "
+                             f"first input")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype not in dtypes[name]:
+            raise TypeError(f"{name} must be one of {dtypes[name]}, got "
+                            f"{t.dtype}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the quantize kernels run on cuda or cpu, not "
+                         f"{dev}")
+    return dev
+
+
+def _check_bits(bits: int) -> int:
+    if int(bits) not in _q.BITS:
+        raise ValueError(f"bits must be in [{_q.BITS.start}, "
+                         f"{_q.BITS.stop - 1}] (an int8 payload), got {bits}")
+    return int(bits)
+
+
+def _check_out_dtype(dtype) -> None:
+    if dtype not in _FLOATS:
+        raise TypeError(f"out_dtype must be one of {_FLOATS}, got {dtype}")
+
+
+def _check_tiles(x: torch.Tensor, block: int) -> Tuple[int, int]:
+    if x.dim() != 2:
+        raise ValueError(f"expected [n, d], got {tuple(x.shape)}")
+    n, d = x.shape
+    if block < 1 or n < 1 or d < 1 or n % block or d % block:
+        raise ValueError(f"n and d must be positive multiples of block="
+                         f"{block}, got {tuple(x.shape)}")
+    if n // block > _q.MAX_GROUPS:
+        raise ValueError(f"at most {_q.MAX_GROUPS} tile rows, got "
+                         f"{n // block}")
+    return n // block, d // block
+
+
+def quantize(x: torch.Tensor, bits: int = 8, block: int = _q.BLOCK
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-symmetric quantize x [n, d] (f32 or bf16; n, d multiples of
+    block) -> (q int8 [n, d], scale f32 [n/block, d/block]).
+
+    CUDA tensors go to the hand-written kernel (csrc/quantize.cu); CPU
+    tensors to :func:`repro_torch.kernels.ref.quantize_ref`. Both are
+    bit-equal to the JAX package's `quantize_pallas`."""
+    dev = _check_tensors({"x": _FLOATS}, x=x)
+    bits = _check_bits(bits)
+    grid = _check_tiles(x, int(block))
+    if dev.type == "cpu":
+        return quantize_ref(x, bits, int(block))
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    scale = torch.empty(grid, dtype=torch.float32, device=dev)
+    _q.launch_tile(x, q, scale, bits, int(block))
+    quantize.launches += 1
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, block: int = _q.BLOCK,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Invert :func:`quantize`: q [n, d] int8 and scale f32
+    [n/block, d/block] -> q * (its tile's scale) in `out_dtype` (f32 or
+    bf16). Kernel for CUDA tensors, `dequantize_ref` for CPU ones."""
+    dev = _check_tensors({"q": (torch.int8,), "scale": (torch.float32,)},
+                         q=q, scale=scale)
+    _check_out_dtype(out_dtype)
+    grid = _check_tiles(q, int(block))
+    if tuple(scale.shape) != grid:
+        raise ValueError(f"scale must be {grid}, got {tuple(scale.shape)}")
+    if dev.type == "cpu":
+        return dequantize_ref(q, scale, int(block), out_dtype)
+    out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    _q.launch_dequant_tile(q, scale, out, int(block))
+    dequantize.launches += 1
+    return out
+
+
+def _check_groups(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] < 1 or \
+            not 1 <= x.shape[0] <= _q.MAX_GROUPS:
+        raise ValueError(f"expected [G, L] with 1 <= G <= {_q.MAX_GROUPS} "
+                         f"and L >= 1, got {tuple(x.shape)}")
+
+
+def quantize_groups(x: torch.Tensor, bits: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric quantize of each row of x [G, L] (f32 or bf16) with its
+    own abs-max scale -> (q int8 [G, L], scale f32 [G]): the wire
+    codec's form (G = 1 for one segment, G = P for per-pod slices).
+
+    CUDA tensors go to the hand-written kernel (csrc/quantize.cu); CPU
+    tensors to :func:`repro_torch.kernels.ref.quantize_groups_ref`.
+    Both are bit-equal to the JAX package's `wire_encode` under
+    `jax.jit`. Counts in `quantize.launches`."""
+    dev = _check_tensors({"x": _FLOATS}, x=x)
+    bits = _check_bits(bits)
+    _check_groups(x)
+    if dev.type == "cpu":
+        return quantize_groups_ref(x, bits)
+    G = x.shape[0]
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    scale = torch.empty(G, dtype=torch.float32, device=dev)
+    amax = torch.empty(G, dtype=torch.int32, device=dev)
+    _q.launch_groups(x, q, scale, amax, bits)
+    quantize.launches += 1
+    return q, scale
+
+
+def dequantize_groups(q: torch.Tensor, scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Invert :func:`quantize_groups`: q [G, L] int8 and scale f32 [G]
+    -> q[g] * scale[g] in `out_dtype` (f32 or bf16). Kernel for CUDA
+    tensors, `dequantize_groups_ref` for CPU ones. Counts in
+    `dequantize.launches`."""
+    dev = _check_tensors({"q": (torch.int8,), "scale": (torch.float32,)},
+                         q=q, scale=scale)
+    _check_out_dtype(out_dtype)
+    _check_groups(q)
+    if tuple(scale.shape) != (q.shape[0],):
+        raise ValueError(f"scale must be [{q.shape[0]}], got "
+                         f"{tuple(scale.shape)}")
+    if dev.type == "cpu":
+        return dequantize_groups_ref(q, scale, out_dtype)
+    out = torch.empty(q.shape, dtype=out_dtype, device=dev)
+    _q.launch_dequant_groups(q, scale, out)
+    dequantize.launches += 1
+    return out
+
+
+quantize.launches = 0
+dequantize.launches = 0

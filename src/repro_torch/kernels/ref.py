@@ -7,6 +7,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.quantize import inv_qmax, qmax
 from repro_torch.kernels.rf_predict import inv_trees
 
 
@@ -87,3 +88,60 @@ def ssd_chunk_ref(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
     xw = x.permute(0, 1, 3, 2, 4) * dec_r[..., None]         # [B,nC,H,Q,P]
     states = torch.einsum("bchkp,bckn->bchpn", xw, Bf)
     return y, states
+
+
+# ----------------------------------------------------------------------
+# Symmetric abs-max quantize / dequantize (the wire codec)
+# ----------------------------------------------------------------------
+def _scale_of(amax: torch.Tensor, bits: int) -> torch.Tensor:
+    """max(amax, 1e-12) times the f32 reciprocal of qmax (the
+    reference's `amax / qmax` as XLA computes it); NaN propagates."""
+    tiny = torch.tensor(1e-12, dtype=torch.float32, device=amax.device)
+    inv = torch.tensor(inv_qmax(bits), device=amax.device)
+    return torch.maximum(amax, tiny) * inv
+
+
+def _payload(xf: torch.Tensor, scale: torch.Tensor, bits: int
+             ) -> torch.Tensor:
+    """clip(round_half_even(x / scale), +-qmax) as int8; the divide is
+    a true divide, as the reference's is."""
+    m = qmax(bits)
+    return torch.round(xf / scale).clamp(-m, m).to(torch.int8)
+
+
+def quantize_groups_ref(x2d: torch.Tensor, bits: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d [G, L] (f32 or bf16) -> (q int8 [G, L], scale f32 [G]): each
+    row is one group with one scale, computed in f32."""
+    xf = x2d.float()
+    scale = _scale_of(xf.abs().amax(dim=1), bits)
+    return _payload(xf, scale[:, None], bits), scale
+
+
+def dequantize_groups_ref(q: torch.Tensor, scale: torch.Tensor,
+                          dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """q [G, L] int8, scale [G] f32 -> f32(q) * scale, cast to dtype."""
+    return (q.float() * scale[:, None]).to(dtype)
+
+
+def _tiles(t: torch.Tensor, block: int) -> torch.Tensor:
+    n, d = t.shape
+    return t.reshape(n // block, block, d // block, block)
+
+
+def quantize_ref(x: torch.Tensor, bits: int = 8, block: int = 256
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [n, d] (n, d multiples of block) -> (q int8 [n, d], scale f32
+    [n/block, d/block]): one scale per block x block tile."""
+    xt = _tiles(x.float(), block)
+    scale = _scale_of(xt.abs().amax(dim=(1, 3)), bits)
+    q = _payload(xt, scale[:, None, :, None], bits)
+    return q.reshape(x.shape), scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor, block: int = 256,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Invert :func:`quantize_ref`: each tile's scale broadcast back."""
+    out = _tiles(q, block).float() * scale[:, None, :, None]
+    return out.reshape(q.shape).to(dtype)

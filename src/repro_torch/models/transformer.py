@@ -139,6 +139,24 @@ def lm_cache_spec(cfg: ModelConfig, B: int, dtype: torch.dtype = None
                        for _ in range(cfg.n_layers)]}
 
 
+def stack_cache(cache: Dict[str, List[Dict]]) -> Dict[str, Dict]:
+    """The reference's layout of a decode cache: {"blocks": {name:
+    [L, ...]}}, each per-layer tensor stacked along a new leading axis,
+    as the reference's `lax.scan` over the layers returns them."""
+    blocks = cache["blocks"]
+    return {"blocks": {k: torch.stack([b[k] for b in blocks])
+                       for k in blocks[0]}}
+
+
+def unstack_cache(tree: Dict[str, Dict]) -> Dict[str, List[Dict]]:
+    """Inverse of :func:`stack_cache`: one dict per layer (views into
+    the stacked tensors)."""
+    blocks = tree["blocks"]
+    n = len(next(iter(blocks.values())))
+    return {"blocks": [{k: v[i] for k, v in blocks.items()}
+                       for i in range(n)]}
+
+
 def lm_prefill(params: MambaLM, tokens: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, Dict[str, List[Dict]]]:
     """Forward pass that also builds the decode cache. Returns

@@ -4,8 +4,9 @@ decode cache, and the WANify plan for cross-pod cache migration.
 Port of `repro/serve/engine.py`. Plans come from the port's WANify
 control plane: hand the engine a `repro_torch.control.WanifyController`
 and call :meth:`Engine.replan` whenever the WAN shifts.
-`kv_migrate`, which moves a cache between pods, needs several pods
-(`torch.distributed`) and is not yet ported.
+:func:`kv_migrate` moves a cache from one pod to the others under the
+plan's per-offset schedule; the pods are the processes of a
+`torch.distributed` group (`repro_torch/compat.py`).
 """
 from __future__ import annotations
 
@@ -15,12 +16,17 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
-from repro_torch.control import WanifyController, offset_schedule
+from repro_torch.control import (WanifyController, offset_schedule,
+                                 wire_decode, wire_encode)
 from repro_torch.core.plan import WanPlan
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.models.transformer import stack_cache, unstack_cache
+from repro_torch.obs.spans import NULL_TRACER
 
 
 @dataclass
@@ -165,9 +171,74 @@ class Engine:
         return out
 
 
-def kv_migrate(*args, **kwargs):
-    """Broadcast a prefill pod's cache to the decode pods under the
-    plan's per-offset schedule: not yet ported (it needs several pods
-    and `torch.distributed`)."""
-    raise NotImplementedError("kv_migrate is not yet ported: it needs "
-                              "pods and torch.distributed")
+# ----------------------------------------------------------------------
+# Disaggregated serving: migrate a prefill pod's cache to decode pods
+# over the WANify-scheduled inter-pod links.
+# ----------------------------------------------------------------------
+def kv_migrate(cache: Any, plan: WanPlan, src_pod: int, *,
+               group: Optional[torch.distributed.ProcessGroup] = None,
+               compress: bool = True, tracer: Any = NULL_TRACER) -> Any:
+    """Broadcast `cache` (valid on `src_pod`) to every pod of `group`
+    (the world by default) with the plan's per-offset chunking and wire
+    bits: the port of `repro/serve/engine.py::kv_migrate`, which runs
+    inside `shard_map` over the pod axis. Every pod calls it with a cache
+    of the same structure and shapes.
+
+    Per leaf and per offset phase o (as the reference): flatten, zero-pad
+    to a multiple of the phase's chunks, split, `wire_encode` each part
+    (bits from the plan; 32 without `compress`), `compat.ppermute` the
+    payload and scale by o, `wire_decode`, concatenate; a pod keeps the
+    copy it received iff (rank - o) % P == src_pod. Every pod sends in
+    every phase.
+
+    The leaves are the reference's: a model cache in the port's layout
+    ({"blocks": [one dict per layer]}) is stacked into the reference's
+    {"blocks": {name: [L, ...]}} first (a segment's scale depends on
+    which elements it holds) and unstacked after. Any other tree of
+    tensors migrates leaf by leaf as it is.
+
+    `tracer` (an `obs.SpanTracer`) records one span "migrate_phase"
+    per leaf and offset phase, with the phase's offset, chunks and bits
+    as attributes: host wall time, the device not synchronised."""
+    P = plan.n_pods
+    if P <= 1:
+        return cache
+    if compat.pod_count(group) != P:
+        raise ValueError(f"the plan has {P} pods, the group "
+                         f"{compat.pod_count(group)}")
+    if not 0 <= src_pod < P:
+        raise ValueError(f"src_pod {src_pod} not in [0, {P})")
+    sched = offset_schedule(plan)
+    rank = compat.pod_index(group)
+    layered = isinstance(cache, dict) and \
+        isinstance(cache.get("blocks"), list)
+    tree = stack_cache(cache) if layered else cache
+    bits_of = [ph["bits"] if compress else 32 for ph in sched]
+
+    def leaf(x: torch.Tensor) -> torch.Tensor:
+        """Migrate one leaf through the offset phases."""
+        out = x
+        for ph, bits in zip(sched, bits_of):
+            o, chunks = ph["offset"], ph["chunks"]
+            with tracer.span("migrate_phase", offset=o, chunks=chunks,
+                             bits=bits):
+                flat = out.reshape(-1)
+                pad = (-flat.numel()) % max(chunks, 1)
+                if pad:
+                    flat = F.pad(flat, (0, pad))
+                parts = flat.chunk(chunks) if chunks > 1 else [flat]
+                rec = []
+                for part in parts:
+                    enc, scale = wire_encode(part, bits)
+                    enc_r = compat.ppermute(enc, o, group)
+                    s_r = compat.ppermute(scale, o, group) \
+                        if scale is not None else None
+                    rec.append(wire_decode(enc_r, s_r, x.dtype, bits))
+                recv = torch.cat(rec) if chunks > 1 else rec[0]
+                recv = recv[:out.numel()].reshape(out.shape)
+                if (rank - o) % P == src_pod:
+                    out = recv
+        return out
+
+    moved = compat.tree_map(leaf, tree)
+    return unstack_cache(moved) if layered else moved

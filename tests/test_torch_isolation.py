@@ -21,7 +21,7 @@ from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
 from repro_torch.models import registry
-from repro_torch.serve.engine import Engine, ServeConfig, kv_migrate
+from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.wan.simulator import WanSimulator
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -48,7 +48,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"repro_torch.configs.mamba2_2_7b", "repro_torch.kernels.ssd_scan",
             "repro_torch.models.ssm", "repro_torch.models.transformer",
             "repro_torch.models.registry", "repro_torch.control.schedule",
-            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= mods
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.compat", "repro_torch.core.wansync",
+            "repro_torch.kernels.quantize"} <= mods
 
 
 def _imports(path):
@@ -278,5 +280,21 @@ def test_model_side_gates_not_yet_ported():
     model = registry.build_model(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Engine(cfg, model, ServeConfig(greedy=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        kv_migrate({}, None, 0)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.compat", "repro_torch.core.wansync",
+    "repro_torch.kernels.quantize", "repro_torch.control.schedule",
+    "repro_torch.serve.engine"])
+def test_codec_path_modules_import_no_jax_and_no_reference(module):
+    """Each module of the cache-migration and gradient-sync path, on its
+    own, pulls in neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,374 @@
+"""The port's quantize / dequantize and wire codec against the JAX
+reference.
+
+The tile form: the port's plain versions (`ops.quantize` /
+`ops.dequantize` on CPU tensors) against `quantize_pallas` /
+`dequantize_pallas` in interpret mode, on the shape, bits and dtype
+sweep of `tests/test_kernels.py`. The grouped form: the port's
+`wire_encode` / `wire_decode` against the reference's under `jax.jit`,
+which is how its callers (`kv_migrate` inside `jit(shard_map)`, the
+train step) run it. Every comparison is bit-equal: no tolerance.
+
+Both reference forms compute the scale as `amax * f32(1/qmax)` (XLA
+rewrites the divide by the constant qmax) and the payload as a true
+divide; the eager reference codec divides for the scale too, and
+differs in the last bit of some scales (`test_eager_reference_scale_*`).
+
+The reference is imported by a fixture, so the card-only cases (marked
+`cuda`) run where jax is not installed:
+``python -m pytest -q -m cuda tests/test_torch_quantize.py``.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.control.schedule import wire_decode, wire_encode
+from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import inv_qmax, qmax
+from repro_torch.kernels.ref import (dequantize_groups_ref, dequantize_ref,
+                                     quantize_groups_ref, quantize_ref)
+
+DTYPES = ["float32", "bfloat16"]
+# tests/test_kernels.py's tile shapes, and a wider one
+TILE_SHAPES = [(256, 256), (512, 256), (256, 512), (512, 512), (1024, 768)]
+# (name, shape, axes): one segment at ragged lengths; per-slice scales
+CODEC_CASES = [("seg1", (1,), None), ("seg255", (255,), None),
+               ("seg65537", (65537,), None), ("seg2d", (37, 11), None),
+               ("slices", (4, 333), (1,)), ("slices3d", (4, 3, 67), (1, 2)),
+               ("slices1d", (5,), ())]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX reference: jnp, its tile kernels and its wire codec."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.control import schedule as ref_schedule
+    from repro.kernels import quantize as ref_quantize
+    from repro.kernels import ref as ref_plain
+    return types.SimpleNamespace(jax=jax, jnp=jnp, kernels=ref_quantize,
+                                 schedule=ref_schedule, plain=ref_plain)
+
+
+def _normal(shape, seed, scale=3.0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _as_f32(a) -> np.ndarray:
+    """A jax or torch array as f32 numpy (bf16 widens exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a).astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# tile form: plain version vs the Pallas kernels (interpret mode)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=lambda s: "%dx%d" % s)
+def test_tile_plain_matches_pallas(ref, shape, bits, dtype):
+    x = _normal(shape, seed=shape[0] + shape[1] + bits)
+    jx = ref.jnp.asarray(x).astype(getattr(ref.jnp, dtype))
+    qr, sr = ref.kernels.quantize_pallas(jx, bits=bits, interpret=True)
+    before = ops.quantize.launches
+    q, s = ops.quantize(torch.from_numpy(x).to(getattr(torch, dtype)), bits)
+    assert ops.quantize.launches == before                  # plain version
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert tuple(s.shape) == (shape[0] // 256, shape[1] // 256)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    for out in DTYPES:
+        want = ref.kernels.dequantize_pallas(
+            qr, sr, out_dtype=getattr(ref.jnp, out), interpret=True)
+        got = ops.dequantize(q, s, out_dtype=getattr(torch, out))
+        assert got.dtype == getattr(torch, out)
+        np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tile_roundtrip_within_half_a_step(bits):
+    """As `tests/test_kernels.py` holds the reference: each tile's
+    round-trip error is at most half its quantization step."""
+    x = torch.from_numpy(_normal((512, 512), seed=1, scale=1.0))
+    q, s = ops.quantize(x, bits)
+    err = (ops.dequantize(q, s) - x).abs()
+    tile_err = err.reshape(2, 256, 2, 256).amax(dim=(1, 3))
+    assert (tile_err <= s * 0.5001 + 1e-7).all()
+
+
+def test_tile_block_parameter(ref):
+    """A block other than 256 (the reference takes `block` too)."""
+    x = _normal((128, 192), seed=5)
+    qr, sr = ref.kernels.quantize_pallas(ref.jnp.asarray(x), bits=8,
+                                         block=64, interpret=True)
+    q, s = ops.quantize(torch.from_numpy(x), 8, block=64)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    np.testing.assert_array_equal(
+        ops.dequantize(q, s, block=64).numpy(),
+        np.asarray(ref.kernels.dequantize_pallas(qr, sr, block=64,
+                                                 interpret=True)))
+
+
+# ----------------------------------------------------------------------
+# grouped form: the wire codec vs the reference's under jax.jit
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("case", CODEC_CASES, ids=lambda c: c[0])
+def test_wire_codec_matches_jitted_reference(ref, case, bits, dtype):
+    _, shape, axes = case
+    x = _normal(shape, seed=len(shape) * 1000 + shape[-1] + bits)
+    jdt, tdt = getattr(ref.jnp, dtype), getattr(torch, dtype)
+    qr, sr = ref.jax.jit(lambda v: ref.schedule.wire_encode(v, bits, axes))(
+        ref.jnp.asarray(x).astype(jdt))
+    q, s = wire_encode(torch.from_numpy(x).to(tdt), bits, axes)
+    assert tuple(q.shape) == tuple(qr.shape)
+    assert str(q.dtype).split(".")[-1] == str(qr.dtype)
+    np.testing.assert_array_equal(_as_f32(q), _as_f32(qr))
+    if sr is None:
+        assert s is None
+    else:
+        assert tuple(s.shape) == tuple(sr.shape) and s.dtype == torch.float32
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    want = ref.jax.jit(lambda a, b: ref.schedule.wire_decode(a, b, jdt, bits))(
+        qr, sr)
+    got = wire_decode(q, s, tdt, bits)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_eager_reference_scale_differs_in_the_last_bit(ref, bits):
+    """Run eagerly, the reference codec divides `amax / qmax`; under
+    `jax.jit` XLA multiplies by f32(1/qmax). The port follows the
+    jitted form: over random segments (one length, so one compile) some
+    eager scales differ from it in the last bit."""
+    rng = np.random.default_rng(bits)
+    jit_enc = ref.jax.jit(lambda v: ref.schedule.wire_encode(v, bits))
+    differ = 0
+    for _ in range(40):
+        x = (rng.normal(size=777) * rng.uniform(0.01, 10)).astype(
+            np.float32)
+        _, s_eager = ref.schedule.wire_encode(ref.jnp.asarray(x), bits)
+        _, s_jit = jit_enc(ref.jnp.asarray(x))
+        _, s = wire_encode(torch.from_numpy(x), bits)
+        assert s.item() == float(s_jit)
+        amax = np.float32(np.abs(x).max())
+        assert float(s_jit) == float(amax * inv_qmax(bits))
+        assert float(s_eager) == float(amax / np.float32(qmax(bits)))
+        if float(s_eager) != float(s_jit):
+            assert abs(float(s_eager) - float(s_jit)) <= \
+                np.spacing(np.float32(s_jit))
+            differ += 1
+    assert differ > 0
+
+
+def test_reference_plain_tile_version_divides(ref):
+    """`repro.kernels.ref.quantize_ref` divides `amax / qmax` (which is
+    why `tests/test_kernels.py` compares scales to rtol 1e-6); the
+    Pallas kernel, and the port, multiply by f32(1/qmax)."""
+    x = _normal((1024, 1024), seed=11)
+    _, sr = ref.plain.quantize_ref(ref.jnp.asarray(x), 4)
+    _, sp = ref.kernels.quantize_pallas(ref.jnp.asarray(x), bits=4,
+                                        interpret=True)
+    _, s = ops.quantize(torch.from_numpy(x), 4)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sp))
+    assert (s.numpy() != np.asarray(sr)).sum() > 0
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=1e-6)
+
+
+def test_groups_are_rows():
+    """The grouped plain version is the tile form's arithmetic on each
+    row: one [G, L] call equals G one-row calls."""
+    x = torch.from_numpy(_normal((4, 1000), seed=3))
+    q, s = quantize_groups_ref(x, 8)
+    for g in range(4):
+        qg, sg = quantize_groups_ref(x[g:g + 1], 8)
+        assert torch.equal(q[g:g + 1], qg) and torch.equal(s[g:g + 1], sg)
+    assert torch.equal(dequantize_groups_ref(q, s),
+                       torch.cat([dequantize_groups_ref(q[g:g + 1],
+                                                        s[g:g + 1])
+                                  for g in range(4)]))
+
+
+def test_zero_input_has_the_floor_scale():
+    q, s = ops.quantize_groups(torch.zeros((2, 7)), 8)
+    assert (q == 0).all()
+    assert s[0].item() == float(np.float32(1e-12) * inv_qmax(8))
+
+
+# ----------------------------------------------------------------------
+# wrappers: what they refuse, and launches counted only on the card
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("case", [
+    "int_x", "x_1d", "x_ragged", "x_contig", "bits_16", "bits_1", "type",
+    "device", "scale_shape", "scale_dtype", "q_dtype", "out_f16",
+    "groups_empty", "groups_3d", "groups_too_many", "groups_scale_shape"])
+def test_wrappers_reject_bad_inputs(case):
+    x = torch.ones((256, 512))
+    q, s = ops.quantize(x, 8)
+    g = torch.ones((2, 9))
+    gq, gs = ops.quantize_groups(g, 8)
+    calls = {
+        "int_x": lambda: ops.quantize(x.to(torch.int32), 8),
+        "x_1d": lambda: ops.quantize(torch.ones(256), 8),
+        "x_ragged": lambda: ops.quantize(torch.ones((256, 300)), 8),
+        "x_contig": lambda: ops.quantize(torch.ones((512, 256)).t(), 8),
+        "bits_16": lambda: ops.quantize(x, 16),
+        "bits_1": lambda: ops.quantize_groups(g, 1),
+        "type": lambda: ops.quantize(x.numpy(), 8),
+        "device": lambda: ops.quantize_groups(g.to("meta"), 8),
+        "scale_shape": lambda: ops.dequantize(q, s[:, :1].contiguous()),
+        "scale_dtype": lambda: ops.dequantize(q, s.double()),
+        "q_dtype": lambda: ops.dequantize_groups(gq.to(torch.int32), gs),
+        "out_f16": lambda: ops.dequantize(q, s, out_dtype=torch.float16),
+        "groups_empty": lambda: ops.quantize_groups(torch.ones((2, 0)), 8),
+        "groups_3d": lambda: ops.quantize_groups(torch.ones((2, 3, 4)), 8),
+        "groups_too_many": lambda: ops.quantize_groups(
+            torch.ones((65536, 1)), 8),
+        "groups_scale_shape": lambda: ops.dequantize_groups(gq, gs[:1]),
+    }
+    with pytest.raises((TypeError, ValueError)):
+        calls[case]()
+
+
+def test_codec_rejects_other_axes_and_scales():
+    x = torch.ones((4, 3, 5))
+    with pytest.raises(ValueError, match="axes"):
+        wire_encode(x, 8, axes=(2,))
+    q, s = wire_encode(x, 8, axes=(1, 2))
+    with pytest.raises(ValueError, match="scale"):
+        wire_decode(q, s.reshape(4, 1), torch.float32, 8)
+    with pytest.raises(ValueError, match="bits"):
+        wire_encode(x, 12)
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    before = (ops.quantize.launches, ops.dequantize.launches)
+    q, s = ops.quantize(torch.ones((256, 256)), 8)
+    ops.dequantize(q, s)
+    gq, gs = ops.quantize_groups(torch.ones((3, 5)), 4)
+    ops.dequantize_groups(gq, gs, torch.bfloat16)
+    assert (ops.quantize.launches, ops.dequantize.launches) == before
+
+
+# ----------------------------------------------------------------------
+# card-only: the CUDA kernels against their plain versions, bit-equal
+# ----------------------------------------------------------------------
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where there is none (decided at
+    setup, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _assert_kernel_equals_plain(x, bits, block=256):
+    before = (ops.quantize.launches, ops.dequantize.launches)
+    q, s = ops.quantize(x, bits, block)
+    outs = {dt: ops.dequantize(q, s, block, dt) for dt in
+            (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    assert (ops.quantize.launches, ops.dequantize.launches) == \
+        (before[0] + 1, before[1] + 2)
+    qp, sp = quantize_ref(x, bits, block)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    for dt, out in outs.items():
+        assert torch.equal(out, dequantize_ref(q, s, block, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape,block", [((256, 256), 256),
+                                         ((1024, 1024), 256),
+                                         ((512, 768), 256),
+                                         ((96, 160), 32), ((30, 42), 6)],
+                         ids=lambda v: str(v))
+def test_tile_kernel_matches_plain_on_card(card, shape, block, bits, dtype):
+    x = torch.from_numpy(_normal(shape, seed=shape[0])).to(card).to(
+        getattr(torch, dtype))
+    _assert_kernel_equals_plain(x, bits, block)
+
+
+def _assert_groups_equal_plain(x, bits):
+    before = (ops.quantize.launches, ops.dequantize.launches)
+    q, s = ops.quantize_groups(x, bits)
+    outs = {dt: ops.dequantize_groups(q, s, dt) for dt in
+            (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    assert (ops.quantize.launches, ops.dequantize.launches) == \
+        (before[0] + 1, before[1] + 2)
+    qp, sp = quantize_groups_ref(x, bits)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    for dt, out in outs.items():
+        assert torch.equal(out, dequantize_groups_ref(q, s, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("L", [1, 3, 255, 256, 65537, 1 << 20])
+def test_group_kernel_matches_plain_on_card(card, L, G, bits, dtype):
+    x = torch.from_numpy(_normal((G, L), seed=L + G)).to(card).to(
+        getattr(torch, dtype))
+    _assert_groups_equal_plain(x, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_group_kernel_unaligned_view_on_card(card, dtype):
+    """A [G, L] view one element into its storage (L a multiple of 4,
+    the pointer not 16-byte aligned) takes the one-element path."""
+    flat = torch.from_numpy(_normal(4 * 4096 + 1, seed=9)).to(card).to(
+        getattr(torch, dtype))
+    _assert_groups_equal_plain(flat[1:].view(4, 4096), 8)
+
+
+@pytest.mark.cuda
+def test_group_kernel_extremes_on_card(card):
+    """All-zero groups (the 1e-12 floor), a group of one huge value,
+    exact ties of round-half-even, and a NaN that reaches the scale."""
+    x = torch.zeros((4, 1000), device=card)
+    x[1, 7] = 3.0e38
+    x[2] = torch.arange(1000, device=card, dtype=torch.float32) * 0.5
+    _assert_groups_equal_plain(x, 8)
+    x[3, 5] = float("nan")
+    _, s = ops.quantize_groups(x, 8)
+    assert torch.isnan(s[3]) and torch.isfinite(s[:3]).all()
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_mixed_devices_on_card(card):
+    q, s = ops.quantize_groups(torch.ones((2, 9), device=card), 8)
+    with pytest.raises(ValueError, match="on"):
+        ops.dequantize_groups(q, s.cpu())
+    qt, st = ops.quantize(torch.ones((256, 256), device=card), 8)
+    with pytest.raises(ValueError, match="on"):
+        ops.dequantize(qt.cpu(), st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+def test_wire_codec_on_card_equals_host(card, bits):
+    """The codec on the card (kernels) and on the host (plain versions)
+    give the same bits, per segment and per slice."""
+    x = torch.from_numpy(_normal((4, 3, 1001), seed=bits))
+    for axes in (None, (1, 2)):
+        q, s = wire_encode(x.to(card), bits, axes)
+        qh, sh = wire_encode(x, bits, axes)
+        assert torch.equal(q.cpu(), qh)
+        assert (s is None) == (sh is None)
+        if s is not None:
+            assert torch.equal(s.cpu(), sh)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(wire_decode(q, s, dt, bits).cpu(),
+                               wire_decode(qh, sh, dt, bits))
