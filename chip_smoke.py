@@ -11,8 +11,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
 2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`,
    `ssd_chunk.cu` and `quantize.cu` with `nvcc`, one process each, started
    together,
-   and prints ptxas's reports (registers, static shared memory, spills)
-   and the dynamic shared memory of a ssd_chunk block at the serve shape;
+   and prints ptxas's reports (registers, static shared memory, spills),
+   per ssd_chunk kernel its registers, spills and the dynamic shared
+   memory of a block at the serve shape, and the counts of tensor-core
+   (HGMMA) and asynchronous-copy (LDGSTS, UTMALDG) instructions in
+   ssd_chunk's SASS (`cuobjdump -sass`); fails if there is no HGMMA;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal, on the paper's forest (100 trees,
    depth 10, trained by `train_default_forest(600)`) over all dataset
@@ -29,13 +32,15 @@ Every phase is fatal: a failure exits non-zero before the result line.
    through `BwPredictor` backends `cuda`, `torch` and the default (no
    backend named) on the card, bit-equal to each other and to the
    tick's own prediction.
-6. ssd     — the ssd_chunk CUDA kernel against its plain PyTorch version
-   on the card, atol/rtol 1e-4 (both take the cumulative decay in one
-   order; the products may add in another): on the
-   bf16 inputs captured from layer 0 of a prefill of the serve model
-   below, on f32 random inputs at (Q,H,P,N) = (256,80,64,128) and at
-   (16,16,16,16), each with nC in {1, 3} and B in {1, 4}; times at the
-   serve shape beside the bound;
+6. ssd     — the ssd_chunk CUDA kernels against their plain PyTorch
+   version on the card, atol/rtol 1e-4 (both take the cumulative decay
+   in one order; the products add in another, bf16 inputs on the tensor
+   cores with f32 operands split into bf16 hi and lo): on the bf16
+   inputs captured from layer 0 of each group's prefill of the serve
+   model below, on f32 random inputs at (Q,H,P,N) = (256,80,64,128) and
+   at (16,16,16,16), each with nC in {1, 3} and B in {1, 4}; times at
+   both groups' serve shapes beside the bound (bytes; the contractions
+   at the bf16 tensor-core rate, the elementwise work at the f32 rate);
 7. serve   — the slice's main path: `mamba2-2.7b` at its full width and
    depth (64 layers, bf16 compute, f32 params, weights from a
    `torch.Generator` seeded 0) behind `Engine(..., ServeConfig(batch=4,
@@ -59,7 +64,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    outputs): the tile form on f32 and bf16 at 256^2, 1024^2 and 4096^2,
    8 and 4 bits; the grouped form with G = 1 and 4 at ragged lengths and
    at the migrate phase's parts (21 M f32 state elements, 516 K bf16
-   conv elements); times at 4096^2 and at each part, beside the bound;
+   conv elements), with its accumulating dequantize (an FMA into an f32
+   accumulator, as the gradient sync decodes); times at 4096^2 and at
+   each part, beside the bound;
 10. migrate — the slice's main path: the serve engine's cache after
    group 1's prefill (64 layers, B=4: state [64,4,80,64,128] f32, conv
    [64,4,3,5376] bf16) moved by `kv_migrate` from pod 0 to 4 ranks
@@ -90,6 +97,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -116,7 +125,8 @@ from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E40
                                JobSpec, default_fleet_forest)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
 from repro_torch.kernels.quantize import qmax  # noqa: E402
-from repro_torch.kernels.ref import (dequantize_groups_ref,  # noqa: E402
+from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
+                                     dequantize_groups_ref,
                                      dequantize_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      ssd_chunk_ref)
@@ -130,9 +140,11 @@ from repro_torch.wan.dataset import (generate_dataset,  # noqa: E402
                                      train_default_forest)
 from repro_torch.wan.simulator import WanSimulator  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and non-tensor f32 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor f32 rate and
+# the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 N_JOBS, TICKS, M_TOTAL = 16, 24, 8          # benchmarks/tick_bench.py
 PRIORITIES = (1.0, 2.0, 4.0)
@@ -175,6 +187,62 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def cuobjdump_path() -> str:
+    """`cuobjdump`: on PATH, under $CUDA_HOME, else the copy that the
+    triton package carries."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("cuobjdump"),
+                 os.path.join(home, "bin", "cuobjdump")):
+        if cand and os.path.isfile(cand):
+            return cand
+    try:
+        import triton
+        cand = Path(triton.__file__).parent / "backends" / "nvidia" / \
+            "bin" / "cuobjdump"
+        if cand.is_file():
+            return str(cand)
+    except ImportError:
+        pass
+    raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin, triton)")
+
+
+SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG")
+
+
+def sass_counts(lib: Path) -> dict:
+    """How many tensor-core (HGMMA) and asynchronous-copy (LDGSTS:
+    cp.async; UTMALDG: TMA) instructions the library's SASS holds."""
+    sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def ptxas_report(text: str, kernels) -> dict:
+    """{kernel: registers, spill bytes and static shared memory} from
+    nvcc's -Xptxas -v output, for each of `kernels` (matched inside the
+    mangled names)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        rep = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep["spill_stores"], rep["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rep["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def fleet_jobs(n_jobs: int = N_JOBS):
@@ -418,22 +486,26 @@ def ssd_random_inputs(B, nC, Q, H, P, N, seed, device):
                  for a in arrays)
 
 
-def check_ssd(args) -> float:
+def check_ssd(args):
     """Kernel (on the CPU: the wrapper's plain path) vs the plain
-    version on the same inputs, atol/rtol SSD_TOL. Returns max |diff|."""
+    version on the same inputs, atol/rtol SSD_TOL. Returns (max |diff|,
+    max |diff| / (atol + rtol |plain|): the share of the tolerance)."""
     y, st = ops.ssd_chunk(*args)
     yp, sp = ssd_chunk_ref(*args)
     if args[0].device.type == "cuda":
         torch.cuda.synchronize()
-    err = 0.0
+    err, share = 0.0, 0.0
     for got, want in ((y, yp), (st, sp)):
         got, want = got.cpu().numpy(), want.cpu().numpy()
         if got.shape != want.shape or not np.isfinite(got).all():
             raise AssertionError(f"ssd_chunk output {got.shape} (plain "
                                  f"{want.shape}) or non-finite values")
         np.testing.assert_allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL)
-        err = max(err, float(np.max(np.abs(got - want))))
-    return err
+        diff = np.abs(got - want)
+        err = max(err, float(diff.max()))
+        share = max(share, float((diff / (SSD_TOL + SSD_TOL *
+                                          np.abs(want))).max()))
+    return err, share
 
 
 def ssd_subsets(args, Bs=(1, 4), nCs=(1, 3)):
@@ -446,25 +518,36 @@ def ssd_subsets(args, Bs=(1, 4), nCs=(1, 3)):
 
 def ssd_work(xq, Bq):
     """Bytes the call must move (each input read once, each output
-    written once) and the f32 operations these inputs need: C.B for the
-    causal (q, k) pairs once per chunk (shared by the heads); per head
-    and causal pair the decay (subtract, exp, multiply) and the
-    multiply-add into y over P; per head and row the state's decay
-    (subtract, exp), x times it, and the multiply-add into [P, N]; the
-    cumulative sum."""
+    written once) and the operations these inputs need, by unit: the
+    contractions (a multiply-add is 2: C.B for the causal (q, k) pairs
+    once per chunk, shared by the heads; per head the causal y product
+    over P and the states' [P, N] product) and the elementwise work (per
+    head and causal pair the decay: subtract, exp, multiply; per head and
+    row the state's decay, subtract and exp, and x times it; the
+    cumulative sum)."""
     B, nC, Q, H, P = xq.shape
     N = Bq.shape[-1]
     chunks, pairs = B * nC, Q * (Q + 1) // 2
-    nops = chunks * (2 * N * pairs + H * pairs * (3 + 2 * P)
-                     + H * Q * (2 + P + 2 * P * N) + H * Q)
+    mm_ops = chunks * (2 * N * pairs + H * pairs * 2 * P + H * Q * 2 * P * N)
+    ew_ops = chunks * (H * pairs * 3 + H * Q * (2 + P) + H * Q)
     nbytes = (xq.numel() + 2 * Bq.numel()) * xq.element_size() + \
         chunks * H * Q * 4 + xq.numel() * 4 + chunks * H * P * N * 4
-    return nbytes, nops
+    return nbytes, mm_ops, ew_ops
 
 
 def ssd_bound(xq, Bq):
-    nbytes, nops = ssd_work(xq, Bq)
-    return roofline(nbytes, nops) + (nbytes, nops)
+    """(ms, bound_by, bytes, ops): the longest of the bytes at the HBM
+    rate, the contractions at the bf16 tensor-core rate (bf16 inputs:
+    bf16 products are exact, the sums f32) or the f32 rate (f32 inputs),
+    and the elementwise work at the f32 rate."""
+    nbytes, mm_ops, ew_ops = ssd_work(xq, Bq)
+    mm_rate = BF16_TC_OPS_PER_S if xq.dtype == torch.bfloat16 \
+        else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(mm_ops / mm_rate, ew_ops / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            mm_ops + ew_ops)
 
 
 def time_ssd(args):
@@ -619,14 +702,21 @@ def check_quant_tile(x: torch.Tensor, bits: int) -> float:
 
 
 def check_quant_groups(x2d: torch.Tensor, bits: int) -> float:
-    """The grouped kernels against the plain versions, bit-equal."""
+    """The grouped kernels against the plain versions, bit-equal: the
+    payload, the scales, both dequantized outputs, and the accumulating
+    dequantize into an f32 accumulator (x2d's values, as the gradient
+    sync adds a pod's decoded part into its own)."""
     q, s = ops.quantize_groups(x2d, bits)
     outs = [ops.dequantize_groups(q, s, dt)
             for dt in (torch.float32, torch.bfloat16)]
+    acc = x2d.to(torch.float32, copy=True)
+    acc_plain = acc.clone()
+    ops.dequantize_groups_add(q, s, acc)
     qp, sp = quantize_groups_ref(x2d, bits)
     sync(x2d.device)
     pairs = [(q, qp), (s, sp)] + [
-        (o, dequantize_groups_ref(q, s, o.dtype)) for o in outs]
+        (o, dequantize_groups_ref(q, s, o.dtype)) for o in outs] + [
+        (acc, dequantize_groups_add_ref(q, s, acc_plain))]
     for got, want in pairs:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"quantize groups {tuple(x2d.shape)} "
@@ -1046,10 +1136,20 @@ def main() -> int:
     results["build_log"] = texts
     dims = get_config(ARCH).ssm
     smem = ssd_scan.smem_bytes(dims.chunk, dims.head_dim, dims.d_state)
-    results["build_smem"] = smem
-    log(f"[build] ssd_chunk: dynamic shared memory per block at "
-        f"Q={dims.chunk}, P={dims.head_dim}, N={dims.d_state}: " +
-        ", ".join(f"{k} {v} B" for k, v in smem.items()))
+    report = ptxas_report(texts["ssd_chunk"], ssd_scan.KERNELS)
+    for name in ssd_scan.KERNELS:
+        report.setdefault(name, {})["dynamic_smem"] = smem[name]
+        log(f"[build] ssd_chunk: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in report[name].items()) + f" (dynamic "
+            f"shared memory per block at Q={dims.chunk}, P={dims.head_dim}, "
+            f"N={dims.d_state})")
+    counts = sass_counts(build.library_path("ssd_chunk"))
+    results["build_ssd"] = {"kernels": report, "sass": counts}
+    log(f"[build] ssd_chunk SASS: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    if counts["HGMMA"] == 0:
+        raise AssertionError("no HGMMA instruction in ssd_chunk's SASS: "
+                             "the tensor-core kernel is not in the binary")
 
     # 3. kernel
     t0 = time.perf_counter()
@@ -1151,18 +1251,20 @@ def main() -> int:
         f"inputs per group: " + ", ".join(
             f"{tuple(c[0].shape)} {c[0].dtype}" for c in captured))
     ssd_err, ssd_cases = 0.0, []
-    cases = [("serve-bf16", captured[0]),
+    cases = [("serve-bf16-group1", captured[0]),
+             ("serve-bf16-group2", captured[1]),
              ("f32-256x80x64x128", ssd_random_inputs(4, 3, 256, 80, 64, 128,
                                                      1, dev)),
              ("f32-16x16x16x16", ssd_random_inputs(4, 3, 16, 16, 16, 16, 2,
                                                    dev))]
     for name, args in cases:
         for b, c, sub in ssd_subsets(args):
-            err = check_ssd(sub)
+            err, share = check_ssd(sub)
             ssd_err = max(ssd_err, err)
-            ssd_cases.append({"case": name, "B": b, "nC": c, "err": err})
+            ssd_cases.append({"case": name, "B": b, "nC": c, "err": err,
+                              "tol_share": share})
             log(f"[ssd] {name} B={b} nC={c}: within {SSD_TOL} of plain "
-                f"(max |diff| {err:.3e})")
+                f"(max |diff| {err:.3e}, {share:.3f} of the tolerance)")
     ssd_timing = [time_ssd(c) for c in captured]
     for t in ssd_timing:
         log(f"[ssd] ssd_chunk {t['shape']} {t['dtype']}: kernel "
@@ -1286,7 +1388,8 @@ def main() -> int:
     q_cases, q_err = check_quantize(cfg, SERVE_BATCH, dev,
                                     sync_lengths=sync_lengths)
     log(f"[quantize] {len(q_cases)} cases bit-equal to plain (payload, "
-        f"scales, f32 and bf16 dequantized): tiles "
+        f"scales, f32 and bf16 dequantized; grouped: also the accumulating "
+        f"dequantize): tiles "
         f"{[list(t) for t in QUANT_TILES]} f32/bf16 x 8/4 bits; groups "
         f"G=1,4 at L={list(QUANT_LENGTHS)}, at the migrate parts "
         f"{[(n, k, str(d)) for n, k, d in migrate_parts(cfg, SERVE_BATCH)]}"

@@ -11,7 +11,9 @@ a `WanPlan` to the same two primitives:
   * :func:`wire_encode` / :func:`wire_decode` — the quantizing wire
     codec. At 8 bits and below it runs on the quantize / dequantize
     kernels' grouped form (`kernels/ops.py::quantize_groups`), bit-equal
-    to the reference's codec under `jax.jit`.
+    to the reference's codec under `jax.jit`. :func:`wire_decode_add`
+    decodes straight into an f32 accumulator, the multiply fused into
+    the add, as XLA fuses the reference's `acc + decode(...)`.
 
 ``pick_bits`` (the BW -> bits policy) is re-exported from
 ``core/plan.py`` so consumers need only this module.
@@ -26,8 +28,8 @@ import torch
 from repro_torch.core.plan import WanPlan, pick_bits
 from repro_torch.kernels import ops
 
-__all__ = ["offset_schedule", "wire_encode", "wire_decode", "pick_bits",
-           "MAX_CHUNKS"]
+__all__ = ["offset_schedule", "wire_encode", "wire_decode",
+           "wire_decode_add", "pick_bits", "MAX_CHUNKS"]
 
 MAX_CHUNKS = 16
 
@@ -82,19 +84,41 @@ def wire_encode(x: torch.Tensor, bits: int,
     return q.reshape(x.shape), scale.reshape(keep)
 
 
-def wire_decode(q: torch.Tensor, scale: Optional[torch.Tensor],
-                dtype: torch.dtype, bits: int) -> torch.Tensor:
-    """Inverse of :func:`wire_encode` (scalar and per-slice scales share
-    one decode path): f32(q) * scale, cast to `dtype`."""
-    if bits >= 32:
-        return q
-    if bits == 16:
-        return q.to(dtype)
+def _payload_groups(q: torch.Tensor, scale: torch.Tensor):
+    """q as [G, L] and scale as [G], G scales (scalar and per-slice
+    scales share one decode path)."""
     G = scale.numel()
     if scale.dim() and tuple(scale.shape) != \
             q.shape[:1] + (1,) * (q.dim() - 1):
         raise ValueError(f"scale {tuple(scale.shape)} is neither 0-d nor "
                          f"one per leading index of q {tuple(q.shape)}")
-    out = ops.dequantize_groups(q.contiguous().reshape(G, -1),
-                                scale.reshape(G).contiguous(), dtype)
-    return out.reshape(q.shape)
+    return q.contiguous().reshape(G, -1), scale.reshape(G).contiguous()
+
+
+def wire_decode(q: torch.Tensor, scale: Optional[torch.Tensor],
+                dtype: torch.dtype, bits: int) -> torch.Tensor:
+    """Inverse of :func:`wire_encode`: f32(q) * scale, cast to
+    `dtype`."""
+    if bits >= 32:
+        return q
+    if bits == 16:
+        return q.to(dtype)
+    return ops.dequantize_groups(*_payload_groups(q, scale),
+                                 dtype).reshape(q.shape)
+
+
+def wire_decode_add(acc: torch.Tensor, q: torch.Tensor,
+                    scale: Optional[torch.Tensor], bits: int
+                    ) -> torch.Tensor:
+    """acc += wire_decode(q, scale, acc.dtype, bits), in place, for an
+    `acc` of q's shape. Into an f32 acc at 8 bits and below, the
+    decode's multiply is fused into the add with one rounding
+    (`ops.dequantize_groups_add`; acc must `view` as [scales, -1]: a
+    contiguous tensor, or a slice of one along axis 0 or 1). Otherwise
+    the decode is rounded to acc's dtype, then the add. Returns acc."""
+    if bits > 8 or acc.dtype != torch.float32:
+        return acc.add_(wire_decode(q, scale, acc.dtype, bits))
+    q2, scale1 = _payload_groups(q, scale)
+    # a view (never a copy): the kernel adds into acc's own storage
+    ops.dequantize_groups_add(q2, scale1, acc.view(q2.shape))
+    return acc

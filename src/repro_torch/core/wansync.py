@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import compat
 from repro_torch.control.schedule import (offset_schedule, wire_decode,
-                                          wire_encode)
+                                          wire_decode_add, wire_encode)
 from repro_torch.core.plan import WanPlan
 
 __all__ = ["wan_allreduce", "psum_allreduce", "wan_allreduce_batched",
@@ -49,24 +49,39 @@ def _pad_to(x: torch.Tensor, mult: int) -> Tuple[torch.Tensor, int]:
 
 
 def _exchange(x: torch.Tensor, offset: int, chunks: int, bits: int,
-              dtype: torch.dtype, group) -> torch.Tensor:
+              dtype: torch.dtype, group,
+              acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Send x to pod rank+offset in `chunks` parts along axis 0, each
-    through the wire codec, and return what pod rank-offset sent."""
+    through the wire codec, and return what pod rank-offset sent,
+    decoded to `dtype`. Given `acc` (x's shape), add it into acc in
+    place instead, part by part (`wire_decode_add`: into an f32 acc the
+    decode's multiply is fused into the add), and return acc."""
     parts = x.chunk(chunks) if chunks > 1 else [x]
-    recvd = []
+    recvd, start = [], 0
     for part in parts:                            # parallel "connections"
         enc, scale = wire_encode(part, bits)
         enc_r = compat.ppermute(enc, offset, group)
         scale_r = compat.ppermute(scale, offset, group) \
             if scale is not None else None
-        recvd.append(wire_decode(enc_r, scale_r, dtype, bits))
+        if acc is None:
+            recvd.append(wire_decode(enc_r, scale_r, dtype, bits))
+        else:
+            wire_decode_add(acc[start:start + part.shape[0]], enc_r,
+                            scale_r, bits)
+        start += part.shape[0]
+    if acc is not None:
+        return acc
     return torch.cat(recvd) if chunks > 1 else recvd[0]
 
 
 def _leaf_wan_allreduce(g: torch.Tensor, sched: List[Dict[str, int]], P: int,
                         group, rank: int, compress: bool) -> torch.Tensor:
     """Direct all-reduce of one gradient leaf over the pods, segmented
-    along axis 0 (the reference's layer-stacked dim)."""
+    along axis 0 (the reference's layer-stacked dim). The reduce-scatter
+    accumulates in the leaf's dtype, as the reference does under
+    `jax.jit`: into an f32 leaf each 8-bit decode's multiply is fused
+    into its add; a bf16 leaf's decode and sum are rounded to bf16 at
+    each phase."""
     orig_shape, orig_dtype = g.shape, g.dtype
     if g.dim() == 0:
         g = g[None]
@@ -79,12 +94,11 @@ def _leaf_wan_allreduce(g: torch.Tensor, sched: List[Dict[str, int]], P: int,
 
     # reduce-scatter: pod r reduces segment r; phase o sends segment
     # (rank + o) % P to pod rank + o
-    acc = segment(rank)
+    acc = segment(rank).clone()
     for ph in sched:
         bits = ph["bits"] if compress else 32
-        acc = acc + _exchange(segment((rank + ph["offset"]) % P),
-                              ph["offset"], ph["chunks"], bits, g.dtype,
-                              group)
+        _exchange(segment((rank + ph["offset"]) % P), ph["offset"],
+                  ph["chunks"], bits, g.dtype, group, acc=acc)
     # all-gather: phase o delivers pod (rank - o)'s reduced segment
     gathered = {0: acc}
     for ph in sched:
@@ -156,10 +170,12 @@ def wan_allreduce_batched(tree: Any, plan: WanPlan, *,
     the phase's chunks divide is split into that many parts along it,
     each made contiguous and encoded with one scale per pod slice. The
     sums run in f32 only when a phase is lossy (compress with bits <
-    32), as the reference's do. Unlike the reference, the port adds each
-    received part into one accumulator in place (the same additions in
-    the same order), so a leaf costs one extra copy and a part's worth
-    of codec buffers instead of all of a phase's at once."""
+    32), as the reference's do, and each decode's multiply is fused into
+    its add (`wire_decode_add`), as XLA fuses the reference's. Unlike
+    the reference, the port adds each received part into one accumulator
+    in place (the same additions in the same order), so a leaf costs one
+    extra copy and a part's worth of codec buffers instead of all of a
+    phase's at once."""
     P = plan.n_pods
     if P <= 1:
         return tree
@@ -182,11 +198,8 @@ def wan_allreduce_batched(tree: Any, plan: WanPlan, *,
                                        axes=tuple(range(1, part.dim())))
                 enc_r = torch.roll(enc, o, 0)
                 scl_r = torch.roll(scl, o, 0) if scl is not None else None
-                got = wire_decode(enc_r, scl_r, torch.float32, bits)
-                if split:
-                    acc[:, j * width:(j + 1) * width] += got
-                else:
-                    acc += got
+                wire_decode_add(acc[:, j * width:(j + 1) * width] if split
+                                else acc, enc_r, scl_r, bits)
         return acc.mul_(out_scale).to(g.dtype)
 
     return compat.tree_map(per_leaf, tree)

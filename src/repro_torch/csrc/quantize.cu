@@ -52,6 +52,11 @@
 //    chip is later work.
 //  * Dequantize: elementwise, one scale per block (tile form) or per
 //    grid row (grouped form).
+//  * Dequantize-accumulate (grouped form): acc = fmaf(f32(q), scale,
+//    acc) in place, the decode's multiply fused into the add with one
+//    rounding, as XLA fuses the reference's `acc + q * scale` in the
+//    gradient sync. acc is an f32 [G, L] view whose rows may lie apart
+//    (row stride ldacc), as a part along axis 1 of a gradient leaf does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -307,6 +312,31 @@ group_dequantize_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// acc[g, :] = fmaf(f32(q[g, :]), scale[g], acc[g, :]); row g of acc at
+// acc + g * ldacc
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+group_dequantize_add_kernel(const int8_t* __restrict__ q,
+                            const float* __restrict__ scale,
+                            float* __restrict__ acc, long long L,
+                            long long ldacc) {
+  const int8_t* qg = q + static_cast<long long>(blockIdx.y) * L;
+  float* ag = acc + static_cast<long long>(blockIdx.y) * ldacc;
+  const float s = scale[blockIdx.y];
+  const long long n_vec = L / VEC;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long v = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       v < n_vec; v += stride) {
+    float f[VEC], a[VEC];
+    load_q<VEC>(qg + v * VEC, f);
+    load_vec<float, VEC>(ag + v * VEC, a);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) a[k] = fmaf(f[k], s, a[k]);
+    store_vec<float, VEC>(ag + v * VEC, a);
+  }
+}
+
 // ---- host side -----------------------------------------------------------
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
@@ -404,12 +434,29 @@ void dequantize_groups(const void* q, const void* scale, void* out,
   }
 }
 
+void dequantize_groups_add(const void* q, const void* scale, void* acc,
+                           long long G, long long L, long long ldacc,
+                           cudaStream_t st) {
+  if (use_vec4(L, q, 1, acc, 4) && ldacc % 4 == 0) {
+    const dim3 grid(blocks_per_group(L, 4, G), static_cast<unsigned>(G));
+    group_dequantize_add_kernel<4><<<grid, kThreads, 0, st>>>(
+        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
+        static_cast<float*>(acc), L, ldacc);
+  } else {
+    const dim3 grid(blocks_per_group(L, 1, G), static_cast<unsigned>(G));
+    group_dequantize_add_kernel<1><<<grid, kThreads, 0, st>>>(
+        static_cast<const int8_t*>(q), static_cast<const float*>(scale),
+        static_cast<float*>(acc), L, ldacc);
+  }
+}
+
 }  // namespace
 
 // Each launcher runs on `stream` and returns cudaGetLastError() (0 =
 // launched). The caller checks devices, types, contiguity and shapes:
 // tile form n and d multiples of block, n/block <= 65535; grouped form
-// 1 <= G <= 65535, L >= 1. `amax` is scratch of G 32-bit words.
+// 1 <= G <= 65535, L >= 1. `amax` is scratch of G 32-bit words. The
+// accumulating dequantize takes acc f32 with rows ldacc >= L apart.
 extern "C" int quantize_tile_launch(const void* x, void* q, void* scale,
                                     int is_bf16, long long n, long long d,
                                     int block, float qmax, float inv_qmax,
@@ -454,6 +501,15 @@ extern "C" int dequantize_groups_launch(const void* q, const void* scale,
     dequantize_groups<__nv_bfloat16>(q, scale, out, G, L, st);
   else
     dequantize_groups<float>(q, scale, out, G, L, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dequantize_groups_add_launch(const void* q, const void* scale,
+                                            void* acc, long long G,
+                                            long long L, long long ldacc,
+                                            void* stream) {
+  dequantize_groups_add(q, scale, acc, G, L, ldacc,
+                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,42 +7,81 @@
 //   cum[q]      = sum_{i<=q} da[h, i]                   (log-decay)
 //   y[q, h, p]  = sum_{k<=q} (C[q] . B[k]) * exp(cum[q] - cum[k]) * x[k, h, p]
 //   st[h, p, n] = sum_k exp(cum[Q-1] - cum[k]) * x[k, h, p] * B[k, n]
-// Inputs are bf16 or f32 (x [B,nC,Q,H,P], B/C [B,nC,Q,N]) and f32 (da
-// [B,nC,H,Q]); every product and sum is f32; y and st are f32. The
-// causal mask is applied by skipping k > q (the TPU kernel masks the
+// Inputs: x [B,nC,Q,H,P], B/C [B,nC,Q,N] (bf16 or f32), da [B,nC,H,Q]
+// (f32); y and st are f32, and so is every decay factor and sum. The
+// causal mask is applied by zeroing k > q (the TPU kernel masks the
 // exponent with -1e30 before exp: the upper triangle is positive and
-// would overflow).
+// would overflow). cum is summed in one fixed order (`chunk_cumsum`
+// here, by one warp), which the plain version repeats: with the served
+// model's log-decays (sums near -1e3 over a chunk) another order moves
+// decay factors by ~1e-4 relative.
 //
-// What bounds it on this card: operations. At the serve shape of
-// mamba2-2.7b (B=4, nC=3, Q=256, H=80, P=64, N=128) one call must do
-// about 8.3 GFLOP of f32 work (C B^T once per chunk, the causal y
-// product, the states), 124 us at the 67 TFLOP/s the H100 has outside
-// the tensor cores, against 128 MB moved, 38 us at 3.35 TB/s. The
-// arithmetic is the TPU kernel's f32, so the TF32 rate does not apply.
+// What bounds it on this card: bytes. At the serve shape of
+// mamba2-2.7b (B=4, nC=3, Q=256, H=80, P=64, N=128, bf16 x, B and C)
+// one call must read x (31.5 MB), B and C (1.6 MB) and da (1.0 MB) and
+// write y (62.9 MB f32) and the states (31.5 MB f32): 128.4 MB, 38.3 us
+// at 3.35 TB/s. Its two contractions are 8.2 GFLOP (16.4 with the
+// hi/lo split below), 8-17 us at the 989 TFLOP/s bf16 tensor-core rate,
+// and its 31.6 M exps a few us more.
 //
-// What the design does about it, and what it leaves for later. The
-// TPU cell keeps [8, Q, Q] f32 decay masks and scores (2 MB each) in
-// VMEM; a block here has 227 KB of shared memory, so nothing of that
-// size is carried over. Instead:
-//  * ssd_diag_kernel: one block per (b, c, h, 64-row q-tile). It stages
-//    its C tile once and walks the 64-row k-tiles up to the diagonal,
-//    staging each B and x tile in shared memory (104 KB at N=128,
-//    P=64). The 64x64 C B^T tile is computed on the fly with a 4x4
-//    register tile per thread, scaled by the decay factor (k > q is
-//    zero), stored to shared memory and multiplied into a 4x4
-//    register tile of y. Tiles above the diagonal are never visited.
-//  * ssd_state_kernel: one block per (b, c, h); the decay weights are
-//    computed once per row into shared memory and each thread keeps a
-//    4x8 register tile of the [P, N] state.
-//  * Each block computes cum from da itself (one warp, a shuffle scan).
-// It runs on the CUDA cores and recomputes C B^T for every head (80x
-// the necessary count at the serve shape, so it does about 3x the
-// bound's operations). wgmma on the two contractions, TMA staging and
-// one C B^T per (b, c) shared by all heads are later work.
+// bf16 inputs (the serve path): ssd_chunk_bf16_kernel, on the tensor
+// cores with wgmma. Every product of the reference's f32 arithmetic is
+// kept at f32 accuracy:
+//  * C B^T: C and B are bf16, so bf16 wgmma with f32 accumulation forms
+//    each product exactly, as f32 does.
+//  * The decayed scores S = (C B^T) o L and the decayed x of the states
+//    are f32. Each value v is split into hi = bf16(v) and lo = bf16(v -
+//    hi) (v - hi is exact in f32), and the product runs as two bf16
+//    wgmmas, hi . x + lo . x, into one f32 accumulator. What the split
+//    drops is under 2^-18 |v| (3.8e-6 relative); TF32 (2^-11) would not
+//    keep the 1e-4 the kernel is held to.
+// Design:
+//  * One block (one warpgroup, 128 threads) per work item. A y item is
+//    (b*c, 64-row q-tile, group of 8 heads): it computes the 64x64 C B^T
+//    tiles of k-tiles <= its q-tile once (m64n64k16, C and B K-major in
+//    shared memory) and keeps them in f32 in shared memory, 4 k-tiles
+//    (64 KB) at a time. Then, per head: the decay exp(cum[q] - cum[k])
+//    and the causal mask in registers (branch-free, as the TPU kernel
+//    masks: the exponent of a pair k > q is -1e30), the hi/lo split,
+//    and the y product as m64n64k16 wgmmas with the scores as the
+//    register A operand (the f32 accumulator layout of the first
+//    product is the A fragment layout of the second) against the x tile
+//    [64 k x 64 p], MN-major in shared memory. A states item is (b*c,
+//    group of 8 heads): it keeps the B tiles of 4 k-tiles in shared
+//    memory and, per head, multiplies (x o dec)^T, split hi/lo in
+//    registers, by them (MN-major) as m64n128k16 wgmmas.
+//  * The grid is one flat list, heaviest items first: the last q-tile
+//    (most k-tiles), the states, then the other q-tiles in falling
+//    order.
+//  * Tiles come in by cp.async (16 bytes a thread, 8 rows x 4 chunks a
+//    warp: full 32-byte sectors and no shared-memory bank conflicts)
+//    into a three-stage ring in the no-swizzle core-matrix layout wgmma
+//    reads; a head's first x tile brings its row of da with it, and the
+//    copies of the tiles two ahead are in flight during a tile's work.
+//    N is zero-padded to 128 and P to 64 in shared memory, and ragged
+//    q, k and head groups are masked. Q above 256 runs in windows of 4
+//    k-tiles, adding into y and the states in device memory.
+//  * y leaves through shared memory as 16-byte stores, each warp writing
+//    whole rows; the states straight from the accumulators as 8-byte
+//    stores, each quad of lanes filling one 32-byte sector.
+// What is left for later: a persistent grid, warp specialisation (a
+// producer warp issuing TMA loads, two consumer warpgroups), clusters
+// that share C B^T between head groups through distributed shared
+// memory, and the 128-byte swizzle.
+//
+// f32 inputs (the f32 engine; not the serve path) take the CUDA-core
+// kernels: ssd_diag_kernel, one block per (b, c, h, q-tile), C B^T and
+// the decay per 64x64 tile in 104 KB of shared memory, and
+// ssd_state_kernel, one block per (b, c, h).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+// ======================================================================
+// f32 inputs: the CUDA-core kernels
+// ======================================================================
+
 
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kTile = 64;       // rows of a q-tile and of a k-tile
@@ -52,9 +91,6 @@ constexpr int kMaxN = 128;      // 8 columns of 16 threads (states)
 constexpr int kMaxQ = 4096;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Inclusive prefix sum of da[0, n) into cum[0, n), by warp 0, one
 // 32-element segment after the other; ends with __syncthreads().
@@ -256,9 +292,9 @@ ssd_state_kernel(const T* __restrict__ x,       // [BC, Q, H, P]
 }
 
 template <typename T>
-int launch(const void* x, const void* Bm, const void* Cm, const void* da,
-           void* y, void* st, int BC, int Q, int H, int P, int N,
-           cudaStream_t stream) {
+int launch_cuda_cores(const void* x, const void* Bm, const void* Cm,
+                      const void* da, void* y, void* st, int BC, int Q,
+                      int H, int P, int N, cudaStream_t stream) {
   const size_t smem_y = diag_smem_bytes(Q, P, N);
   const size_t smem_s = state_smem_bytes(Q, P, N);
   cudaError_t err = cudaFuncSetAttribute(
@@ -283,33 +319,616 @@ int launch(const void* x, const void* Bm, const void* Cm, const void* da,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ======================================================================
+// bf16 inputs: the wgmma kernel
+// ======================================================================
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgThreads = 128;        // one warpgroup
+constexpr int kHeadsY = 8;             // heads of a y item
+constexpr int kHeadsS = 8;             // heads of a states item
+constexpr int kWin = 4;                // C B^T k-tiles kept at once
+constexpr int kStages = 3;             // x-tile (and states) ring depth
+constexpr int kTileN = 64 * 128 * 2;   // B or C tile, N padded to 128
+constexpr int kTileP = 64 * 64 * 2;    // x tile, P padded to 64
+constexpr int kScoreTile = 64 * 64 * 4;
+constexpr int kYStride = 72;           // y staging row (floats)
+constexpr int kYStage = 64 * kYStride * 4;
+
+// Shared memory, by item. A row of da or cum is Q floats padded to
+// whole 32-float segments; a ring of kStages da rows rides with the x
+// tiles.
+//  y item:      kWin score tiles | region U: while the scores are made,
+//               the C tile and a two-stage B ring; while the heads run,
+//               the x ring, the y staging, cum and the da ring.
+//  states item: kWin B tiles (a window of k-tiles) | the x ring |
+//               cum, then the decay | the da ring.
+__host__ __device__ int row_floats(int Q) { return ((Q + 31) / 32) * 32; }
+size_t rows_bytes(int Q) {
+  return static_cast<size_t>(row_floats(Q)) * (1 + kStages) * 4;
+}
+size_t y_smem_bytes(int Q) {
+  const size_t heads = kStages * kTileP + kYStage + rows_bytes(Q);
+  const size_t scores = 3 * static_cast<size_t>(kTileN);
+  return kWin * kScoreTile + (heads > scores ? heads : scores);
+}
+size_t states_smem_bytes(int Q) {
+  return kWin * kTileN + kStages * kTileP + rows_bytes(Q);
+}
+size_t bf16_smem_bytes(int Q) {
+  return y_smem_bytes(Q) > states_smem_bytes(Q) ? y_smem_bytes(Q)
+                                                : states_smem_bytes(Q);
+}
+
+// ---- PTX wrappers ------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every copy but the newest N groups has landed; then made visible to
+// the async proxy (wgmma) and to the whole block, which has also
+// finished with everything before
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int NR>
+__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle: start address, the byte
+// distance between core matrices (8 rows x 16 bytes, 128 bytes each)
+// adjacent along K (lbo) and along M or N (sbo).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d += A . B^T over one k16 step, A and B both from shared memory
+// (K-major, no swizzle); m64n64k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A . B over one k16 step, A (m64 x k16 bf16) from registers in
+// the accumulator-shaped fragment layout, B from shared memory
+// (MN-major, no swizzle); m64n64k16, f32 accumulate.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A . B over one k16 step, A (m64 x k16 bf16) from registers in
+// the accumulator-shaped fragment layout, B from shared memory
+// (MN-major, no swizzle); m64n128k16, f32 accumulate.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- tiles -------------------------------------------------------------
+// A tile of 64 rows and C8 chunks of 8 bf16 columns, stored as core
+// matrices: chunk c8 of rows 8*r8..8*r8+7 is the 128 bytes at
+// (c8 * 8 + r8) * 128, row r at (r % 8) * 16 within it. K-major use
+// (columns = K): lbo 1024, sbo 128, a k16 step is +2048 bytes.
+// MN-major use (rows = K): lbo 128, sbo 1024, a k16 step is +256.
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (((c >> 3) * 8 + (r >> 3)) << 7) + ((r & 7) << 4) + ((c & 7) << 1);
+}
+
+// Rows [0, 64) of a row-major bf16 matrix (row stride ld elements, rows
+// < nvalid and columns < cols real, the rest zero) into a tile. Each
+// warp takes 8 rows x 4 chunks at a time (full 32-byte sectors; the 8
+// rows of a quarter-warp hit 8 distinct bank groups); cp.async where a
+// whole chunk is real and `vec` (16-byte aligned rows), else plain
+// loads and one 16-byte store.
+template <int C8>
+__device__ __forceinline__ void load_tile(unsigned char* tile,
+                                          const bf16* __restrict__ src,
+                                          long long ld, int nvalid, int cols,
+                                          bool vec) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int job = warp; job < 2 * C8; job += 4) {
+    const int r = (job & 7) * 8 + (lane & 7);
+    const int c = ((job >> 3) * 4 + (lane >> 3)) * 8;
+    unsigned char* dst = tile + tile_off(r, c);
+    const bf16* s = src + r * ld + c;
+    if (vec && r < nvalid && c + 8 <= cols) {
+      cp_async16(dst, s);
+    } else {
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (r < nvalid && c + e < cols) ? s[e] : __float2bfloat16(0.0f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// n floats of a row into shared memory by cp.async: 16 bytes a thread
+// where `vec` (n a multiple of 4, the row 16-byte aligned), else 4.
+__device__ __forceinline__ void load_row(float* dst,
+                                         const float* __restrict__ src, int n,
+                                         bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x * 4; i < n; i += kWgThreads * 4)
+      cp_async16(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += kWgThreads)
+      cp_async4(dst + i, src + i);
+  }
+}
+
+__device__ __forceinline__ float tile_at(const unsigned char* tile, int r,
+                                         int c) {
+  return __bfloat162float(
+      *reinterpret_cast<const bf16*>(tile + tile_off(r, c)));
+}
+
+// hi = bf16(a, b), lo = bf16(a - hi, b - hi), packed low element first
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+struct Args {
+  const bf16* x;      // [BC, Q, H, P]
+  const bf16* Bm;     // [BC, Q, N]
+  const bf16* Cm;     // [BC, Q, N]
+  const float* da;    // [BC, H, Q]
+  float* y;           // [BC, Q, H, P]
+  float* st;          // [BC, H, P, N]
+  long long BC;
+  int Q, H, P, N, nG, nS, nQT;
+  int vec_x, vec_bc;  // 16-byte rows (P, N multiples of 8, aligned)
+  int vec_da;         // da rows in 16-byte pieces (Q a multiple of 4)
+};
+
+// y for (bc, q-tile qt, heads g*8 ..): see the head comment.
+__device__ void y_item(const Args& a, long long bc, int qt, int g,
+                       unsigned char* smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8, cp = 2 * (lane & 3);
+  const int Q = a.Q, H = a.H, P = a.P, N = a.N, rowf = row_floats(Q);
+  float4* score = reinterpret_cast<float4*>(smem);    // [kWin][8][128]
+  unsigned char* U = smem + kWin * kScoreTile;
+  unsigned char* ctile = U;
+  float* ys = reinterpret_cast<float*>(U + kStages * kTileP);
+  float* cum = reinterpret_cast<float*>(U + kStages * kTileP + kYStage);
+  float* dar = cum + rowf;                             // [kStages][rowf]
+  const int q0 = qt * 64, nq = min(64, Q - q0);
+  const int h0 = g * kHeadsY, nh = min(kHeadsY, H - h0);
+  const int nks = (N + 15) / 16;
+  const long long row0 = bc * Q;
+
+  for (int w0 = 0; w0 <= qt; w0 += kWin) {
+    const int nw = min(kWin, qt + 1 - w0);
+    // -- C B^T of k-tiles w0 .. w0+nw-1, raw, into the score tiles ----
+    __syncthreads();                    // the region U is free
+    load_tile<16>(ctile, a.Cm + (row0 + q0) * N, N, nq, N, a.vec_bc);
+    auto issue_b = [&](int j) {
+      const int k0 = (w0 + j) * 64;
+      load_tile<16>(U + kTileN * (1 + (j & 1)), a.Bm + (row0 + k0) * N, N,
+                    min(64, Q - k0), N, a.vec_bc);
+    };
+    issue_b(0);
+    cp_commit();
+    for (int j = 0; j < nw; ++j) {
+      cp_wait<0>();                     // tile j is in; tile j-1 consumed
+      if (j + 1 < nw) issue_b(j + 1);   // into tile j-1's stage
+      cp_commit();
+      const unsigned char* btile = U + kTileN * (1 + (j & 1));
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      fence_regs(s);
+      wgmma_fence();
+      for (int kk = 0; kk < nks; ++kk)
+        wgmma_ss_n64(s, desc(ctile + kk * 2048, 1024, 128),
+                     desc(btile + kk * 2048, 1024, 128));
+      wgmma_commit_wait();
+      fence_regs(s);
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        score[(j * 8 + f) * kWgThreads + tid] =
+            make_float4(s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+    }
+    __syncthreads();                    // scores written; U free again
+
+    // -- per head: decay, split, y += S . x over the window ----------
+    // a ring over (head, k-tile); a head's first tile brings its da row
+    const int T = nh * nw;
+    auto issue_x = [&](int i) {
+      const int k0 = (w0 + i % nw) * 64, h = h0 + i / nw, slot = i % kStages;
+      load_tile<8>(U + kTileP * slot, a.x + ((row0 + k0) * H + h) * P,
+                   static_cast<long long>(H) * P, min(64, Q - k0), P,
+                   a.vec_x);
+      if (i % nw == 0)
+        load_row(dar + slot * rowf, a.da + (bc * H + h) * Q, q0 + nq,
+                 a.vec_da);
+    };
+    for (int i = 0; i < kStages - 1; ++i) {   // the ring's first tiles
+      if (i < T) issue_x(i);
+      cp_commit();
+    }
+    float acc[32];
+    const int qa = q0 + r0, qb = q0 + r1;
+    for (int i = 0; i < T; ++i) {
+      const int j = i % nw, h = h0 + i / nw;
+      cp_wait<kStages - 2>();           // tile i is in; tile i-1 consumed
+      if (i + kStages - 1 < T) issue_x(i + kStages - 1);   // its stage
+      cp_commit();
+      if (j == 0) {                     // a new head: its cum, y so far
+        chunk_cumsum(dar + (i % kStages) * rowf, cum, q0 + nq);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int c = 8 * jj + cp;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = e < 2 ? qa : qb, p = c + (e & 1);
+            acc[4 * jj + e] =
+                (w0 > 0 && q < Q && p < P)
+                    ? a.y[((row0 + q) * H + h) * P + p] : 0.0f;
+          }
+        }
+      }
+      // decay (branch-free: a non-causal pair's exponent is -1e30)
+      // and split; element (jj, e) of row a is causal iff 8 jj + e <= la
+      const int k0 = (w0 + j) * 64;
+      const float ca = qa < Q ? cum[qa] : 0.0f;
+      const float cb = qb < Q ? cum[qb] : 0.0f;
+      const int la = qa < Q ? qa - k0 - cp : -1;
+      const int lb = qb < Q ? qb - k0 - cp : -1;
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 sv = score[(j * 8 + jj) * kWgThreads + tid];
+        const float2 ck =
+            *reinterpret_cast<const float2*>(cum + k0 + 8 * jj + cp);
+        const float e0 = sv.x * expf(8 * jj <= la ? ca - ck.x : -1e30f);
+        const float e1 =
+            sv.y * expf(8 * jj + 1 <= la ? ca - ck.y : -1e30f);
+        const float e2 = sv.z * expf(8 * jj <= lb ? cb - ck.x : -1e30f);
+        const float e3 =
+            sv.w * expf(8 * jj + 1 <= lb ? cb - ck.y : -1e30f);
+        const int f = 4 * (jj >> 1) + 2 * (jj & 1);
+        split2(e0, e1, hi[f], lo[f]);
+        split2(e2, e3, hi[f + 1], lo[f + 1]);
+      }
+      const unsigned char* xt = U + kTileP * (i % kStages);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t d = desc(xt + kk * 256, 128, 1024);
+        wgmma_rs_n64(acc, hi + 4 * kk, d);
+        wgmma_rs_n64(acc, lo + 4 * kk, d);
+      }
+      wgmma_commit_wait();
+      fence_regs(acc);
+      if (j == nw - 1) {                // the head's window is done
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int c = 8 * jj + cp;
+          *reinterpret_cast<float2*>(ys + r0 * kYStride + c) =
+              make_float2(acc[4 * jj], acc[4 * jj + 1]);
+          *reinterpret_cast<float2*>(ys + r1 * kYStride + c) =
+              make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+        }
+        __syncthreads();
+        for (int v = tid; v < 64 * 16; v += kWgThreads) {
+          const int r = v >> 4, c = (v & 15) * 4;
+          if (r >= nq || c >= P) continue;
+          float* dst = a.y + ((row0 + q0 + r) * H + h) * P + c;
+          const float* src = ys + r * kYStride + c;
+          if ((P & 3) == 0) {
+            *reinterpret_cast<float4*>(dst) =
+                *reinterpret_cast<const float4*>(src);
+          } else {
+            for (int e = 0; e < 4 && c + e < P; ++e) dst[e] = src[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// chunk-end states for (bc, heads sg*8 ..): see the head comment.
+__device__ void state_item(const Args& a, long long bc, int sg,
+                           unsigned char* smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8, cp = 2 * (lane & 3);
+  const int Q = a.Q, H = a.H, P = a.P, N = a.N, rowf = row_floats(Q);
+  unsigned char* bwin = smem;                          // [kWin] B tiles
+  unsigned char* xring = smem + kWin * kTileN;         // [kStages] x tiles
+  float* dec = reinterpret_cast<float*>(xring + kStages * kTileP);
+  float* dar = dec + rowf;                             // [kStages][rowf]
+  const int h0 = sg * kHeadsS, nh = min(kHeadsS, H - h0);
+  const int nkt = (Q + 63) / 64;
+  const long long row0 = bc * Q;
+
+  for (int w0 = 0; w0 < nkt; w0 += kWin) {
+    const int nw = min(kWin, nkt - w0);
+    __syncthreads();                    // the last window is consumed
+    for (int j = 0; j < nw; ++j) {      // the window's B tiles, kept
+      const int k0 = (w0 + j) * 64;
+      load_tile<16>(bwin + kTileN * j, a.Bm + (row0 + k0) * N, N,
+                    min(64, Q - k0), N, a.vec_bc);
+    }
+    // a ring over (head, k-tile); a head's first tile brings its da row
+    const int T = nh * nw;
+    auto issue = [&](int i) {
+      const int k0 = (w0 + i % nw) * 64, h = h0 + i / nw, slot = i % kStages;
+      load_tile<8>(xring + kTileP * slot, a.x + ((row0 + k0) * H + h) * P,
+                   static_cast<long long>(H) * P, min(64, Q - k0), P,
+                   a.vec_x);
+      if (i % nw == 0)
+        load_row(dar + slot * rowf, a.da + (bc * H + h) * Q, Q, a.vec_da);
+    };
+    for (int i = 0; i < kStages - 1; ++i) {   // with the B tiles
+      if (i < T) issue(i);
+      cp_commit();
+    }
+    float acc[64];
+    for (int i = 0; i < T; ++i) {
+      const int j = i % nw, h = h0 + i / nw;
+      cp_wait<kStages - 2>();           // tile i is in; tile i-1 consumed
+      if (i + kStages - 1 < T) issue(i + kStages - 1);     // its stage
+      cp_commit();
+      if (j == 0) {                     // a new head: its decay, st so far
+        chunk_cumsum(dar + (i % kStages) * rowf, dec, Q);
+        const float last = dec[Q - 1];
+        __syncthreads();                // every thread has read cum[Q-1]
+        for (int v = tid; v < Q; v += kWgThreads)
+          dec[v] = expf(last - dec[v]);
+        __syncthreads();
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = e < 2 ? r0 : r1, n = 8 * jj + cp + (e & 1);
+            acc[4 * jj + e] =
+                (w0 > 0 && p < P && n < N)
+                    ? a.st[((bc * H + h) * P + p) * N + n] : 0.0f;
+          }
+        }
+      }
+      const unsigned char* xt = xring + kTileP * (i % kStages);
+      const int k0 = (w0 + j) * 64;
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {     // k16 step f/2, k half f%2
+        const int kb = 16 * (f >> 1) + 8 * (f & 1) + cp;
+        const float d0 = k0 + kb < Q ? dec[k0 + kb] : 0.0f;
+        const float d1 = k0 + kb + 1 < Q ? dec[k0 + kb + 1] : 0.0f;
+        split2(tile_at(xt, kb, r0) * d0, tile_at(xt, kb + 1, r0) * d1,
+               hi[2 * f], lo[2 * f]);
+        split2(tile_at(xt, kb, r1) * d0, tile_at(xt, kb + 1, r1) * d1,
+               hi[2 * f + 1], lo[2 * f + 1]);
+      }
+      const unsigned char* bt = bwin + kTileN * j;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t d = desc(bt + kk * 256, 128, 1024);
+        wgmma_rs_n128(acc, hi + 4 * kk, d);
+        wgmma_rs_n128(acc, lo + 4 * kk, d);
+      }
+      wgmma_commit_wait();
+      fence_regs(acc);
+      if (j == nw - 1) {                // the head's window is done:
+#pragma unroll                          // each quad of lanes writes 32 B
+        for (int jj = 0; jj < 16; ++jj) {
+          const int n = 8 * jj + cp;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = e ? r1 : r0;
+            if (p >= P || n >= N) continue;
+            float* dst = a.st + ((bc * H + h) * P + p) * N + n;
+            const float v0 = acc[4 * jj + 2 * e], v1 = acc[4 * jj + 2 * e + 1];
+            if ((N & 1) == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (n + 1 < N) dst[1] = v1;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// One flat grid, heaviest items first: the last q-tile's y items, the
+// states items, then the other q-tiles' y items in falling order.
+__global__ void __launch_bounds__(kWgThreads)
+ssd_chunk_bf16_kernel(const Args a) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem;
+  const long long per_level = a.BC * a.nG, n_states = a.BC * a.nS;
+  long long i = blockIdx.x;
+  if (i < per_level) {
+    y_item(a, i / a.nG, a.nQT - 1, static_cast<int>(i % a.nG), smem);
+  } else if (i < per_level + n_states) {
+    i -= per_level;
+    state_item(a, i / a.nS, static_cast<int>(i % a.nS), smem);
+  } else {
+    i -= per_level + n_states;
+    const int qt = a.nQT - 2 - static_cast<int>(i / per_level);
+    const long long rest = i % per_level;
+    y_item(a, rest / a.nG, qt, static_cast<int>(rest % a.nG), smem);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int launch_wgmma(const void* x, const void* Bm, const void* Cm,
+                 const void* da, void* y, void* st, int BC, int Q, int H,
+                 int P, int N, cudaStream_t stream) {
+  Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.Bm = static_cast<const bf16*>(Bm);
+  a.Cm = static_cast<const bf16*>(Cm);
+  a.da = static_cast<const float*>(da);
+  a.y = static_cast<float*>(y);
+  a.st = static_cast<float*>(st);
+  a.BC = BC;
+  a.Q = Q; a.H = H; a.P = P; a.N = N;
+  a.nG = (H + kHeadsY - 1) / kHeadsY;
+  a.nS = (H + kHeadsS - 1) / kHeadsS;
+  a.nQT = (Q + 63) / 64;
+  a.vec_x = P % 8 == 0 && aligned16(x);
+  a.vec_bc = N % 8 == 0 && aligned16(Bm) && aligned16(Cm);
+  a.vec_da = Q % 4 == 0 && aligned16(da);
+  const long long blocks =
+      static_cast<long long>(BC) * (a.nG * a.nQT + a.nS);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bf16_smem_bytes(Q);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_chunk_bf16_kernel<<<static_cast<unsigned>(blocks), kWgThreads, smem,
+                          stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches both kernels on `stream` and returns the first CUDA error (0
-// = launched). The caller checks shapes, types and contiguity, and
-// that 1 <= P <= ssd_chunk_max_p(), 1 <= N <= ssd_chunk_max_n(),
-// 1 <= Q <= ssd_chunk_max_q(), H <= 65535 and BC <= 2^31 - 1.
-// `bf16` selects the type of x, B and C (1: bf16, 0: f32).
+// Launches the call's kernels on `stream` and returns the first CUDA
+// error (0 = launched): bf16 inputs (`bf16` = 1) go to the wgmma kernel,
+// f32 inputs (0) to the CUDA-core kernels. The caller checks shapes,
+// types and contiguity, and that 1 <= P <= ssd_chunk_max_p(),
+// 1 <= N <= ssd_chunk_max_n(), 1 <= Q <= ssd_chunk_max_q(),
+// H <= 65535 and BC <= 2^31 - 1.
 extern "C" int ssd_chunk_launch(const void* x, const void* Bm,
                                 const void* Cm, const void* da, void* y,
                                 void* st, int bf16, int BC, int Q, int H,
                                 int P, int N, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, Bm, Cm, da, y, st, BC, Q, H, P,
-                                      N, s)
-              : launch<float>(x, Bm, Cm, da, y, st, BC, Q, H, P, N, s);
+  return bf16 ? launch_wgmma(x, Bm, Cm, da, y, st, BC, Q, H, P, N, s)
+              : launch_cuda_cores<float>(x, Bm, Cm, da, y, st, BC, Q, H, P,
+                                         N, s);
 }
 
 extern "C" const char* ssd_chunk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory (bytes) one block takes at (Q, P, N): of the y
-// kernel (state = 0) or of the states kernel (state = 1). ptxas reports
-// only static shared memory.
-extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int state) {
-  return static_cast<long long>(state ? state_smem_bytes(Q, P, N)
-                                      : diag_smem_bytes(Q, P, N));
+// Dynamic shared memory (bytes) one block takes at (Q, P, N): of the
+// f32 y kernel (kernel = 0), the f32 states kernel (1) or the bf16
+// wgmma kernel (2). ptxas reports only static shared memory.
+extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int kernel) {
+  const size_t b = kernel == 2   ? bf16_smem_bytes(Q)
+                   : kernel == 1 ? state_smem_bytes(Q, P, N)
+                                 : diag_smem_bytes(Q, P, N);
+  return static_cast<long long>(b);
 }
 
 extern "C" int ssd_chunk_max_p() { return kMaxP; }

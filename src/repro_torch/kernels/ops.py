@@ -18,7 +18,8 @@ import torch
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import (dequantize_groups_ref, dequantize_ref,
+from repro_torch.kernels.ref import (dequantize_groups_add_ref,
+                                     dequantize_groups_ref, dequantize_ref,
                                      quantize_groups_ref, quantize_ref,
                                      rf_predict_ref, ssd_chunk_ref)
 
@@ -289,6 +290,37 @@ def dequantize_groups(q: torch.Tensor, scale: torch.Tensor,
     _q.launch_dequant_groups(q, scale, out)
     dequantize.launches += 1
     return out
+
+
+def dequantize_groups_add(q: torch.Tensor, scale: torch.Tensor,
+                          acc: torch.Tensor) -> torch.Tensor:
+    """acc += q[g] * scale[g] in place, the multiply fused into the add
+    with one rounding: q [G, L] int8, scale f32 [G], acc an f32 [G, L]
+    view with unit column stride (its rows may lie apart, as a part
+    along axis 1 of a larger tensor does). Returns acc. Kernel for CUDA
+    tensors, `dequantize_groups_add_ref` for CPU ones. Counts in
+    `dequantize.launches`."""
+    dev = _check_tensors({"q": (torch.int8,), "scale": (torch.float32,)},
+                         q=q, scale=scale)
+    _check_groups(q)
+    if tuple(scale.shape) != (q.shape[0],):
+        raise ValueError(f"scale must be [{q.shape[0]}], got "
+                         f"{tuple(scale.shape)}")
+    if not isinstance(acc, torch.Tensor) or acc.dtype != torch.float32:
+        raise TypeError("acc must be a float32 torch.Tensor")
+    if acc.device != dev:
+        raise ValueError(f"acc on {acc.device}, q on {dev}")
+    G, L = q.shape
+    if tuple(acc.shape) != (G, L) or (L > 1 and acc.stride(1) != 1) or \
+            (G > 1 and acc.stride(0) < L):
+        raise ValueError(f"acc must be a [{G}, {L}] view with unit column "
+                         f"stride and non-overlapping rows, got shape "
+                         f"{tuple(acc.shape)} strides {acc.stride()}")
+    if dev.type == "cpu":
+        return dequantize_groups_add_ref(q, scale, acc)
+    _q.launch_dequant_groups_add(q, scale, acc)
+    dequantize.launches += 1
+    return acc
 
 
 quantize.launches = 0

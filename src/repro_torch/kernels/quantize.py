@@ -55,9 +55,11 @@ def _lib() -> ctypes.CDLL:
         lib.quantize_groups_launch.argtypes = [_P, _P, _P, _P, _I, _L, _L,
                                                _F, _F, _P]
         lib.dequantize_groups_launch.argtypes = [_P, _P, _P, _I, _L, _L, _P]
+        lib.dequantize_groups_add_launch.argtypes = [_P, _P, _P, _L, _L, _L,
+                                                     _P]
         for fn in ("quantize_tile_launch", "dequantize_tile_launch",
                    "quantize_groups_launch", "dequantize_groups_launch",
-                   "quantize_max_groups"):
+                   "dequantize_groups_add_launch", "quantize_max_groups"):
             getattr(lib, fn).restype = _I
         lib.quantize_error_string.argtypes = [_I]
         lib.quantize_error_string.restype = ctypes.c_char_p
@@ -118,3 +120,13 @@ def launch_dequant_groups(q: torch.Tensor, scale: torch.Tensor,
     _run(q, lambda lib, st: lib.dequantize_groups_launch(
         q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.bfloat16), G, L, st))
+
+
+def launch_dequant_groups_add(q: torch.Tensor, scale: torch.Tensor,
+                              acc: torch.Tensor) -> None:
+    """acc[g] = fmaf(q[g], scale[g], acc[g]) in place; acc f32 [G, L]
+    with unit column stride and rows acc.stride(0) apart."""
+    G, L = q.shape
+    _run(q, lambda lib, st: lib.dequantize_groups_add_launch(
+        q.data_ptr(), scale.data_ptr(), acc.data_ptr(), G, L,
+        acc.stride(0), st))

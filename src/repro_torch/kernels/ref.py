@@ -125,6 +125,17 @@ def dequantize_groups_ref(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[:, None]).to(dtype)
 
 
+def dequantize_groups_add_ref(q: torch.Tensor, scale: torch.Tensor,
+                              acc: torch.Tensor) -> torch.Tensor:
+    """acc += f32(q) * scale[:, None] in place (acc f32 [G, L], may be a
+    view), with one rounding: the product and the sum in f64, rounded
+    once to f32. An int8 times an f32 is exact in f64, so this is the
+    kernel's `fmaf` except where rounding the f64 sum first lands on an
+    f32 tie (an addend below 2^-29 of the other)."""
+    acc.copy_((q.double() * scale.double()[:, None] + acc.double()).float())
+    return acc
+
+
 def _tiles(t: torch.Tensor, block: int) -> torch.Tensor:
     n, d = t.shape
     return t.reshape(n // block, block, d // block, block)

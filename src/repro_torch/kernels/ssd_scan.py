@@ -4,8 +4,11 @@ Port of `repro/kernels/ssd_scan.py::ssd_chunk_pallas`. The kernel
 source is `repro_torch/csrc/ssd_chunk.cu`; its head comment says what
 bounds it on an H100 and how the design answers that. The TPU cell's
 [8, Q, Q] decay mask and scores do not fit a Hopper block's shared
-memory, so the kernel tiles Q into 64-row tiles and computes C B^T and
-the decay on the fly. The inter-chunk recurrence stays outside, in
+memory, so the kernels tile Q into 64-row tiles. bf16 inputs (the serve
+path) take `ssd_chunk_bf16_kernel`: both contractions on the tensor
+cores (wgmma), C B^T once per head group, the f32 operands split into
+bf16 hi and lo. f32 inputs take the CUDA-core kernels `ssd_diag_kernel`
+and `ssd_state_kernel`. The inter-chunk recurrence stays outside, in
 `repro_torch/models/ssm.py::ssd_chunked`, as the reference keeps it.
 
 This module binds the library (built at first use by
@@ -50,19 +53,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# the library's kernels, by the index `ssd_chunk_smem_bytes` takes
+KERNELS = ("ssd_diag_kernel", "ssd_state_kernel", "ssd_chunk_bf16_kernel")
+
+
 def smem_bytes(Q: int, P: int, N: int) -> dict:
     """Dynamic shared memory (bytes) one block of each kernel takes at
     (Q, P, N), as the launcher requests it."""
     lib = _lib()
-    return {"ssd_diag_kernel": lib.ssd_chunk_smem_bytes(Q, P, N, 0),
-            "ssd_state_kernel": lib.ssd_chunk_smem_bytes(Q, P, N, 1)}
+    return {name: lib.ssd_chunk_smem_bytes(Q, P, N, i)
+            for i, name in enumerate(KERNELS)}
 
 
 def launch(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
            da: torch.Tensor, y: torch.Tensor, st: torch.Tensor) -> None:
-    """Launch both kernels (y, then the states) on the current stream of
-    xq's device; inputs are checked by the caller. Raises if a launch
-    was refused."""
+    """Launch the call's kernels (bf16: the wgmma kernel; f32: y, then
+    the states) on the current stream of xq's device; inputs are checked
+    by the caller. Raises if a launch was refused."""
     lib = _lib()
     B, nC, Q, H, P = xq.shape
     N = Bq.shape[-1]

@@ -7,7 +7,9 @@ The tile form: the port's plain versions (`ops.quantize` /
 sweep of `tests/test_kernels.py`. The grouped form: the port's
 `wire_encode` / `wire_decode` against the reference's under `jax.jit`,
 which is how its callers (`kv_migrate` inside `jit(shard_map)`, the
-train step) run it. Every comparison is bit-equal: no tolerance.
+train step) run it; `wire_decode_add` against the reference's jitted
+`acc + wire_decode(...)`, which XLA fuses into one FMA per element.
+Every comparison is bit-equal: no tolerance.
 
 Both reference forms compute the scale as `amax * f32(1/qmax)` (XLA
 rewrites the divide by the constant qmax) and the payload as a true
@@ -24,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.control.schedule import wire_decode, wire_encode
+from repro_torch.control.schedule import (wire_decode, wire_decode_add,
+                                          wire_encode)
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import inv_qmax, qmax
-from repro_torch.kernels.ref import (dequantize_groups_ref, dequantize_ref,
+from repro_torch.kernels.ref import (dequantize_groups_add_ref,
+                                     dequantize_groups_ref, dequantize_ref,
                                      quantize_groups_ref, quantize_ref)
 
 DTYPES = ["float32", "bfloat16"]
@@ -183,6 +187,60 @@ def test_reference_plain_tile_version_divides(ref):
     np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=1e-6)
 
 
+# (name, acc shape, axes, part): a segment (one scale); per-slice scales;
+# a part along axis 1 of a larger accumulator (rows apart in memory)
+ADD_CASES = [("seg", (1001,), None, None), ("slices", (4, 333), (1,), None),
+             ("part", (4, 16, 9), (1, 2), (4, 8))]
+
+
+def _add_inputs(shape, axes, part, bits, seed):
+    """(acc f32, q, scale, the acc view the decode goes into)."""
+    acc = torch.from_numpy(_normal(shape, seed=seed))
+    view = acc[:, part[0]:part[1]] if part else acc
+    x = torch.from_numpy(_normal(tuple(view.shape), seed=seed + 1))
+    q, scale = wire_encode(x, bits, axes)
+    return acc, q, scale, view
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+@pytest.mark.parametrize("case", ADD_CASES, ids=lambda c: c[0])
+def test_decode_add_matches_jitted_reference(ref, case, bits):
+    """acc + decode under `jax.jit` (XLA fuses the 8-bit decode's
+    multiply into the add) is what `wire_decode_add` leaves in acc."""
+    _, shape, axes, part = case
+    acc, q, scale, view = _add_inputs(shape, axes, part, bits, seed=bits)
+    qq = ref.jnp.asarray(q.float().numpy()).astype(
+        ref.jnp.bfloat16 if q.dtype == torch.bfloat16 else q.numpy().dtype)
+    # a copy, and the result taken before acc changes in place (jax may
+    # share the numpy buffer and runs asynchronously)
+    fused = ref.jax.jit(lambda a, qv, sv: a + ref.schedule.wire_decode(
+        qv, sv, ref.jnp.float32, bits))
+    want = np.asarray(fused(view.numpy().copy(), qq,
+                            None if scale is None else scale.numpy()))
+    before = acc.clone()
+    assert wire_decode_add(view, q, scale, bits) is view
+    np.testing.assert_array_equal(view.numpy(), want)
+    if part:                                 # the rest of acc is untouched
+        rest = torch.ones(shape, dtype=torch.bool)
+        rest[:, part[0]:part[1]] = False
+        assert torch.equal(acc[rest], before[rest])
+
+
+def test_decode_add_rounds_once():
+    """The plain accumulating dequantize is the f64 sum rounded once; on
+    these inputs it differs from rounding the product first."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.integers(-127, 128, (3, 4096)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(0.01, 1, 3).astype(np.float32))
+    acc = torch.from_numpy(_normal((3, 4096), seed=5))
+    want = (q.numpy().astype(np.float64) * scale.numpy()[:, None].astype(
+        np.float64) + acc.numpy().astype(np.float64)).astype(np.float32)
+    two = acc + q.float() * scale[:, None]
+    got = dequantize_groups_add_ref(q, scale, acc.clone())
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not torch.equal(got, two)
+
+
 def test_groups_are_rows():
     """The grouped plain version is the tile form's arithmetic on each
     row: one [G, L] call equals G one-row calls."""
@@ -209,7 +267,8 @@ def test_zero_input_has_the_floor_scale():
 @pytest.mark.parametrize("case", [
     "int_x", "x_1d", "x_ragged", "x_contig", "bits_16", "bits_1", "type",
     "device", "scale_shape", "scale_dtype", "q_dtype", "out_f16",
-    "groups_empty", "groups_3d", "groups_too_many", "groups_scale_shape"])
+    "groups_empty", "groups_3d", "groups_too_many", "groups_scale_shape",
+    "add_acc_dtype", "add_acc_shape", "add_acc_columns", "add_acc_rows"])
 def test_wrappers_reject_bad_inputs(case):
     x = torch.ones((256, 512))
     q, s = ops.quantize(x, 8)
@@ -233,6 +292,14 @@ def test_wrappers_reject_bad_inputs(case):
         "groups_too_many": lambda: ops.quantize_groups(
             torch.ones((65536, 1)), 8),
         "groups_scale_shape": lambda: ops.dequantize_groups(gq, gs[:1]),
+        "add_acc_dtype": lambda: ops.dequantize_groups_add(
+            gq, gs, torch.ones((2, 9), dtype=torch.bfloat16)),
+        "add_acc_shape": lambda: ops.dequantize_groups_add(
+            gq, gs, torch.ones((2, 10))),
+        "add_acc_columns": lambda: ops.dequantize_groups_add(
+            gq, gs, torch.ones((9, 2)).t()),
+        "add_acc_rows": lambda: ops.dequantize_groups_add(
+            gq, gs, torch.ones(9).expand(2, 9)),
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
@@ -255,6 +322,7 @@ def test_wrappers_count_no_launch_on_cpu():
     ops.dequantize(q, s)
     gq, gs = ops.quantize_groups(torch.ones((3, 5)), 4)
     ops.dequantize_groups(gq, gs, torch.bfloat16)
+    ops.dequantize_groups_add(gq, gs, torch.zeros((3, 5)))
     assert (ops.quantize.launches, ops.dequantize.launches) == before
 
 
@@ -372,3 +440,28 @@ def test_wire_codec_on_card_equals_host(card, bits):
         for dt in (torch.float32, torch.bfloat16):
             assert torch.equal(wire_decode(q, s, dt, bits).cpu(),
                                wire_decode(qh, sh, dt, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L,cols", [(1, 1, 1), (1, 65537, 65537),
+                                      (4, 255, 255), (4, 1 << 20, 1 << 20),
+                                      (4, 4096, 8192), (4, 333, 999)],
+                         ids=lambda v: str(v))
+def test_group_add_kernel_matches_plain_on_card(card, G, L, cols):
+    """The accumulating dequantize (fmaf) against its plain version (the
+    f64 sum rounded once), bit-equal, into an accumulator whose rows
+    are `cols` apart (a part of a wider one where cols > L)."""
+    rng = np.random.default_rng(L + G)
+    q = torch.from_numpy(rng.integers(-127, 128, (G, L)).astype(
+        np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(1e-3, 2, G).astype(
+        np.float32)).to(card)
+    wide = torch.from_numpy(_normal((G, cols), seed=L)).to(card)
+    host = wide.cpu()
+    before = ops.dequantize.launches
+    out = ops.dequantize_groups_add(q, scale, wide[:, :L])
+    torch.cuda.synchronize()
+    assert ops.dequantize.launches == before + 1
+    assert out.data_ptr() == wide.data_ptr()
+    dequantize_groups_add_ref(q.cpu(), scale.cpu(), host[:, :L])
+    assert torch.equal(wide.cpu(), host)

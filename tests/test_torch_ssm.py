@@ -9,6 +9,12 @@ atol/rtol 1e-5 (2.6e-6 measured at Q=256, N=128). The model level:
 `ssd_chunked`, the causal conv and the Mamba-2 block (full sequence,
 prefill cache and one decode step) in f32, within the same 1e-5.
 
+The kernel's arithmetic: on the card, bf16 inputs go through the
+tensor cores, with each f32 operand (the decayed scores, the decayed x
+of the states) split into bf16 hi and lo halves. `_hilo_chunk` repeats
+that arithmetic on the CPU and is held to the plain version within the
+card's 1e-4 before any chip time is spent.
+
 The reference is imported by a fixture, so the card-only cases (marked
 `cuda`) run where jax is not installed:
 ``python -m pytest -q -m cuda tests/test_torch_ssm.py``.
@@ -23,7 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import chunk_cumsum, ssd_chunk_ref
-from repro_torch.models import ssm
+from repro_torch.models import registry, ssm, transformer
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # the shapes of tests/test_kernels.py, and the full-width chunk
@@ -144,6 +150,107 @@ def test_chunk_cumsum_is_a_cumsum(Q):
                                atol=0)
 
 
+# ----------------------------------------------------------------------
+# the card kernel's arithmetic, rehearsed on the CPU
+# ----------------------------------------------------------------------
+def _hilo(v: torch.Tensor):
+    """v (f32) as bf16 hi + lo: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _hilo_chunk(xq, Bq, Cq, da, split=True):
+    """What the bf16 card kernel computes: C B^T from bf16 inputs (exact
+    products, f32 sums); the decayed scores and the decayed x of the
+    states split into bf16 hi and lo, each half multiplied by the bf16
+    operand with f32 sums, the two products added. With split=False,
+    the hi halves alone (one bf16 rounding of each f32 operand)."""
+    x, Bf, Cf = xq.float(), Bq.float(), Cq.float()
+    Q = xq.shape[2]
+    cum = chunk_cumsum(da.float())
+    seg = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri, seg, -1e30))
+    scores = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)[:, :, None] * L
+    y = sum(torch.einsum("bchqk,bckhp->bcqhp", half, x)
+            for half in _hilo(scores)[:2 if split else 1])
+    dec = torch.exp(cum[..., -1:] - cum)
+    xw = x.permute(0, 1, 3, 2, 4) * dec[..., None]
+    st = sum(torch.einsum("bchkp,bckn->bchpn", half, Bf)
+             for half in _hilo(xw)[:2 if split else 1])
+    return y, st
+
+
+@pytest.mark.parametrize("decay", [0.1, 3.0])
+def test_hilo_split_holds_the_card_tolerance(decay):
+    """At the serve widths (Q=256, P=64, N=128; 8 heads) in bf16: the
+    split drops under 2^-18 of each operand, so the kernel's arithmetic
+    stays within the card's atol/rtol 1e-4 of the plain version."""
+    args = _torch_inputs(_chunk_inputs(1, 2, 256, 8, 64, 128, seed=11,
+                                       decay=decay), torch.bfloat16)
+    y, st = _hilo_chunk(*args)
+    yp, sp = ssd_chunk_ref(*args)
+    np.testing.assert_allclose(y.numpy(), yp.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(st.numpy(), sp.numpy(), atol=1e-4, rtol=1e-4)
+    # one bf16 rounding of each f32 operand would not
+    y1, st1 = _hilo_chunk(*args, split=False)
+    assert (y1 - yp).abs().max() > 1e-4 and (st1 - sp).abs().max() > 1e-4
+
+
+def _reduced_prefill_inputs(device, S=53, seed=0):
+    """The reduced mamba2-2.7b's (bf16 compute) layer-0 `ssd_chunked`
+    inputs of a prefill of S random tokens at batch 2, captured from
+    `lm_forward` on `device`; weights from a seeded generator."""
+    cfg = reduced(get_config("mamba2-2.7b"))
+    model = registry.build_model(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (2, S))).to(device)
+    seen, real = [], ssm.ssd_chunked
+
+    def capture(*args):
+        if not seen:
+            seen.append(tuple(t.clone() if isinstance(t, torch.Tensor)
+                              else t for t in args))
+        return real(*args)
+
+    ssm.ssd_chunked = capture
+    try:
+        transformer.lm_forward(model, tokens, cfg)
+    finally:
+        ssm.ssd_chunked = real
+    return seen[0]
+
+
+def _chunks_of(xh, Bc, Cc, da, chunk):
+    """`ssd_chunked`'s own cut of its inputs into ssd_chunk's (its
+    `ops.ssd_chunk` call's arguments), via a capturing `ops`."""
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        return ssd_chunk_ref(*args)
+
+    ssm.ops = types.SimpleNamespace(ssd_chunk=capture)
+    try:
+        ssm.ssd_chunked(xh, Bc, Cc, da, chunk)
+    finally:
+        ssm.ops = ops
+    return seen[0]
+
+
+def test_hilo_split_on_the_reduced_model():
+    """The same rehearsal on the reduced model's captured bf16 prefill
+    inputs (its layer 0, batch 2, 53 tokens in chunks of 16)."""
+    xh, Bc, Cc, da, chunk = _reduced_prefill_inputs(torch.device("cpu"))
+    assert xh.dtype == torch.bfloat16
+    args = _chunks_of(xh, Bc, Cc, da, chunk)
+    y, st = _hilo_chunk(*args)
+    yp, sp = ssd_chunk_ref(*args)
+    np.testing.assert_allclose(y.numpy(), yp.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(st.numpy(), sp.numpy(), atol=1e-4, rtol=1e-4)
+
+
 def test_causal_conv_matches_reference(ref):
     rng = np.random.default_rng(1)
     x = rng.normal(size=(2, 11, 6)).astype(np.float32)
@@ -222,9 +329,11 @@ def test_short_prompt_conv_cache_is_zero_padded(block):
 # card-only: the CUDA kernel against its plain version
 # ----------------------------------------------------------------------
 # the serve shape's chunk (Q=256, H=80, P=64, N=128); ragged Q over
-# several q-tiles; the reduced model's chunk; narrow odd widths
+# several q-tiles (and two windows of C B^T tiles); the reduced model's
+# chunk; narrow odd widths; heads that fill no whole group of the bf16
+# kernel's 8 (12, and 13 with N = 24 padded to 32)
 CARD = [(256, 80, 64, 128), (300, 4, 64, 128), (16, 16, 16, 16),
-        (53, 3, 8, 24)]
+        (53, 3, 8, 24), (128, 12, 64, 128), (256, 13, 64, 24)]
 
 
 @pytest.fixture
@@ -245,8 +354,9 @@ def card():
 def test_ssd_kernel_matches_plain_on_card(card, shape, B, nC, dtype, decay):
     """atol/rtol 1e-4: both take the cumulative decay in the same order
     (`chunk_cumsum`), and the kernel's products and sums run in another
-    order (FMAs over 64-row tiles) than the plain version's. A log-decay
-    scale of 3 sums to ~-600 over a chunk, as the served model's do."""
+    order (bf16: tensor-core sums of hi/lo halves; f32: FMAs over 64-row
+    tiles) than the plain version's. A log-decay scale of 3 sums to
+    ~-600 over a chunk, as the served model's do."""
     Q, H, P, N = shape
     args = _torch_inputs(_chunk_inputs(B, nC, Q, H, P, N, seed=Q,
                                        decay=decay),
@@ -260,3 +370,44 @@ def test_ssd_kernel_matches_plain_on_card(card, shape, B, nC, dtype, decay):
                                atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(st.cpu().numpy(), sp.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_positive_log_decay_on_card(card, dtype):
+    """Log-decays of either sign (growth as well as decay): the causal
+    mask is applied before exp, as the plain version applies it, so a
+    positive exponent of a causal pair is kept; atol/rtol 1e-4."""
+    rng = np.random.default_rng(5)
+    arrays = list(_chunk_inputs(2, 2, 128, 12, 64, 128, seed=5))
+    arrays[3] = (rng.normal(size=arrays[3].shape) * 0.05).astype(np.float32)
+    args = _torch_inputs(arrays, getattr(torch, dtype), card)
+    y, st = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    yp, sp = ssd_chunk_ref(*args)
+    assert (args[3] > 0).any()
+    np.testing.assert_allclose(y.cpu().numpy(), yp.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(st.cpu().numpy(), sp.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_kernel_matches_plain_on_card(card):
+    """`ssd_chunked` on the reduced model's bf16 prefill inputs (layer 0,
+    captured on the card): through the kernel on the card against the
+    plain path on the host. y is bf16, rounded once from f32 sums in
+    another order (one bf16 step, 2^-7 relative); the final state f32
+    within 1e-4."""
+    xh, Bc, Cc, da, chunk = _reduced_prefill_inputs(card)
+    assert xh.dtype == torch.bfloat16 and xh.device.type == "cuda"
+    before = ops.ssd_chunk.launches
+    y, final = ssm.ssd_chunked(xh, Bc, Cc, da, chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_chunk.launches == before + 1
+    yp, fp = ssm.ssd_chunked(*(t.cpu() for t in (xh, Bc, Cc, da)), chunk)
+    assert y.dtype == yp.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().cpu().numpy(), yp.float().numpy(),
+                               atol=1e-4, rtol=2 ** -7)
+    np.testing.assert_allclose(final.cpu().numpy(), fp.numpy(), atol=1e-4,
+                               rtol=1e-4)
