@@ -14,8 +14,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
    and prints ptxas's reports (registers, static shared memory, spills),
    per ssd_chunk kernel its registers, spills and the dynamic shared
    memory of a block at the serve shape, and the counts of tensor-core
-   (HGMMA) and asynchronous-copy (LDGSTS, UTMALDG) instructions in
-   ssd_chunk's SASS (`cuobjdump -sass`); fails if there is no HGMMA;
+   (HGMMA) and asynchronous-copy (LDGSTS, UTMALDG, UBLKCP) instructions
+   in ssd_chunk's SASS (`cuobjdump -sass`); the same for quantize's
+   grouped (persistent) and tile (cluster) kernels; fails if there is no
+   HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
+   spill in a quantize kernel;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal, on the paper's forest (100 trees,
    depth 10, trained by `train_default_forest(600)`) over all dataset
@@ -65,8 +68,10 @@ Every phase is fatal: a failure exits non-zero before the result line.
    8 and 4 bits; the grouped form with G = 1 and 4 at ragged lengths and
    at the migrate phase's parts (21 M f32 state elements, 516 K bf16
    conv elements), with its accumulating dequantize (an FMA into an f32
-   accumulator, as the gradient sync decodes); times at 4096^2 and at
-   each part, beside the bound;
+   accumulator, as the gradient sync decodes); times at 4096^2, at
+   each migrate part and at the wansync phase's largest part ([4,
+   108,298,240] f32, quantize and the accumulating dequantize), beside
+   the bound;
 10. migrate — the slice's main path: the serve engine's cache after
    group 1's prefill (64 layers, B=4: state [64,4,80,64,128] f32, conv
    [64,4,3,5376] bf16) moved by `kv_migrate` from pod 0 to 4 ranks
@@ -87,7 +92,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    values base * (r + 1), 4 pods: `psum_allreduce_batched`, then
    `wan_allreduce_batched` under plan (b) uncompressed (within rtol 1e-5
    of psum) and compressed (within the quantization bound), each timed
-   twice; launches equal to the schedule's; peak device memory.
+   twice; launches equal to the schedule's; peak device memory. Then
+   the largest leaf's compressed call under `torch.profiler`: the parts
+   are read in place, so no copy kernel runs right before a quantize.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -208,12 +215,16 @@ def cuobjdump_path() -> str:
     raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin, triton)")
 
 
-SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG")
+SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
+# quantize.cu's kernels of this design: the grouped form's persistent
+# kernel and the tile form's cluster kernel
+QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 
 
 def sass_counts(lib: Path) -> dict:
     """How many tensor-core (HGMMA) and asynchronous-copy (LDGSTS:
-    cp.async; UTMALDG: TMA) instructions the library's SASS holds."""
+    cp.async; UTMALDG: TMA; UBLKCP: bulk copy) instructions the
+    library's SASS holds."""
     sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
@@ -223,25 +234,33 @@ def sass_counts(lib: Path) -> dict:
 def ptxas_report(text: str, kernels) -> dict:
     """{kernel: registers, spill bytes and static shared memory} from
     nvcc's -Xptxas -v output, for each of `kernels` (matched inside the
-    mangled names)."""
+    mangled names); where a kernel has several instantiations (f32 and
+    bf16), the largest of each number and their count."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             cur = next((k for k in kernels if k in m.group(1)), None)
+            if cur is not None:
+                rep = out.setdefault(cur, {})
+                rep["instances"] = rep.get("instances", 0) + 1
             continue
         if cur is None:
             continue
-        rep = out.setdefault(cur, {})
+        rep = out[cur]
+        found = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            rep["spill_stores"], rep["spill_loads"] = map(int, m.groups())
+            found["spill_stores"], found["spill_loads"] = map(int,
+                                                              m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            rep["registers"] = int(m.group(1))
+            found["registers"] = int(m.group(1))
             smem = re.search(r"(\d+) bytes smem", line)
-            rep["static_smem"] = int(smem.group(1)) if smem else 0
+            found["static_smem"] = int(smem.group(1)) if smem else 0
+        for k, v in found.items():
+            rep[k] = max(rep.get(k, 0), v)
     return out
 
 
@@ -761,6 +780,24 @@ def time_quant(x: torch.Tensor, grouped: bool, bits: int = 8) -> dict:
     return out
 
 
+def time_decode_add(x: torch.Tensor, bits: int = 8) -> dict:
+    """The accumulating dequantize (`dequantize_groups_add`, an FMA into
+    an f32 accumulator, as the compressed sync decodes) at x [G, L] f32,
+    kernel and plain version, beside its bound: the payload read (1 B),
+    the accumulator read and written (4 + 4 B) per element, and the
+    scales; one FMA per element."""
+    q, s = ops.quantize_groups(x, bits)
+    acc = x.clone()
+    nbytes = x.numel() * (1 + 4 + 4) + 4 * s.numel()
+    b_ms, by = roofline(nbytes, x.numel())
+    return {"shape": list(x.shape), "dtype": "float32", "bits": bits,
+            "ms": graph_ms(lambda: ops.dequantize_groups_add(q, s, acc)),
+            "plain_ms": device_ms(lambda: dequantize_groups_add_ref(
+                q, s, acc), launches=3, reps=3),
+            "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+            "ops": x.numel()}
+
+
 def migrate_parts(cfg, batch: int, chunks: int = 8):
     """[(name, elements, dtype)] of one chunk of each leaf of the
     model's stacked cache (the reference's layout) at `batch`."""
@@ -1040,6 +1077,33 @@ def sync_error(got: dict, want: dict, bound_of) -> float:
     return worst
 
 
+def kernel_names(fn) -> list:
+    """The names of the device operations (kernels, memcpys, memsets)
+    that `fn` runs, in the order they started, from a torch.profiler
+    trace (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+def copies_before_quantize(names: list) -> dict:
+    """From one leaf's kernel list: the quantize launches, the copy
+    kernels (PyTorch's `direct_copy_kernel`, which `.contiguous()` of a
+    strided part runs) in all and right before a quantize, and the
+    memcpys."""
+    quant = [i for i, n in enumerate(names) if "quantize_groups_kernel" in n]
+    copy = [i for i, n in enumerate(names) if "copy" in n.lower()
+            and "memcpy" not in n.lower()]
+    return {"operations": len(names), "quantize": len(quant),
+            "copy_kernels": len(copy),
+            "copies_before_quantize": sum(i - 1 in copy for i in quant),
+            "memcpy": sum("memcpy" in n.lower() for n in names)}
+
+
 def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
     """psum, then the WANify schedule uncompressed and compressed; each
     timed on the host clock around a synchronised call, twice. Checks:
@@ -1095,6 +1159,22 @@ def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
     res["expected_launches"] = {"quantize": want_n, "dequantize": want_n}
     if device.type == "cuda":
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # one leaf of the compressed call under the profiler: the
+        # largest leaf whose parts are slices along axis 1
+        path = max((p for p, g in grads.items() if any(
+            sync_parts(g.shape[1:], ph["chunks"]) > 1 for ph in sched)),
+            key=lambda p: grads[p].numel())
+        del comp
+        names = kernel_names(lambda: wan_allreduce_batched(
+            {path: grads[path]}, plan, compress=True))
+        res["profiled_leaf"] = {"path": path,
+                                "shape": list(grads[path].shape),
+                                **copies_before_quantize(names)}
+        if res["profiled_leaf"]["copies_before_quantize"] or \
+                not res["profiled_leaf"]["quantize"]:
+            raise AssertionError(f"wansync leaf {path}: "
+                                 f"{res['profiled_leaf']}; operations "
+                                 f"{names}")
     if res["raw_err"] > 1 or res["compressed_err"] > 1:
         raise AssertionError(f"wansync off its bound: uncompressed "
                              f"{res['raw_err']:.3g}, compressed "
@@ -1150,6 +1230,22 @@ def main() -> int:
     if counts["HGMMA"] == 0:
         raise AssertionError("no HGMMA instruction in ssd_chunk's SASS: "
                              "the tensor-core kernel is not in the binary")
+    q_report = ptxas_report(texts["quantize"], QUANT_KERNELS)
+    for name in QUANT_KERNELS:
+        log(f"[build] quantize: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in q_report.get(name, {}).items()))
+    q_counts = sass_counts(build.library_path("quantize"))
+    results["build_quantize"] = {"kernels": q_report, "sass": q_counts}
+    log(f"[build] quantize SASS: " + ", ".join(
+        f"{k} {v}" for k, v in q_counts.items()))
+    if q_counts["UBLKCP"] == 0:
+        raise AssertionError("no UBLKCP (bulk copy) instruction in "
+                             "quantize's SASS")
+    spills = {n: r for n, r in q_report.items()
+              if r.get("spill_stores") or r.get("spill_loads")}
+    if set(q_report) != set(QUANT_KERNELS) or spills:
+        raise AssertionError(f"quantize's ptxas report: kernels "
+                             f"{sorted(q_report)}, spills {spills}")
 
     # 3. kernel
     t0 = time.perf_counter()
@@ -1403,10 +1499,21 @@ def main() -> int:
         for name, n, dt in migrate_parts(cfg, SERVE_BATCH, c):
             q_timing[f"part_{name}_c{c}"] = time_quant(
                 torch.randn((1, n), generator=gen, device=dev).to(dt), True)
+    # the wansync phase's largest part: [P, L] f32, pod r's row scaled
+    # by r + 1
+    part = torch.randn((N_PODS, max(sync_lengths)), generator=gen,
+                       device=dev) * torch.arange(
+        1, N_PODS + 1, dtype=torch.float32, device=dev)[:, None]
+    q_timing["sync_part"] = time_quant(part, True)
+    q_timing["sync_part"]["dequantize_add"] = time_decode_add(part)
+    del part
     for key, t in q_timing.items():
-        for kname in ("quantize", "dequantize"):
+        for kname in ("quantize", "dequantize", "dequantize_add"):
+            if kname not in t:
+                continue
             k = t[kname]
-            log(f"[quantize] {kname} {t['form']} {t['shape']} {t['dtype']} "
+            log(f"[quantize] {key}: {kname} {t['form']} {t['shape']} "
+                f"{t['dtype']} "
                 f"{t['bits']} bits: kernel {k['ms']:.5f} ms (device, graph "
                 f"of 20 calls) | plain {k['plain_ms']:.5f} ms | bound "
                 f"{k['bound_ms']:.5f} ms by {k['bound_by']} ({k['bytes']} B)"
@@ -1477,6 +1584,10 @@ def main() -> int:
         f"{ws['compressed_ms']} ms (error {ws['compressed_err']:.3g} of "
         f"the quantization bound), launches {ws['launches']}; peak device "
         f"memory {ws['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"[wansync] profiled leaf {ws['profiled_leaf']['path']} "
+        f"{ws['profiled_leaf']['shape']}, compressed: " + ", ".join(
+            f"{k} {v}" for k, v in ws["profiled_leaf"].items()
+            if k not in ("path", "shape")) + " (the parts read in place)")
     results["wansync"] = ws
 
     t = timing[f"n{TICK_ROWS}"]

@@ -64,6 +64,20 @@ def _groups(x: torch.Tensor, axes: Optional[Tuple[int, ...]]) -> int:
     return x.shape[0] if x.dim() else 1
 
 
+def _rows(x: torch.Tensor, G: int) -> torch.Tensor:
+    """x as [G, L] rows with unit column stride: a view of x where one
+    exists (a contiguous tensor, a slice of one along axis 0 or 1), so
+    the kernel reads x in place; else a contiguous copy."""
+    try:
+        x2 = x.view(G, -1)
+    except RuntimeError:
+        return x.contiguous().view(G, -1)
+    L = x2.shape[1]
+    if (L > 1 and x2.stride(1) != 1) or (G > 1 and x2.stride(0) < L):
+        return x.contiguous().view(G, -1)
+    return x2
+
+
 def wire_encode(x: torch.Tensor, bits: int,
                 axes: Optional[Tuple[int, ...]] = None):
     """Quantize `x` for the wire. Returns (payload, scale-or-None).
@@ -73,13 +87,14 @@ def wire_encode(x: torch.Tensor, bits: int,
     axes=None            -> one 0-d f32 scale over the whole segment;
     axes=(1, ..., ndim-1) -> one scale per leading index, keepdims
                             ([G, 1, ...]: per pod slice).
+    `x` is read in place where it views as [G, L] (`_rows`); the
+    payload is contiguous.
     """
     if bits >= 32:
         return x, None
     if bits == 16:
         return x.to(torch.bfloat16), None
-    G = _groups(x, axes)
-    q, scale = ops.quantize_groups(x.contiguous().reshape(G, -1), bits)
+    q, scale = ops.quantize_groups(_rows(x, _groups(x, axes)), bits)
     keep = () if axes is None else x.shape[:1] + (1,) * (x.dim() - 1)
     return q.reshape(x.shape), scale.reshape(keep)
 

@@ -81,7 +81,15 @@ def _leaf_wan_allreduce(g: torch.Tensor, sched: List[Dict[str, int]], P: int,
     accumulates in the leaf's dtype, as the reference does under
     `jax.jit`: into an f32 leaf each 8-bit decode's multiply is fused
     into its add; a bf16 leaf's decode and sum are rounded to bf16 at
-    each phase."""
+    each phase.
+
+    One exception, also the reference's: XLA on the CPU computes a bf16
+    sum in f32 and drops the rounding of a result that is widened to
+    f32 right away (an f32 -> bf16 -> f32 pair with nothing between).
+    The all-gather's int8 encode of the whole segment (one chunk) widens
+    the last reduce-scatter sum so, and reads it unrounded; a phase of
+    several chunks slices the rounded sum first. The port keeps that
+    sum in f32 (`wide`) and encodes such phases from it."""
     orig_shape, orig_dtype = g.shape, g.dtype
     if g.dim() == 0:
         g = g[None]
@@ -92,18 +100,30 @@ def _leaf_wan_allreduce(g: torch.Tensor, sched: List[Dict[str, int]], P: int,
     def segment(idx: int) -> torch.Tensor:
         return g[idx * seg:(idx + 1) * seg]
 
+    def whole_int8(ph) -> bool:
+        return compress and ph["bits"] <= 8 and ph["chunks"] == 1
+
+    keep_wide = g.dtype == torch.bfloat16 and any(map(whole_int8, sched))
     # reduce-scatter: pod r reduces segment r; phase o sends segment
     # (rank + o) % P to pod rank + o
-    acc = segment(rank).clone()
-    for ph in sched:
+    acc, wide = segment(rank).clone(), None
+    for i, ph in enumerate(sched):
         bits = ph["bits"] if compress else 32
-        _exchange(segment((rank + ph["offset"]) % P), ph["offset"],
-                  ph["chunks"], bits, g.dtype, group, acc=acc)
+        send = segment((rank + ph["offset"]) % P)
+        if keep_wide and i == len(sched) - 1:
+            got = _exchange(send, ph["offset"], ph["chunks"], bits, g.dtype,
+                            group)
+            wide = acc.float() + got.float()
+            acc = wide.to(g.dtype)
+        else:
+            _exchange(send, ph["offset"], ph["chunks"], bits, g.dtype, group,
+                      acc=acc)
     # all-gather: phase o delivers pod (rank - o)'s reduced segment
     gathered = {0: acc}
     for ph in sched:
         bits = ph["bits"] if compress else 32
-        gathered[ph["offset"]] = _exchange(acc, ph["offset"], ph["chunks"],
+        src = wide if keep_wide and whole_int8(ph) else acc
+        gathered[ph["offset"]] = _exchange(src, ph["offset"], ph["chunks"],
                                            bits, g.dtype, group)
     # [gathered[0], gathered[P-1], ..., gathered[1]] lays the segments
     # out as [rank, rank+1, ..., rank+P-1]; a roll by rank*seg rotates
@@ -168,7 +188,8 @@ def wan_allreduce_batched(tree: Any, plan: WanPlan, *,
 
     Phase o rolls pod p's contribution to pod p+o; a leaf whose axis 1
     the phase's chunks divide is split into that many parts along it,
-    each made contiguous and encoded with one scale per pod slice. The
+    each encoded in place (a [P, L] view, no copy) with one scale per
+    pod slice. The
     sums run in f32 only when a phase is lossy (compress with bits <
     32), as the reference's do, and each decode's multiply is fused into
     its add (`wire_decode_add`), as XLA fuses the reference's. Unlike
@@ -191,8 +212,8 @@ def wan_allreduce_batched(tree: Any, plan: WanPlan, *,
             split = g.dim() > 1 and chunks > 1 and g.shape[1] % chunks == 0
             width = g.shape[1] // chunks if split else None
             for j in range(chunks if split else 1):
+                # read in place: a slice along axis 1 views as [P, L]
                 part = g[:, j * width:(j + 1) * width] if split else g
-                part = part.contiguous()
                 # per-pod-slice scales, rolled along with the payload
                 enc, scl = wire_encode(part, bits,
                                        axes=tuple(range(1, part.dim())))

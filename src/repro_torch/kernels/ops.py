@@ -1,7 +1,8 @@
 """Public wrappers of the port's kernels.
 
-Each wrapper checks device, type, shape and contiguity, and raises on
-anything its kernel does not take. It runs the plain version
+Each wrapper checks device, type, shape and layout (contiguity, or the
+strides of a [G, L] row view), and raises on anything its kernel does
+not take. It runs the plain version
 (`ref.py`) only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises — there is no fallback. Each keeps a plain
 integer count of kernel launches (`<wrapper>.launches`), which a run
@@ -153,9 +154,10 @@ ssd_chunk.launches = 0
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def _check_tensors(dtypes, **tensors) -> torch.device:
-    """Each a contiguous torch.Tensor of its dtype(s), all on one
-    device, on cuda or cpu. Returns the device."""
+def _check_tensors(dtypes, contiguous: bool = True, **tensors
+                   ) -> torch.device:
+    """Each a torch.Tensor of its dtype(s), contiguous unless told
+    otherwise, all on one device, on cuda or cpu. Returns the device."""
     dev = None
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -164,7 +166,7 @@ def _check_tensors(dtypes, **tensors) -> torch.device:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, not {dev} like the "
                              f"first input")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.dtype not in dtypes[name]:
             raise TypeError(f"{name} must be one of {dtypes[name]}, got "
@@ -246,26 +248,44 @@ def _check_groups(x: torch.Tensor) -> None:
                          f"and L >= 1, got {tuple(x.shape)}")
 
 
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    """t [G, L] a view with unit column stride and rows that do not
+    overlap (stride(0) >= L), as a part along axis 1 of a larger
+    tensor is."""
+    G, L = t.shape
+    if (L > 1 and t.stride(1) != 1) or (G > 1 and t.stride(0) < L):
+        raise ValueError(f"{name} must be a [{G}, {L}] view with unit "
+                         f"column stride and non-overlapping rows, got "
+                         f"strides {t.stride()}")
+
+
 def quantize_groups(x: torch.Tensor, bits: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric quantize of each row of x [G, L] (f32 or bf16) with its
     own abs-max scale -> (q int8 [G, L], scale f32 [G]): the wire
-    codec's form (G = 1 for one segment, G = P for per-pod slices).
+    codec's form (G = 1 for one segment, G = P for per-pod slices). x
+    may be a view whose rows lie apart (unit column stride, stride(0)
+    >= L); it is read in place. q is contiguous.
 
-    CUDA tensors go to the hand-written kernel (csrc/quantize.cu); CPU
-    tensors to :func:`repro_torch.kernels.ref.quantize_groups_ref`.
-    Both are bit-equal to the JAX package's `wire_encode` under
-    `jax.jit`. Counts in `quantize.launches`."""
-    dev = _check_tensors({"x": _FLOATS}, x=x)
-    bits = _check_bits(bits)
+    CUDA tensors go to the hand-written kernel (csrc/quantize.cu, one
+    launch); CPU tensors to
+    :func:`repro_torch.kernels.ref.quantize_groups_ref`. Both are
+    bit-equal to the JAX package's `wire_encode` under `jax.jit`. Counts
+    in `quantize.launches`."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("x must be a torch.Tensor")
     _check_groups(x)
+    _check_rows("x", x)
+    dev = _check_tensors({"x": _FLOATS}, x=x, contiguous=False)
+    bits = _check_bits(bits)
     if dev.type == "cpu":
         return quantize_groups_ref(x, bits)
     G = x.shape[0]
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     scale = torch.empty(G, dtype=torch.float32, device=dev)
-    amax = torch.empty(G, dtype=torch.int32, device=dev)
-    _q.launch_groups(x, q, scale, amax, bits)
+    scratch = torch.empty(_q.group_scratch_words(x), dtype=torch.int32,
+                          device=dev)
+    _q.launch_groups(x, q, scale, scratch, bits)
     quantize.launches += 1
     return q, scale
 
@@ -311,11 +331,9 @@ def dequantize_groups_add(q: torch.Tensor, scale: torch.Tensor,
     if acc.device != dev:
         raise ValueError(f"acc on {acc.device}, q on {dev}")
     G, L = q.shape
-    if tuple(acc.shape) != (G, L) or (L > 1 and acc.stride(1) != 1) or \
-            (G > 1 and acc.stride(0) < L):
-        raise ValueError(f"acc must be a [{G}, {L}] view with unit column "
-                         f"stride and non-overlapping rows, got shape "
-                         f"{tuple(acc.shape)} strides {acc.stride()}")
+    if tuple(acc.shape) != (G, L):
+        raise ValueError(f"acc must be [{G}, {L}], got {tuple(acc.shape)}")
+    _check_rows("acc", acc)
     if dev.type == "cpu":
         return dequantize_groups_add_ref(q, scale, acc)
     _q.launch_dequant_groups_add(q, scale, acc)

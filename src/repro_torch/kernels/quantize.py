@@ -52,13 +52,15 @@ def _lib() -> ctypes.CDLL:
                                              _F, _P]
         lib.dequantize_tile_launch.argtypes = [_P, _P, _P, _I, _L, _L, _I,
                                                _P]
-        lib.quantize_groups_launch.argtypes = [_P, _P, _P, _P, _I, _L, _L,
-                                               _F, _F, _P]
+        lib.quantize_groups_launch.argtypes = [_P, _L, _P, _P, _P, _L, _I,
+                                               _L, _L, _F, _F, _P]
+        lib.quantize_groups_blocks.argtypes = [_I]
         lib.dequantize_groups_launch.argtypes = [_P, _P, _P, _I, _L, _L, _P]
         lib.dequantize_groups_add_launch.argtypes = [_P, _P, _P, _L, _L, _L,
                                                      _P]
         for fn in ("quantize_tile_launch", "dequantize_tile_launch",
-                   "quantize_groups_launch", "dequantize_groups_launch",
+                   "quantize_groups_launch", "quantize_groups_blocks",
+                   "dequantize_groups_launch",
                    "dequantize_groups_add_launch", "quantize_max_groups"):
             getattr(lib, fn).restype = _I
         lib.quantize_error_string.argtypes = [_I]
@@ -102,13 +104,36 @@ def launch_dequant_tile(q: torch.Tensor, scale: torch.Tensor,
         int(out.dtype == torch.bfloat16), n, d, block, st))
 
 
+_GROUP_BLOCKS = {}
+
+
+def group_scratch_words(x: torch.Tensor) -> int:
+    """32-bit words of scratch the grouped quantize of x [G, L] needs on
+    x's device: G, plus 2 per block of its grid (at most the kernel's
+    co-resident blocks, found once per device and dtype)."""
+    key = (x.device.index, x.dtype)
+    if key not in _GROUP_BLOCKS:
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            n = lib.quantize_groups_blocks(int(x.dtype == torch.bfloat16))
+        if n <= 0:
+            msg = lib.quantize_error_string(-n).decode()
+            raise RuntimeError(f"quantize_groups occupancy: {msg} ({-n})")
+        _GROUP_BLOCKS[key] = n
+    return x.shape[0] + 2 * _GROUP_BLOCKS[key]
+
+
 def launch_groups(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                  amax: torch.Tensor, bits: int) -> None:
-    """Quantize each row of x [G, L] with its own scale (scale [G]);
-    `amax` is G words of scratch."""
+                  scratch: torch.Tensor, bits: int) -> None:
+    """Quantize each row of x [G, L] (unit column stride, rows
+    x.stride(0) apart) with its own scale into q (contiguous [G, L]) and
+    scale [G], in one cooperative launch; `scratch` holds at least
+    `group_scratch_words(x)` 32-bit words and needs no zeroing."""
     G, L = x.shape
+    ldx = x.stride(0) if G > 1 else L
     _run(x, lambda lib, st: lib.quantize_groups_launch(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(),
+        x.data_ptr(), ldx, q.data_ptr(), scale.data_ptr(),
+        scratch.data_ptr(), scratch.numel(),
         int(x.dtype == torch.bfloat16), G, L, qmax(bits),
         float(inv_qmax(bits)), st))
 

@@ -20,6 +20,8 @@ The reference is imported by a fixture, so the card-only cases (marked
 `cuda`) run where jax is not installed:
 ``python -m pytest -q -m cuda tests/test_torch_quantize.py``.
 """
+import importlib.util
+import os
 import types
 
 import numpy as np
@@ -255,10 +257,111 @@ def test_groups_are_rows():
                                   for g in range(4)]))
 
 
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_fast_rounding_matches_the_divide(bits):
+    """The CUDA kernel's payload rounding (csrc/quantize.cu q_bytes),
+    rehearsed in numpy f32: t = x * f32(1/scale), y = t + 1.5 * 2^23,
+    r = y - 1.5 * 2^23, kept where |t - r| < 0.5 - 2^-13 (y's low byte
+    is the int8), else the IEEE divide. It equals clip(rint(x / scale))
+    on random groups and on values built next to half-integers of the
+    quotient, where the product and the divide round apart."""
+    rng = np.random.default_rng(bits)
+    m = np.float32(qmax(bits))
+    magic = np.float32(1.5 * 2 ** 23)
+    fell_back = 0
+    for i in range(12):
+        amax = np.float32(10.0 ** rng.uniform(-14, 30))
+        x = (rng.uniform(-1, 1, 200_000) * amax).astype(np.float32)
+        x[:2] = amax, -amax
+        s = np.float32(max(amax, np.float32(1e-12)) * inv_qmax(bits))
+        if i % 2:          # x / s next to k + 0.5, a few ulps either side
+            k = rng.integers(-int(m), int(m), x.size).astype(np.float32)
+            x = ((k + np.float32(0.5)) * s).astype(np.float32)
+            for _ in range(int(rng.integers(0, 3))):
+                x = np.nextafter(x, np.where(rng.random(x.size) < 0.5,
+                                             -np.inf, np.inf)
+                                 .astype(np.float32))
+        t = x * (np.float32(1) / s)
+        y = t + magic
+        r = y - magic
+        fast = np.abs(t - r) < np.float32(0.5 - 2 ** -13)
+        low = (y.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+        exact = np.clip(np.rint(x / s), -m, m).astype(np.int8)
+        np.testing.assert_array_equal(np.where(fast, low, exact), exact)
+        fell_back += int((~fast).sum())
+    assert fell_back > 0              # the fallback was exercised
+
+
 def test_zero_input_has_the_floor_scale():
     q, s = ops.quantize_groups(torch.zeros((2, 7)), 8)
     assert (q == 0).all()
     assert s[0].item() == float(np.float32(1e-12) * inv_qmax(8))
+
+
+# parts along axis 1 of a [4, 16, 5, 7] leaf (as the batched gradient
+# sync cuts them): [start, stop) of axis 1
+LEAF = (4, 16, 5, 7)
+LEAF_SLICES = [(0, 8), (8, 16), (3, 5), (0, 16)]
+
+
+def _leaf_slice(dtype, part, seed=21):
+    leaf = torch.from_numpy(_normal(LEAF, seed=seed)).to(
+        getattr(torch, dtype))
+    return leaf, leaf[:, part[0]:part[1]]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("part", LEAF_SLICES, ids=lambda p: "%d-%d" % p)
+def test_group_plain_on_strided_rows_matches_contiguous_and_reference(
+        ref, part, bits, dtype):
+    """The grouped quantize of a [4, L] view whose rows lie apart equals
+    that of the same data made contiguous, and the jitted reference
+    `wire_encode` of the slice with one scale per leading index."""
+    _, sl = _leaf_slice(dtype, part)
+    view = sl.view(4, -1)
+    assert part == (0, 16) or not view.is_contiguous()
+    q, s = ops.quantize_groups(view, bits)
+    qc, sc = ops.quantize_groups(view.contiguous(), bits)
+    assert q.is_contiguous() and torch.equal(q, qc) and torch.equal(s, sc)
+    jdt = getattr(ref.jnp, dtype)
+    qr, sr = ref.jax.jit(lambda v: ref.schedule.wire_encode(
+        v, bits, (1, 2, 3)))(ref.jnp.asarray(sl.float().numpy()).astype(jdt))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr).reshape(4, -1))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr).reshape(4))
+    got_q, got_s = wire_encode(sl, bits, axes=(1, 2, 3))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(sr))
+
+
+@pytest.mark.parametrize("case", ["slice_axis1", "slice_axis0", "contiguous",
+                                  "segment", "transposed"])
+def test_wire_encode_reads_a_view_in_place(monkeypatch, case):
+    """`wire_encode` hands the grouped quantize a view of its input (the
+    same storage and row stride) wherever one exists, and a contiguous
+    copy only where none does."""
+    leaf, sl = _leaf_slice("float32", (8, 16))
+    x, axes = {"slice_axis1": (sl, (1, 2, 3)),
+               "slice_axis0": (leaf[1:3], (1, 2, 3)),
+               "contiguous": (leaf, (1, 2, 3)),
+               "segment": (leaf[:, 3:5], None),
+               "transposed": (leaf[0, :, :, 0].t(), (1,))}[case]
+    seen = []
+
+    def spy(x2d, bits):
+        seen.append((x2d.data_ptr(), x2d.stride()))
+        return quantize_groups_ref(x2d, bits)
+
+    monkeypatch.setattr(ops, "quantize_groups_ref", spy)
+    q, _ = wire_encode(x, 8, axes)
+    assert len(seen) == 1 and tuple(q.shape) == tuple(x.shape)
+    ptr, stride = seen[0]
+    if case == "segment":                    # one row: no view exists
+        assert ptr != x.data_ptr() and stride[1] == 1
+    elif case == "transposed":               # columns apart: a copy
+        assert ptr != x.data_ptr() and stride == (x.shape[1], 1)
+    else:
+        assert ptr == x.data_ptr() and stride == (x.stride(0), 1)
 
 
 # ----------------------------------------------------------------------
@@ -268,6 +371,7 @@ def test_zero_input_has_the_floor_scale():
     "int_x", "x_1d", "x_ragged", "x_contig", "bits_16", "bits_1", "type",
     "device", "scale_shape", "scale_dtype", "q_dtype", "out_f16",
     "groups_empty", "groups_3d", "groups_too_many", "groups_scale_shape",
+    "groups_columns", "groups_rows",
     "add_acc_dtype", "add_acc_shape", "add_acc_columns", "add_acc_rows"])
 def test_wrappers_reject_bad_inputs(case):
     x = torch.ones((256, 512))
@@ -292,6 +396,10 @@ def test_wrappers_reject_bad_inputs(case):
         "groups_too_many": lambda: ops.quantize_groups(
             torch.ones((65536, 1)), 8),
         "groups_scale_shape": lambda: ops.dequantize_groups(gq, gs[:1]),
+        "groups_columns": lambda: ops.quantize_groups(
+            torch.ones((9, 2)).t(), 8),
+        "groups_rows": lambda: ops.quantize_groups(
+            torch.ones(9).expand(2, 9), 8),
         "add_acc_dtype": lambda: ops.dequantize_groups_add(
             gq, gs, torch.ones((2, 9), dtype=torch.bfloat16)),
         "add_acc_shape": lambda: ops.dequantize_groups_add(
@@ -358,12 +466,26 @@ def _assert_kernel_equals_plain(x, bits, block=256):
 @pytest.mark.parametrize("shape,block", [((256, 256), 256),
                                          ((1024, 1024), 256),
                                          ((512, 768), 256),
-                                         ((96, 160), 32), ((30, 42), 6)],
+                                         ((96, 160), 32), ((30, 42), 6),
+                                         ((4096, 4096), 256),
+                                         ((1024, 1024), 128)],
                          ids=lambda v: str(v))
 def test_tile_kernel_matches_plain_on_card(card, shape, block, bits, dtype):
+    """Block 256 takes the cluster kernel (4 blocks a tile), other
+    blocks the one-block-per-tile kernel."""
     x = torch.from_numpy(_normal(shape, seed=shape[0])).to(card).to(
         getattr(torch, dtype))
     _assert_kernel_equals_plain(x, bits, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_kernel_unaligned_view_on_card(card, dtype):
+    """A contiguous [512, 256] view one element into its storage (not
+    16-byte aligned) takes the one-block-per-tile kernel."""
+    flat = torch.from_numpy(_normal(512 * 256 + 1, seed=8)).to(card).to(
+        getattr(torch, dtype))
+    _assert_kernel_equals_plain(flat[1:].view(512, 256), 8)
 
 
 def _assert_groups_equal_plain(x, bits):
@@ -412,6 +534,127 @@ def test_group_kernel_extremes_on_card(card):
     x[3, 5] = float("nan")
     _, s = ops.quantize_groups(x, 8)
     assert torch.isnan(s[3]) and torch.isfinite(s[:3]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_group_kernel_many_groups_on_card(card, bits, dtype):
+    """G = 4096 rows of 255: each block's stripe crosses many rows, and
+    the rows start off 16-byte boundaries."""
+    x = torch.from_numpy(_normal((4096, 255), seed=bits)).to(card).to(
+        getattr(torch, dtype))
+    _assert_groups_equal_plain(x, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L", [(1, 1 << 25), (4, 1 << 23)],
+                         ids=lambda v: str(v))
+def test_group_kernel_larger_than_the_chip_holds_on_card(card, G, L):
+    """A 128 MB f32 part: more than the blocks' rings (about 25 MB) and
+    L2 hold, so pass 2 reads most of it from device memory again."""
+    x = torch.randn((G, L), generator=torch.Generator(device=card)
+                    .manual_seed(G), device=card) * 3
+    _assert_groups_equal_plain(x, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("G,L,cols,off", [(4, 255, 1023, 0),
+                                          (4, 4096, 8192, 4096),
+                                          (4, 65537, 131075, 1),
+                                          (1, 333, 999, 5),
+                                          (64, 1000, 3000, 2)],
+                         ids=lambda v: str(v))
+def test_group_kernel_strided_rows_on_card(card, G, L, cols, off, bits,
+                                           dtype):
+    """x [G, L] read in place from a wider tensor: rows `cols` apart,
+    starting `off` elements in."""
+    wide = torch.from_numpy(_normal((G, cols), seed=L + off)).to(card).to(
+        getattr(torch, dtype))
+    view = wide[:, off:off + L]
+    q, s = ops.quantize_groups(view, bits)
+    qp, sp = quantize_groups_ref(view, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    q2, s2 = ops.quantize_groups(view.contiguous(), bits)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_group_kernel_inf_and_nan_on_card(card, dtype):
+    """A row holding +inf, one holding -inf, an all-zero row and a row
+    with a NaN: the scales bit-equal to the plain version's (inf, inf,
+    the floor, NaN), the payloads wherever x / scale is a number."""
+    x = torch.from_numpy(_normal((5, 3001), seed=3)).to(card)
+    x[0, 17] = float("inf")
+    x[1, 3000] = float("-inf")
+    x[2] = 0.0
+    x[3, 0] = float("nan")
+    x = x.to(getattr(torch, dtype))
+    q, s = ops.quantize_groups(x, 8)
+    qp, sp = quantize_groups_ref(x, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(s[[0, 1, 2, 4]], sp[[0, 1, 2, 4]])
+    assert torch.isinf(s[:2]).all() and torch.isnan(s[3]) and \
+        torch.isnan(sp[3])
+    # a NaN quotient (inf / inf, or a NaN input) has no defined int8 value
+    num = ~torch.isnan(x.float() / sp[:, None])
+    assert torch.equal(q[num], qp[num])
+
+
+def _device_kernels(fn):
+    """The names of the device operations (kernels, memsets, memcpys)
+    `fn` runs, in order: `chip_smoke.kernel_names`, a torch.profiler
+    trace."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernel_names(fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,L", [(1, 20971520), (4, 65537)],
+                         ids=lambda v: str(v))
+def test_group_quantize_is_one_kernel_on_card(card, G, L):
+    """One grouped quantize call enqueues one kernel and no memset."""
+    x = torch.ones((G, L), device=card)
+    ops.quantize_groups(x, 8)                     # built and warmed
+    names = _device_kernels(lambda: ops.quantize_groups(x, 8))
+    assert len(names) == 1 and "quantize_groups_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_group_quantize_in_a_cuda_graph_on_card(card):
+    """The cooperative launch is captured in a CUDA graph (as
+    `chip_smoke.py` times it) and replays to the same bits."""
+    x = torch.from_numpy(_normal((4, 300001), seed=6)).to(card)
+    want_q, want_s = ops.quantize_groups(x, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.quantize_groups(x, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = ops.quantize_groups(x, 8)
+    q.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+def test_tile_quantize_is_the_cluster_kernel_on_card(card):
+    x = torch.ones((1024, 1024), device=card)
+    ops.quantize(x, 8)
+    names = _device_kernels(lambda: ops.quantize(x, 8))
+    assert len(names) == 1 and "quantize_tile_cluster_kernel" in names[0], \
+        names
 
 
 @pytest.mark.cuda
