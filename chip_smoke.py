@@ -9,8 +9,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
 1. device  — `nvidia-smi` name and power limit, torch and CUDA versions
    (exits non-zero when `torch.cuda.is_available()` is false);
 2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`,
-   `ssd_chunk.cu` and `quantize.cu` with `nvcc`, one process each, started
-   together,
+   `ssd_chunk.cu`, `quantize.cu` and `silu.cu` with `nvcc`, one process
+   each, started together,
    and prints ptxas's reports (registers, static shared memory, spills),
    per ssd_chunk kernel its registers, spills and the dynamic shared
    memory of a block at the serve shape, and the counts of tensor-core
@@ -18,12 +18,20 @@ Every phase is fatal: a failure exits non-zero before the result line.
    in ssd_chunk's SASS (`cuobjdump -sass`); the same for quantize's
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
-   spill in a quantize kernel;
+   spill in a quantize kernel; and rf_predict's two kernels' and silu's
+   two kernels' registers and spills, failing on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
-   version on the card, bit-equal, on the paper's forest (100 trees,
+   version on the card, bit-equal (both of its kernels: the one the
+   wrapper picks and the other), on the paper's forest (100 trees,
    depth 10, trained by `train_default_forest(600)`) over all dataset
-   rows, on ragged n, and on the fleet demo forest (8 x 5); times at one
-   tick's rows (n=192) and at the whole dataset, beside the bound;
+   rows, at one tick's rows, at the 16-variant sweep's 3,072 and on
+   ragged n, and on the fleet demo forest (8 x 5); times (each call on
+   the forest's packed nodes, one launch; and each kernel forced) at
+   one tick's rows (n=192), at 3,072 dataset rows (as many as a
+   16-variant sweep predicts) and at the whole dataset, beside the
+   bound and the launch floor (an empty kernel replayed in a graph);
+   and each kernel forced over a sweep of n, from which the wrapper's
+   choice of kernel and warps is read;
 4. main    — `FleetController.tick()` of 16 four-DC jobs on the 8-DC mesh
    (noisy simulator, seed 0) for 24 ticks through the kernel: one launch
    per tick, per-DC budgets within `m_total`, finite positive achieved
@@ -44,6 +52,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
    at (16,16,16,16), each with nC in {1, 3} and B in {1, 4}; times at
    both groups' serve shapes beside the bound (bytes; the contractions
    at the bf16 tensor-core rate, the elementwise work at the f32 rate);
+   then the silu and silu_gate CUDA kernels against their plain versions,
+   bit-equal, on layer 0's inputs of both prefills and of a decode step
+   in the layouts the model hands them (z a slice of the in-projection's
+   output), timed at group 1's prefill and the decode step beside the
+   bound (bytes);
 7. serve   — the slice's main path: `mamba2-2.7b` at its full width and
    depth (64 layers, bf16 compute, f32 params, weights from a
    `torch.Generator` seeded 0) behind `Engine(..., ServeConfig(batch=4,
@@ -51,12 +64,13 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `replan()` and its migration schedule, then 8 requests of 300-700
    prompt tokens (`default_rng(0)`), 16 new tokens each: two prefills
    and 32 decode steps. Exactly 2 x 64 ssd_chunk launches (one per
-   layer per prefill) and 1 rf_predict launch; every id in [0, vocab),
+   layer per prefill), one silu and one silu_gate launch per layer per
+   step, and 1 rf_predict launch; every id in [0, vocab),
    every logit finite; prefill ms per group, decode ms per step,
    tokens/s, peak device memory, the kernel's share of each prefill.
    After the counted run, group 1's prefill and 4 decode steps run
    again under `torch.profiler` for the device time by kind (ssd_chunk,
-   matrix products, the rest) and the device's busy share;
+   silu, matrix products, the rest) and the device's busy share;
 8. parity  — the same engine at full width but 2 layers in f32, on the
    card (kernels) and on the host (plain versions) with the same
    weights: prefill and 4 decode steps' logits (both fed the card's
@@ -131,12 +145,13 @@ from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
 from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E402
                                JobSpec, default_fleet_forest)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
+from repro_torch.kernels import rf_predict as rf_kernel  # noqa: E402
 from repro_torch.kernels.quantize import qmax  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     ssd_chunk_ref)
+                                     silu_gate_ref, silu_ref, ssd_chunk_ref)
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
                                             unstack_cache)
@@ -219,6 +234,9 @@ SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 # quantize.cu's kernels of this design: the grouped form's persistent
 # kernel and the tile form's cluster kernel
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
+RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
+SILU_KERNELS = ("silu_kernel", "silu_gate_kernel")
+SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
 
 def sass_counts(lib: Path) -> dict:
@@ -282,19 +300,36 @@ def packed_on(forest, device):
 # ----------------------------------------------------------------------
 def check_kernel(forest, X: np.ndarray, device) -> float:
     """Kernel (or, on the CPU, the wrapper's plain path) vs the plain
-    version on the same inputs; bit-equal. Returns max |diff|."""
+    version on the same inputs; bit-equal. On the card both kernels are
+    held: the one the wrapper picks, through `ops.rf_predict` on the
+    forest's packed nodes as the predictors call it, and the other one
+    launched directly. Returns max |diff|."""
     packed = packed_on(forest, device)
+    nodes = rf_kernel.pack_nodes(packed[0], packed[1])
     Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
-    got = ops.rf_predict(*packed, Xt, depth=forest.depth)
+    got = ops.rf_predict(*packed, Xt, depth=forest.depth, nodes=nodes)
     want = rf_predict_ref(*packed, Xt, forest.depth)
-    if device.type == "cuda":
+    outs = [got]
+    if device.type == "cuda" and len(X):
+        picked = rf_kernel.launch_shape(
+            len(X), packed[0].shape[0], X.shape[1],
+            torch.cuda.get_device_properties(device).multi_processor_count)
+        other = rf_kernel.LaunchShape("pair") if picked.kernel == "tile" \
+            else rf_kernel.LaunchShape("tile", rf_kernel.BATCH_WARPS)
+        outs.append(torch.full_like(want, float("nan")))
+        rf_kernel.launch(nodes, packed[2], Xt, outs[-1], forest.depth,
+                         shape=other)
         torch.cuda.synchronize()
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    if got.shape != (len(X),) or not np.isfinite(got).all():
-        raise AssertionError(f"kernel output shape {got.shape} or "
-                             f"non-finite values at n={len(X)}")
-    np.testing.assert_array_equal(got, want)
-    return float(np.max(np.abs(got - want))) if len(X) else 0.0
+    err = 0.0
+    for out in outs:
+        got, ref = out.cpu().numpy(), want.cpu().numpy()
+        if got.shape != (len(X),) or not np.isfinite(got).all():
+            raise AssertionError(f"kernel output shape {got.shape} or "
+                                 f"non-finite values at n={len(X)}")
+        np.testing.assert_array_equal(got, ref)
+        if len(X):
+            err = max(err, float(np.max(np.abs(got - ref))))
+    return err
 
 
 def work_of(forest, X: np.ndarray):
@@ -396,23 +431,79 @@ def call_ms(fn, reps: int = 21) -> float:
     return float(np.median(times))
 
 
+def launch_floor_ms() -> float:
+    """Device time of one launch of an empty kernel, replayed in a graph
+    like the timed calls: the floor a call at a handful of tiles is read
+    against."""
+    lib = rf_kernel._lib()
+    return graph_ms(lambda: lib.rf_predict_empty_launch(
+        torch.cuda.current_stream().cuda_stream), launches=50, reps=21)
+
+
 def time_kernel(forest, X):
+    """The wrapper's call on the forest's packed nodes (one launch), and
+    each kernel forced (the pair kernel, the tile kernel at the warps
+    the wrapper would give it), beside the plain version and the bound."""
     dev = torch.device("cuda")
     packed = packed_on(forest, dev)
+    nodes = rf_kernel.pack_nodes(packed[0], packed[1])
     Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+    out = torch.empty(len(X), dtype=torch.float32, device=dev)
     bound_ms, by, nbytes, nops = bound(forest, X)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T = packed[0].shape[0]
+    shape = rf_kernel.launch_shape(len(X), T, X.shape[1], sms)
+    tile = rf_kernel.launch_shape(max(len(X), rf_kernel.PAIR_ROWS + 1), T,
+                                  X.shape[1], sms)
+
+    def call():
+        return ops.rf_predict(*packed, Xt, depth=forest.depth, nodes=nodes)
+
+    def forced(cut):
+        return lambda: rf_kernel.launch(nodes, packed[2], Xt, out,
+                                        forest.depth, shape=cut)
     return {
-        "n": len(X), "trees": int(forest.feat.shape[0]),
-        "depth": forest.depth,
-        "ms": graph_ms(lambda: ops.rf_predict(*packed, Xt,
-                                              depth=forest.depth),
-                       launches=50, reps=21),
-        "wrapper_ms": call_ms(
-            lambda: ops.rf_predict(*packed, Xt, depth=forest.depth)),
+        "n": len(X), "trees": T, "depth": forest.depth,
+        "shape": vars(shape),
+        "ms": graph_ms(call, launches=50, reps=21),
+        "pair_ms": graph_ms(forced(rf_kernel.LaunchShape("pair")),
+                            launches=50, reps=21),
+        "tile_ms": graph_ms(forced(tile), launches=50, reps=21),
+        "tile_warps": tile.warps,
+        "wrapper_ms": call_ms(call),
         "plain_ms": call_ms(
             lambda: rf_predict_ref(*packed, Xt, forest.depth)),
         "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes, "ops": nops,
     }
+
+
+SWEEP_NS = (192, 512, 1024, 1536, 3072, 4224, 6144, 8192)
+SWEEP_WARPS = (8, 13, 25)
+
+
+def sweep_kernels(forest, X) -> dict:
+    """Device ms of each kernel forced (the pair kernel; the tile kernel
+    at SWEEP_WARPS warps) and of the wrapper's pick, at SWEEP_NS rows and
+    all of X: the measurements `rf_predict.launch_shape`'s thresholds
+    (PAIR_ROWS, the warps by tiles per SM) are read from."""
+    dev = torch.device("cuda")
+    packed = packed_on(forest, dev)
+    nodes = rf_kernel.pack_nodes(packed[0], packed[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for n in SWEEP_NS + (len(X),):
+        Xt = torch.from_numpy(np.ascontiguousarray(X[:n], np.float32)).to(dev)
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        cuts = [rf_kernel.LaunchShape("pair")] + [
+            rf_kernel.LaunchShape("tile", w) for w in SWEEP_WARPS]
+        row = {f"{c.kernel}{c.warps or ''}": graph_ms(
+            lambda c=c: rf_kernel.launch(nodes, packed[2], Xt, out,
+                                         forest.depth, shape=c),
+            launches=50, reps=11) for c in cuts}
+        row["picked"] = vars(rf_kernel.launch_shape(
+            n, packed[0].shape[0], X.shape[1], sms))
+        rows[n] = row
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -581,22 +672,38 @@ def time_ssd(args):
             "ops": nops}
 
 
-def capture_layer0(eng: Engine, tokens: np.ndarray):
-    """Prefill `tokens` and return the inputs of its first ssd_chunk
-    call (layer 0), cloned; `ssm` sees a capturing `ops` meanwhile."""
-    seen = []
+def _copy_laid_out(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t with t's strides (a slice stays a slice)."""
+    c = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                            device=t.device)
+    return c.copy_(t)
 
-    def capture(*args):
-        if not seen:
-            seen.append(tuple(t.clone() for t in args))
-        return ops.ssd_chunk(*args)
 
-    ssm.ops = types.SimpleNamespace(ssd_chunk=capture)
+GATED_OPS = ("ssd_chunk", "silu", "silu_gate")
+
+
+def capture_layer0(step):
+    """Run `step` (an engine's prefill or decode step) and return the
+    inputs of its first call of each of GATED_OPS (layer 0's) that it
+    makes, copied in their layouts; `ssm` sees a capturing `ops`
+    meanwhile."""
+    seen = {}
+
+    def capturing(name):
+        fn = getattr(ops, name)
+
+        def call(*args):
+            if name not in seen:
+                seen[name] = tuple(_copy_laid_out(t) for t in args)
+            return fn(*args)
+        return call
+
+    ssm.ops = types.SimpleNamespace(**{n: capturing(n) for n in GATED_OPS})
     try:
-        eng.prefill(tokens)
+        step()
     finally:
         ssm.ops = ops
-    return seen[0]
+    return seen
 
 
 # ----------------------------------------------------------------------
@@ -637,21 +744,23 @@ def check_served(out, reqs, vocab: int) -> None:
 def device_kernels(fn):
     """Run `fn` under `torch.profiler` (CUDA activity only) and return
     the device time of its kernels (ms) in total and by kind: the
-    ssd_chunk kernels, matrix products (cuBLAS's nvjet / gemm / gemv
+    ssd_chunk kernels, the silu kernels, matrix products (cuBLAS's
+    nvjet / gemm / gemv
     and CUTLASS names), and the rest; the number of kernels run; and
     the five longest kernels by total time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"ssd_chunk": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"ssd_chunk": 0.0, "silu": 0.0, "matmul": 0.0, "other": 0.0}
     rows, n_kernels = [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        kind = "ssd_chunk" if "ssd_" in name else "matmul" if any(
+        kind = "ssd_chunk" if "ssd_" in name else "silu" if \
+            "silu_" in name else "matmul" if any(
             k in name for k in ("nvjet", "gemm", "gemv", "cutlass", "xmma",
                                 "cublas")) else "other"
         kinds[kind] += ms
@@ -692,6 +801,77 @@ def check_parity(card: Engine, host: Engine, tokens: np.ndarray,
         equal += int((ids_c == ids_h).sum())
         cur = ids_c
     return err, mag, compared, equal
+
+
+# ----------------------------------------------------------------------
+# silu phase
+# ----------------------------------------------------------------------
+SILU_PLAIN = {"silu": silu_ref, "silu_gate": silu_gate_ref}
+
+
+def check_silu(name: str, args) -> float:
+    """The silu kernel `name` (on the CPU: the wrapper's plain path) vs
+    its plain version on the same inputs: every output bit-equal,
+    finite, of the input's shape. Returns max |diff| (0)."""
+    got = getattr(ops, name)(*args)
+    want = SILU_PLAIN[name](*args)
+    sync(args[0].device)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if g.shape != tuple(args[0].shape) or not np.isfinite(g).all():
+            raise AssertionError(f"{name} output {g.shape} or non-finite "
+                                 f"values")
+        np.testing.assert_array_equal(g, w)
+        err = max(err, float(np.max(np.abs(g - w))))
+    return err
+
+
+def silu_bound(name: str, args):
+    """(ms, bound_by, bytes, ops): each input read once and each output
+    written once (silu: x in, x's dtype out; silu_gate: y and z in, y's
+    dtype and f32 out), against the f32 operations (exp, add, divide,
+    multiply a silu, the gate's product one more)."""
+    n, e = args[0].numel(), args[0].element_size()
+    if name == "silu":
+        nbytes, nops = 2 * n * e, 4 * n
+    else:
+        nbytes, nops = n * (3 * e + 4), 5 * n
+    return roofline(nbytes, nops) + (nbytes, nops)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of `fn` takes to issue, `calls` calls back
+    to back with no synchronize between them (what a decode step pays
+    per call while the device keeps up), after warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def time_silu(name: str, args) -> dict:
+    """Device ms of the wrapper's call (one launch) beside the plain
+    version and the bound, and the host's issue time of each."""
+    bound_ms, by, nbytes, nops = silu_bound(name, args)
+    fn, plain = getattr(ops, name), SILU_PLAIN[name]
+    return {"shape": list(args[0].shape), "strides": [
+                list(t.stride()) for t in args],
+            "dtype": str(args[0].dtype).replace("torch.", ""),
+            "ms": graph_ms(lambda: fn(*args), launches=20, reps=11),
+            "wrapper_ms": call_ms(lambda: fn(*args)),
+            "plain_ms": call_ms(lambda: plain(*args)),
+            "host_us": host_us(lambda: fn(*args)),
+            "plain_host_us": host_us(lambda: plain(*args)),
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "ops": nops}
 
 
 # ----------------------------------------------------------------------
@@ -1206,9 +1386,10 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize"])
+    texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize",
+                                   "silu"])
     results["build_s"] = time.perf_counter() - t0
-    log(f"[build] rf_predict + ssd_chunk + quantize in "
+    log(f"[build] rf_predict + ssd_chunk + quantize + silu in "
         f"{results['build_s']:.1f} s")
     for name, text in texts.items():
         for line in text.strip().splitlines():
@@ -1247,6 +1428,27 @@ def main() -> int:
         raise AssertionError(f"quantize's ptxas report: kernels "
                              f"{sorted(q_report)}, spills {spills}")
 
+    rf_report = ptxas_report(texts["rf_predict"], RF_KERNELS)
+    results["build_rf_predict"] = {"kernels": rf_report}
+    for name in RF_KERNELS:
+        log(f"[build] rf_predict: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in rf_report.get(name, {}).items()))
+    rf_spills = {n: r for n, r in rf_report.items()
+                 if r.get("spill_stores") or r.get("spill_loads")}
+    if set(rf_report) != set(RF_KERNELS) or rf_spills:
+        raise AssertionError(f"rf_predict's ptxas report: kernels "
+                             f"{sorted(rf_report)}, spills {rf_spills}")
+    silu_report = ptxas_report(texts["silu"], SILU_KERNELS)
+    results["build_silu"] = {"kernels": silu_report}
+    for name in SILU_KERNELS:
+        log(f"[build] silu: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in silu_report.get(name, {}).items()))
+    silu_spills = {n: r for n, r in silu_report.items()
+                   if r.get("spill_stores") or r.get("spill_loads")}
+    if set(silu_report) != set(SILU_KERNELS) or silu_spills:
+        raise AssertionError(f"silu's ptxas report: kernels "
+                             f"{sorted(silu_report)}, spills {silu_spills}")
+
     # 3. kernel
     t0 = time.perf_counter()
     X, _ = generate_dataset(600)
@@ -1258,21 +1460,34 @@ def main() -> int:
         f"({results['paper_forest']['fit_s']:.1f} s)")
     demo = default_fleet_forest()
     max_err = 0.0
-    for name, forest, ns in (("paper", paper, (len(X), 1, 191, len(X) - 1)),
+    for name, forest, ns in (("paper", paper, (len(X), 1, 191, TICK_ROWS,
+                                               SWEEP_ROWS, len(X) - 1)),
                              ("demo", demo, (len(X), TICK_ROWS, 1))):
         for n in ns:
             err = check_kernel(forest, X[:n], dev)
             max_err = max(max_err, err)
             log(f"[kernel] {name} n={n}: bit-equal to plain "
                 f"(max |diff| {err})")
-    timing = {f"n{n}": time_kernel(paper, X[:n]) for n in (TICK_ROWS, len(X))}
+    timing = {f"n{n}": time_kernel(paper, X[:n])
+              for n in (TICK_ROWS, SWEEP_ROWS, len(X))}
+    floor_ms = launch_floor_ms()
     for key, t in timing.items():
-        log(f"[kernel] rf_predict {key}: kernel {t['ms']:.5f} ms (device, "
-            f"graph) | wrapper call {t['wrapper_ms']:.5f} ms | plain "
-            f"{t['plain_ms']:.5f} ms | bound {t['bound_ms']:.6f} ms by "
-            f"{t['bound_by']} ({t['bytes']} B, {t['ops']} ops) | library "
+        log(f"[kernel] rf_predict {key} ({t['shape']}): kernel "
+            f"{t['ms']:.5f} ms (device, graph; pair kernel "
+            f"{t['pair_ms']:.5f}, tile kernel at {t['tile_warps']} warps "
+            f"{t['tile_ms']:.5f}) | launch floor "
+            f"{floor_ms:.5f} ms | wrapper call {t['wrapper_ms']:.5f} ms | "
+            f"plain {t['plain_ms']:.5f} ms | bound {t['bound_ms']:.6f} ms "
+            f"by {t['bound_by']} ({t['bytes']} B, {t['ops']} ops) | library "
             f"call: none (no single PyTorch call computes a forest)")
     results["rf_predict"] = timing
+    results["launch_floor_ms"] = floor_ms
+    sweep = sweep_kernels(paper, X)
+    for n, row in sweep.items():
+        log(f"[kernel] rf_predict sweep n={n}: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in row.items() if k != "picked")
+            + f"; the wrapper picks {row['picked']}")
+    results["rf_predict_sweep"] = sweep
 
     # 4. the same fleet with span tracing on, first: it supplies only the
     # stage breakdown (its ticks carry the tracer's cost) and takes the
@@ -1339,9 +1554,11 @@ def main() -> int:
     reqs = serve_requests(cfg.vocab)
     # warm-up prefills of both groups (cuBLAS set-up, the cast to bf16)
     # that also capture layer 0's kernel inputs, and a warm-up decode
-    captured = [capture_layer0(eng, eng.batch_tokens(g))
-                for g in groups_of(reqs)]
-    eng.decode(np.zeros(SERVE_BATCH, np.int32))
+    caps = [capture_layer0(lambda g=g: eng.prefill(eng.batch_tokens(g)))
+            for g in groups_of(reqs)]
+    captured = [c["ssd_chunk"] for c in caps]
+    decode_cap = capture_layer0(
+        lambda: eng.decode(np.zeros(SERVE_BATCH, np.int32)))
     log(f"[ssd] {ARCH}: {sum(p.numel() for p in model.parameters())} "
         f"params on the card in {results['model_init_s']:.1f} s; layer-0 "
         f"inputs per group: " + ", ".join(
@@ -1371,12 +1588,40 @@ def main() -> int:
             f"single PyTorch call computes the SSD chunk)")
     results["ssd_chunk"] = {"cases": ssd_cases, "timing": ssd_timing}
 
+    # 6b. silu: both kernels against their plain versions on layer 0's
+    # inputs of both prefills and of a decode step, in their layouts
+    silu_err, silu_cases, silu_timing = 0.0, [], {}
+    for step, cap in (("prefill1", caps[0]), ("prefill2", caps[1]),
+                      ("decode", decode_cap)):
+        for name in ("silu", "silu_gate"):
+            err = check_silu(name, cap[name])
+            silu_err = max(silu_err, err)
+            silu_cases.append({"step": step, "kernel": name, "err": err,
+                               "shape": list(cap[name][0].shape)})
+            log(f"[silu] {name} {step} {tuple(cap[name][0].shape)} "
+                f"{cap[name][0].dtype} (strides "
+                f"{[t.stride() for t in cap[name]]}): bit-equal to plain")
+            if step != "prefill2":
+                silu_timing[f"{name}_{step}"] = time_silu(name, cap[name])
+    for key, t in silu_timing.items():
+        log(f"[silu] {key} {t['shape']} {t['dtype']}: kernel {t['ms']:.5f} "
+            f"ms (device, graph of 20 calls) | wrapper call "
+            f"{t['wrapper_ms']:.5f} ms | plain {t['plain_ms']:.5f} ms | "
+            f"host issue {t['host_us']:.2f} us a call (plain "
+            f"{t['plain_host_us']:.2f}) | "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+            f"B) | library call: none (F.silu rounds once; this rounds "
+            f"each op as the reference's compiled program does)")
+    results["silu"] = {"cases": silu_cases, "timing": silu_timing}
+
     # 7. serve: the slice's main path, counts zeroed just before it
     eng.timings = {"prefill_s": [], "decode_s": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.ssd_chunk.launches = 0
     ops.rf_predict.launches = 0
+    ops.silu.launches = 0
+    ops.silu_gate.launches = 0
     t0 = time.perf_counter()
     eng.replan()
     schedule = eng.migration_schedule()
@@ -1385,14 +1630,21 @@ def main() -> int:
     serve_s = time.perf_counter() - t1
     replan_s = t1 - t0
     serve_counts = {"ssd_chunk": ops.ssd_chunk.launches,
-                    "rf_predict": ops.rf_predict.launches}
+                    "rf_predict": ops.rf_predict.launches,
+                    "silu": ops.silu.launches,
+                    "silu_gate": ops.silu_gate.launches}
     peak = torch.cuda.max_memory_allocated()
     n_groups = len(groups_of(reqs))
-    if serve_counts != {"ssd_chunk": n_groups * cfg.n_layers,
-                        "rf_predict": 1}:
+    n_steps = len(eng.timings["prefill_s"]) + len(eng.timings["decode_s"])
+    want_counts = {"ssd_chunk": n_groups * cfg.n_layers, "rf_predict": 1,
+                   "silu": n_steps * cfg.n_layers,
+                   "silu_gate": n_steps * cfg.n_layers}
+    if serve_counts != want_counts:
         raise AssertionError(f"serve launches {serve_counts}, expected "
-                             f"{n_groups * cfg.n_layers} ssd_chunk (one "
-                             f"per layer per prefill) and 1 rf_predict")
+                             f"{want_counts}: one ssd_chunk per layer per "
+                             f"prefill, one silu and one silu_gate per "
+                             f"layer per step ({n_steps} steps), 1 "
+                             f"rf_predict")
     check_served(out, reqs, cfg.vocab)
     prefill_ms = [v * 1e3 for v in eng.timings["prefill_s"]]
     decode_ms = [v * 1e3 for v in eng.timings["decode_s"]]
@@ -1567,7 +1819,7 @@ def main() -> int:
 
     # 11. wansync: the engine freed, a gradient tree of the model's
     # parameter shapes (layers stacked), 4 pods on the card
-    del eng, model, card_model, captured
+    del eng, model, card_model, captured, caps, decode_cap
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grads = make_grads(grad_shapes(wcfg), dev)
@@ -1614,7 +1866,17 @@ def main() -> int:
         "ms": qs[kname]["ms"], "plain_ms": qs[kname]["plain_ms"],
         "bound_ms": qs[kname]["bound_ms"],
         "bound_by": qs[kname]["bound_by"], "library_ms": None}
-        for kname, line in (("quantize", 37), ("dequantize", 61))]}
+        for kname, line in (("quantize", 37), ("dequantize", 61))] + [{
+        "name": kname, "route": "cuda",
+        "source": "src/repro_torch/csrc/silu.cu",
+        "replaces": f"src/repro/models/ssm.py:{line}",
+        "launches": serve_counts[kname], "max_abs_err": silu_err,
+        "ms": silu_timing[f"{kname}_prefill1"]["ms"],
+        "plain_ms": silu_timing[f"{kname}_prefill1"]["plain_ms"],
+        "bound_ms": silu_timing[f"{kname}_prefill1"]["bound_ms"],
+        "bound_by": silu_timing[f"{kname}_prefill1"]["bound_by"],
+        "library_ms": None}
+        for kname, line in (("silu", 137), ("silu_gate", 152))]}
     results["kernels"] = kernels["kernels"]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

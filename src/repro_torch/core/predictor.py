@@ -16,8 +16,8 @@ these replace (the reference's `forest_predict_jnp` is
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Union
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from repro_torch.core.forest import RandomForest
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rf_predict_ref
+from repro_torch.kernels.rf_predict import pack_nodes
 
 FEATURE_NAMES = ("n_dcs", "snapshot_bw", "mem_util", "cpu_load",
                  "retransmissions", "distance_miles")
@@ -70,6 +71,22 @@ class BwPredictor:
     one (None = CUDA, which raises without a card)."""
     forest: RandomForest
     device: Optional[Union[str, torch.device]] = None
+    # per device: (the forest's arrays, their tensors, the kernel's nodes)
+    _on_device: Dict[torch.device, tuple] = field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def forest_on(self, dev: torch.device):
+        """The forest's (feat, thr, leaf) tensors and the kernel's node
+        layout on `dev`: moved and packed once per device, again only
+        when the forest's arrays are replaced (a refit)."""
+        arrays = self.forest.packed()
+        hit = self._on_device.get(dev)
+        if hit is None or any(a is not b for a, b in zip(hit[0], arrays)):
+            tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in arrays]
+            hit = (arrays, tensors, pack_nodes(tensors[0], tensors[1]))
+            self._on_device[dev] = hit
+        return hit[1], hit[2]
 
     def predict_matrix(self, n_dcs: int, snap_bw: np.ndarray,
                        mem_util: np.ndarray, cpu_load: np.ndarray,
@@ -90,13 +107,13 @@ class BwPredictor:
             if backend == "cuda" and dev.type != "cuda":
                 raise ValueError("backend 'cuda' needs a CUDA device, "
                                  f"got {dev}")
-            packed = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                      for a in self.forest.packed()]
+            packed, nodes = self.forest_on(dev)
             Xt = torch.from_numpy(X).to(dev)
             if backend == "torch":
                 out = rf_predict_ref(*packed, Xt, self.forest.depth)
             else:
-                out = ops.rf_predict(*packed, Xt, depth=self.forest.depth)
+                out = ops.rf_predict(*packed, Xt, depth=self.forest.depth,
+                                     nodes=nodes)
             vals = out.cpu().numpy()
         else:
             raise ValueError(backend)

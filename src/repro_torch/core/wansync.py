@@ -162,16 +162,22 @@ def psum_allreduce(tree: Any, *, group: Optional[dist.ProcessGroup] = None,
     """Baseline: one all-reduce per leaf (the paper's 'vanilla'
     transfer). The pods' leaves are gathered through host memory (the
     transport of `compat.ppermute`) and summed on the leaf's device in
-    pod order, so every pod holds the same bits."""
+    pod order, so every pod holds the same bits. That is the order of
+    the reference's all-reduce on XLA's CPU runtime, which also adds a
+    leaf narrower than f32 (bf16) in f32 and rounds the sum once, at
+    the end; the port does the same."""
     n = compat.pod_count(group)
 
     def per_leaf(g: torch.Tensor) -> torch.Tensor:
         send = g.detach().to("cpu").contiguous()
         got = [torch.empty_like(send) for _ in range(n)]
         dist.all_gather(got, send, group=group)
-        s = got[0].to(g.device)
+        wide = torch.promote_types(g.dtype, torch.float32) \
+            if g.is_floating_point() else g.dtype
+        s = got[0].to(g.device, wide)
         for part in got[1:]:
-            s = s + part.to(g.device)
+            s = s + part.to(g.device, wide)
+        s = s.to(g.dtype)
         # the reference's `s / n`, as XLA computes a divide by a constant
         return s * (1.0 / n) if mean else s
 

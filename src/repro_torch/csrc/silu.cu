@@ -1,0 +1,217 @@
+// Mamba-2's two SiLU gates, rounded where the JAX package's compiled CPU
+// program rounds them, for Hopper (sm_90a).
+//
+// The JAX package has no kernel here: src/repro/models/ssm.py calls
+// jax.nn.silu on the causal conv's output (:137, :184) and on the gate z
+// in rms_norm(y * silu(z)) (:152, :200), and XLA expands the logistic to
+// 1 / (1 + exp(-x)), rounding each op to the compute dtype. In bf16 that
+// rounds four times where one fused silu rounds once, and the served ids
+// follow the rounding. The plain PyTorch versions
+// (kernels/ref.py::silu_ref, silu_gate_ref) do the same in eager ops,
+// five and eight kernels a call; these do it in one, in registers:
+//
+//  * silu_kernel: out = silu(x), each op rounded to T;
+//  * silu_gate_kernel: s = silu(z) as above, prod = y * s in f32, and
+//    both prod (f32, what the norm's variance reads: XLA drops that
+//    convert pair) and prod rounded to T (the norm's value path).
+//
+// Both are elementwise and read their inputs once: bound by bytes. On
+// bf16 (the serve model's prefill) a thread takes 4 elements of each
+// input with one 8-byte load where the rows allow (unit stride, a
+// multiple of 4 wide, 8-byte aligned), else one element; f32 inputs (a
+// decode step's conv output, read transposed, and the f32 model) take
+// one, since wider f32 vectors made the gate kernel spill around the
+// IEEE divide's slow-path call. The
+// inputs are read through strides, rows `ld` apart and elements `inc`
+// apart (z is a slice of the in-projection's output; the decode step's
+// conv output comes out of einsum transposed); the outputs are dense.
+// expf, the IEEE divide and the _rn intrinsics are the ops PyTorch's
+// eager kernels use, so the bits equal the plain version's.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxGridY = 65535;
+
+// elements of T a thread takes with one load (see the head comment)
+template <typename T>
+constexpr int kVec = 4;
+template <>
+constexpr int kVec<float> = 1;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T, back in f32
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// x * (1 / (1 + exp(-x))), each op rounded to T
+template <typename T>
+__device__ __forceinline__ float silu_of(float x) {
+  const float e = rnd<T>(expf(-x));
+  const float u = rnd<T>(__fadd_rn(1.0f, e));
+  const float r = rnd<T>(__fdiv_rn(1.0f, u));
+  return rnd<T>(__fmul_rn(x, r));
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// rows [rows, d] of x, `ldx` apart, elements `incx` apart (1 when V >
+// 1) -> out [rows, d] dense
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+silu_kernel(const T* __restrict__ x, long long ldx, long long incx,
+            T* __restrict__ out, long long rows, long long d) {
+  const long long cols = d / V;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    for (long long c = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+         c < cols; c += static_cast<long long>(gridDim.x) * kThreads) {
+      const Vec<T, V> in =
+          *reinterpret_cast<const Vec<T, V>*>(x + r * ldx + c * V * incx);
+      Vec<T, V> o;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        o.v[i] = from_f32<T>(silu_of<T>(to_f32(in.v[i])));
+      *reinterpret_cast<Vec<T, V>*>(out + r * d + c * V) = o;
+    }
+  }
+}
+
+// y [rows, d] rows `ldy` apart, elements `incy` apart; z likewise ->
+// value [rows, d] in T and prod [rows, d] in f32, both dense
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+silu_gate_kernel(const T* __restrict__ y, long long ldy, long long incy,
+                 const T* __restrict__ z, long long ldz, long long incz,
+                 T* __restrict__ value, float* __restrict__ prod,
+                 long long rows, long long d) {
+  const long long cols = d / V;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    for (long long c = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+         c < cols; c += static_cast<long long>(gridDim.x) * kThreads) {
+      const Vec<T, V> yv =
+          *reinterpret_cast<const Vec<T, V>*>(y + r * ldy + c * V * incy);
+      const Vec<T, V> zv =
+          *reinterpret_cast<const Vec<T, V>*>(z + r * ldz + c * V * incz);
+      Vec<T, V> o;
+      Vec<float, V> p;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        p.v[i] = __fmul_rn(to_f32(yv.v[i]), silu_of<T>(to_f32(zv.v[i])));
+        o.v[i] = from_f32<T>(p.v[i]);
+      }
+      *reinterpret_cast<Vec<T, V>*>(value + r * d + c * V) = o;
+      *reinterpret_cast<Vec<float, V>*>(prod + r * d + c * V) = p;
+    }
+  }
+}
+
+bool aligned(const void* p, long long bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// kVec<T> elements a thread where rows have unit stride and every row
+// start is aligned to the vector
+template <typename T>
+bool use_vec(long long d, long long ld, long long inc, const void* p) {
+  return kVec<T> > 1 && inc == 1 && d % kVec<T> == 0 &&
+         ld % kVec<T> == 0 && aligned(p, sizeof(T) * kVec<T>);
+}
+
+dim3 grid_of(long long rows, long long cols) {
+  long long gx = (cols + kThreads - 1) / kThreads;
+  long long gy = rows < kMaxGridY ? rows : kMaxGridY;
+  return dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+}
+
+template <typename T>
+void silu(const void* x, long long ldx, long long incx, void* out,
+          long long rows, long long d, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (use_vec<T>(d, ldx, incx, x) && aligned(out, sizeof(T) * kVec<T>))
+    silu_kernel<T, kVec<T>><<<grid_of(rows, d / kVec<T>), kThreads, 0, st>>>(
+        xt, ldx, 1, ot, rows, d);
+  else
+    silu_kernel<T, 1><<<grid_of(rows, d), kThreads, 0, st>>>(
+        xt, ldx, incx, ot, rows, d);
+}
+
+template <typename T>
+void silu_gate(const void* y, long long ldy, long long incy, const void* z,
+               long long ldz, long long incz, void* value, void* prod,
+               long long rows, long long d, cudaStream_t st) {
+  const T* yt = static_cast<const T*>(y);
+  const T* zt = static_cast<const T*>(z);
+  T* vt = static_cast<T*>(value);
+  float* pt = static_cast<float*>(prod);
+  if (use_vec<T>(d, ldy, incy, y) && use_vec<T>(d, ldz, incz, z) &&
+      aligned(value, sizeof(T) * kVec<T>) && aligned(prod, 4 * kVec<T>))
+    silu_gate_kernel<T, kVec<T>>
+        <<<grid_of(rows, d / kVec<T>), kThreads, 0, st>>>(
+            yt, ldy, 1, zt, ldz, 1, vt, pt, rows, d);
+  else
+    silu_gate_kernel<T, 1><<<grid_of(rows, d), kThreads, 0, st>>>(
+        yt, ldy, incy, zt, ldz, incz, vt, pt, rows, d);
+}
+
+}  // namespace
+
+// dtype: 0 = f32, 1 = bf16. Each returns cudaGetLastError() (0 =
+// launched). The caller checks shapes, types, rows >= 1 and d >= 1;
+// the outputs are dense and do not overlap the inputs.
+extern "C" int silu_launch(const void* x, long long ldx, long long incx,
+                           void* out, long long rows, long long d, int dtype,
+                           void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    silu<float>(x, ldx, incx, out, rows, d, st);
+  else if (dtype == 1)
+    silu<__nv_bfloat16>(x, ldx, incx, out, rows, d, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int silu_gate_launch(const void* y, long long ldy, long long incy,
+                                const void* z, long long ldz, long long incz,
+                                void* value, void* prod, long long rows,
+                                long long d, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    silu_gate<float>(y, ldy, incy, z, ldz, incz, value, prod, rows, d, st);
+  else if (dtype == 1)
+    silu_gate<__nv_bfloat16>(y, ldy, incy, z, ldz, incz, value, prod, rows,
+                             d, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* silu_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.forest import RandomForest
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.rf_predict import pack_nodes
 from repro_torch.obs.registry import MetricsRegistry
 
 
@@ -32,7 +33,8 @@ class BatchedRfPredictor:
                  device: Optional[Union[str, torch.device]] = None):
         """`forest` must be fitted; its packed complete-binary-tree
         arrays move to `device` (None = CUDA, which raises without a
-        card) once, here, not per call."""
+        card) and the kernel's node layout is built from them once,
+        here, not per call."""
         if forest.feat is None:
             raise ValueError("forest must be fitted before batching")
         self.forest = forest
@@ -40,6 +42,8 @@ class BatchedRfPredictor:
         self._packed = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in forest.packed())
+        # the kernel's 8-byte node layout, packed once here
+        self._nodes = pack_nodes(self._packed[0], self._packed[1])
         # launch accounting on the obs registry, read through
         # `kernel_calls`
         self.metrics = MetricsRegistry("predictor")
@@ -59,7 +63,7 @@ class BatchedRfPredictor:
         self._m_rows.inc(int(np.asarray(X).shape[0]))
         Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32))
         vals = ops.rf_predict(*self._packed, Xt.to(self.device),
-                              depth=self.forest.depth)
+                              depth=self.forest.depth, nodes=self._nodes)
         return np.maximum(vals.cpu().numpy().astype(np.float64), 1.0)
 
     @property

@@ -42,15 +42,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".nvcc.txt")
+
+
 def compile_sources(names: Sequence[str]) -> Dict[str, str]:
     """Compile each `csrc/<name>.cu` that is not built yet, one `nvcc`
     per source, all started together. Returns nvcc's output per name
-    (ptxas's register / shared-memory report; empty when the library
-    was there); raises with it if an nvcc failed."""
+    (ptxas's register / shared-memory report; for a library built
+    before, the output kept beside it); raises with it if an nvcc
+    failed."""
     procs = {}
+    texts = {name: "" for name in names}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = _log_path(out)
+            texts[name] = log.read_text() if log.exists() else ""
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -58,7 +66,6 @@ def compile_sources(names: Sequence[str]) -> Dict[str, str]:
             [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    texts = {name: "" for name in names}
     failed = []
     for name, (out, tmp, proc) in procs.items():
         texts[name] = proc.communicate()[0]
@@ -66,6 +73,7 @@ def compile_sources(names: Sequence[str]) -> Dict[str, str]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n"
                           f"{texts[name]}")
         else:
+            _log_path(out).write_text(texts[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

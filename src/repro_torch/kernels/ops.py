@@ -8,21 +8,24 @@ the kernel or raises — there is no fallback. Each keeps a plain
 integer count of kernel launches (`<wrapper>.launches`), which a run
 reads to show that its main path went through the kernel. The quantize
 kernel's two forms (per tile, per group) share `quantize.launches`, and
-the dequantize kernel's share `dequantize.launches`.
+the dequantize kernel's share `dequantize.launches`; `silu` and
+`silu_gate` count their own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
+from repro_torch.kernels import silu as _silu
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      quantize_groups_ref, quantize_ref,
-                                     rf_predict_ref, ssd_chunk_ref)
+                                     rf_predict_ref, silu_gate_ref, silu_ref,
+                                     ssd_chunk_ref)
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -57,15 +60,42 @@ def _check_rf(feat, thr, leaf, X, depth) -> None:
         raise ValueError(f"X must be [n, F], got {tuple(X.shape)}")
 
 
+def _check_nodes(nodes, feat) -> None:
+    if not isinstance(nodes, torch.Tensor):
+        raise TypeError("nodes must be a torch.Tensor")
+    if nodes.device != feat.device:
+        raise ValueError(f"nodes on {nodes.device}, feat on {feat.device}")
+    if nodes.dtype != torch.int32 or \
+            tuple(nodes.shape) != (*feat.shape, 2):
+        raise ValueError(f"nodes must be int32 [{feat.shape[0]}, "
+                         f"{feat.shape[1]}, 2] (rf_predict.pack_nodes), got "
+                         f"{nodes.dtype} {tuple(nodes.shape)}")
+    if not nodes.is_contiguous() or nodes.data_ptr() % 8:
+        raise ValueError("nodes must be contiguous and 8-byte aligned")
+
+
 def rf_predict(feat: torch.Tensor, thr: torch.Tensor, leaf: torch.Tensor,
-               X: torch.Tensor, depth: int) -> torch.Tensor:
+               X: torch.Tensor, depth: int,
+               nodes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forest inference over packed trees: X [n, F] -> [n] f32.
 
-    CUDA tensors go to the hand-written kernel (csrc/rf_predict.cu);
-    CPU tensors to :func:`repro_torch.kernels.ref.rf_predict_ref`. Both
-    sum the trees in tree order in f32 and multiply by the f32
-    reciprocal of T, bit-equal to the JAX package's `rf_predict`."""
+    CUDA tensors go to the hand-written kernel (csrc/rf_predict.cu),
+    one launch a call; CPU tensors to
+    :func:`repro_torch.kernels.ref.rf_predict_ref`. Both sum the trees
+    in tree order in f32 and multiply by the f32 reciprocal of T,
+    bit-equal to the JAX package's `rf_predict`. The kernel reads the
+    nodes as `rf_predict.pack_nodes(feat, thr)` lays them out: pass
+    that as `nodes` to keep the packing out of the call (the
+    predictors hold it beside the forest); without it the call packs
+    first. `nodes` must be `pack_nodes` of these same `feat` and `thr`:
+    the card reads only `nodes` and the CPU only `feat` / `thr`, and a
+    `nodes` left from another forest of the same shape is not
+    detected (only its dtype, shape, device and alignment are checked).
+    Whoever refits the forest packs it again, as
+    `BwPredictor.forest_on` does."""
     _check_rf(feat, thr, leaf, X, depth)
+    if nodes is not None:
+        _check_nodes(nodes, feat)
     if X.device.type == "cpu":
         return rf_predict_ref(feat, thr, leaf, X, int(depth))
     if X.device.type != "cuda":
@@ -73,7 +103,9 @@ def rf_predict(feat: torch.Tensor, thr: torch.Tensor, leaf: torch.Tensor,
     out = torch.empty(X.shape[0], dtype=torch.float32, device=X.device)
     if X.shape[0] == 0:
         return out
-    _rf.launch(feat, thr, leaf, X, out, int(depth))
+    if nodes is None:
+        nodes = _rf.pack_nodes(feat, thr)
+    _rf.launch(nodes, leaf, X, out, int(depth))
     rf_predict.launches += 1
     return out
 
@@ -146,6 +178,72 @@ def ssd_chunk(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
 
 
 ssd_chunk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# SiLU gates
+# ----------------------------------------------------------------------
+def _check_gate_input(name: str, t):
+    """t a float32 / bfloat16 tensor on cuda or cpu whose leading dims
+    collapse into rows; returns its row view."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype not in _silu.DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if not (t.is_cuda or t.is_cpu):
+        raise ValueError(f"silu runs on cuda or cpu, not {t.device}")
+    return _silu.row_view(t)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), each op of 1 / (1 + exp(-x)) rounded to x's dtype
+    (f32 or bf16), as XLA on the CPU computes the JAX package's
+    `jax.nn.silu` -> a dense tensor of x's shape and dtype. x may be a
+    strided view (:func:`repro_torch.kernels.silu.row_view`).
+
+    CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
+    launch); CPU tensors to :func:`repro_torch.kernels.ref.silu_ref`,
+    which it equals bit for bit."""
+    view = _check_gate_input("x", x)
+    if x.is_cpu:
+        return silu_ref(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if out.numel():
+        _silu.launch(x, out, view)
+        silu.launches += 1
+    return out
+
+
+silu.launches = 0
+
+
+def silu_gate(y: torch.Tensor, z: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input of Mamba-2's gated norm `rms_norm(y * silu(z))`: y and z
+    of one shape and dtype (f32 or bf16), either a strided view -> (y *
+    silu(z) rounded to y's dtype, the same product in f32), both dense;
+    silu as :func:`silu` rounds it, the product taken in f32.
+
+    CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
+    launch); CPU tensors to
+    :func:`repro_torch.kernels.ref.silu_gate_ref`, which it equals bit
+    for bit."""
+    views = (_check_gate_input("y", y), _check_gate_input("z", z))
+    if z.dtype != y.dtype or z.shape != y.shape or z.device != y.device:
+        raise ValueError(f"z must match y: got {z.dtype} {tuple(z.shape)} "
+                         f"on {z.device}, y {y.dtype} {tuple(y.shape)} on "
+                         f"{y.device}")
+    if y.is_cpu:
+        return silu_gate_ref(y, z)
+    value = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    prod = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    if value.numel():
+        _silu.launch_gate(y, z, value, prod, views)
+        silu_gate.launches += 1
+    return value, prod
+
+
+silu_gate.launches = 0
 
 
 # ----------------------------------------------------------------------

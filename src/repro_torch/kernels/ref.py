@@ -91,6 +91,27 @@ def ssd_chunk_ref(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
+# SiLU gates (Mamba-2), rounded as XLA on the CPU rounds jax.nn.silu
+# ----------------------------------------------------------------------
+def silu_ref(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) as XLA on the CPU computes the reference's
+    `jax.nn.silu`: the logistic expanded to 1 / (1 + exp(-x)), each op
+    rounded to x's dtype. In bf16 that rounds four times where `F.silu`
+    rounds once, which moves many outputs by an ulp."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def silu_gate_ref(y: torch.Tensor, z: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input of the reference's `rms_norm(y * silu(z), scale)` as its
+    compiled program keeps it: (the product rounded to y's dtype, the
+    value path; the unrounded f32 product, which XLA fuses into the
+    variance, dropping that f32 -> dtype -> f32 pair)."""
+    prod = y.float() * silu_ref(z).float()
+    return prod.to(y.dtype), prod
+
+
+# ----------------------------------------------------------------------
 # Symmetric abs-max quantize / dequantize (the wire codec)
 # ----------------------------------------------------------------------
 def _scale_of(amax: torch.Tensor, bits: int) -> torch.Tensor:

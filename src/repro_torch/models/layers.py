@@ -9,10 +9,13 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+             eps: float = 1e-5, stats: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """Stats in f32, VALUE path in the compute dtype (x's), as the
-    reference does."""
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    reference does. `stats`, if given, is the f32 value the variance is
+    taken of in place of x (see `ssm.gated_rms_norm`)."""
+    src = x.float() if stats is None else stats
+    var = torch.mean(torch.square(src), dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
 

@@ -138,6 +138,17 @@ def ssd_chunked(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
     return y[:, :S_orig].to(xh.dtype), carry
 
 
+def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """The reference's `rms_norm(y * silu(z), scale)`, with the rounding
+    its compiled HLO keeps: the product is rounded to y's dtype on the
+    value path, but XLA fuses the unrounded f32 product into the
+    variance (it drops that f32 -> bf16 -> f32 pair). Both come from
+    one `ops.silu_gate` call."""
+    value, prod = ops.silu_gate(y, z)
+    return rms_norm(value, scale, eps, stats=prod)
+
+
 def _split_xbc(xBC: torch.Tensor, d_inner: int, N: int):
     return (xBC[..., :d_inner], xBC[..., d_inner:d_inner + N],
             xBC[..., d_inner + N:])
@@ -160,7 +171,7 @@ def ssm_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     xBC_raw = zxbcdt[..., d_inner:d_inner + conv_ch]
     dt_raw = zxbcdt[..., d_inner + conv_ch:]
 
-    xBC = F.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xBC = ops.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
     xs, Bc, Cc = _split_xbc(xBC, d_inner, N)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
@@ -173,7 +184,7 @@ def ssm_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = y + p["D"][None, None, :, None].float() * xh
 
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if not return_cache:
         return out
@@ -213,7 +224,7 @@ def ssm_decode(p: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
     hist = torch.cat([cache["conv"], xBC[:, None]], dim=1)   # [B,K,C]
     conv_out = torch.einsum("bkc,kc->bc", hist.float(),
                             p["conv_w"].float()) + p["conv_b"].float()
-    xBC = F.silu(conv_out).to(x.dtype)
+    xBC = ops.silu(conv_out).to(x.dtype)
     new_conv = hist[:, 1:]
 
     xs, Bc, Cc = _split_xbc(xBC, d_inner, N)
@@ -227,5 +238,5 @@ def ssm_decode(p: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
     y = torch.einsum("bn,bhpn->bhp", Cc.float(), st)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(B, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     return (y @ p["out_proj"])[:, None], {"conv": new_conv, "state": st}

@@ -42,11 +42,15 @@ class Request:
 
 @dataclass
 class ServeConfig:
-    """Engine shape: slot count and max sequence. `s_max` sizes the
-    attention families' caches; the SSM's cache does not grow."""
+    """Engine shape: slot count, max sequence, tensor-parallel width.
+    `s_max` sizes the attention families' caches; the SSM's cache does
+    not grow. The port runs on one card, so `tp` must be 1. `greedy` is
+    the reference's field, which it never reads: both engines decode
+    greedily whatever it says."""
 
     batch: int = 8
     s_max: int = 256
+    tp: int = 1
     greedy: bool = True
 
 
@@ -63,9 +67,9 @@ class Engine:
         if params.device.type != dev.type:
             raise ValueError(f"the model is on {params.device}, the engine "
                              f"on {dev}")
-        if not sc.greedy:
-            raise NotImplementedError("sampling is not yet ported; the "
-                                      "engine decodes greedily")
+        if sc.tp != 1:
+            raise ValueError(f"tp={sc.tp}: the port serves on one card, "
+                             "so tensor parallelism takes tp=1")
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = params.device
         self._prefill = registry.prefill_fn(cfg)

@@ -137,6 +137,34 @@ def test_bw_predictor_backends_equal(forest_pair, seed):
         ref_pred.SnapshotPredictor().predict_matrix(*args))
 
 
+def test_bw_predictor_keeps_forest_on_device(forest_pair):
+    """The forest's tensors and the kernel's node layout are made once
+    per device, not per `predict_matrix` (every `Engine.replan` calls
+    it), and made again only when the forest's arrays are replaced."""
+    import torch
+
+    ref, port = forest_pair
+    port = RandomForest.from_packed(*port.packed(), port.depth, seed=1)
+    p = predictor.BwPredictor(port, device="cpu")
+    rng = np.random.default_rng(3)
+    args = (4, rng.uniform(50, 3000, (4, 4)), rng.uniform(0.1, 0.9, 4),
+            rng.uniform(0.1, 0.9, 4), rng.integers(0, 30, (4, 4)).astype(float),
+            rng.uniform(0, 9000, (4, 4)))
+    first = p.predict_matrix(*args)
+    (feat, thr, leaf), nodes = p.forest_on(torch.device("cpu"))
+    np.testing.assert_array_equal(p.predict_matrix(*args), first)
+    again, again_nodes = p.forest_on(torch.device("cpu"))
+    assert again[0] is feat and again_nodes is nodes
+    np.testing.assert_array_equal(nodes[..., 0].numpy(), port.feat)
+    np.testing.assert_array_equal(nodes[..., 1].numpy(),
+                                  port.thr.view(np.int32))
+    port.leaf = port.leaf * np.float32(2)            # a refit's new arrays
+    (_, _, leaf2), nodes2 = p.forest_on(torch.device("cpu"))
+    assert nodes2 is not nodes
+    np.testing.assert_array_equal(leaf2.numpy(), port.leaf)
+    assert not np.array_equal(p.predict_matrix(*args), first)
+
+
 @pytest.mark.parametrize("N", NS)
 def test_feature_assembly_equal(N):
     rng = np.random.default_rng(N)

@@ -7,11 +7,13 @@ Tolerances:
 - `dtype="float32"`: logits within atol/rtol 1e-4 (7.6e-6 measured);
   the two frameworks differ only in the order of their f32 sums, so
   the served ids are equal.
-- the config's own bf16: logits within atol 0.25 (0.125 measured). The
-  frameworks round bf16 at different places (XLA may keep an
-  elementwise chain in f32 where torch rounds each op, and the other
-  way round), and the differences grow through the layers, so the ids
-  are not required to match.
+- the config's own bf16: logits within atol 0.0625 (two bf16 ulps at
+  their magnitude). The port rounds where the reference's compiled HLO
+  does
+  (`layers.silu`, `ssm.gated_rms_norm`); what is left is the order of
+  the f32 sums inside the products and XLA's own exp / log1p, so the
+  ids are held equal wherever the reference's top-2 gap exceeds twice
+  the tolerance, and the served ids are equal.
 """
 import dataclasses
 import types
@@ -30,7 +32,7 @@ from repro_torch.serve.engine import Engine, Request, ServeConfig
 from repro_torch.wan.simulator import WanSimulator
 
 F32 = dict(atol=1e-4, rtol=1e-4)
-BF16_ATOL = 0.25
+BF16_ATOL = 0.0625
 
 
 @pytest.fixture(scope="module")
@@ -127,6 +129,11 @@ def test_lm_forward_matches_reference_bf16(ref, bf16):
     got = _port_logits(cfg, model, toks)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2 * BF16_ATOL
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got.argmax(-1)[clear],
+                                  want.argmax(-1)[clear])
 
 
 def test_prefill_and_decode_match_reference_f32(ref, f32):
@@ -198,6 +205,51 @@ def test_engine_serve_ids_equal_reference_f32(ref, f32):
     assert len(eng.timings["prefill_s"]) == 2
     assert len(eng.timings["decode_s"]) == 2 * max_new
     assert eng.last_logits.shape == (2, cfg.vocab)
+
+
+def test_engine_serve_ids_equal_reference_bf16(ref, bf16):
+    """The config's own bf16: the same requests as the f32 case give the
+    reference's ids."""
+    cfg, model, rcfg, rparams = bf16
+    lengths, max_new = (5, 23, 40), 6
+    reng = ref.engine.Engine(rcfg, rparams,
+                             ref.engine.ServeConfig(batch=2, s_max=64))
+    want = reng.serve(_requests(rcfg, lengths, max_new, ref.engine.Request))
+    eng = Engine(cfg, model, ServeConfig(batch=2, s_max=64), device="cpu")
+    assert eng.serve(_requests(cfg, lengths, max_new, Request)) == want
+
+
+def test_serve_config_fields_match_reference(ref):
+    """The port's ServeConfig has the reference's fields and defaults,
+    `tp` and `greedy` included."""
+    assert dataclasses.asdict(ServeConfig()) == \
+        dataclasses.asdict(ref.engine.ServeConfig())
+    assert [f.name for f in dataclasses.fields(ServeConfig)] == \
+        [f.name for f in dataclasses.fields(ref.engine.ServeConfig)]
+
+
+def test_engine_greedy_false_serves_reference_ids_f32(ref, f32):
+    """The reference never reads `greedy`, so `greedy=False` serves
+    greedily there; the port serves the same ids."""
+    cfg, model, rcfg, rparams = f32
+    lengths, max_new = (7, 12, 30), 4
+    sc = dict(batch=2, s_max=64, greedy=False)
+    reng = ref.engine.Engine(rcfg, rparams, ref.engine.ServeConfig(**sc))
+    want = reng.serve(_requests(rcfg, lengths, max_new, ref.engine.Request))
+    eng = Engine(cfg, model, ServeConfig(**sc), device="cpu")
+    got = eng.serve(_requests(cfg, lengths, max_new, Request))
+    assert got == want
+    greedy = Engine(cfg, model, ServeConfig(batch=2, s_max=64),
+                    device="cpu")
+    assert greedy.serve(_requests(cfg, lengths, max_new, Request)) == got
+
+
+def test_engine_tp_above_one_raises(f32):
+    """The port serves on one card: `tp=1` builds, `tp=2` raises."""
+    cfg, model, _, _ = f32
+    assert Engine(cfg, model, ServeConfig(tp=1), device="cpu").sc.tp == 1
+    with pytest.raises(ValueError, match="tp=2"):
+        Engine(cfg, model, ServeConfig(tp=2), device="cpu")
 
 
 def test_engine_plan_schedule_equals_reference(ref, f32):

@@ -1,0 +1,245 @@
+"""The port's SiLU gates (`ops.silu`, `ops.silu_gate`) against the JAX
+reference.
+
+The JAX package has no kernel for them: its Mamba-2 block calls
+`jax.nn.silu`, and XLA on the CPU expands the logistic to
+1 / (1 + exp(-x)) with each op rounded to the compute dtype. The same
+seeded numpy inputs go through the jitted reference and the port's
+wrappers on the CPU (their plain versions, `ref.silu_ref` and
+`ref.silu_gate_ref`). In bf16, the serve model's dtype, they are
+bit-equal: the silu, the gated product, and the reference's
+`rms_norm(y * silu(z), scale)` against the port's `ssm.gated_rms_norm`.
+In f32 XLA's exp and the host's differ in the last bits: atol/rtol
+2e-6 (about 1e-7 relative measured).
+
+The card cases (marker `cuda`) hold the CUDA kernels (csrc/silu.cu) to
+the plain versions bit for bit, at the serve model's shapes and at
+shapes that take the scalar path (odd widths, rows that start
+unaligned), one launch a call. The reference is imported by a fixture,
+so they run where jax is not installed:
+``python -m pytest -q -m cuda tests/test_torch_silu.py``.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import silu as silu_kernel
+from repro_torch.kernels.ref import silu_gate_ref, silu_ref
+from repro_torch.models import ssm
+
+F32_TOL = dict(atol=2e-6, rtol=2e-6)
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.layers import rms_norm
+    return types.SimpleNamespace(jax=jax, jnp=jnp, rms_norm=rms_norm)
+
+
+def _inputs(shape, seed, scale=4.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _jdt(ref, dtype):
+    return ref.jnp.bfloat16 if dtype == torch.bfloat16 else ref.jnp.float32
+
+
+def _as_f32(a):
+    return np.asarray(a.astype("float32")) if hasattr(a, "astype") else a
+
+
+def _check(got: np.ndarray, want: np.ndarray, dtype) -> None:
+    if dtype == torch.bfloat16:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_silu_matches_jitted_reference(ref, dtype):
+    x = _inputs((64, 5376), seed=0)
+    want = ref.jax.jit(ref.jax.nn.silu)(
+        ref.jnp.asarray(x).astype(_jdt(ref, dtype)))
+    got = ops.silu(torch.from_numpy(x).to(dtype))
+    assert got.dtype == dtype and tuple(got.shape) == x.shape
+    _check(got.float().numpy(), _as_f32(want), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_silu_gate_matches_jitted_reference(ref, dtype):
+    y, z = _inputs((64, 5120), seed=1, scale=1.0), _inputs((64, 5120), 2)
+    jdt = _jdt(ref, dtype)
+    want = ref.jax.jit(lambda a, b: a * ref.jax.nn.silu(b))(
+        ref.jnp.asarray(y).astype(jdt), ref.jnp.asarray(z).astype(jdt))
+    value, prod = ops.silu_gate(torch.from_numpy(y).to(dtype),
+                                torch.from_numpy(z).to(dtype))
+    assert value.dtype == dtype and prod.dtype == torch.float32
+    _check(value.float().numpy(), _as_f32(want), dtype)
+    np.testing.assert_array_equal(prod.to(dtype).float().numpy(),
+                                  value.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_gated_rms_norm_matches_jitted_reference(ref, dtype):
+    """The gate feeds the norm: the port's `gated_rms_norm` (one
+    `silu_gate` call, the variance of the f32 product) against the
+    reference's jitted `rms_norm(y * silu(z), scale)`."""
+    y, z = _inputs((3, 40, 512), seed=3, scale=1.0), _inputs((3, 40, 512), 4)
+    scale = (1 + 0.1 * _inputs((512,), seed=5, scale=1.0)).astype(np.float32)
+    jdt = _jdt(ref, dtype)
+    want = ref.jax.jit(lambda a, b, s: ref.rms_norm(
+        a * ref.jax.nn.silu(b), s, 1e-5))(
+        ref.jnp.asarray(y).astype(jdt), ref.jnp.asarray(z).astype(jdt),
+        ref.jnp.asarray(scale))
+    got = ssm.gated_rms_norm(torch.from_numpy(y).to(dtype),
+                             torch.from_numpy(z).to(dtype),
+                             torch.from_numpy(scale), 1e-5)
+    _check(got.float().numpy(), _as_f32(want), dtype)
+
+
+def _wide_view(t: torch.Tensor, extra: int, offset: int = 0):
+    """t as the columns [offset, offset + d) of a wider tensor, the way z
+    is a slice of the in-projection's output."""
+    wide = torch.zeros((*t.shape[:-1], t.shape[-1] + extra), dtype=t.dtype,
+                       device=t.device)
+    view = wide[..., offset:offset + t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_wrappers_read_row_views(dtype):
+    x = torch.from_numpy(_inputs((2, 5, 24), seed=6)).to(dtype)
+    y = torch.from_numpy(_inputs((2, 5, 24), seed=7, scale=1.0)).to(dtype)
+    xv, zv = _wide_view(x, 8, offset=3), _wide_view(x, 40)
+    assert not xv.is_contiguous() and not zv.is_contiguous()
+    torch.testing.assert_close(ops.silu(xv), silu_ref(x), rtol=0, atol=0)
+    for got, want in zip(ops.silu_gate(y, zv), silu_gate_ref(y, x)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert got.is_contiguous()
+
+
+def test_row_view():
+    t = torch.zeros((2, 3, 10))
+    assert silu_kernel.row_view(t) == (6, 10, 10, 1)
+    assert silu_kernel.row_view(t[..., 2:7]) == (6, 5, 10, 1)
+    assert silu_kernel.row_view(t[:, :1, 2:7]) == (2, 5, 30, 1)
+    assert silu_kernel.row_view(torch.zeros(7)) == (1, 7, 7, 1)
+    assert silu_kernel.row_view(torch.zeros((0, 4))) == (0, 4, 4, 1)
+    assert silu_kernel.row_view(torch.zeros((4, 6)).t()) == (6, 4, 1, 6)
+    with pytest.raises(ValueError, match="collapse"):
+        silu_kernel.row_view(t[:, :2, :])        # rows 10 apart, then 30
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_wrappers_read_strided_inputs(dtype):
+    """A transposed matrix (the decode step's conv output comes out of
+    einsum so) and rows that share elements: read through the strides."""
+    x = torch.from_numpy(_inputs((6, 4), seed=11)).to(dtype).t()
+    shared = torch.from_numpy(_inputs((8,), seed=12)).to(dtype).as_strided(
+        (3, 4), (2, 1))
+    for t in (x, shared):
+        torch.testing.assert_close(ops.silu(t), silu_ref(t.contiguous()),
+                                   rtol=0, atol=0)
+        y = torch.ones(t.shape, dtype=dtype)
+        for got, want in zip(ops.silu_gate(y, t),
+                             silu_gate_ref(y, t.contiguous())):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wrappers_reject_bad_inputs():
+    x = torch.zeros((2, 4))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.silu(x.to(torch.float16))
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        ops.silu(np.zeros((2, 4), np.float32))
+    with pytest.raises(ValueError, match="z must match y"):
+        ops.silu_gate(x, torch.zeros((2, 5)))
+    with pytest.raises(ValueError, match="z must match y"):
+        ops.silu_gate(x, x.to(torch.bfloat16))
+
+
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where there is none (decided at
+    setup, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# (shape, columns of the wider tensor it is a slice of, offset there):
+# the serve model's prefill and decode shapes (x: [B, S, conv channels]
+# dense; z: [B, S, d_inner] out of the in-projection's 10,576 columns),
+# a width the vector path does not take, rows that start unaligned, and
+# (extra -1) the decode conv output's transposed [B, C] layout
+CARD_CASES = [((4, 700, 5376), 0, 0), ((4, 5376), 0, 0),
+              ((4, 700, 5120), 5456, 0), ((4, 5120), 5456, 0),
+              ((3, 1001), 0, 0), ((2, 7, 5), 3, 1), ((5, 64), 8, 2),
+              ((5376, 4), -1, 0)]
+
+
+def _laid_out(t: torch.Tensor, extra: int, offset: int) -> torch.Tensor:
+    if extra < 0:
+        return t.t()
+    return _wide_view(t, extra, offset) if extra else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: f"{c[0]}+{c[1]}")
+def test_silu_kernel_bit_equal_plain_on_card(card, case, dtype):
+    shape, extra, offset = case
+    x = _laid_out(torch.from_numpy(_inputs(shape, seed=8)).to(card, dtype),
+                  extra, offset)
+    want = silu_ref(x)
+    before = ops.silu.launches
+    got = ops.silu(x)
+    torch.cuda.synchronize()
+    assert ops.silu.launches == before + 1
+    assert got.is_contiguous() and got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: f"{c[0]}+{c[1]}")
+def test_silu_gate_kernel_bit_equal_plain_on_card(card, case, dtype):
+    shape, extra, offset = case
+    z = _laid_out(torch.from_numpy(_inputs(shape, seed=10)).to(card, dtype),
+                  extra, offset)
+    y = torch.from_numpy(_inputs(tuple(z.shape), seed=9, scale=1.0)).to(
+        card, dtype)
+    want = silu_gate_ref(y, z)
+    before = ops.silu_gate.launches
+    got = ops.silu_gate(y, z)
+    torch.cuda.synchronize()
+    assert ops.silu_gate.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_silu_kernel_special_values_on_card(card):
+    """Saturation and the specials: exp(-x) overflowing to inf (silu ->
+    -0), underflowing (silu -> x), +-inf and NaN, as the plain version."""
+    vals = torch.tensor([-1e4, -100.0, -88.7, -20.0, -0.0, 0.0, 1e-30,
+                         20.0, 100.0, 1e4, float("inf"), float("-inf"),
+                         float("nan"), 3.0], device=card)
+    for dtype in DTYPES:
+        x = vals.to(dtype)
+        torch.testing.assert_close(ops.silu(x), silu_ref(x), rtol=0,
+                                   atol=0, equal_nan=True)
+        for g, w in zip(ops.silu_gate(x.flip(0), x), silu_gate_ref(
+                x.flip(0), x)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                       equal_nan=True)
