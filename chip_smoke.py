@@ -9,8 +9,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
 1. device  — `nvidia-smi` name and power limit, torch and CUDA versions
    (exits non-zero when `torch.cuda.is_available()` is false);
 2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`,
-   `ssd_chunk.cu`, `quantize.cu` and `silu.cu` with `nvcc`, one process
-   each, started together,
+   `ssd_chunk.cu`, `quantize.cu`, `silu.cu` and `waterfill.cu` with
+   `nvcc`, one process each, started together,
    and prints ptxas's reports (registers, static shared memory, spills),
    per ssd_chunk kernel its registers, spills and the dynamic shared
    memory of a block at the serve shape, and the counts of tensor-core
@@ -18,8 +18,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    in ssd_chunk's SASS (`cuobjdump -sass`); the same for quantize's
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
-   spill in a quantize kernel; and rf_predict's two kernels' and silu's
-   two kernels' registers and spills, failing on a spill;
+   spill in a quantize kernel; and rf_predict's two kernels', silu's
+   two kernels' and waterfill's kernel's registers and spills, failing
+   on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
    wrapper picks and the other), on the paper's forest (100 trees,
@@ -43,6 +44,31 @@ Every phase is fatal: a failure exits non-zero before the result line.
    through `BwPredictor` backends `cuda`, `torch` and the default (no
    backend named) on the card, bit-equal to each other and to the
    tick's own prediction.
+5b. scenarios — the scenario engines (`repro_torch.scenarios`,
+   `repro_torch.fleet.scenario`), each part with its launch counts set
+   to 0 just before it and read just after:
+   (1) the 12 `scenario/*/seed3` and 4 `fleet/*/seed3` runs through
+   `repro_torch.scenarios.goldens`, the fleet's forest on the card:
+   every sha256 equal to its pin in `tests/data/trace_golden.json`, one
+   `rf_predict` launch a fleet tick (50);
+   (2) `congestion` and `provider_shift` at seed 3 with
+   `BwPredictor(paper forest)` on the card and on the host: `to_json()`
+   byte-equal, one `rf_predict` launch a replan;
+   (3) the water-fill kernel against its plain version on the card and
+   the host numpy loop, on seeded cases built as the reference's
+   water-fill tests build them, at (B, N) = (1, 8), (16, 8), (1, 16),
+   (64, 16), (1, 32): rates within 1e-9, equal iterations; times of the
+   kernel (device, a graph of 20 calls), of the numpy wrapper's call
+   with its copies and synchronise (host), of the host loop (host) and
+   of the plain version, beside the bound (bytes; f64 operations at
+   the CUDA cores' rate) and the launch floor;
+   (4) the 12 scenarios with `waterfill_backend="cuda"`, every fill also
+   run by the host loop on the same inputs (equal iterations, rates
+   within 1e-9), every integer field of every step equal to the numpy
+   run's and floats within rtol 1e-9; one launch a fill;
+   (5) the main phase's fleet under `waterfill_backend` numpy and cuda,
+   A B B A in one process: budgets, conns and plan signatures equal,
+   BW within rtol 1e-9; fills a tick and tick median / p90 per backend;
 6. ssd     — the ssd_chunk CUDA kernels against their plain PyTorch
    version on the card, atol/rtol 1e-4 (both take the cumulative decay
    in one order; the products add in another, bf16 inputs on the tensor
@@ -143,30 +169,38 @@ from repro_torch.core.predictor import BwPredictor  # noqa: E402
 from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
                                       wan_allreduce_batched)
 from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E402
-                               JobSpec, default_fleet_forest)
+                               JobSpec, default_fleet_forest,
+                               fleet_scenario_names, get_fleet_scenario)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
 from repro_torch.kernels import rf_predict as rf_kernel  # noqa: E402
+from repro_torch.kernels import waterfill as wfk  # noqa: E402
 from repro_torch.kernels.quantize import qmax  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
-                                     dequantize_ref, quantize_groups_ref,
+                                     dequantize_ref, fill_rates_ref,
+                                     quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_gate_ref, silu_ref, ssd_chunk_ref)
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
                                             unstack_cache)
 from repro_torch.obs.spans import SpanTracer  # noqa: E402
+from repro_torch.scenarios import (ScenarioEngine, get_scenario,  # noqa: E402
+                                   goldens, run_scenario, scenario_names)
 from repro_torch.serve.engine import (Engine, Request,  # noqa: E402
                                       ServeConfig, kv_migrate)
 from repro_torch.wan.dataset import (generate_dataset,  # noqa: E402
                                      train_default_forest)
-from repro_torch.wan.simulator import WanSimulator  # noqa: E402
+from repro_torch.wan.simulator import (WanSimulator,  # noqa: E402
+                                       fill_rates_host)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor f32 rate and
-# the dense bf16 tensor-core rate
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, non-tensor f32 rate,
+# the dense bf16 tensor-core rate and f64 on the CUDA cores (the
+# water-fill's arithmetic; 67 TFLOP/s is f64 on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+F64_OPS_PER_S = 34e12
 
 N_JOBS, TICKS, M_TOTAL = 16, 24, 8          # benchmarks/tick_bench.py
 PRIORITIES = (1.0, 2.0, 4.0)
@@ -186,6 +220,20 @@ N_PODS, POD_DEADLINE = 4, 600           # seconds for the 4 ranks' run
 # phase's 16 steps
 MIGRATE_STEPS = MAX_NEW
 WANSYNC_LAYERS = 32     # of 64: inputs, outputs and psum do not fit 80 GB
+
+PIN_SEED = 3                                # the pinned runs' seed
+BW_SCENARIOS = ("congestion", "provider_shift")
+# (B, N) of the water-fill checks: one 8-DC fill (the engines' and the
+# tick's), a 16-fill batch, the 16-DC mesh the reference's tests reach,
+# a 64-fill batch of it, and the widest mesh the kernel takes
+WF_SHAPES = ((1, 8), (16, 8), (1, 16), (64, 16), (1, 32))
+WF_TOL = 1e-9             # the reference's own (tests/test_waterfill_kernel.py)
+WF_OPS_PER_PAIR = 20      # f64 operations per pair per iteration
+TRACE_INT_FIELDS = ("step", "events", "n_pods", "plan_sig", "conns_total",
+                    "replans", "cache_builds", "cache_hits")
+TRACE_FLOAT_FIELDS = ("dt", "achieved_min", "achieved_mean",
+                      "monitored_min", "monitored_mean", "predicted_min",
+                      "predicted_mean")
 
 
 def fixed_plan() -> WanPlan:
@@ -236,6 +284,7 @@ SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
 SILU_KERNELS = ("silu_kernel", "silu_gate_kernel")
+WF_KERNELS = ("waterfill_kernel",)
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
 
@@ -531,17 +580,21 @@ def check_records(records, jobs, m_total: int) -> None:
 
 
 def run_fleet(forest, device, ticks: int = TICKS, n_jobs: int = N_JOBS,
-              obs: str = "off", counted: bool = False):
+              obs: str = "off", counted: bool = False,
+              waterfill_backend: str = "numpy"):
     """Drive the fleet; with `counted`, zero every launch count just
     before the ticks and return the counts read just after."""
     jobs = fleet_jobs(n_jobs)
-    fleet = FleetController(WanSimulator(seed=0),
+    fleet = FleetController(WanSimulator(seed=0,
+                                         waterfill_backend=waterfill_backend),
                             BatchedRfPredictor(forest, device=device),
                             m_total=M_TOTAL, jobs=jobs, obs=obs)
     if counted:
         ops.rf_predict.launches = 0
         ops.ssd_chunk.launches = 0
+        ops.fill_rates.launches = 0
         fleet.predictor.metrics.counter("kernel_calls").reset()
+    fills = fleet.sim.fill_calls
     records, secs = [], []
     for _ in range(ticks):
         t0 = time.perf_counter()
@@ -550,7 +603,9 @@ def run_fleet(forest, device, ticks: int = TICKS, n_jobs: int = N_JOBS,
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     counts = {"rf_predict": ops.rf_predict.launches,
-              "ssd_chunk": ops.ssd_chunk.launches} if counted else {}
+              "ssd_chunk": ops.ssd_chunk.launches,
+              "fill_rates": ops.fill_rates.launches,
+              "fills": fleet.sim.fill_calls - fills} if counted else {}
     check_records(records, jobs, M_TOTAL)
     return fleet, records, secs, counts
 
@@ -579,6 +634,252 @@ def check_backends(forest, device, ticks: int = BACKEND_TICKS) -> int:
             np.testing.assert_array_equal(a, job.controller.last_pred)
             checked += 1
     return checked
+
+
+# ----------------------------------------------------------------------
+# scenarios phase: the engines' pins, the RF and water-fill kernels
+# ----------------------------------------------------------------------
+def wf_case(B: int, n: int, seed: int):
+    """B seeded fills of an n-DC mesh, built as the reference's water-fill
+    tests build them (tests/test_waterfill_kernel.py): a fluctuated
+    simulator, uncredited cross-traffic and rival tenants half the time,
+    a §3.2.2 cap 40% of the time -> (c, single, egress, ingress, w,
+    path_cap) stacked, [B,N,N] / [B,N], w one a fill."""
+    rng = np.random.default_rng(seed)
+    regions = (WanSimulator().regions * (n // 8 + 1))[:n]
+    cases = []
+    for b in range(B):
+        sim = WanSimulator(regions=regions, seed=seed * 1000 + b)
+        sim.advance(int(rng.integers(0, 4)))
+        if rng.random() < 0.5:
+            bg = rng.integers(0, 4, (n, n)).astype(float)
+            for i, j in zip(*np.nonzero(bg)):
+                sim.set_background(i, j, bg[i, j])
+        if rng.random() < 0.5:
+            for t in range(int(rng.integers(1, 3))):
+                sim.set_tenant_conns(f"rival{t}", rng.integers(
+                    0, 3, (n, n)).astype(float))
+        c = rng.integers(0, 7, (n, n)).astype(float)
+        np.fill_diagonal(c, 0.0)
+        cap = rng.uniform(50.0, 2000.0, (n, n)) \
+            if rng.random() < 0.4 else None
+        cases.append((sim._contending_conns(c),) + sim.fill_inputs(cap))
+    return tuple(np.stack(a) for a in zip(*cases))
+
+
+def host_fills(case):
+    """The port's numpy loop on each fill of a batch: (rates, iters)."""
+    n = case[0].shape[-1]
+    out = [fill_rates_host(*(a[b] for a in case), wfk.max_fill_iters(n))
+           for b in range(case[0].shape[0])]
+    if not all(ok for _, _, ok in out):
+        raise AssertionError("the host loop did not converge")
+    return np.stack([r for r, _, _ in out]), np.array([i for _, i, _ in out])
+
+
+def check_fill(got, want, what: str) -> float:
+    """(rate, iters) against (rate, iters): equal iterations, rates
+    within WF_TOL (rtol and atol); returns max |diff|."""
+    rate, iters = (np.asarray(v) for v in got)
+    w_rate, w_iters = (np.asarray(v) for v in want)
+    if not np.array_equal(iters.astype(np.int64), w_iters.astype(np.int64)):
+        raise AssertionError(f"{what}: iterations {iters.tolist()} != "
+                             f"{w_iters.tolist()}")
+    np.testing.assert_allclose(rate, w_rate, rtol=WF_TOL, atol=WF_TOL,
+                               err_msg=what)
+    return float(np.abs(rate - w_rate).max())
+
+
+def check_waterfill(case, device) -> dict:
+    """The kernel against its plain version on the same tensors on the
+    card, and against the host loop fill by fill."""
+    t = [torch.from_numpy(a).to(device) for a in case]
+    rate, iters, ok = ops.fill_rates(*t)
+    p_rate, p_iters, p_ok = fill_rates_ref(*t)
+    sync(device)
+    if not (bool(ok.all()) and bool(p_ok.all())):
+        raise AssertionError("a fill did not converge")
+    got = (rate.cpu().numpy(), iters.cpu().numpy())
+    err_plain = check_fill(got, (p_rate.cpu().numpy(),
+                                 p_iters.cpu().numpy()), "kernel vs plain")
+    err_host = check_fill(got, host_fills(case), "kernel vs host loop")
+    return {"err_plain": err_plain, "err_host": err_host,
+            "iters": got[1].tolist()}
+
+
+def waterfill_bound(case, iters):
+    """Bytes (each input read once, each output written once) and f64
+    operations (WF_OPS_PER_PAIR per pair per iteration these fills ran)
+    -> (bound ms, by, bytes, ops)."""
+    B, n = case[0].shape[0], case[0].shape[-1]
+    nbytes = sum(a.nbytes for a in case) + B * (8 * n * n + 4 + 1)
+    nops = WF_OPS_PER_PAIR * n * n * int(np.sum(iters))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, nops)
+
+
+def host_call_us(fn, reps: int = 51) -> float:
+    """Median host microseconds of one call that ends synchronised."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def time_waterfill(case, iters) -> dict:
+    """The kernel alone (device, a graph of 20 calls), the numpy
+    wrapper's call with its copies and synchronise (host), the host
+    loop's fills (host) and the plain version on the card."""
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(a).to(dev) for a in case]
+    B, n = case[0].shape[0], case[0].shape[-1]
+    outs = (torch.empty((B, n, n), dtype=torch.float64, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    bound_ms, by, nbytes, nops = waterfill_bound(case, iters)
+    return {"B": B, "N": n, "iters": iters,
+            "ms": graph_ms(lambda: ops.fill_rates(*t, out=outs)),
+            "wrapper_us": host_call_us(lambda: wfk.fill_rates(*case)),
+            "host_loop_us": host_call_us(lambda: host_fills(case), reps=11),
+            "plain_ms": call_ms(lambda: fill_rates_ref(*t), reps=5),
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "ops": nops}
+
+
+def checked_fill(stats: dict):
+    """The simulator's device fill with every fill also run by the host
+    loop on the same inputs: equal iterations, rates within WF_TOL."""
+    kernel_fill = wfk.fill_rates
+
+    def fill(c, single, egress, ingress, w, path_cap, device=None):
+        rate, iters, ok = kernel_fill(c, single, egress, ingress, w,
+                                      path_cap, device=device)
+        want, w_iters, w_ok = fill_rates_host(
+            c, single, egress, ingress, w, path_cap,
+            wfk.max_fill_iters(c.shape[-1]))
+        if bool(ok) != w_ok:
+            raise AssertionError("device and host fills disagree on "
+                                 "convergence")
+        err = check_fill((rate, iters), (want, w_iters), "a scenario fill")
+        stats["fills"] += 1
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        return rate, iters, ok
+    return fill
+
+
+def check_traces(got, want, name: str) -> None:
+    """Every integer field of every step equal, floats within rtol
+    WF_TOL (the device fill sums in another order)."""
+    if len(got.steps) != len(want.steps):
+        raise AssertionError(f"{name}: {len(got.steps)} steps, "
+                             f"{len(want.steps)}")
+    for g, w in zip(got.steps, want.steps):
+        for key in TRACE_INT_FIELDS:
+            if getattr(g, key) != getattr(w, key):
+                raise AssertionError(f"{name} step {g.step}: {key} "
+                                     f"{getattr(g, key)} != "
+                                     f"{getattr(w, key)}")
+        for key in TRACE_FLOAT_FIELDS:
+            np.testing.assert_allclose(getattr(g, key), getattr(w, key),
+                                       rtol=WF_TOL,
+                                       err_msg=f"{name} {g.step} {key}")
+
+
+def run_device_fill_scenarios() -> dict:
+    """The 12 scenarios at seed 3 with waterfill_backend="cuda", each
+    fill checked against the host loop, each trace against the numpy
+    run's; counts zeroed just before and read just after."""
+    stats = {"fills": 0, "max_abs_err": 0.0}
+    want = {n: run_scenario(get_scenario(n), seed=PIN_SEED).trace
+            for n in scenario_names()}
+    ops.fill_rates.launches = 0
+    ops.rf_predict.launches = 0
+    sim_fill = wfk.fill_rates
+    wfk.fill_rates = checked_fill(stats)
+    try:
+        got = {}
+        for n in scenario_names():
+            spec = get_scenario(n)
+            spec.sim_kwargs["waterfill_backend"] = "cuda"
+            got[n] = run_scenario(spec, seed=PIN_SEED).trace
+    finally:
+        wfk.fill_rates = sim_fill
+    stats["launches"] = ops.fill_rates.launches
+    stats["rf_predict_launches"] = ops.rf_predict.launches
+    for n in scenario_names():
+        check_traces(got[n], want[n], n)
+    stats["steps"] = sum(len(t.steps) for t in got.values())
+    if stats["launches"] != stats["fills"] or stats["rf_predict_launches"]:
+        raise AssertionError(f"device-fill scenarios: {stats}")
+    return stats
+
+
+def fleet_fill_ab(forest, dev) -> dict:
+    """The main phase's fleet under waterfill_backend numpy (A) and cuda
+    (B), A B B A, separate runs in one process: records equal (budgets,
+    conns, plan signatures exact; floats within WF_TOL), fills a tick,
+    tick median / p90 per backend over its two runs, and the host time
+    of the ticks' fills (each `_fill_rates` call timed) beside the rest
+    of the tick."""
+    calls = []                     # (host seconds, iterations) a fill
+    fill_rates = WanSimulator._fill_rates
+
+    def timed(sim, c, cap=None):
+        t0 = time.perf_counter()
+        rate = fill_rates(sim, c, cap)
+        calls.append((time.perf_counter() - t0, sim.last_fill_iters))
+        return rate
+
+    runs = []
+    WanSimulator._fill_rates = timed
+    try:
+        for backend in ("numpy", "cuda", "cuda", "numpy"):
+            _, records, secs, counts = run_fleet(
+                forest, dev, counted=True, waterfill_backend=backend)
+            fills = counts["fills"]
+            want = {"rf_predict": TICKS, "ssd_chunk": 0, "fills": fills,
+                    "fill_rates": fills if backend == "cuda" else 0}
+            if counts != want:
+                raise AssertionError(f"{backend} fleet launches {counts}, "
+                                     f"expected {want}")
+            runs.append((backend, records, secs, fills, calls[-fills:]))
+    finally:
+        WanSimulator._fill_rates = fill_rates
+    base = runs[0][1]
+    for backend, records, _, _, _ in runs[1:]:
+        for a, b in zip(records, base):
+            for ra, rb in zip(a["jobs"], b["jobs"]):
+                for key in ("name", "budget", "conns_total", "plan_sig",
+                            "priority"):
+                    if ra[key] != rb[key]:
+                        raise AssertionError(f"{backend} tick {a['tick']} "
+                                             f"{ra['name']} {key}")
+                for key in ("cap_min", "achieved_min", "achieved_mean"):
+                    np.testing.assert_allclose(ra[key], rb[key], rtol=WF_TOL)
+    out = {"order": [r[0] for r in runs]}
+    for backend in ("numpy", "cuda"):
+        ms = np.concatenate([np.asarray(r[2]) * 1e3 for r in runs
+                             if r[0] == backend])
+        fills = [r[3] for r in runs if r[0] == backend]
+        timed_fills = [f for r in runs if r[0] == backend for f in r[4]]
+        fill_us = np.asarray([f[0] for f in timed_fills]) * 1e6
+        fill_ms_tick = fill_us.sum() / 1e3 / (2 * TICKS)
+        out[backend] = {
+            "tick_ms": ms.tolist(), "tick_ms_median": float(np.median(ms)),
+            "tick_ms_p90": float(np.percentile(ms, 90)),
+            "fills_per_tick": fills[0] / TICKS,
+            "run_medians_ms": [float(np.median(np.asarray(r[2]) * 1e3))
+                               for r in runs if r[0] == backend],
+            "fill_us_median": float(np.median(fill_us)),
+            "fill_ms_per_tick": float(fill_ms_tick),
+            "rest_ms_per_tick": float(ms.mean() - fill_ms_tick),
+            "iters_per_fill": float(np.mean([f[1] for f in timed_fills]))}
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1365,6 +1666,113 @@ def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
     return res
 
 
+def scenarios_phase(paper, dev, floor_ms: float) -> dict:
+    """The scenarios phase (see the head comment); every check fatal."""
+    out = {}
+    # the 16 pins on the card: the fleet runs' forest is the kernel's
+    pins = goldens.pinned()
+    fleet_ticks = sum(get_fleet_scenario(n).steps
+                      for n in fleet_scenario_names())
+    ops.rf_predict.launches = 0
+    ops.fill_rates.launches = 0
+    t0 = time.perf_counter()
+    got = goldens.collect()
+    secs = time.perf_counter() - t0
+    launches = {"rf_predict": ops.rf_predict.launches,
+                "fill_rates": ops.fill_rates.launches}
+    bad = sorted(k for k in pins if got.get(k) != pins[k])
+    if bad or set(got) != set(pins):
+        raise AssertionError(f"pins that do not hold on the card: {bad}")
+    if launches != {"rf_predict": fleet_ticks, "fill_rates": 0}:
+        raise AssertionError(f"pin runs' launches {launches}: expected one "
+                             f"rf_predict a fleet tick ({fleet_ticks})")
+    out["pins"] = {"held": len(got), "fleet_ticks": fleet_ticks,
+                   "launches": launches, "s": secs}
+    log(f"[scenarios] {len(got)} pins of tests/data/trace_golden.json held "
+        f"on the card ({sum(k.startswith('scenario/') for k in got)} "
+        f"scenario, {sum(k.startswith('fleet/') for k in got)} fleet; "
+        f"{secs:.1f} s); rf_predict launches {launches['rf_predict']} for "
+        f"{fleet_ticks} fleet ticks")
+
+    # the single-job loop through the RF kernel, card against host
+    out["bw_predictor"] = {}
+    for name in BW_SCENARIOS:
+        host = ScenarioEngine(
+            get_scenario(name), seed=PIN_SEED,
+            predictor=BwPredictor(paper, device="cpu")).run().trace.to_json()
+        ops.rf_predict.launches = 0
+        eng = ScenarioEngine(get_scenario(name), seed=PIN_SEED,
+                             predictor=BwPredictor(paper, device=dev))
+        card = eng.run().trace.to_json()
+        n = ops.rf_predict.launches
+        if card != host:
+            raise AssertionError(f"{name} with BwPredictor: the card's "
+                                 f"trace differs from the host's")
+        if n != len(eng.controller.record):
+            raise AssertionError(f"{name}: {n} rf_predict launches for "
+                                 f"{len(eng.controller.record)} replans")
+        out["bw_predictor"][name] = {"launches": n, "replans": n}
+        log(f"[scenarios] {name} seed {PIN_SEED}, BwPredictor(paper "
+            f"forest): to_json byte-equal card vs host, {n} rf_predict "
+            f"launches (one a replan)")
+
+    # the water-fill kernel against its plain version and the host loop
+    checks, timing, max_err = [], [], 0.0
+    for B, n in WF_SHAPES:
+        case = wf_case(B, n, seed=B * 100 + n)
+        c = check_waterfill(case, dev)
+        max_err = max(max_err, c["err_plain"], c["err_host"])
+        checks.append({"B": B, "N": n, **c})
+        timing.append(time_waterfill(case, c["iters"]))
+        log(f"[scenarios] waterfill B={B} N={n}: iterations "
+            f"{min(c['iters'])}-{max(c['iters'])}, equal to the plain "
+            f"version's and the host loop's; max |diff| {c['err_plain']:.3g}"
+            f" (plain), {c['err_host']:.3g} (host loop), tolerance {WF_TOL}")
+    for t in timing:
+        log(f"[scenarios] waterfill B={t['B']} N={t['N']} "
+            f"({sum(t['iters'])} iterations in all): kernel {t['ms']:.5f} "
+            f"ms (device, graph of 20 calls) | launch floor {floor_ms:.5f} "
+            f"ms | numpy wrapper call {t['wrapper_us']:.1f} us (host, "
+            f"copies and sync) | host loop {t['host_loop_us']:.1f} us "
+            f"(host, {t['B']} fill(s)) | plain {t['plain_ms']:.4f} ms | "
+            f"bound {t['bound_ms']:.7f} ms by {t['bound_by']} "
+            f"({t['bytes']} B, {t['ops']} f64 ops) | library call: none "
+            f"(no PyTorch call computes a progressive fill)")
+    out["waterfill"] = {"checks": checks, "timing": timing,
+                        "max_abs_err": max_err}
+
+    # the 12 scenarios with the device fill, every fill checked
+    t0 = time.perf_counter()
+    dfill = run_device_fill_scenarios()
+    dfill["s"] = time.perf_counter() - t0
+    out["device_fill"] = dfill
+    log(f"[scenarios] {len(scenario_names())} scenarios seed {PIN_SEED} "
+        f"with waterfill_backend='cuda' ({dfill['steps']} steps, "
+        f"{dfill['s']:.1f} s): {dfill['fills']} fills, {dfill['launches']} "
+        f"waterfill launches, each fill equal to the host loop's "
+        f"iterations and within {WF_TOL} (max |diff| "
+        f"{dfill['max_abs_err']:.3g}); every integer field of every step "
+        f"equal to the numpy run's, floats within rtol {WF_TOL}")
+
+    # the fleet tick with the device fill, A B B A
+    ab = fleet_fill_ab(paper, dev)
+    out["fleet_fill_ab"] = ab
+    for backend in ("numpy", "cuda"):
+        r = ab[backend]
+        log(f"[scenarios] fleet {N_JOBS} jobs x {TICKS} ticks, "
+            f"waterfill_backend={backend!r} ({ab['order']}): "
+            f"{r['fills_per_tick']:.1f} fills a tick, tick "
+            f"{r['tick_ms_median']:.3f} ms median / {r['tick_ms_p90']:.3f} "
+            f"ms p90 over both runs (run medians {r['run_medians_ms']}); "
+            f"its fills {r['fill_us_median']:.1f} us median (host), "
+            f"{r['iters_per_fill']:.2f} iterations a fill on average, "
+            f"{r['fill_ms_per_tick']:.3f} ms a tick in fills, "
+            f"{r['rest_ms_per_tick']:.3f} ms in the rest (means)")
+    log("[scenarios] fleet records equal across backends (budgets, conns, "
+        f"plan signatures; cap and achieved BW within rtol {WF_TOL})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1387,9 +1795,9 @@ def main() -> int:
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize",
-                                   "silu"])
+                                   "silu", "waterfill"])
     results["build_s"] = time.perf_counter() - t0
-    log(f"[build] rf_predict + ssd_chunk + quantize + silu in "
+    log(f"[build] rf_predict + ssd_chunk + quantize + silu + waterfill in "
         f"{results['build_s']:.1f} s")
     for name, text in texts.items():
         for line in text.strip().splitlines():
@@ -1448,6 +1856,16 @@ def main() -> int:
     if set(silu_report) != set(SILU_KERNELS) or silu_spills:
         raise AssertionError(f"silu's ptxas report: kernels "
                              f"{sorted(silu_report)}, spills {silu_spills}")
+    wf_report = ptxas_report(texts["waterfill"], WF_KERNELS)
+    results["build_waterfill"] = {"kernels": wf_report}
+    for name in WF_KERNELS:
+        log(f"[build] waterfill: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in wf_report.get(name, {}).items()))
+    wf_spills = {n: r for n, r in wf_report.items()
+                 if r.get("spill_stores") or r.get("spill_loads")}
+    if set(wf_report) != set(WF_KERNELS) or wf_spills:
+        raise AssertionError(f"waterfill's ptxas report: kernels "
+                             f"{sorted(wf_report)}, spills {wf_spills}")
 
     # 3. kernel
     t0 = time.perf_counter()
@@ -1495,7 +1913,8 @@ def main() -> int:
     traced, traced_records, traced_secs, _ = run_fleet(paper, dev, obs="on")
     # main path: 16 jobs x 24 ticks through the kernel, tracing off
     fleet, records, secs, counts = run_fleet(paper, dev, counted=True)
-    if counts != {"rf_predict": TICKS, "ssd_chunk": 0} or \
+    if {k: counts[k] for k in ("rf_predict", "ssd_chunk", "fill_rates")} \
+            != {"rf_predict": TICKS, "ssd_chunk": 0, "fill_rates": 0} or \
             fleet.predictor.kernel_calls != TICKS:
         raise AssertionError(f"launches {counts} / kernel_calls "
                              f"{fleet.predictor.kernel_calls} != {TICKS}")
@@ -1538,6 +1957,12 @@ def main() -> int:
     checked = check_backends(demo, dev)
     log(f"[backend] README fleet x{BACKEND_TICKS} ticks: {checked} job "
         f"predictions, backend cuda == torch == tick prediction")
+
+    # 5b. scenarios: the engines' 16 pins on the card, the single-job
+    # loop through the RF kernel, the water-fill kernel and the device
+    # fill in the scenarios and the fleet tick
+    scen = scenarios_phase(paper, dev, floor_ms)
+    results["scenarios"] = scen
 
     # 6. ssd_chunk: kernel vs plain; the serve model's layer-0 inputs
     cfg = get_config(ARCH)
@@ -1844,6 +2269,7 @@ def main() -> int:
 
     t = timing[f"n{TICK_ROWS}"]
     s0 = ssd_timing[0]
+    wf = scen["waterfill"]["timing"][0]          # one 8-DC fill
     qs = q_timing["part_state_c8"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
@@ -1876,7 +2302,16 @@ def main() -> int:
         "bound_ms": silu_timing[f"{kname}_prefill1"]["bound_ms"],
         "bound_by": silu_timing[f"{kname}_prefill1"]["bound_by"],
         "library_ms": None}
-        for kname, line in (("silu", 137), ("silu_gate", 152))]}
+        for kname, line in (("silu", 137), ("silu_gate", 152))] + [{
+        "name": "waterfill", "route": "cuda",
+        "source": "src/repro_torch/csrc/waterfill.cu",
+        "replaces": "src/repro/kernels/waterfill.py:56",
+        "launches": scen["device_fill"]["launches"],
+        "max_abs_err": max(scen["waterfill"]["max_abs_err"],
+                           scen["device_fill"]["max_abs_err"]),
+        "ms": wf["ms"], "plain_ms": wf["plain_ms"],
+        "bound_ms": wf["bound_ms"], "bound_by": wf["bound_by"],
+        "library_ms": None}]}
     results["kernels"] = kernels["kernels"]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

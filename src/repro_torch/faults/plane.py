@@ -2,8 +2,9 @@
 
 Only the gate's resolver is ported so far. The plane itself
 (`FaultPlane`, its injection and degradation ladder) is not yet
-ported: the fleet raises `NotImplementedError` when the gate resolves
-to ``on`` or a plane is passed in.
+ported: the fleet and both scenario engines raise
+`NotImplementedError` when the gate resolves to ``on``, a plane is
+passed in, or a timeline scripts a fault event.
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ integer count of kernel launches (`<wrapper>.launches`), which a run
 reads to show that its main path went through the kernel. The quantize
 kernel's two forms (per tile, per group) share `quantize.launches`, and
 the dequantize kernel's share `dequantize.launches`; `silu` and
-`silu_gate` count their own.
+`silu_gate` count their own, and so does `fill_rates`.
 """
 from __future__ import annotations
 
@@ -21,11 +21,12 @@ from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
 from repro_torch.kernels import silu as _silu
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
-                                     quantize_groups_ref, quantize_ref,
-                                     rf_predict_ref, silu_gate_ref, silu_ref,
-                                     ssd_chunk_ref)
+                                     fill_rates_ref, quantize_groups_ref,
+                                     quantize_ref, rf_predict_ref,
+                                     silu_gate_ref, silu_ref, ssd_chunk_ref)
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -441,3 +442,79 @@ def dequantize_groups_add(q: torch.Tensor, scale: torch.Tensor,
 
 quantize.launches = 0
 dequantize.launches = 0
+
+
+# ----------------------------------------------------------------------
+# water-fill
+# ----------------------------------------------------------------------
+def _check_fill(tensors) -> Tuple[int, int]:
+    c = tensors["c"]
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.float64:
+            raise TypeError(f"{name} must be float64, got {t.dtype}")
+        if t.device != c.device:
+            raise ValueError(f"{name} on {t.device}, c on {c.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if c.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fill_rates runs on cuda or cpu, not {c.device}")
+    if c.dim() != 3 or c.shape[1] != c.shape[2]:
+        raise ValueError(f"c must be [B, N, N], got {tuple(c.shape)}")
+    B, n = c.shape[0], c.shape[1]
+    if not 1 <= n <= _wf.MAX_N:
+        raise ValueError(f"fill_rates takes 1 <= N <= {_wf.MAX_N} (one "
+                         f"thread per pair), got N={n}")
+    want = {"single": (B, n, n), "path_cap": (B, n, n), "egress": (B, n),
+            "ingress": (B, n)}
+    for name, shape in want.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{tuple(tensors[name].shape)}")
+    if tuple(tensors["w"].shape) not in ((n, n), (B, n, n)):
+        raise ValueError(f"w must be [{n}, {n}] or [{B}, {n}, {n}], got "
+                         f"{tuple(tensors['w'].shape)}")
+    return B, n
+
+
+def fill_rates(c: torch.Tensor, single: torch.Tensor, egress: torch.Tensor,
+               ingress: torch.Tensor, w: torch.Tensor, path_cap: torch.Tensor,
+               out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B progressive water-fills in f64: c / single / path_cap [B, N, N]
+    (aggregate flows, single-connection BW, knee path caps), egress /
+    ingress [B, N] NIC caps, w [N, N] or [B, N, N] RTT weights, N <= 32
+    -> (rate [B, N, N] f64, iters [B] int32, converged [B] bool).
+
+    CUDA tensors go to the hand-written kernel (csrc/waterfill.cu, one
+    launch, a block a fill); `out` may name the three outputs there
+    (contiguous, on the device). CPU tensors go to
+    :func:`repro_torch.kernels.ref.fill_rates_ref`. Both run the JAX
+    package's `fill_rates_loop` and agree with the host numpy loop to
+    1e-9 with the same iteration counts; they sum in other orders."""
+    B, n = _check_fill({"c": c, "single": single, "egress": egress,
+                        "ingress": ingress, "w": w, "path_cap": path_cap})
+    if c.device.type == "cpu":
+        if out is not None:
+            raise ValueError("out is for CUDA tensors")
+        return fill_rates_ref(c, single, egress, ingress, w, path_cap)
+    if out is None:
+        out = (torch.empty((B, n, n), dtype=torch.float64, device=c.device),
+               torch.empty(B, dtype=torch.int32, device=c.device),
+               torch.empty(B, dtype=torch.bool, device=c.device))
+    for t, dt, shape in zip(out, (torch.float64, torch.int32, torch.bool),
+                            ((B, n, n), (B,), (B,))):
+        if not isinstance(t, torch.Tensor) or t.dtype != dt or \
+                tuple(t.shape) != shape or t.device != c.device or \
+                not t.is_contiguous():
+            raise ValueError(f"out must be contiguous f64 [{B}, {n}, {n}], "
+                             f"int32 [{B}] and bool [{B}] on {c.device}")
+    if B:
+        _wf.launch(c, single, egress, ingress, w, path_cap, *out)
+        fill_rates.launches += 1
+    return out
+
+
+fill_rates.launches = 0

@@ -9,6 +9,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.quantize import inv_qmax, qmax
 from repro_torch.kernels.rf_predict import inv_trees
+from repro_torch.kernels.waterfill import (EPS_DEN, EPS_INC, EPS_SAT,
+                                           max_fill_iters)
 
 
 # ----------------------------------------------------------------------
@@ -177,3 +179,63 @@ def dequantize_ref(q: torch.Tensor, scale: torch.Tensor, block: int = 256,
     """Invert :func:`quantize_ref`: each tile's scale broadcast back."""
     out = _tiles(q, block).float() * scale[:, None, :, None]
     return out.reshape(q.shape).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# Progressive water-fill (batched, float64)
+# ----------------------------------------------------------------------
+def fill_rates_ref(c: torch.Tensor, single: torch.Tensor,
+                   egress: torch.Tensor, ingress: torch.Tensor,
+                   w: torch.Tensor, path_cap: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """c / single / path_cap [B, N, N], egress / ingress [B, N], w
+    [N, N] or [B, N, N], all f64 -> (rate [B, N, N] f64, iters [B]
+    int32, converged [B] bool): the kernel's loop (the JAX package's
+    `fill_rates_loop`) with per-batch masks, at most `max_fill_iters(N)`
+    iterations, the kernel's bound. It asks the host whether any fill
+    is left after every iteration, so it is for the tests and the
+    card's comparison, not for speed."""
+    B, n, _ = c.shape
+    w = torch.broadcast_to(w, c.shape)
+    cw = c * w
+    w_pos, cw_pos = w > 0, cw > 0
+    w_den = torch.clamp(w, min=EPS_DEN)
+    cw_den = torch.clamp(cw, min=EPS_DEN)
+    inf = torch.tensor(float("inf"), dtype=c.dtype, device=c.device)
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    rate = torch.zeros_like(c)
+    frozen = c <= 0
+    done = frozen.flatten(1).all(1)
+    iters = torch.zeros(B, dtype=torch.int32, device=c.device)
+    for _ in range(max_fill_iters(n)):
+        if bool(done.all()):
+            break
+        act = ~frozen & ~done[:, None, None]
+        cw_act = torch.where(act, cw, zero)
+        we, wi = cw_act.sum(-1), cw_act.sum(-2)
+        load = rate * c
+        head_e = egress - load.sum(-1)
+        head_i = ingress - load.sum(-2)
+        inc_e = torch.where(we > 0, head_e / torch.clamp(we, min=EPS_DEN),
+                            inf)
+        inc_i = torch.where(wi > 0, head_i / torch.clamp(wi, min=EPS_DEN),
+                            inf)
+        inc_conn = torch.where(act & w_pos, (single - rate) / w_den, inf)
+        inc_path = torch.where(act & cw_pos, (path_cap - load) / cw_den,
+                               inf)
+        inc = torch.minimum(
+            torch.minimum(inc_e.amin(-1), inc_i.amin(-1)),
+            torch.minimum(inc_conn, inc_path).flatten(1).amin(1))
+        inc = torch.where(torch.isfinite(inc) & (inc >= EPS_INC), inc, zero)
+        rate = torch.where(act, rate + inc[:, None, None] * w, rate)
+        load = rate * c
+        hit = act & (((single - rate) < EPS_SAT) |
+                     ((path_cap - load) < EPS_SAT))
+        sat_e = (egress - load.sum(-1)) < EPS_SAT
+        sat_i = (ingress - load.sum(-2)) < EPS_SAT
+        hit = hit | (act & (sat_e[:, :, None] | sat_i[:, None, :]))
+        frozen = frozen | hit
+        stalled = ~hit.flatten(1).any(1) & (inc == 0)
+        iters = iters + (~done).to(torch.int32)
+        done = done | frozen.flatten(1).all(1) | stalled
+    return rate, iters, done

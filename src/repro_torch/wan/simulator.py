@@ -45,9 +45,14 @@ aggregate fill is exact, not an approximation.
 
 This is the PyTorch port's copy of `repro/wan/simulator.py`. The
 simulator is host numpy float64 in both packages, with the same named
-`SeedSequence` streams, so every draw and every fill is bit-identical
-to the JAX package's; moving the water-fill onto the card is later
-work.
+`SeedSequence` streams, so every draw and every fill of the default
+``"numpy"`` water-fill backend is bit-identical to the JAX package's.
+The fill's other backends: ``"torch"``, the plain PyTorch version on
+the host (`kernels/ref.py::fill_rates_ref`), and ``"cuda"``, the
+hand-written kernel (`csrc/waterfill.cu`), one launch a fill, which
+raises without a card; both agree with the host loop to 1e-9 with the
+same iteration count (the JAX package's ``"jax"`` backend is the
+batched `lax.while_loop` these replace).
 """
 from __future__ import annotations
 
@@ -57,13 +62,84 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.kernels import waterfill as wfk
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.wan import topology as topo
+
+FILL_BACKENDS = ("numpy", "torch", "cuda")
 
 
 class WaterfillDivergence(RuntimeError):
     """A progressive fill hit its iteration bound with unfrozen pairs
     left — the rates would be partial, so the fill fails loudly."""
+
+
+def fill_rates_host(c: np.ndarray, single: np.ndarray, egress: np.ndarray,
+                    ingress: np.ndarray, w: np.ndarray, path_cap: np.ndarray,
+                    cap_iters: int) -> Tuple[np.ndarray, int, bool]:
+    """The progressive water-fill on the host, numpy float64 — the
+    bit-exact ``"numpy"`` backend the trace goldens pin.
+
+    `c`, `single`, `w`, `path_cap` are [N,N] (aggregate flow counts,
+    single-connection BW, per-connection RTT weights, knee path caps);
+    `egress` / `ingress` [N] NIC caps. Returns ``(rate, iters,
+    converged)``: per-connection rates [N,N], the iterations run, and
+    False only if `cap_iters` iterations left pairs unfrozen.
+    """
+    N = c.shape[0]
+    # every input of the fill is loop-invariant: the single-conn BW,
+    # NIC caps, RTT weights (cached across fills), and the clipped
+    # weight denominators are computed ONCE here, not per filling
+    # iteration
+    cw = c * w                                 # aggregate pair weight
+    w_pos = w > 0
+    cw_pos = cw > 0
+    w_den = np.maximum(w, 1e-12)
+    cw_den = np.maximum(cw, 1e-12)
+    per_conn_cap = single                      # one stream's ceiling
+    rate = np.zeros((N, N))                    # per-connection rate
+    frozen = c <= 0
+    iters = 0
+
+    # progressive filling on the weighted fill level t:
+    # rate_ij = t * w_ij while unfrozen
+    while True:
+        if frozen.all():
+            break
+        if iters >= cap_iters:
+            return rate, iters, False
+        act = ~frozen
+        we = (cw * act).sum(axis=1)            # active weight per egress
+        wi = (cw * act).sum(axis=0)
+        head_e = egress - (rate * c).sum(axis=1)
+        head_i = ingress - (rate * c).sum(axis=0)
+        inc_e = np.where(we > 0, head_e / np.maximum(we, 1e-12), np.inf)
+        inc_i = np.where(wi > 0, head_i / np.maximum(wi, 1e-12), np.inf)
+        # per-pair bounds in fill-level units (rate grows as t*w)
+        inc_conn = np.where(act & w_pos,
+                            (per_conn_cap - rate) / w_den,
+                            np.inf)
+        inc_path = np.where(act & cw_pos,
+                            (path_cap - rate * c) / cw_den,
+                            np.inf)
+        inc_pair = np.minimum(inc_conn, inc_path)
+        inc = min(float(np.min(inc_e)), float(np.min(inc_i)),
+                  float(np.min(inc_pair)))
+        if not np.isfinite(inc) or inc < 1e-9:
+            inc = 0.0
+        rate = np.where(act, rate + inc * w, rate)
+        hit = act & (((per_conn_cap - rate) < 1e-6) |
+                     ((path_cap - rate * c) < 1e-6))
+        tot_e = (rate * c).sum(axis=1)
+        tot_i = (rate * c).sum(axis=0)
+        sat_e = egress - tot_e < 1e-6
+        sat_i = ingress - tot_i < 1e-6
+        hit |= act & (sat_e[:, None] | sat_i[None, :])
+        iters += 1
+        if not hit.any() and inc == 0.0:
+            break
+        frozen |= hit
+    return rate, iters, True
 
 
 @dataclass
@@ -101,8 +177,8 @@ class WanSimulator:
     host_sigma: float = 0.02
     # water-fill backend: None defers to $REPRO_WATERFILL_BACKEND
     # (default "numpy", the bit-exact host loop the trace goldens pin);
-    # the batched device fill ("jax" in the JAX package) is not yet
-    # ported and raises
+    # "torch" runs the fill's plain PyTorch version on the host, "cuda"
+    # the hand-written kernel on the card (both roundoff-equal)
     waterfill_backend: Optional[str] = None
 
     def __post_init__(self):
@@ -366,13 +442,9 @@ class WanSimulator:
         ``$REPRO_WATERFILL_BACKEND``, then the bit-exact numpy loop."""
         b = self.waterfill_backend or \
             os.environ.get("REPRO_WATERFILL_BACKEND", "numpy")
-        if b == "jax":
-            raise NotImplementedError(
-                "waterfill backend 'jax' (the batched device fill) is "
-                "not yet ported; use 'numpy'")
-        if b != "numpy":
+        if b not in FILL_BACKENDS:
             raise ValueError(f"unknown waterfill backend {b!r}; "
-                             f"expected 'numpy'")
+                             f"expected one of {FILL_BACKENDS}")
         return b
 
     def fill_inputs(self, cap: Optional[np.ndarray] = None
@@ -382,7 +454,7 @@ class WanSimulator:
         state: ``(single, egress, ingress, w, path_cap)`` — the
         single-connection BW, NIC caps, RTT weights (cached across
         fills) and the knee path cap (min'd with any §3.2.2 `cap`).
-        Computed once per fill by the host loop."""
+        Computed once per fill, for whichever backend runs it."""
         single = self.link_bw_now()
         egress, ingress = self._caps()
         w = self.rtt_weight()                      # per-connection weight
@@ -401,66 +473,20 @@ class WanSimulator:
         surfaced on ``last_fill_iters`` (and ``fill_calls`` counts
         fills) so harnesses can assert convergence headroom.
         """
-        N = self.N
         single, egress, ingress, w, path_cap = self.fill_inputs(cap)
-        self._fill_backend()
-        # every input of the fill is loop-invariant: the single-conn BW,
-        # NIC caps, RTT weights (cached across fills), and the clipped
-        # weight denominators are computed ONCE here, not per filling
-        # iteration
-        cw = c * w                                 # aggregate pair weight
-        w_pos = w > 0
-        cw_pos = cw > 0
-        w_den = np.maximum(w, 1e-12)
-        cw_den = np.maximum(cw, 1e-12)
-        per_conn_cap = single                      # one stream's ceiling
-        rate = np.zeros((N, N))                    # per-connection rate
-        frozen = c <= 0
-        iters = 0
-
-        # progressive filling on the weighted fill level t:
-        # rate_ij = t * w_ij while unfrozen
-        while True:
-            if frozen.all():
-                break
-            if iters >= self.fill_iter_cap:
-                self._note_fill(iters)
-                raise WaterfillDivergence(
-                    f"water-fill hit the {self.fill_iter_cap}-iteration "
-                    f"bound with {int((~frozen).sum())} unfrozen pairs "
-                    f"left")
-            act = ~frozen
-            we = (cw * act).sum(axis=1)            # active weight per egress
-            wi = (cw * act).sum(axis=0)
-            head_e = egress - (rate * c).sum(axis=1)
-            head_i = ingress - (rate * c).sum(axis=0)
-            inc_e = np.where(we > 0, head_e / np.maximum(we, 1e-12), np.inf)
-            inc_i = np.where(wi > 0, head_i / np.maximum(wi, 1e-12), np.inf)
-            # per-pair bounds in fill-level units (rate grows as t*w)
-            inc_conn = np.where(act & w_pos,
-                                (per_conn_cap - rate) / w_den,
-                                np.inf)
-            inc_path = np.where(act & cw_pos,
-                                (path_cap - rate * c) / cw_den,
-                                np.inf)
-            inc_pair = np.minimum(inc_conn, inc_path)
-            inc = min(float(np.min(inc_e)), float(np.min(inc_i)),
-                      float(np.min(inc_pair)))
-            if not np.isfinite(inc) or inc < 1e-9:
-                inc = 0.0
-            rate = np.where(act, rate + inc * w, rate)
-            hit = act & (((per_conn_cap - rate) < 1e-6) |
-                         ((path_cap - rate * c) < 1e-6))
-            tot_e = (rate * c).sum(axis=1)
-            tot_i = (rate * c).sum(axis=0)
-            sat_e = egress - tot_e < 1e-6
-            sat_i = ingress - tot_i < 1e-6
-            hit |= act & (sat_e[:, None] | sat_i[None, :])
-            iters += 1
-            if not hit.any() and inc == 0.0:
-                break
-            frozen |= hit
-        self._note_fill(iters)
+        backend = self._fill_backend()
+        if backend == "numpy":
+            rate, iters, ok = fill_rates_host(c, single, egress, ingress, w,
+                                              path_cap, self.fill_iter_cap)
+        else:
+            rate, iters, ok = wfk.fill_rates(
+                c, single, egress, ingress, w, path_cap,
+                device="cuda" if backend == "cuda" else "cpu")
+        self._note_fill(int(iters))
+        if not bool(ok):
+            raise WaterfillDivergence(
+                f"{backend} water-fill hit the {self.fill_iter_cap}-"
+                f"iteration bound with unfrozen pairs left")
         return rate
 
     # ------------------------------------------------------------------

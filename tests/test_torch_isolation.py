@@ -50,7 +50,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.models.registry", "repro_torch.control.schedule",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
             "repro_torch.compat", "repro_torch.core.wansync",
-            "repro_torch.kernels.quantize"} <= mods
+            "repro_torch.kernels.quantize", "repro_torch.scenarios.engine",
+            "repro_torch.scenarios.library", "repro_torch.scenarios.goldens",
+            "repro_torch.scenarios.trace", "repro_torch.scenarios.events",
+            "repro_torch.faults.events", "repro_torch.lifecycle.manager",
+            "repro_torch.fleet.scenario", "repro_torch.fleet.trace",
+            "repro_torch.kernels.waterfill"} <= mods
 
 
 def _imports(path):
@@ -183,13 +188,21 @@ def test_fleet_gates_not_yet_ported(monkeypatch):
         _fleet()
 
 
-def test_device_waterfill_not_yet_ported(monkeypatch):
+def test_waterfill_backends_dispatch_without_jax(monkeypatch):
+    """The device fill is the port's own: "jax" is no backend of the
+    port, "cuda" needs a card (no quiet fall back to the host), "torch"
+    runs the plain version on the host."""
     sim = WanSimulator(seed=0, waterfill_backend="jax")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="'numpy', 'torch', 'cuda'"):
         sim.waterfill(np.ones((8, 8)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("REPRO_WATERFILL_BACKEND", "cuda")
-    with pytest.raises(ValueError, match="unknown waterfill backend"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         WanSimulator(seed=0).waterfill(np.ones((8, 8)))
+    monkeypatch.setenv("REPRO_WATERFILL_BACKEND", "torch")
+    sim = WanSimulator(seed=0)
+    assert sim.waterfill(np.ones((8, 8))).shape == (8, 8)
+    assert sim.fill_calls == 1
 
 
 def _tiny_cfg():
@@ -285,6 +298,24 @@ def test_model_side_gates_not_yet_ported():
 def test_codec_path_modules_import_no_jax_and_no_reference(module):
     """Each module of the cache-migration and gradient-sync path, on its
     own, pulls in neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.scenarios", "repro_torch.scenarios.goldens",
+    "repro_torch.fleet.scenario", "repro_torch.faults.events",
+    "repro_torch.kernels.waterfill"])
+def test_scenario_path_modules_import_no_jax_and_no_reference(module):
+    """Each module of the scenario engines' path, on its own, pulls in
+    neither jax nor the reference package."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
