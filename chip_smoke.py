@@ -47,10 +47,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
 5b. scenarios — the scenario engines (`repro_torch.scenarios`,
    `repro_torch.fleet.scenario`), each part with its launch counts set
    to 0 just before it and read just after:
-   (1) the 12 `scenario/*/seed3` and 4 `fleet/*/seed3` runs through
-   `repro_torch.scenarios.goldens`, the fleet's forest on the card:
-   every sha256 equal to its pin in `tests/data/trace_golden.json`, one
-   `rf_predict` launch a fleet tick (50);
+   (1) the 12 `scenario/*/seed3`, 4 `fleet/*/seed3` and 3
+   `placement/*` runs through `repro_torch.scenarios.goldens`, the
+   fleet's forest on the card: every sha256 equal to its pin in
+   `tests/data/trace_golden.json`, one `rf_predict` launch a fleet tick
+   (50);
    (2) `congestion` and `provider_shift` at seed 3 with
    `BwPredictor(paper forest)` on the card and on the host: `to_json()`
    byte-equal, one `rf_predict` launch a replan;
@@ -69,6 +70,29 @@ Every phase is fatal: a failure exits non-zero before the result line.
    (5) the main phase's fleet under `waterfill_backend` numpy and cuda,
    A B B A in one process: budgets, conns and plan signatures equal,
    BW within rtol 1e-9; fills a tick and tick median / p90 per backend;
+5c. fused — `FleetController.run_fused(24)` (`repro_torch.fleet.fused`)
+   on the main phase's fleet under the fused contract (quiet captures:
+   snapshot_sigma = host_sigma = 0; seed 0; the paper forest): against
+   24 sequential ticks of an identical fleet with waterfill_backend
+   numpy and cuda, budgets and conns equal, cap and achieved BW within
+   1e-6, final conns equal and AIMD targets within 1e-6, and one more
+   sequential tick after the run matching; a 16-variant `sweep` of 24
+   steps (the us-east/us-west link degraded at step 1 to 0.20..0.95)
+   equal to 16 single `run_fused` calls; every tick loop under
+   `torch.cuda.set_sync_debug_mode("error")`; launches, counts zeroed
+   just before and read just after: 1 `rf_predict` and 2 `fill_rates`
+   a tick in both `run` and `sweep`. Prints ms a tick of the sequential
+   and the fused tick, A B B A in one process (fused: the whole call and
+   the loop to the device's end; warm), the host µs a tick of the
+   loop's issue outside the three custom launches, the sweep's epochs/s,
+   and from `torch.profiler` over one run's loop the kernels a tick and
+   the device's busy share;
+5d. placement — the 3 `placement/*` pins with
+   `REPRO_PLACEMENT_BACKEND=torch` on the card; the greedy and
+   exhaustive searches of the named workloads at N in {3, 4, 8} with
+   `backend="torch"` on the card deciding as numpy, and every candidate
+   batch of the numpy searches priced by both backends within rtol
+   1e-12; host µs a batch per backend (median).
 6. ssd     — the ssd_chunk CUDA kernels against their plain PyTorch
    version on the card, atol/rtol 1e-4 (both take the cumulative decay
    in one order; the products add in another, bf16 inputs on the tensor
@@ -165,12 +189,15 @@ from repro_torch.control import WanifyController  # noqa: E402
 from repro_torch.control.schedule import (offset_schedule,  # noqa: E402
                                           wire_decode, wire_encode)
 from repro_torch.core.plan import WanPlan  # noqa: E402
-from repro_torch.core.predictor import BwPredictor  # noqa: E402
+from repro_torch.core.predictor import (BwPredictor,  # noqa: E402
+                                        SnapshotPredictor)
 from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
                                       wan_allreduce_batched)
+from repro_torch.fleet import fused as fused_mod  # noqa: E402
 from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E402
-                               JobSpec, default_fleet_forest,
-                               fleet_scenario_names, get_fleet_scenario)
+                               FusedFleet, JobSpec, default_fleet_forest,
+                               fleet_scenario_names, get_fleet_scenario,
+                               make_schedule)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
 from repro_torch.kernels import rf_predict as rf_kernel  # noqa: E402
 from repro_torch.kernels import waterfill as wfk  # noqa: E402
@@ -185,12 +212,17 @@ from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
                                             unstack_cache)
 from repro_torch.obs.spans import SpanTracer  # noqa: E402
-from repro_torch.scenarios import (ScenarioEngine, get_scenario,  # noqa: E402
-                                   goldens, run_scenario, scenario_names)
+from repro_torch import placement as pl  # noqa: E402
+from repro_torch.placement import cost as pl_cost  # noqa: E402
+from repro_torch.scenarios import (ScenarioEngine, at,  # noqa: E402
+                                   get_scenario, goldens, run_scenario,
+                                   scenario_names)
+from repro_torch.scenarios.events import LinkDegrade  # noqa: E402
 from repro_torch.serve.engine import (Engine, Request,  # noqa: E402
                                       ServeConfig, kv_migrate)
 from repro_torch.wan.dataset import (generate_dataset,  # noqa: E402
                                      train_default_forest)
+from repro_torch.wan.monitor import egress_price_vector  # noqa: E402
 from repro_torch.wan.simulator import (WanSimulator,  # noqa: E402
                                        fill_rates_host)
 
@@ -879,6 +911,490 @@ def fleet_fill_ab(forest, dev) -> dict:
             "fill_ms_per_tick": float(fill_ms_tick),
             "rest_ms_per_tick": float(ms.mean() - fill_ms_tick),
             "iters_per_fill": float(np.mean([f[1] for f in timed_fills]))}
+    return out
+
+
+# ----------------------------------------------------------------------
+# fused phase: the whole fleet tick as tensor programs on the card
+# ----------------------------------------------------------------------
+FUSED_SIM = dict(snapshot_sigma=0.0, host_sigma=0.0)   # the fused contract
+FUSED_TOL = 1e-6          # the reference's own (tests/test_fused_tick.py)
+SWEEP_VARIANTS = 16
+SWEEP_FACTORS = tuple(np.linspace(0.2, 0.95, SWEEP_VARIANTS))
+
+
+def fused_fleet(forest, dev, backend: str = "numpy"):
+    """The main phase's fleet (16 four-DC jobs, priorities (1, 2, 4),
+    m_total 8, seed 0) under the fused contract: quiet captures
+    (snapshot_sigma = host_sigma = 0), fluctuation on."""
+    return FleetController(
+        WanSimulator(seed=0, waterfill_backend=backend, **FUSED_SIM),
+        BatchedRfPredictor(forest, device=dev), m_total=M_TOTAL,
+        jobs=fleet_jobs())
+
+
+def fused_rows_match(want, got, what: str) -> float:
+    """Budgets and conns equal; cap_min and achieved BW within
+    FUSED_TOL (rtol and atol). Returns the largest |diff| of those."""
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(got)} ticks, {len(want)}")
+    err = 0.0
+    for a, b in zip(want, got):
+        for ra, rb in zip(a["jobs"], b["jobs"]):
+            for key in ("name", "budget", "conns_total"):
+                if ra[key] != rb[key]:
+                    raise AssertionError(f"{what} tick {a['tick']} "
+                                         f"{ra['name']}: {key} {rb[key]} != "
+                                         f"{ra[key]}")
+            for key in ("cap_min", "achieved_min", "achieved_mean"):
+                np.testing.assert_allclose(
+                    rb[key], ra[key], rtol=FUSED_TOL, atol=FUSED_TOL,
+                    err_msg=f"{what} tick {a['tick']} {ra['name']} {key}")
+                err = max(err, abs(rb[key] - ra[key]))
+    return err
+
+
+def fused_state_match(want, got, what: str) -> None:
+    """Final conns equal and AIMD targets within FUSED_TOL."""
+    for name in want.jobs:
+        a, b = want.jobs[name].controller, got.jobs[name].controller
+        if not np.array_equal(a.current_conns(), b.current_conns()):
+            raise AssertionError(f"{what}: {name}'s final conns differ")
+        np.testing.assert_allclose(
+            np.stack([ag.target_bw for ag in b._agents]),
+            np.stack([ag.target_bw for ag in a._agents]),
+            rtol=FUSED_TOL, atol=FUSED_TOL, err_msg=f"{what} {name} targets")
+
+
+# the fused tick's stages, timed by ScanProbe: (owner, attribute); the
+# Eq. 2-3 ranges include Algorithm 1's relations
+FUSED_STAGES = (("fill", "FusedFleet", "_fill"),
+                ("embed", "FusedFleet", "_embed"),
+                ("extract", "FusedFleet", "_extract"),
+                ("off_pairs", "FusedFleet", "_off_pairs"),
+                ("link_shares", "fused", "link_shares_torch"),
+                ("ranges", "fused", "global_ranges_torch"),
+                ("relations", "fused", "relations_torch"),
+                ("aimd", "fused", "aimd_step_torch"))
+
+
+class ScanProbe:
+    """Wraps `FusedFleet._scan`, the T-tick loop, while installed. With
+    `check_sync` (on the card) the loop runs under
+    `torch.cuda.set_sync_debug_mode("error")`: any synchronising call in
+    it raises. Each run records the loop's host seconds (the issue of
+    every tick), its seconds to the device's end (a synchronise after
+    it), the host seconds spent inside the three custom launches
+    (`rf_predict.launch`, `waterfill.launch`) and inside each of
+    FUSED_STAGES. With `profile`, the loop runs under `torch.profiler`
+    (CPU and CUDA activity) and each stage under a `record_function`
+    range named ``stage:<name>``."""
+
+    def __init__(self, dev):
+        self.dev, self.runs, self.prof = dev, [], None
+        self.profile, self.check_sync = False, True
+        self._scan = FusedFleet._scan
+        owners = {"FusedFleet": FusedFleet, "fused": fused_mod}
+        self._orig = [(owners[o], a, getattr(owners[o], a))
+                      for _, o, a in FUSED_STAGES] + \
+            [(rf_kernel, "launch", rf_kernel.launch),
+             (wfk, "launch", wfk.launch)]
+
+    def __enter__(self):
+        probe = self
+
+        def timed(real, name):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    if probe.profile:
+                        with torch.profiler.record_function(f"stage:{name}"):
+                            return real(*a, **kw)
+                    return real(*a, **kw)
+                finally:
+                    probe._host[name] = probe._host.get(name, 0.0) + \
+                        time.perf_counter() - t0
+            return call
+
+        def scan(ff, cons, target, singles, bgs):
+            from torch.profiler import ProfilerActivity, profile
+            probe._host = {}
+            check = probe.check_sync and probe.dev.type == "cuda"
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) \
+                if probe.profile else None
+            if prof is not None:
+                prof.__enter__()
+            t0 = time.perf_counter()
+            if check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = probe._scan(ff, cons, target, singles, bgs)
+            finally:
+                if check:
+                    torch.cuda.set_sync_debug_mode("default")
+            t1 = time.perf_counter()
+            sync(probe.dev)
+            t2 = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                probe.prof = prof
+            probe.runs.append({"ticks": singles.shape[0],
+                               "variants": singles.shape[1],
+                               "issue_s": t1 - t0, "loop_s": t2 - t0,
+                               "launch_s": probe._host.get("rf_launch", 0.0)
+                               + probe._host.get("fill_launch", 0.0),
+                               "stage_s": dict(probe._host),
+                               "sync_checked": check})
+            return out
+        FusedFleet._scan = scan
+        names = [n for n, _, _ in FUSED_STAGES] + ["rf_launch", "fill_launch"]
+        for name, (owner, attr, real) in zip(names, self._orig):
+            setattr(owner, attr, timed(real, name))
+        return self
+
+    def __exit__(self, *exc):
+        FusedFleet._scan = self._scan
+        for owner, attr, real in self._orig:
+            setattr(owner, attr, real)
+
+
+def stage_kernels(prof) -> dict:
+    """Kernels and their device ms under each ``stage:<name>`` range of
+    a profiled loop (the kernels the range's CPU ops launched)."""
+    def under(ev):
+        k = list(ev.kernels)
+        for c in ev.cpu_children:
+            k += under(c)
+        return k
+    out = {}
+    for ev in prof.events():
+        if ev.name.startswith("stage:"):
+            row = out.setdefault(ev.name[6:], {"kernels": 0, "device_ms": 0.0})
+            ks = under(ev)
+            row["kernels"] += len(ks)
+            row["device_ms"] += sum(k.duration for k in ks) / 1e3
+    return out
+
+
+def zero_counts() -> None:
+    ops.rf_predict.launches = 0
+    ops.fill_rates.launches = 0
+
+
+def read_counts() -> dict:
+    return {"rf_predict": ops.rf_predict.launches,
+            "fill_rates": ops.fill_rates.launches}
+
+
+def sweep_schedules():
+    """SWEEP_VARIANTS schedules of TICKS steps: the us-east/us-west
+    link degraded at step 1 to each of SWEEP_FACTORS."""
+    singles, bgs, events = [], [], []
+    for f in SWEEP_FACTORS:
+        ev = (at(1, LinkDegrade(("us-east", "us-west"), float(f))),)
+        s, g = make_schedule(WanSimulator(seed=0, **FUSED_SIM), TICKS, ev)
+        singles.append(s)
+        bgs.append(g)
+        events.append(ev)
+    return np.stack(singles), np.stack(bgs), events
+
+
+def fused_profile(prof) -> dict:
+    """Kernels and their device ms in the profiled loop, by name."""
+    n, dev_ms, names = 0, 0.0, {}
+    for e in prof.key_averages():
+        # the stage ranges (ScanProbe's record_function) show on the
+        # device's timeline too, spanning kernels: not kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.key.startswith(("Memcpy", "Memset", "stage:")):
+            continue
+        n += e.count
+        dev_ms += e.self_device_time_total / 1e3
+        names[e.key[:60]] = names.get(e.key[:60], 0) + e.count
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return {"kernels": n, "device_ms": dev_ms, "top": top}
+
+
+def fused_phase(forest, dev) -> dict:
+    """The fused phase (see the head comment); every check fatal."""
+    out = {}
+    with ScanProbe(dev) as probe:
+        # (1) run_fused(24) against 24 sequential ticks, numpy and cuda
+        # fill backends; then one more sequential tick on each side
+        fleet = fused_fleet(forest, dev)
+        zero_counts()
+        got = fleet.run_fused(TICKS)
+        counts = read_counts()
+        out["run_launches"] = counts
+        seqs = {}
+        for backend in ("numpy", "cuda"):
+            seq = seqs[backend] = fused_fleet(forest, dev, backend)
+            want = [seq.tick() for _ in range(TICKS)]
+            err = fused_rows_match(want, got, f"fused vs {backend} ticks")
+            fused_state_match(seq, fleet, f"fused vs {backend} ticks")
+            out[f"vs_{backend}_max_abs_err"] = err
+        err = fused_rows_match([seqs["numpy"].tick()], [fleet.tick()],
+                               "the tick after the fused run")
+        out["next_tick_max_abs_err"] = err
+        if counts != {"rf_predict": TICKS, "fill_rates": 2 * TICKS}:
+            raise AssertionError(f"run_fused({TICKS}) launches {counts}: "
+                                 f"expected 1 rf_predict and 2 fill_rates a "
+                                 f"tick")
+        log(f"[fused] run_fused({TICKS}), {N_JOBS} jobs: budgets and conns "
+            f"equal to {TICKS} sequential ticks with the numpy and the cuda "
+            f"fill (cap and achieved BW within {FUSED_TOL}: max |diff| "
+            f"{out['vs_numpy_max_abs_err']:.3g} / "
+            f"{out['vs_cuda_max_abs_err']:.3g}); final conns equal, targets "
+            f"within {FUSED_TOL}; the next sequential tick matches (max "
+            f"|diff| {out['next_tick_max_abs_err']:.3g}); launches {counts}; "
+            f"fill iterations of tick 1 {got[0]['fill_iters']}")
+
+        # (2) a 16-variant sweep against 16 single runs
+        singles, bgs, events = sweep_schedules()
+        ff = fused_fleet(forest, dev).fused()
+        zero_counts()
+        sw = ff.sweep(singles, bgs)
+        counts = read_counts()
+        out["sweep_launches"] = counts
+        err = 0.0
+        for b, ev in enumerate(events):
+            rows = fused_fleet(forest, dev).run_fused(TICKS, ev)
+            for t, row in enumerate(rows):
+                if row["fill_iters"] != sw["fill_iters"][b, t].tolist():
+                    raise AssertionError(f"sweep variant {b} tick {t}: fill "
+                                         f"iterations differ")
+                for j, jr in enumerate(row["jobs"]):
+                    for key in ("conns_total", "budget"):
+                        if jr[key] != int(sw[key][b, t, j]):
+                            raise AssertionError(
+                                f"sweep variant {b} tick {t} job {j} {key}")
+                    for key in ("cap_min", "achieved_min", "achieved_mean"):
+                        np.testing.assert_allclose(
+                            sw[key][b, t, j], jr[key], rtol=FUSED_TOL,
+                            atol=FUSED_TOL)
+                        err = max(err, abs(sw[key][b, t, j] - jr[key]))
+        out["sweep_max_abs_err"] = err
+        if counts != {"rf_predict": TICKS, "fill_rates": 2 * TICKS}:
+            raise AssertionError(f"sweep launches {counts}: expected 1 "
+                                 f"rf_predict and 2 fill_rates a tick")
+        log(f"[fused] sweep of {SWEEP_VARIANTS} variants x {TICKS} ticks "
+            f"(us-east/us-west degraded at step 1 to "
+            f"{SWEEP_FACTORS[0]:.2f}..{SWEEP_FACTORS[-1]:.2f}): equal to "
+            f"{SWEEP_VARIANTS} single run_fused calls (ints and iterations "
+            f"exact, floats max |diff| {err:.3g}); launches {counts}")
+
+        # (3) A B B A: sequential ticks (numpy fill, the main path) and
+        # fused ticks, a fresh fleet a run, the fused runs warm; the
+        # loops above ran under the sync check, these time it without
+        probe.check_sync = False
+        probe.runs.clear()
+        runs = []
+        for kind in ("sequential", "fused", "fused", "sequential"):
+            fleet = fused_fleet(forest, dev)
+            if kind == "sequential":
+                secs = []
+                for _ in range(TICKS):
+                    t0 = time.perf_counter()
+                    fleet.tick()
+                    sync(dev)
+                    secs.append(time.perf_counter() - t0)
+                runs.append((kind, secs))
+            else:
+                fleet.fused()
+                t0 = time.perf_counter()
+                fleet.run_fused(TICKS)
+                runs.append((kind, time.perf_counter() - t0))
+        loops = probe.runs[-2:]
+        seq_ms = np.concatenate([np.asarray(s) for k, s in runs
+                                 if k == "sequential"]) * 1e3
+        run_ms = [s * 1e3 / TICKS for k, s in runs if k == "fused"]
+        loop_ms = [r["loop_s"] * 1e3 / TICKS for r in loops]
+        issue_us = [r["issue_s"] * 1e6 / TICKS for r in loops]
+        outside_us = [(r["issue_s"] - r["launch_s"]) * 1e6 / TICKS
+                      for r in loops]
+        out["ab"] = {
+            "order": [k for k, _ in runs],
+            "sequential_tick_ms": seq_ms.tolist(),
+            "sequential_ms_median": float(np.median(seq_ms)),
+            "sequential_ms_mean": float(seq_ms.mean()),
+            "sequential_run_medians_ms": [float(np.median(s) * 1e3)
+                                          for k, s in runs
+                                          if k == "sequential"],
+            "fused_run_ms_per_tick": run_ms, "fused_loop_ms_per_tick": loop_ms,
+            "fused_issue_us_per_tick": issue_us,
+            "fused_host_us_outside_launches": outside_us}
+        stage_us = {k: float(np.mean([r["stage_s"].get(k, 0.0)
+                                      for r in loops])) * 1e6 / TICKS
+                    for k in [n for n, _, _ in FUSED_STAGES]
+                    + ["rf_launch", "fill_launch"]}
+        stage_us["ranges"] -= stage_us["relations"]     # exclusive
+        stage_us["rest"] = float(np.mean(issue_us)) - sum(
+            v for k, v in stage_us.items() if k != "fill_launch")
+        out["ab"]["stage_host_us_per_tick"] = stage_us
+        ab = out["ab"]
+        log(f"[fused] A B B A ({ab['order']}), {N_JOBS} jobs x {TICKS} "
+            f"ticks: sequential tick {ab['sequential_ms_median']:.3f} ms "
+            f"median, {ab['sequential_ms_mean']:.3f} mean (run medians "
+            f"{[round(v, 3) for v in ab['sequential_run_medians_ms']]}); "
+            f"fused {[round(v, 4) for v in run_ms]} ms a tick for the whole "
+            f"run_fused call, {[round(v, 4) for v in loop_ms]} ms a tick in "
+            f"the loop (to the device's end); host issue "
+            f"{[round(v, 1) for v in issue_us]} us a tick, of which "
+            f"{[round(v, 1) for v in outside_us]} us outside the three "
+            f"custom launches")
+        log("[fused] host us a tick by stage (mean of both fused runs; "
+            "fill includes its launch, ranges excludes relations, rest is "
+            "the tick's own ops: features, predict's wrapper, stats): " +
+            ", ".join(f"{k} {v:.1f}" for k, v in stage_us.items()))
+
+        # (4) sweep rate, warm
+        ff = fused_fleet(forest, dev).fused()
+        ff.sweep(singles, bgs)
+        t0 = time.perf_counter()
+        ff.sweep(singles, bgs)
+        sweep_s = time.perf_counter() - t0
+        out["sweep_s"] = sweep_s
+        out["sweep_epochs_per_s"] = SWEEP_VARIANTS * TICKS / sweep_s
+        log(f"[fused] sweep {SWEEP_VARIANTS} x {TICKS} (warm): "
+            f"{sweep_s * 1e3:.2f} ms, {out['sweep_epochs_per_s']:.1f} "
+            f"epochs/s ({probe.runs[-1]['loop_s'] * 1e3 / TICKS:.4f} ms a "
+            f"tick of {SWEEP_VARIANTS} variants in the loop)")
+
+        # (5) kernels a tick and the device's busy share, from the
+        # profiler over one warm run's loop
+        if dev.type == "cuda":
+            probe.profile = True
+            fused_fleet(forest, dev).run_fused(TICKS)
+            probe.profile = False
+            prof = fused_profile(probe.prof)
+            prof["stages"] = {k: {"kernels_per_tick": v["kernels"] / TICKS,
+                                  "device_ms_per_tick": v["device_ms"] / TICKS}
+                              for k, v in stage_kernels(probe.prof).items()}
+            prof["kernels_per_tick"] = prof["kernels"] / TICKS
+            prof["device_ms_per_tick"] = prof["device_ms"] / TICKS
+            prof["busy_share"] = prof["device_ms_per_tick"] / \
+                float(np.median(loop_ms))
+            out["profile"] = prof
+            log(f"[fused] profile of one run's loop: "
+                f"{prof['kernels_per_tick']:.1f} kernels a tick, "
+                f"{prof['device_ms_per_tick']:.4f} device ms a tick, busy "
+                f"{prof['busy_share']:.1%} of the untraced loop's "
+                f"{np.median(loop_ms):.4f} ms a tick; most launched: " +
+                ", ".join(f"{k} x{v}" for k, v in prof["top"]))
+            log("[fused] kernels and device ms a tick by stage (ranges "
+                "includes relations): " + ", ".join(
+                    f"{k} {v['kernels_per_tick']:.1f} / "
+                    f"{v['device_ms_per_tick']:.4f}"
+                    for k, v in prof["stages"].items()))
+    return out
+
+
+# ----------------------------------------------------------------------
+# placement phase: the 3 pins and the torch backend on the card
+# ----------------------------------------------------------------------
+PLACEMENT_NS = (3, 4, 8)
+PLACEMENT_RTOL = 1e-12    # tests/test_torch_placement.py's TORCH_RTOL
+
+
+def placement_bw(n: int):
+    """`tests/test_placement_batch.py`'s inputs: achievable BW at a
+    quiet steady state and the regions' egress prices."""
+    sim = WanSimulator(seed=0, fluct_sigma=0.0, snapshot_sigma=0.0,
+                       runtime_sigma=0.0)
+    ctl = WanifyController(sim, SnapshotPredictor(), n_pods=n)
+    return pl.achievable_bw(ctl.plan), egress_price_vector(sim.regions[:n])
+
+
+def decision_key(d):
+    return (d.placement, d.cost.makespan_s, d.cost.egress_usd, d.evals)
+
+
+def placement_phase(dev) -> dict:
+    """The placement phase (see the head comment); every check fatal."""
+    out = {}
+    pins = {k: v for k, v in goldens.pinned().items()
+            if k.startswith("placement/")}
+    runners = goldens.runners()
+    old = os.environ.get("REPRO_PLACEMENT_BACKEND")
+    os.environ["REPRO_PLACEMENT_BACKEND"] = "torch"
+    try:
+        got = {k: goldens.sha(runners[k]()) for k in pins}
+    finally:
+        if old is None:
+            del os.environ["REPRO_PLACEMENT_BACKEND"]
+        else:
+            os.environ["REPRO_PLACEMENT_BACKEND"] = old
+    bad = sorted(k for k in pins if got[k] != pins[k])
+    if bad or len(pins) != 3:
+        raise AssertionError(f"placement pins with the torch backend: {bad}")
+    log(f"[placement] the {len(pins)} placement pins hold with "
+        f"REPRO_PLACEMENT_BACKEND=torch on the card: {sorted(pins)}")
+
+    # every candidate batch of full searches on numpy, then the same
+    # batches on the card; the searches on the card decide alike
+    batches = []
+    real = pl_cost._eval_packed
+
+    def tap(placements, bw, packed, rate, backend, device=None):
+        batches.append((placements, bw, packed, rate))
+        return real(placements, bw, packed, rate, backend, device)
+    searches = 0
+    for name in pl.workload_names():
+        for n in PLACEMENT_NS:
+            bw, price = placement_bw(n)
+            q = pl.get_workload(name, n)
+            runs = [("greedy", lambda **kw: pl.greedy_place(
+                q, bw, egress_usd_per_gb=price, **kw))]
+            if n <= 4:
+                runs.append(("exhaustive", lambda **kw: pl.exhaustive_place(
+                    q, bw, egress_usd_per_gb=price, levels=4, **kw)))
+            for kind, search in runs:
+                pl_cost._eval_packed = tap
+                try:
+                    want = search(backend="numpy")
+                finally:
+                    pl_cost._eval_packed = real
+                got = search(backend="torch", device=dev)
+                if decision_key(got) != decision_key(want):
+                    raise AssertionError(f"{kind} {name} N={n}: the torch "
+                                         f"backend decided otherwise")
+                searches += 1
+    err, rel, sizes, t_np, t_t = 0.0, 0.0, [], [], []
+    for placements, bw, packed, rate in batches:
+        t0 = time.perf_counter()
+        a = real(placements, bw, packed, rate, "numpy")
+        t1 = time.perf_counter()
+        b = real(placements, bw, packed, rate, "torch", dev)
+        t2 = time.perf_counter()
+        t_np.append(t1 - t0)
+        t_t.append(t2 - t1)
+        sizes.append(len(placements))
+        for f in ("makespan_s", "net_s", "compute_s", "egress_gb",
+                  "egress_usd", "instance_usd"):
+            x, y = getattr(a, f), getattr(b, f)
+            np.testing.assert_allclose(y, x, rtol=PLACEMENT_RTOL, atol=0,
+                                       err_msg=f)
+            err = max(err, float(np.abs(y - x).max()))
+            rel = max(rel, float((np.abs(y - x) / np.maximum(
+                np.abs(x), 1e-300)).max()))
+    out.update({"searches": searches, "batches": len(batches),
+                "candidates": int(sum(sizes)),
+                "batch_sizes": [int(min(sizes)), int(np.median(sizes)),
+                                int(max(sizes))],
+                "max_abs_err": err, "max_rel_err": rel,
+                "numpy_us_median": float(np.median(t_np)) * 1e6,
+                "torch_us_median": float(np.median(t_t)) * 1e6,
+                "numpy_s": float(sum(t_np)), "torch_s": float(sum(t_t))})
+    log(f"[placement] {searches} searches (greedy and exhaustive of "
+        f"{pl.workload_names()} at N in {PLACEMENT_NS}): the torch backend "
+        f"on the card decides as numpy; their {len(batches)} candidate "
+        f"batches ({out['candidates']} candidates, sizes "
+        f"{out['batch_sizes']} min/median/max) within rtol "
+        f"{PLACEMENT_RTOL} (max rel diff {rel:.3g}); per batch (host, "
+        f"median): numpy {out['numpy_us_median']:.1f} us, torch on the card "
+        f"{out['torch_us_median']:.1f} us (its copy in, tensor ops and the "
+        f"copy back)")
     return out
 
 
@@ -1690,7 +2206,8 @@ def scenarios_phase(paper, dev, floor_ms: float) -> dict:
                    "launches": launches, "s": secs}
     log(f"[scenarios] {len(got)} pins of tests/data/trace_golden.json held "
         f"on the card ({sum(k.startswith('scenario/') for k in got)} "
-        f"scenario, {sum(k.startswith('fleet/') for k in got)} fleet; "
+        f"scenario, {sum(k.startswith('fleet/') for k in got)} fleet, "
+        f"{sum(k.startswith('placement/') for k in got)} placement; "
         f"{secs:.1f} s); rf_predict launches {launches['rf_predict']} for "
         f"{fleet_ticks} fleet ticks")
 
@@ -1963,6 +2480,17 @@ def main() -> int:
     # fill in the scenarios and the fleet tick
     scen = scenarios_phase(paper, dev, floor_ms)
     results["scenarios"] = scen
+
+    # 5c. fused: the whole tick on the card against the sequential
+    # tick, the 16-variant sweep, A B B A timing, the profile
+    t0 = time.perf_counter()
+    results["fused"] = fused_phase(paper, dev)
+    results["fused"]["s"] = time.perf_counter() - t0
+
+    # 5d. placement: the 3 pins and the torch backend on the card
+    t0 = time.perf_counter()
+    results["placement"] = placement_phase(dev)
+    results["placement"]["s"] = time.perf_counter() - t0
 
     # 6. ssd_chunk: kernel vs plain; the serve model's layer-0 inputs
     cfg = get_config(ARCH)

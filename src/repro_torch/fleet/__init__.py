@@ -6,11 +6,13 @@ priority-weighted fair share BEFORE each job plans, every job's RF
 inference batches into a single CUDA kernel launch per fleet tick,
 and achieved BW is credited per tenant from one fleet-wide water-fill.
 `scenario.py` drives the fleet through scripted timelines with
-replayable traces (`trace.py`). The fused tick is not yet ported.
+replayable traces (`trace.py`); `fused.py` runs the whole tick as
+tensor programs on the device (`FleetController.run_fused`).
 """
 from repro_torch.fleet.arbiter import (arbitrate, connection_budgets,
                                        link_shares)
 from repro_torch.fleet.controller import FleetController, FleetJob, JobSpec
+from repro_torch.fleet.fused import FusedFleet, make_schedule
 from repro_torch.fleet.predictor import (BatchedRfPredictor,
                                          default_fleet_forest)
 from repro_torch.fleet.scenario import (FLEET_SCENARIOS, FleetEngine,
@@ -24,6 +26,7 @@ from repro_torch.fleet.trace import (FleetResult, FleetStepTrace,
 
 __all__ = [
     "FleetController", "FleetJob", "JobSpec",
+    "FusedFleet", "make_schedule",
     "TenantView",
     "BatchedRfPredictor", "default_fleet_forest",
     "arbitrate", "connection_budgets", "link_shares",

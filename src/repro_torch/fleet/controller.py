@@ -17,6 +17,11 @@ static measurement gets wrong. The fleet controller closes that gap:
 * achieved BW is solved with ONE fleet-wide water-fill
   (`waterfill_tenants`) and credited per tenant, with each job's
   envelope cap applied as TC shaping;
+* attached placement planners (:meth:`FleetController.job_planner`)
+  run DEFERRED: the tick flushes every job's pending re-placement
+  through one `placement.optimizer.search_many` lock-step pass, fusing
+  same-shape search rounds across jobs into shared batched-evaluator
+  calls instead of J independent Python searches.
 
 A fleet tick is one arbitration epoch (the paper's 5-second local-
 optimizer cadence, fleet-wide): all active jobs replan together so the
@@ -29,9 +34,10 @@ arrival — the one-launch-per-tick invariant holds through churn.
 
 Port of `repro/fleet/controller.py`: the same host numpy control
 plane around the CUDA forest kernel, so tick records equal the JAX
-package's. Not yet ported, and raising `NotImplementedError`: the
-fault plane (``faults="on"`` or a plane object), placement planners
-(`job_planner`) and the fused one-program tick (`fused`/`run_fused`).
+package's; `fused`/`run_fused` run the whole tick as tensor programs
+on the predictor's device (`fleet/fused.py`). Not yet ported, and
+raising `NotImplementedError`: the fault plane (``faults="on"`` or a
+plane object), and with it the fleet's divergence rollback.
 """
 from __future__ import annotations
 
@@ -107,6 +113,7 @@ class FleetController:
         self.jobs: Dict[str, FleetJob] = {}
         self.tick_count = 0
         self.events: List[str] = []
+        self._planners: List[Tuple[str, Any]] = []
         self.tracer = NULL_TRACER
         if obs_mode(obs) == "on":
             self.tracer = SpanTracer()
@@ -162,6 +169,7 @@ class FleetController:
         at the next tick (their envelopes grow into the freed share)."""
         job = self.jobs.pop(name)
         job.view.unregister()
+        self._planners = [(n, p) for n, p in self._planners if n != name]
         self.events.append(f"job {name} departed")
 
     def set_priority(self, name: str, priority: float) -> None:
@@ -170,9 +178,44 @@ class FleetController:
         self.events.append(f"job {name} priority -> {priority}")
 
     def job_planner(self, name: str, query, **kwargs):
-        """Placement planners are not yet ported."""
-        raise NotImplementedError("placement planners (job_planner) are "
-                                  "not yet ported")
+        """Attach a :class:`repro_torch.placement.PlacementPlanner` to
+        one admitted job: the planner prices the query against the
+        job's arbitrated :class:`BudgetEnvelope` (its `link_cap` clamps
+        the achievable BW), and re-places on every fleet-tick replan. A
+        low-priority tenant therefore plans around its fair share of a
+        contended link, not the raw capacity.
+
+        Fleet planners run DEFERRED: a tick's replans only mark each
+        planner pending, and :meth:`tick` flushes all J pending
+        searches through one `placement.optimizer.search_many`
+        lock-step pass — same-shape rounds across jobs fuse into
+        single batched-evaluator calls instead of J independent
+        Python searches."""
+        from repro_torch.placement.planner import PlacementPlanner
+        planner = PlacementPlanner(self.jobs[name].controller, query,
+                                   **kwargs)
+        planner.defer_replans()
+        self._planners.append((name, planner))
+        return planner
+
+    def _flush_planners(self) -> None:
+        """Run every pending deferred placement search in one fused
+        `search_many` pass and commit the results (detached planners —
+        the documented replacement flow — are pruned here, so a job
+        that rotates planners doesn't accumulate dead entries)."""
+        from repro_torch.placement.optimizer import search_many
+        self._planners = [(n, p) for n, p in self._planners
+                          if not p._detached]
+        owners, tasks = [], []
+        for _, planner in self._planners:
+            task = planner.pending_task()
+            if task is not None:
+                owners.append(planner)
+                tasks.append(task)
+        if not tasks:
+            return
+        for planner, decision in zip(owners, search_many(tasks)):
+            planner.commit(decision)
 
     # ------------------------------------------------------------------
     # the arbitrated, batched fleet tick
@@ -240,6 +283,8 @@ class FleetController:
                             skew_w=job.skew(), reason="fleet",
                             step=self.tick_count, capture=raw, pred=pred)
                         job.view.register(job.controller.current_conns())
+            with tr.span("planners"):
+                self._flush_planners()
             with tr.span("waterfill", delta=True):
                 try:
                     achieved = self.achieved()
@@ -268,13 +313,38 @@ class FleetController:
                     "jobs": rows}
 
     def fused(self):
-        """The fused one-program tick is not yet ported."""
-        raise NotImplementedError("the fused fleet tick is not yet ported")
+        """Build the CURRENT job set into a :class:`repro_torch.fleet.
+        fused.FusedFleet` — the whole tick as tensor programs on the
+        predictor's device, looped over steps and batched over scenario
+        grids. Requires the fused determinism contract (deterministic
+        captures, fixed jobs with equal slice sizes, no deferred
+        planners); see fused.py.
+
+        Memoized on the job set / priorities / budget, so repeated
+        `run_fused` calls reuse the built constants (live AIMD state is
+        read fresh at each run).
+
+        Obs spans cover the SEQUENTIAL tick only: the fused path has no
+        per-stage host boundaries to time."""
+        from repro_torch.fleet.fused import FusedFleet
+        key = (tuple((j.name, j.spec.dcs, j.priority, j.spec.skew_w)
+                     for j in self.jobs.values()),
+               self.m_total, id(self.predictor.forest),
+               tuple(n for n, _ in self._planners))
+        cached = getattr(self, "_fused_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        ff = FusedFleet(self)
+        self._fused_cache = (key, ff)
+        return ff
 
     def run_fused(self, steps: int, events: Tuple = ()
                   ) -> List[Dict[str, Any]]:
-        """The fused one-program tick is not yet ported."""
-        raise NotImplementedError("the fused fleet tick is not yet ported")
+        """Run `steps` arbitration epochs on the device and sync the
+        resulting AIMD state back into the live controllers (sequential
+        `tick()` calls can continue afterwards). Returns per-tick
+        records (the `tick()` row body minus plan signatures)."""
+        return self.fused().run(steps, events=events)
 
     def achieved(self) -> Dict[str, np.ndarray]:
         """Credited achieved BW per job at slice scale: ONE fleet-wide

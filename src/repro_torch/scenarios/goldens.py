@@ -2,11 +2,11 @@
 canonical ``to_json()``, under the keys of `tests/data/trace_golden.json`.
 
 The port's counterpart of `tools/gen_trace_goldens.py`'s `_runners` /
-`collect`, for the 12 ``scenario/<name>/seed3`` and the 4
-``fleet/<name>/seed3`` keys (the ``placement/`` pins wait for the
-placement slice). It only hashes: the pin file is the JAX package's,
-read here and never written. The CPU tests and `chip_smoke.py` share
-it, the latter with the fleet's forest on the card.
+`collect`, for all 19 keys: the 12 ``scenario/<name>/seed3``, the 4
+``fleet/<name>/seed3`` and the 3 ``placement/...`` pins. It only
+hashes: the pin file is the JAX package's, read here and never
+written. The CPU tests and `chip_smoke.py` share it, the latter with
+the fleet's forest on the card.
 
     from repro_torch.scenarios import goldens
     assert goldens.collect(device="cpu") == goldens.pinned()
@@ -23,12 +23,14 @@ import torch
 from repro_torch.fleet.scenario import (fleet_scenario_names,
                                         get_fleet_scenario,
                                         run_fleet_scenario)
+from repro_torch.placement import (run_placement_scenario, scan_agg,
+                                   two_stage_join)
 from repro_torch.scenarios.engine import run_scenario
 from repro_torch.scenarios.library import get_scenario, scenario_names
 
 PIN_FILE = (Path(__file__).resolve().parents[3] / "tests" / "data"
             / "trace_golden.json")
-PREFIXES = ("scenario/", "fleet/")
+PREFIXES = ("scenario/", "fleet/", "placement/")
 SEED = 3
 
 
@@ -60,6 +62,15 @@ def runners(device: Optional[Union[str, torch.device]] = None
             lambda n=name: run_fleet_scenario(
                 get_fleet_scenario(n), seed=SEED,
                 device=device).trace.to_json())
+    for backend in ("wanify", "static"):
+        out[f"placement/skew_ramp/{backend}/seed{SEED}"] = (
+            lambda b=backend: run_placement_scenario(
+                "skew_ramp", query=two_stage_join(4), seed=SEED,
+                backend=b).trace.to_json())
+    out["placement/runtime_fluctuation/wanify/seed5"] = (
+        lambda: run_placement_scenario(
+            "runtime_fluctuation", query=scan_agg(4),
+            seed=5).trace.to_json())
     return out
 
 

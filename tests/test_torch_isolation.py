@@ -55,7 +55,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.scenarios.trace", "repro_torch.scenarios.events",
             "repro_torch.faults.events", "repro_torch.lifecycle.manager",
             "repro_torch.fleet.scenario", "repro_torch.fleet.trace",
-            "repro_torch.kernels.waterfill"} <= mods
+            "repro_torch.kernels.waterfill", "repro_torch.fleet.fused",
+            "repro_torch.placement.query", "repro_torch.placement.cost",
+            "repro_torch.placement.optimizer",
+            "repro_torch.placement.planner",
+            "repro_torch.placement.scenario"} <= mods
 
 
 def _imports(path):
@@ -175,14 +179,15 @@ def _fleet(**kw):
 
 
 def test_fleet_gates_not_yet_ported(monkeypatch):
+    """The fault plane stays gated; placement planners and the fused
+    tick are ported (`tests/test_torch_placement.py`,
+    `tests/test_torch_fused.py`)."""
     for faults in ("on", object()):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             _fleet(faults=faults)
     fleet = _fleet(faults="off")
-    for call in (lambda: fleet.job_planner("a", None), fleet.fused,
-                 lambda: fleet.run_fused(2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    with pytest.raises(ValueError, match="snapshot_sigma"):
+        fleet.fused()                 # ported: the noisy sim is refused
     monkeypatch.setenv("REPRO_FAULTS", "on")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _fleet()
@@ -316,6 +321,24 @@ def test_codec_path_modules_import_no_jax_and_no_reference(module):
 def test_scenario_path_modules_import_no_jax_and_no_reference(module):
     """Each module of the scenario engines' path, on its own, pulls in
     neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.fleet.fused", "repro_torch.placement",
+    "repro_torch.placement.cost", "repro_torch.placement.optimizer",
+    "repro_torch.placement.planner", "repro_torch.placement.scenario"])
+def test_fused_and_placement_modules_import_no_jax_and_no_reference(module):
+    """Each module of the fused tick's and placement's path, on its
+    own, pulls in neither jax nor the reference package."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "

@@ -1,8 +1,9 @@
 """The port's scenario engines against the JAX reference.
 
-* The 12 ``scenario/*/seed3`` and 4 ``fleet/*/seed3`` sha256 pins of
-  `tests/data/trace_golden.json`, from the port's own runs (the fleet's
-  forest on the host's plain version), with span tracing off and on.
+* All 19 sha256 pins of `tests/data/trace_golden.json` (12
+  ``scenario/*/seed3``, 4 ``fleet/*/seed3`` and 3 ``placement/...``),
+  from the port's own runs (the fleet's forest on the host's plain
+  version), with span tracing off and on.
 * Live byte-equality of ``to_json()`` with the reference where the pins
   do not reach: a single-job timeline with every single-job event kind,
   and a fleet timeline with churn and a priority shift, at seeds other
@@ -84,8 +85,11 @@ def results():
 # the golden pins
 # ----------------------------------------------------------------------
 def test_pin_keys_are_the_reference_scenario_and_fleet_keys(pins):
-    assert sorted(KEYS) == sorted(pins) and len(KEYS) == 16
+    """Every key of the pin file: 12 scenario, 4 fleet and 3 placement
+    runs."""
+    assert sorted(KEYS) == sorted(pins) and len(KEYS) == 19
     assert sum(k.startswith("scenario/") for k in KEYS) == 12
+    assert sum(k.startswith("placement/") for k in KEYS) == 3
 
 
 @pytest.mark.parametrize("key", KEYS)
