@@ -93,6 +93,37 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `backend="torch"` on the card deciding as numpy, and every candidate
    batch of the numpy searches priced by both backends within rtol
    1e-12; host µs a batch per backend (median).
+5e. planes — the overlay and predictor-lifecycle planes, each part with
+   its launch counts set to 0 just before it and read just after:
+   (1) overlay: `cable_cut_reroute` at seed 3, overlay off and on, with
+   `waterfill_backend` numpy and cuda: the numpy runs hash to their
+   pins (`tests/data/trace_golden.json` off, `scenarios/goldens.py`'s
+   `PLANE_PINS` on); on cuda one `waterfill` launch per fill
+   (`sim.fill_calls`), each fill re-run by the host loop (equal
+   iterations, rates within 1e-9), relays, conns and plan signatures
+   equal to the numpy run's and floats within rtol 1e-9; the routed
+   run's `achieved_min` above the direct run's at every step from 14
+   to 39. Prints fills a run and one routed fill's kernel time (device,
+   a graph of 20 calls) beside the host loop, the bound and the launch
+   floor;
+   (2) placement under the overlay: `run_placement_scenario(
+   "cable_cut_reroute", seed=3, overlay=off/on)` on the `torch`
+   evaluator on the card: decisions equal to the numpy evaluator's,
+   traces hashing to their pins, the total makespan with the overlay
+   on below the one with it off;
+   (3) lifecycle: `run_lifecycle_comparison("provider_shift_drift",
+   seed=3)` with the pretrained forest on the card (`BwPredictor`, the
+   `rf_predict` kernel): every prediction equal to the plain version's
+   on the host on the forest in force, the first launch after each
+   refit swap reading the new forest (it differs from the old one's
+   answer), `rf_predict` launches of each mode equal to its replans
+   plus its steps, the result equal to a host run's field for field
+   and its traces to their f32 pins; under numpy inference the traces
+   equal their numpy pins; the headline assertions of
+   `tests/test_lifecycle.py` as written. Prints signal and refresh
+   steps and monitoring dollars per mode, and the kernel's time at
+   n=56 (the 8-DC mesh's rows) on the refit forest beside its bound,
+   the plain version and the launch floor.
 6. ssd     — the ssd_chunk CUDA kernels against their plain PyTorch
    version on the card, atol/rtol 1e-4 (both take the cumulative decay
    in one order; the products add in another, bf16 inputs on the tensor
@@ -166,6 +197,7 @@ the last line `{"ok": true, "device": {...}}`. All numbers also go to
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -190,7 +222,8 @@ from repro_torch.control.schedule import (offset_schedule,  # noqa: E402
                                           wire_decode, wire_encode)
 from repro_torch.core.plan import WanPlan  # noqa: E402
 from repro_torch.core.predictor import (BwPredictor,  # noqa: E402
-                                        SnapshotPredictor)
+                                        SnapshotPredictor,
+                                        assemble_features)
 from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
                                       wan_allreduce_batched)
 from repro_torch.fleet import fused as fused_mod  # noqa: E402
@@ -202,6 +235,8 @@ from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
 from repro_torch.kernels import rf_predict as rf_kernel  # noqa: E402
 from repro_torch.kernels import waterfill as wfk  # noqa: E402
 from repro_torch.kernels.quantize import qmax  # noqa: E402
+from repro_torch.lifecycle import harness as lc_harness  # noqa: E402
+from repro_torch.lifecycle import run_lifecycle_comparison  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
@@ -1399,6 +1434,376 @@ def placement_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# planes phase: the overlay and the predictor lifecycle
+# ----------------------------------------------------------------------
+REROUTE, LIFECYCLE_SCENARIO = "cable_cut_reroute", "provider_shift_drift"
+REROUTE_SETTLED = 14      # the first step the post-cut relays are in force
+
+
+class RoutedTap:
+    """Counts `WanSimulator.waterfill_routed` calls and marks the fills
+    made inside one, so a fill wrapper can keep the routed fills'
+    inputs."""
+
+    def __init__(self):
+        self.calls, self.inside = 0, False
+        self.real = WanSimulator.waterfill_routed
+
+    def __enter__(self):
+        tap = self
+
+        def routed(sim, *args, **kw):
+            tap.calls += 1
+            tap.inside = True
+            try:
+                return tap.real(sim, *args, **kw)
+            finally:
+                tap.inside = False
+        WanSimulator.waterfill_routed = routed
+        return self
+
+    def __exit__(self, *exc):
+        WanSimulator.waterfill_routed = self.real
+
+
+def reroute_run(backend: str, mode: str):
+    """`cable_cut_reroute` at seed 3 on fill `backend` with the overlay
+    `mode` -> (result, relays per step, controller records, fills)."""
+    spec = get_scenario(REROUTE)
+    spec.sim_kwargs["waterfill_backend"] = backend
+    eng = ScenarioEngine(spec, seed=PIN_SEED, overlay=mode)
+    relays = {}
+
+    def hook(engine, row):
+        ctl = engine.controller
+        relays[row.step] = ctl.routed.relays if ctl.routed else ()
+    eng.step_hook = hook
+    res = eng.run()
+    return res, relays, eng.controller.record, eng.sim.fill_calls
+
+
+def check_records_equal(got, want, what: str) -> None:
+    """Replan records: every key equal (reasons, steps, plan and routed
+    signatures, relays) but the predicted BW's min / mean, within rtol
+    WF_TOL."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} replans, {len(want)}")
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            raise AssertionError(f"{what}: record keys {sorted(g)}")
+        for key in g:
+            if key in ("pred_min", "pred_mean"):
+                np.testing.assert_allclose(g[key], w[key], rtol=WF_TOL,
+                                           err_msg=f"{what} {key}")
+            elif g[key] != w[key]:
+                raise AssertionError(f"{what} step {g['step']}: {key} "
+                                     f"{g[key]} != {w[key]}")
+
+
+def overlay_part(floor_ms: float) -> dict:
+    """Part (1) of the planes phase (see the head comment)."""
+    pins = {"off": goldens.pinned()[f"scenario/{REROUTE}/seed{PIN_SEED}"],
+            "on": goldens.PLANE_PINS[f"overlay/{REROUTE}/on/seed{PIN_SEED}"]}
+    want = {}
+    for mode in ("off", "on"):
+        want[mode] = reroute_run("numpy", mode)
+        sha = goldens.sha(want[mode][0].trace.to_json())
+        if sha != pins[mode]:
+            raise AssertionError(f"{REROUTE} overlay {mode} (numpy fill): "
+                                 f"sha {sha} is not its pin")
+    out = {}
+    kept = []
+    for mode in ("off", "on"):
+        stats = {"fills": 0, "max_abs_err": 0.0}
+        base = checked_fill(stats)
+
+        def fill(c, single, egress, ingress, w, path_cap, device=None,
+                 stats=stats, base=base):
+            rate, iters, ok = base(c, single, egress, ingress, w,
+                                   path_cap, device=device)
+            if tap.inside:
+                stats["routed_fills"] = stats.get("routed_fills", 0) + 1
+                kept.append(((c, single, egress, ingress, w, path_cap),
+                             int(iters)))
+            return rate, iters, ok
+        ops.fill_rates.launches = 0
+        ops.rf_predict.launches = 0
+        sim_fill = wfk.fill_rates
+        wfk.fill_rates = fill
+        try:
+            with RoutedTap() as tap:
+                t0 = time.perf_counter()
+                res, relays, records, fills = reroute_run("cuda", mode)
+                secs = time.perf_counter() - t0
+        finally:
+            wfk.fill_rates = sim_fill
+        launches = ops.fill_rates.launches
+        if not (launches == fills == stats["fills"]) or \
+                ops.rf_predict.launches:
+            raise AssertionError(f"overlay {mode} on cuda: {launches} "
+                                 f"waterfill launches, {fills} fills, "
+                                 f"{stats['fills']} checked, "
+                                 f"{ops.rf_predict.launches} rf_predict")
+        w_res, w_relays, w_records, w_fills = want[mode]
+        if fills != w_fills or relays != w_relays:
+            raise AssertionError(f"overlay {mode}: fills {fills} vs "
+                                 f"{w_fills} or relays differ from numpy's")
+        if (mode == "on") != (tap.calls > 0):
+            raise AssertionError(f"overlay {mode}: {tap.calls} routed fills")
+        check_records_equal(records, w_records, f"overlay {mode}")
+        check_traces(res.trace, w_res.trace, f"{REROUTE} overlay {mode}")
+        out[mode] = {"fills": fills, "launches": launches,
+                     "routed_fills": tap.calls,
+                     "replans": len(records),
+                     "relay_steps": sum(r != () for r in relays.values()),
+                     "max_abs_err": stats["max_abs_err"], "s": secs,
+                     "traces": res.trace}
+    off = {s.step: s.achieved_min for s in out["off"]["traces"].steps}
+    on = {s.step: s.achieved_min for s in out["on"]["traces"].steps}
+    lost = [k for k in range(REROUTE_SETTLED, len(on)) if on[k] <= off[k]]
+    if lost or any(on[k] != off[k] for k in range(12)):
+        raise AssertionError(f"overlay: no strict win at steps {lost}, or "
+                             f"the pre-cut steps differ")
+    for mode in ("off", "on"):
+        del out[mode]["traces"]
+    out["min_gain"] = float(min(on[k] / off[k] for k in range(
+        REROUTE_SETTLED, len(on))))
+    # one routed fill after the cut (the last kept), timed as the
+    # scenarios phase times a fill
+    args, iters = kept[-1]
+    case = tuple(np.array(a)[None] for a in args)
+    out["routed_fill_timing"] = time_waterfill(case, [iters])
+    out["max_abs_err"] = max(out[m]["max_abs_err"] for m in ("off", "on"))
+    return out
+
+
+def placement_overlay_part() -> dict:
+    """Part (2) of the planes phase (see the head comment)."""
+    runs = {}
+    old = os.environ.get("REPRO_PLACEMENT_BACKEND")
+    for backend in ("numpy", "torch"):
+        os.environ["REPRO_PLACEMENT_BACKEND"] = backend
+        try:
+            for mode in ("off", "on"):
+                runs[(backend, mode)] = pl.run_placement_scenario(
+                    REROUTE, seed=PIN_SEED, overlay=mode)
+        finally:
+            if old is None:
+                del os.environ["REPRO_PLACEMENT_BACKEND"]
+            else:
+                os.environ["REPRO_PLACEMENT_BACKEND"] = old
+    out = {}
+    for mode in ("off", "on"):
+        got, want = runs[("torch", mode)], runs[("numpy", mode)]
+        if [(r.step, r.reason, r.placement) for r in got.records] != \
+                [(r.step, r.reason, r.placement) for r in want.records]:
+            raise AssertionError(f"placement overlay {mode}: the torch "
+                                 f"evaluator decided otherwise")
+        for g, w in zip(got.records, want.records):
+            np.testing.assert_allclose(
+                [g.makespan_est_s, g.egress_est_usd],
+                [w.makespan_est_s, w.egress_est_usd], rtol=PLACEMENT_RTOL)
+        key = f"placement/{REROUTE}/overlay_{mode}/seed{PIN_SEED}"
+        for r in (got, want):
+            if goldens.sha(r.trace.to_json()) != goldens.PLANE_PINS[key]:
+                raise AssertionError(f"{key}: not its pin")
+        out[mode] = {"makespan_total_s": float(sum(
+            s.makespan_s for s in got.trace.steps)),
+            "replacements": len(got.records)}
+    if not out["on"]["makespan_total_s"] < out["off"]["makespan_total_s"]:
+        raise AssertionError(f"placement: overlay on {out['on']} not below "
+                             f"off {out['off']}")
+    return out
+
+
+class NumpyPredictor(BwPredictor):
+    """The host forest's numpy inference (the reference's default
+    route)."""
+
+    def predict_matrix(self, *args, backend=None, **kw):
+        return super().predict_matrix(*args, backend="numpy", **kw)
+
+
+class CardPredictor(BwPredictor):
+    """`BwPredictor` on the card whose every prediction is also made by
+    the plain version on the host from the forest in force (a fresh
+    predictor, so no node cache is shared) and must be equal; counts its
+    own `rf_predict` launches and checks that the first launch after a
+    forest swap no longer gives the old forest's answer."""
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        CardPredictor.made.append(self)
+        self.launches, self.swaps, self.last_args = 0, [], None
+        self._forest = self.forest
+
+    def predict_matrix(self, *args, **kw):
+        before = ops.rf_predict.launches
+        out = super().predict_matrix(*args, **kw)
+        self.launches += ops.rf_predict.launches - before
+        host = BwPredictor(self.forest, device="cpu").predict_matrix(
+            *args, **kw)
+        np.testing.assert_array_equal(out, host)
+        if self._forest is not self.forest:
+            old = BwPredictor(self._forest, device="cpu").predict_matrix(
+                *args, **kw)
+            self.swaps.append(bool(not np.array_equal(out, old)))
+            self._forest = self.forest
+        self.last_args = args
+        return out
+
+
+@contextlib.contextmanager
+def harness_predictor(cls):
+    """Make the lifecycle harness build its pretrained predictors as
+    `cls` for the duration."""
+    real = lc_harness.BwPredictor
+    lc_harness.BwPredictor = cls
+    try:
+        yield
+    finally:
+        lc_harness.BwPredictor = real
+
+
+def check_headline(cmp: dict, what: str) -> None:
+    """`tests/test_lifecycle.py`'s recovery assertions, as written."""
+    fr, lc = cmp["modes"]["frozen"], cmp["modes"]["lifecycle"]
+    ok = (fr["resid"][:15] == lc["resid"][:15]
+          and lc["signal_steps"] and 15 <= lc["signal_steps"][0] <= 20
+          and lc["refresh_steps"] and 15 <= lc["refresh_steps"][0] <= 22
+          and lc["refreshes"] >= 1
+          and float(np.mean(lc["resid"][25:])) < 0.3
+          < float(np.mean(fr["resid"][25:]))
+          and fr["full_probes"] == 0 and lc["full_probes"] >= 1
+          and lc["monitor_usd"] < 0.75 * fr["monitor_usd"])
+    if not ok:
+        raise AssertionError(f"{what}: the headline does not hold: "
+                             f"{without_resid(cmp)}")
+
+
+def without_resid(cmp: dict) -> dict:
+    """Each mode's telemetry of a lifecycle comparison, less the
+    per-step residual series."""
+    return {m: {k: v for k, v in r.items() if k != "resid"}
+            for m, r in cmp["modes"].items()}
+
+
+def lifecycle_part(dev, floor_ms: float) -> dict:
+    """Part (3) of the planes phase (see the head comment)."""
+    def sha_check(cmp, inference):
+        for mode in ("frozen", "lifecycle"):
+            key = goldens.lifecycle_key(mode, inference)
+            if cmp["modes"][mode]["trace_sha"] != goldens.PLANE_PINS[key]:
+                raise AssertionError(f"{key}: not its pin")
+    with harness_predictor(NumpyPredictor):
+        numpy_cmp = run_lifecycle_comparison(
+            LIFECYCLE_SCENARIO, seed=PIN_SEED, device="cpu")
+    sha_check(numpy_cmp, "numpy")
+    check_headline(numpy_cmp, "numpy inference")
+    host_cmp = run_lifecycle_comparison(LIFECYCLE_SCENARIO, seed=PIN_SEED,
+                                        device="cpu")
+    CardPredictor.made = []
+    ops.rf_predict.launches = 0
+    ops.fill_rates.launches = 0
+    t0 = time.perf_counter()
+    with harness_predictor(CardPredictor):
+        card_cmp = run_lifecycle_comparison(
+            LIFECYCLE_SCENARIO, seed=PIN_SEED, device=dev)
+    secs = time.perf_counter() - t0
+    launches = ops.rf_predict.launches
+    if card_cmp != host_cmp:
+        raise AssertionError("lifecycle: the card's comparison differs from "
+                             "the host's")
+    sha_check(card_cmp, "f32")
+    check_headline(card_cmp, "the card")
+    frozen, active = CardPredictor.made
+    per_mode = {}
+    for mode, p in (("frozen", frozen), ("lifecycle", active)):
+        m = card_cmp["modes"][mode]
+        want = m["snapshots"] + m["steps"]
+        if p.launches != want:
+            raise AssertionError(f"lifecycle {mode}: {p.launches} rf_predict "
+                                 f"launches, replans + steps = {want}")
+        per_mode[mode] = {"launches": p.launches, "replans": m["snapshots"],
+                          "steps": m["steps"], "swaps": p.swaps}
+    refreshes = card_cmp["modes"]["lifecycle"]["refreshes"]
+    if launches != frozen.launches + active.launches or ops.fill_rates.launches \
+            or len(active.swaps) != refreshes or not all(active.swaps) \
+            or frozen.swaps:
+        raise AssertionError(f"lifecycle launches {launches}, fills "
+                             f"{ops.fill_rates.launches}, swaps "
+                             f"{active.swaps} for {refreshes} refreshes")
+    # the kernel at the run's shape, on the refit forest
+    timing = time_kernel(active.forest, assemble_features(*active.last_args))
+    return {"numpy": without_resid(numpy_cmp),
+            "card": without_resid(card_cmp),
+            "post25_resid": {m: float(np.mean(r["resid"][25:]))
+                             for m, r in card_cmp["modes"].items()},
+            "per_mode": per_mode, "launches": launches, "s": secs,
+            "timing": timing}
+
+
+def planes_phase(dev, floor_ms: float) -> dict:
+    """The planes phase (see the head comment); every check fatal."""
+    out = {}
+    t0 = time.perf_counter()
+    ov = overlay_part(floor_ms)
+    ov["s_all"] = time.perf_counter() - t0
+    out["overlay"] = ov
+    t = ov["routed_fill_timing"]
+    for mode in ("off", "on"):
+        r = ov[mode]
+        log(f"[planes] {REROUTE} seed {PIN_SEED} overlay {mode}, "
+            f"waterfill_backend='cuda': {r['fills']} fills, {r['launches']} "
+            f"waterfill launches ({r['routed_fills']} routed), "
+            f"{r['replans']} replans, relays in force at {r['relay_steps']} "
+            f"steps; each fill equal to the host loop's iterations and "
+            f"within {WF_TOL} (max |diff| {r['max_abs_err']:.3g}); relays, "
+            f"records and trace equal to the numpy run's ({r['s']:.2f} s)")
+    log(f"[planes] overlay: numpy runs hash to their pins; routed "
+        f"achieved_min above direct at every step {REROUTE_SETTLED}-39 "
+        f"(least ratio {ov['min_gain']:.3f})")
+    log(f"[planes] one routed fill ({t['iters'][0]} iterations): kernel "
+        f"{t['ms']:.5f} ms (device, graph of 20 calls) | launch floor "
+        f"{floor_ms:.5f} ms | numpy wrapper call {t['wrapper_us']:.1f} us "
+        f"(host) | host loop {t['host_loop_us']:.1f} us (host) | plain "
+        f"{t['plain_ms']:.4f} ms | bound {t['bound_ms']:.7f} ms by "
+        f"{t['bound_by']}")
+    t0 = time.perf_counter()
+    pa = placement_overlay_part()
+    pa["s"] = time.perf_counter() - t0
+    out["placement"] = pa
+    log(f"[planes] placement {REROUTE} seed {PIN_SEED}, torch evaluator on "
+        f"the card: decisions equal to numpy's, traces at their pins; "
+        f"total makespan overlay on {pa['on']['makespan_total_s']:.3f} s < "
+        f"off {pa['off']['makespan_total_s']:.3f} s ({pa['s']:.1f} s)")
+    lc = lifecycle_part(dev, floor_ms)
+    out["lifecycle"] = lc
+    for mode in ("frozen", "lifecycle"):
+        c, pm = lc["card"][mode], lc["per_mode"][mode]
+        log(f"[planes] {LIFECYCLE_SCENARIO} seed {PIN_SEED} {mode}, forest on "
+            f"the card: signal steps {c['signal_steps']}, refresh steps "
+            f"{c['refresh_steps']}, {c['full_probes']} full probes, "
+            f"monitor ${c['monitor_usd']:.4f}, post-step-25 residual "
+            f"{lc['post25_resid'][mode]:.4f}; {pm['launches']} rf_predict "
+            f"launches = {pm['replans']} replans + {pm['steps']} steps; "
+            f"first launch after each swap reads the new forest: "
+            f"{pm['swaps']}")
+    log(f"[planes] lifecycle: the card's comparison equals the host's field "
+        f"for field, traces at their f32 pins; under numpy inference at "
+        f"their numpy pins; headline holds on both ({lc['s']:.2f} s on the "
+        f"card)")
+    t = lc["timing"]
+    log(f"[planes] rf_predict n={t['n']} (refit forest {t['trees']}x"
+        f"{t['depth']}): kernel {t['ms']:.5f} ms (device, graph) | launch "
+        f"floor {floor_ms:.5f} ms | wrapper call {t['wrapper_ms']:.5f} ms | "
+        f"plain {t['plain_ms']:.5f} ms | bound {t['bound_ms']:.7f} ms by "
+        f"{t['bound_by']} ({t['bytes']} B, {t['ops']} ops)")
+    return out
+
+
+# ----------------------------------------------------------------------
 # ssd_chunk phase
 # ----------------------------------------------------------------------
 def ssd_random_inputs(B, nC, Q, H, P, N, seed, device):
@@ -2491,6 +2896,13 @@ def main() -> int:
     t0 = time.perf_counter()
     results["placement"] = placement_phase(dev)
     results["placement"]["s"] = time.perf_counter() - t0
+
+    # 5e. planes: the overlay's routed fills through the water-fill
+    # kernel, placement under the overlay, the lifecycle's refits
+    # through rf_predict
+    t0 = time.perf_counter()
+    results["planes"] = planes_phase(dev, floor_ms)
+    results["planes"]["s"] = time.perf_counter() - t0
 
     # 6. ssd_chunk: kernel vs plain; the serve model's layer-0 inputs
     cfg = get_config(ARCH)

@@ -28,10 +28,10 @@ controller owns it once, shared by training, serving, and planning:
     up predicted vs achieved BW per step.
 
 Port of `repro/control/controller.py`. The loop is host numpy, as in
-the JAX package, so replans are bit-identical. Not yet ported, and
-raising `NotImplementedError`: the overlay gate (``overlay="on"``),
-a predictor lifecycle, and an attached fault plane; without the
-overlay, :meth:`current_routing` is always None.
+the JAX package, so replans are bit-identical, the overlay's routed
+plan (``overlay="on"``) and the lifecycle's prediction clamp included.
+Not yet ported, and raising `NotImplementedError`: an attached fault
+plane.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from repro_torch.core.local_opt import AimdAgent
 from repro_torch.core.plan import WanPlan
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.spans import NULL_TRACER
-from repro_torch.overlay.routing import overlay_mode
+from repro_torch.overlay.routing import RoutedPlan, overlay_mode, plan_routes
 from repro_torch.wan.monitor import SnapshotMonitor
 from repro_torch.wan.simulator import WanSimulator
 
@@ -116,17 +116,17 @@ class WanifyController:
         self.predictor = predictor
         self.n_pods = int(n_pods)
         self.cfg = cfg or ControllerConfig()
-        # Terra-style overlay routing gate (off by default, or
-        # $REPRO_OVERLAY); relay routing is not yet ported
+        # Terra-style overlay routing gate: "on" runs the relay search
+        # on every replan and exposes the result on `routed` /
+        # `current_routing()`; "off" (default, or $REPRO_OVERLAY) runs
+        # no routed code path at all, keeping replays byte-identical
         self.overlay = overlay_mode(overlay)
-        if self.overlay == "on":
-            raise NotImplementedError(
-                "overlay='on' (relay routing) is not yet ported")
-        # online predictor lifecycle: not yet ported
-        if lifecycle is not None:
-            raise NotImplementedError(
-                "a predictor lifecycle is not yet ported")
-        self.lifecycle = None
+        self.routed: Optional[RoutedPlan] = None
+        # online predictor lifecycle (repro_torch.lifecycle): when a
+        # manager is attached, every replan's predicted matrix passes
+        # through its capacity clamp; None (default) runs no lifecycle
+        # code
+        self.lifecycle = lifecycle
         self.monitor = SnapshotMonitor(sim)
         # a consumer may hand in its own log list; both append to it
         self.events: List[str] = events if events is not None else []
@@ -216,6 +216,10 @@ class WanifyController:
                 pred = self.predictor.predict_matrix(
                     self.sim.N, raw["snapshot_bw"], raw["mem_util"],
                     raw["cpu_load"], raw["retrans"], raw["dist"])
+        if self.lifecycle is not None:
+            # sanity clamp: the RF may not promise BW beyond what the
+            # lifecycle's windowed percentile capacity has ever seen
+            pred = self.lifecycle.adjust_prediction(pred)
         pods = pred[:self.n_pods, :self.n_pods]
         M = self.cfg.max_conns
         link_cap = None
@@ -265,6 +269,17 @@ class WanifyController:
                "signature": plan.signature(), "n_pods": self.n_pods,
                "pred_min": float(pods[off].min()) if off.any() else 0.0,
                "pred_mean": float(pods[off].mean()) if off.any() else 0.0}
+        if self.overlay == "on":
+            # route selection rides every replan: split each pair's
+            # planned connections between the direct link and the best
+            # closeness-pruned one-hop relay on the predicted surface
+            with tr.span("route"):
+                self.routed = plan_routes(
+                    gp.pred_bw, cons, dc_rel=gp.dc_rel,
+                    capture_conns=self.last_capture_conns)
+            rec["overlay"] = "on"
+            rec["relays"] = self.routed.relays
+            rec["routed_signature"] = self.routed.signature()
         self._m_replans.inc()
         self.metrics.counter("replans", labels={"reason": reason}).inc()
         self.record.append(rec)
@@ -274,9 +289,17 @@ class WanifyController:
 
     def current_routing(self) -> Optional[Tuple[np.ndarray, Tuple]]:
         """The in-force overlay routing lowered to monitor scale, or
-        None when the overlay is off — always, while relay routing is
-        not yet ported (``overlay="on"`` raises at construction)."""
-        return None
+        None when the overlay is off (or chose no relays): a
+        ``(direct, relays)`` pair for
+        :meth:`WanSimulator.waterfill_routed` — the [N,N] direct
+        connection matrix (relay shares already moved off the weak
+        pairs) plus the chosen ``(src, via, dst, conns)`` paths."""
+        if self.routed is None or not self.routed.relays:
+            return None
+        direct = self.current_conns()
+        P = self.n_pods
+        direct[:P, :P] = np.asarray(self.routed.direct, np.float64)
+        return direct, self.routed.relays
 
     @property
     def faults(self) -> Optional[Any]:

@@ -71,20 +71,26 @@ class BwPredictor:
     one (None = CUDA, which raises without a card)."""
     forest: RandomForest
     device: Optional[Union[str, torch.device]] = None
-    # per device: (the forest's arrays, their tensors, the kernel's nodes)
+    # per device: (a copy of the forest's arrays as packed, their
+    # tensors, the kernel's nodes)
     _on_device: Dict[torch.device, tuple] = field(
         default_factory=dict, init=False, repr=False, compare=False)
 
     def forest_on(self, dev: torch.device):
         """The forest's (feat, thr, leaf) tensors and the kernel's node
-        layout on `dev`: moved and packed once per device, again only
-        when the forest's arrays are replaced (a refit)."""
+        layout on `dev`: moved and packed once per device, again
+        whenever the forest's arrays differ from the copy packed last —
+        a refit swapped in (`predictor.forest = new`, the lifecycle's
+        refresh), a warm fit, or arrays rewritten in place — so the
+        next launch always reads the forest in force."""
         arrays = self.forest.packed()
         hit = self._on_device.get(dev)
-        if hit is None or any(a is not b for a, b in zip(hit[0], arrays)):
-            tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                       for a in arrays]
-            hit = (arrays, tensors, pack_nodes(tensors[0], tensors[1]))
+        if hit is None or any(a.dtype != b.dtype or a.shape != b.shape
+                              or a.tobytes() != b.tobytes()
+                              for a, b in zip(hit[0], arrays)):
+            host = tuple(np.array(a, order="C") for a in arrays)
+            tensors = [torch.from_numpy(a).to(dev) for a in host]
+            hit = (host, tensors, pack_nodes(tensors[0], tensors[1]))
             self._on_device[dev] = hit
         return hit[1], hit[2]
 

@@ -65,9 +65,9 @@ def achievable_bw(plan: WanPlan,
     fleet envelope's `link_cap` clamps the result. Diagonal = intra-DC
     BW.
 
-    `routing` (a `RoutedPlan` of the overlay, which the port gates off
-    until it is ported; any object with `n_pods`, `direct` and
-    `relays`) prices the ROUTED surface instead: the
+    `routing` (a `RoutedPlan` of the overlay, `repro_torch.overlay`;
+    any object with `n_pods`, `direct` and `relays`) prices the ROUTED
+    surface instead: the
     direct term uses the routing's residual direct connections, and
     each relay (i, k, j, conns) adds its store-and-forward credit —
     the knee-capped connection count times the weaker hop's per-

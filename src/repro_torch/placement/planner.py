@@ -26,9 +26,8 @@ Two backends reproduce the paper's comparison:
 estimated makespan/egress, the fraction vectors) a harness can line up
 against ground truth.
 
-Port of `repro/placement/planner.py`. The overlay is not yet ported
-(the controller raises for ``overlay="on"``), so pricing is always the
-direct surface.
+Port of `repro/placement/planner.py`. With the overlay on, pricing
+takes the controller's routed plan (`achievable_bw(routing=...)`).
 """
 from __future__ import annotations
 
@@ -145,10 +144,12 @@ class PlacementPlanner:
         if knee is None:                 # a fleet TenantView: the mesh's
             knee = getattr(getattr(ctl.sim, "shared", None), "knee",
                            KNEE_CONNS)
-        # the overlay (routed pricing) is not yet ported: the direct
-        # surface, as the reference prices with the overlay off
+        # with the overlay on, price the ROUTED surface: a cut link's
+        # pair carries its relay credit, so the search stops fleeing
+        # DCs the overlay can still reach
         return achievable_bw(ctl.plan, link_cap=cap,
-                             capture_conns=capture, knee=knee)
+                             capture_conns=capture, knee=knee,
+                             routing=ctl.routed)
 
     def exec_conns(self) -> np.ndarray:
         """The [P,P] connection matrix the workload's shuffles would

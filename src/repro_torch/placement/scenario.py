@@ -15,9 +15,9 @@ evolution identical across runs, so the two backends of
 :func:`compare_backends` see the *same* network weather.
 
 Port of `repro/placement/scenario.py`, riding the port's
-`ScenarioEngine` through its per-step tap (`step_hook`). The overlay is
-not yet ported: ``overlay="on"`` raises in the engine, so the ground
-truth is always the direct water-fill.
+`ScenarioEngine` through its per-step tap (`step_hook`). With the
+overlay on, the ground truth is the routed water-fill
+(`WanSimulator.waterfill_routed`).
 """
 from __future__ import annotations
 
@@ -116,8 +116,9 @@ def run_placement_scenario(spec: Union[str, ScenarioSpec],
     (timelines containing `Rescale` are rejected — a placed query's DC
     span is fixed); `query` defaults to the `scan_agg` workload over
     the spec's pod count. `overlay` gates Terra-style relay routing
-    (None defers to $REPRO_OVERLAY); it is not yet ported, and ``on``
-    raises.
+    (None defers to $REPRO_OVERLAY): when on, the ``wanify`` backend
+    prices AND executes against the routed surface — relayed pairs
+    carry their store-and-forward credit in the ground-truth fill.
     """
     if isinstance(spec, str):
         spec = get_scenario(spec)
@@ -137,11 +138,16 @@ def run_placement_scenario(spec: Union[str, ScenarioSpec],
 
     def hook(engine: ScenarioEngine, row) -> None:
         P = engine.controller.n_pods
+        routing = None
         if backend == "wanify":
             conns = engine.controller.current_conns()
+            routing = engine.controller.current_routing()
         else:
             conns = np.ones((engine.sim.N, engine.sim.N))
-        true_bw = engine.sim.waterfill(conns)[:P, :P]
+        if routing is None:
+            true_bw = engine.sim.waterfill(conns)[:P, :P]
+        else:
+            true_bw = engine.sim.waterfill_routed(*routing)[:P, :P]
         cost = planner.evaluate(true_bw)
         off = ~np.eye(P, dtype=bool)
         trace.steps.append(PlacementStepTrace(

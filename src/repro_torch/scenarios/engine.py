@@ -28,10 +28,13 @@ the numpy water-fill the traces are the reference's bytes (the 12
 `scenario/*` pins); with a `BwPredictor` on the card each replan's
 forest runs as one `rf_predict` launch, and with
 ``WanSimulator(waterfill_backend="cuda")`` each fill as one
-`waterfill` launch. Spans (``obs="on"``) are passive. Not yet ported,
-and raising `NotImplementedError` at construction: the overlay
-(``overlay="on"``), the predictor lifecycle (``lifecycle`` resolving
-to ``on``, or a manager object), and the fault plane (``faults``
+`waterfill` launch. Spans (``obs="on"``) are passive. The overlay
+(``overlay="on"``) executes the controller's routed lowering through
+`WanSimulator.waterfill_routed` (one fill, on ``"cuda"`` one launch);
+the predictor lifecycle (``lifecycle="on"`` or a `LifecycleManager`)
+ticks before each trace row is cut, its observation one `rf_predict`
+launch with a `BwPredictor` on the card. Not yet ported, and raising
+`NotImplementedError` at construction: the fault plane (``faults``
 resolving to ``on``, a plane object, or any fault event in the
 timeline, for which the reference builds an ungraceful plane).
 """
@@ -46,7 +49,7 @@ import numpy as np
 from repro_torch.control import ControllerConfig, WanifyController
 from repro_torch.core.predictor import SnapshotPredictor
 from repro_torch.faults.plane import faults_mode
-from repro_torch.lifecycle.manager import lifecycle_mode
+from repro_torch.lifecycle.manager import LifecycleManager, lifecycle_mode
 from repro_torch.obs.spans import NULL_TRACER, SpanTracer, obs_mode
 from repro_torch.scenarios.events import Timed
 from repro_torch.scenarios.trace import (ScenarioResult, ScenarioTrace,
@@ -86,14 +89,16 @@ class ScenarioEngine:
         cfg_kw.pop("advance_sim", None)    # the engine owns simulated time
         cfg = ControllerConfig(advance_sim=False, **cfg_kw)
         pred_obj = predictor or SnapshotPredictor()
-        # `lifecycle` gates the online predictor lifecycle: a manager
-        # object, or a mode resolving (via $REPRO_LIFECYCLE) to "on",
-        # is not yet ported; off means no manager and no lifecycle code
-        if (lifecycle is not None and not isinstance(lifecycle, str)) \
-                or lifecycle_mode(lifecycle) == "on":
-            raise NotImplementedError(
-                "the predictor lifecycle is not yet ported")
-        self.lifecycle = None
+        # `lifecycle` gates the online predictor lifecycle
+        # (repro_torch.lifecycle): a ready LifecycleManager is used
+        # as-is; a mode string / None resolves via $REPRO_LIFECYCLE
+        # (default off = no manager, no lifecycle code, byte-identical
+        # replays)
+        self.lifecycle: Optional[LifecycleManager] = None
+        if isinstance(lifecycle, LifecycleManager):
+            self.lifecycle = lifecycle
+        elif lifecycle_mode(lifecycle) == "on":
+            self.lifecycle = LifecycleManager(pred_obj, self.sim.N)
         # `faults` gates the fault plane: a plane object, a mode
         # resolving (via $REPRO_FAULTS) to "on", or a timeline that
         # scripts fault events (the reference's ungraceful plane) is
@@ -109,10 +114,13 @@ class ScenarioEngine:
             raise NotImplementedError("the fault plane is not yet ported")
         self.faults = None
         # `overlay` gates Terra-style relay routing (None defers to
-        # $REPRO_OVERLAY, default off); the controller raises for "on"
+        # $REPRO_OVERLAY, default off): when on, the workload executes
+        # at the controller's routed lowering — relay flows charged on
+        # both hops, credited at the store-and-forward bottleneck
         self.controller = WanifyController(
             sim=self.sim, predictor=pred_obj,
-            n_pods=spec.n_pods, cfg=cfg, overlay=overlay)
+            n_pods=spec.n_pods, cfg=cfg, overlay=overlay,
+            lifecycle=self.lifecycle)
         # `obs` gates span tracing (repro_torch.obs; None defers to
         # $REPRO_OBS, default off = the shared no-op tracer). Spans are
         # PASSIVE: they wrap the stages the loop already runs, in the
@@ -123,9 +131,12 @@ class ScenarioEngine:
             self.tracer = SpanTracer()
             self.tracer.watch(self.sim.metrics)
             self.tracer.watch(self.controller.metrics)
+            if self.lifecycle is not None:
+                self.tracer.watch(self.lifecycle.metrics)
+                self.tracer.watch(self.lifecycle.scheduler.metrics)
             self.controller.tracer = self.tracer
         self.step = 0
-        # a per-step tap for ride-along harnesses (placement, later):
+        # a per-step tap for ride-along harnesses (repro_torch.placement):
         # called as step_hook(engine, step_trace_row) after each step's
         # trace row is appended; it must not mutate sim/controller state
         self.step_hook: Optional[Any] = None
@@ -215,7 +226,7 @@ class ScenarioEngine:
     def _recover_divergence(self, k: int,
                             exc: WaterfillDivergence) -> None:
         """Water-fill divergence at step `k`: without a graceful fault
-        plane (the only case while the plane is unported) the
+        plane (the only case while the fault plane is unported) the
         divergence propagates with scenario/step context attached."""
         raise WaterfillDivergence(
             f"{exc} (scenario {self.spec.name!r}, step {k})") from exc
@@ -239,8 +250,15 @@ class ScenarioEngine:
 
             with tr.span("waterfill", delta=True):
                 conns = self._full_conns()
+                routing = ctl.current_routing()
                 try:
-                    achieved = sim.waterfill(conns)
+                    if routing is None:
+                        achieved = sim.waterfill(conns)
+                    else:
+                        # overlay in force: execute the routed lowering
+                        # — the end-to-end credit on a relayed pair is
+                        # what the ring consumer observes
+                        achieved = sim.waterfill_routed(*routing)
                 except WaterfillDivergence as exc:
                     self._recover_divergence(k, exc)
             with tr.span("control", delta=True):
@@ -256,6 +274,16 @@ class ScenarioEngine:
             # scenario monitored == achieved exactly, replan step or not
             with tr.span("measure"):
                 monitored = ctl.monitor.measure(conns)
+            if self.lifecycle is not None:
+                # lifecycle tick before the trace row is cut, so a
+                # drift-triggered refresh replan lands in this step's
+                # `replans` (and its prediction in this step's columns);
+                # read here, at tick time, so a manager attached after
+                # construction (the harness's shadow harvest) ticks too.
+                # Without a fault plane every measurement is live.
+                with tr.span("lifecycle", delta=True):
+                    self.lifecycle.tick(k, ctl, sim, conns, achieved,
+                                        monitored, measurement_ok=True)
             P = ctl.n_pods
             off = ~np.eye(P, dtype=bool)
             pred = ctl.last_pred[:P, :P]

@@ -9,10 +9,11 @@ ones (`diurnal`, `runtime_fluctuation`) exercise the loop under the
 AR(1) dynamics of [38].
 
 Port of `repro/scenarios/library.py`: the same 12 specs in the same
-order. Two of them stage planes that are not yet ported
-(`cable_cut_reroute` for the overlay, `provider_shift_drift` for the
-predictor lifecycle); with those gates off, as here, they replay the
-direct-only, frozen-predictor runs the reference pins.
+order. Two of them stage the gated planes (`cable_cut_reroute` the
+overlay, `provider_shift_drift` the predictor lifecycle); with those
+gates off they replay the direct-only, frozen-predictor runs the
+reference pins, and with them on the runs `scenarios/goldens.py`'s
+plane pins hold.
 """
 from __future__ import annotations
 
@@ -106,9 +107,12 @@ def cable_cut_reroute() -> ScenarioSpec:
     the knee cap (8.5x a tiny degraded single-conn BW) no matter how
     many connections AIMD pumps — while one-hop detours (us-west ->
     us-east -> ap-south, or via ap-se) keep the healthy far-class
-    capacity. The overlay that routes around the cut is not yet
-    ported; with it off (the default) this replays the direct-only
-    controller against the same weather."""
+    capacity. With ``overlay="on"`` the first post-cut replan routes
+    around the cut and the pair's achieved BW recovers to the relay
+    bottleneck — strictly better than direct-only
+    (`tests/test_torch_overlay.py`); with the overlay off (the
+    default) this replays the direct-only controller against the same
+    weather."""
     return ScenarioSpec(
         name="cable_cut_reroute", steps=40,
         description="us-west<->ap-south silently collapses 50x at step "
@@ -160,9 +164,12 @@ def provider_shift_drift() -> ScenarioSpec:
     provider migration silently invalidates: post-shift it keeps
     predicting pre-shift BW (~2x high) no matter what the snapshot
     says. Link fluctuation and host noise stay off so the runs are
-    deterministic per seed. The lifecycle that detects the drift and
-    refits is not yet ported; with it off this is a frozen-predictor
-    replay."""
+    deterministic per seed. With the lifecycle off this is a
+    frozen-predictor replay; with it on, the drift detector catches
+    the post-shift residual step from free observations, a couple of
+    targeted full probes label the harvest window, and the refreshed
+    forest recovers residual accuracy a frozen predictor never does
+    (`tests/test_torch_lifecycle.py`)."""
     return ScenarioSpec(
         name="provider_shift_drift", steps=40,
         description="DCs 0-3 shift to 0.5x provider at step 15 under "

@@ -52,13 +52,15 @@ the host (`kernels/ref.py::fill_rates_ref`), and ``"cuda"``, the
 hand-written kernel (`csrc/waterfill.cu`), one launch a fill, which
 raises without a card; both agree with the host loop to 1e-9 with the
 same iteration count (the JAX package's ``"jax"`` backend is the
-batched `lax.while_loop` these replace).
+batched `lax.while_loop` these replace). The overlay's routed fill
+(`waterfill_routed`) takes the same dispatch: one fill of the expanded
+connection matrix, on ``"cuda"`` one launch.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -390,6 +392,47 @@ class WanSimulator:
         c = self._contending_conns(own, tenant)
         rate = self._fill_rates(c, cap)
         bw = rate * own              # uncredited traffic earns nothing
+        np.fill_diagonal(bw, topo.INTRA_DC_BW)
+        return bw
+
+    def waterfill_routed(self, direct: np.ndarray,
+                         relays: Sequence[Tuple[int, int, int, float]],
+                         cap: Optional[np.ndarray] = None,
+                         tenant: Optional[str] = None) -> np.ndarray:
+        """Achieved END-TO-END BW per pair [N,N] for a routed workload
+        (repro_torch.overlay): `direct` is the [N,N] direct-path
+        connection matrix; each relay ``(i, k, j, conns)`` sends
+        `conns` extra connections over the one-hop path i -> k -> j.
+
+        Relay flows are charged on BOTH hops: the fill solves one
+        expanded connection matrix in which a relay's connections
+        appear on (i, k) AND (k, j), contending with every direct flow
+        there (and with background / rival tenants, exactly like
+        :meth:`waterfill`). Crediting is store-and-forward: each relay
+        connection sustains ``min(rate[i,k], rate[k,j])`` — the
+        bottleneck hop's per-connection rate — so a relay through a
+        DC whose NIC is saturated buys nothing. The faster hop's
+        surplus is NOT redistributed (conservative; the surplus decays
+        as AIMD rebalances), and the credit lands on the end-to-end
+        pair (i, j), which is what a shuffle/ring consumer observes.
+        The fill itself is one `_fill_rates` call, so every fill
+        backend serves it (``"cuda"``: one `waterfill` launch).
+        """
+        own = np.asarray(direct, np.float64).copy()
+        np.fill_diagonal(own, 0.0)
+        expanded = own.copy()
+        for i, k, j, cr in relays:
+            if i == j or cr <= 0:
+                continue
+            expanded[i, k] += cr
+            expanded[k, j] += cr
+        c = self._contending_conns(expanded, tenant)
+        rate = self._fill_rates(c, cap)
+        bw = rate * own
+        for i, k, j, cr in relays:
+            if i == j or cr <= 0:
+                continue
+            bw[i, j] += cr * min(float(rate[i, k]), float(rate[k, j]))
         np.fill_diagonal(bw, topo.INTRA_DC_BW)
         return bw
 

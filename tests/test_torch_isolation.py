@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the reference
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
-not yet ported raises `NotImplementedError`."""
+not yet ported raises `NotImplementedError` (the overlay and the
+predictor lifecycle are ported: their gates construct and run)."""
 import ast
 import os
 import subprocess
@@ -20,6 +21,7 @@ from repro_torch.core.predictor import BwPredictor, SnapshotPredictor
 from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
+from repro_torch.lifecycle import LifecycleManager
 from repro_torch.models import registry
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.wan.simulator import WanSimulator
@@ -59,7 +61,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.placement.query", "repro_torch.placement.cost",
             "repro_torch.placement.optimizer",
             "repro_torch.placement.planner",
-            "repro_torch.placement.scenario"} <= mods
+            "repro_torch.placement.scenario", "repro_torch.overlay.routing",
+            "repro_torch.lifecycle.drift", "repro_torch.lifecycle.harness",
+            "repro_torch.lifecycle.probes", "repro_torch.lifecycle.refresh",
+            "repro_torch.lifecycle.window"} <= mods
 
 
 def _imports(path):
@@ -155,18 +160,23 @@ def _controller(**kw):
 
 
 def test_controller_gates_not_yet_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _controller(overlay="on")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _controller(lifecycle=object())
+    """The fault plane stays gated; the overlay and a lifecycle manager
+    are ported: they construct, route and clamp."""
+    ctl = _controller(overlay="on")
+    assert ctl.routed is not None and ctl.record[-1]["overlay"] == "on"
+    assert ctl.record[-1]["relays"] == ctl.routed.relays
+    mgr = LifecycleManager(SnapshotPredictor(), 8)
+    mgr.estimator.push(np.full((8, 8), 10.0))
+    ctl = _controller(lifecycle=mgr)
+    assert ctl.lifecycle is mgr
+    assert ctl.last_pred[0, 1] <= 15.0          # clamped: 1.5 x capacity
     ctl = _controller(envelope=BudgetEnvelope(max_conns=4))
-    assert ctl.faults is None
+    assert ctl.faults is None and ctl.routed is None
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ctl.faults = object()
     ctl.faults = None
     monkeypatch.setenv("REPRO_OVERLAY", "on")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _controller()
+    assert _controller().overlay == "on"
     with pytest.raises(ValueError, match="unknown overlay"):
         _controller(overlay="sideways")
 
@@ -321,6 +331,26 @@ def test_codec_path_modules_import_no_jax_and_no_reference(module):
 def test_scenario_path_modules_import_no_jax_and_no_reference(module):
     """Each module of the scenario engines' path, on its own, pulls in
     neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.overlay", "repro_torch.overlay.routing",
+    "repro_torch.lifecycle", "repro_torch.lifecycle.drift",
+    "repro_torch.lifecycle.harness", "repro_torch.lifecycle.manager",
+    "repro_torch.lifecycle.probes", "repro_torch.lifecycle.refresh",
+    "repro_torch.lifecycle.window"])
+def test_plane_modules_import_no_jax_and_no_reference(module):
+    """Each module of the overlay and predictor-lifecycle planes, on its
+    own, pulls in neither jax nor the reference package."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "

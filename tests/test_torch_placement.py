@@ -514,14 +514,20 @@ def test_compare_backends_equal_reference(ref):
         got["static"]["makespan_total_s"]
 
 
-def test_rescale_and_overlay_rejected():
+def test_rescale_and_overlay_rejected(ref):
+    """A rescaling timeline is rejected; the overlay is ported: a
+    placement run with it on prices and executes the routed surface
+    (here `steady`, which routes nothing) as the reference does."""
     spec = ScenarioSpec(name="bad", steps=5,
                         events=(at(2, Rescale(n_pods=6)),),
                         sim_kwargs=dict(QUIET))
     with pytest.raises(ValueError):
         pl.run_placement_scenario(spec, query=pl.scan_agg(4))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pl.run_placement_scenario("steady", overlay="on")
+    got = pl.run_placement_scenario("steady", overlay="on")
+    want = ref["pl"].run_placement_scenario("steady", overlay="on")
+    assert got.trace.to_json() == want.trace.to_json()
+    assert got.trace.to_json() == \
+        pl.run_placement_scenario("steady", overlay="off").trace.to_json()
 
 
 # ----------------------------------------------------------------------

@@ -9,8 +9,10 @@
   and a fleet timeline with churn and a priority shift, at seeds other
   than 3.
 * The behavioural tests of `tests/test_scenarios.py` that hold with
-  the overlay off, on the port's engine, and the gates that are not yet
-  ported.
+  the overlay off, on the port's engine, and the gates: the fault
+  plane's raise "not yet ported", the overlay's and the lifecycle's
+  run (their planes are tested in `tests/test_torch_overlay.py` and
+  `tests/test_torch_lifecycle.py`).
 
 The reference fleet imports `jax.experimental.enable_x64`, which jax
 0.9 dropped; the `ref_fleet` fixture installs a stand-in only when it
@@ -438,20 +440,32 @@ def test_fleet_timeline_rejects_single_job_events():
 
 
 def test_scenario_gates_not_yet_ported(monkeypatch):
-    spec = get_scenario("steady")
-    for kw in (dict(overlay="on"), dict(lifecycle="on"),
-               dict(lifecycle=object()), dict(faults="on"),
-               dict(faults=object())):
+    """The fault plane stays gated (a mode, a plane object, or a fault
+    event in the timeline); the overlay and the lifecycle are ported:
+    their gates, and their environment variables, construct and run."""
+    spec = dataclasses.replace(get_scenario("steady"), steps=3)
+    for kw in (dict(faults="on"), dict(faults=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ScenarioEngine(spec, seed=0, **kw)
     for events in ((at(3, SolverFault(1)),), (at(2, ProbeTimeout(3)),)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ScenarioEngine(dataclasses.replace(spec, events=events))
-    for var in ("REPRO_LIFECYCLE", "REPRO_FAULTS", "REPRO_OVERLAY"):
+    with monkeypatch.context() as m:
+        m.setenv("REPRO_FAULTS", "on")
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            run_scenario(spec)
+    eng = ScenarioEngine(spec, seed=0, overlay="on", lifecycle="on")
+    assert eng.controller.overlay == "on"
+    assert eng.controller.lifecycle is eng.lifecycle is not None
+    eng.run()
+    assert len(eng.lifecycle.records) == spec.steps
+    assert all("relays" in r for r in eng.controller.record)
+    with pytest.raises(ValueError, match="unknown lifecycle"):
+        ScenarioEngine(spec, lifecycle=object())
+    for var in ("REPRO_LIFECYCLE", "REPRO_OVERLAY"):
         with monkeypatch.context() as m:
             m.setenv(var, "on")
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                run_scenario(spec)
+            assert len(run_scenario(spec).trace.steps) == spec.steps
     with pytest.raises(ValueError, match="unknown lifecycle"):
         ScenarioEngine(spec, lifecycle="sideways")
     eng = ScenarioEngine(spec, lifecycle="off", faults="off", overlay="off")
