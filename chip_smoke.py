@@ -124,6 +124,32 @@ Every phase is fatal: a failure exits non-zero before the result line.
    steps and monitoring dollars per mode, and the kernel's time at
    n=56 (the 8-DC mesh's rows) on the refit forest beside its bound,
    the plain version and the launch floor.
+5f. faults — the fault plane and the obs exports on the card, each part
+   with its launch counts set to 0 just before it and read just after:
+   (1) `chaos_report(seed=3)` (`repro_torch.faults.harness`: the 8 chaos
+   scenarios, ladder and naive) with its fills on the `cuda` backend and
+   the fleet's forest on the card, every row equal to the same report
+   on the host (`device="cpu"`: numpy fill, plain forest): `crashed`,
+   `error`, `steps_completed`, `injected`, `rollbacks` equal, the floats
+   within 1e-9 relative; every fill re-run by the host loop (equal
+   iterations, rates within 1e-9), the fills with dead pairs (flows
+   over a link of zero capacity) counted apart, none with a non-finite
+   input; one `waterfill` launch a fill and one `rf_predict` launch a
+   fleet tick; the headline: the ladder crashes 0 times, naive 4. One
+   dead-pair fill timed beside the launch floor and the bound;
+   (2) the main phase's 16 jobs (paper forest, `m_total=8`) as a
+   24-tick `FleetScenarioSpec` on the quiet mesh, ap-se blacked out at
+   tick 4 and restored at 8, `faults="on"`, on the card: 24
+   `rf_predict` launches, one `waterfill` launch a fill (each checked);
+   records equal to the host run's (integers exact, BW within 1e-6);
+   every job spanning ap-se capped at 0 on its dead pairs at ticks 4-7
+   and above 0 elsewhere; the jobs that do not span it keep the budget
+   and conns series of the same fleet with faults off and no events;
+   (3) `python -m repro_torch.obs.cli run steady --seed 3` on the card
+   (in this process): `check_run` clean, one `waterfill` launch a fill,
+   the document less the spans' wall times equal to the host run's
+   (floats within 1e-9 relative). Every part prints its wall time and
+   the `nvidia-smi` line.
 6. ssd     — the ssd_chunk CUDA kernels against their plain PyTorch
    version on the card, atol/rtol 1e-4 (both take the cumulative decay
    in one order; the products add in another, bf16 inputs on the tensor
@@ -227,8 +253,14 @@ from repro_torch.core.predictor import (BwPredictor,  # noqa: E402
 from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
                                       wan_allreduce_batched)
 from repro_torch.fleet import fused as fused_mod  # noqa: E402
+from repro_torch.faults import DcBlackout, DcRestore  # noqa: E402
+from repro_torch.faults.harness import chaos_report  # noqa: E402
+from repro_torch.faults.scenarios import (QUIET,  # noqa: E402
+                                          chaos_scenario_names,
+                                          get_chaos_scenario)
 from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E402
-                               FusedFleet, JobSpec, default_fleet_forest,
+                               FleetEngine, FleetScenarioSpec, FusedFleet,
+                               JobSpec, default_fleet_forest,
                                fleet_scenario_names, get_fleet_scenario,
                                make_schedule)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
@@ -246,6 +278,9 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
                                             unstack_cache)
+from repro_torch.obs import check_run  # noqa: E402
+from repro_torch.obs import cli as obs_cli  # noqa: E402
+from repro_torch.obs import load as obs_load  # noqa: E402
 from repro_torch.obs.spans import SpanTracer  # noqa: E402
 from repro_torch import placement as pl  # noqa: E402
 from repro_torch.placement import cost as pl_cost  # noqa: E402
@@ -1804,6 +1839,410 @@ def planes_phase(dev, floor_ms: float) -> dict:
 
 
 # ----------------------------------------------------------------------
+# faults phase: the chaos library, a 16-job blackout fleet, one obs run
+# ----------------------------------------------------------------------
+CHAOS_EXACT = ("scenario", "mode", "crashed", "error", "steps_completed",
+               "steps_total", "injected", "rollbacks")
+CHAOS_FLOATS = ("mttr_steps", "degraded_min_bw", "retry_usd")
+CHAOS_RTOL = 1e-9
+BLACKOUT_DC, BLACKOUT_TICKS = "ap-se", 24
+BLACKOUT_STEPS = range(4, 8)              # DcBlackout at 4, DcRestore at 8
+FLEET_TOL = 1e-6          # the fleet's BW tolerance (ROADMAP's contract)
+OBS_SCENARIO = "steady"
+OBS_TOL = 1e-9
+
+
+def dead_pairs(c, single, path_cap) -> int:
+    """Off-diagonal pairs that carry flows over a link of no capacity (a
+    blacked-out DC or a partition)."""
+    off = ~np.eye(c.shape[-1], dtype=bool)
+    return int(((c > 0) & off & ((single <= 0) | (path_cap <= 0))).sum())
+
+
+class FillCheck:
+    """Wraps the simulator's device fill for the duration: every fill
+    also run by the host loop on the same inputs (equal iterations,
+    rates within WF_TOL), counted with its dead pairs, and the first
+    dead-pair fill's inputs kept; `WanSimulator._fill_rates` calls are
+    counted apart, so launches, checked fills and fills can be held
+    equal."""
+
+    def __init__(self):
+        self.stats = {"fills": 0, "max_abs_err": 0.0, "dead_fills": 0,
+                      "dead_pairs": 0, "nonfinite_fills": 0,
+                      "sim_fills": 0}
+        self.kept = None
+
+    def __enter__(self):
+        base = checked_fill(self.stats)
+        real_sim = self.real_sim = WanSimulator._fill_rates
+        self.real = wfk.fill_rates
+        check = self
+
+        def fill(c, single, egress, ingress, w, path_cap, device=None):
+            args = (c, single, egress, ingress, w, path_cap)
+            if not all(np.isfinite(a).all() for a in args):
+                check.stats["nonfinite_fills"] += 1
+            rate, iters, ok = base(*args, device=device)
+            dead = dead_pairs(c, single, path_cap)
+            if dead:
+                check.stats["dead_fills"] += 1
+                check.stats["dead_pairs"] += dead
+                if check.kept is None:
+                    check.kept = (args, int(iters), dead)
+            return rate, iters, ok
+
+        def sim_fill(sim, c, cap=None):
+            check.stats["sim_fills"] += 1
+            return real_sim(sim, c, cap)
+        wfk.fill_rates = fill
+        WanSimulator._fill_rates = sim_fill
+        return self
+
+    def __exit__(self, *exc):
+        wfk.fill_rates = self.real
+        WanSimulator._fill_rates = self.real_sim
+
+
+@contextlib.contextmanager
+def counting_ticks():
+    """Counts `FleetController.tick` calls and the rows each tick's one
+    forest call predicts."""
+    real_tick = FleetController.tick
+    real_rows = BatchedRfPredictor.predict_rows
+    seen = {"ticks": 0, "rows": []}
+
+    def tick(fleet, *a, **kw):
+        seen["ticks"] += 1
+        return real_tick(fleet, *a, **kw)
+
+    def rows(pred, X, *a, **kw):
+        seen["rows"].append(int(len(X)))
+        return real_rows(pred, X, *a, **kw)
+    FleetController.tick = tick
+    BatchedRfPredictor.predict_rows = rows
+    try:
+        yield seen
+    finally:
+        FleetController.tick = real_tick
+        BatchedRfPredictor.predict_rows = real_rows
+
+
+def chaos_rows_match(card: dict, host: dict) -> float:
+    """Every row: the integers and strings equal, the floats within
+    CHAOS_RTOL relative; returns the largest relative float gap."""
+    if len(card["runs"]) != len(host["runs"]) or card["seed"] != host["seed"]:
+        raise AssertionError("chaos: the card's report has other rows")
+    worst = 0.0
+    for g, w in zip(card["runs"], host["runs"]):
+        what = f"chaos {w['scenario']} {w['mode']}"
+        if set(g) != set(w):
+            raise AssertionError(f"{what}: keys {sorted(g)}")
+        for key in CHAOS_EXACT:
+            if g[key] != w[key]:
+                raise AssertionError(f"{what}: {key} {g[key]!r} != "
+                                     f"{w[key]!r}")
+        for key in CHAOS_FLOATS:
+            a, b = g[key], w[key]
+            if (a is None) != (b is None):
+                raise AssertionError(f"{what}: {key} {a!r} != {b!r}")
+            if a is not None:
+                gap = abs(a - b) / max(abs(b), 1e-300) if a != b else 0.0
+                if gap > CHAOS_RTOL:
+                    raise AssertionError(f"{what}: {key} {a!r} != {b!r}")
+                worst = max(worst, gap)
+    return worst
+
+
+def chaos_part() -> dict:
+    """Part (1) of the faults phase (see the head comment)."""
+    t0 = time.perf_counter()
+    host = chaos_report(seed=PIN_SEED, device="cpu")
+    host_s = time.perf_counter() - t0
+    fleet_runs = sum(get_chaos_scenario(n).fleet
+                     for n in chaos_scenario_names())
+    ops.fill_rates.launches = 0
+    ops.rf_predict.launches = 0
+    with FillCheck() as check, counting_ticks() as seen:
+        t0 = time.perf_counter()
+        card = chaos_report(seed=PIN_SEED)
+        secs = time.perf_counter() - t0
+    launches = {"waterfill": ops.fill_rates.launches,
+                "rf_predict": ops.rf_predict.launches}
+    st = check.stats
+    if not (launches["waterfill"] == st["fills"] == st["sim_fills"] > 0):
+        raise AssertionError(f"chaos on the card: {launches} launches, "
+                             f"{st['fills']} checked fills, "
+                             f"{st['sim_fills']} fills")
+    if launches["rf_predict"] != seen["ticks"] or not seen["ticks"]:
+        raise AssertionError(f"chaos on the card: {launches['rf_predict']} "
+                             f"rf_predict launches for {seen['ticks']} "
+                             f"fleet ticks")
+    if not st["dead_fills"] or st["nonfinite_fills"]:
+        raise AssertionError(f"chaos on the card: {st['dead_fills']} "
+                             f"dead-pair fills, {st['nonfinite_fills']} "
+                             f"with a non-finite input")
+    worst = chaos_rows_match(card, host)
+    s = card["summary"]
+    if s["ladder_crashes"] != 0 or s["naive_crashes"] != 4 \
+            or s != host["summary"]:
+        raise AssertionError(f"chaos headline: {s}; host {host['summary']}")
+    args, iters, dead = check.kept
+    case = tuple(np.array(a)[None] for a in args)
+    return {"rows": card["runs"], "summary": s, "launches": launches,
+            "fleet_ticks": seen["ticks"], "fleet_runs": 2 * fleet_runs,
+            "rows_per_tick": sorted(set(seen["rows"])), "s": secs,
+            "host_s": host_s, "max_rel_gap": worst, **st,
+            "dead_fill_pairs": dead,
+            "dead_fill_timing": time_waterfill(case, [iters])}
+
+
+def blackout_spec(events: bool = True):
+    """The main phase's 16 jobs as a 24-tick fleet scenario on the quiet
+    mesh, ap-se blacked out at tick 4 and restored at tick 8."""
+    return FleetScenarioSpec(
+        name="fleet_blackout_16", steps=BLACKOUT_TICKS, jobs=fleet_jobs(),
+        m_total=M_TOTAL, sim_kwargs=dict(QUIET),
+        events=(at(BLACKOUT_STEPS.start, DcBlackout(BLACKOUT_DC)),
+                at(BLACKOUT_STEPS.stop, DcRestore(BLACKOUT_DC)))
+        if events else ())
+
+
+def blackout_run(forest, device, backend: str, faults: str = "on",
+                 events: bool = True):
+    """One run of the blackout fleet -> (result, per-tick dead caps)."""
+    spec = blackout_spec(events)
+    spec.sim_kwargs["waterfill_backend"] = backend
+    eng = FleetEngine(spec, seed=0, forest=forest, faults=faults,
+                      device=device)
+    dead = eng.sim.regions.index(BLACKOUT_DC)
+    caps = []
+
+    def hook(engine, row):
+        # the largest cap on a pair touching the dead DC, over the jobs
+        # that span it (0.0 while it is quarantined)
+        top = 0.0
+        for job in engine.fleet.jobs.values():
+            if dead in job.spec.dcs:
+                k = list(job.spec.dcs).index(dead)
+                cap = np.asarray(job.controller.envelope.link_cap)
+                off = ~np.eye(len(cap), dtype=bool)
+                top = max(top, float(cap[k][off[k]].max()),
+                          float(cap[:, k][off[:, k]].max()))
+        caps.append(top)
+    eng.step_hook = hook
+    return eng.run(), caps
+
+
+def fleet_rows_match(got, want, what: str) -> float:
+    """Fleet trace steps: every integer and string field equal, the BW
+    fields within FLEET_TOL; returns the largest |diff|."""
+    worst = 0.0
+    if len(got.trace.steps) != len(want.trace.steps):
+        raise AssertionError(f"{what}: step counts differ")
+    for g, w in zip(got.trace.steps, want.trace.steps):
+        if (g.tick, g.events, g.n_jobs) != (w.tick, w.events, w.n_jobs):
+            raise AssertionError(f"{what} tick {w.tick}: header differs")
+        for a, b in zip(g.jobs, w.jobs):
+            for key in ("name", "priority", "budget", "conns_total",
+                        "plan_sig"):
+                if a[key] != b[key]:
+                    raise AssertionError(f"{what} tick {w.tick} "
+                                         f"{b['name']}: {key}")
+            for key in ("cap_min", "achieved_min", "achieved_mean"):
+                np.testing.assert_allclose(a[key], b[key], rtol=FLEET_TOL,
+                                           atol=FLEET_TOL,
+                                           err_msg=f"{what} {key}")
+                worst = max(worst, abs(a[key] - b[key]))
+    return worst
+
+
+def blackout_part(forest, dev) -> dict:
+    """Part (2) of the faults phase (see the head comment)."""
+    host, host_caps = blackout_run(forest, "cpu", "numpy")
+    clean, _ = blackout_run(forest, "cpu", "numpy", faults="off",
+                            events=False)
+    ops.fill_rates.launches = 0
+    ops.rf_predict.launches = 0
+    with FillCheck() as check, counting_ticks() as seen:
+        t0 = time.perf_counter()
+        card, caps = blackout_run(forest, dev, "cuda")
+        secs = time.perf_counter() - t0
+    launches = {"waterfill": ops.fill_rates.launches,
+                "rf_predict": ops.rf_predict.launches}
+    st = check.stats
+    if launches["rf_predict"] != BLACKOUT_TICKS \
+            or seen["ticks"] != BLACKOUT_TICKS \
+            or not (launches["waterfill"] == st["fills"]
+                    == st["sim_fills"] > 0) or st["nonfinite_fills"]:
+        raise AssertionError(f"blackout fleet: launches {launches}, "
+                             f"{seen['ticks']} ticks, fills {st}")
+    worst = fleet_rows_match(card, host, "blackout fleet card vs host")
+    np.testing.assert_allclose(caps, host_caps, rtol=FLEET_TOL,
+                               atol=FLEET_TOL,
+                               err_msg="blackout fleet: dead-pair caps")
+    live = [k for k in range(BLACKOUT_TICKS) if k not in BLACKOUT_STEPS]
+    if any(caps[k] != 0.0 for k in BLACKOUT_STEPS) or \
+            any(caps[k] <= 0.0 for k in live):
+        raise AssertionError(f"blackout fleet: caps on pairs touching "
+                             f"{BLACKOUT_DC} per tick {caps}")
+    dead = WanSimulator().regions.index(BLACKOUT_DC)
+    untouched = [j.name for j in fleet_jobs() if dead not in j.dcs]
+    cap_moved = 0.0
+    for name in untouched:
+        for key in ("budget", "conns_total"):
+            if card.trace.job_series(name, key) != \
+                    clean.trace.job_series(name, key):
+                raise AssertionError(f"blackout fleet: {name}'s {key} "
+                                     f"series differs from the run with "
+                                     f"faults off")
+        a = np.asarray(card.trace.job_series(name, "cap_min"))
+        b = np.asarray(clean.trace.job_series(name, "cap_min"))
+        cap_moved = max(cap_moved, float(np.max(np.abs(a / b - 1.0))))
+    return {"launches": launches, "ticks": seen["ticks"],
+            "rows_per_tick": sorted(set(seen["rows"])), "s": secs,
+            "max_abs_err_bw": worst, "untouched_jobs": untouched,
+            "untouched_cap_max_rel_change": cap_moved,
+            "touched_dead_caps": caps, **st}
+
+
+def obs_doc(device: str, path: Path) -> dict:
+    """`python -m repro_torch.obs.cli run` of the obs scenario, in this
+    process, on `device` ("card" = the default)."""
+    argv = ["run", OBS_SCENARIO, "--seed", str(PIN_SEED), "-o", str(path)]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    if obs_cli.main(argv) != 0:
+        raise AssertionError(f"obs run on {device} exited non-zero")
+    return obs_load(str(path))
+
+
+def without_span_times(doc):
+    """The document less the spans' wall times (`total_s`, `mean_s`)."""
+    doc = json.loads(json.dumps(doc))
+    for st in doc.get("spans", {}).get("stages", {}).values():
+        st.pop("total_s", None)
+        st.pop("mean_s", None)
+    return doc
+
+
+def obs_part() -> dict:
+    """Part (3) of the faults phase (see the head comment)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        host = obs_doc("cpu", Path(tmp) / "host.json")
+        ops.fill_rates.launches = 0
+        with FillCheck() as check:
+            t0 = time.perf_counter()
+            card = obs_doc("card", Path(tmp) / "card.json")
+            secs = time.perf_counter() - t0
+    problems = check_run(card)
+    launches = ops.fill_rates.launches
+    st = check.stats
+    if problems or not (launches == st["fills"] == st["sim_fills"] > 0):
+        raise AssertionError(f"obs run: problems {problems}, {launches} "
+                             f"launches, fills {st}")
+    if "spans" not in card:
+        raise AssertionError("obs run: the card's document has no spans")
+    worst = docs_match(without_span_times(card), without_span_times(host),
+                       "obs")
+    return {"launches": launches, "s": secs, "max_rel_gap": worst,
+            "sle": card["sle"], "spans": card["spans"]["count"], **st}
+
+
+def docs_match(got, want, path: str) -> float:
+    """Two JSON documents: the same keys and lengths, every leaf equal
+    but floats, which agree within OBS_TOL relative; returns the
+    largest relative gap."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ")
+        return max([docs_match(got[k], want[k], f"{path}.{k}")
+                    for k in want], default=0.0)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: lengths differ")
+        return max([docs_match(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))], default=0.0)
+    if isinstance(want, float) and isinstance(got, float):
+        gap = abs(got - want) / max(abs(want), 1e-300) if got != want \
+            else 0.0
+        if gap > OBS_TOL:
+            raise AssertionError(f"{path}: {got!r} != {want!r}")
+        return gap
+    if got != want or type(got) is not type(want):
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+    return 0.0
+
+
+def faults_phase(paper, dev, floor_ms: float, smi: str) -> dict:
+    """The faults phase (see the head comment); every check fatal."""
+    out = {}
+    ch = chaos_part()
+    out["chaos"] = ch
+    for r in ch["rows"]:
+        log(f"[faults] chaos {r['scenario']} {r['mode']}: crashed "
+            f"{r['crashed']}, steps {r['steps_completed']}/"
+            f"{r['steps_total']}, mttr {r['mttr_steps']}, floor "
+            f"{r['degraded_min_bw']}, injected {r['injected']}, rollbacks "
+            f"{r['rollbacks']}, retry ${r['retry_usd']}"
+            + (f", error {r['error']!r}" if r["error"] else ""))
+    s = ch["summary"]
+    log(f"[faults] chaos_report(seed={PIN_SEED}) on the card ({ch['s']:.3f} "
+        f"s; host {ch['host_s']:.3f} s): every row equal to the host's "
+        f"(floats within {CHAOS_RTOL} relative, largest gap "
+        f"{ch['max_rel_gap']:.3g}); ladder crashes {s['ladder_crashes']}, "
+        f"naive {s['naive_crashes']}; mean MTTR {s['ladder_mean_mttr']} vs "
+        f"{s['naive_mean_mttr']} steps, floor {s['ladder_min_floor']} vs "
+        f"{s['naive_min_floor']} | {smi}")
+    log(f"[faults] chaos fills: {ch['fills']} ({ch['dead_fills']} with dead "
+        f"pairs, {ch['dead_pairs']} dead pairs in all; "
+        f"{ch['nonfinite_fills']} with a non-finite input), "
+        f"{ch['launches']['waterfill']} waterfill launches, each fill equal "
+        f"to the host loop's iterations and within {WF_TOL} (max |diff| "
+        f"{ch['max_abs_err']:.3g}); {ch['launches']['rf_predict']} rf_predict"
+        f" launches for {ch['fleet_ticks']} fleet ticks ({ch['fleet_runs']} "
+        f"fleet runs, rows a tick {ch['rows_per_tick']})")
+    t = ch["dead_fill_timing"]
+    log(f"[faults] one dead-pair fill ({ch['dead_fill_pairs']} dead pairs, "
+        f"{t['iters'][0]} iterations): kernel {t['ms']:.5f} ms (device, "
+        f"graph of 20 calls) | launch floor {floor_ms:.5f} ms | numpy "
+        f"wrapper call {t['wrapper_us']:.1f} us (host) | host loop "
+        f"{t['host_loop_us']:.1f} us (host) | plain {t['plain_ms']:.4f} ms "
+        f"| bound {t['bound_ms']:.7f} ms by {t['bound_by']} | {smi}")
+    t0 = time.perf_counter()
+    bo = blackout_part(paper, dev)
+    bo["s_all"] = time.perf_counter() - t0
+    out["blackout"] = bo
+    log(f"[faults] blackout fleet {N_JOBS} jobs x {BLACKOUT_TICKS} ticks "
+        f"(paper forest, m_total={M_TOTAL}, {BLACKOUT_DC} dark ticks "
+        f"{BLACKOUT_STEPS.start}-{BLACKOUT_STEPS.stop - 1}, faults on) on "
+        f"the card: {bo['launches']['rf_predict']} rf_predict launches "
+        f"({bo['rows_per_tick']} rows a tick), {bo['fills']} fills "
+        f"({bo['dead_fills']} with dead pairs), "
+        f"{bo['launches']['waterfill']} waterfill launches, each fill within"
+        f" {WF_TOL} of the host loop (max |diff| {bo['max_abs_err']:.3g}); "
+        f"records equal to the host run's (integers exact, BW within "
+        f"{FLEET_TOL}, max |diff| {bo['max_abs_err_bw']:.3g}); {bo['s']:.3f} "
+        f"s | {smi}")
+    log(f"[faults] blackout fleet: every job spanning {BLACKOUT_DC} capped at"
+        f" 0 on its dead pairs at ticks {BLACKOUT_STEPS.start}-"
+        f"{BLACKOUT_STEPS.stop - 1} and above 0 elsewhere; the "
+        f"{len(bo['untouched_jobs'])} jobs that do not span it keep the "
+        f"budget and conns series of the run with faults off (their "
+        f"cap_min moves by up to {bo['untouched_cap_max_rel_change']:.2%} "
+        f"with the capacity probe)")
+    ob = obs_part()
+    out["obs"] = ob
+    log(f"[faults] obs.cli run {OBS_SCENARIO} --seed {PIN_SEED} on the card: "
+        f"check_run clean, {ob['spans']} spans, {ob['launches']} waterfill "
+        f"launches = {ob['fills']} fills ({ob['dead_fills']} with dead "
+        f"pairs); document equal to the host run's less span wall times "
+        f"(largest relative gap {ob['max_rel_gap']:.3g}); sle {ob['sle']}; "
+        f"{ob['s']:.3f} s | {smi}")
+    return out
+
+
+# ----------------------------------------------------------------------
 # ssd_chunk phase
 # ----------------------------------------------------------------------
 def ssd_random_inputs(B, nC, Q, H, P, N, seed, device):
@@ -2903,6 +3342,14 @@ def main() -> int:
     t0 = time.perf_counter()
     results["planes"] = planes_phase(dev, floor_ms)
     results["planes"]["s"] = time.perf_counter() - t0
+
+    # 5f. faults: the chaos library's fills through the water-fill
+    # kernel, the 16-job blackout fleet's forest through rf_predict, one
+    # obs run on the card
+    t0 = time.perf_counter()
+    results["faults"] = faults_phase(paper, dev, floor_ms, smi)
+    results["faults"]["s"] = time.perf_counter() - t0
+    log(f"[faults] phase {results['faults']['s']:.2f} s")
 
     # 6. ssd_chunk: kernel vs plain; the serve model's layer-0 inputs
     cfg = get_config(ARCH)

@@ -29,9 +29,8 @@ controller owns it once, shared by training, serving, and planning:
 
 Port of `repro/control/controller.py`. The loop is host numpy, as in
 the JAX package, so replans are bit-identical, the overlay's routed
-plan (``overlay="on"``) and the lifecycle's prediction clamp included.
-Not yet ported, and raising `NotImplementedError`: an attached fault
-plane.
+plan (``overlay="on"``), the lifecycle's prediction clamp and an
+attached fault plane's capture and prediction hooks included.
 """
 from __future__ import annotations
 
@@ -147,7 +146,10 @@ class WanifyController:
         self.tracer = NULL_TRACER
         self.last_pred: Optional[np.ndarray] = None
         self.envelope = envelope     # arbitrated budget (None = own M)
-        self._faults: Optional[Any] = None
+        # fault plane (repro_torch.faults): when an engine attaches one,
+        # replan captures/predictions route through its degradation
+        # ladder; None (default) runs no fault code at all
+        self.faults: Optional[Any] = None
         self._prev_plan: Optional[WanPlan] = None
         self._agents: Optional[List[AimdAgent]] = None
         self._ewma: Optional[float] = None
@@ -207,15 +209,32 @@ class WanifyController:
         # planner's achievable-BW pricing) scale from this operating
         # point via the paper's BW-grows-linearly-with-conns claim
         self.last_capture_conns = conns
+        pred_override = None
         if capture is None:
             with tr.span("snapshot"):
-                _, capture = self.monitor.capture(conns)
+                if self.faults is not None:
+                    # the fault boundary: injected probe faults /
+                    # monitor outages surface here; graceful mode
+                    # climbs the retry/staleness ladder and may hand
+                    # back a prediction override (the SnapshotPredictor
+                    # rung) when the capture is too stale to trust
+                    capture, pred_override = self.faults.captured(
+                        self.monitor, conns)
+                else:
+                    _, capture = self.monitor.capture(conns)
         raw = capture
         if pred is None:
-            with tr.span("predict"):
-                pred = self.predictor.predict_matrix(
-                    self.sim.N, raw["snapshot_bw"], raw["mem_util"],
-                    raw["cpu_load"], raw["retrans"], raw["dist"])
+            if pred_override is not None:
+                pred = pred_override
+            else:
+                with tr.span("predict"):
+                    pred = self.predictor.predict_matrix(
+                        self.sim.N, raw["snapshot_bw"], raw["mem_util"],
+                        raw["cpu_load"], raw["retrans"], raw["dist"])
+            if self.faults is not None:
+                # inject any scripted predictor fault, then (graceful)
+                # quarantine poisoned rows before they reach the solver
+                pred = self.faults.predicted(pred, raw["snapshot_bw"])
         if self.lifecycle is not None:
             # sanity clamp: the RF may not promise BW beyond what the
             # lifecycle's windowed percentile capacity has ever seen
@@ -300,19 +319,6 @@ class WanifyController:
         P = self.n_pods
         direct[:P, :P] = np.asarray(self.routed.direct, np.float64)
         return direct, self.routed.relays
-
-    @property
-    def faults(self) -> Optional[Any]:
-        """The attached fault plane (always None: not yet ported)."""
-        return self._faults
-
-    @faults.setter
-    def faults(self, plane: Optional[Any]) -> None:
-        """Attaching a fault plane raises until the plane is ported."""
-        if plane is not None:
-            raise NotImplementedError(
-                "attaching a fault plane is not yet ported")
-        self._faults = None
 
     def rollback_plan(self, step: Optional[int] = None
                       ) -> Optional[WanPlan]:

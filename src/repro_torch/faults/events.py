@@ -7,13 +7,17 @@ zero bandwidth on every touching link, a partition makes whole groups
 mutually unreachable, a probe fault makes the measurement pipeline
 itself fail.
 
-Every fault event routes through an engine's fault plane
-(`eng.faults`). The plane is not yet ported: both engines refuse a
-timeline that scripts a fault event, with `NotImplementedError`, at
-construction (the reference builds an ungraceful plane for it). The
-classes, `FLEET_FAULT_EVENTS` and :func:`chaos_schedule` are here so
-the engines can test timelines against them, and so a storm composes
-to the reference's timeline from the same seed.
+Every fault event routes through the engine's
+:class:`~repro_torch.faults.plane.FaultPlane` (`eng.faults`); an engine
+whose timeline scripts a fault event constructs a plane automatically
+even under ``REPRO_FAULTS=off`` — an *ungraceful* one, so the off gate
+doubles as the naive-crash ablation the chaos harness compares
+against. Timelines without fault events under the off gate get no
+plane at all and replay byte-identical.
+
+:func:`chaos_schedule` composes a deterministic storm of these events
+from a seed, for soak-style chaos scenarios; from the same seed it
+gives the JAX package's storm.
 """
 from __future__ import annotations
 
@@ -103,8 +107,9 @@ class PartitionHeal(FaultEvent):
 @dataclass(frozen=True)
 class ProbeTimeout(FaultEvent):
     """Replan-time snapshot captures time out for `duration` steps.
-    Naive mode dies with a probe-timeout error at the next replan;
-    graceful mode climbs the retry/staleness ladder."""
+    Naive mode dies with
+    :class:`~repro_torch.faults.plane.ProbeTimeoutError` at the next
+    replan; graceful mode climbs the retry/staleness ladder."""
     duration: int
 
     def apply(self, eng) -> None:

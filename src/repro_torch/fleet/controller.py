@@ -35,9 +35,10 @@ arrival — the one-launch-per-tick invariant holds through churn.
 Port of `repro/fleet/controller.py`: the same host numpy control
 plane around the CUDA forest kernel, so tick records equal the JAX
 package's; `fused`/`run_fused` run the whole tick as tensor programs
-on the predictor's device (`fleet/fused.py`). Not yet ported, and
-raising `NotImplementedError`: the fault plane (``faults="on"`` or a
-plane object), and with it the fleet's divergence rollback.
+on the predictor's device (`fleet/fused.py`). A graceful fault plane
+quarantines dead DCs in arbitration, sanitizes each job's prediction
+and rolls every job back on a water-fill divergence, as the
+reference's does; the fused tick takes no plane.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ import numpy as np
 
 from repro_torch.control import ControllerConfig, WanifyController
 from repro_torch.core.predictor import SnapshotPredictor, matrix_from_pairs
-from repro_torch.faults.plane import faults_mode
+from repro_torch.faults.plane import FaultPlane, faults_mode
 from repro_torch.fleet import arbiter
 from repro_torch.fleet.predictor import BatchedRfPredictor
 from repro_torch.fleet.tenant import TenantView
@@ -104,9 +105,11 @@ class FleetController:
         shares at each DC; `predictor` serves every job's RF inference
         in one launch per tick. `obs` gates span tracing (repro_torch.obs;
         None defers to $REPRO_OBS, default off) — passive either way.
-        `faults` gates the fault plane (the mode resolves via
-        $REPRO_FAULTS, default off); the plane is not yet ported, so
-        ``"on"`` or a plane object raises."""
+        `faults` gates the fault plane (repro_torch.faults; a FaultPlane
+        is used as-is, else the mode resolves via $REPRO_FAULTS): when
+        graceful, blacked-out DCs are quarantined in arbitration,
+        poisoned predictions sanitized, and water-fill divergence
+        recovered by rolling every job back to its last-good plan."""
         self.sim = sim
         self.predictor = predictor
         self.m_total = int(m_total)
@@ -119,9 +122,13 @@ class FleetController:
             self.tracer = SpanTracer()
             self.tracer.watch(self.sim.metrics)
             self.tracer.watch(self.predictor.metrics)
-        if (faults is not None and not isinstance(faults, str)) \
-                or faults_mode(faults) == "on":
-            raise NotImplementedError("the fault plane is not yet ported")
+        self.faults: Optional[FaultPlane] = None
+        if isinstance(faults, FaultPlane):
+            self.faults = faults
+        elif faults_mode(faults) == "on":
+            self.faults = FaultPlane(self.sim.N, graceful=True)
+        if self.faults is not None and self.tracer.enabled:
+            self.tracer.watch(self.faults.metrics)
         for spec in jobs:
             self.add_job(spec)
 
@@ -231,8 +238,15 @@ class FleetController:
         """Compute and install one envelope per job (slice-scale cap)."""
         triples = [(j.name, j.spec.dcs, j.priority)
                    for j in self.jobs.values()]
+        reach = None
+        if self.faults is not None and self.faults.graceful:
+            # DC quarantine: dead DCs stop counting toward budget
+            # splits and dead pairs' caps go to zero, so survivors
+            # grow into the freed share while touched jobs shrink
+            reach = self.faults.reachable_mask()
         envs = arbiter.arbitrate(triples, self.sim.N, self.m_total,
-                                 self.capacity_estimate())
+                                 self.capacity_estimate(),
+                                 reachable=reach)
         sliced = {}
         for job in self.jobs.values():
             env = envs[job.name]
@@ -279,6 +293,12 @@ class FleetController:
                     for (job, _, raw), v in zip(captures, parts):
                         P = job.controller.n_pods
                         pred = matrix_from_pairs(v, P, diag=INTRA_DC_BW)
+                        if self.faults is not None and self.faults.graceful:
+                            # quarantine poisoned rows before the job's
+                            # solver sees them (raw is at slice scale —
+                            # the job's monitor wraps its TenantView)
+                            pred = self.faults.sanitize_matrix(
+                                pred, raw["snapshot_bw"])
                         job.controller.replan(
                             skew_w=job.skew(), reason="fleet",
                             step=self.tick_count, capture=raw, pred=pred)
@@ -287,10 +307,13 @@ class FleetController:
                 self._flush_planners()
             with tr.span("waterfill", delta=True):
                 try:
+                    if self.faults is not None \
+                            and self.faults.solver_failing(self.faults.step):
+                        raise WaterfillDivergence(
+                            "injected water-fill divergence (SolverFault)")
                     achieved = self.achieved()
                 except WaterfillDivergence as exc:
-                    raise WaterfillDivergence(
-                        f"{exc} (fleet tick {self.tick_count})") from exc
+                    achieved = self._recover_divergence(exc)
             for job in self.jobs.values():
                 P = job.controller.n_pods
                 off = ~np.eye(P, dtype=bool)
@@ -311,6 +334,29 @@ class FleetController:
             return {"tick": self.tick_count, "n_jobs": len(self.jobs),
                     "kernel_calls": self.predictor.kernel_calls,
                     "jobs": rows}
+
+    def _recover_divergence(self, exc: WaterfillDivergence
+                            ) -> Dict[str, np.ndarray]:
+        """Fleet-wide water-fill divergence: graceful mode rolls EVERY
+        job back to its last-known-good plan (the registered flows a
+        previous tick is known to have filled) and retries the fill
+        once; without a graceful plane the divergence propagates with
+        tick context attached."""
+        fp = self.faults
+        if fp is None or not fp.graceful:
+            raise WaterfillDivergence(
+                f"{exc} (fleet tick {self.tick_count})") from exc
+        with self.tracer.span("recover"):
+            fp.note_rollback()
+            for job in self.jobs.values():
+                job.controller.rollback_plan(step=self.tick_count)
+                job.view.register(job.controller.current_conns())
+            try:
+                return self.achieved()
+            except WaterfillDivergence as exc2:
+                raise WaterfillDivergence(
+                    f"{exc2} (fleet tick {self.tick_count}, after "
+                    f"last-known-good rollback)") from exc2
 
     def fused(self):
         """Build the CURRENT job set into a :class:`repro_torch.fleet.

@@ -15,9 +15,9 @@ Port of `repro/fleet/scenario.py`. The engine takes one argument the
 reference's does not: `device`, where the shared forest's
 `BatchedRfPredictor` runs (None = CUDA, which raises without a card;
 ``"cpu"`` = the plain version), so a fleet scenario on the card makes
-one `rf_predict` launch per tick. The fault plane is not yet ported:
-``faults`` resolving to ``on``, a plane object, or a fault event in
-the timeline raises `NotImplementedError` at construction.
+one `rf_predict` launch per tick. The fault plane is built as the
+reference's: a `FaultPlane` as is, ``on`` graceful, and a timeline with
+fault events under ``off`` the ungraceful plane.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.faults.events import FLEET_FAULT_EVENTS, FaultEvent
-from repro_torch.faults.plane import faults_mode
+from repro_torch.faults.plane import FaultPlane, faults_mode
 from repro_torch.fleet.controller import FleetController, JobSpec
 from repro_torch.fleet.predictor import (BatchedRfPredictor,
                                          default_fleet_forest)
@@ -75,26 +75,30 @@ class FleetEngine:
         """`forest`: a fitted RandomForest shared by every job's RF
         inference (defaults to the memoized small demo forest); `obs`
         gates span tracing (None defers to $REPRO_OBS, default off);
-        `faults` gates the fault plane, which is not yet ported (a
-        plane object, "on" via the argument or $REPRO_FAULTS, or a
-        timeline scripting fault events raises); `device` is where the
-        forest runs (None = CUDA, raising without a card)."""
+        `faults` gates the fault plane (a FaultPlane is used as-is,
+        else $REPRO_FAULTS — "on" = graceful; a timeline scripting
+        fault events under "off" gets the ungraceful naive ablation);
+        `device` is where the forest runs (None = CUDA, raising without
+        a card)."""
         self.spec = spec
         self.seed = int(seed)
         sim_kw = dict(spec.sim_kwargs)
         if spec.regions is not None:
             sim_kw.setdefault("regions", list(spec.regions))
         self.sim = WanSimulator(seed=self.seed, **sim_kw)
-        if (faults is not None and not isinstance(faults, str)) \
-                or faults_mode(faults) == "on" \
-                or any(isinstance(t.event, FaultEvent)
-                       for t in spec.events):
-            raise NotImplementedError("the fault plane is not yet ported")
+        if not isinstance(faults, FaultPlane):
+            mode = faults_mode(faults)
+            if mode == "on" or any(isinstance(t.event, FaultEvent)
+                                   for t in spec.events):
+                faults = FaultPlane(self.sim.N, graceful=(mode == "on"),
+                                    seed=self.seed)
+            else:
+                faults = None
         self.fleet = FleetController(
             self.sim, BatchedRfPredictor(forest or default_fleet_forest(),
                                          device=device),
-            m_total=spec.m_total, jobs=spec.jobs, obs=obs)
-        self.faults = None
+            m_total=spec.m_total, jobs=spec.jobs, obs=obs, faults=faults)
+        self.faults = self.fleet.faults
         self.tracer = self.fleet.tracer
         # a per-tick tap for harnesses: called as
         # step_hook(engine, fleet_step_trace_row) after each row is
@@ -152,6 +156,8 @@ class FleetEngine:
         trace = FleetTrace(self.spec.name, self.seed)
         for k in range(self.spec.steps):
             self.step = k
+            if self.faults is not None:
+                self.faults.step = k     # fault windows key on loop time
             due = self._timeline.get(k, ())
             applied = tuple(t.event.describe() for t in due)
             for t in due:

@@ -33,10 +33,11 @@ forest runs as one `rf_predict` launch, and with
 `WanSimulator.waterfill_routed` (one fill, on ``"cuda"`` one launch);
 the predictor lifecycle (``lifecycle="on"`` or a `LifecycleManager`)
 ticks before each trace row is cut, its observation one `rf_predict`
-launch with a `BwPredictor` on the card. Not yet ported, and raising
-`NotImplementedError` at construction: the fault plane (``faults``
-resolving to ``on``, a plane object, or any fault event in the
-timeline, for which the reference builds an ungraceful plane).
+launch with a `BwPredictor` on the card. The fault plane (``faults``:
+a `FaultPlane`, ``on``, or fault events in the timeline, which build
+the ungraceful plane) injects and degrades as the reference's does; its
+reachability mask zeroes dead links, which the fill sees as pairs of
+zero capacity.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ import numpy as np
 
 from repro_torch.control import ControllerConfig, WanifyController
 from repro_torch.core.predictor import SnapshotPredictor
-from repro_torch.faults.plane import faults_mode
+from repro_torch.faults.plane import FaultPlane, faults_mode
 from repro_torch.lifecycle.manager import LifecycleManager, lifecycle_mode
 from repro_torch.obs.spans import NULL_TRACER, SpanTracer, obs_mode
 from repro_torch.scenarios.events import Timed
@@ -99,20 +100,6 @@ class ScenarioEngine:
             self.lifecycle = lifecycle
         elif lifecycle_mode(lifecycle) == "on":
             self.lifecycle = LifecycleManager(pred_obj, self.sim.N)
-        # `faults` gates the fault plane: a plane object, a mode
-        # resolving (via $REPRO_FAULTS) to "on", or a timeline that
-        # scripts fault events (the reference's ungraceful plane) is
-        # not yet ported; off with no fault events means no plane.
-        # FaultEvent is imported lazily: faults.events subclasses the
-        # event DSL of this package, so a module-level import would be
-        # circular through repro_torch.scenarios.__init__
-        from repro_torch.faults.events import FaultEvent
-        if (faults is not None and not isinstance(faults, str)) \
-                or faults_mode(faults) == "on" \
-                or any(isinstance(t.event, FaultEvent)
-                       for t in spec.events):
-            raise NotImplementedError("the fault plane is not yet ported")
-        self.faults = None
         # `overlay` gates Terra-style relay routing (None defers to
         # $REPRO_OVERLAY, default off): when on, the workload executes
         # at the controller's routed lowering — relay flows charged on
@@ -135,6 +122,33 @@ class ScenarioEngine:
                 self.tracer.watch(self.lifecycle.metrics)
                 self.tracer.watch(self.lifecycle.scheduler.metrics)
             self.controller.tracer = self.tracer
+        # `faults` gates the fault plane (repro_torch.faults): a ready
+        # FaultPlane is used as-is; a mode string / None resolves via
+        # $REPRO_FAULTS. "on" builds a graceful plane (the degradation
+        # ladder). Under "off" a timeline that scripts fault events
+        # still gets a plane — an UNGRACEFUL one (raw injection, no
+        # ladder): the naive-crash ablation the chaos harness compares
+        # against. Off + no fault events = no plane, no fault code,
+        # byte-identical replays.
+        self.faults: Optional[FaultPlane] = None
+        if isinstance(faults, FaultPlane):
+            self.faults = faults
+        else:
+            # imported lazily: faults.events subclasses the event DSL
+            # of this package, so a module-level import would be
+            # circular through repro_torch.scenarios.__init__
+            from repro_torch.faults.events import FaultEvent
+            mode = faults_mode(faults)
+            if mode == "on" or any(isinstance(t.event, FaultEvent)
+                                   for t in spec.events):
+                self.faults = FaultPlane(self.sim.N,
+                                         graceful=(mode == "on"),
+                                         seed=self.seed)
+        if self.faults is not None:
+            self.controller.faults = self.faults
+            if self.tracer is not NULL_TRACER:
+                self.tracer.watch(self.faults.metrics)
+        self._last_achieved: Optional[np.ndarray] = None
         self.step = 0
         # a per-step tap for ride-along harnesses (repro_torch.placement):
         # called as step_hook(engine, step_trace_row) after each step's
@@ -224,12 +238,31 @@ class ScenarioEngine:
                 self._skew_ramp = None
 
     def _recover_divergence(self, k: int,
-                            exc: WaterfillDivergence) -> None:
-        """Water-fill divergence at step `k`: without a graceful fault
-        plane (the only case while the fault plane is unported) the
-        divergence propagates with scenario/step context attached."""
-        raise WaterfillDivergence(
-            f"{exc} (scenario {self.spec.name!r}, step {k})") from exc
+                            exc: WaterfillDivergence) -> np.ndarray:
+        """Water-fill divergence at step `k`: graceful mode rolls the
+        controller back to the last-known-good plan (fault-plane rung
+        5) and retries; without a graceful plane the divergence
+        propagates with scenario/step context attached."""
+        fp = self.faults
+        if fp is None or not fp.graceful:
+            raise WaterfillDivergence(
+                f"{exc} (scenario {self.spec.name!r}, step {k})") from exc
+        ctl = self.controller
+        with self.tracer.span("recover"):
+            fp.note_rollback()
+            ctl.rollback_plan(step=k)
+            if not fp.solver_failing(k):
+                # a genuine divergence: the rolled-back plan is known
+                # to have executed — retry the fill on it
+                try:
+                    return self.sim.waterfill(self._full_conns())
+                except WaterfillDivergence:
+                    pass
+            # solver still down (or the retry failed): freeze at the
+            # last achieved surface — degraded, but alive
+            if self._last_achieved is not None:
+                return np.array(self._last_achieved, copy=True)
+            return np.zeros((self.sim.N, self.sim.N))
 
     def run(self) -> ScenarioResult:
         """Drive the timeline to completion and return the trace."""
@@ -240,6 +273,8 @@ class ScenarioEngine:
         ctl.compiled((self.spec.name,), lambda p: p.signature())
         for k in range(self.spec.steps):
             self.step = k
+            if self.faults is not None:
+                self.faults.step = k     # fault windows key on loop time
             with tr.span("events"):
                 applied = tuple(t.event.describe()
                                 for t in self._timeline.get(k, ()))
@@ -252,6 +287,10 @@ class ScenarioEngine:
                 conns = self._full_conns()
                 routing = ctl.current_routing()
                 try:
+                    if self.faults is not None \
+                            and self.faults.solver_failing(k):
+                        raise WaterfillDivergence(
+                            "injected water-fill divergence (SolverFault)")
                     if routing is None:
                         achieved = sim.waterfill(conns)
                     else:
@@ -260,7 +299,9 @@ class ScenarioEngine:
                         # what the ring consumer observes
                         achieved = sim.waterfill_routed(*routing)
                 except WaterfillDivergence as exc:
-                    self._recover_divergence(k, exc)
+                    achieved = self._recover_divergence(k, exc)
+                    conns = self._full_conns()   # rollback changed them
+            self._last_achieved = achieved
             with tr.span("control", delta=True):
                 dt = self._step_time(achieved)
                 ctl.observe_step_time(dt, step=k)
@@ -272,18 +313,26 @@ class ScenarioEngine:
 
             # sampled at the same matrix as `achieved`, so in a quiet
             # scenario monitored == achieved exactly, replan step or not
+            meas_ok = True
             with tr.span("measure"):
-                monitored = ctl.monitor.measure(conns)
+                if self.faults is not None:
+                    # the fault boundary: a monitor outage serves the
+                    # last pre-outage sample, frozen, with ok=False so
+                    # downstream learners skip the fossil tick
+                    monitored, meas_ok = self.faults.measured(
+                        ctl.monitor, conns)
+                else:
+                    monitored = ctl.monitor.measure(conns)
             if self.lifecycle is not None:
                 # lifecycle tick before the trace row is cut, so a
                 # drift-triggered refresh replan lands in this step's
                 # `replans` (and its prediction in this step's columns);
                 # read here, at tick time, so a manager attached after
-                # construction (the harness's shadow harvest) ticks too.
-                # Without a fault plane every measurement is live.
+                # construction (the harness's shadow harvest) ticks too
                 with tr.span("lifecycle", delta=True):
                     self.lifecycle.tick(k, ctl, sim, conns, achieved,
-                                        monitored, measurement_ok=True)
+                                        monitored,
+                                        measurement_ok=meas_ok)
             P = ctl.n_pods
             off = ~np.eye(P, dtype=bool)
             pred = ctl.last_pred[:P, :P]

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor the reference
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
-not yet ported raises `NotImplementedError` (the overlay and the
-predictor lifecycle are ported: their gates construct and run)."""
+not yet ported raises `NotImplementedError` (now only the model side:
+the overlay, the predictor lifecycle and the fault plane are ported,
+and their gates construct and run)."""
 import ast
 import os
 import subprocess
@@ -18,6 +19,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.control import BudgetEnvelope, WanifyController
 from repro_torch.core.forest import RandomForest
 from repro_torch.core.predictor import BwPredictor, SnapshotPredictor
+from repro_torch.faults import FaultPlane, ProbeTimeoutError
 from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
@@ -64,7 +66,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.placement.scenario", "repro_torch.overlay.routing",
             "repro_torch.lifecycle.drift", "repro_torch.lifecycle.harness",
             "repro_torch.lifecycle.probes", "repro_torch.lifecycle.refresh",
-            "repro_torch.lifecycle.window"} <= mods
+            "repro_torch.lifecycle.window", "repro_torch.faults.plane",
+            "repro_torch.faults.scenarios", "repro_torch.faults.harness",
+            "repro_torch.obs.sle", "repro_torch.obs.export",
+            "repro_torch.obs.cli"} <= mods
 
 
 def _imports(path):
@@ -160,8 +165,9 @@ def _controller(**kw):
 
 
 def test_controller_gates_not_yet_ported(monkeypatch):
-    """The fault plane stays gated; the overlay and a lifecycle manager
-    are ported: they construct, route and clamp."""
+    """The overlay, a lifecycle manager and a fault plane are ported:
+    they construct, route, clamp and degrade; the model side's gates
+    still raise."""
     ctl = _controller(overlay="on")
     assert ctl.routed is not None and ctl.record[-1]["overlay"] == "on"
     assert ctl.record[-1]["relays"] == ctl.routed.relays
@@ -172,9 +178,24 @@ def test_controller_gates_not_yet_ported(monkeypatch):
     assert ctl.last_pred[0, 1] <= 15.0          # clamped: 1.5 x capacity
     ctl = _controller(envelope=BudgetEnvelope(max_conns=4))
     assert ctl.faults is None and ctl.routed is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ctl.faults = object()
+    naive = FaultPlane(8, graceful=False)
+    ctl.faults = naive
+    assert ctl.faults is naive
+    naive.probe_fault("timeout", 2)
+    with pytest.raises(ProbeTimeoutError, match="timed out at step 0"):
+        ctl.replan(reason="explicit")
+    graceful = FaultPlane(8, graceful=True)
+    ctl.faults = graceful
+    ctl.replan(reason="explicit")             # clean: remembered
+    graceful.step = 1
+    graceful.probe_fault("timeout", 2)
+    graceful.predictor_fault(2, kind="nan", rows=2)
+    ctl.replan(reason="explicit")             # stale capture, quarantined
+    assert np.isfinite(ctl.last_pred).all() and graceful.retry_usd > 0.0
+    assert graceful.metrics.counters()["rows_quarantined"] >= 1
     ctl.faults = None
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_config("llama3-8b")
     monkeypatch.setenv("REPRO_OVERLAY", "on")
     assert _controller().overlay == "on"
     with pytest.raises(ValueError, match="unknown overlay"):
@@ -189,18 +210,26 @@ def _fleet(**kw):
 
 
 def test_fleet_gates_not_yet_ported(monkeypatch):
-    """The fault plane stays gated; placement planners and the fused
-    tick are ported (`tests/test_torch_placement.py`,
-    `tests/test_torch_fused.py`)."""
-    for faults in ("on", object()):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _fleet(faults=faults)
+    """The fault plane, placement planners and the fused tick are ported
+    (`tests/test_torch_faults.py`, `tests/test_torch_placement.py`,
+    `tests/test_torch_fused.py`): a plane constructs, graceful or naive,
+    and ticks; the model side's gates still raise."""
+    fleet = _fleet(faults="on")
+    assert fleet.faults is not None and fleet.faults.graceful
+    assert fleet.tick()["n_jobs"] == 1
+    naive = FaultPlane(8, graceful=False)
+    assert _fleet(faults=naive).faults is naive
+    with pytest.raises(ValueError, match="unknown faults mode"):
+        _fleet(faults=object())
     fleet = _fleet(faults="off")
+    assert fleet.faults is None
     with pytest.raises(ValueError, match="snapshot_sigma"):
         fleet.fused()                 # ported: the noisy sim is refused
     monkeypatch.setenv("REPRO_FAULTS", "on")
+    assert _fleet().faults.graceful
+    dense = _tiny_cfg().replace(family="dense")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        _fleet()
+        registry.build_model(dense, torch.Generator(), device="cpu")
 
 
 def test_waterfill_backends_dispatch_without_jax(monkeypatch):
@@ -369,6 +398,25 @@ def test_plane_modules_import_no_jax_and_no_reference(module):
 def test_fused_and_placement_modules_import_no_jax_and_no_reference(module):
     """Each module of the fused tick's and placement's path, on its
     own, pulls in neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.faults", "repro_torch.faults.plane",
+    "repro_torch.faults.scenarios", "repro_torch.faults.harness",
+    "repro_torch.obs", "repro_torch.obs.sle", "repro_torch.obs.export",
+    "repro_torch.obs.cli"])
+def test_fault_and_obs_modules_import_no_jax_and_no_reference(module):
+    """Each module of the fault plane and the obs exports, on its own,
+    pulls in neither jax nor the reference package."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "

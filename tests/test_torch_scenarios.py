@@ -10,9 +10,9 @@
   than 3.
 * The behavioural tests of `tests/test_scenarios.py` that hold with
   the overlay off, on the port's engine, and the gates: the fault
-  plane's raise "not yet ported", the overlay's and the lifecycle's
-  run (their planes are tested in `tests/test_torch_overlay.py` and
-  `tests/test_torch_lifecycle.py`).
+  plane's, the overlay's and the lifecycle's construct and run (their
+  planes are tested in `tests/test_torch_faults.py`,
+  `tests/test_torch_overlay.py` and `tests/test_torch_lifecycle.py`).
 
 The reference fleet imports `jax.experimental.enable_x64`, which jax
 0.9 dropped; the `ref_fleet` fixture installs a stand-in only when it
@@ -28,7 +28,8 @@ import torch
 import repro_torch.fleet as fleet
 import repro_torch.scenarios as sc
 from repro_torch.faults import (FLEET_FAULT_EVENTS, DcBlackout, DcRestore,
-                                ProbeTimeout, SolverFault, chaos_schedule)
+                                FaultPlane, ProbeTimeout, SolverFault,
+                                chaos_schedule)
 from repro_torch.fleet import (FleetEngine, FleetScenarioSpec, JobSpec,
                                get_fleet_scenario, run_fleet_scenario)
 from repro_torch.scenarios import (ScenarioEngine, at, flap, get_scenario,
@@ -417,7 +418,7 @@ def test_controller_plan_cache_and_trace_hooks():
 
 
 # ----------------------------------------------------------------------
-# fleet timelines and the gates not yet ported
+# fleet timelines and the gates
 # ----------------------------------------------------------------------
 def _two_jobs():
     return (JobSpec("a", (0, 1, 2)), JobSpec("b", (0, 1, 3)))
@@ -440,20 +441,23 @@ def test_fleet_timeline_rejects_single_job_events():
 
 
 def test_scenario_gates_not_yet_ported(monkeypatch):
-    """The fault plane stays gated (a mode, a plane object, or a fault
-    event in the timeline); the overlay and the lifecycle are ported:
-    their gates, and their environment variables, construct and run."""
+    """The fault plane, the overlay and the lifecycle are ported: their
+    gates, and their environment variables, construct and run. A fault
+    mode or a plane object builds the reference's plane, and fault
+    events under the off gate the ungraceful one."""
     spec = dataclasses.replace(get_scenario("steady"), steps=3)
-    for kw in (dict(faults="on"), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ScenarioEngine(spec, seed=0, **kw)
+    eng = ScenarioEngine(spec, seed=0, faults="on")
+    assert eng.faults.graceful and eng.controller.faults is eng.faults
+    plane = FaultPlane(8, graceful=False)
+    assert ScenarioEngine(spec, seed=0, faults=plane).faults is plane
+    with pytest.raises(ValueError, match="unknown faults mode"):
+        ScenarioEngine(spec, seed=0, faults=object())
     for events in ((at(3, SolverFault(1)),), (at(2, ProbeTimeout(3)),)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ScenarioEngine(dataclasses.replace(spec, events=events))
+        eng = ScenarioEngine(dataclasses.replace(spec, events=events))
+        assert eng.faults is not None and not eng.faults.graceful
     with monkeypatch.context() as m:
         m.setenv("REPRO_FAULTS", "on")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            run_scenario(spec)
+        assert len(run_scenario(spec).trace.steps) == spec.steps
     eng = ScenarioEngine(spec, seed=0, overlay="on", lifecycle="on")
     assert eng.controller.overlay == "on"
     assert eng.controller.lifecycle is eng.lifecycle is not None
@@ -473,17 +477,23 @@ def test_scenario_gates_not_yet_ported(monkeypatch):
 
 
 def test_fleet_gates_not_yet_ported(monkeypatch):
+    """The fleet's fault gate is ported: "on" builds the graceful plane,
+    a plane object is used as is, reachability events under the off
+    gate build the ungraceful one, and $REPRO_FAULTS=on runs."""
     spec = get_fleet_scenario("fleet_steady")
-    for faults in ("on", object()):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            FleetEngine(spec, faults=faults, device="cpu")
+    eng = FleetEngine(spec, faults="on", device="cpu")
+    assert eng.faults.graceful and eng.fleet.faults is eng.faults
+    plane = FaultPlane(8, graceful=False)
+    assert FleetEngine(spec, faults=plane, device="cpu").faults is plane
+    with pytest.raises(ValueError, match="unknown faults mode"):
+        FleetEngine(spec, faults=object(), device="cpu")
     cut = dataclasses.replace(spec, events=(at(2, DcBlackout("ap-se")),
                                             at(4, DcRestore("ap-se"))))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetEngine(cut, device="cpu")
+    eng = FleetEngine(cut, device="cpu")
+    assert eng.faults is not None and not eng.faults.graceful
+    assert len(eng.run().trace.steps) == spec.steps
     monkeypatch.setenv("REPRO_FAULTS", "on")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_fleet_scenario(spec, device="cpu")
+    assert run_fleet_scenario(spec, device="cpu").trace.steps
 
 
 def test_fleet_scenario_defaults_to_cuda_and_raises_without_it(
