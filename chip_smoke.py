@@ -216,6 +216,40 @@ Every phase is fatal: a failure exits non-zero before the result line.
    twice; launches equal to the schedule's; peak device memory. Then
    the largest leaf's compressed call under `torch.profiler`: the parts
    are read in place, so no copy kernel runs right before a quantize.
+12. dense  — the dense attention family, after the mamba engine and the
+   gradient tree are freed:
+   (1) the slice's main path: `llama3-8b` at its full width and depth
+   (32 layers, d 4096, 32 query / 8 KV heads, d_ff 14336, vocab
+   128,256; bf16 compute, f32 params, weights from a `torch.Generator`
+   seeded 0) behind `Engine(..., ServeConfig(batch=4, s_max=1024))`
+   with a `WanifyController` on the paper forest: `replan()` and its
+   schedule, then the serve phase's 8 requests (two prefills, 32
+   decode steps). Counts zeroed just before and read just after:
+   exactly 2 x 32 + 32 x 32 = 1,088 `silu_gate` launches (the SwiGLU
+   gate, one a layer a step), 1 `rf_predict`, 0 `ssd_chunk`, 0 `silu`;
+   every id in [0, vocab), every logit finite; prefill ms per group,
+   decode ms per step, tokens/s, peak memory; group 1's prefill and 4
+   decode steps again under `torch.profiler` (CPU and CUDA activity,
+   the attention core in a `record_function` range) for the device
+   time by kind (matrix products, of which inside the attention core;
+   the attention core's plain ops; `silu_gate`; the rest), kernels a
+   decode step and the busy share; the silu_gate kernel (value only:
+   the MLP reads no f32 product) against its plain version on layer
+   0's MLP inputs of both prefills and a decode step, bit-equal, timed
+   beside its bound (6 bytes an element in bf16);
+   (2) parity: `llama3-8b`, `qwen3-4b` and `h2o-danube-1.8b` at full
+   width, 2 layers, f32, on the card and on the host with the same
+   weights: prefill (group 1's prompts, drawn from each arch's
+   vocabulary) and 4 decode steps within atol/rtol 1e-3, equal ids
+   wherever the top-2 gap exceeds that;
+   (3) the port's attention core at group 1's prefill shape
+   (`flash_attention`, B=4, 32 heads expanded from 8, S = the longest
+   prompt, D=128, bf16) and at a decode step's (`decode_attention` over
+   the 1,024-slot cache) beside `F.scaled_dot_product_attention` on the
+   same inputs (causal / the validity mask, heads expanded): device ms
+   of each, the largest difference (each output row within 2^-5 of
+   its max |out|), the bound (bytes, k and v at their 8 KV heads; the
+   products at the bf16 tensor-core rate).
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -275,9 +309,11 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_gate_ref, silu_ref, ssd_chunk_ref)
+from repro_torch.models import attention as att  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
-from repro_torch.models.transformer import (MambaLM, stack_cache,  # noqa: E402
-                                            unstack_cache)
+from repro_torch.models.transformer import (DenseLM, MambaLM,  # noqa: E402
+                                            stack_cache, unstack_cache)
 from repro_torch.obs import check_run  # noqa: E402
 from repro_torch.obs import cli as obs_cli  # noqa: E402
 from repro_torch.obs import load as obs_load  # noqa: E402
@@ -2343,28 +2379,48 @@ def _copy_laid_out(t: torch.Tensor) -> torch.Tensor:
 GATED_OPS = ("ssd_chunk", "silu", "silu_gate")
 
 
-def capture_layer0(step):
-    """Run `step` (an engine's prefill or decode step) and return the
-    inputs of its first call of each of GATED_OPS (layer 0's) that it
-    makes, copied in their layouts; `ssm` sees a capturing `ops`
-    meanwhile."""
-    seen = {}
-
-    def capturing(name):
-        fn = getattr(ops, name)
-
-        def call(*args):
-            if name not in seen:
-                seen[name] = tuple(_copy_laid_out(t) for t in args)
-            return fn(*args)
-        return call
-
-    ssm.ops = types.SimpleNamespace(**{n: capturing(n) for n in GATED_OPS})
+@contextlib.contextmanager
+def patched(module, wrap, names):
+    """module.<name> replaced by wrap(name, fn) for each name, restored
+    after (callers inside the module look the names up at call time)."""
+    saved = {n: getattr(module, n) for n in names}
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
     try:
-        step()
+        yield
     finally:
-        ssm.ops = ops
-    return seen
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def first_calls(seen: dict):
+    """A `patched` wrapper keeping the first call's (args, kwargs) of
+    each name in `seen` (tensors copied in their layouts)."""
+    def wrap(name, fn):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = (tuple(_copy_laid_out(a) if isinstance(
+                    a, torch.Tensor) else a for a in args), dict(kw))
+            return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def gated_ops(wrap):
+    """A `patched` wrapper for a module's `ops`: a namespace holding
+    wrap(name, ops.<name>) for each of GATED_OPS."""
+    return lambda _, mod: types.SimpleNamespace(
+        **{n: wrap(n, getattr(mod, n)) for n in GATED_OPS})
+
+
+def capture_layer0(step):
+    """Run `step` (the SSM engine's prefill or decode step) and return
+    the positional inputs of its first call of each of GATED_OPS (layer
+    0's) that it makes, copied in their layouts."""
+    seen = {}
+    with patched(ssm, gated_ops(first_calls(seen)), ("ops",)):
+        step()
+    return {n: args for n, (args, _) in seen.items()}
 
 
 # ----------------------------------------------------------------------
@@ -2470,15 +2526,28 @@ def check_parity(card: Engine, host: Engine, tokens: np.ndarray,
 SILU_PLAIN = {"silu": silu_ref, "silu_gate": silu_gate_ref}
 
 
-def check_silu(name: str, args) -> float:
+def value_only(name: str, kw: dict) -> bool:
+    """Whether the call stores `silu_gate`'s value only (the dense
+    MLP's `with_prod=False`)."""
+    return name == "silu_gate" and not kw.get("with_prod", True)
+
+
+def check_silu(name: str, args, kw=None) -> float:
     """The silu kernel `name` (on the CPU: the wrapper's plain path) vs
     its plain version on the same inputs: every output bit-equal,
-    finite, of the input's shape. Returns max |diff| (0)."""
-    got = getattr(ops, name)(*args)
+    finite, of the input's shape (`kw`: the wrapper's keywords; a
+    value-only call is held to the plain value). Returns max |diff|
+    (0)."""
+    kw = kw or {}
+    got = getattr(ops, name)(*args, **kw)
     want = SILU_PLAIN[name](*args)
     sync(args[0].device)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    if value_only(name, kw):
+        if got[1] is not None:
+            raise AssertionError(f"{name} with {kw} returned a product")
+        got, want = got[:1], want[:1]
     err = 0.0
     for g, w in zip(got, want):
         g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
@@ -2490,14 +2559,17 @@ def check_silu(name: str, args) -> float:
     return err
 
 
-def silu_bound(name: str, args):
+def silu_bound(name: str, args, kw=None):
     """(ms, bound_by, bytes, ops): each input read once and each output
     written once (silu: x in, x's dtype out; silu_gate: y and z in, y's
-    dtype and f32 out), against the f32 operations (exp, add, divide,
-    multiply a silu, the gate's product one more)."""
+    dtype and f32 out, or y's dtype only for a value-only call), against
+    the f32 operations (exp, add, divide, multiply a silu, the gate's
+    product one more)."""
     n, e = args[0].numel(), args[0].element_size()
     if name == "silu":
         nbytes, nops = 2 * n * e, 4 * n
+    elif value_only(name, kw or {}):
+        nbytes, nops = 3 * n * e, 5 * n
     else:
         nbytes, nops = n * (3 * e + 4), 5 * n
     return roofline(nbytes, nops) + (nbytes, nops)
@@ -2518,18 +2590,21 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def time_silu(name: str, args) -> dict:
-    """Device ms of the wrapper's call (one launch) beside the plain
-    version and the bound, and the host's issue time of each."""
-    bound_ms, by, nbytes, nops = silu_bound(name, args)
+def time_silu(name: str, args, kw=None) -> dict:
+    """Device ms of the wrapper's call (one launch; `kw` its keywords)
+    beside the plain version and the bound, and the host's issue time of
+    each."""
+    kw = kw or {}
+    bound_ms, by, nbytes, nops = silu_bound(name, args, kw)
     fn, plain = getattr(ops, name), SILU_PLAIN[name]
     return {"shape": list(args[0].shape), "strides": [
                 list(t.stride()) for t in args],
             "dtype": str(args[0].dtype).replace("torch.", ""),
-            "ms": graph_ms(lambda: fn(*args), launches=20, reps=11),
-            "wrapper_ms": call_ms(lambda: fn(*args)),
+            "value_only": value_only(name, kw),
+            "ms": graph_ms(lambda: fn(*args, **kw), launches=20, reps=11),
+            "wrapper_ms": call_ms(lambda: fn(*args, **kw)),
             "plain_ms": call_ms(lambda: plain(*args)),
-            "host_us": host_us(lambda: fn(*args)),
+            "host_us": host_us(lambda: fn(*args, **kw)),
             "plain_host_us": host_us(lambda: plain(*args)),
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
             "ops": nops}
@@ -3024,6 +3099,368 @@ def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
         raise AssertionError(f"wansync launches {res['launches']}, "
                              f"expected {res['expected_launches']}")
     return res
+
+
+# ----------------------------------------------------------------------
+# dense phase
+# ----------------------------------------------------------------------
+DENSE_ARCH = "llama3-8b"
+DENSE_ARCHS = ("llama3-8b", "qwen3-4b", "h2o-danube-1.8b")
+DENSE_COUNTED = ("silu_gate", "rf_predict", "ssd_chunk", "silu")
+ATTN_CORE = ("flash_attention", "swa_attention", "decode_attention")
+ATTN_LABEL = "attention_core"
+MATMUL_KEYS = ("nvjet", "gemm", "gemv", "cutlass", "xmma", "cublas")
+# the port against SDPA: both bf16 attention, p rounded to bf16 at other
+# points and the sums in another order; each output row (over D) within
+# 2^-5 of the row's max |out| (4 bf16 ulps at the least; a key masked
+# wrongly or a scale 5% off moves some row by more)
+SDPA_TOL = 2.0 ** -5
+
+
+def dense_capture(step) -> dict:
+    """Run `step` (a dense engine's prefill or decode) and return the
+    first call's inputs of `silu_gate` (layer 0's) and of the attention
+    core (`flash_attention` / `decode_attention`)."""
+    seen = {}
+    record = first_calls(seen)
+    with patched(att, record, ATTN_CORE), \
+            patched(model_layers, gated_ops(record), ("ops",)):
+        step()
+    return seen
+
+
+def dense_profile(fn) -> dict:
+    """Run `fn` under `torch.profiler` (CPU and CUDA activity), the
+    attention core (`ATTN_CORE`) inside a `record_function` range, and
+    return the device ms by kind: `silu_gate`, matrix products (cuBLAS /
+    CUTLASS names; of which inside the attention core), the attention
+    core's other kernels (its masks, exp, max, sums: the plain ops), and
+    the rest; the kernels run; the five longest by total time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotate(name, f):
+        def call(*a, **k):
+            with record_function(ATTN_LABEL):
+                return f(*a, **k)
+        return call
+
+    with patched(att, annotate, ATTN_CORE), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def is_matmul(name):
+        return any(k in name.lower() for k in MATMUL_KEYS)
+
+    total = silu = matmul = 0.0
+    n_kernels, by_name = 0, {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or \
+                e.name == ATTN_LABEL:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        total += ms
+        n_kernels += 1
+        silu += ms if "silu_gate" in e.name else 0.0
+        matmul += ms if is_matmul(e.name) else 0.0
+        ms0, n0 = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (ms0 + ms, n0 + 1)
+    # kernels launched inside the attention core: those of every CPU op
+    # under an annotation (each op once)
+    attn_mm = attn_plain = 0.0
+    seen, stack = set(), [e for e in events if e.name == ATTN_LABEL and
+                          e.device_type == torch.autograd.DeviceType.CPU]
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        for k in e.kernels:
+            if is_matmul(k.name):
+                attn_mm += k.duration / 1e3
+            else:
+                attn_plain += k.duration / 1e3
+        stack.extend(e.cpu_children)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"device_ms": total, "kernels": n_kernels, "by_kind": {
+        "matmul": matmul, "matmul_in_attention": attn_mm,
+        "attention_plain": attn_plain, "silu_gate": silu,
+        "rest": total - matmul - attn_plain - silu},
+        "attention_ranges": sum(1 for e in events if e.name == ATTN_LABEL and
+                                e.device_type ==
+                                torch.autograd.DeviceType.CPU),
+        "top": [{"ms": ms, "count": n, "name": k} for k, (ms, n) in top]}
+
+
+def attention_bound(B: int, H: int, Sq: int, Sk_used: int, D: int,
+                    nbytes: int):
+    """(ms, bound_by, bytes, ops) of attention over Sk_used keys a query
+    (the causal half where the mask asks for it): QK^T and PV at 2 ops a
+    multiply-add each, at the bf16 tensor-core rate; `nbytes` the inputs
+    read once (k and v at their KV heads) and the output written
+    once."""
+    nops = 4 * B * H * D * Sq * Sk_used
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_TC_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, nops)
+
+
+def sdpa_diff(port: torch.Tensor, lib: torch.Tensor, what: str):
+    """(max |port - lib|, max |lib|, the largest row error over the
+    row's max |lib|, a row being the last dim); raises where that row
+    error is above SDPA_TOL or not finite."""
+    diff = (port.float() - lib.float()).abs()
+    row_mag = lib.float().abs().amax(-1)
+    rel = float((diff.amax(-1) / row_mag.clamp_min(1e-30)).max())
+    err, mag = float(diff.max()), float(row_mag.max())
+    if not (np.isfinite(rel) and rel <= SDPA_TOL):
+        raise AssertionError(f"{what} attention: port vs SDPA, a row off "
+                             f"by {rel:.4g} of its max |out| (max |diff| "
+                             f"{err:.4g}, max |out| {mag:.4g})")
+    return err, mag, rel
+
+
+def time_attention(cap: dict, kv_heads: int) -> dict:
+    """The port's attention core at the captured shapes (group 1's
+    prefill: `flash_attention` on the heads expanded from `kv_heads`; a
+    decode step: `decode_attention` over the cache) against
+    `F.scaled_dot_product_attention` on the same inputs (causal, or the
+    decode step's validity mask; heads expanded): device ms of each, the
+    differences, the bound."""
+    out = {}
+    (q, k, v), kw = cap["flash_attention"]
+    B, H, _, S, D = q.shape
+    port = att.flash_attention(q, k, v, **kw)[:, :, 0]
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, 0], k, v, is_causal=True)
+    err, mag, rel = sdpa_diff(port, lib, "prefill")
+    nbytes = 2 * (B * H + B * kv_heads) * S * D * q.element_size()
+    bms, by, nb, nops = attention_bound(B, H, S, (S + 1) / 2, D, nbytes)
+    out["prefill"] = {
+        "shape": [B, H, S, D], "kv_heads": kv_heads,
+        "kv_heads_expanded": H, "dtype": str(q.dtype),
+        "ms": device_ms(lambda: att.flash_attention(q, k, v, **kw),
+                        launches=10),
+        "library_ms": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, 0], k, v, is_causal=True), launches=10),
+        "max_abs_diff": err, "max_abs_out": mag, "max_row_rel_diff": rel,
+        "bound_ms": bms, "bound_by": by, "bytes": nb, "ops": nops}
+    (qd, ck, cv, pos, window), _ = cap["decode_attention"]
+    B, H, _, D = qd.shape
+    KV, Sc = ck.shape[1], ck.shape[2]
+    valid = (torch.arange(Sc, device=qd.device) <= pos)[None, None, None]
+    kx = torch.repeat_interleave(ck, H // KV, dim=1)
+    vx = torch.repeat_interleave(cv, H // KV, dim=1)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd, kx, vx, attn_mask=valid)
+    err, mag, rel = sdpa_diff(
+        att.decode_attention(qd, ck, cv, pos, window), sdpa(), "decode")
+    used = pos + 1
+    nbytes = 2 * B * KV * used * D * ck.element_size() + \
+        B * H * D * (qd.element_size() + 4)
+    bms, by, nb, nops = attention_bound(B, H, 1, used, D, nbytes)
+    out["decode"] = {
+        "shape": [B, H, KV, Sc, D], "pos": pos, "dtype": str(qd.dtype),
+        "ms": graph_ms(lambda: att.decode_attention(qd, ck, cv, pos, window)),
+        "library_ms": graph_ms(sdpa), "max_abs_diff": err,
+        "max_abs_out": mag, "max_row_rel_diff": rel, "bound_ms": bms,
+        "bound_by": by, "bytes": nb, "ops": nops}
+    return out
+
+
+def dense_serve(cfg, paper, dev) -> dict:
+    """The dense phase's part (1): `cfg` served by the Engine with a
+    controller on the paper forest, every count checked; returns the
+    numbers, the captured kernel inputs and the engine (kept for the
+    profile)."""
+    t0 = time.perf_counter()
+    model = registry.build_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    ctl = WanifyController(WanSimulator(seed=0),
+                           BwPredictor(paper, device=dev), n_pods=2)
+    eng = CheckedEngine(cfg, model, ServeConfig(batch=SERVE_BATCH,
+                                                s_max=S_MAX),
+                        controller=ctl, device=dev)
+    reqs = serve_requests(cfg.vocab)
+    groups = groups_of(reqs)
+    # warm-up (cuBLAS set-up, the bf16 cast) that captures layer 0's
+    # kernel inputs: both prefills, then one decode step
+    caps = [dense_capture(lambda g=g: eng.prefill(eng.batch_tokens(g)))
+            for g in groups]
+    caps.append(dense_capture(
+        lambda: eng.decode(np.zeros(SERVE_BATCH, np.int32))))
+    # the main path, counts zeroed just before it and read just after
+    eng.timings = {"prefill_s": [], "decode_s": []}
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for name in DENSE_COUNTED:
+        getattr(ops, name).launches = 0
+    t0 = time.perf_counter()
+    eng.replan()
+    schedule = eng.migration_schedule()
+    t1 = time.perf_counter()
+    out = eng.serve(reqs)
+    serve_s = time.perf_counter() - t1
+    got = {name: getattr(ops, name).launches for name in DENSE_COUNTED}
+    n_steps = len(eng.timings["prefill_s"]) + len(eng.timings["decode_s"])
+    want = {"silu_gate": n_steps * cfg.n_layers, "rf_predict": 1,
+            "ssd_chunk": 0, "silu": 0}
+    if got != want:
+        raise AssertionError(f"dense serve launches {got}, expected {want}: "
+                             f"one silu_gate per layer per step ({n_steps} "
+                             f"steps), 1 rf_predict, no ssd_chunk or silu")
+    check_served(out, reqs, cfg.vocab)
+    prefill_ms = [v * 1e3 for v in eng.timings["prefill_s"]]
+    decode_ms = [v * 1e3 for v in eng.timings["decode_s"]]
+    tokens = sum(len(v) for v in out.values())
+    res = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "batch": SERVE_BATCH, "s_max": S_MAX,
+           "requests": len(reqs), "max_new": MAX_NEW,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "group_lens": [max(len(r.prompt) for r in g) for g in groups],
+           "launches": got, "replan_s": t1 - t0, "schedule": schedule,
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_ms_median": float(np.median(decode_ms)),
+           "serve_s": serve_s, "tokens": tokens,
+           "tokens_per_s": tokens / serve_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None,
+           "out": {str(k): v for k, v in out.items()}}
+    return res, caps, eng, groups
+
+
+def dense_parity(dev, cfgs=None) -> dict:
+    """The dense phase's part (2): each of `cfgs` (DENSE_ARCHS' configs
+    at full width by default) at 2 layers in f32, on the card and on the
+    host with the same weights, on group 1's prompts (drawn from the
+    arch's vocabulary; S = 641, two key blocks, the second padded)."""
+    res = {}
+    for cfg in cfgs or [get_config(a) for a in DENSE_ARCHS]:
+        t0 = time.perf_counter()
+        arch = cfg.arch_id
+        pcfg = cfg.replace(n_layers=PARITY_LAYERS, dtype="float32")
+        card_model = registry.build_model(
+            pcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        host_model = DenseLM(pcfg, torch.device("cpu"), torch.float32)
+        host_model.load_state_dict(card_model.state_dict())
+        sc = ServeConfig(batch=SERVE_BATCH, s_max=S_MAX)
+        card = CheckedEngine(pcfg, card_model, sc, device=dev)
+        tokens = card.batch_tokens(groups_of(serve_requests(pcfg.vocab))[0])
+        err, mag, compared, equal = check_parity(
+            card, CheckedEngine(pcfg, host_model, sc, device="cpu"), tokens)
+        res[arch] = {"layers": PARITY_LAYERS, "steps": PARITY_STEPS,
+                     "prompt": int(tokens.shape[1]), "tol": PARITY_TOL,
+                     "max_abs_err": err, "max_abs_logit": mag,
+                     "ids_compared": compared, "ids_equal": equal,
+                     "s": time.perf_counter() - t0}
+        del card, card_model, host_model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def dense_phase(paper, dev, smi: str) -> dict:
+    """The dense phase (see the head comment); every check fatal."""
+    t_phase = time.perf_counter()
+    cfg = get_config(DENSE_ARCH)
+    serve, caps, eng, groups = dense_serve(cfg, paper, dev)
+    log(f"[dense] {DENSE_ARCH} {cfg.n_layers} layers, {serve['params']} "
+        f"params on the card in {serve['init_s']:.1f} s; "
+        f"{serve['requests']} requests (prompts {serve['prompt_lens']}), "
+        f"{serve['tokens']} tokens in {serve['serve_s']:.3f} s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; launches "
+        f"{serve['launches']}; replan {serve['replan_s'] * 1e3:.1f} ms, "
+        f"schedule {serve['schedule']} | {smi}")
+    log("[dense] prefill ms per group: " + ", ".join(
+        f"{p:.2f} (S={s})" for p, s in zip(serve["prefill_ms"],
+                                           serve["group_lens"]))
+        + f"; decode ms per step: median {serve['decode_ms_median']:.3f}, "
+        f"p90 {np.percentile(serve['decode_ms'], 90):.3f}; peak device "
+        f"memory {serve['peak_bytes'] / 2**30:.3f} GiB")
+    log("[dense] ids: " + "; ".join(f"{k}: {v[:6]}" for k, v in
+                                    sorted(serve["out"].items())[:3]))
+    # where the device time goes, after the counted run: group 1's
+    # prefill and 4 decode steps again under the profiler
+    toks = eng.batch_tokens(groups[0])
+    prof = {"prefill": dense_profile(lambda: eng.prefill(toks))}
+    nxt = eng.prefill(toks)
+    prof["decode"] = dense_profile(lambda: [eng.decode(nxt)
+                                            for _ in range(PARITY_STEPS)])
+    prof["prefill"]["busy_share"] = prof["prefill"]["device_ms"] / \
+        serve["prefill_ms"][0]
+    prof["decode"]["busy_share"] = prof["decode"]["device_ms"] / \
+        PARITY_STEPS / serve["decode_ms_median"]
+    prof["decode"]["kernels_per_step"] = prof["decode"]["kernels"] / \
+        PARITY_STEPS
+    serve["profile"] = prof
+    for phase, pr in prof.items():
+        log(f"[dense] profile {phase}: {pr['kernels']} device kernels, "
+            f"{pr['device_ms']:.2f} ms ({pr['busy_share']:.1%} of the "
+            f"untraced wall time), {pr['attention_ranges']} attention "
+            f"calls; by kind " + ", ".join(
+                f"{k} {v:.2f}" for k, v in pr["by_kind"].items()) +
+            "; top: " + ", ".join(f"{t['name']} x{t['count']} "
+                                  f"{t['ms']:.2f}" for t in pr["top"]))
+    # the silu_gate kernel against its plain version on the MLP's inputs
+    # (layer 0 of both prefills and of a decode step), bit-equal
+    gate_err, gate_cases = 0.0, []
+    for step, cap in zip(("prefill1", "prefill2", "decode"), caps):
+        err = check_silu("silu_gate", *cap["silu_gate"])
+        gate_err = max(gate_err, err)
+        gate_cases.append({"step": step, "err": err,
+                           "shape": list(cap["silu_gate"][0][0].shape)})
+    gate_timing = {step: time_silu("silu_gate", *cap["silu_gate"])
+                   for step, cap in (("prefill1", caps[0]),
+                                     ("decode", caps[2]))}
+    for key, t in gate_timing.items():
+        log(f"[dense] silu_gate {key} {t['shape']} {t['dtype']} (value "
+            f"only: {t['value_only']}): bit-equal "
+            f"to plain; kernel {t['ms']:.5f} ms (device, graph of 20 "
+            f"calls) | plain {t['plain_ms']:.5f} ms | bound "
+            f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B) | "
+            f"library call: none (F.silu rounds once) | {smi}")
+    serve["silu_gate"] = {"cases": gate_cases, "max_abs_err": gate_err,
+                          "timing": gate_timing}
+    # (3) the attention core against SDPA at group 1's prefill shape and
+    # the decode step's
+    attn = time_attention({"flash_attention": caps[0]["flash_attention"],
+                           "decode_attention": caps[2]["decode_attention"]},
+                          cfg.n_kv_heads)
+    for key, t in attn.items():
+        log(f"[dense] attention {key} {t['shape']} {t['dtype']}: port "
+            f"{t['ms']:.4f} ms | SDPA {t['library_ms']:.4f} ms | max |diff| "
+            f"{t['max_abs_diff']:.4g} (max |out| {t['max_abs_out']:.4g}; "
+            f"largest row error {t['max_row_rel_diff']:.4g} of the row's "
+            f"max |out|, limit {SDPA_TOL:.4g}) | "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+            f"B, {t['ops']:.4g} ops at the bf16 tensor-core rate) | {smi}")
+    del eng, caps
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (2) parity: each arch at full width, 2 layers, f32, card vs host
+    parity = dense_parity(dev)
+    for arch, p in parity.items():
+        log(f"[dense] parity {arch} {PARITY_LAYERS} layers f32, prompt "
+            f"{p['prompt']} x{SERVE_BATCH}, prefill + {PARITY_STEPS} decode "
+            f"steps: logits within {PARITY_TOL} of the host (max |diff| "
+            f"{p['max_abs_err']:.3e}, max |logit| {p['max_abs_logit']:.3f}); "
+            f"ids equal on {p['ids_compared']} clear top-2 gaps "
+            f"({p['ids_equal']} of {(PARITY_STEPS + 1) * SERVE_BATCH} equal "
+            f"in all); {p['s']:.1f} s")
+    out = {"serve": serve, "attention": attn, "parity": parity,
+           "s": time.perf_counter() - t_phase}
+    log(f"[dense] phase {out['s']:.2f} s")
+    return out
 
 
 def scenarios_phase(paper, dev, floor_ms: float) -> dict:
@@ -3654,10 +4091,17 @@ def main() -> int:
             if k not in ("path", "shape")) + " (the parts read in place)")
     results["wansync"] = ws
 
+    # 12. dense: llama3-8b served at full size through the silu_gate
+    # kernel, the three dense archs' card-vs-host parity, the attention
+    # core beside SDPA
+    dense = dense_phase(paper, dev, smi)
+    results["dense"] = dense
+
     t = timing[f"n{TICK_ROWS}"]
     s0 = ssd_timing[0]
     wf = scen["waterfill"]["timing"][0]          # one 8-DC fill
     qs = q_timing["part_state_c8"]
+    dg = dense["serve"]["silu_gate"]["timing"]["prefill1"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -3690,6 +4134,14 @@ def main() -> int:
         "bound_by": silu_timing[f"{kname}_prefill1"]["bound_by"],
         "library_ms": None}
         for kname, line in (("silu", 137), ("silu_gate", 152))] + [{
+        "name": "silu_gate (dense MLP)", "route": "cuda",
+        "source": "src/repro_torch/csrc/silu.cu",
+        "replaces": "src/repro/models/layers.py:89",
+        "launches": dense["serve"]["launches"]["silu_gate"],
+        "max_abs_err": dense["serve"]["silu_gate"]["max_abs_err"],
+        "ms": dg["ms"], "plain_ms": dg["plain_ms"],
+        "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
+        "library_ms": None}] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:56",

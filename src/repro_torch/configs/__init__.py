@@ -10,6 +10,9 @@ from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
 
 _ARCH_MODULES = {
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
 }
 
 # every architecture of the JAX package, ported or not

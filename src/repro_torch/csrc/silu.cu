@@ -13,7 +13,10 @@
 //  * silu_kernel: out = silu(x), each op rounded to T;
 //  * silu_gate_kernel: s = silu(z) as above, prod = y * s in f32, and
 //    both prod (f32, what the norm's variance reads: XLA drops that
-//    convert pair) and prod rounded to T (the norm's value path).
+//    convert pair) and prod rounded to T (the norm's value path). With
+//    a null prod it stores the rounded value only (the dense family's
+//    SwiGLU MLP, src/repro/models/layers.py:89, reads nothing else):
+//    6 bytes an element in bf16 instead of 10.
 //
 // Both are elementwise and read their inputs once: bound by bytes. On
 // bf16 (the serve model's prefill) a thread takes 4 elements of each
@@ -101,7 +104,8 @@ silu_kernel(const T* __restrict__ x, long long ldx, long long incx,
 }
 
 // y [rows, d] rows `ldy` apart, elements `incy` apart; z likewise ->
-// value [rows, d] in T and prod [rows, d] in f32, both dense
+// value [rows, d] in T and prod [rows, d] in f32 (skipped where prod is
+// null), both dense
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 silu_gate_kernel(const T* __restrict__ y, long long ldy, long long incy,
@@ -125,7 +129,8 @@ silu_gate_kernel(const T* __restrict__ y, long long ldy, long long incy,
         o.v[i] = from_f32<T>(p.v[i]);
       }
       *reinterpret_cast<Vec<T, V>*>(value + r * d + c * V) = o;
-      *reinterpret_cast<Vec<float, V>*>(prod + r * d + c * V) = p;
+      if (prod != nullptr)
+        *reinterpret_cast<Vec<float, V>*>(prod + r * d + c * V) = p;
     }
   }
 }
@@ -183,7 +188,8 @@ void silu_gate(const void* y, long long ldy, long long incy, const void* z,
 
 // dtype: 0 = f32, 1 = bf16. Each returns cudaGetLastError() (0 =
 // launched). The caller checks shapes, types, rows >= 1 and d >= 1;
-// the outputs are dense and do not overlap the inputs.
+// the outputs are dense and do not overlap the inputs; silu_gate's prod
+// may be null.
 extern "C" int silu_launch(const void* x, long long ldx, long long incx,
                            void* out, long long rows, long long d, int dtype,
                            void* stream) {

@@ -218,12 +218,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 silu.launches = 0
 
 
-def silu_gate(y: torch.Tensor, z: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def silu_gate(y: torch.Tensor, z: torch.Tensor, with_prod: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The input of Mamba-2's gated norm `rms_norm(y * silu(z))`: y and z
     of one shape and dtype (f32 or bf16), either a strided view -> (y *
     silu(z) rounded to y's dtype, the same product in f32), both dense;
-    silu as :func:`silu` rounds it, the product taken in f32.
+    silu as :func:`silu` rounds it, the product taken in f32. With
+    `with_prod=False` the f32 product is neither stored nor returned
+    (None): the SwiGLU MLP reads the value only.
 
     CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
     launch); CPU tensors to
@@ -235,9 +237,11 @@ def silu_gate(y: torch.Tensor, z: torch.Tensor
                          f"on {z.device}, y {y.dtype} {tuple(y.shape)} on "
                          f"{y.device}")
     if y.is_cpu:
-        return silu_gate_ref(y, z)
+        value, prod = silu_gate_ref(y, z)
+        return value, prod if with_prod else None
     value = torch.empty(y.shape, dtype=y.dtype, device=y.device)
-    prod = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    prod = torch.empty(y.shape, dtype=torch.float32,
+                       device=y.device) if with_prod else None
     if value.numel():
         _silu.launch_gate(y, z, value, prod, views)
         silu_gate.launches += 1

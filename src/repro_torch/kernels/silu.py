@@ -105,15 +105,17 @@ def launch(x: torch.Tensor, out: torch.Tensor,
 
 
 def launch_gate(y: torch.Tensor, z: torch.Tensor, value: torch.Tensor,
-                prod: torch.Tensor,
+                prod: Optional[torch.Tensor],
                 views: Optional[Tuple[Tuple[int, int, int, int], ...]] = None
                 ) -> None:
-    """value (dense, y's dtype) and prod (dense, f32) = y * silu(z), one
-    launch on the current stream of y's device; inputs are checked by
-    the caller (`views`, if given, are y's and z's :func:`row_view`)."""
+    """value (dense, y's dtype) and prod (dense, f32; not stored where
+    None) = y * silu(z), one launch on the current stream of y's device;
+    inputs are checked by the caller (`views`, if given, are y's and z's
+    :func:`row_view`)."""
     (rows, d, ldy, incy), (_, _, ldz, incz) = views or (row_view(y),
                                                         row_view(z))
     _check(_on_device(y.device, _lib().silu_gate_launch, y.data_ptr(), ldy,
                       incy, z.data_ptr(), ldz, incz, value.data_ptr(),
-                      prod.data_ptr(), rows, d, DTYPES[y.dtype]),
+                      None if prod is None else prod.data_ptr(), rows, d,
+                      DTYPES[y.dtype]),
            "silu_gate")

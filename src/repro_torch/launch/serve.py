@@ -2,8 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --requests 8 --max-new 16                       # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --reduced --device cpu                          # small, on the host
+
+`--arch` takes every ported id (`repro_torch.configs.PORTED`).
 """
 import argparse
 import time

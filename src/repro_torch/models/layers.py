@@ -1,11 +1,14 @@
-"""Shared layers of the port's models: the norm and the init helper of
-`repro/models/layers.py`. One card needs no sharding, so there is no
-`ShardCtx`; it comes with the multi-card slice."""
+"""Shared layers of the port's models, from `repro/models/layers.py`:
+the norms, the SwiGLU MLP, RoPE and the init helper. One card needs no
+sharding, so there is no `ShardCtx`; it comes with the multi-card
+slice."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -18,6 +21,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(torch.square(src), dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
+
+
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm over the head_dim (last axis), qwen3-style."""
+    return rms_norm(x, scale, eps)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+           w2: torch.Tensor) -> torch.Tensor:
+    """silu(x @ w1) * (x @ w3), then @ w2. The gate goes through
+    :func:`repro_torch.kernels.ops.silu_gate` (the CUDA kernel on the
+    card, its plain version on the host): XLA's CPU program for the
+    reference's `jax.nn.silu(x @ w1) * (x @ w3)` rounds each op of the
+    logistic to the compute dtype and the product once, which is what
+    the gate's value output holds (a bf16 product of two bf16 numbers,
+    taken in f32 and rounded once, is the bf16 multiply). The gate's
+    f32 product is not stored."""
+    h, _ = ops.silu_gate(x @ w3, x @ w1, with_prod=False)
+    return h @ w2
+
+
+def rope_freqs(dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """The inverse frequencies [dim/2] in f32: 1 / theta^(2i/dim), the
+    exponent in f32 and the rest in f64, rounded once, as XLA folds the
+    reference's constant table. An f32 `pow` and divide differ from it
+    in the last bit of a third of the entries, which moves an angle of
+    1,000 rad by 6e-5."""
+    e = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return (1.0 / (theta ** e.double())).float()
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, D] (D even), positions: broadcastable to [..., S].
+    Rotates the two halves of the last dim in f32 and casts back to x's
+    dtype."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)            # [D/2]
+    ang = positions.float()[..., None] * inv                  # [..., S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int], dtype,

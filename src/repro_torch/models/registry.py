@@ -1,11 +1,15 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs (`ssm`); the others raise "not yet ported".
+port runs (`ssm`, and `dense` without MoE or MLA); the others raise
+"not yet ported".
 
-  build_model(cfg, generator, device)      -> MambaLM (nn.Module)
-  prefill_fn(cfg)(model, tokens)           -> (logits, cache)
-  decode_fn(cfg)(model, cache, tokens)     -> (logits, cache)
-  cache_spec(cfg, B)                       -> (shape, dtype) per tensor
-  load_reference_params(model, tree)       -> the JAX package's weights
+  build_model(cfg, generator, device)          -> MambaLM | DenseLM
+  prefill_fn(cfg, s_max)(model, tokens)        -> (logits, cache)
+  decode_fn(cfg)(model, cache, tokens, pos)    -> (logits, cache)
+  cache_spec(cfg, B, s_max)                    -> (shape, dtype) per tensor
+  load_reference_params(model, tree)           -> the JAX package's weights
+
+`s_max` sizes the dense family's caches and `pos` is its decode
+position; the `ssm` family takes neither (its cache does not grow).
 """
 from __future__ import annotations
 
@@ -17,18 +21,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.transformer import MambaLM, torch_dtype
+from repro_torch.models.transformer import torch_dtype
 
 
 def build_model(cfg: ModelConfig, generator: torch.Generator,
                 device: Optional[Union[str, torch.device]] = None,
-                dtype: Optional[torch.dtype] = None) -> MambaLM:
+                dtype: Optional[torch.dtype] = None) -> transformer._LM:
     """The model on `device` (CUDA unless the caller asks for the CPU)
     in the parameter dtype (`cfg.param_dtype` unless given), its
     weights drawn from `generator` as the reference's init draws them
     (the numbers differ: torch's generator is not jax's)."""
-    model = MambaLM(cfg, resolve_device(device),
-                    dtype or torch_dtype(cfg.param_dtype))
+    cls = transformer.model_class(cfg)
+    model = cls(cfg, resolve_device(device),
+                dtype or torch_dtype(cfg.param_dtype))
     model.reset_parameters(generator)
     return model
 
@@ -37,32 +42,38 @@ def build_model(cfg: ModelConfig, generator: torch.Generator,
 init_params = build_model
 
 
-def prefill_fn(cfg: ModelConfig) -> Callable:
-    """(model, tokens [B,S]) -> (last logits [B,V], decode cache)."""
+def prefill_fn(cfg: ModelConfig, s_max: Optional[int] = None) -> Callable:
+    """(model, tokens [B,S]) -> (last logits [B,V], decode cache); the
+    dense family's caches are padded to `s_max` (the window's length
+    under SWA)."""
     transformer.check_family(cfg)
-    return lambda model, tokens: transformer.lm_prefill(model, tokens, cfg)
+    return lambda model, tokens: transformer.lm_prefill(model, tokens, cfg,
+                                                        s_max)
 
 
 def decode_fn(cfg: ModelConfig) -> Callable:
-    """(model, cache, tokens [B,1]) -> (logits [B,V], new cache)."""
+    """(model, cache, tokens [B,1], pos=None) -> (logits [B,V], new
+    cache); `pos`, the new token's position, is the dense family's."""
     transformer.check_family(cfg)
-    return lambda model, cache, tokens: transformer.lm_decode(
-        model, cache, tokens, cfg)
+    return lambda model, cache, tokens, pos=None: transformer.lm_decode(
+        model, cache, tokens, cfg, pos)
 
 
-def cache_spec(cfg: ModelConfig, B: int,
+def cache_spec(cfg: ModelConfig, B: int, s_max: Optional[int] = None,
                dtype: Optional[torch.dtype] = None):
     """(shape, dtype) of every decode-cache tensor, per layer."""
-    return transformer.lm_cache_spec(cfg, B, dtype)
+    return transformer.lm_cache_spec(cfg, B, s_max, dtype)
 
 
 @torch.no_grad()
-def load_reference_params(model: MambaLM, tree: Mapping[str, Any]) -> None:
+def load_reference_params(model: transformer._LM,
+                          tree: Mapping[str, Any]) -> None:
     """Copy the JAX package's parameter pytree (`init_lm_params`, its
     leaves as numpy arrays) into `model`: the stacked [L, ...] block
-    leaves are unstacked into the per-layer modules, and every matrix
-    keeps the reference's [in, out] layout. After it both packages
-    compute the same function."""
+    leaves are unstacked into the per-layer modules (block leaf
+    `attn/wq` is module parameter `blocks.<i>.attn.wq`), and every
+    matrix keeps the reference's [in, out] layout. After it both
+    packages compute the same function."""
     def copy(dst: torch.Tensor, src, name: str) -> None:
         src = torch.from_numpy(np.array(src, dtype=np.float32))
         if tuple(src.shape) != tuple(dst.shape):
@@ -70,22 +81,28 @@ def load_reference_params(model: MambaLM, tree: Mapping[str, Any]) -> None:
                              f"port shape {tuple(dst.shape)}")
         dst.copy_(src)
 
+    def leaves(t, prefix=""):
+        if isinstance(t, Mapping):
+            for k, v in t.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], t
+
     want = {"embed", "final_norm", "lm_head", "blocks"}
     if set(tree) != want:
         raise ValueError(f"reference tree has {sorted(tree)}, expected "
                          f"{sorted(want)}")
     for name in ("embed", "final_norm", "lm_head"):
         copy(getattr(model, name), tree[name], name)
-    blocks = tree["blocks"]
-    names = {n for n, _ in model.blocks[0].ssm.named_parameters()}
-    if set(blocks) != {"ln1", "ssm"} or set(blocks["ssm"]) != names:
-        raise ValueError("reference blocks do not hold the ssm family's "
-                         "parameters")
-    n_layers = np.shape(blocks["ln1"])[0]
-    if n_layers != len(model.blocks):
-        raise ValueError(f"reference has {n_layers} layers, the port "
-                         f"{len(model.blocks)}")
+    blocks = dict(leaves(tree["blocks"]))
+    names = {n for n, _ in model.blocks[0].named_parameters()}
+    if set(blocks) != names:
+        raise ValueError(f"reference blocks hold {sorted(blocks)}, the "
+                         f"port's {sorted(names)}")
+    n_layers = {np.shape(v)[0] for v in blocks.values()}
+    if n_layers != {len(model.blocks)}:
+        raise ValueError(f"reference has {sorted(n_layers)} layers, the "
+                         f"port {len(model.blocks)}")
     for i, blk in enumerate(model.blocks):
-        copy(blk.ln1, blocks["ln1"][i], f"blocks.{i}.ln1")
-        for n, p in blk.ssm.named_parameters():
-            copy(p, blocks["ssm"][n][i], f"blocks.{i}.ssm.{n}")
+        for n, p in blk.named_parameters():
+            copy(p, blocks[n][i], f"blocks.{i}.{n}")

@@ -1,26 +1,29 @@
-"""Decoder-only LM assembly: the `ssm` family (Mamba-2).
+"""Decoder-only LM assembly: the `ssm` family (Mamba-2) and the `dense`
+family (GQA attention + SwiGLU MLP; qk-norm and sliding window as
+flags).
 
-Port of the `ssm` path of `repro/models/transformer.py`. The reference
-stacks the layers' leaves ([L, ...]) and scans them; here `MambaLM`
-holds one module per layer. The dense, moe and hybrid families raise
-"not yet ported".
+Port of the `ssm` and `dense` paths of `repro/models/transformer.py`.
+The reference stacks the layers' leaves ([L, ...]) and scans them;
+here `MambaLM` and `DenseLM` hold one module per layer. MoE, MLA and
+the hybrid family raise "not yet ported".
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
-they are cast too (`ln1`, `A_log`, `D`, `dt_bias`, `conv_b`, `norm`),
-while `final_norm` [d] stays in the parameter dtype;
-`MambaLM.compute_params` casts the same leaves.
+they are cast too (`ln1`, `ln2`, `q_scale`, `k_scale`, `A_log`, `D`,
+`dt_bias`, `conv_b`, `norm`), while `final_norm` [d] stays in the
+parameter dtype; `compute_params` casts the same leaves.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as att
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, rms_norm, swiglu
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -33,46 +36,187 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"the '{cfg.family}' family ({cfg.arch_id}) is not yet ported; "
-            f"the port runs the 'ssm' family")
+    if cfg.family == "ssm" or (cfg.family == "dense" and not cfg.is_moe
+                               and not cfg.is_mla):
+        return
+    raise NotImplementedError(
+        f"the '{cfg.family}' family ({cfg.arch_id}"
+        f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}) "
+        f"is not yet ported; the port runs the 'ssm' family and the "
+        f"'dense' family without MoE or MLA")
+
+
+def _param(dtype: torch.dtype, device: torch.device, *shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 class MambaBlock(nn.Module):
-    """One layer: the pre-norm scale `ln1` and the mixer `ssm`."""
+    """One layer: the pre-norm scale `ln1` and the mixer `ssm`. Its
+    static functions run one layer's compute parameters (a nested dict,
+    `_LM.compute_params`) over the sequence, in prefill and in decode."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
-        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
+        self.ln1 = _param(dtype, device, cfg.d_model)
         self.ssm = ssm_mod.Mamba2Mixer(cfg, dtype, device)
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init of the layer, drawn from `generator`."""
+        self.ln1.fill_(1.0)
+        self.ssm.reset_parameters(generator)
 
-class MambaLM(nn.Module):
-    """The `ssm` family's parameters: embed [V,d], one `MambaBlock` per
+    @staticmethod
+    def run(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        return x + ssm_mod.ssm_forward(blk["ssm"], h, cfg)
+
+    @staticmethod
+    def prefill(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, S_max: Optional[int]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        y, c = ssm_mod.ssm_forward(blk["ssm"], h, cfg, return_cache=True)
+        return x + y, c
+
+    @staticmethod
+    def decode(blk: Dict, c: Dict[str, torch.Tensor], x: torch.Tensor,
+               pos: Optional[int], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        y, nc = ssm_mod.ssm_decode(blk["ssm"], c, h, cfg)
+        return x + y, nc
+
+    @staticmethod
+    def cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int],
+                   dtype: torch.dtype) -> Dict:
+        """The layer's conv and state (the cache does not grow)."""
+        return ssm_mod.ssm_cache_spec(cfg, B, dtype)
+
+
+class DenseMlp(nn.Module):
+    """The SwiGLU MLP's parameters: w1, w3 [d, d_ff] and w2 [d_ff, d]."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w1 = _param(dtype, device, d, f)
+        self.w3 = _param(dtype, device, d, f)
+        self.w2 = _param(dtype, device, f, d)
+
+
+def attn_cache_len(cfg: ModelConfig, S_max: int) -> int:
+    """S_c: the attention cache's length, the window's for SWA."""
+    return min(S_max, cfg.sliding_window) if cfg.sliding_window else S_max
+
+
+def _mlp(blk: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, blk["ln2"], cfg.norm_eps)
+    mlp = blk["mlp"]
+    return x + swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
+
+
+class DenseBlock(nn.Module):
+    """One layer: `ln1`, the attention `attn`, `ln2` and the MLP `mlp`;
+    static functions as `MambaBlock`'s."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.ln1 = _param(dtype, device, cfg.d_model)
+        self.attn = att.GqaAttention(cfg, dtype, device)
+        self.ln2 = _param(dtype, device, cfg.d_model)
+        self.mlp = DenseMlp(cfg, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init of the layer, drawn from `generator`."""
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.reset_parameters(generator)
+        for w in (self.mlp.w1, self.mlp.w3, self.mlp.w2):
+            w.copy_(dense_init(generator, w.shape, w.dtype))
+
+    @staticmethod
+    def run(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        return _mlp(blk, x + att.gqa_forward(blk["attn"], h, cfg, positions),
+                    cfg)
+
+    @staticmethod
+    def prefill(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, S_max: Optional[int]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """k / v are projected once, for the attention and for the cache
+        (zero-padded to S_c; under SWA its last S_c positions only)."""
+        if S_max is None:
+            raise ValueError("the dense family's prefill needs S_max")
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        k, v = att.project_kv(blk["attn"], h, cfg, positions)
+        S_c = attn_cache_len(cfg, S_max)
+        ck, cv = att.pad_cache(k[:, :, -S_c:], v[:, :, -S_c:], S_c)
+        x = x + att.gqa_forward(blk["attn"], h, cfg, positions, kv=(k, v))
+        return _mlp(blk, x, cfg), {"k": ck, "v": cv}
+
+    @staticmethod
+    def decode(blk: Dict, c: Dict[str, torch.Tensor], x: torch.Tensor,
+               pos: Optional[int], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Writes the token's k / v into the cache tensors in place."""
+        if pos is None:
+            raise ValueError("the dense family's decode needs pos")
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        o, k, v = att.gqa_decode(blk["attn"], c["k"], c["v"], h, pos, cfg)
+        return _mlp(blk, x + o, cfg), {"k": k, "v": v}
+
+    @staticmethod
+    def cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int],
+                   dtype: torch.dtype) -> Dict:
+        """k and v [B,KV,S_c,D] (on one card the KV heads are not
+        replicated: the reference's `kv_eff_heads` at tp=1)."""
+        if S_max is None:
+            raise ValueError("the dense family's cache needs S_max")
+        shape = (B, cfg.n_kv_heads, attn_cache_len(cfg, S_max),
+                 cfg.resolved_head_dim)
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+def _nest(named) -> Dict[str, Any]:
+    """{"a.b": t} -> {"a": {"b": t}}."""
+    out: Dict[str, Any] = {}
+    for name, t in named:
+        *head, last = name.split(".")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = t
+    return out
+
+
+class _LM(nn.Module):
+    """The parameters of a decoder-only LM: embed [V,d], one block per
     layer, final_norm [d] and lm_head [d,V] (the reference's names and
-    `[in, out]` layout). The functions below run it."""
+    `[in, out]` layout). The functions below run it, each layer through
+    `block_cls`'s static functions."""
+
+    block_cls: type
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        check_family(cfg)
+        if model_class(cfg) is not type(self):
+            raise ValueError(f"{type(self).__name__} does not run the "
+                             f"'{cfg.family}' family ({cfg.arch_id})")
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab
-
-        def param(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
-
-        self.embed = param(V, d)
-        self.blocks = nn.ModuleList(MambaBlock(cfg, dtype, device)
+        self.embed = _param(dtype, device, V, d)
+        self.blocks = nn.ModuleList(self.block_cls(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = param(d)
-        self.lm_head = param(d, V)
+        self.final_norm = _param(dtype, device, d)
+        self.lm_head = _param(dtype, device, d, V)
         self._compute: Tuple[Any, Dict] = (None, {})
 
     @property
@@ -90,16 +234,16 @@ class MambaLM(nn.Module):
         self.lm_head.copy_(dense_init(generator, self.lm_head.shape,
                                       self.lm_head.dtype))
         for blk in self.blocks:
-            blk.ln1.fill_(1.0)
-            blk.ssm.reset_parameters(generator)
+            blk.reset_parameters(generator)
 
     def compute_params(self, dtype: torch.dtype) -> Dict[str, Any]:
         """The parameters as the reference's forward sees them after
         `_cast_params`, as a tree of tensors: {embed, final_norm,
-        lm_head, blocks: [{ln1, ssm: {...}}]}. Kept until a parameter
-        changes (tracked by the tensors' storage and version counters),
-        so a served model is cast once, not at every step; a leaf
-        already in `dtype` is the parameter itself."""
+        lm_head, blocks: [one nested dict per layer, by the modules'
+        names]}. Kept until a parameter changes (tracked by the tensors'
+        storage and version counters), so a served model is cast once,
+        not at every step; a leaf already in `dtype` is the parameter
+        itself."""
         key = (dtype, tuple((p.data_ptr(), p._version)
                             for p in self.parameters()))
         if self._compute[0] != key:
@@ -109,33 +253,55 @@ class MambaLM(nn.Module):
             tree = {"embed": cast(self.embed),
                     "final_norm": self.final_norm.detach(),
                     "lm_head": cast(self.lm_head),
-                    "blocks": [{"ln1": cast(b.ln1),
-                                "ssm": {n: cast(p) for n, p in
-                                        b.ssm.named_parameters()}}
+                    "blocks": [_nest((n, cast(p)) for n, p in
+                                     b.named_parameters())
                                for b in self.blocks]}
             self._compute = (key, tree)
         return self._compute[1]
 
 
-def lm_forward(params: MambaLM, tokens: torch.Tensor,
+class MambaLM(_LM):
+    """The `ssm` family: one `MambaBlock` per layer."""
+
+    block_cls = MambaBlock
+
+
+class DenseLM(_LM):
+    """The `dense` family: one `DenseBlock` per layer."""
+
+    block_cls = DenseBlock
+
+
+def model_class(cfg: ModelConfig) -> type:
+    """The module class of `cfg`'s family (raises for one not ported)."""
+    check_family(cfg)
+    return MambaLM if cfg.family == "ssm" else DenseLM
+
+
+# ======================================================================
+# Forward, prefill, decode
+# ======================================================================
+def lm_forward(params: _LM, tokens: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,V] (the SSM has no aux loss or
-    expert load, which the reference also returns)."""
+    """tokens [B,S] -> logits [B,S,V] (neither family here has the aux
+    loss or expert load that the reference also returns)."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
     for blk in pc["blocks"]:
-        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        x = x + ssm_mod.ssm_forward(blk["ssm"], h, cfg)
+        x = params.block_cls.run(blk, x, positions, cfg)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
     return h @ pc["lm_head"]
 
 
-def lm_cache_spec(cfg: ModelConfig, B: int, dtype: torch.dtype = None
+def lm_cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int] = None,
+                  dtype: Optional[torch.dtype] = None
                   ) -> Dict[str, List[Dict]]:
-    """(shape, dtype) of every decode-cache tensor, per layer."""
-    check_family(cfg)
+    """(shape, dtype) of every decode-cache tensor, per layer: the SSM's
+    conv and state, or the attention's k and v [B,KV,S_c,D]."""
+    spec = model_class(cfg).block_cls.cache_spec
     dtype = dtype or torch_dtype(cfg.dtype)
-    return {"blocks": [ssm_mod.ssm_cache_spec(cfg, B, dtype)
+    return {"blocks": [spec(cfg, B, S_max, dtype)
                        for _ in range(cfg.n_layers)]}
 
 
@@ -157,34 +323,36 @@ def unstack_cache(tree: Dict[str, Dict]) -> Dict[str, List[Dict]]:
                        for i in range(n)]}
 
 
-def lm_prefill(params: MambaLM, tokens: torch.Tensor, cfg: ModelConfig
+def lm_prefill(params: _LM, tokens: torch.Tensor, cfg: ModelConfig,
+               S_max: Optional[int] = None
                ) -> Tuple[torch.Tensor, Dict[str, List[Dict]]]:
     """Forward pass that also builds the decode cache. Returns
-    (last_logits [B,V], {"blocks": [{conv, state}] per layer})."""
+    (last_logits [B,V], {"blocks": [one dict per layer]}: the SSM's
+    {conv, state}, or the attention's {k, v} padded to S_max)."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for blk in pc["blocks"]:
-        hn = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        y, c = ssm_mod.ssm_forward(blk["ssm"], hn, cfg, return_cache=True)
-        x = x + y
+        x, c = params.block_cls.prefill(blk, x, positions, cfg, S_max)
         caches.append(c)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
     return h[:, -1] @ pc["lm_head"], {"blocks": caches}
 
 
-def lm_decode(params: MambaLM, cache: Dict[str, List[Dict]],
-              tokens: torch.Tensor, cfg: ModelConfig
+def lm_decode(params: _LM, cache: Dict[str, List[Dict]],
+              tokens: torch.Tensor, cfg: ModelConfig,
+              pos: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, List[Dict]]]:
     """One-token decode step. tokens [B,1] -> (logits [B,V], new
-    cache)."""
+    cache). `pos` is the new token's position (the dense family's; the
+    SSM's cache carries its own state). The dense family writes the
+    token's k / v into the cache tensors in place."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]                                  # [B,1,d]
     new = []
     for blk, c in zip(pc["blocks"], cache["blocks"]):
-        hn = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        y, nc = ssm_mod.ssm_decode(blk["ssm"], c, hn, cfg)
-        x = x + y
+        x, nc = params.block_cls.decode(blk, c, x, pos, cfg)
         new.append(nc)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
     return h[:, -1] @ pc["lm_head"], {"blocks": new}

@@ -43,10 +43,10 @@ class Request:
 @dataclass
 class ServeConfig:
     """Engine shape: slot count, max sequence, tensor-parallel width.
-    `s_max` sizes the attention families' caches; the SSM's cache does
-    not grow. The port runs on one card, so `tp` must be 1. `greedy` is
-    the reference's field, which it never reads: both engines decode
-    greedily whatever it says."""
+    `s_max` sizes the dense family's caches (the window's length bounds
+    them under SWA); the SSM's cache does not grow. The port runs on one
+    card, so `tp` must be 1. `greedy` is the reference's field, which it
+    never reads: both engines decode greedily whatever it says."""
 
     batch: int = 8
     s_max: int = 256
@@ -72,9 +72,12 @@ class Engine:
                              "so tensor parallelism takes tp=1")
         self.cfg, self.params, self.sc = cfg, params, sc
         self.device = params.device
-        self._prefill = registry.prefill_fn(cfg)
+        self._prefill = registry.prefill_fn(cfg, sc.s_max)
         self._decode = registry.decode_fn(cfg)
         self.cache = None
+        # the next decode token's position: the prefill's length, then
+        # one more a step (the dense family reads it)
+        self.pos = 0
         self.last_logits: Optional[torch.Tensor] = None
         # host seconds of each prefill / decode call (each ends when its
         # ids reach the host, so the device work is inside)
@@ -133,6 +136,7 @@ class Engine:
         toks = torch.from_numpy(np.asarray(batch_tokens, np.int64)).to(
             self.device)
         logits, self.cache = self._prefill(self.params, toks)
+        self.pos = toks.shape[1]
         return self._ids(logits, t0, "prefill_s")
 
     @torch.inference_mode()
@@ -141,13 +145,16 @@ class Engine:
         t0 = time.perf_counter()
         toks = torch.from_numpy(np.asarray(tokens, np.int64)[:, None]).to(
             self.device)
-        logits, self.cache = self._decode(self.params, self.cache, toks)
+        logits, self.cache = self._decode(self.params, self.cache, toks,
+                                          self.pos)
+        self.pos += 1
         return self._ids(logits, t0, "decode_s")
 
     def batch_tokens(self, group: List[Request]) -> np.ndarray:
         """The group's prompts left-padded with token 0 into [batch, S]
-        (S the longest prompt; the SSM reads the pads as tokens, as the
-        reference's does)."""
+        (S the longest prompt; both families read the pads as tokens, as
+        the reference's engine does: the attention attends to them like
+        any token at its position)."""
         S = max(len(r.prompt) for r in group)
         toks = np.zeros((self.sc.batch, S), np.int32)
         for gi, r in enumerate(group):

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither jax nor the reference
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
-not yet ported raises `NotImplementedError` (now only the model side:
-the overlay, the predictor lifecycle and the fault plane are ported,
-and their gates construct and run)."""
+not yet ported raises `NotImplementedError` (now only the model side's
+MoE, MLA, hybrid, enc-dec and VLM families: the overlay, the predictor
+lifecycle, the fault plane and the dense family are ported, and their
+gates construct and run)."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCH_IDS, PORTED, get_config
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import MLAConfig, MoEConfig, reduced
 from repro_torch.control import BudgetEnvelope, WanifyController
 from repro_torch.core.forest import RandomForest
 from repro_torch.core.predictor import BwPredictor, SnapshotPredictor
@@ -69,7 +70,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.lifecycle.window", "repro_torch.faults.plane",
             "repro_torch.faults.scenarios", "repro_torch.faults.harness",
             "repro_torch.obs.sle", "repro_torch.obs.export",
-            "repro_torch.obs.cli"} <= mods
+            "repro_torch.obs.cli", "repro_torch.models.attention",
+            "repro_torch.models.layers", "repro_torch.configs.llama3_8b",
+            "repro_torch.configs.qwen3_4b",
+            "repro_torch.configs.h2o_danube_1_8b"} <= mods
 
 
 def _imports(path):
@@ -195,7 +199,7 @@ def test_controller_gates_not_yet_ported(monkeypatch):
     assert graceful.metrics.counters()["rows_quarantined"] >= 1
     ctl.faults = None
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("llama3-8b")
+        get_config("granite-moe-1b-a400m")
     monkeypatch.setenv("REPRO_OVERLAY", "on")
     assert _controller().overlay == "on"
     with pytest.raises(ValueError, match="unknown overlay"):
@@ -227,9 +231,8 @@ def test_fleet_gates_not_yet_ported(monkeypatch):
         fleet.fused()                 # ported: the noisy sim is refused
     monkeypatch.setenv("REPRO_FAULTS", "on")
     assert _fleet().faults.graceful
-    dense = _tiny_cfg().replace(family="dense")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.build_model(dense, torch.Generator(), device="cpu")
+        registry.build_model(_moe_cfg(), torch.Generator(), device="cpu")
 
 
 def test_waterfill_backends_dispatch_without_jax(monkeypatch):
@@ -251,6 +254,13 @@ def test_waterfill_backends_dispatch_without_jax(monkeypatch):
 
 def _tiny_cfg():
     return reduced(get_config("mamba2-2.7b")).replace(n_layers=1)
+
+
+def _moe_cfg():
+    """A reduced dense config made MoE: the family's gate of a model
+    that is still not ported."""
+    return reduced(get_config("llama3-8b")).replace(
+        family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
 
 
 def test_model_and_engine_default_to_cuda_and_raise_without_it(
@@ -321,18 +331,25 @@ def test_ssd_wrapper_counts_no_launch_on_cpu(dtype):
 
 
 def test_model_side_gates_not_yet_ported():
-    assert PORTED == ["mamba2-2.7b"] and len(ARCH_IDS) == 10
+    assert PORTED == ["mamba2-2.7b", "llama3-8b", "qwen3-4b",
+                      "h2o-danube-1.8b"] and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 get_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    dense = _tiny_cfg().replace(family="dense")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.build_model(dense, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.prefill_fn(dense)
+    dense = reduced(get_config("llama3-8b"))
+    mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
+    hybrid = _tiny_cfg().replace(family="hybrid", shared_attn_every=2)
+    for cfg in (_moe_cfg(), mla, hybrid, dense.replace(family="vlm")):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.build_model(cfg, torch.Generator(), device="cpu")
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.prefill_fn(cfg)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.decode_fn(cfg)
+    registry.prefill_fn(dense, 8)                 # the dense family builds
 
 
 @pytest.mark.parametrize("module", [
@@ -417,6 +434,25 @@ def test_fused_and_placement_modules_import_no_jax_and_no_reference(module):
 def test_fault_and_obs_modules_import_no_jax_and_no_reference(module):
     """Each module of the fault plane and the obs exports, on its own,
     pulls in neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.attention", "repro_torch.models.layers",
+    "repro_torch.models.transformer", "repro_torch.models.registry",
+    "repro_torch.configs.llama3_8b", "repro_torch.configs.qwen3_4b",
+    "repro_torch.configs.h2o_danube_1_8b"])
+def test_dense_path_modules_import_no_jax_and_no_reference(module):
+    """Each module of the dense family's serve path, on its own, pulls
+    in neither jax nor the reference package."""
     code = (f"import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "

@@ -11,9 +11,11 @@ pod: no tolerance.
 Cases: the fixed 4-pod plan of `tests/test_system.py` (8 chunks at 8
 bits on every offset) with and without compression; a plan whose bits
 policy gives 4, 8 and 16 bits on the three offsets with 4, 1 and 2
-chunks, from pod 2; and a cache of per-layer dicts from a reduced
-`mamba2-2.7b`, which the port stacks into the reference's leaves
-before it migrates (migrated per layer, the scales differ).
+chunks, from pod 2; and caches of per-layer dicts from a reduced
+`mamba2-2.7b` and a reduced `llama3-8b` (the dense family's bf16 k / v
+[L,B,KV,S,D], the cache WANify's migration plans move between pods),
+which the port stacks into the reference's leaves before it migrates
+(migrated per layer, the scales differ).
 """
 import importlib.util
 import json
@@ -32,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.control.schedule import offset_schedule
 from repro_torch.core.plan import WanPlan
-from repro_torch.models import ssm
+from repro_torch.models import registry, ssm
 from repro_torch.models.transformer import stack_cache
 from repro_torch.obs.spans import SpanTracer
 from repro_torch.serve.engine import kv_migrate
@@ -66,7 +68,9 @@ PLANS = {
 CASES = {"fixed": ("tree", "fixed", 0, True),
          "fixed_raw": ("tree", "fixed", 0, False),
          "mixed": ("tree", "mixed", 2, True),
-         "mamba": ("mamba", "fixed", 0, True)}
+         "mamba": ("mamba", "fixed", 0, True),
+         "dense": ("dense", "fixed", 0, True)}
+LAYERED = ("mamba", "dense")      # trees in the port's per-layer layout
 
 
 def make_plan(spec) -> WanPlan:
@@ -98,8 +102,13 @@ def _inputs():
                  size=(L,) + spec["conv"][0]).astype(np.float32)),
              "blocks/state": rng.normal(
                  size=(L,) + spec["state"][0]).astype(np.float32)}
-    dtypes = {"b": "bfloat16", "blocks/conv": "bfloat16"}
-    return {"tree": tree, "mamba": mamba}, dtypes
+    spec = registry.cache_spec(reduced(get_config("llama3-8b")), 2, 24)
+    dense = {f"blocks/{k}": _bf16_values(rng.normal(
+        size=(len(spec["blocks"]),) + spec["blocks"][0][k][0]).astype(
+        np.float32)) for k in ("k", "v")}
+    dtypes = {"b": "bfloat16", "blocks/conv": "bfloat16",
+              "blocks/k": "bfloat16", "blocks/v": "bfloat16"}
+    return {"tree": tree, "mamba": mamba, "dense": dense}, dtypes
 
 
 def _nest(flat):
@@ -148,8 +157,8 @@ def _migrate_pod(rank, n_pods, trees, dtypes):
     out = {}
     for name, (tree, plan, src, compress) in CASES.items():
         local = _nest(_local(trees[tree], dtypes, rank))
-        if tree == "mamba":     # the port's model layout: one dict per layer
-            L = len(local["blocks"]["conv"])
+        if tree in LAYERED:     # the port's model layout: one dict per layer
+            L = len(next(iter(local["blocks"].values())))
             local = {"blocks": [{k: v[i].clone() for k, v in
                                  local["blocks"].items()} for i in range(L)]}
         sent.clear()
@@ -160,9 +169,10 @@ def _migrate_pod(rank, n_pods, trees, dtypes):
             "sent": dict(sent),
             "span_offsets": [s["attrs"]["offset"] for s in tracer.spans],
             "span_s": [s["dur_s"] for s in tracer.spans]}
-        if tree == "mamba":
+        if tree in LAYERED:
             assert isinstance(moved["blocks"], list)
             moved = stack_cache(moved)
+        if tree == "mamba":
             # the same tensors as separate per-layer leaves
             per_layer = kv_migrate(tuple(local["blocks"]),
                                    make_plan(PLANS[plan]), src)

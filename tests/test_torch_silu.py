@@ -155,6 +155,18 @@ def test_wrappers_read_strided_inputs(dtype):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_silu_gate_value_only(dtype):
+    """`with_prod=False` (the SwiGLU MLP's call): the same value, no f32
+    product."""
+    y = torch.from_numpy(_inputs((3, 64), seed=13, scale=1.0)).to(dtype)
+    z = torch.from_numpy(_inputs((3, 64), seed=14)).to(dtype)
+    value, prod = ops.silu_gate(y, z, with_prod=False)
+    assert prod is None
+    torch.testing.assert_close(value, silu_gate_ref(y, z)[0], rtol=0,
+                               atol=0)
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.zeros((2, 4))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -226,6 +238,24 @@ def test_silu_gate_kernel_bit_equal_plain_on_card(card, case, dtype):
     for g, w in zip(got, want):
         assert g.is_contiguous()
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: f"{c[0]}+{c[1]}")
+def test_silu_gate_kernel_value_only_on_card(card, case, dtype):
+    """The launch with a null prod stores the same value, one launch."""
+    shape, extra, offset = case
+    z = _laid_out(torch.from_numpy(_inputs(shape, seed=10)).to(card, dtype),
+                  extra, offset)
+    y = torch.from_numpy(_inputs(tuple(z.shape), seed=9, scale=1.0)).to(
+        card, dtype)
+    before = ops.silu_gate.launches
+    value, prod = ops.silu_gate(y, z, with_prod=False)
+    torch.cuda.synchronize()
+    assert ops.silu_gate.launches == before + 1 and prod is None
+    assert value.is_contiguous()
+    torch.testing.assert_close(value, silu_gate_ref(y, z)[0], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
