@@ -19,7 +19,7 @@ Every phase is fatal: a failure exits non-zero before the result line.
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
-   two kernels' and waterfill's kernel's registers and spills, failing
+   three kernels' and waterfill's kernel's registers and spills, failing
    on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
@@ -250,6 +250,57 @@ Every phase is fatal: a failure exits non-zero before the result line.
    of each, the largest difference (each output row within 2^-5 of
    its max |out|), the bound (bytes, k and v at their 8 KV heads; the
    products at the bf16 tensor-core rate).
+13. train  — the dense family's training, after the dense phase's models
+   are freed:
+   (1) the slice's main path: `h2o-danube-1.8b` at its full width and
+   depth (24 layers, d 2560, 32 query / 8 KV heads, d_ff 6912, vocab
+   32,000; bf16 compute, f32 parameters and AdamW state, weights from a
+   `torch.Generator` seeded 0) trained by `Trainer` on one pod,
+   `DataConfig(batch=4, seq=1024)`, `sync="psum"`, remat "full", 6
+   steps (the reference training CLI's AdamW: lr 3e-4). Counts
+   zeroed just before the run and read just after: exactly 2 x 24 x 6
+   `silu_gate` launches (forward and recompute) and 24 x 6
+   `silu_gate_bwd`, no other kernel; every loss finite and the last
+   below the first; step wall ms (median and p90 after the first),
+   tokens/s, peak memory; one more step under `torch.profiler` for the
+   device ms by kind (the attention core's forward and backward,
+   cross-entropy, the optimizer, `silu_gate`, `silu_gate_bwd`, the
+   other products, the rest) and the busy share;
+   (2) the `silu_gate` kernel (value only) and the `silu_gate_bwd`
+   kernel against their plain versions on the inputs of layer 0's
+   forward and backward in one more step ([4, 1024, 6912] bf16),
+   bit-equal; the backward timed beside the bound (bytes: g, y, z in,
+   dy, dz out, 10 B an element in bf16);
+   (3) card against host: `llama3-8b`, `qwen3-4b` and `h2o-danube-1.8b`
+   at full width, 2 layers, f32 (TF32 off), one `make_train_step` step
+   on the card and on the host from the same weights and batch (B=1;
+   S=1,024 for `h2o-danube-1.8b`, 2 key blocks of flash forward and
+   VJP; 64 for the others): the loss within 1e-5 relative, every
+   gradient leaf within
+   1e-3 of its max |g|, the parameters after AdamW within 1e-6 relative
+   plus 1e-3 of the step's lr wherever |g| is above 1e-2 of the leaf's
+   max;
+   (4) the 4-pod WANify Trainer: `h2o-danube-1.8b` at full width cut to
+   4 of 24 layers (4 pods' f32 state at 16 B a parameter), 4 pods on
+   the card, `DataConfig(batch=8, seq=1024, n_pods=4, skew=0.5)`,
+   `sync="wanify"`, `compress=True`, a replan every 2 steps fed the
+   skew weights, checkpoints every 3 steps (a temporary directory), a
+   simulated failure at step 4, 8 steps, the reference training CLI's
+   forest (`train_default_forest(n_samples=150, n_trees=40)`,
+   `WanSimulator(seed=0)`) on the card. Counts zeroed before the
+   Trainer is built and read after: `rf_predict` launches equal to the
+   controller's predictions (its first plan and every replan),
+   `quantize` / `dequantize` launches to the schedule's parts of every
+   step's sync under the plan in force, the gates' to 4 pods x the
+   steps run; at least one replan; the failure restored from step 3.
+   The grouped quantize and the accumulating dequantize bit-equal to
+   their plain versions at the first call of each part layout of the
+   sync; the first step's compressed sync redone on the host (the plain
+   codec) bit-equal on every leaf of at most 32 Mi elements a pod;
+   `rf_predict` bit-equal to its plain version on every feature matrix
+   the controller predicted from. Prints the sync's ms a step (median
+   over the calls with no codec check) and its wire bytes a pod per
+   phase.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -276,6 +327,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import compat  # noqa: E402
+from repro_torch.compat import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.control import WanifyController  # noqa: E402
 from repro_torch.control.schedule import (offset_schedule,  # noqa: E402
@@ -284,6 +336,7 @@ from repro_torch.core.plan import WanPlan  # noqa: E402
 from repro_torch.core.predictor import (BwPredictor,  # noqa: E402
                                         SnapshotPredictor,
                                         assemble_features)
+from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.core.wansync import (psum_allreduce_batched,  # noqa: E402
                                       wan_allreduce_batched)
 from repro_torch.fleet import fused as fused_mod  # noqa: E402
@@ -308,12 +361,15 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_ref, fill_rates_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     silu_gate_ref, silu_ref, ssd_chunk_ref)
+                                     silu_gate_bwd_ref, silu_gate_ref,
+                                     silu_ref, ssd_chunk_ref)
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
+from repro_torch.models import transformer as lm_mod  # noqa: E402
 from repro_torch.models.transformer import (DenseLM, MambaLM,  # noqa: E402
-                                            stack_cache, unstack_cache)
+                                            param_tree, stack_cache,
+                                            stack_layers, unstack_cache)
 from repro_torch.obs import check_run  # noqa: E402
 from repro_torch.obs import cli as obs_cli  # noqa: E402
 from repro_torch.obs import load as obs_load  # noqa: E402
@@ -326,6 +382,12 @@ from repro_torch.scenarios import (ScenarioEngine, at,  # noqa: E402
 from repro_torch.scenarios.events import LinkDegrade  # noqa: E402
 from repro_torch.serve.engine import (Engine, Request,  # noqa: E402
                                       ServeConfig, kv_migrate)
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
+from repro_torch.train.loop import LoopConfig, Trainer  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
+                                         init_opt_state)
+from repro_torch.train.train_step import (as_batch,  # noqa: E402
+                                          make_train_step)
 from repro_torch.wan.dataset import (generate_dataset,  # noqa: E402
                                      train_default_forest)
 from repro_torch.wan.monitor import egress_price_vector  # noqa: E402
@@ -421,7 +483,7 @@ SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 # kernel and the tile form's cluster kernel
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
-SILU_KERNELS = ("silu_kernel", "silu_gate_kernel")
+SILU_KERNELS = ("silu_kernel", "silu_gate_kernel", "silu_gate_bwd_kernel")
 WF_KERNELS = ("waterfill_kernel",)
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
@@ -2376,7 +2438,7 @@ def _copy_laid_out(t: torch.Tensor) -> torch.Tensor:
     return c.copy_(t)
 
 
-GATED_OPS = ("ssd_chunk", "silu", "silu_gate")
+GATED_OPS = ("ssd_chunk", "silu", "silu_gate", "swiglu_gate")
 
 
 @contextlib.contextmanager
@@ -2395,13 +2457,17 @@ def patched(module, wrap, names):
 
 def first_calls(seen: dict):
     """A `patched` wrapper keeping the first call's (args, kwargs) of
-    each name in `seen` (tensors copied in their layouts)."""
+    each name in `seen` (tensors copied in their layouts). A wrapper in
+    place of a kernel wrapper in `ops` takes the launches that wrapper
+    counts under its own name while patched (`call.launches`, not
+    read)."""
     def wrap(name, fn):
         def call(*args, **kw):
             if name not in seen:
                 seen[name] = (tuple(_copy_laid_out(a) if isinstance(
                     a, torch.Tensor) else a for a in args), dict(kw))
             return fn(*args, **kw)
+        call.launches = 0
         return call
     return wrap
 
@@ -3119,13 +3185,17 @@ SDPA_TOL = 2.0 ** -5
 
 def dense_capture(step) -> dict:
     """Run `step` (a dense engine's prefill or decode) and return the
-    first call's inputs of `silu_gate` (layer 0's) and of the attention
-    core (`flash_attention` / `decode_attention`)."""
+    first call's inputs of `silu_gate` (layer 0's MLP gate: its
+    `swiglu_gate(y, z)` is `silu_gate(y, z, with_prod=False)`'s value)
+    and of the attention core (`flash_attention` /
+    `decode_attention`)."""
     seen = {}
     record = first_calls(seen)
     with patched(att, record, ATTN_CORE), \
             patched(model_layers, gated_ops(record), ("ops",)):
         step()
+    args, _ = seen.pop("swiglu_gate")
+    seen["silu_gate"] = (args, {"with_prod": False})
     return seen
 
 
@@ -3460,6 +3530,642 @@ def dense_phase(paper, dev, smi: str) -> dict:
     out = {"serve": serve, "attention": attn, "parity": parity,
            "s": time.perf_counter() - t_phase}
     log(f"[dense] phase {out['s']:.2f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
+# train phase
+# ----------------------------------------------------------------------
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
+# the reference training CLI's optimizer (src/repro/launch/train.py:
+# lr 3e-4, the default 100-step warm-up): at full size its loss falls
+# step by step, where a 2-step warm-up makes it jump (PERF.md, PR 22)
+TRAIN_OPT = dict(lr=3e-4)
+TRAIN_COUNTED = ("silu_gate", "silu_gate_bwd", "rf_predict", "quantize",
+                 "dequantize", "ssd_chunk", "silu")
+PARITY_BATCH = 1
+# keys of the card-against-host step: h2o-danube-1.8b at the train run's
+# 1,024, where flash walks 2 key blocks of 512 forward and in its VJP
+# (the 4,096 window not reached); llama3-8b and qwen3-4b (the same flash
+# code) at one block of 64: their large heads and AdamW dominate the
+# host's step (PERF.md, PR 22)
+PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ}
+PARITY_SEQ_OTHER = 64
+# the first step's compressed sync is redone on the host for every leaf
+# of at most this many elements a pod (the attention's and the norms':
+# all part layouts of the sync but the largest leaves')
+HOST_SYNC_MAX = 32 << 20
+GRAD_PARITY_TOL = 1e-3          # of each leaf's max |g|, card vs host
+POD_LAYERS = 4                  # of 24: 4 pods' f32 state at 16 B a parameter
+POD_STEPS, POD_BATCH, POD_FAIL_AT, POD_CKPT_EVERY = 8, 8, 4, 3
+ATTN_FWD, ATTN_BWD, XENT, OPTIM = ("attention_fwd", "attention_bwd",
+                                   "cross_entropy", "optimizer")
+XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
+
+
+def train_profile(fn) -> dict:
+    """Device ms by kind of `fn` (one train step) under `torch.profiler`:
+    the attention core's forward and backward (`_flash_fwd` /
+    `_flash_bwd` inside `record_function` ranges, their products
+    included), cross-entropy (`chunked_xent` in a range, and the kernels
+    of its backward nodes: log-sum-exp, gather, mean), the optimizer
+    (`adamw_update` in a range), `silu_gate` and `silu_gate_bwd` (by
+    kernel name), the other matrix products (cuBLAS / CUTLASS names) and
+    the rest; the kernels run."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(label):
+        def wrap(_, f):
+            def call(*a, **k):
+                with record_function(label):
+                    return f(*a, **k)
+            return call
+        return wrap
+
+    with patched(att, ranged(ATTN_FWD), ("_flash_fwd",)), \
+            patched(att, ranged(ATTN_BWD), ("_flash_bwd",)), \
+            patched(lm_mod, ranged(XENT), ("chunked_xent",)), \
+            patched(train_step_mod, ranged(OPTIM), ("adamw_update",)), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def is_matmul(name):
+        return any(k in name.lower() for k in MATMUL_KEYS)
+
+    total = matmul = 0.0
+    by = {"silu_gate": 0.0, "silu_gate_bwd": 0.0}
+    n_kernels = 0
+    for e in events:
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
+                or e.name in (ATTN_FWD, ATTN_BWD, XENT, OPTIM):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        total += ms
+        n_kernels += 1
+        matmul += ms if is_matmul(e.name) else 0.0
+        if "silu_gate_bwd" in e.name:
+            by["silu_gate_bwd"] += ms
+        elif "silu_gate" in e.name:
+            by["silu_gate"] += ms
+    # kernels under each range or backward node, each CPU op once
+    ranged_mm = 0.0
+    for kind in (ATTN_FWD, ATTN_BWD, XENT, OPTIM):
+        roots = [e for e in events if e.device_type != cuda and (
+            e.name == kind or (kind == XENT and e.name.startswith(
+                "autograd::engine::evaluate_function") and any(
+                n in e.name for n in XENT_NODES)))]
+        seen, stack, ms = set(), list(roots), 0.0
+        while stack:
+            e = stack.pop()
+            if id(e) in seen:
+                continue
+            seen.add(id(e))
+            for k in e.kernels:
+                ms += k.duration / 1e3
+                ranged_mm += k.duration / 1e3 if is_matmul(k.name) else 0.0
+            stack.extend(e.cpu_children)
+        by[kind] = ms
+    by["matmul_other"] = matmul - ranged_mm
+    by["rest"] = total - sum(by.values())
+    return {"device_ms": total, "kernels": n_kernels, "by_kind": by}
+
+
+def check_bwd(args) -> float:
+    """The silu_gate_bwd kernel (on the CPU: the wrapper's plain path)
+    against its plain version on the same inputs: dy and dz bit-equal,
+    finite, of the input's shape. Returns max |diff| (0)."""
+    got = ops.silu_gate_bwd(*args)
+    want = silu_gate_bwd_ref(*args)
+    sync(args[0].device)
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if g.shape != tuple(args[0].shape) or not np.isfinite(g).all():
+            raise AssertionError(f"silu_gate_bwd output {g.shape} or "
+                                 f"non-finite values")
+        np.testing.assert_array_equal(g, w)
+        err = max(err, float(np.max(np.abs(g - w))))
+    return err
+
+
+def bwd_bound(args):
+    """(ms, bound_by, bytes, ops): g, y, z read once and dy, dz written
+    once (5 elements of the dtype), against 13 f32 operations an element
+    (exp, add, divide and a multiply for the logistic and silu, the dy
+    product, six more products, a difference and the sum)."""
+    n, e = args[0].numel(), args[0].element_size()
+    nbytes, nops = 5 * n * e, 13 * n
+    return roofline(nbytes, nops) + (nbytes, nops)
+
+
+def time_bwd(args) -> dict:
+    """Device ms of the wrapper's call (one launch) beside the plain
+    version and the bound."""
+    bound_ms, by, nbytes, nops = bwd_bound(args)
+    return {"shape": list(args[0].shape),
+            "dtype": str(args[0].dtype).replace("torch.", ""),
+            "ms": graph_ms(lambda: ops.silu_gate_bwd(*args), launches=20,
+                           reps=11),
+            "wrapper_ms": call_ms(lambda: ops.silu_gate_bwd(*args)),
+            "plain_ms": call_ms(lambda: silu_gate_bwd_ref(*args)),
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "ops": nops}
+
+
+def counted(names=TRAIN_COUNTED) -> dict:
+    return {name: getattr(ops, name).launches for name in names}
+
+
+def zero_train_counts(names=TRAIN_COUNTED) -> None:
+    for name in names:
+        getattr(ops, name).launches = 0
+
+
+def train_single(cfg, dev, steps: int = TRAIN_STEPS,
+                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """Part (1): `cfg` trained by the Trainer on one pod (`sync="psum"`,
+    remat "full", random weights from a generator seeded 0), counts
+    zeroed just before the run and read just after; then one more step
+    under the profiler and one capturing the gate's backward inputs."""
+    dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab)
+    tr = Trainer(cfg, 1, dcfg, LoopConfig(steps=steps, sync="psum"),
+                 opt=AdamWConfig(total_steps=steps, **TRAIN_OPT),
+                 device=dev)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    params, state = tr.run(0)
+    run_s = time.perf_counter() - t0
+    got = counted()
+    want = {"silu_gate": 2 * cfg.n_layers * steps,
+            "silu_gate_bwd": cfg.n_layers * steps, "rf_predict": 0,
+            "quantize": 0, "dequantize": 0, "ssd_chunk": 0, "silu": 0}
+    if got != want:
+        raise AssertionError(f"train launches {got}, expected {want}: under "
+                             f"per-layer remat the gate runs twice a layer a "
+                             f"step (forward, recompute), its backward once")
+    losses = [h["loss"] for h in tr.history]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}: not finite, or no fall")
+    step_ms = [h["time"] * 1e3 for h in tr.history]
+    res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "steps": steps, "params": registry.param_count(cfg),
+           "launches": got, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in tr.history],
+           "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms[1:])),
+           "step_ms_p90": float(np.percentile(step_ms[1:], 90)),
+           "run_s": run_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None}
+    res["tokens_per_s"] = batch * seq / (res["step_ms_median"] / 1e3)
+    step_fn = tr._get_step()
+    data = batches(cfg, dcfg)
+    if dev.type == "cuda":
+        b = next(data)
+        sync(dev)
+        t0 = time.perf_counter()
+        step_fn(params, state, b)
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = train_profile(lambda: step_fn(params, state, next(data)))
+        prof["busy_share"] = prof["device_ms"] / wall
+        prof["wall_ms"] = wall
+        res["profile"] = prof
+    seen = {}
+    with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd")):
+        step_fn(params, state, next(data))
+    res["fwd_call"] = seen["silu_gate"]
+    res["bwd_args"] = seen["silu_gate_bwd"][0]
+    del tr, params, state, step_fn
+    return res
+
+
+def step_parity(cfg, dev) -> dict:
+    """Part (3): one `make_train_step` step of `cfg` (f32) on the card and
+    on the host from the same weights and batch (B=1, S from
+    PARITY_SEQ): the loss, every gradient leaf (within GRAD_PARITY_TOL
+    of its max |g|; `_grads_of`, the step's own gradient function) and
+    the parameters after AdamW
+    wherever |g| is above 1e-2 of the leaf's max (there AdamW's first
+    step moves each element by lr times its gradient's sign, which the
+    sum order cannot flip): within 1e-6 relative plus a thousandth of
+    the step's lr (eps = 1e-8 lets a small gradient's error reach the
+    update)."""
+    t0 = time.perf_counter()
+    seq = PARITY_SEQ.get(cfg.arch_id, PARITY_SEQ_OTHER)
+    card = registry.build_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host = DenseLM(cfg, torch.device("cpu"), torch.float32)
+    host.load_state_dict(card.state_dict())
+    trees = {"card": stack_layers(param_tree(card)),
+             "host": stack_layers(param_tree(host))}
+    del card, host
+    b = next(batches(cfg, DataConfig(batch=PARITY_BATCH, seq=seq,
+                                     vocab=cfg.vocab)))
+    out, grads, after, secs = {}, {}, {}, {}
+    for name, params in trees.items():
+        t1 = time.perf_counter()
+        dev_b = as_batch(b, params["embed"].device)
+        _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32, "full")(
+            params, dev_b)
+        grads[name] = tree_map(lambda t: t.cpu(), g)
+        del g
+        step = make_train_step(cfg, opt=AdamWConfig(), sync="psum")
+        params, _, out[name] = step(params, init_opt_state(params), dev_b)
+        after[name] = tree_map(lambda t: t.cpu(), params)
+        sync(params["embed"].device)
+        secs[name] = time.perf_counter() - t1
+    del trees, params
+    worst = {"loss": abs(float(out["card"]["loss"]) -
+                         float(out["host"]["loss"])) /
+             abs(float(out["host"]["loss"])), "grad": 0.0, "param": 0.0}
+    if not (np.isfinite(float(out["card"]["loss"])) and
+            worst["loss"] <= 1e-5):
+        raise AssertionError(f"{cfg.arch_id} step parity: loss "
+                             f"{float(out['card']['loss'])} vs "
+                             f"{float(out['host']['loss'])}")
+    lr = float(out["host"]["lr"])
+    for (path, gc), (_, gh), (_, c), (_, h) in zip(
+            *(tree_items(t) for t in (grads["card"], grads["host"],
+                                      after["card"], after["host"]))):
+        gc, gh = gc.numpy(), gh.numpy()
+        mag = float(np.abs(gh).max())
+        err = float(np.abs(gc - gh).max()) / mag
+        worst["grad"] = max(worst["grad"], err)
+        if not (np.isfinite(gc).all() and err <= GRAD_PARITY_TOL):
+            raise AssertionError(f"{cfg.arch_id} {path}: grad off by {err:.3g}"
+                                 f" of its max |g| {mag:.3g}")
+        clear = np.abs(gh) > 1e-2 * mag
+        c, h = c.numpy()[clear], h.numpy()[clear]
+        # the excess over the allowance, in units of the step's lr
+        excess = float(((np.abs(c - h) - 1e-6 * np.abs(h)) / lr).max()) \
+            if c.size else 0.0
+        worst["param"] = max(worst["param"], excess)
+        if excess > 1e-3:
+            raise AssertionError(f"{cfg.arch_id} {path}: parameter after "
+                                 f"AdamW off by {excess:.3g} lr beyond 1e-6 "
+                                 f"relative")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {**worst, "layers": cfg.n_layers, "batch": PARITY_BATCH,
+            "seq": seq, "card_s": secs["card"], "host_s": secs["host"],
+            "s": time.perf_counter() - t0}
+
+
+def tree_items(tree, prefix=""):
+    """[(path, tensor)] of a nested dict, in its order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(tree_items(v, f"{prefix}{k}."))
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def sync_launches(plan: WanPlan, shapes, compress: bool) -> int:
+    """Quantize (and dequantize) launches of one `wan_allreduce_batched`
+    call over leaves of `shapes` (the pod dim left out): a launch per
+    part of each leaf in each phase with an int8 payload."""
+    return 0 if not compress else sum(
+        sync_parts(s, ph["chunks"]) for s in shapes
+        for ph in offset_schedule(plan) if ph["bits"] <= 8)
+
+
+def sync_wire_bytes(plan: WanPlan, leaves, compress: bool) -> list:
+    """Bytes one pod puts on the wire in each offset phase of the batched
+    sync: every leaf at the phase's bits (1 B an element below 16 bits,
+    2 B at 16, its own width at 32) and a 4-byte scale per part below
+    16 bits."""
+    out = []
+    for ph in offset_schedule(plan):
+        bits = ph["bits"] if compress else 32
+        n = 0
+        for x in leaves:
+            per = x[0]
+            width = 1 if bits <= 8 else 2 if bits == 16 else \
+                per.element_size()
+            n += per.numel() * width
+            n += 4 * sync_parts(tuple(per.shape), ph["chunks"]) \
+                if bits <= 8 else 0
+        out.append(n)
+    return out
+
+
+class SyncTap:
+    """Wraps the train step's `wan_allreduce_batched`: per call the plan,
+    the leaves' shapes, the device ms of the call (synchronised around
+    it), the wire bytes a pod sends per phase and the codec layouts
+    checked during it (`codec`, a CodecCheck). The first call is redone
+    on the host for every leaf of at most HOST_SYNC_MAX elements a pod
+    (the same function on host copies: the plain codec) and held equal
+    to the card's output bit for bit."""
+
+    def __init__(self, codec):
+        self.calls, self.codec, self.host = [], codec, None
+
+    def __call__(self, _, fn):
+        def call(tree, plan, *, compress=False, mean=True):
+            leaves = list(tree_leaves(tree))
+            small = [(path, x.detach().cpu()) for path, x in tree_items(tree)
+                     if x[0].numel() <= HOST_SYNC_MAX] \
+                if self.host is None else []
+            checked = len(self.codec.checked)
+            sync(leaves[0].device)
+            t0 = time.perf_counter()
+            out = fn(tree, plan, compress=compress, mean=mean)
+            sync(leaves[0].device)
+            self.calls.append({
+                "signature": repr(plan.signature()), "plan": plan,
+                "shapes": [tuple(x.shape[1:]) for x in leaves],
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "codec_checks": len(self.codec.checked) - checked,
+                "wire_bytes": sync_wire_bytes(plan, leaves, compress)})
+            if small:
+                self.host = host_sync_check(fn, dict(small), out, plan,
+                                            compress, mean)
+            return out
+        return call
+
+
+def host_sync_check(fn, host_in: dict, out, plan: WanPlan, compress: bool,
+                    mean: bool) -> dict:
+    """`fn` (the batched sync) on host copies of the leaves `host_in`
+    ({path: [P, ...] tensor}) against the card's output `out` at those
+    paths: bit-equal. Returns the leaves, their elements and seconds."""
+    t0 = time.perf_counter()
+    host_out = fn(host_in, plan, compress=compress, mean=mean)
+    card = dict(tree_items(out))
+    for path, h in host_out.items():
+        c = card[path].cpu()
+        if c.shape != h.shape or not torch.equal(c, h):
+            bad = (c != h).sum().item() if c.shape == h.shape else "all"
+            raise AssertionError(f"4-pod sync {path}: the card's compressed "
+                                 f"sync differs from the host's ({bad} "
+                                 f"elements)")
+    return {"leaves": sorted(host_out),
+            "elements": sum(h.numel() for h in host_out.values()),
+            "s": time.perf_counter() - t0}
+
+
+class CodecCheck:
+    """A `patched` wrapper for `ops.quantize_groups` and
+    `ops.dequantize_groups_add` on the train step's sync: the first call
+    at each input layout (shapes, strides, dtypes, bits) on `dev` is
+    held against the plain version on the same inputs, bit for bit. The
+    kernel runs once, as the path's own call, and counts as always;
+    calls on another device (the host's redo) pass through."""
+
+    def __init__(self, dev):
+        self.dev, self.seen, self.checked = dev, set(), []
+
+    def __call__(self, name, fn):
+        def call(*args):
+            x = args[0]
+            key = (name,) + tuple(
+                (tuple(a.shape), a.stride(), a.dtype)
+                if isinstance(a, torch.Tensor) else a for a in args)
+            if x.device.type != self.dev.type or key in self.seen:
+                return fn(*args)
+            self.seen.add(key)
+            if name == "quantize_groups":
+                got = fn(*args)
+                want = quantize_groups_ref(*args)
+            else:
+                q, scale, acc = args
+                before = acc.clone()
+                got = (fn(*args),)
+                want = (dequantize_groups_add_ref(q, scale, before),)
+            sync(x.device)
+            for g, w in zip(got, want):
+                if g.shape != w.shape or not torch.equal(g, w):
+                    raise AssertionError(f"{name} at {key[1:]}: kernel != "
+                                         f"plain on the sync's part")
+            self.checked.append({"kernel": name, "shape": list(x.shape),
+                                 "stride": list(x.stride()),
+                                 "dtype": str(x.dtype).replace("torch.",
+                                                               ""),
+                                 "bits": args[1] if name ==
+                                 "quantize_groups" else None})
+            return got if name == "quantize_groups" else got[0]
+        return call
+
+
+class PredictRecorder:
+    """A `patched` wrapper for `BwPredictor.predict_matrix`: keeps every
+    call's predictor and snapshot features (`assemble_features`'
+    arguments) for `check_kernel` after the run."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, _, fn):
+        def call(pred, n_dcs, snap_bw, mem_util, cpu_load, retrans, dist,
+                 *a, **kw):
+            self.calls.append((pred, n_dcs) + tuple(
+                np.array(v, copy=True) for v in (snap_bw, mem_util,
+                                                 cpu_load, retrans, dist)))
+            return fn(pred, n_dcs, snap_bw, mem_util, cpu_load, retrans,
+                      dist, *a, **kw)
+        return call
+
+
+def train_pods(cfg, dev, forest, steps: int = POD_STEPS,
+               batch: int = POD_BATCH, seq: int = TRAIN_SEQ,
+               fail_at: int = POD_FAIL_AT) -> dict:
+    """Part (4): `cfg` on 4 pods of the one card through the WANify
+    Trainer (skew 0.5, `sync="wanify"`, `compress=True`, a replan every
+    2 steps fed the skew weights, checkpoints every 3 steps into a
+    temporary directory, a simulated failure at `fail_at`), the
+    reference CLI's forest on the card; counts zeroed just before the
+    Trainer is built (its controller's first plan predicts) and read
+    after the run. The codec kernels are held against their plain
+    versions at each part layout of the sync (CodecCheck), the first
+    sync against the host's (SyncTap), and `rf_predict` against its
+    plain version on each of the controller's feature matrices."""
+    codec, preds = CodecCheck(dev), PredictRecorder()
+    tap = SyncTap(codec)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d, \
+            patched(train_step_mod, tap, ("wan_allreduce_batched",)), \
+            patched(ops, codec, ("quantize_groups",
+                                 "dequantize_groups_add")), \
+            patched(BwPredictor, preds, ("predict_matrix",)):
+        dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab,
+                          n_pods=N_PODS, skew=0.5)
+        lc = LoopConfig(steps=steps, ckpt_dir=d, ckpt_every=POD_CKPT_EVERY,
+                        sync="wanify", compress=True, replan_every=2)
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, N_PODS, dcfg, lc, opt=AdamWConfig(
+            total_steps=steps, **TRAIN_OPT), sim=WanSimulator(seed=0),
+            predictor=BwPredictor(forest, device=dev), device=dev)
+        first = (tr.plan.conns, tr.plan.compress_bits)
+        tr.run(0, fail_at=fail_at)
+        run_s = time.perf_counter() - t0
+        got = counted()
+        ckpt_steps = sorted(os.listdir(d))
+    executed = len(tr.history)
+    predictions = int(tr.controller.metrics.counters()["replans_total"])
+    quant = sum(sync_launches(c["plan"], c["shapes"], True)
+                for c in tap.calls)
+    want = {"silu_gate": 2 * cfg.n_layers * N_PODS * executed,
+            "silu_gate_bwd": cfg.n_layers * N_PODS * executed,
+            "rf_predict": predictions, "quantize": quant,
+            "dequantize": quant, "ssd_chunk": 0, "silu": 0}
+    problems = []
+    if got != want:
+        problems.append(f"launches {got}, expected {want}")
+    if len(tap.calls) != executed:
+        problems.append(f"{len(tap.calls)} syncs for {executed} steps")
+    if not any(e.startswith("replanned at step") for e in tr.events):
+        problems.append("no replan")
+    if f"simulated failure at step {fail_at}" not in tr.events or \
+            f"restored step {POD_CKPT_EVERY}" not in tr.events:
+        problems.append("no restore after the failure")
+    losses = [h["loss"] for h in tr.history]
+    if not np.isfinite(losses).all():
+        problems.append(f"losses {losses}")
+    kernels = {c["kernel"] for c in codec.checked}
+    if kernels != {"quantize_groups", "dequantize_groups_add"} or \
+            tap.host is None:
+        problems.append(f"codec layouts checked {codec.checked}, host "
+                        f"sync {tap.host}")
+    if len(preds.calls) != predictions:
+        problems.append(f"{len(preds.calls)} predict_matrix calls for "
+                        f"{predictions} predictions")
+    if problems:
+        raise AssertionError(f"4-pod trainer: {'; '.join(problems)}; events "
+                             f"{tr.events}")
+    # rf_predict on each feature matrix the controller predicted from
+    rf_err = max(check_kernel(pred.forest, assemble_features(*args), dev)
+                 for pred, *args in preds.calls)
+    # the median over the calls with no codec check in them
+    sync_ms = [c["ms"] for c in tap.calls]
+    clean_ms = [c["ms"] for c in tap.calls if not c["codec_checks"]]
+    res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "pods": N_PODS,
+           "batch": batch, "seq": seq, "steps": steps, "fail_at": fail_at,
+           "params_per_pod": registry.param_count(cfg),
+           "launches": got, "predictions": predictions,
+           "steps_run": executed, "events": tr.events,
+           "first_plan": {"conns": first[0], "bits": first[1]},
+           "plan": {"conns": tr.plan.conns, "bits": tr.plan.compress_bits},
+           "signatures": [c["signature"] for c in tap.calls],
+           "losses": losses, "step_ms": [h["time"] * 1e3
+                                         for h in tr.history],
+           "sync_ms": sync_ms,
+           "sync_ms_median": float(np.median(clean_ms or sync_ms)),
+           "sync_ms_unchecked": len(clean_ms),
+           "codec_checked": codec.checked, "host_sync": tap.host,
+           "rf_predict_checked": len(preds.calls),
+           "rf_predict_max_abs_err": rf_err,
+           "wire_bytes": [c["wire_bytes"] for c in tap.calls],
+           "checkpoints": ckpt_steps, "run_s": run_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None}
+    del tr
+    return res
+
+
+def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
+                parity_cfgs=None) -> dict:
+    """The train phase (see the head comment); every check fatal. The
+    configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
+    POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32)."""
+    t_phase = time.perf_counter()
+    # the reference training CLI's forest (src/repro/launch/train.py)
+    forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
+    cfg = cfg or get_config(TRAIN_ARCH)
+    single = train_single(cfg, dev)
+    log(f"[train] {cfg.arch_id} {cfg.n_layers} layers ({single['params']} "
+        f"params), B={single['batch']} S={single['seq']}, {single['steps']} "
+        f"steps psum, remat full: step ms median "
+        f"{single['step_ms_median']:.2f}, p90 {single['step_ms_p90']:.2f} "
+        f"(first {single['step_ms'][0]:.1f}); {single['tokens_per_s']:.1f} "
+        f"tokens/s; peak device memory "
+        f"{(single['peak_bytes'] or 0) / 2**30:.3f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in single["losses"])
+        + f"; launches {single['launches']} | {smi}")
+    if "profile" in single:
+        pr = single["profile"]
+        log(f"[train] profile of one step: {pr['kernels']} device kernels, "
+            f"{pr['device_ms']:.2f} ms of a {pr['wall_ms']:.2f} ms step "
+            f"({pr['busy_share']:.1%} busy); by kind " + ", ".join(
+                f"{k} {v:.2f}" for k, v in pr["by_kind"].items()))
+    fwd_args, fwd_kw = single.pop("fwd_call")
+    single["silu_gate"] = {"max_abs_err": check_silu("silu_gate", fwd_args,
+                                                     fwd_kw),
+                           "shape": list(fwd_args[0].shape),
+                           "kw": fwd_kw}
+    log(f"[train] silu_gate {list(fwd_args[0].shape)} "
+        f"{str(fwd_args[0].dtype).replace('torch.', '')} {fwd_kw} at a "
+        f"train step's first layer: bit-equal to plain")
+    del fwd_args
+    args = single.pop("bwd_args")
+    err = check_bwd(args)
+    single["silu_gate_bwd"] = {"max_abs_err": err}
+    if dev.type == "cuda":
+        t = time_bwd(args)
+        single["silu_gate_bwd"]["timing"] = t
+        log(f"[train] silu_gate_bwd {t['shape']} {t['dtype']}: bit-equal to "
+            f"plain; kernel {t['ms']:.5f} ms (device, graph of 20 calls) | "
+            f"plain {t['plain_ms']:.5f} ms | bound {t['bound_ms']:.5f} ms by "
+            f"{t['bound_by']} ({t['bytes']} B) | library call: none | {smi}")
+    del args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    parity = {}
+    for pcfg in parity_cfgs or [get_config(a).replace(
+            n_layers=PARITY_LAYERS, dtype="float32") for a in DENSE_ARCHS]:
+        parity[pcfg.arch_id] = p = step_parity(pcfg, dev)
+        log(f"[train] step parity {pcfg.arch_id} {pcfg.n_layers} layers f32, "
+            f"B={p['batch']} S={p['seq']} (card {p['card_s']:.1f} s, host "
+            f"{p['host_s']:.1f} s): loss {p['loss']:.3g} relative, "
+            f"gradients within {p['grad']:.3g} of each leaf's max |g| "
+            f"(limit {GRAD_PARITY_TOL}), parameters after AdamW within "
+            f"1e-6 relative + {p['param']:.3g} lr where |g| is clear of 0 "
+            f"(limit 1e-3 lr); "
+            f"{p['s']:.1f} s")
+    pod_cfg = pod_cfg or cfg.replace(n_layers=POD_LAYERS)
+    pods = train_pods(pod_cfg, dev, forest)
+    log(f"[train] 4-pod WANify {pod_cfg.arch_id} {pod_cfg.n_layers} of "
+        f"{cfg.n_layers} layers ({pods['params_per_pod']} params a pod), "
+        f"B={pods['batch']} S={pods['seq']}: {pods['steps_run']} steps run "
+        f"in {pods['run_s']:.1f} s; events {pods['events']}; launches "
+        f"{pods['launches']} ({pods['predictions']} predictions); first plan "
+        f"{pods['first_plan']}, last {pods['plan']}; sync ms a step median "
+        f"{pods['sync_ms_median']:.2f} (all: "
+        + ", ".join(f"{x:.1f}" for x in pods["sync_ms"])
+        + f"; median over the {pods['sync_ms_unchecked']} with no codec "
+        f"check); wire bytes a pod per phase, first step "
+        f"{pods['wire_bytes'][0]}"
+        f"; checkpoints {pods['checkpoints']}; peak device memory "
+        f"{(pods['peak_bytes'] or 0) / 2**30:.3f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in pods["losses"]) + f" | {smi}")
+    hs = pods["host_sync"]
+    lengths = [c["shape"][1] for c in pods["codec_checked"]]
+    log(f"[train] 4-pod checks: quantize_groups / dequantize_groups_add "
+        f"bit-equal to plain at the first call of each of "
+        f"{len(pods['codec_checked'])} part layouts (4 pod slices of "
+        f"{min(lengths)} to {max(lengths)} elements); the first sync "
+        f"redone on the host bit-equal over "
+        f"{len(hs['leaves'])} leaves ({hs['elements']} elements, "
+        f"{hs['s']:.1f} s); rf_predict bit-equal to plain on all "
+        f"{pods['rf_predict_checked']} feature matrices the controller "
+        f"predicted from")
+    out = {"single": single, "parity": parity, "pods": pods,
+           "s": time.perf_counter() - t_phase}
+    log(f"[train] phase {out['s']:.2f} s")
     return out
 
 
@@ -4097,11 +4803,18 @@ def main() -> int:
     dense = dense_phase(paper, dev, smi)
     results["dense"] = dense
 
+    # 13. train: h2o-danube-1.8b trained at full size through the
+    # silu_gate kernels, the three dense archs' card-vs-host train step,
+    # the 4-pod WANify Trainer
+    train = train_phase(dev, smi)
+    results["train"] = train
+
     t = timing[f"n{TICK_ROWS}"]
     s0 = ssd_timing[0]
     wf = scen["waterfill"]["timing"][0]          # one 8-DC fill
     qs = q_timing["part_state_c8"]
     dg = dense["serve"]["silu_gate"]["timing"]["prefill1"]
+    tb = train["single"]["silu_gate_bwd"]["timing"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -4141,6 +4854,14 @@ def main() -> int:
         "max_abs_err": dense["serve"]["silu_gate"]["max_abs_err"],
         "ms": dg["ms"], "plain_ms": dg["plain_ms"],
         "bound_ms": dg["bound_ms"], "bound_by": dg["bound_by"],
+        "library_ms": None}] + [{
+        "name": "silu_gate_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/silu.cu",
+        "replaces": "src/repro/models/layers.py:89",
+        "launches": train["single"]["launches"]["silu_gate_bwd"],
+        "max_abs_err": train["single"]["silu_gate_bwd"]["max_abs_err"],
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
         "library_ms": None}] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",

@@ -30,7 +30,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["pod_index", "pod_count", "ppermute", "run_pods", "tree_map"]
+__all__ = ["pod_index", "pod_count", "ppermute", "run_pods", "tree_map",
+           "tree_leaves"]
 
 _GRACE_S = 5.0      # how long other pods' reports are awaited after a failure
 
@@ -79,6 +80,19 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: Any):
+    """The leaves of nested dicts, lists and tuples, in `tree_map`'s
+    order (dicts in their insertion order)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 def _pod_main(fn, rank: int, n_pods: int, store_path: str, timeout_s: float,

@@ -1,5 +1,6 @@
-// Mamba-2's two SiLU gates, rounded where the JAX package's compiled CPU
-// program rounds them, for Hopper (sm_90a).
+// Mamba-2's two SiLU gates and the SwiGLU gate's gradient, rounded where
+// the JAX package's compiled CPU program rounds them, for Hopper
+// (sm_90a).
 //
 // The JAX package has no kernel here: src/repro/models/ssm.py calls
 // jax.nn.silu on the causal conv's output (:137, :184) and on the gate z
@@ -18,7 +19,20 @@
 //    SwiGLU MLP, src/repro/models/layers.py:89, reads nothing else):
 //    6 bytes an element in bf16 instead of 10.
 //
-// Both are elementwise and read their inputs once: bound by bytes. On
+//  * silu_gate_bwd_kernel: the gradient of the SwiGLU gate's value
+//    silu(z) * y (src/repro/models/layers.py:89) given its cotangent g,
+//    in the ops XLA derives for it and rounds each op of, in bf16
+//    (jax.jit(jax.vjp(...)).lower(...).compile().as_text()):
+//      s  = 1 / (1 + exp(-z))         each op rounded, as above
+//      dy = g * (z * s)               g times the forward's rounded silu
+//      gy = g * y
+//      dz = gy * s + (z * gy) * (s * (1 - s))
+//    every product, the difference and the sum rounded to T; the
+//    derivative of the logistic stays the product rule's two terms, as
+//    XLA keeps them. 10 bytes an element in bf16 (g, y, z in; dy, dz
+//    out); the plain version is kernels/ref.py::silu_gate_bwd_ref.
+//
+// All three are elementwise and read their inputs once: bound by bytes. On
 // bf16 (the serve model's prefill) a thread takes 4 elements of each
 // input with one 8-byte load where the rows allow (unit stride, a
 // multiple of 4 wide, 8-byte aligned), else one element; f32 inputs (a
@@ -135,6 +149,49 @@ silu_gate_kernel(const T* __restrict__ y, long long ldy, long long incy,
   }
 }
 
+// g, y, z [rows, d], each rows `ld*` apart and elements `inc*` apart ->
+// dy, dz [rows, d] in T, dense
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+silu_gate_bwd_kernel(const T* __restrict__ g, long long ldg, long long incg,
+                     const T* __restrict__ y, long long ldy, long long incy,
+                     const T* __restrict__ z, long long ldz, long long incz,
+                     T* __restrict__ dy, T* __restrict__ dz, long long rows,
+                     long long d) {
+  const long long cols = d / V;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    for (long long c = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+         c < cols; c += static_cast<long long>(gridDim.x) * kThreads) {
+      const Vec<T, V> gv =
+          *reinterpret_cast<const Vec<T, V>*>(g + r * ldg + c * V * incg);
+      const Vec<T, V> yv =
+          *reinterpret_cast<const Vec<T, V>*>(y + r * ldy + c * V * incy);
+      const Vec<T, V> zv =
+          *reinterpret_cast<const Vec<T, V>*>(z + r * ldz + c * V * incz);
+      Vec<T, V> dyv, dzv;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float gi = to_f32(gv.v[i]);
+        const float zi = to_f32(zv.v[i]);
+        const float e = rnd<T>(expf(-zi));
+        const float u = rnd<T>(__fadd_rn(1.0f, e));
+        const float s = rnd<T>(__fdiv_rn(1.0f, u));
+        const float silu = rnd<T>(__fmul_rn(zi, s));
+        dyv.v[i] = from_f32<T>(__fmul_rn(gi, silu));
+        const float gy = rnd<T>(__fmul_rn(gi, to_f32(yv.v[i])));
+        const float t1 = rnd<T>(__fmul_rn(gy, s));
+        const float zg = rnd<T>(__fmul_rn(zi, gy));
+        const float ds = rnd<T>(__fmul_rn(s, rnd<T>(__fsub_rn(1.0f, s))));
+        const float t2 = rnd<T>(__fmul_rn(zg, ds));
+        dzv.v[i] = from_f32<T>(__fadd_rn(t1, t2));
+      }
+      *reinterpret_cast<Vec<T, V>*>(dy + r * d + c * V) = dyv;
+      *reinterpret_cast<Vec<T, V>*>(dz + r * d + c * V) = dzv;
+    }
+  }
+}
+
 bool aligned(const void* p, long long bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -184,6 +241,27 @@ void silu_gate(const void* y, long long ldy, long long incy, const void* z,
         yt, ldy, incy, zt, ldz, incz, vt, pt, rows, d);
 }
 
+template <typename T>
+void silu_gate_bwd(const void* g, long long ldg, long long incg, const void* y,
+                   long long ldy, long long incy, const void* z,
+                   long long ldz, long long incz, void* dy, void* dz,
+                   long long rows, long long d, cudaStream_t st) {
+  const T* gt = static_cast<const T*>(g);
+  const T* yt = static_cast<const T*>(y);
+  const T* zt = static_cast<const T*>(z);
+  T* dyt = static_cast<T*>(dy);
+  T* dzt = static_cast<T*>(dz);
+  if (use_vec<T>(d, ldg, incg, g) && use_vec<T>(d, ldy, incy, y) &&
+      use_vec<T>(d, ldz, incz, z) && aligned(dy, sizeof(T) * kVec<T>) &&
+      aligned(dz, sizeof(T) * kVec<T>))
+    silu_gate_bwd_kernel<T, kVec<T>>
+        <<<grid_of(rows, d / kVec<T>), kThreads, 0, st>>>(
+            gt, ldg, 1, yt, ldy, 1, zt, ldz, 1, dyt, dzt, rows, d);
+  else
+    silu_gate_bwd_kernel<T, 1><<<grid_of(rows, d), kThreads, 0, st>>>(
+        gt, ldg, incg, yt, ldy, incy, zt, ldz, incz, dyt, dzt, rows, d);
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16. Each returns cudaGetLastError() (0 =
@@ -213,6 +291,25 @@ extern "C" int silu_gate_launch(const void* y, long long ldy, long long incy,
   else if (dtype == 1)
     silu_gate<__nv_bfloat16>(y, ldy, incy, z, ldz, incz, value, prod, rows,
                              d, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int silu_gate_bwd_launch(const void* g, long long ldg,
+                                    long long incg, const void* y,
+                                    long long ldy, long long incy,
+                                    const void* z, long long ldz,
+                                    long long incz, void* dy, void* dz,
+                                    long long rows, long long d, int dtype,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    silu_gate_bwd<float>(g, ldg, incg, y, ldy, incy, z, ldz, incz, dy, dz,
+                         rows, d, st);
+  else if (dtype == 1)
+    silu_gate_bwd<__nv_bfloat16>(g, ldg, incg, y, ldy, incy, z, ldz, incz,
+                                 dy, dz, rows, d, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

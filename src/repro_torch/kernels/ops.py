@@ -8,8 +8,11 @@ the kernel or raises — there is no fallback. Each keeps a plain
 integer count of kernel launches (`<wrapper>.launches`), which a run
 reads to show that its main path went through the kernel. The quantize
 kernel's two forms (per tile, per group) share `quantize.launches`, and
-the dequantize kernel's share `dequantize.launches`; `silu` and
-`silu_gate` count their own, and so does `fill_rates`.
+the dequantize kernel's share `dequantize.launches`; `silu`,
+`silu_gate` and `silu_gate_bwd` count their own, and so does
+`fill_rates`. :func:`swiglu_gate` is the SwiGLU gate with a gradient (a
+`torch.autograd.Function`): its forward is :func:`silu_gate`'s value,
+its backward :func:`silu_gate_bwd`.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      fill_rates_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     silu_gate_ref, silu_ref, ssd_chunk_ref)
+                                     silu_gate_bwd_ref, silu_gate_ref,
+                                     silu_ref, ssd_chunk_ref)
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -249,6 +253,60 @@ def silu_gate(y: torch.Tensor, z: torch.Tensor, with_prod: bool = True
 
 
 silu_gate.launches = 0
+
+
+def silu_gate_bwd(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of the SwiGLU gate's value silu(z) * y (the value
+    :func:`silu_gate` returns) given its cotangent g: g, y, z of one
+    shape and dtype (f32 or bf16), each may be a strided view -> (dy,
+    dz), dense, in y's dtype, each op rounded where XLA's CPU program
+    for the reference's gradient rounds it.
+
+    CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
+    launch); CPU tensors to :func:`repro_torch.kernels.ref.
+    silu_gate_bwd_ref`, which it equals bit for bit."""
+    views = tuple(_check_gate_input(n, t) for n, t in
+                  (("g", g), ("y", y), ("z", z)))
+    for name, t in (("g", g), ("z", z)):
+        if t.dtype != y.dtype or t.shape != y.shape or t.device != y.device:
+            raise ValueError(f"{name} must match y: got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, y {y.dtype} "
+                             f"{tuple(y.shape)} on {y.device}")
+    if y.is_cpu:
+        return silu_gate_bwd_ref(g, y, z)
+    dy = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    dz = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    if dy.numel():
+        _silu.launch_gate_bwd(g, y, z, dy, dz, views)
+        silu_gate_bwd.launches += 1
+    return dy, dz
+
+
+silu_gate_bwd.launches = 0
+
+
+class _SwigluGate(torch.autograd.Function):
+    """silu(z) * y with a gradient: forward :func:`silu_gate` (value
+    only), backward :func:`silu_gate_bwd` on the saved y and z."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        value, _ = silu_gate(y, z, with_prod=False)
+        ctx.save_for_backward(y, z)
+        return value
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        y, z = ctx.saved_tensors
+        return silu_gate_bwd(g.contiguous(), y, z)
+
+
+def swiglu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU gate's value silu(z) * y (:func:`silu_gate` with
+    `with_prod=False`) as a differentiable op: its gradient is
+    :func:`silu_gate_bwd`, the kernel on the card."""
+    return _SwigluGate.apply(y, z)
 
 
 # ----------------------------------------------------------------------

@@ -113,6 +113,21 @@ def silu_gate_ref(y: torch.Tensor, z: torch.Tensor
     return prod.to(y.dtype), prod
 
 
+def silu_gate_bwd_ref(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of the SwiGLU gate's value silu(z) * y given its
+    cotangent g, as XLA on the CPU derives and rounds the reference's
+    `jax.nn.silu(x @ w1) * (x @ w3)`: with s the logistic of
+    :func:`silu_ref` (each op rounded), dy = g * silu(z) and dz =
+    g*y*s + (z*(g*y)) * (s*(1 - s)), every op rounded to the dtype ->
+    (dy, dz)."""
+    s = torch.reciprocal(1 + torch.exp(-z))
+    dy = g * (z * s)
+    gy = g * y
+    dz = gy * s + (z * gy) * (s * (1 - s))
+    return dy, dz
+
+
 # ----------------------------------------------------------------------
 # Symmetric abs-max quantize / dequantize (the wire codec)
 # ----------------------------------------------------------------------

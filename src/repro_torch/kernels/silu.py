@@ -1,4 +1,5 @@
-"""Mamba-2's SiLU gates: the hand-written CUDA kernels' binding.
+"""The SiLU gates (Mamba-2's two, the SwiGLU MLP's and its gradient):
+the hand-written CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/silu.cu`; its head comment says
 which ops of the JAX package's compiled program it mirrors and why the
@@ -6,7 +7,8 @@ rounding matters. This module reads a tensor as rows (`row_view`),
 binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
 :func:`repro_torch.kernels.ops.silu` and
-:func:`repro_torch.kernels.ops.silu_gate`, which check the inputs, take
+:func:`repro_torch.kernels.ops.silu_gate` and
+:func:`repro_torch.kernels.ops.silu_gate_bwd`, which check the inputs, take
 the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
@@ -33,6 +35,9 @@ def _lib() -> ctypes.CDLL:
         lib.silu_gate_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P,
                                          _L, _L, _I, _P]
         lib.silu_gate_launch.restype = _I
+        lib.silu_gate_bwd_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P,
+                                             _L, _L, _P, _P, _L, _L, _I, _P]
+        lib.silu_gate_bwd_launch.restype = _I
         lib.silu_error_string.argtypes = [_I]
         lib.silu_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -119,3 +124,20 @@ def launch_gate(y: torch.Tensor, z: torch.Tensor, value: torch.Tensor,
                       None if prod is None else prod.data_ptr(), rows, d,
                       DTYPES[y.dtype]),
            "silu_gate")
+
+
+def launch_gate_bwd(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                    dy: torch.Tensor, dz: torch.Tensor,
+                    views: Optional[Tuple[Tuple[int, int, int, int], ...]]
+                    = None) -> None:
+    """dy, dz (dense, y's dtype) = the gradient of silu(z) * y given its
+    cotangent g, one launch on the current stream of y's device; inputs
+    are checked by the caller (`views`, if given, are g's, y's and z's
+    :func:`row_view`)."""
+    (rows, d, ldg, incg), (_, _, ldy, incy), (_, _, ldz, incz) = \
+        views or (row_view(g), row_view(y), row_view(z))
+    _check(_on_device(y.device, _lib().silu_gate_bwd_launch, g.data_ptr(),
+                      ldg, incg, y.data_ptr(), ldy, incy, z.data_ptr(), ldz,
+                      incz, dy.data_ptr(), dz.data_ptr(), rows, d,
+                      DTYPES[y.dtype]),
+           "silu_gate_bwd")

@@ -20,6 +20,11 @@ reference's block order and with its roundings:
 - masked scores are `NEG_INF = -1e30`, not -inf: a row masked through
   a whole key block gets p = 1 there, and the next block's
   correction exp(m - m_new) = 0 wipes it;
+- `flash_attention`'s gradient is the reference's custom VJP (f32
+  products, probabilities recomputed per key block from the saved
+  log-sum-exp); the KV-head expansion's gradient sums dk / dv over the
+  group, and `swa_attention`'s banded path differentiates through its
+  ops, as the reference's do;
 - KV heads expand with `repeat_interleave` (`jnp.repeat`): query head h
   reads KV head h // G.
 
@@ -64,27 +69,27 @@ def _mask_for(i: int, bk: int, Sq: int, Sk: int, window: int,
     return mask
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, block_k: int = FLASH_BLOCK
-                    ) -> torch.Tensor:
-    """Causal attention, q: [B,K,G,Sq,Dq]  k: [B,K,Sk,Dq]  v: [B,K,Sk,Dv]
-    -> [B,K,G,Sq,Dv], scaled by Dq ** -0.5.
-
-    K = kv heads, G = query group size (Hq = K*G). Walks the key blocks
-    with a running (m, l, acc) softmax state; never materializes the
-    [Sq, Sk] score matrix. Sk is zero-padded to a multiple of the block
-    (the pads are masked). Forward only: the reference's custom VJP
-    comes with training, and its `causal=False`, `q_offset` and `scale`
-    with the families that pass them (enc-dec, MLA)."""
-    B, K, G, Sq, Dq = q.shape
-    Sk, Dv = k.shape[2], v.shape[3]
-    sc = Dq ** -0.5
+def _key_blocks(k: torch.Tensor, v: torch.Tensor, block_k: int):
+    """(k, v zero-padded along Sk to a multiple of the block, the
+    block bk, the block count)."""
+    Sk = k.shape[2]
     bk = min(block_k, Sk)
     if Sk % bk:
         pad = bk - Sk % bk
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
-    nb = k.shape[2] // bk
+    return k, v, bk, k.shape[2] // bk
+
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int, block_k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out in v's dtype, lse [B,K,G,Sq] f32): the online softmax over
+    the key blocks."""
+    B, K, G, Sq, Dq = q.shape
+    Sk, Dv = k.shape[2], v.shape[3]
+    sc = Dq ** -0.5
+    k, v, bk, nb = _key_blocks(k, v, block_k)
     qf = q.reshape(B, K, G * Sq, Dq).float()
     m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -106,7 +111,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv.view(B, K, G, Sq, Dv)
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
-    return (acc / l_safe[..., None]).to(v.dtype)
+    return (acc / l_safe[..., None]).to(v.dtype), m + torch.log(l_safe)
+
+
+def _flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+               window: int, block_k: int):
+    """(dq, dk, dv) in the operands' dtypes: the reference's custom VJP
+    (`src/repro/models/attention.py:105-125`). Per key block it
+    recomputes the exact probabilities p = exp(s - lse) from the saved
+    lse, then dv = p^T g, dp = g v^T, ds = p (dp - delta), dq += ds k,
+    dk = ds^T q, every product in f32."""
+    B, K, G, Sq, Dq = q.shape
+    Sk, Dv = k.shape[2], v.shape[3]
+    sc = Dq ** -0.5
+    kp, vp, bk, nb = _key_blocks(k, v, block_k)
+    qf = q.reshape(B, K, G * Sq, Dq).float()
+    g32 = g.float()
+    delta = torch.sum(g32 * out.float(), dim=-1)             # [B,K,G,Sq]
+    g2 = g32.reshape(B, K, G * Sq, Dv)
+    dq = torch.zeros((B, K, G * Sq, Dq), dtype=torch.float32,
+                     device=q.device)
+    dk, dv = [], []
+    for i in range(nb):
+        kblk = kp[:, :, i * bk:(i + 1) * bk].float()
+        vblk = vp[:, :, i * bk:(i + 1) * bk].float()
+        s = torch.matmul(qf, kblk.transpose(-1, -2)).view(
+            B, K, G, Sq, bk) * sc
+        s = torch.where(_mask_for(i, bk, Sq, Sk, window, q.device), s,
+                        NEG_INF)
+        p = torch.exp(s - lse[..., None]).view(B, K, G * Sq, bk)
+        dv.append(torch.matmul(p.transpose(-1, -2), g2))
+        dp = torch.matmul(g2, vblk.transpose(-1, -2))
+        ds = p * (dp - delta.reshape(B, K, G * Sq)[..., None])
+        dq = dq + torch.matmul(ds, kblk) * sc
+        dk.append(torch.matmul(ds.transpose(-1, -2), qf) * sc)
+    dk = torch.cat(dk, dim=2)[:, :, :Sk]
+    dv = torch.cat(dv, dim=2)[:, :, :Sk]
+    return (dq.view(B, K, G, Sq, Dq).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward
+    saves (q, k, v, out, lse), the backward recomputes each key block's
+    probabilities, so no per-block residual of the forward is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, block_k: int):
+        out, lse = _flash_fwd(q, k, v, window, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.block_k = window, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(g, q, k, v, out, lse, ctx.window,
+                                ctx.block_k)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, block_k: int = FLASH_BLOCK
+                    ) -> torch.Tensor:
+    """Causal attention, q: [B,K,G,Sq,Dq]  k: [B,K,Sk,Dq]  v: [B,K,Sk,Dv]
+    -> [B,K,G,Sq,Dv], scaled by Dq ** -0.5.
+
+    K = kv heads, G = query group size (Hq = K*G). Walks the key blocks
+    with a running (m, l, acc) softmax state; never materializes the
+    [Sq, Sk] score matrix. Sk is zero-padded to a multiple of the block
+    (the pads are masked). Under autograd its gradient is the
+    reference's custom VJP (`_Flash`), which recomputes each block's
+    probabilities from the saved log-sum-exp. The reference's
+    `causal=False`, `q_offset` and `scale` come with the families that
+    pass them (enc-dec, MLA)."""
+    return _Flash.apply(q, k, v, window, block_k)
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

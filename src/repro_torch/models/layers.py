@@ -1,12 +1,13 @@
 """Shared layers of the port's models, from `repro/models/layers.py`:
-the norms, the SwiGLU MLP, RoPE and the init helper. One card needs no
-sharding, so there is no `ShardCtx`; it comes with the multi-card
-slice."""
+the norms, the SwiGLU MLP, RoPE, the init helper and the
+cross-entropy. One card needs no sharding, so there is no `ShardCtx`;
+it comes with the multi-card slice."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -31,16 +32,17 @@ def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
-    """silu(x @ w1) * (x @ w3), then @ w2. The gate goes through
-    :func:`repro_torch.kernels.ops.silu_gate` (the CUDA kernel on the
-    card, its plain version on the host): XLA's CPU program for the
+    """silu(x @ w1) * (x @ w3), then @ w2. The gate is
+    :func:`repro_torch.kernels.ops.silu_gate`'s value (the CUDA kernel
+    on the card, its plain version on the host): XLA's CPU program for the
     reference's `jax.nn.silu(x @ w1) * (x @ w3)` rounds each op of the
     logistic to the compute dtype and the product once, which is what
     the gate's value output holds (a bf16 product of two bf16 numbers,
     taken in f32 and rounded once, is the bf16 multiply). The gate's
-    f32 product is not stored."""
-    h, _ = ops.silu_gate(x @ w3, x @ w1, with_prod=False)
-    return h @ w2
+    f32 product is not stored. Its gradient (training) is the
+    `silu_gate_bwd` kernel (:func:`repro_torch.kernels.ops.
+    swiglu_gate`)."""
+    return ops.swiglu_gate(x @ w3, x @ w1) @ w2
 
 
 def rope_freqs(dim: int, theta: float,
@@ -76,3 +78,47 @@ def dense_init(generator: torch.Generator, shape: Sequence[int], dtype,
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * s).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# Cross-entropy
+# ----------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits [.., V] (upcast to f32), targets [..] integer -> the mean
+    negative log-likelihood, the log-sum-exp taken in f32; with `mask`,
+    the masked sum over max(sum(mask), 1)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(
+        -1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def _chunk_nll(h: torch.Tensor, lm_head: torch.Tensor,
+               targets: torch.Tensor) -> torch.Tensor:
+    lf = (h @ lm_head).float()
+    return (torch.logsumexp(lf, dim=-1) -
+            lf.gather(-1, targets[..., None])[..., 0]).sum()
+
+
+def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor,
+                 targets: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Sequence-chunked CE of h [B,S,d] through lm_head [d,V]: each
+    chunk's logits [B,chunk,V] are computed, reduced and recomputed in
+    the backward (`torch.utils.checkpoint`, as the reference's
+    `jax.checkpoint` over its scan), so the [B,S,V] f32 logits never
+    exist. Where chunk does not divide S, or S <= chunk, it is
+    `softmax_xent(h @ lm_head)`, as in the reference."""
+    B, S, _ = h.shape
+    if S % chunk or S <= chunk:
+        return softmax_xent(h @ lm_head, targets)
+    tgt = targets.long()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        tot = tot + checkpoint(_chunk_nll, h[:, sl], lm_head, tgt[:, sl],
+                               use_reentrant=False)
+    return tot / (B * S)

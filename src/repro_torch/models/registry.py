@@ -3,16 +3,19 @@ port runs (`ssm`, and `dense` without MoE or MLA); the others raise
 "not yet ported".
 
   build_model(cfg, generator, device)          -> MambaLM | DenseLM
+  loss_fn(cfg, remat)(params, batch)           -> (loss, metrics)
   prefill_fn(cfg, s_max)(model, tokens)        -> (logits, cache)
   decode_fn(cfg)(model, cache, tokens, pos)    -> (logits, cache)
   cache_spec(cfg, B, s_max)                    -> (shape, dtype) per tensor
   load_reference_params(model, tree)           -> the JAX package's weights
+  param_count(cfg)                             -> parameters, none allocated
 
 `s_max` sizes the dense family's caches and `pos` is its decode
 position; the `ssm` family takes neither (its cache does not grow).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
@@ -40,6 +43,33 @@ def build_model(cfg: ModelConfig, generator: torch.Generator,
 
 # the reference's name: the port's parameters live in the module
 init_params = build_model
+
+
+def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
+    """(params, batch) -> (loss, {ce, aux, expert_load}):
+    :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
+    "full" or "dots"). The dense family trains; the `ssm` family's
+    training waits for backward passes of its kernels (`ssd_chunk`,
+    `silu`, `silu_gate` with its product) and raises, as do the
+    families not ported at all."""
+    transformer.check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the '{cfg.family}' family ({cfg.arch_id}) is not "
+            f"yet ported: its kernels (ssd_chunk, silu, silu_gate with "
+            f"its product) have no backward yet")
+    if remat not in transformer.REMAT_MODES:
+        raise ValueError(f"unknown remat '{remat}'; one of "
+                         f"{transformer.REMAT_MODES}")
+    return functools.partial(transformer.lm_loss, cfg=cfg, remat=remat)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The model's parameter count, from modules on the meta device (no
+    memory is allocated)."""
+    model = transformer.model_class(cfg)(cfg, torch.device("meta"),
+                                         torch_dtype(cfg.param_dtype))
+    return sum(p.numel() for p in model.parameters())
 
 
 def prefill_fn(cfg: ModelConfig, s_max: Optional[int] = None) -> Callable:

@@ -11,19 +11,34 @@ The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
 they are cast too (`ln1`, `ln2`, `q_scale`, `k_scale`, `A_log`, `D`,
 `dt_bias`, `conv_b`, `norm`), while `final_norm` [d] stays in the
-parameter dtype; `compute_params` casts the same leaves.
+parameter dtype; `compute_params` casts the same leaves for serving
+(detached and kept), `cast_params` for training (through autograd,
+every step).
+
+Training (`lm_loss`) runs on a per-layer parameter tree: the module's
+own parameters (`param_tree(model)`), or the views of the reference's
+stacked layout that the train step holds (`stack_layers` /
+`layer_views`, also the checkpoints' layout).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch.compat import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dense_init, rms_norm, swiglu
+from repro_torch.models.layers import (chunked_xent, dense_init, rms_norm,
+                                      swiglu)
+
+AUX_LOSS_COEF = 0.01
+REMAT_MODES = ("none", "full", "dots")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -356,3 +371,116 @@ def lm_decode(params: _LM, cache: Dict[str, List[Dict]],
         new.append(nc)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
     return h[:, -1] @ pc["lm_head"], {"blocks": new}
+
+
+# ======================================================================
+# Training: parameter trees, remat, the loss
+# ======================================================================
+def param_tree(model: _LM) -> Dict[str, Any]:
+    """The module's parameters themselves as the tree `lm_loss` takes:
+    {embed, final_norm, lm_head, blocks: [one nested dict per layer]}
+    (`compute_params`' layout, before any cast)."""
+    return {"embed": model.embed, "final_norm": model.final_norm,
+            "lm_head": model.lm_head,
+            "blocks": [_nest(b.named_parameters()) for b in model.blocks]}
+
+
+def _stack(items: List[Any], device) -> Any:
+    if isinstance(items[0], dict):
+        return {k: _stack([d[k] for d in items], device) for k in items[0]}
+    return torch.stack([t.detach().to(device) for t in items])
+
+
+def stack_layers(tree: Dict[str, Any],
+                 device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """A per-layer tree ({.., blocks: [per-layer dicts]}) in the
+    reference's layout: each block leaf stacked along a new leading
+    layer axis [L, ...] (copies, on `device` if given, else each
+    tensor's own); the other leaves detached, moved likewise."""
+    out = {k: v.detach().to(device) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = _stack(tree["blocks"], device)
+    return out
+
+
+def layer_views(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`stack_layers` without copies: the per-layer
+    tree whose block leaves are views `leaf[i]` of the stacked ones."""
+    blocks = tree["blocks"]
+    n = len(next(tree_leaves(blocks)))
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [tree_map(lambda t, i=i: t[i], blocks) for i in range(n)]
+    return out
+
+
+def cast_params(params: Dict[str, Any], dtype: torch.dtype
+                ) -> Dict[str, Any]:
+    """The reference's `_cast_params` through autograd: every float leaf
+    but `final_norm` (the reference casts leaves of ndim >= 2, and its
+    block leaves are stacked) in `dtype`; the gradient flows back to
+    the parameter dtype."""
+    out = tree_map(lambda t: t.to(dtype) if t.dtype in (
+        torch.float32, torch.bfloat16) else t, params)
+    out["final_norm"] = params["final_norm"]
+    return out
+
+
+# matrix products without batch dims (activations @ weights): what the
+# reference's "dots" remat saves (`dots_with_no_batch_dims_saveable`)
+_SAVED_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, remat: str) -> Callable:
+    """`fn` under the reference's remat modes: "none" as is, "full"
+    recomputed in the backward (`torch.utils.checkpoint`, non-reentrant),
+    "dots" recomputed except the matrix products without batch dims,
+    which are saved (a selective checkpoint)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    raise ValueError(f"unknown remat '{remat}'; one of {REMAT_MODES}")
+
+
+def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig,
+                remat: str = "full"
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Embedded input -> final hidden, each layer under `remat`. Returns
+    (h, aux_loss, load[E]): the dense family has no aux loss and its
+    load is zeros(max(n_experts, 1))."""
+    run = model_class(cfg).block_cls.run
+    layer = maybe_remat(lambda blk, h: run(blk, h, positions, cfg), remat)
+    for blk in pc["blocks"]:
+        x = layer(blk, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
+                       device=x.device)
+    return rms_norm(x, pc["final_norm"], cfg.norm_eps), aux, load
+
+
+def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, remat: str = "full"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Embed -> blocks -> final norm -> chunked CE, plus AUX_LOSS_COEF x
+    aux. `params` is a per-layer tree (:func:`param_tree`, or
+    :func:`layer_views`) in the parameter dtype; it is cast to the
+    compute dtype through autograd. batch: tokens and targets [B,S]
+    integer tensors. Returns (loss, {ce, aux, expert_load})."""
+    pc = cast_params(params, torch_dtype(cfg.dtype))
+    x = pc["embed"][batch["tokens"]]
+    positions = torch.arange(x.shape[1], device=x.device)
+    h, aux, load = lm_backbone(pc, x, positions, cfg, remat)
+    ce = chunked_xent(h, pc["lm_head"], batch["targets"])
+    loss = ce + AUX_LOSS_COEF * aux
+    return loss, {"ce": ce, "aux": aux, "expert_load": load}

@@ -2,9 +2,10 @@
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
 not yet ported raises `NotImplementedError` (now only the model side's
-MoE, MLA, hybrid, enc-dec and VLM families: the overlay, the predictor
-lifecycle, the fault plane and the dense family are ported, and their
-gates construct and run)."""
+MoE, MLA, hybrid, enc-dec and VLM families, and the `ssm` family's
+training: the overlay, the predictor lifecycle, the fault plane and the
+dense family's serving and training are ported, and their gates
+construct and run)."""
 import ast
 import os
 import subprocess
@@ -73,7 +74,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.obs.cli", "repro_torch.models.attention",
             "repro_torch.models.layers", "repro_torch.configs.llama3_8b",
             "repro_torch.configs.qwen3_4b",
-            "repro_torch.configs.h2o_danube_1_8b"} <= mods
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.train.loop", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.ckpt", "repro_torch.launch.train"} <= mods
 
 
 def _imports(path):
@@ -462,3 +466,35 @@ def test_dense_path_modules_import_no_jax_and_no_reference(module):
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.train", "repro_torch.train.loop",
+    "repro_torch.train.optimizer", "repro_torch.train.train_step",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.launch.train"])
+def test_train_path_modules_import_no_jax_and_no_reference(module):
+    """Each module of the dense family's training path, on its own,
+    pulls in neither jax, the reference package nor ml_dtypes (the
+    checkpoints' bf16 goes through a torch view)."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("llama3-8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, 1, DataConfig(batch=2, seq=8, vocab=cfg.vocab))
+    assert Trainer(cfg, 1, DataConfig(batch=2, seq=8, vocab=cfg.vocab),
+                   device="cpu").device.type == "cpu"

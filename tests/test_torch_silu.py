@@ -1,5 +1,5 @@
-"""The port's SiLU gates (`ops.silu`, `ops.silu_gate`) against the JAX
-reference.
+"""The port's SiLU gates (`ops.silu`, `ops.silu_gate`, and the SwiGLU
+gate's gradient `ops.silu_gate_bwd`) against the JAX reference.
 
 The JAX package has no kernel for them: its Mamba-2 block calls
 `jax.nn.silu`, and XLA on the CPU expands the logistic to
@@ -11,6 +11,10 @@ bit-equal: the silu, the gated product, and the reference's
 `rms_norm(y * silu(z), scale)` against the port's `ssm.gated_rms_norm`.
 In f32 XLA's exp and the host's differ in the last bits: atol/rtol
 2e-6 (about 1e-7 relative measured).
+
+The gate's gradient (`ref.silu_gate_bwd_ref` on the CPU) is held to
+`jax.vjp` of the reference in `tests/test_torch_train.py`; here its
+wrapper's layouts and checks.
 
 The card cases (marker `cuda`) hold the CUDA kernels (csrc/silu.cu) to
 the plain versions bit for bit, at the serve model's shapes and at
@@ -27,7 +31,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import silu as silu_kernel
-from repro_torch.kernels.ref import silu_gate_ref, silu_ref
+from repro_torch.kernels.ref import (silu_gate_bwd_ref, silu_gate_ref,
+                                     silu_ref)
 from repro_torch.models import ssm
 
 F32_TOL = dict(atol=2e-6, rtol=2e-6)
@@ -179,6 +184,36 @@ def test_wrappers_reject_bad_inputs():
         ops.silu_gate(x, x.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_silu_gate_bwd_reads_row_views(dtype):
+    """g, y and z may each be a strided view (a slice of a wider tensor,
+    a transposed matrix); the outputs are dense, equal to the plain
+    version on dense copies, and the CPU launches nothing."""
+    g, y, z = (torch.from_numpy(_inputs((2, 5, 24), seed=s)).to(dtype)
+               for s in (15, 16, 17))
+    zv, gv = _wide_view(z, 8, offset=3), _wide_view(g, 40)
+    before = ops.silu_gate_bwd.launches
+    for got, want in zip(ops.silu_gate_bwd(gv, y, zv),
+                         silu_gate_bwd_ref(g, y, z)):
+        assert got.is_contiguous() and got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    t = torch.from_numpy(_inputs((6, 4), seed=18)).to(dtype).t()
+    for got, want in zip(ops.silu_gate_bwd(t, t, t),
+                         silu_gate_bwd_ref(*(t.contiguous(),) * 3)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert ops.silu_gate_bwd.launches == before
+
+
+def test_silu_gate_bwd_rejects_bad_inputs():
+    x = torch.zeros((2, 4))
+    with pytest.raises(ValueError, match="g must match y"):
+        ops.silu_gate_bwd(torch.zeros((2, 5)), x, x)
+    with pytest.raises(ValueError, match="z must match y"):
+        ops.silu_gate_bwd(x, x, x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.silu_gate_bwd(x.half(), x.half(), x.half())
+
+
 @pytest.fixture
 def card():
     """The CUDA device; skips the test where there is none (decided at
@@ -272,4 +307,62 @@ def test_silu_kernel_special_values_on_card(card):
         for g, w in zip(ops.silu_gate(x.flip(0), x), silu_gate_ref(
                 x.flip(0), x)):
             torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: f"{c[0]}+{c[1]}")
+def test_silu_gate_bwd_kernel_bit_equal_plain_on_card(card, case, dtype):
+    """The gate's gradient: dy and dz bit-equal to the plain version, one
+    launch, in the forward's layouts (z a slice of a wider tensor, the
+    transposed layout) and at the dense MLP's width."""
+    shape, extra, offset = case
+    z = _laid_out(torch.from_numpy(_inputs(shape, seed=10)).to(card, dtype),
+                  extra, offset)
+    y, g = (torch.from_numpy(_inputs(tuple(z.shape), seed=s, scale=1.0)).to(
+        card, dtype) for s in (9, 19))
+    want = silu_gate_bwd_ref(g, y, z)
+    before = ops.silu_gate_bwd.launches
+    got = ops.silu_gate_bwd(g, y, z)
+    torch.cuda.synchronize()
+    assert ops.silu_gate_bwd.launches == before + 1
+    for gt, w in zip(got, want):
+        assert gt.is_contiguous() and gt.dtype == dtype
+        torch.testing.assert_close(gt, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_swiglu_gate_autograd_launches_kernels_on_card(card, dtype):
+    """`ops.swiglu_gate` under autograd at the dense MLP's shape
+    ([2, 64, 6912]): one `silu_gate` launch forward, one `silu_gate_bwd`
+    launch backward, the gradients bit-equal to the plain version's."""
+    y, z, g = (torch.from_numpy(_inputs((2, 64, 6912), seed=s)).to(
+        card, dtype) for s in (20, 21, 22))
+    yt, zt = y.clone().requires_grad_(), z.clone().requires_grad_()
+    fwd, bwd = ops.silu_gate.launches, ops.silu_gate_bwd.launches
+    value = ops.swiglu_gate(yt, zt)
+    value.backward(g)
+    torch.cuda.synchronize()
+    assert ops.silu_gate.launches == fwd + 1
+    assert ops.silu_gate_bwd.launches == bwd + 1
+    torch.testing.assert_close(value, silu_gate_ref(y, z)[0], rtol=0, atol=0)
+    dy, dz = silu_gate_bwd_ref(g, y, z)
+    torch.testing.assert_close(yt.grad, dy, rtol=0, atol=0)
+    torch.testing.assert_close(zt.grad, dz, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_silu_gate_bwd_special_values_on_card(card):
+    """Saturation and the specials through the gradient, as the plain
+    version computes them (NaN where it does)."""
+    vals = torch.tensor([-1e4, -100.0, -88.7, -20.0, -0.0, 0.0, 1e-30,
+                         20.0, 100.0, 1e4, float("inf"), float("-inf"),
+                         float("nan"), 3.0], device=card)
+    for dtype in DTYPES:
+        x = vals.to(dtype)
+        for got, want in zip(ops.silu_gate_bwd(x.flip(0), x.roll(3), x),
+                             silu_gate_bwd_ref(x.flip(0), x.roll(3), x)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
                                        equal_nan=True)
