@@ -20,7 +20,10 @@ Every phase is fatal: a failure exits non-zero before the result line.
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
    three kernels' and waterfill's kernel's registers and spills, failing
-   on a spill;
+   on a spill; `flash_attn.cu` builds beside them, and its seven kernels'
+   registers, spills and SASS counts are printed, failing if a bf16
+   kernel (forward, dq, dk / dv) holds no tensor-core instruction
+   (HMMA: mma.sync);
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
    wrapper picks and the other), on the paper's forest (100 trees,
@@ -226,7 +229,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    schedule, then the serve phase's 8 requests (two prefills, 32
    decode steps). Counts zeroed just before and read just after:
    exactly 2 x 32 + 32 x 32 = 1,088 `silu_gate` launches (the SwiGLU
-   gate, one a layer a step), 1 `rf_predict`, 0 `ssd_chunk`, 0 `silu`;
+   gate, one a layer a step), 2 x 32 = 64 `flash_fwd` (one a layer a
+   prefill, none in decode), 0 `flash_bwd`, 1 `rf_predict`, 0
+   `ssd_chunk`, 0 `silu`;
    every id in [0, vocab), every logit finite; prefill ms per group,
    decode ms per step, tokens/s, peak memory; group 1's prefill and 4
    decode steps again under `torch.profiler` (CPU and CUDA activity,
@@ -236,12 +241,18 @@ Every phase is fatal: a failure exits non-zero before the result line.
    decode step and the busy share; the silu_gate kernel (value only:
    the MLP reads no f32 product) against its plain version on layer
    0's MLP inputs of both prefills and a decode step, bit-equal, timed
-   beside its bound (6 bytes an element in bf16);
+   beside its bound (6 bytes an element in bf16); the `flash_fwd`
+   kernel against `flash_fwd_ref` on layer 0's inputs of both prefills
+   (bf16 rows within 2^-7 of their max |out|, lse within 1e-5; the share
+   of elements more than one bf16 ulp apart printed), timed at group 1's
+   beside its plain version, SDPA and the bound (k and v at the 8 KV
+   heads);
    (2) parity: `llama3-8b`, `qwen3-4b` and `h2o-danube-1.8b` at full
    width, 2 layers, f32, on the card and on the host with the same
    weights: prefill (group 1's prompts, drawn from each arch's
    vocabulary) and 4 decode steps within atol/rtol 1e-3, equal ids
-   wherever the top-2 gap exceeds that;
+   wherever the top-2 gap exceeds that; the card's first `flash_fwd`
+   call (f32) against its plain version within 1e-5 of max |out|;
    (3) the port's attention core at group 1's prefill shape
    (`flash_attention`, B=4, 32 heads expanded from 8, S = the longest
    prompt, D=128, bf16) and at a decode step's (`decode_attention` over
@@ -259,9 +270,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `DataConfig(batch=4, seq=1024)`, `sync="psum"`, remat "full", 6
    steps (the reference training CLI's AdamW: lr 3e-4). Counts
    zeroed just before the run and read just after: exactly 2 x 24 x 6
-   `silu_gate` launches (forward and recompute) and 24 x 6
-   `silu_gate_bwd`, no other kernel; every loss finite and the last
-   below the first; step wall ms (median and p90 after the first),
+   `silu_gate` and `flash_fwd` launches (forward and recompute) and
+   24 x 6 `silu_gate_bwd` and `flash_bwd`, no other kernel; every loss
+   finite and the last below the first; step wall ms (median and p90 after the first),
    tokens/s, peak memory; one more step under `torch.profiler` for the
    device ms by kind (the attention core's forward and backward,
    cross-entropy, the optimizer, `silu_gate`, `silu_gate_bwd`, the
@@ -270,7 +281,12 @@ Every phase is fatal: a failure exits non-zero before the result line.
    kernel against their plain versions on the inputs of layer 0's
    forward and backward in one more step ([4, 1024, 6912] bf16),
    bit-equal; the backward timed beside the bound (bytes: g, y, z in,
-   dy, dz out, 10 B an element in bf16);
+   dy, dz out, 10 B an element in bf16); `flash_fwd` and `flash_bwd`
+   against their plain versions on layer 0's inputs of that step
+   ([4,32,1,1024,80] bf16, window 4,096; rows within 2^-7), timed beside
+   the plain versions, SDPA (its forward; `torch.autograd.grad` through
+   it) and the bounds (the backward's five products; q, k, v, out, g,
+   lse in, dq, dk, dv out; k, v, dk, dv at the 8 KV heads);
    (3) card against host: `llama3-8b`, `qwen3-4b` and `h2o-danube-1.8b`
    at full width, 2 layers, f32 (TF32 off), one `make_train_step` step
    on the card and on the host from the same weights and batch (B=1;
@@ -279,7 +295,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    gradient leaf within
    1e-3 of its max |g|, the parameters after AdamW within 1e-6 relative
    plus 1e-3 of the step's lr wherever |g| is above 1e-2 of the leaf's
-   max;
+   max; the card's first `flash_fwd` / `flash_bwd` calls (f32) against
+   their plain versions within 1e-5 of max |value|;
    (4) the 4-pod WANify Trainer: `h2o-danube-1.8b` at full width cut to
    4 of 24 layers (4 pods' f32 state at 16 B a parameter), 4 pods on
    the card, `DataConfig(batch=8, seq=1024, n_pods=4, skew=0.5)`,
@@ -291,8 +308,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    Trainer is built and read after: `rf_predict` launches equal to the
    controller's predictions (its first plan and every replan),
    `quantize` / `dequantize` launches to the schedule's parts of every
-   step's sync under the plan in force, the gates' to 4 pods x the
-   steps run; at least one replan; the failure restored from step 3.
+   step's sync under the plan in force, the gates' and flash's to 4
+   pods x the steps run; at least one replan; the failure restored from step 3.
    The grouped quantize and the accumulating dequantize bit-equal to
    their plain versions at the first call of each part layout of the
    sync; the first step's compressed sync redone on the host (the plain
@@ -359,6 +376,7 @@ from repro_torch.lifecycle import run_lifecycle_comparison  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
+                                     flash_bwd_ref, flash_fwd_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_gate_bwd_ref, silu_gate_ref,
@@ -478,13 +496,18 @@ def cuobjdump_path() -> str:
     raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin, triton)")
 
 
-SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
+SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 # quantize.cu's kernels of this design: the grouped form's persistent
 # kernel and the tile form's cluster kernel
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
 SILU_KERNELS = ("silu_kernel", "silu_gate_kernel", "silu_gate_bwd_kernel")
 WF_KERNELS = ("waterfill_kernel",)
+FLASH_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkdv_bf16_kernel", "flash_delta_kernel",
+                 "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                 "flash_bwd_dkdv_f32_kernel")
+FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: mma.sync, HMMA in SASS
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
 
@@ -496,6 +519,26 @@ def sass_counts(lib: Path) -> dict:
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def sass_counts_by_kernel(lib: Path, kernels) -> dict:
+    """{kernel: {op: count}} of SASS_OPS in each function of the
+    library whose mangled name holds one of `kernels` (instances summed:
+    every template instance of a kernel)."""
+    sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out = {k: dict.fromkeys(SASS_OPS, 0) for k in kernels}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        if cur is not None:
+            for op in SASS_OPS:
+                out[cur][op] += len(re.findall(rf"\b{op}\b", line))
+    return out
 
 
 def ptxas_report(text: str, kernels) -> dict:
@@ -3172,7 +3215,8 @@ def run_wansync(grads: dict, plan: WanPlan, device) -> dict:
 # ----------------------------------------------------------------------
 DENSE_ARCH = "llama3-8b"
 DENSE_ARCHS = ("llama3-8b", "qwen3-4b", "h2o-danube-1.8b")
-DENSE_COUNTED = ("silu_gate", "rf_predict", "ssd_chunk", "silu")
+DENSE_COUNTED = ("silu_gate", "flash_fwd", "flash_bwd", "rf_predict",
+                 "ssd_chunk", "silu")
 ATTN_CORE = ("flash_attention", "swa_attention", "decode_attention")
 ATTN_LABEL = "attention_core"
 MATMUL_KEYS = ("nvjet", "gemm", "gemv", "cutlass", "xmma", "cublas")
@@ -3188,10 +3232,11 @@ def dense_capture(step) -> dict:
     first call's inputs of `silu_gate` (layer 0's MLP gate: its
     `swiglu_gate(y, z)` is `silu_gate(y, z, with_prod=False)`'s value)
     and of the attention core (`flash_attention` /
-    `decode_attention`)."""
+    `decode_attention`, and the prefill's `ops.flash_fwd`)."""
     seen = {}
     record = first_calls(seen)
     with patched(att, record, ATTN_CORE), \
+            patched(ops, record, ("flash_fwd",)), \
             patched(model_layers, gated_ops(record), ("ops",)):
         step()
     args, _ = seen.pop("swiglu_gate")
@@ -3199,13 +3244,19 @@ def dense_capture(step) -> dict:
     return seen
 
 
+def is_flash(name: str) -> bool:
+    """A kernel of csrc/flash_attn.cu, by name."""
+    return "flash_" in name and "_kernel" in name
+
+
 def dense_profile(fn) -> dict:
     """Run `fn` under `torch.profiler` (CPU and CUDA activity), the
     attention core (`ATTN_CORE`) inside a `record_function` range, and
-    return the device ms by kind: `silu_gate`, matrix products (cuBLAS /
-    CUTLASS names; of which inside the attention core), the attention
-    core's other kernels (its masks, exp, max, sums: the plain ops), and
-    the rest; the kernels run; the five longest by total time."""
+    return the device ms by kind: `silu_gate`, the flash kernels (by
+    name), matrix products (cuBLAS / CUTLASS names; of which inside the
+    attention core), the attention core's other kernels (decode's masks,
+    exp, max, sums: the plain ops), and the rest; the kernels run; the
+    five longest by total time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def annotate(name, f):
@@ -3223,7 +3274,7 @@ def dense_profile(fn) -> dict:
     def is_matmul(name):
         return any(k in name.lower() for k in MATMUL_KEYS)
 
-    total = silu = matmul = 0.0
+    total = silu = matmul = flash = 0.0
     n_kernels, by_name = 0, {}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA or \
@@ -3234,6 +3285,7 @@ def dense_profile(fn) -> dict:
         total += ms
         n_kernels += 1
         silu += ms if "silu_gate" in e.name else 0.0
+        flash += ms if is_flash(e.name) else 0.0
         matmul += ms if is_matmul(e.name) else 0.0
         ms0, n0 = by_name.get(e.name[:60], (0.0, 0))
         by_name[e.name[:60]] = (ms0 + ms, n0 + 1)
@@ -3248,6 +3300,8 @@ def dense_profile(fn) -> dict:
             continue
         seen.add(id(e))
         for k in e.kernels:
+            if is_flash(k.name):
+                continue
             if is_matmul(k.name):
                 attn_mm += k.duration / 1e3
             else:
@@ -3256,8 +3310,9 @@ def dense_profile(fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return {"device_ms": total, "kernels": n_kernels, "by_kind": {
         "matmul": matmul, "matmul_in_attention": attn_mm,
-        "attention_plain": attn_plain, "silu_gate": silu,
-        "rest": total - matmul - attn_plain - silu},
+        "attention_plain": attn_plain, "flash_kernels": flash,
+        "silu_gate": silu,
+        "rest": total - matmul - attn_plain - flash - silu},
         "attention_ranges": sum(1 for e in events if e.name == ATTN_LABEL and
                                 e.device_type ==
                                 torch.autograd.DeviceType.CPU),
@@ -3343,6 +3398,177 @@ def time_attention(cap: dict, kv_heads: int) -> dict:
     return out
 
 
+# the flash kernels against their plain versions: the same f32 sums in
+# another order (tiles of 64 keys, not blocks of 512), and in bf16 p
+# rounded against another running max, so bf16 outputs and gradients are
+# held row by row (over D) within 2^-7 of the row's max |value| (one bf16
+# step; a key masked wrongly or a lost tile moves a row by far more), a
+# row's max floored at 2^-7 of the tensor's (a query whose only key is
+# itself has ds = p (dp - delta) = 0 up to the sums' order: its dq row is
+# rounding noise); f32 within 1e-5 of the max |value|; lse within 1e-5
+FLASH_BF16_ROW = 2.0 ** -7
+FLASH_F32_TOL = 1e-5
+FLASH_LSE_TOL = 1e-5
+
+
+def first_card_calls(seen: dict):
+    """`first_calls` for calls whose first tensor lies on the card (the
+    host's engine calls the same wrappers on the CPU)."""
+    record = first_calls(seen)
+
+    def wrap(name, fn):
+        rec = record(name, fn)
+
+        def call(*args, **kw):
+            return (rec if args[0].is_cuda else fn)(*args, **kw)
+        call.launches = 0
+        return call
+    return wrap
+
+
+def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """The worst error of `got` against `want` in the units of the
+    tolerance above (at most 1 to pass) and, for bf16, the share of
+    elements more than one bf16 ulp apart; raises past the tolerance or
+    on a shape, dtype or non-finite value."""
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"flash {what}: {got.dtype} "
+                             f"{tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}, or non-finite values")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    top = float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        row = w.abs().amax(-1, keepdim=True).clamp_min(FLASH_BF16_ROW * top)
+        worst = float((diff / row.clamp_min(1e-30)).max()) / FLASH_BF16_ROW
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30)))
+                         - 7)
+        apart = float((diff > ulp).float().mean())
+    else:
+        worst = float(diff.max()) / max(top, 1e-30) / FLASH_F32_TOL
+        apart = None
+    if not worst <= 1.0:
+        raise AssertionError(f"flash {what}: off by {worst:.4g} of the "
+                             f"tolerance")
+    return {"err": worst, "max_abs_diff": float(diff.max()),
+            "max_abs": top, "ulp_apart_share": apart}
+
+
+def check_flash_fwd(args) -> dict:
+    """`ops.flash_fwd` (the kernel on the card) against `flash_fwd_ref`
+    on the captured inputs (q, k, v, window, block_k): out and lse."""
+    out, lse = ops.flash_fwd(*args)
+    want_out, want_lse = flash_fwd_ref(*args)
+    sync(out.device)
+    res = {"shape": list(args[0].shape), "window": args[3],
+           "dtype": str(args[0].dtype).replace("torch.", ""),
+           "out": flash_err(out, want_out, "fwd out"),
+           "lse_max_abs_diff": float((lse - want_lse).abs().max())}
+    if not res["lse_max_abs_diff"] <= FLASH_LSE_TOL:
+        raise AssertionError(f"flash lse off by {res['lse_max_abs_diff']}")
+    return res
+
+
+def check_flash_bwd(args) -> dict:
+    """`ops.flash_bwd` against `flash_bwd_ref` on the captured inputs
+    (g, q, k, v, out, lse, window, block_k): dq, dk, dv."""
+    got = ops.flash_bwd(*args)
+    want = flash_bwd_ref(*args)
+    sync(got[0].device)
+    res = {"shape": list(args[1].shape), "window": args[6],
+           "dtype": str(args[1].dtype).replace("torch.", "")}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        res[name] = flash_err(a, b, f"bwd {name}")
+    return res
+
+
+def keys_used(S: int, window: int) -> float:
+    """Keys a query attends to, on average, causal within the window."""
+    i = np.arange(S)
+    return float(np.mean(np.minimum(i + 1, window) if window else i + 1))
+
+
+def flash_sdpa(q, k, v, window):
+    """SDPA on the same inputs (one query head a KV head: G = 1; a
+    window that binds needs a mask, so None then)."""
+    S = q.shape[3]
+    if q.shape[2] != 1 or (window and window < S):
+        return None
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, 0], k, v, is_causal=True)
+
+
+def time_flash_fwd(args, kv_heads: int) -> dict:
+    """Device ms of `ops.flash_fwd` (one launch), its plain version and
+    SDPA on the same inputs, beside the bound of the attention it
+    computes: q, and k and v at their `kv_heads` (the call gets them
+    expanded), read once, out and lse written once; QK^T and PV over
+    the keys each query uses, at the bf16 tensor-core rate."""
+    q, k, v, window = args[:4]
+    B, K, G, S, D = q.shape
+    e = q.element_size()
+    nbytes = (2 * q.numel() + 2 * B * kv_heads * S * D) * e + \
+        B * K * G * S * 4
+    bms, by, nb, nops = attention_bound(B, K * G, S, keys_used(S, window),
+                                        D, nbytes)
+    lib = flash_sdpa(q, k, v, window)
+    return {"ms": device_ms(lambda: ops.flash_fwd(*args), launches=10),
+            "plain_ms": device_ms(lambda: flash_fwd_ref(*args), launches=2,
+                                  reps=3),
+            "library_ms": device_ms(lib, launches=10) if lib else None,
+            "bound_ms": bms, "bound_by": by, "bytes": nb, "ops": nops}
+
+
+def time_flash_bwd(args, kv_heads: int) -> dict:
+    """Device ms of `ops.flash_bwd` (delta, dq, dk / dv), its plain
+    version and `torch.autograd.grad` through SDPA (`is_causal`) on the
+    same inputs, beside the bound: q, k and v (at their `kv_heads`),
+    out, g and lse read once, dq, dk, dv (dk, dv at the KV heads)
+    written once; five products (QK^T, g V^T, P^T g, dS K, dS^T Q) over
+    the keys each query uses, at the bf16 tensor-core rate."""
+    g, q, k, v, out, lse, window = args[:7]
+    B, K, G, S, D = q.shape
+    e = q.element_size()
+    nbytes = (2 * q.numel() + 4 * B * kv_heads * S * D + out.numel() +
+              g.numel()) * e + lse.numel() * 4
+    used = keys_used(S, window)
+    _, _, nb, _ = attention_bound(B, K * G, S, used, D, nbytes)
+    nops = 10 * B * K * G * D * S * used
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_TC_OPS_PER_S
+    res = {"ms": device_ms(lambda: ops.flash_bwd(*args), launches=10),
+           "plain_ms": device_ms(lambda: flash_bwd_ref(*args), launches=2,
+                                 reps=3),
+           "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nb, "ops": nops}
+    if flash_sdpa(q, k, v, window) is not None:
+        qr, kr, vr = (t.detach().requires_grad_() for t in
+                      (q[:, :, 0], k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True)
+        go = g[:, :, 0]
+        res["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            o, (qr, kr, vr), go, retain_graph=True), launches=10)
+        del o
+    return res
+
+
+def log_flash(tag: str, which: str, chk: dict, t: dict, smi: str) -> None:
+    errs = {k: v for k, v in chk.items() if isinstance(v, dict)}
+    log(f"[{tag}] flash_{which} {chk['shape']} {chk['dtype']} window "
+        f"{chk['window']}: within tolerance (" + ", ".join(
+            f"{k} {v['err']:.3g}" + (f", {v['ulp_apart_share']:.4%} > 1 ulp"
+                                     if v["ulp_apart_share"] is not None
+                                     else "") for k, v in errs.items())
+        + (f"; lse {chk['lse_max_abs_diff']:.3g}" if "lse_max_abs_diff"
+           in chk else "") + f") | kernel {t['ms']:.5f} ms | plain "
+        f"{t['plain_ms']:.4f} ms | bound {t['bound_ms']:.5f} ms by "
+        f"{t['bound_by']} ({t['bytes']} B, {t['ops']:.4g} ops) | library "
+        + (f"{t['library_ms']:.5f} ms" if t["library_ms"] is not None
+           else "none") + f" | {smi}")
+
+
 def dense_serve(cfg, paper, dev) -> dict:
     """The dense phase's part (1): `cfg` served by the Engine with a
     controller on the paper forest, every count checked; returns the
@@ -3380,13 +3606,17 @@ def dense_serve(cfg, paper, dev) -> dict:
     out = eng.serve(reqs)
     serve_s = time.perf_counter() - t1
     got = {name: getattr(ops, name).launches for name in DENSE_COUNTED}
-    n_steps = len(eng.timings["prefill_s"]) + len(eng.timings["decode_s"])
-    want = {"silu_gate": n_steps * cfg.n_layers, "rf_predict": 1,
-            "ssd_chunk": 0, "silu": 0}
+    n_prefill = len(eng.timings["prefill_s"])
+    n_steps = n_prefill + len(eng.timings["decode_s"])
+    want = {"silu_gate": n_steps * cfg.n_layers,
+            "flash_fwd": n_prefill * cfg.n_layers, "flash_bwd": 0,
+            "rf_predict": 1, "ssd_chunk": 0, "silu": 0}
     if got != want:
         raise AssertionError(f"dense serve launches {got}, expected {want}: "
                              f"one silu_gate per layer per step ({n_steps} "
-                             f"steps), 1 rf_predict, no ssd_chunk or silu")
+                             f"steps), one flash_fwd per layer per prefill "
+                             f"({n_prefill}) and none in decode, 1 "
+                             f"rf_predict, no ssd_chunk or silu")
     check_served(out, reqs, cfg.vocab)
     prefill_ms = [v * 1e3 for v in eng.timings["prefill_s"]]
     decode_ms = [v * 1e3 for v in eng.timings["decode_s"]]
@@ -3425,13 +3655,18 @@ def dense_parity(dev, cfgs=None) -> dict:
         sc = ServeConfig(batch=SERVE_BATCH, s_max=S_MAX)
         card = CheckedEngine(pcfg, card_model, sc, device=dev)
         tokens = card.batch_tokens(groups_of(serve_requests(pcfg.vocab))[0])
-        err, mag, compared, equal = check_parity(
-            card, CheckedEngine(pcfg, host_model, sc, device="cpu"), tokens)
+        seen = {}
+        with patched(ops, first_card_calls(seen), ("flash_fwd",)):
+            err, mag, compared, equal = check_parity(
+                card, CheckedEngine(pcfg, host_model, sc, device="cpu"),
+                tokens)
         res[arch] = {"layers": PARITY_LAYERS, "steps": PARITY_STEPS,
                      "prompt": int(tokens.shape[1]), "tol": PARITY_TOL,
                      "max_abs_err": err, "max_abs_logit": mag,
                      "ids_compared": compared, "ids_equal": equal,
+                     "flash_fwd": check_flash_fwd(seen["flash_fwd"][0]),
                      "s": time.perf_counter() - t0}
+        del seen
         del card, card_model, host_model
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -3500,6 +3735,21 @@ def dense_phase(paper, dev, smi: str) -> dict:
             f"library call: none (F.silu rounds once) | {smi}")
     serve["silu_gate"] = {"cases": gate_cases, "max_abs_err": gate_err,
                           "timing": gate_timing}
+    # the flash_fwd kernel against its plain version on layer 0's inputs
+    # of both prefills, timed at group 1's beside its plain version, SDPA
+    # and the bound
+    flash = {"checks": [check_flash_fwd(cap["flash_fwd"][0])
+                        for cap in caps[:2]]}
+    flash["timing"] = time_flash_fwd(caps[0]["flash_fwd"][0],
+                                      cfg.n_kv_heads)
+    log_flash("dense", "fwd", flash["checks"][0], flash["timing"], smi)
+    for chk in flash["checks"][1:]:
+        log(f"[dense] flash_fwd {chk['shape']} (group 2's prefill): out "
+            f"within {chk['out']['err']:.3g} of the tolerance "
+            f"({chk['out']['ulp_apart_share']:.4%} > 1 ulp), lse "
+            f"{chk['lse_max_abs_diff']:.3g}")
+    flash["max_err"] = max(c["out"]["err"] for c in flash["checks"])
+    serve["flash_fwd"] = flash
     # (3) the attention core against SDPA at group 1's prefill shape and
     # the decode step's
     attn = time_attention({"flash_attention": caps[0]["flash_attention"],
@@ -3526,7 +3776,9 @@ def dense_phase(paper, dev, smi: str) -> dict:
             f"{p['max_abs_err']:.3e}, max |logit| {p['max_abs_logit']:.3f}); "
             f"ids equal on {p['ids_compared']} clear top-2 gaps "
             f"({p['ids_equal']} of {(PARITY_STEPS + 1) * SERVE_BATCH} equal "
-            f"in all); {p['s']:.1f} s")
+            f"in all); flash_fwd {p['flash_fwd']['shape']} f32 within "
+            f"{p['flash_fwd']['out']['err']:.3g} of its tolerance, lse "
+            f"{p['flash_fwd']['lse_max_abs_diff']:.3g}; {p['s']:.1f} s")
     out = {"serve": serve, "attention": attn, "parity": parity,
            "s": time.perf_counter() - t_phase}
     log(f"[dense] phase {out['s']:.2f} s")
@@ -3542,8 +3794,8 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
 # lr 3e-4, the default 100-step warm-up): at full size its loss falls
 # step by step, where a 2-step warm-up makes it jump (PERF.md, PR 22)
 TRAIN_OPT = dict(lr=3e-4)
-TRAIN_COUNTED = ("silu_gate", "silu_gate_bwd", "rf_predict", "quantize",
-                 "dequantize", "ssd_chunk", "silu")
+TRAIN_COUNTED = ("silu_gate", "silu_gate_bwd", "flash_fwd", "flash_bwd",
+                 "rf_predict", "quantize", "dequantize", "ssd_chunk", "silu")
 PARITY_BATCH = 1
 # keys of the card-against-host step: h2o-danube-1.8b at the train run's
 # 1,024, where flash walks 2 key blocks of 512 forward and in its VJP
@@ -3566,10 +3818,10 @@ XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
 
 def train_profile(fn) -> dict:
     """Device ms by kind of `fn` (one train step) under `torch.profiler`:
-    the attention core's forward and backward (`_flash_fwd` /
-    `_flash_bwd` inside `record_function` ranges, their products
-    included), cross-entropy (`chunked_xent` in a range, and the kernels
-    of its backward nodes: log-sum-exp, gather, mean), the optimizer
+    the attention core's forward and backward (`ops.flash_fwd` /
+    `ops.flash_bwd` inside `record_function` ranges: the flash kernels,
+    by name, and what else runs inside), cross-entropy (`chunked_xent`
+    in a range, and the kernels of its backward nodes: log-sum-exp, gather, mean), the optimizer
     (`adamw_update` in a range), `silu_gate` and `silu_gate_bwd` (by
     kernel name), the other matrix products (cuBLAS / CUTLASS names) and
     the rest; the kernels run."""
@@ -3580,11 +3832,14 @@ def train_profile(fn) -> dict:
             def call(*a, **k):
                 with record_function(label):
                     return f(*a, **k)
+            # a kernel wrapper in `ops` counts its launches under its
+            # own name, which is this call while patched (not read)
+            call.launches = 0
             return call
         return wrap
 
-    with patched(att, ranged(ATTN_FWD), ("_flash_fwd",)), \
-            patched(att, ranged(ATTN_BWD), ("_flash_bwd",)), \
+    with patched(ops, ranged(ATTN_FWD), ("flash_fwd",)), \
+            patched(ops, ranged(ATTN_BWD), ("flash_bwd",)), \
             patched(lm_mod, ranged(XENT), ("chunked_xent",)), \
             patched(train_step_mod, ranged(OPTIM), ("adamw_update",)), \
             profile(activities=[ProfilerActivity.CPU,
@@ -3599,6 +3854,7 @@ def train_profile(fn) -> dict:
 
     total = matmul = 0.0
     by = {"silu_gate": 0.0, "silu_gate_bwd": 0.0}
+    flash = {ATTN_FWD: 0.0, ATTN_BWD: 0.0}
     n_kernels = 0
     for e in events:
         if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
@@ -3612,6 +3868,8 @@ def train_profile(fn) -> dict:
             by["silu_gate_bwd"] += ms
         elif "silu_gate" in e.name:
             by["silu_gate"] += ms
+        elif is_flash(e.name):
+            flash[ATTN_FWD if "flash_fwd" in e.name else ATTN_BWD] += ms
     # kernels under each range or backward node, each CPU op once
     ranged_mm = 0.0
     for kind in (ATTN_FWD, ATTN_BWD, XENT, OPTIM):
@@ -3626,13 +3884,16 @@ def train_profile(fn) -> dict:
                 continue
             seen.add(id(e))
             for k in e.kernels:
+                if is_flash(k.name):
+                    continue
                 ms += k.duration / 1e3
                 ranged_mm += k.duration / 1e3 if is_matmul(k.name) else 0.0
             stack.extend(e.cpu_children)
-        by[kind] = ms
+        by[kind] = ms + flash.get(kind, 0.0)
     by["matmul_other"] = matmul - ranged_mm
     by["rest"] = total - sum(by.values())
-    return {"device_ms": total, "kernels": n_kernels, "by_kind": by}
+    return {"device_ms": total, "kernels": n_kernels, "by_kind": by,
+            "flash_kernels": flash}
 
 
 def check_bwd(args) -> float:
@@ -3705,12 +3966,15 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
     run_s = time.perf_counter() - t0
     got = counted()
     want = {"silu_gate": 2 * cfg.n_layers * steps,
-            "silu_gate_bwd": cfg.n_layers * steps, "rf_predict": 0,
+            "silu_gate_bwd": cfg.n_layers * steps,
+            "flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd": cfg.n_layers * steps, "rf_predict": 0,
             "quantize": 0, "dequantize": 0, "ssd_chunk": 0, "silu": 0}
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}: under "
-                             f"per-layer remat the gate runs twice a layer a "
-                             f"step (forward, recompute), its backward once")
+                             f"per-layer remat the gate and flash's forward "
+                             f"run twice a layer a step (forward, "
+                             f"recompute), their backwards once")
     losses = [h["loss"] for h in tr.history]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train losses {losses}: not finite, or no fall")
@@ -3740,10 +4004,12 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
         prof["wall_ms"] = wall
         res["profile"] = prof
     seen = {}
-    with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd")):
+    with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd",
+                                          "flash_fwd", "flash_bwd")):
         step_fn(params, state, next(data))
     res["fwd_call"] = seen["silu_gate"]
     res["bwd_args"] = seen["silu_gate_bwd"][0]
+    res["flash_args"] = (seen["flash_fwd"][0], seen["flash_bwd"][0])
     del tr, params, state, step_fn
     return res
 
@@ -3771,11 +4037,14 @@ def step_parity(cfg, dev) -> dict:
     b = next(batches(cfg, DataConfig(batch=PARITY_BATCH, seq=seq,
                                      vocab=cfg.vocab)))
     out, grads, after, secs = {}, {}, {}, {}
+    seen = {}
     for name, params in trees.items():
         t1 = time.perf_counter()
         dev_b = as_batch(b, params["embed"].device)
-        _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32, "full")(
-            params, dev_b)
+        with patched(ops, first_card_calls(seen), ("flash_fwd",
+                                                   "flash_bwd")):
+            _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32,
+                                               "full")(params, dev_b)
         grads[name] = tree_map(lambda t: t.cpu(), g)
         del g
         step = make_train_step(cfg, opt=AdamWConfig(), sync="psum")
@@ -3813,11 +4082,14 @@ def step_parity(cfg, dev) -> dict:
             raise AssertionError(f"{cfg.arch_id} {path}: parameter after "
                                  f"AdamW off by {excess:.3g} lr beyond 1e-6 "
                                  f"relative")
+    flash = {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
+             "bwd": check_flash_bwd(seen["flash_bwd"][0])}
+    del seen
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {**worst, "layers": cfg.n_layers, "batch": PARITY_BATCH,
             "seq": seq, "card_s": secs["card"], "host_s": secs["host"],
-            "s": time.perf_counter() - t0}
+            "flash": flash, "s": time.perf_counter() - t0}
 
 
 def tree_items(tree, prefix=""):
@@ -4021,6 +4293,8 @@ def train_pods(cfg, dev, forest, steps: int = POD_STEPS,
                 for c in tap.calls)
     want = {"silu_gate": 2 * cfg.n_layers * N_PODS * executed,
             "silu_gate_bwd": cfg.n_layers * N_PODS * executed,
+            "flash_fwd": 2 * cfg.n_layers * N_PODS * executed,
+            "flash_bwd": cfg.n_layers * N_PODS * executed,
             "rf_predict": predictions, "quantize": quant,
             "dequantize": quant, "ssd_chunk": 0, "silu": 0}
     problems = []
@@ -4122,6 +4396,20 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
             f"plain {t['plain_ms']:.5f} ms | bound {t['bound_ms']:.5f} ms by "
             f"{t['bound_by']} ({t['bytes']} B) | library call: none | {smi}")
     del args
+    # the flash kernels against their plain versions on layer 0's inputs
+    # of one more step, timed there beside the plain versions, SDPA
+    # (forward; autograd.grad through it) and the bounds
+    fargs, bargs = single.pop("flash_args")
+    single["flash_fwd"] = {"check": check_flash_fwd(fargs)}
+    single["flash_bwd"] = {"check": check_flash_bwd(bargs)}
+    if dev.type == "cuda":
+        for which, a, timer in (("fwd", fargs, time_flash_fwd),
+                                ("bwd", bargs, time_flash_bwd)):
+            t = single[f"flash_{which}"]["timing"] = timer(
+                a, cfg.n_kv_heads)
+            log_flash("train", which, single[f"flash_{which}"]["check"], t,
+                      smi)
+    del fargs, bargs
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     parity = {}
@@ -4134,8 +4422,11 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
             f"gradients within {p['grad']:.3g} of each leaf's max |g| "
             f"(limit {GRAD_PARITY_TOL}), parameters after AdamW within "
             f"1e-6 relative + {p['param']:.3g} lr where |g| is clear of 0 "
-            f"(limit 1e-3 lr); "
-            f"{p['s']:.1f} s")
+            f"(limit 1e-3 lr); flash_fwd / flash_bwd {p['flash']['fwd']['shape']}"
+            f" f32 against plain: out {p['flash']['fwd']['out']['err']:.3g}, "
+            + ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
+                        for n in ("dq", "dk", "dv"))
+            + f" of the tolerance; {p['s']:.1f} s")
     pod_cfg = pod_cfg or cfg.replace(n_layers=POD_LAYERS)
     pods = train_pods(pod_cfg, dev, forest)
     log(f"[train] 4-pod WANify {pod_cfg.arch_id} {pod_cfg.n_layers} of "
@@ -4299,10 +4590,10 @@ def main() -> int:
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize",
-                                   "silu", "waterfill"])
+                                   "silu", "waterfill", "flash_attn"])
     results["build_s"] = time.perf_counter() - t0
-    log(f"[build] rf_predict + ssd_chunk + quantize + silu + waterfill in "
-        f"{results['build_s']:.1f} s")
+    log(f"[build] rf_predict + ssd_chunk + quantize + silu + waterfill + "
+        f"flash_attn in {results['build_s']:.1f} s")
     for name, text in texts.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
@@ -4370,6 +4661,22 @@ def main() -> int:
     if set(wf_report) != set(WF_KERNELS) or wf_spills:
         raise AssertionError(f"waterfill's ptxas report: kernels "
                              f"{sorted(wf_report)}, spills {wf_spills}")
+    # flash_attn: registers and spills (the largest of each kernel's
+    # template instances: D = 128, 80 and the generic one), and the
+    # tensor-core instructions (mma.sync: HMMA) in the bf16 kernels
+    fl_report = ptxas_report(texts["flash_attn"], FLASH_KERNELS)
+    fl_sass = sass_counts_by_kernel(build.library_path("flash_attn"),
+                                    FLASH_KERNELS)
+    results["build_flash"] = {"kernels": fl_report, "sass": fl_sass}
+    for name in FLASH_KERNELS:
+        log(f"[build] flash_attn: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in fl_report.get(name, {}).items())
+            + "; SASS " + ", ".join(f"{k} {v}" for k, v in
+                                    fl_sass[name].items() if v))
+    no_tc = [n for n in FLASH_TC_KERNELS if not fl_sass[n]["HMMA"]]
+    if set(fl_report) != set(FLASH_KERNELS) or no_tc:
+        raise AssertionError(f"flash_attn: ptxas reports kernels "
+                             f"{sorted(fl_report)}; no HMMA in {no_tc}")
 
     # 3. kernel
     t0 = time.perf_counter()
@@ -4815,6 +5122,8 @@ def main() -> int:
     qs = q_timing["part_state_c8"]
     dg = dense["serve"]["silu_gate"]["timing"]["prefill1"]
     tb = train["single"]["silu_gate_bwd"]["timing"]
+    ff = dense["serve"]["flash_fwd"]
+    fb = train["single"]["flash_bwd"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -4863,6 +5172,26 @@ def main() -> int:
         "ms": tb["ms"], "plain_ms": tb["plain_ms"],
         "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
         "library_ms": None}] + [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:39",
+        "launches": dense["serve"]["launches"]["flash_fwd"],
+        "max_abs_err": max(c["out"]["max_abs_diff"]
+                           for c in ff["checks"]),
+        "ms": ff["timing"]["ms"], "plain_ms": ff["timing"]["plain_ms"],
+        "bound_ms": ff["timing"]["bound_ms"],
+        "bound_by": ff["timing"]["bound_by"],
+        "library_ms": ff["timing"]["library_ms"]}, {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:99",
+        "launches": train["single"]["launches"]["flash_bwd"],
+        "max_abs_err": max(fb["check"][n]["max_abs_diff"]
+                           for n in ("dq", "dk", "dv")),
+        "ms": fb["timing"]["ms"], "plain_ms": fb["timing"]["plain_ms"],
+        "bound_ms": fb["timing"]["bound_ms"],
+        "bound_by": fb["timing"]["bound_by"],
+        "library_ms": fb["timing"]["library_ms"]}] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:56",

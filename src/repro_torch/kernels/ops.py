@@ -10,9 +10,10 @@ reads to show that its main path went through the kernel. The quantize
 kernel's two forms (per tile, per group) share `quantize.launches`, and
 the dequantize kernel's share `dequantize.launches`; `silu`,
 `silu_gate` and `silu_gate_bwd` count their own, and so does
-`fill_rates`. :func:`swiglu_gate` is the SwiGLU gate with a gradient (a
-`torch.autograd.Function`): its forward is :func:`silu_gate`'s value,
-its backward :func:`silu_gate_bwd`.
+`fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
+the backward runs three kernels: delta, dq, dk / dv). :func:`swiglu_gate`
+is the SwiGLU gate with a gradient (a `torch.autograd.Function`): its
+forward is :func:`silu_gate`'s value, its backward :func:`silu_gate_bwd`.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash as _flash
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
 from repro_torch.kernels import silu as _silu
@@ -27,7 +29,8 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
-                                     fill_rates_ref, quantize_groups_ref,
+                                     fill_rates_ref, flash_bwd_ref,
+                                     flash_fwd_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_gate_bwd_ref, silu_gate_ref,
                                      silu_ref, ssd_chunk_ref)
@@ -580,3 +583,125 @@ def fill_rates(c: torch.Tensor, single: torch.Tensor, egress: torch.Tensor,
 
 
 fill_rates.launches = 0
+
+
+# ----------------------------------------------------------------------
+# flash attention
+# ----------------------------------------------------------------------
+def _check_flash(q, k, v, window: int, **more) -> None:
+    """q [B,K,G,S,D], k and v [B,K,S,D] of one dtype (f32 or bf16) and
+    device (cuda or cpu), D a multiple of 16 up to 128, Dq == Dv, Sq ==
+    Sk, window >= 0; `more` (g, out: q's shape and dtype; lse: f32
+    [B,K,G,S]) alike."""
+    tensors = dict(q=q, k=k, v=v, **more)
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+    if q.dtype not in _flash.DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    dev = q.device
+    if not (q.is_cuda or q.is_cpu):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        want = torch.float32 if name == "lse" else q.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"expected q [B,K,G,S,D], k and v [B,K,S,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, K, G, S, D = q.shape
+    if tuple(k.shape) != (B, K, S, D) or tuple(v.shape) != (B, K, S, D):
+        raise ValueError(f"k and v must be {(B, K, S, D)} (Sq == Sk, Dq == "
+                         f"Dv); got {tuple(k.shape)}, {tuple(v.shape)}")
+    if D % _flash.D_STEP or not 0 < D <= _flash.D_MAX:
+        raise ValueError(f"head dim {D} must be a multiple of "
+                         f"{_flash.D_STEP} up to {_flash.D_MAX}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.is_cuda and B * K * G > _flash.MAX_HEADS:
+        raise ValueError(f"B*K*G = {B * K * G} query heads: the kernels' "
+                         f"grid takes at most {_flash.MAX_HEADS}")
+    for name, t in more.items():
+        shape = (B, K, G, S) if name == "lse" else (B, K, G, S, D)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _flash_views(*tensors):
+    """Each tensor's :func:`repro_torch.kernels.flash.operand_strides`,
+    or a dense copy of it where the kernels cannot read it in place
+    (counted in `flash_fwd.copies`); returns (tensors, views)."""
+    out, views = [], []
+    for t in tensors:
+        view = _flash.operand_strides(t)
+        if view is None:
+            t = t.contiguous()
+            view = _flash.operand_strides(t)
+            flash_fwd.copies += 1
+        out.append(t)
+        views.append(view)
+    return out, views
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int = 0, block_k: int = 512
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal flash attention's forward (windowed where window > 0):
+    q [B,K,G,S,D], k and v [B,K,S,D] -> (out [B,K,G,S,D] in v's dtype,
+    lse [B,K,G,S] f32), the reference's `flash_attention`
+    (`src/repro/models/attention.py:39`). The inputs may be strided
+    views with unit stride along D.
+
+    CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu, one
+    launch; tiles of 64 keys); CPU tensors to :func:`repro_torch.kernels.
+    ref.flash_fwd_ref`, which walks key blocks of `block_k` as the
+    reference does."""
+    _check_flash(q, k, v, window)
+    if q.is_cpu:
+        return flash_fwd_ref(q, k, v, window, block_k)
+    (q, k, v), views = _flash_views(q, k, v)
+    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    lse = torch.empty(q.shape[:4], dtype=torch.float32, device=q.device)
+    if out.numel():
+        _flash.launch_fwd(q, k, v, out, lse, window, views)
+        flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+flash_fwd.copies = 0       # operands copied dense before a launch (both)
+
+
+def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+              window: int = 0, block_k: int = 512
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_fwd` (the reference's custom VJP,
+    `src/repro/models/attention.py:99`) given the cotangent g of out:
+    (dq, dk, dv) in the operands' dtype, dense, with the probabilities
+    recomputed from the saved lse and kept in f32.
+
+    CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu:
+    delta, dq, and dk / dv, counted as one launch); CPU tensors to
+    :func:`repro_torch.kernels.ref.flash_bwd_ref`."""
+    _check_flash(q, k, v, window, g=g, out=out, lse=lse)
+    if q.is_cpu:
+        return flash_bwd_ref(g, q, k, v, out, lse, window, block_k)
+    lse = lse.contiguous()
+    (q, k, v, g, out), views = _flash_views(q, k, v, g, out)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty(q.shape[:4], dtype=torch.float32, device=q.device)
+    if dq.numel():
+        _flash.launch_bwd(g, q, k, v, out, lse, delta, dq, dk, dv, window,
+                          views)
+        flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0

@@ -254,3 +254,110 @@ def fill_rates_ref(c: torch.Tensor, single: torch.Tensor,
         iters = iters + (~done).to(torch.int32)
         done = done | frozen.flatten(1).all(1) | stalled
     return rate, iters, done
+
+
+# ----------------------------------------------------------------------
+# Flash attention (the dense family's; `flash_attention`'s forward and
+# its custom VJP's backward)
+# ----------------------------------------------------------------------
+NEG_INF = -1e30     # masked scores: a wholly masked block stays finite
+
+
+def _flash_mask(i: int, bk: int, Sq: int, Sk: int, window: int,
+                device) -> torch.Tensor:
+    """[Sq, bk] validity of key block i: inside Sk, causal, in the
+    window."""
+    qpos = torch.arange(Sq, device=device)
+    kpos = i * bk + torch.arange(bk, device=device)
+    mask = (kpos[None, :] < Sk) & (qpos[:, None] >= kpos[None, :])
+    if window > 0:
+        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+    return mask
+
+
+def _flash_key_blocks(k: torch.Tensor, v: torch.Tensor, block_k: int):
+    """(k, v zero-padded along Sk to a multiple of the block, the
+    block bk, the block count)."""
+    Sk = k.shape[2]
+    bk = min(block_k, Sk)
+    if Sk % bk:
+        pad = bk - Sk % bk
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    return k, v, bk, k.shape[2] // bk
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int, block_k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention's forward, q [B,K,G,Sq,Dq], k [B,K,Sk,Dq], v
+    [B,K,Sk,Dv], causal (and windowed where window > 0), scaled by
+    Dq ** -0.5 after the f32 product -> (out in v's dtype, lse
+    [B,K,G,Sq] f32): the reference's online softmax over key blocks of
+    `block_k` (`src/repro/models/attention.py:39`), in its order and
+    with its roundings (p rounded to v's dtype before PV)."""
+    B, K, G, Sq, Dq = q.shape
+    Sk, Dv = k.shape[2], v.shape[3]
+    sc = Dq ** -0.5
+    k, v, bk, nb = _flash_key_blocks(k, v, block_k)
+    qf = q.reshape(B, K, G * Sq, Dq).float()
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    for i in range(nb):
+        kblk = k[:, :, i * bk:(i + 1) * bk]
+        vblk = v[:, :, i * bk:(i + 1) * bk]
+        s = torch.matmul(qf, kblk.float().transpose(-1, -2)).view(
+            B, K, G, Sq, bk) * sc
+        s = torch.where(_flash_mask(i, bk, Sq, Sk, window, q.device), s,
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.to(v.dtype).view(B, K, G * Sq, bk).float(),
+                          vblk.float())
+        acc = acc * corr[..., None] + pv.view(B, K, G, Sq, Dv)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    return (acc / l_safe[..., None]).to(v.dtype), m + torch.log(l_safe)
+
+
+def flash_bwd_ref(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                  window: int, block_k: int):
+    """(dq, dk, dv) in the operands' dtypes: the reference's custom VJP
+    (`src/repro/models/attention.py:99-124`). Per key block it
+    recomputes the exact probabilities p = exp(s - lse) from the saved
+    lse, then dv = p^T g, dp = g v^T, ds = p (dp - delta), dq += ds k,
+    dk = ds^T q, every product in f32."""
+    B, K, G, Sq, Dq = q.shape
+    Sk, Dv = k.shape[2], v.shape[3]
+    sc = Dq ** -0.5
+    kp, vp, bk, nb = _flash_key_blocks(k, v, block_k)
+    qf = q.reshape(B, K, G * Sq, Dq).float()
+    g32 = g.float()
+    delta = torch.sum(g32 * out.float(), dim=-1)             # [B,K,G,Sq]
+    g2 = g32.reshape(B, K, G * Sq, Dv)
+    dq = torch.zeros((B, K, G * Sq, Dq), dtype=torch.float32,
+                     device=q.device)
+    dk, dv = [], []
+    for i in range(nb):
+        kblk = kp[:, :, i * bk:(i + 1) * bk].float()
+        vblk = vp[:, :, i * bk:(i + 1) * bk].float()
+        s = torch.matmul(qf, kblk.transpose(-1, -2)).view(
+            B, K, G, Sq, bk) * sc
+        s = torch.where(_flash_mask(i, bk, Sq, Sk, window, q.device), s,
+                        NEG_INF)
+        p = torch.exp(s - lse[..., None]).view(B, K, G * Sq, bk)
+        dv.append(torch.matmul(p.transpose(-1, -2), g2))
+        dp = torch.matmul(g2, vblk.transpose(-1, -2))
+        ds = p * (dp - delta.reshape(B, K, G * Sq)[..., None])
+        dq = dq + torch.matmul(ds, kblk) * sc
+        dk.append(torch.matmul(ds.transpose(-1, -2), qf) * sc)
+    dk = torch.cat(dk, dim=2)[:, :, :Sk]
+    dv = torch.cat(dv, dim=2)[:, :, :Sk]
+    return (dq.view(B, K, G, Sq, Dq).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -4,15 +4,22 @@ forward; cached decode over a [B,KV,S,D] cache (a ring buffer of the
 window's size for SWA archs).
 
 Port of the GQA half of `repro/models/attention.py` (MLA comes with its
-architectures). The reference runs these as jit programs, not Pallas
-kernels, so they are plain torch here on both devices, in the
-reference's block order and with its roundings:
+architectures). The reference runs these as jit programs; its comment
+names a Pallas kernel as the TPU's production path of flash attention.
+Here flash's forward and its custom VJP's backward are hand-written CUDA
+kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, `csrc/
+flash_attn.cu`) and their plain versions on the host (`kernels/ref.py::
+flash_fwd_ref` / `flash_bwd_ref`, in the reference's block order); the
+banded and decode paths are plain torch on both devices. All keep the
+reference's roundings:
 
 - score products in f32: bf16 inputs are upcast, then multiplied (the
   reference's `einsum_f32` on the CPU; keep TF32 off on the card);
 - `flash_attention` scales the f32 scores after the product;
-  `swa_attention` and `gqa_decode` scale q in the compute dtype before
-  it, by the scale rounded to that dtype (JAX's weak-typed scalar);
+  `swa_attention` and `gqa_decode` scale q before it, by the scale
+  rounded to the compute dtype (JAX's weak-typed scalar), the product
+  in f32 and not rounded (XLA drops that rounding before the f32
+  product), and take the softmax as exp(s - max) / sum;
 - the probabilities are rounded to v's dtype before the PV product;
   flash casts its output to v's dtype, decode keeps it f32 through
   `@ wo` (an f32 product, cast after), the forward's `@ wo` is in the
@@ -40,9 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, dense_init, head_rms_norm
 
-NEG_INF = -1e30
 FLASH_BLOCK = 512           # the reference's `ShardCtx.flash_block` default
 
 
@@ -52,104 +60,22 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """x * scale in x's dtype with the scale first rounded to it, as
-    JAX multiplies by a Python float."""
-    return x * torch.tensor(scale, dtype=x.dtype)
+    """x * scale in f32, the scale first rounded to x's dtype (JAX
+    multiplies by a weak-typed Python float) and the product not
+    rounded: XLA's CPU program computes the bf16 multiply in f32 and
+    drops its rounding before the f32 product reads it."""
+    return x.float() * torch.tensor(scale, dtype=x.dtype).float()
 
 
-def _mask_for(i: int, bk: int, Sq: int, Sk: int, window: int,
-              device) -> torch.Tensor:
-    """[Sq, bk] validity of key block i: inside Sk, causal, in the
-    window."""
-    qpos = torch.arange(Sq, device=device)
-    kpos = i * bk + torch.arange(bk, device=device)
-    mask = (kpos[None, :] < Sk) & (qpos[:, None] >= kpos[None, :])
-    if window > 0:
-        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
-    return mask
-
-
-def _key_blocks(k: torch.Tensor, v: torch.Tensor, block_k: int):
-    """(k, v zero-padded along Sk to a multiple of the block, the
-    block bk, the block count)."""
-    Sk = k.shape[2]
-    bk = min(block_k, Sk)
-    if Sk % bk:
-        pad = bk - Sk % bk
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
-    return k, v, bk, k.shape[2] // bk
-
-
-def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: int, block_k: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out in v's dtype, lse [B,K,G,Sq] f32): the online softmax over
-    the key blocks."""
-    B, K, G, Sq, Dq = q.shape
-    Sk, Dv = k.shape[2], v.shape[3]
-    sc = Dq ** -0.5
-    k, v, bk, nb = _key_blocks(k, v, block_k)
-    qf = q.reshape(B, K, G * Sq, Dq).float()
-    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, Sq, Dv), dtype=torch.float32,
-                      device=q.device)
-    for i in range(nb):
-        kblk = k[:, :, i * bk:(i + 1) * bk]
-        vblk = v[:, :, i * bk:(i + 1) * bk]
-        s = torch.matmul(qf, kblk.float().transpose(-1, -2)).view(
-            B, K, G, Sq, bk) * sc
-        s = torch.where(_mask_for(i, bk, Sq, Sk, window, q.device), s,
-                        NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pv = _f32_matmul(p.to(v.dtype).view(B, K, G * Sq, bk), vblk)
-        acc = acc * corr[..., None] + pv.view(B, K, G, Sq, Dv)
-        m = m_new
-    l_safe = torch.clamp_min(l, 1e-30)
-    return (acc / l_safe[..., None]).to(v.dtype), m + torch.log(l_safe)
-
-
-def _flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
-               window: int, block_k: int):
-    """(dq, dk, dv) in the operands' dtypes: the reference's custom VJP
-    (`src/repro/models/attention.py:105-125`). Per key block it
-    recomputes the exact probabilities p = exp(s - lse) from the saved
-    lse, then dv = p^T g, dp = g v^T, ds = p (dp - delta), dq += ds k,
-    dk = ds^T q, every product in f32."""
-    B, K, G, Sq, Dq = q.shape
-    Sk, Dv = k.shape[2], v.shape[3]
-    sc = Dq ** -0.5
-    kp, vp, bk, nb = _key_blocks(k, v, block_k)
-    qf = q.reshape(B, K, G * Sq, Dq).float()
-    g32 = g.float()
-    delta = torch.sum(g32 * out.float(), dim=-1)             # [B,K,G,Sq]
-    g2 = g32.reshape(B, K, G * Sq, Dv)
-    dq = torch.zeros((B, K, G * Sq, Dq), dtype=torch.float32,
-                     device=q.device)
-    dk, dv = [], []
-    for i in range(nb):
-        kblk = kp[:, :, i * bk:(i + 1) * bk].float()
-        vblk = vp[:, :, i * bk:(i + 1) * bk].float()
-        s = torch.matmul(qf, kblk.transpose(-1, -2)).view(
-            B, K, G, Sq, bk) * sc
-        s = torch.where(_mask_for(i, bk, Sq, Sk, window, q.device), s,
-                        NEG_INF)
-        p = torch.exp(s - lse[..., None]).view(B, K, G * Sq, bk)
-        dv.append(torch.matmul(p.transpose(-1, -2), g2))
-        dp = torch.matmul(g2, vblk.transpose(-1, -2))
-        ds = p * (dp - delta.reshape(B, K, G * Sq)[..., None])
-        dq = dq + torch.matmul(ds, kblk) * sc
-        dk.append(torch.matmul(ds.transpose(-1, -2), qf) * sc)
-    dk = torch.cat(dk, dim=2)[:, :, :Sk]
-    dv = torch.cat(dv, dim=2)[:, :, :Sk]
-    return (dq.view(B, K, G, Sq, Dq).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softmax` as XLA computes it: exp(s - max) divided by its
+    sum. ATen's CUDA softmax divides too, in one kernel; its CPU kernel
+    multiplies by the reciprocal, so the host spells the division
+    out."""
+    if s.is_cuda:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 class _Flash(torch.autograd.Function):
@@ -159,7 +85,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, block_k: int):
-        out, lse = _flash_fwd(q, k, v, window, block_k)
+        out, lse = ops.flash_fwd(q, k, v, window, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.block_k = window, block_k
         return out
@@ -167,8 +93,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(g, q, k, v, out, lse, ctx.window,
-                                ctx.block_k)
+        dq, dk, dv = ops.flash_bwd(g, q, k, v, out, lse, ctx.window,
+                                   ctx.block_k)
         return dq, dk, dv, None, None
 
 
@@ -178,14 +104,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention, q: [B,K,G,Sq,Dq]  k: [B,K,Sk,Dq]  v: [B,K,Sk,Dv]
     -> [B,K,G,Sq,Dv], scaled by Dq ** -0.5.
 
-    K = kv heads, G = query group size (Hq = K*G). Walks the key blocks
-    with a running (m, l, acc) softmax state; never materializes the
-    [Sq, Sk] score matrix. Sk is zero-padded to a multiple of the block
-    (the pads are masked). Under autograd its gradient is the
-    reference's custom VJP (`_Flash`), which recomputes each block's
-    probabilities from the saved log-sum-exp. The reference's
-    `causal=False`, `q_offset` and `scale` come with the families that
-    pass them (enc-dec, MLA)."""
+    K = kv heads, G = query group size (Hq = K*G), Sq == Sk, Dq == Dv a
+    multiple of 16 up to 128. Walks the key blocks with a running (m, l,
+    acc) softmax state; never materializes the [Sq, Sk] score matrix.
+    `block_k` is the plain version's key block (the kernel states its
+    own tile). Under autograd its gradient is the reference's custom VJP
+    (`_Flash`), which recomputes each block's probabilities from the
+    saved log-sum-exp. The reference's `causal=False`, `q_offset` and
+    `scale` come with the families that pass them (enc-dec, MLA)."""
     return _Flash.apply(q, k, v, window, block_k)
 
 
@@ -224,7 +150,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid_prev = (~first)[:, None, None] | (kpos[None] >= 0)
     mask = band[None] & valid_prev                      # [nb,W,2W]
     s = torch.where(mask[:, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s)
     out = _f32_matmul(p.to(v.dtype).view(B, K, nb, G * W, 2 * W), v2)
     out = out.view(B, K, nb, G, W, Dv).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(B, K, G, S, Dv).to(v.dtype)
@@ -359,7 +285,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         last = pos % S if window else pos
         s = torch.where(torch.arange(S, device=q.device) <= last, s,
                         NEG_INF)
-    pr = torch.softmax(s, dim=-1)
+    pr = _softmax(s)
     o = _f32_matmul(pr.to(cache_v.dtype), cache_v)           # [B,KV,G,D]
     return o.reshape(B, H, 1, D)
 

@@ -128,8 +128,17 @@ def attn_cache_len(cfg: ModelConfig, S_max: int) -> int:
     return min(S_max, cfg.sliding_window) if cfg.sliding_window else S_max
 
 
-def _mlp(blk: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = rms_norm(x, blk["ln2"], cfg.norm_eps)
+def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
+         ) -> torch.Tensor:
+    """The residual sum x + a (a the attention's output), then ln2 and
+    the MLP. ln2's variance is taken of the f32 sum before it is rounded
+    to the compute dtype: XLA's compiled CPU programs of the reference's
+    block, `lm_prefill` and `lm_decode` all drop that f32 -> bf16 -> f32
+    pair (the square reads the f32 add; the value path the rounded
+    one)."""
+    s = x.float() + a                   # the add widens a bf16 a exactly
+    x = s.to(x.dtype)
+    h = rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
     mlp = blk["mlp"]
     return x + swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
 
@@ -158,7 +167,7 @@ class DenseBlock(nn.Module):
     def run(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        return _mlp(blk, x + att.gqa_forward(blk["attn"], h, cfg, positions),
+        return _mlp(blk, x, att.gqa_forward(blk["attn"], h, cfg, positions),
                     cfg)
 
     @staticmethod
@@ -173,8 +182,8 @@ class DenseBlock(nn.Module):
         k, v = att.project_kv(blk["attn"], h, cfg, positions)
         S_c = attn_cache_len(cfg, S_max)
         ck, cv = att.pad_cache(k[:, :, -S_c:], v[:, :, -S_c:], S_c)
-        x = x + att.gqa_forward(blk["attn"], h, cfg, positions, kv=(k, v))
-        return _mlp(blk, x, cfg), {"k": ck, "v": cv}
+        a = att.gqa_forward(blk["attn"], h, cfg, positions, kv=(k, v))
+        return _mlp(blk, x, a, cfg), {"k": ck, "v": cv}
 
     @staticmethod
     def decode(blk: Dict, c: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -185,7 +194,7 @@ class DenseBlock(nn.Module):
             raise ValueError("the dense family's decode needs pos")
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         o, k, v = att.gqa_decode(blk["attn"], c["k"], c["v"], h, pos, cfg)
-        return _mlp(blk, x + o, cfg), {"k": k, "v": v}
+        return _mlp(blk, x, o, cfg), {"k": k, "v": v}
 
     @staticmethod
     def cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int],

@@ -309,6 +309,30 @@ def test_gqa_forward_matches_reference(built, ref, arch, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_block_takes_ln2_variance_of_the_unrounded_sum(built, ref, arch,
+                                                       layer):
+    """The bf16 block against the reference's `_attn_mlp_block` under
+    one jit: XLA's program takes ln2's variance of the f32 sum x + attn
+    before rounding it, and so does the port. Taken of the rounded sum,
+    2-4% of the outputs differ; mirrored, under 1% (the products' sum
+    order and exp's last ulp)."""
+    cfg, model, rcfg, rparams = built(arch, "bfloat16")
+    rng = np.random.default_rng(11 + layer)
+    S = 32
+    x, jx = _pair(ref, _np(rng, (2, S, 128), "bfloat16"), "bfloat16")
+    blk = _block(ref, rparams, rcfg, layer)
+    want = ref.jax.jit(lambda p, x: ref.transformer._attn_mlp_block(
+        p, x, ref.jnp.arange(S), rcfg, ref.ctx, 1)[0])(blk, jx)
+    pblk = model.compute_params(torch.bfloat16)["blocks"][layer]
+    with torch.no_grad():
+        got = transformer.DenseBlock.run(pblk, x, torch.arange(S), cfg)
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape and np.isfinite(g).all()
+    assert np.mean(g != w) < 0.01
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_gqa_make_cache_matches_reference(built, ref, arch):
     cfg, model, rcfg, rparams = built(arch, "float32")
@@ -630,3 +654,18 @@ def test_card_serves_as_the_host(card, arch):
         (1 + MAX_NEW) * cfg.n_layers
     np.testing.assert_allclose(logits[0], logits[1], atol=1e-3, rtol=1e-3)
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_card_softmax_divides(card):
+    """On the card `attention._softmax` is ATen's softmax, one kernel;
+    it divides exp(s - max) by the sum as the host's spelled-out form
+    does (not a product with the reciprocal). On rows of two scores the
+    sum is one rounding in either order, so the two agree bit for bit,
+    a masked score included."""
+    rng = np.random.default_rng(0)
+    s = torch.from_numpy(4 * rng.standard_normal((8192, 2)).astype(
+        np.float32)).to(card)
+    s[::7, 1] = att.NEG_INF
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    assert torch.equal(att._softmax(s), e / e.sum(dim=-1, keepdim=True))

@@ -1,0 +1,262 @@
+"""The dense family's flash attention (`ops.flash_fwd` / `ops.flash_bwd`)
+against the JAX reference's `flash_attention` and its custom VJP.
+
+On the CPU the wrappers run the plain versions (`ref.flash_fwd_ref` /
+`ref.flash_bwd_ref`, the reference's key blocks and roundings). The
+same seeded numpy inputs go through `jax.vjp` of the jitted reference
+and through the plain versions: head dims 8, 16, 80 (h2o-danube-1.8b)
+and 128 (llama3-8b, qwen3-4b); 1 and 2 query heads a KV head; with and
+without a window; 40 keys in blocks of 16, so the last block is ragged
+(zero-padded and masked). Tolerances:
+- f32: the frameworks differ only in the order of their f32 sums,
+  within 1e-5 of the output's (gradient's) largest magnitude;
+- bf16: one bf16 step of the largest magnitude (2^-7), the dense
+  tests' bar: a sum order can flip a rounding here and there.
+
+The card cases (marker `cuda`) hold the CUDA kernels (csrc/
+flash_attn.cu) to the plain versions on the card through
+`chip_smoke.flash_err`, the card check's own rule: bf16 outputs and
+gradients each row within 2^-7 of the row's max |value| (floored at
+2^-7 of the tensor's: rows of cancellation noise), f32 within 1e-5 of
+the max |value|, lse within 1e-5. They import no jax:
+``python -m pytest -q -m cuda tests/test_torch_flash.py``.
+"""
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_bwd_ref, flash_fwd_ref
+from repro_torch.models import attention as att
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+F32_REL = 1e-5
+BF16_STEP = 2.0 ** -7
+S, BLOCK = 40, 16           # 3 key blocks, the last ragged
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import attention as ref_att
+    return types.SimpleNamespace(jax=jax, jnp=jnp, att=ref_att)
+
+
+def _inputs(B, K, G, S, D, dtype, seed):
+    """q, k, v, g as seeded normal f32 numpy arrays rounded to `dtype`
+    (values both packages hold exactly)."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, K, G, S, D), (B, K, S, D), (B, K, S, D), (B, K, G, S, D))
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(DTYPES[dtype]).float().numpy() for s in shapes]
+
+
+def _close(got, want, dtype, what):
+    g = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    w = np.asarray(want, dtype=np.float32)
+    assert g.shape == w.shape and np.isfinite(g).all(), what
+    mag = float(np.abs(w).max())
+    tol = F32_REL if dtype == "float32" else BF16_STEP
+    np.testing.assert_allclose(g, w, atol=tol * mag, rtol=0, err_msg=what)
+
+
+# (D, G, window); D = 8 is below what the wrappers take, the plain
+# versions take any head dim
+CASES = [(d, gq, w) for d in (8, 16, 80, 128) for gq in (1, 2)
+         for w in (0, 9)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D,G,window", CASES)
+def test_plain_versions_match_reference_vjp(ref, D, G, window, dtype):
+    q, k, v, g = _inputs(2, 2, G, S, D, dtype, seed=D + G + window)
+    jdt = ref.jnp.dtype(dtype)
+    out, vjp = ref.jax.vjp(ref.jax.jit(
+        lambda a, b, c: ref.att.flash_attention(
+            a, b, c, causal=True, window=window, block_k=BLOCK)),
+        *(ref.jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want = [out] + list(vjp(ref.jnp.asarray(g).astype(jdt)))
+    want = [np.asarray(w.astype(ref.jnp.float32)) for w in want]
+    tq, tk, tv, tg = (torch.from_numpy(a).to(DTYPES[dtype])
+                      for a in (q, k, v, g))
+    o, lse = flash_fwd_ref(tq, tk, tv, window, BLOCK)
+    assert o.dtype == tv.dtype and lse.dtype == torch.float32
+    assert tuple(lse.shape) == (2, 2, G, S)
+    grads = flash_bwd_ref(tg, tq, tk, tv, o, lse, window, BLOCK)
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (o, *grads), want):
+        assert got.dtype == tq.dtype, name
+        _close(got, w, dtype, name)
+
+
+def _t(*shape, dtype=torch.float32, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+# name -> (q, k, v, window, error, message)
+BAD = {
+    "d_not_multiple_of_16": (lambda: (_t(1, 1, 1, 8, 24), _t(1, 1, 8, 24),
+                                      _t(1, 1, 8, 24)), 0, ValueError,
+                             "multiple of 16"),
+    "d_above_128": (lambda: (_t(1, 1, 1, 8, 144), _t(1, 1, 8, 144),
+                             _t(1, 1, 8, 144)), 0, ValueError,
+                    "multiple of 16"),
+    "dq_not_dv": (lambda: (_t(1, 1, 1, 8, 32), _t(1, 1, 8, 32),
+                           _t(1, 1, 8, 16)), 0, ValueError, "Dq == Dv"),
+    "sq_not_sk": (lambda: (_t(1, 1, 1, 8, 32), _t(1, 1, 12, 32),
+                           _t(1, 1, 12, 32)), 0, ValueError, "Sq == Sk"),
+    "dtype_mismatch": (lambda: (_t(1, 1, 1, 8, 32, dtype=torch.bfloat16),
+                                _t(1, 1, 8, 32), _t(1, 1, 8, 32)), 0,
+                       TypeError, "must be torch.bfloat16"),
+    "half": (lambda: (_t(1, 1, 1, 8, 32, dtype=torch.float16),
+                      _t(1, 1, 8, 32, dtype=torch.float16),
+                      _t(1, 1, 8, 32, dtype=torch.float16)), 0, TypeError,
+             "float32 or bfloat16"),
+    "mixed_devices": (lambda: (_t(1, 1, 1, 8, 32), _t(1, 1, 8, 32),
+                               _t(1, 1, 8, 32, device="meta")), 0,
+                      ValueError, "is on meta"),
+    "q_not_5d": (lambda: (_t(1, 1, 8, 32), _t(1, 1, 8, 32),
+                          _t(1, 1, 8, 32)), 0, ValueError, "expected q"),
+    "negative_window": (lambda: (_t(1, 1, 1, 8, 32), _t(1, 1, 8, 32),
+                                 _t(1, 1, 8, 32)), -1, ValueError,
+                        "window"),
+}
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("case", list(BAD))
+def test_wrappers_refuse_what_the_kernels_do_not_take(case, which):
+    make, window, err, msg = BAD[case]
+    q, k, v = make()
+    before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
+    with pytest.raises(err, match=msg):
+        if which == "fwd":
+            ops.flash_fwd(q, k, v, window)
+        else:
+            lse = torch.zeros(q.shape[:4]) if q.dim() == 5 else q
+            ops.flash_bwd(q, q, k, v, q, lse, window)
+    assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == before
+
+
+def test_bwd_refuses_a_wrong_lse():
+    q, k, v = _t(1, 1, 1, 8, 32), _t(1, 1, 8, 32), _t(1, 1, 8, 32)
+    with pytest.raises(TypeError, match="lse must be torch.float32"):
+        ops.flash_bwd(q, q, k, v, q, torch.zeros(1, 1, 1, 8,
+                                                 dtype=torch.float64))
+    with pytest.raises(ValueError, match="lse must be"):
+        ops.flash_bwd(q, q, k, v, q, torch.zeros(1, 1, 1, 9))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wrappers_take_the_plain_versions_on_cpu(dtype):
+    """On CPU tensors the wrappers return the plain versions' results
+    bit for bit (strided q included) and count no launch."""
+    q, k, v, g = (torch.from_numpy(a).to(DTYPES[dtype]) for a in
+                  _inputs(1, 2, 2, S, 32, dtype, seed=3))
+    qs = q.transpose(3, 4).contiguous().transpose(3, 4)    # strided rows
+    before = (ops.flash_fwd.launches, ops.flash_bwd.launches,
+              ops.flash_fwd.copies)
+    out, lse = ops.flash_fwd(qs, k, v, 9, BLOCK)
+    want_out, want_lse = flash_fwd_ref(qs, k, v, 9, BLOCK)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    got = ops.flash_bwd(g, qs, k, v, out, lse, 9, BLOCK)
+    want = flash_bwd_ref(g, qs, k, v, out, lse, 9, BLOCK)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (ops.flash_fwd.launches, ops.flash_bwd.launches,
+            ops.flash_fwd.copies) == before
+
+
+def test_flash_attention_grads_go_through_the_wrappers(monkeypatch):
+    """`flash_attention`'s forward calls `ops.flash_fwd`, its backward
+    `ops.flash_bwd`, once each (the path the card's launches count)."""
+    calls = []
+    for name in ("flash_fwd", "flash_bwd"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    q, k, v, g = (torch.from_numpy(a) for a in
+                  _inputs(1, 1, 1, S, 16, "float32", seed=4))
+    q.requires_grad_()
+    att.flash_attention(q, k, v, window=0, block_k=BLOCK).backward(g)
+    assert calls == ["flash_fwd", "flash_bwd"] and q.grad is not None
+
+
+# ----------------------------------------------------------------------
+# the card
+# ----------------------------------------------------------------------
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where there is none (decided at
+    setup, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def smoke(card):
+    """`chip_smoke.py`, whose `flash_err` and lse bound are the card
+    check's tolerance rule, held in one place."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+# (B, K, G, S, D, window): ragged tiles, G > 1, windows that skip tiles,
+# the generic head dim and the two exact ones
+CARD_CASES = [(2, 2, 1, 100, 32, 0), (1, 2, 2, 130, 64, 0),
+              (1, 2, 1, 200, 80, 70), (2, 1, 2, 129, 128, 0),
+              (1, 1, 1, 300, 128, 65), (1, 3, 1, 64, 16, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_card_kernels_match_plain(card, smoke, case, dtype):
+    B, K, G, S_, D, window = case
+    q, k, v, g = (torch.from_numpy(a).to(dtype).to(card) for a in
+                  _inputs(B, K, G, S_, D, "float32", seed=S_ + D))
+    before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
+    out, lse = ops.flash_fwd(q, k, v, window)
+    grads = ops.flash_bwd(g, q, k, v, out, lse, window)
+    torch.cuda.synchronize()
+    assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_out, want_lse = flash_fwd_ref(q, k, v, window, 512)
+    smoke.flash_err(out, want_out, "out")
+    assert float((lse - want_lse).abs().max()) <= smoke.FLASH_LSE_TOL
+    want = flash_bwd_ref(g, q, k, v, out, lse, window, 512)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert a.dtype == dtype and a.is_contiguous()
+        smoke.flash_err(a, b, name)
+
+
+@pytest.mark.cuda
+def test_card_reads_strided_operands(card):
+    """q as the model hands it (a transposed projection) and a strided g
+    are read in place: no copy, the same result as dense inputs."""
+    B, H, S_, D = 2, 4, 96, 128
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((B, S_, H, D)).astype(
+        np.float32)).to(torch.bfloat16).to(card)
+    q = x.transpose(1, 2)[:, :, None]                 # [B,H,1,S,D] strided
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, S_, D)).astype(
+        np.float32)).to(torch.bfloat16).to(card) for _ in range(2))
+    copies = ops.flash_fwd.copies
+    out, lse = ops.flash_fwd(q, k, v)
+    dense, _ = ops.flash_fwd(q.contiguous(), k, v)
+    g = torch.cat([out, out], dim=-1)[..., :D]        # rows 2D apart
+    got = ops.flash_bwd(g, q, k, v, out, lse)
+    want = ops.flash_bwd(g.contiguous(), q.contiguous(), k, v, out, lse)
+    torch.cuda.synchronize()
+    assert ops.flash_fwd.copies == copies
+    assert torch.equal(out, dense)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

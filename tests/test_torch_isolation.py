@@ -77,7 +77,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.configs.h2o_danube_1_8b",
             "repro_torch.train.loop", "repro_torch.train.optimizer",
             "repro_torch.train.train_step", "repro_torch.data.pipeline",
-            "repro_torch.checkpoint.ckpt", "repro_torch.launch.train"} <= mods
+            "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+            "repro_torch.kernels.flash"} <= mods
 
 
 def _imports(path):
@@ -158,6 +159,23 @@ def test_wrapper_rejects_bad_inputs(case):
         X = np.ones((5, 6), np.float32)
     with pytest.raises((TypeError, ValueError)):
         ops.rf_predict(f, t, l, X, d)
+
+
+def test_flash_binding_builds_nothing_at_import():
+    """Importing the flash binding compiles and loads nothing (the CPU
+    has no nvcc); the C entry points it binds are the source's."""
+    code = ("import sys\n"
+            "from repro_torch.kernels import build, flash, ops\n"
+            "assert not build._LIBS, build._LIBS\n"
+            "print(flash.__name__)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    src = (PORT / "csrc" / "flash_attn.cu").read_text()
+    for name in ("flash_fwd_launch", "flash_bwd_launch",
+                 "flash_error_string"):
+        assert f'extern "C"' in src and f" {name}(" in src, name
 
 
 def test_wrapper_counts_no_launch_on_cpu():

@@ -17,15 +17,13 @@ do):
    and for `rms_norm` with XLA's bf16 sums (`XlaRmsNorm`: windows of 32
    along the features, a bf16 rounding after every add; the rows
    summed in order) in place of torch's f32 sums.
-   And with ln2's variance taken of the unrounded residual sum (below).
 4. The 8-step psum run of `tests/test_torch_train.py` (lr 1e-3) against
    the reference's Trainer: the largest loss gap, f32 and bf16.
 5. The forward of each dense arch: the reference's block under one jit
    against the same block jitted op by op (ln1, attention, ln2, MLP),
-   the port's block against the first, and the loss gap, as is and
-   with `unrounded_ln2` (XLA's whole-block program takes ln2's variance
-   of the f32 sum x + attn before it is rounded to bf16, as it does
-   for the SSM's gated norm, `ssm.gated_rms_norm`).
+   the port's block against the first (it takes ln2's variance of the
+   f32 sum x + attn before rounding it, as XLA's whole-block program
+   does), and the loss gap.
 """
 import json
 import os
@@ -220,16 +218,6 @@ def f32_rms_norm(x, scale, eps=1e-5, stats=None):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def unrounded_ln2(blk, x, positions, cfg):
-    """`DenseBlock.run` with ln2's variance of the unrounded sum."""
-    h = layers.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    s = x.float() + att.gqa_forward(blk["attn"], h, cfg, positions).float()
-    x = s.to(x.dtype)
-    h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
-    mlp = blk["mlp"]
-    return x + layers.swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
-
-
 def forward_gaps(arch) -> None:
     rcfg = ref_reduced(ref_config(arch))
     cfg = reduced(get_config(arch))
@@ -261,28 +249,18 @@ def forward_gaps(arch) -> None:
         with torch.no_grad():
             port = transformer.DenseBlock.run(pc["blocks"][i], xt,
                                               torch.arange(32), cfg)
-            mirrored = unrounded_ln2(pc["blocks"][i], xt, torch.arange(32),
-                                     cfg)
         ops_t = torch.from_numpy(np.array(ops_alone.astype(jnp.float32)))
         print(f"  {arch} block {i}: op-by-op jit {gap(ops_t, want)}; "
-              f"port {gap(port, want)}; port, unrounded ln2 "
-              f"{gap(mirrored, want)}")
+              f"port {gap(port, want)}")
         x = want
     rb = {k: jnp.asarray(v) for k, v in b.items()}
     want = float(jax.jit(lambda p: ref_transformer.lm_loss(
         p, rb, rcfg, ShardCtx())[0])(jax.tree.map(jnp.asarray, rparams)))
     tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
     tree = transformer.param_tree(model)
-    run = transformer.DenseBlock.run
     with torch.no_grad():
-        as_is = float(registry.loss_fn(cfg)(tree, tb)[0])
-        transformer.DenseBlock.run = staticmethod(unrounded_ln2)
-        try:
-            mirrored = float(registry.loss_fn(cfg)(tree, tb)[0])
-        finally:
-            transformer.DenseBlock.run = staticmethod(run)
-    print(f"  {arch} loss gap: as is {abs(as_is - want) / want:.2e}, "
-          f"unrounded ln2 {abs(mirrored - want) / want:.2e}")
+        port = float(registry.loss_fn(cfg)(tree, tb)[0])
+    print(f"  {arch} loss gap: {abs(port - want) / want:.2e}")
 
 
 def unrounded_gate(y, z):
@@ -299,8 +277,6 @@ VARIANTS = {
             x, s, eps)},
     "planted: rms_norm value path f32": {
         (transformer, "rms_norm"): f32_rms_norm},
-    "XLA's unrounded ln2 variance": {
-        (transformer.DenseBlock, "run"): staticmethod(unrounded_ln2)},
     "planted: gate value unrounded": {(ops, "swiglu_gate"): unrounded_gate},
     "planted: sync uncompressed": {
         (train_step, "wan_allreduce_batched"):
