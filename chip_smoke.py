@@ -22,8 +22,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    three kernels' and waterfill's kernel's registers and spills, failing
    on a spill; `flash_attn.cu` builds beside them, and its seven kernels'
    registers, spills and SASS counts are printed, failing if a bf16
-   kernel (forward, dq, dk / dv) holds no tensor-core instruction
-   (HMMA: mma.sync);
+   kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
+   (UTMALDG), or if any bf16 instance spills;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
    wrapper picks and the other), on the paper's forest (100 trees,
@@ -286,7 +286,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    ([4,32,1,1024,80] bf16, window 4,096; rows within 2^-7), timed beside
    the plain versions, SDPA (its forward; `torch.autograd.grad` through
    it) and the bounds (the backward's five products; q, k, v, out, g,
-   lse in, dq, dk, dv out; k, v, dk, dv at the 8 KV heads);
+   lse in, dq, dk, dv out; k, v, dk, dv at the 8 KV heads); each of the
+   two called twice on those inputs, every output equal bit for bit;
    (3) card against host: `llama3-8b`, `qwen3-4b` and `h2o-danube-1.8b`
    at full width, 2 layers, f32 (TF32 off), one `make_train_step` step
    on the card and on the host from the same weights and batch (B=1;
@@ -503,11 +504,12 @@ QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
 SILU_KERNELS = ("silu_kernel", "silu_gate_kernel", "silu_gate_bwd_kernel")
 WF_KERNELS = ("waterfill_kernel",)
-FLASH_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                 "flash_bwd_dkdv_bf16_kernel", "flash_delta_kernel",
+FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
                  "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                  "flash_bwd_dkdv_f32_kernel")
-FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: mma.sync, HMMA in SASS
+FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: wgmma (HGMMA) fed by TMA
+                                         # (UTMALDG) in SASS, no spill
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
 
@@ -3399,7 +3401,7 @@ def time_attention(cap: dict, kv_heads: int) -> dict:
 
 
 # the flash kernels against their plain versions: the same f32 sums in
-# another order (tiles of 64 keys, not blocks of 512), and in bf16 p
+# another order (the kernels' tiles, not blocks of 512), and in bf16 p
 # rounded against another running max, so bf16 outputs and gradients are
 # held row by row (over D) within 2^-7 of the row's max |value| (one bf16
 # step; a key masked wrongly or a lost tile moves a row by far more), a
@@ -3481,6 +3483,22 @@ def check_flash_bwd(args) -> dict:
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         res[name] = flash_err(a, b, f"bwd {name}")
     return res
+
+
+def flash_bits(fargs, bargs) -> dict:
+    """`ops.flash_fwd` and `ops.flash_bwd` called twice each on the same
+    inputs: every output equal bit for bit (the kernels sum in a fixed
+    order, with no atomics); raises otherwise."""
+    first = ops.flash_fwd(*fargs) + ops.flash_bwd(*bargs)
+    second = ops.flash_fwd(*fargs) + ops.flash_bwd(*bargs)
+    sync(first[0].device)
+    apart = [n for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), first,
+                                  second) if not torch.equal(a, b)]
+    if apart:
+        raise AssertionError(f"flash: two calls differ in {apart}")
+    return {"shape": list(fargs[0].shape),
+            "dtype": str(fargs[0].dtype).replace("torch.", ""),
+            "equal": ["out", "lse", "dq", "dk", "dv"]}
 
 
 def keys_used(S: int, window: int) -> float:
@@ -4402,6 +4420,10 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
     fargs, bargs = single.pop("flash_args")
     single["flash_fwd"] = {"check": check_flash_fwd(fargs)}
     single["flash_bwd"] = {"check": check_flash_bwd(bargs)}
+    single["flash_bits"] = flash_bits(fargs, bargs)
+    log(f"[train] flash_fwd / flash_bwd {single['flash_bits']['shape']} "
+        f"{single['flash_bits']['dtype']}: two calls each, out, lse, dq, dk "
+        f"and dv equal bit for bit")
     if dev.type == "cuda":
         for which, a, timer in (("fwd", fargs, time_flash_fwd),
                                 ("bwd", bargs, time_flash_bwd)):
@@ -4662,8 +4684,8 @@ def main() -> int:
         raise AssertionError(f"waterfill's ptxas report: kernels "
                              f"{sorted(wf_report)}, spills {wf_spills}")
     # flash_attn: registers and spills (the largest of each kernel's
-    # template instances: D = 128, 80 and the generic one), and the
-    # tensor-core instructions (mma.sync: HMMA) in the bf16 kernels
+    # template instances: D = 128 and 80), and in the bf16 kernels wgmma
+    # (HGMMA) fed by TMA (UTMALDG), none of their instances spilling
     fl_report = ptxas_report(texts["flash_attn"], FLASH_KERNELS)
     fl_sass = sass_counts_by_kernel(build.library_path("flash_attn"),
                                     FLASH_KERNELS)
@@ -4673,10 +4695,15 @@ def main() -> int:
             f"{k} {v}" for k, v in fl_report.get(name, {}).items())
             + "; SASS " + ", ".join(f"{k} {v}" for k, v in
                                     fl_sass[name].items() if v))
-    no_tc = [n for n in FLASH_TC_KERNELS if not fl_sass[n]["HMMA"]]
-    if set(fl_report) != set(FLASH_KERNELS) or no_tc:
+    no_tc = [n for n in FLASH_TC_KERNELS
+             if not (fl_sass[n]["HGMMA"] and fl_sass[n]["UTMALDG"])]
+    fl_spills = {n: fl_report[n] for n in FLASH_TC_KERNELS
+                 if fl_report.get(n, {}).get("spill_stores") or
+                 fl_report.get(n, {}).get("spill_loads")}
+    if set(fl_report) != set(FLASH_KERNELS) or no_tc or fl_spills:
         raise AssertionError(f"flash_attn: ptxas reports kernels "
-                             f"{sorted(fl_report)}; no HMMA in {no_tc}")
+                             f"{sorted(fl_report)}; no HGMMA or no UTMALDG "
+                             f"in {no_tc}; spills {fl_spills}")
 
     # 3. kernel
     t0 = time.perf_counter()

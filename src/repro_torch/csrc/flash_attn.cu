@@ -2,24 +2,26 @@
 // backward, for Hopper (sm_90a).
 //
 // Replaces the JAX package's flash_attention (src/repro/models/
-// attention.py:39, its jnp oracle of a TPU Pallas kernel) and the
-// custom VJP's backward (_vjp_bwd, :99), and computes what they compute
-// for q [B,K,G,S,D], k and v [B,K,S,D] (K kv heads, G query heads a kv
-// head, Sq == Sk == S), causal, with an optional sliding window:
+// attention.py:39, its jnp oracle of a TPU Pallas kernel) with
+// flash_fwd_wgmma_kernel, and the custom VJP's backward (_vjp_bwd, :99)
+// with flash_bwd_dq_wgmma_kernel and flash_bwd_dkdv_wgmma_kernel (bf16;
+// the f32 parity runs take the FFMA kernels below), and computes what
+// they compute for q [B,K,G,S,D], k and v [B,K,S,D] (K kv heads, G query
+// heads a kv head, Sq == Sk == S), causal, with an optional window:
 //   s    = (q . k^T in f32) * D^-0.5, masked to NEG_INF = -1e30 (not -inf)
 //          where key j > query i or i - j >= window (window > 0);
-//   fwd  : the online softmax (m, l, acc) over key tiles in order;
-//          p = exp(s - m_new) rounded to v's dtype before the PV product
-//          (f32 sums); out = acc / max(l, 1e-30) in v's dtype and
-//          lse = m + log(max(l, 1e-30)) in f32;
+//   fwd  : the online softmax (m, l, acc) over key tiles in order, m and
+//          l starting at -1e30 and 0; p = exp(s - m_new) rounded to v's
+//          dtype before the PV product (f32 sums); out = acc / max(l,
+//          1e-30) in v's dtype and lse = m + log(max(l, 1e-30)) in f32;
 //   bwd  : delta = sum(g * out) in f32, p = exp(s - lse) in f32,
 //          dv = p^T g, dp = g v^T, ds = p (dp - delta),
 //          dq = ds k * sc, dk = ds^T q * sc, in the operands' dtypes.
 // The plain versions are kernels/ref.py::flash_fwd_ref / flash_bwd_ref,
 // which keep the reference's key blocks of 512; the kernels state their
-// own tile of 64 keys. A tile only reorders the sums and moves the
-// points where p is rounded against its running max, so the card holds
-// the kernels to the plain versions within a tolerance (chip_smoke.py).
+// own tiles (below). A tile only reorders the sums and moves the points
+// where p is rounded against its running max, so the card holds the
+// kernels to the plain versions within a tolerance (chip_smoke.py).
 //
 // Key tiles that lie wholly above the causal diagonal, or wholly before
 // a query tile's window, are skipped. That is exact: every row's
@@ -29,66 +31,102 @@
 // its p = exp(-1e30 - lse) is 0. A masked row inside a visited tile keeps
 // the reference's arithmetic (its p = 1 until a valid key wipes it).
 //
-// What bounds it on this card: operations. At llama3-8b's prefill (B=4,
-// 32 heads, S=641, D=128, bf16) the forward's two products are 21.5
-// GFLOP over the causal half (0.0217 ms at 989 TFLOP/s) against 52 MB of
-// q, k, v, out (0.0157 ms at 3.35 TB/s); the backward's five products
-// are 2.5x the forward's.
+// What bounds it on this card. At llama3-8b's prefill (B=4, 32 heads on
+// 8 kv heads, S=641, D=128, bf16) bytes, by a little: 52 MB of q, out
+// and the kv heads' k and v (0.0158 ms at 3.35 TB/s) against the
+// forward's two products over the causal half, 13.5 GFLOP (0.0136 ms at
+// 989 TFLOP/s); at h2o-danube-1.8b's training shape (B=4, 32 heads,
+// S=1,024, D=80) operations: 21.5 GFLOP (0.0217 ms) against 42 MB. The
+// backward's five products are 2.5x the forward's (0.0543 ms at danube's
+// shape); this backward runs ten product-equivalents, the hi / lo split
+// below doubling three of them and the dq kernel recomputing two. The
+// card runs' account of what holds the kernels above that (the k and v
+// tiles each 128-row query tile reads from L2 again; the exponentials,
+// 16 a clock an SM) is in PERF.md.
 //
-// Design. bf16 inputs (the serve and train paths) run on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, f32 accumulators), not wgmma:
-// a warp owns 16 query rows (16 keys in dk/dv), the f32 score
-// accumulator of one product is, re-packed two n-tiles at a time, the A
-// fragment of the next one, so scores and probabilities never leave
-// registers, and the per-row softmax needs only a quad of lanes. That
-// register-level reuse is what wgmma makes awkward (its 64-row
-// warpgroup tiles and asynchronous accumulators), and this first design
-// keeps to the simpler instruction; moving to wgmma is later work.
 // Where the reference's products are exact in f32 the tensor cores are
 // too: a product of two bf16 values is exact in f32, so q.k^T, the
 // rounded p times v and g.v^T are formed exactly and only summed in
-// another order. pT.g, ds.k and ds^T.q have an f32 factor (p and ds stay
+// another order. p^T.g, ds.k and ds^T.q have an f32 factor (p and ds stay
 // f32 in the reference's backward): it is split into hi = bf16(x) and
 // lo = bf16(x - hi) and run as two bf16 products into one accumulator
 // (what is dropped is under 2^-17 |x|), as ssd_chunk.cu splits its
-// decay. TF32 would keep 2^-11 and is not used.
-//  * flash_fwd_bf16_kernel: a block of 4 warps takes 64 query rows of
-//    one (b, kv head, g); key and value tiles of 64 rows come in by
-//    cp.async (16 bytes a thread, zero-filled past S) into a two-stage
-//    ring, the next tile's copy in flight during a tile's products.
-//  * flash_bwd_dq_bf16_kernel: the same walk, recomputing s and dp per
-//    key tile, dq accumulated in registers; no atomics.
-//  * flash_bwd_dkdv_bf16_kernel: a block of 4 warps takes 64 keys of one
-//    (b, kv head) and walks every g and every query tile of 32 rows that
-//    reaches them, computing s^T and dp^T (keys as rows) so that p^T and
-//    ds^T are already A fragments; dk and dv in registers.
-//  * flash_delta_kernel: delta = sum(g * out) per row, a warp a row.
-//  Shared-memory rows are D + 8 elements apart, so the fragment loads (32
-//  bits a lane, or ldmatrix.trans for the operands read transposed) hit
-//  distinct banks for every D that is a multiple of 16. D = 128 and 80
-//  (the dense family's head widths) are compiled exactly; any other
-//  multiple of 16 up to 128 takes the generic instance.
+// decay. TF32 would keep 2^-11 and is not used. exp is taken in base 2
+// on the MUFU (p = 2^(x sl - m sl), sl = D^-0.5 log2 e, one FFMA: see
+// kMaskRaw): ex2's error (under 2^-22 relative) and the exponent's one
+// rounding (2^-24 of its magnitude) sit far inside the card's
+// tolerances (lse within 1e-5).
+//
+// Design (bf16, the serve and train paths). Each kernel is persistent
+// (a block of 384 threads an SM, walking its list of work items: see
+// Walk) and warp-specialised:
+//  * warpgroup 0 is the producer: setmaxnreg lowers it to 40 registers
+//    (56 in dk / dv, whose producer warp also loads lse and delta) and
+//    one thread issues the TMA loads (UTMALDG) into a ring of 2
+//    shared-memory stages, each completed on an mbarrier with the
+//    transaction's bytes; the consumers release a stage through a
+//    second mbarrier (an arrival a consumer warp);
+//  * warpgroups 1 and 2 are the consumers (setmaxnreg raises them to 232
+//    registers, 224 in dk / dv; no bf16 instance spills), each owning 64
+//    rows of the item, and run wgmma (HGMMA): s = q k^T with both
+//    operands in shared memory, then the probabilities, converted
+//    pairwise to bf16 in registers, are the register A operand of the
+//    next product (the m64nN f32 accumulator layout is the A fragment
+//    layout of m64k16), against v read MN-major from the same tile the
+//    TMA wrote;
+//  * shared-memory tiles hold D as 64-column regions of 128-byte rows
+//    with the 128-byte swizzle (one TMA box of 64 rows each), and
+//    D = 80's last 16 columns as a region of 32-byte rows with the
+//    32-byte swizzle; the wgmma descriptors read both layouts. D = 128
+//    and 80 are compiled exactly; any other multiple of 16 up to 128
+//    takes the D = 128 instance, the columns past D zero-filled by TMA
+//    (they add exact zeros) and never stored;
+//  * rows past S come in zero-filled by TMA and are masked like keys
+//    past the diagonal; every operand is read through its strides by a
+//    rank-5 tensor map (D, row, g, kv head, b) encoded on the host (a
+//    broadcast, stride 0, the wrapper copies dense: a map takes none);
+//  * outputs leave through shared memory (the item's own q, or k and v,
+//    tile) by TMA stores, rows and columns past the tensor's clipped.
+//  flash_fwd_wgmma_kernel: items (b, kv head, g, q-tile of 128 rows);
+//    two q buffers (the next item's q loads during this one); key and
+//    value tiles of 128 keys through the ring (separate barriers, so
+//    q k^T starts before v lands).
+//  flash_bwd_dq_wgmma_kernel: the same items, with g beside q; first
+//    delta of its rows (g from shared memory, out from device memory),
+//    kept for dk / dv; then per k and v tile of 64 keys s and dp again
+//    (two m64n64 products) and ds split hi / lo as the A operand of
+//    dq += ds k (k read MN-major); dq in registers.
+//  flash_bwd_dkdv_wgmma_kernel: items (b, kv head, key tile of 128);
+//    k and v stay in shared memory while q, g, lse and delta tiles of 64
+//    queries of every g that reaches the keys stream through the ring
+//    (lse and delta by the producer warp's loads, released by its
+//    arrival), each in two halves of 32: s^T and dp^T with keys as rows,
+//    so p^T and ds^T, split hi / lo, are the A operands of dv += p^T g
+//    and dk += ds^T q; dk and dv in registers.
+//  The backward is two kernels and deterministic: every element of dq,
+//  dk, dv and delta is summed by one thread (or one quad) in a fixed
+//  order, without atomics, so two calls on the same inputs give the same
+//  bits. A one-pass backward would add dq across key tiles with atomics,
+//  in no fixed order; the price of two passes is dq's recompute of s and
+//  dp.
 // f32 inputs (the f32 parity runs) run on the CUDA cores (FFMA), a warp
 // a query row (a key row in dk/dv), lanes over the 32 keys (queries) of
 // a tile in shared memory and over D for the accumulators:
-// flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel, flash_bwd_dkdv_f32_kernel.
-// Every operand is read through its strides (b, kv head, g, row; unit
-// stride along D), so the caller's layouts need no copy; outputs are
-// dense.
+// flash_fwd_f32_kernel, flash_delta_kernel, flash_bwd_dq_f32_kernel,
+// flash_bwd_dkdv_f32_kernel; every operand read through its strides (b,
+// kv head, g, row; unit stride along D), outputs dense.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+#include <string.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;   // 4 warps (the bf16 kernels)
-constexpr int kBM = 64;         // query rows of a block (fwd, dq)
-constexpr int kBN = 64;         // keys of a tile (fwd, dq) / a block (dk/dv)
-constexpr int kBQ = 32;         // query rows of a tile (dk/dv)
-constexpr int kPad = 8;         // shared-memory row padding, elements
 
 // element strides of one operand: batch, kv head, query group, row
 struct View {
@@ -98,28 +136,308 @@ struct View {
 struct Shape {
   int B, K, G, S, D, window;
   float sc;
+  float sl;   // sc * log2(e)
 };
 
+__device__ __forceinline__ bool valid_key(int qi, int kj, int S,
+                                          int window) {
+  return kj <= qi && qi < S && (window <= 0 || qi - kj < window);
+}
+
+// ======================================================================
+// bf16: the warp-specialised wgmma kernels
+// ======================================================================
+constexpr int kWG = 128;                 // threads of a warpgroup
+constexpr int kThreadsWS = 3 * kWG;      // the producer + 2 consumers
+constexpr int kStages = 2;               // ring depth
+// registers a thread after setmaxnreg: the producer's, the consumers'
+// (P x 128 + C x 256 <= 64 K)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// dk / dv: its producer warp also loads lse and delta
+constexpr int kKvProducerRegs = 56, kKvConsumerRegs = 224;
+constexpr int kBox = 64;                 // rows of a TMA box
+constexpr int kFwdQ = 128, kFwdN = 128;  // forward: query rows, keys
+constexpr int kDqQ = 128, kDqN = 64;     // dq: query rows, keys
+constexpr int kKvN = 128, kKvQ = 64;     // dk / dv: keys, query rows
+
+// The shared-memory layout of a tile of R rows of D columns: NR regions
+// of 64 columns (128-byte rows, 128-byte swizzle), region r at
+// r * R * 128 bytes, then TL tail columns (16: 32-byte rows, 32-byte
+// swizzle) at NR * R * 128.
+template <int NR, int TL>
+struct Cols {
+  static constexpr int kRow = NR * 128 + TL * 2;      // bytes a row
+  static constexpr int kSteps = NR * 4 + TL / 16;     // k16 steps over D
+};
+
+// the tensor maps of the operands and outputs: [op][0] D in boxes of 64
+// columns, [op][1] the tail's box of 16 (D = 80); o0 is out, dq or dk,
+// o1 dv
+enum { kMq = 0, kMk = 1, kMv = 2, kMg = 3, kMo0 = 4, kMo1 = 5 };
+struct Maps {
+  CUtensorMap t[6][2];
+};
+
+// ---- PTX wrappers ------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// after the inits, before any use: visible to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A wait past about
+// ten seconds (a lost arrival: a fault of the kernel) traps, so the
+// launch fails instead of holding the card.
+__device__ __forceinline__ bool mbar_try(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// one box of a rank-5 tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load5(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// one box of shared memory into a rank-5 tensor map (rows and columns
+// past the tensor's are not written)
+__device__ __forceinline__ void tma_store5(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+// the stores issued so far have read their shared memory
+__device__ __forceinline__ void tma_store_read_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// the writing threads' shared-memory stores, visible to the async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// a barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int NR>
+__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a swizzled layout: start address,
+// leading byte offset 1 (unused: one swizzle atom spans the product's K
+// (K-major) or N (MN-major) extent here), stride byte offset `sbo` (the
+// next 8-row group), layout type in bits 62-63.
+constexpr uint64_t kSw128 = 1ull << 62, kSw32 = 3ull << 62;
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | layout;
+}
+
+// K-major operand: the rows of a tile of R rows from `row` on (64 of them
+// as A; as B, as many as the product's N), k16 step kk over D. Within a
+// 128-byte swizzle atom a step is the start address plus 32 bytes.
+template <int NR, int TL>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int R, int row,
+                                           int kk) {
+  if (kk < NR * 4)
+    return make_desc(tile + (kk >> 2) * R * 128 + row * 128 + (kk & 3) * 32,
+                     1024, kSw128);
+  return make_desc(tile + NR * R * 128 + row * 32, 256, kSw32);
+}
+
+// MN-major B operand: rows [16 j, 16 j + 16) of a tile of R rows (the
+// product's K), the 64 columns of region r (N), or the 16 tail columns
+// for r == NR
+template <int NR>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int R, int r,
+                                            int j) {
+  if (r < NR) return make_desc(tile + r * R * 128 + j * 2048, 1024, kSw128);
+  return make_desc(tile + NR * R * 128 + j * 512, 256, kSw32);
+}
+
+// d = A . B^T (+ d where acc) over one k16 step, A and B from shared
+// memory, both K-major; m64n32k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// the same, m64n64k16
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// the same, m64n128k16
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A . B over one k16 step, A (m64 x k16 bf16) from registers in
+// the accumulator-shaped fragment layout, B from shared memory,
+// MN-major; m64n64k16, f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A . B over one k16 step, A (m64 x k16 bf16) from registers in
+// the accumulator-shaped fragment layout, B from shared memory,
+// MN-major; m64n16k16, f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- helpers -------------------------------------------------------------
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -128,550 +446,818 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), for a pair
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// the A fragments of an m64n(8 N8) accumulator, k16 step j: element
+// 4 jj + e of the accumulator is row (e < 2 ? r : r + 8), column
+// 8 jj + cp + (e & 1)
+template <int N>
+__device__ __forceinline__ void to_frags(const float (&x)[N],
+                                         uint32_t (&a)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+template <int N>
+__device__ __forceinline__ void to_frags_split(const float (&x)[N],
+                                               uint32_t (&hi)[N / 2],
+                                               uint32_t (&lo)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    split_pair(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3,
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x on the MUFU (relative error under 2^-22; results below 2^-126 are
+// 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + R) of an operand (rows `ld` elements apart, D wide)
-// into shared memory rows SD apart, 16 bytes a copy; rows at or past S
-// are zero-filled
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long ld, int row0, int R,
-                                          int S, int D, int SD) {
-  const int chunks = D / 8;
-  for (int c = threadIdx.x; c < R * chunks; c += blockDim.x) {
-    const int r = c / chunks, cc = c - r * chunks;
-    const bool ok = row0 + r < S;
-    const bf16* p = ok ? src + (long long)(row0 + r) * ld + cc * 8 : src;
-    cp_async16(dst + r * SD + cc * 8, p, ok);
+// The probabilities are formed in base 2 from the raw scores x = q . k:
+// p = 2^(x * sl - m * sl), sl = D^-0.5 log2(e), one FFMA and one ex2,
+// with m the running max of the raw scores (max(round(x sc)) =
+// round(max(x) sc): the reference's max of the scaled scores is m sc).
+// A masked score is kMaskRaw = -2^100, whose product with sl is exact:
+// a row whose keys so far are all masked has m = kMaskRaw and p =
+// 2^0 = 1, as the reference's exp(-1e30 - -1e30), and any other row
+// gets p = 0 there, as exp(-1e30 - m) is.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskRaw = -1.2676506002282294e30f;   // -2^100
+
+// Sets the masked entries of an m64nN accumulator tile to `fill`:
+// element 4 jj + e lies in row h = (e >> 1) of this thread's pair, at
+// column offset off = 8 jj + (e & 1) from the thread's first column; it
+// is kept iff lo[h] < off <= hi[h].
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&x)[N], int lo0, int hi0,
+                                          int lo1, int hi1, float fill) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int off = 8 * (i >> 2) + (i & 1);
+    const bool h = i & 2;
+    if (!(off > (h ? lo1 : lo0) && off <= (h ? hi1 : hi0))) x[i] = fill;
+  }
+}
+constexpr int kNoBound = 1 << 30;
+
+__device__ __forceinline__ uint32_t align1024(uint32_t a) {
+  return (a + 1023u) & ~1023u;
+}
+
+// R rows of operand `op` from row0 (of query group g, kv head h, batch b)
+// into a tile at dst, in boxes of 64 rows: the regions of 64 columns,
+// then the tail
+template <int NR, int TL, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const Maps& m,
+                                         int op, uint32_t bar, int row0,
+                                         int g, int h, int b) {
+#pragma unroll
+  for (int half = 0; half < R / kBox; ++half) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      tma_load5(dst + r * R * 128 + half * kBox * 128, &m.t[op][0], bar,
+                r * 64, row0 + half * kBox, g, h, b);
+    if (TL)
+      tma_load5(dst + NR * R * 128 + half * kBox * TL * 2, &m.t[op][1], bar,
+                NR * 64, row0 + half * kBox, g, h, b);
   }
 }
 
-__device__ __forceinline__ bool valid_key(int qi, int kj, int S,
-                                          int window) {
-  return kj <= qi && qi < S && (window <= 0 || qi - kj < window);
+// A block's work items: nz heads ((b, kv head, g), or (b, kv head) in
+// dk / dv) x nr ranks (q-tiles from the last, or key tiles from the
+// first: the longest causal walks first). Heads go in groups of hg =
+// max(1, grid / nr), so that a group's items (about one a block) share
+// their heads' k and v (q and g) in L2 while they run; within a group the
+// blocks take the items longest first (block c the c-th, c + grid-th,
+// ...), and in every other group in reverse, so that a block's long item
+// of one group pairs with a short one of the next. Producer and
+// consumers walk the same list.
+struct Walk {
+  int gi = 0, k = 0;   // the group, this block's next turn in it
+  __device__ bool next(int nz, int nr, int& z, int& rank) {
+    const int grid = gridDim.x, hg = max(1, grid / nr);
+    for (; gi * hg < nz; ++gi, k = 0) {
+      const int hz = min(hg, nz - gi * hg), size = hz * nr;
+      const int p = blockIdx.x + k * grid;
+      if (p < size) {
+        const int q = (gi & 1) ? size - 1 - p : p;
+        rank = q / hz;
+        z = gi * hg + q % hz;
+        ++k;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// The epilogue: a consumer writes its 64 rows of an output (bf16 pairs
+// from the m64 accumulators, rows r and r + 8 of each thread) into its own
+// rows [64 cw, 64 cw + 64) of a tile of R rows (a tile it alone reads, its
+// products done) in the layout TMA reads, and one thread stores them as
+// boxes of 64 rows; the tile is free again once `tma_store_read_wait`
+// returns. Each value is divided by (DIV) or multiplied by its row's s0
+// or s1 before the rounding.
+template <int NR, int TL, int R, bool DIV>
+__device__ __forceinline__ void stage_rows(uint32_t tile, int cw, int warp,
+                                           int lane, const float (&a)[NR][32],
+                                           const float (&at)[8], float s0,
+                                           float s1) {
+  const int cp = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = cw * 64 + 16 * warp + (lane >> 2) + 8 * h;
+    const float sc = h ? s1 : s0;
+    auto f = [sc](float x) { return DIV ? x / sc : x * sc; };
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        st_shared(tile + r * R * 128 + row * 128 + ((jj ^ (row & 7)) << 4) +
+                      cp * 2,
+                  pack_bf16(f(a[r][4 * jj + 2 * h]),
+                            f(a[r][4 * jj + 2 * h + 1])));
+    if (TL) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        st_shared(tile + NR * R * 128 + row * 32 +
+                      ((jj ^ ((row >> 2) & 1)) << 4) + cp * 2,
+                  pack_bf16(f(at[4 * jj + 2 * h]), f(at[4 * jj + 2 * h + 1])));
+    }
+  }
+}
+template <int NR, int TL, int R>
+__device__ __forceinline__ void store_rows(uint32_t tile, const Maps& m,
+                                           int op, int cw, int row0, int g,
+                                           int h, int b) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    tma_store5(&m.t[op][0], tile + r * R * 128 + cw * 64 * 128, r * 64,
+               row0 + cw * 64, g, h, b);
+  if (TL)
+    tma_store5(&m.t[op][1], tile + NR * R * 128 + cw * 64 * 32, NR * 64,
+               row0 + cw * 64, g, h, b);
 }
 
-// A fragment (16 rows x 16 cols) of a row-major tile in shared memory
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t,
-                                       int SD, int row, int col, int gid,
-                                       int tig) {
-  const bf16* p = t + (row + gid) * SD + col + 2 * tig;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * SD);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * SD + 8);
+// (b, kv head, g, q-tile) work items of the forward and dq kernels (rank
+// r: the q-tile nqt - 1 - r), and the key tiles [t_lo, t_hi] of BN keys
+// that reach a q-tile of BM rows
+struct QItem {
+  int z, g, h, b, q0, t_lo, t_hi;
+};
+__device__ __forceinline__ QItem q_item(const Shape& sh, int z, int rank,
+                                        int nqt, int BM, int BN) {
+  QItem w;
+  w.z = z;
+  w.g = w.z % sh.G;
+  w.h = (w.z / sh.G) % sh.K;
+  w.b = w.z / (sh.G * sh.K);
+  w.q0 = (nqt - 1 - rank) * BM;
+  const int klo = sh.window > 0 ? max(0, w.q0 - sh.window + 1) : 0;
+  const int khi = min(sh.S, w.q0 + BM);
+  w.t_lo = klo / BN;
+  w.t_hi = (khi - 1) / BN;
+  return w;
 }
+
+struct FwdArgs {
+  float* lse;     // [B,K,G,S]; out goes by its tensor map
+  Shape sh;
+  int nqt;
+};
 
 // ----------------------------------------------------------------------
 // bf16: forward
 // ----------------------------------------------------------------------
-template <int DM, bool EXACT>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                          float* __restrict__ lse, Shape sh, View qv,
-                          View kv, View vv) {
-  const int D = EXACT ? DM : sh.D;
-  const int SD = D + kPad, S = sh.S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBM * SD;
-  bf16* Vs = Ks + 2 * kBN * SD;
-
-  const int nqt = (S + kBM - 1) / kBM;
-  const int qt = nqt - 1 - blockIdx.x;   // the longest rows first
-  const int z = blockIdx.y;
-  const int gq = z % sh.G, kh = (z / sh.G) % sh.K, b = z / (sh.G * sh.K);
-  const bf16* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
-  const bf16* kb = k + b * kv.b + kh * kv.h;
-  const bf16* vb = v + b * vv.b + kh * vv.h;
-  const int q0 = qt * kBM;
-  const int klo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  const int khi = min(S, q0 + kBM);
-  const int t_lo = klo / kBN, t_hi = (khi - 1) / kBN;
-
-  load_rows(Qs, qb, qv.s, q0, kBM, S, D, SD);
-  load_rows(Ks, kb, kv.s, t_lo * kBN, kBN, S, D, SD);
-  load_rows(Vs, vb, vv.s, t_lo * kBN, kBN, S, D, SD);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row0 = q0 + warp * 16 + gid;   // this lane's rows: row0, +8
-  float o[DM / 8][4];
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i)
-    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int buf = (t - t_lo) & 1;
-    if (t < t_hi) {
-      load_rows(Ks + (buf ^ 1) * kBN * SD, kb, kv.s, (t + 1) * kBN, kBN, S,
-                D, SD);
-      load_rows(Vs + (buf ^ 1) * kBN * SD, vb, vv.s, (t + 1) * kBN, kBN, S,
-                D, SD);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * kBN * SD;
-    const bf16* Vt = Vs + buf * kBN * SD;
-
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DM / 16; ++kk) {
-      if (EXACT || kk * 16 < D) {
-        uint32_t a[4];
-        load_a(a, Qs, SD, warp * 16, kk * 16, gid, tig);
-#pragma unroll
-        for (int nt = 0; nt < kBN / 8; ++nt) {
-          const bf16* p = Kt + (nt * 8 + gid) * SD + kk * 16 + 2 * tig;
-          mma16816(s[nt], a, lds32(p), lds32(p + 8));
-        }
-      }
-    }
-    // scale, mask, the running max and the probabilities
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = row0 + (e >> 1) * 8;
-        const int kj = t * kBN + nt * 8 + 2 * tig + (e & 1);
-        const float val = valid_key(qi, kj, S, sh.window) && kj < S
-                              ? s[nt][e] * sh.sc
-                              : kNegInf;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float corr[2], ls[2] = {0.f, 0.f};
-#pragma unroll
+template <int NR, int TL>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps,
+                           const FwdArgs a) {
+  using L = Cols<NR, TL>;
+  constexpr uint32_t kQBytes = kFwdQ * L::kRow, kKVBytes = kFwdN * L::kRow;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = align1024(smem_u32(smem_raw));      // [2]
+  const uint32_t sK = sQ + 2 * kQBytes, sV = sK + kStages * kKVBytes;
+  // mbarriers: q full, q empty (a pair each: the next item's q loads
+  // during this one), then per stage k full, v full, empty
+  const uint32_t bars = sV + kStages * kKVBytes;
+  const uint32_t q_full = bars, q_empty = bars + 16;
+  const uint32_t k_full = bars + 32, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;
+  const Shape sh = a.sh;
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, 2);
     }
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        ls[e >> 1] += p;
-      }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-    l[0] = l[0] * corr[0] + ls[0];
-    l[1] = l[1] * corr[1] + ls[1];
-#pragma unroll
-    for (int i = 0; i < DM / 8; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
-    }
-    // acc += bf16(p) . v
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* vrow = Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SD +
-                         (lane >> 4) * 8;
-#pragma unroll
-      for (int d2 = 0; d2 < DM / 16; ++d2) {
-        if (EXACT || d2 * 16 < D) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(b0, b1, b2, b3, vrow + d2 * 16);
-          mma16816(o[2 * d2], a, b0, b1);
-          mma16816(o[2 * d2 + 1], a, b2, b3);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWG;
+
+  if (wg == 0) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int c = 0, z, rank;
+      Walk walk;
+      for (int it = 0; walk.next(sh.B * sh.K * sh.G, a.nqt, z, rank); ++it) {
+        const QItem w = q_item(sh, z, rank, a.nqt, kFwdQ, kFwdN);
+        const uint32_t qf = q_full + 8 * (it & 1);
+        mbar_wait(q_empty + 8 * (it & 1), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, kQBytes);
+        tma_tile<NR, TL, kFwdQ>(sQ + (it & 1) * kQBytes, maps, kMq, qf, w.q0,
+                                w.g, w.h, w.b);
+        for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+          const int s = c % kStages;
+          mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
+          mbar_expect_tx(k_full + 8 * s, kKVBytes);
+          tma_tile<NR, TL, kFwdN>(sK + s * kKVBytes, maps, kMk,
+                                  k_full + 8 * s, t * kFwdN, 0, w.h, w.b);
+          mbar_expect_tx(v_full + 8 * s, kKVBytes);
+          tma_tile<NR, TL, kFwdN>(sV + s * kKVBytes, maps, kMv,
+                                  v_full + 8 * s, t * kFwdN, 0, w.h, w.b);
         }
       }
     }
-    __syncthreads();
+    return;
   }
-  // the row sums over the quad, then out and lse
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, tid = threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cp = 2 * (lane & 3);
+  int c = 0, z, rank;
+  Walk walk;
+  for (int it = 0; walk.next(sh.B * sh.K * sh.G, a.nqt, z, rank); ++it) {
+    const QItem w = q_item(sh, z, rank, a.nqt, kFwdQ, kFwdN);
+    const int rlo = w.q0 + cw * 64, rhi = rlo + 63;
+    const int r0 = rlo + 16 * warp + (lane >> 2), r1 = r0 + 8;
+    float o[NR][32], ot[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  const long long zrow = (long long)z * S;
+    for (int r = 0; r < NR; ++r)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = row0 + i * 8;
-    if (qi >= S) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    bf16* orow = out + (zrow + qi) * D;
+      for (int i = 0; i < 32; ++i) o[r][i] = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < DM / 8; ++dt) {
-      if (EXACT || dt * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * tig) =
-            pack_bf16(o[dt][2 * i] / l_safe, o[dt][2 * i + 1] / l_safe);
+    for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+    // the running max of the raw scores, and the row sums
+    float m0 = kMaskRaw, m1 = kMaskRaw, l0 = 0.f, l1 = 0.f;
+    const uint32_t qt = sQ + (it & 1) * kQBytes;
+    mbar_wait(q_full + 8 * (it & 1), (it >> 1) & 1);
+    for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+      const int s = c % kStages;
+      const unsigned ph = (c / kStages) & 1;
+      const uint32_t kt = sK + s * kKVBytes, vt = sV + s * kKVBytes;
+      const int k0 = t * kFwdN;
+      float x[64];
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::kSteps; ++kk)
+        wgmma_ss_n128(x, kmajor<NR, TL>(qt, kFwdQ, cw * 64, kk),
+                      kmajor<NR, TL>(kt, kFwdN, 0, kk), kk);
+      wgmma_commit_wait();
+      fence_regs(x);
+      // mask a tile that crosses the diagonal or the window's edge: key
+      // k0 + cp + off is kept for query r iff off <= r - k0 - cp and,
+      // with a window, off > r - k0 - cp - window
+      if (k0 + kFwdN - 1 > rlo || (sh.window > 0 && rhi - k0 >= sh.window)) {
+        const int h0 = r0 - k0 - cp, h1 = r1 - k0 - cp;
+        const int wn = sh.window > 0 ? sh.window : kNoBound;
+        mask_tile(x, h0 - wn, h0, h1 - wn, h1, kMaskRaw);
+      }
+      // the running max, the probabilities, the sums, the rescale
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if (i & 2)
+          mx1 = fmaxf(mx1, x[i]);
+        else
+          mx0 = fmaxf(mx0, x[i]);
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float c0 = ex2((m0 - mx0) * sh.sl), c1 = ex2((m1 - mx1) * sh.sl);
+      m0 = mx0;
+      m1 = mx1;
+      const float b0 = m0 * sh.sl, b1 = m1 * sh.sl;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float p = ex2(fmaf(x[i], sh.sl, -((i & 2) ? b1 : b0)));
+        x[i] = p;
+        if (i & 2)
+          s1 += p;
+        else
+          s0 += p;
+      }
+      l0 = l0 * c0 + s0;
+      l1 = l1 * c1 + s1;
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[r][i] *= (i & 2) ? c1 : c0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ot[i] *= (i & 2) ? c1 : c0;
+      // acc += bf16(p) . v, p as the register A operand
+      uint32_t pa[32];
+      to_frags(x, pa);
+      mbar_wait(v_full + 8 * s, ph);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) fence_regs(o[r]);
+      if (TL) fence_regs(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kFwdN / 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          wgmma_rs_n64(o[r], pa + 4 * j, mnmajor<NR>(vt, kFwdN, r, j));
+        if (TL) wgmma_rs_n16(ot, pa + 4 * j, mnmajor<NR>(vt, kFwdN, NR, j));
+      }
+      wgmma_commit_wait();
+#pragma unroll
+      for (int r = 0; r < NR; ++r) fence_regs(o[r]);
+      if (TL) fence_regs(ot);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    if (tig == 0) lse[zrow + qi] = m[i] + logf(l_safe);
+    // the row sums over the quad, then out (acc / l, through the q tile
+    // and a TMA store) and lse
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+    stage_rows<NR, TL, kFwdQ, true>(qt, cw, warp, lane, o, ot, ls0, ls1);
+    fence_async_smem();
+    wg_sync(cw);
+    if (tid == 0) {
+      store_rows<NR, TL, kFwdQ>(qt, maps, kMo0, cw, w.q0, w.g, w.h, w.b);
+      tma_store_read_wait();
+      mbar_arrive(q_empty + 8 * (it & 1));
+    }
+    __syncwarp();
+    const long long zrow = static_cast<long long>(w.z) * sh.S;
+    if (cp == 0 && r0 < sh.S) a.lse[zrow + r0] = m0 * sh.sc + logf(ls0);
+    if (cp == 0 && r1 < sh.S) a.lse[zrow + r1] = m1 * sh.sc + logf(ls1);
   }
+}
+
+struct BwdArgs {
+  const float* lse;     // [B,K,G,S]
+  float* delta;         // [B,K,G,S]: written by dq, read by dk / dv
+  const bf16* out;      // [B,K,G,S,D] through ov; dq, dk and dv go by
+  View ov;              // their tensor maps
+  Shape sh;
+  int nt;               // q-tiles (dq) or key tiles (dk / dv)
+};
+
+// delta = sum(g * out) of row `row` (within the tile) of the g tile at
+// gtile (R rows) and its row `orow` of out: this lane takes the 16-byte
+// chunks c = q4, q4 + 4, ... of D, the quad sums them (the same order on
+// every call)
+template <int NR, int TL, int R>
+__device__ __forceinline__ float row_delta(uint32_t gtile, int row,
+                                           const bf16* orow, int q4, int D) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = q4; c < NR * 8 + TL / 8; c += 4) {
+    if (c * 8 >= D) break;
+    const uint32_t at =
+        c < NR * 8 ? gtile + (c >> 3) * R * 128 + row * 128 +
+                         (((c & 7) ^ (row & 7)) << 4)
+                   : gtile + NR * R * 128 + row * 32 +
+                         ((((c - NR * 8) & 1) ^ ((row >> 2) & 1)) << 4);
+    uint4 gv;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(gv.x), "=r"(gv.y), "=r"(gv.z), "=r"(gv.w)
+                 : "r"(at));
+    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+    const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 gf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&gw[e]));
+      const float2 of = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&ow[e]));
+      acc = fmaf(gf.x, of.x, acc);
+      acc = fmaf(gf.y, of.y, acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 2);
 }
 
 // ----------------------------------------------------------------------
 // bf16: backward, dq
 // ----------------------------------------------------------------------
-template <int DM, bool EXACT>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ g,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             bf16* __restrict__ dq, Shape sh, View qv,
-                             View kv, View vv, View gv) {
-  const int D = EXACT ? DM : sh.D;
-  const int SD = D + kPad, S = sh.S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Gs = Qs + kBM * SD;
-  bf16* Ks = Gs + kBM * SD;
-  bf16* Vs = Ks + 2 * kBN * SD;
-
-  const int nqt = (S + kBM - 1) / kBM;
-  const int qt = nqt - 1 - blockIdx.x;
-  const int z = blockIdx.y;
-  const int gq = z % sh.G, kh = (z / sh.G) % sh.K, b = z / (sh.G * sh.K);
-  const bf16* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
-  const bf16* gb = g + b * gv.b + kh * gv.h + gq * gv.g;
-  const bf16* kb = k + b * kv.b + kh * kv.h;
-  const bf16* vb = v + b * vv.b + kh * vv.h;
-  const int q0 = qt * kBM;
-  const int klo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  const int khi = min(S, q0 + kBM);
-  const int t_lo = klo / kBN, t_hi = (khi - 1) / kBN;
-
-  load_rows(Qs, qb, qv.s, q0, kBM, S, D, SD);
-  load_rows(Gs, gb, gv.s, q0, kBM, S, D, SD);
-  load_rows(Ks, kb, kv.s, t_lo * kBN, kBN, S, D, SD);
-  load_rows(Vs, vb, vv.s, t_lo * kBN, kBN, S, D, SD);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row0 = q0 + warp * 16 + gid;
-  const long long zrow = (long long)z * S;
-  float lse_r[2], del_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = row0 + 8 * i;
-    lse_r[i] = qi < S ? lse[zrow + qi] : 0.f;
-    del_r[i] = qi < S ? delta[zrow + qi] : 0.f;
+template <int NR, int TL>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ Maps maps,
+                              const BwdArgs a) {
+  using L = Cols<NR, TL>;
+  constexpr uint32_t kQBytes = kDqQ * L::kRow, kKVBytes = kDqN * L::kRow;
+  extern __shared__ unsigned char smem_raw[];
+  // two (q, g) pairs, item by item: sQ[i] at sQ + 2 i kQBytes, sG[i]
+  // after it
+  const uint32_t sQ = align1024(smem_u32(smem_raw));
+  const uint32_t sK = sQ + 4 * kQBytes;
+  const uint32_t sV = sK + kStages * kKVBytes;
+  const uint32_t bars = sV + kStages * kKVBytes;
+  const uint32_t q_full = bars, q_empty = bars + 16;
+  const uint32_t k_full = bars + 32, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;
+  const Shape sh = a.sh;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, 2);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init_fence();
   }
-  float acc[DM / 8][4];
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  __syncthreads();
+  const int wg = threadIdx.x / kWG;
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int buf = (t - t_lo) & 1;
-    if (t < t_hi) {
-      load_rows(Ks + (buf ^ 1) * kBN * SD, kb, kv.s, (t + 1) * kBN, kBN, S,
-                D, SD);
-      load_rows(Vs + (buf ^ 1) * kBN * SD, vb, vv.s, (t + 1) * kBN, kBN, S,
-                D, SD);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + buf * kBN * SD;
-    const bf16* Vt = Vs + buf * kBN * SD;
-
-    float s[kBN / 8][4], dp[kBN / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DM / 16; ++kk) {
-      if (EXACT || kk * 16 < D) {
-        uint32_t aq[4], ag[4];
-        load_a(aq, Qs, SD, warp * 16, kk * 16, gid, tig);
-        load_a(ag, Gs, SD, warp * 16, kk * 16, gid, tig);
-#pragma unroll
-        for (int nt = 0; nt < kBN / 8; ++nt) {
-          const bf16* pk = Kt + (nt * 8 + gid) * SD + kk * 16 + 2 * tig;
-          const bf16* pv = Vt + (nt * 8 + gid) * SD + kk * 16 + 2 * tig;
-          mma16816(s[nt], aq, lds32(pk), lds32(pk + 8));
-          mma16816(dp[nt], ag, lds32(pv), lds32(pv + 8));
+  if (wg == 0) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int c = 0, z, rank;
+      Walk walk;
+      for (int it = 0; walk.next(sh.B * sh.K * sh.G, a.nt, z, rank); ++it) {
+        const QItem w = q_item(sh, z, rank, a.nt, kDqQ, kDqN);
+        const uint32_t qf = q_full + 8 * (it & 1);
+        const uint32_t qt = sQ + (it & 1) * 2 * kQBytes;
+        mbar_wait(q_empty + 8 * (it & 1), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, 2 * kQBytes);
+        tma_tile<NR, TL, kDqQ>(qt, maps, kMq, qf, w.q0, w.g, w.h, w.b);
+        tma_tile<NR, TL, kDqQ>(qt + kQBytes, maps, kMg, qf, w.q0, w.g, w.h,
+                               w.b);
+        for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+          const int s = c % kStages;
+          mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
+          mbar_expect_tx(k_full + 8 * s, kKVBytes);
+          tma_tile<NR, TL, kDqN>(sK + s * kKVBytes, maps, kMk,
+                                 k_full + 8 * s, t * kDqN, 0, w.h, w.b);
+          mbar_expect_tx(v_full + 8 * s, kKVBytes);
+          tma_tile<NR, TL, kDqN>(sV + s * kKVBytes, maps, kMv,
+                                 v_full + 8 * s, t * kDqN, 0, w.h, w.b);
         }
       }
     }
-    // ds = p (dp - delta), p = exp(s - lse) (0 where masked)
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, tid = threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cp = 2 * (lane & 3);
+  int c = 0, z, rank;
+  Walk walk;
+  for (int it = 0; walk.next(sh.B * sh.K * sh.G, a.nt, z, rank); ++it) {
+    const QItem w = q_item(sh, z, rank, a.nt, kDqQ, kDqN);
+    const int rlo = w.q0 + cw * 64, rhi = rlo + 63;
+    const int r0 = rlo + 16 * warp + (lane >> 2), r1 = r0 + 8;
+    const long long zrow = static_cast<long long>(w.z) * sh.S;
+    // rows past S: zero q and g rows, so s = dp = 0 and ds = 0 there;
+    // lse in base 2
+    const float lse0 = r0 < sh.S ? a.lse[zrow + r0] * kLog2e : 0.f;
+    const float lse1 = r1 < sh.S ? a.lse[zrow + r1] * kLog2e : 0.f;
+    float acc[NR][32], acct[8];
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int r = 0; r < NR; ++r)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, qi = row0 + 8 * i;
-        const int kj = t * kBN + nt * 8 + 2 * tig + (e & 1);
-        const float p = valid_key(qi, kj, S, sh.window) && kj < S
-                            ? expf(s[nt][e] * sh.sc - lse_r[i])
-                            : 0.f;
-        s[nt][e] = p * (dp[nt][e] - del_r[i]);
+      for (int i = 0; i < 32; ++i) acc[r][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acct[i] = 0.f;
+    const uint32_t qt = sQ + (it & 1) * 2 * kQBytes, gt = qt + kQBytes;
+    mbar_wait(q_full + 8 * (it & 1), (it >> 1) & 1);
+    // delta of this thread's rows, from g in shared memory and out; kept
+    // for the dk / dv kernel
+    // (every lane, for the quad's shuffles: a row past S reads out's last
+    // row against g's zero row)
+    const bf16* ob = a.out + w.b * a.ov.b + w.h * a.ov.h + w.g * a.ov.g;
+    const int q4 = lane & 3;
+    const float del0 = row_delta<NR, TL, kDqQ>(
+        gt, r0 - w.q0, ob + min(r0, sh.S - 1) * a.ov.s, q4, sh.D);
+    const float del1 = row_delta<NR, TL, kDqQ>(
+        gt, r1 - w.q0, ob + min(r1, sh.S - 1) * a.ov.s, q4, sh.D);
+    if (q4 == 0 && r0 < sh.S) a.delta[zrow + r0] = del0;
+    if (q4 == 0 && r1 < sh.S) a.delta[zrow + r1] = del1;
+    for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+      const int s = c % kStages;
+      const unsigned ph = (c / kStages) & 1;
+      const uint32_t kt = sK + s * kKVBytes, vt = sV + s * kKVBytes;
+      const int k0 = t * kDqN;
+      float x[32], dp[32];
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::kSteps; ++kk)
+        wgmma_ss_n64(x, kmajor<NR, TL>(qt, kDqQ, cw * 64, kk),
+                     kmajor<NR, TL>(kt, kDqN, 0, kk), kk);
+      mbar_wait(v_full + 8 * s, ph);
+#pragma unroll
+      for (int kk = 0; kk < L::kSteps; ++kk)
+        wgmma_ss_n64(dp, kmajor<NR, TL>(gt, kDqQ, cw * 64, kk),
+                     kmajor<NR, TL>(vt, kDqN, 0, kk), kk);
+      wgmma_commit_wait();
+      fence_regs(x);
+      fence_regs(dp);
+      // ds = p (dp - delta), p = 2^(x sl - lse log2 e) (0 where masked)
+      if (k0 + kDqN - 1 > rlo || (sh.window > 0 && rhi - k0 >= sh.window)) {
+        const int h0 = r0 - k0 - cp, h1 = r1 - k0 - cp;
+        const int wn = sh.window > 0 ? sh.window : kNoBound;
+        mask_tile(x, h0 - wn, h0, h1 - wn, h1, kMaskRaw);
       }
-    }
-    // dq += ds . k, ds split into bf16 hi + lo
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_pair(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_pair(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-      const bf16* krow = Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SD +
-                         (lane >> 4) * 8;
+      for (int i = 0; i < 32; ++i) {
+        const bool hr = i & 2;
+        const float p = ex2(fmaf(x[i], sh.sl, -(hr ? lse1 : lse0)));
+        x[i] = p * (dp[i] - (hr ? del1 : del0));
+      }
+      // dq += ds . k, ds split into bf16 hi + lo, k read MN-major
+      uint32_t hi[16], lo[16];
+      to_frags_split(x, hi, lo);
 #pragma unroll
-      for (int d2 = 0; d2 < DM / 16; ++d2) {
-        if (EXACT || d2 * 16 < D) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(b0, b1, b2, b3, krow + d2 * 16);
-          mma16816(acc[2 * d2], hi, b0, b1);
-          mma16816(acc[2 * d2 + 1], hi, b2, b3);
-          mma16816(acc[2 * d2], lo, b0, b1);
-          mma16816(acc[2 * d2 + 1], lo, b2, b3);
+      for (int r = 0; r < NR; ++r) fence_regs(acc[r]);
+      if (TL) fence_regs(acct);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kDqN / 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const uint64_t d = mnmajor<NR>(kt, kDqN, r, j);
+          wgmma_rs_n64(acc[r], hi + 4 * j, d);
+          wgmma_rs_n64(acc[r], lo + 4 * j, d);
+        }
+        if (TL) {
+          const uint64_t d = mnmajor<NR>(kt, kDqN, NR, j);
+          wgmma_rs_n16(acct, hi + 4 * j, d);
+          wgmma_rs_n16(acct, lo + 4 * j, d);
         }
       }
-    }
-    __syncthreads();
-  }
+      wgmma_commit_wait();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = row0 + i * 8;
-    if (qi >= S) continue;
-    bf16* row = dq + (zrow + qi) * D;
-#pragma unroll
-    for (int dt = 0; dt < DM / 8; ++dt) {
-      if (EXACT || dt * 8 < D)
-        *reinterpret_cast<uint32_t*>(row + dt * 8 + 2 * tig) = pack_bf16(
-            acc[dt][2 * i] * sh.sc, acc[dt][2 * i + 1] * sh.sc);
+      for (int r = 0; r < NR; ++r) fence_regs(acc[r]);
+      if (TL) fence_regs(acct);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
+    // dq = acc * sc, through the q tile and a TMA store
+    stage_rows<NR, TL, kDqQ, false>(qt, cw, warp, lane, acc, acct, sh.sc,
+                                    sh.sc);
+    fence_async_smem();
+    wg_sync(cw);
+    if (tid == 0) {
+      store_rows<NR, TL, kDqQ>(qt, maps, kMo0, cw, w.q0, w.g, w.h, w.b);
+      tma_store_read_wait();
+      mbar_arrive(q_empty + 8 * (it & 1));
+    }
+    __syncwarp();
   }
 }
 
 // ----------------------------------------------------------------------
 // bf16: backward, dk and dv (keys as the product rows)
 // ----------------------------------------------------------------------
-template <int DM, bool EXACT>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               const bf16* __restrict__ g,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               Shape sh, View qv, View kv, View vv,
-                               View gv) {
-  const int D = EXACT ? DM : sh.D;
-  const int SD = D + kPad, S = sh.S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kBN * SD;
-  bf16* Qs = Vs + kBN * SD;          // [2][kBQ][SD]
-  bf16* Gs = Qs + 2 * kBQ * SD;      // [2][kBQ][SD]
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * kBQ * SD);   // [2][kBQ]
-  float* Ds = Ls + 2 * kBQ;                                  // [2][kBQ]
+// (b, kv head, key tile) items (rank r: the key tile r, reached by the
+// most queries first), and the q-tiles [qt_lo, qt_hi] of kKvQ rows that
+// reach the tile's keys
+struct KItem {
+  int zk, h, b, k0, qt_lo, nq;
+};
+__device__ __forceinline__ KItem k_item(const Shape& sh, int zk, int rank) {
+  KItem w;
+  w.zk = zk;
+  w.h = w.zk % sh.K;
+  w.b = w.zk / sh.K;
+  w.k0 = rank * kKvN;
+  const int qend =
+      sh.window > 0 ? min(sh.S, w.k0 + kKvN - 1 + sh.window) : sh.S;
+  w.qt_lo = w.k0 / kKvQ;
+  w.nq = (qend - 1) / kKvQ - w.qt_lo + 1;
+  return w;
+}
 
-  const int nkt = (S + kBN - 1) / kBN;
-  const int kt = nkt - 1 - blockIdx.x;
-  const int z = blockIdx.y;                 // b * K + kv head
-  const int kh = z % sh.K, b = z / sh.K;
-  const int k0 = kt * kBN;
-  const bf16* kb = k + b * kv.b + kh * kv.h;
-  const bf16* vb = v + b * vv.b + kh * vv.h;
-  // the query rows that reach these keys: [k0, qend)
-  const int qend = sh.window > 0 ? min(S, k0 + kBN - 1 + sh.window) : S;
-  const int qt_lo = k0 / kBQ, qt_hi = (qend - 1) / kBQ;
-  const int nq = qt_hi - qt_lo + 1, total = nq * sh.G;
-
-  auto load_q = [&](int it, int buf) {
-    const int gq = it / nq, qt = qt_lo + it % nq;
-    const long long zq = (long long)(z * sh.G + gq) * S;
-    const bf16* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
-    const bf16* gb = g + b * gv.b + kh * gv.h + gq * gv.g;
-    load_rows(Qs + buf * kBQ * SD, qb, qv.s, qt * kBQ, kBQ, S, D, SD);
-    load_rows(Gs + buf * kBQ * SD, gb, gv.s, qt * kBQ, kBQ, S, D, SD);
-    if (threadIdx.x < kBQ) {
-      const int qi = qt * kBQ + threadIdx.x;
-      Ls[buf * kBQ + threadIdx.x] = qi < S ? lse[zq + qi] : 0.f;
-      Ds[buf * kBQ + threadIdx.x] = qi < S ? delta[zq + qi] : 0.f;
+template <int NR, int TL>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ Maps maps,
+                                const BwdArgs a) {
+  using L = Cols<NR, TL>;
+  constexpr uint32_t kKBytes = kKvN * L::kRow, kQBytes = kKvQ * L::kRow;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gbase = smem_raw + (align1024(smem_u32(smem_raw)) -
+                                     smem_u32(smem_raw));
+  const uint32_t sK = smem_u32(gbase), sV = sK + kKBytes;
+  const uint32_t sQ = sV + kKBytes;                  // [kStages]
+  const uint32_t sG = sQ + kStages * kQBytes;        // [kStages]
+  const uint32_t sRows = sG + kStages * kQBytes;     // lse, delta [kStages]
+  float* rows = reinterpret_cast<float*>(gbase + (sRows - sK));
+  const uint32_t bars = sRows + kStages * 2 * kKvQ * 4;
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  const uint32_t full = bars + 16, empty = full + 8 * kStages;
+  const Shape sh = a.sh;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 2);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-  };
-
-  load_rows(Ks, kb, kv.s, k0, kBN, S, D, SD);
-  load_rows(Vs, vb, vv.s, k0, kBN, S, D, SD);
-  load_q(0, 0);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int key0 = k0 + warp * 16 + gid;      // this lane's keys: key0, +8
-  float adk[DM / 8][4], adv[DM / 8][4];
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i) {
-    adk[i][0] = adk[i][1] = adk[i][2] = adk[i][3] = 0.f;
-    adv[i][0] = adv[i][1] = adv[i][2] = adv[i][3] = 0.f;
+    mbar_init_fence();
   }
+  __syncthreads();
+  const int wg = threadIdx.x / kWG;
 
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int qbase = (qt_lo + it % nq) * kBQ;
-    const bf16* Qt = Qs + buf * kBQ * SD;
-    const bf16* Gt = Gs + buf * kBQ * SD;
-    const float* Lt = Ls + buf * kBQ;
-    const float* Dt = Ds + buf * kBQ;
-
-    float st[kBQ / 8][4], dpt[kBQ / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBQ / 8; ++i) {
-      st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
-      dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DM / 16; ++kk) {
-      if (EXACT || kk * 16 < D) {
-        uint32_t ak[4], av[4];
-        load_a(ak, Ks, SD, warp * 16, kk * 16, gid, tig);
-        load_a(av, Vs, SD, warp * 16, kk * 16, gid, tig);
-#pragma unroll
-        for (int nt = 0; nt < kBQ / 8; ++nt) {
-          const bf16* pq = Qt + (nt * 8 + gid) * SD + kk * 16 + 2 * tig;
-          const bf16* pg = Gt + (nt * 8 + gid) * SD + kk * 16 + 2 * tig;
-          mma16816(st[nt], ak, lds32(pq), lds32(pq + 8));
-          mma16816(dpt[nt], av, lds32(pg), lds32(pg + 8));
+  if (wg == 0) {  // the producer: warp 0 (lse and delta by its lanes)
+    setmaxnreg_dec<kKvProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int c = 0, zk, rank;
+      Walk walk;
+      for (int it = 0; walk.next(sh.B * sh.K, a.nt, zk, rank); ++it) {
+        const KItem w = k_item(sh, zk, rank);
+        if (lane == 0) {
+          mbar_wait(kv_empty, (it & 1) ^ 1);
+          mbar_expect_tx(kv_full, 2 * kKBytes);
+          tma_tile<NR, TL, kKvN>(sK, maps, kMk, kv_full, w.k0, 0, w.h, w.b);
+          tma_tile<NR, TL, kKvN>(sV, maps, kMv, kv_full, w.k0, 0, w.h, w.b);
+        }
+        for (int gq = 0; gq < sh.G; ++gq) {
+          const long long zq =
+              (static_cast<long long>(w.zk) * sh.G + gq) * sh.S;
+          for (int n = 0; n < w.nq; ++n, ++c) {
+            const int s = c % kStages, q0 = (w.qt_lo + n) * kKvQ;
+            mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
+            float* lr = rows + s * 2 * kKvQ;
+            for (int e = lane; e < kKvQ; e += 32) {
+              const int qi = q0 + e;
+              lr[e] = qi < sh.S ? a.lse[zq + qi] * kLog2e : 0.f;
+              lr[kKvQ + e] = qi < sh.S ? a.delta[zq + qi] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) {   // its arrival releases the lanes' stores
+              mbar_expect_tx(full + 8 * s, 2 * kQBytes);
+              tma_tile<NR, TL, kKvQ>(sQ + s * kQBytes, maps, kMq,
+                                     full + 8 * s, q0, gq, w.h, w.b);
+              tma_tile<NR, TL, kKvQ>(sG + s * kQBytes, maps, kMg,
+                                     full + 8 * s, q0, gq, w.h, w.b);
+            }
+          }
         }
       }
     }
-    // p^T and ds^T: rows are keys, columns queries
-#pragma unroll
-    for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = key0 + (e >> 1) * 8;
-        const int c = nt * 8 + 2 * tig + (e & 1), qi = qbase + c;
-        const float p = valid_key(qi, kj, S, sh.window) && kj < S
-                            ? expf(st[nt][e] * sh.sc - Lt[c])
-                            : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - Dt[c]);
-      }
-    }
-    // dv += p^T g, dk += ds^T q, the f32 factor split into hi + lo
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t ph[4], pl[4], dh[4], dl[4];
-      split_pair(st[2 * kk][0], st[2 * kk][1], ph[0], pl[0]);
-      split_pair(st[2 * kk][2], st[2 * kk][3], ph[1], pl[1]);
-      split_pair(st[2 * kk + 1][0], st[2 * kk + 1][1], ph[2], pl[2]);
-      split_pair(st[2 * kk + 1][2], st[2 * kk + 1][3], ph[3], pl[3]);
-      split_pair(dpt[2 * kk][0], dpt[2 * kk][1], dh[0], dl[0]);
-      split_pair(dpt[2 * kk][2], dpt[2 * kk][3], dh[1], dl[1]);
-      split_pair(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1], dh[2], dl[2]);
-      split_pair(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3], dh[3], dl[3]);
-      const int roff = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SD +
-                       (lane >> 4) * 8;
-#pragma unroll
-      for (int d2 = 0; d2 < DM / 16; ++d2) {
-        if (EXACT || d2 * 16 < D) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(b0, b1, b2, b3, Gt + roff + d2 * 16);
-          mma16816(adv[2 * d2], ph, b0, b1);
-          mma16816(adv[2 * d2 + 1], ph, b2, b3);
-          mma16816(adv[2 * d2], pl, b0, b1);
-          mma16816(adv[2 * d2 + 1], pl, b2, b3);
-          ldsm_x4_trans(b0, b1, b2, b3, Qt + roff + d2 * 16);
-          mma16816(adk[2 * d2], dh, b0, b1);
-          mma16816(adk[2 * d2 + 1], dh, b2, b3);
-          mma16816(adk[2 * d2], dl, b0, b1);
-          mma16816(adk[2 * d2 + 1], dl, b2, b3);
-        }
-      }
-    }
-    __syncthreads();
+    return;
   }
-  const long long zk = (long long)z * S;
+
+  setmaxnreg_inc<kKvConsumerRegs>();
+  const int cw = wg - 1, tid = threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cp = 2 * (lane & 3);
+  int c = 0, zk, rank;
+  Walk walk;
+  for (int it = 0; walk.next(sh.B * sh.K, a.nt, zk, rank); ++it) {
+    const KItem w = k_item(sh, zk, rank);
+    const int klo = w.k0 + cw * 64, khi = klo + 63;
+    const int kr0 = klo + 16 * warp + (lane >> 2), kr1 = kr0 + 8;
+    float dk[NR][32], dv[NR][32], dkt[8], dvt[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = key0 + i * 8;
-    if (kj >= S) continue;
-    bf16* rk = dk + (zk + kj) * D;
-    bf16* rv = dv + (zk + kj) * D;
+    for (int r = 0; r < NR; ++r)
 #pragma unroll
-    for (int dt = 0; dt < DM / 8; ++dt) {
-      if (EXACT || dt * 8 < D) {
-        *reinterpret_cast<uint32_t*>(rk + dt * 8 + 2 * tig) = pack_bf16(
-            adk[dt][2 * i] * sh.sc, adk[dt][2 * i + 1] * sh.sc);
-        *reinterpret_cast<uint32_t*>(rv + dt * 8 + 2 * tig) =
-            pack_bf16(adv[dt][2 * i], adv[dt][2 * i + 1]);
+      for (int i = 0; i < 32; ++i) dk[r][i] = dv[r][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dkt[i] = dvt[i] = 0.f;
+    mbar_wait(kv_full, it & 1);
+    for (int gq = 0; gq < sh.G; ++gq) {
+      for (int n = 0; n < w.nq; ++n, ++c) {
+        const int s = c % kStages, q0 = (w.qt_lo + n) * kKvQ;
+        const uint32_t qt = sQ + s * kQBytes, gt = sG + s * kQBytes;
+        const float* lr = rows + s * 2 * kKvQ;
+        mbar_wait(full + 8 * s, (c / kStages) & 1);
+        // the stage's queries in two halves of 32 (half the score
+        // registers): s^T and dp^T of the half, then its two k16 steps
+        // of the dv and dk products
+#pragma unroll
+        for (int hq = 0; hq < 2; ++hq) {
+          const int qh = q0 + 32 * hq;
+          float st[16], dpt[16];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < L::kSteps; ++kk)
+            wgmma_ss_n32(st, kmajor<NR, TL>(sK, kKvN, cw * 64, kk),
+                         kmajor<NR, TL>(qt, kKvQ, 32 * hq, kk), kk);
+#pragma unroll
+          for (int kk = 0; kk < L::kSteps; ++kk)
+            wgmma_ss_n32(dpt, kmajor<NR, TL>(sV, kKvN, cw * 64, kk),
+                         kmajor<NR, TL>(gt, kKvQ, 32 * hq, kk), kk);
+          wgmma_commit_wait();
+          fence_regs(st);
+          fence_regs(dpt);
+          // p^T and ds^T: rows are keys, columns the queries qh + cp + off;
+          // query qi is kept for key j iff j <= qi < S and, with a window,
+          // qi - j < window
+          if (qh < khi || qh + 32 > sh.S ||
+              (sh.window > 0 && qh + 31 - klo >= sh.window)) {
+            const int e0 = kr0 - qh - cp, e1 = kr1 - qh - cp;
+            const int top = sh.S - qh - cp - 1;
+            const int wn = sh.window > 0 ? sh.window : kNoBound;
+            mask_tile(st, e0 - 1, min(top, e0 + wn - 1), e1 - 1,
+                      min(top, e1 + wn - 1), kMaskRaw);
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int col = 32 * hq + 8 * (i >> 2) + cp + (i & 1);
+            const float p = ex2(fmaf(st[i], sh.sl, -lr[col]));
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - lr[kKvQ + col]);
+          }
+          // dv += p^T g, dk += ds^T q, the f32 factor split into hi +
+          // lo, g and q read MN-major
+          uint32_t ph[8], pl[8], dh[8], dl[8];
+          to_frags_split(st, ph, pl);
+          to_frags_split(dpt, dh, dl);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            fence_regs(dk[r]);
+            fence_regs(dv[r]);
+          }
+          if (TL) fence_regs(dkt);
+          if (TL) fence_regs(dvt);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int r = 0; r < NR; ++r) {
+              const uint64_t dg = mnmajor<NR>(gt, kKvQ, r, 2 * hq + j);
+              const uint64_t dq = mnmajor<NR>(qt, kKvQ, r, 2 * hq + j);
+              wgmma_rs_n64(dv[r], ph + 4 * j, dg);
+              wgmma_rs_n64(dv[r], pl + 4 * j, dg);
+              wgmma_rs_n64(dk[r], dh + 4 * j, dq);
+              wgmma_rs_n64(dk[r], dl + 4 * j, dq);
+            }
+            if (TL) {
+              const uint64_t dg = mnmajor<NR>(gt, kKvQ, NR, 2 * hq + j);
+              const uint64_t dq = mnmajor<NR>(qt, kKvQ, NR, 2 * hq + j);
+              wgmma_rs_n16(dvt, ph + 4 * j, dg);
+              wgmma_rs_n16(dvt, pl + 4 * j, dg);
+              wgmma_rs_n16(dkt, dh + 4 * j, dq);
+              wgmma_rs_n16(dkt, dl + 4 * j, dq);
+            }
+          }
+          wgmma_commit_wait();
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            fence_regs(dk[r]);
+            fence_regs(dv[r]);
+          }
+          if (TL) fence_regs(dkt);
+          if (TL) fence_regs(dvt);
+        }
+        if (lane == 0) mbar_arrive(empty + 8 * s);
       }
     }
+    // dk = acc * sc and dv, through the k and v tiles and TMA stores
+    stage_rows<NR, TL, kKvN, false>(sK, cw, warp, lane, dk, dkt, sh.sc,
+                                    sh.sc);
+    stage_rows<NR, TL, kKvN, false>(sV, cw, warp, lane, dv, dvt, 1.f, 1.f);
+    fence_async_smem();
+    wg_sync(cw);
+    if (tid == 0) {
+      store_rows<NR, TL, kKvN>(sK, maps, kMo0, cw, w.k0, 0, w.h, w.b);
+      store_rows<NR, TL, kKvN>(sV, maps, kMo1, cw, w.k0, 0, w.h, w.b);
+      tma_store_read_wait();
+      mbar_arrive(kv_empty);
+    }
+    __syncwarp();
   }
 }
 
 // ----------------------------------------------------------------------
-// delta = sum(g * out) over D, in f32; a warp a row
+// f32: delta = sum(g * out) over D; a warp a row (bf16: in the dq kernel)
 // ----------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ float to_f(T x) {
-  return static_cast<float>(x);
-}
-template <>
-__device__ __forceinline__ float to_f<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__global__ void flash_delta_kernel(const T* __restrict__ g,
-                                   const T* __restrict__ o,
+__global__ void flash_delta_kernel(const float* __restrict__ g,
+                                   const float* __restrict__ o,
                                    float* __restrict__ delta, Shape sh,
                                    View gv, View ov) {
   const long long rows = (long long)sh.B * sh.K * sh.G * sh.S;
@@ -683,10 +1269,10 @@ __global__ void flash_delta_kernel(const T* __restrict__ g,
   const long long zz = r / sh.S;
   const int gq = zz % sh.G, kh = (zz / sh.G) % sh.K;
   const int b = zz / ((long long)sh.G * sh.K);
-  const T* gr = g + b * gv.b + kh * gv.h + gq * gv.g + qi * gv.s;
-  const T* orow = o + b * ov.b + kh * ov.h + gq * ov.g + qi * ov.s;
+  const float* gr = g + b * gv.b + kh * gv.h + gq * gv.g + qi * gv.s;
+  const float* orow = o + b * ov.b + kh * ov.h + gq * ov.g + qi * ov.s;
   float acc = 0.f;
-  for (int d = lane; d < sh.D; d += 32) acc += to_f(gr[d]) * to_f(orow[d]);
+  for (int d = lane; d < sh.D; d += 32) acc += gr[d] * orow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -948,15 +1534,10 @@ __global__ void __launch_bounds__(kRows * 32)
   }
 }
 
+
 // ----------------------------------------------------------------------
 // launches
 // ----------------------------------------------------------------------
-size_t fwd_smem(int D) { return (size_t)(kBM + 4 * kBN) * (D + kPad) * 2; }
-size_t dq_smem(int D) { return (size_t)(2 * kBM + 4 * kBN) * (D + kPad) * 2; }
-size_t dkdv_smem(int D) {
-  return (size_t)(2 * kBN + 4 * kBQ) * (D + kPad) * 2 + 4 * kBQ * 4;
-}
-
 template <typename F>
 cudaError_t allow_smem(F* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -966,47 +1547,167 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
 
 View view_of(const long long* st) { return View{st[0], st[1], st[2], st[3]}; }
 
-template <int DM, bool EXACT>
-cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                     float* lse, const Shape& sh, const long long* st,
-                     cudaStream_t stream) {
-  auto kern = flash_fwd_bf16_kernel<DM, EXACT>;
-  const size_t smem = fwd_smem(sh.D);
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sh.S + kBM - 1) / kBM, sh.B * sh.K * sh.G);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, sh,
-      view_of(st), view_of(st + 4), view_of(st + 8));
-  return cudaGetLastError();
+// cuTensorMapEncodeTiled, through the runtime's driver entry point (the
+// library links no libcuda)
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
 }
 
-template <int DM, bool EXACT>
-cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
-                     const void* g, const float* lse, const float* delta,
-                     void* dq, void* dk, void* dv, const Shape& sh,
-                     const long long* st, cudaStream_t stream) {
-  auto kdq = flash_bwd_dq_bf16_kernel<DM, EXACT>;
-  auto kkv = flash_bwd_dkdv_bf16_kernel<DM, EXACT>;
-  cudaError_t err = allow_smem(kdq, dq_smem(sh.D));
-  if (err == cudaSuccess) err = allow_smem(kkv, dkdv_smem(sh.D));
-  if (err != cudaSuccess) return err;
-  const View qv = view_of(st), kv = view_of(st + 4), vv = view_of(st + 8),
-             gv = view_of(st + 12);
-  dim3 gq((sh.S + kBM - 1) / kBM, sh.B * sh.K * sh.G);
-  kdq<<<gq, kThreads, dq_smem(sh.D), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-      static_cast<bf16*>(dq), sh, qv, kv, vv, gv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 gk((sh.S + kBN - 1) / kBN, sh.B * sh.K);
-  kkv<<<gk, kThreads, dkdv_smem(sh.D), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh, qv, kv, vv, gv);
-  return cudaGetLastError();
+// Errors of the tensor maps' encoding come back as -(1000 + CUresult).
+constexpr int kMapError = 1000;
+
+// A bf16 operand of G query groups (1 for k and v), element strides `v`,
+// as a rank-5 map (D, row, g, kv head, b) with boxes of 64 rows and
+// `cols` columns swizzled `sw`; a stride of 0 (a dim of size 1) becomes
+// a legal one, never stepped.
+int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int G,
+           const View& v, int cols, CUtensorMapSwizzle sw) {
+  EncodeFn fn = encoder();
+  if (fn == nullptr) return -kMapError;
+  const cuuint64_t dims[5] = {
+      static_cast<cuuint64_t>(sh.D), static_cast<cuuint64_t>(sh.S),
+      static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(sh.K),
+      static_cast<cuuint64_t>(sh.B)};
+  const long long el[4] = {v.s, v.g, v.h, v.b};
+  cuuint64_t strides[4];
+  for (int i = 0; i < 4; ++i)
+    strides[i] = static_cast<cuuint64_t>(el[i] ? el[i] : sh.D) * 2;
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(cols), kBox, 1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(kMapError + static_cast<int>(r));
+}
+
+// both maps of one operand: the 64-column boxes, and the tail's box for
+// TL = 16
+template <int TL>
+int encode_operand(CUtensorMap (&m)[2], const void* ptr, const Shape& sh,
+                   int G, const View& v) {
+  int err = encode(&m[0], ptr, sh, G, v, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0 && TL)
+    err = encode(&m[1], ptr, sh, G, v, TL, CU_TENSOR_MAP_SWIZZLE_32B);
+  return err;
+}
+
+// the element strides of a dense output [B,K,G,S,D]
+View dense(const Shape& sh, int G) {
+  const long long row = sh.D, g = row * sh.S, h = g * G, b = h * sh.K;
+  return View{b, h, G > 1 ? g : 0, row};
+}
+
+constexpr size_t kBarBytes = 128;   // the mbarriers, padded
+constexpr size_t kAlignSlack = 1024;
+
+template <int NR, int TL>
+size_t fwd_smem() {
+  const size_t row = Cols<NR, TL>::kRow;
+  return kAlignSlack + (2 * kFwdQ + 2 * kStages * kFwdN) * row + kBarBytes;
+}
+template <int NR, int TL>
+size_t dq_smem() {
+  const size_t row = Cols<NR, TL>::kRow;
+  return kAlignSlack + (4 * kDqQ + 2 * kStages * kDqN) * row + kBarBytes;
+}
+template <int NR, int TL>
+size_t dkdv_smem() {
+  const size_t row = Cols<NR, TL>::kRow;
+  return kAlignSlack + (2 * kKvN + 2 * kStages * kKvQ) * row +
+         kStages * 2 * kKvQ * 4 + kBarBytes;
+}
+
+// a persistent grid: one block an SM, at most one a work item
+int grid_for(int items, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *grid = items < sms ? items : sms;
+  return static_cast<int>(err);
+}
+
+template <int NR, int TL>
+int fwd_bf16(const void* q, const void* k, const void* v, void* out,
+             float* lse, const Shape& sh, const long long* st,
+             cudaStream_t stream) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  int err = encode_operand<TL>(maps.t[kMq], q, sh, sh.G, view_of(st));
+  if (!err) err = encode_operand<TL>(maps.t[kMk], k, sh, 1, view_of(st + 4));
+  if (!err) err = encode_operand<TL>(maps.t[kMv], v, sh, 1, view_of(st + 8));
+  if (!err) err = encode_operand<TL>(maps.t[kMo0], out, sh, sh.G, dense(sh, sh.G));
+  if (err) return err;
+  const FwdArgs a{lse, sh, (sh.S + kFwdQ - 1) / kFwdQ};
+  auto kern = flash_fwd_wgmma_kernel<NR, TL>;
+  const size_t smem = fwd_smem<NR, TL>();
+  int grid = 0;
+  err = static_cast<int>(allow_smem(kern, smem));
+  if (!err) err = grid_for(a.nqt * sh.B * sh.K * sh.G, &grid);
+  if (err) return err;
+  kern<<<grid, kThreadsWS, smem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NR, int TL>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* g,
+             const void* out, const float* lse, float* delta, void* dq,
+             void* dk, void* dv, const Shape& sh, const long long* st,
+             cudaStream_t stream) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  int err = encode_operand<TL>(maps.t[kMq], q, sh, sh.G, view_of(st));
+  if (!err) err = encode_operand<TL>(maps.t[kMk], k, sh, 1, view_of(st + 4));
+  if (!err) err = encode_operand<TL>(maps.t[kMv], v, sh, 1, view_of(st + 8));
+  if (!err)
+    err = encode_operand<TL>(maps.t[kMg], g, sh, sh.G, view_of(st + 12));
+  if (!err) err = encode_operand<TL>(maps.t[kMo0], dq, sh, sh.G, dense(sh, sh.G));
+  if (err) return err;
+  Maps kv_maps = maps;   // dk and dv as the dk / dv kernel's outputs
+  err = encode_operand<TL>(kv_maps.t[kMo0], dk, sh, 1, dense(sh, 1));
+  if (!err) err = encode_operand<TL>(kv_maps.t[kMo1], dv, sh, 1, dense(sh, 1));
+  if (err) return err;
+  auto kdq = flash_bwd_dq_wgmma_kernel<NR, TL>;
+  auto kkv = flash_bwd_dkdv_wgmma_kernel<NR, TL>;
+  err = static_cast<int>(allow_smem(kdq, dq_smem<NR, TL>()));
+  if (!err) err = static_cast<int>(allow_smem(kkv, dkdv_smem<NR, TL>()));
+  if (err) return err;
+  BwdArgs a{lse, delta, static_cast<const bf16*>(out), view_of(st + 16),
+            sh, (sh.S + kDqQ - 1) / kDqQ};
+  int grid = 0;
+  err = grid_for(a.nt * sh.B * sh.K * sh.G, &grid);
+  if (err) return err;
+  kdq<<<grid, kThreadsWS, dq_smem<NR, TL>(), stream>>>(maps, a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  a.nt = (sh.S + kKvN - 1) / kKvN;
+  err = grid_for(a.nt * sh.B * sh.K, &grid);
+  if (err) return err;
+  kkv<<<grid, kThreadsWS, dkdv_smem<NR, TL>(), stream>>>(kv_maps, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1017,24 +1718,19 @@ cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
 // are unit-stride along D; for bf16 every row start is 16-byte aligned
 // (the wrapper checks). out [B,K,G,S,D], lse and delta [B,K,G,S], dq
 // [B,K,G,S,D], dk and dv [B,K,S,D] are dense. Each returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched), or below 0 where a tensor map could
+// not be encoded (flash_error_string says which).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int B, int K, int G,
                                 int S, int D, int window, float sc,
                                 int dtype, const long long* strides,
                                 void* stream) {
-  const Shape sh{B, K, G, S, D, window, sc};
+  const Shape sh{B, K, G, S, D, window, sc, sc * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 1) {
-    cudaError_t err;
-    if (D == 128)
-      err = fwd_bf16<128, true>(q, k, v, out, l, sh, strides, st);
-    else if (D == 80)
-      err = fwd_bf16<80, true>(q, k, v, out, l, sh, strides, st);
-    else
-      err = fwd_bf16<128, false>(q, k, v, out, l, sh, strides, st);
-    return static_cast<int>(err);
+    if (D == 80) return fwd_bf16<1, 16>(q, k, v, out, l, sh, strides, st);
+    return fwd_bf16<2, 0>(q, k, v, out, l, sh, strides, st);
   }
   const size_t smem = (size_t)(kRows * D + 2 * kT * (D + 1) + kRows * kT) * 4;
   cudaError_t err = allow_smem(flash_fwd_f32_kernel, smem);
@@ -1054,7 +1750,7 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
                                 int S, int D, int window, float sc,
                                 int dtype, const long long* strides,
                                 void* stream) {
-  const Shape sh{B, K, G, S, D, window, sc};
+  const Shape sh{B, K, G, S, D, window, sc, sc * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -1062,23 +1758,13 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
   const long long rows = (long long)B * K * G * S;
   const unsigned dblocks = static_cast<unsigned>((rows + 7) / 8);
   if (dtype == 1) {
-    flash_delta_kernel<bf16><<<dblocks, 256, 0, st>>>(
-        static_cast<const bf16*>(g), static_cast<const bf16*>(out), dl, sh,
-        gv, ov);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (D == 128)
-      err = bwd_bf16<128, true>(q, k, v, g, l, dl, dq, dk, dv, sh, strides,
-                                st);
-    else if (D == 80)
-      err = bwd_bf16<80, true>(q, k, v, g, l, dl, dq, dk, dv, sh, strides,
-                               st);
-    else
-      err = bwd_bf16<128, false>(q, k, v, g, l, dl, dq, dk, dv, sh, strides,
-                                 st);
-    return static_cast<int>(err);
+    if (D == 80)
+      return bwd_bf16<1, 16>(q, k, v, g, out, l, dl, dq, dk, dv, sh, strides,
+                             st);
+    return bwd_bf16<2, 0>(q, k, v, g, out, l, dl, dq, dk, dv, sh, strides,
+                          st);
   }
-  flash_delta_kernel<float><<<dblocks, 256, 0, st>>>(
+  flash_delta_kernel<<<dblocks, 256, 0, st>>>(
       static_cast<const float*>(g), static_cast<const float*>(out), dl, sh,
       gv, ov);
   cudaError_t err = cudaGetLastError();
@@ -1109,5 +1795,14 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
 }
 
 extern "C" const char* flash_error_string(int code) {
+  if (code == -kMapError)
+    return "cuTensorMapEncodeTiled is not in the CUDA driver";
+  if (code < 0) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof(msg),
+             "a TMA tensor map could not be encoded (CUresult %d)",
+             -code - kMapError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -22,7 +22,7 @@ from repro_torch.kernels.silu import _on_device
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_STEP, D_MAX = 16, 128        # D a multiple of 16, at most 128
-MAX_HEADS = 65535              # B * K * G: the grid's y dimension
+MAX_HEADS = 65535              # B * K * G: the f32 kernels' grid y
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,15 +50,18 @@ def operand_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
     """(batch, kv head, group, row) element strides of q-like [B,K,G,S,D]
     or k-like [B,K,S,D] `t` (group 0 for the latter; a dim of size 1
     counts 0), or None where the kernels cannot read it in place: D not
-    unit-stride, or (bf16, whose rows are copied 16 bytes at a time) a
-    row start off 16-byte alignment."""
+    unit-stride, or (bf16, read by TMA, whose tensor maps take 16-byte
+    aligned addresses and non-zero strides of 16-byte multiples) a row
+    start off 16-byte alignment or a broadcast (stride 0 on a dim longer
+    than 1)."""
     st = [0 if n == 1 else s for n, s in zip(t.shape, t.stride())]
     if t.dim() == 4:
         st.insert(2, 0)
     if t.shape[-1] > 1 and st[-1] != 1:
         return None
-    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or
-                                      any(s % 8 for s in st[:4])):
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(s % 8 for s in st[:4]) or
+            any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))):
         return None
     return tuple(st[:4])
 
@@ -96,9 +99,10 @@ def launch_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                dv: torch.Tensor, window: int, views) -> None:
     """dq (dense, [B,K,G,S,D]), dk and dv (dense, [B,K,S,D]) in the
     operands' dtype given the cotangent g of `out`; `delta` [B,K,G,S]
-    f32 scratch. Three kernels on the current stream of q's device
-    (delta, dq, dk and dv); inputs are checked by the caller (`views`:
-    q's, k's, v's, g's and out's :func:`operand_strides`)."""
+    f32 scratch. Two kernels on the current stream of q's device in bf16
+    (dq with delta, then dk and dv), three in f32 (delta first); inputs
+    are checked by the caller (`views`: q's, k's, v's, g's and out's
+    :func:`operand_strides`)."""
     B, K, G, S, D = q.shape
     strides = _strides(*views)
     _check(_on_device(q.device, _lib().flash_bwd_launch, g.data_ptr(),

@@ -11,7 +11,8 @@ kernel's two forms (per tile, per group) share `quantize.launches`, and
 the dequantize kernel's share `dequantize.launches`; `silu`,
 `silu_gate` and `silu_gate_bwd` count their own, and so does
 `fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
-the backward runs three kernels: delta, dq, dk / dv). :func:`swiglu_gate`
+the backward runs two kernels in bf16, dq with delta and dk / dv, and
+three in f32). :func:`swiglu_gate`
 is the SwiGLU gate with a gradient (a `torch.autograd.Function`): its
 forward is :func:`silu_gate`'s value, its backward :func:`silu_gate_bwd`.
 """
@@ -657,9 +658,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     views with unit stride along D.
 
     CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu, one
-    launch; tiles of 64 keys); CPU tensors to :func:`repro_torch.kernels.
-    ref.flash_fwd_ref`, which walks key blocks of `block_k` as the
-    reference does."""
+    launch; the kernels state their tiles); CPU tensors to
+    :func:`repro_torch.kernels.ref.flash_fwd_ref`, which walks key blocks
+    of `block_k` as the reference does."""
     _check_flash(q, k, v, window)
     if q.is_cpu:
         return flash_fwd_ref(q, k, v, window, block_k)
@@ -685,8 +686,8 @@ def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     (dq, dk, dv) in the operands' dtype, dense, with the probabilities
     recomputed from the saved lse and kept in f32.
 
-    CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu:
-    delta, dq, and dk / dv, counted as one launch); CPU tensors to
+    CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu: dq
+    with delta, and dk / dv, counted as one launch); CPU tensors to
     :func:`repro_torch.kernels.ref.flash_bwd_ref`."""
     _check_flash(q, k, v, window, g=g, out=out, lse=lse)
     if q.is_cpu:

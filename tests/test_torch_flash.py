@@ -18,8 +18,11 @@ flash_attn.cu) to the plain versions on the card through
 `chip_smoke.flash_err`, the card check's own rule: bf16 outputs and
 gradients each row within 2^-7 of the row's max |value| (floored at
 2^-7 of the tensor's: rows of cancellation noise), f32 within 1e-5 of
-the max |value|, lse within 1e-5. They import no jax:
-``python -m pytest -q -m cuda tests/test_torch_flash.py``.
+the max |value|, lse within 1e-5 (at S = 1, where dq and dk are 0 up
+to rounding, within the bound of that rounding); they cover the bf16
+kernels' tile edges, D = 80's swizzled tail, a strided grouped q,
+windows that end inside a tile, and two calls giving equal bits. They
+import no jax: ``python -m pytest -q -m cuda tests/test_torch_flash.py``.
 """
 import sys
 import types
@@ -209,11 +212,54 @@ def smoke(card):
     return chip_smoke
 
 
+def _card_inputs(card, B, K, G, S_, D, seed, dtype=torch.bfloat16):
+    return [torch.from_numpy(a).to(dtype).to(card) for a in
+            _inputs(B, K, G, S_, D, "float32", seed=seed)]
+
+
+def _check_card(smoke, q, k, v, g, window):
+    """Both kernels against the plain versions on the same inputs. At
+    S = 1 a query's only key is itself: out = v whatever q and k, so dq
+    and dk are 0 up to the rounding of ds = p (dp - delta), two f32 sums
+    of the same D products in other orders; each is held, in both
+    versions, within the bound of that rounding (2 D f32 ulps of
+    sum |g v|, times |k| or |q| and the scale), not row by row."""
+    out, lse = ops.flash_fwd(q, k, v, window)
+    grads = ops.flash_bwd(g, q, k, v, out, lse, window)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_fwd_ref(q, k, v, window, 512)
+    smoke.flash_err(out, want_out, "out")
+    assert float((lse - want_lse).abs().max()) <= smoke.FLASH_LSE_TOL
+    want = flash_bwd_ref(g, q, k, v, out, lse, window, 512)
+    S_, D = q.shape[3], q.shape[4]
+    gv = float((g.float().abs() * v.float().abs()[:, :, None]).sum(-1).max())
+    for name, a, b, other in zip(("dq", "dk", "dv"), grads, want,
+                                 (k, q, None)):
+        assert a.dtype == q.dtype and a.is_contiguous()
+        if S_ == 1 and other is not None:
+            bound = (2 * D * 2.0 ** -24 * gv * float(other.float().abs().max())
+                     * D ** -0.5 * q.shape[2])
+            assert float(a.float().abs().max()) <= bound, name
+            assert float(b.float().abs().max()) <= bound, name
+        else:
+            smoke.flash_err(a, b, name)
+
+
 # (B, K, G, S, D, window): ragged tiles, G > 1, windows that skip tiles,
-# the generic head dim and the two exact ones
+# the generic head dim and the two exact ones; the bf16 kernels' tiles
+# (128 query rows, key tiles of 128 forward and of 64 in dq, query tiles
+# of 64 in dk / dv) at D = 128: a single row, one tile exact, one short,
+# one over, and group 1's prefill length (641 = 5 tiles and a row); D =
+# 80 (the 64-column region and the 16-column tail) at S = 1,024, B * H =
+# 8; windows of 200 ending inside the tiles; one head of 17,000 rows
+# (133 tiles of 128: more than the persistent grid's blocks, so a block
+# walks several items of one group)
 CARD_CASES = [(2, 2, 1, 100, 32, 0), (1, 2, 2, 130, 64, 0),
               (1, 2, 1, 200, 80, 70), (2, 1, 2, 129, 128, 0),
-              (1, 1, 1, 300, 128, 65), (1, 3, 1, 64, 16, 0)]
+              (1, 1, 1, 300, 128, 65), (1, 3, 1, 64, 16, 0),
+              *[(1, 2, 1, s, 128, 0) for s in (1, 64, 127, 128, 129, 641)],
+              (2, 4, 1, 1024, 80, 0), (1, 2, 2, 600, 128, 200),
+              (1, 2, 2, 600, 80, 200), (1, 1, 1, 17000, 16, 0)]
 
 
 @pytest.mark.cuda
@@ -221,21 +267,11 @@ CARD_CASES = [(2, 2, 1, 100, 32, 0), (1, 2, 2, 130, 64, 0),
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_card_kernels_match_plain(card, smoke, case, dtype):
     B, K, G, S_, D, window = case
-    q, k, v, g = (torch.from_numpy(a).to(dtype).to(card) for a in
-                  _inputs(B, K, G, S_, D, "float32", seed=S_ + D))
+    q, k, v, g = _card_inputs(card, B, K, G, S_, D, S_ + D, dtype)
     before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
-    out, lse = ops.flash_fwd(q, k, v, window)
-    grads = ops.flash_bwd(g, q, k, v, out, lse, window)
-    torch.cuda.synchronize()
+    _check_card(smoke, q, k, v, g, window)
     assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
-    want_out, want_lse = flash_fwd_ref(q, k, v, window, 512)
-    smoke.flash_err(out, want_out, "out")
-    assert float((lse - want_lse).abs().max()) <= smoke.FLASH_LSE_TOL
-    want = flash_bwd_ref(g, q, k, v, out, lse, window, 512)
-    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
-        assert a.dtype == dtype and a.is_contiguous()
-        smoke.flash_err(a, b, name)
 
 
 @pytest.mark.cuda
@@ -260,3 +296,60 @@ def test_card_reads_strided_operands(card):
     assert torch.equal(out, dense)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_grouped_strided_q(card, smoke):
+    """G = 4 query heads a kv head, q (and g) as the projection hands
+    them: [B,S,K*G,D] viewed as [B,K,G,S,D], rows K*G*D apart."""
+    B, K, G, S_, D = 2, 2, 4, 200, 128
+    q, k, v, g = _card_inputs(card, B, K, G, S_, D, seed=44)
+    qs, gs = (t.permute(0, 3, 1, 2, 4).contiguous().permute(0, 2, 3, 1, 4)
+              for t in (q, g))
+    assert qs.stride(3) == K * G * D and torch.equal(qs, q)
+    copies = ops.flash_fwd.copies
+    _check_card(smoke, qs, k, v, gs, 0)
+    assert ops.flash_fwd.copies == copies
+
+
+@pytest.mark.cuda
+def test_card_calls_give_equal_bits(card):
+    """Two calls on the same inputs give the same bits (no atomics: the
+    backward's dq is its own pass)."""
+    q, k, v, g = _card_inputs(card, 2, 4, 1, 1024, 80, seed=7)
+    out, lse = ops.flash_fwd(q, k, v)
+    out2, lse2 = ops.flash_fwd(q, k, v)
+    grads = ops.flash_bwd(g, q, k, v, out, lse)
+    grads2 = ops.flash_bwd(g, q, k, v, out, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_operand_strides_of_a_broadcast(dtype):
+    """A broadcast operand (k expanded over the kv heads, stride 0) is
+    read in place by the f32 kernels; the bf16 kernels' tensor maps take
+    no zero stride, so there the wrapper copies it dense."""
+    from repro_torch.kernels import flash
+    k = torch.zeros(1, 1, 40, 32, dtype=DTYPES[dtype]).expand(2, 4, 40, 32)
+    want = None if dtype == "bfloat16" else (0, 0, 0, 32)
+    assert flash.operand_strides(k) == want
+    assert flash.operand_strides(k.contiguous()) == (4 * 40 * 32, 40 * 32,
+                                                     0, 32)
+
+
+@pytest.mark.cuda
+def test_card_broadcast_operand_is_copied(card):
+    """A bf16 k broadcast over the kv heads (stride 0) goes to the
+    kernels as a dense copy: the same bits as a dense k, one copy
+    counted."""
+    q, k, v, g = _card_inputs(card, 1, 4, 1, 96, 64, seed=12)
+    kb = k[:, :1].expand_as(k)
+    copies = ops.flash_fwd.copies
+    out, lse = ops.flash_fwd(q, kb, v)
+    want, _ = ops.flash_fwd(q, kb.contiguous(), v)
+    torch.cuda.synchronize()
+    assert ops.flash_fwd.copies == copies + 1
+    assert torch.equal(out, want)
