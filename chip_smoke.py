@@ -19,8 +19,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
-   three kernels' and waterfill's kernel's registers and spills, failing
-   on a spill; `flash_attn.cu` builds beside them, and its seven kernels'
+   three kernels' and waterfill's two kernels' (the warp kernel, a warp
+   a fill for N <= 8, and the block kernel) registers and spills,
+   failing on a spill, and the block barriers (BAR) in each waterfill
+   kernel's SASS, failing if the warp kernel has any or the block
+   kernel none; `flash_attn.cu` builds beside them, and its seven kernels'
    registers, spills and SASS counts are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
    (UTMALDG), or if any bf16 instance spills;
@@ -61,11 +64,13 @@ Every phase is fatal: a failure exits non-zero before the result line.
    (3) the water-fill kernel against its plain version on the card and
    the host numpy loop, on seeded cases built as the reference's
    water-fill tests build them, at (B, N) = (1, 8), (16, 8), (1, 16),
-   (64, 16), (1, 32): rates within 1e-9, equal iterations; times of the
-   kernel (device, a graph of 20 calls), of the numpy wrapper's call
-   with its copies and synchronise (host), of the host loop (host) and
-   of the plain version, beside the bound (bytes; f64 operations at
-   the CUDA cores' rate) and the launch floor;
+   (64, 16), (1, 32), (2, 8), (32, 8), (5, 8), (3, 9): rates within
+   1e-9, equal iterations; times of the kernel (device, a graph of 20
+   calls) and its microseconds an iteration (of the longest fill, above
+   the launch floor), of the numpy call (one C call: staging, copies,
+   launch, synchronise; host), of the host loop (host) and of the plain
+   version, beside the bound (bytes; f64 operations at the CUDA cores'
+   rate) and the launch floor;
    (4) the 12 scenarios with `waterfill_backend="cuda"`, every fill also
    run by the host loop on the same inputs (equal iterations, rates
    within 1e-9), every integer field of every step equal to the numpy
@@ -444,8 +449,11 @@ PIN_SEED = 3                                # the pinned runs' seed
 BW_SCENARIOS = ("congestion", "provider_shift")
 # (B, N) of the water-fill checks: one 8-DC fill (the engines' and the
 # tick's), a 16-fill batch, the 16-DC mesh the reference's tests reach,
-# a 64-fill batch of it, and the widest mesh the kernel takes
-WF_SHAPES = ((1, 8), (16, 8), (1, 16), (64, 16), (1, 32))
+# a 64-fill batch of it, the widest mesh the kernel takes, the fused
+# tick's and the sweep's batches, a batch that is not a whole number of
+# the warp kernel's fills a block, and the block kernel's smallest mesh
+WF_SHAPES = ((1, 8), (16, 8), (1, 16), (64, 16), (1, 32), (2, 8), (32, 8),
+             (5, 8), (3, 9))
 WF_TOL = 1e-9             # the reference's own (tests/test_waterfill_kernel.py)
 WF_OPS_PER_PAIR = 20      # f64 operations per pair per iteration
 TRACE_INT_FIELDS = ("step", "events", "n_pods", "plan_sig", "conns_total",
@@ -503,7 +511,7 @@ SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
 SILU_KERNELS = ("silu_kernel", "silu_gate_kernel", "silu_gate_bwd_kernel")
-WF_KERNELS = ("waterfill_kernel",)
+WF_KERNELS = ("waterfill_warp_kernel", "waterfill_block_kernel")
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
                  "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
@@ -523,14 +531,14 @@ def sass_counts(lib: Path) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
 
 
-def sass_counts_by_kernel(lib: Path, kernels) -> dict:
-    """{kernel: {op: count}} of SASS_OPS in each function of the
+def sass_counts_by_kernel(lib: Path, kernels, sass_ops=SASS_OPS) -> dict:
+    """{kernel: {op: count}} of `sass_ops` in each function of the
     library whose mangled name holds one of `kernels` (instances summed:
     every template instance of a kernel)."""
     sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    out = {k: dict.fromkeys(SASS_OPS, 0) for k in kernels}
+    out = {k: dict.fromkeys(sass_ops, 0) for k in kernels}
     cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -538,7 +546,7 @@ def sass_counts_by_kernel(lib: Path, kernels) -> dict:
             cur = next((k for k in kernels if k in m.group(1)), None)
             continue
         if cur is not None:
-            for op in SASS_OPS:
+            for op in sass_ops:
                 out[cur][op] += len(re.findall(rf"\b{op}\b", line))
     return out
 
@@ -977,9 +985,10 @@ def host_call_us(fn, reps: int = 51) -> float:
 
 
 def time_waterfill(case, iters) -> dict:
-    """The kernel alone (device, a graph of 20 calls), the numpy
-    wrapper's call with its copies and synchronise (host), the host
-    loop's fills (host) and the plain version on the card."""
+    """The kernel alone (device, a graph of 20 calls; and over the
+    longest fill's iterations), the numpy call with its copies and
+    synchronise (host), the host loop's fills (host) and the plain
+    version on the card."""
     dev = torch.device("cuda")
     t = [torch.from_numpy(a).to(dev) for a in case]
     B, n = case[0].shape[0], case[0].shape[-1]
@@ -987,8 +996,9 @@ def time_waterfill(case, iters) -> dict:
             torch.empty(B, dtype=torch.int32, device=dev),
             torch.empty(B, dtype=torch.bool, device=dev))
     bound_ms, by, nbytes, nops = waterfill_bound(case, iters)
-    return {"B": B, "N": n, "iters": iters,
-            "ms": graph_ms(lambda: ops.fill_rates(*t, out=outs)),
+    ms = graph_ms(lambda: ops.fill_rates(*t, out=outs))
+    return {"B": B, "N": n, "iters": iters, "ms": ms,
+            "us_per_iter": ms * 1e3 / max(max(iters), 1),
             "wrapper_us": host_call_us(lambda: wfk.fill_rates(*case)),
             "host_loop_us": host_call_us(lambda: host_fills(case), reps=11),
             "plain_ms": call_ms(lambda: fill_rates_ref(*t), reps=5),
@@ -4541,16 +4551,21 @@ def scenarios_phase(paper, dev, floor_ms: float) -> dict:
         max_err = max(max_err, c["err_plain"], c["err_host"])
         checks.append({"B": B, "N": n, **c})
         timing.append(time_waterfill(case, c["iters"]))
+        timing[-1]["us_per_iter_above_floor"] = \
+            (timing[-1]["ms"] - floor_ms) * 1e3 / max(max(c["iters"]), 1)
         log(f"[scenarios] waterfill B={B} N={n}: iterations "
             f"{min(c['iters'])}-{max(c['iters'])}, equal to the plain "
             f"version's and the host loop's; max |diff| {c['err_plain']:.3g}"
             f" (plain), {c['err_host']:.3g} (host loop), tolerance {WF_TOL}")
     for t in timing:
         log(f"[scenarios] waterfill B={t['B']} N={t['N']} "
-            f"({sum(t['iters'])} iterations in all): kernel {t['ms']:.5f} "
-            f"ms (device, graph of 20 calls) | launch floor {floor_ms:.5f} "
-            f"ms | numpy wrapper call {t['wrapper_us']:.1f} us (host, "
-            f"copies and sync) | host loop {t['host_loop_us']:.1f} us "
+            f"({sum(t['iters'])} iterations in all, {max(t['iters'])} in "
+            f"the longest fill): kernel {t['ms']:.5f} ms (device, graph of "
+            f"20 calls), {t['us_per_iter']:.3f} us an iteration, "
+            f"{t['us_per_iter_above_floor']:.3f} above the launch floor | "
+            f"launch floor {floor_ms:.5f} ms | numpy call "
+            f"{t['wrapper_us']:.1f} us (host, one C call: copies, launch, "
+            f"sync) | host loop {t['host_loop_us']:.1f} us "
             f"(host, {t['B']} fill(s)) | plain {t['plain_ms']:.4f} ms | "
             f"bound {t['bound_ms']:.7f} ms by {t['bound_by']} "
             f"({t['bytes']} B, {t['ops']} f64 ops) | library call: none "
@@ -4673,16 +4688,25 @@ def main() -> int:
     if set(silu_report) != set(SILU_KERNELS) or silu_spills:
         raise AssertionError(f"silu's ptxas report: kernels "
                              f"{sorted(silu_report)}, spills {silu_spills}")
+    # waterfill: registers and spills of each kernel, and its block
+    # barriers (BAR) in SASS: none in the warp kernel, whose rounds are
+    # warp syncs, shuffles and votes
     wf_report = ptxas_report(texts["waterfill"], WF_KERNELS)
-    results["build_waterfill"] = {"kernels": wf_report}
+    wf_bars = sass_counts_by_kernel(build.library_path("waterfill"),
+                                    WF_KERNELS, sass_ops=("BAR",))
+    results["build_waterfill"] = {"kernels": wf_report, "sass": wf_bars}
     for name in WF_KERNELS:
         log(f"[build] waterfill: {name}: " + ", ".join(
-            f"{k} {v}" for k, v in wf_report.get(name, {}).items()))
+            f"{k} {v}" for k, v in wf_report.get(name, {}).items())
+            + f"; block barriers (BAR) in SASS {wf_bars[name]['BAR']}")
     wf_spills = {n: r for n, r in wf_report.items()
                  if r.get("spill_stores") or r.get("spill_loads")}
-    if set(wf_report) != set(WF_KERNELS) or wf_spills:
+    if set(wf_report) != set(WF_KERNELS) or wf_spills or \
+            wf_bars["waterfill_warp_kernel"]["BAR"] or \
+            not wf_bars["waterfill_block_kernel"]["BAR"]:
         raise AssertionError(f"waterfill's ptxas report: kernels "
-                             f"{sorted(wf_report)}, spills {wf_spills}")
+                             f"{sorted(wf_report)}, spills {wf_spills}; "
+                             f"BAR in SASS {wf_bars}")
     # flash_attn: registers and spills (the largest of each kernel's
     # template instances: D = 128 and 80), and in the bf16 kernels wgmma
     # (HGMMA) fed by TMA (UTMALDG), none of their instances spilling

@@ -15,9 +15,7 @@ parent unpacked under build/parent:
         --other build/parent/src/repro_torch/csrc/flash_attn.cu
 """
 import argparse
-import ctypes
 import re
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -35,16 +33,6 @@ from repro_torch.kernels import flash as _flash  # noqa: E402
 ROUNDS = 3
 SHAPES = {"group 1 prefill": (4, 32, 1, 641, 128),
           "danube train": (4, 32, 1, 1024, 80)}
-
-
-def other_lib(src: Path, out: Path) -> ctypes.CDLL:
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, capture_output=True)
-    lib, mine = ctypes.CDLL(str(out)), _flash._lib()
-    for fn in ("flash_fwd_launch", "flash_bwd_launch", "flash_error_string"):
-        getattr(lib, fn).argtypes = getattr(mine, fn).argtypes
-        getattr(lib, fn).restype = getattr(mine, fn).restype
-    return lib
 
 
 def inputs(shape, seed: int = 0):
@@ -65,8 +53,9 @@ def main() -> int:
     print(chip_smoke.nvidia_smi())
     mine = _flash._lib()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"this": mine, "other": other_lib(args.other,
-                                                 Path(tmp) / "other.so")}
+        libs = {"this": mine, "other": build.load_other(
+            args.other, Path(tmp) / "other.so", mine,
+            ("flash_fwd_launch", "flash_bwd_launch", "flash_error_string"))}
         for name, shape in SHAPES.items():
             q, k, v, g = inputs(shape)
             out, lse = ops.flash_fwd(q, k, v)

@@ -88,3 +88,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def load_other(src: Path, out: Path, like: ctypes.CDLL,
+               fns: Sequence[str]) -> ctypes.CDLL:
+    """Another source of a library's C interface (e.g. a parent commit's
+    `csrc/<name>.cu`), built with the same flags into `out` and loaded,
+    its functions `fns` typed as `like`'s: for comparing two builds on
+    the card."""
+    subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for fn in fns:
+        getattr(lib, fn).argtypes = getattr(like, fn).argtypes
+        getattr(lib, fn).restype = getattr(like, fn).restype
+    return lib

@@ -555,7 +555,8 @@ def fill_rates(c: torch.Tensor, single: torch.Tensor, egress: torch.Tensor,
     -> (rate [B, N, N] f64, iters [B] int32, converged [B] bool).
 
     CUDA tensors go to the hand-written kernel (csrc/waterfill.cu, one
-    launch, a block a fill); `out` may name the three outputs there
+    launch: a warp a fill for N <= 8, else a block a fill); `out` may
+    name the three outputs there
     (contiguous, on the device). CPU tensors go to
     :func:`repro_torch.kernels.ref.fill_rates_ref`. Both run the JAX
     package's `fill_rates_loop` and agree with the host numpy loop to

@@ -4,13 +4,15 @@ Port of `repro/kernels/waterfill.py`, whose `fill_rates_loop` is a jit
 `lax.while_loop` (not Pallas). The kernel source is
 `repro_torch/csrc/waterfill.cu`; its head comment says what bounds it
 on an H100 (the latency of its dependent iterations, and around it the
-launch and the copies) and how the design answers that: one block per
-fill, one thread per pair, the whole loop on the device.
+launch and the copies) and how the design answers that: a warp a fill
+for N <= 8 (several fills a block), a block a fill up to N = 32, one
+load-sum round an iteration, the whole loop on the device.
 
 This module binds the library (built at first use by
-:mod:`repro_torch.kernels.build`) and launches it, and
-:func:`fill_rates` is the numpy-in / numpy-out call the simulator's
-``"cuda"`` and ``"torch"`` backends make. Tensors go through
+:mod:`repro_torch.kernels.build`) and launches it. :func:`fill_rates`
+is the numpy-in / numpy-out call the simulator's ``"cuda"`` and
+``"torch"`` backends make: on the card one C call that stages, copies,
+launches and synchronises (:func:`host_fill`). Tensors go through
 :func:`repro_torch.kernels.ops.fill_rates`, which checks them, takes
 the plain version for CPU tensors and counts launches.
 """
@@ -28,7 +30,7 @@ from repro_torch.kernels import build
 EPS_DEN = 1e-12          # weight-denominator clip (matches numpy)
 EPS_INC = 1e-9           # smallest meaningful fill-level increment
 EPS_SAT = 1e-6           # constraint-saturation slack
-MAX_N = 32               # one thread per pair: at most 1,024 a block
+MAX_N = 32               # a block a fill, a thread a pair: 1,024 at most
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,23 +47,33 @@ def max_fill_iters(n: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = build.load("waterfill")
     if not getattr(lib, "_typed", False):
-        lib.waterfill_launch.argtypes = [_P] * 5 + [_L] + [_P] * 4 + \
-            [_I] * 3 + [_P]
-        lib.waterfill_launch.restype = _I
+        for fn in (lib.waterfill_launch, lib.waterfill_fill_host):
+            fn.argtypes = [_P] * 5 + [_L] + [_P] * 4 + [_I] * 3 + [_P]
+            fn.restype = _I
         lib.waterfill_error_string.argtypes = [_I]
         lib.waterfill_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+def _raise_on(lib: ctypes.CDLL, err: int, what: str, B: int, n: int) -> None:
+    if err != 0:
+        msg = lib.waterfill_error_string(err).decode()
+        raise RuntimeError(f"waterfill {what} failed: {msg} ({err}) at "
+                           f"B={B}, N={n}")
+
+
 def launch(c: torch.Tensor, single: torch.Tensor, egress: torch.Tensor,
            ingress: torch.Tensor, w: torch.Tensor, path_cap: torch.Tensor,
            rate: torch.Tensor, iters: torch.Tensor,
-           converged: torch.Tensor) -> None:
-    """One launch on the current stream of c's device: B fills, a block
-    each; inputs and outputs are checked by the caller."""
+           converged: torch.Tensor,
+           lib: Optional[ctypes.CDLL] = None) -> None:
+    """One launch on the current stream of c's device: B fills (N <= 8:
+    a warp each, else a block each); inputs and outputs are checked by
+    the caller. `lib` is another build of the library (default this
+    tree's)."""
     B, n, _ = c.shape
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     w_stride = 0 if w.dim() == 2 else n * n
     with torch.cuda.device(c.device):
         err = lib.waterfill_launch(
@@ -69,10 +81,64 @@ def launch(c: torch.Tensor, single: torch.Tensor, egress: torch.Tensor,
             ingress.data_ptr(), w.data_ptr(), w_stride, path_cap.data_ptr(),
             rate.data_ptr(), iters.data_ptr(), converged.data_ptr(), B, n,
             max_fill_iters(n), torch.cuda.current_stream(c.device).cuda_stream)
-    if err != 0:
-        msg = lib.waterfill_error_string(err).decode()
-        raise RuntimeError(f"waterfill launch failed: {msg} ({err}) at "
-                           f"B={B}, N={n}")
+    _raise_on(lib, err, "launch", B, n)
+
+
+def host_inputs(c, single, egress, ingress, w, path_cap
+                ) -> Tuple[np.ndarray, ...]:
+    """The six inputs as contiguous f64 arrays of a batch: c / single /
+    path_cap [B, N, N], egress / ingress [B, N], w [N, N] or [B, N, N];
+    one fill's [N, N] / [N] inputs become B = 1. Raises ValueError on a
+    shape the kernel does not take (N outside [1, 32], mismatched
+    shapes)."""
+    c, single, egress, ingress, w, path_cap = (
+        np.ascontiguousarray(a, np.float64)
+        for a in (c, single, egress, ingress, w, path_cap))
+    if c.ndim not in (2, 3) or c.shape[-1] != c.shape[-2]:
+        raise ValueError(f"c must be [N, N] or [B, N, N], got {c.shape}")
+    n = c.shape[-1]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"fill_rates takes 1 <= N <= {MAX_N}, got N={n}")
+    lead = c.shape[:-2]
+    for name, a, shape in (("single", single, c.shape),
+                           ("path_cap", path_cap, c.shape),
+                           ("egress", egress, lead + (n,)),
+                           ("ingress", ingress, lead + (n,))):
+        if a.shape != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {a.shape}")
+    if w.shape not in ((n, n), c.shape):
+        raise ValueError(f"w must be [{n}, {n}] or {list(c.shape)}, got "
+                         f"{w.shape}")
+    B = c.shape[0] if c.ndim == 3 else 1
+    return (c.reshape(B, n, n), single.reshape(B, n, n),
+            egress.reshape(B, n), ingress.reshape(B, n),
+            w if w.ndim == 2 else w.reshape(B, n, n),
+            path_cap.reshape(B, n, n))
+
+
+def host_fill(c: np.ndarray, single: np.ndarray, egress: np.ndarray,
+              ingress: np.ndarray, w: np.ndarray, path_cap: np.ndarray,
+              dev: torch.device, lib: Optional[ctypes.CDLL] = None
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """B >= 1 fills of `host_inputs`' arrays on the card in one C call
+    (`waterfill_fill_host`: one copy in through the library's pinned
+    buffer, the launch, one copy out, a synchronise, on the current
+    stream of `dev`) -> numpy (rate, iters, converged). Raises on any
+    CUDA error, naming B and N. `lib` as in :func:`launch`."""
+    B, n = c.shape[0], c.shape[-1]
+    rate = np.empty((B, n, n), np.float64)
+    iters = np.empty(B, np.int32)
+    ok = np.empty(B, np.bool_)
+    lib = _lib() if lib is None else lib
+    with torch.cuda.device(dev):
+        err = lib.waterfill_fill_host(
+            c.ctypes.data, single.ctypes.data, egress.ctypes.data,
+            ingress.ctypes.data, w.ctypes.data, 0 if w.ndim == 2 else n * n,
+            path_cap.ctypes.data, rate.ctypes.data, iters.ctypes.data,
+            ok.ctypes.data, B, n, max_fill_iters(n),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "host call", B, n)
+    return rate, iters, ok
 
 
 def fill_rates(c: np.ndarray, single: np.ndarray, egress: np.ndarray,
@@ -85,50 +151,27 @@ def fill_rates(c: np.ndarray, single: np.ndarray, egress: np.ndarray,
     the same leading shape (scalars' arrays for one fill).
 
     `device` None means CUDA (raising without a card): the kernel, one
-    launch. ``"cpu"`` runs the plain version. On the card the inputs
-    are packed into one host buffer and cross in one host-to-device
-    copy; rate, iters and the flag come back in one device-to-host copy
-    of one buffer, which synchronises. That round trip is the point of
-    the fill's cost on the control loop, beside the launch: a pageable
-    copy each way (2,176 bytes in and 517 out for one 8-DC fill) and
-    the host's wait for the kernel.
+    C call (:func:`host_fill`), counted in ``ops.fill_rates.launches``;
+    it makes no torch tensor. ``"cpu"`` runs the plain version through
+    :func:`repro_torch.kernels.ops.fill_rates`. Shapes are checked
+    before either.
     """
     # ops imports this module (the kernel's binding and constants)
     from repro_torch.kernels import ops
 
     dev = resolve_device(device)
     one = np.ndim(c) == 2
-    c, single, path_cap = (np.asarray(a, np.float64).reshape(
-        (-1,) + np.shape(a)[-2:]) for a in (c, single, path_cap))
-    egress, ingress = (np.asarray(a, np.float64).reshape(-1, c.shape[-1])
-                       for a in (egress, ingress))
-    w = np.asarray(w, np.float64)
-    B, n = c.shape[0], c.shape[-1]
-    # one host buffer: c, single, path_cap, w, egress, ingress
-    parts = (c, single, path_cap, w, egress, ingress)
-    sizes = [a.size for a in parts]
-    buf = np.concatenate([a.reshape(-1) for a in parts])
-    flat = torch.from_numpy(buf).to(dev)
-    views, ofs = [], 0
-    for a, k in zip(parts, sizes):
-        views.append(flat[ofs:ofs + k].view(a.shape))
-        ofs += k
-    tc, tsingle, tcap, tw, te, ti = views
+    args = host_inputs(c, single, egress, ingress, w, path_cap)
     if dev.type == "cpu":
-        rate, iters, ok = ops.fill_rates(tc, tsingle, te, ti, tw, tcap)
-        rate, iters, ok = rate.numpy(), iters.numpy(), ok.numpy()
+        rate, iters, ok = (t.numpy() for t in ops.fill_rates(
+            *(torch.tensor(a) for a in args)))
+    elif args[0].shape[0] == 0:
+        n = args[0].shape[-1]
+        rate, iters, ok = (np.empty((0, n, n)), np.empty(0, np.int32),
+                           np.empty(0, np.bool_))
     else:
-        # one device buffer: rate f64 [B,N,N], iters int32 [B], flag [B]
-        nr = B * n * n * 8
-        out = torch.empty(nr + 5 * B, dtype=torch.uint8, device=dev)
-        ops.fill_rates(tc, tsingle, te, ti, tw, tcap, out=(
-            out[:nr].view(torch.float64).view(B, n, n),
-            out[nr:nr + 4 * B].view(torch.int32),
-            out[nr + 4 * B:].view(torch.bool)))
-        host = out.cpu().numpy()
-        rate = host[:nr].view(np.float64).reshape(B, n, n)
-        iters = host[nr:nr + 4 * B].view(np.int32)
-        ok = host[nr + 4 * B:].view(np.bool_)
+        rate, iters, ok = host_fill(*args, dev)
+        ops.fill_rates.launches += 1
     if one:
         return rate[0], iters[0], ok[0]
     return rate, iters, ok

@@ -15,6 +15,11 @@ dropped; its fixture installs a stand-in only when it is missing. It is
 imported by a fixture, so the card-only cases (marked `cuda`) run where
 jax is not installed:
 ``python -m pytest -q -m cuda tests/test_torch_waterfill.py``.
+
+That the kernels give an earlier build's bits (rates, iterations,
+flags) is checked on the card, not here: ``scripts/fill_costs.py
+--other <waterfill.cu>`` builds the other source and compares the two
+on every shape of chip_smoke.py's water-fill phase.
 """
 import sys
 
@@ -33,8 +38,11 @@ QUIET = dict(fluct_sigma=0.0, snapshot_sigma=0.0, runtime_sigma=0.0)
 R8 = WanSimulator().regions
 TOL = dict(rtol=1e-9, atol=1e-9)
 CASES = 12
-# (B, N) of chip_smoke.py's water-fill phase
-CARD_SHAPES = [(1, 8), (16, 8), (1, 16), (64, 16), (1, 32)]
+# (B, N) of chip_smoke.py's water-fill phase: the fused tick's and the
+# sweep's batches, a batch that is not a whole number of the warp path's
+# fills a block, and the block path's smallest mesh
+CARD_SHAPES = [(1, 8), (16, 8), (1, 16), (64, 16), (1, 32), (2, 8), (5, 8),
+               (32, 8), (3, 9)]
 INT_FIELDS = ("step", "events", "n_pods", "plan_sig", "conns_total",
               "replans", "cache_builds", "cache_hits")
 
@@ -98,7 +106,7 @@ def random_batch(n, B, seed):
 # ----------------------------------------------------------------------
 # the plain version against the reference and the host loop
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("n", [3, 8, 16])
+@pytest.mark.parametrize("n", [3, 8, 16, 9])
 def test_plain_matches_reference_and_host_loop(ref, n):
     """Same rates to 1e-9 and the same iteration count as the
     reference's device fill and the port's numpy loop, on 12 cases."""
@@ -113,6 +121,64 @@ def test_plain_matches_reference_and_host_loop(ref, n):
         assert int(iters) == int(r_iters) == want_iters
         np.testing.assert_allclose(rate, want, **TOL)
         np.testing.assert_allclose(rate, r_rate, **TOL)
+
+
+def one_dc_batch(B, seed):
+    """B fills of a 1-DC mesh (N = 1: the one pair carries flows, so the
+    fill runs), synthetic: the simulator needs two DCs for its RTTs."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(1, 7, (B, 1, 1)).astype(float)
+    single = rng.uniform(50.0, 500.0, (B, 1, 1))
+    return (c, single, rng.uniform(100.0, 3000.0, (B, 1)),
+            rng.uniform(100.0, 3000.0, (B, 1)), rng.uniform(0.2, 1.0,
+                                                            (B, 1, 1)),
+            np.minimum(single * 4.0, rng.uniform(50.0, 2000.0, (B, 1, 1))))
+
+
+def dead_pair_batch(B, seed):
+    """B 8-DC fills with DC b % 8 dark: its links keep their flows at
+    single = path_cap = 0 (the fault plane's blackout)."""
+    c, single, egress, ingress, w, path_cap = random_batch(8, B, seed)
+    for b in range(B):
+        d = b % 8
+        for m in (single[b], path_cap[b]):
+            m[d, :] = 0.0
+            m[:, d] = 0.0
+    return c, single, egress, ingress, w, path_cap
+
+
+def dead_pairs(c, single, path_cap) -> int:
+    off = ~np.eye(c.shape[-1], dtype=bool)
+    return int(((c > 0) & off & ((single <= 0) | (path_cap <= 0))).sum())
+
+
+EDGE_BATCHES = {"B5N8": lambda: random_batch(8, 5, seed=58),
+                "N1": lambda: one_dc_batch(4, seed=1),
+                "N9": lambda: random_batch(9, 3, seed=9),
+                "dead_pairs": lambda: dead_pair_batch(3, seed=66),
+                "N16": lambda: random_batch(16, 2, seed=16),
+                "N32": lambda: random_batch(32, 1, seed=32)}
+
+
+@pytest.mark.parametrize("name", list(EDGE_BATCHES))
+def test_plain_matches_reference_and_host_loop_on_edge_batches(ref, name):
+    """The plain version (one batched call) against the reference's
+    batched fill and the host loop fill by fill: rates to 1e-9, equal
+    iterations, converged."""
+    case = EDGE_BATCHES[name]()
+    if name == "dead_pairs":
+        assert dead_pairs(case[0], case[1], case[5]) > 0
+    rate, iters, ok = wfk.fill_rates(*case, device="cpu")
+    r_rate, r_iters, r_ok = ref.fill_rates(*case)
+    n = case[0].shape[-1]
+    assert ok.all() and r_ok.all() and iters.min() > 0
+    assert iters.tolist() == r_iters.tolist()
+    np.testing.assert_allclose(rate, r_rate, **TOL)
+    for b in range(case[0].shape[0]):
+        want, want_iters, want_ok = fill_rates_host(
+            *(a[b] for a in case), wfk.max_fill_iters(n))
+        assert want_ok and int(iters[b]) == want_iters
+        np.testing.assert_allclose(rate[b], want, **TOL)
 
 
 def test_batched_fill_equals_per_matrix_fills():
@@ -318,6 +384,63 @@ def test_numpy_wrapper_one_launch_on_card(card):
     np.testing.assert_allclose(rate, p_rate, **TOL)
     one = wfk.fill_rates(*(a[0] for a in case))
     assert one[0].shape == (8, 8) and int(one[1]) == int(p_iters[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8), (5, 8), (3, 9)],
+                         ids=lambda s: f"B{s[0]}N{s[1]}")
+def test_numpy_call_equals_tensor_call_on_card(card, shape):
+    """The numpy call (one C call: staging, copies, launch, synchronise)
+    gives the tensor call's bits on the same inputs, with a shared w and
+    one w a fill, and counts one launch a call."""
+    B, n = shape
+    case = random_batch(n, B, seed=B * 10 + n)
+    for w in (case[4][0], case[4]):
+        args = case[:4] + (w,) + case[5:]
+        before = ops.fill_rates.launches
+        rate, iters, ok = wfk.fill_rates(*args)
+        assert ops.fill_rates.launches == before + 1
+        t = ops.fill_rates(*[torch.from_numpy(np.ascontiguousarray(a))
+                             .to(card) for a in args])
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(rate, t[0].cpu().numpy())
+        np.testing.assert_array_equal(iters, t[1].cpu().numpy())
+        np.testing.assert_array_equal(ok, t[2].cpu().numpy())
+
+
+BAD_SHAPES = ["wide", "square", "single", "egress", "w", "rank"]
+
+
+def _bad_shape_args(case):
+    c, single, egress, ingress, w, path_cap = random_batch(4, 2, seed=1)
+    if case == "wide":
+        c, single, egress, ingress, w, path_cap = random_batch(33, 1, seed=1)
+    elif case == "square":
+        c = c[:, :, :-1]
+    elif case == "single":
+        single = single[:1]
+    elif case == "egress":
+        egress = egress[:, :-1]
+    elif case == "w":
+        w = w[:, :-1]
+    elif case == "rank":
+        c = c[None]
+    return c, single, egress, ingress, w, path_cap
+
+
+@pytest.mark.parametrize("case", BAD_SHAPES)
+def test_numpy_call_rejects_bad_shapes(case):
+    with pytest.raises(ValueError):
+        wfk.fill_rates(*_bad_shape_args(case), device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BAD_SHAPES)
+def test_numpy_call_rejects_bad_shapes_before_a_launch(card, case):
+    before = ops.fill_rates.launches
+    with pytest.raises(ValueError):
+        wfk.fill_rates(*_bad_shape_args(case))
+    assert ops.fill_rates.launches == before
 
 
 @pytest.mark.cuda
