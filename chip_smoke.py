@@ -12,14 +12,17 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `ssd_chunk.cu`, `quantize.cu`, `silu.cu` and `waterfill.cu` with
    `nvcc`, one process each, started together,
    and prints ptxas's reports (registers, static shared memory, spills),
-   per ssd_chunk kernel its registers, spills and the dynamic shared
-   memory of a block at the serve shape, and the counts of tensor-core
+   per ssd_chunk kernel (the forward's three and the backward's four)
+   its registers, spills and the dynamic shared memory of a block at
+   the serve shape, failing if a backward kernel spills, and the counts
+   of tensor-core
    (HGMMA) and asynchronous-copy (LDGSTS, UTMALDG, UBLKCP) instructions
    in ssd_chunk's SASS (`cuobjdump -sass`); the same for quantize's
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
-   three kernels' and waterfill's two kernels' (the warp kernel, a warp
+   three kernels' (the backward one also SiLU's and the SSM gate's
+   gradient) and waterfill's two kernels' (the warp kernel, a warp
    a fill for N <= 8, and the block kernel) registers and spills,
    failing on a spill, and the block barriers (BAR) in each waterfill
    kernel's SASS, failing if the warp kernel has any or the block
@@ -267,7 +270,7 @@ Every phase is fatal: a failure exits non-zero before the result line.
    its max |out|), the bound (bytes, k and v at their 8 KV heads; the
    products at the bf16 tensor-core rate).
 13. train  — the dense family's training, after the dense phase's models
-   are freed:
+   are freed, then the ssm family's (part (5)):
    (1) the slice's main path: `h2o-danube-1.8b` at its full width and
    depth (24 layers, d 2560, 32 query / 8 KV heads, d_ff 6912, vocab
    32,000; bf16 compute, f32 parameters and AdamW state, weights from a
@@ -323,7 +326,30 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `rf_predict` bit-equal to its plain version on every feature matrix
    the controller predicted from. Prints the sync's ms a step (median
    over the calls with no codec check) and its wire bytes a pod per
-   phase.
+   phase;
+   (5) after part (4)'s models are freed, the ssm family's main path:
+   `mamba2-2.7b` at its full width and depth (64 layers, d 2560, 80
+   SSM heads, d_state 128, vocab 50,280; bf16 compute, f32 parameters
+   and AdamW state, weights from a `torch.Generator` seeded 0) trained
+   as (1) trains danube (`DataConfig(batch=4, seq=1024)`, psum, remat
+   "full", 6 steps, lr 3e-4). Counts zeroed just before the run and
+   read just after: exactly 2 x 64 x 6 = 768 `ssd_chunk`, `silu` and
+   `silu_gate` launches (forward and recompute) and 64 x 6 = 384
+   `ssd_chunk_bwd`, `silu_bwd` and `silu_gate_prod_bwd`, no other
+   kernel; every loss finite and the last below the first; step wall
+   ms (median, p90), tokens/s, peak memory; one more step under
+   `torch.profiler` for the device ms by kind (`ssd_chunk` and
+   `ssd_chunk_bwd`, the gates and their backwards, cross-entropy, the
+   optimizer, the other products, the rest) and the busy share. Then
+   the three backward kernels on layer 0's inputs of one more step
+   (its forwards' first calls, its backwards' last): `ssd_chunk_bwd`
+   within 1e-4 of each output's max |g| of its plain version (bf16
+   outputs also one bf16 step), the SiLU backwards bit-equal, each
+   called twice and equal bit for bit, timed beside its bound and its
+   plain version; and one `make_train_step` step of `mamba2-2.7b` at
+   full width, 2 layers, f32, B=1, S=512 (2 chunks) on the card and on
+   the host within part (3)'s bounds, the card's first `ssd_chunk_bwd`
+   call (f32) held to its plain version.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -340,7 +366,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 from pathlib import Path
 
 import numpy as np
@@ -385,10 +410,11 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      flash_bwd_ref, flash_fwd_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     silu_gate_bwd_ref, silu_gate_ref,
-                                     silu_ref, ssd_chunk_ref)
+                                     silu_bwd_ref, silu_gate_bwd_ref,
+                                     silu_gate_prod_bwd_ref, silu_gate_ref,
+                                     silu_ref, ssd_chunk_bwd_ref,
+                                     ssd_chunk_ref)
 from repro_torch.models import attention as att  # noqa: E402
-from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models import transformer as lm_mod  # noqa: E402
 from repro_torch.models.transformer import (DenseLM, MambaLM,  # noqa: E402
@@ -2493,7 +2519,13 @@ def _copy_laid_out(t: torch.Tensor) -> torch.Tensor:
     return c.copy_(t)
 
 
-GATED_OPS = ("ssd_chunk", "silu", "silu_gate", "swiglu_gate")
+# the kernel wrappers of each family's training: its forwards (run twice
+# a layer a step under per-layer remat: forward, recompute) and its
+# backwards (once)
+SSM_FWD = ("ssd_chunk", "silu", "silu_gate")
+SSM_BWD = ("ssd_chunk_bwd", "silu_bwd", "silu_gate_prod_bwd")
+DENSE_FWD = ("silu_gate", "flash_fwd")
+DENSE_BWD = ("silu_gate_bwd", "flash_bwd")
 
 
 @contextlib.contextmanager
@@ -2510,15 +2542,16 @@ def patched(module, wrap, names):
             setattr(module, n, fn)
 
 
-def first_calls(seen: dict):
+def first_calls(seen: dict, keep: str = "first"):
     """A `patched` wrapper keeping the first call's (args, kwargs) of
-    each name in `seen` (tensors copied in their layouts). A wrapper in
-    place of a kernel wrapper in `ops` takes the launches that wrapper
-    counts under its own name while patched (`call.launches`, not
-    read)."""
+    each name in `seen` (tensors copied in their layouts); with
+    `keep="last"` the last call's (a backward's last call is layer
+    0's). A wrapper in place of a kernel wrapper in `ops` takes the
+    launches that wrapper counts under its own name while patched
+    (`call.launches`, not read)."""
     def wrap(name, fn):
         def call(*args, **kw):
-            if name not in seen:
+            if keep == "last" or name not in seen:
                 seen[name] = (tuple(_copy_laid_out(a) if isinstance(
                     a, torch.Tensor) else a for a in args), dict(kw))
             return fn(*args, **kw)
@@ -2527,19 +2560,13 @@ def first_calls(seen: dict):
     return wrap
 
 
-def gated_ops(wrap):
-    """A `patched` wrapper for a module's `ops`: a namespace holding
-    wrap(name, ops.<name>) for each of GATED_OPS."""
-    return lambda _, mod: types.SimpleNamespace(
-        **{n: wrap(n, getattr(mod, n)) for n in GATED_OPS})
-
-
 def capture_layer0(step):
     """Run `step` (the SSM engine's prefill or decode step) and return
-    the positional inputs of its first call of each of GATED_OPS (layer
-    0's) that it makes, copied in their layouts."""
+    the positional inputs of its first call of each of SSM_FWD (layer
+    0's) that it makes, copied in their layouts. The model's `_ad` ops
+    call these wrappers by name (through their autograd Functions)."""
     seen = {}
-    with patched(ssm, gated_ops(first_calls(seen)), ("ops",)):
+    with patched(ops, first_calls(seen), SSM_FWD):
         step()
     return {n: args for n, (args, _) in seen.items()}
 
@@ -2645,6 +2672,12 @@ def check_parity(card: Engine, host: Engine, tokens: np.ndarray,
 # silu phase
 # ----------------------------------------------------------------------
 SILU_PLAIN = {"silu": silu_ref, "silu_gate": silu_gate_ref}
+# one PyTorch call computing the same function, timed beside the kernel
+# as a yardstick and used nowhere in the port (rounding once where the
+# kernel rounds each op as the reference's compiled program does); the
+# gates and the gate's backwards have none
+SILU_LIBRARY = {"silu": torch.nn.functional.silu,
+                "silu_bwd": torch.ops.aten.silu_backward}
 
 
 def value_only(name: str, kw: dict) -> bool:
@@ -2711,6 +2744,14 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def lib_text(t: dict) -> str:
+    """The library call's column of a SiLU kernel's log line."""
+    if t["library_ms"] is None:
+        return "none (no single PyTorch call)"
+    return (f"{t['library_ms']:.5f} ms (rounding once; this rounds each "
+            f"op as the reference's compiled program does)")
+
+
 def time_silu(name: str, args, kw=None) -> dict:
     """Device ms of the wrapper's call (one launch; `kw` its keywords)
     beside the plain version and the bound, and the host's issue time of
@@ -2727,8 +2768,17 @@ def time_silu(name: str, args, kw=None) -> dict:
             "plain_ms": call_ms(lambda: plain(*args)),
             "host_us": host_us(lambda: fn(*args, **kw)),
             "plain_host_us": host_us(lambda: plain(*args)),
+            "library_ms": library_ms(name, args),
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
             "ops": nops}
+
+
+def library_ms(name: str, args):
+    """Device ms of SILU_LIBRARY's call for `name` on the same inputs,
+    timed as the kernel is; None where there is none."""
+    lib = SILU_LIBRARY.get(name)
+    return None if lib is None else graph_ms(lambda: lib(*args),
+                                             launches=20, reps=11)
 
 
 # ----------------------------------------------------------------------
@@ -3248,11 +3298,8 @@ def dense_capture(step) -> dict:
     seen = {}
     record = first_calls(seen)
     with patched(att, record, ATTN_CORE), \
-            patched(ops, record, ("flash_fwd",)), \
-            patched(model_layers, gated_ops(record), ("ops",)):
+            patched(ops, record, ("flash_fwd", "silu_gate")):
         step()
-    args, _ = seen.pop("swiglu_gate")
-    seen["silu_gate"] = (args, {"with_prod": False})
     return seen
 
 
@@ -3760,7 +3807,7 @@ def dense_phase(paper, dev, smi: str) -> dict:
             f"to plain; kernel {t['ms']:.5f} ms (device, graph of 20 "
             f"calls) | plain {t['plain_ms']:.5f} ms | bound "
             f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B) | "
-            f"library call: none (F.silu rounds once) | {smi}")
+            f"library call: {lib_text(t)} | {smi}")
     serve["silu_gate"] = {"cases": gate_cases, "max_abs_err": gate_err,
                           "timing": gate_timing}
     # the flash_fwd kernel against its plain version on layer 0's inputs
@@ -3823,14 +3870,20 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
 # step by step, where a 2-step warm-up makes it jump (PERF.md, PR 22)
 TRAIN_OPT = dict(lr=3e-4)
 TRAIN_COUNTED = ("silu_gate", "silu_gate_bwd", "flash_fwd", "flash_bwd",
-                 "rf_predict", "quantize", "dequantize", "ssd_chunk", "silu")
+                 "rf_predict", "quantize", "dequantize", "ssd_chunk",
+                 "silu") + SSM_BWD
+# part (5): the ssm family trained as part (1) trains the dense one
+SSM_TRAIN_ARCH = ARCH
+SSD_BWD_TOL = 1e-4              # of max |g|: the kernels vs plain
+
 PARITY_BATCH = 1
 # keys of the card-against-host step: h2o-danube-1.8b at the train run's
 # 1,024, where flash walks 2 key blocks of 512 forward and in its VJP
 # (the 4,096 window not reached); llama3-8b and qwen3-4b (the same flash
 # code) at one block of 64: their large heads and AdamW dominate the
 # host's step (PERF.md, PR 22)
-PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ}
+# and mamba2-2.7b (part (5)) at 2 chunks of 256
+PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ, SSM_TRAIN_ARCH: 512}
 PARITY_SEQ_OTHER = 64
 # the first step's compressed sync is redone on the host for every leaf
 # of at most this many elements a pod (the attention's and the norms':
@@ -3842,6 +3895,12 @@ POD_STEPS, POD_BATCH, POD_FAIL_AT, POD_CKPT_EVERY = 8, 8, 4, 3
 ATTN_FWD, ATTN_BWD, XENT, OPTIM = ("attention_fwd", "attention_bwd",
                                    "cross_entropy", "optimizer")
 XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
+# the port's kernels a train profile sums by name, first match: the
+# SiLU backwards of both families are one kernel (silu_gate_bwd_kernel:
+# `silu_gate_bwd`, `silu_bwd`, `silu_gate_prod_bwd`)
+KERNEL_KINDS = (("silu_gate_bwd", "silu_gate_bwd_kernel"),
+                ("silu_gate", "silu_gate_kernel"), ("silu", "silu_kernel"),
+                ("ssd_chunk_bwd", "ssd_bwd_"), ("ssd_chunk", "ssd_"))
 
 
 def train_profile(fn) -> dict:
@@ -3849,10 +3908,11 @@ def train_profile(fn) -> dict:
     the attention core's forward and backward (`ops.flash_fwd` /
     `ops.flash_bwd` inside `record_function` ranges: the flash kernels,
     by name, and what else runs inside), cross-entropy (`chunked_xent`
-    in a range, and the kernels of its backward nodes: log-sum-exp, gather, mean), the optimizer
-    (`adamw_update` in a range), `silu_gate` and `silu_gate_bwd` (by
-    kernel name), the other matrix products (cuBLAS / CUTLASS names) and
-    the rest; the kernels run."""
+    in a range, and the kernels of its backward nodes: log-sum-exp,
+    gather, mean), the optimizer (`adamw_update` in a range), the port's
+    gate and SSD kernels and their backwards (KERNEL_KINDS, by kernel
+    name), the other matrix products (cuBLAS / CUTLASS names) and the
+    rest; the kernels run."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(label):
@@ -3881,7 +3941,7 @@ def train_profile(fn) -> dict:
         return any(k in name.lower() for k in MATMUL_KEYS)
 
     total = matmul = 0.0
-    by = {"silu_gate": 0.0, "silu_gate_bwd": 0.0}
+    by = dict.fromkeys((k for k, _ in KERNEL_KINDS), 0.0)
     flash = {ATTN_FWD: 0.0, ATTN_BWD: 0.0}
     n_kernels = 0
     for e in events:
@@ -3892,10 +3952,9 @@ def train_profile(fn) -> dict:
         total += ms
         n_kernels += 1
         matmul += ms if is_matmul(e.name) else 0.0
-        if "silu_gate_bwd" in e.name:
-            by["silu_gate_bwd"] += ms
-        elif "silu_gate" in e.name:
-            by["silu_gate"] += ms
+        kind = next((k for k, key in KERNEL_KINDS if key in e.name), None)
+        if kind is not None:
+            by[kind] += ms
         elif is_flash(e.name):
             flash[ATTN_FWD if "flash_fwd" in e.name else ATTN_BWD] += ms
     # kernels under each range or backward node, each CPU op once
@@ -3966,6 +4025,164 @@ def time_bwd(args) -> dict:
             "ops": nops}
 
 
+def check_ssd_bwd(args) -> dict:
+    """The ssd_chunk_bwd kernels (on the CPU: the wrapper's plain path)
+    against their plain version on the same inputs: dx, dB, dC and dda
+    within SSD_BWD_TOL of each one's max |g| (bf16 outputs also one bf16
+    step, 2^-7 relative: both round once f32 sums taken in other
+    orders), finite, of the inputs' shapes; a second call equal bit for
+    bit. Returns max |diff| and, per output, the largest share of its
+    tolerance."""
+    got = ops.ssd_chunk_bwd(*args)
+    again = ops.ssd_chunk_bwd(*args)
+    want = ssd_chunk_bwd_ref(*args)
+    sync(args[0].device)
+    out = {"max_abs_err": 0.0, "dtype": str(args[0].dtype).replace(
+        "torch.", ""), "shape": list(args[0].shape) + [args[1].shape[-1]]}
+    for name, g, a, w in zip(("dx", "dB", "dC", "dda"), got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"ssd_chunk_bwd {name}: two calls on the "
+                                 f"same inputs differ")
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"ssd_chunk_bwd {name} {g.shape} (plain "
+                                 f"{w.shape}) or non-finite values")
+        rtol = 2.0 ** -7 if args[0].dtype == torch.bfloat16 and \
+            name != "dda" else 0.0
+        atol = SSD_BWD_TOL * float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   err_msg=f"ssd_chunk_bwd {name}")
+        diff = np.abs(g - w)
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        out[name] = float((diff / (atol + rtol * np.abs(w))).max())
+    return out
+
+
+def ssd_bwd_work(xq, Bq):
+    """Bytes the call must move (x, B, C, da, dy and dst read once; dx,
+    dB, dC and dda written once) and the operations these inputs need,
+    by unit: the contractions (a multiply-add is 2; the causal (q, k)
+    pairs): C B^T, dC = dG B and dG^T C once per chunk, shared by the
+    heads; per head dS = dy x^T and S^T dy over P, B dst^T and x dst
+    over P x N; and the elementwise work (per head and causal pair the
+    decay's subtract and exp, S, dS o L, E and its two sums; per head
+    and row r's subtract and exp, the rho sum over P and r o (x dst);
+    the heads' sums of dG and of r o (x dst); both scans)."""
+    B, nC, Q, H, P = xq.shape
+    N = Bq.shape[-1]
+    chunks, pairs = B * nC, Q * (Q + 1) // 2
+    mm_ops = chunks * (3 * 2 * N * pairs +
+                       H * (2 * 2 * P * pairs + 2 * 2 * Q * P * N))
+    ew_ops = chunks * H * (7 * pairs + Q * (2 + 2 * P + N) + pairs +
+                           Q * N + 2 * Q)
+    e = xq.element_size()
+    nbytes = 2 * (xq.numel() + 2 * Bq.numel()) * e + \
+        2 * chunks * H * Q * 4 + xq.numel() * 4 + chunks * H * P * N * 4
+    return nbytes, mm_ops, ew_ops
+
+
+def ssd_bwd_bound(xq, Bq):
+    """(ms, bound_by, bytes, ops): as `ssd_bound`, of `ssd_bwd_work`."""
+    nbytes, mm_ops, ew_ops = ssd_bwd_work(xq, Bq)
+    mm_rate = BF16_TC_OPS_PER_S if xq.dtype == torch.bfloat16 \
+        else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(mm_ops / mm_rate, ew_ops / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            mm_ops + ew_ops)
+
+
+def time_ssd_bwd(args) -> dict:
+    """Device ms of the wrapper's call (its four kernels, with the
+    scratch they take) over back-to-back calls, beside the plain version
+    and the bound."""
+    bound_ms, by, nbytes, nops = ssd_bwd_bound(args[0], args[1])
+    return {"ms": device_ms(lambda: ops.ssd_chunk_bwd(*args), launches=10,
+                            reps=5),
+            "wrapper_ms": call_ms(lambda: ops.ssd_chunk_bwd(*args), reps=5),
+            "plain_ms": call_ms(lambda: ssd_chunk_bwd_ref(*args), reps=5),
+            # no single PyTorch call computes the SSD chunk's gradient
+            "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "ops": nops}
+
+
+SILU_BWD_PLAIN = {"silu_bwd": silu_bwd_ref,
+                  "silu_gate_prod_bwd": silu_gate_prod_bwd_ref}
+
+
+def check_silu_bwd(name: str, args) -> float:
+    """The SiLU backward `name` (on the CPU: the wrapper's plain path)
+    against its plain version on the same inputs, every output
+    bit-equal, finite, of the input's shape; a second call equal bit
+    for bit. Returns max |diff| (0)."""
+    fn = getattr(ops, name)
+    got, again = fn(*args), fn(*args)
+    want = SILU_BWD_PLAIN[name](*args)
+    sync(args[0].device)
+    got, again, want = (t if isinstance(t, tuple) else (t,)
+                        for t in (got, again, want))
+    err = 0.0
+    for g, a, w in zip(got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 f"differ")
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if g.shape != tuple(args[0].shape) or not np.isfinite(g).all():
+            raise AssertionError(f"{name} output {g.shape} or non-finite "
+                                 f"values")
+        np.testing.assert_array_equal(g, w)
+        err = max(err, float(np.max(np.abs(g - w))))
+    return err
+
+
+def silu_bwd_bound(name: str, args):
+    """(ms, bound_by, bytes, ops): each input read once and each output
+    written once (silu_bwd: g, x in, dx out: 3 elements of the dtype;
+    silu_gate_prod_bwd: g_value, y, z in, dy, dz out and the f32 g_prod
+    in), against the f32 operations an element (the logistic's exp,
+    add and divide, its derivative's six: 10; the gate's 13 and the
+    cotangents' add: 14)."""
+    n, e = args[0].numel(), args[0].element_size()
+    if name == "silu_bwd":
+        nbytes, nops = 3 * n * e, 10 * n
+    else:
+        nbytes, nops = n * (5 * e + 4), 14 * n
+    return roofline(nbytes, nops) + (nbytes, nops)
+
+
+def time_silu_bwd(name: str, args) -> dict:
+    """Device ms of the wrapper's call (one launch) beside the plain
+    version and the bound."""
+    bound_ms, by, nbytes, nops = silu_bwd_bound(name, args)
+    fn, plain = getattr(ops, name), SILU_BWD_PLAIN[name]
+    return {"shape": list(args[0].shape), "strides": [
+                list(t.stride()) for t in args],
+            "dtype": str(args[0].dtype).replace("torch.", ""),
+            "ms": graph_ms(lambda: fn(*args), launches=20, reps=11),
+            "wrapper_ms": call_ms(lambda: fn(*args)),
+            "plain_ms": call_ms(lambda: plain(*args)),
+            "library_ms": library_ms(name, args),
+            "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+            "ops": nops}
+
+
+def train_launches(cfg, layer_steps: int, **rest) -> dict:
+    """The launches of a training run of `layer_steps` layer-steps
+    (layers x steps x pods) under per-layer remat: each forward kernel
+    of cfg's family twice a layer a step (forward, recompute), each of
+    its backward kernels once; every other kernel of TRAIN_COUNTED 0
+    unless `rest` names it."""
+    fwd, bwd = (DENSE_FWD, DENSE_BWD) if cfg.family == "dense" else \
+        (SSM_FWD, SSM_BWD)
+    want = dict.fromkeys(TRAIN_COUNTED, 0)
+    want.update({k: 2 * layer_steps for k in fwd})
+    want.update({k: layer_steps for k in bwd})
+    want.update(rest)
+    return want
+
+
 def counted(names=TRAIN_COUNTED) -> dict:
     return {name: getattr(ops, name).launches for name in names}
 
@@ -3977,10 +4194,13 @@ def zero_train_counts(names=TRAIN_COUNTED) -> None:
 
 def train_single(cfg, dev, steps: int = TRAIN_STEPS,
                  batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
-    """Part (1): `cfg` trained by the Trainer on one pod (`sync="psum"`,
-    remat "full", random weights from a generator seeded 0), counts
-    zeroed just before the run and read just after; then one more step
-    under the profiler and one capturing the gate's backward inputs."""
+    """Part (1), and part (5) for the ssm family: `cfg` trained by the
+    Trainer on one pod (`sync="psum"`, remat "full", random weights from
+    a generator seeded 0), counts zeroed just before the run and read
+    just after; then one more step under the profiler and one capturing
+    the kernels' inputs (dense: the first call of each gate and flash
+    kernel; ssm: layer 0's, the forwards' first calls and the
+    backwards' last)."""
     dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab)
     tr = Trainer(cfg, 1, dcfg, LoopConfig(steps=steps, sync="psum"),
                  opt=AdamWConfig(total_steps=steps, **TRAIN_OPT),
@@ -3993,16 +4213,12 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
     params, state = tr.run(0)
     run_s = time.perf_counter() - t0
     got = counted()
-    want = {"silu_gate": 2 * cfg.n_layers * steps,
-            "silu_gate_bwd": cfg.n_layers * steps,
-            "flash_fwd": 2 * cfg.n_layers * steps,
-            "flash_bwd": cfg.n_layers * steps, "rf_predict": 0,
-            "quantize": 0, "dequantize": 0, "ssd_chunk": 0, "silu": 0}
+    want = train_launches(cfg, cfg.n_layers * steps)
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}: under "
-                             f"per-layer remat the gate and flash's forward "
-                             f"run twice a layer a step (forward, "
-                             f"recompute), their backwards once")
+                             f"per-layer remat each forward kernel runs "
+                             f"twice a layer a step (forward, recompute), "
+                             f"each backward once")
     losses = [h["loss"] for h in tr.history]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train losses {losses}: not finite, or no fall")
@@ -4032,12 +4248,18 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
         prof["wall_ms"] = wall
         res["profile"] = prof
     seen = {}
-    with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd",
-                                          "flash_fwd", "flash_bwd")):
-        step_fn(params, state, next(data))
-    res["fwd_call"] = seen["silu_gate"]
-    res["bwd_args"] = seen["silu_gate_bwd"][0]
-    res["flash_args"] = (seen["flash_fwd"][0], seen["flash_bwd"][0])
+    if cfg.family == "dense":
+        with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd",
+                                              "flash_fwd", "flash_bwd")):
+            step_fn(params, state, next(data))
+        res["fwd_call"] = seen["silu_gate"]
+        res["bwd_args"] = seen["silu_gate_bwd"][0]
+        res["flash_args"] = (seen["flash_fwd"][0], seen["flash_bwd"][0])
+    else:
+        with patched(ops, first_calls(seen), SSM_FWD), \
+                patched(ops, first_calls(seen, "last"), SSM_BWD):
+            step_fn(params, state, next(data))
+        res["layer0"] = {n: seen[n][0] for n in SSM_FWD + SSM_BWD}
     del tr, params, state, step_fn
     return res
 
@@ -4052,12 +4274,14 @@ def step_parity(cfg, dev) -> dict:
     step moves each element by lr times its gradient's sign, which the
     sum order cannot flip): within 1e-6 relative plus a thousandth of
     the step's lr (eps = 1e-8 lets a small gradient's error reach the
-    update)."""
+    update). The card's first calls of the family's backward kernels
+    (f32) are held to their plain versions: dense `flash_fwd` /
+    `flash_bwd`, ssm `ssd_chunk_bwd` (part (5))."""
     t0 = time.perf_counter()
     seq = PARITY_SEQ.get(cfg.arch_id, PARITY_SEQ_OTHER)
     card = registry.build_model(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    host = DenseLM(cfg, torch.device("cpu"), torch.float32)
+    host = lm_mod.model_class(cfg)(cfg, torch.device("cpu"), torch.float32)
     host.load_state_dict(card.state_dict())
     trees = {"card": stack_layers(param_tree(card)),
              "host": stack_layers(param_tree(host))}
@@ -4069,8 +4293,9 @@ def step_parity(cfg, dev) -> dict:
     for name, params in trees.items():
         t1 = time.perf_counter()
         dev_b = as_batch(b, params["embed"].device)
-        with patched(ops, first_card_calls(seen), ("flash_fwd",
-                                                   "flash_bwd")):
+        with patched(ops, first_card_calls(seen), (
+                ("flash_fwd", "flash_bwd") if cfg.family == "dense" else
+                ("ssd_chunk_bwd",))):
             _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32,
                                                "full")(params, dev_b)
         grads[name] = tree_map(lambda t: t.cpu(), g)
@@ -4110,14 +4335,17 @@ def step_parity(cfg, dev) -> dict:
             raise AssertionError(f"{cfg.arch_id} {path}: parameter after "
                                  f"AdamW off by {excess:.3g} lr beyond 1e-6 "
                                  f"relative")
-    flash = {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
-             "bwd": check_flash_bwd(seen["flash_bwd"][0])}
+    if cfg.family == "dense":
+        checks = {"flash": {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
+                            "bwd": check_flash_bwd(seen["flash_bwd"][0])}}
+    else:
+        checks = {"ssd_chunk_bwd": check_ssd_bwd(seen["ssd_chunk_bwd"][0])}
     del seen
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {**worst, "layers": cfg.n_layers, "batch": PARITY_BATCH,
             "seq": seq, "card_s": secs["card"], "host_s": secs["host"],
-            "flash": flash, "s": time.perf_counter() - t0}
+            **checks, "s": time.perf_counter() - t0}
 
 
 def tree_items(tree, prefix=""):
@@ -4319,12 +4547,9 @@ def train_pods(cfg, dev, forest, steps: int = POD_STEPS,
     predictions = int(tr.controller.metrics.counters()["replans_total"])
     quant = sum(sync_launches(c["plan"], c["shapes"], True)
                 for c in tap.calls)
-    want = {"silu_gate": 2 * cfg.n_layers * N_PODS * executed,
-            "silu_gate_bwd": cfg.n_layers * N_PODS * executed,
-            "flash_fwd": 2 * cfg.n_layers * N_PODS * executed,
-            "flash_bwd": cfg.n_layers * N_PODS * executed,
-            "rf_predict": predictions, "quantize": quant,
-            "dequantize": quant, "ssd_chunk": 0, "silu": 0}
+    want = train_launches(cfg, cfg.n_layers * N_PODS * executed,
+                          rf_predict=predictions, quantize=quant,
+                          dequantize=quant)
     problems = []
     if got != want:
         problems.append(f"launches {got}, expected {want}")
@@ -4379,22 +4604,14 @@ def train_pods(cfg, dev, forest, steps: int = POD_STEPS,
     return res
 
 
-def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
-                parity_cfgs=None) -> dict:
-    """The train phase (see the head comment); every check fatal. The
-    configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
-    POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32)."""
-    t_phase = time.perf_counter()
-    # the reference training CLI's forest (src/repro/launch/train.py)
-    forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
-    cfg = cfg or get_config(TRAIN_ARCH)
-    single = train_single(cfg, dev)
-    log(f"[train] {cfg.arch_id} {cfg.n_layers} layers ({single['params']} "
-        f"params), B={single['batch']} S={single['seq']}, {single['steps']} "
-        f"steps psum, remat full: step ms median "
-        f"{single['step_ms_median']:.2f}, p90 {single['step_ms_p90']:.2f} "
-        f"(first {single['step_ms'][0]:.1f}); {single['tokens_per_s']:.1f} "
-        f"tokens/s; peak device memory "
+def log_single(single: dict, smi: str) -> None:
+    """The log lines of a `train_single` run and its profile."""
+    log(f"[train] {single['arch']} {single['layers']} layers "
+        f"({single['params']} params), B={single['batch']} "
+        f"S={single['seq']}, {single['steps']} steps psum, remat full: step "
+        f"ms median {single['step_ms_median']:.2f}, p90 "
+        f"{single['step_ms_p90']:.2f} (first {single['step_ms'][0]:.1f}); "
+        f"{single['tokens_per_s']:.1f} tokens/s; peak device memory "
         f"{(single['peak_bytes'] or 0) / 2**30:.3f} GiB; losses "
         + ", ".join(f"{x:.4f}" for x in single["losses"])
         + f"; launches {single['launches']} | {smi}")
@@ -4404,6 +4621,94 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
             f"{pr['device_ms']:.2f} ms of a {pr['wall_ms']:.2f} ms step "
             f"({pr['busy_share']:.1%} busy); by kind " + ", ".join(
                 f"{k} {v:.2f}" for k, v in pr["by_kind"].items()))
+
+
+def log_parity(p: dict) -> None:
+    """The log line of a `step_parity` run."""
+    if "flash" in p:
+        checked = (f"flash_fwd / flash_bwd {p['flash']['fwd']['shape']} f32 "
+                   f"against plain: out {p['flash']['fwd']['out']['err']:.3g}"
+                   + ", " + ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
+                                      for n in ("dq", "dk", "dv")))
+    else:
+        c = p["ssd_chunk_bwd"]
+        checked = (f"ssd_chunk_bwd {c['shape']} f32 against plain: " +
+                   ", ".join(f"{n} {c[n]:.3g}" for n in ("dx", "dB", "dC",
+                                                          "dda")))
+    log(f"[train] step parity {p['arch']} {p['layers']} layers f32, "
+        f"B={p['batch']} S={p['seq']} (card {p['card_s']:.1f} s, host "
+        f"{p['host_s']:.1f} s): loss {p['loss']:.3g} relative, gradients "
+        f"within {p['grad']:.3g} of each leaf's max |g| (limit "
+        f"{GRAD_PARITY_TOL}), parameters after AdamW within 1e-6 relative "
+        f"+ {p['param']:.3g} lr where |g| is clear of 0 (limit 1e-3 lr); "
+        f"{checked} of the tolerance; {p['s']:.1f} s")
+
+
+def ssm_train(cfg, dev, smi: str, parity_cfg=None) -> dict:
+    """Part (5): the ssm family trained as part (1) trains the dense one
+    (`train_single`, its exact counts), then its three backward kernels
+    against their plain versions on layer 0's inputs of one more step
+    (two calls each, bit-equal), timed beside their bounds and plain
+    versions, and one card-against-host step (`step_parity`) of
+    `parity_cfg` (default: cfg at PARITY_LAYERS, f32)."""
+    t0 = time.perf_counter()
+    single = train_single(cfg, dev)
+    log_single(single, smi)
+    calls = single.pop("layer0")
+    args = calls.pop("ssd_chunk_bwd")
+    k = single["ssd_chunk_bwd"] = {"check": check_ssd_bwd(args)}
+    if dev.type == "cuda":
+        k["timing"] = t = time_ssd_bwd(args)
+        log(f"[train] ssd_chunk_bwd {k['check']['shape']} "
+            f"{k['check']['dtype']} at layer 0: within {SSD_BWD_TOL} of each "
+            f"output's max |g| of plain (share of the tolerance: " +
+            ", ".join(f"{n} {k['check'][n]:.3g}" for n in ("dx", "dB", "dC",
+                                                          "dda")) +
+            f"), two calls equal bit for bit; kernels {t['ms']:.4f} ms "
+            f"(device, events over 10 calls) | wrapper call "
+            f"{t['wrapper_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+            f"B, {t['ops']} ops) | library call: none (no single PyTorch "
+            f"call computes the SSD chunk's gradient) | {smi}")
+    del args
+    for name in ("silu_bwd", "silu_gate_prod_bwd"):
+        args = calls.pop(name)
+        k = single[name] = {"max_abs_err": check_silu_bwd(name, args)}
+        if dev.type == "cuda":
+            k["timing"] = t = time_silu_bwd(name, args)
+            log(f"[train] {name} {t['shape']} {t['dtype']} (strides "
+                f"{t['strides']}) at layer 0: bit-equal to plain, two calls "
+                f"equal; kernel {t['ms']:.5f} ms (device, graph of 20 "
+                f"calls) | wrapper call {t['wrapper_ms']:.5f} ms | plain "
+                f"{t['plain_ms']:.5f} ms | bound {t['bound_ms']:.5f} ms by "
+                f"{t['bound_by']} ({t['bytes']} B) | library call: "
+                f"{lib_text(t)} | {smi}")
+        del args
+    del calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = single["parity"] = step_parity(
+        parity_cfg or cfg.replace(n_layers=PARITY_LAYERS, dtype="float32"),
+        dev)
+    log_parity({**p, "arch": cfg.arch_id})
+    single["s"] = time.perf_counter() - t0
+    log(f"[train] part (5) {cfg.arch_id}: {single['s']:.1f} s")
+    return single
+
+
+def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
+                ssm_cfg=None, ssm_parity_cfg=None) -> dict:
+    """The train phase (see the head comment); every check fatal. The
+    configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
+    POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32;
+    `ssm_cfg`: SSM_TRAIN_ARCH; `ssm_parity_cfg`: it at PARITY_LAYERS,
+    f32)."""
+    t_phase = time.perf_counter()
+    # the reference training CLI's forest (src/repro/launch/train.py)
+    forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
+    cfg = cfg or get_config(TRAIN_ARCH)
+    single = train_single(cfg, dev)
+    log_single(single, smi)
     fwd_args, fwd_kw = single.pop("fwd_call")
     single["silu_gate"] = {"max_abs_err": check_silu("silu_gate", fwd_args,
                                                      fwd_kw),
@@ -4448,17 +4753,7 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
     for pcfg in parity_cfgs or [get_config(a).replace(
             n_layers=PARITY_LAYERS, dtype="float32") for a in DENSE_ARCHS]:
         parity[pcfg.arch_id] = p = step_parity(pcfg, dev)
-        log(f"[train] step parity {pcfg.arch_id} {pcfg.n_layers} layers f32, "
-            f"B={p['batch']} S={p['seq']} (card {p['card_s']:.1f} s, host "
-            f"{p['host_s']:.1f} s): loss {p['loss']:.3g} relative, "
-            f"gradients within {p['grad']:.3g} of each leaf's max |g| "
-            f"(limit {GRAD_PARITY_TOL}), parameters after AdamW within "
-            f"1e-6 relative + {p['param']:.3g} lr where |g| is clear of 0 "
-            f"(limit 1e-3 lr); flash_fwd / flash_bwd {p['flash']['fwd']['shape']}"
-            f" f32 against plain: out {p['flash']['fwd']['out']['err']:.3g}, "
-            + ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
-                        for n in ("dq", "dk", "dv"))
-            + f" of the tolerance; {p['s']:.1f} s")
+        log_parity({**p, "arch": pcfg.arch_id})
     pod_cfg = pod_cfg or cfg.replace(n_layers=POD_LAYERS)
     pods = train_pods(pod_cfg, dev, forest)
     log(f"[train] 4-pod WANify {pod_cfg.arch_id} {pod_cfg.n_layers} of "
@@ -4486,8 +4781,12 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None,
         f"{hs['s']:.1f} s); rf_predict bit-equal to plain on all "
         f"{pods['rf_predict_checked']} feature matrices the controller "
         f"predicted from")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ssm_part = ssm_train(ssm_cfg or get_config(SSM_TRAIN_ARCH), dev, smi,
+                         ssm_parity_cfg)
     out = {"single": single, "parity": parity, "pods": pods,
-           "s": time.perf_counter() - t_phase}
+           "ssm": ssm_part, "s": time.perf_counter() - t_phase}
     log(f"[train] phase {out['s']:.2f} s")
     return out
 
@@ -4651,6 +4950,14 @@ def main() -> int:
     if counts["HGMMA"] == 0:
         raise AssertionError("no HGMMA instruction in ssd_chunk's SASS: "
                              "the tensor-core kernel is not in the binary")
+    # the backward's four kernels (CUDA cores): registers and spills
+    bwd_spills = {n: report.get(n) for n in ssd_scan.BWD_KERNELS
+                  if "registers" not in report.get(n, {}) or
+                  report[n].get("spill_stores") or
+                  report[n].get("spill_loads")}
+    if bwd_spills:
+        raise AssertionError(f"ssd_chunk's backward kernels missing from "
+                             f"ptxas's report or spilling: {bwd_spills}")
     q_report = ptxas_report(texts["quantize"], QUANT_KERNELS)
     for name in QUANT_KERNELS:
         log(f"[build] quantize: {name}: " + ", ".join(
@@ -4923,8 +5230,7 @@ def main() -> int:
             f"host issue {t['host_us']:.2f} us a call (plain "
             f"{t['plain_host_us']:.2f}) | "
             f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
-            f"B) | library call: none (F.silu rounds once; this rounds "
-            f"each op as the reference's compiled program does)")
+            f"B) | library call: {lib_text(t)}")
     results["silu"] = {"cases": silu_cases, "timing": silu_timing}
 
     # 7. serve: the slice's main path, counts zeroed just before it
@@ -5175,6 +5481,7 @@ def main() -> int:
     tb = train["single"]["silu_gate_bwd"]["timing"]
     ff = dense["serve"]["flash_fwd"]
     fb = train["single"]["flash_bwd"]
+    st = train["ssm"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -5205,7 +5512,7 @@ def main() -> int:
         "plain_ms": silu_timing[f"{kname}_prefill1"]["plain_ms"],
         "bound_ms": silu_timing[f"{kname}_prefill1"]["bound_ms"],
         "bound_by": silu_timing[f"{kname}_prefill1"]["bound_by"],
-        "library_ms": None}
+        "library_ms": silu_timing[f"{kname}_prefill1"]["library_ms"]}
         for kname, line in (("silu", 137), ("silu_gate", 152))] + [{
         "name": "silu_gate (dense MLP)", "route": "cuda",
         "source": "src/repro_torch/csrc/silu.cu",
@@ -5243,6 +5550,20 @@ def main() -> int:
         "bound_ms": fb["timing"]["bound_ms"],
         "bound_by": fb["timing"]["bound_by"],
         "library_ms": fb["timing"]["library_ms"]}] + [{
+        "name": kname, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{src}",
+        "replaces": f"src/repro/models/ssm.py:{line}",
+        "launches": st["launches"][kname],
+        "max_abs_err": st[kname]["check"]["max_abs_err"]
+        if kname == "ssd_chunk_bwd" else st[kname]["max_abs_err"],
+        "ms": st[kname]["timing"]["ms"],
+        "plain_ms": st[kname]["timing"]["plain_ms"],
+        "bound_ms": st[kname]["timing"]["bound_ms"],
+        "bound_by": st[kname]["timing"]["bound_by"],
+        "library_ms": st[kname]["timing"]["library_ms"]}
+        for kname, src, line in (("ssd_chunk_bwd", "ssd_chunk.cu", 59),
+                                 ("silu_bwd", "silu.cu", 137),
+                                 ("silu_gate_prod_bwd", "silu.cu", 152))] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:56",

@@ -1,6 +1,6 @@
-// Mamba-2's two SiLU gates and the SwiGLU gate's gradient, rounded where
-// the JAX package's compiled CPU program rounds them, for Hopper
-// (sm_90a).
+// Mamba-2's two SiLU gates, the SwiGLU gate, and their gradients,
+// rounded where the JAX package's compiled CPU program rounds them, for
+// Hopper (sm_90a).
 //
 // The JAX package has no kernel here: src/repro/models/ssm.py calls
 // jax.nn.silu on the causal conv's output (:137, :184) and on the gate z
@@ -31,8 +31,20 @@
 //    derivative of the logistic stays the product rule's two terms, as
 //    XLA keeps them. 10 bytes an element in bf16 (g, y, z in; dy, dz
 //    out); the plain version is kernels/ref.py::silu_gate_bwd_ref.
+//    The same kernel is two more gradients, by its null pointers:
+//    - SiLU's (src/repro/models/ssm.py:137): no y and no dy. The
+//      compiled `jax.vjp(jax.nn.silu)` rounds as dz above with y = 1
+//      (g * 1 is g): dx = g*s + (x*g) * (s*(1 - s)). 6 bytes an
+//      element in bf16; plain version silu_bwd_ref.
+//    - the SSM gate's, both outputs of silu_gate_kernel
+//      (src/repro/models/ssm.py:152, rms_norm(y * silu(z))): with gf,
+//      the f32 product's cotangent (the norm's variance path), the
+//      cotangent of the product is g = rnd(g + rnd(gf)): XLA rounds
+//      the variance path's cotangent to T before it adds the value
+//      path's, then rounds the sum. 14 bytes an element in bf16 (g,
+//      gf, y, z in; dy, dz out); plain version silu_gate_prod_bwd_ref.
 //
-// All three are elementwise and read their inputs once: bound by bytes. On
+// All are elementwise and read their inputs once: bound by bytes. On
 // bf16 (the serve model's prefill) a thread takes 4 elements of each
 // input with one 8-byte load where the rows allow (unit stride, a
 // multiple of 4 wide, 8-byte aligned), else one element; f32 inputs (a
@@ -150,10 +162,13 @@ silu_gate_kernel(const T* __restrict__ y, long long ldy, long long incy,
 }
 
 // g, y, z [rows, d], each rows `ld*` apart and elements `inc*` apart ->
-// dy, dz [rows, d] in T, dense
+// dy, dz [rows, d] in T, dense. gf [rows, d] f32, dense, is added to g
+// where it is not null; a null y reads as 1 (SiLU's gradient), and a
+// null dy is not stored.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 silu_gate_bwd_kernel(const T* __restrict__ g, long long ldg, long long incg,
+                     const float* __restrict__ gf,
                      const T* __restrict__ y, long long ldy, long long incy,
                      const T* __restrict__ z, long long ldz, long long incz,
                      T* __restrict__ dy, T* __restrict__ dz, long long rows,
@@ -165,28 +180,35 @@ silu_gate_bwd_kernel(const T* __restrict__ g, long long ldg, long long incg,
          c < cols; c += static_cast<long long>(gridDim.x) * kThreads) {
       const Vec<T, V> gv =
           *reinterpret_cast<const Vec<T, V>*>(g + r * ldg + c * V * incg);
-      const Vec<T, V> yv =
-          *reinterpret_cast<const Vec<T, V>*>(y + r * ldy + c * V * incy);
       const Vec<T, V> zv =
           *reinterpret_cast<const Vec<T, V>*>(z + r * ldz + c * V * incz);
+      Vec<float, V> gfv;
+      if (gf != nullptr)
+        gfv = *reinterpret_cast<const Vec<float, V>*>(gf + r * d + c * V);
+      Vec<T, V> yv;
+      if (y != nullptr)
+        yv = *reinterpret_cast<const Vec<T, V>*>(y + r * ldy + c * V * incy);
       Vec<T, V> dyv, dzv;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float gi = to_f32(gv.v[i]);
+        float gi = to_f32(gv.v[i]);
+        if (gf != nullptr) gi = rnd<T>(__fadd_rn(gi, rnd<T>(gfv.v[i])));
         const float zi = to_f32(zv.v[i]);
         const float e = rnd<T>(expf(-zi));
         const float u = rnd<T>(__fadd_rn(1.0f, e));
         const float s = rnd<T>(__fdiv_rn(1.0f, u));
         const float silu = rnd<T>(__fmul_rn(zi, s));
         dyv.v[i] = from_f32<T>(__fmul_rn(gi, silu));
-        const float gy = rnd<T>(__fmul_rn(gi, to_f32(yv.v[i])));
+        const float gy =
+            y != nullptr ? rnd<T>(__fmul_rn(gi, to_f32(yv.v[i]))) : gi;
         const float t1 = rnd<T>(__fmul_rn(gy, s));
         const float zg = rnd<T>(__fmul_rn(zi, gy));
         const float ds = rnd<T>(__fmul_rn(s, rnd<T>(__fsub_rn(1.0f, s))));
         const float t2 = rnd<T>(__fmul_rn(zg, ds));
         dzv.v[i] = from_f32<T>(__fadd_rn(t1, t2));
       }
-      *reinterpret_cast<Vec<T, V>*>(dy + r * d + c * V) = dyv;
+      if (dy != nullptr)
+        *reinterpret_cast<Vec<T, V>*>(dy + r * d + c * V) = dyv;
       *reinterpret_cast<Vec<T, V>*>(dz + r * d + c * V) = dzv;
     }
   }
@@ -242,24 +264,27 @@ void silu_gate(const void* y, long long ldy, long long incy, const void* z,
 }
 
 template <typename T>
-void silu_gate_bwd(const void* g, long long ldg, long long incg, const void* y,
-                   long long ldy, long long incy, const void* z,
-                   long long ldz, long long incz, void* dy, void* dz,
-                   long long rows, long long d, cudaStream_t st) {
+void silu_gate_bwd(const void* g, long long ldg, long long incg,
+                   const float* gf, const void* y, long long ldy,
+                   long long incy, const void* z, long long ldz,
+                   long long incz, void* dy, void* dz, long long rows,
+                   long long d, cudaStream_t st) {
   const T* gt = static_cast<const T*>(g);
   const T* yt = static_cast<const T*>(y);
   const T* zt = static_cast<const T*>(z);
   T* dyt = static_cast<T*>(dy);
   T* dzt = static_cast<T*>(dz);
-  if (use_vec<T>(d, ldg, incg, g) && use_vec<T>(d, ldy, incy, y) &&
+  // a null pointer is aligned and has no strides to check
+  if (use_vec<T>(d, ldg, incg, g) &&
+      (y == nullptr || use_vec<T>(d, ldy, incy, y)) &&
       use_vec<T>(d, ldz, incz, z) && aligned(dy, sizeof(T) * kVec<T>) &&
-      aligned(dz, sizeof(T) * kVec<T>))
+      aligned(dz, sizeof(T) * kVec<T>) && aligned(gf, 4 * kVec<T>))
     silu_gate_bwd_kernel<T, kVec<T>>
         <<<grid_of(rows, d / kVec<T>), kThreads, 0, st>>>(
-            gt, ldg, 1, yt, ldy, 1, zt, ldz, 1, dyt, dzt, rows, d);
+            gt, ldg, 1, gf, yt, ldy, 1, zt, ldz, 1, dyt, dzt, rows, d);
   else
     silu_gate_bwd_kernel<T, 1><<<grid_of(rows, d), kThreads, 0, st>>>(
-        gt, ldg, incg, yt, ldy, incy, zt, ldz, incz, dyt, dzt, rows, d);
+        gt, ldg, incg, gf, yt, ldy, incy, zt, ldz, incz, dyt, dzt, rows, d);
 }
 
 }  // namespace
@@ -267,7 +292,8 @@ void silu_gate_bwd(const void* g, long long ldg, long long incg, const void* y,
 // dtype: 0 = f32, 1 = bf16. Each returns cudaGetLastError() (0 =
 // launched). The caller checks shapes, types, rows >= 1 and d >= 1;
 // the outputs are dense and do not overlap the inputs; silu_gate's prod
-// may be null.
+// may be null, and so may silu_gate_bwd's gf (dense f32), y (then 1)
+// and dy (then not stored).
 extern "C" int silu_launch(const void* x, long long ldx, long long incx,
                            void* out, long long rows, long long d, int dtype,
                            void* stream) {
@@ -297,19 +323,20 @@ extern "C" int silu_gate_launch(const void* y, long long ldy, long long incy,
 }
 
 extern "C" int silu_gate_bwd_launch(const void* g, long long ldg,
-                                    long long incg, const void* y,
-                                    long long ldy, long long incy,
-                                    const void* z, long long ldz,
-                                    long long incz, void* dy, void* dz,
-                                    long long rows, long long d, int dtype,
-                                    void* stream) {
+                                    long long incg, const void* gf,
+                                    const void* y, long long ldy,
+                                    long long incy, const void* z,
+                                    long long ldz, long long incz, void* dy,
+                                    void* dz, long long rows, long long d,
+                                    int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* gff = static_cast<const float*>(gf);
   if (dtype == 0)
-    silu_gate_bwd<float>(g, ldg, incg, y, ldy, incy, z, ldz, incz, dy, dz,
-                         rows, d, st);
+    silu_gate_bwd<float>(g, ldg, incg, gff, y, ldy, incy, z, ldz, incz, dy,
+                         dz, rows, d, st);
   else if (dtype == 1)
-    silu_gate_bwd<__nv_bfloat16>(g, ldg, incg, y, ldy, incy, z, ldz, incz,
-                                 dy, dz, rows, d, st);
+    silu_gate_bwd<__nv_bfloat16>(g, ldg, incg, gff, y, ldy, incy, z, ldz,
+                                 incz, dy, dz, rows, d, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -899,6 +899,468 @@ int launch_wgmma(const void* x, const void* Bm, const void* Cm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ======================================================================
+// The backward (ssd_chunk_bwd): CUDA-core kernels, f32 arithmetic
+// ======================================================================
+// For each (b, c, h), with cum, L (zero above the diagonal), G = C B^T,
+// S = G o L and r[k] = exp(cum[Q-1] - cum[k]) as the forward takes
+// them, and the cotangents dy [Q,P] of y and dst [P,N] of the states:
+//   dS = (dy x^T) masked causal        dx = S^T dy + r o (B dst^T)
+//   dG = sum_h dS o L                  dC = dG B
+//   dB = dG^T C + sum_h r o (x dst)
+//   E = dS o S; rho[k] = r[k] sum_p x[k,p] (B dst^T)[k,p]
+//   dcum[q] = sum_k E[q,k] - sum_q' E[q',q] - rho[q]
+//             + [q = Q-1] sum_k rho[k];  dda = reverse cumsum of dcum.
+// Four kernels, one launch each, nothing summed by atomics (two calls
+// give the same bits):
+//  1. ssd_bwd_cb_kernel: G = C B^T per (b*c), the causal 64x64 tiles,
+//     into scratch (f32), computed once for all heads;
+//  2. ssd_bwd_head_kernel: one block per (b*c, h), k-tiles outer,
+//     q-tiles >= k inner: dS, S, dx (final), the head's dS o L tiles
+//     and r o (x dst) into scratch, dcum from E's row and column sums
+//     and rho, and dda (final) by the reverse scan;
+//  3. ssd_bwd_sum_kernel: the head sums of dG and of r o (x dst), each
+//     element's heads added in order 0..H-1 by one thread (dG into the
+//     C B^T buffer, the other into head 0's slab);
+//  4. ssd_bwd_bc_kernel: dC = dG B and dB = dG^T C + that sum, one
+//     block per (b*c, 64-row tile, which).
+// dx, dB and dC are rounded once from f32 to the input dtype; every
+// decay factor and sum is f32. A 256x256 f32 score tile does not fit a
+// block's shared memory, so Q runs in 64-row tiles (as the f32 forward
+// kernels). At the train shape (B=4, nC=4, Q=256, H=80, P=64, N=128)
+// the scratch is 4 MB (C B^T), 335 MB (dS o L per head) and 168 MB.
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+constexpr int kXS = kMaxP + 1;   // row stride of x / dy tiles (floats)
+constexpr int kNS = kMaxN + 1;   // row stride of B / dst tiles
+constexpr int kTS = kTile + 1;   // row stride of 64x64 tiles
+
+size_t bwd_head_smem_bytes(int Q) {
+  return sizeof(float) *
+         (static_cast<size_t>(3) * Q + 2 * kTile * kXS + 2 * kTile * kTS +
+          kTile * kNS + kMaxP * kNS + kTile);
+}
+
+size_t bwd_cb_smem_bytes() {
+  return sizeof(float) * 2 * kTile * kNS;
+}
+
+size_t bwd_bc_smem_bytes() {
+  return sizeof(float) * (static_cast<size_t>(kTile) * kTS + kTile * kMaxN);
+}
+
+// G[bc][q][k] = sum_n C[q,n] B[k,n] for the causal tiles:
+// blockIdx = (b*c, q-tile, k-tile), upper tiles return at once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                  float* __restrict__ G, int Q, int N) {
+  const int qt = blockIdx.y, kt = blockIdx.z;
+  if (kt > qt) return;
+  extern __shared__ float smem[];
+  float* Cs = smem;                     // [kTile][kNS]
+  float* Bs = Cs + kTile * kNS;         // [kTile][kNS]
+  const size_t bc = blockIdx.x;
+  const int q0 = qt * kTile, k0 = kt * kTile;
+  const int nq = min(kTile, Q - q0), nk = min(kTile, Q - k0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int i = threadIdx.x; i < kTile * N; i += kThreads) {
+    const int r = i / N, n = i - r * N;
+    Cs[r * kNS + n] = r < nq ? to_f32(Cm[(bc * Q + q0 + r) * N + n]) : 0.0f;
+    Bs[r * kNS + n] = r < nk ? to_f32(Bm[(bc * Q + k0 + r) * N + n]) : 0.0f;
+  }
+  __syncthreads();
+  float s[4][4] = {};
+  for (int n = 0; n < N; ++n) {
+    float c[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = Cs[(ty + 16 * i) * kNS + n];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bs[(tx + 16 * j) * kNS + n];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(c[i], b[j], s[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + ty + 16 * i;
+    if (q >= Q) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + tx + 16 * j;
+      if (k < Q) G[(bc * Q + q) * Q + k] = s[i][j];
+    }
+  }
+}
+
+// sum over the 16 lanes of a half-warp (a thread row), xor order
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One (b*c, h): blockIdx = (b*c, h). See the section's head comment.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_head_kernel(const T* __restrict__ x,        // [BC, Q, H, P]
+                    const T* __restrict__ Bm,       // [BC, Q, N]
+                    const float* __restrict__ da,   // [BC, H, Q]
+                    const float* __restrict__ dy,   // [BC, Q, H, P]
+                    const float* __restrict__ dst,  // [BC, H, P, N]
+                    const float* __restrict__ G,    // [BC, Q, Q]
+                    T* __restrict__ dx,             // [BC, Q, H, P]
+                    float* __restrict__ dGh,        // [BC, H, Q, Q]
+                    float* __restrict__ dB2h,       // [BC, H, Q, N]
+                    float* __restrict__ dda,        // [BC, H, Q]
+                    int Q, int H, int P, int N) {
+  extern __shared__ float smem[];
+  float* cum = smem;                    // [Q]
+  float* rr = cum + Q;                  // [Q]: r
+  float* dcum = rr + Q;                 // [Q]
+  float* xs = dcum + Q;                 // [kTile][kXS]
+  float* dys = xs + kTile * kXS;        // [kTile][kXS]
+  float* Ss = dys + kTile * kXS;        // [kTile][kTS]: S, then E's sums
+  float* Es = Ss + kTile * kTS;         // [kTile][kTS]: E
+  float* Bs = Es + kTile * kTS;         // [kTile][kNS]
+  float* ds = Bs + kTile * kNS;         // [kMaxP][kNS]: dst
+  float* rho = ds + kMaxP * kNS;        // [kTile]
+  const size_t bc = blockIdx.x;
+  const int h = blockIdx.y;
+  const size_t bch = bc * H + h;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nT = (Q + kTile - 1) / kTile;
+
+  chunk_cumsum(da + bch * Q, cum, Q);
+  const float last = cum[Q - 1];
+  for (int i = tid; i < Q; i += kThreads) {
+    rr[i] = expf(last - cum[i]);
+    dcum[i] = 0.0f;
+  }
+  for (int i = tid; i < P * N; i += kThreads) {
+    const int p = i / N, n = i - p * N;
+    ds[p * kNS + n] = dst[bch * P * N + i];
+  }
+  float rho_sum = 0.0f;                 // thread 0's, in k order
+
+  for (int kt = 0; kt < nT; ++kt) {
+    const int k0 = kt * kTile, nk = min(kTile, Q - k0);
+    __syncthreads();                    // the last tile is consumed
+    for (int i = tid; i < kTile * P; i += kThreads) {
+      const int r = i / P, p = i - r * P;
+      xs[r * kXS + p] =
+          r < nk ? to_f32(x[((bc * Q + k0 + r) * H + h) * P + p]) : 0.0f;
+    }
+    for (int i = tid; i < kTile * N; i += kThreads) {
+      const int r = i / N, n = i - r * N;
+      Bs[r * kNS + n] = r < nk ? to_f32(Bm[(bc * Q + k0 + r) * N + n]) : 0.0f;
+    }
+    float adx[4][4] = {};               // dx[k0 + ty + 16i][tx + 16j]
+    for (int qt = kt; qt < nT; ++qt) {
+      const int q0 = qt * kTile, nq = min(kTile, Q - q0);
+      __syncthreads();                  // dys, Ss, Es free
+      for (int i = tid; i < kTile * P; i += kThreads) {
+        const int r = i / P, p = i - r * P;
+        dys[r * kXS + p] =
+            r < nq ? dy[((bc * Q + q0 + r) * H + h) * P + p] : 0.0f;
+      }
+      __syncthreads();
+      // dS[q,k] = sum_p dy[q,p] x[k,p]: q = ty + 16i, k = tx + 16j
+      float dsv[4][4] = {};
+      for (int p = 0; p < P; ++p) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = dys[(ty + 16 * i) * kXS + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = xs[(tx + 16 * j) * kXS + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dsv[i][j] = fmaf(a[i], b[j], dsv[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = q0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = k0 + tx + 16 * j;
+          // zero every k > q term before it is multiplied
+          const bool ok = q < Q && k <= q;
+          const float l = ok ? expf(cum[q] - cum[k]) : 0.0f;
+          const float s = ok ? G[(bc * Q + q) * Q + k] * l : 0.0f;
+          const float d = ok ? dsv[i][j] : 0.0f;
+          Ss[(ty + 16 * i) * kTS + tx + 16 * j] = s;
+          Es[(ty + 16 * i) * kTS + tx + 16 * j] = d * s;
+          if (q < Q && k < Q) dGh[(bch * Q + q) * Q + k] = d * l;
+        }
+      }
+      __syncthreads();
+      // dx[k,p] += sum_q S[q,k] dy[q,p]: k = ty + 16i, p = tx + 16j
+      for (int q = 0; q < nq; ++q) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = Ss[q * kTS + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = dys[q * kXS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) adx[i][j] = fmaf(a[i], b[j], adx[i][j]);
+      }
+      // E's row sums (threads 0-63) and column sums (64-127), in order
+      float e = 0.0f;
+      if (tid < kTile) {
+        for (int c = 0; c < kTile; ++c) e += Es[tid * kTS + c];
+      } else if (tid < 2 * kTile) {
+        for (int r = 0; r < kTile; ++r) e += Es[r * kTS + tid - kTile];
+      }
+      __syncthreads();                  // Ss and Es read
+      if (tid < 2 * kTile) Ss[tid] = e;
+      __syncthreads();
+      if (tid < kTile && q0 + tid < Q) dcum[q0 + tid] += Ss[tid];
+      __syncthreads();                  // a diagonal tile's rows first
+      if (tid < kTile && k0 + tid < Q) dcum[k0 + tid] -= Ss[kTile + tid];
+    }
+    // the states' terms: BdT[k,p] = sum_n B[k,n] dst[p,n]
+    float bd[4][4] = {};
+    for (int n = 0; n < N; ++n) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Bs[(ty + 16 * i) * kNS + n];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ds[(tx + 16 * j) * kNS + n];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bd[i][j] = fmaf(a[i], b[j], bd[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + ty + 16 * i;
+      const float rk = k < Q ? rr[k] : 0.0f;
+      float part = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = tx + 16 * j;
+        if (p < P) {
+          adx[i][j] = fmaf(rk, bd[i][j], adx[i][j]);
+          part = fmaf(xs[(ty + 16 * i) * kXS + p], bd[i][j], part);
+        }
+      }
+      part = half_warp_sum(part);
+      if (tx == 0) rho[ty + 16 * i] = rk * part;
+      if (k < Q) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = tx + 16 * j;
+          if (p < P) dx[((bc * Q + k) * H + h) * P + p] = from_f32<T>(adx[i][j]);
+        }
+      }
+    }
+    // r o (x dst)[k,n] = r[k] sum_p x[k,p] dst[p,n]: k = ty + 16i,
+    // n = tx + 16j
+    float xd[4][8] = {};
+    for (int p = 0; p < P; ++p) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[(ty + 16 * i) * kXS + p];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = ds[p * kNS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) xd[i][j] = fmaf(a[i], b[j], xd[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + ty + 16 * i;
+      if (k >= Q) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = tx + 16 * j;
+        if (n < N) dB2h[(bch * Q + k) * N + n] = rr[k] * xd[i][j];
+      }
+    }
+    __syncthreads();                    // rho written
+    if (tid < nk) dcum[k0 + tid] -= rho[tid];
+    if (tid == 0)
+      for (int i = 0; i < nk; ++i) rho_sum += rho[i];
+  }
+  __syncthreads();
+  if (tid == 0) dcum[Q - 1] += rho_sum;
+  __syncthreads();
+  // dda = the reverse cumulative sum of dcum, in chunk_cumsum's order
+  // over the reversed axis (warp 0)
+  if (tid < 32) {
+    float carry = 0.0f;
+    for (int base = 0; base < Q; base += 32) {
+      const int i = base + tid;
+      float v = i < Q ? dcum[Q - 1 - i] : 0.0f;
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, v, o);
+        if (tid >= o) v += t;
+      }
+      v += carry;
+      if (i < Q) dda[bch * Q + Q - 1 - i] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+}
+
+// The sums over heads, each element's heads in order by one thread:
+// dG (causal tiles) into G, r o (x dst) into head 0's slab of dB2h.
+// blockIdx = (element block, b*c).
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_sum_kernel(const float* __restrict__ dGh, float* __restrict__ dB2h,
+                   float* __restrict__ G, int Q, int H, int N) {
+  const size_t bc = blockIdx.y;
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const long long qq = static_cast<long long>(Q) * Q;
+  const long long qn = static_cast<long long>(Q) * N;
+  if (e < qq) {
+    const int q = static_cast<int>(e / Q), k = static_cast<int>(e % Q);
+    if (k / kTile > q / kTile) return;  // not a causal tile
+    const float* src = dGh + bc * H * qq + e;
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s += src[h * qq];
+    G[bc * qq + e] = s;
+  } else if (e < qq + qn) {
+    float* src = dB2h + bc * H * qn + (e - qq);
+    float s = 0.0f;
+    for (int h = 0; h < H; ++h) s += src[h * qn];
+    src[0] = s;
+  }
+}
+
+// dC for one q-tile (blockIdx.z = 0) or dB for one k-tile (1):
+// blockIdx = (b*c, tile, which). Outputs rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                  const float* __restrict__ dG,    // [BC, Q, Q] causal
+                  const float* __restrict__ dB2,   // [BC, H, Q, N]: h = 0
+                  T* __restrict__ dB, T* __restrict__ dC, int Q, int H,
+                  int N) {
+  extern __shared__ float smem[];
+  float* gs = smem;                     // [kTile][kTS]: a dG tile
+  float* vs = gs + kTile * kTS;         // [kTile][kMaxN]: B or C tile
+  const size_t bc = blockIdx.x;
+  const int t = blockIdx.y, nT = (Q + kTile - 1) / kTile;
+  const bool want_dC = blockIdx.z == 0;
+  const int r0 = t * kTile, nr = min(kTile, Q - r0);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const T* V = want_dC ? Bm : Cm;
+  float acc[4][8] = {};
+  // dC[q] = sum_{k <= q} dG[q,k] B[k]; dB[k] = sum_{q >= k} dG[q,k] C[q]
+  const int first = want_dC ? 0 : t, stop = want_dC ? t + 1 : nT;
+  for (int o = first; o < stop; ++o) {
+    const int o0 = o * kTile, no = min(kTile, Q - o0);
+    __syncthreads();
+    // gs[a][b]: dC: dG[r0 + a][o0 + b]; dB: dG[o0 + a][r0 + b]
+    const int qa = want_dC ? r0 : o0, ka = want_dC ? o0 : r0;
+    const int na = want_dC ? nr : no, nb = want_dC ? no : nr;
+    for (int i = tid; i < kTile * kTile; i += kThreads) {
+      const int a = i / kTile, b = i - a * kTile;
+      gs[a * kTS + b] =
+          a < na && b < nb ? dG[(bc * Q + qa + a) * Q + ka + b] : 0.0f;
+    }
+    for (int i = tid; i < kTile * N; i += kThreads) {
+      const int a = i / N, n = i - a * N;
+      vs[a * kMaxN + n] =
+          a < no ? to_f32(V[(bc * Q + o0 + a) * N + n]) : 0.0f;
+    }
+    __syncthreads();
+    for (int m = 0; m < no; ++m) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = want_dC ? gs[(ty + 16 * i) * kTS + m]
+                       : gs[m * kTS + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = tx + 16 * j;
+        b[j] = n < N ? vs[m * kMaxN + n] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  T* out = want_dC ? dC : dB;
+  const long long qn = static_cast<long long>(Q) * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nr) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = tx + 16 * j;
+      if (n >= N) continue;
+      const size_t at = (bc * Q + r0 + r) * N + n;
+      float v = acc[i][j];
+      if (!want_dC) v += dB2[bc * H * qn + (r0 + r) * N + n];
+      out[at] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* Bm, const void* Cm, const void* da,
+               const void* dy, const void* dst, void* dx, void* dB, void* dC,
+               void* dda, float* G, float* dGh, float* dB2h, int BC, int Q,
+               int H, int P, int N, cudaStream_t stream) {
+  const int nT = (Q + kTile - 1) / kTile;
+  const size_t smem_cb = bwd_cb_smem_bytes();
+  const size_t smem_head = bwd_head_smem_bytes(Q);
+  const size_t smem_bc = bwd_bc_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_cb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_cb));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_head_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_head));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_bc_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bc));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* Bt = static_cast<const T*>(Bm);
+  const T* Ct = static_cast<const T*>(Cm);
+  ssd_bwd_cb_kernel<T><<<dim3(BC, nT, nT), kThreads, smem_cb, stream>>>(
+      Bt, Ct, G, Q, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_head_kernel<T><<<dim3(BC, H), kThreads, smem_head, stream>>>(
+      static_cast<const T*>(x), Bt, static_cast<const float*>(da),
+      static_cast<const float*>(dy), static_cast<const float*>(dst), G,
+      static_cast<T*>(dx), dGh, dB2h, static_cast<float*>(dda), Q, H, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long elems = static_cast<long long>(Q) * Q +
+                          static_cast<long long>(Q) * N;
+  ssd_bwd_sum_kernel<<<dim3(static_cast<unsigned>((elems + kThreads - 1) /
+                                                  kThreads), BC),
+                       kThreads, 0, stream>>>(dGh, dB2h, G, Q, H, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_bc_kernel<T><<<dim3(BC, nT, 2), kThreads, smem_bc, stream>>>(
+      Bt, Ct, G, dB2h, static_cast<T*>(dB), static_cast<T*>(dC), Q, H, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the call's kernels on `stream` and returns the first CUDA
@@ -917,17 +1379,49 @@ extern "C" int ssd_chunk_launch(const void* x, const void* Bm,
                                          N, s);
 }
 
+// The backward's kernels on `stream` (see the backward section): dx,
+// dB, dC in the inputs' dtype (`bf16` = 1: bf16, 0: f32), dda f32;
+// dy [BC,Q,H,P] and dst [BC,H,P,N] f32, all dense. G [BC,Q,Q], dGh
+// [BC,H,Q,Q] and dB2h [BC,H,Q,N] are f32 scratch the caller allocates
+// (nothing need be zeroed). Returns the first CUDA error (0 =
+// launched); the caller checks what ssd_chunk_launch's checks.
+extern "C" int ssd_chunk_bwd_launch(const void* x, const void* Bm,
+                                    const void* Cm, const void* da,
+                                    const void* dy, const void* dst,
+                                    void* dx, void* dB, void* dC, void* dda,
+                                    void* G, void* dGh, void* dB2h, int bf16,
+                                    int BC, int Q, int H, int P, int N,
+                                    void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(G);
+  float* gh = static_cast<float*>(dGh);
+  float* bh = static_cast<float*>(dB2h);
+  return bf16 ? launch_bwd<__nv_bfloat16>(x, Bm, Cm, da, dy, dst, dx, dB,
+                                          dC, dda, g, gh, bh, BC, Q, H, P,
+                                          N, s)
+              : launch_bwd<float>(x, Bm, Cm, da, dy, dst, dx, dB, dC, dda, g,
+                                  gh, bh, BC, Q, H, P, N, s);
+}
+
 extern "C" const char* ssd_chunk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // Dynamic shared memory (bytes) one block takes at (Q, P, N): of the
-// f32 y kernel (kernel = 0), the f32 states kernel (1) or the bf16
-// wgmma kernel (2). ptxas reports only static shared memory.
+// f32 y kernel (kernel = 0), the f32 states kernel (1), the bf16 wgmma
+// kernel (2), and the backward's C B^T (3), per-head (4), head-sum (5)
+// and dB / dC (6) kernels. ptxas reports only static shared memory.
 extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int kernel) {
-  const size_t b = kernel == 2   ? bf16_smem_bytes(Q)
-                   : kernel == 1 ? state_smem_bytes(Q, P, N)
-                                 : diag_smem_bytes(Q, P, N);
+  size_t b = 0;
+  switch (kernel) {
+    case 0: b = diag_smem_bytes(Q, P, N); break;
+    case 1: b = state_smem_bytes(Q, P, N); break;
+    case 2: b = bf16_smem_bytes(Q); break;
+    case 3: b = bwd_cb_smem_bytes(); break;
+    case 4: b = bwd_head_smem_bytes(Q); break;
+    case 6: b = bwd_bc_smem_bytes(); break;
+    default: break;
+  }
   return static_cast<long long>(b);
 }
 

@@ -12,9 +12,20 @@ the dequantize kernel's share `dequantize.launches`; `silu`,
 `silu_gate` and `silu_gate_bwd` count their own, and so does
 `fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
 the backward runs two kernels in bf16, dq with delta and dk / dv, and
-three in f32). :func:`swiglu_gate`
-is the SwiGLU gate with a gradient (a `torch.autograd.Function`): its
-forward is :func:`silu_gate`'s value, its backward :func:`silu_gate_bwd`.
+three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`
+and `silu_gate_prod_bwd`.
+
+Four ops have a gradient (each a `torch.autograd.Function` whose
+forward is the forward kernel and whose backward is a backward kernel):
+:func:`swiglu_gate`, the SwiGLU gate (:func:`silu_gate`'s value;
+backward :func:`silu_gate_bwd`); and the Mamba-2 block's three, named
+`<op>_ad` (autodiff): :func:`ssd_chunk_ad` (backward
+:func:`ssd_chunk_bwd`), :func:`silu_ad` (:func:`silu_bwd`) and
+:func:`silu_gate_ad` (:func:`silu_gate_prod_bwd`). Where no input
+needs a gradient (serving, under `torch.inference_mode`) the `_ad` ops
+call the forward wrapper directly: the serve path launches what it
+launched before, and its decode step, bound by the host's issue, pays
+no Function's per-call cost (3 calls a layer).
 """
 from __future__ import annotations
 
@@ -33,8 +44,10 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      fill_rates_ref, flash_bwd_ref,
                                      flash_fwd_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     silu_gate_bwd_ref, silu_gate_ref,
-                                     silu_ref, ssd_chunk_ref)
+                                     silu_bwd_ref, silu_gate_bwd_ref,
+                                     silu_gate_prod_bwd_ref, silu_gate_ref,
+                                     silu_ref, ssd_chunk_bwd_ref,
+                                     ssd_chunk_ref)
 
 
 def _check_rf(feat, thr, leaf, X, depth) -> None:
@@ -189,6 +202,78 @@ def ssd_chunk(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
 ssd_chunk.launches = 0
 
 
+def ssd_chunk_bwd(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+                  da: torch.Tensor, dy: torch.Tensor, dst: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The gradient of :func:`ssd_chunk` given the cotangents dy
+    [B,nC,Q,H,P] of y_diag and dst [B,nC,H,P,N] of the states (both f32,
+    contiguous) -> (dx, dB, dC in the inputs' dtype, dda
+    [B,nC,H,Q] f32), the decay mask and C B^T recomputed.
+
+    CUDA tensors go to the hand-written kernels (csrc/ssd_chunk.cu:
+    C B^T, the per-head pass, the fixed-order sum over heads, dB / dC;
+    one count a call); CPU tensors to
+    :func:`repro_torch.kernels.ref.ssd_chunk_bwd_ref`. Both take the
+    cumulative decay and the reverse cumulative sum of dda in the same
+    order (`chunk_cumsum`); the products add in other orders. Two calls
+    on the same inputs give the same bits (no atomics)."""
+    _check_ssd(xq, Bq, Cq, da)
+    B, nC, Q, H, P = xq.shape
+    want = {"dy": (dy, (B, nC, Q, H, P)),
+            "dst": (dst, (B, nC, H, P, Bq.shape[3]))}
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != xq.device:
+            raise ValueError(f"{name} on {t.device}, xq on {xq.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xq.device.type == "cpu":
+        return ssd_chunk_bwd_ref(xq, Bq, Cq, da, dy, dst)
+    if xq.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd runs on cuda or cpu, not "
+                         f"{xq.device}")
+    dx = torch.empty(xq.shape, dtype=xq.dtype, device=xq.device)
+    dB = torch.empty(Bq.shape, dtype=Bq.dtype, device=xq.device)
+    dC = torch.empty(Cq.shape, dtype=Cq.dtype, device=xq.device)
+    dda = torch.empty(da.shape, dtype=torch.float32, device=xq.device)
+    _ssd.launch_bwd(xq, Bq, Cq, da, dy, dst, dx, dB, dC, dda)
+    ssd_chunk_bwd.launches += 1
+    return dx, dB, dC, dda
+
+
+ssd_chunk_bwd.launches = 0
+
+
+class _SsdChunk(torch.autograd.Function):
+    """:func:`ssd_chunk` with a gradient: backward :func:`ssd_chunk_bwd`
+    on the saved inputs (the decay mask and C B^T recomputed)."""
+
+    @staticmethod
+    def forward(ctx, xq, Bq, Cq, da):
+        y, st = ssd_chunk(xq, Bq, Cq, da)
+        ctx.save_for_backward(xq, Bq, Cq, da)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(),
+                             dst.contiguous())
+
+
+def ssd_chunk_ad(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+                 da: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunk` as a differentiable op: its gradient is
+    :func:`ssd_chunk_bwd`, the kernel on the card."""
+    return _SsdChunk.apply(xq, Bq, Cq, da)
+
+
 # ----------------------------------------------------------------------
 # SiLU gates
 # ----------------------------------------------------------------------
@@ -224,6 +309,55 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 silu.launches = 0
+
+
+def silu_bwd(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`silu` given its cotangent g: g and x of
+    one shape and dtype (f32 or bf16), either may be a strided view ->
+    dx, dense, in x's dtype, each op rounded where XLA's CPU program for
+    the jitted `jax.vjp(jax.nn.silu)` rounds it (:func:`silu_gate_bwd`'s
+    dz with y = 1).
+
+    CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
+    launch of the gate's backward kernel with no y); CPU tensors to
+    :func:`repro_torch.kernels.ref.silu_bwd_ref`, which it equals bit
+    for bit."""
+    views = (_check_gate_input("g", g), _check_gate_input("x", x))
+    if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"g must match x: got {g.dtype} {tuple(g.shape)} "
+                         f"on {g.device}, x {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    if x.is_cpu:
+        return silu_bwd_ref(g, x)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if dx.numel():
+        _silu.launch_bwd(g, x, dx, views)
+        silu_bwd.launches += 1
+    return dx
+
+
+silu_bwd.launches = 0
+
+
+class _Silu(torch.autograd.Function):
+    """:func:`silu` with a gradient: backward :func:`silu_bwd` on the
+    saved x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return silu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return silu_bwd(g.contiguous(), x)
+
+
+def silu_ad(x: torch.Tensor) -> torch.Tensor:
+    """:func:`silu` as a differentiable op: its gradient is
+    :func:`silu_bwd`, the kernel on the card."""
+    return _Silu.apply(x)
 
 
 def silu_gate(y: torch.Tensor, z: torch.Tensor, with_prod: bool = True
@@ -290,6 +424,47 @@ def silu_gate_bwd(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor
 silu_gate_bwd.launches = 0
 
 
+def silu_gate_prod_bwd(g_value: torch.Tensor, g_prod: torch.Tensor,
+                       y: torch.Tensor, z: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`silu_gate`'s two outputs (Mamba-2's gated
+    norm) given their cotangents: g_value of the value (y's dtype),
+    g_prod of the f32 product (f32), y and z of one shape and dtype
+    (f32 or bf16), each may be a strided view -> (dy, dz), dense, in y's
+    dtype. The product's cotangent is g_value + g_prod, g_prod rounded
+    to y's dtype first and the sum rounded, as XLA's compiled gradient
+    of the reference's `rms_norm(y * silu(z))` adds the variance path's
+    to the value path's; from there on as :func:`silu_gate_bwd`.
+
+    CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
+    launch of the gate's backward kernel with the f32 cotangent); CPU
+    tensors to :func:`repro_torch.kernels.ref.silu_gate_prod_bwd_ref`,
+    which it equals bit for bit."""
+    views = tuple(_check_gate_input(n, t) for n, t in
+                  (("g_value", g_value), ("y", y), ("z", z)))
+    for name, t in (("g_value", g_value), ("z", z)):
+        if t.dtype != y.dtype or t.shape != y.shape or t.device != y.device:
+            raise ValueError(f"{name} must match y: got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, y {y.dtype} "
+                             f"{tuple(y.shape)} on {y.device}")
+    if not isinstance(g_prod, torch.Tensor) or \
+            g_prod.dtype != torch.float32 or g_prod.shape != y.shape or \
+            g_prod.device != y.device or not g_prod.is_contiguous():
+        raise ValueError(f"g_prod must be a contiguous float32 tensor of "
+                         f"y's shape {tuple(y.shape)} on {y.device}")
+    if y.is_cpu:
+        return silu_gate_prod_bwd_ref(g_value, g_prod, y, z)
+    dy = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    dz = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    if dy.numel():
+        _silu.launch_gate_bwd(g_value, y, z, dy, dz, views, g_prod=g_prod)
+        silu_gate_prod_bwd.launches += 1
+    return dy, dz
+
+
+silu_gate_prod_bwd.launches = 0
+
+
 class _SwigluGate(torch.autograd.Function):
     """silu(z) * y with a gradient: forward :func:`silu_gate` (value
     only), backward :func:`silu_gate_bwd` on the saved y and z."""
@@ -311,6 +486,33 @@ def swiglu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     `with_prod=False`) as a differentiable op: its gradient is
     :func:`silu_gate_bwd`, the kernel on the card."""
     return _SwigluGate.apply(y, z)
+
+
+class _SsmGate(torch.autograd.Function):
+    """:func:`silu_gate` (value and f32 product) with a gradient:
+    backward :func:`silu_gate_prod_bwd` on the saved y and z, given
+    both outputs' cotangents."""
+
+    @staticmethod
+    def forward(ctx, y, z):
+        value, prod = silu_gate(y, z)
+        ctx.save_for_backward(y, z)
+        # in f32 the plain version's value is its product itself
+        return (value.clone() if value is prod else value), prod
+
+    @staticmethod
+    def backward(ctx, g_value, g_prod):
+        y, z = ctx.saved_tensors
+        return silu_gate_prod_bwd(g_value.contiguous(), g_prod.contiguous(),
+                                  y, z)
+
+
+def silu_gate_ad(y: torch.Tensor, z: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`silu_gate` (with its f32 product) as a differentiable op:
+    its gradient is :func:`silu_gate_prod_bwd`, the kernel on the
+    card."""
+    return _SsmGate.apply(y, z)
 
 
 # ----------------------------------------------------------------------

@@ -92,6 +92,56 @@ def ssd_chunk_ref(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
     return y, states
 
 
+def reverse_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """sum_{j >= i} v[..., j] over the last axis, in the backward
+    kernel's order: :func:`chunk_cumsum` of the reversed axis (its
+    32-element segments start at the last element)."""
+    return chunk_cumsum(v.flip(-1)).flip(-1)
+
+
+def ssd_chunk_bwd_ref(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
+                      da: torch.Tensor, dy: torch.Tensor, dst: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The gradient of :func:`ssd_chunk_ref` given the cotangents dy
+    [B,nC,Q,H,P] of y_diag and dst [B,nC,H,P,N] of the states (both
+    f32) -> (dx, dB, dC in the inputs' dtype, each rounded once from
+    f32; dda [B,nC,H,Q] f32). With cum, L (masked before exp), G = C B^T,
+    S = G o L and r[k] = exp(cum[Q-1] - cum[k]) as the forward takes
+    them, per head:
+      dS = (dy x^T) masked causal,    dx = S^T dy + r o (B dst^T),
+      dG = sum_h dS o L,              dC = dG B,
+      dB = dG^T C + sum_h r o (x dst),
+      E = dS o S:  dcum[q] = sum_k E[q, k] - sum_q' E[q', q]
+                   - rho[q] + [q = Q-1] sum_k rho[k],
+      rho[k] = r[k] sum_{p,n} x[k, p] B[k, n] dst[p, n],
+    and dda = :func:`reverse_cumsum` of dcum (the kernel's order)."""
+    x, Bf, Cf = xq.float(), Bq.float(), Cq.float()
+    Q = xq.shape[2]
+    cum = chunk_cumsum(da.float())                           # [B,nC,H,Q]
+    seg = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xq.device).tril()
+    L = torch.exp(torch.where(tri, seg, -1e30))              # [B,nC,H,Q,Q]
+    G = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)              # [B,nC,Q,Q]
+    S = G[:, :, None] * L
+    dS = torch.where(tri, torch.einsum("bcqhp,bckhp->bchqk", dy, x), 0.0)
+    r = torch.exp(cum[..., -1:] - cum)                       # [B,nC,H,Q]
+    bdst = torch.einsum("bckn,bchpn->bchkp", Bf, dst)        # [B,nC,H,Q,P]
+    dx = torch.einsum("bchqk,bcqhp->bckhp", S, dy) + \
+        (r[..., None] * bdst).permute(0, 1, 3, 2, 4)
+    dG = (dS * L).sum(dim=2)                                 # [B,nC,Q,Q]
+    xdst = torch.einsum("bckhp,bchpn->bchkn", x, dst)        # [B,nC,H,Q,N]
+    dB = torch.einsum("bcqk,bcqn->bckn", dG, Cf) + \
+        (r[..., None] * xdst).sum(dim=2)
+    dC = torch.einsum("bcqk,bckn->bcqn", dG, Bf)
+    E = dS * S
+    rho = r * torch.einsum("bckhp,bchkp->bchk", x, bdst)
+    dcum = E.sum(-1) - E.sum(-2) - rho
+    dcum[..., -1] += rho.sum(-1)
+    return (dx.to(xq.dtype), dB.to(Bq.dtype), dC.to(Cq.dtype),
+            reverse_cumsum(dcum))
+
+
 # ----------------------------------------------------------------------
 # SiLU gates (Mamba-2), rounded as XLA on the CPU rounds jax.nn.silu
 # ----------------------------------------------------------------------
@@ -126,6 +176,30 @@ def silu_gate_bwd_ref(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor
     gy = g * y
     dz = gy * s + (z * gy) * (s * (1 - s))
     return dy, dz
+
+
+def silu_bwd_ref(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`silu_ref` given its cotangent g (g, x of
+    one dtype), as XLA on the CPU derives and rounds the jitted
+    `jax.vjp(jax.nn.silu)`: g*s + (x*g) * (s*(1 - s)), every op rounded
+    to the dtype. That is :func:`silu_gate_bwd_ref`'s dz with y = 1
+    (g * 1 is g)."""
+    s = torch.reciprocal(1 + torch.exp(-x))
+    return g * s + (x * g) * (s * (1 - s))
+
+
+def silu_gate_prod_bwd_ref(g_value: torch.Tensor, g_prod: torch.Tensor,
+                           y: torch.Tensor, z: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`silu_gate_ref`'s two outputs given their
+    cotangents: g_value of the rounded product (y's dtype, the norm's
+    value path) and g_prod of the f32 product (f32, the norm's
+    variance). XLA's compiled gradient of the reference's
+    `rms_norm(y * silu(z))` rounds the variance path's cotangent to y's
+    dtype before it adds the value path's, then rounds the sum; from
+    that cotangent on it is :func:`silu_gate_bwd_ref` -> (dy, dz)."""
+    g = g_value + g_prod.to(y.dtype)
+    return silu_gate_bwd_ref(g, y, z)
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The SiLU gates (Mamba-2's two, the SwiGLU MLP's and its gradient):
-the hand-written CUDA kernels' binding.
+"""The SiLU gates (Mamba-2's two, the SwiGLU MLP's) and their
+gradients: the hand-written CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/silu.cu`; its head comment says
 which ops of the JAX package's compiled program it mirrors and why the
@@ -7,9 +7,14 @@ rounding matters. This module reads a tensor as rows (`row_view`),
 binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
 :func:`repro_torch.kernels.ops.silu` and
-:func:`repro_torch.kernels.ops.silu_gate` and
-:func:`repro_torch.kernels.ops.silu_gate_bwd`, which check the inputs, take
-the plain versions for CPU tensors and count launches.
+:func:`repro_torch.kernels.ops.silu_gate`,
+:func:`repro_torch.kernels.ops.silu_gate_bwd`,
+:func:`repro_torch.kernels.ops.silu_bwd` and
+:func:`repro_torch.kernels.ops.silu_gate_prod_bwd`, which check the
+inputs, take the plain versions for CPU tensors and count launches.
+The three gradients are one kernel (`silu_gate_bwd_kernel`): SiLU's
+passes no y (y = 1) and stores no dy; the SSM gate's adds the f32
+cotangent of the product.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ def _lib() -> ctypes.CDLL:
         lib.silu_gate_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P,
                                          _L, _L, _I, _P]
         lib.silu_gate_launch.restype = _I
-        lib.silu_gate_bwd_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P,
-                                             _L, _L, _P, _P, _L, _L, _I, _P]
+        lib.silu_gate_bwd_launch.argtypes = [_P, _L, _L, _P, _P, _L, _L,
+                                             _P, _L, _L, _P, _P, _L, _L, _I,
+                                             _P]
         lib.silu_gate_bwd_launch.restype = _I
         lib.silu_error_string.argtypes = [_I]
         lib.silu_error_string.restype = ctypes.c_char_p
@@ -129,15 +135,33 @@ def launch_gate(y: torch.Tensor, z: torch.Tensor, value: torch.Tensor,
 def launch_gate_bwd(g: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                     dy: torch.Tensor, dz: torch.Tensor,
                     views: Optional[Tuple[Tuple[int, int, int, int], ...]]
-                    = None) -> None:
+                    = None, g_prod: Optional[torch.Tensor] = None) -> None:
     """dy, dz (dense, y's dtype) = the gradient of silu(z) * y given its
-    cotangent g, one launch on the current stream of y's device; inputs
-    are checked by the caller (`views`, if given, are g's, y's and z's
+    cotangent g (plus g_prod, the f32 product's, dense, where given),
+    one launch on the current stream of y's device; inputs are checked
+    by the caller (`views`, if given, are g's, y's and z's
     :func:`row_view`)."""
     (rows, d, ldg, incg), (_, _, ldy, incy), (_, _, ldz, incz) = \
         views or (row_view(g), row_view(y), row_view(z))
     _check(_on_device(y.device, _lib().silu_gate_bwd_launch, g.data_ptr(),
-                      ldg, incg, y.data_ptr(), ldy, incy, z.data_ptr(), ldz,
-                      incz, dy.data_ptr(), dz.data_ptr(), rows, d,
+                      ldg, incg,
+                      None if g_prod is None else g_prod.data_ptr(),
+                      y.data_ptr(), ldy, incy, z.data_ptr(), ldz, incz,
+                      dy.data_ptr(), dz.data_ptr(), rows, d,
                       DTYPES[y.dtype]),
-           "silu_gate_bwd")
+           "silu_gate_bwd" if g_prod is None else "silu_gate_prod_bwd")
+
+
+def launch_bwd(g: torch.Tensor, x: torch.Tensor, dx: torch.Tensor,
+               views: Optional[Tuple[Tuple[int, int, int, int], ...]]
+               = None) -> None:
+    """dx (dense, x's dtype) = the gradient of silu(x) given its
+    cotangent g: the gate's backward kernel with no y and no dy, one
+    launch on the current stream of x's device; inputs are checked by
+    the caller (`views`, if given, are g's and x's :func:`row_view`)."""
+    (rows, d, ldg, incg), (_, _, ldx, incx) = views or (row_view(g),
+                                                        row_view(x))
+    _check(_on_device(x.device, _lib().silu_gate_bwd_launch, g.data_ptr(),
+                      ldg, incg, None, None, 0, 0, x.data_ptr(), ldx, incx,
+                      None, dx.data_ptr(), rows, d, DTYPES[x.dtype]),
+           "silu_bwd")

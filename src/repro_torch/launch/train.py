@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
       --steps 6 --batch 4 --seq 1024 --sync psum          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+      --steps 6 --batch 4 --seq 1024 --sync psum          # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
       --reduced --device cpu                             # small, on the host
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
@@ -9,7 +11,10 @@
 
 The reference's flags; one card holds every pod, so `--data` and
 `--model` (the reference's mesh axes) above 1 raise. `--arch` takes the
-ported ids; the dense family trains.
+ported ids, and both ported families train: the dense family (SwiGLU's
+gate and flash attention with their backward kernels) and the ssm
+family (`mamba2-2.7b`: the SSD chunk, SiLU and the gated norm's gate
+with theirs).
 """
 import argparse
 from typing import Optional, Sequence

@@ -48,16 +48,9 @@ init_params = build_model
 def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     """(params, batch) -> (loss, {ce, aux, expert_load}):
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
-    "full" or "dots"). The dense family trains; the `ssm` family's
-    training waits for backward passes of its kernels (`ssd_chunk`,
-    `silu`, `silu_gate` with its product) and raises, as do the
-    families not ported at all."""
+    "full" or "dots"). Both ported families train (`ssm` and `dense`);
+    the others raise "not yet ported"."""
     transformer.check_family(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the '{cfg.family}' family ({cfg.arch_id}) is not "
-            f"yet ported: its kernels (ssd_chunk, silu, silu_gate with "
-            f"its product) have no backward yet")
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")

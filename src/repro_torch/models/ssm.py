@@ -8,6 +8,15 @@ its plain version on the host. The inter-chunk recurrence and the
 off-diagonal product stay torch, as the reference keeps them outside
 its kernel.
 
+Training differentiates the block with torch's autograd. Its three
+kernel calls go through the `_ad` ops of `repro_torch.kernels.ops`
+(`ssd_chunk_ad`, `silu_ad`, `silu_gate_ad`), whose backwards are
+hand-written kernels (`ssd_chunk_bwd`, `silu_bwd`,
+`silu_gate_prod_bwd`); the causal conv, softplus, the dt scaling, the
+inter-chunk loop, the off-diagonal einsum and the D skip differentiate
+as plain torch. Serving calls the same ops: with no gradient to take
+they launch the same forward kernels and keep nothing for a backward.
+
 The functions take the block's parameters as a dict of tensors in the
 compute dtype (`transformer.MambaLM.compute_params`), as the reference
 takes its pytree.
@@ -115,7 +124,7 @@ def ssd_chunked(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
     daq = da.float().reshape(B, nC, Q, H).permute(0, 1, 3, 2).contiguous()
 
     # -- within-chunk part: diagonal blocks and chunk-end states --------
-    y_diag, states = ops.ssd_chunk(xq, Bq, Cq, daq)
+    y_diag, states = ops.ssd_chunk_ad(xq, Bq, Cq, daq)
 
     # -- inter-chunk recurrence (linear scan over nC) ------------------
     cum = torch.cumsum(daq, dim=-1)                          # [B,nC,H,Q]
@@ -144,8 +153,9 @@ def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     its compiled HLO keeps: the product is rounded to y's dtype on the
     value path, but XLA fuses the unrounded f32 product into the
     variance (it drops that f32 -> bf16 -> f32 pair). Both come from
-    one `ops.silu_gate` call."""
-    value, prod = ops.silu_gate(y, z)
+    one `ops.silu_gate` call; its gradient takes both cotangents
+    (`ops.silu_gate_prod_bwd`)."""
+    value, prod = ops.silu_gate_ad(y, z)
     return rms_norm(value, scale, eps, stats=prod)
 
 
@@ -171,7 +181,7 @@ def ssm_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     xBC_raw = zxbcdt[..., d_inner:d_inner + conv_ch]
     dt_raw = zxbcdt[..., d_inner + conv_ch:]
 
-    xBC = ops.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xBC = ops.silu_ad(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
     xs, Bc, Cc = _split_xbc(xBC, d_inner, N)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])

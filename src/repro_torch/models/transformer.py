@@ -15,9 +15,15 @@ parameter dtype; `compute_params` casts the same leaves for serving
 (detached and kept), `cast_params` for training (through autograd,
 every step).
 
-Training (`lm_loss`) runs on a per-layer parameter tree: the module's
-own parameters (`param_tree(model)`), or the views of the reference's
-stacked layout that the train step holds (`stack_layers` /
+In the `ssm` family this puts `A_log`, `D` and `dt_bias` in the compute
+dtype too, as the reference's stacked [L, H] leaves are: `-exp(A_log)`
+is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
+promotes it, and `D` is upcast to f32 before it scales xh, as the
+reference upcasts it (`ssm.ssm_forward`).
+
+Both families train (`lm_loss`) on a per-layer parameter tree: the
+module's own parameters (`param_tree(model)`), or the views of the
+reference's stacked layout that the train step holds (`stack_layers` /
 `layer_views`, also the checkpoints' layout).
 """
 from __future__ import annotations
@@ -466,8 +472,8 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
                 remat: str = "full"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Embedded input -> final hidden, each layer under `remat`. Returns
-    (h, aux_loss, load[E]): the dense family has no aux loss and its
-    load is zeros(max(n_experts, 1))."""
+    (h, aux_loss, load[E]): neither ported family has an aux loss, and
+    the load is zeros(max(n_experts, 1))."""
     run = model_class(cfg).block_cls.run
     layer = maybe_remat(lambda blk, h: run(blk, h, positions, cfg), remat)
     for blk in pc["blocks"]:

@@ -224,18 +224,19 @@ def _reduced_prefill_inputs(device, S=53, seed=0):
 
 def _chunks_of(xh, Bc, Cc, da, chunk):
     """`ssd_chunked`'s own cut of its inputs into ssd_chunk's (its
-    `ops.ssd_chunk` call's arguments), via a capturing `ops`."""
+    `ops.ssd_chunk` call's arguments, through `ops.ssd_chunk_ad` with no
+    gradient to take), via a capturing `ops.ssd_chunk`."""
     seen = []
 
     def capture(*args):
         seen.append(args)
         return ssd_chunk_ref(*args)
 
-    ssm.ops = types.SimpleNamespace(ssd_chunk=capture)
+    real, ops.ssd_chunk = ops.ssd_chunk, capture
     try:
         ssm.ssd_chunked(xh, Bc, Cc, da, chunk)
     finally:
-        ssm.ops = ops
+        ops.ssd_chunk = real
     return seen[0]
 
 

@@ -1,8 +1,12 @@
 """The port's training path against the JAX reference, on the CPU:
 `reduced(get_config(arch))` of the dense family (`llama3-8b`,
-`qwen3-4b`, `h2o-danube-1.8b`: 2 layers, d_model 128, vocab 512), the
-reference's parameters carried across by `load_reference_params`,
-inputs made with numpy from a seed.
+`qwen3-4b`, `h2o-danube-1.8b`: 2 layers, d_model 128, vocab 512) and
+of the ssm family (`mamba2-2.7b`: 4 layers, d_model 128, 16 heads of
+16, d_state 16, chunks of 16), the reference's parameters carried
+across by `load_reference_params`, inputs made with numpy from a seed.
+The ssm family's three kernel calls train through their backwards'
+plain versions (`ssd_chunk_bwd`, `silu_bwd`, `silu_gate_prod_bwd`;
+`tests/test_torch_ssm_train.py` holds each on its own).
 
 Tolerances:
 - f32 (`dtype="float32"`): the losses within 1e-5 relative; every
@@ -11,7 +15,8 @@ Tolerances:
   exp and the host's differ in the last bit); `lr_at`, `global_norm`
   and `adamw_update` within 1e-6 relative on equal gradients; the
   Trainers' losses within 1e-4 relative step by step (measured 1.3e-6
-  on the 8-step run), the 4-pod WANify run's within FOUR_POD_F32_RTOL,
+  on the 8-step run; 7.1e-7 for `mamba2-2.7b`), the 4-pod WANify run's
+  within FOUR_POD_F32_RTOL,
   5e-7 (measured 7.1e-8, one f32 ulp of the loss; with the sync's
   compression dropped the port parts by 1.7e-6, which the control
   test holds above the bound), and its events and plans identical.
@@ -30,7 +35,7 @@ Tolerances:
   differences. The bf16 Trainer runs are held to identical events and
   plans and to losses within FOUR_POD_BF16_RTOL, 4e-4 (measured
   1.9e-4), and BF16_LOSS_RTOL, 1e-3, on the 8-step run at lr 1e-3
-  (measured 4.4e-4). At that level a bf16 run cannot tell a fault
+  (measured 4.4e-4; 4.5e-4 for `mamba2-2.7b`). At that level a bf16 run cannot tell a fault
   from the rounding (an unrounded gate, an f32 rms_norm value path
   and an uncompressed sync measure 1.6e-4-2.3e-4 on the 4-pod run):
   rounding is held by the bit-equal op tests, the run by f32.
@@ -38,6 +43,7 @@ Tolerances:
 The reference's 4-pod Trainer runs in a subprocess with 4 host
 devices, as `tests/test_system.py` runs its multi-pod script.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -68,6 +74,8 @@ from repro_torch.wan.simulator import WanSimulator
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCHS = ["llama3-8b", "qwen3-4b", "h2o-danube-1.8b"]
+SSM_ARCH = "mamba2-2.7b"
+TRAIN_ARCHS = ARCHS + [SSM_ARCH]
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4             # of each leaf's max |g|
@@ -234,7 +242,7 @@ def test_chunked_xent_and_grads_match_reference(ref, chunk):
 # ----------------------------------------------------------------------
 # the loss and its gradients
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_lm_loss_matches_reference(ref, built, arch):
     cfg, rcfg, rparams = built(arch)
     b = _batch(cfg)
@@ -272,11 +280,14 @@ def ref_grads(ref, built):
 
 
 @pytest.mark.parametrize("remat", ["full", "none", "dots"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_lm_loss_grads_match_reference(ref, built, ref_grads, arch, remat):
     """torch.autograd through the port (flash's VJP, the gate's kernel
-    backward's plain version, the KV-head expansion's sum, remat) against
-    jax.grad of the reference: every leaf within 1e-4 of its max |g|."""
+    backward's plain version, the KV-head expansion's sum, remat; for
+    the ssm family the SSD chunk's, SiLU's and the gated norm's
+    backwards' plain versions) against jax.grad of the reference: every
+    leaf within 1e-4 of its max |g| (measured 6.5e-6 for `mamba2-2.7b`,
+    its `dt_bias`)."""
     cfg, _, rparams = built(arch)
     want_loss, want = ref_grads(arch)
     model = _model(cfg, rparams)
@@ -549,11 +560,20 @@ def test_pods_step_broadcast_and_strip():
 
 
 def test_loss_fn_gates():
-    ssm = reduced(get_config("mamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.loss_fn(ssm)
-    with pytest.raises(ValueError, match="unknown remat"):
-        registry.loss_fn(reduced(get_config("llama3-8b")), remat="some")
+    """Both ported families train; a family not ported (a hybrid or an
+    MoE config built from a ported one) raises "not yet ported", and so
+    does an unknown remat."""
+    ssm = reduced(get_config(SSM_ARCH))
+    assert callable(registry.loss_fn(ssm, remat="dots"))
+    dense = reduced(get_config("llama3-8b"))
+    moe = dense.replace(moe=dataclasses.replace(dense.moe, n_experts=4,
+                                                top_k=2, d_ff_expert=64))
+    for other in (ssm.replace(family="hybrid"), moe):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.loss_fn(other)
+    for cfg in (ssm, dense):
+        with pytest.raises(ValueError, match="unknown remat"):
+            registry.loss_fn(cfg, remat="some")
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["mamba2-2.7b"])
@@ -602,13 +622,18 @@ def test_failure_injection_recovers(tmp_path):
     assert tr.history[-1]["step"] == 6       # completed all steps
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_psum_history_matches_reference(ref, built, from_reference, dtype):
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("llama3-8b", "float32", id="float32"),
+    pytest.param("llama3-8b", "bfloat16", id="bfloat16"),
+    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32"),
+    pytest.param(SSM_ARCH, "bfloat16", id=f"{SSM_ARCH}-bfloat16")])
+def test_psum_history_matches_reference(ref, built, from_reference, arch,
+                                        dtype):
     """test_training_reduces_loss's run (lr 1e-3, warm-up 2, 8 steps)
     from the reference's init: every step's loss and grad norm against
     the reference Trainer's (f32 within 1e-4; bf16 within
     BF16_LOSS_RTOL)."""
-    cfg, rcfg, rparams = built("llama3-8b", dtype)
+    cfg, rcfg, rparams = built(arch, dtype)
     dcfg = dict(batch=4, seq=32, vocab=cfg.vocab)
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=8)
     rtr = ref.loop.Trainer(rcfg, ref.compat.make_mesh((1,), ("data",)),
@@ -646,8 +671,11 @@ _REFERENCE_PODS = textwrap.dedent("""
 
     rf, _, _ = train_default_forest(n_samples=150, n_trees=40)
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = reduced(get_config("h2o-danube-1.8b")).replace(dtype=dtype)
+    for key, arch, dtype in (("float32", "h2o-danube-1.8b", "float32"),
+                             ("bfloat16", "h2o-danube-1.8b", "bfloat16"),
+                             ("mamba2-2.7b-float32", "mamba2-2.7b",
+                              "float32")):
+        cfg = reduced(get_config(arch)).replace(dtype=dtype)
         tr = Trainer(cfg, compat.make_mesh((4,), ("pod",)),
                      DataConfig(batch=8, seq=32, vocab=cfg.vocab, n_pods=4,
                                 skew=0.5),
@@ -656,7 +684,7 @@ _REFERENCE_PODS = textwrap.dedent("""
                      sim=WanSimulator(seed=0), predictor=BwPredictor(rf))
         first = (tr.plan.conns, tr.plan.compress_bits)
         tr.run(jax.random.key(0))
-        out[dtype] = {"history": tr.history, "events": tr.events,
+        out[key] = {"history": tr.history, "events": tr.events,
                       "first": first, "conns": tr.plan.conns,
                       "bits": tr.plan.compress_bits,
                       "signature": repr(tr.plan.signature())}
@@ -700,18 +728,24 @@ def _loss_gaps(history, want) -> list:
                                                        want["history"])]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_four_pod_wanify_trainer_matches_reference(ref, built, ref_pods,
-                                                   forest, from_reference,
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("h2o-danube-1.8b", "float32", id="float32"),
+    pytest.param("h2o-danube-1.8b", "bfloat16", id="bfloat16"),
+    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32")])
+def test_four_pod_wanify_trainer_matches_reference(request, ref, built,
+                                                   ref_pods, forest,
+                                                   from_reference, arch,
                                                    dtype):
     """The run quoted in the slice's motivation: 4 pods, skew 0.5,
     `sync="wanify"`, `compress=True`, a replan every 2 steps fed the
     skew weights, the forest on the host (`rf_predict`'s plain
     version). Events and plans identical to the reference's live run;
     losses within FOUR_POD_F32_RTOL relative in f32
-    (FOUR_POD_BF16_RTOL in bf16)."""
-    cfg, _, rparams = built("h2o-danube-1.8b", dtype)
-    want = ref_pods[dtype]
+    (FOUR_POD_BF16_RTOL in bf16). `h2o-danube-1.8b` in both dtypes and
+    `mamba2-2.7b` in f32 (the reference's run keyed by the test's
+    id)."""
+    cfg, _, rparams = built(arch, dtype)
+    want = ref_pods[request.node.callspec.id]
     from_reference(rparams)
     tr = _four_pod_trainer(cfg, forest)
     assert [list(map(list, tr.plan.conns)), list(tr.plan.compress_bits)] \
@@ -795,3 +829,12 @@ def test_train_cli_on_host(capsys):
     with pytest.raises(ValueError, match="one"):
         train_cli.main(["--arch", "llama3-8b", "--reduced", "--device",
                         "cpu", "--data", "2"])
+
+
+def test_train_cli_trains_mamba_on_host(capsys):
+    """`--arch mamba2-2.7b` trains through the launcher (the ssm family's
+    backwards by their plain versions on the host)."""
+    train_cli.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "[train] step     1 loss" in out and "events: []" in out
