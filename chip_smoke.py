@@ -21,8 +21,10 @@ Every phase is fatal: a failure exits non-zero before the result line.
    grouped (persistent) and tile (cluster) kernels; fails if there is no
    HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
-   three kernels' (the backward one also SiLU's and the SSM gate's
-   gradient) and waterfill's two kernels' (the warp kernel, a warp
+   four kernels' (silu, SiLU's gradient, the gate, and the gate's
+   gradient, which is also the SSM gate's; for the first two also the
+   SASS instructions an element of the bf16 16-byte walk) and
+   waterfill's two kernels' (the warp kernel, a warp
    a fill for N <= 8, and the block kernel) registers and spills,
    failing on a spill, and the block barriers (BAR) in each waterfill
    kernel's SASS, failing if the warp kernel has any or the block
@@ -536,7 +538,12 @@ SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG", "UBLKCP")
 # kernel and the tile form's cluster kernel
 QUANT_KERNELS = ("quantize_groups_kernel", "quantize_tile_cluster_kernel")
 RF_KERNELS = ("rf_tile_kernel", "rf_pair_kernel")
-SILU_KERNELS = ("silu_kernel", "silu_gate_kernel", "silu_gate_bwd_kernel")
+SILU_KERNELS = ("silu_kernel", "silu_bwd_kernel", "silu_gate_kernel",
+                "silu_gate_bwd_kernel")
+# the bf16 walk of silu.cu's two streaming kernels: each lane takes
+# SILU_SLOTS 16-byte slots of 8 elements a chunk (`kSlots`)
+SILU_STREAM_KERNELS = ("silu_kernel", "silu_bwd_kernel")
+SILU_SLOTS = 2
 WF_KERNELS = ("waterfill_warp_kernel", "waterfill_block_kernel")
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
@@ -574,6 +581,41 @@ def sass_counts_by_kernel(lib: Path, kernels, sass_ops=SASS_OPS) -> dict:
         if cur is not None:
             for op in sass_ops:
                 out[cur][op] += len(re.findall(rf"\b{op}\b", line))
+    return out
+
+
+def sass_per_element(lib: Path, kernels, slots: int) -> dict:
+    """{kernel: SASS instructions an element} of each kernel's bf16
+    16-byte instance (`<__nv_bfloat16, 8, ...>`): the instructions from
+    its first 16-byte load to its `slots`-th 16-byte store after it
+    (the straight-line body of a chunk inside a row: a lane's loads, its
+    arithmetic and its stores of `slots` 8-element slots), over the
+    8 x `slots` elements of that body; and the function's whole count."""
+    sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out, cur, body = {}, None, []
+    for line in sass.splitlines() + ["Function : end"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if cur is not None:
+                ld = [i for i, op in enumerate(body)
+                      if op.startswith("LDG") and ".128" in op]
+                st = [i for i, op in enumerate(body) if ld and i > ld[0]
+                      and op.startswith("STG") and ".128" in op]
+                if len(st) >= slots:
+                    out[cur] = {"per_element": (st[slots - 1] - ld[0] + 1) /
+                                (8 * slots), "function": len(body)}
+            name = m.group(1)
+            # the bf16, 8-wide instance: mangled <__nv_bfloat16, 8, ...>
+            cur = next((k for k in kernels if k in name and
+                        "bfloat16Li8E" in name), None)
+            body = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]"
+                     r"[A-Z0-9_.]*)", line)
+        if cur is not None and m:
+            body.append(m.group(1))
     return out
 
 
@@ -2745,11 +2787,14 @@ def host_us(fn, calls: int = 200) -> float:
 
 
 def lib_text(t: dict) -> str:
-    """The library call's column of a SiLU kernel's log line."""
+    """The library call's column of a SiLU kernel's log line, and
+    whether the kernel is at or under it."""
     if t["library_ms"] is None:
         return "none (no single PyTorch call)"
     return (f"{t['library_ms']:.5f} ms (rounding once; this rounds each "
-            f"op as the reference's compiled program does)")
+            f"op as the reference's compiled program does); the kernel "
+            f"{'at or under' if t['ms'] <= t['library_ms'] else 'over'} "
+            f"the library call")
 
 
 def time_silu(name: str, args, kw=None) -> dict:
@@ -2759,26 +2804,39 @@ def time_silu(name: str, args, kw=None) -> dict:
     kw = kw or {}
     bound_ms, by, nbytes, nops = silu_bound(name, args, kw)
     fn, plain = getattr(ops, name), SILU_PLAIN[name]
+    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args, **kw), name, args)
     return {"shape": list(args[0].shape), "strides": [
                 list(t.stride()) for t in args],
             "dtype": str(args[0].dtype).replace("torch.", ""),
             "value_only": value_only(name, kw),
-            "ms": graph_ms(lambda: fn(*args, **kw), launches=20, reps=11),
+            "ms": ms,
             "wrapper_ms": call_ms(lambda: fn(*args, **kw)),
             "plain_ms": call_ms(lambda: plain(*args)),
             "host_us": host_us(lambda: fn(*args, **kw)),
             "plain_host_us": host_us(lambda: plain(*args)),
-            "library_ms": library_ms(name, args),
+            "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
             "ops": nops}
 
 
-def library_ms(name: str, args):
-    """Device ms of SILU_LIBRARY's call for `name` on the same inputs,
-    timed as the kernel is; None where there is none."""
+def kernel_and_library_ms(fn, name: str, args):
+    """(ms, library ms): device ms of the kernel's call `fn` (a graph of
+    20 calls, median of 11 replays) and of SILU_LIBRARY's call for
+    `name` on the same inputs, timed the same way (None where there is
+    none). Where there is a library call the two are read in turns,
+    kernel, library, library, kernel, each the mean of its two readings:
+    the card's pace drifts within a phase (after the mamba train step a
+    first reading can come slower than later ones, for the kernel and
+    the library alike), so a kernel read first and a library call read
+    last would not compare like with like."""
     lib = SILU_LIBRARY.get(name)
-    return None if lib is None else graph_ms(lambda: lib(*args),
-                                             launches=20, reps=11)
+    if lib is None:
+        return graph_ms(fn, launches=20, reps=11), None
+    times = {fn: [], lib: []}
+    for f in (fn, lib, lib, fn):
+        times[f].append(graph_ms(lambda: f(*args) if f is lib else f(),
+                                 launches=20, reps=11))
+    return float(np.mean(times[fn])), float(np.mean(times[lib]))
 
 
 # ----------------------------------------------------------------------
@@ -3896,9 +3954,10 @@ ATTN_FWD, ATTN_BWD, XENT, OPTIM = ("attention_fwd", "attention_bwd",
                                    "cross_entropy", "optimizer")
 XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
 # the port's kernels a train profile sums by name, first match: the
-# SiLU backwards of both families are one kernel (silu_gate_bwd_kernel:
-# `silu_gate_bwd`, `silu_bwd`, `silu_gate_prod_bwd`)
+# gates' backwards are one kernel (silu_gate_bwd_kernel: `silu_gate_bwd`,
+# `silu_gate_prod_bwd`); SiLU's has its own
 KERNEL_KINDS = (("silu_gate_bwd", "silu_gate_bwd_kernel"),
+                ("silu_bwd", "silu_bwd_kernel"),
                 ("silu_gate", "silu_gate_kernel"), ("silu", "silu_kernel"),
                 ("ssd_chunk_bwd", "ssd_bwd_"), ("ssd_chunk", "ssd_"))
 
@@ -4157,13 +4216,14 @@ def time_silu_bwd(name: str, args) -> dict:
     version and the bound."""
     bound_ms, by, nbytes, nops = silu_bwd_bound(name, args)
     fn, plain = getattr(ops, name), SILU_BWD_PLAIN[name]
+    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args), name, args)
     return {"shape": list(args[0].shape), "strides": [
                 list(t.stride()) for t in args],
             "dtype": str(args[0].dtype).replace("torch.", ""),
-            "ms": graph_ms(lambda: fn(*args), launches=20, reps=11),
+            "ms": ms,
             "wrapper_ms": call_ms(lambda: fn(*args)),
             "plain_ms": call_ms(lambda: plain(*args)),
-            "library_ms": library_ms(name, args),
+            "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
             "ops": nops}
 
@@ -4986,10 +5046,22 @@ def main() -> int:
         raise AssertionError(f"rf_predict's ptxas report: kernels "
                              f"{sorted(rf_report)}, spills {rf_spills}")
     silu_report = ptxas_report(texts["silu"], SILU_KERNELS)
-    results["build_silu"] = {"kernels": silu_report}
+    silu_sass = sass_per_element(build.library_path("silu"),
+                                 SILU_STREAM_KERNELS, SILU_SLOTS)
+    results["build_silu"] = {"kernels": silu_report, "sass": silu_sass}
     for name in SILU_KERNELS:
+        sass = silu_sass.get(name)
         log(f"[build] silu: {name}: " + ", ".join(
-            f"{k} {v}" for k, v in silu_report.get(name, {}).items()))
+            f"{k} {v}" for k, v in silu_report.get(name, {}).items()) + (
+            "" if sass is None else
+            f"; bf16 16-byte walk: {sass['per_element']:.2f} SASS "
+            f"instructions an element (a chunk's body, first 16-byte load "
+            f"to its last store, {SILU_SLOTS * 8} elements a lane), "
+            f"{sass['function']} in the function"))
+    missing = sorted(set(SILU_STREAM_KERNELS) - set(silu_sass))
+    if missing:
+        raise AssertionError(f"silu's SASS: no 16-byte walk found in "
+                             f"{missing}")
     silu_spills = {n: r for n, r in silu_report.items()
                    if r.get("spill_stores") or r.get("spill_loads")}
     if set(silu_report) != set(SILU_KERNELS) or silu_spills:

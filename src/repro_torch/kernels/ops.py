@@ -319,7 +319,7 @@ def silu_bwd(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     dz with y = 1).
 
     CUDA tensors go to the hand-written kernel (csrc/silu.cu, one
-    launch of the gate's backward kernel with no y); CPU tensors to
+    launch of `silu_bwd_kernel`); CPU tensors to
     :func:`repro_torch.kernels.ref.silu_bwd_ref`, which it equals bit
     for bit."""
     views = (_check_gate_input("g", g), _check_gate_input("x", x))

@@ -12,9 +12,9 @@ binds the library (built at first use by
 :func:`repro_torch.kernels.ops.silu_bwd` and
 :func:`repro_torch.kernels.ops.silu_gate_prod_bwd`, which check the
 inputs, take the plain versions for CPU tensors and count launches.
-The three gradients are one kernel (`silu_gate_bwd_kernel`): SiLU's
-passes no y (y = 1) and stores no dy; the SSM gate's adds the f32
-cotangent of the product.
+SiLU's gradient has a kernel of its own (`silu_bwd_kernel`); the two
+gates' gradients are one (`silu_gate_bwd_kernel`): the SSM gate's adds
+the f32 cotangent of the product.
 """
 from __future__ import annotations
 
@@ -37,6 +37,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.silu_launch.argtypes = [_P, _L, _L, _P, _L, _L, _I, _P]
         lib.silu_launch.restype = _I
+        lib.silu_bwd_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                        _I, _P]
+        lib.silu_bwd_launch.restype = _I
         lib.silu_gate_launch.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P,
                                          _L, _L, _I, _P]
         lib.silu_gate_launch.restype = _I
@@ -156,12 +159,12 @@ def launch_bwd(g: torch.Tensor, x: torch.Tensor, dx: torch.Tensor,
                views: Optional[Tuple[Tuple[int, int, int, int], ...]]
                = None) -> None:
     """dx (dense, x's dtype) = the gradient of silu(x) given its
-    cotangent g: the gate's backward kernel with no y and no dy, one
-    launch on the current stream of x's device; inputs are checked by
-    the caller (`views`, if given, are g's and x's :func:`row_view`)."""
+    cotangent g, one launch on the current stream of x's device; inputs
+    are checked by the caller (`views`, if given, are g's and x's
+    :func:`row_view`)."""
     (rows, d, ldg, incg), (_, _, ldx, incx) = views or (row_view(g),
                                                         row_view(x))
-    _check(_on_device(x.device, _lib().silu_gate_bwd_launch, g.data_ptr(),
-                      ldg, incg, None, None, 0, 0, x.data_ptr(), ldx, incx,
-                      None, dx.data_ptr(), rows, d, DTYPES[x.dtype]),
+    _check(_on_device(x.device, _lib().silu_bwd_launch, g.data_ptr(), ldg,
+                      incg, x.data_ptr(), ldx, incx, dx.data_ptr(), rows, d,
+                      DTYPES[x.dtype]),
            "silu_bwd")

@@ -16,11 +16,22 @@ The gate's gradient (`ref.silu_gate_bwd_ref` on the CPU) is held to
 `jax.vjp` of the reference in `tests/test_torch_train.py`; here its
 wrapper's layouts and checks.
 
+Over the whole bf16 domain: `silu_ref` on all 65,536 bf16 inputs and
+`silu_bwd_ref` on them at four cotangents against the jitted reference.
+They differ exactly where XLA's CPU program flushes a subnormal (an
+input, or an op's f32 value, to zero): the test computes that set
+itself, as the chain of rounded ops with and without the flush, and
+the bits are equal everywhere else.
+
 The card cases (marker `cuda`) hold the CUDA kernels (csrc/silu.cu) to
 the plain versions bit for bit, at the serve model's shapes and at
 shapes that take the scalar path (odd widths, rows that start
-unaligned), one launch a call. The reference is imported by a fixture,
-so they run where jax is not installed:
+unaligned), one launch a call; and `ops.silu` on all 65,536 bf16 inputs
+in six layouts, `ops.silu_bwd` on them at 64 cotangents spread over the
+exponents and on every (g, x) pair of bf16 values: the sweeps that
+license the kernels' cheaper arithmetic (the bf16x2 ops, the
+approximate reciprocal). The reference is imported by a fixture, so
+they run where jax is not installed:
 ``python -m pytest -q -m cuda tests/test_torch_silu.py``.
 """
 import types
@@ -31,8 +42,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import silu as silu_kernel
-from repro_torch.kernels.ref import (silu_gate_bwd_ref, silu_gate_ref,
-                                     silu_ref)
+from repro_torch.kernels.ref import (silu_bwd_ref, silu_gate_bwd_ref,
+                                     silu_gate_ref, silu_ref)
 from repro_torch.models import ssm
 
 F32_TOL = dict(atol=2e-6, rtol=2e-6)
@@ -214,6 +225,115 @@ def test_silu_gate_bwd_rejects_bad_inputs():
         ops.silu_gate_bwd(x.half(), x.half(), x.half())
 
 
+# ----------------------------------------------------------------------
+# every bf16 input
+# ----------------------------------------------------------------------
+def _all_bf16(device="cpu") -> torch.Tensor:
+    """The 65,536 bf16 bit patterns, in bit order."""
+    return torch.arange(65536, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise: equal bits (the sign of zero kept), or both NaN."""
+    return (a.view(torch.int16) == b.view(torch.int16)) | (
+        a.isnan() & b.isnan())
+
+
+def _assert_bits(got: torch.Tensor, want: torch.Tensor, inputs,
+                 what: str) -> None:
+    """got and want equal bit for bit (NaN as NaN); the message names
+    the first inputs where they are not."""
+    bad = ~_same(got, want)
+    if bad.any():
+        where = [t[bad][:4].float().tolist() for t in inputs]
+        raise AssertionError(f"{what}: {int(bad.sum())} outputs differ, "
+                             f"first at inputs {where}")
+
+
+_F32_TINY = 2.0 ** -126
+
+
+def _chain_silu(x: torch.Tensor, flush: bool) -> torch.Tensor:
+    """silu as the rounded chain of the port (each op in f32, rounded
+    to bf16); with `flush`, each f32 value (the input, each op's result)
+    that is subnormal set to zero of its sign first, as XLA's CPU
+    program does."""
+    f = _flush if flush else (lambda v: v)
+    xf = f(x.float())
+    e = _rnd(f(torch.exp(-xf)))
+    u = _rnd(f(1 + e))
+    r = _rnd(f(1 / u))
+    return f(xf * r).to(torch.bfloat16)
+
+
+def _chain_silu_bwd(g: torch.Tensor, x: torch.Tensor,
+                    flush: bool) -> torch.Tensor:
+    """silu_bwd's rounded chain, as :func:`_chain_silu`."""
+    f = _flush if flush else (lambda v: v)
+    xf, gf = f(x.float()), f(g.float())
+    e = _rnd(f(torch.exp(-xf)))
+    s = _rnd(f(1 / _rnd(f(1 + e))))
+    t1, xg = _rnd(f(gf * s)), _rnd(f(xf * gf))
+    ds = _rnd(f(s * _rnd(f(1 - s))))
+    return f(t1 + _rnd(f(xg * ds))).to(torch.bfloat16)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(v.abs() < _F32_TINY, v * 0, v)
+
+
+def _rnd(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def _jax_bf16(ref, t: torch.Tensor):
+    import ml_dtypes
+    return ref.jnp.asarray(t.view(torch.int16).numpy().view(
+        ml_dtypes.bfloat16))
+
+
+def _from_jax(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(
+        torch.bfloat16)
+
+
+def _check_flush_explains(got, want, chain) -> None:
+    """The port's plain version equals the unflushed chain everywhere,
+    the jitted reference the flushed one, and the two differ exactly
+    where the flush changes the chain's result."""
+    plain, flushed = chain(False), chain(True)
+    assert _same(got, plain).all()
+    assert _same(want, flushed).all()
+    mismatch, predicted = ~_same(got, want), ~_same(plain, flushed)
+    assert torch.equal(mismatch, predicted)
+
+
+def test_silu_ref_all_bf16_against_jitted_reference(ref):
+    """All 65,536 bf16 inputs: `silu_ref` and the jitted `jax.nn.silu`
+    differ only at the inputs whose chain meets a subnormal that XLA
+    flushes (511 on jax 0.9.0: 252 subnormal inputs, 254 subnormal
+    results, and x * r at +-2.34e-38 and 1/u at x = -87.5, -88, -88.5)."""
+    x = _all_bf16()
+    want = _from_jax(ref.jax.jit(ref.jax.nn.silu)(_jax_bf16(ref, x)))
+    _check_flush_explains(silu_ref(x), want,
+                          lambda flush: _chain_silu(x, flush))
+
+
+@pytest.mark.parametrize("g", [1.0, -0.5, 3.0, 1e-3], ids=str)
+def test_silu_bwd_ref_all_bf16_against_jitted_reference(ref, g):
+    """All 65,536 bf16 x at a cotangent g: `silu_bwd_ref` and the
+    jitted `jax.vjp(jax.nn.silu)` differ only where XLA's flush of a
+    subnormal changes the chain's result (e.g. at g = 1e-3, x = -80.5:
+    g * s ~ 1e-38)."""
+    x = _all_bf16()
+    gt = torch.full_like(x, g)
+    vjp = ref.jax.jit(lambda a, b: ref.jax.vjp(ref.jax.nn.silu, b)[1](a)[0])
+    want = _from_jax(vjp(_jax_bf16(ref, gt), _jax_bf16(ref, x)))
+    _check_flush_explains(silu_bwd_ref(gt, x), want,
+                          lambda flush: _chain_silu_bwd(gt, x, flush))
+
+
 @pytest.fixture
 def card():
     """The CUDA device; skips the test where there is none (decided at
@@ -366,3 +486,127 @@ def test_silu_gate_bwd_special_values_on_card(card):
                              silu_gate_bwd_ref(x.flip(0), x.roll(3), x)):
             torch.testing.assert_close(got, want, rtol=0, atol=0,
                                        equal_nan=True)
+
+
+# layouts of the 65,536 bf16 inputs for the card sweep: dense (the
+# flat walk); a strided row view (rows of 128 in 136, the row walk);
+# rows of 100 in 108, whose odd rows start 8 bytes past a 16-byte
+# boundary and end mid-vector (a head and a tail in the row walk); the
+# flat range at an 8-byte offset (4-element vectors) and at a 2-byte
+# offset, and transposed (the strided kernel)
+SWEEP_LAYOUTS = ("dense", "rows", "rows_8b", "flat_8b", "flat_2b",
+                 "transposed")
+
+
+def _sweep_layout(p: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "dense":
+        return p
+    if layout == "transposed":
+        return p.view(256, 256).t()
+    if layout.startswith("flat"):
+        off = 4 if layout == "flat_8b" else 1
+        buf = torch.zeros(p.numel() + 8, dtype=p.dtype, device=p.device)
+        buf[off:off + p.numel()] = p
+        return buf[off:off + p.numel()]
+    rows, d, ld = (512, 128, 136) if layout == "rows" else (656, 100, 108)
+    q = torch.cat([p, p[:rows * d - p.numel()]]).view(rows, d)
+    wide = torch.zeros((rows, ld), dtype=p.dtype, device=p.device)
+    wide[:, :d] = q
+    return wide[:, :d]
+
+
+def _g_patterns(device) -> torch.Tensor:
+    """64 bf16 cotangents over the whole exponent range: +-0, three
+    subnormals, +-max, +-inf, and 55 normal values of both signs with
+    exponent fields spread from 1 to 254."""
+    bits = [0x0000, 0x8000, 0x0001, 0x8040, 0x007F, 0x7F7F, 0xFF7F, 0x7F80,
+            0xFF80]
+    for i, e in enumerate(np.linspace(1, 254, 55).round().astype(int)):
+        bits.append((i % 2) << 15 | int(e) << 7 | (37 * i) % 128)
+    return torch.tensor(np.array(bits, np.uint16).view(np.int16),
+                        device=device).view(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+def test_silu_kernel_all_bf16_on_card(card, layout):
+    """`ops.silu` on every bf16 input, bit-equal to the plain version
+    (subnormals kept, NaN as NaN), one launch."""
+    x = _sweep_layout(_all_bf16(card), layout)
+    want = silu_ref(x)
+    before = ops.silu.launches
+    got = ops.silu(x)
+    torch.cuda.synchronize()
+    assert ops.silu.launches == before + 1 and got.is_contiguous()
+    _assert_bits(got, want, [x], f"silu, {layout}")
+
+
+@pytest.mark.cuda
+def test_silu_bwd_kernel_all_bf16_on_card(card):
+    """`ops.silu_bwd` on every bf16 x at 64 cotangents spread over the
+    exponents (zero, subnormal, +-max and +-inf among them), bit-equal
+    to the plain version, one launch."""
+    gv, xv = _g_patterns(card), _all_bf16(card)
+    g = gv[:, None].expand(gv.numel(), xv.numel()).contiguous()
+    x = xv.expand(gv.numel(), xv.numel()).contiguous()
+    before = ops.silu_bwd.launches
+    got = ops.silu_bwd(g, x)
+    torch.cuda.synchronize()
+    assert ops.silu_bwd.launches == before + 1
+    _assert_bits(got, silu_bwd_ref(g, x), [g, x], "silu_bwd")
+
+
+@pytest.mark.cuda
+def test_silu_bwd_kernel_every_pair_on_card(card):
+    """`ops.silu_bwd` on every (g, x) pair of bf16 values (2^32, 256 g
+    a call), bit-equal to the plain version: the exhaustive proof of the
+    kernel's bf16x2 ops and approximate reciprocal."""
+    xv = _all_bf16(card)
+    x = xv.expand(256, xv.numel()).contiguous()
+    for lo in range(0, xv.numel(), 256):
+        g = xv[lo:lo + 256, None].expand(256, xv.numel()).contiguous()
+        _assert_bits(ops.silu_bwd(g, x), silu_bwd_ref(g, x), [g, x],
+                     f"silu_bwd, g bits {lo}..{lo + 255}")
+
+
+@pytest.mark.cuda
+def test_silu_kernels_two_calls_equal_on_card(card):
+    """Two calls on the same inputs give the same bits."""
+    x = _all_bf16(card)
+    g = x.flip(0)
+    for fn, a in ((ops.silu, (x,)), (ops.silu_bwd, (g, x))):
+        first, again = fn(*a), fn(*a)
+        assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+
+
+def _offset_rows(rows: int, d: int, ld: int, off: int, gen, device):
+    """[rows, d] bf16 rows `ld` apart, starting `off` elements into a
+    fresh (16-byte aligned) buffer: dense when ld == d."""
+    buf = (torch.randn(rows * ld + 16, generator=gen, device=device) *
+           4).to(torch.bfloat16)
+    return buf[off:off + rows * ld].view(rows, ld)[:, :d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 8, 9, 5376])
+def test_silu_kernels_row_edges_on_card(card, d):
+    """Rows of width d starting at every 2-byte offset within 16 bytes,
+    dense (one flat range) and as rows of a wider tensor, g at offsets
+    of its own: the walk's heads and tails, its narrower vectors and the
+    strided kernel, and the grid's last chunk; bit-equal to the plain
+    versions, one launch a call."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    for ld in (d, d + 11):
+        for off in range(8):
+            x = _offset_rows(3, d, ld, off, gen, card)
+            before = ops.silu.launches
+            got = ops.silu(x)
+            assert ops.silu.launches == before + 1
+            _assert_bits(got, silu_ref(x), [x], f"silu, ld {ld}, off {off}")
+            for goff in (0, off, (off + 3) % 8):
+                g = _offset_rows(3, d, ld, goff, gen, card)
+                before = ops.silu_bwd.launches
+                got = ops.silu_bwd(g, x)
+                assert ops.silu_bwd.launches == before + 1
+                _assert_bits(got, silu_bwd_ref(g, x), [g, x],
+                             f"silu_bwd, ld {ld}, offsets {goff} / {off}")
