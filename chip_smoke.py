@@ -12,14 +12,16 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `ssd_chunk.cu`, `quantize.cu`, `silu.cu` and `waterfill.cu` with
    `nvcc`, one process each, started together,
    and prints ptxas's reports (registers, static shared memory, spills),
-   per ssd_chunk kernel (the forward's three and the backward's four)
-   its registers, spills and the dynamic shared memory of a block at
-   the serve shape, failing if a backward kernel spills, and the counts
-   of tensor-core
+   per ssd_chunk kernel (the forward's three, the f32 backward's four
+   and the bf16 backward's three) its registers, spills and the dynamic
+   shared memory of a block at the serve shape, failing if a backward
+   kernel spills, and the counts of tensor-core
    (HGMMA) and asynchronous-copy (LDGSTS, UTMALDG, UBLKCP) instructions
-   in ssd_chunk's SASS (`cuobjdump -sass`); the same for quantize's
+   in ssd_chunk's SASS (`cuobjdump -sass`) and in each bf16 backward
+   wgmma kernel's own; the same for quantize's
    grouped (persistent) and tile (cluster) kernels; fails if there is no
-   HGMMA in ssd_chunk's SASS, no bulk copy (UBLKCP) in quantize's, or a
+   HGMMA in ssd_chunk's SASS or in a bf16 backward wgmma kernel's, no
+   bulk copy (UBLKCP) in quantize's, or a
    spill in a quantize kernel; and rf_predict's two kernels', silu's
    four kernels' (silu, SiLU's gradient, the gate, and the gate's
    gradient, which is also the SSM gate's; for the first two also the
@@ -348,10 +350,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
    within 1e-4 of each output's max |g| of its plain version (bf16
    outputs also one bf16 step), the SiLU backwards bit-equal, each
    called twice and equal bit for bit, timed beside its bound and its
-   plain version; and one `make_train_step` step of `mamba2-2.7b` at
-   full width, 2 layers, f32, B=1, S=512 (2 chunks) on the card and on
-   the host within part (3)'s bounds, the card's first `ssd_chunk_bwd`
-   call (f32) held to its plain version.
+   plain version (`ssd_chunk_bwd` also by kernel in the profiled step,
+   with the scratch bytes it allocates); and one `make_train_step`
+   step of `mamba2-2.7b` at full width, 2 layers, f32, B=1, S=512 (2
+   chunks) on the card and on the host within part (3)'s bounds, the
+   card's first `ssd_chunk_bwd` call (f32) held to its plain version.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -3970,8 +3973,8 @@ def train_profile(fn) -> dict:
     in a range, and the kernels of its backward nodes: log-sum-exp,
     gather, mean), the optimizer (`adamw_update` in a range), the port's
     gate and SSD kernels and their backwards (KERNEL_KINDS, by kernel
-    name), the other matrix products (cuBLAS / CUTLASS names) and the
-    rest; the kernels run."""
+    name; also each of those kernels' own device ms), the other matrix
+    products (cuBLAS / CUTLASS names) and the rest; the kernels run."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(label):
@@ -4001,6 +4004,7 @@ def train_profile(fn) -> dict:
 
     total = matmul = 0.0
     by = dict.fromkeys((k for k, _ in KERNEL_KINDS), 0.0)
+    port = {}                           # the port's kernels, by name
     flash = {ATTN_FWD: 0.0, ATTN_BWD: 0.0}
     n_kernels = 0
     for e in events:
@@ -4014,6 +4018,9 @@ def train_profile(fn) -> dict:
         kind = next((k for k, key in KERNEL_KINDS if key in e.name), None)
         if kind is not None:
             by[kind] += ms
+            m = re.search(r"\w+_kernel(<\w+>)?", e.name)
+            name = m.group(0) if m else e.name
+            port[name] = port.get(name, 0.0) + ms
         elif is_flash(e.name):
             flash[ATTN_FWD if "flash_fwd" in e.name else ATTN_BWD] += ms
     # kernels under each range or backward node, each CPU op once
@@ -4039,7 +4046,7 @@ def train_profile(fn) -> dict:
     by["matmul_other"] = matmul - ranged_mm
     by["rest"] = total - sum(by.values())
     return {"device_ms": total, "kernels": n_kernels, "by_kind": by,
-            "flash_kernels": flash}
+            "flash_kernels": flash, "port_kernels": port}
 
 
 def check_bwd(args) -> float:
@@ -4153,12 +4160,17 @@ def ssd_bwd_bound(xq, Bq):
 
 
 def time_ssd_bwd(args) -> dict:
-    """Device ms of the wrapper's call (its four kernels, with the
-    scratch they take) over back-to-back calls, beside the plain version
-    and the bound."""
+    """Device ms of the wrapper's call (its kernels, with the scratch
+    they take) over back-to-back calls, beside the plain version and the
+    bound; the scratch bytes."""
     bound_ms, by, nbytes, nops = ssd_bwd_bound(args[0], args[1])
+    B, nC, Q, H, _ = args[0].shape
+    scratch = ssd_scan.bwd_scratch(B, nC, Q, H, args[1].shape[-1],
+                                   args[0].dtype == torch.bfloat16)
     return {"ms": device_ms(lambda: ops.ssd_chunk_bwd(*args), launches=10,
                             reps=5),
+            "scratch_bytes": 4 * sum(int(np.prod(v))
+                                     for v in scratch.values()),
             "wrapper_ms": call_ms(lambda: ops.ssd_chunk_bwd(*args), reps=5),
             "plain_ms": call_ms(lambda: ssd_chunk_bwd_ref(*args), reps=5),
             # no single PyTorch call computes the SSD chunk's gradient
@@ -4730,6 +4742,15 @@ def ssm_train(cfg, dev, smi: str, parity_cfg=None) -> dict:
             f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
             f"B, {t['ops']} ops) | library call: none (no single PyTorch "
             f"call computes the SSD chunk's gradient) | {smi}")
+        per_call = {n: v / cfg.n_layers for n, v in
+                    single["profile"]["port_kernels"].items()
+                    if n.startswith("ssd_bwd_")}
+        t["kernels_ms"] = per_call
+        log(f"[train] ssd_chunk_bwd kernels in the profiled step (device ms "
+            f"a call, {cfg.n_layers} calls): " + ", ".join(
+                f"{n} {v:.5f}" for n, v in per_call.items()) +
+            f"; scratch {t['scratch_bytes']} B (f32, allocated by the "
+            f"wrapper each call) | {smi}")
     del args
     for name in ("silu_bwd", "silu_gate_prod_bwd"):
         args = calls.pop(name)
@@ -5010,7 +5031,9 @@ def main() -> int:
     if counts["HGMMA"] == 0:
         raise AssertionError("no HGMMA instruction in ssd_chunk's SASS: "
                              "the tensor-core kernel is not in the binary")
-    # the backward's four kernels (CUDA cores): registers and spills
+    # the backward's kernels (f32: four on the CUDA cores; bf16: three,
+    # two of them wgmma): registers and spills; HGMMA in the bf16 wgmma
+    # kernels' own SASS (the library's count passes on the forward alone)
     bwd_spills = {n: report.get(n) for n in ssd_scan.BWD_KERNELS
                   if "registers" not in report.get(n, {}) or
                   report[n].get("spill_stores") or
@@ -5018,6 +5041,21 @@ def main() -> int:
     if bwd_spills:
         raise AssertionError(f"ssd_chunk's backward kernels missing from "
                              f"ptxas's report or spilling: {bwd_spills}")
+    bwd_sass = sass_counts_by_kernel(build.library_path("ssd_chunk"),
+                                     ssd_scan.BWD_TC_KERNELS)
+    results["build_ssd"]["bwd_sass"] = bwd_sass
+    for name in ssd_scan.BWD_TC_KERNELS:
+        log(f"[build] ssd_chunk backward {name}: SASS " + ", ".join(
+            f"{k} {v}" for k, v in bwd_sass[name].items()) + "; registers "
+            f"{report[name]['registers']}, dynamic shared memory "
+            f"{report[name]['dynamic_smem']} B (the forward's "
+            f"ssd_chunk_bf16_kernel: registers "
+            f"{report['ssd_chunk_bf16_kernel'].get('registers')}, "
+            f"{report['ssd_chunk_bf16_kernel']['dynamic_smem']} B)")
+    no_tc = [n for n in ssd_scan.BWD_TC_KERNELS if bwd_sass[n]["HGMMA"] == 0]
+    if no_tc:
+        raise AssertionError(f"no HGMMA instruction in the SASS of "
+                             f"ssd_chunk's backward kernels {no_tc}")
     q_report = ptxas_report(texts["quantize"], QUANT_KERNELS)
     for name in QUANT_KERNELS:
         log(f"[build] quantize: {name}: " + ", ".join(

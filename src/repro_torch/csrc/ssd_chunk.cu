@@ -402,6 +402,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[NR]) {
 #pragma unroll
   for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int NR>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Shared-memory matrix descriptor, no swizzle: start address, the byte
 // distance between core matrices (8 rows x 16 bytes, 128 bytes each)
@@ -900,7 +905,7 @@ int launch_wgmma(const void* x, const void* Bm, const void* Cm,
 }
 
 // ======================================================================
-// The backward (ssd_chunk_bwd): CUDA-core kernels, f32 arithmetic
+// The backward (ssd_chunk_bwd)
 // ======================================================================
 // For each (b, c, h), with cum, L (zero above the diagonal), G = C B^T,
 // S = G o L and r[k] = exp(cum[Q-1] - cum[k]) as the forward takes
@@ -911,8 +916,73 @@ int launch_wgmma(const void* x, const void* Bm, const void* Cm,
 //   E = dS o S; rho[k] = r[k] sum_p x[k,p] (B dst^T)[k,p]
 //   dcum[q] = sum_k E[q,k] - sum_q' E[q',q] - rho[q]
 //             + [q = Q-1] sum_k rho[k];  dda = reverse cumsum of dcum.
-// Four kernels, one launch each, nothing summed by atomics (two calls
-// give the same bits):
+// dx, dB and dC are rounded once from f32 to the input dtype; every
+// decay factor and sum is f32. Nothing is summed by atomics: every sum
+// runs in a fixed order, so two calls give the same bits.
+//
+// What bounds it on this card: bytes, barely. At the train shape of
+// mamba2-2.7b (B=4, nC=4, Q=256, H=80, P=64, N=128, bf16 x, B and C)
+// one call must read x, B, C, da, dy (f32) and dst (f32) and write dx,
+// dB, dC and dda: 216.5 MB, 64.6 us at 3.35 TB/s. Its contractions are
+// 22.4 GFLOP, 23 us at the 989 TFLOP/s bf16 tensor-core rate (two to
+// three times that with the hi/lo splits below), and it takes 52 M
+// exps. So the products have to run on the tensor cores and
+// the per-head intermediates (dS o L, r o (x dst): 503 MB of f32 at
+// that shape if each head wrote its own) have to stay on chip.
+//
+// bf16 inputs (the train path) take three kernels, on the tensor cores
+// with wgmma, every product kept at f32 accuracy as the forward keeps
+// it: x, B and C are bf16 (exact products, f32 sums); each f32 operand
+// (dy, dst, S, r o x, dG) is split into hi = bf16(v) and lo = bf16(v -
+// hi), and a product of a bf16 and an f32 operand runs as two wgmmas,
+// of two f32 operands (dx = S^T dy) as three: hi.hi + hi.lo + lo.hi.
+//  1. ssd_bwd_wgmma_kernel: one block per item (b*c, 64-row k-tile,
+//     group of kHeadsB heads), k-tile 0 first (it meets every q-tile).
+//     The item's C B^T tiles (transposed: k rows, q columns; m64n64k16
+//     from B and C in shared memory) are made once and kept in f32 in
+//     shared memory (Q <= 256; beyond, each pair makes its own). Then
+//     per head, in order, and per q-tile >= its k-tile, two warpgroups
+//     work side by side, meeting at a block barrier a pair:
+//     - the dS side: dS^T = x dy^T (k rows; x as register A), the decay
+//       and causal mask in registers (branch-free: the exponent of a
+//       pair k > q is -1e30), dS^T o L added into the item's dG tiles
+//       in shared memory (each element by one thread, in head order), E
+//       = dS o S and its row sums over the k-tile and column sums
+//       (final); per head also cum (its 4 warps, chunk_cumsum's order),
+//       B dst^T (B as register A), rho (final) and r o B dst^T for dx;
+//     - the dx side: S^T = (C B^T)^T o L again, split hi / lo in
+//       registers as the register-A fragment of dx += S^T dy (as the
+//       forward's scores are of y); dx (final); per head r o (x dst)
+//       added into an m64n128 accumulator over the item's heads;
+//     - both: per pair half the rows of the next pair's dy, copied by
+//       cp.async into an f32 staging tile one pair ahead and split hi /
+//       lo there by the thread that copied it (no barrier), while the
+//       pair's products run; per head half of dst, loaded into
+//       registers a head ahead.
+//     The dx side also brings B, x and da (one head ahead) and the C
+//     tiles. Register-A wgmma loops are unrolled with static indices
+//     and the fragments fenced until the wait: the wgmma reads them
+//     after it is issued. One warpgroup alone was latency-bound (one
+//     warp an SM quarter) and spilled; the two split the per-pair work
+//     about evenly and hide each other's waits (PERF.md has the times).
+//  2. ssd_bwd_gsum_kernel: the sums over head groups of the items' dG
+//     and r o (x dst) tiles, each element's groups added in order into
+//     group 0's slot; and per (b*c, h) one warp: dcum from E's row sums
+//     (k-tiles in order), its column sums and rho, and dda by the
+//     reverse scan in chunk_cumsum's order.
+//  3. ssd_bwd_dbc_kernel: dC = dG B and dB = dG^T C + the summed r o
+//     (x dst), one block per (b*c, 64-row tile, which), m64n128k16.
+// Scratch, f32 (`bwd_scratch_floats`; kernels/ssd_scan.py's
+// `bwd_scratch` allocates the same): dG tiles [BC, nG, nT(nT+1)/2,
+// 64*64], r o (x dst) [BC, nG, nT, 64*128], E's row sums [BC, H, nT, Q],
+// its column sums and rho [BC, H, Q] each. At the train shape 26.2 +
+// 21.0 + 5.2 + 1.3 + 1.3 = 55.1 MB (the CUDA-core design took 507 MB).
+// What is left for later: a second item an SM (the item's 211 KB of
+// shared memory allow one), TMA and the 128-byte swizzle, and a
+// persistent grid.
+//
+// f32 inputs (the f32 parity step; not the train path) take four
+// CUDA-core kernels, f32 arithmetic:
 //  1. ssd_bwd_cb_kernel: G = C B^T per (b*c), the causal 64x64 tiles,
 //     into scratch (f32), computed once for all heads;
 //  2. ssd_bwd_head_kernel: one block per (b*c, h), k-tiles outer,
@@ -924,22 +994,8 @@ int launch_wgmma(const void* x, const void* Bm, const void* Cm,
 //     C B^T buffer, the other into head 0's slab);
 //  4. ssd_bwd_bc_kernel: dC = dG B and dB = dG^T C + that sum, one
 //     block per (b*c, 64-row tile, which).
-// dx, dB and dC are rounded once from f32 to the input dtype; every
-// decay factor and sum is f32. A 256x256 f32 score tile does not fit a
-// block's shared memory, so Q runs in 64-row tiles (as the f32 forward
-// kernels). At the train shape (B=4, nC=4, Q=256, H=80, P=64, N=128)
-// the scratch is 4 MB (C B^T), 335 MB (dS o L per head) and 168 MB.
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
+// A 256x256 f32 score tile does not fit a block's shared memory, so Q
+// runs in 64-row tiles (as the f32 forward kernels).
 constexpr int kXS = kMaxP + 1;   // row stride of x / dy tiles (floats)
 constexpr int kNS = kMaxN + 1;   // row stride of B / dst tiles
 constexpr int kTS = kTile + 1;   // row stride of 64x64 tiles
@@ -960,9 +1016,8 @@ size_t bwd_bc_smem_bytes() {
 
 // G[bc][q][k] = sum_n C[q,n] B[k,n] for the causal tiles:
 // blockIdx = (b*c, q-tile, k-tile), upper tiles return at once.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
                   float* __restrict__ G, int Q, int N) {
   const int qt = blockIdx.y, kt = blockIdx.z;
   if (kt > qt) return;
@@ -975,8 +1030,8 @@ ssd_bwd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int i = threadIdx.x; i < kTile * N; i += kThreads) {
     const int r = i / N, n = i - r * N;
-    Cs[r * kNS + n] = r < nq ? to_f32(Cm[(bc * Q + q0 + r) * N + n]) : 0.0f;
-    Bs[r * kNS + n] = r < nk ? to_f32(Bm[(bc * Q + k0 + r) * N + n]) : 0.0f;
+    Cs[r * kNS + n] = r < nq ? Cm[(bc * Q + q0 + r) * N + n] : 0.0f;
+    Bs[r * kNS + n] = r < nk ? Bm[(bc * Q + k0 + r) * N + n] : 0.0f;
   }
   __syncthreads();
   float s[4][4] = {};
@@ -1011,15 +1066,14 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // One (b*c, h): blockIdx = (b*c, h). See the section's head comment.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_head_kernel(const T* __restrict__ x,        // [BC, Q, H, P]
-                    const T* __restrict__ Bm,       // [BC, Q, N]
+ssd_bwd_head_kernel(const float* __restrict__ x,        // [BC, Q, H, P]
+                    const float* __restrict__ Bm,       // [BC, Q, N]
                     const float* __restrict__ da,   // [BC, H, Q]
                     const float* __restrict__ dy,   // [BC, Q, H, P]
                     const float* __restrict__ dst,  // [BC, H, P, N]
                     const float* __restrict__ G,    // [BC, Q, Q]
-                    T* __restrict__ dx,             // [BC, Q, H, P]
+                    float* __restrict__ dx,             // [BC, Q, H, P]
                     float* __restrict__ dGh,        // [BC, H, Q, Q]
                     float* __restrict__ dB2h,       // [BC, H, Q, N]
                     float* __restrict__ dda,        // [BC, H, Q]
@@ -1059,11 +1113,11 @@ ssd_bwd_head_kernel(const T* __restrict__ x,        // [BC, Q, H, P]
     for (int i = tid; i < kTile * P; i += kThreads) {
       const int r = i / P, p = i - r * P;
       xs[r * kXS + p] =
-          r < nk ? to_f32(x[((bc * Q + k0 + r) * H + h) * P + p]) : 0.0f;
+          r < nk ? x[((bc * Q + k0 + r) * H + h) * P + p] : 0.0f;
     }
     for (int i = tid; i < kTile * N; i += kThreads) {
       const int r = i / N, n = i - r * N;
-      Bs[r * kNS + n] = r < nk ? to_f32(Bm[(bc * Q + k0 + r) * N + n]) : 0.0f;
+      Bs[r * kNS + n] = r < nk ? Bm[(bc * Q + k0 + r) * N + n] : 0.0f;
     }
     float adx[4][4] = {};               // dx[k0 + ty + 16i][tx + 16j]
     for (int qt = kt; qt < nT; ++qt) {
@@ -1163,7 +1217,7 @@ ssd_bwd_head_kernel(const T* __restrict__ x,        // [BC, Q, H, P]
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int p = tx + 16 * j;
-          if (p < P) dx[((bc * Q + k) * H + h) * P + p] = from_f32<T>(adx[i][j]);
+          if (p < P) dx[((bc * Q + k) * H + h) * P + p] = adx[i][j];
         }
       }
     }
@@ -1245,12 +1299,11 @@ ssd_bwd_sum_kernel(const float* __restrict__ dGh, float* __restrict__ dB2h,
 
 // dC for one q-tile (blockIdx.z = 0) or dB for one k-tile (1):
 // blockIdx = (b*c, tile, which). Outputs rounded once to T.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+ssd_bwd_bc_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ dG,    // [BC, Q, Q] causal
                   const float* __restrict__ dB2,   // [BC, H, Q, N]: h = 0
-                  T* __restrict__ dB, T* __restrict__ dC, int Q, int H,
+                  float* __restrict__ dB, float* __restrict__ dC, int Q, int H,
                   int N) {
   extern __shared__ float smem[];
   float* gs = smem;                     // [kTile][kTS]: a dG tile
@@ -1260,7 +1313,7 @@ ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
   const bool want_dC = blockIdx.z == 0;
   const int r0 = t * kTile, nr = min(kTile, Q - r0);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* V = want_dC ? Bm : Cm;
+  const float* V = want_dC ? Bm : Cm;
   float acc[4][8] = {};
   // dC[q] = sum_{k <= q} dG[q,k] B[k]; dB[k] = sum_{q >= k} dG[q,k] C[q]
   const int first = want_dC ? 0 : t, stop = want_dC ? t + 1 : nT;
@@ -1278,7 +1331,7 @@ ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
     for (int i = tid; i < kTile * N; i += kThreads) {
       const int a = i / N, n = i - a * N;
       vs[a * kMaxN + n] =
-          a < no ? to_f32(V[(bc * Q + o0 + a) * N + n]) : 0.0f;
+          a < no ? V[(bc * Q + o0 + a) * N + n] : 0.0f;
     }
     __syncthreads();
     for (int m = 0; m < no; ++m) {
@@ -1298,7 +1351,7 @@ ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
-  T* out = want_dC ? dC : dB;
+  float* out = want_dC ? dC : dB;
   const long long qn = static_cast<long long>(Q) * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -1311,42 +1364,1078 @@ ssd_bwd_bc_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
       const size_t at = (bc * Q + r0 + r) * N + n;
       float v = acc[i][j];
       if (!want_dC) v += dB2[bc * H * qn + (r0 + r) * N + n];
-      out[at] = from_f32<T>(v);
+      out[at] = v;
     }
   }
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* Bm, const void* Cm, const void* da,
-               const void* dy, const void* dst, void* dx, void* dB, void* dC,
-               void* dda, float* G, float* dGh, float* dB2h, int BC, int Q,
-               int H, int P, int N, cudaStream_t stream) {
+// ---- bf16 inputs: the wgmma kernels -------------------------------------
+constexpr int kHeadsB = 8;              // heads of a backward item
+constexpr int kFrag4 = kWgThreads * 8;  // float4s of a 64x64 f32 tile
+
+// Shared memory of an item (bytes), in this order: the C B^T tiles
+// (kWin, fragment order; without the cache three C tiles) | the dG
+// tiles (kWin, fragment order; without the cache the rows) | the B tile
+// | two x tiles | D: two C tiles while C B^T is made; dst hi / lo at a
+// head's start, then r o B dst^T in its second pair's half; dy hi / lo
+// of two pairs | dy's
+// f32 staging tile [64][64] (swizzled; each warpgroup stages and splits
+// half its rows) | E's row sums by warp [4][64] | with the cache two
+// rows of nT*64 floats (da, then cum in place), by head parity.
+constexpr int kOffDga = kWin * kScoreTile;
+constexpr int kOffB = kOffDga + kWin * kScoreTile;
+constexpr int kOffX = kOffB + kTileN;
+constexpr int kOffD = kOffX + 2 * kTileP;
+constexpr int kOffStage = kOffD + 2 * kTileN;
+constexpr int kOffRed = kOffStage + 64 * 64 * 4;
+constexpr int kOffRows = kOffRed + 4 * 64 * 4;
+
+__host__ __device__ int n_tiles(int Q) { return (Q + 63) / 64; }
+__host__ __device__ bool bwd_cache(int Q) { return n_tiles(Q) <= kWin; }
+size_t bwd_item_smem_bytes(int Q) {
+  return kOffRows + (bwd_cache(Q) ? static_cast<size_t>(2) * n_tiles(Q) *
+                                        64 * 4 : 0);
+}
+size_t bwd_dbc_smem_bytes() {
+  return 2 * static_cast<size_t>(kTileN) + 64 * 65 * 4;
+}
+
+// the causal (q-tile, k-tile) pairs, kt <= qt, in one list
+__host__ __device__ __forceinline__ int pair_index(int qt, int kt) {
+  return qt * (qt + 1) / 2 + kt;
+}
+
+// floats of each scratch array (see the section's head comment)
+void bwd_scratch_floats(long long BC, int Q, int H, long long out[5]) {
+  const long long nT = n_tiles(Q), nG = (H + kHeadsB - 1) / kHeadsB;
+  out[0] = BC * nG * (nT * (nT + 1) / 2) * 64 * 64;   // dG tiles
+  out[1] = BC * nG * nT * 64 * 128;                   // r o (x dst)
+  out[2] = BC * H * nT * Q;                           // E's row sums
+  out[3] = BC * H * Q;                                // E's column sums
+  out[4] = BC * H * Q;                                // rho
+}
+
+struct BwdArgs {
+  const bf16* x;      // [BC, Q, H, P]
+  const bf16* Bm;     // [BC, Q, N]
+  const bf16* Cm;     // [BC, Q, N]
+  const float* da;    // [BC, H, Q]
+  const float* dy;    // [BC, Q, H, P]
+  const float* dst;   // [BC, H, P, N]
+  bf16* dx;           // [BC, Q, H, P]
+  bf16* dB;           // [BC, Q, N]
+  bf16* dC;           // [BC, Q, N]
+  float* dda;         // [BC, H, Q]
+  float* dgp;         // scratch: see the head comment
+  float* dbp;
+  float* rowp;
+  float* colE;
+  float* rho;
+  long long BC;
+  int Q, H, P, N, nG, nT, nPairs;
+  int vec_x, vec_bc, vec_da, vec_dy, vec_dst;   // 16-byte rows
+};
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_bar(int wg) {   // one warpgroup
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void fence_async() {    // generic -> wgmma
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// d += A . B over one k16 step, A (m64 x k16 bf16) from registers in
+// the accumulator-shaped fragment layout, B from shared memory K-major
+// (no swizzle); m64n64k16, f32 accumulate.
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
+                                               const uint32_t* a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The register-A fragments of K columns [0, 16 nk) of a bf16 tile's
+// rows r0, r1 (the accumulator layout's pairs at columns 8 jj + cp).
+template <int NK>
+__device__ __forceinline__ void tile_frags(uint32_t (&f)[4 * NK],
+                                           const unsigned char* tile, int r0,
+                                           int r1, int cp) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * kk + 8 * h + cp;
+      f[4 * kk + 2 * h] =
+          *reinterpret_cast<const uint32_t*>(tile + tile_off(r0, c));
+      f[4 * kk + 2 * h + 1] =
+          *reinterpret_cast<const uint32_t*>(tile + tile_off(r1, c));
+    }
+  }
+}
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// 8 floats into hi / lo bf16 chunks
+__device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split2(v[2 * e], v[2 * e + 1], h[e], l[e]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// An f32 staging tile of `pitch4` float4s a row, float4 c4 of row r at
+// c4 ^ (r & 7): the 8 rows a quarter-warp reads at once fall on distinct
+// banks.
+__device__ __forceinline__ float* swz(float* t, int pitch4, int r, int c) {
+  return t + (r * pitch4 + ((c >> 2) ^ (r & 7))) * 4 + (c & 3);
+}
+
+// This thread's two chunks (8 columns each, jb = 0, 1) of rows [rb, rb
+// + 32) of a 64-column tile, the same for the copy into the staging
+// tile and for the split out of it, so that neither needs a barrier:
+// each warp takes 8 rows x 4 chunks at a time.
+__device__ __forceinline__ void dy_chunk(int rb, int jb, int& r, int& c) {
+  const int lane = threadIdx.x & 31, job = ((threadIdx.x >> 5) & 3) + 4 * jb;
+  r = rb + (job & 3) * 8 + (lane & 7);
+  c = ((job >> 2) * 4 + (lane >> 3)) * 8;
+}
+
+// This thread's chunks of rows [rb, rb + 32) of an f32 tile (row stride
+// ld, nr rows and P columns real) into the staging tile by cp.async, 16
+// bytes a copy where `vec`, else 4; what is not real is left as it is
+// (split_dy masks it).
+__device__ __forceinline__ void stage_dy(float* t, const float* __restrict__ src,
+                                         long long ld, int rb, int nr, int P,
+                                         bool vec) {
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    int r, c;
+    dy_chunk(rb, jb, r, c);
+    if (r >= nr) continue;
+    const float* s = src + r * ld + c;
+    if (vec) {
+      if (c < P) cp_async16(swz(t, 16, r, c), s);
+      if (c + 4 < P) cp_async16(swz(t, 16, r, c + 4), s + 4);
+    } else {
+      for (int e = 0; e < 8 && c + e < P; ++e)
+        cp_async4(swz(t, 16, r, c + e), s + e);
+    }
+  }
+}
+
+// This thread's chunks of the staged tile (nr rows, P columns real, the
+// rest zero) into bf16 hi and lo tiles [64 x 64].
+__device__ __forceinline__ void split_dy(unsigned char* hi, unsigned char* lo,
+                                         float* t, int rb, int nr, int P) {
+#pragma unroll
+  for (int jb = 0; jb < 2; ++jb) {
+    int r, c;
+    dy_chunk(rb, jb, r, c);
+    float v[8];
+    if (r < nr && c + 8 <= P) {
+      const float4 u = *reinterpret_cast<const float4*>(swz(t, 16, r, c));
+      const float4 w = *reinterpret_cast<const float4*>(swz(t, 16, r, c + 4));
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = r < nr && c + e < P ? *swz(t, 16, r, c + e) : 0.0f;
+    }
+    uint4 h, l;
+    split8(v, h, l);
+    *reinterpret_cast<uint4*>(hi + tile_off(r, c)) = h;
+    *reinterpret_cast<uint4*>(lo + tile_off(r, c)) = l;
+  }
+}
+
+// What an item's two warpgroups share (see the head comment): the
+// item, its shared memory, and this thread's fragment rows r0, r1 and
+// column offset cp (in its warpgroup).
+struct Item {
+  long long bc, row0, bh0;       // b*c, its first row, (b*c)*H + h0
+  int kt, k0, nk, g, h0, nh, nqt, T, nks, nkp, rowf;
+  int wg, wt, lane, r0, r1, cp, ka, kb, rb;   // rb: this warpgroup's rows
+  float4* gt;                    // C B^T tiles (kCache)
+  float4* dga;                   // dG tiles (kCache)
+  unsigned char* ctiles;         // three C tiles (!kCache)
+  float* rows;                   // two da / cum rows, by head parity
+  unsigned char* btile;
+  unsigned char* xtiles;         // two x tiles, by head parity
+  unsigned char* D;
+  float* stage;
+  float* red;
+  float4* gp;                    // the item's dG slots in the scratch
+};
+
+__device__ __forceinline__ unsigned char* dy_tiles(const Item& it, int t) {
+  return it.D + 2 * kTileP * (t & 1);          // hi, then lo
+}
+
+// This warpgroup's half of pair t's dy tile into the staging tile
+// (warpgroup 0 also takes its C tile without the cache), one group.
+template <bool kCache>
+__device__ __forceinline__ void issue_pair(const BwdArgs& a, const Item& it,
+                                           int t) {
+  const int h = it.h0 + t / it.nqt, q0 = (it.kt + t % it.nqt) * 64;
+  stage_dy(it.stage, a.dy + ((it.row0 + q0) * a.H + h) * a.P,
+           static_cast<long long>(a.H) * a.P, it.rb, min(64, a.Q - q0), a.P,
+           a.vec_dy);
+  if (!kCache && it.wg == 0)
+    load_tile<16>(it.ctiles + kTileN * (t % 3), a.Cm + (it.row0 + q0) * a.N,
+                  a.N, min(64, a.Q - q0), a.N, a.vec_bc);
+  cp_commit();
+}
+// This warpgroup's half of pair t's staged dy into its hi / lo tiles.
+__device__ __forceinline__ void split_pair(const BwdArgs& a, const Item& it,
+                                           int t) {
+  const int q0 = (it.kt + t % it.nqt) * 64;
+  unsigned char* y = dy_tiles(it, t);
+  split_dy(y, y + kTileP, it.stage, it.rb, min(64, a.Q - q0), a.P);
+}
+// Head i's x tile and da row (warpgroup 0), one group.
+__device__ __forceinline__ void issue_head(const BwdArgs& a, const Item& it,
+                                           int i) {
+  const int h = it.h0 + i;
+  load_tile<8>(it.xtiles + kTileP * (i & 1),
+               a.x + ((it.row0 + it.k0) * a.H + h) * a.P,
+               static_cast<long long>(a.H) * a.P, it.nk, a.P, a.vec_x);
+  load_row(it.rows + (i & 1) * it.rowf, a.da + (it.bc * a.H + h) * a.Q, a.Q,
+           a.vec_da);
+  cp_commit();
+}
+
+// This warpgroup's half of head i's dst [P, N] (f32) into registers,
+// and its split into bf16 hi and lo tiles [64 p x 128 n], zero-padded:
+// each thread takes 4 of the 1,024 8-column chunks (warpgroup 0 rows
+// 0-31, warpgroup 1 rows 32-63).
+__device__ __forceinline__ void dst_chunk(int j, int& r, int& c) {
+  const int job = (threadIdx.x >> 5) + 8 * j, lane = threadIdx.x & 31;
+  r = (job & 7) * 8 + (lane & 7);
+  c = ((job >> 3) * 4 + (lane >> 3)) * 8;
+}
+__device__ __forceinline__ void dst_load(float (&v)[4][8], const BwdArgs& a,
+                                         const Item& it, int i) {
+  const float* src = a.dst + (it.bh0 + i) * a.P * a.N;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int r, c;
+    dst_chunk(j, r, c);
+    const float* s = src + static_cast<long long>(r) * a.N + c;
+    if (a.vec_dst && r < a.P && c + 8 <= a.N) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(s));
+      const float4 w = __ldg(reinterpret_cast<const float4*>(s + 4));
+      v[j][0] = u.x; v[j][1] = u.y; v[j][2] = u.z; v[j][3] = u.w;
+      v[j][4] = w.x; v[j][5] = w.y; v[j][6] = w.z; v[j][7] = w.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[j][e] = r < a.P && c + e < a.N ? __ldg(s + e) : 0.0f;
+    }
+  }
+}
+__device__ __forceinline__ void dst_split(const float (&v)[4][8],
+                                          const Item& it) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int r, c;
+    dst_chunk(j, r, c);
+    uint4 h, l;
+    split8(v[j], h, l);
+    *reinterpret_cast<uint4*>(it.D + tile_off(r, c)) = h;
+    *reinterpret_cast<uint4*>(it.D + kTileN + tile_off(r, c)) = l;
+  }
+}
+
+// (C B^T)^T of C tile `ct` (k rows, q columns) into s
+__device__ __forceinline__ void cbt_tile(float (&s)[32], const Item& it,
+                                         const unsigned char* ct) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+  fence_regs(s);
+  wgmma_fence();
+  for (int kk = 0; kk < it.nks; ++kk)
+    wgmma_ss_n64(s, desc(it.btile + kk * 2048, 1024, 128),
+                 desc(ct + kk * 2048, 1024, 128));
+  wgmma_commit_wait();
+  fence_regs(s);
+}
+
+// The decay of element (jj, e) of this thread's fragment at q-tile q0:
+// exp(cum[q] - cum[k]) for k <= q < Q, else 0 (branch-free: the
+// exponent of a masked pair is -1e30). L[4]: (r0, q), (r0, q+1), (r1,
+// q), (r1, q+1).
+__device__ __forceinline__ void decay4(float (&L)[4], const Item& it,
+                                       const float* cum, float cka,
+                                       float ckb, int q0, int jj, int Q) {
+  const int qc = q0 + 8 * jj + it.cp;
+  const float2 cq = *reinterpret_cast<const float2*>(cum + qc);
+  const int la = it.ka - q0 - it.cp, lb = it.kb - q0 - it.cp;
+  const bool v0 = qc < Q, v1 = qc + 1 < Q;
+  L[0] = expf(v0 && 8 * jj >= la ? cq.x - cka : -1e30f);
+  L[1] = expf(v1 && 8 * jj + 1 >= la ? cq.y - cka : -1e30f);
+  L[2] = expf(v0 && 8 * jj >= lb ? cq.x - ckb : -1e30f);
+  L[3] = expf(v1 && 8 * jj + 1 >= lb ? cq.y - ckb : -1e30f);
+}
+
+// chunk_cumsum's order over n values, in place, by warpgroup 1: each
+// warp scans segments of 32 (warp w: w, w + 4, ..); then each segment
+// adds its carry, the segments' totals folded in order (as the one-warp
+// scan carries them), in `tot`.
+__device__ void cumsum_wg(float* v, int n, float* tot) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int nseg = (n + 31) / 32;
+  for (int s = warp; s < nseg; s += 4) {
+    const int i = 32 * s + lane;
+    float x = i < n ? v[i] : 0.0f;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += u;
+    }
+    if (i < n) v[i] = x;
+    if (lane == 31) tot[s] = x;
+  }
+  wg_bar(1);
+  for (int s = warp; s < nseg; s += 4) {
+    float carry = 0.0f;
+    for (int u = 0; u < s; ++u) carry = tot[u] + carry;
+    const int i = 32 * s + lane;
+    if (i < n) v[i] = v[i] + carry;
+  }
+}
+
+// The item's r o (x dst) over its heads (k rows, n columns), on the dx
+// side: xd += (r o x) dst, r o x split hi / lo in registers, dst's hi /
+// lo tiles MN-major in D.
+__device__ __forceinline__ void xd_add(float (&xd)[64], const Item& it,
+                                       const unsigned char* xt, float ra,
+                                       float rb) {
+  uint32_t xf[16], ah[16], al[16];
+  tile_frags<4>(xf, xt, it.r0, it.r1, it.cp);
+#pragma unroll
+  for (int f = 0; f < 16; ++f) {
+    const float2 u = bf2(xf[f]);
+    const float r = f & 1 ? rb : ra;
+    split2(r * u.x, r * u.y, ah[f], al[f]);
+  }
+  fence_regs(xd);
+  fence_regs(ah);
+  fence_regs(al);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= it.nkp) break;
+    const uint64_t bh = desc(it.D + kk * 256, 128, 1024);
+    const uint64_t bl = desc(it.D + kTileN + kk * 256, 128, 1024);
+    wgmma_rs_n128(xd, ah + 4 * kk, bh);
+    wgmma_rs_n128(xd, ah + 4 * kk, bl);
+    wgmma_rs_n128(xd, al + 4 * kk, bh);
+  }
+  wgmma_commit_wait();
+  fence_regs(xd);
+  fence_regs(ah);
+  fence_regs(al);
+}
+// The item's r o (x dst) into its scratch slot (fragment order).
+__device__ __forceinline__ void xd_out(const float (&xd)[64],
+                                       const BwdArgs& a, const Item& it) {
+  float4* bp = reinterpret_cast<float4*>(a.dbp) +
+               ((it.bc * a.nG + it.g) * a.nT + it.kt) * 2 *
+                   static_cast<long long>(kFrag4);
+#pragma unroll
+  for (int f = 0; f < 16; ++f)
+    bp[f * kWgThreads + it.wt] =
+        make_float4(xd[4 * f], xd[4 * f + 1], xd[4 * f + 2], xd[4 * f + 3]);
+}
+
+// Warpgroup 0, the dx side and the loader (the B tile, x, da and the C
+// tiles): per head r o (x dst); per pair S^T = (C B^T)^T o L,
+// split, and dx += S^T dy (dx starting as r o B dst^T), its half of the
+// next pair's dy split while that runs; dx out.
+template <bool kCache>
+__device__ __forceinline__ void bwd_dx_side(const BwdArgs& a,
+                                            const Item& it) {
+  const int Q = a.Q, H = a.H, P = a.P, wt = it.wt;
+  float xd[64];                         // sum_h r o (x dst)
+#pragma unroll
+  for (int e = 0; e < 64; ++e) xd[e] = 0.0f;
+  float v[4][8];                        // this half of dst, a head ahead
+  dst_load(v, a, it, 0);
+  int t = 0;
+  for (int i = 0; i < it.nh; ++i) {
+    cp_wait_all();                      // x(i), da(i), pair t: this half
+    __syncthreads();                    // HS0: the last pair's D read
+    dst_split(v, it);
+    fence_async();
+    __syncthreads();                    // HS1: dst tiles, x(i), da(i)
+    if (i + 1 < it.nh) issue_head(a, it, i + 1);
+    __syncthreads();                    // HS2: cum(i)
+    const float* cum = it.rows + (i & 1) * it.rowf;
+    const unsigned char* xt = it.xtiles + kTileP * (i & 1);
+    const float last = cum[Q - 1];
+    const float cka = it.ka < Q ? cum[it.ka] : 0.0f;
+    const float ckb = it.kb < Q ? cum[it.kb] : 0.0f;
+    const float ra = it.ka < Q ? expf(last - cka) : 0.0f;
+    const float rb = it.kb < Q ? expf(last - ckb) : 0.0f;
+    xd_add(xd, it, xt, ra, rb);
+    __syncthreads();                    // HS3: the dst tiles consumed
+    split_pair(a, it, t);
+    fence_async();
+    if (t + 1 < it.T) issue_pair<kCache>(a, it, t + 1);
+    __syncthreads();                    // HS4: r o B dst^T in D
+    float dx[32];                       // dx starts as r o B dst^T
+    {
+      const float4* rbd =
+          reinterpret_cast<const float4*>(dy_tiles(it, t + 1));
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 w = rbd[jj * kWgThreads + wt];
+        dx[4 * jj] = w.x; dx[4 * jj + 1] = w.y;
+        dx[4 * jj + 2] = w.z; dx[4 * jj + 3] = w.w;
+      }
+    }
+    for (int j = 0; j < it.nqt; ++j, ++t) {
+      const int q0 = (it.kt + j) * 64;
+      const unsigned char* yh = dy_tiles(it, t);
+      __syncthreads();                  // B1: pair t's dy tiles
+      float gs[32];
+      if (!kCache) cbt_tile(gs, it, it.ctiles + kTileN * (t % 3));
+      const float4* gtt = it.gt + j * kFrag4;
+      uint32_t sh[16], sl[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float L[4];
+        decay4(L, it, cum, cka, ckb, q0, jj, Q);
+        float4 gv;
+        if (kCache) gv = gtt[jj * kWgThreads + wt];
+        else gv = make_float4(gs[4 * jj], gs[4 * jj + 1], gs[4 * jj + 2],
+                              gs[4 * jj + 3]);
+        const int f = 4 * (jj >> 1) + 2 * (jj & 1);
+        split2(gv.x * L[0], gv.y * L[1], sh[f], sl[f]);
+        split2(gv.z * L[2], gv.w * L[3], sh[f + 1], sl[f + 1]);
+      }
+      fence_regs(dx);
+      fence_regs(sh);
+      fence_regs(sl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // hi.hi + hi.lo + lo.hi
+        const uint64_t dh = desc(yh + kk * 256, 128, 1024);
+        const uint64_t dl = desc(yh + kTileP + kk * 256, 128, 1024);
+        wgmma_rs_n64(dx, sh + 4 * kk, dh);
+        wgmma_rs_n64(dx, sh + 4 * kk, dl);
+        wgmma_rs_n64(dx, sl + 4 * kk, dh);
+      }
+      wgmma_commit();
+      if (j + 1 < it.nqt) {             // this thread's share of the next
+        cp_wait_all();                  // pair's dy (the copies are its own)
+        split_pair(a, it, t + 1);
+        fence_async();
+        if (t + 2 < it.T) issue_pair<kCache>(a, it, t + 2);
+      }
+      wgmma_wait();
+      fence_regs(dx);
+      fence_regs(sh);                   // read by the wgmmas until here
+      fence_regs(sl);
+    }
+    if (i + 1 < it.nh) dst_load(v, a, it, i + 1);
+    const int h = it.h0 + i;            // dx = r o B dst^T + S^T dy
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float* vv = dx + 4 * jj;
+      const int p = 8 * jj + it.cp;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = e ? it.kb : it.ka;
+        if (k >= Q || p >= P) continue;
+        bf16* out = a.dx + ((it.row0 + k) * H + h) * P + p;
+        if ((P & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out) =
+              __floats2bfloat162_rn(vv[2 * e], vv[2 * e + 1]);
+        } else {
+          out[0] = __float2bfloat16_rn(vv[2 * e]);
+          if (p + 1 < P) out[1] = __float2bfloat16_rn(vv[2 * e + 1]);
+        }
+      }
+    }
+  }
+  xd_out(xd, a, it);
+}
+
+// Warpgroup 1, the dS side: per head cum, B dst^T (r o B dst^T handed to
+// warpgroup 0 through D at the head's start) and rho; per pair dS^T = x
+// dy^T, dS^T o L added into the dG tiles (shared memory with the cache,
+// else the item's scratch slots; first head writes), E's row sums over
+// the k-tile and its column sums; its half of the next pair's dy split.
+template <bool kCache>
+__device__ __forceinline__ void bwd_ds_side(const BwdArgs& a,
+                                            const Item& it) {
+  const int Q = a.Q, wt = it.wt, lane = it.lane, wwarp = wt >> 5;
+  float v[4][8];                        // this half of dst, a head ahead
+  dst_load(v, a, it, 0);
+  int t = 0;
+  for (int i = 0; i < it.nh; ++i) {
+    const long long bch = it.bh0 + i;
+    cp_wait_all();                      // pair t: this half
+    __syncthreads();                    // HS0: the last pair's D read
+    dst_split(v, it);
+    fence_async();
+    __syncthreads();                    // HS1: dst tiles, x(i), da(i)
+    float* cum = it.rows + (i & 1) * it.rowf;
+    cumsum_wg(cum, Q, it.red);
+    __syncthreads();                    // HS2: cum(i)
+    const unsigned char* xt = it.xtiles + kTileP * (i & 1);
+    const float last = cum[Q - 1];
+    const float cka = it.ka < Q ? cum[it.ka] : 0.0f;
+    const float ckb = it.kb < Q ? cum[it.kb] : 0.0f;
+    const float ra = it.ka < Q ? expf(last - cka) : 0.0f;
+    const float rb = it.kb < Q ? expf(last - ckb) : 0.0f;
+    uint32_t xa[16];                    // x: k rows, p (K) columns
+    tile_frags<4>(xa, xt, it.r0, it.r1, it.cp);
+    float bd[32];                       // B dst^T: k rows, p columns
+    {
+      uint32_t bf[32];
+      tile_frags<8>(bf, it.btile, it.r0, it.r1, it.cp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) bd[e] = 0.0f;
+      fence_regs(bd);
+      fence_regs(bf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {  // A in registers: static indices
+        if (kk >= it.nks) break;
+        wgmma_rs_n64_k(bd, bf + 4 * kk, desc(it.D + kk * 2048, 1024, 128));
+        wgmma_rs_n64_k(bd, bf + 4 * kk,
+                       desc(it.D + kTileN + kk * 2048, 1024, 128));
+      }
+      wgmma_commit_wait();
+      fence_regs(bd);
+      fence_regs(bf);                   // read by the wgmmas until here
+    }
+    __syncthreads();                    // HS3: the dst tiles consumed
+    split_pair(a, it, t);
+    fence_async();
+    if (t + 1 < it.T) issue_pair<kCache>(a, it, t + 1);
+    {                                   // rho[k] = r[k] sum_p x[k,p] bd[k,p]
+      float pa = 0.0f, pb = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 u = bf2(xa[4 * (jj >> 1) + 2 * (jj & 1)]);
+        const float2 w = bf2(xa[4 * (jj >> 1) + 2 * (jj & 1) + 1]);
+        pa = fmaf(u.x, bd[4 * jj], pa);
+        pa = fmaf(u.y, bd[4 * jj + 1], pa);
+        pb = fmaf(w.x, bd[4 * jj + 2], pb);
+        pb = fmaf(w.y, bd[4 * jj + 3], pb);
+      }
+      pa += __shfl_xor_sync(0xffffffffu, pa, 1);
+      pa += __shfl_xor_sync(0xffffffffu, pa, 2);
+      pb += __shfl_xor_sync(0xffffffffu, pb, 1);
+      pb += __shfl_xor_sync(0xffffffffu, pb, 2);
+      if ((lane & 3) == 0) {
+        if (it.ka < Q) a.rho[bch * Q + it.ka] = ra * pa;
+        if (it.kb < Q) a.rho[bch * Q + it.kb] = rb * pb;
+      }
+      // r o B dst^T for dx, in the dy buffer of the head's second pair
+      // (free until that pair is split, after B1 of the first)
+      float4* rbd = reinterpret_cast<float4*>(dy_tiles(it, t + 1));
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        rbd[jj * kWgThreads + wt] =
+            make_float4(ra * bd[4 * jj], ra * bd[4 * jj + 1],
+                        rb * bd[4 * jj + 2], rb * bd[4 * jj + 3]);
+    }
+    __syncthreads();                    // HS4: r o B dst^T in D
+    float ea = 0.0f, eb = 0.0f;         // E's column sums, this thread's
+    for (int j = 0; j < it.nqt; ++j, ++t) {
+      const int q0 = (it.kt + j) * 64;
+      const unsigned char* yh = dy_tiles(it, t);
+      __syncthreads();                  // B1: pair t's dy tiles
+      float gs[32];
+      if (!kCache) cbt_tile(gs, it, it.ctiles + kTileN * (t % 3));
+      float ds[32];                     // dS^T = x dy^T: k rows, q columns
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ds[e] = 0.0f;
+      fence_regs(ds);
+      fence_regs(xa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // A in registers: static indices
+        if (kk >= it.nkp) break;
+        wgmma_rs_n64_k(ds, xa + 4 * kk, desc(yh + kk * 2048, 1024, 128));
+        wgmma_rs_n64_k(ds, xa + 4 * kk,
+                       desc(yh + kTileP + kk * 2048, 1024, 128));
+      }
+      wgmma_commit_wait();
+      fence_regs(ds);
+      fence_regs(xa);                   // read by the wgmmas until here
+      float4* dgt = kCache ? it.dga + j * kFrag4
+                           : it.gp + pair_index(it.kt + j, it.kt) *
+                                         static_cast<long long>(kFrag4);
+      const float4* gtt = it.gt + j * kFrag4;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float L[4];
+        decay4(L, it, cum, cka, ckb, q0, jj, Q);
+        float4 gv;
+        if (kCache) gv = gtt[jj * kWgThreads + wt];
+        else gv = make_float4(gs[4 * jj], gs[4 * jj + 1], gs[4 * jj + 2],
+                              gs[4 * jj + 3]);
+        const float d0 = ds[4 * jj], d1 = ds[4 * jj + 1];
+        const float d2 = ds[4 * jj + 2], d3 = ds[4 * jj + 3];
+        const float e0 = d0 * (gv.x * L[0]), e1 = d1 * (gv.y * L[1]);
+        const float e2 = d2 * (gv.z * L[2]), e3 = d3 * (gv.w * L[3]);
+        float4 acc = i == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                            : dgt[jj * kWgThreads + wt];
+        acc.x = fmaf(d0, L[0], acc.x);
+        acc.y = fmaf(d1, L[1], acc.y);
+        acc.z = fmaf(d2, L[2], acc.z);
+        acc.w = fmaf(d3, L[3], acc.w);
+        dgt[jj * kWgThreads + wt] = acc;
+        ea += e0 + e1;
+        eb += e2 + e3;
+        // E's row sums over this warp's 16 k rows, columns qc, qc + 1
+        float c0 = e0 + e2, c1 = e1 + e3;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+        }
+        if (lane < 4) {
+          it.red[wwarp * 64 + 8 * jj + it.cp] = c0;
+          it.red[wwarp * 64 + 8 * jj + it.cp + 1] = c1;
+        }
+      }
+      wg_bar(1);                        // red written
+      if (wt < 64 && q0 + wt < Q)
+        a.rowp[(bch * a.nT + it.kt) * Q + q0 + wt] =
+            it.red[wt] + it.red[64 + wt] + it.red[128 + wt] +
+            it.red[192 + wt];
+      if (j + 1 < it.nqt) {             // this thread's share of the next
+        cp_wait_all();                  // pair's dy (the copies are its own)
+        split_pair(a, it, t + 1);
+        fence_async();
+        if (t + 2 < it.T) issue_pair<kCache>(a, it, t + 2);
+      }
+    }
+    if (i + 1 < it.nh) dst_load(v, a, it, i + 1);
+    ea += __shfl_xor_sync(0xffffffffu, ea, 1);
+    ea += __shfl_xor_sync(0xffffffffu, ea, 2);
+    eb += __shfl_xor_sync(0xffffffffu, eb, 1);
+    eb += __shfl_xor_sync(0xffffffffu, eb, 2);
+    if ((lane & 3) == 0) {
+      if (it.ka < Q) a.colE[bch * Q + it.ka] = ea;
+      if (it.kb < Q) a.colE[bch * Q + it.kb] = eb;
+    }
+  }
+  if (kCache) {                         // the item's dG tiles
+    for (int j = 0; j < it.nqt; ++j) {
+      float4* slot = it.gp + pair_index(it.kt + j, it.kt) *
+                                 static_cast<long long>(kFrag4);
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        slot[f * kWgThreads + wt] = it.dga[j * kFrag4 + f * kWgThreads + wt];
+    }
+  }
+}
+
+// Items (b*c, k-tile, head group), k-tile 0 first (it meets every
+// q-tile); two warpgroups a block, one item each block.
+template <bool kCache>
+__global__ void __launch_bounds__(2 * kWgThreads, 1)
+ssd_bwd_wgmma_kernel(const BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const long long per = a.BC * a.nG, rest = blockIdx.x % per;
+  unsigned char* smem = bwd_smem;
+  Item it;
+  it.bc = rest / a.nG;
+  it.g = static_cast<int>(rest % a.nG);
+  it.kt = static_cast<int>(blockIdx.x / per);
+  it.k0 = it.kt * 64;
+  it.nk = min(64, a.Q - it.k0);
+  it.h0 = it.g * kHeadsB;
+  it.nh = min(kHeadsB, a.H - it.h0);
+  it.nqt = a.nT - it.kt;
+  it.T = it.nh * it.nqt;
+  it.nks = (a.N + 15) / 16;
+  it.nkp = (a.P + 15) / 16;
+  it.rowf = a.nT * 64;
+  it.row0 = it.bc * a.Q;
+  it.bh0 = it.bc * a.H + it.h0;
+  it.wg = threadIdx.x >> 7;
+  it.wt = threadIdx.x & (kWgThreads - 1);
+  it.lane = threadIdx.x & 31;
+  it.r0 = 16 * (it.wt >> 5) + (it.lane >> 2);
+  it.r1 = it.r0 + 8;
+  it.cp = 2 * (it.lane & 3);
+  it.ka = it.k0 + it.r0;
+  it.kb = it.k0 + it.r1;
+  it.rb = 32 * it.wg;
+  it.gt = reinterpret_cast<float4*>(smem);
+  it.dga = reinterpret_cast<float4*>(smem + kOffDga);
+  it.ctiles = smem;
+  it.rows = reinterpret_cast<float*>(smem + (kCache ? kOffRows : kOffDga));
+  it.btile = smem + kOffB;
+  it.xtiles = smem + kOffX;
+  it.D = smem + kOffD;
+  it.stage = reinterpret_cast<float*>(smem + kOffStage);
+  it.red = reinterpret_cast<float*>(smem + kOffRed);
+  it.gp = reinterpret_cast<float4*>(a.dgp) +
+          (it.bc * a.nG + it.g) * a.nPairs * static_cast<long long>(kFrag4);
+
+  // prologue: the B tile, head 0's x and da, pair 0; with the cache the
+  // C B^T tiles (warpgroup 0 brings the C tiles into D, warpgroup 1
+  // multiplies)
+  if (it.wg == 0) {
+    load_tile<16>(it.btile, a.Bm + (it.row0 + it.k0) * a.N, a.N, it.nk, a.N,
+                  a.vec_bc);
+    issue_head(a, it, 0);
+  }
+  issue_pair<kCache>(a, it, 0);
+  if (kCache) {
+    auto issue_c = [&](int j) {
+      const int q0 = (it.kt + j) * 64;
+      load_tile<16>(it.D + kTileN * (j & 1), a.Cm + (it.row0 + q0) * a.N,
+                    a.N, min(64, a.Q - q0), a.N, a.vec_bc);
+      cp_commit();
+    };
+    if (it.wg == 0) issue_c(0);
+    for (int j = 0; j < it.nqt; ++j) {
+      if (it.wg == 0) {
+        cp_wait_all();
+        fence_async();
+      }
+      __syncthreads();                  // C tile j in; tile j-1 consumed
+      if (it.wg == 0) {
+        if (j + 1 < it.nqt) issue_c(j + 1);
+      } else {
+        float s[32];
+        cbt_tile(s, it, it.D + kTileN * (j & 1));
+#pragma unroll
+        for (int f = 0; f < 8; ++f)
+          it.gt[j * kFrag4 + f * kWgThreads + it.wt] = make_float4(
+              s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+      }
+    }
+  }
+  __syncthreads();                      // the prologue's tiles consumed
+  if (it.wg == 0)
+    bwd_dx_side<kCache>(a, it);
+  else
+    bwd_ds_side<kCache>(a, it);
+}
+
+// Blocks [0, sum_blocks): one thread per float4 of the items' slots,
+// the head groups added in order into group 0's; then blocks of four
+// (b*c, h) rows, one a warp: dcum and dda.
+__global__ void __launch_bounds__(kWgThreads)
+ssd_bwd_gsum_kernel(const BwdArgs a, long long sum_blocks) {
+  const int tid = threadIdx.x;
+  const long long g_dg = static_cast<long long>(a.nPairs) * kFrag4;
+  const long long g_db = static_cast<long long>(a.nT) * 2 * kFrag4;
+  if (blockIdx.x < sum_blocks) {
+    const long long e = static_cast<long long>(blockIdx.x) * kWgThreads + tid;
+    const long long per = g_dg + g_db;
+    if (e >= a.BC * per) return;
+    const long long bc = e / per;
+    long long o = e % per;
+    float4* p;
+    long long stride;
+    if (o < g_dg) {
+      p = reinterpret_cast<float4*>(a.dgp) + bc * a.nG * g_dg + o;
+      stride = g_dg;
+    } else {
+      o -= g_dg;
+      p = reinterpret_cast<float4*>(a.dbp) + bc * a.nG * g_db + o;
+      stride = g_db;
+    }
+    float4 s = p[0];
+#pragma unroll 4
+    for (int g = 1; g < a.nG; ++g) {
+      const float4 w = p[g * stride];
+      s.x += w.x; s.y += w.y; s.z += w.z; s.w += w.w;
+    }
+    p[0] = s;
+    return;
+  }
+  const int lane = tid & 31, Q = a.Q, nT = a.nT;
+  const long long row = (blockIdx.x - sum_blocks) * 4 + (tid >> 5);
+  if (row >= a.BC * a.H) return;
+  const float* rho = a.rho + row * Q;
+  const float* colE = a.colE + row * Q;
+  const float* rowp = a.rowp + row * nT * Q;
+  float rs = 0.0f;                      // sum_k rho[k]: lanes, then a tree
+  for (int k = lane; k < Q; k += 32) rs += rho[k];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
+  // dda = the reverse cumulative sum of dcum, in chunk_cumsum's order
+  // over the reversed axis
+  float carry = 0.0f;
+  for (int base = 0; base < Q; base += 32) {
+    const int i = base + lane, q = Q - 1 - i;
+    float v = 0.0f;
+    if (i < Q) {
+      float e = 0.0f;
+      for (int kt = 0; kt <= q / 64; ++kt) e += rowp[kt * Q + q];
+      v = e - colE[q] - rho[q];
+      if (i == 0) v += rs;
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += t;
+    }
+    v += carry;
+    if (i < Q) a.dda[row * Q + q] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// dB for k-tile t (which = 1: sum over q-tiles >= t of dG^T C, plus the
+// summed r o (x dst)) or dC for q-tile t (0: sum over k-tiles <= t of dG
+// B), from group 0's summed slots; m64n128k16 with the dG tile split
+// hi / lo in registers (dC: transposed through shared memory) and the
+// C or B tiles MN-major by cp.async, two stages.
+__global__ void __launch_bounds__(kWgThreads)
+ssd_bwd_dbc_kernel(const BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char dbc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8, cp = 2 * (lane & 3);
+  const int Q = a.Q, N = a.N, nT = a.nT;
+  // heaviest first: level l holds dB of k-tile l and dC of q-tile
+  // nT-1-l, each nT-l products
+  const int lvl = static_cast<int>(blockIdx.x / (2 * a.BC));
+  const long long rest = blockIdx.x % (2 * a.BC), bc = rest >> 1;
+  const bool want_dB = rest & 1;
+  const int t = want_dB ? lvl : nT - 1 - lvl;
+  const int first = want_dB ? t : 0, n_o = nT - lvl;
+  const long long row0 = bc * Q;
+  unsigned char* ring = dbc_smem;
+  float* tt = reinterpret_cast<float*>(dbc_smem + 2 * kTileN);  // [64][65]
+  const bf16* V = want_dB ? a.Cm : a.Bm;
+  auto issue = [&](int j) {
+    const int o0 = (first + j) * 64;
+    load_tile<16>(ring + kTileN * (j & 1), V + (row0 + o0) * N, N,
+                  min(64, Q - o0), N, a.vec_bc);
+  };
+  issue(0);
+  cp_commit();
+  const float4* gp = reinterpret_cast<const float4*>(a.dgp) +
+                     bc * a.nG * a.nPairs * static_cast<long long>(kFrag4);
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  for (int j = 0; j < n_o; ++j) {
+    const int o = first + j;
+    const float4* src =
+        gp + (want_dB ? pair_index(o, t) : pair_index(t, o)) *
+                 static_cast<long long>(kFrag4);
+    float v[32];                // (dG^T): k rows, q columns
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const float4 w = src[f * kWgThreads + tid];
+      v[4 * f] = w.x; v[4 * f + 1] = w.y; v[4 * f + 2] = w.z;
+      v[4 * f + 3] = w.w;
+    }
+    if (!want_dB) {             // dG: q rows, k columns
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 8 * jj + cp;
+        tt[r0 * 65 + c] = v[4 * jj];
+        tt[r0 * 65 + c + 1] = v[4 * jj + 1];
+        tt[r1 * 65 + c] = v[4 * jj + 2];
+        tt[r1 * 65 + c + 1] = v[4 * jj + 3];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 8 * jj + cp;
+        v[4 * jj] = tt[c * 65 + r0];
+        v[4 * jj + 1] = tt[(c + 1) * 65 + r0];
+        v[4 * jj + 2] = tt[c * 65 + r1];
+        v[4 * jj + 3] = tt[(c + 1) * 65 + r1];
+      }
+    }
+    uint32_t hi[16], lo[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int f = 4 * (jj >> 1) + 2 * (jj & 1);
+      split2(v[4 * jj], v[4 * jj + 1], hi[f], lo[f]);
+      split2(v[4 * jj + 2], v[4 * jj + 3], hi[f + 1], lo[f + 1]);
+    }
+    cp_wait<0>();               // tile j in; tile j-1 and tt consumed
+    if (j + 1 < n_o) issue(j + 1);
+    cp_commit();
+    const unsigned char* vt = ring + kTileN * (j & 1);
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc(vt + kk * 256, 128, 1024);
+      wgmma_rs_n128(acc, hi + 4 * kk, d);
+      wgmma_rs_n128(acc, lo + 4 * kk, d);
+    }
+    wgmma_commit_wait();
+    fence_regs(acc);
+    fence_regs(hi);                     // read by the wgmmas until here
+    fence_regs(lo);
+  }
+  if (want_dB) {                // + the summed r o (x dst)
+    const float4* bp = reinterpret_cast<const float4*>(a.dbp) +
+                       (bc * a.nG * nT + t) * 2 * static_cast<long long>(kFrag4);
+#pragma unroll
+    for (int f = 0; f < 16; ++f) {
+      const float4 w = bp[f * kWgThreads + tid];
+      acc[4 * f] += w.x; acc[4 * f + 1] += w.y;
+      acc[4 * f + 2] += w.z; acc[4 * f + 3] += w.w;
+    }
+  }
+  bf16* out = want_dB ? a.dB : a.dC;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int n = 8 * jj + cp;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = t * 64 + (e ? r1 : r0);
+      if (r >= Q || n >= N) continue;
+      bf16* o = out + (row0 + r) * N + n;
+      const float v0 = acc[4 * jj + 2 * e], v1 = acc[4 * jj + 2 * e + 1];
+      if ((N & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        o[0] = __float2bfloat16_rn(v0);
+        if (n + 1 < N) o[1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+int launch_bwd_wgmma(const void* x, const void* Bm, const void* Cm,
+                     const void* da, const void* dy, const void* dst,
+                     void* dx, void* dB, void* dC, void* dda,
+                     void* const* scratch, int BC, int Q, int H, int P,
+                     int N, cudaStream_t stream) {
+  BwdArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.Bm = static_cast<const bf16*>(Bm);
+  a.Cm = static_cast<const bf16*>(Cm);
+  a.da = static_cast<const float*>(da);
+  a.dy = static_cast<const float*>(dy);
+  a.dst = static_cast<const float*>(dst);
+  a.dx = static_cast<bf16*>(dx);
+  a.dB = static_cast<bf16*>(dB);
+  a.dC = static_cast<bf16*>(dC);
+  a.dda = static_cast<float*>(dda);
+  a.dgp = static_cast<float*>(scratch[0]);
+  a.dbp = static_cast<float*>(scratch[1]);
+  a.rowp = static_cast<float*>(scratch[2]);
+  a.colE = static_cast<float*>(scratch[3]);
+  a.rho = static_cast<float*>(scratch[4]);
+  a.BC = BC;
+  a.Q = Q; a.H = H; a.P = P; a.N = N;
+  a.nG = (H + kHeadsB - 1) / kHeadsB;
+  a.nT = n_tiles(Q);
+  a.nPairs = a.nT * (a.nT + 1) / 2;
+  a.vec_x = P % 8 == 0 && aligned16(x);
+  a.vec_bc = N % 8 == 0 && aligned16(Bm) && aligned16(Cm);
+  a.vec_da = Q % 4 == 0 && aligned16(da);
+  a.vec_dy = P % 4 == 0 && aligned16(dy);
+  a.vec_dst = N % 4 == 0 && aligned16(dst);
+  const long long items = static_cast<long long>(BC) * a.nT * a.nG;
+  const long long sums =
+      (static_cast<long long>(BC) * (a.nPairs + 2LL * a.nT) * kFrag4 +
+       kWgThreads - 1) / kWgThreads;
+  const long long gsum_blocks = sums + (static_cast<long long>(BC) * H + 3) / 4;
+  const long long dbc_blocks = 2LL * BC * a.nT;
+  if (items > 2147483647LL || gsum_blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_item = bwd_item_smem_bytes(Q);
+  const size_t smem_dbc = bwd_dbc_smem_bytes();
+  const auto item_kernel = bwd_cache(Q) ? ssd_bwd_wgmma_kernel<true>
+                                        : ssd_bwd_wgmma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      item_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_item));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_dbc));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  item_kernel<<<static_cast<unsigned>(items), 2 * kWgThreads, smem_item,
+                stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_gsum_kernel<<<static_cast<unsigned>(gsum_blocks), kWgThreads, 0,
+                        stream>>>(a, sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_dbc_kernel<<<static_cast<unsigned>(dbc_blocks), kWgThreads,
+                       smem_dbc, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_f32(const void* x, const void* Bm, const void* Cm,
+                   const void* da, const void* dy, const void* dst, void* dx,
+                   void* dB, void* dC, void* dda, void* const* scratch,
+                   int BC, int Q, int H, int P, int N, cudaStream_t stream) {
+  float* G = static_cast<float*>(scratch[0]);
+  float* dGh = static_cast<float*>(scratch[1]);
+  float* dB2h = static_cast<float*>(scratch[2]);
   const int nT = (Q + kTile - 1) / kTile;
   const size_t smem_cb = bwd_cb_smem_bytes();
   const size_t smem_head = bwd_head_smem_bytes(Q);
   const size_t smem_bc = bwd_bc_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_cb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_cb));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_head_kernel<T>,
+    err = cudaFuncSetAttribute(ssd_bwd_head_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_head));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_bc_kernel<T>,
+    err = cudaFuncSetAttribute(ssd_bwd_bc_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_bc));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* Bt = static_cast<const T*>(Bm);
-  const T* Ct = static_cast<const T*>(Cm);
-  ssd_bwd_cb_kernel<T><<<dim3(BC, nT, nT), kThreads, smem_cb, stream>>>(
+  const float* Bt = static_cast<const float*>(Bm);
+  const float* Ct = static_cast<const float*>(Cm);
+  ssd_bwd_cb_kernel<<<dim3(BC, nT, nT), kThreads, smem_cb, stream>>>(
       Bt, Ct, G, Q, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_kernel<T><<<dim3(BC, H), kThreads, smem_head, stream>>>(
-      static_cast<const T*>(x), Bt, static_cast<const float*>(da),
+  ssd_bwd_head_kernel<<<dim3(BC, H), kThreads, smem_head, stream>>>(
+      static_cast<const float*>(x), Bt, static_cast<const float*>(da),
       static_cast<const float*>(dy), static_cast<const float*>(dst), G,
-      static_cast<T*>(dx), dGh, dB2h, static_cast<float*>(dda), Q, H, P, N);
+      static_cast<float*>(dx), dGh, dB2h, static_cast<float*>(dda), Q, H,
+      P, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long elems = static_cast<long long>(Q) * Q +
@@ -1356,8 +2445,9 @@ int launch_bwd(const void* x, const void* Bm, const void* Cm, const void* da,
                        kThreads, 0, stream>>>(dGh, dB2h, G, Q, H, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_bc_kernel<T><<<dim3(BC, nT, 2), kThreads, smem_bc, stream>>>(
-      Bt, Ct, G, dB2h, static_cast<T*>(dB), static_cast<T*>(dC), Q, H, N);
+  ssd_bwd_bc_kernel<<<dim3(BC, nT, 2), kThreads, smem_bc, stream>>>(
+      Bt, Ct, G, dB2h, static_cast<float*>(dB), static_cast<float*>(dC), Q,
+      H, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1380,27 +2470,42 @@ extern "C" int ssd_chunk_launch(const void* x, const void* Bm,
 }
 
 // The backward's kernels on `stream` (see the backward section): dx,
-// dB, dC in the inputs' dtype (`bf16` = 1: bf16, 0: f32), dda f32;
-// dy [BC,Q,H,P] and dst [BC,H,P,N] f32, all dense. G [BC,Q,Q], dGh
-// [BC,H,Q,Q] and dB2h [BC,H,Q,N] are f32 scratch the caller allocates
-// (nothing need be zeroed). Returns the first CUDA error (0 =
-// launched); the caller checks what ssd_chunk_launch's checks.
+// dB, dC in the inputs' dtype (`bf16` = 1: bf16, the wgmma kernels; 0:
+// f32, the CUDA-core kernels), dda f32; dy [BC,Q,H,P] and dst
+// [BC,H,P,N] f32, all dense. `scratch` holds five f32 buffers the
+// caller allocates, of ssd_chunk_bwd_scratch_floats' sizes (nothing
+// need be zeroed). Returns the first CUDA error (0 = launched); the
+// caller checks what ssd_chunk_launch's checks.
 extern "C" int ssd_chunk_bwd_launch(const void* x, const void* Bm,
                                     const void* Cm, const void* da,
                                     const void* dy, const void* dst,
                                     void* dx, void* dB, void* dC, void* dda,
-                                    void* G, void* dGh, void* dB2h, int bf16,
-                                    int BC, int Q, int H, int P, int N,
-                                    void* stream) {
+                                    void* s0, void* s1, void* s2, void* s3,
+                                    void* s4, int bf16, int BC, int Q, int H,
+                                    int P, int N, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  float* g = static_cast<float*>(G);
-  float* gh = static_cast<float*>(dGh);
-  float* bh = static_cast<float*>(dB2h);
-  return bf16 ? launch_bwd<__nv_bfloat16>(x, Bm, Cm, da, dy, dst, dx, dB,
-                                          dC, dda, g, gh, bh, BC, Q, H, P,
-                                          N, s)
-              : launch_bwd<float>(x, Bm, Cm, da, dy, dst, dx, dB, dC, dda, g,
-                                  gh, bh, BC, Q, H, P, N, s);
+  void* const scratch[5] = {s0, s1, s2, s3, s4};
+  return bf16 ? launch_bwd_wgmma(x, Bm, Cm, da, dy, dst, dx, dB, dC, dda,
+                                 scratch, BC, Q, H, P, N, s)
+              : launch_bwd_f32(x, Bm, Cm, da, dy, dst, dx, dB, dC, dda,
+                               scratch, BC, Q, H, P, N, s);
+}
+
+// Floats of scratch buffer `which` (0-4) the backward takes at (BC, Q,
+// H, N), for bf16 (`bf16` = 1) or f32 inputs (0, three buffers: C B^T
+// [BC,Q,Q], the heads' dS o L [BC,H,Q,Q] and r o (x dst) [BC,H,Q,N]).
+extern "C" long long ssd_chunk_bwd_scratch_floats(int bf16, long long BC,
+                                                  int Q, int H, int N,
+                                                  int which) {
+  long long f[5] = {0, 0, 0, 0, 0};
+  if (bf16) {
+    bwd_scratch_floats(BC, Q, H, f);
+  } else {
+    f[0] = BC * Q * Q;
+    f[1] = BC * H * static_cast<long long>(Q) * Q;
+    f[2] = BC * H * static_cast<long long>(Q) * N;
+  }
+  return which >= 0 && which < 5 ? f[which] : 0;
 }
 
 extern "C" const char* ssd_chunk_error_string(int code) {
@@ -1409,8 +2514,9 @@ extern "C" const char* ssd_chunk_error_string(int code) {
 
 // Dynamic shared memory (bytes) one block takes at (Q, P, N): of the
 // f32 y kernel (kernel = 0), the f32 states kernel (1), the bf16 wgmma
-// kernel (2), and the backward's C B^T (3), per-head (4), head-sum (5)
-// and dB / dC (6) kernels. ptxas reports only static shared memory.
+// kernel (2), the f32 backward's C B^T (3), per-head (4), head-sum (5)
+// and dB / dC (6) kernels, and the bf16 backward's item (7), group-sum
+// (8) and dB / dC (9) kernels. ptxas reports only static shared memory.
 extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int kernel) {
   size_t b = 0;
   switch (kernel) {
@@ -1419,7 +2525,9 @@ extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int kernel) {
     case 2: b = bf16_smem_bytes(Q); break;
     case 3: b = bwd_cb_smem_bytes(); break;
     case 4: b = bwd_head_smem_bytes(Q); break;
+    case 7: b = bwd_item_smem_bytes(Q); break;
     case 6: b = bwd_bc_smem_bytes(); break;
+    case 9: b = bwd_dbc_smem_bytes(); break;
     default: break;
   }
   return static_cast<long long>(b);
@@ -1428,3 +2536,4 @@ extern "C" long long ssd_chunk_smem_bytes(int Q, int P, int N, int kernel) {
 extern "C" int ssd_chunk_max_p() { return kMaxP; }
 extern "C" int ssd_chunk_max_n() { return kMaxN; }
 extern "C" int ssd_chunk_max_q() { return kMaxQ; }
+extern "C" int ssd_chunk_bwd_heads() { return kHeadsB; }

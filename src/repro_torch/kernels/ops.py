@@ -211,9 +211,10 @@ def ssd_chunk_bwd(xq: torch.Tensor, Bq: torch.Tensor, Cq: torch.Tensor,
     contiguous) -> (dx, dB, dC in the inputs' dtype, dda
     [B,nC,H,Q] f32), the decay mask and C B^T recomputed.
 
-    CUDA tensors go to the hand-written kernels (csrc/ssd_chunk.cu:
-    C B^T, the per-head pass, the fixed-order sum over heads, dB / dC;
-    one count a call); CPU tensors to
+    CUDA tensors go to the hand-written kernels (csrc/ssd_chunk.cu; bf16:
+    wgmma items that keep the heads' sums on chip, the fixed-order sums
+    over head groups and dda, dB / dC; f32: four CUDA-core kernels; one
+    count a call); CPU tensors to
     :func:`repro_torch.kernels.ref.ssd_chunk_bwd_ref`. Both take the
     cumulative decay and the reverse cumulative sum of dda in the same
     order (`chunk_cumsum`); the products add in other orders. Two calls

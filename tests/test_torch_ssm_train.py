@@ -37,14 +37,17 @@ Tolerances, each with its reason:
 Card-only tests carry the `cuda` marker and the `card` fixture and
 import no jax: ``python -m pytest -q -m cuda tests/test_torch_ssm_train.py``.
 """
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (silu_bwd_ref, silu_gate_prod_bwd_ref,
+from repro_torch.kernels import ops, ssd_scan
+from repro_torch.kernels.ref import (chunk_cumsum, reverse_cumsum,
+                                     silu_bwd_ref, silu_gate_prod_bwd_ref,
                                      ssd_chunk_bwd_ref, ssd_chunk_ref)
 from repro_torch.models import ssm
 
@@ -126,6 +129,124 @@ def test_ssd_chunk_bwd_ref_matches_autograd(shape):
     for name, g, w in zip(("dx", "dB", "dC", "dda"), got, want):
         assert g.dtype == torch.float32
         _close(g, w, REF_TOL, name)
+
+
+def _pieces(v, n=2):
+    """v (f32) as n bf16 pieces: hi = bf16(v), then bf16 of what is left
+    (each difference exact in f32), as f32 tensors."""
+    out = []
+    for _ in range(n):
+        out.append(v.bfloat16().float())
+        v = v - out[-1]
+    return out
+
+
+def _hilo_bwd(xq, Bq, Cq, da, dy, dst, split=True,
+              heads=ssd_scan.BWD_HEADS):
+    """What the bf16 card kernels compute: every product of a bf16 and an
+    f32 operand as two bf16 products (the f32 one split hi / lo), of two
+    f32 operands (S^T dy) as three (hi.hi + hi.lo + lo.hi), each with f32
+    sums; dG and r o (x dst) summed over each group of `heads` heads,
+    then over the groups; E's row sums per 64-row k-tile, then over the
+    k-tiles. With split=False, the hi pieces alone (one bf16 rounding of
+    each f32 operand)."""
+    n = 2 if split else 1
+    x, Bf, Cf = xq.float(), Bq.float(), Cq.float()
+    Q, H = xq.shape[2], xq.shape[3]
+    cum = chunk_cumsum(da.float())
+    seg = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri, seg, -1e30))              # [B,nC,H,Q,Q]
+    S = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)[:, :, None] * L
+    dS = torch.where(tri, sum(torch.einsum("bcqhp,bckhp->bchqk", d, x)
+                              for d in _pieces(dy, n)), 0.0)
+    r = torch.exp(cum[..., -1:] - cum)                       # [B,nC,H,Q]
+    dsts = _pieces(dst, n)
+    bdst = sum(torch.einsum("bckn,bchpn->bchkp", Bf, d) for d in dsts)
+    Sp, dyp = _pieces(S, n), _pieces(dy, n)
+    pairs = [(0, 0), (0, 1), (1, 0)] if split else [(0, 0)]
+    dx = sum(torch.einsum("bchqk,bcqhp->bckhp", Sp[i], dyp[j])
+             for i, j in pairs) + \
+        (r[..., None] * bdst).permute(0, 1, 3, 2, 4)
+    rxp = _pieces(r.permute(0, 1, 3, 2)[..., None] * x, n)
+    xdst = sum(torch.einsum("bckhp,bchpn->bchkn", rxp[i], dsts[j])
+               for i, j in pairs)                            # [B,nC,H,Q,N]
+    groups = range(0, H, heads)
+    dG = sum((dS * L)[:, :, g:g + heads].sum(2) for g in groups)
+    xsum = sum(xdst[:, :, g:g + heads].sum(2) for g in groups)
+    dGp = _pieces(dG, n)
+    dB = sum(torch.einsum("bcqk,bcqn->bckn", d, Cf) for d in dGp) + xsum
+    dC = sum(torch.einsum("bcqk,bckn->bcqn", d, Bf) for d in dGp)
+    E = dS * S
+    rowE = sum(E[..., k:k + 64].sum(-1) for k in range(0, Q, 64))
+    rho = r * (x.permute(0, 1, 3, 2, 4) * bdst).sum(-1)
+    dcum = rowE - E.sum(-2) - rho
+    dcum[..., -1] += rho.sum(-1)
+    return (dx.to(xq.dtype), dB.to(Bq.dtype), dC.to(Cq.dtype),
+            reverse_cumsum(dcum))
+
+
+def _tol_shares(got, want):
+    """Per output, the largest share of the card's tolerance (CARD_TOL
+    of its max |g|; bf16 outputs also one bf16 step)."""
+    out = {}
+    for name, g, w in zip(("dx", "dB", "dC", "dda"), got, want):
+        g, w = g.float(), w.float()
+        rtol = 2.0 ** -7 if name != "dda" else 0.0
+        atol = CARD_TOL * w.abs().max()
+        out[name] = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+    return out
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["decay", "signed"])
+def test_hilo_bwd_split_holds_the_card_tolerance(signed):
+    """At the train widths (Q=256, P=64, N=128; 16 heads: two groups) in
+    bf16, the card kernels' arithmetic (`_hilo_bwd`) stays within the
+    card's tolerance of the plain version, dda (f32, no rtol: a
+    difference of sums of E) within a quarter of it, so two bf16 pieces
+    of dy suffice for dS; one bf16 rounding of each f32 operand would
+    not hold dx or dda."""
+    args = _as_torch(_chunk_inputs(1, 2, 256, 16, 64, 128, seed=5,
+                                   signed=signed), torch.bfloat16)
+    want = ssd_chunk_bwd_ref(*args)
+    shares = _tol_shares(_hilo_bwd(*args), want)
+    assert max(shares.values()) <= 1.0 and shares["dda"] <= 0.25, shares
+    hi_only = _tol_shares(_hilo_bwd(*args, split=False), want)
+    assert hi_only["dx"] > 1.0 and hi_only["dda"] > 1.0, hi_only
+
+
+def test_bwd_kernel_names_are_the_library_kernels():
+    """Every name in `ssd_scan.KERNELS` (which chip_smoke.py reports and
+    profiles by) is a __global__ of csrc/ssd_chunk.cu, and each backward
+    kernel's name starts with `ssd_bwd_` (a train profile's
+    `ssd_chunk_bwd` kind)."""
+    src = (Path(ssd_scan.__file__).resolve().parents[1] / "csrc" /
+           "ssd_chunk.cu").read_text()
+    found = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                           r"[^)]*\)\s+)?(\w+)\s*\(", src))
+    assert set(ssd_scan.KERNELS) <= found, found
+    assert ssd_scan.BWD_KERNELS and all(
+        n.startswith("ssd_bwd_") for n in ssd_scan.BWD_KERNELS)
+    assert set(ssd_scan.BWD_TC_KERNELS) <= set(ssd_scan.BWD_KERNELS)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_bwd_scratch_at_the_train_shape(bf16):
+    """The f32 scratch `launch_bwd` allocates (`ssd_scan.bwd_scratch`) at
+    the train shape (B=4, nC=4, Q=256, H=80, N=128): under 100 MB for
+    bf16 inputs (the heads' sums kept on chip: 55.1 MB), every head's
+    dS o L and r o (x dst) for f32 inputs (507.5 MB)."""
+    shapes = ssd_scan.bwd_scratch(4, 4, 256, 80, 128, bf16)
+    nbytes = 4 * sum(int(np.prod(s)) for s in shapes.values())
+    if bf16:
+        assert list(shapes) == ["dG", "xdst", "rowE", "colE", "rho"]
+        assert nbytes == 55_050_240 and nbytes < 100e6
+    else:
+        assert list(shapes) == ["cb", "dGh", "dB2h"]
+        assert nbytes == 507_510_784
+    # a ragged shape: the last tile and the last head group partial
+    s = ssd_scan.bwd_scratch(1, 2, 200, 13, 128, True)
+    assert s["dG"] == (2, 2, 10, 4096) and s["rowE"] == (2, 13, 4, 200)
 
 
 def _scan_inputs(B, S, H, P, N, seed):
@@ -350,9 +471,13 @@ def card():
 
 
 # the train shape (B=4, nC=4 chunks of 256, 80 heads, P=64, N=128);
-# SHAPES at B=2, nC=2; a ragged Q over two tiles with odd widths
+# SHAPES at B=2, nC=2; a ragged Q over two tiles with odd widths; full
+# widths with a ragged Q over four tiles and a partial head group; and
+# Q over five tiles (the bf16 kernels' C B^T no longer kept on chip)
 CARD_SHAPES = [(4, 4, 256, 80, 64, 128)] + \
-    [(2, 2) + s for s in SHAPES] + [(2, 3, 83, 3, 8, 24)]
+    [(2, 2) + s for s in SHAPES] + [(2, 3, 83, 3, 8, 24),
+                                    (1, 2, 200, 13, 64, 128),
+                                    (1, 1, 320, 9, 64, 128)]
 
 
 def check_ssd_bwd(got, want, dtype):
@@ -373,7 +498,7 @@ def check_ssd_bwd(got, want, dtype):
                          ids=lambda s: "B{}C{}Q{}H{}P{}N{}".format(*s))
 def test_ssd_chunk_bwd_kernel_matches_plain_on_card(card, shape, dtype,
                                                     signed):
-    """The four kernels against `ssd_chunk_bwd_ref` on the same card
+    """The kernels against `ssd_chunk_bwd_ref` on the same card
     inputs, log-decays of one sign (decay) or both (growth too, as
     `test_ssd_kernel_positive_log_decay_on_card`); a second call gives
     the same bits."""
@@ -421,6 +546,21 @@ def test_silu_backward_kernels_bit_equal_on_card(card, dtype):
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
     assert (ops.silu_bwd.launches, ops.silu_gate_prod_bwd.launches) == \
         (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_bwd_scratch_matches_the_library(card):
+    """`ssd_scan.bwd_scratch`, by which the wrapper allocates, gives the
+    sizes the library's kernels index (`ssd_chunk_bwd_scratch_floats`)."""
+    lib = ssd_scan._lib()
+    for B, nC, Q, H, N in ((4, 4, 256, 80, 128), (1, 2, 200, 13, 128),
+                           (2, 3, 83, 3, 24), (1, 1, 4096, 9, 16)):
+        for bf16 in (True, False):
+            sizes = [int(np.prod(s)) for s in ssd_scan.bwd_scratch(
+                B, nC, Q, H, N, bf16).values()]
+            sizes += [0] * (5 - len(sizes))
+            assert sizes == [lib.ssd_chunk_bwd_scratch_floats(
+                int(bf16), B * nC, Q, H, N, i) for i in range(5)]
 
 
 @pytest.mark.cuda
