@@ -273,6 +273,40 @@ Every phase is fatal: a failure exits non-zero before the result line.
    of each, the largest difference (each output row within 2^-5 of
    its max |out|), the bound (bytes, k and v at their 8 KV heads; the
    products at the bf16 tensor-core rate).
+12b. hybrid — the hybrid family, after the dense phase's models are
+   freed: (1) the slice's main path: `zamba2-2.7b` at its full width
+   and depth (54 Mamba-2 layers, d 2560, 80 SSM heads of P = N = 64,
+   chunk 256; one shared attention + MLP block, 32 heads over 32 KV
+   heads of D = 80, d_ff 10,240, run before layers 0, 6, ..., 48; vocab
+   32,000; bf16 compute, f32 params, weights from a `torch.Generator`
+   seeded 0) behind `Engine(..., ServeConfig(batch=4, s_max=1024))`
+   with a `WanifyController` on the paper forest, after a warm-up that
+   captures the kernels' first inputs: `replan()` and its schedule,
+   then the serve phase's 8 requests (two prefills, 32 decode steps).
+   Counts zeroed just before and read just after: exactly 2 x 54 = 108
+   `ssd_chunk`, 2 x 9 = 18 `flash_fwd`, 34 x 54 = 1,836 `silu`, 34 x
+   (54 + 9) = 2,142 `silu_gate` (the gated norm a layer, the shared
+   MLP's gate an application), 1 `rf_predict`, no backward kernel;
+   every id in [0, vocab), every logit finite; prefill ms per group,
+   decode ms median and p90, tokens/s, peak memory; group 1's prefill
+   and one decode step under `torch.profiler` for the device ms by kind
+   (`ssd_chunk`, the flash kernels, `silu_gate`, `silu`, the products,
+   the rest), the kernels and the busy share;
+   (2) the kernels on the captured inputs: `ssd_chunk` at layer 0 of
+   both prefills (N = 64, which the bf16 kernel pads to 128) within
+   1e-4 of its plain version, timed beside its bound and the serve
+   phase's N = 128 time; `flash_fwd` at the first shared application of
+   both prefills ([4, 32, 1, S, 80] bf16) within 2^-7 of each row's
+   max, timed beside its plain version, SDPA and the bound; each called
+   twice, equal bit for bit; `silu`, the gated norm's `silu_gate` and
+   the shared MLP's value-only `silu_gate` bit-equal to their plain
+   versions at both prefills and a decode step, timed at group 1's;
+   (3) parity: `zamba2-2.7b` at full width cut to 7 layers (the shared
+   block before layers 0 and 6), f32, on the card and on the host with
+   the same weights: prefill (group 1's prompts) and 4 decode steps
+   within atol / rtol 1e-3, equal ids wherever the top-2 gap exceeds
+   that; the card's first `flash_fwd` call (f32) against its plain
+   version within 1e-5 of max |out|. Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
    are freed, then the ssm family's (part (5)):
    (1) the slice's main path: `h2o-danube-1.8b` at its full width and
@@ -422,9 +456,10 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models import transformer as lm_mod  # noqa: E402
-from repro_torch.models.transformer import (DenseLM, MambaLM,  # noqa: E402
-                                            param_tree, stack_cache,
-                                            stack_layers, unstack_cache)
+from repro_torch.models.transformer import (DenseLM, HybridLM,  # noqa: E402
+                                            MambaLM, param_tree,
+                                            stack_cache, stack_layers,
+                                            unstack_cache)
 from repro_torch.obs import check_run  # noqa: E402
 from repro_torch.obs import cli as obs_cli  # noqa: E402
 from repro_torch.obs import load as obs_load  # noqa: E402
@@ -2654,25 +2689,26 @@ def check_served(out, reqs, vocab: int) -> None:
 def device_kernels(fn):
     """Run `fn` under `torch.profiler` (CUDA activity only) and return
     the device time of its kernels (ms) in total and by kind: the
-    ssd_chunk kernels, the silu kernels, matrix products (cuBLAS's
-    nvjet / gemm / gemv
+    ssd_chunk kernels, the flash kernels, the silu_gate kernels, the
+    other silu kernels, matrix products (cuBLAS's nvjet / gemm / gemv
     and CUTLASS names), and the rest; the number of kernels run; and
     the five longest kernels by total time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"ssd_chunk": 0.0, "silu": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = dict.fromkeys(("ssd_chunk", "flash_fwd", "silu_gate", "silu",
+                           "matmul", "other"), 0.0)
     rows, n_kernels = [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        kind = "ssd_chunk" if "ssd_" in name else "silu" if \
-            "silu_" in name else "matmul" if any(
-            k in name for k in ("nvjet", "gemm", "gemv", "cutlass", "xmma",
-                                "cublas")) else "other"
+        kind = "ssd_chunk" if "ssd_" in name else "flash_fwd" if \
+            is_flash(name) else "silu_gate" if "silu_gate" in name else \
+            "silu" if "silu_" in name else "matmul" if any(
+                k in name for k in MATMUL_KEYS) else "other"
         kinds[kind] += ms
         n_kernels += e.count
         rows.append((ms, e.count, e.key[:60]))
@@ -3705,11 +3741,15 @@ def log_flash(tag: str, which: str, chk: dict, t: dict, smi: str) -> None:
            else "none") + f" | {smi}")
 
 
-def dense_serve(cfg, paper, dev) -> dict:
-    """The dense phase's part (1): `cfg` served by the Engine with a
-    controller on the paper forest, every count checked; returns the
-    numbers, the captured kernel inputs and the engine (kept for the
-    profile)."""
+def serve_counted(cfg, paper, dev, capture, counted, want_of) -> tuple:
+    """`cfg` (at full size: weights from a `torch.Generator` seeded 0)
+    served by the Engine with a controller on the paper forest, after a
+    warm-up (cuBLAS set-up, the bf16 cast) that captures the kernels'
+    first inputs (`capture(step)`) of both prefills and a decode step;
+    the launches of `counted` zeroed just before `replan()` and the
+    serve and read just after, held to `want_of(n_prefill, n_steps)`
+    (the expected counts and why). Returns (numbers, captures, engine,
+    groups)."""
     t0 = time.perf_counter()
     model = registry.build_model(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -3722,18 +3762,16 @@ def dense_serve(cfg, paper, dev) -> dict:
                         controller=ctl, device=dev)
     reqs = serve_requests(cfg.vocab)
     groups = groups_of(reqs)
-    # warm-up (cuBLAS set-up, the bf16 cast) that captures layer 0's
-    # kernel inputs: both prefills, then one decode step
-    caps = [dense_capture(lambda g=g: eng.prefill(eng.batch_tokens(g)))
+    caps = [capture(lambda g=g: eng.prefill(eng.batch_tokens(g)))
             for g in groups]
-    caps.append(dense_capture(
-        lambda: eng.decode(np.zeros(SERVE_BATCH, np.int32))))
+    caps.append(capture(lambda: eng.decode(np.zeros(SERVE_BATCH,
+                                                     np.int32))))
     # the main path, counts zeroed just before it and read just after
     eng.timings = {"prefill_s": [], "decode_s": []}
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for name in DENSE_COUNTED:
+    for name in counted:
         getattr(ops, name).launches = 0
     t0 = time.perf_counter()
     eng.replan()
@@ -3741,18 +3779,13 @@ def dense_serve(cfg, paper, dev) -> dict:
     t1 = time.perf_counter()
     out = eng.serve(reqs)
     serve_s = time.perf_counter() - t1
-    got = {name: getattr(ops, name).launches for name in DENSE_COUNTED}
+    got = {name: getattr(ops, name).launches for name in counted}
     n_prefill = len(eng.timings["prefill_s"])
-    n_steps = n_prefill + len(eng.timings["decode_s"])
-    want = {"silu_gate": n_steps * cfg.n_layers,
-            "flash_fwd": n_prefill * cfg.n_layers, "flash_bwd": 0,
-            "rf_predict": 1, "ssd_chunk": 0, "silu": 0}
+    want, why = want_of(n_prefill,
+                        n_prefill + len(eng.timings["decode_s"]))
     if got != want:
-        raise AssertionError(f"dense serve launches {got}, expected {want}: "
-                             f"one silu_gate per layer per step ({n_steps} "
-                             f"steps), one flash_fwd per layer per prefill "
-                             f"({n_prefill}) and none in decode, 1 "
-                             f"rf_predict, no ssd_chunk or silu")
+        raise AssertionError(f"{cfg.arch_id} serve launches {got}, "
+                             f"expected {want}: {why}")
     check_served(out, reqs, cfg.vocab)
     prefill_ms = [v * 1e3 for v in eng.timings["prefill_s"]]
     decode_ms = [v * 1e3 for v in eng.timings["decode_s"]]
@@ -3766,12 +3799,28 @@ def dense_serve(cfg, paper, dev) -> dict:
            "launches": got, "replan_s": t1 - t0, "schedule": schedule,
            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
            "decode_ms_median": float(np.median(decode_ms)),
+           "decode_ms_p90": float(np.percentile(decode_ms, 90)),
            "serve_s": serve_s, "tokens": tokens,
            "tokens_per_s": tokens / serve_s,
            "peak_bytes": torch.cuda.max_memory_allocated()
            if dev.type == "cuda" else None,
            "out": {str(k): v for k, v in out.items()}}
     return res, caps, eng, groups
+
+
+def dense_serve(cfg, paper, dev) -> tuple:
+    """The dense phase's part (1): `serve_counted` with the dense
+    captures; one silu_gate a layer a step, one flash_fwd a layer a
+    prefill."""
+    def want_of(n_prefill, n_steps):
+        return ({"silu_gate": n_steps * cfg.n_layers,
+                 "flash_fwd": n_prefill * cfg.n_layers, "flash_bwd": 0,
+                 "rf_predict": 1, "ssd_chunk": 0, "silu": 0},
+                f"one silu_gate per layer per step ({n_steps} steps), one "
+                f"flash_fwd per layer per prefill ({n_prefill}) and none "
+                f"in decode, 1 rf_predict, no ssd_chunk or silu")
+    return serve_counted(cfg, paper, dev, dense_capture, DENSE_COUNTED,
+                         want_of)
 
 
 def dense_parity(dev, cfgs=None) -> dict:
@@ -3825,7 +3874,7 @@ def dense_phase(paper, dev, smi: str) -> dict:
         f"{p:.2f} (S={s})" for p, s in zip(serve["prefill_ms"],
                                            serve["group_lens"]))
         + f"; decode ms per step: median {serve['decode_ms_median']:.3f}, "
-        f"p90 {np.percentile(serve['decode_ms'], 90):.3f}; peak device "
+        f"p90 {serve['decode_ms_p90']:.3f}; peak device "
         f"memory {serve['peak_bytes'] / 2**30:.3f} GiB")
     log("[dense] ids: " + "; ".join(f"{k}: {v[:6]}" for k, v in
                                     sorted(serve["out"].items())[:3]))
@@ -3918,6 +3967,226 @@ def dense_phase(paper, dev, smi: str) -> dict:
     out = {"serve": serve, "attention": attn, "parity": parity,
            "s": time.perf_counter() - t_phase}
     log(f"[dense] phase {out['s']:.2f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
+# hybrid phase
+# ----------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-2.7b"
+# the kernels the hybrid's serve launches, and the backwards it must not
+HYBRID_COUNTED = ("ssd_chunk", "flash_fwd", "silu", "silu_gate",
+                  "rf_predict", "flash_bwd", "ssd_chunk_bwd", "silu_bwd",
+                  "silu_gate_bwd", "silu_gate_prod_bwd")
+# the parity cut: the shared block runs twice, before layers 0 and 6
+HYBRID_PARITY_LAYERS = 7
+
+
+def hybrid_capture(step) -> dict:
+    """Run `step` (the hybrid engine's prefill or decode) and return the
+    first call's (args, kwargs) of each kernel wrapper of its path:
+    `ssd_chunk` and `silu` (layer 0's), `flash_fwd` (the first shared
+    application's) and `silu_gate` twice: the shared MLP's value-only
+    gate ("silu_gate_mlp", the first call: the block runs before layer
+    0) and layer 0's gated norm ("silu_gate")."""
+    seen = {}
+    record = first_calls(seen)
+
+    def wrap(name, fn):
+        if name != "silu_gate":
+            return record(name, fn)
+        mlp, norm = record("silu_gate_mlp", fn), record("silu_gate", fn)
+
+        def call(*args, **kw):
+            return (mlp if kw.get("with_prod") is False else norm)(*args,
+                                                                   **kw)
+        call.launches = 0
+        return call
+    with patched(ops, wrap, ("ssd_chunk", "flash_fwd", "silu", "silu_gate")):
+        step()
+    return seen
+
+
+def two_calls_equal(fn, what: str) -> None:
+    """`fn` (a kernel wrapper's call) twice on the same inputs: every
+    output equal bit for bit; raises otherwise."""
+    first, second = fn(), fn()
+    sync(first[0].device)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{what}: two calls differ")
+
+
+def hybrid_serve(cfg, paper, dev) -> tuple:
+    """The hybrid phase's serve: `serve_counted` with the hybrid
+    captures; per prefill one ssd_chunk a layer and one flash_fwd an
+    application of the shared block, per step one silu a layer and one
+    silu_gate a layer and an application, no backward kernel."""
+    apps = sum(lm_mod.shared_flags(cfg))
+
+    def want_of(n_prefill, n_steps):
+        want = dict.fromkeys(HYBRID_COUNTED, 0)
+        want.update({"ssd_chunk": n_prefill * cfg.n_layers,
+                     "flash_fwd": n_prefill * apps,
+                     "silu": n_steps * cfg.n_layers,
+                     "silu_gate": n_steps * (cfg.n_layers + apps),
+                     "rf_predict": 1})
+        return want, (f"per prefill one ssd_chunk a layer and one "
+                      f"flash_fwd an application ({apps}); per step one "
+                      f"silu a layer and one silu_gate a layer and an "
+                      f"application ({n_steps} steps); 1 rf_predict; no "
+                      f"backward kernel")
+    res = serve_counted(cfg, paper, dev, hybrid_capture, HYBRID_COUNTED,
+                        want_of)
+    res[0]["shared_applications"] = apps
+    return res
+
+
+def hybrid_kernels(caps, cfg, smi: str, ssd_n128_ms: float) -> dict:
+    """The hybrid phase's kernel checks on the serve's captured inputs:
+    `ssd_chunk` (layer 0, N = 64) within SSD_TOL of its plain version,
+    timed beside its bound and the mamba serve's N = 128 time;
+    `flash_fwd` (the first shared application: 32 heads, G = 1, D = 80)
+    within 2^-7 of each bf16 row's max, timed beside SDPA and the bound;
+    each called twice, equal bit for bit; the SiLU kernels at the
+    hybrid's shapes bit-equal to their plain versions, timed at group
+    1's prefill."""
+    out = {}
+    cases, err = [], 0.0
+    for step, cap in zip(("prefill1", "prefill2"), caps):
+        for b, c, sub in ssd_subsets(cap["ssd_chunk"][0]):
+            e, share = check_ssd(sub)
+            err = max(err, e)
+            cases.append({"step": step, "B": b, "nC": c, "err": e,
+                          "tol_share": share})
+    args = caps[0]["ssd_chunk"][0]
+    two_calls_equal(lambda: ops.ssd_chunk(*args), "ssd_chunk")
+    t = time_ssd(args)
+    t["n128_ms"] = ssd_n128_ms
+    out["ssd_chunk"] = {"cases": cases, "max_abs_err": err, "timing": t}
+    log(f"[hybrid] ssd_chunk {t['shape']} {t['dtype']}: within {SSD_TOL} of "
+        f"plain at layer 0 of both prefills (max |diff| {err:.3e}, "
+        f"{max(c['tol_share'] for c in cases):.3f} of the tolerance), two "
+        f"calls equal | kernel {t['ms']:.4f} ms (N=128 in the mamba serve: "
+        f"{ssd_n128_ms:.4f} ms) | plain {t['plain_ms']:.4f} ms | bound "
+        f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B, "
+        f"{t['ops']} ops) | library call: none | {smi}")
+    checks = [check_flash_fwd(cap["flash_fwd"][0]) for cap in caps[:2]]
+    fargs = caps[0]["flash_fwd"][0]
+    two_calls_equal(lambda: ops.flash_fwd(*fargs), "flash_fwd")
+    ft = time_flash_fwd(fargs, cfg.n_kv_heads)
+    out["flash_fwd"] = {"checks": checks, "timing": ft,
+                        "max_err": max(c["out"]["err"] for c in checks)}
+    log_flash("hybrid", "fwd", checks[0], ft, smi)
+    log(f"[hybrid] flash_fwd {checks[1]['shape']} (group 2's prefill): "
+        f"out within {checks[1]['out']['err']:.3g} of the tolerance "
+        f"({checks[1]['out']['ulp_apart_share']:.4%} > 1 ulp), lse "
+        f"{checks[1]['lse_max_abs_diff']:.3g}; two calls equal")
+    silu = {}
+    for key, name in (("silu", "silu"), ("silu_gate", "silu_gate"),
+                      ("silu_gate_mlp", "silu_gate")):
+        errs = [check_silu(name, *cap[key]) for cap in caps]
+        silu[key] = time_silu(name, *caps[0][key])
+        silu[key]["max_abs_err"] = max(errs)
+        s = silu[key]
+        log(f"[hybrid] {key} {s['shape']} {s['dtype']} (value only: "
+            f"{s['value_only']}): bit-equal to plain at both prefills and "
+            f"a decode step; kernel {s['ms']:.5f} ms | plain "
+            f"{s['plain_ms']:.5f} ms | bound {s['bound_ms']:.5f} ms by "
+            f"{s['bound_by']} ({s['bytes']} B) | library call: "
+            f"{lib_text(s)} | {smi}")
+    out["silu"] = silu
+    return out
+
+
+def hybrid_parity(dev, cfg, tokens: np.ndarray) -> dict:
+    """`cfg` cut to HYBRID_PARITY_LAYERS (the shared block twice) in f32
+    on the card and on the host with the same weights, on `tokens`:
+    prefill and PARITY_STEPS decodes (`check_parity`); the card's first
+    `flash_fwd` call (f32) against its plain version."""
+    t0 = time.perf_counter()
+    pcfg = cfg.replace(n_layers=HYBRID_PARITY_LAYERS, dtype="float32")
+    card_model = registry.build_model(
+        pcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host_model = HybridLM(pcfg, torch.device("cpu"), torch.float32)
+    host_model.load_state_dict(card_model.state_dict())
+    sc = ServeConfig(batch=SERVE_BATCH, s_max=S_MAX)
+    seen = {}
+    with patched(ops, first_card_calls(seen), ("flash_fwd",)):
+        err, mag, compared, equal = check_parity(
+            CheckedEngine(pcfg, card_model, sc, device=dev),
+            CheckedEngine(pcfg, host_model, sc, device="cpu"), tokens)
+    res = {"layers": HYBRID_PARITY_LAYERS,
+           "applications": sum(lm_mod.shared_flags(pcfg)),
+           "steps": PARITY_STEPS, "prompt": int(tokens.shape[1]),
+           "tol": PARITY_TOL, "max_abs_err": err, "max_abs_logit": mag,
+           "ids_compared": compared, "ids_equal": equal,
+           "flash_fwd": check_flash_fwd(seen["flash_fwd"][0])}
+    del seen, card_model, host_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def hybrid_phase(paper, dev, smi: str, ssd_n128_ms: float) -> dict:
+    """The hybrid phase (see the head comment); every check fatal."""
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    serve, caps, eng, groups = hybrid_serve(cfg, paper, dev)
+    log(f"[hybrid] {HYBRID_ARCH} {cfg.n_layers} layers (the shared block "
+        f"before {serve['shared_applications']} of them), "
+        f"{serve['params']} params on the card in {serve['init_s']:.1f} s; "
+        f"{serve['requests']} requests (prompts {serve['prompt_lens']}), "
+        f"{serve['tokens']} tokens in {serve['serve_s']:.3f} s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; launches "
+        f"{serve['launches']}; replan {serve['replan_s'] * 1e3:.1f} ms, "
+        f"schedule {serve['schedule']} | {smi}")
+    log("[hybrid] prefill ms per group: " + ", ".join(
+        f"{p:.2f} (S={s})" for p, s in zip(serve["prefill_ms"],
+                                           serve["group_lens"]))
+        + f"; decode ms per step: median {serve['decode_ms_median']:.3f}, "
+        f"p90 {serve['decode_ms_p90']:.3f}; peak device memory "
+        f"{serve['peak_bytes'] / 2**30:.3f} GiB")
+    log("[hybrid] ids: " + "; ".join(f"{k}: {v[:6]}" for k, v in
+                                     sorted(serve["out"].items())[:3]))
+    # where the device time goes, after the counted run: group 1's
+    # prefill, then one decode step, under the profiler
+    toks = eng.batch_tokens(groups[0])
+    prof = {"prefill": device_kernels(lambda: eng.prefill(toks))}
+    nxt = eng.prefill(toks)
+    prof["decode"] = device_kernels(lambda: eng.decode(nxt))
+    prof["prefill"]["busy_share"] = prof["prefill"]["device_ms"] / \
+        serve["prefill_ms"][0]
+    prof["decode"]["busy_share"] = prof["decode"]["device_ms"] / \
+        serve["decode_ms_median"]
+    serve["profile"] = prof
+    for phase, pr in prof.items():
+        log(f"[hybrid] profile {phase}: {pr['kernels']} device kernels, "
+            f"{pr['device_ms']:.2f} ms ({pr['busy_share']:.1%} of the "
+            f"untraced wall time); by kind " + ", ".join(
+                f"{k} {v:.2f}" for k, v in pr["by_kind"].items()) +
+            "; top: " + ", ".join(f"{t['name']} x{t['count']} "
+                                  f"{t['ms']:.2f}" for t in pr["top"]))
+    kernels = hybrid_kernels(caps, cfg, smi, ssd_n128_ms)
+    del eng, caps
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    parity = hybrid_parity(dev, cfg, toks)
+    log(f"[hybrid] parity {HYBRID_PARITY_LAYERS} layers f32 (the shared "
+        f"block {parity['applications']} times), prompt {parity['prompt']} "
+        f"x{SERVE_BATCH}, prefill + {PARITY_STEPS} decode steps: logits "
+        f"within {PARITY_TOL} of the host (max |diff| "
+        f"{parity['max_abs_err']:.3e}, max |logit| "
+        f"{parity['max_abs_logit']:.3f}); ids equal on "
+        f"{parity['ids_compared']} clear top-2 gaps ({parity['ids_equal']} "
+        f"of {(PARITY_STEPS + 1) * SERVE_BATCH} equal in all); flash_fwd "
+        f"{parity['flash_fwd']['shape']} f32 within "
+        f"{parity['flash_fwd']['out']['err']:.3g} of its tolerance; "
+        f"{parity['s']:.1f} s")
+    out = {"serve": serve, "kernels": kernels, "parity": parity,
+           "s": time.perf_counter() - t_phase}
+    log(f"[hybrid] phase {out['s']:.2f} s")
     return out
 
 
@@ -5577,6 +5846,12 @@ def main() -> int:
     dense = dense_phase(paper, dev, smi)
     results["dense"] = dense
 
+    # 12b. hybrid: zamba2-2.7b served at full size (its shared attention
+    # block nine times a step), its kernels at the hybrid's shapes, a
+    # 7-layer card-vs-host parity
+    hybrid = hybrid_phase(paper, dev, smi, ssd_timing[0]["ms"])
+    results["hybrid"] = hybrid
+
     # 13. train: h2o-danube-1.8b trained at full size through the
     # silu_gate kernels, the three dense archs' card-vs-host train step,
     # the 4-pod WANify Trainer
@@ -5592,6 +5867,7 @@ def main() -> int:
     ff = dense["serve"]["flash_fwd"]
     fb = train["single"]["flash_bwd"]
     st = train["ssm"]
+    hk = hybrid["kernels"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -5605,6 +5881,16 @@ def main() -> int:
         "launches": serve_counts["ssd_chunk"], "max_abs_err": ssd_err,
         "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
+        "library_ms": None}, {
+        "name": "ssd_chunk (hybrid, N=64)", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "launches": hybrid["serve"]["launches"]["ssd_chunk"],
+        "max_abs_err": hk["ssd_chunk"]["max_abs_err"],
+        "ms": hk["ssd_chunk"]["timing"]["ms"],
+        "plain_ms": hk["ssd_chunk"]["timing"]["plain_ms"],
+        "bound_ms": hk["ssd_chunk"]["timing"]["bound_ms"],
+        "bound_by": hk["ssd_chunk"]["timing"]["bound_by"],
         "library_ms": None}] + [{
         "name": kname, "route": "cuda",
         "source": "src/repro_torch/csrc/quantize.cu",
@@ -5650,6 +5936,17 @@ def main() -> int:
         "bound_ms": ff["timing"]["bound_ms"],
         "bound_by": ff["timing"]["bound_by"],
         "library_ms": ff["timing"]["library_ms"]}, {
+        "name": "flash_fwd (hybrid, D=80, MHA)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:39",
+        "launches": hybrid["serve"]["launches"]["flash_fwd"],
+        "max_abs_err": max(c["out"]["max_abs_diff"]
+                           for c in hk["flash_fwd"]["checks"]),
+        "ms": hk["flash_fwd"]["timing"]["ms"],
+        "plain_ms": hk["flash_fwd"]["timing"]["plain_ms"],
+        "bound_ms": hk["flash_fwd"]["timing"]["bound_ms"],
+        "bound_by": hk["flash_fwd"]["timing"]["bound_by"],
+        "library_ms": hk["flash_fwd"]["timing"]["library_ms"]}, {
         "name": "flash_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/models/attention.py:99",

@@ -13,6 +13,7 @@ _ARCH_MODULES = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 # every architecture of the JAX package, ported or not

@@ -4,6 +4,8 @@
       --requests 8 --max-new 16                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --reduced --device cpu                          # small, on the host
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --reduced --device cpu                          # the hybrid family
 
 `--arch` takes every ported id (`repro_torch.configs.PORTED`).
 """

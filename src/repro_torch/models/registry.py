@@ -1,8 +1,8 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs (`ssm`, and `dense` without MoE or MLA); the others raise
-"not yet ported".
+port runs (`ssm`, and `dense` and `hybrid` without MoE or MLA); the
+others raise "not yet ported", and so does the hybrid's `loss_fn`.
 
-  build_model(cfg, generator, device)          -> MambaLM | DenseLM
+  build_model(cfg, generator, device)          -> MambaLM | DenseLM | HybridLM
   loss_fn(cfg, remat)(params, batch)           -> (loss, metrics)
   prefill_fn(cfg, s_max)(model, tokens)        -> (logits, cache)
   decode_fn(cfg)(model, cache, tokens, pos)    -> (logits, cache)
@@ -10,8 +10,9 @@ port runs (`ssm`, and `dense` without MoE or MLA); the others raise
   load_reference_params(model, tree)           -> the JAX package's weights
   param_count(cfg)                             -> parameters, none allocated
 
-`s_max` sizes the dense family's caches and `pos` is its decode
-position; the `ssm` family takes neither (its cache does not grow).
+`s_max` sizes the attention caches (the dense family's layers, the
+hybrid's shared block) and `pos` is the decode position they read; the
+`ssm` family takes neither (its cache does not grow).
 """
 from __future__ import annotations
 
@@ -48,9 +49,9 @@ init_params = build_model
 def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     """(params, batch) -> (loss, {ce, aux, expert_load}):
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
-    "full" or "dots"). Both ported families train (`ssm` and `dense`);
-    the others raise "not yet ported"."""
-    transformer.check_family(cfg)
+    "full" or "dots"). The `ssm` and `dense` families train; the others,
+    the served `hybrid` included, raise "not yet ported"."""
+    transformer.check_trains(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")
@@ -67,8 +68,8 @@ def param_count(cfg: ModelConfig) -> int:
 
 def prefill_fn(cfg: ModelConfig, s_max: Optional[int] = None) -> Callable:
     """(model, tokens [B,S]) -> (last logits [B,V], decode cache); the
-    dense family's caches are padded to `s_max` (the window's length
-    under SWA)."""
+    attention caches are padded to `s_max` (the window's length under
+    SWA)."""
     transformer.check_family(cfg)
     return lambda model, tokens: transformer.lm_prefill(model, tokens, cfg,
                                                         s_max)
@@ -76,7 +77,8 @@ def prefill_fn(cfg: ModelConfig, s_max: Optional[int] = None) -> Callable:
 
 def decode_fn(cfg: ModelConfig) -> Callable:
     """(model, cache, tokens [B,1], pos=None) -> (logits [B,V], new
-    cache); `pos`, the new token's position, is the dense family's."""
+    cache); `pos`, the new token's position, is read by attention (the
+    dense and hybrid families)."""
     transformer.check_family(cfg)
     return lambda model, cache, tokens, pos=None: transformer.lm_decode(
         model, cache, tokens, cfg, pos)
@@ -84,7 +86,8 @@ def decode_fn(cfg: ModelConfig) -> Callable:
 
 def cache_spec(cfg: ModelConfig, B: int, s_max: Optional[int] = None,
                dtype: Optional[torch.dtype] = None):
-    """(shape, dtype) of every decode-cache tensor, per layer."""
+    """(shape, dtype) of every decode-cache tensor, per layer (and per
+    application of the hybrid's shared block)."""
     return transformer.lm_cache_spec(cfg, B, s_max, dtype)
 
 
@@ -94,9 +97,11 @@ def load_reference_params(model: transformer._LM,
     """Copy the JAX package's parameter pytree (`init_lm_params`, its
     leaves as numpy arrays) into `model`: the stacked [L, ...] block
     leaves are unstacked into the per-layer modules (block leaf
-    `attn/wq` is module parameter `blocks.<i>.attn.wq`), and every
-    matrix keeps the reference's [in, out] layout. After it both
-    packages compute the same function."""
+    `attn/wq` is module parameter `blocks.<i>.attn.wq`), an unstacked
+    subtree (the hybrid's `shared_attn`) is copied into its one module,
+    and every matrix keeps the reference's [in, out] layout. A tree of
+    another family (other top-level keys or block leaves) is refused.
+    After it both packages compute the same function."""
     def copy(dst: torch.Tensor, src, name: str) -> None:
         src = torch.from_numpy(np.array(src, dtype=np.float32))
         if tuple(src.shape) != tuple(dst.shape):
@@ -111,12 +116,21 @@ def load_reference_params(model: transformer._LM,
         else:
             yield prefix[:-1], t
 
-    want = {"embed", "final_norm", "lm_head", "blocks"}
+    unstacked = model.unstacked()
+    want = {"embed", "final_norm", "lm_head", "blocks"} | set(unstacked)
     if set(tree) != want:
         raise ValueError(f"reference tree has {sorted(tree)}, expected "
                          f"{sorted(want)}")
     for name in ("embed", "final_norm", "lm_head"):
         copy(getattr(model, name), tree[name], name)
+    for name, mod in unstacked.items():
+        leaf = dict(leaves(tree[name]))
+        names = {n for n, _ in mod.named_parameters()}
+        if set(leaf) != names:
+            raise ValueError(f"reference {name} holds {sorted(leaf)}, the "
+                             f"port's {sorted(names)}")
+        for n, p in mod.named_parameters():
+            copy(p, leaf[n], f"{name}.{n}")
     blocks = dict(leaves(tree["blocks"]))
     names = {n for n, _ in model.blocks[0].named_parameters()}
     if set(blocks) != names:

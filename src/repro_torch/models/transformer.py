@@ -1,16 +1,20 @@
-"""Decoder-only LM assembly: the `ssm` family (Mamba-2) and the `dense`
+"""Decoder-only LM assembly: the `ssm` family (Mamba-2), the `dense`
 family (GQA attention + SwiGLU MLP; qk-norm and sliding window as
-flags).
+flags) and the `hybrid` family (Zamba2: Mamba-2 layers and ONE shared
+attention + MLP block, run before every `shared_attn_every`-th layer
+with a KV cache of its own at each application).
 
-Port of the `ssm` and `dense` paths of `repro/models/transformer.py`.
-The reference stacks the layers' leaves ([L, ...]) and scans them;
-here `MambaLM` and `DenseLM` hold one module per layer. MoE, MLA and
-the hybrid family raise "not yet ported".
+Port of the `ssm`, `dense` and `hybrid` paths of
+`repro/models/transformer.py`. The reference stacks the layers' leaves
+([L, ...]) and scans them; here `MambaLM`, `DenseLM` and `HybridLM`
+hold one module per layer. MoE and MLA raise "not yet ported", and so
+does training the hybrid family.
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
 they are cast too (`ln1`, `ln2`, `q_scale`, `k_scale`, `A_log`, `D`,
-`dt_bias`, `conv_b`, `norm`), while `final_norm` [d] stays in the
+`dt_bias`, `conv_b`, `norm`), while `final_norm` [d] and the hybrid's
+shared block's vectors (not stacked: its `ln1`, `ln2`) stay in the
 parameter dtype; `compute_params` casts the same leaves for serving
 (detached and kept), `cast_params` for training (through autograd,
 every step).
@@ -57,14 +61,33 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
-    if cfg.family == "ssm" or (cfg.family == "dense" and not cfg.is_moe
-                               and not cfg.is_mla):
+    if cfg.family == "ssm" or (cfg.family in ("dense", "hybrid") and
+                               not cfg.is_moe and not cfg.is_mla):
         return
     raise NotImplementedError(
         f"the '{cfg.family}' family ({cfg.arch_id}"
         f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}) "
         f"is not yet ported; the port runs the 'ssm' family and the "
-        f"'dense' family without MoE or MLA")
+        f"'dense' and 'hybrid' families without MoE or MLA")
+
+
+def check_trains(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not train yet: the hybrid
+    serves, its training is not yet ported."""
+    check_family(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"training the 'hybrid' family ({cfg.arch_id}) is not yet "
+            f"ported; the port serves it and trains the 'ssm' and 'dense' "
+            f"families")
+
+
+def shared_flags(cfg: ModelConfig) -> List[bool]:
+    """Per layer, whether the hybrid's shared block runs before it (the
+    reference's `np_flags`: i % shared_attn_every == 0); all False for
+    the other families."""
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    return [bool(every) and i % every == 0 for i in range(cfg.n_layers)]
 
 
 def _param(dtype: torch.dtype, device: torch.device, *shape) -> nn.Parameter:
@@ -141,7 +164,7 @@ def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
     to the compute dtype: XLA's compiled CPU programs of the reference's
     block, `lm_prefill` and `lm_decode` all drop that f32 -> bf16 -> f32
     pair (the square reads the f32 add; the value path the rounded
-    one)."""
+    one), the hybrid's shared block inside its `lax.cond` too."""
     s = x.float() + a                   # the add widens a bf16 a exactly
     x = s.to(x.dtype)
     h = rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
@@ -183,7 +206,8 @@ class DenseBlock(nn.Module):
         """k / v are projected once, for the attention and for the cache
         (zero-padded to S_c; under SWA its last S_c positions only)."""
         if S_max is None:
-            raise ValueError("the dense family's prefill needs S_max")
+            raise ValueError("an attention prefill needs S_max (the "
+                             "cache length)")
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         k, v = att.project_kv(blk["attn"], h, cfg, positions)
         S_c = attn_cache_len(cfg, S_max)
@@ -197,7 +221,8 @@ class DenseBlock(nn.Module):
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Writes the token's k / v into the cache tensors in place."""
         if pos is None:
-            raise ValueError("the dense family's decode needs pos")
+            raise ValueError("an attention decode needs pos (the "
+                             "token's position)")
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         o, k, v = att.gqa_decode(blk["attn"], c["k"], c["v"], h, pos, cfg)
         return _mlp(blk, x, o, cfg), {"k": k, "v": v}
@@ -208,7 +233,7 @@ class DenseBlock(nn.Module):
         """k and v [B,KV,S_c,D] (on one card the KV heads are not
         replicated: the reference's `kv_eff_heads` at tp=1)."""
         if S_max is None:
-            raise ValueError("the dense family's cache needs S_max")
+            raise ValueError("an attention cache needs S_max")
         shape = (B, cfg.n_kv_heads, attn_cache_len(cfg, S_max),
                  cfg.resolved_head_dim)
         return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -266,14 +291,20 @@ class _LM(nn.Module):
         for blk in self.blocks:
             blk.reset_parameters(generator)
 
+    def unstacked(self) -> Dict[str, nn.Module]:
+        """Modules the reference holds as an unstacked subtree of its
+        parameters beside `blocks` (the hybrid's shared block)."""
+        return {}
+
     def compute_params(self, dtype: torch.dtype) -> Dict[str, Any]:
         """The parameters as the reference's forward sees them after
         `_cast_params`, as a tree of tensors: {embed, final_norm,
         lm_head, blocks: [one nested dict per layer, by the modules'
-        names]}. Kept until a parameter changes (tracked by the tensors'
-        storage and version counters), so a served model is cast once,
-        not at every step; a leaf already in `dtype` is the parameter
-        itself."""
+        names]}, and a nested dict for each of `unstacked()` (its
+        matrices cast, its vectors not: they are not stacked). Kept
+        until a parameter changes (tracked by the tensors' storage and
+        version counters), so a served model is cast once, not at every
+        step; a leaf already in `dtype` is the parameter itself."""
         key = (dtype, tuple((p.data_ptr(), p._version)
                             for p in self.parameters()))
         if self._compute[0] != key:
@@ -286,6 +317,10 @@ class _LM(nn.Module):
                     "blocks": [_nest((n, cast(p)) for n, p in
                                      b.named_parameters())
                                for b in self.blocks]}
+            for name, mod in self.unstacked().items():
+                tree[name] = _nest((n, cast(p) if p.dim() >= 2 else
+                                    p.detach())
+                                   for n, p in mod.named_parameters())
             self._compute = (key, tree)
         return self._compute[1]
 
@@ -302,10 +337,37 @@ class DenseLM(_LM):
     block_cls = DenseBlock
 
 
+class HybridLM(_LM):
+    """The `hybrid` family (Zamba2): one `MambaBlock` per layer and one
+    shared attention + MLP block, `shared_attn` (a `DenseBlock`: ln1,
+    attn, ln2, mlp, the reference's names), whose one set of parameters
+    runs before layer i wherever `shared_flags(cfg)[i]`; each
+    application keeps a KV cache of its own. The reference's init draws
+    it after the layers, as here."""
+
+    block_cls = MambaBlock
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 dtype: torch.dtype):
+        super().__init__(cfg, device, dtype)
+        self.shared_attn = DenseBlock(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init: the layers, then the shared block."""
+        super().reset_parameters(generator)
+        self.shared_attn.reset_parameters(generator)
+
+    def unstacked(self) -> Dict[str, nn.Module]:
+        """The shared block: one set of parameters, not stacked."""
+        return {"shared_attn": self.shared_attn}
+
+
 def model_class(cfg: ModelConfig) -> type:
     """The module class of `cfg`'s family (raises for one not ported)."""
     check_family(cfg)
-    return MambaLM if cfg.family == "ssm" else DenseLM
+    return {"ssm": MambaLM, "dense": DenseLM,
+            "hybrid": HybridLM}[cfg.family]
 
 
 # ======================================================================
@@ -313,12 +375,15 @@ def model_class(cfg: ModelConfig) -> type:
 # ======================================================================
 def lm_forward(params: _LM, tokens: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,V] (neither family here has the aux
-    loss or expert load that the reference also returns)."""
+    """tokens [B,S] -> logits [B,S,V] (no family here has the aux loss
+    or expert load that the reference also returns). The hybrid's
+    shared block runs before each flagged layer (`shared_flags`)."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
-    for blk in pc["blocks"]:
+    for blk, shared in zip(pc["blocks"], shared_flags(cfg)):
+        if shared:
+            x = DenseBlock.run(pc["shared_attn"], x, positions, cfg)
         x = params.block_cls.run(blk, x, positions, cfg)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
     return h @ pc["lm_head"]
@@ -328,29 +393,38 @@ def lm_cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int] = None,
                   dtype: Optional[torch.dtype] = None
                   ) -> Dict[str, List[Dict]]:
     """(shape, dtype) of every decode-cache tensor, per layer: the SSM's
-    conv and state, or the attention's k and v [B,KV,S_c,D]."""
+    conv and state, or the attention's k and v [B,KV,S_c,D]; the
+    hybrid's also under "shared_attn", the shared block's k and v per
+    application."""
     spec = model_class(cfg).block_cls.cache_spec
     dtype = dtype or torch_dtype(cfg.dtype)
-    return {"blocks": [spec(cfg, B, S_max, dtype)
-                       for _ in range(cfg.n_layers)]}
+    out = {"blocks": [spec(cfg, B, S_max, dtype)
+                      for _ in range(cfg.n_layers)]}
+    n_apps = sum(shared_flags(cfg))
+    if n_apps:
+        out["shared_attn"] = [DenseBlock.cache_spec(cfg, B, S_max, dtype)
+                              for _ in range(n_apps)]
+    return out
 
 
 def stack_cache(cache: Dict[str, List[Dict]]) -> Dict[str, Dict]:
     """The reference's layout of a decode cache: {"blocks": {name:
-    [L, ...]}}, each per-layer tensor stacked along a new leading axis,
-    as the reference's `lax.scan` over the layers returns them."""
-    blocks = cache["blocks"]
-    return {"blocks": {k: torch.stack([b[k] for b in blocks])
-                       for k in blocks[0]}}
+    [L, ...]}} (and the hybrid's {"shared_attn": {name: [n_apps,
+    ...]}}), each per-layer (per-application) tensor stacked along a
+    new leading axis, as the reference's `lax.scan` over the layers
+    returns them."""
+    return {part: {k: torch.stack([c[k] for c in per]) for k in per[0]}
+            for part, per in cache.items()}
 
 
 def unstack_cache(tree: Dict[str, Dict]) -> Dict[str, List[Dict]]:
-    """Inverse of :func:`stack_cache`: one dict per layer (views into
-    the stacked tensors)."""
-    blocks = tree["blocks"]
-    n = len(next(iter(blocks.values())))
-    return {"blocks": [{k: v[i] for k, v in blocks.items()}
-                       for i in range(n)]}
+    """Inverse of :func:`stack_cache`: one dict per layer (and per
+    application; views into the stacked tensors)."""
+    out = {}
+    for part, leaves in tree.items():
+        n = len(next(iter(leaves.values())))
+        out[part] = [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+    return out
 
 
 def lm_prefill(params: _LM, tokens: torch.Tensor, cfg: ModelConfig,
@@ -358,16 +432,21 @@ def lm_prefill(params: _LM, tokens: torch.Tensor, cfg: ModelConfig,
                ) -> Tuple[torch.Tensor, Dict[str, List[Dict]]]:
     """Forward pass that also builds the decode cache. Returns
     (last_logits [B,V], {"blocks": [one dict per layer]}: the SSM's
-    {conv, state}, or the attention's {k, v} padded to S_max)."""
+    {conv, state}, or the attention's {k, v} padded to S_max; the
+    hybrid's also {"shared_attn": [one {k, v} per application]})."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
-    caches = []
-    for blk in pc["blocks"]:
+    cache: Dict[str, List[Dict]] = {"blocks": []}
+    for blk, shared in zip(pc["blocks"], shared_flags(cfg)):
+        if shared:
+            x, c = DenseBlock.prefill(pc["shared_attn"], x, positions, cfg,
+                                      S_max)
+            cache.setdefault("shared_attn", []).append(c)
         x, c = params.block_cls.prefill(blk, x, positions, cfg, S_max)
-        caches.append(c)
+        cache["blocks"].append(c)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
-    return h[:, -1] @ pc["lm_head"], {"blocks": caches}
+    return h[:, -1] @ pc["lm_head"], cache
 
 
 def lm_decode(params: _LM, cache: Dict[str, List[Dict]],
@@ -375,17 +454,24 @@ def lm_decode(params: _LM, cache: Dict[str, List[Dict]],
               pos: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, List[Dict]]]:
     """One-token decode step. tokens [B,1] -> (logits [B,V], new
-    cache). `pos` is the new token's position (the dense family's; the
-    SSM's cache carries its own state). The dense family writes the
-    token's k / v into the cache tensors in place."""
+    cache). `pos` is the new token's position, which every attention
+    reads (the dense family's layers, the hybrid's shared block); the
+    SSM's cache carries its own state. Attention writes the token's k /
+    v into the cache tensors in place."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]                                  # [B,1,d]
-    new = []
-    for blk, c in zip(pc["blocks"], cache["blocks"]):
+    new: Dict[str, List[Dict]] = {"blocks": []}
+    apps = iter(cache.get("shared_attn", ()))
+    for blk, c, shared in zip(pc["blocks"], cache["blocks"],
+                              shared_flags(cfg)):
+        if shared:
+            x, nc = DenseBlock.decode(pc["shared_attn"], next(apps), x, pos,
+                                      cfg)
+            new.setdefault("shared_attn", []).append(nc)
         x, nc = params.block_cls.decode(blk, c, x, pos, cfg)
-        new.append(nc)
+        new["blocks"].append(nc)
     h = rms_norm(x, pc["final_norm"], cfg.norm_eps)
-    return h[:, -1] @ pc["lm_head"], {"blocks": new}
+    return h[:, -1] @ pc["lm_head"], new
 
 
 # ======================================================================
@@ -472,8 +558,9 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
                 remat: str = "full"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Embedded input -> final hidden, each layer under `remat`. Returns
-    (h, aux_loss, load[E]): neither ported family has an aux loss, and
-    the load is zeros(max(n_experts, 1))."""
+    (h, aux_loss, load[E]): no ported family has an aux loss, and the
+    load is zeros(max(n_experts, 1)). The hybrid does not train yet."""
+    check_trains(cfg)
     run = model_class(cfg).block_cls.run
     layer = maybe_remat(lambda blk, h: run(blk, h, positions, cfg), remat)
     for blk in pc["blocks"]:

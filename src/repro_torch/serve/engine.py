@@ -43,8 +43,9 @@ class Request:
 @dataclass
 class ServeConfig:
     """Engine shape: slot count, max sequence, tensor-parallel width.
-    `s_max` sizes the dense family's caches (the window's length bounds
-    them under SWA); the SSM's cache does not grow. The port runs on one
+    `s_max` sizes the attention caches (the dense family's layers, the
+    hybrid's shared block; the window's length bounds them under SWA);
+    the SSM layers' cache does not grow. The port runs on one
     card, so `tp` must be 1. `greedy` is the reference's field, which it
     never reads: both engines decode greedily whatever it says."""
 
@@ -76,7 +77,8 @@ class Engine:
         self._decode = registry.decode_fn(cfg)
         self.cache = None
         # the next decode token's position: the prefill's length, then
-        # one more a step (the dense family reads it)
+        # one more a step (attention reads it: the dense family's layers,
+        # the hybrid's shared block)
         self.pos = 0
         self.last_logits: Optional[torch.Tensor] = None
         # host seconds of each prefill / decode call (each ends when its
@@ -152,7 +154,7 @@ class Engine:
 
     def batch_tokens(self, group: List[Request]) -> np.ndarray:
         """The group's prompts left-padded with token 0 into [batch, S]
-        (S the longest prompt; both families read the pads as tokens, as
+        (S the longest prompt; every family reads the pads as tokens, as
         the reference's engine does: the attention attends to them like
         any token at its position)."""
         S = max(len(r.prompt) for r in group)
@@ -203,9 +205,11 @@ def kv_migrate(cache: Any, plan: WanPlan, src_pod: int, *,
     every phase.
 
     The leaves are the reference's: a model cache in the port's layout
-    ({"blocks": [one dict per layer]}) is stacked into the reference's
-    {"blocks": {name: [L, ...]}} first (a segment's scale depends on
-    which elements it holds) and unstacked after. Any other tree of
+    ({"blocks": [one dict per layer]}, the hybrid's also "shared_attn":
+    [one dict per application]) is stacked into the reference's
+    {"blocks": {name: [L, ...]}} (and {"shared_attn": {name: [n_apps,
+    ...]}}) first (a segment's scale depends on which elements it holds)
+    and unstacked after. Any other tree of
     tensors migrates leaf by leaf as it is.
 
     `tracer` (an `obs.SpanTracer`) records one span "migrate_phase"

@@ -253,13 +253,15 @@ def _check_card(smoke, q, k, v, g, window):
 # 80 (the 64-column region and the 16-column tail) at S = 1,024, B * H =
 # 8; windows of 200 ending inside the tiles; one head of 17,000 rows
 # (133 tiles of 128: more than the persistent grid's blocks, so a block
-# walks several items of one group)
+# walks several items of one group); the hybrid's shared attention
+# (`zamba2-2.7b`: 32 heads of D = 80, G = 1) at group 1's ragged 641
 CARD_CASES = [(2, 2, 1, 100, 32, 0), (1, 2, 2, 130, 64, 0),
               (1, 2, 1, 200, 80, 70), (2, 1, 2, 129, 128, 0),
               (1, 1, 1, 300, 128, 65), (1, 3, 1, 64, 16, 0),
               *[(1, 2, 1, s, 128, 0) for s in (1, 64, 127, 128, 129, 641)],
               (2, 4, 1, 1024, 80, 0), (1, 2, 2, 600, 128, 200),
-              (1, 2, 2, 600, 80, 200), (1, 1, 1, 17000, 16, 0)]
+              (1, 2, 2, 600, 80, 200), (1, 1, 1, 17000, 16, 0),
+              (1, 32, 1, 641, 80, 0)]
 
 
 @pytest.mark.cuda

@@ -2,10 +2,10 @@
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
 not yet ported raises `NotImplementedError` (now only the model side's
-MoE, MLA, hybrid, enc-dec and VLM families, and the `ssm` family's
-training: the overlay, the predictor lifecycle, the fault plane and the
-dense family's serving and training are ported, and their gates
-construct and run)."""
+MoE, MLA, enc-dec and VLM families, and the hybrid family's training:
+the overlay, the predictor lifecycle, the fault plane, the `ssm` and
+dense families' serving and training and the hybrid family's serving
+are ported, and their gates construct and run)."""
 import ast
 import os
 import subprocess
@@ -354,7 +354,8 @@ def test_ssd_wrapper_counts_no_launch_on_cpu(dtype):
 
 def test_model_side_gates_not_yet_ported():
     assert PORTED == ["mamba2-2.7b", "llama3-8b", "qwen3-4b",
-                      "h2o-danube-1.8b"] and len(ARCH_IDS) == 10
+                      "h2o-danube-1.8b", "zamba2-2.7b"] and \
+        len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -363,8 +364,7 @@ def test_model_side_gates_not_yet_ported():
         get_config("gpt-5")
     dense = reduced(get_config("llama3-8b"))
     mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
-    hybrid = _tiny_cfg().replace(family="hybrid", shared_attn_every=2)
-    for cfg in (_moe_cfg(), mla, hybrid, dense.replace(family="vlm")):
+    for cfg in (_moe_cfg(), mla, dense.replace(family="vlm")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.build_model(cfg, torch.Generator(), device="cpu")
         with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -372,6 +372,14 @@ def test_model_side_gates_not_yet_ported():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.decode_fn(cfg)
     registry.prefill_fn(dense, 8)                 # the dense family builds
+    # the hybrid family builds, prefills and decodes
+    hybrid = reduced(get_config("zamba2-2.7b"))
+    model = registry.build_model(hybrid, torch.Generator(), device="cpu")
+    toks = torch.ones((1, 4), dtype=torch.long)
+    _, cache = registry.prefill_fn(hybrid, 8)(model, toks)
+    logits, cache = registry.decode_fn(hybrid)(model, cache, toks[:, :1], 4)
+    assert logits.shape == (1, hybrid.vocab)
+    assert len(cache["blocks"]) == 4 and len(cache["shared_attn"]) == 2
 
 
 @pytest.mark.parametrize("module", [

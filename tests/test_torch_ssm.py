@@ -332,9 +332,11 @@ def test_short_prompt_conv_cache_is_zero_padded(block):
 # the serve shape's chunk (Q=256, H=80, P=64, N=128); ragged Q over
 # several q-tiles (and two windows of C B^T tiles); the reduced model's
 # chunk; narrow odd widths; heads that fill no whole group of the bf16
-# kernel's 8 (12, and 13 with N = 24 padded to 32)
+# kernel's 8 (12, and 13 with N = 24 padded to 32); the hybrid's served
+# chunk (`zamba2-2.7b`: N = 64, padded to the bf16 kernel's 128)
 CARD = [(256, 80, 64, 128), (300, 4, 64, 128), (16, 16, 16, 16),
-        (53, 3, 8, 24), (128, 12, 64, 128), (256, 13, 64, 24)]
+        (53, 3, 8, 24), (128, 12, 64, 128), (256, 13, 64, 24),
+        (256, 80, 64, 64)]
 
 
 @pytest.fixture

@@ -560,15 +560,17 @@ def test_pods_step_broadcast_and_strip():
 
 
 def test_loss_fn_gates():
-    """Both ported families train; a family not ported (a hybrid or an
-    MoE config built from a ported one) raises "not yet ported", and so
-    does an unknown remat."""
+    """Both ported families train; a family whose training is not ported
+    (the served hybrid `zamba2-2.7b`, a hybrid or an MoE config built
+    from a ported one) raises "not yet ported", and so does an unknown
+    remat."""
     ssm = reduced(get_config(SSM_ARCH))
     assert callable(registry.loss_fn(ssm, remat="dots"))
     dense = reduced(get_config("llama3-8b"))
     moe = dense.replace(moe=dataclasses.replace(dense.moe, n_experts=4,
                                                 top_k=2, d_ff_expert=64))
-    for other in (ssm.replace(family="hybrid"), moe):
+    for other in (ssm.replace(family="hybrid"), moe,
+                  reduced(get_config("zamba2-2.7b"))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.loss_fn(other)
     for cfg in (ssm, dense):
@@ -576,7 +578,7 @@ def test_loss_fn_gates():
             registry.loss_fn(cfg, remat="some")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-2.7b", "zamba2-2.7b"])
 def test_param_count_matches_reference(ref, arch):
     assert registry.param_count(get_config(arch)) == \
         ref.registry.param_count(ref.config(arch))
