@@ -308,7 +308,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    that; the card's first `flash_fwd` call (f32) against its plain
    version within 1e-5 of max |out|. Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
-   are freed, then the ssm family's (part (5)):
+   are freed, then the ssm family's (part (5)) and the hybrid's (part
+   (6)):
    (1) the slice's main path: `h2o-danube-1.8b` at its full width and
    depth (24 layers, d 2560, 32 query / 8 KV heads, d_ff 6912, vocab
    32,000; bf16 compute, f32 parameters and AdamW state, weights from a
@@ -388,7 +389,36 @@ Every phase is fatal: a failure exits non-zero before the result line.
    with the scratch bytes it allocates); and one `make_train_step`
    step of `mamba2-2.7b` at full width, 2 layers, f32, B=1, S=512 (2
    chunks) on the card and on the host within part (3)'s bounds, the
-   card's first `ssd_chunk_bwd` call (f32) held to its plain version.
+   card's first `ssd_chunk_bwd` call (f32) held to its plain version;
+   (6) after part (5)'s models are freed, the hybrid's main path:
+   `zamba2-2.7b` at its full width and depth (12b's model; f32
+   parameters and AdamW state) trained as (5) trains mamba. Counts
+   zeroed just before the run and read just after: exactly 2 x 54 x 6
+   = 648 `ssd_chunk` and `silu`, 6 x 2 x (54 + 9) = 756 `silu_gate` (the
+   gated norm a layer, the shared MLP's gate an application), 2 x 9 x 6
+   = 108 `flash_fwd`, 54 x 6 = 324 `ssd_chunk_bwd`, `silu_bwd` and
+   `silu_gate_prod_bwd`, 9 x 6 = 54 `silu_gate_bwd` and `flash_bwd`:
+   under remat "full" each layer's region holds its shared application,
+   recomputed with it; every loss finite and the last below the first;
+   step wall ms, tokens/s, peak memory; one more step under
+   `torch.profiler`, by kind as (5) with the shared block's attention
+   and MLP as kinds of their own (their ops in ranges, forward and
+   recompute, and the backward nodes of those ops, less the flash and
+   gate kernels, which keep their kinds). Then on one more step's
+   inputs: `ssd_chunk_bwd` at layer 0 ([4,4,256,80,64], N = 64) within
+   1e-4 of its plain version, timed beside its bound and (5)'s N = 128
+   time; `silu_bwd`, `silu_gate_prod_bwd` and the shared MLP's
+   `silu_gate_bwd` (first application, [4,1024,10240]) bit-equal;
+   `flash_fwd` / `flash_bwd` at the first application ([4,32,1,1024,80])
+   within their tolerances; each called twice, equal bit for bit, timed
+   beside its bound and plain version; one `make_train_step` step of
+   `zamba2-2.7b` cut to 7 layers (the block twice), f32, B=1, S=512, on
+   the card and on the host within (3)'s bounds over every leaf, the
+   shared block's included, the card's first `flash_fwd`, `flash_bwd`
+   and `ssd_chunk_bwd` calls (f32) held to their plain versions; and
+   (4)'s 4-pod WANify run on `zamba2-2.7b` cut to 7 layers, its checks
+   as (4)'s, the host's redo of the first sync covering every shared
+   leaf.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -3980,6 +4010,9 @@ HYBRID_COUNTED = ("ssd_chunk", "flash_fwd", "silu", "silu_gate",
                   "silu_gate_bwd", "silu_gate_prod_bwd")
 # the parity cut: the shared block runs twice, before layers 0 and 6
 HYBRID_PARITY_LAYERS = 7
+# part (6) of the train phase: the 4-pod run's cut, the parity's (the
+# shared block twice; 4 pods' f32 state of 548 M parameters, 35 GB)
+HYBRID_POD_LAYERS = HYBRID_PARITY_LAYERS
 
 
 def hybrid_capture(step) -> dict:
@@ -4213,8 +4246,14 @@ PARITY_BATCH = 1
 # code) at one block of 64: their large heads and AdamW dominate the
 # host's step (PERF.md, PR 22)
 # and mamba2-2.7b (part (5)) at 2 chunks of 256
-PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ, SSM_TRAIN_ARCH: 512}
+# and zamba2-2.7b (part (6)) as mamba2-2.7b, flash over 2 key blocks
+PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ, SSM_TRAIN_ARCH: 512,
+              HYBRID_ARCH: 512}
 PARITY_SEQ_OTHER = 64
+# the kernels whose first card call a parity step holds to plain
+PARITY_CHECKED = {"dense": ("flash_fwd", "flash_bwd"),
+                  "ssm": ("ssd_chunk_bwd",),
+                  "hybrid": ("flash_fwd", "flash_bwd", "ssd_chunk_bwd")}
 # the first step's compressed sync is redone on the host for every leaf
 # of at most this many elements a pod (the attention's and the norms':
 # all part layouts of the sync but the largest leaves')
@@ -4224,6 +4263,12 @@ POD_LAYERS = 4                  # of 24: 4 pods' f32 state at 16 B a parameter
 POD_STEPS, POD_BATCH, POD_FAIL_AT, POD_CKPT_EVERY = 8, 8, 4, 3
 ATTN_FWD, ATTN_BWD, XENT, OPTIM = ("attention_fwd", "attention_bwd",
                                    "cross_entropy", "optimizer")
+# the hybrid's shared block: its attention (`gqa_forward`) and its MLP
+# (`transformer._mlp`: the residual sum, ln2, SwiGLU) in ranges of their
+# own, forward and recompute; their backward nodes found by the forward
+# ops' sequence numbers
+SHARED_ATTN, SHARED_MLP = "shared_attention", "shared_mlp"
+BWD_NODE = "autograd::engine::evaluate_function"
 XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
 # the port's kernels a train profile sums by name, first match: the
 # gates' backwards are one kernel (silu_gate_bwd_kernel: `silu_gate_bwd`,
@@ -4234,7 +4279,7 @@ KERNEL_KINDS = (("silu_gate_bwd", "silu_gate_bwd_kernel"),
                 ("ssd_chunk_bwd", "ssd_bwd_"), ("ssd_chunk", "ssd_"))
 
 
-def train_profile(fn) -> dict:
+def train_profile(fn, shared: bool = False) -> dict:
     """Device ms by kind of `fn` (one train step) under `torch.profiler`:
     the attention core's forward and backward (`ops.flash_fwd` /
     `ops.flash_bwd` inside `record_function` ranges: the flash kernels,
@@ -4243,7 +4288,11 @@ def train_profile(fn) -> dict:
     gather, mean), the optimizer (`adamw_update` in a range), the port's
     gate and SSD kernels and their backwards (KERNEL_KINDS, by kernel
     name; also each of those kernels' own device ms), the other matrix
-    products (cuBLAS / CUTLASS names) and the rest; the kernels run."""
+    products (cuBLAS / CUTLASS names) and the rest; the kernels run.
+    With `shared` (the hybrid) also the shared block's attention and MLP
+    (SHARED_ATTN, SHARED_MLP: forward, recompute and backward), less the
+    flash and gate kernels inside them, which keep their own kinds
+    (`shared_port_ms` holds those, by range)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(label):
@@ -4257,10 +4306,15 @@ def train_profile(fn) -> dict:
             return call
         return wrap
 
+    kinds = (ATTN_FWD, ATTN_BWD, XENT, OPTIM) + \
+        ((SHARED_ATTN, SHARED_MLP) if shared else ())
     with patched(ops, ranged(ATTN_FWD), ("flash_fwd",)), \
             patched(ops, ranged(ATTN_BWD), ("flash_bwd",)), \
             patched(lm_mod, ranged(XENT), ("chunked_xent",)), \
             patched(train_step_mod, ranged(OPTIM), ("adamw_update",)), \
+            patched(att, ranged(SHARED_ATTN),
+                    ("gqa_forward",) if shared else ()), \
+            patched(lm_mod, ranged(SHARED_MLP), ("_mlp",) if shared else ()), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         fn()
@@ -4278,7 +4332,7 @@ def train_profile(fn) -> dict:
     n_kernels = 0
     for e in events:
         if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
-                or e.name in (ATTN_FWD, ATTN_BWD, XENT, OPTIM):
+                or e.name in kinds:
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3
         total += ms
@@ -4292,30 +4346,48 @@ def train_profile(fn) -> dict:
             port[name] = port.get(name, 0.0) + ms
         elif is_flash(e.name):
             flash[ATTN_FWD if "flash_fwd" in e.name else ATTN_BWD] += ms
-    # kernels under each range or backward node, each CPU op once
-    ranged_mm = 0.0
-    for kind in (ATTN_FWD, ATTN_BWD, XENT, OPTIM):
-        roots = [e for e in events if e.device_type != cuda and (
-            e.name == kind or (kind == XENT and e.name.startswith(
-                "autograd::engine::evaluate_function") and any(
-                n in e.name for n in XENT_NODES)))]
-        seen, stack, ms = set(), list(roots), 0.0
+    def subtree(roots, stop=()):
+        """CPU ops under `roots`, each once, not entering a range named
+        in `stop` (the flash calls' ranges inside the shared block's)."""
+        seen, stack = set(), list(roots)
         while stack:
             e = stack.pop()
-            if id(e) in seen:
-                continue
-            seen.add(id(e))
+            if id(e) not in seen:
+                seen.add(id(e))
+                yield e
+                stack.extend(c for c in e.cpu_children if c.name not in stop)
+
+    # the shared block's forward ops (in its ranges: the forward's and the
+    # recompute's), keyed as their backward nodes name them
+    fwd_kind = {(e.thread, e.sequence_nr): kind
+                for kind in kinds[4:] for e in subtree(
+                    x for x in events if x.name == kind)
+                if e.device_type != cuda and e.sequence_nr >= 0}
+    # kernels under each range or backward node, each CPU op once
+    ranged_mm, shared_port = 0.0, {}
+    for kind in kinds:
+        roots = [e for e in events if e.device_type != cuda and (
+            e.name == kind or (e.name.startswith(BWD_NODE) and (
+                (kind == XENT and any(n in e.name for n in XENT_NODES)) or
+                fwd_kind.get((e.fwd_thread, e.sequence_nr)) == kind)))]
+        ms = own = 0.0
+        for e in subtree(roots, (ATTN_FWD, ATTN_BWD) if kind in kinds[4:]
+                         else ()):
             for k in e.kernels:
-                if is_flash(k.name):
+                if is_flash(k.name) or any(key in k.name for _, key in
+                                           KERNEL_KINDS):
+                    own += k.duration / 1e3
                     continue
                 ms += k.duration / 1e3
                 ranged_mm += k.duration / 1e3 if is_matmul(k.name) else 0.0
-            stack.extend(e.cpu_children)
         by[kind] = ms + flash.get(kind, 0.0)
+        if kind in kinds[4:]:
+            shared_port[kind] = own
     by["matmul_other"] = matmul - ranged_mm
     by["rest"] = total - sum(by.values())
     return {"device_ms": total, "kernels": n_kernels, "by_kind": by,
-            "flash_kernels": flash, "port_kernels": port}
+            "flash_kernels": flash, "port_kernels": port,
+            "shared_port_ms": shared_port}
 
 
 def check_bwd(args) -> float:
@@ -4509,17 +4581,24 @@ def time_silu_bwd(name: str, args) -> dict:
             "ops": nops}
 
 
-def train_launches(cfg, layer_steps: int, **rest) -> dict:
-    """The launches of a training run of `layer_steps` layer-steps
-    (layers x steps x pods) under per-layer remat: each forward kernel
-    of cfg's family twice a layer a step (forward, recompute), each of
-    its backward kernels once; every other kernel of TRAIN_COUNTED 0
-    unless `rest` names it."""
-    fwd, bwd = (DENSE_FWD, DENSE_BWD) if cfg.family == "dense" else \
-        (SSM_FWD, SSM_BWD)
+def train_launches(cfg, runs: int, **rest) -> dict:
+    """The launches of a training run of `runs` passes over the model
+    (steps x pods) under per-layer remat: each forward kernel of cfg's
+    family twice a layer a pass (forward, recompute), each of its
+    backward kernels once; the hybrid's shared block adds the dense
+    family's so for each application (`shared_flags`: recomputed inside
+    its layer's region); every other kernel of TRAIN_COUNTED 0 unless
+    `rest` names it."""
+    parts = [(DENSE_FWD, DENSE_BWD, cfg.n_layers)] \
+        if cfg.family == "dense" else [(SSM_FWD, SSM_BWD, cfg.n_layers)]
+    if cfg.family == "hybrid":
+        parts.append((DENSE_FWD, DENSE_BWD, sum(lm_mod.shared_flags(cfg))))
     want = dict.fromkeys(TRAIN_COUNTED, 0)
-    want.update({k: 2 * layer_steps for k in fwd})
-    want.update({k: layer_steps for k in bwd})
+    for fwd, bwd, n in parts:
+        for k in fwd:
+            want[k] += 2 * n * runs
+        for k in bwd:
+            want[k] += n * runs
     want.update(rest)
     return want
 
@@ -4535,13 +4614,14 @@ def zero_train_counts(names=TRAIN_COUNTED) -> None:
 
 def train_single(cfg, dev, steps: int = TRAIN_STEPS,
                  batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
-    """Part (1), and part (5) for the ssm family: `cfg` trained by the
-    Trainer on one pod (`sync="psum"`, remat "full", random weights from
-    a generator seeded 0), counts zeroed just before the run and read
-    just after; then one more step under the profiler and one capturing
-    the kernels' inputs (dense: the first call of each gate and flash
-    kernel; ssm: layer 0's, the forwards' first calls and the
-    backwards' last)."""
+    """Part (1), part (5) for the ssm family and part (6) for the hybrid:
+    `cfg` trained by the Trainer on one pod (`sync="psum"`, remat "full",
+    random weights from a generator seeded 0), counts zeroed just before
+    the run and read just after; then one more step under the profiler
+    and one capturing the kernels' inputs (dense: the first call of each
+    gate and flash kernel; ssm and hybrid: layer 0's, the forwards' first
+    calls and the backwards' last; the hybrid's shared block's likewise:
+    its first application's)."""
     dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab)
     tr = Trainer(cfg, 1, dcfg, LoopConfig(steps=steps, sync="psum"),
                  opt=AdamWConfig(total_steps=steps, **TRAIN_OPT),
@@ -4554,12 +4634,13 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
     params, state = tr.run(0)
     run_s = time.perf_counter() - t0
     got = counted()
-    want = train_launches(cfg, cfg.n_layers * steps)
+    want = train_launches(cfg, steps)
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}: under "
                              f"per-layer remat each forward kernel runs "
-                             f"twice a layer a step (forward, recompute), "
-                             f"each backward once")
+                             f"twice a layer (and a shared application) a "
+                             f"step (forward, recompute), each backward "
+                             f"once")
     losses = [h["loss"] for h in tr.history]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train losses {losses}: not finite, or no fall")
@@ -4584,7 +4665,8 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
         step_fn(params, state, b)
         sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-        prof = train_profile(lambda: step_fn(params, state, next(data)))
+        prof = train_profile(lambda: step_fn(params, state, next(data)),
+                             shared=cfg.family == "hybrid")
         prof["busy_share"] = prof["device_ms"] / wall
         prof["wall_ms"] = wall
         res["profile"] = prof
@@ -4597,10 +4679,12 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
         res["bwd_args"] = seen["silu_gate_bwd"][0]
         res["flash_args"] = (seen["flash_fwd"][0], seen["flash_bwd"][0])
     else:
-        with patched(ops, first_calls(seen), SSM_FWD), \
-                patched(ops, first_calls(seen, "last"), SSM_BWD):
+        fwd, bwd = (SSM_FWD, SSM_BWD) if cfg.family == "ssm" else \
+            (SSM_FWD + ("flash_fwd",), SSM_BWD + DENSE_BWD)
+        with patched(ops, first_calls(seen), fwd), \
+                patched(ops, first_calls(seen, "last"), bwd):
             step_fn(params, state, next(data))
-        res["layer0"] = {n: seen[n][0] for n in SSM_FWD + SSM_BWD}
+        res["layer0"] = {n: seen[n][0] for n in fwd + bwd}
     del tr, params, state, step_fn
     return res
 
@@ -4608,7 +4692,8 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
 def step_parity(cfg, dev) -> dict:
     """Part (3): one `make_train_step` step of `cfg` (f32) on the card and
     on the host from the same weights and batch (B=1, S from
-    PARITY_SEQ): the loss, every gradient leaf (within GRAD_PARITY_TOL
+    PARITY_SEQ): the loss, every gradient leaf (the hybrid's `shared_attn`
+    included; within GRAD_PARITY_TOL
     of its max |g|; `_grads_of`, the step's own gradient function) and
     the parameters after AdamW
     wherever |g| is above 1e-2 of the leaf's max (there AdamW's first
@@ -4617,7 +4702,8 @@ def step_parity(cfg, dev) -> dict:
     the step's lr (eps = 1e-8 lets a small gradient's error reach the
     update). The card's first calls of the family's backward kernels
     (f32) are held to their plain versions: dense `flash_fwd` /
-    `flash_bwd`, ssm `ssd_chunk_bwd` (part (5))."""
+    `flash_bwd`, ssm `ssd_chunk_bwd` (part (5)), the hybrid all three
+    (part (6))."""
     t0 = time.perf_counter()
     seq = PARITY_SEQ.get(cfg.arch_id, PARITY_SEQ_OTHER)
     card = registry.build_model(
@@ -4634,9 +4720,8 @@ def step_parity(cfg, dev) -> dict:
     for name, params in trees.items():
         t1 = time.perf_counter()
         dev_b = as_batch(b, params["embed"].device)
-        with patched(ops, first_card_calls(seen), (
-                ("flash_fwd", "flash_bwd") if cfg.family == "dense" else
-                ("ssd_chunk_bwd",))):
+        with patched(ops, first_card_calls(seen), PARITY_CHECKED[
+                cfg.family]):
             _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32,
                                                "full")(params, dev_b)
         grads[name] = tree_map(lambda t: t.cpu(), g)
@@ -4676,11 +4761,12 @@ def step_parity(cfg, dev) -> dict:
             raise AssertionError(f"{cfg.arch_id} {path}: parameter after "
                                  f"AdamW off by {excess:.3g} lr beyond 1e-6 "
                                  f"relative")
-    if cfg.family == "dense":
-        checks = {"flash": {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
-                            "bwd": check_flash_bwd(seen["flash_bwd"][0])}}
-    else:
-        checks = {"ssd_chunk_bwd": check_ssd_bwd(seen["ssd_chunk_bwd"][0])}
+    checks = {}
+    if "flash_bwd" in seen:
+        checks["flash"] = {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
+                           "bwd": check_flash_bwd(seen["flash_bwd"][0])}
+    if "ssd_chunk_bwd" in seen:
+        checks["ssd_chunk_bwd"] = check_ssd_bwd(seen["ssd_chunk_bwd"][0])
     del seen
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4888,9 +4974,8 @@ def train_pods(cfg, dev, forest, steps: int = POD_STEPS,
     predictions = int(tr.controller.metrics.counters()["replans_total"])
     quant = sum(sync_launches(c["plan"], c["shapes"], True)
                 for c in tap.calls)
-    want = train_launches(cfg, cfg.n_layers * N_PODS * executed,
-                          rf_predict=predictions, quantize=quant,
-                          dequantize=quant)
+    want = train_launches(cfg, N_PODS * executed, rf_predict=predictions,
+                          quantize=quant, dequantize=quant)
     problems = []
     if got != want:
         problems.append(f"launches {got}, expected {want}")
@@ -4964,18 +5049,50 @@ def log_single(single: dict, smi: str) -> None:
                 f"{k} {v:.2f}" for k, v in pr["by_kind"].items()))
 
 
+def log_pods(pods: dict, pod_cfg, cfg, smi: str) -> None:
+    """The log lines of a `train_pods` run (`pod_cfg`: `cfg` cut)."""
+    log(f"[train] 4-pod WANify {pod_cfg.arch_id} {pod_cfg.n_layers} of "
+        f"{cfg.n_layers} layers ({pods['params_per_pod']} params a pod), "
+        f"B={pods['batch']} S={pods['seq']}: {pods['steps_run']} steps run "
+        f"in {pods['run_s']:.1f} s; events {pods['events']}; launches "
+        f"{pods['launches']} ({pods['predictions']} predictions); first plan "
+        f"{pods['first_plan']}, last {pods['plan']}; sync ms a step median "
+        f"{pods['sync_ms_median']:.2f} (all: "
+        + ", ".join(f"{x:.1f}" for x in pods["sync_ms"])
+        + f"; median over the {pods['sync_ms_unchecked']} with no codec "
+        f"check); wire bytes a pod per phase, first step "
+        f"{pods['wire_bytes'][0]}"
+        f"; checkpoints {pods['checkpoints']}; peak device memory "
+        f"{(pods['peak_bytes'] or 0) / 2**30:.3f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in pods["losses"]) + f" | {smi}")
+    hs = pods["host_sync"]
+    lengths = [c["shape"][1] for c in pods["codec_checked"]]
+    log(f"[train] 4-pod checks: quantize_groups / dequantize_groups_add "
+        f"bit-equal to plain at the first call of each of "
+        f"{len(pods['codec_checked'])} part layouts (4 pod slices of "
+        f"{min(lengths)} to {max(lengths)} elements); the first sync "
+        f"redone on the host bit-equal over "
+        f"{len(hs['leaves'])} leaves ({hs['elements']} elements, "
+        f"{hs['s']:.1f} s); rf_predict bit-equal to plain on all "
+        f"{pods['rf_predict_checked']} feature matrices the controller "
+        f"predicted from")
+
+
 def log_parity(p: dict) -> None:
     """The log line of a `step_parity` run."""
+    checked = []
     if "flash" in p:
-        checked = (f"flash_fwd / flash_bwd {p['flash']['fwd']['shape']} f32 "
-                   f"against plain: out {p['flash']['fwd']['out']['err']:.3g}"
-                   + ", " + ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
-                                      for n in ("dq", "dk", "dv")))
-    else:
+        checked.append(
+            f"flash_fwd / flash_bwd {p['flash']['fwd']['shape']} f32 "
+            f"against plain: out {p['flash']['fwd']['out']['err']:.3g}, " +
+            ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
+                      for n in ("dq", "dk", "dv")))
+    if "ssd_chunk_bwd" in p:
         c = p["ssd_chunk_bwd"]
-        checked = (f"ssd_chunk_bwd {c['shape']} f32 against plain: " +
-                   ", ".join(f"{n} {c[n]:.3g}" for n in ("dx", "dB", "dC",
-                                                          "dda")))
+        checked.append(f"ssd_chunk_bwd {c['shape']} f32 against plain: " +
+                       ", ".join(f"{n} {c[n]:.3g}" for n in ("dx", "dB",
+                                                              "dC", "dda")))
+    checked = "; ".join(checked)
     log(f"[train] step parity {p['arch']} {p['layers']} layers f32, "
         f"B={p['batch']} S={p['seq']} (card {p['card_s']:.1f} s, host "
         f"{p['host_s']:.1f} s): loss {p['loss']:.3g} relative, gradients "
@@ -5025,14 +5142,8 @@ def ssm_train(cfg, dev, smi: str, parity_cfg=None) -> dict:
         args = calls.pop(name)
         k = single[name] = {"max_abs_err": check_silu_bwd(name, args)}
         if dev.type == "cuda":
-            k["timing"] = t = time_silu_bwd(name, args)
-            log(f"[train] {name} {t['shape']} {t['dtype']} (strides "
-                f"{t['strides']}) at layer 0: bit-equal to plain, two calls "
-                f"equal; kernel {t['ms']:.5f} ms (device, graph of 20 "
-                f"calls) | wrapper call {t['wrapper_ms']:.5f} ms | plain "
-                f"{t['plain_ms']:.5f} ms | bound {t['bound_ms']:.5f} ms by "
-                f"{t['bound_by']} ({t['bytes']} B) | library call: "
-                f"{lib_text(t)} | {smi}")
+            k["timing"] = time_silu_bwd(name, args)
+            log_bwd_kernel(name, k, smi)
         del args
     del calls
     if dev.type == "cuda":
@@ -5046,13 +5157,127 @@ def ssm_train(cfg, dev, smi: str, parity_cfg=None) -> dict:
     return single
 
 
+def log_bwd_kernel(name: str, k: dict, smi: str) -> None:
+    """The log line of a SiLU backward kernel checked and timed at a
+    train step's layer 0 (part (5)) or shared application (part (6))."""
+    t = k["timing"]
+    log(f"[train] {name} {t['shape']} {t['dtype']} (strides "
+        f"{t['strides']}): bit-equal to plain, two calls equal; kernel "
+        f"{t['ms']:.5f} ms (device, graph of 20 calls) | wrapper call "
+        f"{t['wrapper_ms']:.5f} ms | plain {t['plain_ms']:.5f} ms | bound "
+        f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B) | "
+        f"library call: {lib_text(t)} | {smi}")
+
+
+def hybrid_train(cfg, dev, smi: str, forest, ssd_n128_ms=None) -> dict:
+    """Part (6): the hybrid trained as part (5) trains the ssm family
+    (`train_single`, its exact counts: the Mamba-2 layers' kernels and
+    the shared block's for each of its applications), then on one more
+    step's captured inputs the Mamba-2 backwards at layer 0
+    (`ssd_chunk_bwd` at N = 64 within SSD_BWD_TOL, timed beside its
+    bound and `ssd_n128_ms`, part (5)'s N = 128 time; the SiLU backwards
+    bit-equal) and the shared block's at its first application
+    (`silu_gate_bwd` bit-equal, `flash_fwd` / `flash_bwd` within their
+    tolerances, two calls equal), each timed beside its bound and plain
+    version; one card-against-host step (`step_parity`) of cfg at
+    HYBRID_PARITY_LAYERS in f32 and the 4-pod WANify run (`train_pods`)
+    of cfg at HYBRID_POD_LAYERS."""
+    t0 = time.perf_counter()
+    single = train_single(cfg, dev)
+    log_single(single, smi)
+    if "profile" in single:
+        pr = single["profile"]
+        log(f"[train] {cfg.arch_id} shared block in the profiled step: "
+            f"attention {pr['by_kind'][SHARED_ATTN]:.2f} ms besides flash's "
+            f"{pr['by_kind'][ATTN_FWD]:.2f} + {pr['by_kind'][ATTN_BWD]:.2f}, "
+            f"MLP {pr['by_kind'][SHARED_MLP]:.2f} ms besides its gate "
+            f"kernels' {pr['shared_port_ms'][SHARED_MLP]:.2f} (forward, "
+            f"recompute and backward of {sum(lm_mod.shared_flags(cfg))} "
+            f"applications)")
+    calls = single.pop("layer0")
+    args = calls.pop("ssd_chunk_bwd")
+    k = single["ssd_chunk_bwd"] = {"check": check_ssd_bwd(args)}
+    if dev.type == "cuda":
+        k["timing"] = t = time_ssd_bwd(args)
+        t["n128_ms"] = ssd_n128_ms
+        t["kernels_ms"] = {n: v / cfg.n_layers for n, v in
+                           single["profile"]["port_kernels"].items()
+                           if n.startswith("ssd_bwd_")}
+        log(f"[train] ssd_chunk_bwd {k['check']['shape']} "
+            f"{k['check']['dtype']} at layer 0 (N = 64, padded to the bf16 "
+            f"kernels' 128): within {SSD_BWD_TOL} of each output's max |g| "
+            f"of plain (share of the tolerance: " + ", ".join(
+                f"{n} {k['check'][n]:.3g}" for n in ("dx", "dB", "dC", "dda"))
+            + f"), two calls equal bit for bit; kernels {t['ms']:.4f} ms "
+            f"(N = 128 in part (5): " + (f"{ssd_n128_ms:.4f} ms" if
+                                         ssd_n128_ms else "not measured")
+            + f") | wrapper call "
+            f"{t['wrapper_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+            f"B, {t['ops']} ops) | library call: none | by kernel in the "
+            f"profiled step: " + ", ".join(
+                f"{n} {v:.5f}" for n, v in t["kernels_ms"].items()) +
+            f" | {smi}")
+    del args
+    for name in ("silu_bwd", "silu_gate_prod_bwd"):
+        args = calls.pop(name)
+        k = single[name] = {"max_abs_err": check_silu_bwd(name, args)}
+        if dev.type == "cuda":
+            k["timing"] = time_silu_bwd(name, args)
+            log_bwd_kernel(name, k, smi)
+        del args
+    args = calls.pop("silu_gate_bwd")
+    k = single["silu_gate_bwd"] = {"max_abs_err": check_bwd(args),
+                                   "shape": list(args[0].shape)}
+    if dev.type == "cuda":
+        k["timing"] = t = time_bwd(args)
+        log(f"[train] silu_gate_bwd {t['shape']} {t['dtype']} (the shared "
+            f"MLP, first application): bit-equal to plain; kernel "
+            f"{t['ms']:.5f} ms (device, graph of 20 calls) | plain "
+            f"{t['plain_ms']:.5f} ms | bound {t['bound_ms']:.5f} ms by "
+            f"{t['bound_by']} ({t['bytes']} B) | library call: none | {smi}")
+    del args
+    fargs, bargs = calls.pop("flash_fwd"), calls.pop("flash_bwd")
+    single["flash_fwd"] = {"check": check_flash_fwd(fargs)}
+    single["flash_bwd"] = {"check": check_flash_bwd(bargs)}
+    single["flash_bits"] = flash_bits(fargs, bargs)
+    if dev.type == "cuda":
+        for which, a, timer in (("fwd", fargs, time_flash_fwd),
+                                ("bwd", bargs, time_flash_bwd)):
+            t = single[f"flash_{which}"]["timing"] = timer(a, cfg.n_kv_heads)
+            log_flash("train", which, single[f"flash_{which}"]["check"], t,
+                      smi)
+    del fargs, bargs, calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = single["parity"] = step_parity(
+        cfg.replace(n_layers=HYBRID_PARITY_LAYERS, dtype="float32"), dev)
+    log_parity({**p, "arch": cfg.arch_id})
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pod_cfg = cfg.replace(n_layers=HYBRID_POD_LAYERS)
+    pods = single["pods"] = train_pods(pod_cfg, dev, forest)
+    log_pods(pods, pod_cfg, cfg, smi)
+    meta = lm_mod.model_class(pod_cfg)(pod_cfg, torch.device("meta"),
+                                       torch.float32)
+    missed = {path for path, _ in tree_items(
+        {"shared_attn": param_tree(meta)["shared_attn"]})} - set(
+            pods["host_sync"]["leaves"])
+    if missed:
+        raise AssertionError(f"4-pod hybrid: the host's redo of the first "
+                             f"sync left out {sorted(missed)}")
+    single["s"] = time.perf_counter() - t0
+    log(f"[train] part (6) {cfg.arch_id}: {single['s']:.1f} s")
+    return single
+
+
 def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
-                ssm_cfg=None, ssm_parity_cfg=None) -> dict:
+                ssm_cfg=None, ssm_parity_cfg=None, hybrid_cfg=None) -> dict:
     """The train phase (see the head comment); every check fatal. The
     configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
     POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32;
     `ssm_cfg`: SSM_TRAIN_ARCH; `ssm_parity_cfg`: it at PARITY_LAYERS,
-    f32)."""
+    f32; `hybrid_cfg`: HYBRID_ARCH, cut by `hybrid_train`)."""
     t_phase = time.perf_counter()
     # the reference training CLI's forest (src/repro/launch/train.py)
     forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
@@ -5106,37 +5331,19 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
         log_parity({**p, "arch": pcfg.arch_id})
     pod_cfg = pod_cfg or cfg.replace(n_layers=POD_LAYERS)
     pods = train_pods(pod_cfg, dev, forest)
-    log(f"[train] 4-pod WANify {pod_cfg.arch_id} {pod_cfg.n_layers} of "
-        f"{cfg.n_layers} layers ({pods['params_per_pod']} params a pod), "
-        f"B={pods['batch']} S={pods['seq']}: {pods['steps_run']} steps run "
-        f"in {pods['run_s']:.1f} s; events {pods['events']}; launches "
-        f"{pods['launches']} ({pods['predictions']} predictions); first plan "
-        f"{pods['first_plan']}, last {pods['plan']}; sync ms a step median "
-        f"{pods['sync_ms_median']:.2f} (all: "
-        + ", ".join(f"{x:.1f}" for x in pods["sync_ms"])
-        + f"; median over the {pods['sync_ms_unchecked']} with no codec "
-        f"check); wire bytes a pod per phase, first step "
-        f"{pods['wire_bytes'][0]}"
-        f"; checkpoints {pods['checkpoints']}; peak device memory "
-        f"{(pods['peak_bytes'] or 0) / 2**30:.3f} GiB; losses "
-        + ", ".join(f"{x:.4f}" for x in pods["losses"]) + f" | {smi}")
-    hs = pods["host_sync"]
-    lengths = [c["shape"][1] for c in pods["codec_checked"]]
-    log(f"[train] 4-pod checks: quantize_groups / dequantize_groups_add "
-        f"bit-equal to plain at the first call of each of "
-        f"{len(pods['codec_checked'])} part layouts (4 pod slices of "
-        f"{min(lengths)} to {max(lengths)} elements); the first sync "
-        f"redone on the host bit-equal over "
-        f"{len(hs['leaves'])} leaves ({hs['elements']} elements, "
-        f"{hs['s']:.1f} s); rf_predict bit-equal to plain on all "
-        f"{pods['rf_predict_checked']} feature matrices the controller "
-        f"predicted from")
+    log_pods(pods, pod_cfg, cfg, smi)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     ssm_part = ssm_train(ssm_cfg or get_config(SSM_TRAIN_ARCH), dev, smi,
                          ssm_parity_cfg)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    hybrid_part = hybrid_train(
+        hybrid_cfg or get_config(HYBRID_ARCH), dev, smi, forest,
+        ssm_part["ssd_chunk_bwd"].get("timing", {}).get("ms"))
     out = {"single": single, "parity": parity, "pods": pods,
-           "ssm": ssm_part, "s": time.perf_counter() - t_phase}
+           "ssm": ssm_part, "hybrid": hybrid_part,
+           "s": time.perf_counter() - t_phase}
     log(f"[train] phase {out['s']:.2f} s")
     return out
 
@@ -5867,6 +6074,7 @@ def main() -> int:
     ff = dense["serve"]["flash_fwd"]
     fb = train["single"]["flash_bwd"]
     st = train["ssm"]
+    ht = train["hybrid"]
     hk = hybrid["kernels"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
@@ -5971,6 +6179,28 @@ def main() -> int:
         for kname, src, line in (("ssd_chunk_bwd", "ssd_chunk.cu", 59),
                                  ("silu_bwd", "silu.cu", 137),
                                  ("silu_gate_prod_bwd", "silu.cu", 152))] + [{
+        "name": f"{kname} (hybrid train)", "route": "cuda",
+        "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+        "launches": ht["launches"][kname], "max_abs_err": err,
+        "ms": ht[kname]["timing"]["ms"],
+        "plain_ms": ht[kname]["timing"]["plain_ms"],
+        "bound_ms": ht[kname]["timing"]["bound_ms"],
+        "bound_by": ht[kname]["timing"]["bound_by"],
+        "library_ms": ht[kname]["timing"].get("library_ms")}
+        for kname, src, replaces, err in (
+            ("ssd_chunk_bwd", "ssd_chunk.cu", "src/repro/models/ssm.py:59",
+             ht["ssd_chunk_bwd"]["check"]["max_abs_err"]),
+            ("silu_bwd", "silu.cu", "src/repro/models/ssm.py:137",
+             ht["silu_bwd"]["max_abs_err"]),
+            ("silu_gate_prod_bwd", "silu.cu", "src/repro/models/ssm.py:152",
+             ht["silu_gate_prod_bwd"]["max_abs_err"]),
+            ("silu_gate_bwd", "silu.cu", "src/repro/models/layers.py:89",
+             ht["silu_gate_bwd"]["max_abs_err"]),
+            ("flash_fwd", "flash_attn.cu", "src/repro/models/attention.py:39",
+             ht["flash_fwd"]["check"]["out"]["max_abs_diff"]),
+            ("flash_bwd", "flash_attn.cu", "src/repro/models/attention.py:99",
+             max(ht["flash_bwd"]["check"][n]["max_abs_diff"]
+                 for n in ("dq", "dk", "dv"))))] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:56",

@@ -4,6 +4,8 @@
       --steps 6 --batch 4 --seq 1024 --sync psum          # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
       --steps 6 --batch 4 --seq 1024 --sync psum          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+      --steps 6 --batch 4 --seq 1024 --sync psum          # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
       --reduced --device cpu                             # small, on the host
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
@@ -11,10 +13,12 @@
 
 The reference's flags; one card holds every pod, so `--data` and
 `--model` (the reference's mesh axes) above 1 raise. `--arch` takes the
-ported ids, and both ported families train: the dense family (SwiGLU's
-gate and flash attention with their backward kernels) and the ssm
-family (`mamba2-2.7b`: the SSD chunk, SiLU and the gated norm's gate
-with theirs).
+ported ids, and every ported family trains: the dense family (SwiGLU's
+gate and flash attention with their backward kernels), the ssm family
+(`mamba2-2.7b`: the SSD chunk, SiLU and the gated norm's gate with
+theirs) and the hybrid family (`zamba2-2.7b`: the ssm family's kernels
+in its Mamba-2 layers and the dense family's in its one shared
+attention + MLP block, whose gradient sums its applications').
 """
 import argparse
 from typing import Optional, Sequence

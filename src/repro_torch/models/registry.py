@@ -1,6 +1,6 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs (`ssm`, and `dense` and `hybrid` without MoE or MLA); the
-others raise "not yet ported", and so does the hybrid's `loss_fn`.
+port runs (`ssm`, and `dense` and `hybrid` without MoE or MLA), each
+of which serves and trains; the others raise "not yet ported".
 
   build_model(cfg, generator, device)          -> MambaLM | DenseLM | HybridLM
   loss_fn(cfg, remat)(params, batch)           -> (loss, metrics)
@@ -49,9 +49,10 @@ init_params = build_model
 def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     """(params, batch) -> (loss, {ce, aux, expert_load}):
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
-    "full" or "dots"). The `ssm` and `dense` families train; the others,
-    the served `hybrid` included, raise "not yet ported"."""
-    transformer.check_trains(cfg)
+    "full" or "dots"). The `ssm`, `dense` and `hybrid` families train
+    (the hybrid's shared block's gradient summed over its applications);
+    the others raise "not yet ported"."""
+    transformer.check_family(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")

@@ -7,8 +7,7 @@ with a KV cache of its own at each application).
 Port of the `ssm`, `dense` and `hybrid` paths of
 `repro/models/transformer.py`. The reference stacks the layers' leaves
 ([L, ...]) and scans them; here `MambaLM`, `DenseLM` and `HybridLM`
-hold one module per layer. MoE and MLA raise "not yet ported", and so
-does training the hybrid family.
+hold one module per layer. MoE and MLA raise "not yet ported".
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
@@ -25,10 +24,14 @@ is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
 promotes it, and `D` is upcast to f32 before it scales xh, as the
 reference upcasts it (`ssm.ssm_forward`).
 
-Both families train (`lm_loss`) on a per-layer parameter tree: the
-module's own parameters (`param_tree(model)`), or the views of the
+All three families train (`lm_loss`) on a per-layer parameter tree:
+the module's own parameters (`param_tree(model)`), or the views of the
 reference's stacked layout that the train step holds (`stack_layers` /
-`layer_views`, also the checkpoints' layout).
+`layer_views`, also the checkpoints' layout). The hybrid's shared block
+is one unstacked subtree, `shared_attn`, in both; its one cast tensor
+per leaf feeds every application, so autograd sums the applications'
+gradients there, in the compute dtype, last application first, as the
+reference's scan transpose sums the cotangent of the closed-over block.
 """
 from __future__ import annotations
 
@@ -60,7 +63,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
+    """Raise for a family the port does not run yet (every family it
+    runs, it serves and trains)."""
     if cfg.family == "ssm" or (cfg.family in ("dense", "hybrid") and
                                not cfg.is_moe and not cfg.is_mla):
         return
@@ -69,17 +73,6 @@ def check_family(cfg: ModelConfig) -> None:
         f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}) "
         f"is not yet ported; the port runs the 'ssm' family and the "
         f"'dense' and 'hybrid' families without MoE or MLA")
-
-
-def check_trains(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not train yet: the hybrid
-    serves, its training is not yet ported."""
-    check_family(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"training the 'hybrid' family ({cfg.arch_id}) is not yet "
-            f"ported; the port serves it and trains the 'ssm' and 'dense' "
-            f"families")
 
 
 def shared_flags(cfg: ModelConfig) -> List[bool]:
@@ -480,10 +473,15 @@ def lm_decode(params: _LM, cache: Dict[str, List[Dict]],
 def param_tree(model: _LM) -> Dict[str, Any]:
     """The module's parameters themselves as the tree `lm_loss` takes:
     {embed, final_norm, lm_head, blocks: [one nested dict per layer]}
-    (`compute_params`' layout, before any cast)."""
-    return {"embed": model.embed, "final_norm": model.final_norm,
+    and a nested dict for each of `unstacked()` (the hybrid's
+    `shared_attn`, by the reference's names): `compute_params`' layout,
+    before any cast."""
+    tree = {"embed": model.embed, "final_norm": model.final_norm,
             "lm_head": model.lm_head,
             "blocks": [_nest(b.named_parameters()) for b in model.blocks]}
+    for name, mod in model.unstacked().items():
+        tree[name] = _nest(mod.named_parameters())
+    return tree
 
 
 def _stack(items: List[Any], device) -> Any:
@@ -497,33 +495,37 @@ def stack_layers(tree: Dict[str, Any],
     """A per-layer tree ({.., blocks: [per-layer dicts]}) in the
     reference's layout: each block leaf stacked along a new leading
     layer axis [L, ...] (copies, on `device` if given, else each
-    tensor's own); the other leaves detached, moved likewise."""
-    out = {k: v.detach().to(device) for k, v in tree.items()
-           if k != "blocks"}
-    out["blocks"] = _stack(tree["blocks"], device)
-    return out
+    tensor's own); the other leaves, an unstacked subtree's
+    (`shared_attn`) included, detached as they are and moved
+    likewise."""
+    return {k: _stack(v, device) if k == "blocks" else
+            tree_map(lambda t: t.detach().to(device), v)
+            for k, v in tree.items()}
 
 
 def layer_views(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`stack_layers` without copies: the per-layer
-    tree whose block leaves are views `leaf[i]` of the stacked ones."""
+    tree whose block leaves are views `leaf[i]` of the stacked ones;
+    the other leaves and subtrees are the stacked tree's own."""
     blocks = tree["blocks"]
     n = len(next(tree_leaves(blocks)))
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [tree_map(lambda t, i=i: t[i], blocks) for i in range(n)]
-    return out
+    return {k: [tree_map(lambda t, i=i: t[i], blocks) for i in range(n)]
+            if k == "blocks" else v for k, v in tree.items()}
 
 
 def cast_params(params: Dict[str, Any], dtype: torch.dtype
                 ) -> Dict[str, Any]:
     """The reference's `_cast_params` through autograd: every float leaf
-    but `final_norm` (the reference casts leaves of ndim >= 2, and its
-    block leaves are stacked) in `dtype`; the gradient flows back to
-    the parameter dtype."""
-    out = tree_map(lambda t: t.to(dtype) if t.dtype in (
-        torch.float32, torch.bfloat16) else t, params)
-    out["final_norm"] = params["final_norm"]
-    return out
+    with ndim >= 2 in `dtype`, counting a block leaf's stacked layer
+    axis (so every block leaf is cast, while `final_norm` and an
+    unstacked subtree's vectors, the hybrid's `shared_attn` norms, stay
+    in the parameter dtype); the gradient flows back to the parameter
+    dtype."""
+    def cast(t: torch.Tensor, stacked: int) -> torch.Tensor:
+        return t.to(dtype) if t.dtype in (torch.float32, torch.bfloat16) \
+            and t.dim() + stacked >= 2 else t
+    return {k: tree_map(functools.partial(cast, stacked=int(k == "blocks")),
+                        v) for k, v in params.items()}
 
 
 # matrix products without batch dims (activations @ weights): what the
@@ -559,12 +561,25 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Embedded input -> final hidden, each layer under `remat`. Returns
     (h, aux_loss, load[E]): no ported family has an aux loss, and the
-    load is zeros(max(n_experts, 1)). The hybrid does not train yet."""
-    check_trains(cfg)
+    load is zeros(max(n_experts, 1)). The hybrid's shared block
+    (`pc["shared_attn"]`) runs before each flagged layer inside that
+    layer's remat region, as the reference's scan body holds both: under
+    "full" its application is recomputed in the backward, under "dots"
+    its products are saved. Its parameters enter each region as an
+    argument, so their gradients meet at the one cast tensor."""
+    check_family(cfg)
     run = model_class(cfg).block_cls.run
-    layer = maybe_remat(lambda blk, h: run(blk, h, positions, cfg), remat)
-    for blk in pc["blocks"]:
-        x = layer(blk, x)
+
+    def plain(blk, h):
+        return run(blk, h, positions, cfg)
+
+    def shared(blk, sa, h):
+        return run(blk, DenseBlock.run(sa, h, positions, cfg), positions,
+                   cfg)
+
+    layer, with_shared = maybe_remat(plain, remat), maybe_remat(shared, remat)
+    for blk, flag in zip(pc["blocks"], shared_flags(cfg)):
+        x = with_shared(blk, pc["shared_attn"], x) if flag else layer(blk, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
                        device=x.device)

@@ -2,10 +2,9 @@
 package, its entry points do not fall back to the CPU, its kernel
 wrappers refuse what their kernels do not take, and every gate that is
 not yet ported raises `NotImplementedError` (now only the model side's
-MoE, MLA, enc-dec and VLM families, and the hybrid family's training:
-the overlay, the predictor lifecycle, the fault plane, the `ssm` and
-dense families' serving and training and the hybrid family's serving
-are ported, and their gates construct and run)."""
+MoE, MLA, enc-dec and VLM families: the overlay, the predictor
+lifecycle, the fault plane and the `ssm`, dense and hybrid families'
+serving and training are ported, and their gates construct and run)."""
 import ast
 import os
 import subprocess

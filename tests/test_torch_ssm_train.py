@@ -473,11 +473,15 @@ def card():
 # the train shape (B=4, nC=4 chunks of 256, 80 heads, P=64, N=128);
 # SHAPES at B=2, nC=2; a ragged Q over two tiles with odd widths; full
 # widths with a ragged Q over four tiles and a partial head group; and
-# Q over five tiles (the bf16 kernels' C B^T no longer kept on chip)
+# Q over five tiles (the bf16 kernels' C B^T no longer kept on chip);
+# the hybrid's train shape (N=64: the bf16 kernels' B / C tiles padded
+# to 128 columns) and a ragged one at N=64
 CARD_SHAPES = [(4, 4, 256, 80, 64, 128)] + \
     [(2, 2) + s for s in SHAPES] + [(2, 3, 83, 3, 8, 24),
                                     (1, 2, 200, 13, 64, 128),
-                                    (1, 1, 320, 9, 64, 128)]
+                                    (1, 1, 320, 9, 64, 128),
+                                    (4, 4, 256, 80, 64, 64),
+                                    (1, 3, 200, 13, 64, 64)]
 
 
 def check_ssd_bwd(got, want, dtype):
@@ -553,7 +557,8 @@ def test_bwd_scratch_matches_the_library(card):
     """`ssd_scan.bwd_scratch`, by which the wrapper allocates, gives the
     sizes the library's kernels index (`ssd_chunk_bwd_scratch_floats`)."""
     lib = ssd_scan._lib()
-    for B, nC, Q, H, N in ((4, 4, 256, 80, 128), (1, 2, 200, 13, 128),
+    for B, nC, Q, H, N in ((4, 4, 256, 80, 128), (4, 4, 256, 80, 64),
+                           (1, 2, 200, 13, 128),
                            (2, 3, 83, 3, 24), (1, 1, 4096, 9, 16)):
         for bf16 in (True, False):
             sizes = [int(np.prod(s)) for s in ssd_scan.bwd_scratch(

@@ -75,6 +75,7 @@ from repro_torch.wan.simulator import WanSimulator
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCHS = ["llama3-8b", "qwen3-4b", "h2o-danube-1.8b"]
 SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "zamba2-2.7b"
 TRAIN_ARCHS = ARCHS + [SSM_ARCH]
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LOSS_RTOL = 1e-5
@@ -560,20 +561,19 @@ def test_pods_step_broadcast_and_strip():
 
 
 def test_loss_fn_gates():
-    """Both ported families train; a family whose training is not ported
-    (the served hybrid `zamba2-2.7b`, a hybrid or an MoE config built
-    from a ported one) raises "not yet ported", and so does an unknown
-    remat."""
+    """The three ported families train, the hybrid `zamba2-2.7b`
+    included; an MoE config built from a ported one raises "not yet
+    ported", and an unknown remat raises for every family."""
     ssm = reduced(get_config(SSM_ARCH))
-    assert callable(registry.loss_fn(ssm, remat="dots"))
     dense = reduced(get_config("llama3-8b"))
+    hybrid = reduced(get_config("zamba2-2.7b"))
+    for cfg in (ssm, dense, hybrid):
+        assert callable(registry.loss_fn(cfg, remat="dots"))
     moe = dense.replace(moe=dataclasses.replace(dense.moe, n_experts=4,
                                                 top_k=2, d_ff_expert=64))
-    for other in (ssm.replace(family="hybrid"), moe,
-                  reduced(get_config("zamba2-2.7b"))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.loss_fn(other)
-    for cfg in (ssm, dense):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.loss_fn(moe)
+    for cfg in (ssm, dense, hybrid):
         with pytest.raises(ValueError, match="unknown remat"):
             registry.loss_fn(cfg, remat="some")
 
@@ -676,6 +676,8 @@ _REFERENCE_PODS = textwrap.dedent("""
     for key, arch, dtype in (("float32", "h2o-danube-1.8b", "float32"),
                              ("bfloat16", "h2o-danube-1.8b", "bfloat16"),
                              ("mamba2-2.7b-float32", "mamba2-2.7b",
+                              "float32"),
+                             ("zamba2-2.7b-float32", "zamba2-2.7b",
                               "float32")):
         cfg = reduced(get_config(arch)).replace(dtype=dtype)
         tr = Trainer(cfg, compat.make_mesh((4,), ("pod",)),
@@ -733,7 +735,8 @@ def _loss_gaps(history, want) -> list:
 @pytest.mark.parametrize("arch,dtype", [
     pytest.param("h2o-danube-1.8b", "float32", id="float32"),
     pytest.param("h2o-danube-1.8b", "bfloat16", id="bfloat16"),
-    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32")])
+    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32"),
+    pytest.param(HYBRID_ARCH, "float32", id=f"{HYBRID_ARCH}-float32")])
 def test_four_pod_wanify_trainer_matches_reference(request, ref, built,
                                                    ref_pods, forest,
                                                    from_reference, arch,
@@ -743,9 +746,10 @@ def test_four_pod_wanify_trainer_matches_reference(request, ref, built,
     skew weights, the forest on the host (`rf_predict`'s plain
     version). Events and plans identical to the reference's live run;
     losses within FOUR_POD_F32_RTOL relative in f32
-    (FOUR_POD_BF16_RTOL in bf16). `h2o-danube-1.8b` in both dtypes and
-    `mamba2-2.7b` in f32 (the reference's run keyed by the test's
-    id)."""
+    (FOUR_POD_BF16_RTOL in bf16). `h2o-danube-1.8b` in both dtypes,
+    `mamba2-2.7b` and `zamba2-2.7b` in f32 (the reference's run keyed by
+    the test's id; the hybrid's shared block synchronised as an
+    unstacked subtree, its matrices split along their rows)."""
     cfg, _, rparams = built(arch, dtype)
     want = ref_pods[request.node.callspec.id]
     from_reference(rparams)
