@@ -9,7 +9,7 @@ Every phase is fatal: a failure exits non-zero before the result line.
 1. device  — `nvidia-smi` name and power limit, torch and CUDA versions
    (exits non-zero when `torch.cuda.is_available()` is false);
 2. build   — compiles the kernel sources `src/repro_torch/csrc/rf_predict.cu`,
-   `ssd_chunk.cu`, `quantize.cu`, `silu.cu` and `waterfill.cu` with
+   `ssd_chunk.cu`, `quantize.cu`, `silu.cu`, `waterfill.cu` and `moe.cu` with
    `nvcc`, one process each, started together,
    and prints ptxas's reports (registers, static shared memory, spills),
    per ssd_chunk kernel (the forward's three, the f32 backward's four
@@ -33,7 +33,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    kernel none; `flash_attn.cu` builds beside them, and its seven kernels'
    registers, spills and SASS counts are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
-   (UTMALDG), or if any bf16 instance spills;
+   (UTMALDG), or if any bf16 instance spills; and moe's two kernels'
+   registers and spills, failing on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
    wrapper picks and the other), on the paper's forest (100 trees,
@@ -307,6 +308,42 @@ Every phase is fatal: a failure exits non-zero before the result line.
    within atol / rtol 1e-3, equal ids wherever the top-2 gap exceeds
    that; the card's first `flash_fwd` call (f32) against its plain
    version within 1e-5 of max |out|. Prints the phase's seconds.
+12c. moe — the MoE family, after the hybrid phase's models are freed:
+   (1) the slice's main path: `granite-moe-1b-a400m` at its full width
+   and depth (24 layers, d 1024, 16 heads over 8 KV heads of D = 64; 32
+   experts, top-8, expert d_ff 512, capacity factor 1.25; vocab 49,155;
+   1,384,963,072 parameters; bf16 compute, f32 params, weights from a
+   `torch.Generator` seeded 0; TF32 off, asserted) served as 12b serves
+   the hybrid. Counts zeroed just before and read just after: exactly
+   34 x 24 = 816 `moe_dispatch`, `moe_combine` and `silu_gate` (the
+   experts' gate), 2 x 24 = 48 `flash_fwd`, 1 `rf_predict`, no other
+   kernel; ids and logits checked as 12b's; prefill ms per group,
+   decode ms median and p90, tokens/s, peak memory; group 1's prefill
+   and one decode step under `torch.profiler`, the MoE layer's steps in
+   ranges, for the device ms by kind (router product, softmax and
+   top-k, positions, dispatch, the three expert products, the gate, the
+   combine, flash and the attention core's plain ops, the other
+   products, the rest) and the busy share; the kernels of one decode
+   step beside those of the same step with the two kernels' plain
+   versions in their place;
+   (2) `moe_dispatch` and `moe_combine` bit-equal to their plain
+   versions (and two calls equal) on layer 0's inputs of both prefills
+   and a decode step, in bf16 and in f32, at half group 1's capacity
+   (choices dropped; C = 402, like 804 and 532 no multiple of the
+   dispatch's 256-slot block), at T = 2,563 (odd: the scan's
+   8-choice batches end ragged) and with a row of -0.0; each timed at
+   group 1's prefill and a decode step (a CUDA graph of 20 calls)
+   beside its plain version, the bound
+   (bytes), the launch floor and, for the dispatch, an `index_select`
+   that computes the same buffer; the experts' `silu_gate` bit-equal
+   at both prefills and a decode step, timed; `flash_fwd` at head dim
+   64 ([4, 16, 1, S, 64] bf16) at both prefills within 2^-7 of each
+   row's max, twice equal, timed beside SDPA and the bound;
+   (3) parity: the model at full width cut to 2 layers, f32, on the
+   card and on the host with the same weights, as 12b's (3); the card's
+   first `flash_fwd` (f32) within its tolerance and first
+   `moe_dispatch` / `moe_combine` calls (f32) bit-equal to their plain
+   versions. Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
    are freed, then the ssm family's (part (5)) and the hybrid's (part
    (6)):
@@ -477,6 +514,7 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
                                      flash_bwd_ref, flash_fwd_ref,
+                                     moe_combine_ref, moe_dispatch_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
@@ -484,10 +522,11 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      silu_ref, ssd_chunk_bwd_ref,
                                      ssd_chunk_ref)
 from repro_torch.models import attention as att  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry, ssm  # noqa: E402
 from repro_torch.models import transformer as lm_mod  # noqa: E402
 from repro_torch.models.transformer import (DenseLM, HybridLM,  # noqa: E402
-                                            MambaLM, param_tree,
+                                            MambaLM, MoeLM, param_tree,
                                             stack_cache, stack_layers,
                                             unstack_cache)
 from repro_torch.obs import check_run  # noqa: E402
@@ -4224,6 +4263,472 @@ def hybrid_phase(paper, dev, smi: str, ssd_n128_ms: float) -> dict:
 
 
 # ----------------------------------------------------------------------
+# moe phase
+# ----------------------------------------------------------------------
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_KERNELS = ("moe_dispatch", "moe_combine")
+MOE_KERNEL_NAMES = ("moe_dispatch_kernel", "moe_combine_kernel")
+# the kernels the MoE serve launches, and those it must not
+MOE_COUNTED = MOE_KERNELS + ("silu_gate", "flash_fwd", "rf_predict",
+                             "flash_bwd", "silu_gate_bwd", "ssd_chunk",
+                             "silu")
+MOE_PLAIN = {"moe_dispatch": moe_dispatch_ref,
+             "moe_combine": moe_combine_ref}
+MOE_PARITY_LAYERS = PARITY_LAYERS
+# the MoE layer's steps, each run inside a profiler range of its label:
+# (module, attribute, label); the model looks each up at call time
+MOE_STEPS = ((moe_mod, "router_logits", "moe_router"),
+             (moe_mod, "route", "moe_softmax_topk"),
+             (moe_mod, "positions", "moe_positions"),
+             (ops, "moe_dispatch", "moe_dispatch"),
+             (moe_mod, "experts", "moe_experts"),
+             (ops, "moe_combine", "moe_combine"))
+
+
+def moe_capture(step) -> dict:
+    """Run `step` (the MoE engine's prefill or decode) and return the
+    first call's (args, kwargs) of each kernel wrapper of its path:
+    `moe_dispatch`, `moe_combine` and `silu_gate` (layer 0's MoE) and
+    `flash_fwd` (layer 0's attention, prefill only)."""
+    seen = {}
+    with patched(ops, first_calls(seen), MOE_KERNELS + ("silu_gate",
+                                                         "flash_fwd")):
+        step()
+    return seen
+
+
+def moe_serve(cfg, paper, dev) -> tuple:
+    """The moe phase's serve: `serve_counted` with the MoE captures; per
+    step one moe_dispatch, moe_combine and silu_gate a layer (G = 1),
+    per prefill one flash_fwd a layer, no other kernel."""
+    def want_of(n_prefill, n_steps):
+        want = dict.fromkeys(MOE_COUNTED, 0)
+        want.update({"moe_dispatch": n_steps * cfg.n_layers,
+                     "moe_combine": n_steps * cfg.n_layers,
+                     "silu_gate": n_steps * cfg.n_layers,
+                     "flash_fwd": n_prefill * cfg.n_layers,
+                     "rf_predict": 1})
+        return want, (f"per step one moe_dispatch, moe_combine and "
+                      f"silu_gate a layer ({n_steps} steps x "
+                      f"{cfg.n_layers}), per prefill one flash_fwd a layer "
+                      f"({n_prefill}) and none in decode, 1 rf_predict, no "
+                      f"other kernel")
+    return serve_counted(cfg, paper, dev, moe_capture, MOE_COUNTED, want_of)
+
+
+def moe_bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits as integers (an equality of bits, -0.0 apart from +0.0)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_moe(name: str, args) -> dict:
+    """`ops.<name>` (the kernel on the card) against its plain version on
+    `args`: equal bit for bit, finite, and two calls equal; raises
+    otherwise. Returns the case's shape and drops."""
+    fn = getattr(ops, name)
+    got, again = fn(*args), fn(*args)
+    want = MOE_PLAIN[name](*args)
+    sync(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}, "
+                             f"or non-finite values")
+    if not torch.equal(moe_bits(got), moe_bits(want)):
+        n = int((moe_bits(got) != moe_bits(want)).sum())
+        raise AssertionError(f"{name} {tuple(got.shape)} {got.dtype}: "
+                             f"{n} elements differ from the plain version")
+    if not torch.equal(moe_bits(got), moe_bits(again)):
+        raise AssertionError(f"{name}: two calls differ")
+    keep = args[3]
+    return {"shape": list(got.shape),
+            "dtype": str(got.dtype).replace("torch.", ""),
+            "T": int(keep.shape[0]), "dropped": int((~keep).sum())}
+
+
+def moe_cases(caps) -> list:
+    """(label, name, args) of every kernel case of the phase: each
+    wrapper's layer-0 inputs at both prefills and a decode step (bf16,
+    as served) and in f32; a dropping case (group 1's routing at half
+    its capacity: its slots recounted, ob cut to them); an odd T (group
+    1's less its last token: 2,563); and x with a row of -0.0. Every C
+    here (804, 532, 402, 4) is no multiple of the dispatch's 256-slot
+    block."""
+    out = []
+    for step, cap in zip(("prefill1", "prefill2", "decode"), caps):
+        for name in MOE_KERNELS:
+            args = cap[name][0]
+            out.append((step, name, args))
+            out.append((f"{step} f32", name, tuple(
+                a.float() if torch.is_tensor(a) and a.is_floating_point()
+                and a.dtype != torch.float32 else a for a in args)))
+    x, eidx, pos_c, keep, E, C = caps[0]["moe_dispatch"][0]
+    ob, _, _, _, gates = caps[0]["moe_combine"][0]
+    half = C // 2
+    pos2, keep2 = moe_mod.positions(eidx[None], E, half)
+    out.append(("drops", "moe_dispatch", (x, eidx, pos2[0], keep2[0], E,
+                                          half)))
+    out.append(("drops", "moe_combine", (ob[:, :half].contiguous(), eidx,
+                                         pos2[0], keep2[0], gates)))
+    cut = tuple(t[:-1].contiguous() for t in (x, eidx, pos_c, keep))
+    out.append(("ragged", "moe_dispatch", cut + (E, C)))
+    out.append(("ragged", "moe_combine", (ob,) + cut[1:] +
+                (gates[:-1].contiguous(),)))
+    xz = x.clone()
+    xz[1] = -0.0
+    out.append(("negative zeros", "moe_dispatch", (xz, eidx, pos_c, keep, E,
+                                                   C)))
+    return out
+
+
+def moe_bound(name: str, args):
+    """(ms, bound_by, bytes, ops) of one call on these inputs: its inputs
+    read once as this routing needs them and its output written once.
+    moe_dispatch reads the rows of the tokens with a kept choice and the
+    routing (eidx, pos_c: 8 B, keep: 1 B a choice) and writes the
+    buffer; moe_combine reads the kept choices' rows of ob (each its
+    own slot) and the routing with the gates (4 B a choice), writes y,
+    and takes a product and an add an element of a kept row (f32
+    rate)."""
+    keep = args[3]
+    T, k = keep.shape
+    if name == "moe_dispatch":
+        x, E, C = args[0], args[4], args[5]
+        e, d = x.element_size(), x.shape[1]
+        nbytes = int(keep.any(1).sum()) * d * e + T * k * 17 + E * C * d * e
+        nops = 0
+    else:
+        ob = args[0]
+        e, d = ob.element_size(), ob.shape[2]
+        kept = int(keep.sum())
+        nbytes = kept * d * e + T * k * 21 + T * d * e
+        nops = 2 * kept * d
+    return roofline(nbytes, nops) + (nbytes, nops)
+
+
+def dispatch_library(args):
+    """One PyTorch call that computes moe_dispatch's buffer: an
+    `index_select` of x's rows, padded with one zero row, by each slot's
+    source token (the pad's index for an empty slot; the index is built
+    here, outside the timed call). It copies a -0.0 as it is."""
+    x, eidx, pos_c, keep, E, C = args
+    T, d = x.shape
+    src = torch.full((E * C,), T, dtype=torch.int64, device=x.device)
+    tok = torch.arange(T, device=x.device)[:, None].expand_as(eidx)
+    src[(eidx * C + pos_c)[keep]] = tok[keep]
+    xpad = torch.cat([x, x.new_zeros((1, d))])
+    return lambda: torch.index_select(xpad, 0, src)
+
+
+def time_moe(name: str, args, floor_ms: float) -> dict:
+    """Device ms of the wrapper's call (one launch; a CUDA graph of 20
+    calls, median of 11 replays) beside its plain version (device ms of
+    its ~k ops a call), the library call (moe_dispatch: `index_select`,
+    read in turns with the kernel; moe_combine: none), the bound and the
+    launch floor."""
+    fn = getattr(ops, name)
+    bms, by, nbytes, nops = moe_bound(name, args)
+    res = {"shape": list(args[0].shape),
+           "dtype": str(args[0].dtype).replace("torch.", ""),
+           "T": int(args[3].shape[0]), "dropped": int((~args[3]).sum()),
+           "plain_ms": device_ms(lambda: MOE_PLAIN[name](*args), launches=2,
+                                 reps=3),
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": nops,
+           "launch_floor_ms": floor_ms, "library_ms": None}
+    if name == "moe_dispatch":
+        lib = dispatch_library(args)
+        res["library_equal"] = bool(torch.equal(lib().view(
+            fn(*args).shape), fn(*args)))
+        times = {"kernel": [], "library": []}
+        for which in ("kernel", "library", "library", "kernel"):
+            times[which].append(graph_ms(
+                (lambda: fn(*args)) if which == "kernel" else lib))
+        res["ms"] = float(np.mean(times["kernel"]))
+        res["library_ms"] = float(np.mean(times["library"]))
+    else:
+        res["ms"] = graph_ms(lambda: fn(*args))
+    return res
+
+
+def log_moe(tag: str, name: str, t: dict, checks: list, smi: str) -> None:
+    log(f"[moe] {name} {tag} {t['shape']} {t['dtype']} (T={t['T']}, "
+        f"{t['dropped']} choices dropped): bit-equal to plain in "
+        f"{len(checks)} cases, two calls equal | kernel {t['ms']:.5f} ms "
+        f"(device, graph of 20 calls) | plain {t['plain_ms']:.4f} ms | "
+        f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B, "
+        f"{t['ops']} ops) | launch floor {t['launch_floor_ms']:.5f} ms | "
+        f"library call: " + (
+            f"index_select {t['library_ms']:.5f} ms (equal: "
+            f"{t['library_equal']})" if t["library_ms"] is not None else
+            "none (no single PyTorch call)") + f" | {smi}")
+
+
+def range_kernels(events, label: str, seen: set) -> dict:
+    """{kernel name: device ms} of the kernels launched by the CPU ops
+    under every range named `label` (each op once; a kernel record
+    already in `seen` not again)."""
+    out = {}
+    stack = [e for e in events if e.name == label and
+             e.device_type == torch.autograd.DeviceType.CPU]
+    visited = set()
+    while stack:
+        e = stack.pop()
+        if id(e) in visited:
+            continue
+        visited.add(id(e))
+        for kn in e.kernels:
+            if id(kn) in seen:
+                continue
+            seen.add(id(kn))
+            out[kn.name] = out.get(kn.name, 0.0) + kn.duration / 1e3
+        stack.extend(e.cpu_children)
+    return out
+
+
+def moe_profile(fn) -> dict:
+    """Run `fn` under `torch.profiler` (CPU and CUDA activity) with each
+    MoE step (`MOE_STEPS`) and the attention core (`ATTN_CORE`) inside a
+    `record_function` range, and return the device ms by kind: the MoE
+    layer's router product, softmax and top-k, positions (the kernels of
+    the torch ops in each range), the dispatch, the gate and the combine
+    (their kernels by name), the three expert products (the products in
+    the experts' range); the flash kernels and the attention core's
+    other kernels; the other matrix products (projections, lm_head); the
+    rest; the kernels run and the five longest by total time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotate(label):
+        def wrap(name, f):
+            def call(*a, **k):
+                with record_function(label):
+                    return f(*a, **k)
+            call.launches = 0
+            return call
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for mod, attr, label in MOE_STEPS:
+            stack.enter_context(patched(mod, annotate(label), (attr,)))
+        stack.enter_context(patched(att, annotate(ATTN_LABEL), ATTN_CORE))
+        prof = stack.enter_context(profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    labels = {label for _, _, label in MOE_STEPS} | {ATTN_LABEL}
+    total, n_kernels, by_name, matmul, flash = 0.0, 0, {}, 0.0, 0.0
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or e.name in labels:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        total += ms
+        n_kernels += 1
+        flash += ms if is_flash(e.name) else 0.0
+        matmul += ms if any(k in e.name.lower() for k in MATMUL_KEYS) \
+            else 0.0
+        ms0, n0 = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms0 + ms, n0 + 1)
+    seen = set()
+    per = {label: range_kernels(events, label, seen)
+           for _, _, label in MOE_STEPS}
+    attn = range_kernels(events, ATTN_LABEL, seen)
+    # the hand-written kernels launch through ctypes, outside any torch
+    # op, so the profiler ties them to no range: they are read by name
+    def named(key):
+        return sum(ms for k, (ms, _) in by_name.items() if key in k)
+    kinds = {"router": sum(per["moe_router"].values()),
+             "softmax_topk": sum(per["moe_softmax_topk"].values()),
+             "positions": sum(per["moe_positions"].values()),
+             "dispatch": named("moe_dispatch_kernel"),
+             "expert_products": sum(
+                 v for k, v in per["moe_experts"].items()
+                 if any(m in k.lower() for m in MATMUL_KEYS)),
+             "gate": named("silu_gate"),
+             "combine": named("moe_combine_kernel"),
+             "flash_kernels": flash,
+             "attention_plain": sum(v for k, v in attn.items()
+                                    if not is_flash(k))}
+    in_moe_mm = kinds["expert_products"] + sum(
+        v for k, v in per["moe_router"].items()
+        if any(m in k.lower() for m in MATMUL_KEYS))
+    in_attn_mm = sum(v for k, v in attn.items()
+                     if any(m in k.lower() for m in MATMUL_KEYS))
+    kinds["other_matmul"] = matmul - in_moe_mm - in_attn_mm
+    kinds["rest"] = total - sum(kinds.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"device_ms": total, "kernels": n_kernels, "by_kind": kinds,
+            "moe_range_calls": {
+                label: sum(1 for e in events if e.name == label and
+                           e.device_type == torch.autograd.DeviceType.CPU)
+                for _, _, label in MOE_STEPS},
+            "top": [{"ms": ms, "count": n, "name": k[:60]}
+                    for k, (ms, n) in top]}
+
+
+def plain_calls(name, fn):
+    """A `patched` wrapper that runs the plain version of a MoE kernel
+    wrapper in its place (on the card: the reference's k-loop as eager
+    ops)."""
+    def call(*args, **kw):
+        return MOE_PLAIN[name](*args)
+    call.launches = 0
+    return call
+
+
+def moe_parity(dev, cfg, tokens: np.ndarray) -> dict:
+    """`cfg` cut to MOE_PARITY_LAYERS in f32 on the card and on the host
+    with the same weights, on `tokens`: prefill and PARITY_STEPS decodes
+    (`check_parity`); the card's first `flash_fwd`, `moe_dispatch` and
+    `moe_combine` calls (f32) against their plain versions."""
+    t0 = time.perf_counter()
+    pcfg = cfg.replace(n_layers=MOE_PARITY_LAYERS, dtype="float32")
+    card_model = registry.build_model(
+        pcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host_model = MoeLM(pcfg, torch.device("cpu"), torch.float32)
+    host_model.load_state_dict(card_model.state_dict())
+    sc = ServeConfig(batch=SERVE_BATCH, s_max=S_MAX)
+    seen = {}
+    with patched(ops, first_card_calls(seen), ("flash_fwd",) + MOE_KERNELS):
+        err, mag, compared, equal = check_parity(
+            CheckedEngine(pcfg, card_model, sc, device=dev),
+            CheckedEngine(pcfg, host_model, sc, device="cpu"), tokens)
+    res = {"layers": MOE_PARITY_LAYERS, "steps": PARITY_STEPS,
+           "prompt": int(tokens.shape[1]), "tol": PARITY_TOL,
+           "max_abs_err": err, "max_abs_logit": mag,
+           "ids_compared": compared, "ids_equal": equal,
+           "flash_fwd": check_flash_fwd(seen["flash_fwd"][0])}
+    for name in MOE_KERNELS:
+        res[name] = check_moe(name, seen[name][0])
+    del seen, card_model, host_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
+    """The moe phase (see the head comment); every check fatal."""
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the router's f32 product must "
+                             "run in full f32")
+    cfg = get_config(MOE_ARCH)
+    serve, caps, eng, groups = moe_serve(cfg, paper, dev)
+    serve["active_params"] = registry.active_param_count(cfg)
+    log(f"[moe] {MOE_ARCH} {cfg.n_layers} layers, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k}, {serve['params']} params "
+        f"({serve['active_params']} active a token) on the card in "
+        f"{serve['init_s']:.1f} s; {serve['requests']} requests (prompts "
+        f"{serve['prompt_lens']}), {serve['tokens']} tokens in "
+        f"{serve['serve_s']:.3f} s = {serve['tokens_per_s']:.1f} tokens/s; "
+        f"launches {serve['launches']}; replan "
+        f"{serve['replan_s'] * 1e3:.1f} ms, schedule {serve['schedule']} | "
+        f"{smi}")
+    log("[moe] prefill ms per group: " + ", ".join(
+        f"{p:.2f} (S={s})" for p, s in zip(serve["prefill_ms"],
+                                           serve["group_lens"]))
+        + f"; decode ms per step: median {serve['decode_ms_median']:.3f}, "
+        f"p90 {serve['decode_ms_p90']:.3f}; peak device memory "
+        f"{serve['peak_bytes'] / 2**30:.3f} GiB")
+    log("[moe] ids: " + "; ".join(f"{k}: {v[:6]}" for k, v in
+                                  sorted(serve["out"].items())[:3]))
+    # where the device time goes, after the counted run: group 1's
+    # prefill and one decode step under the profiler, the MoE layer's
+    # steps in ranges; then the kernels of one decode step with the
+    # kernels and with their plain versions in their place
+    toks = eng.batch_tokens(groups[0])
+    prof = {"prefill": moe_profile(lambda: eng.prefill(toks))}
+    nxt = eng.prefill(toks)
+    prof["decode"] = moe_profile(lambda: eng.decode(nxt))
+    prof["prefill"]["busy_share"] = prof["prefill"]["device_ms"] / \
+        serve["prefill_ms"][0]
+    prof["decode"]["busy_share"] = prof["decode"]["device_ms"] / \
+        serve["decode_ms_median"]
+    nxt = eng.prefill(toks)
+    with patched(ops, plain_calls, MOE_KERNELS):
+        plain_step = device_kernels(lambda: eng.decode(nxt))
+    prof["decode"]["plain_kernels"] = plain_step["kernels"]
+    prof["decode"]["plain_device_ms"] = plain_step["device_ms"]
+    serve["profile"] = prof
+    for phase, pr in prof.items():
+        log(f"[moe] profile {phase}: {pr['kernels']} device kernels, "
+            f"{pr['device_ms']:.3f} ms ({pr['busy_share']:.1%} of the "
+            f"untraced wall time); by kind " + ", ".join(
+                f"{k} {v:.3f}" for k, v in pr["by_kind"].items()) +
+            f"; MoE ranges a run {pr['moe_range_calls']}; top: " +
+            ", ".join(f"{t['name']} x{t['count']} {t['ms']:.3f}"
+                      for t in pr["top"]))
+    log(f"[moe] a decode step launches {prof['decode']['kernels']} kernels "
+        f"with the MoE kernels, {plain_step['kernels']} with their plain "
+        f"versions in their place ({plain_step['device_ms']:.3f} device "
+        f"ms)")
+    # the two kernels against their plain versions, bit for bit, timed
+    # at group 1's prefill and a decode step
+    checks = {name: [] for name in MOE_KERNELS}
+    for label, name, args in moe_cases(caps):
+        c = check_moe(name, args)
+        c["case"] = label
+        checks[name].append(c)
+    kernels = {}
+    for name in MOE_KERNELS:
+        t = {"prefill1": time_moe(name, caps[0][name][0], floor_ms),
+             "decode": time_moe(name, caps[2][name][0], floor_ms)}
+        kernels[name] = {"checks": checks[name], "timing": t,
+                         "max_abs_err": 0.0}
+        for tag, tt in t.items():
+            log_moe(tag, name, tt, checks[name], smi)
+        log(f"[moe] {name} cases: " + "; ".join(
+            f"{c['case']} {c['shape']} {c['dtype']} T={c['T']} dropped "
+            f"{c['dropped']}" for c in checks[name]))
+    # the expert gate (silu_gate, value only) bit-equal at the MoE's
+    # shapes, timed at group 1's prefill
+    gate_errs = [check_silu("silu_gate", *cap["silu_gate"]) for cap in caps]
+    gate = time_silu("silu_gate", *caps[0]["silu_gate"])
+    gate["max_abs_err"] = max(gate_errs)
+    kernels["silu_gate"] = gate
+    log(f"[moe] silu_gate {gate['shape']} {gate['dtype']} (value only: "
+        f"{gate['value_only']}): bit-equal to plain at both prefills and a "
+        f"decode step; kernel {gate['ms']:.5f} ms | plain "
+        f"{gate['plain_ms']:.5f} ms | bound {gate['bound_ms']:.5f} ms by "
+        f"{gate['bound_by']} ({gate['bytes']} B) | library call: "
+        f"{lib_text(gate)} | {smi}")
+    # flash_fwd at head dim 64 ([4,16,1,S,64] bf16) at both prefills,
+    # timed at group 1's beside SDPA and the bound
+    fchecks = [check_flash_fwd(cap["flash_fwd"][0]) for cap in caps[:2]]
+    fargs = caps[0]["flash_fwd"][0]
+    two_calls_equal(lambda: ops.flash_fwd(*fargs), "flash_fwd")
+    ft = time_flash_fwd(fargs, cfg.n_kv_heads)
+    kernels["flash_fwd"] = {"checks": fchecks, "timing": ft,
+                            "max_err": max(c["out"]["err"] for c in fchecks)}
+    log_flash("moe", "fwd", fchecks[0], ft, smi)
+    log(f"[moe] flash_fwd {fchecks[1]['shape']} (group 2's prefill): out "
+        f"within {fchecks[1]['out']['err']:.3g} of the tolerance "
+        f"({fchecks[1]['out']['ulp_apart_share']:.4%} > 1 ulp), lse "
+        f"{fchecks[1]['lse_max_abs_diff']:.3g}; two calls equal")
+    del eng, caps
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    parity = moe_parity(dev, cfg, toks)
+    log(f"[moe] parity {MOE_PARITY_LAYERS} layers f32, prompt "
+        f"{parity['prompt']} x{SERVE_BATCH}, prefill + {PARITY_STEPS} "
+        f"decode steps: logits within {PARITY_TOL} of the host (max |diff| "
+        f"{parity['max_abs_err']:.3e}, max |logit| "
+        f"{parity['max_abs_logit']:.3f}); ids equal on "
+        f"{parity['ids_compared']} clear top-2 gaps ({parity['ids_equal']} "
+        f"of {(PARITY_STEPS + 1) * SERVE_BATCH} equal in all); the card's "
+        f"first flash_fwd {parity['flash_fwd']['shape']} f32 within "
+        f"{parity['flash_fwd']['out']['err']:.3g} of its tolerance, "
+        f"moe_dispatch {parity['moe_dispatch']['shape']} and moe_combine "
+        f"{parity['moe_combine']['shape']} f32 bit-equal; {parity['s']:.1f} s")
+    out = {"serve": serve, "kernels": kernels, "parity": parity,
+           "s": time.perf_counter() - t_phase}
+    log(f"[moe] phase {out['s']:.2f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
 # train phase
 # ----------------------------------------------------------------------
 TRAIN_ARCH = "h2o-danube-1.8b"
@@ -5483,10 +5988,10 @@ def main() -> int:
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     texts = build.compile_sources(["rf_predict", "ssd_chunk", "quantize",
-                                   "silu", "waterfill", "flash_attn"])
+                                   "silu", "waterfill", "flash_attn", "moe"])
     results["build_s"] = time.perf_counter() - t0
     log(f"[build] rf_predict + ssd_chunk + quantize + silu + waterfill + "
-        f"flash_attn in {results['build_s']:.1f} s")
+        f"flash_attn + moe in {results['build_s']:.1f} s")
     for name, text in texts.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
@@ -5548,6 +6053,17 @@ def main() -> int:
     if set(q_report) != set(QUANT_KERNELS) or spills:
         raise AssertionError(f"quantize's ptxas report: kernels "
                              f"{sorted(q_report)}, spills {spills}")
+
+    moe_report = ptxas_report(texts["moe"], MOE_KERNEL_NAMES)
+    results["build_moe"] = {"kernels": moe_report}
+    for name in MOE_KERNEL_NAMES:
+        log(f"[build] moe: {name}: " + ", ".join(
+            f"{k} {v}" for k, v in moe_report.get(name, {}).items()))
+    moe_spills = {n: r for n, r in moe_report.items()
+                  if r.get("spill_stores") or r.get("spill_loads")}
+    if set(moe_report) != set(MOE_KERNEL_NAMES) or moe_spills:
+        raise AssertionError(f"moe's ptxas report: kernels "
+                             f"{sorted(moe_report)}, spills {moe_spills}")
 
     rf_report = ptxas_report(texts["rf_predict"], RF_KERNELS)
     results["build_rf_predict"] = {"kernels": rf_report}
@@ -6059,6 +6575,12 @@ def main() -> int:
     hybrid = hybrid_phase(paper, dev, smi, ssd_timing[0]["ms"])
     results["hybrid"] = hybrid
 
+    # 12c. moe: granite-moe-1b-a400m served at full size through the
+    # moe_dispatch / moe_combine kernels, the kernels at the MoE's
+    # shapes, a 2-layer card-vs-host parity
+    moe_res = moe_phase(paper, dev, smi, floor_ms)
+    results["moe"] = moe_res
+
     # 13. train: h2o-danube-1.8b trained at full size through the
     # silu_gate kernels, the three dense archs' card-vs-host train step,
     # the 4-pod WANify Trainer
@@ -6076,6 +6598,7 @@ def main() -> int:
     st = train["ssm"]
     ht = train["hybrid"]
     hk = hybrid["kernels"]
+    mk = moe_res["kernels"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -6155,6 +6678,39 @@ def main() -> int:
         "bound_ms": hk["flash_fwd"]["timing"]["bound_ms"],
         "bound_by": hk["flash_fwd"]["timing"]["bound_by"],
         "library_ms": hk["flash_fwd"]["timing"]["library_ms"]}, {
+        "name": "flash_fwd (moe, D=64, MHA)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:39",
+        "launches": moe_res["serve"]["launches"]["flash_fwd"],
+        "max_abs_err": max(c["out"]["max_abs_diff"]
+                           for c in mk["flash_fwd"]["checks"]),
+        "ms": mk["flash_fwd"]["timing"]["ms"],
+        "plain_ms": mk["flash_fwd"]["timing"]["plain_ms"],
+        "bound_ms": mk["flash_fwd"]["timing"]["bound_ms"],
+        "bound_by": mk["flash_fwd"]["timing"]["bound_by"],
+        "library_ms": mk["flash_fwd"]["timing"]["library_ms"]}, {
+        "name": "silu_gate (moe experts)", "route": "cuda",
+        "source": "src/repro_torch/csrc/silu.cu",
+        "replaces": "src/repro/models/moe.py:104",
+        "launches": moe_res["serve"]["launches"]["silu_gate"],
+        "max_abs_err": mk["silu_gate"]["max_abs_err"],
+        "ms": mk["silu_gate"]["ms"], "plain_ms": mk["silu_gate"]["plain_ms"],
+        "bound_ms": mk["silu_gate"]["bound_ms"],
+        "bound_by": mk["silu_gate"]["bound_by"],
+        "library_ms": mk["silu_gate"]["library_ms"]}] + [{
+        "name": f"{kname}{tag}", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe.cu",
+        "replaces": f"src/repro/models/moe.py:{lines}",
+        "launches": moe_res["serve"]["launches"][kname],
+        "max_abs_err": mk[kname]["max_abs_err"],
+        "ms": mk[kname]["timing"][step]["ms"],
+        "plain_ms": mk[kname]["timing"][step]["plain_ms"],
+        "bound_ms": mk[kname]["timing"][step]["bound_ms"],
+        "bound_by": mk[kname]["timing"][step]["bound_by"],
+        "library_ms": mk[kname]["timing"][step]["library_ms"]}
+        for kname, lines in (("moe_dispatch", "98-100"),
+                             ("moe_combine", "115-118"))
+        for step, tag in (("prefill1", ""), ("decode", " (decode)"))] + [{
         "name": "flash_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/models/attention.py:99",

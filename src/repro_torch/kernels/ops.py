@@ -12,8 +12,8 @@ the dequantize kernel's share `dequantize.launches`; `silu`,
 `silu_gate` and `silu_gate_bwd` count their own, and so does
 `fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
 the backward runs two kernels in bf16, dq with delta and dk / dv, and
-three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`
-and `silu_gate_prod_bwd`.
+three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`,
+`silu_gate_prod_bwd`, `moe_dispatch` and `moe_combine`.
 
 Four ops have a gradient (each a `torch.autograd.Function` whose
 forward is the forward kernel and whose backward is a backward kernel):
@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash as _flash
+from repro_torch.kernels import moe as _moe
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import rf_predict as _rf
 from repro_torch.kernels import silu as _silu
@@ -42,7 +43,8 @@ from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      fill_rates_ref, flash_bwd_ref,
-                                     flash_fwd_ref, quantize_groups_ref,
+                                     flash_fwd_ref, moe_combine_ref,
+                                     moe_dispatch_ref, quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
                                      silu_gate_prod_bwd_ref, silu_gate_ref,
@@ -910,3 +912,94 @@ def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 
 
 flash_bwd.launches = 0
+
+
+# ----------------------------------------------------------------------
+# MoE dispatch / combine
+# ----------------------------------------------------------------------
+def _check_routing(T: int, eidx, pos_c, keep, dev) -> int:
+    """eidx, pos_c int64 and keep bool, each a contiguous [T, k] tensor
+    on `dev` with 1 <= k <= 32; returns k."""
+    _check_tensors({"eidx": (torch.int64,), "pos_c": (torch.int64,),
+                    "keep": (torch.bool,)}, eidx=eidx, pos_c=pos_c,
+                   keep=keep)
+    if eidx.device != dev:
+        raise ValueError(f"the routing lies on {eidx.device}, the rows on "
+                         f"{dev}")
+    if eidx.dim() != 2 or eidx.shape[0] != T or \
+            not 1 <= eidx.shape[1] <= _moe.MAX_K:
+        raise ValueError(f"eidx must be [T={T}, k] with 1 <= k <= "
+                         f"{_moe.MAX_K}, got {tuple(eidx.shape)}")
+    if pos_c.shape != eidx.shape or keep.shape != eidx.shape:
+        raise ValueError(f"eidx, pos_c and keep must share a shape, got "
+                         f"{tuple(eidx.shape)}, {tuple(pos_c.shape)}, "
+                         f"{tuple(keep.shape)}")
+    return eidx.shape[1]
+
+
+def moe_dispatch(x: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
+                 keep: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The MoE dispatch of one group: x [T,d] (f32 or bf16, contiguous),
+    the choices' experts eidx and capacity slots pos_c [T,k] int64 and
+    keep [T,k] bool -> buf [E,C,d] in x's dtype, dense: slot (eidx,
+    pos_c) of every kept choice holds its token's row (a -0.0 written as
+    +0.0, as the reference's f32 scatter-add onto zeros writes it), every
+    other slot zeros. The kept choices' slots must be distinct, as
+    `models.moe.moe_forward`'s positions are.
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    launch); CPU tensors to :func:`repro_torch.kernels.ref.
+    moe_dispatch_ref` (the reference's k scatter-adds), which it equals
+    bit for bit."""
+    dev = _check_tensors({"x": _FLOATS}, x=x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [T, d], got {tuple(x.shape)}")
+    _check_routing(x.shape[0], eidx, pos_c, keep, dev)
+    E, C = int(E), int(C)
+    if not (1 <= E <= _moe.MAX_EXPERTS and C >= 1 and x.shape[1] >= 1):
+        raise ValueError(f"need 1 <= E <= {_moe.MAX_EXPERTS}, C >= 1 and "
+                         f"d >= 1, got E={E}, C={C}, d={x.shape[1]}")
+    if x.is_cpu:
+        return moe_dispatch_ref(x, eidx, pos_c, keep, E, C)
+    buf = torch.empty((E, C, x.shape[1]), dtype=x.dtype, device=x.device)
+    _moe.launch_dispatch(x, eidx, pos_c, keep, buf)
+    moe_dispatch.launches += 1
+    return buf
+
+
+moe_dispatch.launches = 0
+
+
+def moe_combine(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
+                keep: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """The MoE combine of one group: the experts' outputs ob [E,C,d]
+    (f32 or bf16, contiguous), each token's choices eidx / pos_c [T,k]
+    int64, keep [T,k] bool and gates [T,k] f32 -> y [T,d] in ob's dtype,
+    dense: y_t = sum over j of keep_j ? ob[eidx_j, pos_c_j] * g_j : 0,
+    choice 0 first, rounded as XLA's CPU program rounds the reference's
+    loop (:func:`repro_torch.kernels.ref.moe_combine_ref`).
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    launch); CPU tensors to the plain version, which it equals bit for
+    bit."""
+    dev = _check_tensors({"ob": _FLOATS}, ob=ob)
+    if ob.dim() != 3 or min(ob.shape) < 1:
+        raise ValueError(f"ob must be a non-empty [E, C, d], got "
+                         f"{tuple(ob.shape)}")
+    T = eidx.shape[0] if isinstance(eidx, torch.Tensor) and eidx.dim() else 0
+    _check_routing(T, eidx, pos_c, keep, dev)
+    _check_tensors({"gates": (torch.float32,)}, gates=gates)
+    if gates.shape != eidx.shape or gates.device != dev:
+        raise ValueError(f"gates must be [T, k] f32 on {dev}, got "
+                         f"{tuple(gates.shape)} on {gates.device}")
+    if T < 1:
+        raise ValueError("moe_combine needs at least one token")
+    if ob.is_cpu:
+        return moe_combine_ref(ob, eidx, pos_c, keep, gates)
+    y = torch.empty((T, ob.shape[2]), dtype=ob.dtype, device=ob.device)
+    _moe.launch_combine(ob, eidx, pos_c, keep, gates, y)
+    moe_combine.launches += 1
+    return y
+
+
+moe_combine.launches = 0

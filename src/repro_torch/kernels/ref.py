@@ -435,3 +435,48 @@ def flash_bwd_ref(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     dv = torch.cat(dv, dim=2)[:, :, :Sk]
     return (dq.view(B, K, G, Sq, Dq).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# ----------------------------------------------------------------------
+# MoE dispatch / combine (the reference's k sequential scatters and
+# gathers, src/repro/models/moe.py)
+# ----------------------------------------------------------------------
+def moe_dispatch_ref(x: torch.Tensor, eidx: torch.Tensor,
+                     pos_c: torch.Tensor, keep: torch.Tensor, E: int,
+                     C: int) -> torch.Tensor:
+    """x [T,d] f32 / bf16, eidx / pos_c [T,k] int64, keep [T,k] bool ->
+    buf [E,C,d] in x's dtype: the reference's k scatter-adds, choice 0
+    first, of where(keep, x, 0) into slot (eidx, pos_c) of a zero
+    buffer, each add taken in f32 and rounded to x's dtype as XLA's
+    CPU program takes it. A dropped choice adds zeros to slot 0 of its
+    expert. Every kept choice owns a slot of its own, so the buffer is
+    a copy of x's rows with -0.0 written as +0.0 (+0.0 + -0.0 = +0.0),
+    and zeros in the slots no choice fills."""
+    d = x.shape[1]
+    buf = torch.zeros((E * C, d), dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for j in range(eidx.shape[1]):
+        vals = torch.where(keep[:, j, None], xf, 0.0)
+        buf.index_add_(0, eidx[:, j] * C + pos_c[:, j], vals)
+    return buf.to(x.dtype).view(E, C, d)
+
+
+def moe_combine_ref(ob: torch.Tensor, eidx: torch.Tensor,
+                    pos_c: torch.Tensor, keep: torch.Tensor,
+                    gates: torch.Tensor) -> torch.Tensor:
+    """ob [E,C,d] f32 / bf16, eidx / pos_c [T,k] int64, keep [T,k]
+    bool, gates [T,k] f32 -> y [T,d] in ob's dtype, as XLA's CPU
+    program computes the reference's k gathers: with r the rounding to
+    ob's dtype, t_j = r(where(keep_j, ob[e_j, p_j], 0) * r(g_j)) (the
+    product in f32), then y = t_0 and y = r(y + t_j) for j = 1..k-1
+    (XLA folds the first add onto zeros, so a -0.0 in t_0 survives). In
+    f32 the same order with no rounding."""
+    E, C, d = ob.shape
+    flat = ob.reshape(E * C, d)
+    g = gates.to(ob.dtype)
+    y = None
+    for j in range(eidx.shape[1]):
+        rows = flat[eidx[:, j] * C + pos_c[:, j]]
+        t = torch.where(keep[:, j, None], rows, 0) * g[:, j, None]
+        y = t if y is None else y + t
+    return y

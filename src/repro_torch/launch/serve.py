@@ -6,8 +6,12 @@
       --reduced --device cpu                          # small, on the host
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu                          # the hybrid family
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --reduced --device cpu   # the MoE family
 
-`--arch` takes every ported id (`repro_torch.configs.PORTED`).
+`--arch` takes every ported id (`repro_torch.configs.PORTED`). f32
+products stay in full f32 on the card (TF32 is never turned on: the
+MoE router's f32 product decides the routing).
 """
 import argparse
 import time

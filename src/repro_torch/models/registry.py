@@ -1,18 +1,22 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs (`ssm`, and `dense` and `hybrid` without MoE or MLA), each
-of which serves and trains; the others raise "not yet ported".
+port runs: `ssm`, and `dense` and `hybrid` without MoE or MLA, which
+serve and train, and `moe` without MLA or leading dense layers, which
+serves (training it raises "not yet ported"); the others raise "not yet
+ported".
 
-  build_model(cfg, generator, device)          -> MambaLM | DenseLM | HybridLM
+  build_model(cfg, generator, device)          -> MambaLM | DenseLM |
+                                                  HybridLM | MoeLM
   loss_fn(cfg, remat)(params, batch)           -> (loss, metrics)
   prefill_fn(cfg, s_max)(model, tokens)        -> (logits, cache)
   decode_fn(cfg)(model, cache, tokens, pos)    -> (logits, cache)
   cache_spec(cfg, B, s_max)                    -> (shape, dtype) per tensor
   load_reference_params(model, tree)           -> the JAX package's weights
   param_count(cfg)                             -> parameters, none allocated
+  active_param_count(cfg)                      -> those a token touches
 
-`s_max` sizes the attention caches (the dense family's layers, the
-hybrid's shared block) and `pos` is the decode position they read; the
-`ssm` family takes neither (its cache does not grow).
+`s_max` sizes the attention caches (the dense and moe families' layers,
+the hybrid's shared block) and `pos` is the decode position they read;
+the `ssm` family takes neither (its cache does not grow).
 """
 from __future__ import annotations
 
@@ -51,8 +55,8 @@ def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
     "full" or "dots"). The `ssm`, `dense` and `hybrid` families train
     (the hybrid's shared block's gradient summed over its applications);
-    the others raise "not yet ported"."""
-    transformer.check_family(cfg)
+    the others, the `moe` family included, raise "not yet ported"."""
+    transformer.check_trains(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")
@@ -65,6 +69,19 @@ def param_count(cfg: ModelConfig) -> int:
     model = transformer.model_class(cfg)(cfg, torch.device("meta"),
                                          torch_dtype(cfg.param_dtype))
     return sum(p.numel() for p in model.parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """The parameters a token touches, as the reference counts them:
+    all of them, less each MoE layer's routed experts it is not sent to
+    (E - top_k of them; shared experts are always on)."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = cfg.n_layers - m.first_dense_layers
+    return total - n_moe_layers * per_expert * (m.n_experts - m.top_k)
 
 
 def prefill_fn(cfg: ModelConfig, s_max: Optional[int] = None) -> Callable:
@@ -101,15 +118,9 @@ def load_reference_params(model: transformer._LM,
     `attn/wq` is module parameter `blocks.<i>.attn.wq`), an unstacked
     subtree (the hybrid's `shared_attn`) is copied into its one module,
     and every matrix keeps the reference's [in, out] layout. A tree of
-    another family (other top-level keys or block leaves) is refused.
-    After it both packages compute the same function."""
-    def copy(dst: torch.Tensor, src, name: str) -> None:
-        src = torch.from_numpy(np.array(src, dtype=np.float32))
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
-                             f"port shape {tuple(dst.shape)}")
-        dst.copy_(src)
-
+    another family (other top-level keys or block leaves) or of other
+    shapes is refused before any parameter is written. After it both
+    packages compute the same function."""
     def leaves(t, prefix=""):
         if isinstance(t, Mapping):
             for k, v in t.items():
@@ -122,16 +133,16 @@ def load_reference_params(model: transformer._LM,
     if set(tree) != want:
         raise ValueError(f"reference tree has {sorted(tree)}, expected "
                          f"{sorted(want)}")
-    for name in ("embed", "final_norm", "lm_head"):
-        copy(getattr(model, name), tree[name], name)
+    pairs = [(getattr(model, name), tree[name], name)
+             for name in ("embed", "final_norm", "lm_head")]
     for name, mod in unstacked.items():
         leaf = dict(leaves(tree[name]))
         names = {n for n, _ in mod.named_parameters()}
         if set(leaf) != names:
             raise ValueError(f"reference {name} holds {sorted(leaf)}, the "
                              f"port's {sorted(names)}")
-        for n, p in mod.named_parameters():
-            copy(p, leaf[n], f"{name}.{n}")
+        pairs += [(p, leaf[n], f"{name}.{n}")
+                  for n, p in mod.named_parameters()]
     blocks = dict(leaves(tree["blocks"]))
     names = {n for n, _ in model.blocks[0].named_parameters()}
     if set(blocks) != names:
@@ -141,6 +152,13 @@ def load_reference_params(model: transformer._LM,
     if n_layers != {len(model.blocks)}:
         raise ValueError(f"reference has {sorted(n_layers)} layers, the "
                          f"port {len(model.blocks)}")
-    for i, blk in enumerate(model.blocks):
-        for n, p in blk.named_parameters():
-            copy(p, blocks[n][i], f"blocks.{i}.{n}")
+    pairs += [(p, blocks[n][i], f"blocks.{i}.{n}")
+              for i, blk in enumerate(model.blocks)
+              for n, p in blk.named_parameters()]
+    for dst, src, name in pairs:
+        if tuple(np.shape(src)) != tuple(dst.shape):
+            raise ValueError(f"{name}: reference shape "
+                             f"{tuple(np.shape(src))}, port shape "
+                             f"{tuple(dst.shape)}")
+    for dst, src, _ in pairs:
+        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))

@@ -1,13 +1,16 @@
 """Decoder-only LM assembly: the `ssm` family (Mamba-2), the `dense`
 family (GQA attention + SwiGLU MLP; qk-norm and sliding window as
-flags) and the `hybrid` family (Zamba2: Mamba-2 layers and ONE shared
+flags), the `hybrid` family (Zamba2: Mamba-2 layers and ONE shared
 attention + MLP block, run before every `shared_attn_every`-th layer
-with a KV cache of its own at each application).
+with a KV cache of its own at each application) and the `moe` family
+(GQA attention + a routed MoE layer in the MLP's place).
 
-Port of the `ssm`, `dense` and `hybrid` paths of
+Port of the `ssm`, `dense`, `hybrid` and `moe` paths of
 `repro/models/transformer.py`. The reference stacks the layers' leaves
-([L, ...]) and scans them; here `MambaLM`, `DenseLM` and `HybridLM`
-hold one module per layer. MoE and MLA raise "not yet ported".
+([L, ...]) and scans them; here `MambaLM`, `DenseLM`, `HybridLM` and
+`MoeLM` hold one module per layer. MLA and MoE's leading dense layers
+(DeepSeek's prologue) raise "not yet ported"; the `moe` family serves
+and does not train yet (`check_trains`).
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
@@ -24,7 +27,8 @@ is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
 promotes it, and `D` is upcast to f32 before it scales xh, as the
 reference upcasts it (`ssm.ssm_forward`).
 
-All three families train (`lm_loss`) on a per-layer parameter tree:
+The `ssm`, `dense` and `hybrid` families train (`lm_loss`) on a
+per-layer parameter tree:
 the module's own parameters (`param_tree(model)`), or the views of the
 reference's stacked layout that the train step holds (`stack_layers` /
 `layer_views`, also the checkpoints' layout). The hybrid's shared block
@@ -46,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.compat import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (chunked_xent, dense_init, rms_norm,
                                       swiglu)
@@ -63,16 +68,35 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet (every family it
-    runs, it serves and trains)."""
+    """Raise for a family the port does not run yet. It runs the `ssm`
+    family, the `dense` and `hybrid` families without MoE or MLA, and
+    MoE without MLA or leading dense layers (family `moe`, or `dense`
+    with experts: the reference builds MoE blocks for either)."""
     if cfg.family == "ssm" or (cfg.family in ("dense", "hybrid") and
                                not cfg.is_moe and not cfg.is_mla):
         return
+    if cfg.family in ("dense", "moe") and cfg.is_moe and not cfg.is_mla \
+            and cfg.moe.first_dense_layers == 0:
+        return
+    prologue = cfg.is_moe and cfg.moe.first_dense_layers > 0
     raise NotImplementedError(
         f"the '{cfg.family}' family ({cfg.arch_id}"
-        f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}) "
-        f"is not yet ported; the port runs the 'ssm' family and the "
-        f"'dense' and 'hybrid' families without MoE or MLA")
+        f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}"
+        f"{', leading dense layers' if prologue else ''}) is not yet "
+        f"ported; the port runs the 'ssm' family, the "
+        f"'dense' and 'hybrid' families without MoE or MLA, and MoE "
+        f"without MLA or leading dense layers")
+
+
+def check_trains(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not train yet: `check_family`'s,
+    and MoE (served, not trained: its aux loss, expert load and the
+    dispatch / combine kernels' backwards come with its training)."""
+    check_family(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"training the MoE family ({cfg.arch_id}) is not yet ported; "
+            f"it serves (registry.prefill_fn / decode_fn)")
 
 
 def shared_flags(cfg: ModelConfig) -> List[bool]:
@@ -153,14 +177,20 @@ def attn_cache_len(cfg: ModelConfig, S_max: int) -> int:
 def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
          ) -> torch.Tensor:
     """The residual sum x + a (a the attention's output), then ln2 and
-    the MLP. ln2's variance is taken of the f32 sum before it is rounded
-    to the compute dtype: XLA's compiled CPU programs of the reference's
+    the MLP: the SwiGLU `mlp`, or the MoE layer where the block holds
+    `moe` (as the reference's `_attn_mlp_block` picks; the serve drops
+    its aux loss and load, as the reference's decode does). ln2's
+    variance is taken of the f32 sum before it is rounded to the
+    compute dtype: XLA's compiled CPU programs of the reference's
     block, `lm_prefill` and `lm_decode` all drop that f32 -> bf16 -> f32
     pair (the square reads the f32 add; the value path the rounded
     one), the hybrid's shared block inside its `lax.cond` too."""
     s = x.float() + a                   # the add widens a bf16 a exactly
     x = s.to(x.dtype)
     h = rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
+    if "moe" in blk:
+        return x + moe_mod.moe_forward(blk["moe"], h, cfg,
+                                       with_stats=False)[0]
     mlp = blk["mlp"]
     return x + swiglu(h, mlp["w1"], mlp["w3"], mlp["w2"])
 
@@ -230,6 +260,27 @@ class DenseBlock(nn.Module):
         shape = (B, cfg.n_kv_heads, attn_cache_len(cfg, S_max),
                  cfg.resolved_head_dim)
         return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+class MoeBlock(DenseBlock):
+    """One layer of the `moe` family: `ln1`, the attention `attn`, `ln2`
+    and the MoE layer `moe` in the MLP's place (`_mlp` runs it); its
+    static functions and cache are `DenseBlock`'s."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        nn.Module.__init__(self)
+        self.ln1 = _param(dtype, device, cfg.d_model)
+        self.attn = att.GqaAttention(cfg, dtype, device)
+        self.ln2 = _param(dtype, device, cfg.d_model)
+        self.moe = moe_mod.MoeMlp(cfg, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init of the layer, drawn from `generator`."""
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.reset_parameters(generator)
+        self.moe.reset_parameters(generator)
 
 
 def _nest(named) -> Dict[str, Any]:
@@ -356,9 +407,17 @@ class HybridLM(_LM):
         return {"shared_attn": self.shared_attn}
 
 
+class MoeLM(_LM):
+    """The `moe` family: one `MoeBlock` per layer."""
+
+    block_cls = MoeBlock
+
+
 def model_class(cfg: ModelConfig) -> type:
     """The module class of `cfg`'s family (raises for one not ported)."""
     check_family(cfg)
+    if cfg.is_moe:
+        return MoeLM
     return {"ssm": MambaLM, "dense": DenseLM,
             "hybrid": HybridLM}[cfg.family]
 
@@ -368,9 +427,10 @@ def model_class(cfg: ModelConfig) -> type:
 # ======================================================================
 def lm_forward(params: _LM, tokens: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,V] (no family here has the aux loss
-    or expert load that the reference also returns). The hybrid's
-    shared block runs before each flagged layer (`shared_flags`)."""
+    """tokens [B,S] -> logits [B,S,V] (the reference also returns the
+    aux loss and expert load, which only the MoE family has; the port
+    serves it without them). The hybrid's shared block runs before each
+    flagged layer (`shared_flags`)."""
     pc = params.compute_params(torch_dtype(cfg.dtype))
     x = pc["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
@@ -567,7 +627,7 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
     "full" its application is recomputed in the backward, under "dots"
     its products are saved. Its parameters enter each region as an
     argument, so their gradients meet at the one cast tensor."""
-    check_family(cfg)
+    check_trains(cfg)
     run = model_class(cfg).block_cls.run
 
     def plain(blk, h):
@@ -593,7 +653,9 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     aux. `params` is a per-layer tree (:func:`param_tree`, or
     :func:`layer_views`) in the parameter dtype; it is cast to the
     compute dtype through autograd. batch: tokens and targets [B,S]
-    integer tensors. Returns (loss, {ce, aux, expert_load})."""
+    integer tensors. Returns (loss, {ce, aux, expert_load}). Raises
+    "not yet ported" for the MoE family (`check_trains`)."""
+    check_trains(cfg)
     pc = cast_params(params, torch_dtype(cfg.dtype))
     x = pc["embed"][batch["tokens"]]
     positions = torch.arange(x.shape[1], device=x.device)

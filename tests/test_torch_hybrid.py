@@ -343,7 +343,7 @@ def test_hybrid_entry_points_need_s_max_and_pos(built):
         registry.decode_fn(cfg)(model, cache, toks[:, :1])
 
 
-def test_training_the_hybrid_is_not_yet_ported(built, ref):
+def test_the_hybrid_trains(built, ref):
     """The gate is gone: the hybrid's training entry points run.
     `registry.loss_fn` and `transformer.lm_loss` give the reference's
     loss on the module's tree, and its gradient reaches every parameter,

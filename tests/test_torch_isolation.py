@@ -77,7 +77,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.train.loop", "repro_torch.train.optimizer",
             "repro_torch.train.train_step", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
-            "repro_torch.kernels.flash"} <= mods
+            "repro_torch.kernels.flash", "repro_torch.kernels.moe",
+            "repro_torch.models.moe",
+            "repro_torch.configs.granite_moe_1b_a400m"} <= mods
 
 
 def _imports(path):
@@ -220,7 +222,7 @@ def test_controller_gates_not_yet_ported(monkeypatch):
     assert graceful.metrics.counters()["rows_quarantined"] >= 1
     ctl.faults = None
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("granite-moe-1b-a400m")
+        get_config("deepseek-v2-236b")
     monkeypatch.setenv("REPRO_OVERLAY", "on")
     assert _controller().overlay == "on"
     with pytest.raises(ValueError, match="unknown overlay"):
@@ -278,10 +280,12 @@ def _tiny_cfg():
 
 
 def _moe_cfg():
-    """A reduced dense config made MoE: the family's gate of a model
-    that is still not ported."""
+    """A reduced dense config made MoE with a leading dense layer
+    (DeepSeek's prologue): the gate of an MoE model that is still not
+    ported (MoE without one serves)."""
     return reduced(get_config("llama3-8b")).replace(
-        family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
+        family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64,
+                                    first_dense_layers=1))
 
 
 def test_model_and_engine_default_to_cuda_and_raise_without_it(
@@ -353,8 +357,8 @@ def test_ssd_wrapper_counts_no_launch_on_cpu(dtype):
 
 def test_model_side_gates_not_yet_ported():
     assert PORTED == ["mamba2-2.7b", "llama3-8b", "qwen3-4b",
-                      "h2o-danube-1.8b", "zamba2-2.7b"] and \
-        len(ARCH_IDS) == 10
+                      "h2o-danube-1.8b", "zamba2-2.7b",
+                      "granite-moe-1b-a400m"] and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -379,6 +383,15 @@ def test_model_side_gates_not_yet_ported():
     logits, cache = registry.decode_fn(hybrid)(model, cache, toks[:, :1], 4)
     assert logits.shape == (1, hybrid.vocab)
     assert len(cache["blocks"]) == 4 and len(cache["shared_attn"]) == 2
+    # the MoE family without a prologue builds, prefills and decodes,
+    # and does not train
+    moe = reduced(get_config("granite-moe-1b-a400m"))
+    model = registry.build_model(moe, torch.Generator(), device="cpu")
+    _, cache = registry.prefill_fn(moe, 8)(model, toks)
+    logits, _ = registry.decode_fn(moe)(model, cache, toks[:, :1], 4)
+    assert logits.shape == (1, moe.vocab)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.loss_fn(moe)
 
 
 @pytest.mark.parametrize("module", [
@@ -491,6 +504,34 @@ def test_dense_path_modules_import_no_jax_and_no_reference(module):
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.moe", "repro_torch.kernels.moe",
+    "repro_torch.configs.granite_moe_1b_a400m"])
+def test_moe_path_modules_import_no_jax_and_no_reference(module):
+    """Each module of the MoE family's serve path, on its own, pulls in
+    neither jax nor the reference package."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/torch_pods.py"])
+def test_chip_script_and_pod_helpers_name_no_jax_or_reference(path):
+    """`chip_smoke.py` (run on the card, where jax is not installed) and
+    the pod functions' module (imported by every spawned pod) import
+    neither jax nor the reference package."""
+    mods = list(_imports(SRC.parent / path))
+    assert mods
+    for mod in mods:
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
 
 
 @pytest.mark.parametrize("module", [

@@ -38,6 +38,7 @@ from repro_torch.models import registry, ssm
 from repro_torch.models.transformer import stack_cache
 from repro_torch.obs.spans import SpanTracer
 from repro_torch.serve.engine import kv_migrate
+from torch_pods import _failing_pod, _sleeping_pod
 
 N_PODS = 4
 DEADLINE = 240          # seconds, each side
@@ -365,17 +366,9 @@ def test_one_pod_plan_is_the_identity():
 
 # ----------------------------------------------------------------------
 # the pod launcher: a failing or hanging pod fails the call, in time
+# (the pod functions live in tests/torch_pods.py, which a spawned pod
+# imports in well under the deadline; this module takes seconds)
 # ----------------------------------------------------------------------
-def _failing_pod(rank, n_pods):
-    if rank == 1:
-        raise ValueError("pod one gives up")
-    compat.ppermute(torch.ones(3), 1)       # the others wait on pod 1
-
-
-def _sleeping_pod(rank, n_pods):
-    time.sleep(120)
-
-
 @pytest.mark.parametrize("fn,match", [(_failing_pod, "pod 1 failed"),
                                       (_sleeping_pod, "timed out")],
                          ids=["raises", "hangs"])
