@@ -33,7 +33,7 @@ Every phase is fatal: a failure exits non-zero before the result line.
    kernel none; `flash_attn.cu` builds beside them, and its seven kernels'
    registers, spills and SASS counts are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
-   (UTMALDG), or if any bf16 instance spills; and moe's two kernels'
+   (UTMALDG), or if any bf16 instance spills; and moe's three kernels'
    registers and spills, failing on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
@@ -315,34 +315,38 @@ Every phase is fatal: a failure exits non-zero before the result line.
    1,384,963,072 parameters; bf16 compute, f32 params, weights from a
    `torch.Generator` seeded 0; TF32 off, asserted) served as 12b serves
    the hybrid. Counts zeroed just before and read just after: exactly
-   34 x 24 = 816 `moe_dispatch`, `moe_combine` and `silu_gate` (the
-   experts' gate), 2 x 24 = 48 `flash_fwd`, 1 `rf_predict`, no other
-   kernel; ids and logits checked as 12b's; prefill ms per group,
-   decode ms median and p90, tokens/s, peak memory; group 1's prefill
-   and one decode step under `torch.profiler`, the MoE layer's steps in
-   ranges, for the device ms by kind (router product, softmax and
-   top-k, positions, dispatch, the three expert products, the gate, the
-   combine, flash and the attention core's plain ops, the other
-   products, the rest) and the busy share; the kernels of one decode
-   step beside those of the same step with the two kernels' plain
-   versions in their place;
-   (2) `moe_dispatch` and `moe_combine` bit-equal to their plain
-   versions (and two calls equal) on layer 0's inputs of both prefills
-   and a decode step, in bf16 and in f32, at half group 1's capacity
-   (choices dropped; C = 402, like 804 and 532 no multiple of the
-   dispatch's 256-slot block), at T = 2,563 (odd: the scan's
-   8-choice batches end ragged) and with a row of -0.0; each timed at
-   group 1's prefill and a decode step (a CUDA graph of 20 calls)
-   beside its plain version, the bound
-   (bytes), the launch floor and, for the dispatch, an `index_select`
-   that computes the same buffer; the experts' `silu_gate` bit-equal
+   34 x 24 = 816 `moe_slots`, `moe_dispatch`, `moe_combine` and
+   `silu_gate` (the experts' gate), 2 x 24 = 48 `flash_fwd`, 1
+   `rf_predict`, no other kernel; ids and logits checked as 12b's;
+   prefill ms per group, decode ms median and p90, tokens/s, peak
+   memory; group 1's prefill and one decode step under
+   `torch.profiler`, the MoE layer's steps in ranges, for the device ms
+   by kind (router product, softmax and top-k, slots, dispatch, the
+   three expert products, the gate, the combine, flash and the
+   attention core's plain ops, the other products, the rest) and the
+   busy share, failing if a cumulative-sum kernel runs (the eager
+   positions' count has left the path) or no `moe_slots_kernel`; the
+   kernels of one decode step beside those of the same step with the three kernels'
+   plain versions in their place;
+   (2) `moe_slots` integer-equal, `moe_dispatch` and `moe_combine`
+   bit-equal to their plain versions (and two calls equal) on layer
+   0's inputs of both prefills and a decode step, the last two in bf16
+   and in f32, at half group 1's capacity (choices dropped; C = 402),
+   at T = 2,563 (odd: 20,504 choices, no multiple of 32) and with a row
+   of -0.0 (the slots kernel's edges are the card tests'); the
+   dispatch's plain gather against the reference's k scatter-adds at
+   group 1; each timed at group 1's
+   prefill and a decode step (a CUDA graph of 20 calls) beside its
+   plain version, the bound (bytes), the launch floor and, for the
+   dispatch, an `index_select` by the same src that computes the same
+   buffer, in turns with the kernel; the experts' `silu_gate` bit-equal
    at both prefills and a decode step, timed; `flash_fwd` at head dim
    64 ([4, 16, 1, S, 64] bf16) at both prefills within 2^-7 of each
    row's max, twice equal, timed beside SDPA and the bound;
    (3) parity: the model at full width cut to 2 layers, f32, on the
    card and on the host with the same weights, as 12b's (3); the card's
-   first `flash_fwd` (f32) within its tolerance and first
-   `moe_dispatch` / `moe_combine` calls (f32) bit-equal to their plain
+   first `flash_fwd` (f32) within its tolerance and first `moe_slots`,
+   `moe_dispatch` / `moe_combine` calls (f32) equal to their plain
    versions. Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
    are freed, then the ssm family's (part (5)) and the hybrid's (part
@@ -514,7 +518,9 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
                                      flash_bwd_ref, flash_fwd_ref,
-                                     moe_combine_ref, moe_dispatch_ref,
+                                     moe_combine_ref,
+                                     moe_dispatch_gather_ref,
+                                     moe_dispatch_ref, moe_slots_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
@@ -4266,30 +4272,30 @@ def hybrid_phase(paper, dev, smi: str, ssd_n128_ms: float) -> dict:
 # moe phase
 # ----------------------------------------------------------------------
 MOE_ARCH = "granite-moe-1b-a400m"
-MOE_KERNELS = ("moe_dispatch", "moe_combine")
-MOE_KERNEL_NAMES = ("moe_dispatch_kernel", "moe_combine_kernel")
+MOE_KERNELS = ("moe_slots", "moe_dispatch", "moe_combine")
+MOE_KERNEL_NAMES = ("moe_slots_kernel", "moe_dispatch_kernel",
+                    "moe_combine_kernel")
 # the kernels the MoE serve launches, and those it must not
 MOE_COUNTED = MOE_KERNELS + ("silu_gate", "flash_fwd", "rf_predict",
                              "flash_bwd", "silu_gate_bwd", "ssd_chunk",
                              "silu")
-MOE_PLAIN = {"moe_dispatch": moe_dispatch_ref,
+MOE_PLAIN = {"moe_slots": moe_slots_ref,
+             "moe_dispatch": moe_dispatch_gather_ref,
              "moe_combine": moe_combine_ref}
 MOE_PARITY_LAYERS = PARITY_LAYERS
 # the MoE layer's steps, each run inside a profiler range of its label:
 # (module, attribute, label); the model looks each up at call time
 MOE_STEPS = ((moe_mod, "router_logits", "moe_router"),
              (moe_mod, "route", "moe_softmax_topk"),
-             (moe_mod, "positions", "moe_positions"),
+             (ops, "moe_slots", "moe_slots"),
              (ops, "moe_dispatch", "moe_dispatch"),
              (moe_mod, "experts", "moe_experts"),
              (ops, "moe_combine", "moe_combine"))
-
-
 def moe_capture(step) -> dict:
     """Run `step` (the MoE engine's prefill or decode) and return the
     first call's (args, kwargs) of each kernel wrapper of its path:
-    `moe_dispatch`, `moe_combine` and `silu_gate` (layer 0's MoE) and
-    `flash_fwd` (layer 0's attention, prefill only)."""
+    `moe_slots`, `moe_dispatch`, `moe_combine` and `silu_gate` (layer
+    0's MoE) and `flash_fwd` (layer 0's attention, prefill only)."""
     seen = {}
     with patched(ops, first_calls(seen), MOE_KERNELS + ("silu_gate",
                                                          "flash_fwd")):
@@ -4299,17 +4305,16 @@ def moe_capture(step) -> dict:
 
 def moe_serve(cfg, paper, dev) -> tuple:
     """The moe phase's serve: `serve_counted` with the MoE captures; per
-    step one moe_dispatch, moe_combine and silu_gate a layer (G = 1),
-    per prefill one flash_fwd a layer, no other kernel."""
+    step one moe_slots, moe_dispatch, moe_combine and silu_gate a layer
+    (G = 1), per prefill one flash_fwd a layer, no other kernel."""
     def want_of(n_prefill, n_steps):
         want = dict.fromkeys(MOE_COUNTED, 0)
-        want.update({"moe_dispatch": n_steps * cfg.n_layers,
-                     "moe_combine": n_steps * cfg.n_layers,
-                     "silu_gate": n_steps * cfg.n_layers,
-                     "flash_fwd": n_prefill * cfg.n_layers,
+        want.update({name: n_steps * cfg.n_layers
+                     for name in MOE_KERNELS + ("silu_gate",)})
+        want.update({"flash_fwd": n_prefill * cfg.n_layers,
                      "rf_predict": 1})
-        return want, (f"per step one moe_dispatch, moe_combine and "
-                      f"silu_gate a layer ({n_steps} steps x "
+        return want, (f"per step one moe_slots, moe_dispatch, moe_combine "
+                      f"and silu_gate a layer ({n_steps} steps x "
                       f"{cfg.n_layers}), per prefill one flash_fwd a layer "
                       f"({n_prefill}) and none in decode, 1 rf_predict, no "
                       f"other kernel")
@@ -4317,88 +4322,117 @@ def moe_serve(cfg, paper, dev) -> tuple:
 
 
 def moe_bits(t: torch.Tensor) -> torch.Tensor:
-    """t's bits as integers (an equality of bits, -0.0 apart from +0.0)."""
+    """t's bits as integers (an equality of bits, -0.0 apart from +0.0);
+    integers and booleans as they are."""
+    if not t.is_floating_point():
+        return t
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def moe_info(name: str, args, out) -> dict:
+    """A case's shape, dtype, tokens and dropped choices (moe_slots from
+    its keep, moe_combine from the routing) or empty slots
+    (moe_dispatch)."""
+    first = args[0]
+    info = {"shape": list(first.shape),
+            "dtype": str(first.dtype).replace("torch.", "")}
+    if name == "moe_slots":
+        info.update(T=int(first.shape[1]), dropped=int((~out[1]).sum()))
+    elif name == "moe_dispatch":
+        info.update(T=int(first.shape[0]), empty=int((args[1] < 0).sum()))
+    else:
+        info.update(T=int(args[3].shape[0]), dropped=int((~args[3]).sum()))
+    return info
 
 
 def check_moe(name: str, args) -> dict:
     """`ops.<name>` (the kernel on the card) against its plain version on
-    `args`: equal bit for bit, finite, and two calls equal; raises
-    otherwise. Returns the case's shape and drops."""
+    `args`: equal bit for bit (integer for integer: moe_slots' three
+    outputs), finite, and two calls equal; raises otherwise. Returns the
+    case's `moe_info`."""
     fn = getattr(ops, name)
     got, again = fn(*args), fn(*args)
     want = MOE_PLAIN[name](*args)
-    sync(got.device)
-    if got.shape != want.shape or got.dtype != want.dtype or \
-            not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
-                             f"against {want.dtype} {tuple(want.shape)}, "
-                             f"or non-finite values")
-    if not torch.equal(moe_bits(got), moe_bits(want)):
-        n = int((moe_bits(got) != moe_bits(want)).sum())
-        raise AssertionError(f"{name} {tuple(got.shape)} {got.dtype}: "
-                             f"{n} elements differ from the plain version")
-    if not torch.equal(moe_bits(got), moe_bits(again)):
-        raise AssertionError(f"{name}: two calls differ")
-    keep = args[3]
-    return {"shape": list(got.shape),
-            "dtype": str(got.dtype).replace("torch.", ""),
-            "T": int(keep.shape[0]), "dropped": int((~keep).sum())}
+    sync(got[0].device if isinstance(got, tuple) else got.device)
+    outs = zip(*(o if isinstance(o, tuple) else (o,)
+                 for o in (got, want, again)))
+    for g, w, a in outs:
+        if g.shape != w.shape or g.dtype != w.dtype or (
+                g.is_floating_point() and not torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} "
+                                 f"against {w.dtype} {tuple(w.shape)}, "
+                                 f"or non-finite values")
+        if not torch.equal(moe_bits(g), moe_bits(w)):
+            n = int((moe_bits(g) != moe_bits(w)).sum())
+            raise AssertionError(f"{name} {tuple(g.shape)} {g.dtype}: "
+                                 f"{n} elements differ from the plain "
+                                 f"version")
+        if not torch.equal(moe_bits(g), moe_bits(a)):
+            raise AssertionError(f"{name}: two calls differ")
+    return moe_info(name, args, got)
 
 
 def moe_cases(caps) -> list:
     """(label, name, args) of every kernel case of the phase: each
     wrapper's layer-0 inputs at both prefills and a decode step (bf16,
     as served) and in f32; a dropping case (group 1's routing at half
-    its capacity: its slots recounted, ob cut to them); an odd T (group
-    1's less its last token: 2,563); and x with a row of -0.0. Every C
-    here (804, 532, 402, 4) is no multiple of the dispatch's 256-slot
-    block."""
+    its capacity: its slots recounted by the plain version, ob cut to
+    them); an odd T (group 1's less its last token: 2,563, its slots
+    recounted); and x with a row of -0.0 (the slots kernel's edges, E =
+    160, k = 32, one expert and many groups, are the card tests')."""
     out = []
     for step, cap in zip(("prefill1", "prefill2", "decode"), caps):
         for name in MOE_KERNELS:
             args = cap[name][0]
             out.append((step, name, args))
-            out.append((f"{step} f32", name, tuple(
-                a.float() if torch.is_tensor(a) and a.is_floating_point()
-                and a.dtype != torch.float32 else a for a in args)))
-    x, eidx, pos_c, keep, E, C = caps[0]["moe_dispatch"][0]
-    ob, _, _, _, gates = caps[0]["moe_combine"][0]
+            if name != "moe_slots":
+                out.append((f"{step} f32", name, tuple(
+                    a.float() if torch.is_tensor(a) and a.is_floating_point()
+                    and a.dtype != torch.float32 else a for a in args)))
+    eidx3, E, C = caps[0]["moe_slots"][0]
+    x, src = caps[0]["moe_dispatch"][0]
+    ob, eidx, pos_c, keep, gates = caps[0]["moe_combine"][0]
     half = C // 2
-    pos2, keep2 = moe_mod.positions(eidx[None], E, half)
-    out.append(("drops", "moe_dispatch", (x, eidx, pos2[0], keep2[0], E,
-                                          half)))
+    pos2, keep2, src2 = moe_slots_ref(eidx3, E, half)
+    out.append(("drops", "moe_slots", (eidx3, E, half)))
+    out.append(("drops", "moe_dispatch", (x, src2[0])))
     out.append(("drops", "moe_combine", (ob[:, :half].contiguous(), eidx,
                                          pos2[0], keep2[0], gates)))
-    cut = tuple(t[:-1].contiguous() for t in (x, eidx, pos_c, keep))
-    out.append(("ragged", "moe_dispatch", cut + (E, C)))
-    out.append(("ragged", "moe_combine", (ob,) + cut[1:] +
-                (gates[:-1].contiguous(),)))
+    cut3 = eidx3[:, :-1].contiguous()
+    pos3, keep3, src3 = moe_slots_ref(cut3, E, C)
+    out.append(("ragged", "moe_slots", (cut3, E, C)))
+    out.append(("ragged", "moe_dispatch", (x[:-1].contiguous(), src3[0])))
+    out.append(("ragged", "moe_combine", (ob, cut3[0], pos3[0], keep3[0],
+                                          gates[:-1].contiguous())))
     xz = x.clone()
     xz[1] = -0.0
-    out.append(("negative zeros", "moe_dispatch", (xz, eidx, pos_c, keep, E,
-                                                   C)))
+    out.append(("negative zeros", "moe_dispatch", (xz, src)))
     return out
 
 
 def moe_bound(name: str, args):
     """(ms, bound_by, bytes, ops) of one call on these inputs: its inputs
-    read once as this routing needs them and its output written once.
-    moe_dispatch reads the rows of the tokens with a kept choice and the
-    routing (eidx, pos_c: 8 B, keep: 1 B a choice) and writes the
-    buffer; moe_combine reads the kept choices' rows of ob (each its
-    own slot) and the routing with the gates (4 B a choice), writes y,
-    and takes a product and an add an element of a kept row (f32
-    rate)."""
-    keep = args[3]
-    T, k = keep.shape
-    if name == "moe_dispatch":
-        x, E, C = args[0], args[4], args[5]
+    read once as this routing needs them and its outputs written once.
+    moe_slots reads the experts (8 B a choice) and writes pos_c (8 B),
+    keep (1 B) and src (4 B a slot); moe_dispatch reads the rows of the
+    tokens some slot names and src (4 B a slot) and writes the buffer;
+    moe_combine reads the kept choices' rows of ob (each its own slot)
+    and the routing (eidx, pos_c: 8 B, keep: 1 B a choice) with the
+    gates (4 B a choice), writes y, and takes a product and an add an
+    element of a kept row (f32 rate)."""
+    if name == "moe_slots":
+        eidx, E, C = args
+        nbytes = eidx.numel() * 17 + eidx.shape[0] * E * C * 4
+        nops = 0
+    elif name == "moe_dispatch":
+        x, src = args
         e, d = x.element_size(), x.shape[1]
-        nbytes = int(keep.any(1).sum()) * d * e + T * k * 17 + E * C * d * e
+        rows = int(torch.unique(src[src >= 0]).numel())
+        nbytes = rows * d * e + src.numel() * 4 + src.numel() * d * e
         nops = 0
     else:
-        ob = args[0]
+        ob, keep = args[0], args[3]
+        T, k = keep.shape
         e, d = ob.element_size(), ob.shape[2]
         kept = int(keep.sum())
         nbytes = kept * d * e + T * k * 21 + T * d * e
@@ -4408,33 +4442,30 @@ def moe_bound(name: str, args):
 
 def dispatch_library(args):
     """One PyTorch call that computes moe_dispatch's buffer: an
-    `index_select` of x's rows, padded with one zero row, by each slot's
-    source token (the pad's index for an empty slot; the index is built
-    here, outside the timed call). It copies a -0.0 as it is."""
-    x, eidx, pos_c, keep, E, C = args
+    `index_select` of x's rows, padded with one zero row, by the same
+    src (the pad's index for an empty slot; the index is built here,
+    outside the timed call). It copies a -0.0 as it is."""
+    x, src = args
     T, d = x.shape
-    src = torch.full((E * C,), T, dtype=torch.int64, device=x.device)
-    tok = torch.arange(T, device=x.device)[:, None].expand_as(eidx)
-    src[(eidx * C + pos_c)[keep]] = tok[keep]
+    idx = torch.where(src < 0, T, src).reshape(-1).long()
     xpad = torch.cat([x, x.new_zeros((1, d))])
-    return lambda: torch.index_select(xpad, 0, src)
+    return lambda: torch.index_select(xpad, 0, idx)
 
 
 def time_moe(name: str, args, floor_ms: float) -> dict:
     """Device ms of the wrapper's call (one launch; a CUDA graph of 20
     calls, median of 11 replays) beside its plain version (device ms of
-    its ~k ops a call), the library call (moe_dispatch: `index_select`,
-    read in turns with the kernel; moe_combine: none), the bound and the
-    launch floor."""
+    its eager ops a call), the library call (moe_dispatch:
+    `index_select` by the same src, read in turns with the kernel:
+    kernel, library, library, kernel; the others: none), the bound and
+    the launch floor."""
     fn = getattr(ops, name)
     bms, by, nbytes, nops = moe_bound(name, args)
-    res = {"shape": list(args[0].shape),
-           "dtype": str(args[0].dtype).replace("torch.", ""),
-           "T": int(args[3].shape[0]), "dropped": int((~args[3]).sum()),
-           "plain_ms": device_ms(lambda: MOE_PLAIN[name](*args), launches=2,
-                                 reps=3),
-           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": nops,
-           "launch_floor_ms": floor_ms, "library_ms": None}
+    res = dict(moe_info(name, args, fn(*args)),
+               plain_ms=device_ms(lambda: MOE_PLAIN[name](*args),
+                                  launches=2, reps=3),
+               bound_ms=bms, bound_by=by, bytes=nbytes, ops=nops,
+               launch_floor_ms=floor_ms, library_ms=None)
     if name == "moe_dispatch":
         lib = dispatch_library(args)
         res["library_equal"] = bool(torch.equal(lib().view(
@@ -4450,9 +4481,17 @@ def time_moe(name: str, args, floor_ms: float) -> dict:
     return res
 
 
+def moe_case_text(t: dict) -> str:
+    """A case's shape, dtype, tokens and drops (or empty slots), for the
+    log."""
+    return (f"{t['shape']} {t['dtype']} (T={t['T']}, " +
+            (f"{t['empty']} empty slots)" if "empty" in t else
+             f"{t['dropped']} choices dropped)"))
+
+
 def log_moe(tag: str, name: str, t: dict, checks: list, smi: str) -> None:
-    log(f"[moe] {name} {tag} {t['shape']} {t['dtype']} (T={t['T']}, "
-        f"{t['dropped']} choices dropped): bit-equal to plain in "
+    log(f"[moe] {name} {tag} {moe_case_text(t)}: "
+        f"{'integer' if name == 'moe_slots' else 'bit'}-equal to plain in "
         f"{len(checks)} cases, two calls equal | kernel {t['ms']:.5f} ms "
         f"(device, graph of 20 calls) | plain {t['plain_ms']:.4f} ms | "
         f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B, "
@@ -4489,12 +4528,14 @@ def moe_profile(fn) -> dict:
     """Run `fn` under `torch.profiler` (CPU and CUDA activity) with each
     MoE step (`MOE_STEPS`) and the attention core (`ATTN_CORE`) inside a
     `record_function` range, and return the device ms by kind: the MoE
-    layer's router product, softmax and top-k, positions (the kernels of
-    the torch ops in each range), the dispatch, the gate and the combine
-    (their kernels by name), the three expert products (the products in
-    the experts' range); the flash kernels and the attention core's
-    other kernels; the other matrix products (projections, lm_head); the
-    rest; the kernels run and the five longest by total time."""
+    layer's router product, softmax and top-k (the kernels of the torch
+    ops in each range), the slots, the dispatch, the gate and the
+    combine (their kernels by name), the three expert products (the
+    products in the experts' range); the flash kernels and the attention
+    core's other kernels; the other matrix products (projections,
+    lm_head); the rest; the kernels run and the five longest by total
+    time; and the kernels of a cumulative sum (the eager positions'
+    count: none is left on the path)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def annotate(label):
@@ -4539,7 +4580,7 @@ def moe_profile(fn) -> dict:
         return sum(ms for k, (ms, _) in by_name.items() if key in k)
     kinds = {"router": sum(per["moe_router"].values()),
              "softmax_topk": sum(per["moe_softmax_topk"].values()),
-             "positions": sum(per["moe_positions"].values()),
+             "slots": named("moe_slots_kernel"),
              "dispatch": named("moe_dispatch_kernel"),
              "expert_products": sum(
                  v for k, v in per["moe_experts"].items()
@@ -4558,6 +4599,9 @@ def moe_profile(fn) -> dict:
     kinds["rest"] = total - sum(kinds.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return {"device_ms": total, "kernels": n_kernels, "by_kind": kinds,
+            "scan_kernels": {k: n for k, (_, n) in by_name.items()
+                             if "tensor_kernel_scan" in k or
+                             "DeviceScan" in k},
             "moe_range_calls": {
                 label: sum(1 for e in events if e.name == label and
                            e.device_type == torch.autograd.DeviceType.CPU)
@@ -4579,8 +4623,9 @@ def plain_calls(name, fn):
 def moe_parity(dev, cfg, tokens: np.ndarray) -> dict:
     """`cfg` cut to MOE_PARITY_LAYERS in f32 on the card and on the host
     with the same weights, on `tokens`: prefill and PARITY_STEPS decodes
-    (`check_parity`); the card's first `flash_fwd`, `moe_dispatch` and
-    `moe_combine` calls (f32) against their plain versions."""
+    (`check_parity`); the card's first `flash_fwd`, `moe_slots`,
+    `moe_dispatch` and `moe_combine` calls (f32) against their plain
+    versions."""
     t0 = time.perf_counter()
     pcfg = cfg.replace(n_layers=MOE_PARITY_LAYERS, dtype="float32")
     card_model = registry.build_model(
@@ -4652,19 +4697,35 @@ def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
     prof["decode"]["plain_device_ms"] = plain_step["device_ms"]
     serve["profile"] = prof
     for phase, pr in prof.items():
+        if pr["scan_kernels"] or not pr["by_kind"]["slots"]:
+            raise AssertionError(
+                f"moe {phase}: cumulative-sum kernels {pr['scan_kernels']} "
+                f"ran (the eager positions' count), or no moe_slots_kernel "
+                f"ran ({pr['by_kind']['slots']} ms)")
+    for phase, pr in prof.items():
         log(f"[moe] profile {phase}: {pr['kernels']} device kernels, "
             f"{pr['device_ms']:.3f} ms ({pr['busy_share']:.1%} of the "
             f"untraced wall time); by kind " + ", ".join(
                 f"{k} {v:.3f}" for k, v in pr["by_kind"].items()) +
-            f"; MoE ranges a run {pr['moe_range_calls']}; top: " +
+            f"; MoE ranges a run {pr['moe_range_calls']}; cumulative sums "
+            f"{pr['scan_kernels']}; top: " +
             ", ".join(f"{t['name']} x{t['count']} {t['ms']:.3f}"
                       for t in pr["top"]))
     log(f"[moe] a decode step launches {prof['decode']['kernels']} kernels "
         f"with the MoE kernels, {plain_step['kernels']} with their plain "
         f"versions in their place ({plain_step['device_ms']:.3f} device "
         f"ms)")
-    # the two kernels against their plain versions, bit for bit, timed
-    # at group 1's prefill and a decode step
+    # the three kernels against their plain versions, bit for bit,
+    # timed at group 1's prefill and a decode step; the dispatch's plain
+    # gather against the reference's k scatter-adds once
+    x, src = caps[0]["moe_dispatch"][0]
+    _, eidx, pos_c, keep, _ = caps[0]["moe_combine"][0]
+    E, C = src.shape
+    if not torch.equal(moe_bits(moe_dispatch_gather_ref(x, src)),
+                       moe_bits(moe_dispatch_ref(x, eidx, pos_c, keep, E,
+                                                 C))):
+        raise AssertionError("the plain gather dispatch differs from the "
+                             "reference's scatter-adds at group 1")
     checks = {name: [] for name in MOE_KERNELS}
     for label, name, args in moe_cases(caps):
         c = check_moe(name, args)
@@ -4679,8 +4740,7 @@ def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
         for tag, tt in t.items():
             log_moe(tag, name, tt, checks[name], smi)
         log(f"[moe] {name} cases: " + "; ".join(
-            f"{c['case']} {c['shape']} {c['dtype']} T={c['T']} dropped "
-            f"{c['dropped']}" for c in checks[name]))
+            f"{c['case']} {moe_case_text(c)}" for c in checks[name]))
     # the expert gate (silu_gate, value only) bit-equal at the MoE's
     # shapes, timed at group 1's prefill
     gate_errs = [check_silu("silu_gate", *cap["silu_gate"]) for cap in caps]
@@ -4720,6 +4780,7 @@ def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
         f"of {(PARITY_STEPS + 1) * SERVE_BATCH} equal in all); the card's "
         f"first flash_fwd {parity['flash_fwd']['shape']} f32 within "
         f"{parity['flash_fwd']['out']['err']:.3g} of its tolerance, "
+        f"moe_slots {parity['moe_slots']['shape']} integer-equal, "
         f"moe_dispatch {parity['moe_dispatch']['shape']} and moe_combine "
         f"{parity['moe_combine']['shape']} f32 bit-equal; {parity['s']:.1f} s")
     out = {"serve": serve, "kernels": kernels, "parity": parity,
@@ -6708,7 +6769,8 @@ def main() -> int:
         "bound_ms": mk[kname]["timing"][step]["bound_ms"],
         "bound_by": mk[kname]["timing"][step]["bound_by"],
         "library_ms": mk[kname]["timing"][step]["library_ms"]}
-        for kname, lines in (("moe_dispatch", "98-100"),
+        for kname, lines in (("moe_slots", "83-90"),
+                             ("moe_dispatch", "98-100"),
                              ("moe_combine", "115-118"))
         for step, tag in (("prefill1", ""), ("decode", " (decode)"))] + [{
         "name": "flash_bwd", "route": "cuda",

@@ -1,28 +1,34 @@
-"""Interleaved A/B of two builds of the MoE dispatch and combine kernels
-on the card.
+"""The MoE layer's routing slots and dispatch on the card: this tree's
+kernel pair against the eager count it replaced and against the
+library's path.
 
-Builds this tree's `csrc/moe.cu` (`kernels/build.py`) and a second
-source of the same C interface (`--other`, e.g. a parent commit's
-`moe.cu` unpacked with `git archive`, or an earlier design kept under
-build/) with the same nvcc flags, then times `ops.moe_dispatch` and
-`ops.moe_combine` through each library in turn (A B B A in each of
-ROUNDS rounds; CUDA graphs of 20 calls, no host issue in the reading) at
-the MoE serve's shapes of `granite-moe-1b-a400m` (CASES), each beside
-`torch.index_select` computing the dispatch's buffer (the library call;
-the combine has none), the bound (`chip_smoke.moe_bound`) and the launch
-floor. The routing is made from a seed as the serve's is: top-8 of 32
-experts by a skewed random score, the first 456 tokens (the left pads of
-group 1's four prompts) routed alike, slots by the cumulative count
-(`models.moe.positions`). Every output of the two builds is held equal
-bit for bit. Prints the card's name and power limit and writes every
-number to chiprun_out/moe_ab.json. Run on the card:
+Three ways from the choices' experts to what the dispatch needs, each
+captured in a CUDA graph (20 calls a replay, no host issue in the
+reading) and timed in turns (A B C C B A in each of ROUNDS rounds):
 
-    python3 scripts/moe_ab.py --other build/parent/src/repro_torch/csrc/moe.cu
+- `pair`: this tree's `ops.moe_slots` and `ops.moe_dispatch` (two
+  launches: the routing kernel, then the gather by its src);
+- `count`: the eager one-hot cumulative count
+  (`ref.moe_positions_ref`) alone, the slots as the earlier path found
+  them before its dispatch;
+- `library`: the count, its inverse scattered into src by torch ops,
+  and `torch.index_select` of x padded with a zero row by that src.
+
+Beside them, each piece alone, in turns: `moe_slots`, the eager count,
+`moe_dispatch` and `index_select` by the same src, each with its bound
+(`chip_smoke.moe_bound`) and the launch floor. The cases are the MoE
+serve's shapes of `granite-moe-1b-a400m` (CASES), with the routing
+made from a seed as the serve's is: top-8 of 32 experts by a skewed
+random score, the first 456 tokens (the left pads of group 1's four
+prompts) routed alike. Every buffer is held equal bit for bit across
+the paths, and the slots integer for integer with their plain version.
+Prints the card's name and power limit and writes every number to
+chiprun_out/moe_ab.json. Run on the card:
+
+    python3 scripts/moe_ab.py
 """
-import argparse
 import json
 import sys
-import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,12 +38,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels import moe as _moe  # noqa: E402
-from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import (moe_positions_ref,  # noqa: E402
+                                     moe_slots_ref)
 
 ROUNDS = 3
-FNS = ("moe_dispatch_launch", "moe_combine_launch", "moe_error_string")
 E, K, D = 32, 8, 1024
 # label -> (T, C, pad tokens routed alike): group 1's prefill (4 x 641
 # tokens, C = 804), group 2's (4 x 423, C = 532) and a decode step
@@ -45,86 +50,105 @@ CASES = {"prefill1": (2564, 804, 456), "prefill2": (1692, 532, 0),
          "decode": (4, 4, 0)}
 
 
-def routing(T: int, C: int, pads: int, seed: int):
-    """(eidx, pos_c, keep) on the card for T tokens."""
+def experts(T: int, pads: int, seed: int) -> torch.Tensor:
+    """eidx [1, T, K] int64 on the card."""
     rng = np.random.default_rng(seed)
     score = rng.normal(size=(T, E)) + np.linspace(0.0, 1.0, E)
     score[:pads] = score[0]
-    eidx = torch.from_numpy(np.argsort(-score, axis=1)[:, :K].copy()).cuda()
-    pos_c, keep = moe_mod.positions(eidx[None], E, C)
-    return eidx, pos_c[0].contiguous(), keep[0].contiguous()
+    return torch.from_numpy(np.argsort(-score, axis=1)[None, :, :K].copy()
+                            ).cuda()
 
 
-def inputs(label: str):
-    T, C, pads = CASES[label]
-    eidx, pos_c, keep = routing(T, C, pads, seed=T)
-    g = torch.Generator(device="cuda").manual_seed(T)
-    x = torch.randn(T, D, generator=g, device="cuda").bfloat16()
-    ob = torch.randn(E, C, D, generator=g, device="cuda").bfloat16()
-    gates = torch.rand(T, K, generator=g, device="cuda")
-    return ((x, eidx, pos_c, keep, E, C), (ob, eidx, pos_c, keep, gates))
+def eager_src(eidx: torch.Tensor, pos_c, keep, C: int) -> torch.Tensor:
+    """src [E, C] int32 of one group by torch ops that a graph can hold
+    (no boolean indexing): each kept choice's token scattered to its
+    slot, the dropped ones to a spare slot past the end."""
+    _, T, k = eidx.shape
+    slot = torch.where(keep[0], eidx[0] * C + pos_c[0], E * C).reshape(-1)
+    tok = torch.arange(T, dtype=torch.int32, device=eidx.device)
+    src = torch.full((E * C + 1,), -1, dtype=torch.int32,
+                     device=eidx.device)
+    src.scatter_(0, slot, tok[:, None].expand(T, k).reshape(-1))
+    return src[:-1].view(E, C)
+
+
+def padded(x: torch.Tensor) -> torch.Tensor:
+    """x with one zero row after its last."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def in_turns(fns: dict, order) -> dict:
+    """{name: median graph ms} over ROUNDS rounds of `order`, with every
+    reading kept."""
+    times = {n: [] for n in fns}
+    for _ in range(ROUNDS):
+        for n in order:
+            times[n].append(chip_smoke.graph_ms(fns[n]))
+    return {n: {"ms": float(np.median(v)), "all": v}
+            for n, v in times.items()}
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--other", type=Path, required=True)
-    args = ap.parse_args()
     smi = chip_smoke.nvidia_smi()
     print(smi, flush=True)
-    mine = _moe._lib()
     floor = chip_smoke.launch_floor_ms()
     out = {"nvidia_smi": smi, "launch_floor_ms": floor, "cases": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        other = build.load_other(args.other, Path(tmp) / "other.so", mine,
-                                 FNS)
-        libs = {"this": mine, "other": other}
+    for label, (T, C, pads) in CASES.items():
+        eidx = experts(T, pads, seed=T)
+        g = torch.Generator(device="cuda").manual_seed(T)
+        x = torch.randn(T, D, generator=g, device="cuda").bfloat16()
+        pos_c, keep, src = ops.moe_slots(eidx, E, C)
+        want = moe_slots_ref(eidx, E, C)
+        for a, b in zip((pos_c, keep, src), want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"moe_slots {label}: not its plain "
+                                     f"version")
+        src0, xpad = src[0], padded(x)
+        idx = torch.where(src0 < 0, T, src0).reshape(-1).long()
+        buf = ops.moe_dispatch(x, src0)
+        lib_buf = torch.index_select(xpad, 0, idx).view(E, C, D)
+        torch.cuda.synchronize()
+        if not torch.equal(chip_smoke.moe_bits(lib_buf),
+                           chip_smoke.moe_bits(buf)):
+            raise AssertionError(f"{label}: index_select's buffer is not "
+                                 f"the dispatch's")
 
-        def use(lab):
-            _moe._lib = lambda _l=libs[lab]: _l
+        def pair():
+            _, _, s = ops.moe_slots(eidx, E, C)
+            return ops.moe_dispatch(x, s[0])
 
-        for label in CASES:
-            dargs, cargs = inputs(label)
-            res = {}
-            for name, a in (("moe_dispatch", dargs), ("moe_combine", cargs)):
-                fn = getattr(ops, name)
-                outs = {}
-                for lab in libs:
-                    use(lab)
-                    outs[lab] = fn(*a)
-                torch.cuda.synchronize()
-                if not torch.equal(chip_smoke.moe_bits(outs["this"]),
-                                   chip_smoke.moe_bits(outs["other"])):
-                    raise AssertionError(f"{name} {label}: the two builds "
-                                         f"differ")
-                times = {lab: [] for lab in libs}
-                lib_times = []
-                lib = chip_smoke.dispatch_library(a) \
-                    if name == "moe_dispatch" else None
-                for _ in range(ROUNDS):
-                    for lab in ("this", "other", "other", "this"):
-                        use(lab)
-                        times[lab].append(chip_smoke.graph_ms(
-                            lambda: fn(*a)))
-                    if lib is not None:
-                        lib_times.append(chip_smoke.graph_ms(lib))
-                bms, by, nbytes, nops = chip_smoke.moe_bound(name, a)
-                res[name] = {
-                    "this_ms": float(np.median(times["this"])),
-                    "other_ms": float(np.median(times["other"])),
-                    "this_all": times["this"], "other_all": times["other"],
-                    "library_ms": float(np.median(lib_times))
-                    if lib_times else None,
-                    "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                    "dropped": int((~a[3]).sum())}
-                r = res[name]
-                print(f"[moe_ab] {name} {label} T={a[3].shape[0]} "
-                      f"dropped {r['dropped']}: this {r['this_ms']:.5f} ms, "
-                      f"other {r['other_ms']:.5f} ms (equal bits), library "
-                      + (f"{r['library_ms']:.5f} ms" if lib_times else
-                         "none") + f", bound {bms:.5f} ms by {by}, launch "
-                      f"floor {floor:.5f} ms | {smi}", flush=True)
-            out["cases"][label] = res
-        use("this")
+        def library():
+            p, kp = moe_positions_ref(eidx, E, C)
+            s = eager_src(eidx, p, kp, C)
+            i = torch.where(s < 0, T, s).reshape(-1).long()
+            return torch.index_select(xpad, 0, i)
+
+        paths = in_turns({"pair": pair,
+                          "count": lambda: moe_positions_ref(eidx, E, C),
+                          "library": library},
+                         ("pair", "count", "library", "library", "count",
+                          "pair"))
+        pieces = {"moe_slots": lambda: ops.moe_slots(eidx, E, C),
+                  "positions": lambda: moe_positions_ref(eidx, E, C),
+                  "moe_dispatch": lambda: ops.moe_dispatch(x, src0),
+                  "index_select": lambda: torch.index_select(xpad, 0, idx)}
+        alone = in_turns(pieces, list(pieces) + list(pieces)[::-1])
+        bounds = {n: chip_smoke.moe_bound(n, a)[:3] for n, a in (
+            ("moe_slots", (eidx, E, C)), ("moe_dispatch", (x, src0)))}
+        res = {"T": T, "C": C, "dropped": int((~keep).sum()),
+               "empty": int((src0 < 0).sum()), "paths": paths,
+               "alone": alone, "bounds": bounds}
+        out["cases"][label] = res
+        print(f"[moe_ab] {label} T={T} C={C}, {res['dropped']} choices "
+              f"dropped, {res['empty']} empty slots: paths " + ", ".join(
+                  f"{n} {v['ms']:.5f} ms" for n, v in paths.items()) +
+              " | alone " + ", ".join(
+                  f"{n} {v['ms']:.5f}" for n, v in alone.items()) +
+              " | bounds " + ", ".join(
+                  f"{n} {b[0]:.5f} ms ({b[2]} B)"
+                  for n, b in bounds.items()) +
+              f" | launch floor {floor:.5f} ms | equal bits | {smi}",
+              flush=True)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "moe_ab.json").write_text(json.dumps(out,
                                                                  indent=1))

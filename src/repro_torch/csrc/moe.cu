@@ -1,32 +1,66 @@
-// The MoE layer's dispatch and combine, for Hopper (sm_90a): one launch
-// each where the JAX package's program runs k sequential scatters and k
-// sequential gathers.
+// The MoE layer's routing slots, dispatch and combine, for Hopper
+// (sm_90a): one launch each where the JAX package's program runs a
+// one-hot cumulative count, k sequential scatters and k sequential
+// gathers.
 //
-// The JAX package has no kernel here: src/repro/models/moe.py writes the
-// dispatch as k scatter-adds of [G,Tg,d] into a zero buffer [G,E,C,d]
-// (:98-100) and the combine as k gathers, each masked, scaled by its
-// gate and added (:115-118); XLA fuses each into a loop. Done op by op in
-// eager PyTorch that is ~50 launches a layer at k = 8 (1,200 a decode
-// step of granite-moe-1b-a400m's 24 layers), and every decode the port
-// serves is bound by the host's issue. So each is one kernel here, whose
-// arithmetic is fixed element by element and equal bit for bit to its
-// plain version (kernels/ref.py::moe_dispatch_ref, moe_combine_ref),
-// which is the reference's rounding order:
+// The JAX package has no kernel here: src/repro/models/moe.py counts
+// each choice's capacity slot as a cumulative sum of one-hots over the
+// flattened (token, choice) stream (:83-90), writes the dispatch as k
+// scatter-adds of [G,Tg,d] into a zero buffer [G,E,C,d] (:98-100) and
+// the combine as k gathers, each masked, scaled by its gate and added
+// (:115-118); XLA fuses each into a loop. Done op by op in eager
+// PyTorch the three take ~92 launches a layer more than these kernels
+// (2,208 a decode step of granite-moe-1b-a400m's 24 layers on an H100),
+// and every decode the port serves is bound by the host's issue. So
+// each is one kernel here, whose result is fixed element by element and
+// equal bit for bit to its plain version (kernels/ref.py::moe_slots_ref,
+// moe_dispatch_gather_ref, moe_combine_ref), which is the reference's
+// count and rounding order:
 //
-//  * moe_dispatch_kernel: buf[e, p, :] = x[t, :] for every kept choice
-//    (t, j) routed to expert e at slot p, zeros in every other slot. The
-//    reference adds each choice onto zeros in f32 and rounds it to the
-//    buffer's type, so a -0.0 of x is stored as +0.0 (+0.0 + -0.0 =
-//    +0.0); a dropped choice adds zeros to its expert's slot 0, which
-//    changes nothing. Every kept choice owns a slot of its own (the
-//    positions are a cumulative count per expert), so the adds are a
-//    copy: the kernel copies, clearing the sign of zeros. A block takes
-//    kDispatchSlots slots of one expert: its threads first scan the
-//    flattened [T*k] choices for those that land in its slots, each
-//    with kScanUnroll reads in flight, and note each slot's token in
-//    shared memory, then each warp copies a slot's row (or writes
-//    zeros). Choices that claim one slot twice are not
-//    what the caller builds; the kernel keeps one of them.
+//  * moe_slots_kernel: the capacity slots and their inverse. A choice's
+//    slot is its rank among the choices of its expert over its group's
+//    stream, token-major; it is kept where the rank is below C (a
+//    dropped choice's slot reads 0). src[g, e, c] names the token whose
+//    choice holds slot c of expert e, or -1. One cooperative launch: a
+//    group's stream is cut into chunks of 512 choices (or a multiple,
+//    where the card holds fewer blocks), a block a chunk, and the
+//    block's 16 warps cut it into 16 segments. Pass 1: each warp walks
+//    its segment 32 choices a step, in order (one step, but where the
+//    card holds too few blocks); a lane's rank among the step's lanes
+//    of its expert is __popc(peers & lanes below it),
+//    the peers found by a ballot a bit of the expert (six at E = 32),
+//    on top of the warp's running count of that expert in shared
+//    memory, which the peers' first lane then raises. A scan over the 16
+//    warps' counts of each expert (a thread an expert) gives each
+//    segment's offset in the block and the block's count, which goes
+//    to scratch; after one grid barrier each block sums the counts of
+//    the blocks before it and of all (a thread a count, added into
+//    shared memory). Pass 2: each
+//    choice's slot is the sum of the three offsets and its rank; it
+//    writes pos_c and keep and, when kept, its token into src; each
+//    block then writes -1 to its share of the slots past each expert's
+//    total; a group of one chunk (a decode step) takes a plain launch
+//    and no grid barrier. Bound by the bytes (the experts read once,
+//    pos_c, keep and src written once: 0.45 MB at the serve's prefill of
+//    group 1, ~0.1 us at 3.35 TB/s), in practice by latency: one block a
+//    group took 0.0315 ms there (10 us loading the experts, 10 us the
+//    walk, 14 us the stores, 11 of them one SM's scattered src stores),
+//    so the chunks spread all three (41 blocks there: ~0.005 ms; 512
+//    threads a block measured best against 256 and 1,024).
+//  * moe_dispatch_kernel: buf[s, :] = x[src[s], :] for each slot s =
+//    (e, c), zeros where src[s] is -1. The reference adds each choice
+//    onto zeros in f32 and rounds it to the buffer's type, so a -0.0 of
+//    x is stored as +0.0 (+0.0 + -0.0 = +0.0); a dropped choice adds
+//    zeros to its expert's slot 0, which changes nothing. Every kept
+//    choice owns a slot of its own, so the adds are a gather: the
+//    kernel copies, clearing the sign of zeros. A warp takes a slot's
+//    row (a grid of a block for 8 slots); it issues up to kDispatchVecs
+//    16-byte loads a lane before any store, and stores an empty slot's
+//    zeros without a read, every store a streaming one (0.024 -> 0.020
+//    ms at group 1 on an H100; the grid of a warp a slot measured faster
+//    than one wave of co-resident blocks looping over the slots).
+//    Bound by the bytes: x's kept rows read once (L2-resident) and the
+//    buffer written once.
 //  * moe_combine_kernel: y[t, :] from the k rows ob[e_j, p_j, :] of a
 //    token's choices, choice 0 first, as XLA's CPU program rounds the
 //    reference's loop in bf16 (r the rounding to bf16):
@@ -43,26 +77,35 @@
 //    column of the row (d = 1,024 in bf16: one each), issuing the k
 //    loads of its column before it adds.
 //
-// Both are memory kernels. At the serve's prefill of group 1 (T = 2,564
-// tokens, k = 8, C = 804 slots, d = 1,024, bf16) the dispatch writes the
-// 52.7 MB buffer and need read x only once (5.3 MB): ~17 us at 3.35
-// TB/s; the combine reads the kept choices' rows (at most 42.0 MB) and
-// writes 5.3 MB: at most ~14 us. A decode step (T = 4, C = 4) is bound
-// by the launch. Rows whose byte length is a multiple of 16 on
-// 16-byte aligned storage move in 16-byte accesses (8 bf16, 4 f32);
-// others element by element.
+// At the serve's prefill of group 1 (T = 2,564 tokens, k = 8, E = 32,
+// C = 804 slots, d = 1,024, bf16) the dispatch writes the 52.7 MB
+// buffer and need read x only once (5.3 MB): ~17 us at 3.35 TB/s; the
+// combine reads the kept choices' rows (at most 42.0 MB) and writes 5.3
+// MB: at most ~14 us. A decode step (T = 4, C = 4) is bound by the
+// launch. Rows whose byte length is a multiple of 16 on 16-byte aligned
+// storage move in 16-byte accesses (8 bf16, 4 f32); others element by
+// element.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kDispatchSlots = 256;   // slots of one expert a block
-constexpr int kDispatchThreads = 512;
-constexpr int kScanUnroll = 8;        // choices a thread reads at once
-constexpr int kCombineThreads = 128;  // a block a token, a thread a column
-constexpr int kMaxK = 32;             // choices a token
-constexpr int kUnroll = 8;            // loads issued before the adds
+constexpr int kSlotsThreads = 512;         // a block a chunk of a group
+constexpr int kSlotsWarps = kSlotsThreads / 32;   // the chunk's segments
+constexpr int kSlotsChunk = kSlotsThreads;   // choices a block, at least
+constexpr int kMaxDevices = 64;
+constexpr int kSlotsMaxExperts = 256;      // per-warp counts in shared memory
+constexpr int kExpertBits = 9;             // bits of expert + 1 (up to 256)
+constexpr int kRankBits = kExpertBits;     // a packed step: rank << 9 | expert + 1
+constexpr int kDispatchThreads = 256;
+constexpr int kDispatchVecs = 4;           // 16-byte loads a lane before a store
+constexpr int kCombineThreads = 128;       // a block a token, a thread a column
+constexpr int kMaxK = 32;                  // choices a token
+constexpr int kUnroll = 8;                 // loads issued before the adds
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -93,58 +136,189 @@ struct alignas(sizeof(T) * W) Pack {
   T v[W];
 };
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kDispatchThreads)
-moe_dispatch_kernel(const T* __restrict__ x,
-                    const long long* __restrict__ eidx,
-                    const long long* __restrict__ pos,
-                    const bool* __restrict__ keep, T* __restrict__ buf,
-                    long long n_choices, int k, long long C, long long d) {
-  __shared__ int src[kDispatchSlots];
-  const long long e = blockIdx.y;
-  const long long lo = static_cast<long long>(blockIdx.x) * kDispatchSlots;
-  const int n = static_cast<int>(min(static_cast<long long>(kDispatchSlots),
-                                     C - lo));
-  for (int s = threadIdx.x; s < n; s += blockDim.x) src[s] = -1;
+// a choice's expert, or -1 past the stream's end or outside [0, E) (such
+// a choice is dropped)
+__device__ __forceinline__ int expert_at(const long long* eidx, int i, int n,
+                                         int E) {
+  if (i >= n) return -1;
+  const long long e = __ldg(eidx + i);
+  return (e >= 0 && e < E) ? static_cast<int>(e) : -1;
+}
+
+// The warp's lanes whose e equals this lane's: a ballot a bit of e + 1
+// (nbits of them, enough for E), each lane keeping the lanes that agree
+// with it on every bit. (__match_any_sync gives the same mask; the
+// kernel took 10% longer with it on an H100.)
+__device__ __forceinline__ unsigned peers_of(int e, int nbits) {
+  const unsigned v = static_cast<unsigned>(e + 1);
+  unsigned peers = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < kExpertBits; ++b) {
+    if (b >= nbits) break;
+    const bool one = (v >> b) & 1u;
+    const unsigned bal = __ballot_sync(0xffffffffu, one);
+    peers &= one ? bal : ~bal;
+  }
+  return peers;
+}
+
+// One step of a warp's walk: the lane's rank among the choices of its
+// expert e so far in the segment (the warp's running count `cnt` of e
+// plus its rank among this step's peers), the count then raised by the
+// peers' first lane. e < 0 takes no part and ranks 0.
+__device__ __forceinline__ int rank_step(int* cnt, int e, int nbits,
+                                         unsigned below) {
+  const unsigned peers = peers_of(e, nbits);
+  const int r = e >= 0 ? cnt[e] + __popc(peers & below) : 0;
+  __syncwarp();
+  if (e >= 0 && (peers & below) == 0) cnt[e] = r + __popc(peers);
+  __syncwarp();
+  return r;
+}
+
+// choice i (token i / k) of expert e at slot p: pos_c, keep, src
+__device__ __forceinline__ void place(int i, int e, int p, int k, int C,
+                                      long long* pos_c, bool* keep,
+                                      int* src) {
+  const bool kept = e >= 0 && p < C;
+  pos_c[i] = kept ? p : 0;
+  keep[i] = kept;
+  if (kept) src[e * C + p] = i / k;
+}
+
+// Grid (blocks a group, G), a cooperative launch where a group has more
+// than one block. Block b of group g takes the `chunk` choices from b *
+// chunk of the group's stream; part [G, blocks, E] receives each
+// block's count of each expert.
+__global__ void __launch_bounds__(kSlotsThreads)
+moe_slots_kernel(const long long* __restrict__ eidx,
+                 long long* __restrict__ pos_c, bool* __restrict__ keep,
+                 int* __restrict__ src, int* __restrict__ part, int n,
+                 int chunk, int k, int E, int C) {
+  __shared__ int cnt[kSlotsWarps][kSlotsMaxExperts];
+  __shared__ int before[kSlotsMaxExperts];   // the earlier blocks' counts
+  __shared__ int total[kSlotsMaxExperts];    // the group's counts
+  const int b = blockIdx.x, nb = gridDim.x;
+  const long long g = blockIdx.y;
+  eidx += g * n;
+  pos_c += g * n;
+  keep += g * n;
+  src += g * E * C;
+  part += g * nb * E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int* mine = cnt[warp];
+  for (int e = lane; e < E; e += 32) mine[e] = 0;
+  if (tid < E) before[tid] = total[tid] = 0;
+  // a warp's segment of the block's chunk: a multiple of 32 choices
+  const int seg = chunk / kSlotsWarps;
+  const int lo = b * chunk + warp * seg, nit = seg / 32;
+  const unsigned below = (1u << lane) - 1u;
+  const int nbits = 32 - __clz(E);           // bits of expert + 1
+  // pass 1: the segment's first step in registers; the ranks of later
+  // steps (more than 32 choices a warp) parked in pos_c until pass 2
+  const int e0 = expert_at(eidx, lo + lane, n, E);
+  __syncwarp();
+  const int r0 = rank_step(mine, e0, nbits, below);
+  for (int it = 1; it < nit; ++it) {
+    const int i = lo + it * 32 + lane;
+    const int r = rank_step(mine, expert_at(eidx, i, n, E), nbits, below);
+    if (i < n) pos_c[i] = r;
+  }
   __syncthreads();
-  // the scan: kScanUnroll experts in flight a thread, then the rare
-  // match's keep and slot
-  for (long long i0 = threadIdx.x; i0 < n_choices;
-       i0 += static_cast<long long>(kDispatchThreads) * kScanUnroll) {
-    long long ev[kScanUnroll];
+  // the scan: each expert's count before each segment, and the block's
+  if (tid < E) {
+    int run = 0;
 #pragma unroll
-    for (int u = 0; u < kScanUnroll; ++u) {
-      const long long i = i0 + static_cast<long long>(u) * kDispatchThreads;
-      ev[u] = i < n_choices ? __ldg(eidx + i) : -1;
+    for (int w0 = 0; w0 < kSlotsWarps; w0 += 8) {
+      int c[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) c[u] = cnt[w0 + u][tid];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        cnt[w0 + u][tid] = run;
+        run += c[u];
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kScanUnroll; ++u) {
-      const long long i = i0 + static_cast<long long>(u) * kDispatchThreads;
-      if (ev[u] != e || !keep[i]) continue;
-      const long long p = __ldg(pos + i) - lo;
-      if (p >= 0 && p < n) src[p] = static_cast<int>(i / k);
+    if (nb == 1)
+      total[tid] = run;
+    else
+      part[b * E + tid] = run;
+  }
+  if (nb > 1) {
+    // each expert's count before this block and in the whole group
+    cg::this_grid().sync();
+    for (int t = tid; t < nb * E; t += kSlotsThreads) {
+      const int c = __ldcg(part + t), b2 = t / E, j = t - b2 * E;
+      if (b2 < b) atomicAdd(before + j, c);
+      atomicAdd(total + j, c);
     }
   }
   __syncthreads();
+  // pass 2: each choice's slot, then -1 in the block's share of the
+  // slots no choice holds
+  if (lo + lane < n)
+    place(lo + lane, e0, e0 >= 0 ? before[e0] + mine[e0] + r0 : 0, k, C,
+          pos_c, keep, src);
+  for (int it = 1; it < nit; ++it) {
+    const int i = lo + it * 32 + lane;
+    if (i >= n) continue;
+    const int e = expert_at(eidx, i, n, E);
+    place(i, e,
+          e >= 0 ? before[e] + mine[e] + static_cast<int>(pos_c[i]) : 0, k,
+          C, pos_c, keep, src);
+  }
+  const int slots = E * C, share = (slots + nb - 1) / nb;
+  const int s_end = min(slots, (b + 1) * share);
+  for (int s = b * share + tid; s < s_end; s += kSlotsThreads) {
+    const int e = s / C;
+    if (s - e * C >= min(total[e], C)) src[s] = -1;
+  }
+}
+
+// *p = v; a 16-byte pack with a streaming store (st.global.cs: the
+// buffer is written once and read by the next op, and the hint keeps it
+// from crowding x's rows out of L2)
+template <typename P>
+__device__ __forceinline__ void put_streaming(P* p, const P& v) {
+  if constexpr (sizeof(P) == 16)
+    __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(&v));
+  else
+    *p = v;
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kDispatchThreads)
+moe_dispatch_kernel(const T* __restrict__ x, const int* __restrict__ src,
+                    T* __restrict__ buf, long long n_slots, long long T_,
+                    long long d) {
   using P = Pack<T, W>;
+  const long long s =
+      static_cast<long long>(blockIdx.x) * (kDispatchThreads / 32) +
+      (threadIdx.x >> 5);
+  if (s >= n_slots) return;
   const long long nvec = d / W;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int s = warp; s < n; s += kDispatchThreads / 32) {
-    const int t = src[s];
-    P* out = reinterpret_cast<P*>(buf + ((e * C) + lo + s) * d);
-    if (t < 0) {
-      P z;
+  const int lane = threadIdx.x & 31;
+  const long long t = __ldg(src + s);
+  P* out = reinterpret_cast<P*>(buf + s * d);
+  if (t < 0 || t >= T_) {
+    P z;
 #pragma unroll
-      for (int w = 0; w < W; ++w) z.v[w] = from_f<T>(0.0f);
-      for (long long c = lane; c < nvec; c += 32) out[c] = z;
-      continue;
-    }
-    const P* in = reinterpret_cast<const P*>(x + t * d);
-    for (long long c = lane; c < nvec; c += 32) {
-      P v = in[c];
+    for (int w = 0; w < W; ++w) z.v[w] = from_f<T>(0.0f);
+    for (long long c = lane; c < nvec; c += 32) put_streaming(out + c, z);
+    return;
+  }
+  const P* in = reinterpret_cast<const P*>(x + t * d);
+  for (long long c0 = lane; c0 < nvec; c0 += 32 * kDispatchVecs) {
+    P v[kDispatchVecs];
 #pragma unroll
-      for (int w = 0; w < W; ++w) v.v[w] = plus_zero(v.v[w]);
-      out[c] = v;
+    for (int u = 0; u < kDispatchVecs; ++u)
+      if (c0 + 32 * u < nvec) v[u] = in[c0 + 32 * u];
+#pragma unroll
+    for (int u = 0; u < kDispatchVecs; ++u) {
+      if (c0 + 32 * u >= nvec) break;
+#pragma unroll
+      for (int w = 0; w < W; ++w) v[u].v[w] = plus_zero(v[u].v[w]);
+      put_streaming(out + c0 + 32 * u, v[u]);
     }
   }
 }
@@ -214,21 +388,17 @@ bool aligned16(const void* p) {
 }
 
 template <typename T>
-void dispatch(const void* x, const long long* eidx, const long long* pos,
-              const bool* keep, void* buf, long long T_, int k, long long d,
-              long long E, long long C, cudaStream_t st) {
+void dispatch(const void* x, const int* src, void* buf, long long T_,
+              long long d, long long n_slots, cudaStream_t st) {
   constexpr int W = 16 / sizeof(T);
-  const dim3 grid(static_cast<unsigned>((C + kDispatchSlots - 1) /
-                                        kDispatchSlots),
-                  static_cast<unsigned>(E));
+  constexpr int rows = kDispatchThreads / 32;   // a warp a slot
+  const unsigned grid = static_cast<unsigned>((n_slots + rows - 1) / rows);
   if (d % W == 0 && aligned16(x) && aligned16(buf))
     moe_dispatch_kernel<T, W><<<grid, kDispatchThreads, 0, st>>>(
-        static_cast<const T*>(x), eidx, pos, keep, static_cast<T*>(buf),
-        T_ * k, k, C, d);
+        static_cast<const T*>(x), src, static_cast<T*>(buf), n_slots, T_, d);
   else
     moe_dispatch_kernel<T, 1><<<grid, kDispatchThreads, 0, st>>>(
-        static_cast<const T*>(x), eidx, pos, keep, static_cast<T*>(buf),
-        T_ * k, k, C, d);
+        static_cast<const T*>(x), src, static_cast<T*>(buf), n_slots, T_, d);
 }
 
 template <typename T>
@@ -249,27 +419,85 @@ void combine(const void* ob, const long long* eidx, const long long* pos,
 
 }  // namespace
 
-// Plain C interface (ctypes). Dense row-major tensors: x [T,d], buf
-// [E,C,d], ob [E,C,d], y [T,d]; eidx, pos [T,k] int64; keep [T,k] bool;
-// gates [T,k] f32. dtype: 0 = f32, 1 = bf16. Each returns
-// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
-// arguments the kernels do not take.
-extern "C" int moe_dispatch_launch(const void* x, const void* eidx,
-                                   const void* pos, const void* keep,
-                                   void* buf, long long T, long long k,
-                                   long long d, long long E, long long C,
-                                   int dtype, void* stream) {
-  if (T < 0 || k < 1 || d < 1 || E < 1 || C < 1 || E > 65535)
+// Plain C interface (ctypes). Dense row-major tensors: eidx, pos_c [G,Tg,k]
+// (or [T,k]) int64; keep [G,Tg,k] bool; src [G,E,C] (or [E,C]) int32; x
+// [T,d], buf [E,C,d], ob [E,C,d], y [T,d]; gates [T,k] f32. dtype: 0 =
+// f32, 1 = bf16. Each returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
+// The slots kernel's grid on the current device at most (its co-resident
+// blocks), found once per device; negative: minus a CUDA error code.
+static int moe_slots_blocks() {
+  static int cache[kMaxDevices] = {};
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, moe_slots_kernel,
+                                                    kSlotsThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (per_sm * sms <= 0)
+    return -static_cast<int>(cudaErrorInvalidConfiguration);
+  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// part: scratch of part_words ints (G * ceil(Tg * k / kSlotsChunk) * E
+// suffice; no zeroing). Each group's stream goes to as many blocks of
+// kSlotsChunk choices (or a multiple) as the co-resident blocks share out.
+extern "C" int moe_slots_launch(const void* eidx, void* pos_c, void* keep,
+                                void* src, void* part, long long part_words,
+                                long long G, long long Tg, long long k,
+                                long long E, long long C, void* stream) {
+  const long long n = Tg * k;
+  if (G < 1 || Tg < 1 || k < 1 || k > kMaxK || E < 1 ||
+      E > kSlotsMaxExperts || C < 1 || n > 0x7fffffffLL ||
+      E * C > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cores = moe_slots_blocks();
+  if (cores < 0) return -cores;
+  if (G > cores) return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_group = cores / G;
+  long long nb = (n + kSlotsChunk - 1) / kSlotsChunk;
+  nb = nb < per_group ? nb : per_group;
+  long long chunk = (n + nb - 1) / nb;
+  chunk = (chunk + kSlotsChunk - 1) / kSlotsChunk * kSlotsChunk;
+  nb = (n + chunk - 1) / chunk;
+  if (G * nb * E > part_words) return static_cast<int>(cudaErrorInvalidValue);
+  const long long* ei = static_cast<const long long*>(eidx);
+  long long* pc = static_cast<long long*>(pos_c);
+  bool* kp = static_cast<bool*>(keep);
+  int* sp = static_cast<int*>(src);
+  int* pp = static_cast<int*>(part);
+  int n_ = static_cast<int>(n), chunk_ = static_cast<int>(chunk);
+  int k_ = static_cast<int>(k), E_ = static_cast<int>(E);
+  int C_ = static_cast<int>(C);
+  const dim3 grid(static_cast<unsigned>(nb), static_cast<unsigned>(G));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nb == 1) {  // no grid barrier: a plain launch
+    moe_slots_kernel<<<grid, kSlotsThreads, 0, st>>>(ei, pc, kp, sp, pp, n_,
+                                                     chunk_, k_, E_, C_);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void* args[] = {&ei, &pc, &kp, &sp, &pp, &n_, &chunk_, &k_, &E_, &C_};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(moe_slots_kernel), grid,
+      dim3(kSlotsThreads), args, 0, st));
+}
+
+extern "C" int moe_dispatch_launch(const void* x, const void* src, void* buf,
+                                   long long T, long long d,
+                                   long long n_slots, int dtype,
+                                   void* stream) {
+  if (T < 1 || d < 1 || n_slots < 1 || n_slots > 0x7fffffffLL * 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long* ei = static_cast<const long long*>(eidx);
-  const long long* ps = static_cast<const long long*>(pos);
-  const bool* kp = static_cast<const bool*>(keep);
+  const int* sp = static_cast<const int*>(src);
   if (dtype == 0)
-    dispatch<float>(x, ei, ps, kp, buf, T, static_cast<int>(k), d, E, C, st);
+    dispatch<float>(x, sp, buf, T, d, n_slots, st);
   else if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, ei, ps, kp, buf, T, static_cast<int>(k), d, E,
-                            C, st);
+    dispatch<__nv_bfloat16>(x, sp, buf, T, d, n_slots, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

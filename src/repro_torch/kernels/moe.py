@@ -1,12 +1,13 @@
-"""The MoE layer's dispatch and combine: the hand-written CUDA kernels'
-binding.
+"""The MoE layer's routing slots, dispatch and combine: the hand-written
+CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/moe.cu`; its head comment says
 which ops of the JAX package's program they replace and how they round.
 This module binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
-:func:`repro_torch.kernels.ops.moe_dispatch` and
-:func:`repro_torch.kernels.ops.moe_combine`, which check the inputs,
+:func:`repro_torch.kernels.ops.moe_slots`,
+:func:`~repro_torch.kernels.ops.moe_dispatch` and
+:func:`~repro_torch.kernels.ops.moe_combine`, which check the inputs,
 take the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
@@ -20,7 +21,8 @@ from repro_torch.kernels.silu import _on_device
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 32                  # choices a token (a lane each, csrc/moe.cu)
-MAX_EXPERTS = 65535         # the dispatch grid's second dim
+MAX_EXPERTS = 256           # the slots kernel's per-warp counts
+SLOTS_CHUNK = 512           # choices a block of the slots kernel, at least
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -30,8 +32,10 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("moe")
     if not getattr(lib, "_typed", False):
-        lib.moe_dispatch_launch.argtypes = [_P, _P, _P, _P, _P, _L, _L, _L,
-                                            _L, _L, _I, _P]
+        lib.moe_slots_launch.argtypes = [_P, _P, _P, _P, _P, _L, _L, _L, _L,
+                                         _L, _L, _P]
+        lib.moe_slots_launch.restype = _I
+        lib.moe_dispatch_launch.argtypes = [_P, _P, _P, _L, _L, _L, _I, _P]
         lib.moe_dispatch_launch.restype = _I
         lib.moe_combine_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _L,
                                            _L, _L, _I, _P]
@@ -48,16 +52,32 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
-def launch_dispatch(x: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
-                    keep: torch.Tensor, buf: torch.Tensor) -> None:
-    """buf [E,C,d] (dense, x's dtype) = x's rows at their kept choices'
-    slots, zeros elsewhere; one launch on the current stream of x's
+def launch_slots(eidx: torch.Tensor, pos_c: torch.Tensor, keep: torch.Tensor,
+                 src: torch.Tensor) -> None:
+    """pos_c [G,Tg,k] int64, keep [G,Tg,k] bool and src [G,E,C] int32
+    (dense) from the choices' experts eidx [G,Tg,k] int64; one
+    cooperative launch on the current stream of eidx's device, with
+    scratch for each block's counts of each expert (a group takes at
+    most one block a SLOTS_CHUNK choices). Inputs are checked by the
+    caller."""
+    G, Tg, k = eidx.shape
+    _, E, C = src.shape
+    blocks = G * -(-Tg * k // SLOTS_CHUNK)
+    part = torch.empty(blocks * E, dtype=torch.int32, device=eidx.device)
+    _check(_on_device(eidx.device, _lib().moe_slots_launch, eidx.data_ptr(),
+                      pos_c.data_ptr(), keep.data_ptr(), src.data_ptr(),
+                      part.data_ptr(), part.numel(), G, Tg, k, E, C),
+           "moe_slots")
+
+
+def launch_dispatch(x: torch.Tensor, src: torch.Tensor,
+                    buf: torch.Tensor) -> None:
+    """buf [E,C,d] (dense, x's dtype) = x's row src[e, c] at each slot,
+    zeros where src is -1; one launch on the current stream of x's
     device. Inputs are checked by the caller."""
     T, d = x.shape
-    E, C, _ = buf.shape
     _check(_on_device(x.device, _lib().moe_dispatch_launch, x.data_ptr(),
-                      eidx.data_ptr(), pos_c.data_ptr(), keep.data_ptr(),
-                      buf.data_ptr(), T, eidx.shape[1], d, E, C,
+                      src.data_ptr(), buf.data_ptr(), T, d, src.numel(),
                       DTYPES[x.dtype]), "moe_dispatch")
 
 

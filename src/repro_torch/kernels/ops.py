@@ -13,7 +13,7 @@ the dequantize kernel's share `dequantize.launches`; `silu`,
 `fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
 the backward runs two kernels in bf16, dq with delta and dk / dv, and
 three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`,
-`silu_gate_prod_bwd`, `moe_dispatch` and `moe_combine`.
+`silu_gate_prod_bwd`, `moe_slots`, `moe_dispatch` and `moe_combine`.
 
 Four ops have a gradient (each a `torch.autograd.Function` whose
 forward is the forward kernel and whose backward is a backward kernel):
@@ -44,7 +44,8 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      fill_rates_ref, flash_bwd_ref,
                                      flash_fwd_ref, moe_combine_ref,
-                                     moe_dispatch_ref, quantize_groups_ref,
+                                     moe_dispatch_gather_ref, moe_slots_ref,
+                                     quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
                                      silu_gate_prod_bwd_ref, silu_gate_ref,
@@ -915,7 +916,7 @@ flash_bwd.launches = 0
 
 
 # ----------------------------------------------------------------------
-# MoE dispatch / combine
+# MoE slots, dispatch and combine
 # ----------------------------------------------------------------------
 def _check_routing(T: int, eidx, pos_c, keep, dev) -> int:
     """eidx, pos_c int64 and keep bool, each a contiguous [T, k] tensor
@@ -937,32 +938,77 @@ def _check_routing(T: int, eidx, pos_c, keep, dev) -> int:
     return eidx.shape[1]
 
 
-def moe_dispatch(x: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
-                 keep: torch.Tensor, E: int, C: int) -> torch.Tensor:
-    """The MoE dispatch of one group: x [T,d] (f32 or bf16, contiguous),
-    the choices' experts eidx and capacity slots pos_c [T,k] int64 and
-    keep [T,k] bool -> buf [E,C,d] in x's dtype, dense: slot (eidx,
-    pos_c) of every kept choice holds its token's row (a -0.0 written as
-    +0.0, as the reference's f32 scatter-add onto zeros writes it), every
-    other slot zeros. The kept choices' slots must be distinct, as
-    `models.moe.moe_forward`'s positions are.
+def moe_slots(eidx: torch.Tensor, E: int, C: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The MoE layer's capacity slots: the choices' experts eidx [G, T_g,
+    k] int64 (contiguous, 1 <= k <= 32) -> (pos_c [G, T_g, k] int64,
+    keep [G, T_g, k] bool, src [G, E, C] int32), dense. A choice's slot
+    is its rank among the choices of its expert over its group's
+    flattened (token, choice) stream, kept where below C (a dropped
+    choice's pos_c is 0); src names the token whose kept choice holds
+    slot (e, c), or -1. An expert outside [0, E) is dropped by the
+    kernel (the plain version raises).
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    cooperative launch for all G groups, 1 <= E <= 256, G at most the
+    kernel's co-resident blocks, `moe_slots_blocks()` in the source: the
+    launch fails above it); CPU tensors to
+    :func:`repro_torch.kernels.ref.moe_slots_ref` (the reference's
+    one-hot cumulative count and its inverse), which it equals integer
+    for integer."""
+    dev = _check_tensors({"eidx": (torch.int64,)}, eidx=eidx)
+    if eidx.dim() != 3 or min(eidx.shape) < 1 or \
+            eidx.shape[2] > _moe.MAX_K:
+        raise ValueError(f"eidx must be a non-empty [G, T_g, k] with k <= "
+                         f"{_moe.MAX_K}, got {tuple(eidx.shape)}")
+    E, C = int(E), int(C)
+    if not (1 <= E <= _moe.MAX_EXPERTS and C >= 1):
+        raise ValueError(f"need 1 <= E <= {_moe.MAX_EXPERTS} and C >= 1, "
+                         f"got E={E}, C={C}")
+    G, Tg, k = eidx.shape
+    if Tg * k >= 2 ** 31 or E * C >= 2 ** 31:
+        raise ValueError(f"a group's choices and slots must number under "
+                         f"2^31, got {Tg * k} and {E * C}")
+    if eidx.is_cpu:
+        return moe_slots_ref(eidx, E, C)
+    pos_c = torch.empty(eidx.shape, dtype=torch.int64, device=dev)
+    keep = torch.empty(eidx.shape, dtype=torch.bool, device=dev)
+    src = torch.empty((G, E, C), dtype=torch.int32, device=dev)
+    _moe.launch_slots(eidx, pos_c, keep, src)
+    moe_slots.launches += 1
+    return pos_c, keep, src
+
+
+moe_slots.launches = 0
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The MoE dispatch of one group: x [T,d] (f32 or bf16, contiguous)
+    and each slot's source token src [E,C] int32 (contiguous, -1 for an
+    empty slot; `moe_slots`' src of the group) -> buf [E,C,d] in x's
+    dtype, dense: buf[e, c] = x[src[e, c]] with a -0.0 written as +0.0,
+    as the reference's f32 scatter-adds onto zeros write it, and zeros
+    in every empty slot. A source outside [0, T) reads as empty in the
+    kernel (the plain version raises above T).
 
     CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
     launch); CPU tensors to :func:`repro_torch.kernels.ref.
-    moe_dispatch_ref` (the reference's k scatter-adds), which it equals
-    bit for bit."""
-    dev = _check_tensors({"x": _FLOATS}, x=x)
-    if x.dim() != 2:
-        raise ValueError(f"x must be [T, d], got {tuple(x.shape)}")
-    _check_routing(x.shape[0], eidx, pos_c, keep, dev)
-    E, C = int(E), int(C)
-    if not (1 <= E <= _moe.MAX_EXPERTS and C >= 1 and x.shape[1] >= 1):
-        raise ValueError(f"need 1 <= E <= {_moe.MAX_EXPERTS}, C >= 1 and "
-                         f"d >= 1, got E={E}, C={C}, d={x.shape[1]}")
+    moe_dispatch_gather_ref` (a gather and an add of +0.0), which it
+    equals bit for bit, as both equal the reference's k scatter-adds
+    (`ref.moe_dispatch_ref`)."""
+    dev = _check_tensors({"x": _FLOATS, "src": (torch.int32,)}, x=x,
+                         src=src)
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"x must be a non-empty [T, d], got "
+                         f"{tuple(x.shape)}")
+    if src.dim() != 2 or min(src.shape) < 1:
+        raise ValueError(f"src must be a non-empty [E, C], got "
+                         f"{tuple(src.shape)}")
     if x.is_cpu:
-        return moe_dispatch_ref(x, eidx, pos_c, keep, E, C)
-    buf = torch.empty((E, C, x.shape[1]), dtype=x.dtype, device=x.device)
-    _moe.launch_dispatch(x, eidx, pos_c, keep, buf)
+        return moe_dispatch_gather_ref(x, src)
+    buf = torch.empty((*src.shape, x.shape[1]), dtype=x.dtype,
+                      device=dev)
+    _moe.launch_dispatch(x, src, buf)
     moe_dispatch.launches += 1
     return buf
 

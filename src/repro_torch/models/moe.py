@@ -4,10 +4,13 @@ and the per-expert load that feeds WANify's skew weights (w_s).
 
 Port of `repro/models/moe.py`. Tokens are viewed as [G, T_g, d] groups
 (G the data-parallel width where it divides the tokens; the serve runs
-G = 1). The reference's k sequential scatters and k sequential gathers
-are one kernel each on the card (:func:`repro_torch.kernels.ops.
-moe_dispatch` and :func:`~repro_torch.kernels.ops.moe_combine`, csrc/
-moe.cu; their plain versions, the reference's loops, on the host), the
+G = 1). The reference's one-hot cumulative count of capacity slots,
+its k sequential scatters and its k sequential gathers are one kernel
+each on the card (:func:`repro_torch.kernels.ops.moe_slots`, which also
+gives each slot's source token, so that the dispatch
+:func:`~repro_torch.kernels.ops.moe_dispatch` is a gather by it, and
+:func:`~repro_torch.kernels.ops.moe_combine`; csrc/moe.cu; their plain
+versions, the reference's count and loops, on the host), the
 expert gate is the SwiGLU gate's kernel (`ops.silu_gate`'s value), and
 the three expert products are batched matrix products over the experts
 (the reference leaves them to XLA, outside any kernel).
@@ -91,25 +94,6 @@ def route(logits: torch.Tensor, k: int
     return probs, gates, eidx
 
 
-def positions(eidx: torch.Tensor, E: int, C: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """eidx [G, T_g, k] -> (pos_c, keep) [G, T_g, k]: each choice's slot,
-    its rank among the choices of its expert over the flattened (token,
-    choice) stream of its group (a cumulative sum of one-hots, as the
-    reference counts), kept where below C; a dropped choice's slot is
-    0. The one-hots are laid out [G, E, T_g * k], so the sum runs along
-    the innermost dim: along the stream's dim of a [G, T_g * k, E]
-    layout, CUDA's scan took ~4 ms a layer on an H100 at group 1's 20,512
-    choices."""
-    G, Tg, k = eidx.shape
-    ef = eidx.reshape(G, 1, Tg * k)
-    experts_ = torch.arange(E, device=eidx.device)[:, None]
-    count = torch.cumsum(ef == experts_, dim=2)           # [G, E, Tg*k]
-    pos = count.gather(1, ef)[:, 0] - 1
-    keep = pos < C
-    return torch.where(keep, pos, 0).reshape(G, Tg, k), keep.reshape(G, Tg, k)
-
-
 def experts(buf: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The experts' SwiGLU on their slots: buf [E, C, d] -> [E, C, d],
     the three products batched over the experts and the gate
@@ -130,10 +114,11 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     [E]), step for step as the reference's `moe_forward`: the router
     product in f32 (:func:`router_logits`), softmax and top-k
     (:func:`route`), the Switch-style aux loss and the per-expert share
-    of the choices, capacity slots (:func:`positions`), then per group
-    the dispatch, the experts (:func:`experts`) and the combine; the
-    shared experts added after. `p` holds a
-    layer's compute parameters (`MoeMlp`'s names). Without `with_stats`
+    of the choices, capacity slots and their source tokens (one
+    `ops.moe_slots` for all groups), then per group the dispatch (a
+    gather by the sources), the experts (:func:`experts`) and the
+    combine; the shared experts added after. `p` holds a layer's
+    compute parameters (`MoeMlp`'s names). Without `with_stats`
     (the serve: the reference's decode drops them and XLA never computes
     them) aux and load are None."""
     m = cfg.moe
@@ -151,11 +136,11 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         load = nn.functional.one_hot(eidx, E).sum(2).float().mean(
             (0, 1)) / k
         aux = E * torch.sum(load * probs.mean((0, 1)))
-    pos_c, keep = positions(eidx, E, C)
+    pos_c, keep, src = ops.moe_slots(eidx, E, C)
 
     ys = []
     for g in range(G):
-        buf = ops.moe_dispatch(xg[g], eidx[g], pos_c[g], keep[g], E, C)
+        buf = ops.moe_dispatch(xg[g], src[g])
         ob = experts(buf, p)
         ys.append(ops.moe_combine(ob, eidx[g], pos_c[g], keep[g], gates[g]))
     y = ys[0][None] if G == 1 else torch.stack(ys)

@@ -49,7 +49,8 @@ from test_torch_dense import (_f32, _logging_reference, _LoggingEngine,
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
+from repro_torch.kernels.ref import (moe_combine_ref, moe_dispatch_gather_ref,
+                                     moe_dispatch_ref, moe_slots_ref)
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models import moe, registry, transformer
@@ -324,8 +325,9 @@ def test_moe_forward_matches_reference(ref, case, dtype):
     xg = x.reshape(G, -1, d)
     probs, gates, eidx = moe.route(moe.router_logits(xg, pp["router"]),
                                    cfg.moe.top_k)
-    pos_c, keep = moe.positions(eidx, cfg.moe.n_experts, C)
+    pos_c, keep, src = ops.moe_slots(eidx, cfg.moe.n_experts, C)
     msg = f"{case}: the top-k boundary is {gap:.1f} f32 ulps at its closest"
+    _assert_inverse(src.numpy(), eidx.numpy(), pos_c.numpy(), keep.numpy())
     np.testing.assert_array_equal(eidx.numpy(), eidx_r, msg)
     np.testing.assert_array_equal(keep.numpy(), keep_r, msg)
     np.testing.assert_array_equal(pos_c.numpy(), np.where(keep_r, pos_r, 0),
@@ -377,6 +379,214 @@ def test_ties_follow_lax_top_k(ref):
     assert ((eidx_r == 1) | (eidx_r == 2)).any(axis=-1).mean() > 0.25
 
 
+# ----------------------------------------------------------------------
+# the capacity slots (ops.moe_slots)
+# ----------------------------------------------------------------------
+def _src_of(eidx, pos_c, keep, E, C):
+    """The inverse of one group's slots (numpy [T, k]): src [E, C] int32,
+    each kept choice's token at its slot, -1 elsewhere; asserts that no
+    two kept choices share a slot."""
+    t, j = np.nonzero(keep)
+    slots = eidx[t, j] * C + pos_c[t, j]
+    assert len(np.unique(slots)) == len(slots)
+    src = np.full(E * C, -1, np.int32)
+    src[slots] = t
+    return src.reshape(E, C)
+
+
+def _assert_inverse(src, eidx, pos_c, keep):
+    """src [G, E, C] int32 is the inverse of the slots of eidx / pos_c /
+    keep [G, T_g, k], and every dropped choice's pos_c is 0."""
+    G, E, C = src.shape
+    assert src.dtype == np.int32
+    assert (pos_c[~keep] == 0).all()
+    for g in range(G):
+        np.testing.assert_array_equal(
+            src[g], _src_of(eidx[g], pos_c[g], keep[g], E, C))
+
+
+def _np_slots(eidx, E, C):
+    """The slots counted choice by choice in numpy, as the reference
+    defines them: (pos_c, keep, src) of eidx [G, T_g, k]."""
+    G, Tg, k = eidx.shape
+    pos = np.zeros(eidx.shape, np.int64)
+    keep = np.zeros(eidx.shape, bool)
+    src = np.full((G, E, C), -1, np.int32)
+    for g in range(G):
+        count = np.zeros(E, np.int64)
+        for t in range(Tg):
+            for j in range(k):
+                e = eidx[g, t, j]
+                if count[e] < C:
+                    pos[g, t, j], keep[g, t, j] = count[e], True
+                    src[g, e, count[e]] = t
+                count[e] += 1
+    return pos, keep, src
+
+
+SLOTS_WARPS = 16        # csrc/moe.cu's kSlotsWarps: segments of a chunk
+SLOTS_CHUNK = 512       # and kSlotsChunk: choices a block, at least
+
+
+def _rehearse_slots(eidx, E, C, blocks):
+    """moe_slots_kernel's decomposition in numpy, as `moe_slots_launch`
+    grids it with `blocks` co-resident blocks: each group's stream cut
+    into chunks of SLOTS_CHUNK choices (or a multiple, where the blocks
+    fall short), a block a chunk, each chunk into 16 warps' segments; a
+    segment walked 32 choices a step, a choice ranked by the warp's
+    running count of its expert plus the lanes below it with its expert
+    (the ballots' peers, __popc), the count then raised by the step's
+    peers; a scan over the warps' counts of each expert for their
+    offsets and the block's count; after the grid barrier each block
+    sums the earlier blocks' counts and all; the slot the three offsets
+    plus the rank; each block's share of the slots past each expert's
+    total set to -1."""
+    G, Tg, k = eidx.shape
+    n = Tg * k
+    nb = min(-(-n // SLOTS_CHUNK), blocks // G)
+    chunk = -(-(-(-n // nb)) // SLOTS_CHUNK) * SLOTS_CHUNK
+    nb = -(-n // chunk)
+    seg = chunk // SLOTS_WARPS
+    lanes = np.arange(32)
+    below = lanes[None, :] < lanes[:, None]          # [lane, other lane]
+    pos = np.zeros((G, n), np.int64)
+    keep = np.zeros((G, n), bool)
+    src = np.empty((G, E, C), np.int32)
+    for g in range(G):
+        flat = eidx[g].reshape(n)
+        cnt = np.zeros((nb, SLOTS_WARPS, E), np.int64)
+        rank = np.zeros(n, np.int64)
+        for b in range(nb):
+            for w in range(SLOTS_WARPS):
+                for it in range(seg // 32):
+                    i = b * chunk + w * seg + it * 32 + lanes
+                    e = np.where(i < n, flat[np.minimum(i, n - 1)], -1)
+                    peers = e[:, None] == e[None, :]
+                    r = cnt[b, w, np.maximum(e, 0)] + (peers & below).sum(1)
+                    ok = e >= 0
+                    rank[i[ok]] = r[ok]
+                    np.add.at(cnt[b, w], e[ok], 1)
+        in_block = np.cumsum(cnt, 1) - cnt              # exclusive, by warp
+        per_block = cnt.sum(1)                           # [nb, E]
+        before = np.cumsum(per_block, 0) - per_block    # exclusive, by block
+        total = per_block.sum(0)
+        b_of, w_of = np.arange(n) // chunk, np.arange(n) % chunk // seg
+        p = before[b_of, flat] + in_block[b_of, w_of, flat] + rank
+        keep[g] = p < C
+        pos[g] = np.where(keep[g], p, 0)
+        slot = np.arange(C)[None, :]
+        src[g] = np.where(slot >= np.minimum(total, C)[:, None], -1, 0)
+        src[g][flat[keep[g]], p[keep[g]]] = np.nonzero(keep[g])[0] // k
+    return pos.reshape(eidx.shape), keep.reshape(eidx.shape), src
+
+
+def _experts(rng, G, Tg, k, E, how):
+    """Choices' experts [G, T_g, k] int64: `spread` k distinct at random
+    a token, `skewed` the top k of a random score tilted toward the high
+    experts, `one` every choice on expert 3."""
+    if how == "one":
+        return np.full((G, Tg, k), 3, np.int64)
+    score = rng.normal(size=(G, Tg, E))
+    if how == "skewed":
+        score = score + np.linspace(0.0, 2.0, E)
+    return np.argsort(-score, axis=-1)[..., :k].astype(np.int64)
+
+
+# name -> (G, T_g, k, E, C, experts): deepseek-v2's 160 experts at k = 6;
+# k = 32 (the kernel's widest); every choice on one expert (ranks far
+# past C); T_g * k = 111 in each of 2 groups (no multiple of 32); a
+# skewed group of 25,600 choices (50 blocks)
+SLOT_EDGES = {"e160_k6": (1, 300, 6, 160, 16, "spread"),
+              "k32": (1, 100, 32, 64, 40, "spread"),
+              "one_expert": (1, 90, 4, 8, 100, "one"),
+              "ragged": (2, 37, 3, 5, 20, "spread"),
+              "long": (1, 3200, 8, 32, 804, "skewed")}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_slots_plain_version_matches_reference(ref, case, dtype):
+    """`ops.moe_slots` on the host (its plain version) on the reference's
+    experts: pos and keep equal the reference's jitted count integer for
+    integer, and src is their exact inverse."""
+    cfg, rcfg, pp, rp, x, jx, dp, cf = _moe_setup(ref, case, dtype, seed=0)
+    B, S, _ = x.shape
+    C = moe.capacity(B * S // dp, cfg, cf)
+    _, _, eidx_r, pos_r, keep_r = _ref_routing(ref, rp, jx, rcfg, dp, C)
+    eidx = eidx_r.astype(np.int64)
+    pos_c, keep, src = ops.moe_slots(torch.from_numpy(eidx),
+                                     cfg.moe.n_experts, C)
+    assert (pos_c.dtype, keep.dtype, src.dtype) == (torch.int64, torch.bool,
+                                                    torch.int32)
+    assert src.shape == (eidx.shape[0], cfg.moe.n_experts, C)
+    np.testing.assert_array_equal(keep.numpy(), keep_r)
+    np.testing.assert_array_equal(pos_c.numpy(), np.where(keep_r, pos_r, 0))
+    _assert_inverse(src.numpy(), eidx, pos_c.numpy(), keep.numpy())
+
+
+@pytest.mark.parametrize("case", list(SLOT_EDGES))
+def test_slots_plain_version_matches_a_count(case):
+    """The plain `moe_slots` against a choice-by-choice numpy count at
+    the edges the kernel must take."""
+    G, Tg, k, E, C, how = SLOT_EDGES[case]
+    eidx = _experts(np.random.default_rng(7), G, Tg, k, E, how)
+    got = ops.moe_slots(torch.from_numpy(eidx), E, C)
+    want = _np_slots(eidx, E, C)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    if case in ("one_expert", "long"):
+        assert (~want[1]).any()
+
+
+# co-resident blocks of the slots kernel: one or four an SM of an H100's
+# 132 (four: an SM's 2,048 threads over the kernel's 512), and 4 in all
+@pytest.mark.parametrize("blocks", [132, 528, 4],
+                         ids=["one_per_sm", "four_per_sm", "few_blocks"])
+@pytest.mark.parametrize("case", list(SLOT_EDGES) + ["decode", "prefill"])
+def test_slots_kernel_decomposition_rehearsed(case, blocks):
+    """`moe_slots_kernel`'s chunks, segments, peer ranks, scans and block
+    offsets, rehearsed in numpy, equal the count; also at the serve's
+    decode step (T = 4, C = 4: one block) and group 1's prefill (T_g =
+    2,564, C = 804: 41 blocks of 512 choices), with one or four blocks
+    an SM of an H100 and with only 4 in all (chunks of several steps a
+    warp: the ranks parked in pos_c)."""
+    G, Tg, k, E, C, how = SLOT_EDGES.get(case) or {
+        "decode": (1, 4, 8, 32, 4, "spread"),
+        "prefill": (1, 2564, 8, 32, 804, "skewed")}[case]
+    eidx = _experts(np.random.default_rng(8), G, Tg, k, E, how)
+    for a, b in zip(_rehearse_slots(eidx, E, C, blocks),
+                    _np_slots(eidx, E, C)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(50, 2, 4, 20, 16), (37, 8, 32, 8, 24),
+                                   (30, 6, 160, 1, 8)],
+                         ids=["k2", "k8", "e160"])
+def test_gather_dispatch_equals_scatter_adds(shape, dtype):
+    """The dispatch's plain version, a gather by src, is bit-equal to
+    the reference's k scatter-adds (`moe_dispatch_ref`) on a skewed
+    routing: drops, empty slots, rows of -0.0 (written +0.0) and
+    elements of -0.0."""
+    T, k, E, C, d = shape
+    rng = np.random.default_rng(5)
+    eidx = _experts(rng, 1, T, k, E, "skewed")
+    pos_c, keep, src = (a[0] for a in _np_slots(eidx, E, C))
+    eidx = eidx[0]
+    assert (~keep).any() and (src < 0).any()
+    x = rng.normal(size=(T, d)).astype(np.float32)
+    x[3] = -0.0
+    x[5, :4] = -0.0
+    xt = torch.from_numpy(x).to(TDT[dtype])
+    got = ops.moe_dispatch(xt, torch.from_numpy(src))
+    want = moe_dispatch_ref(xt, *(torch.from_numpy(a)
+                                  for a in (eidx, pos_c, keep)), E, C)
+    assert got.dtype == want.dtype and got.shape == want.shape == (E, C, d)
+    assert np.array_equal(_f32(got).view(np.uint32),
+                          _f32(want).view(np.uint32))
+    assert not np.signbit(_f32(got)[_f32(got) == 0]).any()
+
+
 def _ref_loops(ref, k, E, C):
     """The reference's dispatch and combine loops (`moe.py:96-118`) for
     one group, jitted."""
@@ -416,9 +626,10 @@ def _routing(rng, T, k, E, C):
 @pytest.mark.parametrize("shape", [(50, 2, 4, 12, 16), (37, 8, 32, 8, 24)],
                          ids=["k2", "k8"])
 def test_plain_versions_equal_the_reference_loops(ref, shape, dtype):
-    """moe_dispatch_ref and moe_combine_ref against the reference's k
+    """moe_dispatch_ref, the gather dispatch (`moe_dispatch_gather_ref`,
+    by the slots' inverse) and moe_combine_ref against the reference's k
     loops under jit, with drops (C below the load), rows of -0.0 in x
-    and ob, and a gate of 0: bit for bit in bf16; in f32 the dispatch
+    and ob, and a gate of 0: bit for bit in bf16; in f32 both dispatches
     bit for bit, the combine within an ulp (XLA's FMA contraction)."""
     T, k, E, C, d = shape
     rng = np.random.default_rng(4)
@@ -440,6 +651,9 @@ def test_plain_versions_equal_the_reference_loops(ref, shape, dtype):
     got = _f32(moe_dispatch_ref(xt, *rt, E, C))
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert not np.signbit(got[got == 0]).any()
+    gathered = _f32(moe_dispatch_gather_ref(xt, torch.from_numpy(
+        _src_of(eidx, pos_c, keep, E, C))))
+    assert np.array_equal(gathered.view(np.uint32), want.view(np.uint32))
     want = _f32(combine(job, eidx, pos_c, keep, gates))
     got = _f32(moe_combine_ref(obt, *rt, torch.from_numpy(gates)))
     if dtype == "bfloat16":
@@ -462,7 +676,8 @@ def test_dispatch_plain_version_writes_rows_and_zeros():
     eidx, pos_c, keep = _routing(rng, T, k, E, C)
     x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
     rt = [torch.from_numpy(a) for a in (eidx, pos_c, keep)]
-    buf = ops.moe_dispatch(x, *rt, E, C)
+    _, _, src = ops.moe_slots(rt[0][None], E, C)
+    buf = ops.moe_dispatch(x, src[0])
     filled = np.zeros((E, C), bool)
     for t in range(T):
         for j in range(k):
@@ -476,53 +691,99 @@ def test_dispatch_plain_version_writes_rows_and_zeros():
 
 
 def _wrapper_inputs(T=6, k=2, E=4, C=4, d=8, dtype=torch.float32):
+    """(x, eidx, pos_c, keep, src) of one group, on the host."""
     rng = np.random.default_rng(0)
     eidx, pos_c, keep = _routing(rng, T, k, E, C)
     return (torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32)).to(
         dtype), torch.from_numpy(eidx), torch.from_numpy(pos_c),
-        torch.from_numpy(keep))
+        torch.from_numpy(keep), torch.from_numpy(_src_of(eidx, pos_c, keep,
+                                                         E, C)))
 
 
-@pytest.mark.parametrize("case", ["x_int", "x_1d", "eidx_int32", "keep_u8",
-                                  "pos_shape", "eidx_rows", "k_wide",
+@pytest.mark.parametrize("case", ["x_int", "x_1d", "src_int64", "src_float",
+                                  "src_3d", "src_device", "src_contig",
                                   "contig", "zero_experts", "zero_capacity",
                                   "type", "device"])
 def test_dispatch_wrapper_rejects_bad_inputs(case):
-    x, eidx, pos_c, keep = _wrapper_inputs()
-    E, C = 4, 4
+    x, _, _, _, src = _wrapper_inputs()
     if case == "x_int":
         x = x.to(torch.int32)
     elif case == "x_1d":
         x = x[0]
-    elif case == "eidx_int32":
-        eidx = eidx.int()
-    elif case == "keep_u8":
-        keep = keep.to(torch.uint8)
-    elif case == "pos_shape":
-        pos_c = pos_c[:, :1].contiguous()
-    elif case == "eidx_rows":
-        eidx, pos_c, keep = (t[:-1].contiguous() for t in (eidx, pos_c, keep))
-    elif case == "k_wide":
-        x, eidx, pos_c, keep = _wrapper_inputs(k=4, E=40)
-        eidx, pos_c, keep = (t.repeat(1, 9) for t in (eidx, pos_c, keep))
+    elif case == "src_int64":
+        src = src.long()
+    elif case == "src_float":
+        src = src.float()
+    elif case == "src_3d":
+        src = src[None]
+    elif case == "src_device":
+        src = src.to("meta")
+    elif case == "src_contig":
+        src = torch.cat([src, src], 1)[:, ::2]
     elif case == "contig":
         x = x.t().contiguous().t()
     elif case == "zero_experts":
-        E = 0
+        src = src[:0]
     elif case == "zero_capacity":
-        C = 0
+        src = src[:, :0]
     elif case == "type":
         x = x.numpy()
     elif case == "device":
-        x, eidx, pos_c, keep = (t.to("meta") for t in (x, eidx, pos_c, keep))
+        x, src = x.to("meta"), src.to("meta")
     with pytest.raises((TypeError, ValueError)):
-        ops.moe_dispatch(x, eidx, pos_c, keep, E, C)
+        ops.moe_dispatch(x, src)
+
+
+@pytest.mark.parametrize("case", ["eidx_int32", "eidx_2d", "k_wide",
+                                  "no_tokens", "zero_experts",
+                                  "experts_wide", "zero_capacity", "contig",
+                                  "type", "device"])
+def test_slots_wrapper_rejects_bad_inputs(case):
+    """`ops.moe_slots` refuses what its kernel does not take: int64
+    [G, T_g, k] contiguous with 1 <= k <= 32, 1 <= E <= 256, C >= 1, on
+    the card or the host (E = 256 and k = 32 pass)."""
+    _, eidx, _, _, _ = _wrapper_inputs()
+    eidx, E, C = eidx[None], 4, 4
+    if case == "eidx_int32":
+        eidx = eidx.int()
+    elif case == "eidx_2d":
+        eidx = eidx[0]
+    elif case == "k_wide":
+        eidx = eidx.repeat(1, 1, 17)
+    elif case == "no_tokens":
+        eidx = eidx[:, :0]
+    elif case == "zero_experts":
+        E = 0
+    elif case == "experts_wide":
+        E = 257
+    elif case == "zero_capacity":
+        C = 0
+    elif case == "contig":
+        eidx = eidx.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "type":
+        eidx = eidx.numpy()
+    elif case == "device":
+        eidx = eidx.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops.moe_slots(eidx, E, C)
+    ops.moe_slots(torch.zeros((1, 3, 32), dtype=torch.int64), 256, 4)
+
+
+# the combine's routing checks (ops._check_routing): each case breaks one
+# of them and must be refused by it, with its message naming the routing
+ROUTING_CASES = ("eidx_int32", "pos_int32", "keep_u8", "pos_shape",
+                 "keep_shape", "eidx_rows", "k_wide", "k_zero",
+                 "routing_device")
 
 
 @pytest.mark.parametrize("case", ["ob_2d", "gates_bf16", "gates_shape",
-                                  "no_tokens", "ob_int"])
+                                  "no_tokens", "ob_int", *ROUTING_CASES])
 def test_combine_wrapper_rejects_bad_inputs(case):
-    x, eidx, pos_c, keep = _wrapper_inputs()
+    """`ops.moe_combine` refuses what its kernel does not take: ob a
+    float [E, C, d], gates f32 of eidx's shape, and the routing eidx /
+    pos_c int64 and keep bool, each [T, k] with 1 <= k <= 32 and
+    T >= 1, on ob's device."""
+    x, eidx, pos_c, keep, _ = _wrapper_inputs()
     ob, gates = torch.ones((4, 4, 8)), torch.ones(eidx.shape)
     if case == "ob_2d":
         ob = ob[0]
@@ -534,19 +795,46 @@ def test_combine_wrapper_rejects_bad_inputs(case):
         eidx, pos_c, keep, gates = (t[:0] for t in (eidx, pos_c, keep, gates))
     elif case == "ob_int":
         ob = ob.long()
-    with pytest.raises((TypeError, ValueError)):
+    elif case == "eidx_int32":
+        eidx = eidx.int()
+    elif case == "pos_int32":
+        pos_c = pos_c.int()
+    elif case == "keep_u8":
+        keep = keep.to(torch.uint8)
+    elif case == "pos_shape":
+        pos_c = pos_c[:, :1].contiguous()
+    elif case == "keep_shape":
+        keep = keep[:-1].contiguous()
+    elif case == "eidx_rows":
+        eidx = eidx[:-1].contiguous()
+    elif case == "k_wide":
+        eidx, pos_c, keep, gates = (t.repeat(1, 17)
+                                    for t in (eidx, pos_c, keep, gates))
+    elif case == "k_zero":
+        eidx, pos_c, keep, gates = (t[:, :0].contiguous()
+                                    for t in (eidx, pos_c, keep, gates))
+    elif case == "routing_device":
+        eidx, pos_c, keep = (t.to("meta") for t in (eidx, pos_c, keep))
+    match = r"eidx|pos_c|keep|meta" if case in ROUTING_CASES else None
+    with pytest.raises((TypeError, ValueError), match=match):
         ops.moe_combine(ob, eidx, pos_c, keep, gates)
+    if case == "k_wide":      # k = 32, the kernel's widest, is taken
+        eidx, pos_c, keep, gates = (t[:, :32].contiguous()
+                                    for t in (eidx, pos_c, keep, gates))
+        assert ops.moe_combine(ob, eidx, pos_c, keep, gates).shape == x.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrappers_count_no_launch_on_cpu(dtype):
-    x, eidx, pos_c, keep = _wrapper_inputs(dtype=dtype)
-    before = (ops.moe_dispatch.launches, ops.moe_combine.launches)
-    buf = ops.moe_dispatch(x, eidx, pos_c, keep, 4, 4)
-    y = ops.moe_combine(buf, eidx, pos_c, keep, torch.rand(eidx.shape))
+    x, eidx, _, _, _ = _wrapper_inputs(dtype=dtype)
+    names = ("moe_slots", "moe_dispatch", "moe_combine")
+    before = [getattr(ops, n).launches for n in names]
+    pos_c, keep, src = ops.moe_slots(eidx[None], 4, 4)
+    buf = ops.moe_dispatch(x, src[0])
+    y = ops.moe_combine(buf, eidx, pos_c[0], keep[0], torch.rand(eidx.shape))
     assert buf.shape == (4, 4, 8) and y.shape == x.shape
     assert buf.dtype == y.dtype == dtype
-    assert (ops.moe_dispatch.launches, ops.moe_combine.launches) == before
+    assert [getattr(ops, n).launches for n in names] == before
 
 
 # ----------------------------------------------------------------------
@@ -696,13 +984,14 @@ def test_training_the_moe_is_not_yet_ported(built):
 
 def test_engine_on_cpu_counts_no_launch(built):
     """On the host the wrappers take the plain versions and count no
-    launch (the `cuda` case counts the card's: one dispatch and one
-    combine a layer a step)."""
+    launch (the `cuda` case counts the card's: one slots, one dispatch
+    and one combine a layer a step)."""
     cfg, model, _, _ = built("bfloat16")
-    before = (ops.moe_dispatch.launches, ops.moe_combine.launches)
+    names = ("moe_slots", "moe_dispatch", "moe_combine")
+    before = [getattr(ops, n).launches for n in names]
     eng = Engine(cfg, model, ServeConfig(batch=2, s_max=32), device="cpu")
     eng.serve(_requests(cfg, (3, 5), 2, Request))
-    assert (ops.moe_dispatch.launches, ops.moe_combine.launches) == before
+    assert [getattr(ops, n).launches for n in names] == before
 
 
 # ----------------------------------------------------------------------
@@ -720,8 +1009,7 @@ def card():
 
 # name -> (T, k, E, C, d): the serve's prefill of group 1 (4 x 641
 # tokens) and decode step at full width, a dropping capacity, an odd T,
-# a row of 100 bf16 (200 bytes: the element path) and a reduced layer;
-# no C is a multiple of the dispatch's 256-slot block
+# a row of 100 bf16 (200 bytes: the element path) and a reduced layer
 CARD_SHAPES = {"prefill": (2564, 8, 32, 804, 1024),
                "decode": (4, 8, 32, 4, 1024),
                "drops": (2564, 8, 32, 400, 1024),
@@ -734,9 +1022,10 @@ CARD_SHAPES = {"prefill": (2564, 8, 32, 804, 1024),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", list(CARD_SHAPES))
 def test_card_kernels_equal_plain(card, shape, dtype):
-    """`ops.moe_dispatch` and `ops.moe_combine` (one launch each) equal
-    their plain versions bit for bit on the card, -0.0 rows included;
-    two calls equal."""
+    """`ops.moe_dispatch` (by the plain slots' src) and `ops.moe_combine`
+    (one launch each) equal their plain versions bit for bit on the
+    card, and the reference's k scatter-adds (`moe_dispatch_ref`), -0.0
+    rows included; two calls equal."""
     T, k, E, C, d = CARD_SHAPES[shape]
     rng = np.random.default_rng(11)
     eidx, pos_c, keep = _routing(rng, T, k, E, C)
@@ -746,34 +1035,64 @@ def test_card_kernels_equal_plain(card, shape, dtype):
     x[1] = -0.0
     gates = rng.random((T, k)).astype(np.float32)
     rt = [torch.from_numpy(a).to(card) for a in (eidx, pos_c, keep)]
+    src = torch.from_numpy(_src_of(eidx, pos_c, keep, E, C)).to(card)
     xt = torch.from_numpy(x).to(card, dtype)
     g = torch.from_numpy(gates).to(card)
     before = (ops.moe_dispatch.launches, ops.moe_combine.launches)
-    buf = ops.moe_dispatch(xt, *rt, E, C)
+    buf = ops.moe_dispatch(xt, src)
     ob = buf * 1.5 - 0.25
     ob[0, 0] = -0.0
     y = ops.moe_combine(ob, *rt, g)
     assert (ops.moe_dispatch.launches, ops.moe_combine.launches) == \
         (before[0] + 1, before[1] + 1)
-    want_buf = moe_dispatch_ref(xt, *rt, E, C)
     want_y = moe_combine_ref(ob, *rt, g)
     torch.cuda.synchronize()
-    for got, want in ((buf, want_buf), (y, want_y)):
+    for got, want in ((buf, moe_dispatch_gather_ref(xt, src)),
+                      (buf, moe_dispatch_ref(xt, *rt, E, C)), (y, want_y)):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
                                     else torch.int32),
                            want.view(torch.int16 if dtype == torch.bfloat16
                                      else torch.int32))
-    assert torch.equal(ops.moe_dispatch(xt, *rt, E, C), buf)
+    assert torch.equal(ops.moe_dispatch(xt, src), buf)
     assert torch.equal(ops.moe_combine(ob, *rt, g), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SLOT_EDGES) + list(CARD_SHAPES) +
+                         ["many_groups"])
+def test_card_slots_equal_plain(card, case):
+    """`ops.moe_slots` (one launch) equals its plain version integer for
+    integer on the card, at the edges, the serve's shapes (skewed
+    experts, as the serve's left pads route) and 64 groups of 8,000
+    choices (each group's share of the co-resident blocks too few for a
+    step a warp); two calls equal."""
+    if case == "many_groups":
+        G, Tg, k, E, C, how = 64, 1000, 8, 32, 250, "skewed"
+    elif case in SLOT_EDGES:
+        G, Tg, k, E, C, how = SLOT_EDGES[case]
+    else:
+        (Tg, k, E, C, _), G, how = CARD_SHAPES[case], 1, "skewed"
+    eidx = torch.from_numpy(_experts(np.random.default_rng(9), G, Tg, k, E,
+                                     how)).to(card)
+    before = ops.moe_slots.launches
+    got = ops.moe_slots(eidx, E, C)
+    assert ops.moe_slots.launches == before + 1
+    want = moe_slots_ref(eidx, E, C)
+    again = ops.moe_slots(eidx, E, C)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda
 def test_card_serves_as_the_host(card):
     """The reduced MoE in f32 on the card (the kernels) and on the host
     with the same weights: the prefill's and 8 decode steps' logits
-    within 1e-3, the ids equal; one `moe_dispatch`, `moe_combine` and
-    `silu_gate` a layer a step, one `flash_fwd` a layer a prefill."""
+    within 1e-3, the ids equal; one `moe_slots`, `moe_dispatch`,
+    `moe_combine` and `silu_gate` a layer a step, one `flash_fwd` a
+    layer a prefill."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = reduced(get_config(ARCH)).replace(dtype="float32")
     card_model = registry.build_model(cfg, torch.Generator(card).manual_seed(0),
@@ -783,7 +1102,8 @@ def test_card_serves_as_the_host(card):
     sc = ServeConfig(batch=2, s_max=64)
     engines = [Engine(cfg, card_model, sc), Engine(cfg, host_model, sc,
                                                    device="cpu")]
-    names = ("moe_dispatch", "moe_combine", "silu_gate", "flash_fwd")
+    names = ("moe_slots", "moe_dispatch", "moe_combine", "silu_gate",
+             "flash_fwd")
     before = {n: getattr(ops, n).launches for n in names}
     outs, logits = [], []
     for eng in engines:
@@ -793,6 +1113,7 @@ def test_card_serves_as_the_host(card):
     torch.cuda.synchronize()
     steps = 1 + MAX_NEW
     assert {n: getattr(ops, n).launches - before[n] for n in names} == {
+        "moe_slots": steps * cfg.n_layers,
         "moe_dispatch": steps * cfg.n_layers,
         "moe_combine": steps * cfg.n_layers,
         "silu_gate": steps * cfg.n_layers, "flash_fwd": cfg.n_layers}
