@@ -33,8 +33,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    kernel none; `flash_attn.cu` builds beside them, and its seven kernels'
    registers, spills and SASS counts are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
-   (UTMALDG), or if any bf16 instance spills; and moe's three kernels'
-   registers and spills, failing on a spill;
+   (UTMALDG), or if any bf16 instance spills; and moe's six kernels'
+   (slots, dispatch, combine and the three backwards) registers and
+   spills, failing on a spill;
 3. kernel  — the rf_predict CUDA kernel against its plain PyTorch
    version on the card, bit-equal (both of its kernels: the one the
    wrapper picks and the other), on the paper's forest (100 trees,
@@ -317,7 +318,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    the hybrid. Counts zeroed just before and read just after: exactly
    34 x 24 = 816 `moe_slots`, `moe_dispatch`, `moe_combine` and
    `silu_gate` (the experts' gate), 2 x 24 = 48 `flash_fwd`, 1
-   `rf_predict`, no other kernel; ids and logits checked as 12b's;
+   `rf_predict`, no other kernel (no backward: the `_ad` ops call the
+   forward wrappers under `inference_mode`); ids and logits checked as
+   12b's;
    prefill ms per group, decode ms median and p90, tokens/s, peak
    memory; group 1's prefill and one decode step under
    `torch.profiler`, the MoE layer's steps in ranges, for the device ms
@@ -339,7 +342,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    prefill and a decode step (a CUDA graph of 20 calls) beside its
    plain version, the bound (bytes), the launch floor and, for the
    dispatch, an `index_select` by the same src that computes the same
-   buffer, in turns with the kernel; the experts' `silu_gate` bit-equal
+   buffer, for the combine an `embedding_bag` (sum, the gates as
+   per-sample weights) that computes it up to rounding, each in turns
+   with the kernel; the experts' `silu_gate` bit-equal
    at both prefills and a decode step, timed; `flash_fwd` at head dim
    64 ([4, 16, 1, S, 64] bf16) at both prefills within 2^-7 of each
    row's max, twice equal, timed beside SDPA and the bound;
@@ -349,8 +354,8 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `moe_dispatch` / `moe_combine` calls (f32) equal to their plain
    versions. Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
-   are freed, then the ssm family's (part (5)) and the hybrid's (part
-   (6)):
+   are freed, then the ssm family's (part (5)), the hybrid's (part (6))
+   and the MoE's (part (7)):
    (1) the slice's main path: `h2o-danube-1.8b` at its full width and
    depth (24 layers, d 2560, 32 query / 8 KV heads, d_ff 6912, vocab
    32,000; bf16 compute, f32 parameters and AdamW state, weights from a
@@ -459,7 +464,32 @@ Every phase is fatal: a failure exits non-zero before the result line.
    and `ssd_chunk_bwd` calls (f32) held to their plain versions; and
    (4)'s 4-pod WANify run on `zamba2-2.7b` cut to 7 layers, its checks
    as (4)'s, the host's redo of the first sync covering every shared
-   leaf.
+   leaf;
+   (7) after part (6)'s models are freed, the MoE's main path:
+   `granite-moe-1b-a400m` at its full width and depth (12c's model; f32
+   parameters and AdamW state) trained as (5) trains mamba. Counts
+   zeroed just before the run and read just after: exactly 2 x 24 x 6 =
+   288 `moe_slots`, `moe_dispatch`, `moe_combine`, `silu_gate` and
+   `flash_fwd` (forward and recompute) and 24 x 6 = 144
+   `moe_dispatch_bwd`, `moe_combine_bwd`, `moe_gates_bwd`,
+   `silu_gate_bwd` and `flash_bwd`; every loss finite and the last below
+   the first; every step's expert_load, summed over the layers, within
+   1e-6 of the layers' count; one more step under `torch.profiler`, by
+   kind as (5) with the routing's ops and the expert products as kinds
+   of their own and the MoE kernels forward and backward by name. Then
+   on one more step's layer 0 inputs (T = 4,096, k = 8, E = 32, C =
+   1,284, d = 1,024): the three forward kernels equal to their plain
+   versions and timed (`moe_combine` beside `embedding_bag`); the three
+   backward kernels bit-equal to their plain versions as captured
+   (bf16), in f32, at half the capacity (drops), at T = 4,095 and with
+   rows of -0.0, two calls equal, each timed beside its bound, its
+   plain version and `embedding_bag` where it computes the same
+   function (not for the gates' backward); one `make_train_step` step
+   cut to 2 layers, f32, B=1, S=512, on the card and on the host within
+   (3)'s bounds, the card's first `flash_fwd`, `flash_bwd` and three
+   MoE backward calls (f32) held to their plain versions; and (4)'s
+   4-pod WANify run cut to 8 of 24 layers (four pods' f32 state at 16 B
+   a parameter: ~34 GB), its checks as (4)'s.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -518,9 +548,11 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
                                      flash_bwd_ref, flash_fwd_ref,
-                                     moe_combine_ref,
+                                     moe_combine_bwd_ref, moe_combine_ref,
+                                     moe_dispatch_bwd_ref,
                                      moe_dispatch_gather_ref,
-                                     moe_dispatch_ref, moe_slots_ref,
+                                     moe_dispatch_ref, moe_gates_bwd_ref,
+                                     moe_slots_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
@@ -4274,14 +4306,22 @@ def hybrid_phase(paper, dev, smi: str, ssd_n128_ms: float) -> dict:
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_KERNELS = ("moe_slots", "moe_dispatch", "moe_combine")
 MOE_KERNEL_NAMES = ("moe_slots_kernel", "moe_dispatch_kernel",
-                    "moe_combine_kernel")
+                    "moe_combine_kernel", "moe_dispatch_bwd_kernel",
+                    "moe_combine_bwd_kernel", "moe_gates_bwd_kernel")
+# the MoE layer's backward kernels (the dispatch's, the combine's in ob
+# and in its gates)
+MOE_BWD_KERNELS = ("moe_dispatch_bwd", "moe_combine_bwd", "moe_gates_bwd")
 # the kernels the MoE serve launches, and those it must not
 MOE_COUNTED = MOE_KERNELS + ("silu_gate", "flash_fwd", "rf_predict",
                              "flash_bwd", "silu_gate_bwd", "ssd_chunk",
-                             "silu")
+                             "silu") + MOE_BWD_KERNELS
 MOE_PLAIN = {"moe_slots": moe_slots_ref,
              "moe_dispatch": moe_dispatch_gather_ref,
-             "moe_combine": moe_combine_ref}
+             "moe_combine": moe_combine_ref,
+             "moe_dispatch_bwd": moe_dispatch_bwd_ref,
+             "moe_combine_bwd": lambda dy, gates, eidx, pos_c, keep, src:
+             moe_combine_bwd_ref(dy, gates, eidx, pos_c, keep, *src.shape),
+             "moe_gates_bwd": moe_gates_bwd_ref}
 MOE_PARITY_LAYERS = PARITY_LAYERS
 # the MoE layer's steps, each run inside a profiler range of its label:
 # (module, attribute, label); the model looks each up at call time
@@ -4331,7 +4371,7 @@ def moe_bits(t: torch.Tensor) -> torch.Tensor:
 
 def moe_info(name: str, args, out) -> dict:
     """A case's shape, dtype, tokens and dropped choices (moe_slots from
-    its keep, moe_combine from the routing) or empty slots
+    its keep, the others from the routing's keep) or empty slots
     (moe_dispatch)."""
     first = args[0]
     info = {"shape": list(first.shape),
@@ -4341,7 +4381,9 @@ def moe_info(name: str, args, out) -> dict:
     elif name == "moe_dispatch":
         info.update(T=int(first.shape[0]), empty=int((args[1] < 0).sum()))
     else:
-        info.update(T=int(args[3].shape[0]), dropped=int((~args[3]).sum()))
+        keep = next(a for a in args if torch.is_tensor(a) and
+                    a.dtype == torch.bool)
+        info.update(T=int(keep.shape[0]), dropped=int((~keep).sum()))
     return info
 
 
@@ -4415,11 +4457,17 @@ def moe_bound(name: str, args):
     read once as this routing needs them and its outputs written once.
     moe_slots reads the experts (8 B a choice) and writes pos_c (8 B),
     keep (1 B) and src (4 B a slot); moe_dispatch reads the rows of the
-    tokens some slot names and src (4 B a slot) and writes the buffer;
-    moe_combine reads the kept choices' rows of ob (each its own slot)
-    and the routing (eidx, pos_c: 8 B, keep: 1 B a choice) with the
-    gates (4 B a choice), writes y, and takes a product and an add an
-    element of a kept row (f32 rate)."""
+    tokens some slot names and src (4 B a slot) and writes the buffer.
+    The other four read keep (1 B) of every choice they look at and, of
+    a kept choice only, its eidx and pos_c (8 B each) and its gate (4 B)
+    where the function takes one: moe_combine reads the kept choices'
+    rows of ob (each its own slot) and their gates, writes y, and takes
+    a product and an add an element of a kept row (f32 rate);
+    moe_dispatch_bwd reads the same rows and no gate, and takes an add
+    an element; moe_combine_bwd reads src, the rows of the tokens some
+    slot names and those tokens' choices, and writes every slot;
+    moe_gates_bwd reads dy and the kept rows of ob, and writes an f32 a
+    choice."""
     if name == "moe_slots":
         eidx, E, C = args
         nbytes = eidx.numel() * 17 + eidx.shape[0] * E * C * 4
@@ -4430,12 +4478,29 @@ def moe_bound(name: str, args):
         rows = int(torch.unique(src[src >= 0]).numel())
         nbytes = rows * d * e + src.numel() * 4 + src.numel() * d * e
         nops = 0
-    else:
+    elif name in ("moe_combine", "moe_dispatch_bwd"):
         ob, keep = args[0], args[3]
         T, k = keep.shape
         e, d = ob.element_size(), ob.shape[2]
         kept = int(keep.sum())
-        nbytes = kept * d * e + T * k * 21 + T * d * e
+        gated = name == "moe_combine"
+        nbytes = kept * d * e + T * k + kept * (16 + 4 * gated) + T * d * e
+        nops = (2 if gated else 1) * kept * d
+    elif name == "moe_combine_bwd":
+        dy, keep, src = args[0], args[4], args[5]
+        T, k = keep.shape
+        e, d = dy.element_size(), dy.shape[1]
+        rows = int(torch.unique(src[src >= 0]).numel())
+        kept = int(keep.sum())
+        nbytes = (rows * d * e + src.numel() * (4 + d * e) + rows * k +
+                  kept * 20)
+        nops = kept * d
+    else:                                           # moe_gates_bwd
+        dy, ob, keep = args[0], args[1], args[4]
+        T, k = keep.shape
+        e, d = ob.element_size(), ob.shape[2]
+        kept = int(keep.sum())
+        nbytes = kept * d * e + T * d * e + T * k * (1 + 4) + kept * 16
         nops = 2 * kept * d
     return roofline(nbytes, nops) + (nbytes, nops)
 
@@ -4452,13 +4517,62 @@ def dispatch_library(args):
     return lambda: torch.index_select(xpad, 0, idx)
 
 
+def bag_library(name: str, args):
+    """(call, text): one PyTorch call that computes the MoE kernel's
+    function up to rounding, its inputs built here, outside the timed
+    call: `F.embedding_bag(..., mode="sum", per_sample_weights=...)`
+    over the flat slots, with bags of the token's k slots (moe_combine:
+    weights the gates, 0 for a dropped choice; moe_dispatch_bwd: keep)
+    or of one slot's token (moe_combine_bwd: dy padded with a zero row,
+    weights each slot's gate); None and the reason where there is none
+    (moe_gates_bwd: no single call gathers the kept rows and takes their
+    products with dy) or the call refuses bf16 on the card; any other
+    error raises."""
+    bag = torch.nn.functional.embedding_bag
+    if name in ("moe_combine", "moe_dispatch_bwd"):
+        table, eidx, pos_c, keep = args[:4]
+        E, C, d = table.shape
+        idx = eidx * C + pos_c
+        w = (torch.where(keep, args[4], 0.0) if name == "moe_combine" else
+             keep.float()).to(table.dtype)
+        flat = table.view(E * C, d)
+
+        def call():
+            return bag(idx, flat, mode="sum", per_sample_weights=w)
+    elif name == "moe_combine_bwd":
+        dy, gates, eidx, pos_c, keep, src = args
+        T, d = dy.shape
+        E, C = src.shape
+        slot = (eidx * C + pos_c)[keep]
+        w = torch.zeros(E * C, dtype=torch.float32, device=dy.device)
+        w[slot] = gates[keep]
+        w = w.to(dy.dtype).view(-1, 1)
+        idx = torch.where(src < 0, T, src).reshape(-1, 1).long()
+        dpad = torch.cat([dy, dy.new_zeros((1, d))])
+
+        def call():
+            return bag(idx, dpad, mode="sum", per_sample_weights=w)
+    else:
+        return None, ("none (no single PyTorch call gathers the kept rows "
+                      "and takes their products with dy)")
+    try:
+        call()
+        sync(args[0].device)
+    except RuntimeError as e:
+        if "not implemented for 'BFloat16'" not in str(e):
+            raise
+        return None, f"embedding_bag refused bf16 on the card: {e}"
+    return call, "embedding_bag (per_sample_weights)"
+
+
 def time_moe(name: str, args, floor_ms: float) -> dict:
     """Device ms of the wrapper's call (one launch; a CUDA graph of 20
     calls, median of 11 replays) beside its plain version (device ms of
     its eager ops a call), the library call (moe_dispatch:
-    `index_select` by the same src, read in turns with the kernel:
-    kernel, library, library, kernel; the others: none), the bound and
-    the launch floor."""
+    `index_select` by the same src; moe_combine and the backwards:
+    `bag_library`'s `embedding_bag`; each read in turns with the kernel:
+    kernel, library, library, kernel; moe_slots and moe_gates_bwd:
+    none), the bound and the launch floor."""
     fn = getattr(ops, name)
     bms, by, nbytes, nops = moe_bound(name, args)
     res = dict(moe_info(name, args, fn(*args)),
@@ -4467,9 +4581,20 @@ def time_moe(name: str, args, floor_ms: float) -> dict:
                bound_ms=bms, bound_by=by, bytes=nbytes, ops=nops,
                launch_floor_ms=floor_ms, library_ms=None)
     if name == "moe_dispatch":
-        lib = dispatch_library(args)
-        res["library_equal"] = bool(torch.equal(lib().view(
-            fn(*args).shape), fn(*args)))
+        lib, res["library"] = dispatch_library(args), "index_select"
+    elif name == "moe_slots":
+        lib, res["library"] = None, ("none (no single PyTorch call counts "
+                                     "the slots)")
+    else:
+        lib, res["library"] = bag_library(name, args)
+    if lib is not None:
+        got = fn(*args)
+        other = lib().view(got.shape)
+        if name == "moe_dispatch":
+            res["library_equal"] = bool(torch.equal(other, got))
+        else:
+            res["library_max_abs_diff"] = float(
+                (other.float() - got.float()).abs().max())
         times = {"kernel": [], "library": []}
         for which in ("kernel", "library", "library", "kernel"):
             times[which].append(graph_ms(
@@ -4489,17 +4614,25 @@ def moe_case_text(t: dict) -> str:
              f"{t['dropped']} choices dropped)"))
 
 
-def log_moe(tag: str, name: str, t: dict, checks: list, smi: str) -> None:
-    log(f"[moe] {name} {tag} {moe_case_text(t)}: "
+def log_moe(tag: str, name: str, t: dict, checks: list, smi: str,
+            phase: str = "moe") -> None:
+    log(f"[{phase}] {name} {tag} {moe_case_text(t)}: "
         f"{'integer' if name == 'moe_slots' else 'bit'}-equal to plain in "
         f"{len(checks)} cases, two calls equal | kernel {t['ms']:.5f} ms "
         f"(device, graph of 20 calls) | plain {t['plain_ms']:.4f} ms | "
         f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} B, "
         f"{t['ops']} ops) | launch floor {t['launch_floor_ms']:.5f} ms | "
-        f"library call: " + (
-            f"index_select {t['library_ms']:.5f} ms (equal: "
-            f"{t['library_equal']})" if t["library_ms"] is not None else
-            "none (no single PyTorch call)") + f" | {smi}")
+        f"library call: " + moe_library_text(t) + f" | {smi}")
+
+
+def moe_library_text(t: dict) -> str:
+    """The library call's time and agreement with the kernel, or why
+    there is none."""
+    if t["library_ms"] is None:
+        return t["library"]
+    agree = f"equal: {t['library_equal']}" if "library_equal" in t else \
+        f"max |diff| {t['library_max_abs_diff']:.3g}, rounding otherwise"
+    return f"{t['library']} {t['library_ms']:.5f} ms ({agree})"
 
 
 def range_kernels(events, label: str, seen: set) -> dict:
@@ -4800,7 +4933,14 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
 TRAIN_OPT = dict(lr=3e-4)
 TRAIN_COUNTED = ("silu_gate", "silu_gate_bwd", "flash_fwd", "flash_bwd",
                  "rf_predict", "quantize", "dequantize", "ssd_chunk",
-                 "silu") + SSM_BWD
+                 "silu") + SSM_BWD + MOE_KERNELS + MOE_BWD_KERNELS
+# part (7): the MoE family's forward kernels (twice a layer a step under
+# remat "full") and backward kernels (once)
+MOE_TRAIN_FWD = MOE_KERNELS + DENSE_FWD
+MOE_TRAIN_BWD = MOE_BWD_KERNELS + DENSE_BWD
+MOE_POD_LAYERS = 8              # of 24: 4 pods' f32 state, ~34 GB
+MOE_TRAIN_PARITY_LAYERS = 2
+LOAD_SUM_TOL = 1e-6             # a step's expert_load over the layers
 # part (5): the ssm family trained as part (1) trains the dense one
 SSM_TRAIN_ARCH = ARCH
 SSD_BWD_TOL = 1e-4              # of max |g|: the kernels vs plain
@@ -4814,12 +4954,13 @@ PARITY_BATCH = 1
 # and mamba2-2.7b (part (5)) at 2 chunks of 256
 # and zamba2-2.7b (part (6)) as mamba2-2.7b, flash over 2 key blocks
 PARITY_SEQ = {"h2o-danube-1.8b": TRAIN_SEQ, SSM_TRAIN_ARCH: 512,
-              HYBRID_ARCH: 512}
+              HYBRID_ARCH: 512, MOE_ARCH: 512}
 PARITY_SEQ_OTHER = 64
 # the kernels whose first card call a parity step holds to plain
 PARITY_CHECKED = {"dense": ("flash_fwd", "flash_bwd"),
                   "ssm": ("ssd_chunk_bwd",),
-                  "hybrid": ("flash_fwd", "flash_bwd", "ssd_chunk_bwd")}
+                  "hybrid": ("flash_fwd", "flash_bwd", "ssd_chunk_bwd"),
+                  "moe": ("flash_fwd", "flash_bwd") + MOE_BWD_KERNELS}
 # the first step's compressed sync is redone on the host for every leaf
 # of at most this many elements a pod (the attention's and the norms':
 # all part layouts of the sync but the largest leaves')
@@ -4834,6 +4975,12 @@ ATTN_FWD, ATTN_BWD, XENT, OPTIM = ("attention_fwd", "attention_bwd",
 # own, forward and recompute; their backward nodes found by the forward
 # ops' sequence numbers
 SHARED_ATTN, SHARED_MLP = "shared_attention", "shared_mlp"
+# the MoE layer's routing (the router's product, softmax, the top k and
+# its renormalisation: `router_logits` and `route`) and its expert
+# products (`experts`, less the gate's kernel) in ranges of their own,
+# forward and recompute, their backward nodes found as the shared
+# block's
+MOE_ROUTING, MOE_EXPERTS = "moe_routing", "moe_experts"
 BWD_NODE = "autograd::engine::evaluate_function"
 XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
 # the port's kernels a train profile sums by name, first match: the
@@ -4842,10 +4989,25 @@ XENT_NODES = ("LogsumexpBackward", "GatherBackward", "MeanBackward")
 KERNEL_KINDS = (("silu_gate_bwd", "silu_gate_bwd_kernel"),
                 ("silu_bwd", "silu_bwd_kernel"),
                 ("silu_gate", "silu_gate_kernel"), ("silu", "silu_kernel"),
-                ("ssd_chunk_bwd", "ssd_bwd_"), ("ssd_chunk", "ssd_"))
+                ("ssd_chunk_bwd", "ssd_bwd_"), ("ssd_chunk", "ssd_"),
+                ("moe_bwd", "moe_dispatch_bwd_kernel"),
+                ("moe_bwd", "moe_combine_bwd_kernel"),
+                ("moe_bwd", "moe_gates_bwd_kernel"), ("moe_fwd", "moe_"))
 
 
-def train_profile(fn, shared: bool = False) -> dict:
+def profile_ranges(cfg) -> tuple:
+    """`train_profile`'s ranged kinds of `cfg`'s family: (module, names,
+    label) each."""
+    if cfg.family == "hybrid":
+        return ((att, ("gqa_forward",), SHARED_ATTN),
+                (lm_mod, ("_mlp",), SHARED_MLP))
+    if cfg.is_moe:
+        return ((moe_mod, ("router_logits", "route"), MOE_ROUTING),
+                (moe_mod, ("experts",), MOE_EXPERTS))
+    return ()
+
+
+def train_profile(fn, ranges=()) -> dict:
     """Device ms by kind of `fn` (one train step) under `torch.profiler`:
     the attention core's forward and backward (`ops.flash_fwd` /
     `ops.flash_bwd` inside `record_function` ranges: the flash kernels,
@@ -4855,10 +5017,12 @@ def train_profile(fn, shared: bool = False) -> dict:
     gate and SSD kernels and their backwards (KERNEL_KINDS, by kernel
     name; also each of those kernels' own device ms), the other matrix
     products (cuBLAS / CUTLASS names) and the rest; the kernels run.
-    With `shared` (the hybrid) also the shared block's attention and MLP
-    (SHARED_ATTN, SHARED_MLP: forward, recompute and backward), less the
-    flash and gate kernels inside them, which keep their own kinds
-    (`shared_port_ms` holds those, by range)."""
+    `ranges` (`profile_ranges`) adds kinds of ops in ranges of their
+    own, forward, recompute and backward, less the flash and port
+    kernels inside them, which keep their own kinds (`shared_port_ms`
+    holds those, by range): the hybrid's shared block's attention and
+    MLP (SHARED_ATTN, SHARED_MLP), the MoE's routing and expert
+    products (MOE_ROUTING, MOE_EXPERTS)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(label):
@@ -4872,17 +5036,19 @@ def train_profile(fn, shared: bool = False) -> dict:
             return call
         return wrap
 
-    kinds = (ATTN_FWD, ATTN_BWD, XENT, OPTIM) + \
-        ((SHARED_ATTN, SHARED_MLP) if shared else ())
-    with patched(ops, ranged(ATTN_FWD), ("flash_fwd",)), \
-            patched(ops, ranged(ATTN_BWD), ("flash_bwd",)), \
-            patched(lm_mod, ranged(XENT), ("chunked_xent",)), \
-            patched(train_step_mod, ranged(OPTIM), ("adamw_update",)), \
-            patched(att, ranged(SHARED_ATTN),
-                    ("gqa_forward",) if shared else ()), \
-            patched(lm_mod, ranged(SHARED_MLP), ("_mlp",) if shared else ()), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    kinds = (ATTN_FWD, ATTN_BWD, XENT, OPTIM) + tuple(
+        dict.fromkeys(label for _, _, label in ranges))
+    with contextlib.ExitStack() as stack:
+        for mod, wrap, names in (
+                (ops, ranged(ATTN_FWD), ("flash_fwd",)),
+                (ops, ranged(ATTN_BWD), ("flash_bwd",)),
+                (lm_mod, ranged(XENT), ("chunked_xent",)),
+                (train_step_mod, ranged(OPTIM), ("adamw_update",))) + tuple(
+                    (mod, ranged(label), names)
+                    for mod, names, label in ranges):
+            stack.enter_context(patched(mod, wrap, names))
+        prof = stack.enter_context(profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         fn()
         torch.cuda.synchronize()
     events = prof.events()
@@ -5153,9 +5319,11 @@ def train_launches(cfg, runs: int, **rest) -> dict:
     family twice a layer a pass (forward, recompute), each of its
     backward kernels once; the hybrid's shared block adds the dense
     family's so for each application (`shared_flags`: recomputed inside
-    its layer's region); every other kernel of TRAIN_COUNTED 0 unless
-    `rest` names it."""
-    parts = [(DENSE_FWD, DENSE_BWD, cfg.n_layers)] \
+    its layer's region); the MoE family's layer the MoE kernels and the
+    dense family's (MOE_TRAIN_FWD, MOE_TRAIN_BWD); every other kernel
+    of TRAIN_COUNTED 0 unless `rest` names it."""
+    parts = [(MOE_TRAIN_FWD, MOE_TRAIN_BWD, cfg.n_layers)] if cfg.is_moe \
+        else [(DENSE_FWD, DENSE_BWD, cfg.n_layers)] \
         if cfg.family == "dense" else [(SSM_FWD, SSM_BWD, cfg.n_layers)]
     if cfg.family == "hybrid":
         parts.append((DENSE_FWD, DENSE_BWD, sum(lm_mod.shared_flags(cfg))))
@@ -5180,18 +5348,33 @@ def zero_train_counts(names=TRAIN_COUNTED) -> None:
 
 def train_single(cfg, dev, steps: int = TRAIN_STEPS,
                  batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
-    """Part (1), part (5) for the ssm family and part (6) for the hybrid:
-    `cfg` trained by the Trainer on one pod (`sync="psum"`, remat "full",
-    random weights from a generator seeded 0), counts zeroed just before
-    the run and read just after; then one more step under the profiler
-    and one capturing the kernels' inputs (dense: the first call of each
-    gate and flash kernel; ssm and hybrid: layer 0's, the forwards' first
-    calls and the backwards' last; the hybrid's shared block's likewise:
-    its first application's)."""
+    """Part (1), part (5) for the ssm family, part (6) for the hybrid and
+    part (7) for the MoE: `cfg` trained by the Trainer on one pod
+    (`sync="psum"`, remat "full", random weights from a generator seeded
+    0), counts zeroed just before the run and read just after (the
+    MoE's: each step's expert_load, summed over the layers, within
+    LOAD_SUM_TOL of the layers' count); then one more step under the
+    profiler and one capturing the kernels' inputs (dense: the first
+    call of each gate and flash kernel; ssm, hybrid and MoE: layer 0's,
+    the forwards' first calls and the backwards' last; the hybrid's
+    shared block's likewise: its first application's)."""
     dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab)
     tr = Trainer(cfg, 1, dcfg, LoopConfig(steps=steps, sync="psum"),
                  opt=AdamWConfig(total_steps=steps, **TRAIN_OPT),
                  device=dev)
+    loads = []
+    if cfg.is_moe:
+        build_step = tr._build_step
+
+        def recording(plan):
+            fn = build_step(plan)
+
+            def step(*a):
+                out = fn(*a)
+                loads.append(out[2]["expert_load"].detach().cpu().numpy())
+                return out
+            return step
+        tr._build_step = recording
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -5210,6 +5393,13 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
     losses = [h["loss"] for h in tr.history]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train losses {losses}: not finite, or no fall")
+    load_sums = [float(ld.sum()) / cfg.n_layers for ld in loads]
+    if cfg.is_moe and (len(loads) != steps or not all(
+            abs(x - 1.0) <= LOAD_SUM_TOL and np.isfinite(x)
+            for x in load_sums)):
+        raise AssertionError(f"expert_load a step over {cfg.n_layers} "
+                             f"layers sums to {load_sums} of the layers "
+                             f"({len(loads)} steps recorded)")
     step_ms = [h["time"] * 1e3 for h in tr.history]
     res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "batch": batch,
            "seq": seq, "steps": steps, "params": registry.param_count(cfg),
@@ -5218,7 +5408,8 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
            "step_ms": step_ms,
            "step_ms_median": float(np.median(step_ms[1:])),
            "step_ms_p90": float(np.percentile(step_ms[1:], 90)),
-           "run_s": run_s,
+           "run_s": run_s, "expert_load_sums": load_sums,
+           "expert_load": [ld.tolist() for ld in loads],
            "peak_bytes": torch.cuda.max_memory_allocated()
            if dev.type == "cuda" else None}
     res["tokens_per_s"] = batch * seq / (res["step_ms_median"] / 1e3)
@@ -5232,12 +5423,18 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
         sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
         prof = train_profile(lambda: step_fn(params, state, next(data)),
-                             shared=cfg.family == "hybrid")
+                             profile_ranges(cfg))
         prof["busy_share"] = prof["device_ms"] / wall
         prof["wall_ms"] = wall
         res["profile"] = prof
     seen = {}
-    if cfg.family == "dense":
+    if cfg.is_moe:
+        with patched(ops, first_calls(seen), MOE_KERNELS), \
+                patched(ops, first_calls(seen, "last"), MOE_BWD_KERNELS):
+            step_fn(params, state, next(data))
+        res["layer0"] = {n: seen[n][0] for n in MOE_KERNELS +
+                         MOE_BWD_KERNELS}
+    elif cfg.family == "dense":
         with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd",
                                               "flash_fwd", "flash_bwd")):
             step_fn(params, state, next(data))
@@ -5269,7 +5466,8 @@ def step_parity(cfg, dev) -> dict:
     update). The card's first calls of the family's backward kernels
     (f32) are held to their plain versions: dense `flash_fwd` /
     `flash_bwd`, ssm `ssd_chunk_bwd` (part (5)), the hybrid all three
-    (part (6))."""
+    (part (6)), the MoE flash's two and its three backward kernels, bit
+    for bit (part (7)))."""
     t0 = time.perf_counter()
     seq = PARITY_SEQ.get(cfg.arch_id, PARITY_SEQ_OTHER)
     card = registry.build_model(
@@ -5287,7 +5485,7 @@ def step_parity(cfg, dev) -> dict:
         t1 = time.perf_counter()
         dev_b = as_batch(b, params["embed"].device)
         with patched(ops, first_card_calls(seen), PARITY_CHECKED[
-                cfg.family]):
+                "moe" if cfg.is_moe else cfg.family]):
             _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32,
                                                "full")(params, dev_b)
         grads[name] = tree_map(lambda t: t.cpu(), g)
@@ -5333,6 +5531,9 @@ def step_parity(cfg, dev) -> dict:
                            "bwd": check_flash_bwd(seen["flash_bwd"][0])}
     if "ssd_chunk_bwd" in seen:
         checks["ssd_chunk_bwd"] = check_ssd_bwd(seen["ssd_chunk_bwd"][0])
+    for name in MOE_BWD_KERNELS:
+        if name in seen:
+            checks[name] = check_moe(name, seen[name][0])
     del seen
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5658,6 +5859,10 @@ def log_parity(p: dict) -> None:
         checked.append(f"ssd_chunk_bwd {c['shape']} f32 against plain: " +
                        ", ".join(f"{n} {c[n]:.3g}" for n in ("dx", "dB",
                                                               "dC", "dda")))
+    moe = [n for n in MOE_BWD_KERNELS if n in p]
+    if moe:
+        checked.append(", ".join(f"{n} {p[n]['shape']}" for n in moe) +
+                       " f32 bit-equal to plain: 0")
     checked = "; ".join(checked)
     log(f"[train] step parity {p['arch']} {p['layers']} layers f32, "
         f"B={p['batch']} S={p['seq']} (card {p['card_s']:.1f} s, host "
@@ -5837,13 +6042,114 @@ def hybrid_train(cfg, dev, smi: str, forest, ssd_n128_ms=None) -> dict:
     return single
 
 
+def moe_bwd_cases(calls: dict) -> list:
+    """(label, name, args) of the MoE backward kernels' cases on layer
+    0's inputs of a train step (`calls`: each kernel's args): as
+    captured (bf16), in f32, with drops (the routing's slots recounted
+    at half the capacity, the slot tensors cut to it), a ragged T (the
+    last token left out, its slots recounted) and rows of -0.0 in the
+    cotangents."""
+    g, eidx, pos_c, keep = calls["moe_dispatch_bwd"]
+    dy, gates, src = (calls["moe_combine_bwd"][i] for i in (0, 1, 5))
+    ob = calls["moe_gates_bwd"][1]
+    E, C = src.shape
+
+    def of(label, eidx, pos_c, keep, src, g, ob, dy, gates):
+        return [(label, "moe_dispatch_bwd", (g, eidx, pos_c, keep)),
+                (label, "moe_combine_bwd", (dy, gates, eidx, pos_c, keep,
+                                            src)),
+                (label, "moe_gates_bwd", (dy, ob, eidx, pos_c, keep))]
+    out = of("train", eidx, pos_c, keep, src, g, ob, dy, gates)
+    out += of("f32", eidx, pos_c, keep, src, g.float(), ob.float(),
+              dy.float(), gates)
+    half = C // 2
+    p2, k2, s2 = moe_slots_ref(eidx[None], E, half)
+    out += of("drops", eidx, p2[0], k2[0], s2[0], g[:, :half].contiguous(),
+              ob[:, :half].contiguous(), dy, gates)
+    e3 = eidx[:-1].contiguous()
+    p3, k3, s3 = moe_slots_ref(e3[None], E, C)
+    out += of("ragged", e3, p3[0], k3[0], s3[0], g, ob,
+              dy[:-1].contiguous(), gates[:-1].contiguous())
+    gz, dz = g.clone(), dy.clone()
+    gz[:, 0] = -0.0
+    dz[1] = -0.0
+    out += of("negative zeros", eidx, pos_c, keep, src, gz, ob, dz, gates)
+    return out
+
+
+def moe_train(cfg, dev, smi: str, forest, parity_cfg=None,
+              pod_cfg=None) -> dict:
+    """Part (7): the MoE trained as part (6) trains the hybrid
+    (`train_single`: its exact counts, every step's expert_load), then
+    on layer 0's inputs of one more step each MoE kernel against its
+    plain version: the forwards (`moe_slots`, `moe_dispatch`,
+    `moe_combine`) at the training shape, the three backwards in five
+    cases each (`moe_bwd_cases`), bit for bit, two calls equal; each
+    timed beside its bound, its plain version and the library call
+    (`embedding_bag` for `moe_combine` and where it computes a
+    backward's function); one card-against-host step (`step_parity`) of
+    `parity_cfg` (default: cfg at MOE_TRAIN_PARITY_LAYERS, f32) and the
+    4-pod WANify run (`train_pods`) of `pod_cfg` (default: cfg at
+    MOE_POD_LAYERS)."""
+    t0 = time.perf_counter()
+    single = train_single(cfg, dev)
+    log_single(single, smi)
+    log(f"[train] {cfg.arch_id} expert_load a step over {cfg.n_layers} "
+        f"layers, summed: " + ", ".join(
+            f"{x * cfg.n_layers:.7f}" for x in single["expert_load_sums"]) +
+        f" (each within {LOAD_SUM_TOL} of {cfg.n_layers} a layer)")
+    calls = single.pop("layer0")
+    floor_ms = launch_floor_ms() if dev.type == "cuda" else 0.0
+    kernels = {}
+    for name in MOE_KERNELS:
+        c = check_moe(name, calls[name])
+        c["case"] = "train"
+        kernels[name] = {"checks": [c], "max_abs_err": 0.0}
+        if dev.type == "cuda":
+            t = kernels[name]["timing"] = time_moe(name, calls[name],
+                                                   floor_ms)
+            log_moe("train layer 0", name, t, [c], smi, phase="train")
+    checks = {name: [] for name in MOE_BWD_KERNELS}
+    for label, name, args in moe_bwd_cases(calls):
+        c = check_moe(name, args)
+        c["case"] = label
+        checks[name].append(c)
+    for name in MOE_BWD_KERNELS:
+        kernels[name] = {"checks": checks[name], "max_abs_err": 0.0}
+        if dev.type == "cuda":
+            t = kernels[name]["timing"] = time_moe(name, calls[name],
+                                                   floor_ms)
+            log_moe("train layer 0", name, t, checks[name], smi,
+                    phase="train")
+        log(f"[train] {name} cases: " + "; ".join(
+            f"{c['case']} {moe_case_text(c)}" for c in checks[name]))
+    single["kernels"] = kernels
+    del calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = single["parity"] = step_parity(
+        parity_cfg or cfg.replace(n_layers=MOE_TRAIN_PARITY_LAYERS,
+                                  dtype="float32"), dev)
+    log_parity({**p, "arch": cfg.arch_id})
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pod_cfg = pod_cfg or cfg.replace(n_layers=MOE_POD_LAYERS)
+    pods = single["pods"] = train_pods(pod_cfg, dev, forest)
+    log_pods(pods, pod_cfg, cfg, smi)
+    single["s"] = time.perf_counter() - t0
+    log(f"[train] part (7) {cfg.arch_id}: {single['s']:.1f} s")
+    return single
+
+
 def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
-                ssm_cfg=None, ssm_parity_cfg=None, hybrid_cfg=None) -> dict:
+                ssm_cfg=None, ssm_parity_cfg=None, hybrid_cfg=None,
+                moe_cfg=None) -> dict:
     """The train phase (see the head comment); every check fatal. The
     configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
     POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32;
     `ssm_cfg`: SSM_TRAIN_ARCH; `ssm_parity_cfg`: it at PARITY_LAYERS,
-    f32; `hybrid_cfg`: HYBRID_ARCH, cut by `hybrid_train`)."""
+    f32; `hybrid_cfg`: HYBRID_ARCH, cut by `hybrid_train`; `moe_cfg`:
+    MOE_ARCH, cut by `moe_train`)."""
     t_phase = time.perf_counter()
     # the reference training CLI's forest (src/repro/launch/train.py)
     forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
@@ -5907,8 +6213,11 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
     hybrid_part = hybrid_train(
         hybrid_cfg or get_config(HYBRID_ARCH), dev, smi, forest,
         ssm_part["ssd_chunk_bwd"].get("timing", {}).get("ms"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    moe_part = moe_train(moe_cfg or get_config(MOE_ARCH), dev, smi, forest)
     out = {"single": single, "parity": parity, "pods": pods,
-           "ssm": ssm_part, "hybrid": hybrid_part,
+           "ssm": ssm_part, "hybrid": hybrid_part, "moe": moe_part,
            "s": time.perf_counter() - t_phase}
     log(f"[train] phase {out['s']:.2f} s")
     return out
@@ -6644,7 +6953,8 @@ def main() -> int:
 
     # 13. train: h2o-danube-1.8b trained at full size through the
     # silu_gate kernels, the three dense archs' card-vs-host train step,
-    # the 4-pod WANify Trainer
+    # the 4-pod WANify Trainer; then mamba2-2.7b, zamba2-2.7b and
+    # granite-moe-1b-a400m trained (parts (5)-(7))
     train = train_phase(dev, smi)
     results["train"] = train
 
@@ -6660,6 +6970,7 @@ def main() -> int:
     ht = train["hybrid"]
     hk = hybrid["kernels"]
     mk = moe_res["kernels"]
+    mt = train["moe"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -6819,6 +7130,22 @@ def main() -> int:
             ("flash_bwd", "flash_attn.cu", "src/repro/models/attention.py:99",
              max(ht["flash_bwd"]["check"][n]["max_abs_diff"]
                  for n in ("dq", "dk", "dv"))))] + [{
+        "name": f"{kname} (moe train)", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe.cu",
+        "replaces": f"src/repro/models/moe.py:{lines}",
+        "launches": mt["launches"][kname],
+        "max_abs_err": mt["kernels"][kname]["max_abs_err"],
+        "ms": mt["kernels"][kname]["timing"]["ms"],
+        "plain_ms": mt["kernels"][kname]["timing"]["plain_ms"],
+        "bound_ms": mt["kernels"][kname]["timing"]["bound_ms"],
+        "bound_by": mt["kernels"][kname]["timing"]["bound_by"],
+        "library_ms": mt["kernels"][kname]["timing"]["library_ms"]}
+        for kname, lines in (("moe_slots", "83-90"),
+                             ("moe_dispatch", "98-100"),
+                             ("moe_combine", "115-118"),
+                             ("moe_dispatch_bwd", "98-100"),
+                             ("moe_combine_bwd", "115-118"),
+                             ("moe_gates_bwd", "115-118"))] + [{
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:56",

@@ -1,7 +1,8 @@
-// The MoE layer's routing slots, dispatch and combine, for Hopper
-// (sm_90a): one launch each where the JAX package's program runs a
-// one-hot cumulative count, k sequential scatters and k sequential
-// gathers.
+// The MoE layer's routing slots, dispatch and combine, and the two
+// latter's backwards, for Hopper (sm_90a): one launch each where the JAX
+// package's program runs a one-hot cumulative count, k sequential
+// scatters and k sequential gathers, and where its gradient runs their
+// transposes.
 //
 // The JAX package has no kernel here: src/repro/models/moe.py counts
 // each choice's capacity slot as a cumulative sum of one-hots over the
@@ -76,6 +77,41 @@
 //    keep, gate) into shared memory, then each thread takes a 16-byte
 //    column of the row (d = 1,024 in bf16: one each), issuing the k
 //    loads of its column before it adds.
+//
+//
+// The backwards, as XLA's CPU program computes `jax.vjp` of the
+// reference's loops (kernels/ref.py::moe_dispatch_bwd_ref,
+// moe_combine_bwd_ref, moe_gates_bwd_ref, each equal to it bit for bit):
+//
+//  * moe_dispatch_bwd_kernel: dx[t, :] = the token's kept choices' rows
+//    of the buffer's cotangent g. XLA adds the k gathered rows last
+//    choice first (dx = t_{k-1}, then r(dx + t_j) for j = k-2..0, a
+//    dropped choice's row +0.0), not in the combine's order, so it is
+//    the combine's block-a-token body (gather_sum) walking the choices
+//    backwards without gates.
+//  * moe_combine_bwd_kernel: d_ob[s, :] for slot s = (e, c) is token t =
+//    src[s]'s cotangent dy[t, :] times the gate of t's choice holding s,
+//    r(dy * r(g)) rounded once, -0.0 written as +0.0 (XLA scatter-adds
+//    onto zeros); zeros in an empty slot. Each slot holds at most one
+//    kept choice, so it is a gather by moe_slots' src, as the dispatch:
+//    a warp a slot, the choice found by a ballot of the token's k
+//    choices, every slot written once (no zero fill, no atomic).
+//  * moe_gates_bwd_kernel: dg[t, j] = the row product of dy[t] and the
+//    kept choice's row of ob, as XLA reduces it: products rounded to
+//    the dtype, the row summed in windows of 32 in order (padded to a
+//    multiple of 32, half the pad in front), then the windows in order,
+//    every add rounded to the dtype; over d <= 32 one sum in order (f32:
+//    fused multiply-adds, taken in f64 as the plain version takes
+//    them). A block a token, a warp a choice, dy's row staged in shared
+//    memory once; over 16-byte rows a window spans 32 / W lanes that
+//    pass its partial sum on by shuffles, so the loads coalesce. A
+//    second kernel rather than a role of the combine's: the two walk
+//    different layouts (slots, tokens) with different blocks.
+//
+// At the training shape (T = 4,096, k = 8, E = 32, C = 1,284, d =
+// 1,024, bf16) d_ob writes the 84.1 MB buffer and reads dy (8.4 MB):
+// ~28 us at 3.35 TB/s; dx and dg read the kept rows (at most 67 MB) and
+// dy or dx's 8.4 MB: at most ~23 us each.
 //
 // At the serve's prefill of group 1 (T = 2,564 tokens, k = 8, E = 32,
 // C = 804 slots, d = 1,024, bf16) the dispatch writes the 52.7 MB
@@ -330,22 +366,30 @@ __device__ __forceinline__ float add_term(float acc, float term, bool first) {
   return first ? term : to_f(from_f<T>(__fadd_rn(acc, term)));
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kCombineThreads)
-moe_combine_kernel(const T* __restrict__ ob,
-                   const long long* __restrict__ eidx,
-                   const long long* __restrict__ pos,
-                   const bool* __restrict__ keep,
-                   const float* __restrict__ gates, T* __restrict__ y,
-                   int k, long long C, long long d) {
+// y[t, :] = the sum of token t's k rows of `rows` (a block a token, a
+// thread a W-wide column): the combine's gated sum, choice 0 first
+// (kBwd false), or the dispatch's backward (kBwd true): the rows
+// ungated, summed last choice first, as XLA sums the reference's
+// transposed scatter-adds. A dropped choice's row reads +0.0.
+template <typename T, int W, bool kBwd>
+__device__ __forceinline__ void gather_sum(const T* __restrict__ rows,
+                                           const long long* __restrict__ eidx,
+                                           const long long* __restrict__ pos,
+                                           const bool* __restrict__ keep,
+                                           const float* __restrict__ gates,
+                                           T* __restrict__ y, int k,
+                                           long long C, long long d) {
   __shared__ long long s_row[kMaxK];
   __shared__ float s_gate[kMaxK];
   const long long t = blockIdx.x;
   if (threadIdx.x < k) {
-    const long long i = t * k + threadIdx.x;
-    s_row[threadIdx.x] = keep[i] ? __ldg(eidx + i) * C + __ldg(pos + i) : -1;
+    const int j = kBwd ? k - 1 - static_cast<int>(threadIdx.x)
+                       : static_cast<int>(threadIdx.x);
+    const long long i = t * k + j;
+    s_row[threadIdx.x] =
+        keep[i] ? __ldg(eidx + i) * C + __ldg(pos + i) : -1;
     // the gate rounded to T, as the reference's gates.astype(x.dtype)
-    s_gate[threadIdx.x] = to_f(from_f<T>(__ldg(gates + i)));
+    if (!kBwd) s_gate[threadIdx.x] = to_f(from_f<T>(__ldg(gates + i)));
   }
   __syncthreads();
   using P = Pack<T, W>;
@@ -359,7 +403,7 @@ moe_combine_kernel(const T* __restrict__ ob,
       for (int u = 0; u < kUnroll; ++u) {
         const long long row = j0 + u < k ? s_row[j0 + u] : -1;
         if (row >= 0) {
-          v[u] = reinterpret_cast<const P*>(ob + row * d)[c];
+          v[u] = reinterpret_cast<const P*>(rows + row * d)[c];
         } else {
 #pragma unroll
           for (int w = 0; w < W; ++w) v[u].v[w] = from_f<T>(0.0f);
@@ -368,10 +412,12 @@ moe_combine_kernel(const T* __restrict__ ob,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (j0 + u >= k) break;
-        const float g = s_gate[j0 + u];
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          const float term = to_f(from_f<T>(__fmul_rn(to_f(v[u].v[w]), g)));
+          const float term =
+              kBwd ? to_f(v[u].v[w])
+                   : to_f(from_f<T>(
+                         __fmul_rn(to_f(v[u].v[w]), s_gate[j0 + u])));
           acc[w] = add_term<T>(acc[w], term, j0 + u == 0);
         }
       }
@@ -380,6 +426,188 @@ moe_combine_kernel(const T* __restrict__ ob,
 #pragma unroll
     for (int w = 0; w < W; ++w) o.v[w] = from_f<T>(acc[w]);
     out[c] = o;
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kCombineThreads)
+moe_combine_kernel(const T* __restrict__ ob,
+                   const long long* __restrict__ eidx,
+                   const long long* __restrict__ pos,
+                   const bool* __restrict__ keep,
+                   const float* __restrict__ gates, T* __restrict__ y,
+                   int k, long long C, long long d) {
+  gather_sum<T, W, false>(ob, eidx, pos, keep, gates, y, k, C, d);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kCombineThreads)
+moe_dispatch_bwd_kernel(const T* __restrict__ g,
+                        const long long* __restrict__ eidx,
+                        const long long* __restrict__ pos,
+                        const bool* __restrict__ keep, T* __restrict__ dx,
+                        int k, long long C, long long d) {
+  gather_sum<T, W, true>(g, eidx, pos, keep, nullptr, dx, k, C, d);
+}
+
+// d_ob[s, :] for slot s = (e, c) of token t = src[s]: dy[t, :] times the
+// gate of t's choice that holds s (found by a ballot of the token's k
+// choices, a lane each), rounded to T, -0.0 written as +0.0; zeros where
+// the slot is empty. A warp a slot, as the dispatch.
+template <typename T, int W>
+__global__ void __launch_bounds__(kDispatchThreads)
+moe_combine_bwd_kernel(const T* __restrict__ dy,
+                       const float* __restrict__ gates,
+                       const long long* __restrict__ eidx,
+                       const long long* __restrict__ pos,
+                       const bool* __restrict__ keep,
+                       const int* __restrict__ src, T* __restrict__ d_ob,
+                       long long n_slots, long long T_, int k, long long C,
+                       long long d) {
+  using P = Pack<T, W>;
+  const long long s =
+      static_cast<long long>(blockIdx.x) * (kDispatchThreads / 32) +
+      (threadIdx.x >> 5);
+  if (s >= n_slots) return;
+  const long long nvec = d / W;
+  const int lane = threadIdx.x & 31;
+  const long long t = __ldg(src + s);
+  P* out = reinterpret_cast<P*>(d_ob + s * d);
+  unsigned hit = 0;
+  float g = 0.0f;
+  if (t >= 0 && t < T_) {
+    const long long e = s / C, c = s - e * C, i = t * k + lane;
+    const bool mine = lane < k && keep[i] && __ldg(eidx + i) == e &&
+                      __ldg(pos + i) == c;
+    hit = __ballot_sync(0xffffffffu, mine);
+    if (hit) g = to_f(from_f<T>(__ldg(gates + t * k + __ffs(hit) - 1)));
+  }
+  if (!hit) {
+    P z;
+#pragma unroll
+    for (int w = 0; w < W; ++w) z.v[w] = from_f<T>(0.0f);
+    for (long long c = lane; c < nvec; c += 32) put_streaming(out + c, z);
+    return;
+  }
+  const P* in = reinterpret_cast<const P*>(dy + t * d);
+  for (long long c0 = lane; c0 < nvec; c0 += 32 * kDispatchVecs) {
+    P v[kDispatchVecs];
+#pragma unroll
+    for (int u = 0; u < kDispatchVecs; ++u)
+      if (c0 + 32 * u < nvec) v[u] = in[c0 + 32 * u];
+#pragma unroll
+    for (int u = 0; u < kDispatchVecs; ++u) {
+      if (c0 + 32 * u >= nvec) break;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        v[u].v[w] = plus_zero(from_f<T>(__fmul_rn(to_f(v[u].v[w]), g)));
+      put_streaming(out + c0 + 32 * u, v[u]);
+    }
+  }
+}
+
+// v rounded to T, as an f32
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// dg[t, j] for choice j (warp j) of token t (a block): the row product
+// of dy[t] (staged in shared memory) and its kept row of ob, as XLA's
+// CPU program reduces it: products rounded to T; over d > 32 in windows
+// of 32 (the row padded by `left` zeros in front to nwin windows), each
+// summed in order, then the window sums in order, every add rounded to
+// T; over d <= 32 (nwin 0) one sum in order, in f32 as fused
+// multiply-adds (taken in f64, as the plain version takes them). W > 1:
+// d a multiple of 32 on 16-byte storage, a window across 32 / W lanes,
+// its partial sum passed lane to lane; W = 1: a lane a window.
+template <typename T, int W>
+__global__ void __launch_bounds__(kMaxK * 32)
+moe_gates_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ ob,
+                     const long long* __restrict__ eidx,
+                     const long long* __restrict__ pos,
+                     const bool* __restrict__ keep, float* __restrict__ dg,
+                     int k, long long C, int d, int nwin, int left,
+                     int dy_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sdy = reinterpret_cast<T*>(smem);
+  float* wsum = reinterpret_cast<float*>(smem + dy_bytes);
+  using P = Pack<T, W>;
+  const long long t = blockIdx.x;
+  const T* drow = dy + t * d;
+  for (int c = threadIdx.x; c < d / W; c += blockDim.x)
+    reinterpret_cast<P*>(sdy)[c] = reinterpret_cast<const P*>(drow)[c];
+  __syncthreads();
+  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = t * k + j;
+  if (!keep[i]) {
+    if (lane == 0) dg[i] = 0.0f;
+    return;
+  }
+  const T* row = ob + (__ldg(eidx + i) * C + __ldg(pos + i)) * d;
+  float* ws = wsum + j * nwin;
+  if (nwin == 0) {
+    if (lane != 0) return;
+    float acc = 0.0f;
+    for (int e = 0; e < d; ++e) {
+      const float a = to_f(sdy[e]), b = to_f(row[e]);
+      if constexpr (sizeof(T) == 4)
+        acc = __double2float_rn(__dadd_rn(
+            static_cast<double>(acc),
+            __dmul_rn(static_cast<double>(a), static_cast<double>(b))));
+      else
+        acc = e == 0 ? rnd<T>(__fmul_rn(a, b))
+                     : rnd<T>(__fadd_rn(acc, rnd<T>(__fmul_rn(a, b))));
+    }
+    dg[i] = plus_zero(acc);
+    return;
+  }
+  if constexpr (W > 1) {
+    constexpr int L = 32 / W;                  // lanes a window
+    const int q = lane % L;
+    for (int m0 = 0; m0 < nwin; m0 += W) {
+      const int m = m0 + lane / L;
+      const bool valid = m < nwin;
+      float p[W];
+      if (valid) {
+        const long long c = (static_cast<long long>(m) * 32 + q * W) / W;
+        const P v = reinterpret_cast<const P*>(row)[c];
+        const P a = reinterpret_cast<const P*>(sdy)[c];
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          p[w] = rnd<T>(__fmul_rn(to_f(a.v[w]), to_f(v.v[w])));
+      }
+      float acc = 0.0f;
+      for (int qq = 0; qq < L; ++qq) {
+        const float prev = __shfl_up_sync(0xffffffffu, acc, 1);
+        if (q == qq && valid) {
+          float s = qq == 0 ? p[0] : rnd<T>(__fadd_rn(prev, p[0]));
+#pragma unroll
+          for (int w = 1; w < W; ++w) s = rnd<T>(__fadd_rn(s, p[w]));
+          acc = s;
+        }
+      }
+      if (q == L - 1 && valid) ws[m] = acc;
+    }
+  } else {
+    for (int m = lane; m < nwin; m += 32) {
+      float s = 0.0f;
+      bool first = true;
+      for (int u = 0; u < 32; ++u) {
+        const int e = m * 32 + u - left;
+        if (e < 0 || e >= d) continue;
+        const float pr = rnd<T>(__fmul_rn(to_f(sdy[e]), to_f(row[e])));
+        s = first ? pr : rnd<T>(__fadd_rn(s, pr));
+        first = false;
+      }
+      ws[m] = s;
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+    float acc = ws[0];
+    for (int m = 1; m < nwin; ++m) acc = rnd<T>(__fadd_rn(acc, ws[m]));
+    dg[i] = plus_zero(acc);
   }
 }
 
@@ -415,6 +643,64 @@ void combine(const void* ob, const long long* eidx, const long long* pos,
     moe_combine_kernel<T, 1><<<grid, kCombineThreads, 0, st>>>(
         static_cast<const T*>(ob), eidx, pos, keep, gates,
         static_cast<T*>(y), k, C, d);
+}
+
+template <typename T>
+void dispatch_bwd(const void* g, const long long* eidx, const long long* pos,
+                  const bool* keep, void* dx, long long T_, int k,
+                  long long d, long long C, cudaStream_t st) {
+  constexpr int W = 16 / sizeof(T);
+  const unsigned grid = static_cast<unsigned>(T_);
+  if (d % W == 0 && aligned16(g) && aligned16(dx))
+    moe_dispatch_bwd_kernel<T, W><<<grid, kCombineThreads, 0, st>>>(
+        static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
+        d);
+  else
+    moe_dispatch_bwd_kernel<T, 1><<<grid, kCombineThreads, 0, st>>>(
+        static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
+        d);
+}
+
+template <typename T>
+void combine_bwd(const void* dy, const float* gates, const long long* eidx,
+                 const long long* pos, const bool* keep, const int* src,
+                 void* d_ob, long long T_, int k, long long d,
+                 long long n_slots, long long C, cudaStream_t st) {
+  constexpr int W = 16 / sizeof(T);
+  constexpr int rows = kDispatchThreads / 32;   // a warp a slot
+  const unsigned grid = static_cast<unsigned>((n_slots + rows - 1) / rows);
+  if (d % W == 0 && aligned16(dy) && aligned16(d_ob))
+    moe_combine_bwd_kernel<T, W><<<grid, kDispatchThreads, 0, st>>>(
+        static_cast<const T*>(dy), gates, eidx, pos, keep, src,
+        static_cast<T*>(d_ob), n_slots, T_, k, C, d);
+  else
+    moe_combine_bwd_kernel<T, 1><<<grid, kDispatchThreads, 0, st>>>(
+        static_cast<const T*>(dy), gates, eidx, pos, keep, src,
+        static_cast<T*>(d_ob), n_slots, T_, k, C, d);
+}
+
+// shared memory of a gates_bwd block: dy's row (16-byte aligned), then
+// k window sums of nwin each
+template <typename T>
+int gates_bwd(const void* dy, const void* ob, const long long* eidx,
+              const long long* pos, const bool* keep, float* dg, long long T_,
+              int k, int d, long long C, cudaStream_t st) {
+  constexpr int W = 16 / sizeof(T);
+  const int nwin = d <= 32 ? 0 : (d + 31) / 32;
+  const int left = (nwin * 32 - d) / 2 > 0 ? (nwin * 32 - d) / 2 : 0;
+  const int dy_bytes = (d * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+  const size_t smem = dy_bytes + sizeof(float) * k * nwin;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(T_);
+  if (d % 32 == 0 && aligned16(dy) && aligned16(ob))
+    moe_gates_bwd_kernel<T, W><<<grid, 32 * k, smem, st>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(ob), eidx, pos, keep,
+        dg, k, C, d, nwin, left, dy_bytes);
+  else
+    moe_gates_bwd_kernel<T, 1><<<grid, 32 * k, smem, st>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(ob), eidx, pos, keep,
+        dg, k, C, d, nwin, left, dy_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -523,6 +809,76 @@ extern "C" int moe_combine_launch(const void* ob, const void* eidx,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int moe_dispatch_bwd_launch(const void* g, const void* eidx,
+                                       const void* pos, const void* keep,
+                                       void* dx, long long T, long long k,
+                                       long long d, long long C, int dtype,
+                                       void* stream) {
+  if (T < 1 || T > 0x7fffffffLL || k < 1 || k > kMaxK || d < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* ei = static_cast<const long long*>(eidx);
+  const long long* ps = static_cast<const long long*>(pos);
+  const bool* kp = static_cast<const bool*>(keep);
+  if (dtype == 0)
+    dispatch_bwd<float>(g, ei, ps, kp, dx, T, static_cast<int>(k), d, C, st);
+  else if (dtype == 1)
+    dispatch_bwd<__nv_bfloat16>(g, ei, ps, kp, dx, T, static_cast<int>(k), d,
+                                C, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int moe_combine_bwd_launch(const void* dy, const void* gates,
+                                      const void* eidx, const void* pos,
+                                      const void* keep, const void* src,
+                                      void* d_ob, long long T, long long k,
+                                      long long d, long long n_slots,
+                                      long long C, int dtype, void* stream) {
+  if (T < 1 || k < 1 || k > kMaxK || d < 1 || C < 1 || n_slots < 1 ||
+      n_slots > 0x7fffffffLL * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gates);
+  const long long* ei = static_cast<const long long*>(eidx);
+  const long long* ps = static_cast<const long long*>(pos);
+  const bool* kp = static_cast<const bool*>(keep);
+  const int* sp = static_cast<const int*>(src);
+  if (dtype == 0)
+    combine_bwd<float>(dy, g, ei, ps, kp, sp, d_ob, T, static_cast<int>(k), d,
+                       n_slots, C, st);
+  else if (dtype == 1)
+    combine_bwd<__nv_bfloat16>(dy, g, ei, ps, kp, sp, d_ob, T,
+                               static_cast<int>(k), d, n_slots, C, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int moe_gates_bwd_launch(const void* dy, const void* ob,
+                                    const void* eidx, const void* pos,
+                                    const void* keep, void* dg, long long T,
+                                    long long k, long long d, long long C,
+                                    int dtype, void* stream) {
+  if (T < 1 || T > 0x7fffffffLL || k < 1 || k > kMaxK || d < 1 ||
+      d > (1 << 20) || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* ei = static_cast<const long long*>(eidx);
+  const long long* ps = static_cast<const long long*>(pos);
+  const bool* kp = static_cast<const bool*>(keep);
+  float* g = static_cast<float*>(dg);
+  if (dtype == 0)
+    return gates_bwd<float>(dy, ob, ei, ps, kp, g, T, static_cast<int>(k),
+                            static_cast<int>(d), C, st);
+  if (dtype == 1)
+    return gates_bwd<__nv_bfloat16>(dy, ob, ei, ps, kp, g, T,
+                                    static_cast<int>(k), static_cast<int>(d),
+                                    C, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* moe_error_string(int code) {

@@ -1,13 +1,16 @@
-"""The MoE layer's routing slots, dispatch and combine: the hand-written
-CUDA kernels' binding.
+"""The MoE layer's routing slots, dispatch and combine and the two
+latter's backwards: the hand-written CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/moe.cu`; its head comment says
 which ops of the JAX package's program they replace and how they round.
 This module binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
 :func:`repro_torch.kernels.ops.moe_slots`,
-:func:`~repro_torch.kernels.ops.moe_dispatch` and
-:func:`~repro_torch.kernels.ops.moe_combine`, which check the inputs,
+:func:`~repro_torch.kernels.ops.moe_dispatch`,
+:func:`~repro_torch.kernels.ops.moe_combine`,
+:func:`~repro_torch.kernels.ops.moe_dispatch_bwd`,
+:func:`~repro_torch.kernels.ops.moe_combine_bwd` and
+:func:`~repro_torch.kernels.ops.moe_gates_bwd`, which check the inputs,
 take the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
@@ -40,6 +43,15 @@ def _lib() -> ctypes.CDLL:
         lib.moe_combine_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _L,
                                            _L, _L, _I, _P]
         lib.moe_combine_launch.restype = _I
+        lib.moe_dispatch_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _L, _L,
+                                                _L, _L, _I, _P]
+        lib.moe_dispatch_bwd_launch.restype = _I
+        lib.moe_combine_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                               _L, _L, _L, _L, _L, _I, _P]
+        lib.moe_combine_bwd_launch.restype = _I
+        lib.moe_gates_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _L,
+                                             _L, _L, _I, _P]
+        lib.moe_gates_bwd_launch.restype = _I
         lib.moe_error_string.argtypes = [_I]
         lib.moe_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -93,3 +105,49 @@ def launch_combine(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
                       eidx.data_ptr(), pos_c.data_ptr(), keep.data_ptr(),
                       gates.data_ptr(), y.data_ptr(), T, k, d, C,
                       DTYPES[ob.dtype]), "moe_combine")
+
+
+def launch_dispatch_bwd(g: torch.Tensor, eidx: torch.Tensor,
+                        pos_c: torch.Tensor, keep: torch.Tensor,
+                        dx: torch.Tensor) -> None:
+    """dx [T,d] (dense, g's dtype) = each token's kept choices' rows of
+    g [E,C,d], summed last choice first; one launch on the current
+    stream of g's device. Inputs are checked by the caller."""
+    T, k = eidx.shape
+    _, C, d = g.shape
+    _check(_on_device(g.device, _lib().moe_dispatch_bwd_launch, g.data_ptr(),
+                      eidx.data_ptr(), pos_c.data_ptr(), keep.data_ptr(),
+                      dx.data_ptr(), T, k, d, C, DTYPES[g.dtype]),
+           "moe_dispatch_bwd")
+
+
+def launch_combine_bwd(dy: torch.Tensor, gates: torch.Tensor,
+                       eidx: torch.Tensor, pos_c: torch.Tensor,
+                       keep: torch.Tensor, src: torch.Tensor,
+                       d_ob: torch.Tensor) -> None:
+    """d_ob [E,C,d] (dense, dy's dtype) = dy's row src[e, c] times the
+    gate of its choice of the slot, zeros in an empty slot; one launch
+    on the current stream of dy's device. Inputs are checked by the
+    caller."""
+    T, k = eidx.shape
+    E, C = src.shape
+    _check(_on_device(dy.device, _lib().moe_combine_bwd_launch,
+                      dy.data_ptr(), gates.data_ptr(), eidx.data_ptr(),
+                      pos_c.data_ptr(), keep.data_ptr(), src.data_ptr(),
+                      d_ob.data_ptr(), T, k, dy.shape[1], E * C, C,
+                      DTYPES[dy.dtype]), "moe_combine_bwd")
+
+
+def launch_gates_bwd(dy: torch.Tensor, ob: torch.Tensor, eidx: torch.Tensor,
+                     pos_c: torch.Tensor, keep: torch.Tensor,
+                     dg: torch.Tensor) -> None:
+    """dg [T,k] f32 = each kept choice's row product of dy and ob,
+    reduced as XLA's CPU program reduces it; one launch (a block of k
+    warps a token) on the current stream of dy's device. Inputs are
+    checked by the caller."""
+    T, k = eidx.shape
+    _, C, d = ob.shape
+    _check(_on_device(dy.device, _lib().moe_gates_bwd_launch, dy.data_ptr(),
+                      ob.data_ptr(), eidx.data_ptr(), pos_c.data_ptr(),
+                      keep.data_ptr(), dg.data_ptr(), T, k, d, C,
+                      DTYPES[dy.dtype]), "moe_gates_bwd")

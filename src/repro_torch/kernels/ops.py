@@ -13,19 +13,24 @@ the dequantize kernel's share `dequantize.launches`; `silu`,
 `fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
 the backward runs two kernels in bf16, dq with delta and dk / dv, and
 three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`,
-`silu_gate_prod_bwd`, `moe_slots`, `moe_dispatch` and `moe_combine`.
+`silu_gate_prod_bwd`, `moe_slots`, `moe_dispatch`, `moe_combine` and
+the MoE backwards `moe_dispatch_bwd`, `moe_combine_bwd` and
+`moe_gates_bwd`.
 
-Four ops have a gradient (each a `torch.autograd.Function` whose
+Six ops have a gradient (each a `torch.autograd.Function` whose
 forward is the forward kernel and whose backward is a backward kernel):
 :func:`swiglu_gate`, the SwiGLU gate (:func:`silu_gate`'s value;
-backward :func:`silu_gate_bwd`); and the Mamba-2 block's three, named
+backward :func:`silu_gate_bwd`); the Mamba-2 block's three, named
 `<op>_ad` (autodiff): :func:`ssd_chunk_ad` (backward
 :func:`ssd_chunk_bwd`), :func:`silu_ad` (:func:`silu_bwd`) and
-:func:`silu_gate_ad` (:func:`silu_gate_prod_bwd`). Where no input
-needs a gradient (serving, under `torch.inference_mode`) the `_ad` ops
-call the forward wrapper directly: the serve path launches what it
-launched before, and its decode step, bound by the host's issue, pays
-no Function's per-call cost (3 calls a layer).
+:func:`silu_gate_ad` (:func:`silu_gate_prod_bwd`); and the MoE layer's
+two: :func:`moe_dispatch_ad` (:func:`moe_dispatch_bwd`) and
+:func:`moe_combine_ad` (:func:`moe_combine_bwd` and
+:func:`moe_gates_bwd`). Where no input needs a gradient (serving,
+under `torch.inference_mode`) the `_ad` ops call the forward wrapper
+directly: the serve path launches what it launched before, and its
+decode step, bound by the host's issue, pays no Function's per-call
+cost (3 calls a layer).
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      fill_rates_ref, flash_bwd_ref,
-                                     flash_fwd_ref, moe_combine_ref,
-                                     moe_dispatch_gather_ref, moe_slots_ref,
+                                     flash_fwd_ref, moe_combine_bwd_ref,
+                                     moe_combine_ref, moe_dispatch_bwd_ref,
+                                     moe_dispatch_gather_ref,
+                                     moe_gates_bwd_ref, moe_slots_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
                                      silu_bwd_ref, silu_gate_bwd_ref,
@@ -488,7 +495,10 @@ class _SwigluGate(torch.autograd.Function):
 def swiglu_gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """The SwiGLU gate's value silu(z) * y (:func:`silu_gate` with
     `with_prod=False`) as a differentiable op: its gradient is
-    :func:`silu_gate_bwd`, the kernel on the card."""
+    :func:`silu_gate_bwd`, the kernel on the card. Where neither input
+    needs a gradient it is the forward wrapper's call itself."""
+    if not _needs_grad(y, z):
+        return silu_gate(y, z, with_prod=False)[0]
     return _SwigluGate.apply(y, z)
 
 
@@ -1049,3 +1059,184 @@ def moe_combine(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
 
 
 moe_combine.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Their backwards, and the two ops with a gradient
+# ----------------------------------------------------------------------
+def moe_dispatch_bwd(g: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
+                     keep: torch.Tensor) -> torch.Tensor:
+    """The gradient of one group's :func:`moe_dispatch` in x: the
+    buffer's cotangent g [E,C,d] (f32 or bf16, contiguous) and the
+    group's routing eidx / pos_c [T,k] int64, keep [T,k] bool -> dx
+    [T,d] in g's dtype, dense: each token's kept choices' rows of g,
+    summed last choice first, each add rounded to g's dtype, as XLA's
+    CPU program sums the reference's transposed scatter-adds
+    (:func:`repro_torch.kernels.ref.moe_dispatch_bwd_ref`).
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    launch); CPU tensors to the plain version, which it equals bit for
+    bit."""
+    dev = _check_tensors({"g": _FLOATS}, g=g)
+    if g.dim() != 3 or min(g.shape) < 1:
+        raise ValueError(f"g must be a non-empty [E, C, d], got "
+                         f"{tuple(g.shape)}")
+    T = eidx.shape[0] if isinstance(eidx, torch.Tensor) and eidx.dim() else 0
+    _check_routing(T, eidx, pos_c, keep, dev)
+    if T < 1:
+        raise ValueError("moe_dispatch_bwd needs at least one token")
+    if g.is_cpu:
+        return moe_dispatch_bwd_ref(g, eidx, pos_c, keep)
+    dx = torch.empty((T, g.shape[2]), dtype=g.dtype, device=dev)
+    _moe.launch_dispatch_bwd(g, eidx, pos_c, keep, dx)
+    moe_dispatch_bwd.launches += 1
+    return dx
+
+
+moe_dispatch_bwd.launches = 0
+
+
+def _check_gated(dy, eidx, pos_c, keep, gates) -> torch.device:
+    """dy [T,d] f32 / bf16 and its routing and f32 gates [T,k], all on
+    dy's device and contiguous; returns the device."""
+    dev = _check_tensors({"dy": _FLOATS}, dy=dy)
+    if dy.dim() != 2 or min(dy.shape) < 1:
+        raise ValueError(f"dy must be a non-empty [T, d], got "
+                         f"{tuple(dy.shape)}")
+    _check_routing(dy.shape[0], eidx, pos_c, keep, dev)
+    if gates is not None:
+        _check_tensors({"gates": (torch.float32,)}, gates=gates)
+        if gates.shape != eidx.shape or gates.device != dev:
+            raise ValueError(f"gates must be [T, k] f32 on {dev}, got "
+                             f"{tuple(gates.shape)} on {gates.device}")
+    return dev
+
+
+def moe_combine_bwd(dy: torch.Tensor, gates: torch.Tensor,
+                    eidx: torch.Tensor, pos_c: torch.Tensor,
+                    keep: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The gradient of one group's :func:`moe_combine` in ob: the
+    output's cotangent dy [T,d] (f32 or bf16, contiguous), the gates
+    [T,k] f32, the routing and each slot's source token src [E,C] int32
+    (`moe_slots`' src of the group) -> d_ob [E,C,d] in dy's dtype,
+    dense: slot (e, c) = dy[src] times the gate of that token's choice
+    of (e, c) rounded to dy's dtype, the product rounded once, -0.0
+    written as +0.0; zeros in every empty slot. That is XLA's sum of the
+    reference's k transposed gathers, each an f32 scatter-add onto zeros
+    (:func:`repro_torch.kernels.ref.moe_combine_bwd_ref`).
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    launch: a gather by src, every slot written once); CPU tensors to
+    the plain version, which it equals bit for bit."""
+    dev = _check_gated(dy, eidx, pos_c, keep, gates)
+    _check_tensors({"src": (torch.int32,)}, src=src)
+    if src.dim() != 2 or min(src.shape) < 1 or src.device != dev:
+        raise ValueError(f"src must be a non-empty [E, C] on {dev}, got "
+                         f"{tuple(src.shape)} on {src.device}")
+    E, C = src.shape
+    if dy.is_cpu:
+        return moe_combine_bwd_ref(dy, gates, eidx, pos_c, keep, E, C)
+    d_ob = torch.empty((E, C, dy.shape[1]), dtype=dy.dtype, device=dev)
+    _moe.launch_combine_bwd(dy, gates, eidx, pos_c, keep, src, d_ob)
+    moe_combine_bwd.launches += 1
+    return d_ob
+
+
+moe_combine_bwd.launches = 0
+
+
+def moe_gates_bwd(dy: torch.Tensor, ob: torch.Tensor, eidx: torch.Tensor,
+                  pos_c: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """The gradient of one group's :func:`moe_combine` in its gates: the
+    output's cotangent dy [T,d] and the experts' outputs ob [E,C,d] (one
+    dtype, f32 or bf16, contiguous) and the routing -> dgates [T,k] f32:
+    for each kept choice the row product dy[t] . ob[e, p] as XLA's CPU
+    program reduces it (products rounded to the dtype, the row summed in
+    windows of 32 in order, then the windows in order, each add rounded
+    to the dtype; :func:`repro_torch.kernels.ref.gate_window_sum`), +0.0
+    for a dropped choice.
+
+    CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
+    launch: a block a token); CPU tensors to
+    :func:`repro_torch.kernels.ref.moe_gates_bwd_ref`, which it equals
+    bit for bit."""
+    dev = _check_gated(dy, eidx, pos_c, keep, None)
+    _check_tensors({"ob": _FLOATS}, ob=ob)
+    if ob.dim() != 3 or min(ob.shape) < 1 or ob.dtype != dy.dtype or \
+            ob.shape[2] != dy.shape[1] or ob.device != dev:
+        raise ValueError(f"ob must be a non-empty [E, C, d={dy.shape[1]}] "
+                         f"{dy.dtype} on {dev}, got {ob.dtype} "
+                         f"{tuple(ob.shape)} on {ob.device}")
+    if dy.is_cpu:
+        return moe_gates_bwd_ref(dy, ob, eidx, pos_c, keep)
+    dg = torch.empty(eidx.shape, dtype=torch.float32, device=dev)
+    _moe.launch_gates_bwd(dy, ob, eidx, pos_c, keep, dg)
+    moe_gates_bwd.launches += 1
+    return dg
+
+
+moe_gates_bwd.launches = 0
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _MoeDispatch(torch.autograd.Function):
+    """:func:`moe_dispatch` with a gradient in x: backward
+    :func:`moe_dispatch_bwd` on the saved routing."""
+
+    @staticmethod
+    def forward(ctx, x, src, eidx, pos_c, keep):
+        ctx.save_for_backward(eidx, pos_c, keep)
+        return moe_dispatch(x, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (moe_dispatch_bwd(g.contiguous(), *ctx.saved_tensors), None,
+                None, None, None)
+
+
+def moe_dispatch_ad(x: torch.Tensor, src: torch.Tensor, eidx: torch.Tensor,
+                    pos_c: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """:func:`moe_dispatch` as a differentiable op in x (the routing
+    eidx / pos_c / keep [T,k] is what its gradient,
+    :func:`moe_dispatch_bwd`, sums by). Where x needs no gradient it is
+    the forward wrapper's call itself."""
+    if not _needs_grad(x):
+        return moe_dispatch(x, src)
+    return _MoeDispatch.apply(x, src, eidx, pos_c, keep)
+
+
+class _MoeCombine(torch.autograd.Function):
+    """:func:`moe_combine` with a gradient in ob and the gates: backward
+    :func:`moe_combine_bwd` and :func:`moe_gates_bwd` on the saved ob,
+    gates and routing."""
+
+    @staticmethod
+    def forward(ctx, ob, eidx, pos_c, keep, gates, src):
+        ctx.save_for_backward(ob, eidx, pos_c, keep, gates, src)
+        return moe_combine(ob, eidx, pos_c, keep, gates)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ob, eidx, pos_c, keep, gates, src = ctx.saved_tensors
+        dy = dy.contiguous()
+        d_ob = moe_combine_bwd(dy, gates, eidx, pos_c, keep, src) \
+            if ctx.needs_input_grad[0] else None
+        dg = moe_gates_bwd(dy, ob, eidx, pos_c, keep) \
+            if ctx.needs_input_grad[4] else None
+        return d_ob, None, None, None, dg, None
+
+
+def moe_combine_ad(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
+                   keep: torch.Tensor, gates: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """:func:`moe_combine` as a differentiable op in ob and the gates
+    (src, `moe_slots`' of the group, is what the ob gradient
+    :func:`moe_combine_bwd` gathers by; the gates' is
+    :func:`moe_gates_bwd`). Where neither needs a gradient it is the
+    forward wrapper's call itself."""
+    if not _needs_grad(ob, gates):
+        return moe_combine(ob, eidx, pos_c, keep, gates)
+    return _MoeCombine.apply(ob, eidx, pos_c, keep, gates, src)

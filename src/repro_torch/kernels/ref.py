@@ -531,3 +531,114 @@ def moe_combine_ref(ob: torch.Tensor, eidx: torch.Tensor,
         t = torch.where(keep[:, j, None], rows, 0) * g[:, j, None]
         y = t if y is None else y + t
     return y
+
+
+# ----------------------------------------------------------------------
+# Their backwards, as XLA's CPU program computes the reference's
+# transposes (jax.vjp of the k scatter-adds and of the k gathers)
+# ----------------------------------------------------------------------
+GATE_WINDOW = 32             # XLA's reduce-window of a row sum over d
+
+
+def _plus_zero(t: torch.Tensor) -> torch.Tensor:
+    """t with every -0.0 written as +0.0."""
+    return torch.where(t == 0, torch.zeros_like(t), t)
+
+
+def moe_dispatch_bwd_ref(g: torch.Tensor, eidx: torch.Tensor,
+                         pos_c: torch.Tensor, keep: torch.Tensor
+                         ) -> torch.Tensor:
+    """The dispatch's gradient: the buffer's cotangent g [E,C,d] f32 /
+    bf16 and the routing eidx / pos_c [T,k] int64, keep [T,k] bool ->
+    dx [T,d] in g's dtype. The transpose of each scatter-add is a gather
+    of g at the choice's slot, masked by keep; XLA adds the k gathered
+    rows last choice first, each add in f32 rounded to g's dtype, the
+    first row as it is (no add onto zeros): dx = t_{k-1}, then dx =
+    r(dx + t_j) for j = k-2..0, a dropped choice's t_j +0.0."""
+    E, C, d = g.shape
+    flat = g.reshape(E * C, d)
+    dx = None
+    for j in reversed(range(eidx.shape[1])):
+        t = torch.where(keep[:, j, None], flat[eidx[:, j] * C + pos_c[:, j]],
+                        0)
+        dx = t if dx is None else dx + t
+    return dx
+
+
+def moe_combine_bwd_ref(dy: torch.Tensor, gates: torch.Tensor,
+                        eidx: torch.Tensor, pos_c: torch.Tensor,
+                        keep: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The combine's gradient in ob: dy [T,d] f32 / bf16, gates [T,k]
+    f32 and the routing -> d_ob [E,C,d] in dy's dtype. The transpose of
+    choice j's gather is an f32 scatter-add of where(keep_j, r(dy *
+    r(g_j)), 0) into slot (e_j, p_j) of zeros (r the rounding to dy's
+    dtype; the bf16 product of two bf16 values, taken in f32 and rounded
+    once); XLA adds the k scattered buffers. Each slot holds at most
+    one kept choice, and a dropped one adds +0.0 to slot (e_j, 0), so a
+    slot is its choice's product with -0.0 written as +0.0, and zeros
+    where no choice is kept."""
+    T, d = dy.shape
+    out = torch.zeros((E * C, d), dtype=torch.float32, device=dy.device)
+    g = gates.to(dy.dtype)
+    for j in range(eidx.shape[1]):
+        v = torch.where(keep[:, j, None], dy * g[:, j, None], 0)
+        out.index_add_(0, eidx[:, j] * C + pos_c[:, j], v.float())
+    return out.to(dy.dtype).view(E, C, d)
+
+
+def gate_window_sum(p: torch.Tensor, fma_with=None) -> torch.Tensor:
+    """The sum over the last axis of p [..., d] (f32 or bf16 terms) as
+    XLA's CPU program reduces a row of the combine's gate cotangent, in
+    f32 with a rounding to p's dtype after every add, -> f32 values of
+    p's dtype with -0.0 written as +0.0. Over d > GATE_WINDOW: a
+    reduce-window of GATE_WINDOW terms, the row padded with zeros to a
+    multiple of it (half the pad before the row, the odd one after),
+    each window summed in order from its first term, then the windows
+    summed in order. Over d <= GATE_WINDOW one sum in order; in f32
+    there XLA fuses the products into the sum, fma(a_i, b_i, acc): pass
+    `fma_with = (a, b)` (f32, p's shape), taken in f64 and rounded to
+    f32 at each step (an exact product, one rounding of the add to f64
+    and one to f32)."""
+    rnd = (lambda t: t) if p.dtype == torch.float32 else \
+        (lambda t: t.to(p.dtype).float())
+    d = p.shape[-1]
+
+    def in_order(t):
+        acc = t[..., 0].float()
+        for i in range(1, t.shape[-1]):
+            acc = rnd(acc + t[..., i].float())
+        return acc
+    if d <= GATE_WINDOW:
+        if fma_with is None:
+            return _plus_zero(in_order(p))
+        a, b = (t.double() for t in fma_with)
+        acc = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+        for i in range(d):
+            acc = (acc.double() + a[..., i] * b[..., i]).float()
+        return _plus_zero(acc)
+    n = -(-d // GATE_WINDOW)
+    pad = n * GATE_WINDOW - d
+    w = F.pad(p.float(), (pad // 2, pad - pad // 2)).to(p.dtype)
+    return _plus_zero(in_order(in_order(
+        w.reshape(*p.shape[:-1], n, GATE_WINDOW)).to(p.dtype)))
+
+
+def moe_gates_bwd_ref(dy: torch.Tensor, ob: torch.Tensor, eidx: torch.Tensor,
+                      pos_c: torch.Tensor, keep: torch.Tensor
+                      ) -> torch.Tensor:
+    """The combine's gradient in its gates: dy [T,d] and ob [E,C,d] of
+    one dtype (f32 / bf16) and the routing -> dgates [T,k] f32. The
+    transpose of `where(keep_j, row_j, 0) * r(g_j)` in g_j is the sum
+    over d of r(dy * where(keep_j, row_j, 0)), reduced as
+    :func:`gate_window_sum` (bf16: rounded after every add; f32 at d <=
+    32: fused multiply-adds), then widened to f32; a dropped choice's
+    is +0.0."""
+    E, C, d = ob.shape
+    flat = ob.reshape(E * C, d)
+    rows = torch.stack([torch.where(keep[:, j, None],
+                                    flat[eidx[:, j] * C + pos_c[:, j]], 0)
+                        for j in range(eidx.shape[1])], 1)     # [T,k,d]
+    dyk = dy[:, None, :].expand_as(rows)
+    fma = (dyk.float(), rows.float()) if dy.dtype == torch.float32 and \
+        d <= GATE_WINDOW else None
+    return gate_window_sum(dyk * rows, fma)

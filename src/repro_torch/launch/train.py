@@ -11,16 +11,20 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --reduced --pods 4 --skew 0.5 --compress --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-1b-a400m --reduced --device cpu   # the MoE
+
 The reference's flags; one card holds every pod, so `--data` and
 `--model` (the reference's mesh axes) above 1 raise. `--arch` takes the
-ported ids; the MoE family (`granite-moe-1b-a400m`) serves but does
-not train yet and raises "not yet ported". The others train: the dense
-family (SwiGLU's gate and flash attention with their backward kernels),
-the ssm family
+ported ids, and each trains: the dense family (SwiGLU's gate and flash
+attention with their backward kernels), the ssm family
 (`mamba2-2.7b`: the SSD chunk, SiLU and the gated norm's gate with
-theirs) and the hybrid family (`zamba2-2.7b`: the ssm family's kernels
+theirs), the hybrid family (`zamba2-2.7b`: the ssm family's kernels
 in its Mamba-2 layers and the dense family's in its one shared
-attention + MLP block, whose gradient sums its applications').
+attention + MLP block, whose gradient sums its applications') and the
+MoE family (`granite-moe-1b-a400m`: the routing slots, the dispatch
+and the combine with their backward kernels, the experts' gate, flash
+attention).
 """
 import argparse
 from typing import Optional, Sequence
@@ -30,7 +34,7 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.core.predictor import BwPredictor
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import check_trains
+from repro_torch.models.transformer import check_family
 from repro_torch.train.loop import LoopConfig, Trainer
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.wan.dataset import train_default_forest
@@ -64,7 +68,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    check_trains(cfg)
+    check_family(cfg)
     dev = resolve_device(args.device)
     dcfg = DataConfig(batch=args.batch, seq=args.seq, vocab=cfg.vocab,
                       n_pods=max(args.pods, 1), skew=args.skew,

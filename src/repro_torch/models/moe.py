@@ -1,19 +1,29 @@
 """Mixture-of-Experts: token-choice top-k routing with capacity-bounded
 dispatch, shared experts (DeepSeek-style), the load-balance aux loss
-and the per-expert load that feeds WANify's skew weights (w_s).
+and the per-expert load (a step metric).
 
 Port of `repro/models/moe.py`. Tokens are viewed as [G, T_g, d] groups
-(G the data-parallel width where it divides the tokens; the serve runs
-G = 1). The reference's one-hot cumulative count of capacity slots,
-its k sequential scatters and its k sequential gathers are one kernel
-each on the card (:func:`repro_torch.kernels.ops.moe_slots`, which also
-gives each slot's source token, so that the dispatch
-:func:`~repro_torch.kernels.ops.moe_dispatch` is a gather by it, and
-:func:`~repro_torch.kernels.ops.moe_combine`; csrc/moe.cu; their plain
-versions, the reference's count and loops, on the host), the
-expert gate is the SwiGLU gate's kernel (`ops.silu_gate`'s value), and
-the three expert products are batched matrix products over the experts
+(G the data-parallel width where it divides the tokens; the serve and
+the Trainer run G = 1). The reference's one-hot cumulative count of
+capacity slots, its k sequential scatters and its k sequential gathers
+are one kernel each on the card (:func:`repro_torch.kernels.ops.
+moe_slots`, which also gives each slot's source token, so that the
+dispatch :func:`~repro_torch.kernels.ops.moe_dispatch` is a gather by
+it, and :func:`~repro_torch.kernels.ops.moe_combine`; csrc/moe.cu; their
+plain versions, the reference's count and loops, on the host), the
+expert gate is the SwiGLU gate's kernel (`ops.swiglu_gate`), and the
+three expert products are batched matrix products over the experts
 (the reference leaves them to XLA, outside any kernel).
+
+Training differentiates the layer as the reference's `jax.grad` does:
+the dispatch and the combine are `ops.moe_dispatch_ad` /
+`ops.moe_combine_ad`, whose backwards are kernels of their own (the
+dispatch's: the slots' cotangents summed per token; the combine's: its
+output's cotangent gathered into the slots by their sources, and the
+gates' row products), the gate's backward is `silu_gate_bwd`, and the
+router's product, the softmax, the stable sort's top k, the
+renormalisation and the aux loss's mean probabilities go through
+autograd; the expert load has no gradient.
 """
 from __future__ import annotations
 
@@ -97,11 +107,11 @@ def route(logits: torch.Tensor, k: int
 def experts(buf: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The experts' SwiGLU on their slots: buf [E, C, d] -> [E, C, d],
     the three products batched over the experts and the gate
-    `silu(buf @ w1) * (buf @ w3)` as `ops.silu_gate`'s value."""
+    `silu(buf @ w1) * (buf @ w3)` as `ops.swiglu_gate` (`silu_gate`'s
+    value; its gradient `silu_gate_bwd`)."""
     h1 = torch.bmm(buf, p["w1"])                               # [E,C,f]
     h3 = torch.bmm(buf, p["w3"])
-    h, _ = ops.silu_gate(h3, h1, with_prod=False)
-    return torch.bmm(h, p["w2"])
+    return torch.bmm(ops.swiglu_gate(h3, h1), p["w2"])
 
 
 def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -120,7 +130,10 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     combine; the shared experts added after. `p` holds a layer's
     compute parameters (`MoeMlp`'s names). Without `with_stats`
     (the serve: the reference's decode drops them and XLA never computes
-    them) aux and load are None."""
+    them) aux and load are None. Differentiable in x and `p` (the
+    dispatch and combine through their `_ad` ops); under
+    `torch.inference_mode` or `no_grad` those call the forward kernels
+    directly."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
@@ -140,9 +153,10 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     ys = []
     for g in range(G):
-        buf = ops.moe_dispatch(xg[g], src[g])
+        buf = ops.moe_dispatch_ad(xg[g], src[g], eidx[g], pos_c[g], keep[g])
         ob = experts(buf, p)
-        ys.append(ops.moe_combine(ob, eidx[g], pos_c[g], keep[g], gates[g]))
+        ys.append(ops.moe_combine_ad(ob, eidx[g], pos_c[g], keep[g],
+                                     gates[g], src[g]))
     y = ys[0][None] if G == 1 else torch.stack(ys)
     if m.n_shared_experts > 0:
         y = y + swiglu(xg, p["ws1"], p["ws3"], p["ws2"])

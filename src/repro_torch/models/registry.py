@@ -1,8 +1,7 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs: `ssm`, and `dense` and `hybrid` without MoE or MLA, which
-serve and train, and `moe` without MLA or leading dense layers, which
-serves (training it raises "not yet ported"); the others raise "not yet
-ported".
+port runs, each of which serves and trains: `ssm`, `dense` and `hybrid`
+without MoE or MLA, and `moe` without MLA or leading dense layers; the
+others raise "not yet ported".
 
   build_model(cfg, generator, device)          -> MambaLM | DenseLM |
                                                   HybridLM | MoeLM
@@ -53,10 +52,11 @@ init_params = build_model
 def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     """(params, batch) -> (loss, {ce, aux, expert_load}):
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
-    "full" or "dots"). The `ssm`, `dense` and `hybrid` families train
-    (the hybrid's shared block's gradient summed over its applications);
-    the others, the `moe` family included, raise "not yet ported"."""
-    transformer.check_trains(cfg)
+    "full" or "dots"). The `ssm`, `dense`, `hybrid` and `moe` families
+    train (the hybrid's shared block's gradient summed over its
+    applications; the MoE's loss carries AUX_LOSS_COEF x its aux loss);
+    the others raise "not yet ported"."""
+    transformer.check_family(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")

@@ -9,8 +9,7 @@ Port of the `ssm`, `dense`, `hybrid` and `moe` paths of
 `repro/models/transformer.py`. The reference stacks the layers' leaves
 ([L, ...]) and scans them; here `MambaLM`, `DenseLM`, `HybridLM` and
 `MoeLM` hold one module per layer. MLA and MoE's leading dense layers
-(DeepSeek's prologue) raise "not yet ported"; the `moe` family serves
-and does not train yet (`check_trains`).
+(DeepSeek's prologue) raise "not yet ported" (`check_family`).
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
@@ -27,8 +26,7 @@ is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
 promotes it, and `D` is upcast to f32 before it scales xh, as the
 reference upcasts it (`ssm.ssm_forward`).
 
-The `ssm`, `dense` and `hybrid` families train (`lm_loss`) on a
-per-layer parameter tree:
+All four families train (`lm_loss`) on a per-layer parameter tree:
 the module's own parameters (`param_tree(model)`), or the views of the
 reference's stacked layout that the train step holds (`stack_layers` /
 `layer_views`, also the checkpoints' layout). The hybrid's shared block
@@ -36,6 +34,9 @@ is one unstacked subtree, `shared_attn`, in both; its one cast tensor
 per leaf feeds every application, so autograd sums the applications'
 gradients there, in the compute dtype, last application first, as the
 reference's scan transpose sums the cotangent of the closed-over block.
+The `moe` family's layers return their aux loss and expert load beside
+the hidden state in training (`MoeBlock.train_run`), which `lm_backbone` sums
+over the layers as the reference's scan carry does.
 """
 from __future__ import annotations
 
@@ -86,17 +87,6 @@ def check_family(cfg: ModelConfig) -> None:
         f"ported; the port runs the 'ssm' family, the "
         f"'dense' and 'hybrid' families without MoE or MLA, and MoE "
         f"without MLA or leading dense layers")
-
-
-def check_trains(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not train yet: `check_family`'s,
-    and MoE (served, not trained: its aux loss, expert load and the
-    dispatch / combine kernels' backwards come with its training)."""
-    check_family(cfg)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"training the MoE family ({cfg.arch_id}) is not yet ported; "
-            f"it serves (registry.prefill_fn / decode_fn)")
 
 
 def shared_flags(cfg: ModelConfig) -> List[bool]:
@@ -174,20 +164,27 @@ def attn_cache_len(cfg: ModelConfig, S_max: int) -> int:
     return min(S_max, cfg.sliding_window) if cfg.sliding_window else S_max
 
 
-def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
-         ) -> torch.Tensor:
-    """The residual sum x + a (a the attention's output), then ln2 and
-    the MLP: the SwiGLU `mlp`, or the MoE layer where the block holds
-    `moe` (as the reference's `_attn_mlp_block` picks; the serve drops
-    its aux loss and load, as the reference's decode does). ln2's
-    variance is taken of the f32 sum before it is rounded to the
-    compute dtype: XLA's compiled CPU programs of the reference's
-    block, `lm_prefill` and `lm_decode` all drop that f32 -> bf16 -> f32
-    pair (the square reads the f32 add; the value path the rounded
-    one), the hybrid's shared block inside its `lax.cond` too."""
+def _residual_ln2(blk: Dict, x: torch.Tensor, a: torch.Tensor,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + a, ln2 of it): the residual sum (a the attention's output)
+    and the MLP's input. ln2's variance is taken of the f32 sum before
+    it is rounded to the compute dtype: XLA's compiled CPU programs of
+    the reference's block, `lm_prefill` and `lm_decode` all drop that
+    f32 -> bf16 -> f32 pair (the square reads the f32 add; the value
+    path the rounded one), the hybrid's shared block inside its
+    `lax.cond` too."""
     s = x.float() + a                   # the add widens a bf16 a exactly
     x = s.to(x.dtype)
-    h = rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
+    return x, rms_norm(x, blk["ln2"], cfg.norm_eps, stats=s)
+
+
+def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
+         ) -> torch.Tensor:
+    """The residual sum x + a, then ln2 and the MLP (`_residual_ln2`):
+    the SwiGLU `mlp`, or the MoE layer where the block holds `moe` (as
+    the reference's `_attn_mlp_block` picks; the serve drops its aux
+    loss and load, as the reference's decode does)."""
+    x, h = _residual_ln2(blk, x, a, cfg)
     if "moe" in blk:
         return x + moe_mod.moe_forward(blk["moe"], h, cfg,
                                        with_stats=False)[0]
@@ -264,8 +261,9 @@ class DenseBlock(nn.Module):
 
 class MoeBlock(DenseBlock):
     """One layer of the `moe` family: `ln1`, the attention `attn`, `ln2`
-    and the MoE layer `moe` in the MLP's place (`_mlp` runs it); its
-    static functions and cache are `DenseBlock`'s."""
+    and the MoE layer `moe` in the MLP's place (`_mlp` runs it without
+    its stats); its run, prefill, decode and cache are `DenseBlock`'s.
+    `train_run` also returns the layer's aux loss and expert load."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
@@ -281,6 +279,18 @@ class MoeBlock(DenseBlock):
         self.ln2.fill_(1.0)
         self.attn.reset_parameters(generator)
         self.moe.reset_parameters(generator)
+
+    @staticmethod
+    def train_run(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(x, aux, load [E]): the layer as the reference's
+        `_attn_mlp_block` computes it, `moe_forward` with its stats."""
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        x, h = _residual_ln2(blk, x, att.gqa_forward(blk["attn"], h, cfg,
+                                                     positions), cfg)
+        y, aux, load = moe_mod.moe_forward(blk["moe"], h, cfg)
+        return x + y, aux, load
 
 
 def _nest(named) -> Dict[str, Any]:
@@ -620,14 +630,30 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
                 remat: str = "full"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Embedded input -> final hidden, each layer under `remat`. Returns
-    (h, aux_loss, load[E]): no ported family has an aux loss, and the
-    load is zeros(max(n_experts, 1)). The hybrid's shared block
+    (h, aux_loss, load[E]): the MoE layers' aux losses and expert loads
+    summed in f32 in layer order from zeros, as the reference's scan
+    carries them (zeros of [max(n_experts, 1)] for the other
+    families; the MoE's layers run `MoeBlock.train_run`). Under "full"
+    a MoE layer's routing is recomputed in the backward with the rest
+    of it, as `jax.checkpoint` recomputes it;
+    under "dots" the router's product (an `mm`) is saved and the
+    experts' `bmm`s are recomputed. The hybrid's shared block
     (`pc["shared_attn"]`) runs before each flagged layer inside that
     layer's remat region, as the reference's scan body holds both: under
     "full" its application is recomputed in the backward, under "dots"
     its products are saved. Its parameters enter each region as an
     argument, so their gradients meet at the one cast tensor."""
-    check_trains(cfg)
+    check_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
+                       device=x.device)
+    if cfg.is_moe:
+        layer = maybe_remat(lambda blk, h: MoeBlock.train_run(
+            blk, h, positions, cfg), remat)
+        for blk in pc["blocks"]:
+            x, a, ld = layer(blk, x)
+            aux, load = aux + a, load + ld
+        return rms_norm(x, pc["final_norm"], cfg.norm_eps), aux, load
     run = model_class(cfg).block_cls.run
 
     def plain(blk, h):
@@ -640,9 +666,6 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
     layer, with_shared = maybe_remat(plain, remat), maybe_remat(shared, remat)
     for blk, flag in zip(pc["blocks"], shared_flags(cfg)):
         x = with_shared(blk, pc["shared_attn"], x) if flag else layer(blk, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
-                       device=x.device)
     return rms_norm(x, pc["final_norm"], cfg.norm_eps), aux, load
 
 
@@ -653,9 +676,10 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     aux. `params` is a per-layer tree (:func:`param_tree`, or
     :func:`layer_views`) in the parameter dtype; it is cast to the
     compute dtype through autograd. batch: tokens and targets [B,S]
-    integer tensors. Returns (loss, {ce, aux, expert_load}). Raises
-    "not yet ported" for the MoE family (`check_trains`)."""
-    check_trains(cfg)
+    integer tensors. Returns (loss, {ce, aux, expert_load}); aux and
+    expert_load are the MoE layers' sums (zeros for the other
+    families)."""
+    check_family(cfg)
     pc = cast_params(params, torch_dtype(cfg.dtype))
     x = pc["embed"][batch["tokens"]]
     positions = torch.arange(x.shape[1], device=x.device)

@@ -25,7 +25,7 @@ from repro_torch.fleet import (BatchedRfPredictor, FleetController, JobSpec,
                                default_fleet_forest)
 from repro_torch.kernels import ops
 from repro_torch.lifecycle import LifecycleManager
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.wan.simulator import WanSimulator
 
@@ -383,15 +383,19 @@ def test_model_side_gates_not_yet_ported():
     logits, cache = registry.decode_fn(hybrid)(model, cache, toks[:, :1], 4)
     assert logits.shape == (1, hybrid.vocab)
     assert len(cache["blocks"]) == 4 and len(cache["shared_attn"]) == 2
-    # the MoE family without a prologue builds, prefills and decodes,
-    # and does not train
+    # the MoE family without a prologue builds, prefills, decodes and
+    # trains; with one (and MLA) it still raises at the loss
     moe = reduced(get_config("granite-moe-1b-a400m"))
     model = registry.build_model(moe, torch.Generator(), device="cpu")
     _, cache = registry.prefill_fn(moe, 8)(model, toks)
     logits, _ = registry.decode_fn(moe)(model, cache, toks[:, :1], 4)
     assert logits.shape == (1, moe.vocab)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.loss_fn(moe)
+    loss, metrics = registry.loss_fn(moe)(
+        transformer.param_tree(model), {"tokens": toks, "targets": toks})
+    assert torch.isfinite(loss) and metrics["expert_load"].shape == (4,)
+    for cfg in (_moe_cfg(), mla):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.loss_fn(cfg)
 
 
 @pytest.mark.parametrize("module", [

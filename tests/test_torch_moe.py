@@ -46,6 +46,7 @@ import torch
 
 from test_torch_dense import (_f32, _logging_reference, _LoggingEngine,
                               _requests, _tokens)
+from repro_torch.compat import tree_map
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.kernels import ops
@@ -959,19 +960,27 @@ def test_serve_cli_runs_moe_on_cpu(capsys):
 
 
 def test_training_the_moe_is_not_yet_ported(built):
-    """The MoE family serves; its training raises "not yet ported" at
-    `registry.loss_fn`, `transformer.lm_loss` and the train CLI, as do
-    MLA and MoE's leading dense layers everywhere."""
+    """The MoE family serves and trains: `registry.loss_fn`,
+    `transformer.lm_loss` (a finite loss with its aux loss and expert
+    load, gradients in the router and the experts) and the train CLI
+    take it; MLA and MoE's leading dense layers still raise "not yet
+    ported" everywhere (`tests/test_torch_moe_train.py` holds the
+    training against the reference)."""
     cfg, model, _, _ = built("float32")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
              "targets": torch.ones((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer.lm_loss(transformer.param_tree(model), batch, cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                        "--steps", "1"])
+    tree = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                    transformer.param_tree(model))
+    loss, metrics = registry.loss_fn(cfg)(tree, batch)
+    loss.backward()
+    assert torch.isfinite(loss) and float(metrics["aux"].detach()) > 0
+    assert abs(float(metrics["expert_load"].sum()) - cfg.n_layers) < 1e-6
+    assert tree["blocks"][0]["moe"]["router"].grad.abs().sum() > 0
+    assert tree["blocks"][1]["moe"]["w2"].grad.abs().sum() > 0
+    loss2, _ = transformer.lm_loss(transformer.param_tree(model), batch, cfg)
+    assert float(loss2) == float(loss)
+    train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                    "--steps", "1", "--batch", "2", "--seq", "8"])
     prologue = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                    first_dense_layers=1))
     for bad in (prologue, reduced(get_config("llama3-8b")).replace(
@@ -980,6 +989,8 @@ def test_training_the_moe_is_not_yet_ported(built):
             registry.build_model(bad, torch.Generator(), device="cpu")
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.prefill_fn(bad)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.loss_fn(bad)
 
 
 def test_engine_on_cpu_counts_no_launch(built):

@@ -58,7 +58,7 @@ import torch
 
 from repro_torch.compat import tree_leaves, tree_map
 from repro_torch.configs import get_config
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import MLAConfig, reduced
 from repro_torch.core.predictor import BwPredictor
 from repro_torch.data import pipeline
 from repro_torch.kernels import ops
@@ -561,19 +561,24 @@ def test_pods_step_broadcast_and_strip():
 
 
 def test_loss_fn_gates():
-    """The three ported families train, the hybrid `zamba2-2.7b`
-    included; an MoE config built from a ported one raises "not yet
-    ported", and an unknown remat raises for every family."""
+    """The four ported families train, the hybrid `zamba2-2.7b` and an
+    MoE config built from a ported one included; MoE with a leading
+    dense layer and MLA raise "not yet ported", and an unknown remat
+    raises for every family."""
     ssm = reduced(get_config(SSM_ARCH))
     dense = reduced(get_config("llama3-8b"))
     hybrid = reduced(get_config("zamba2-2.7b"))
-    for cfg in (ssm, dense, hybrid):
-        assert callable(registry.loss_fn(cfg, remat="dots"))
     moe = dense.replace(moe=dataclasses.replace(dense.moe, n_experts=4,
                                                 top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.loss_fn(moe)
-    for cfg in (ssm, dense, hybrid):
+    for cfg in (ssm, dense, hybrid, moe):
+        assert callable(registry.loss_fn(cfg, remat="dots"))
+    prologue = moe.replace(moe=dataclasses.replace(moe.moe,
+                                                   first_dense_layers=1))
+    mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
+    for cfg in (prologue, mla):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            registry.loss_fn(cfg)
+    for cfg in (ssm, dense, hybrid, moe):
         with pytest.raises(ValueError, match="unknown remat"):
             registry.loss_fn(cfg, remat="some")
 
