@@ -336,7 +336,10 @@ Every phase is fatal: a failure exits non-zero before the result line.
    0's inputs of both prefills and a decode step, the last two in bf16
    and in f32, at half group 1's capacity (choices dropped; C = 402),
    at T = 2,563 (odd: 20,504 choices, no multiple of 32) and with a row
-   of -0.0 (the slots kernel's edges are the card tests'); the
+   of -0.0 (the slots kernel's edges are the card tests'); the combine
+   also at its persistent grid's edges (`combine_edges`: one token, one
+   more than its groups hold, k = 32, d = 2,048, ob one element past
+   16-byte alignment); the
    dispatch's plain gather against the reference's k scatter-adds at
    group 1; each timed at group 1's
    prefill and a decode step (a CUDA graph of 20 calls) beside its
@@ -481,8 +484,11 @@ Every phase is fatal: a failure exits non-zero before the result line.
    1,284, d = 1,024): the three forward kernels equal to their plain
    versions and timed (`moe_combine` beside `embedding_bag`); the three
    backward kernels bit-equal to their plain versions as captured
-   (bf16), in f32, at half the capacity (drops), at T = 4,095 and with
-   rows of -0.0, two calls equal, each timed beside its bound, its
+   (bf16), in f32, at half the capacity (drops), at T = 4,095, with
+   rows of -0.0 and at the persistent grids' edges (one token, one
+   token past what gates_bwd's warps hold, k = 32, d = 2,048, storage
+   one element past alignment), two calls equal, each timed beside its
+   bound, its
    plain version and `embedding_bag` where it computes the same
    function (not for the gates' backward); one `make_train_step` step
    cut to 2 layers, f32, B=1, S=512, on the card and on the host within
@@ -539,6 +545,7 @@ from repro_torch.fleet import (BatchedRfPredictor, FleetController,  # noqa: E40
                                fleet_scenario_names, get_fleet_scenario,
                                make_schedule)
 from repro_torch.kernels import build, ops, ssd_scan  # noqa: E402
+from repro_torch.kernels import moe as moe_kernels  # noqa: E402
 from repro_torch.kernels import rf_predict as rf_kernel  # noqa: E402
 from repro_torch.kernels import waterfill as wfk  # noqa: E402
 from repro_torch.kernels.quantize import qmax  # noqa: E402
@@ -4420,8 +4427,9 @@ def moe_cases(caps) -> list:
     as served) and in f32; a dropping case (group 1's routing at half
     its capacity: its slots recounted by the plain version, ob cut to
     them); an odd T (group 1's less its last token: 2,563, its slots
-    recounted); and x with a row of -0.0 (the slots kernel's edges, E =
-    160, k = 32, one expert and many groups, are the card tests')."""
+    recounted); x with a row of -0.0 (the slots kernel's edges, E =
+    160, k = 32, one expert and many groups, are the card tests'); and
+    the combine's persistent grid's edges (`combine_edges`)."""
     out = []
     for step, cap in zip(("prefill1", "prefill2", "decode"), caps):
         for name in MOE_KERNELS:
@@ -4449,7 +4457,49 @@ def moe_cases(caps) -> list:
     xz = x.clone()
     xz[1] = -0.0
     out.append(("negative zeros", "moe_dispatch", (xz, src)))
+    out += [(label, "moe_combine", args) for label, args in
+            combine_edges(ob, eidx, pos_c, keep, gates)]
     return out
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t on storage one element past 16-byte alignment (the
+    kernels' element paths)."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = store[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def wide_routing(T: int, E: int, C: int, dev, seed: int) -> tuple:
+    """eidx, pos_c, keep [T, E] of T tokens that each choose all E
+    experts (k = E, the kernels' widest at E = 32) in a seeded order,
+    the slots counted at capacity C."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    eidx = torch.argsort(torch.rand(T, E, generator=g), dim=1).to(dev)
+    pos_c, keep, _ = moe_slots_ref(eidx[None], E, C)
+    return eidx, pos_c[0], keep[0]
+
+
+def combine_edges(ob, eidx, pos_c, keep, gates) -> list:
+    """(label, args) of moe_combine's persistent grid's edges on group
+    1's layer-0 inputs: one token, one token more than the grid's groups
+    hold, every token choosing all 32 experts (k = 32, 300 tokens), rows
+    of 2,048 (ob and its mirror side by side) and ob one element past
+    16-byte alignment."""
+    E, C, d = ob.shape
+    T = min(moe_kernels.combine_workers(d, ob.dtype) + 1 if ob.is_cuda
+            else 2, eidx.shape[0])
+    e32, p32, k32 = wide_routing(300, E, C, ob.device, seed=32)
+    g32 = torch.rand(300, E, generator=torch.Generator(
+        device="cpu").manual_seed(33)).to(ob.device)
+    return [("one token", (ob, eidx[:1], pos_c[:1], keep[:1], gates[:1])),
+            (f"T = groups + 1 = {T}",
+             (ob, eidx[:T], pos_c[:T], keep[:T], gates[:T])),
+            (f"k = {E}", (ob, e32, p32, k32, g32)),
+            (f"d = {2 * d}", (torch.cat([ob, ob.flip(-1)], -1), eidx, pos_c,
+                           keep, gates)),
+            ("unaligned", (unaligned(ob), eidx, pos_c, keep, gates))]
 
 
 def moe_bound(name: str, args):
@@ -6047,8 +6097,11 @@ def moe_bwd_cases(calls: dict) -> list:
     0's inputs of a train step (`calls`: each kernel's args): as
     captured (bf16), in f32, with drops (the routing's slots recounted
     at half the capacity, the slot tensors cut to it), a ragged T (the
-    last token left out, its slots recounted) and rows of -0.0 in the
-    cotangents."""
+    last token left out, its slots recounted), rows of -0.0 in the
+    cotangents and the persistent grids' edges (one token; one token
+    past what gates_bwd's warps hold; 512 tokens choosing all 32
+    experts, k = 32; rows of 2,048, each row beside its mirror; the
+    three row tensors one element past 16-byte alignment)."""
     g, eidx, pos_c, keep = calls["moe_dispatch_bwd"]
     dy, gates, src = (calls["moe_combine_bwd"][i] for i in (0, 1, 5))
     ob = calls["moe_gates_bwd"][1]
@@ -6074,6 +6127,28 @@ def moe_bwd_cases(calls: dict) -> list:
     gz[:, 0] = -0.0
     dz[1] = -0.0
     out += of("negative zeros", eidx, pos_c, keep, src, gz, ob, dz, gates)
+    # the persistent grids' edges: one token, one token past what
+    # gates_bwd's warps hold, k = 32 (512 tokens choosing all 32
+    # experts), rows of 2,048 and storage one element past alignment
+    warps = moe_kernels.gates_bwd_workers(ob.shape[2], ob.dtype) \
+        if ob.is_cuda else eidx.shape[1]
+    for T in (1, min(warps // eidx.shape[1] + 1, eidx.shape[0])):
+        pT, kT, sT = moe_slots_ref(eidx[None, :T].contiguous(), E, C)
+        out += of("one token" if T == 1 else f"T = {T} (warps + k)",
+                  eidx[:T].contiguous(), pT[0], kT[0], sT[0], g, ob,
+                  dy[:T].contiguous(), gates[:T].contiguous())
+    e32, p32, k32 = wide_routing(512, E, C, ob.device, seed=32)
+    s32 = moe_slots_ref(e32[None], E, C)[2][0]
+    d32 = torch.randn(512, dy.shape[1], generator=torch.Generator(
+        device="cpu").manual_seed(34)).to(dy.device, dy.dtype)
+    out += of(f"k = {E}", e32, p32, k32, s32, g, ob, d32,
+              torch.rand(512, E, generator=torch.Generator(
+                  device="cpu").manual_seed(33)).to(gates.device))
+    out += of(f"d = {2 * ob.shape[2]}", eidx, pos_c, keep, src,
+              torch.cat([g, g.flip(-1)], -1), torch.cat([ob, ob.flip(-1)], -1),
+              torch.cat([dy, dy.flip(-1)], -1), gates)
+    out += of("unaligned", eidx, pos_c, keep, src, unaligned(g),
+              unaligned(ob), unaligned(dy), gates)
     return out
 
 

@@ -72,11 +72,25 @@
 //    FMA (the intrinsics below round each op): XLA's CPU program
 //    contracts the f32 form (fma(w_0, g_0, t_1), then fma(w_j, g_j, y)),
 //    which the plain version, written in tensor ops, cannot follow, so
-//    the f32 form agrees with the reference within an ulp. A block
-//    takes a token: its first k threads read the token's (expert, slot,
-//    keep, gate) into shared memory, then each thread takes a 16-byte
-//    column of the row (d = 1,024 in bf16: one each), issuing the k
-//    loads of its column before it adds.
+//    the f32 form agrees with the reference within an ulp. bf16 takes
+//    the card's bf16 ops, a pair of elements an op (bf2_mul, bf2_add:
+//    the same bits, see there). A persistent grid of warps: up to four
+//    warps take a token, a lane a 16-byte column (d = 1,024 in bf16: one
+//    each, 16 KB of a token's 8 rows in flight), and the groups of the
+//    grid (as many as the card holds resident) stride over the tokens.
+//    Lanes 0..k-1 load a token's keep, eidx, pos_c and gate together
+//    (one round trip, where the first design's block staged them in
+//    shared memory behind a barrier and took three before its rows),
+//    the next token's while this one's rows are in flight, and pass the
+//    slot rows and gates to the warp by shuffles; each lane issues the
+//    k loads of its column before it adds. ptxas -v: 80 registers (bf16,
+//    16-byte), 84 (f32), 72 / 76 (element path), no spill. On an H100
+//    80GB HBM3 at 700 W (scripts/moe_combine_ab.py, seeded routing):
+//    0.0147 ms at group 1's prefill (the first design 0.0252), 0.0028 a
+//    decode step (0.0038), 0.0285 at a train step's layer 0 (0.0410);
+//    streaming stores of y measured 5% faster at the prefill and 1%
+//    slower in training (that script against this source with __stcs
+//    stores), so the stores are plain.
 //
 //
 // The backwards, as XLA's CPU program computes `jax.vjp` of the
@@ -87,7 +101,7 @@
 //    of the buffer's cotangent g. XLA adds the k gathered rows last
 //    choice first (dx = t_{k-1}, then r(dx + t_j) for j = k-2..0, a
 //    dropped choice's row +0.0), not in the combine's order, so it is
-//    the combine's block-a-token body (gather_sum) walking the choices
+//    the combine's first, block-a-token body walking the choices
 //    backwards without gates.
 //  * moe_combine_bwd_kernel: d_ob[s, :] for slot s = (e, c) is token t =
 //    src[s]'s cotangent dy[t, :] times the gate of t's choice holding s,
@@ -102,11 +116,22 @@
 //    multiple of 32, half the pad in front), then the windows in order,
 //    every add rounded to the dtype; over d <= 32 one sum in order (f32:
 //    fused multiply-adds, taken in f64 as the plain version takes
-//    them). A block a token, a warp a choice, dy's row staged in shared
-//    memory once; over 16-byte rows a window spans 32 / W lanes that
-//    pass its partial sum on by shuffles, so the loads coalesce. A
-//    second kernel rather than a role of the combine's: the two walk
-//    different layouts (slots, tokens) with different blocks.
+//    them). bf16 takes the card's bf16 ops (the same bits). A
+//    persistent grid of warps, a warp a choice: the choice's routing
+//    loaded the round before, every 16-byte load of its window of the
+//    kept row and of dy's row issued before the first product, lane l
+//    summing window l in registers (d = 1,024: one window a lane), the
+//    32 window sums then gathered by shuffles and chained in order. dy's
+//    row is read by the token's kept choices' warps, neighbours in a
+//    block, from L1 or L2 after the first; no shared memory, so d is
+//    not capped by it (kMaxGatesD keeps the indices in an int). ptxas
+//    -v: 64 registers (bf16), 63 (f32), 127 (element path), no spill.
+//    On an H100 80GB HBM3 at 700 W (scripts/moe_combine_ab.py): 0.0291
+//    ms at a train step's layer 0, the first design (a block a token,
+//    dy staged behind a barrier, window sums passed lane to lane and
+//    chained by one lane from shared memory) 0.0569. A second kernel
+//    rather than a role of the combine's: the two walk different layouts
+//    (slots, tokens) with different blocks.
 //
 // At the training shape (T = 4,096, k = 8, E = 32, C = 1,284, d =
 // 1,024, bf16) d_ob writes the 84.1 MB buffer and reads dy (8.4 MB):
@@ -139,7 +164,12 @@ constexpr int kExpertBits = 9;             // bits of expert + 1 (up to 256)
 constexpr int kRankBits = kExpertBits;     // a packed step: rank << 9 | expert + 1
 constexpr int kDispatchThreads = 256;
 constexpr int kDispatchVecs = 4;           // 16-byte loads a lane before a store
-constexpr int kCombineThreads = 128;       // a block a token, a thread a column
+constexpr int kDispatchBwdThreads = 128;   // a block a token
+constexpr int kWorkerWarps = 4;            // the combine's block: 4 warps
+constexpr int kWorkerThreads = 32 * kWorkerWarps;
+constexpr int kGatesWarps = 8;             // gates_bwd's block: a warp a choice
+constexpr int kGatesThreads = 32 * kGatesWarps;
+constexpr int kMaxGatesD = 1 << 20;        // gates_bwd's row (int indices)
 constexpr int kMaxK = 32;                  // choices a token
 constexpr int kUnroll = 8;                 // loads issued before the adds
 
@@ -366,36 +396,243 @@ __device__ __forceinline__ float add_term(float acc, float term, bool first) {
   return first ? term : to_f(from_f<T>(__fadd_rn(acc, term)));
 }
 
-// y[t, :] = the sum of token t's k rows of `rows` (a block a token, a
-// thread a W-wide column): the combine's gated sum, choice 0 first
-// (kBwd false), or the dispatch's backward (kBwd true): the rows
-// ungated, summed last choice first, as XLA sums the reference's
-// transposed scatter-adds. A dropped choice's row reads +0.0.
-template <typename T, int W, bool kBwd>
-__device__ __forceinline__ void gather_sum(const T* __restrict__ rows,
-                                           const long long* __restrict__ eidx,
-                                           const long long* __restrict__ pos,
-                                           const bool* __restrict__ keep,
-                                           const float* __restrict__ gates,
-                                           T* __restrict__ y, int k,
-                                           long long C, long long d) {
+// bf16 ops on the card's bf16 units (sm_90), one rounding to bf16 each.
+// On operands that are bf16 values they give the bits of the f32 op
+// rounded to bf16, which is what the reference's bf16 arithmetic is: a
+// product of two 8-bit significands is exact in f32, and a sum rounded
+// to f32 (24 bits, at least 2 * 8 + 2) and then to bf16 rounds as the
+// exact sum rounded once; zeros keep the same signs. Done in f32, each op
+// costs a conversion to bf16 (F2F, 16 a clock an SM): at group 1's
+// prefill the combine's 42 million take ~11 us of an H100's 132 SMs,
+// against a byte bound of ~9-13 us.
+__device__ __forceinline__ unsigned bf2_mul(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_add(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned short bf_mul(unsigned short a,
+                                                 unsigned short b) {
+  unsigned short d;
+  asm("mul.rn.bf16 %0, %1, %2;" : "=h"(d) : "h"(a), "h"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned short bf_add(unsigned short a,
+                                                 unsigned short b) {
+  unsigned short d;
+  asm("add.rn.bf16 %0, %1, %2;" : "=h"(d) : "h"(a), "h"(b));
+  return d;
+}
+
+// One element of T as the sums carry it, and its rounded ops: f32 as is
+// (the intrinsics round each op: no contraction into an FMA); bf16 as its
+// bits, through the bf16 ops above.
+template <typename T>
+struct Num;
+template <>
+struct Num<float> {
+  using S = float;
+  static __device__ __forceinline__ S of(float v) { return v; }
+  static __device__ __forceinline__ S mul(S a, S b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ S add(S a, S b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float f(S a) { return a; }
+  static __device__ __forceinline__ float to(S a) { return a; }
+  // a gate as a word (gates.astype(x.dtype)): its f32 bits; and back
+  static __device__ __forceinline__ unsigned word(float g) {
+    return __float_as_uint(g);
+  }
+  static __device__ __forceinline__ S gate(unsigned w) {
+    return __uint_as_float(w);
+  }
+};
+template <>
+struct Num<__nv_bfloat16> {
+  using S = unsigned short;
+  static __device__ __forceinline__ S of(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
+  }
+  static __device__ __forceinline__ S mul(S a, S b) { return bf_mul(a, b); }
+  static __device__ __forceinline__ S add(S a, S b) { return bf_add(a, b); }
+  static __device__ __forceinline__ float f(S a) {
+    return __bfloat162float(__ushort_as_bfloat16(a));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 to(S a) {
+    return __ushort_as_bfloat16(a);
+  }
+  // a gate as a word (gates.astype(x.dtype)): its bf16 in both halves;
+  // and back
+  static __device__ __forceinline__ unsigned word(float g) {
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(g));
+    return h | h << 16;
+  }
+  static __device__ __forceinline__ S gate(unsigned w) {
+    return static_cast<S>(w & 0xffffu);
+  }
+};
+
+// lane q's s (a 16-bit value carried in a 32-bit shuffle)
+template <typename S>
+__device__ __forceinline__ S shfl(S s, int q) {
+  if constexpr (sizeof(S) == 2)
+    return static_cast<S>(__shfl_sync(
+        0xffffffffu, static_cast<unsigned>(s), q));
+  else
+    return __shfl_sync(0xffffffffu, s, q);
+}
+
+// two bf16 as the word of a bf16x2 (lo the first)
+__device__ __forceinline__ unsigned pair_of(__nv_bfloat16 lo,
+                                            __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+// acc = v * g (first) or acc + v * g, element by element, each op rounded
+// to T; g is the gate's word (Num<T>::word). bf16 packs go a pair of
+// elements an op.
+template <typename T, int W>
+__device__ __forceinline__ void gated_step(Pack<T, W>& acc,
+                                           const Pack<T, W>& v, unsigned g,
+                                           bool first) {
+  if constexpr (sizeof(T) == 2 && W % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 2) {
+      const unsigned t = bf2_mul(pair_of(v.v[i], v.v[i + 1]), g);
+      const unsigned a =
+          first ? t : bf2_add(pair_of(acc.v[i], acc.v[i + 1]), t);
+      acc.v[i] = __ushort_as_bfloat16(static_cast<unsigned short>(a));
+      acc.v[i + 1] = __ushort_as_bfloat16(static_cast<unsigned short>(a >> 16));
+    }
+  } else {
+    using N = Num<T>;
+    const typename N::S gs = N::gate(g);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const typename N::S t = N::mul(N::of(v.v[w]), gs);
+      acc.v[w] = N::to(first ? t : N::add(N::of(acc.v[w]), t));
+    }
+  }
+}
+
+// Lane j < k of a warp: the loads of token t's choice j, keep, eidx,
+// pos_c and the gate, issued together, none waiting on another, and
+// nothing here waiting on them (a dropped choice's eidx and pos_c are
+// read and not used); lanes from k on, and every lane past the last
+// token, read nothing and hold a dropped choice.
+struct Route {
+  unsigned char kp;
+  long long e, p;
+  float g;
+};
+
+__device__ __forceinline__ Route load_route(
+    const long long* __restrict__ eidx, const long long* __restrict__ pos,
+    const bool* __restrict__ keep, const float* __restrict__ gates,
+    long long t, long long T_, int k, int lane) {
+  Route r = {0, 0, 0, 0.0f};
+  if (t < T_ && lane < k) {
+    const long long i = t * k + lane;
+    r.kp = __ldg(reinterpret_cast<const unsigned char*>(keep) + i);
+    r.e = __ldg(eidx + i);
+    r.p = __ldg(pos + i);
+    r.g = __ldg(gates + i);
+  }
+  return r;
+}
+
+// y[t, :] = token t's gated sum of its k rows of ob, choice 0 first (see
+// the head comment). A persistent grid of warps: `wpt` warps (1, 2 or 4)
+// take a token, warp `part` of them the W-wide columns part * 32 + lane
+// + m * wpt * 32; the grid's gridDim.x * kWorkerWarps / wpt such groups
+// stride over the tokens. The routing of a group's next token is loaded
+// while the current token's rows are in flight, and passed from lane j
+// to the warp by shuffles: no shared memory, no block barrier.
+// (a minimum of one block an SM: without it ptxas held some instances
+// to 40-72 registers and spilled the next token's routing across the
+// column loop)
+template <typename T, int W>
+__global__ void __launch_bounds__(kWorkerThreads, 1)
+moe_combine_kernel(const T* __restrict__ ob,
+                   const long long* __restrict__ eidx,
+                   const long long* __restrict__ pos,
+                   const bool* __restrict__ keep,
+                   const float* __restrict__ gates, T* __restrict__ y,
+                   long long T_, int k, long long C, long long d, int wpt) {
+  using P = Pack<T, W>;
+  const int lane = threadIdx.x & 31;
+  // token and column indices fit an int (T below 2^30 and d below 2^31,
+  // checked at launch)
+  const int gw = blockIdx.x * kWorkerWarps + (threadIdx.x >> 5);
+  const int part = gw % wpt, stride = gridDim.x * kWorkerWarps / wpt;
+  const int nvec = static_cast<int>(d / W), ntok = static_cast<int>(T_);
+  int t = gw / wpt;
+  Route next = load_route(eidx, pos, keep, gates, t, T_, k, lane);
+  for (; t < ntok; t += stride) {
+    // this token's routing (lane j: choice j's slot row, or -1 where
+    // dropped, and its gate's word), then the next token's loads
+    const long long row_cur = next.kp ? next.e * C + next.p : -1;
+    const unsigned gate_cur = Num<T>::word(next.g);
+    next = load_route(eidx, pos, keep, gates, t + stride, T_, k, lane);
+    P* out = reinterpret_cast<P*>(y + t * d);
+    // every lane runs every column step (the shuffles want the whole
+    // warp); a lane past the row's end loads and stores nothing
+    for (int c0 = part * 32; c0 < nvec; c0 += wpt * 32) {
+      const int c = c0 + lane;
+      const bool mine = c < nvec;
+      P acc = {};
+      for (int j0 = 0; j0 < k; j0 += kUnroll) {
+        P v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long row = __shfl_sync(0xffffffffu, row_cur,
+                                            (j0 + u) & 31);
+          if (j0 + u < k && row >= 0 && mine) {
+            v[u] = reinterpret_cast<const P*>(ob + row * d)[c];
+          } else {
+#pragma unroll
+            for (int w = 0; w < W; ++w) v[u].v[w] = from_f<T>(0.0f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const unsigned g = __shfl_sync(0xffffffffu, gate_cur,
+                                         (j0 + u) & 31);
+          if (j0 + u < k) gated_step<T, W>(acc, v[u], g, j0 + u == 0);
+        }
+      }
+      if (mine) out[c] = acc;
+    }
+  }
+}
+
+// dx[t, :] = the sum of token t's kept choices' rows of g (a block a
+// token, a thread a W-wide column): ungated, last choice first, as XLA
+// sums the reference's transposed scatter-adds; a dropped choice's row
+// reads +0.0.
+template <typename T, int W>
+__global__ void __launch_bounds__(kDispatchBwdThreads)
+moe_dispatch_bwd_kernel(const T* __restrict__ g,
+                        const long long* __restrict__ eidx,
+                        const long long* __restrict__ pos,
+                        const bool* __restrict__ keep, T* __restrict__ dx,
+                        int k, long long C, long long d) {
   __shared__ long long s_row[kMaxK];
-  __shared__ float s_gate[kMaxK];
   const long long t = blockIdx.x;
   if (threadIdx.x < k) {
-    const int j = kBwd ? k - 1 - static_cast<int>(threadIdx.x)
-                       : static_cast<int>(threadIdx.x);
+    const int j = k - 1 - static_cast<int>(threadIdx.x);
     const long long i = t * k + j;
     s_row[threadIdx.x] =
         keep[i] ? __ldg(eidx + i) * C + __ldg(pos + i) : -1;
-    // the gate rounded to T, as the reference's gates.astype(x.dtype)
-    if (!kBwd) s_gate[threadIdx.x] = to_f(from_f<T>(__ldg(gates + i)));
   }
   __syncthreads();
   using P = Pack<T, W>;
   const long long nvec = d / W;
-  P* out = reinterpret_cast<P*>(y + t * d);
-  for (long long c = threadIdx.x; c < nvec; c += kCombineThreads) {
+  P* out = reinterpret_cast<P*>(dx + t * d);
+  for (long long c = threadIdx.x; c < nvec; c += kDispatchBwdThreads) {
     float acc[W] = {};
     for (int j0 = 0; j0 < k; j0 += kUnroll) {
       P v[kUnroll];
@@ -403,7 +640,7 @@ __device__ __forceinline__ void gather_sum(const T* __restrict__ rows,
       for (int u = 0; u < kUnroll; ++u) {
         const long long row = j0 + u < k ? s_row[j0 + u] : -1;
         if (row >= 0) {
-          v[u] = reinterpret_cast<const P*>(rows + row * d)[c];
+          v[u] = reinterpret_cast<const P*>(g + row * d)[c];
         } else {
 #pragma unroll
           for (int w = 0; w < W; ++w) v[u].v[w] = from_f<T>(0.0f);
@@ -413,13 +650,8 @@ __device__ __forceinline__ void gather_sum(const T* __restrict__ rows,
       for (int u = 0; u < kUnroll; ++u) {
         if (j0 + u >= k) break;
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float term =
-              kBwd ? to_f(v[u].v[w])
-                   : to_f(from_f<T>(
-                         __fmul_rn(to_f(v[u].v[w]), s_gate[j0 + u])));
-          acc[w] = add_term<T>(acc[w], term, j0 + u == 0);
-        }
+        for (int w = 0; w < W; ++w)
+          acc[w] = add_term<T>(acc[w], to_f(v[u].v[w]), j0 + u == 0);
       }
     }
     P o;
@@ -427,27 +659,6 @@ __device__ __forceinline__ void gather_sum(const T* __restrict__ rows,
     for (int w = 0; w < W; ++w) o.v[w] = from_f<T>(acc[w]);
     out[c] = o;
   }
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kCombineThreads)
-moe_combine_kernel(const T* __restrict__ ob,
-                   const long long* __restrict__ eidx,
-                   const long long* __restrict__ pos,
-                   const bool* __restrict__ keep,
-                   const float* __restrict__ gates, T* __restrict__ y,
-                   int k, long long C, long long d) {
-  gather_sum<T, W, false>(ob, eidx, pos, keep, gates, y, k, C, d);
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kCombineThreads)
-moe_dispatch_bwd_kernel(const T* __restrict__ g,
-                        const long long* __restrict__ eidx,
-                        const long long* __restrict__ pos,
-                        const bool* __restrict__ keep, T* __restrict__ dx,
-                        int k, long long C, long long d) {
-  gather_sum<T, W, true>(g, eidx, pos, keep, nullptr, dx, k, C, d);
 }
 
 // d_ob[s, :] for slot s = (e, c) of token t = src[s]: dy[t, :] times the
@@ -506,108 +717,135 @@ moe_combine_bwd_kernel(const T* __restrict__ dy,
   }
 }
 
-// v rounded to T, as an f32
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
+// Window m of the row product of a (dy's row) and b (the kept row of
+// ob): the products rounded to T, summed in order from the window's
+// first element, every add rounded to T (Num<T>). W > 1: d a multiple of
+// 32 on 16-byte storage (no pad), the window's 32 / W loads of each row
+// issued before the first product; W = 1: element by element, the pad's
+// elements (left of the row and past its end) left out, which changes
+// no bit of the result but a zero's sign, which plus_zero clears.
+template <typename T, int W>
+__device__ __forceinline__ typename Num<T>::S window_sum(
+    const T* __restrict__ a, const T* __restrict__ b, int m, int d,
+    int left) {
+  using N = Num<T>;
+  typename N::S s{};
+  if constexpr (W > 1) {
+    using P = Pack<T, W>;
+    constexpr int V = 32 / W;                   // loads a window a row
+    const P* av = reinterpret_cast<const P*>(a) + m * V;
+    const P* bv = reinterpret_cast<const P*>(b) + m * V;
+    P x[V], z[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) x[u] = av[u];
+#pragma unroll
+    for (int u = 0; u < V; ++u) z[u] = bv[u];
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const typename N::S pr = N::mul(N::of(x[u].v[w]), N::of(z[u].v[w]));
+        s = u == 0 && w == 0 ? pr : N::add(s, pr);
+      }
+  } else {
+    const int e0 = m * 32 - left;
+    T x[32], z[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const bool in = e0 + u >= 0 && e0 + u < d;
+      x[u] = in ? a[e0 + u] : from_f<T>(0.0f);
+      z[u] = in ? b[e0 + u] : from_f<T>(0.0f);
+    }
+    bool first = true;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (e0 + u < 0 || e0 + u >= d) continue;
+      const typename N::S pr = N::mul(N::of(x[u]), N::of(z[u]));
+      s = first ? pr : N::add(s, pr);
+      first = false;
+    }
+  }
+  return s;
 }
 
-// dg[t, j] for choice j (warp j) of token t (a block): the row product
-// of dy[t] (staged in shared memory) and its kept row of ob, as XLA's
-// CPU program reduces it: products rounded to T; over d > 32 in windows
-// of 32 (the row padded by `left` zeros in front to nwin windows), each
-// summed in order, then the window sums in order, every add rounded to
-// T; over d <= 32 (nwin 0) one sum in order, in f32 as fused
-// multiply-adds (taken in f64, as the plain version takes them). W > 1:
-// d a multiple of 32 on 16-byte storage, a window across 32 / W lanes,
-// its partial sum passed lane to lane; W = 1: a lane a window.
+// dg[i] for choice i = t * k + j, as XLA's CPU program reduces the row
+// product of dy[t] and the kept choice's row of ob: over d > 32 in
+// windows of 32 (the row padded by `left` zeros in front to nwin
+// windows), lane l summing window m0 + l of each step of 32 windows in
+// registers; the step's window sums then gathered by 32 shuffles and
+// chained in order onto the sum of the windows before, every add rounded
+// to T. Over d <= 32 (nwin 0) lane 0 sums in order, in f32 as fused
+// multiply-adds (taken in f64, as the plain version takes them). A
+// persistent grid of warps, a warp a choice, striding over the T * k
+// choices; the next choice's keep, eidx and pos_c loaded (every lane the
+// same three words) while this one's rows are in flight. dy's row is
+// read by each of its kept choices' warps beside the kept row: the
+// token's choices are neighbouring warps of a block, so it is read from
+// L1 or L2 after the first.
 template <typename T, int W>
-__global__ void __launch_bounds__(kMaxK * 32)
+__global__ void __launch_bounds__(kGatesThreads)
 moe_gates_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ ob,
                      const long long* __restrict__ eidx,
                      const long long* __restrict__ pos,
                      const bool* __restrict__ keep, float* __restrict__ dg,
-                     int k, long long C, int d, int nwin, int left,
-                     int dy_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sdy = reinterpret_cast<T*>(smem);
-  float* wsum = reinterpret_cast<float*>(smem + dy_bytes);
-  using P = Pack<T, W>;
-  const long long t = blockIdx.x;
-  const T* drow = dy + t * d;
-  for (int c = threadIdx.x; c < d / W; c += blockDim.x)
-    reinterpret_cast<P*>(sdy)[c] = reinterpret_cast<const P*>(drow)[c];
-  __syncthreads();
-  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long i = t * k + j;
-  if (!keep[i]) {
-    if (lane == 0) dg[i] = 0.0f;
-    return;
+                     long long n, int k, long long C, int d, int nwin,
+                     int left) {
+  using N = Num<T>;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kGatesWarps;
+  long long i = static_cast<long long>(blockIdx.x) * kGatesWarps +
+                (threadIdx.x >> 5);
+  const unsigned char* kp = reinterpret_cast<const unsigned char*>(keep);
+  bool kept_next = false;
+  long long e_next = 0, p_next = 0;
+  if (i < n) {
+    kept_next = __ldg(kp + i);
+    e_next = __ldg(eidx + i);
+    p_next = __ldg(pos + i);
   }
-  const T* row = ob + (__ldg(eidx + i) * C + __ldg(pos + i)) * d;
-  float* ws = wsum + j * nwin;
-  if (nwin == 0) {
-    if (lane != 0) return;
-    float acc = 0.0f;
-    for (int e = 0; e < d; ++e) {
-      const float a = to_f(sdy[e]), b = to_f(row[e]);
-      if constexpr (sizeof(T) == 4)
-        acc = __double2float_rn(__dadd_rn(
-            static_cast<double>(acc),
-            __dmul_rn(static_cast<double>(a), static_cast<double>(b))));
-      else
-        acc = e == 0 ? rnd<T>(__fmul_rn(a, b))
-                     : rnd<T>(__fadd_rn(acc, rnd<T>(__fmul_rn(a, b))));
+  for (; i < n; i += stride) {
+    const bool kept = kept_next;
+    const long long row = e_next * C + p_next;
+    if (i + stride < n) {
+      kept_next = __ldg(kp + i + stride);
+      e_next = __ldg(eidx + i + stride);
+      p_next = __ldg(pos + i + stride);
     }
-    dg[i] = plus_zero(acc);
-    return;
-  }
-  if constexpr (W > 1) {
-    constexpr int L = 32 / W;                  // lanes a window
-    const int q = lane % L;
-    for (int m0 = 0; m0 < nwin; m0 += W) {
-      const int m = m0 + lane / L;
-      const bool valid = m < nwin;
-      float p[W];
-      if (valid) {
-        const long long c = (static_cast<long long>(m) * 32 + q * W) / W;
-        const P v = reinterpret_cast<const P*>(row)[c];
-        const P a = reinterpret_cast<const P*>(sdy)[c];
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-          p[w] = rnd<T>(__fmul_rn(to_f(a.v[w]), to_f(v.v[w])));
-      }
-      float acc = 0.0f;
-      for (int qq = 0; qq < L; ++qq) {
-        const float prev = __shfl_up_sync(0xffffffffu, acc, 1);
-        if (q == qq && valid) {
-          float s = qq == 0 ? p[0] : rnd<T>(__fadd_rn(prev, p[0]));
-#pragma unroll
-          for (int w = 1; w < W; ++w) s = rnd<T>(__fadd_rn(s, p[w]));
-          acc = s;
+    if (!kept) {                                // the warp alike
+      if (lane == 0) dg[i] = 0.0f;
+      continue;
+    }
+    const T* a = dy + (i / k) * d;
+    const T* b = ob + row * d;
+    typename N::S acc{};
+    if (nwin == 0) {
+      if (lane == 0) {
+        for (int u = 0; u < d; ++u) {
+          if constexpr (sizeof(T) == 4) {
+            acc = __double2float_rn(__dadd_rn(
+                static_cast<double>(acc),
+                __dmul_rn(static_cast<double>(a[u]),
+                          static_cast<double>(b[u]))));
+          } else {
+            const typename N::S pr = N::mul(N::of(a[u]), N::of(b[u]));
+            acc = u == 0 ? pr : N::add(acc, pr);
+          }
         }
       }
-      if (q == L - 1 && valid) ws[m] = acc;
-    }
-  } else {
-    for (int m = lane; m < nwin; m += 32) {
-      float s = 0.0f;
-      bool first = true;
-      for (int u = 0; u < 32; ++u) {
-        const int e = m * 32 + u - left;
-        if (e < 0 || e >= d) continue;
-        const float pr = rnd<T>(__fmul_rn(to_f(sdy[e]), to_f(row[e])));
-        s = first ? pr : rnd<T>(__fadd_rn(s, pr));
-        first = false;
+    } else {
+      for (int m0 = 0; m0 < nwin; m0 += 32) {   // the warp alike
+        const typename N::S s =
+            m0 + lane < nwin ? window_sum<T, W>(a, b, m0 + lane, d, left)
+                             : typename N::S{};
+        typename N::S ws[32];
+#pragma unroll
+        for (int q = 0; q < 32; ++q) ws[q] = shfl(s, q);
+#pragma unroll
+        for (int q = 0; q < 32; ++q)
+          if (m0 + q < nwin) acc = m0 + q == 0 ? ws[q] : N::add(acc, ws[q]);
       }
-      ws[m] = s;
     }
-  }
-  __syncwarp();
-  if (lane == 0) {
-    float acc = ws[0];
-    for (int m = 1; m < nwin; ++m) acc = rnd<T>(__fadd_rn(acc, ws[m]));
-    dg[i] = plus_zero(acc);
+    if (lane == 0) dg[i] = plus_zero(N::f(acc));
   }
 }
 
@@ -629,20 +867,65 @@ void dispatch(const void* x, const int* src, void* buf, long long T_,
         static_cast<const T*>(x), src, static_cast<T*>(buf), n_slots, T_, d);
 }
 
+// The co-resident blocks of `kernel` (`threads` a block, no dynamic
+// shared memory) on the current device, found once a device (`cache`, a
+// slot each); negative: minus a CUDA error code.
+template <typename K>
+int resident_blocks(K kernel, int threads, int* cache) {
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (per_sm * sms <= 0)
+    return -static_cast<int>(cudaErrorInvalidConfiguration);
+  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// warps a token of the combine: a lane a W-wide column where the row has
+// up to 128 of them, four warps striding over longer rows
+int combine_wpt(long long nvec) { return nvec > 64 ? 4 : nvec > 32 ? 2 : 1; }
+
+// the combine's token groups (wpt warps each) on the current device:
+// its co-resident warps over wpt
+template <typename T, int W>
+long long combine_workers(long long d) {
+  static int cache[kMaxDevices] = {};
+  const int blocks =
+      resident_blocks(moe_combine_kernel<T, W>, kWorkerThreads, cache);
+  if (blocks < 0) return blocks;
+  return static_cast<long long>(blocks) * kWorkerWarps / combine_wpt(d / W);
+}
+
+template <typename T, int W>
+int combine_as(const void* ob, const long long* eidx, const long long* pos,
+               const bool* keep, const float* gates, void* y, long long T_,
+               int k, long long d, long long C, cudaStream_t st) {
+  const int wpt = combine_wpt(d / W);
+  const long long groups = combine_workers<T, W>(d);
+  if (groups < 0) return static_cast<int>(-groups);
+  const long long used = T_ < groups ? T_ : groups;
+  const unsigned grid = static_cast<unsigned>(
+      (used * wpt + kWorkerWarps - 1) / kWorkerWarps);
+  moe_combine_kernel<T, W><<<grid, kWorkerThreads, 0, st>>>(
+      static_cast<const T*>(ob), eidx, pos, keep, gates, static_cast<T*>(y),
+      T_, k, C, d, wpt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-void combine(const void* ob, const long long* eidx, const long long* pos,
-             const bool* keep, const float* gates, void* y, long long T_,
-             int k, long long d, long long C, cudaStream_t st) {
+int combine(const void* ob, const long long* eidx, const long long* pos,
+            const bool* keep, const float* gates, void* y, long long T_,
+            int k, long long d, long long C, cudaStream_t st) {
   constexpr int W = 16 / sizeof(T);
-  const unsigned grid = static_cast<unsigned>(T_);
   if (d % W == 0 && aligned16(ob) && aligned16(y))
-    moe_combine_kernel<T, W><<<grid, kCombineThreads, 0, st>>>(
-        static_cast<const T*>(ob), eidx, pos, keep, gates,
-        static_cast<T*>(y), k, C, d);
-  else
-    moe_combine_kernel<T, 1><<<grid, kCombineThreads, 0, st>>>(
-        static_cast<const T*>(ob), eidx, pos, keep, gates,
-        static_cast<T*>(y), k, C, d);
+    return combine_as<T, W>(ob, eidx, pos, keep, gates, y, T_, k, d, C, st);
+  return combine_as<T, 1>(ob, eidx, pos, keep, gates, y, T_, k, d, C, st);
 }
 
 template <typename T>
@@ -652,11 +935,11 @@ void dispatch_bwd(const void* g, const long long* eidx, const long long* pos,
   constexpr int W = 16 / sizeof(T);
   const unsigned grid = static_cast<unsigned>(T_);
   if (d % W == 0 && aligned16(g) && aligned16(dx))
-    moe_dispatch_bwd_kernel<T, W><<<grid, kCombineThreads, 0, st>>>(
+    moe_dispatch_bwd_kernel<T, W><<<grid, kDispatchBwdThreads, 0, st>>>(
         static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
         d);
   else
-    moe_dispatch_bwd_kernel<T, 1><<<grid, kCombineThreads, 0, st>>>(
+    moe_dispatch_bwd_kernel<T, 1><<<grid, kDispatchBwdThreads, 0, st>>>(
         static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
         d);
 }
@@ -679,28 +962,42 @@ void combine_bwd(const void* dy, const float* gates, const long long* eidx,
         static_cast<T*>(d_ob), n_slots, T_, k, C, d);
 }
 
-// shared memory of a gates_bwd block: dy's row (16-byte aligned), then
-// k window sums of nwin each
+// gates_bwd's warps (a choice each) on the current device
+template <typename T, int W>
+long long gates_workers() {
+  static int cache[kMaxDevices] = {};
+  const int blocks =
+      resident_blocks(moe_gates_bwd_kernel<T, W>, kGatesThreads, cache);
+  if (blocks < 0) return blocks;
+  return static_cast<long long>(blocks) * kGatesWarps;
+}
+
+template <typename T, int W>
+int gates_as(const void* dy, const void* ob, const long long* eidx,
+             const long long* pos, const bool* keep, float* dg, long long T_,
+             int k, int d, long long C, cudaStream_t st) {
+  const int nwin = d <= 32 ? 0 : (d + 31) / 32;
+  const int left = nwin > 0 ? (nwin * 32 - d) / 2 : 0;
+  const long long warps = gates_workers<T, W>();
+  if (warps < 0) return static_cast<int>(-warps);
+  const long long n = T_ * k, used = n < warps ? n : warps;
+  const unsigned grid =
+      static_cast<unsigned>((used + kGatesWarps - 1) / kGatesWarps);
+  moe_gates_bwd_kernel<T, W><<<grid, kGatesThreads, 0, st>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(ob), eidx, pos, keep,
+      dg, n, k, C, d, nwin, left);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int gates_bwd(const void* dy, const void* ob, const long long* eidx,
               const long long* pos, const bool* keep, float* dg, long long T_,
               int k, int d, long long C, cudaStream_t st) {
   constexpr int W = 16 / sizeof(T);
-  const int nwin = d <= 32 ? 0 : (d + 31) / 32;
-  const int left = (nwin * 32 - d) / 2 > 0 ? (nwin * 32 - d) / 2 : 0;
-  const int dy_bytes = (d * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
-  const size_t smem = dy_bytes + sizeof(float) * k * nwin;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(T_);
+  // the 16-byte form takes whole windows on 16-byte storage
   if (d % 32 == 0 && aligned16(dy) && aligned16(ob))
-    moe_gates_bwd_kernel<T, W><<<grid, 32 * k, smem, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(ob), eidx, pos, keep,
-        dg, k, C, d, nwin, left, dy_bytes);
-  else
-    moe_gates_bwd_kernel<T, 1><<<grid, 32 * k, smem, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(ob), eidx, pos, keep,
-        dg, k, C, d, nwin, left, dy_bytes);
-  return static_cast<int>(cudaGetLastError());
+    return gates_as<T, W>(dy, ob, eidx, pos, keep, dg, T_, k, d, C, st);
+  return gates_as<T, 1>(dy, ob, eidx, pos, keep, dg, T_, k, d, C, st);
 }
 
 }  // namespace
@@ -714,19 +1011,7 @@ int gates_bwd(const void* dy, const void* ob, const long long* eidx,
 // blocks), found once per device; negative: minus a CUDA error code.
 static int moe_slots_blocks() {
   static int cache[kMaxDevices] = {};
-  int dev = 0, per_sm = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, moe_slots_kernel,
-                                                    kSlotsThreads, 0);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  if (per_sm * sms <= 0)
-    return -static_cast<int>(cudaErrorInvalidConfiguration);
-  if (dev < kMaxDevices) cache[dev] = per_sm * sms;
-  return per_sm * sms;
+  return resident_blocks(moe_slots_kernel, kSlotsThreads, cache);
 }
 
 // part: scratch of part_words ints (G * ceil(Tg * k / kSlotsChunk) * E
@@ -794,7 +1079,8 @@ extern "C" int moe_combine_launch(const void* ob, const void* eidx,
                                   const void* gates, void* y, long long T,
                                   long long k, long long d, long long C,
                                   int dtype, void* stream) {
-  if (T < 1 || T > 0x7fffffffLL || k < 1 || k > kMaxK || d < 1 || C < 1)
+  if (T < 1 || T >= (1LL << 30) || k < 1 || k > kMaxK || d < 1 ||
+      d > 0x7fffffffLL || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* ei = static_cast<const long long*>(eidx);
@@ -802,13 +1088,12 @@ extern "C" int moe_combine_launch(const void* ob, const void* eidx,
   const bool* kp = static_cast<const bool*>(keep);
   const float* g = static_cast<const float*>(gates);
   if (dtype == 0)
-    combine<float>(ob, ei, ps, kp, g, y, T, static_cast<int>(k), d, C, st);
-  else if (dtype == 1)
-    combine<__nv_bfloat16>(ob, ei, ps, kp, g, y, T, static_cast<int>(k), d,
-                           C, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return combine<float>(ob, ei, ps, kp, g, y, T, static_cast<int>(k), d, C,
+                          st);
+  if (dtype == 1)
+    return combine<__nv_bfloat16>(ob, ei, ps, kp, g, y, T,
+                                  static_cast<int>(k), d, C, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int moe_dispatch_bwd_launch(const void* g, const void* eidx,
@@ -864,7 +1149,7 @@ extern "C" int moe_gates_bwd_launch(const void* dy, const void* ob,
                                     long long k, long long d, long long C,
                                     int dtype, void* stream) {
   if (T < 1 || T > 0x7fffffffLL || k < 1 || k > kMaxK || d < 1 ||
-      d > (1 << 20) || C < 1)
+      d > kMaxGatesD || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* ei = static_cast<const long long*>(eidx);
@@ -879,6 +1164,31 @@ extern "C" int moe_gates_bwd_launch(const void* dy, const void* ob,
                                     static_cast<int>(k), static_cast<int>(d),
                                     C, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The workers the combine's and gates_bwd's persistent grids hold on
+// the current device at most (the combine: token groups; gates_bwd:
+// warps, a choice each), for rows of d elements of dtype on 16-byte
+// storage (wide = 1) or not; negative: minus a CUDA error code.
+extern "C" long long moe_combine_workers(long long d, int dtype, int wide) {
+  if (d < 1) return -static_cast<long long>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return wide && d % 4 == 0 ? combine_workers<float, 4>(d)
+                              : combine_workers<float, 1>(d);
+  if (dtype == 1)
+    return wide && d % 8 == 0 ? combine_workers<__nv_bfloat16, 8>(d)
+                              : combine_workers<__nv_bfloat16, 1>(d);
+  return -static_cast<long long>(cudaErrorInvalidValue);
+}
+
+extern "C" long long moe_gates_bwd_workers(long long d, int dtype, int wide) {
+  const bool w = wide && d % 32 == 0;
+  if (dtype == 0)
+    return w ? gates_workers<float, 4>() : gates_workers<float, 1>();
+  if (dtype == 1)
+    return w ? gates_workers<__nv_bfloat16, 8>()
+             : gates_workers<__nv_bfloat16, 1>();
+  return -static_cast<long long>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* moe_error_string(int code) {

@@ -25,6 +25,7 @@ from repro_torch.kernels.silu import _on_device
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 32                  # choices a token (a lane each, csrc/moe.cu)
 MAX_EXPERTS = 256           # the slots kernel's per-warp counts
+MAX_GATES_D = 1 << 20       # moe_gates_bwd's row, at most (int indices)
 SLOTS_CHUNK = 512           # choices a block of the slots kernel, at least
 
 _P = ctypes.c_void_p
@@ -52,6 +53,9 @@ def _lib() -> ctypes.CDLL:
         lib.moe_gates_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _L,
                                              _L, _L, _I, _P]
         lib.moe_gates_bwd_launch.restype = _I
+        for fn in (lib.moe_combine_workers, lib.moe_gates_bwd_workers):
+            fn.argtypes = [_L, _I, _I]
+            fn.restype = _L
         lib.moe_error_string.argtypes = [_I]
         lib.moe_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -62,6 +66,30 @@ def _check(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().moe_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def _workers(fn, d: int, dtype: torch.dtype, wide: bool, what: str) -> int:
+    n = fn(d, DTYPES[dtype], int(wide))
+    if n < 0:
+        _check(-n, what)
+    return n
+
+
+def combine_workers(d: int, dtype: torch.dtype, wide: bool = True) -> int:
+    """The token groups `moe_combine`'s persistent grid holds on the
+    current CUDA device for rows of d elements of dtype, on 16-byte
+    storage (`wide`) or not: a group takes a token, and a call of more
+    tokens takes several a group."""
+    return _workers(_lib().moe_combine_workers, d, dtype, wide,
+                    "moe_combine_workers")
+
+
+def gates_bwd_workers(d: int, dtype: torch.dtype, wide: bool = True) -> int:
+    """The warps `moe_gates_bwd`'s persistent grid holds on the current
+    CUDA device (a choice each) for rows of d elements of dtype, on
+    16-byte storage (`wide`) or not."""
+    return _workers(_lib().moe_gates_bwd_workers, d, dtype, wide,
+                    "moe_gates_bwd_workers")
 
 
 def launch_slots(eidx: torch.Tensor, pos_c: torch.Tensor, keep: torch.Tensor,
@@ -97,8 +125,9 @@ def launch_combine(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
                    keep: torch.Tensor, gates: torch.Tensor,
                    y: torch.Tensor) -> None:
     """y [T,d] (dense, ob's dtype) = the gated sum of each token's k rows
-    of ob; one launch on the current stream of ob's device. Inputs are
-    checked by the caller."""
+    of ob; one launch (a persistent grid of warps, up to four a token) on
+    the current stream of ob's device. Inputs are checked by the
+    caller."""
     T, k = eidx.shape
     _, C, d = ob.shape
     _check(_on_device(ob.device, _lib().moe_combine_launch, ob.data_ptr(),
@@ -142,9 +171,13 @@ def launch_gates_bwd(dy: torch.Tensor, ob: torch.Tensor, eidx: torch.Tensor,
                      pos_c: torch.Tensor, keep: torch.Tensor,
                      dg: torch.Tensor) -> None:
     """dg [T,k] f32 = each kept choice's row product of dy and ob,
-    reduced as XLA's CPU program reduces it; one launch (a block of k
-    warps a token) on the current stream of dy's device. Inputs are
-    checked by the caller."""
+    reduced as XLA's CPU program reduces it; one launch (a persistent
+    grid of warps, a choice each) on the current stream of dy's device.
+    Inputs are checked by the caller; d above MAX_GATES_D raises."""
+    if ob.shape[2] > MAX_GATES_D:
+        raise ValueError(f"moe_gates_bwd takes rows of at most "
+                         f"{MAX_GATES_D} elements on the card, got "
+                         f"{ob.shape[2]}")
     T, k = eidx.shape
     _, C, d = ob.shape
     _check(_on_device(dy.device, _lib().moe_gates_bwd_launch, dy.data_ptr(),

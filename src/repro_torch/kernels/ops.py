@@ -1157,7 +1157,8 @@ def moe_gates_bwd(dy: torch.Tensor, ob: torch.Tensor, eidx: torch.Tensor,
     for a dropped choice.
 
     CUDA tensors go to the hand-written kernel (csrc/moe.cu, one
-    launch: a block a token); CPU tensors to
+    launch: a persistent grid of warps, a choice each, rows of up to
+    `kernels.moe.MAX_GATES_D` elements); CPU tensors to
     :func:`repro_torch.kernels.ref.moe_gates_bwd_ref`, which it equals
     bit for bit."""
     dev = _check_gated(dy, eidx, pos_c, keep, None)

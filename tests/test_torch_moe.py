@@ -49,6 +49,7 @@ from test_torch_dense import (_f32, _logging_reference, _LoggingEngine,
 from repro_torch.compat import tree_map
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
+from repro_torch.kernels import moe as moe_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (moe_combine_ref, moe_dispatch_gather_ref,
                                      moe_dispatch_ref, moe_slots_ref)
@@ -560,6 +561,125 @@ def test_slots_kernel_decomposition_rehearsed(case, blocks):
         np.testing.assert_array_equal(a, b)
 
 
+WORKER_WARPS = 4       # csrc/moe.cu's kWorkerWarps: the combine's block
+
+
+def _combine_wpt(nvec):
+    """csrc/moe.cu's combine_wpt: warps a token for nvec columns."""
+    return 4 if nvec > 64 else 2 if nvec > 32 else 1
+
+
+def _rehearse_combine(ob, eidx, pos_c, keep, gates, blocks, wide=True):
+    """moe_combine_kernel's split in torch, as `combine_as` grids it with
+    `blocks` co-resident blocks of WORKER_WARPS warps: columns of W
+    elements (16 bytes where `wide` and W divides d, else one element),
+    `wpt` warps a token, the grid cut to the tokens where they are
+    fewer than the groups; group g takes tokens g, g + stride, ..., a
+    round at a time, holding the next token's routing beside the
+    current one's (the prefetch: lane j < k its choice j's slot row or
+    -1 and its gate rounded to the dtype; past the last token -1 and
+    0); warp `part` of a group takes columns part * 32 + lane + m * wpt
+    * 32, a lane reading choice j's row and gate from lane j (the
+    shuffles) and adding its terms choice 0 first, each product and add
+    rounded as the kernel rounds them. Returns y and asserts that every
+    column of every token is written once."""
+    E, C, d = ob.shape
+    T, k = eidx.shape
+    dt = ob.dtype
+    W = 16 // ob.element_size()
+    W = W if wide and d % W == 0 else 1
+    nvec = d // W
+    wpt = _combine_wpt(nvec)
+    groups = min(T, blocks * WORKER_WARPS // wpt)
+    grid = -(-groups * wpt // WORKER_WARPS)
+    stride = grid * WORKER_WARPS // wpt
+    rnd = (lambda t: t) if dt == torch.float32 else \
+        (lambda t: t.to(dt).float())
+    rows = ob.reshape(E * C, nvec, W).float()
+    lanes = torch.arange(32)
+
+    def route(t):
+        live = (t[:, None] < T) & (lanes < k)
+        i = t[:, None].clamp(max=T - 1) * k + lanes.clamp(max=k - 1)
+        kept = live & keep.reshape(-1)[i]
+        row = torch.where(kept, eidx.reshape(-1)[i] * C +
+                          pos_c.reshape(-1)[i], -1)
+        return row, torch.where(live, rnd(gates.reshape(-1)[i]), 0.0)
+    y = torch.full((T, nvec, W), float("nan"))
+    writes = torch.zeros((T, nvec), dtype=torch.int64)
+    t = torch.arange(stride)
+    nxt = route(t)
+    while (t < T).any():
+        (row, gate), nxt = nxt, route(t + stride)
+        live = t < T
+        row, gate, tl = row[live], gate[live], t[live]
+        for part in range(wpt):
+            for c0 in range(part * 32, nvec, wpt * 32):
+                c = c0 + lanes
+                c = c[c < nvec]
+                acc = None
+                for j in range(k):
+                    r = row[:, j & 31, None]
+                    v = torch.where((r >= 0)[..., None],
+                                    rows[r.clamp(min=0), c], 0.0)
+                    term = rnd(v * gate[:, j & 31, None, None])
+                    acc = term if j == 0 else rnd(acc + term)
+                y[tl[:, None], c] = acc
+                writes[tl[:, None], c] += 1
+        t = t + stride
+    assert (writes == 1).all()
+    return y.reshape(T, d).to(dt)
+
+
+def _combine_case(T, k, d, dtype, seed):
+    """ob [E, C, d] and the routing of T tokens (k distinct experts of E
+    = max(8, k + 4) each, a capacity that drops), with a row of -0.0 in
+    ob and a gate of 0."""
+    E = max(8, k + 4)
+    C = max(2, T * k // E // 2)
+    rng = np.random.default_rng(seed)
+    eidx, pos_c, keep = _routing(rng, T, k, E, C)
+    ob = rng.normal(size=(E, C, d)).astype(np.float32)
+    ob[0, 0] = -0.0
+    gates = rng.random((T, k)).astype(np.float32)
+    gates[1, 0] = 0.0
+    return (torch.from_numpy(ob).to(TDT[dtype]),
+            *(torch.from_numpy(a) for a in (eidx, pos_c, keep, gates)))
+
+
+# co-resident blocks: 3 (12 warps: every group several tokens, a tail of
+# one) and 64 (more groups than the 37 tokens: the grid cut to them)
+@pytest.mark.parametrize("blocks", [3, 64], ids=["tail", "cut"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("d", [16, 48, 100, 1024, 2048])
+def test_combine_kernel_decomposition_rehearsed(d, k, dtype, blocks):
+    """`moe_combine_kernel`'s persistent split (which group takes which
+    token across the grid's strides, the prefetched routing, the lanes'
+    columns; a tail where T is no multiple of the groups) rehearsed in
+    torch equals `moe_combine_ref` bit for bit, drops and -0.0
+    included."""
+    args = _combine_case(37, k, d, dtype, seed=d + k)
+    assert (~args[3]).any() or k == 1
+    got = _rehearse_combine(*args, blocks=blocks)
+    want = moe_combine_ref(*args)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_combine_element_path_rehearsed(d, dtype):
+    """The element path (ob or y not on 16-byte storage: a lane an
+    element) at the serve's width and twice it, k = 8."""
+    args = _combine_case(37, 8, d, dtype, seed=d)
+    got = _rehearse_combine(*args, blocks=3, wide=False)
+    assert torch.equal(_bits(got), _bits(moe_combine_ref(*args)))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(50, 2, 4, 20, 16), (37, 8, 32, 8, 24),
                                    (30, 6, 160, 1, 8)],
@@ -959,7 +1079,7 @@ def test_serve_cli_runs_moe_on_cpu(capsys):
     assert f"{ARCH} on cpu: 3 requests, 9 tokens" in out
 
 
-def test_training_the_moe_is_not_yet_ported(built):
+def test_moe_trains_and_its_prologue_still_refuses(built):
     """The MoE family serves and trains: `registry.loss_fn`,
     `transformer.lm_loss` (a finite loss with its aux loss and expert
     load, gradients in the router and the experts) and the train CLI
@@ -1020,13 +1140,39 @@ def card():
 
 # name -> (T, k, E, C, d): the serve's prefill of group 1 (4 x 641
 # tokens) and decode step at full width, a dropping capacity, an odd T,
-# a row of 100 bf16 (200 bytes: the element path) and a reduced layer
+# a row of 100 bf16 (200 bytes: the element path) and a reduced layer;
+# the combine's persistent grid's edges: one token, one token more than
+# its groups hold (T None: found on the card), k = 32, d = 2,048, and ob
+# and x on storage one element past 16-byte alignment (the element path)
 CARD_SHAPES = {"prefill": (2564, 8, 32, 804, 1024),
                "decode": (4, 8, 32, 4, 1024),
                "drops": (2564, 8, 32, 400, 1024),
                "ragged": (2563, 8, 32, 804, 1024),
                "narrow": (37, 8, 32, 12, 100),
-               "reduced": (80, 2, 4, 52, 128)}
+               "reduced": (80, 2, 4, 52, 128),
+               "one_token": (1, 8, 32, 4, 1024),
+               "groups_plus_one": (None, 8, 32, 804, 1024),
+               "k32": (300, 32, 40, 200, 1024),
+               "d2048": (300, 8, 32, 64, 2048),
+               "unaligned": (37, 8, 32, 12, 1024)}
+
+
+def _card_shape(shape, dtype=torch.bfloat16):
+    """CARD_SHAPES[shape], T found on the card where it is None: one more
+    than the combine's token groups at that d and dtype."""
+    T, k, E, C, d = CARD_SHAPES[shape]
+    if T is None:
+        T = moe_lib.combine_workers(d, dtype) + 1
+    return T, k, E, C, d
+
+
+def _unaligned(t):
+    """A copy of t on storage one element past 16-byte alignment."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = store[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
 
 
 @pytest.mark.cuda
@@ -1037,22 +1183,26 @@ def test_card_kernels_equal_plain(card, shape, dtype):
     (one launch each) equal their plain versions bit for bit on the
     card, and the reference's k scatter-adds (`moe_dispatch_ref`), -0.0
     rows included; two calls equal."""
-    T, k, E, C, d = CARD_SHAPES[shape]
+    T, k, E, C, d = _card_shape(shape, dtype)
     rng = np.random.default_rng(11)
     eidx, pos_c, keep = _routing(rng, T, k, E, C)
     if shape == "drops":
         assert (~keep).sum() > 0
     x = rng.normal(size=(T, d)).astype(np.float32)
-    x[1] = -0.0
+    x[min(1, T - 1)] = -0.0
     gates = rng.random((T, k)).astype(np.float32)
     rt = [torch.from_numpy(a).to(card) for a in (eidx, pos_c, keep)]
     src = torch.from_numpy(_src_of(eidx, pos_c, keep, E, C)).to(card)
     xt = torch.from_numpy(x).to(card, dtype)
     g = torch.from_numpy(gates).to(card)
+    if shape == "unaligned":
+        xt = _unaligned(xt)
     before = (ops.moe_dispatch.launches, ops.moe_combine.launches)
     buf = ops.moe_dispatch(xt, src)
     ob = buf * 1.5 - 0.25
     ob[0, 0] = -0.0
+    if shape == "unaligned":
+        ob = _unaligned(ob)
     y = ops.moe_combine(ob, *rt, g)
     assert (ops.moe_dispatch.launches, ops.moe_combine.launches) == \
         (before[0] + 1, before[1] + 1)
@@ -1083,7 +1233,7 @@ def test_card_slots_equal_plain(card, case):
     elif case in SLOT_EDGES:
         G, Tg, k, E, C, how = SLOT_EDGES[case]
     else:
-        (Tg, k, E, C, _), G, how = CARD_SHAPES[case], 1, "skewed"
+        (Tg, k, E, C, _), G, how = _card_shape(case), 1, "skewed"
     eidx = torch.from_numpy(_experts(np.random.default_rng(9), G, Tg, k, E,
                                      how)).to(card)
     before = ops.moe_slots.launches

@@ -62,6 +62,7 @@ import pytest
 import torch
 
 from test_torch_checkpoint import _assert_same
+from test_torch_moe import _unaligned
 from test_torch_train import (DEADLINE, FOUR_POD_F32_RTOL, GRAD_TOL,
                               LOSS_RTOL, SRC, TRAIN_RTOL, _batch, _flat,
                               _leaf_close, _rel, _torch_batch)
@@ -70,6 +71,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.core.predictor import BwPredictor
 from repro_torch.data import pipeline
+from repro_torch.kernels import moe as moe_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (moe_combine_bwd_ref, moe_dispatch_bwd_ref,
                                      moe_gates_bwd_ref, moe_slots_ref)
@@ -426,6 +428,135 @@ def test_backward_plain_versions_equal_reference_vjp(ref, case, dtype):
         assert int((~keep).sum()) > T * k // 2
 
 
+GATES_WARPS = 8        # csrc/moe.cu's kGatesWarps: gates_bwd's block
+
+
+def _rehearse_gates_bwd(dy, ob, eidx, pos_c, keep, blocks, wide=True):
+    """moe_gates_bwd_kernel's split in torch, as `gates_as` grids it with
+    `blocks` co-resident blocks of GATES_WARPS warps: a warp a choice i =
+    t * k + j, the grid cut to the T k choices where they are fewer than
+    the warps; warp w takes choices w, w + stride, ..., a round at a
+    time, holding the next choice's keep and slot row beside the
+    current one's (the prefetch); a dropped choice writes +0.0. Over d
+    <= 32 lane 0 sums the row in order (f32: fused multiply-adds, in
+    f64). Over d > 32 the row is padded by `left` = half the pad in
+    front to nwin windows of 32; in each step of 32 windows lane l sums
+    window m0 + l from its first element in the row, in order, the
+    products and every add rounded to the dtype (the 16-byte form, whole
+    windows on 16-byte storage: no pad; else a lane an element, the
+    pad's elements left out); the step's window sums are gathered lane
+    by lane (the shuffles) and chained in order onto the windows before.
+    Returns dgates [T, k] f32, -0.0 written +0.0, and asserts that every
+    choice is written once."""
+    E, C, d = ob.shape
+    T, k = eidx.shape
+    dt = ob.dtype
+    W = 16 // ob.element_size() if wide and d % 32 == 0 else 1
+    n = T * k
+    grid = -(-min(n, blocks * GATES_WARPS) // GATES_WARPS)
+    stride = grid * GATES_WARPS
+    nwin = 0 if d <= 32 else -(-d // 32)
+    left = (nwin * 32 - d) // 2 if nwin else 0
+    assert W == 1 or left == 0
+    rnd = (lambda t: t) if dt == torch.float32 else \
+        (lambda t: t.to(dt).float())
+    rows, dyf = ob.reshape(E * C, d).float(), dy.float()
+
+    def route(i):
+        live = i < n
+        ic = i.clamp(max=n - 1)
+        return live & keep.reshape(-1)[ic], \
+            eidx.reshape(-1)[ic] * C + pos_c.reshape(-1)[ic]
+    dg = torch.full((n,), float("nan"))
+    writes = torch.zeros(n, dtype=torch.int64)
+    i = torch.arange(stride)
+    nxt = route(i)
+    while (i < n).any():
+        (kept, row), nxt = nxt, route(i + stride)
+        live = i < n
+        dg[i[live & ~kept]] = 0.0
+        writes[i[live]] += 1
+        sel = live & kept
+        il, rl = i[sel], row[sel]
+        a, b = dyf[il // k], rows[rl]                  # [P, d]
+        if nwin == 0:
+            acc = torch.zeros(len(il))
+            for u in range(d):
+                if dt == torch.float32:
+                    acc = (acc.double() + a[:, u].double() *
+                           b[:, u].double()).float()
+                else:
+                    p = rnd(a[:, u] * b[:, u])
+                    acc = p if u == 0 else rnd(acc + p)
+        else:
+            e = torch.arange(nwin * 32).view(nwin, 32) - left   # [m, u]
+            inside = (e >= 0) & (e < d)
+            p = rnd(a[:, e.clamp(0, d - 1)] * b[:, e.clamp(0, d - 1)])
+            acc = None
+            for m0 in range(0, nwin, 32):
+                s = torch.zeros(len(il), min(32, nwin - m0))  # a lane each
+                first = torch.ones_like(s, dtype=torch.bool)
+                for u in range(32):
+                    pu = p[:, m0:m0 + 32, u]
+                    ok = inside[m0:m0 + 32, u]
+                    s = torch.where(ok & first, pu,
+                                    torch.where(ok, rnd(s + pu), s))
+                    first = first & ~ok
+                for q in range(s.shape[1]):             # the shuffles
+                    acc = s[:, q] if acc is None else rnd(acc + s[:, q])
+        dg[il] = torch.where(acc == 0, torch.zeros_like(acc), acc)
+        i = i + stride
+    assert (writes == 1).all()
+    return dg.view(T, k)
+
+
+# co-resident blocks: 3 (24 warps: several rounds, a tail) and 200
+# (more warps than T k = 37 k choices: the grid cut to them)
+@pytest.mark.parametrize("blocks", [3, 200], ids=["tail", "cut"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("d", [16, 48, 100, 1024, 2048])
+def test_gates_bwd_kernel_decomposition_rehearsed(d, k, dtype, blocks):
+    """`moe_gates_bwd_kernel`'s persistent split (which warp takes which
+    choice across the grid's strides, the prefetched routing, which lane
+    sums which window, the pad in front, the order of the window chain)
+    rehearsed in torch equals `moe_gates_bwd_ref` bit for bit, drops and
+    -0.0 rows included."""
+    eidx, pos_c, keep, _, _, a = _bwd_case(37, max(8, k), k, d, 4,
+                                           seed=d + k)
+    dy, ob = (torch.from_numpy(a[n]).to(TDT[dtype]) for n in ("dy", "ob"))
+    assert (~keep).any()
+    got = _rehearse_gates_bwd(dy, ob, eidx, pos_c, keep, blocks)
+    want = moe_gates_bwd_ref(dy, ob, eidx, pos_c, keep)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_gates_bwd_element_path_rehearsed(d, dtype):
+    """The element path (dy or ob not on 16-byte storage: a lane a
+    window, element by element) at the train width and twice it."""
+    eidx, pos_c, keep, _, _, a = _bwd_case(37, 8, 8, d, 6, seed=d)
+    dy, ob = (torch.from_numpy(a[n]).to(TDT[dtype]) for n in ("dy", "ob"))
+    got = _rehearse_gates_bwd(dy, ob, eidx, pos_c, keep, 3, wide=False)
+    want = moe_gates_bwd_ref(dy, ob, eidx, pos_c, keep)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gates_bwd_kernel_refuses_rows_past_its_limit():
+    """The gates' backward kernel takes rows of at most MAX_GATES_D
+    elements (its indices are ints); its launch raises past that before
+    it reaches the card."""
+    d = moe_lib.MAX_GATES_D + 1
+    dy = torch.zeros((1, d), dtype=torch.bfloat16)
+    ob = torch.zeros((1, 1, d), dtype=torch.bfloat16)
+    route = (torch.zeros((1, 1), dtype=torch.int64),) * 2 + \
+        (torch.ones((1, 1), dtype=torch.bool),)
+    with pytest.raises(ValueError, match="at most"):
+        moe_lib.launch_gates_bwd(dy, ob, *route,
+                                 torch.empty((1, 1), dtype=torch.float32))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ad_ops_grads_through_autograd(dtype):
     """`ops.moe_dispatch_ad` / `ops.moe_combine_ad` under autograd give
@@ -715,12 +846,21 @@ def card():
 
 
 # the training shape (T 4,096, E 32, k 8, C 1,284, d 1,024), drops, a
-# ragged T, the padded window, f32's d <= 32 chain, k = 1
+# ragged T, the padded window, f32's d <= 32 chain, k = 1; the persistent
+# grids' edges: one token, one token past what gates_bwd's warps hold
+# (T None: found on the card), k = 32, d = 2,048, and dy, ob and the
+# buffer's cotangent one element past 16-byte alignment (the element
+# paths)
 CARD_CASES = [("train", 4096, 32, 8, 1024, None), ("drops", 4096, 32, 8, 1024,
                                                    256),
               ("ragged", 4095, 32, 8, 1024, None), ("d48", 300, 32, 8, 48,
                                                     None),
-              ("d16", 300, 32, 8, 16, 12), ("k1", 200, 4, 1, 64, 8)]
+              ("d16", 300, 32, 8, 16, 12), ("k1", 200, 4, 1, 64, 8),
+              ("one_token", 1, 32, 8, 1024, 4),
+              ("warps_plus_one", None, 32, 8, 1024, None),
+              ("k32", 300, 32, 32, 1024, None),
+              ("d2048", 300, 32, 8, 2048, None),
+              ("unaligned", 300, 32, 8, 1024, None)]
 
 
 @pytest.mark.cuda
@@ -730,13 +870,17 @@ def test_backward_kernels_match_plain_on_card(card, case, dtype):
     """`moe_dispatch_bwd`, `moe_combine_bwd` and `moe_gates_bwd` (the
     kernels) against their plain versions on the same card tensors: bit
     for bit, two calls equal, one launch a call."""
-    _, T, E, k, d, cap = case
-    eidx, pos_c, keep, src, C, a = _bwd_case(T, E, k, d, cap, seed=T + d)
+    label, T, E, k, d, cap = case
     dt = TDT[dtype]
+    if T is None:
+        T = moe_lib.gates_bwd_workers(d, dt) // k + 1
+    eidx, pos_c, keep, src, C, a = _bwd_case(T, E, k, d, cap, seed=T + d)
     on = [t.to(card) for t in (eidx, pos_c, keep, src)]
     eidx, pos_c, keep, src = on
     dbuf, dy, ob = (torch.from_numpy(a[n]).to(card, dt)
                     for n in ("dbuf", "dy", "ob"))
+    if label == "unaligned":
+        dbuf, dy, ob = (_unaligned(t) for t in (dbuf, dy, ob))
     gates = torch.from_numpy(a["gates"]).to(card)
     calls = {"moe_dispatch_bwd": ((dbuf, eidx, pos_c, keep),
                                   moe_dispatch_bwd_ref),
