@@ -2957,7 +2957,9 @@ def time_silu(name: str, args, kw=None) -> dict:
     kw = kw or {}
     bound_ms, by, nbytes, nops = silu_bound(name, args, kw)
     fn, plain = getattr(ops, name), SILU_PLAIN[name]
-    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args, **kw), name, args)
+    lib = SILU_LIBRARY.get(name)
+    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args, **kw),
+                                       lib and (lambda: lib(*args)))
     return {"shape": list(args[0].shape), "strides": [
                 list(t.stride()) for t in args],
             "dtype": str(args[0].dtype).replace("torch.", ""),
@@ -2972,23 +2974,23 @@ def time_silu(name: str, args, kw=None) -> dict:
             "ops": nops}
 
 
-def kernel_and_library_ms(fn, name: str, args):
-    """(ms, library ms): device ms of the kernel's call `fn` (a graph of
-    20 calls, median of 11 replays) and of SILU_LIBRARY's call for
-    `name` on the same inputs, timed the same way (None where there is
-    none). Where there is a library call the two are read in turns,
+def kernel_and_library_ms(fn, lib, timer=None):
+    """(ms, library ms): device ms of the kernel's call `fn` (`timer`,
+    by default a graph of 20 calls, median of 11 replays) and of the
+    library's call `lib` on the same inputs (both called without
+    arguments), timed the same way (None where lib is None). Where there
+    is a library call the two are read in turns,
     kernel, library, library, kernel, each the mean of its two readings:
     the card's pace drifts within a phase (after the mamba train step a
     first reading can come slower than later ones, for the kernel and
     the library alike), so a kernel read first and a library call read
     last would not compare like with like."""
-    lib = SILU_LIBRARY.get(name)
+    timer = timer or (lambda f: graph_ms(f, launches=20, reps=11))
     if lib is None:
-        return graph_ms(fn, launches=20, reps=11), None
+        return timer(fn), None
     times = {fn: [], lib: []}
     for f in (fn, lib, lib, fn):
-        times[f].append(graph_ms(lambda: f(*args) if f is lib else f(),
-                                 launches=20, reps=11))
+        times[f].append(timer(f))
     return float(np.mean(times[fn])), float(np.mean(times[lib]))
 
 
@@ -3052,10 +3054,33 @@ def quant_bound(n: int, n_scales: int, wide_bytes: int, dequant: bool):
     return roofline(nbytes, nops) + (nbytes, nops)
 
 
+def dequant_library(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor):
+    """(call, max |diff| against `out`, reason): the one PyTorch call
+    that computes the grouped f32 dequantize, f32(q) * scale with a
+    scale a row: `Tensor.dequantize()` of q [G, L] as a per-channel
+    qint8 tensor (axis 0, the scales as f64, zero points 0), built here,
+    outside the timed call; (None, None, the error's first line) where
+    the card's torch refuses it. The call cannot be captured in a CUDA
+    graph (it synchronises with the host), so it is timed with events
+    over back-to-back calls. The tile form (a scale a 256 x 256 tile),
+    the bf16 output and the accumulating form have no such call."""
+    try:
+        qt = torch._make_per_channel_quantized_tensor(
+            q, s.double(), torch.zeros(q.shape[0], dtype=torch.int64,
+                                       device=q.device), 0)
+        got = qt.dequantize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return qt.dequantize, float((got - out).abs().max()), None
+
+
 def time_quant(x: torch.Tensor, grouped: bool, bits: int = 8) -> dict:
     """Kernel (a CUDA graph of 20 wrapper calls) and plain version
     (events over back-to-back calls) times of quantize and of dequantize
-    (to x's dtype) at x, beside their bounds."""
+    (to x's dtype) at x, beside their bounds; for the grouped f32
+    dequantize also `dequant_library`'s call and the kernel's, both
+    timed with events over 20 back-to-back calls (median of 11), in
+    turns (`kernel_and_library_ms`)."""
     if grouped:
         q, s = ops.quantize_groups(x, bits)
         enc = (lambda: ops.quantize_groups(x, bits),
@@ -3074,8 +3099,32 @@ def time_quant(x: torch.Tensor, grouped: bool, bits: int = 8) -> dict:
             x.numel(), s.numel(), x.element_size(), name == "dequantize")
         out[name] = {"ms": graph_ms(kernel), "plain_ms": device_ms(
             plain, launches=3, reps=3), "bound_ms": b_ms, "bound_by": by,
-            "bytes": nbytes, "ops": nops}
+            "bytes": nbytes, "ops": nops, "library_ms": None}
+        if name == "dequantize" and grouped and x.dtype == torch.float32:
+            lib, diff, why = dequant_library(q, s, kernel())
+            ev_ms, lib_ms = kernel_and_library_ms(
+                kernel, lib, lambda f: device_ms(f, launches=20, reps=11))
+            out[name].update(library_ms=lib_ms, library_max_abs_diff=diff,
+                             library_refused=why, events_ms=ev_ms)
     return out
+
+
+def quant_lib_text(kname: str, t: dict, k: dict) -> str:
+    """The library call's column of a quantize phase's log line."""
+    if k.get("library_ms") is not None:
+        return (f"Tensor.dequantize() of a per-channel qint8 tensor "
+                f"{k['library_ms']:.5f} ms against the kernel's "
+                f"{k['events_ms']:.5f}, both events over 20 calls in turns "
+                f"(no CUDA graph: the call synchronises; max |diff| "
+                f"{k['library_max_abs_diff']:.3g})")
+    if k.get("library_refused"):
+        return f"Tensor.dequantize() refused: {k['library_refused']}"
+    if kname == "quantize":
+        return ("none (no PyTorch call computes a symmetric abs-max "
+                "quantization with these semantics)")
+    return (f"none (no single call dequantizes the "
+            f"{'accumulating' if kname == 'dequantize_add' else t['form']}"
+            f" form to {'f32' if kname == 'dequantize_add' else t['dtype']})")
 
 
 def time_decode_add(x: torch.Tensor, bits: int = 8) -> dict:
@@ -5351,7 +5400,9 @@ def time_silu_bwd(name: str, args) -> dict:
     version and the bound."""
     bound_ms, by, nbytes, nops = silu_bwd_bound(name, args)
     fn, plain = getattr(ops, name), SILU_BWD_PLAIN[name]
-    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args), name, args)
+    lib = SILU_LIBRARY.get(name)
+    ms, lib_ms = kernel_and_library_ms(lambda: fn(*args),
+                                       lib and (lambda: lib(*args)))
     return {"shape": list(args[0].shape), "strides": [
                 list(t.stride()) for t in args],
             "dtype": str(args[0].dtype).replace("torch.", ""),
@@ -6099,9 +6150,10 @@ def moe_bwd_cases(calls: dict) -> list:
     at half the capacity, the slot tensors cut to it), a ragged T (the
     last token left out, its slots recounted), rows of -0.0 in the
     cotangents and the persistent grids' edges (one token; one token
-    past what gates_bwd's warps hold; 512 tokens choosing all 32
-    experts, k = 32; rows of 2,048, each row beside its mirror; the
-    three row tensors one element past 16-byte alignment)."""
+    past what gates_bwd's warps hold; one past the dispatch's
+    backward's token groups; 512 tokens choosing all 32 experts, k = 32;
+    rows of 2,048, each row beside its mirror; the three row tensors one
+    element past 16-byte alignment)."""
     g, eidx, pos_c, keep = calls["moe_dispatch_bwd"]
     dy, gates, src = (calls["moe_combine_bwd"][i] for i in (0, 1, 5))
     ob = calls["moe_gates_bwd"][1]
@@ -6128,13 +6180,18 @@ def moe_bwd_cases(calls: dict) -> list:
     dz[1] = -0.0
     out += of("negative zeros", eidx, pos_c, keep, src, gz, ob, dz, gates)
     # the persistent grids' edges: one token, one token past what
-    # gates_bwd's warps hold, k = 32 (512 tokens choosing all 32
-    # experts), rows of 2,048 and storage one element past alignment
-    warps = moe_kernels.gates_bwd_workers(ob.shape[2], ob.dtype) \
-        if ob.is_cuda else eidx.shape[1]
-    for T in (1, min(warps // eidx.shape[1] + 1, eidx.shape[0])):
+    # gates_bwd's warps hold, one past the dispatch's backward's token
+    # groups, k = 32 (512 tokens choosing all 32 experts), rows of 2,048
+    # and storage one element past alignment
+    warps, groups = (moe_kernels.gates_bwd_workers(ob.shape[2], ob.dtype),
+                     moe_kernels.dispatch_bwd_workers(g.shape[2], g.dtype)) \
+        if ob.is_cuda else (eidx.shape[1], 2)
+    for T, label in ((1, "one token"),
+                     (warps // eidx.shape[1] + 1, "warps + k"),
+                     (groups + 1, "dispatch groups + 1")):
+        T = min(T, eidx.shape[0])
         pT, kT, sT = moe_slots_ref(eidx[None, :T].contiguous(), E, C)
-        out += of("one token" if T == 1 else f"T = {T} (warps + k)",
+        out += of(label if T == 1 else f"T = {T} ({label})",
                   eidx[:T].contiguous(), pT[0], kT[0], sT[0], g, ob,
                   dy[:T].contiguous(), gates[:T].contiguous())
     e32, p32, k32 = wide_routing(512, E, C, ob.device, seed=32)
@@ -6935,8 +6992,7 @@ def main() -> int:
                 f"{t['bits']} bits: kernel {k['ms']:.5f} ms (device, graph "
                 f"of 20 calls) | plain {k['plain_ms']:.5f} ms | bound "
                 f"{k['bound_ms']:.5f} ms by {k['bound_by']} ({k['bytes']} B)"
-                f" | library call: none (no PyTorch call computes a "
-                f"symmetric abs-max quantization with these semantics)")
+                f" | library call: {quant_lib_text(kname, t, k)}")
     results["quantize"] = {"cases": q_cases, "max_abs_err": q_err,
                            "timing": q_timing}
 
@@ -7076,7 +7132,8 @@ def main() -> int:
         "launches": mig_launches[kname], "max_abs_err": q_err,
         "ms": qs[kname]["ms"], "plain_ms": qs[kname]["plain_ms"],
         "bound_ms": qs[kname]["bound_ms"],
-        "bound_by": qs[kname]["bound_by"], "library_ms": None}
+        "bound_by": qs[kname]["bound_by"],
+        "library_ms": qs[kname]["library_ms"]}
         for kname, line in (("quantize", 37), ("dequantize", 61))] + [{
         "name": kname, "route": "cuda",
         "source": "src/repro_torch/csrc/silu.cu",

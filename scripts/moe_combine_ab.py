@@ -1,5 +1,5 @@
-"""Interleaved A/B of two builds of the MoE combine and its gates'
-backward on the card.
+"""Interleaved A/B of two builds of the MoE combine, the dispatch's
+backward and the gates' backward on the card.
 
 Builds this tree's `csrc/moe.cu` (`kernels/build.py`) and a second
 source of its C interface (`--other`, e.g. a parent commit's `moe.cu`
@@ -8,11 +8,13 @@ case through each library in turns (A B B A in each of ROUNDS rounds;
 `chip_smoke.graph_ms`: a CUDA graph of 20 calls, the median of 11
 replays, outputs allocated in each call as the wrappers do):
 
+- `moe_dispatch_bwd` at a train step's layer 0 (T 4,096, C 1,284),
+  where a parent before the redesign still has its block-a-token body;
 - `moe_combine` at group 1's prefill (T 2,564, C 804), a decode step
-  (T 4, C 4) and a train step's layer 0 (T 4,096, C 1,284);
-- `moe_gates_bwd` at the train step's layer 0;
-- `moe_dispatch_bwd` there too: the same kernel in both sources as the
-  parent has it, so its two readings show the call's spread.
+  (T 4, C 4) and the train step's layer 0, and `moe_gates_bwd` there:
+  the two kernels whose body this build shares with the dispatch's
+  backward, or leaves as it was, so their readings show whether that
+  moved them and the calls' spread.
 
 The widths are granite-moe-1b-a400m's (E 32, k 8, d 1,024, bf16). The
 routing is made from a seed as `scripts/moe_ab.py` makes it (the top 8
@@ -23,7 +25,8 @@ random from the seed. Every output is held equal bit for bit to its
 plain version and across the two builds, and two calls equal. Prints
 this build's ptxas report (registers, spills), the card's name and
 power limit, each case's bound (`chip_smoke.moe_bound`) and writes every
-number to chiprun_out/moe_combine_ab.json. Run on the card, e.g.
+number to chiprun_out/moe_combine_ab.json; fails if this build's
+`moe_dispatch_bwd_kernel` spills. Run on the card, e.g.
 against a parent unpacked under build/parent:
 
     python3 scripts/moe_combine_ab.py \\
@@ -51,11 +54,11 @@ from repro_torch.kernels.ref import (moe_combine_ref,  # noqa: E402
 ROUNDS = 3
 E, K, D = 32, 8, 1024
 # label -> (kernel, T, C, pad tokens routed alike)
-CASES = {"combine prefill1": ("moe_combine", 2564, 804, 456),
+CASES = {"dispatch_bwd train": ("moe_dispatch_bwd", 4096, 1284, 0),
+         "combine prefill1": ("moe_combine", 2564, 804, 456),
          "combine decode": ("moe_combine", 4, 4, 0),
          "combine train": ("moe_combine", 4096, 1284, 0),
-         "gates_bwd train": ("moe_gates_bwd", 4096, 1284, 0),
-         "dispatch_bwd train": ("moe_dispatch_bwd", 4096, 1284, 0)}
+         "gates_bwd train": ("moe_gates_bwd", 4096, 1284, 0)}
 PLAIN = {"moe_combine": moe_combine_ref, "moe_gates_bwd": moe_gates_bwd_ref,
          "moe_dispatch_bwd": moe_dispatch_bwd_ref}
 FNS = ("moe_combine_launch", "moe_gates_bwd_launch",
@@ -125,10 +128,19 @@ def main() -> int:
         return 1
     smi = chip_smoke.nvidia_smi()
     print(smi, flush=True)
-    report = ptxas_report(build.compile_sources(["moe"])["moe"])
+    text = build.compile_sources(["moe"])["moe"]
+    report = ptxas_report(text)
     print("\n".join(report), flush=True)
+    dbwd = chip_smoke.ptxas_report(text, ("moe_dispatch_bwd_kernel",))
+    print(f"[moe_combine_ab] this build's moe_dispatch_bwd_kernel: {dbwd}",
+          flush=True)
+    rep = dbwd.get("moe_dispatch_bwd_kernel", {})
+    if not rep or rep.get("spill_stores") or rep.get("spill_loads"):
+        raise AssertionError(f"moe_dispatch_bwd_kernel: not in ptxas's "
+                             f"report, or spilling: {dbwd}")
     mine = moe._lib()
-    res = {"smi": smi, "rounds": ROUNDS, "ptxas": report, "cases": {}}
+    res = {"smi": smi, "rounds": ROUNDS, "ptxas": report,
+           "dispatch_bwd_ptxas": dbwd, "cases": {}}
     with tempfile.TemporaryDirectory() as tmp:
         other = build.load_other(args.other, Path(tmp) / "other.so", mine,
                                  FNS)

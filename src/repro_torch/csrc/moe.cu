@@ -101,8 +101,15 @@
 //    of the buffer's cotangent g. XLA adds the k gathered rows last
 //    choice first (dx = t_{k-1}, then r(dx + t_j) for j = k-2..0, a
 //    dropped choice's row +0.0), not in the combine's order, so it is
-//    the combine's first, block-a-token body walking the choices
-//    backwards without gates.
+//    the combine's body (token_sums) without gates, lane j loading the
+//    routing of choice k-1-j: the same persistent grid of warps, a
+//    token's routing read in one round trip a token ahead, the k loads
+//    of a column issued before the adds, bf16 on add.rn.bf16x2. ptxas
+//    -v: 72 registers (16-byte, both dtypes), 57 / 62 (element path),
+//    no spill. On an H100 80GB HBM3 at 700 W (scripts/moe_combine_ab.py,
+//    seeded routing): 0.0287 ms at a train step's layer 0, where the
+//    first design (a block a token, its routing staged in shared memory
+//    behind a barrier, f32 adds each rounded to bf16) took 0.0401.
 //  * moe_combine_bwd_kernel: d_ob[s, :] for slot s = (e, c) is token t =
 //    src[s]'s cotangent dy[t, :] times the gate of t's choice holding s,
 //    r(dy * r(g)) rounded once, -0.0 written as +0.0 (XLA scatter-adds
@@ -164,8 +171,7 @@ constexpr int kExpertBits = 9;             // bits of expert + 1 (up to 256)
 constexpr int kRankBits = kExpertBits;     // a packed step: rank << 9 | expert + 1
 constexpr int kDispatchThreads = 256;
 constexpr int kDispatchVecs = 4;           // 16-byte loads a lane before a store
-constexpr int kDispatchBwdThreads = 128;   // a block a token
-constexpr int kWorkerWarps = 4;            // the combine's block: 4 warps
+constexpr int kWorkerWarps = 4;            // the token kernels' block: 4 warps
 constexpr int kWorkerThreads = 32 * kWorkerWarps;
 constexpr int kGatesWarps = 8;             // gates_bwd's block: a warp a choice
 constexpr int kGatesThreads = 32 * kGatesWarps;
@@ -389,13 +395,6 @@ moe_dispatch_kernel(const T* __restrict__ x, const int* __restrict__ src,
   }
 }
 
-// acc (f32, holding a value of T) after one more term: the first term
-// as it is, then the sum rounded to T
-template <typename T>
-__device__ __forceinline__ float add_term(float acc, float term, bool first) {
-  return first ? term : to_f(from_f<T>(__fadd_rn(acc, term)));
-}
-
 // bf16 ops on the card's bf16 units (sm_90), one rounding to bf16 each.
 // On operands that are bf16 values they give the bits of the f32 op
 // rounded to bf16, which is what the reference's bf16 arithmetic is: a
@@ -491,17 +490,18 @@ __device__ __forceinline__ unsigned pair_of(__nv_bfloat16 lo,
          static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16;
 }
 
-// acc = v * g (first) or acc + v * g, element by element, each op rounded
-// to T; g is the gate's word (Num<T>::word). bf16 packs go a pair of
-// elements an op.
-template <typename T, int W>
-__device__ __forceinline__ void gated_step(Pack<T, W>& acc,
-                                           const Pack<T, W>& v, unsigned g,
-                                           bool first) {
+// acc = t (first) or acc + t, element by element, where t is v * g
+// (kGated: g is the gate's word, Num<T>::word) or v itself; each op
+// rounded to T. bf16 packs go a pair of elements an op.
+template <typename T, int W, bool kGated>
+__device__ __forceinline__ void term_step(Pack<T, W>& acc,
+                                          const Pack<T, W>& v, unsigned g,
+                                          bool first) {
   if constexpr (sizeof(T) == 2 && W % 2 == 0) {
 #pragma unroll
     for (int i = 0; i < W; i += 2) {
-      const unsigned t = bf2_mul(pair_of(v.v[i], v.v[i + 1]), g);
+      const unsigned x = pair_of(v.v[i], v.v[i + 1]);
+      const unsigned t = kGated ? bf2_mul(x, g) : x;
       const unsigned a =
           first ? t : bf2_add(pair_of(acc.v[i], acc.v[i + 1]), t);
       acc.v[i] = __ushort_as_bfloat16(static_cast<unsigned short>(a));
@@ -509,59 +509,63 @@ __device__ __forceinline__ void gated_step(Pack<T, W>& acc,
     }
   } else {
     using N = Num<T>;
-    const typename N::S gs = N::gate(g);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const typename N::S t = N::mul(N::of(v.v[w]), gs);
+      const typename N::S t =
+          kGated ? N::mul(N::of(v.v[w]), N::gate(g)) : N::of(v.v[w]);
       acc.v[w] = N::to(first ? t : N::add(N::of(acc.v[w]), t));
     }
   }
 }
 
 // Lane j < k of a warp: the loads of token t's choice j, keep, eidx,
-// pos_c and the gate, issued together, none waiting on another, and
-// nothing here waiting on them (a dropped choice's eidx and pos_c are
-// read and not used); lanes from k on, and every lane past the last
-// token, read nothing and hold a dropped choice.
+// pos_c and the gate (kGated: the combine's order), or of its choice
+// k-1-j, keep, eidx and pos_c (the dispatch's backward: last choice
+// first), issued together, none waiting on another, and nothing here
+// waiting on them (a dropped choice's eidx and pos_c are read and not
+// used); lanes from k on, and every lane past the last token, read
+// nothing and hold a dropped choice.
 struct Route {
   unsigned char kp;
   long long e, p;
   float g;
 };
 
+template <bool kGated>
 __device__ __forceinline__ Route load_route(
     const long long* __restrict__ eidx, const long long* __restrict__ pos,
     const bool* __restrict__ keep, const float* __restrict__ gates,
     long long t, long long T_, int k, int lane) {
   Route r = {0, 0, 0, 0.0f};
   if (t < T_ && lane < k) {
-    const long long i = t * k + lane;
+    const long long i = t * k + (kGated ? lane : k - 1 - lane);
     r.kp = __ldg(reinterpret_cast<const unsigned char*>(keep) + i);
     r.e = __ldg(eidx + i);
     r.p = __ldg(pos + i);
-    r.g = __ldg(gates + i);
+    if constexpr (kGated) r.g = __ldg(gates + i);
   }
   return r;
 }
 
-// y[t, :] = token t's gated sum of its k rows of ob, choice 0 first (see
-// the head comment). A persistent grid of warps: `wpt` warps (1, 2 or 4)
-// take a token, warp `part` of them the W-wide columns part * 32 + lane
-// + m * wpt * 32; the grid's gridDim.x * kWorkerWarps / wpt such groups
-// stride over the tokens. The routing of a group's next token is loaded
-// while the current token's rows are in flight, and passed from lane j
-// to the warp by shuffles: no shared memory, no block barrier.
-// (a minimum of one block an SM: without it ptxas held some instances
-// to 40-72 registers and spilled the next token's routing across the
-// column loop)
-template <typename T, int W>
-__global__ void __launch_bounds__(kWorkerThreads, 1)
-moe_combine_kernel(const T* __restrict__ ob,
-                   const long long* __restrict__ eidx,
-                   const long long* __restrict__ pos,
-                   const bool* __restrict__ keep,
-                   const float* __restrict__ gates, T* __restrict__ y,
-                   long long T_, int k, long long C, long long d, int wpt) {
+// out[t, :] = token t's sum of its k rows of `rows`: the combine's (kGated:
+// each row times its choice's gate, choice 0 first) or the dispatch's
+// backward's (ungated, last choice first; see the head comment). A
+// persistent grid of warps: `wpt` warps (1, 2 or 4) take a token, warp
+// `part` of them the W-wide columns part * 32 + lane + m * wpt * 32; the
+// grid's gridDim.x * kWorkerWarps / wpt such groups stride over the
+// tokens. The routing of a group's next token is loaded while the
+// current token's rows are in flight, and passed from lane j to the warp
+// by shuffles (lane j holds the j-th term of the sum's order): no shared
+// memory, no block barrier. Each kernel is its own __global__ (so a
+// profile tells them apart by name) with a minimum of one block an SM:
+// without it ptxas held some instances to 40-72 registers and spilled
+// the next token's routing across the column loop.
+template <typename T, int W, bool kGated>
+__device__ __forceinline__ void token_sums(
+    const T* __restrict__ rows, const long long* __restrict__ eidx,
+    const long long* __restrict__ pos, const bool* __restrict__ keep,
+    const float* __restrict__ gates, T* __restrict__ y, long long T_, int k,
+    long long C, long long d, int wpt) {
   using P = Pack<T, W>;
   const int lane = threadIdx.x & 31;
   // token and column indices fit an int (T below 2^30 and d below 2^31,
@@ -570,13 +574,14 @@ moe_combine_kernel(const T* __restrict__ ob,
   const int part = gw % wpt, stride = gridDim.x * kWorkerWarps / wpt;
   const int nvec = static_cast<int>(d / W), ntok = static_cast<int>(T_);
   int t = gw / wpt;
-  Route next = load_route(eidx, pos, keep, gates, t, T_, k, lane);
+  Route next = load_route<kGated>(eidx, pos, keep, gates, t, T_, k, lane);
   for (; t < ntok; t += stride) {
-    // this token's routing (lane j: choice j's slot row, or -1 where
+    // this token's routing (lane j: its choice's slot row, or -1 where
     // dropped, and its gate's word), then the next token's loads
     const long long row_cur = next.kp ? next.e * C + next.p : -1;
-    const unsigned gate_cur = Num<T>::word(next.g);
-    next = load_route(eidx, pos, keep, gates, t + stride, T_, k, lane);
+    const unsigned gate_cur = kGated ? Num<T>::word(next.g) : 0u;
+    next = load_route<kGated>(eidx, pos, keep, gates, t + stride, T_, k,
+                               lane);
     P* out = reinterpret_cast<P*>(y + t * d);
     // every lane runs every column step (the shuffles want the whole
     // warp); a lane past the row's end loads and stores nothing
@@ -591,7 +596,7 @@ moe_combine_kernel(const T* __restrict__ ob,
           const long long row = __shfl_sync(0xffffffffu, row_cur,
                                             (j0 + u) & 31);
           if (j0 + u < k && row >= 0 && mine) {
-            v[u] = reinterpret_cast<const P*>(ob + row * d)[c];
+            v[u] = reinterpret_cast<const P*>(rows + row * d)[c];
           } else {
 #pragma unroll
             for (int w = 0; w < W; ++w) v[u].v[w] = from_f<T>(0.0f);
@@ -599,9 +604,11 @@ moe_combine_kernel(const T* __restrict__ ob,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const unsigned g = __shfl_sync(0xffffffffu, gate_cur,
-                                         (j0 + u) & 31);
-          if (j0 + u < k) gated_step<T, W>(acc, v[u], g, j0 + u == 0);
+          const unsigned g =
+              kGated ? __shfl_sync(0xffffffffu, gate_cur, (j0 + u) & 31)
+                     : 0u;
+          if (j0 + u < k)
+            term_step<T, W, kGated>(acc, v[u], g, j0 + u == 0);
         }
       }
       if (mine) out[c] = acc;
@@ -609,56 +616,30 @@ moe_combine_kernel(const T* __restrict__ ob,
   }
 }
 
-// dx[t, :] = the sum of token t's kept choices' rows of g (a block a
-// token, a thread a W-wide column): ungated, last choice first, as XLA
-// sums the reference's transposed scatter-adds; a dropped choice's row
-// reads +0.0.
+// y[t, :] = token t's gated sum of its k rows of ob, choice 0 first
 template <typename T, int W>
-__global__ void __launch_bounds__(kDispatchBwdThreads)
+__global__ void __launch_bounds__(kWorkerThreads, 1)
+moe_combine_kernel(const T* __restrict__ ob,
+                   const long long* __restrict__ eidx,
+                   const long long* __restrict__ pos,
+                   const bool* __restrict__ keep,
+                   const float* __restrict__ gates, T* __restrict__ y,
+                   long long T_, int k, long long C, long long d, int wpt) {
+  token_sums<T, W, true>(ob, eidx, pos, keep, gates, y, T_, k, C, d, wpt);
+}
+
+// dx[t, :] = the sum of token t's kept choices' rows of g, ungated, last
+// choice first, as XLA sums the reference's transposed scatter-adds; a
+// dropped choice's row reads +0.0
+template <typename T, int W>
+__global__ void __launch_bounds__(kWorkerThreads, 1)
 moe_dispatch_bwd_kernel(const T* __restrict__ g,
                         const long long* __restrict__ eidx,
                         const long long* __restrict__ pos,
                         const bool* __restrict__ keep, T* __restrict__ dx,
-                        int k, long long C, long long d) {
-  __shared__ long long s_row[kMaxK];
-  const long long t = blockIdx.x;
-  if (threadIdx.x < k) {
-    const int j = k - 1 - static_cast<int>(threadIdx.x);
-    const long long i = t * k + j;
-    s_row[threadIdx.x] =
-        keep[i] ? __ldg(eidx + i) * C + __ldg(pos + i) : -1;
-  }
-  __syncthreads();
-  using P = Pack<T, W>;
-  const long long nvec = d / W;
-  P* out = reinterpret_cast<P*>(dx + t * d);
-  for (long long c = threadIdx.x; c < nvec; c += kDispatchBwdThreads) {
-    float acc[W] = {};
-    for (int j0 = 0; j0 < k; j0 += kUnroll) {
-      P v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const long long row = j0 + u < k ? s_row[j0 + u] : -1;
-        if (row >= 0) {
-          v[u] = reinterpret_cast<const P*>(g + row * d)[c];
-        } else {
-#pragma unroll
-          for (int w = 0; w < W; ++w) v[u].v[w] = from_f<T>(0.0f);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (j0 + u >= k) break;
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-          acc[w] = add_term<T>(acc[w], to_f(v[u].v[w]), j0 + u == 0);
-      }
-    }
-    P o;
-#pragma unroll
-    for (int w = 0; w < W; ++w) o.v[w] = from_f<T>(acc[w]);
-    out[c] = o;
-  }
+                        long long T_, int k, long long C, long long d,
+                        int wpt) {
+  token_sums<T, W, false>(g, eidx, pos, keep, nullptr, dx, T_, k, C, d, wpt);
 }
 
 // d_ob[s, :] for slot s = (e, c) of token t = src[s]: dy[t, :] times the
@@ -887,32 +868,49 @@ int resident_blocks(K kernel, int threads, int* cache) {
   return per_sm * sms;
 }
 
-// warps a token of the combine: a lane a W-wide column where the row has
-// up to 128 of them, four warps striding over longer rows
-int combine_wpt(long long nvec) { return nvec > 64 ? 4 : nvec > 32 ? 2 : 1; }
+// warps a token of the combine and of the dispatch's backward: a lane a
+// W-wide column where the row has up to 128 of them, four warps striding
+// over longer rows
+int token_wpt(long long nvec) { return nvec > 64 ? 4 : nvec > 32 ? 2 : 1; }
 
-// the combine's token groups (wpt warps each) on the current device:
-// its co-resident warps over wpt
+// a token-walking kernel's groups (wpt warps each) on the current
+// device: its co-resident warps over wpt (`cache`: a slot a device)
+template <typename K>
+long long token_groups(K kernel, int* cache, long long nvec) {
+  const int blocks = resident_blocks(kernel, kWorkerThreads, cache);
+  if (blocks < 0) return blocks;
+  return static_cast<long long>(blocks) * kWorkerWarps / token_wpt(nvec);
+}
+
 template <typename T, int W>
 long long combine_workers(long long d) {
   static int cache[kMaxDevices] = {};
-  const int blocks =
-      resident_blocks(moe_combine_kernel<T, W>, kWorkerThreads, cache);
-  if (blocks < 0) return blocks;
-  return static_cast<long long>(blocks) * kWorkerWarps / combine_wpt(d / W);
+  return token_groups(moe_combine_kernel<T, W>, cache, d / W);
+}
+
+template <typename T, int W>
+long long dispatch_bwd_workers(long long d) {
+  static int cache[kMaxDevices] = {};
+  return token_groups(moe_dispatch_bwd_kernel<T, W>, cache, d / W);
+}
+
+// the blocks of a grid of `groups` token groups of wpt warps, cut to the
+// T tokens where they are fewer
+unsigned token_grid(long long groups, long long T_, int wpt) {
+  const long long used = T_ < groups ? T_ : groups;
+  return static_cast<unsigned>((used * wpt + kWorkerWarps - 1) /
+                               kWorkerWarps);
 }
 
 template <typename T, int W>
 int combine_as(const void* ob, const long long* eidx, const long long* pos,
                const bool* keep, const float* gates, void* y, long long T_,
                int k, long long d, long long C, cudaStream_t st) {
-  const int wpt = combine_wpt(d / W);
+  const int wpt = token_wpt(d / W);
   const long long groups = combine_workers<T, W>(d);
   if (groups < 0) return static_cast<int>(-groups);
-  const long long used = T_ < groups ? T_ : groups;
-  const unsigned grid = static_cast<unsigned>(
-      (used * wpt + kWorkerWarps - 1) / kWorkerWarps);
-  moe_combine_kernel<T, W><<<grid, kWorkerThreads, 0, st>>>(
+  moe_combine_kernel<T, W><<<token_grid(groups, T_, wpt), kWorkerThreads, 0,
+                             st>>>(
       static_cast<const T*>(ob), eidx, pos, keep, gates, static_cast<T*>(y),
       T_, k, C, d, wpt);
   return static_cast<int>(cudaGetLastError());
@@ -928,20 +926,29 @@ int combine(const void* ob, const long long* eidx, const long long* pos,
   return combine_as<T, 1>(ob, eidx, pos, keep, gates, y, T_, k, d, C, st);
 }
 
+template <typename T, int W>
+int dispatch_bwd_as(const void* g, const long long* eidx,
+                    const long long* pos, const bool* keep, void* dx,
+                    long long T_, int k, long long d, long long C,
+                    cudaStream_t st) {
+  const int wpt = token_wpt(d / W);
+  const long long groups = dispatch_bwd_workers<T, W>(d);
+  if (groups < 0) return static_cast<int>(-groups);
+  moe_dispatch_bwd_kernel<T, W><<<token_grid(groups, T_, wpt),
+                                  kWorkerThreads, 0, st>>>(
+      static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), T_, k,
+      C, d, wpt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-void dispatch_bwd(const void* g, const long long* eidx, const long long* pos,
-                  const bool* keep, void* dx, long long T_, int k,
-                  long long d, long long C, cudaStream_t st) {
+int dispatch_bwd(const void* g, const long long* eidx, const long long* pos,
+                 const bool* keep, void* dx, long long T_, int k, long long d,
+                 long long C, cudaStream_t st) {
   constexpr int W = 16 / sizeof(T);
-  const unsigned grid = static_cast<unsigned>(T_);
   if (d % W == 0 && aligned16(g) && aligned16(dx))
-    moe_dispatch_bwd_kernel<T, W><<<grid, kDispatchBwdThreads, 0, st>>>(
-        static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
-        d);
-  else
-    moe_dispatch_bwd_kernel<T, 1><<<grid, kDispatchBwdThreads, 0, st>>>(
-        static_cast<const T*>(g), eidx, pos, keep, static_cast<T*>(dx), k, C,
-        d);
+    return dispatch_bwd_as<T, W>(g, eidx, pos, keep, dx, T_, k, d, C, st);
+  return dispatch_bwd_as<T, 1>(g, eidx, pos, keep, dx, T_, k, d, C, st);
 }
 
 template <typename T>
@@ -1101,20 +1108,20 @@ extern "C" int moe_dispatch_bwd_launch(const void* g, const void* eidx,
                                        void* dx, long long T, long long k,
                                        long long d, long long C, int dtype,
                                        void* stream) {
-  if (T < 1 || T > 0x7fffffffLL || k < 1 || k > kMaxK || d < 1 || C < 1)
+  if (T < 1 || T >= (1LL << 30) || k < 1 || k > kMaxK || d < 1 ||
+      d > 0x7fffffffLL || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* ei = static_cast<const long long*>(eidx);
   const long long* ps = static_cast<const long long*>(pos);
   const bool* kp = static_cast<const bool*>(keep);
   if (dtype == 0)
-    dispatch_bwd<float>(g, ei, ps, kp, dx, T, static_cast<int>(k), d, C, st);
-  else if (dtype == 1)
-    dispatch_bwd<__nv_bfloat16>(g, ei, ps, kp, dx, T, static_cast<int>(k), d,
-                                C, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch_bwd<float>(g, ei, ps, kp, dx, T, static_cast<int>(k), d,
+                               C, st);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(g, ei, ps, kp, dx, T,
+                                       static_cast<int>(k), d, C, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int moe_combine_bwd_launch(const void* dy, const void* gates,
@@ -1166,10 +1173,11 @@ extern "C" int moe_gates_bwd_launch(const void* dy, const void* ob,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The workers the combine's and gates_bwd's persistent grids hold on
-// the current device at most (the combine: token groups; gates_bwd:
-// warps, a choice each), for rows of d elements of dtype on 16-byte
-// storage (wide = 1) or not; negative: minus a CUDA error code.
+// The workers the persistent grids of the combine, the dispatch's
+// backward and gates_bwd hold on the current device at most (the first
+// two: token groups; gates_bwd: warps, a choice each), for rows of d
+// elements of dtype on 16-byte storage (wide = 1) or not; negative: minus
+// a CUDA error code.
 extern "C" long long moe_combine_workers(long long d, int dtype, int wide) {
   if (d < 1) return -static_cast<long long>(cudaErrorInvalidValue);
   if (dtype == 0)
@@ -1178,6 +1186,18 @@ extern "C" long long moe_combine_workers(long long d, int dtype, int wide) {
   if (dtype == 1)
     return wide && d % 8 == 0 ? combine_workers<__nv_bfloat16, 8>(d)
                               : combine_workers<__nv_bfloat16, 1>(d);
+  return -static_cast<long long>(cudaErrorInvalidValue);
+}
+
+extern "C" long long moe_dispatch_bwd_workers(long long d, int dtype,
+                                              int wide) {
+  if (d < 1) return -static_cast<long long>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return wide && d % 4 == 0 ? dispatch_bwd_workers<float, 4>(d)
+                              : dispatch_bwd_workers<float, 1>(d);
+  if (dtype == 1)
+    return wide && d % 8 == 0 ? dispatch_bwd_workers<__nv_bfloat16, 8>(d)
+                              : dispatch_bwd_workers<__nv_bfloat16, 1>(d);
   return -static_cast<long long>(cudaErrorInvalidValue);
 }
 

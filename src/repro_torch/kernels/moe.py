@@ -26,6 +26,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 32                  # choices a token (a lane each, csrc/moe.cu)
 MAX_EXPERTS = 256           # the slots kernel's per-warp counts
 MAX_GATES_D = 1 << 20       # moe_gates_bwd's row, at most (int indices)
+MAX_TOKENS = 1 << 30        # the token kernels' T, below (int indices)
 SLOTS_CHUNK = 512           # choices a block of the slots kernel, at least
 
 _P = ctypes.c_void_p
@@ -53,7 +54,8 @@ def _lib() -> ctypes.CDLL:
         lib.moe_gates_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _L,
                                              _L, _L, _I, _P]
         lib.moe_gates_bwd_launch.restype = _I
-        for fn in (lib.moe_combine_workers, lib.moe_gates_bwd_workers):
+        for fn in (lib.moe_combine_workers, lib.moe_dispatch_bwd_workers,
+                   lib.moe_gates_bwd_workers):
             fn.argtypes = [_L, _I, _I]
             fn.restype = _L
         lib.moe_error_string.argtypes = [_I]
@@ -82,6 +84,23 @@ def combine_workers(d: int, dtype: torch.dtype, wide: bool = True) -> int:
     tokens takes several a group."""
     return _workers(_lib().moe_combine_workers, d, dtype, wide,
                     "moe_combine_workers")
+
+
+def dispatch_bwd_workers(d: int, dtype: torch.dtype, wide: bool = True
+                         ) -> int:
+    """The token groups `moe_dispatch_bwd`'s persistent grid holds on
+    the current CUDA device for rows of d elements of dtype, on 16-byte
+    storage (`wide`) or not, as `combine_workers` counts them."""
+    return _workers(_lib().moe_dispatch_bwd_workers, d, dtype, wide,
+                    "moe_dispatch_bwd_workers")
+
+
+def _check_tokens(T: int, what: str) -> None:
+    """Refuses T at or above MAX_TOKENS before the card: a token
+    kernel's persistent grid indexes tokens with ints."""
+    if T >= MAX_TOKENS:
+        raise ValueError(f"{what} takes fewer than {MAX_TOKENS} tokens on "
+                         f"the card, got {T}")
 
 
 def gates_bwd_workers(d: int, dtype: torch.dtype, wide: bool = True) -> int:
@@ -127,8 +146,9 @@ def launch_combine(ob: torch.Tensor, eidx: torch.Tensor, pos_c: torch.Tensor,
     """y [T,d] (dense, ob's dtype) = the gated sum of each token's k rows
     of ob; one launch (a persistent grid of warps, up to four a token) on
     the current stream of ob's device. Inputs are checked by the
-    caller."""
+    caller; T at or above MAX_TOKENS raises."""
     T, k = eidx.shape
+    _check_tokens(T, "moe_combine")
     _, C, d = ob.shape
     _check(_on_device(ob.device, _lib().moe_combine_launch, ob.data_ptr(),
                       eidx.data_ptr(), pos_c.data_ptr(), keep.data_ptr(),
@@ -140,9 +160,11 @@ def launch_dispatch_bwd(g: torch.Tensor, eidx: torch.Tensor,
                         pos_c: torch.Tensor, keep: torch.Tensor,
                         dx: torch.Tensor) -> None:
     """dx [T,d] (dense, g's dtype) = each token's kept choices' rows of
-    g [E,C,d], summed last choice first; one launch on the current
-    stream of g's device. Inputs are checked by the caller."""
+    g [E,C,d], summed last choice first; one launch (the combine's
+    persistent grid of warps) on the current stream of g's device.
+    Inputs are checked by the caller; T at or above MAX_TOKENS raises."""
     T, k = eidx.shape
+    _check_tokens(T, "moe_dispatch_bwd")
     _, C, d = g.shape
     _check(_on_device(g.device, _lib().moe_dispatch_bwd_launch, g.data_ptr(),
                       eidx.data_ptr(), pos_c.data_ptr(), keep.data_ptr(),

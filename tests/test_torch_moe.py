@@ -564,8 +564,8 @@ def test_slots_kernel_decomposition_rehearsed(case, blocks):
 WORKER_WARPS = 4       # csrc/moe.cu's kWorkerWarps: the combine's block
 
 
-def _combine_wpt(nvec):
-    """csrc/moe.cu's combine_wpt: warps a token for nvec columns."""
+def _token_wpt(nvec):
+    """csrc/moe.cu's token_wpt: warps a token for nvec columns."""
     return 4 if nvec > 64 else 2 if nvec > 32 else 1
 
 
@@ -589,7 +589,7 @@ def _rehearse_combine(ob, eidx, pos_c, keep, gates, blocks, wide=True):
     W = 16 // ob.element_size()
     W = W if wide and d % W == 0 else 1
     nvec = d // W
-    wpt = _combine_wpt(nvec)
+    wpt = _token_wpt(nvec)
     groups = min(T, blocks * WORKER_WARPS // wpt)
     grid = -(-groups * wpt // WORKER_WARPS)
     stride = grid * WORKER_WARPS // wpt

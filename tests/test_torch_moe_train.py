@@ -62,7 +62,7 @@ import pytest
 import torch
 
 from test_torch_checkpoint import _assert_same
-from test_torch_moe import _unaligned
+from test_torch_moe import WORKER_WARPS, _token_wpt, _unaligned
 from test_torch_train import (DEADLINE, FOUR_POD_F32_RTOL, GRAD_TOL,
                               LOSS_RTOL, SRC, TRAIN_RTOL, _batch, _flat,
                               _leaf_close, _rel, _torch_batch)
@@ -557,6 +557,121 @@ def test_gates_bwd_kernel_refuses_rows_past_its_limit():
                                  torch.empty((1, 1), dtype=torch.float32))
 
 
+def _rehearse_dispatch_bwd(g, eidx, pos_c, keep, blocks, wide=True):
+    """moe_dispatch_bwd_kernel's split in torch, as `dispatch_bwd_as`
+    grids it with `blocks` co-resident blocks of WORKER_WARPS warps (the
+    combine's grid): columns of W elements (16 bytes where `wide` and W
+    divides d, else one element), `wpt` warps a token, the grid cut to
+    the tokens where they are fewer than the groups; group q takes
+    tokens q, q + stride, ..., a round at a time, holding the next
+    token's routing beside the current one's (the prefetch: lane j < k
+    the slot row of choice k-1-j, or -1 where dropped; past the last
+    token -1); warp `part` of a group takes columns part * 32 + lane + m
+    * wpt * 32, reading the j-th term's row from lane j (the shuffles),
+    so the terms come last choice first: the first as it is, then each
+    add rounded to the dtype (the bf16 ops: f32 adds rounded to bf16), a
+    dropped choice's row +0.0. Returns dx and asserts that every column
+    of every token is written once."""
+    E, C, d = g.shape
+    T, k = eidx.shape
+    dt = g.dtype
+    W = 16 // g.element_size()
+    W = W if wide and d % W == 0 else 1
+    nvec = d // W
+    wpt = _token_wpt(nvec)
+    groups = min(T, blocks * WORKER_WARPS // wpt)
+    grid = -(-groups * wpt // WORKER_WARPS)
+    stride = grid * WORKER_WARPS // wpt
+    rnd = (lambda t: t) if dt == torch.float32 else \
+        (lambda t: t.to(dt).float())
+    rows = g.reshape(E * C, nvec, W).float()
+    lanes = torch.arange(32)
+
+    def route(t):
+        live = (t[:, None] < T) & (lanes < k)
+        i = t[:, None].clamp(max=T - 1) * k + (k - 1 - lanes).clamp(min=0)
+        kept = live & keep.reshape(-1)[i]
+        return torch.where(kept, eidx.reshape(-1)[i] * C +
+                           pos_c.reshape(-1)[i], -1)
+    dx = torch.full((T, nvec, W), float("nan"))
+    writes = torch.zeros((T, nvec), dtype=torch.int64)
+    t = torch.arange(stride)
+    nxt = route(t)
+    while (t < T).any():
+        row, nxt = nxt, route(t + stride)
+        live = t < T
+        row, tl = row[live], t[live]
+        for part in range(wpt):
+            for c0 in range(part * 32, nvec, wpt * 32):
+                c = c0 + lanes
+                c = c[c < nvec]
+                acc = None
+                for j in range(k):
+                    r = row[:, j & 31, None]
+                    v = torch.where((r >= 0)[..., None],
+                                    rows[r.clamp(min=0), c], 0.0)
+                    acc = v if j == 0 else rnd(acc + v)
+                dx[tl[:, None], c] = acc
+                writes[tl[:, None], c] += 1
+        t = t + stride
+    assert (writes == 1).all()
+    return dx.reshape(T, d).to(dt)
+
+
+# co-resident blocks: 3 (12 warps: every group several tokens, a tail)
+# and 200 (more groups than the 37 tokens: the grid cut to them)
+@pytest.mark.parametrize("blocks", [3, 200], ids=["tail", "cut"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("d", [16, 48, 100, 1024, 2048])
+def test_dispatch_bwd_kernel_decomposition_rehearsed(d, k, dtype, blocks):
+    """`moe_dispatch_bwd_kernel`'s persistent split (which group takes
+    which token across the grid's strides, the prefetched routing with
+    lane j holding choice k-1-j, the lanes' columns, the last-first
+    adds) rehearsed in torch equals `moe_dispatch_bwd_ref` bit for bit,
+    drops and -0.0 rows included."""
+    eidx, pos_c, keep, _, _, a = _bwd_case(37, max(8, k), k, d, 4,
+                                           seed=d + k)
+    g = torch.from_numpy(a["dbuf"]).to(TDT[dtype])
+    assert (~keep).any()
+    got = _rehearse_dispatch_bwd(g, eidx, pos_c, keep, blocks)
+    want = moe_dispatch_bwd_ref(g, eidx, pos_c, keep)
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_dispatch_bwd_element_path_rehearsed(d, dtype):
+    """The element path (g or dx not on 16-byte storage: a lane an
+    element) at the train width and twice it, k = 8."""
+    eidx, pos_c, keep, _, _, a = _bwd_case(37, 8, 8, d, 6, seed=d)
+    g = torch.from_numpy(a["dbuf"]).to(TDT[dtype])
+    got = _rehearse_dispatch_bwd(g, eidx, pos_c, keep, 3, wide=False)
+    want = moe_dispatch_bwd_ref(g, eidx, pos_c, keep)
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["dispatch_bwd", "combine"])
+def test_token_kernels_refuse_tokens_past_their_limit(name):
+    """The dispatch's backward and the combine index tokens with ints on
+    their persistent grid; their launches raise at MAX_TOKENS tokens
+    before they reach the card (the tensors are views of one element)."""
+    T = moe_lib.MAX_TOKENS
+
+    def big(shape, dtype):
+        return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
+    route = (big((T, 1), torch.int64),) * 2 + (big((T, 1), torch.bool),)
+    rows, out = big((1, 1, 8), torch.bfloat16), big((T, 8), torch.bfloat16)
+    with pytest.raises(ValueError, match="fewer than"):
+        if name == "dispatch_bwd":
+            moe_lib.launch_dispatch_bwd(rows, *route, out)
+        else:
+            moe_lib.launch_combine(rows, *route,
+                                   big((T, 1), torch.float32), out)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ad_ops_grads_through_autograd(dtype):
     """`ops.moe_dispatch_ad` / `ops.moe_combine_ad` under autograd give
@@ -848,9 +963,9 @@ def card():
 # the training shape (T 4,096, E 32, k 8, C 1,284, d 1,024), drops, a
 # ragged T, the padded window, f32's d <= 32 chain, k = 1; the persistent
 # grids' edges: one token, one token past what gates_bwd's warps hold
-# (T None: found on the card), k = 32, d = 2,048, and dy, ob and the
-# buffer's cotangent one element past 16-byte alignment (the element
-# paths)
+# and one past the dispatch's backward's token groups (T None: found on
+# the card), k = 32, d = 2,048, and dy, ob and the buffer's cotangent
+# one element past 16-byte alignment (the element paths)
 CARD_CASES = [("train", 4096, 32, 8, 1024, None), ("drops", 4096, 32, 8, 1024,
                                                    256),
               ("ragged", 4095, 32, 8, 1024, None), ("d48", 300, 32, 8, 48,
@@ -858,6 +973,7 @@ CARD_CASES = [("train", 4096, 32, 8, 1024, None), ("drops", 4096, 32, 8, 1024,
               ("d16", 300, 32, 8, 16, 12), ("k1", 200, 4, 1, 64, 8),
               ("one_token", 1, 32, 8, 1024, 4),
               ("warps_plus_one", None, 32, 8, 1024, None),
+              ("dispatch_groups_plus_one", None, 32, 8, 1024, None),
               ("k32", 300, 32, 32, 1024, None),
               ("d2048", 300, 32, 8, 2048, None),
               ("unaligned", 300, 32, 8, 1024, None)]
@@ -872,8 +988,10 @@ def test_backward_kernels_match_plain_on_card(card, case, dtype):
     for bit, two calls equal, one launch a call."""
     label, T, E, k, d, cap = case
     dt = TDT[dtype]
-    if T is None:
+    if label == "warps_plus_one":
         T = moe_lib.gates_bwd_workers(d, dt) // k + 1
+    elif label == "dispatch_groups_plus_one":
+        T = moe_lib.dispatch_bwd_workers(d, dt) + 1
     eidx, pos_c, keep, src, C, a = _bwd_case(T, E, k, d, cap, seed=T + d)
     on = [t.to(card) for t in (eidx, pos_c, keep, src)]
     eidx, pos_c, keep, src = on
