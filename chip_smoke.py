@@ -30,8 +30,9 @@ Every phase is fatal: a failure exits non-zero before the result line.
    a fill for N <= 8, and the block kernel) registers and spills,
    failing on a spill, and the block barriers (BAR) in each waterfill
    kernel's SASS, failing if the warp kernel has any or the block
-   kernel none; `flash_attn.cu` builds beside them, and its seven kernels'
-   registers, spills and SASS counts are printed, failing if a bf16
+   kernel none; `flash_attn.cu` builds beside them, and its eight
+   kernels' (the key split of MLA's f32 keys among them) registers,
+   spills and SASS counts are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
    (UTMALDG), or if any bf16 instance spills; and moe's six kernels'
    (slots, dispatch, combine and the three backwards) registers and
@@ -356,6 +357,36 @@ Every phase is fatal: a failure exits non-zero before the result line.
    first `flash_fwd` (f32) within its tolerance and first `moe_slots`,
    `moe_dispatch` / `moe_combine` calls (f32) equal to their plain
    versions. Prints the phase's seconds.
+12d. mla — the MLA family, after the moe phase's models are freed:
+   (1) the slice's main path: `minicpm3-4b` at its full width and depth
+   (62 layers, d 2560, 40 heads; MLA with kv_lora 256, q_lora 768, q / k
+   head dim 64 + 32 = 96, v head dim 64; d_ff 6400; vocab 73,448;
+   4,261,902,848 parameters; bf16 compute, f32 params, weights from a
+   `torch.Generator` seeded 0) served as 12b serves the hybrid. Counts
+   zeroed just before and read just after: exactly 2 x 62 = 124
+   `flash_fwd` (one a layer a prefill; the absorbed decode step is plain
+   torch over the latent cache), 34 x 62 = 2,108 `silu_gate`, 1
+   `rf_predict`, no backward, `ssd_chunk` or `silu`; ids and logits
+   checked as 12b's; prefill ms per group, decode ms median and p90,
+   tokens/s, peak memory; group 1's prefill and 4 decode steps under
+   `torch.profiler` (the attention core, `flash_attention` and
+   `mla_decode_attention`, in ranges) for the device ms by kind (the
+   flash kernels, matrix products, the decode attention's plain ops,
+   `silu_gate`, the rest) and the busy share;
+   (2) `flash_fwd`'s MLA form (q [4, 40, 1, S, 96] bf16, k f32, v
+   [4, 40, S, 64] bf16) on layer 0's inputs of both prefills within 2^-7
+   of each row's max of `flash_fwd_ref`, and lse within each row's
+   bound (`flash_lse_tol`: 1e-5 plus what the key split can drop,
+   sc * 2^-17 * max_j sum_d |q_d k_jd|), twice equal; timed at group
+   1's beside its plain version, the bound (bytes: q, k at 4 bytes, v,
+   out, lse; the products QK^T at Dq and PV at Dv, the split's second
+   QK^T printed apart as the kernel's own) and SDPA on q, bf16(k) and v
+   in turns (its backend named by its kernel), each of its two kernels
+   (the key split, the attention) by the profiler; the SwiGLU gate
+   bit-equal at both prefills and a decode step;
+   (3) parity: the model at full width cut to 2 layers, f32 (the f32
+   kernel at Dq 96, Dv 64), on the card and on the host with the same
+   weights, as 12's (2). Prints the phase's seconds.
 13. train  — the dense family's training, after the dense phase's models
    are freed, then the ssm family's (part (5)), the hybrid's (part (6))
    and the MoE's (part (7)):
@@ -700,7 +731,7 @@ WF_KERNELS = ("waterfill_warp_kernel", "waterfill_block_kernel")
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
                  "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel")
+                 "flash_bwd_dkdv_f32_kernel", "flash_split_kernel")
 FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: wgmma (HGMMA) fed by TMA
                                          # (UTMALDG) in SASS, no spill
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
@@ -3568,9 +3599,10 @@ def is_flash(name: str) -> bool:
     return "flash_" in name and "_kernel" in name
 
 
-def dense_profile(fn) -> dict:
+def dense_profile(fn, core=ATTN_CORE) -> dict:
     """Run `fn` under `torch.profiler` (CPU and CUDA activity), the
-    attention core (`ATTN_CORE`) inside a `record_function` range, and
+    attention core (`core`: the functions of `att` named, by default
+    `ATTN_CORE`) inside a `record_function` range, and
     return the device ms by kind: `silu_gate`, the flash kernels (by
     name), matrix products (cuBLAS / CUTLASS names; of which inside the
     attention core), the attention core's other kernels (decode's masks,
@@ -3584,7 +3616,7 @@ def dense_profile(fn) -> dict:
                 return f(*a, **k)
         return call
 
-    with patched(att, annotate, ATTN_CORE), profile(activities=[
+    with patched(att, annotate, core), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -3639,13 +3671,13 @@ def dense_profile(fn) -> dict:
 
 
 def attention_bound(B: int, H: int, Sq: int, Sk_used: int, D: int,
-                    nbytes: int):
+                    nbytes: int, Dv: int = None):
     """(ms, bound_by, bytes, ops) of attention over Sk_used keys a query
-    (the causal half where the mask asks for it): QK^T and PV at 2 ops a
-    multiply-add each, at the bf16 tensor-core rate; `nbytes` the inputs
-    read once (k and v at their KV heads) and the output written
-    once."""
-    nops = 4 * B * H * D * Sq * Sk_used
+    (the causal half where the mask asks for it): QK^T over D (Dq)
+    columns and PV over Dv (D where not given), at 2 ops a multiply-add
+    each, at the bf16 tensor-core rate; `nbytes` the inputs read once (k
+    and v at their KV heads) and the output written once."""
+    nops = 2 * B * H * Sq * Sk_used * (D + (Dv or D))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_TC_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, nops)
@@ -3725,9 +3757,18 @@ def time_attention(cap: dict, kv_heads: int) -> dict:
 # row's max floored at 2^-7 of the tensor's (a query whose only key is
 # itself has ds = p (dp - delta) = 0 up to the sums' order: its dq row is
 # rounding noise); f32 within 1e-5 of the max |value|; lse within 1e-5
+# (beside f32 keys split into bf16 parts, more: `flash_lse_tol`)
 FLASH_BF16_ROW = 2.0 ** -7
 FLASH_F32_TOL = 1e-5
 FLASH_LSE_TOL = 1e-5
+# MLA's f32 keys enter the bf16 kernel split into hi = bf16(k) and lo =
+# bf16(k - hi); what that drops is under 2^-17 |k| an element (k - hi is
+# under 2^-8 |k| and exact in f32; its rounding to bf16 is then under
+# 2^-17 |k|), so a score moves by under sc * 2^-17 * sum_d |q_d k_d|, and
+# lse, 1-Lipschitz in the scores, by under the largest such move over
+# the keys its row reads. A fixed bound cannot hold for that: it grows
+# with |q| |k|
+KEY_SPLIT_DROP = 2.0 ** -17
 
 
 def first_card_calls(seen: dict):
@@ -3774,19 +3815,52 @@ def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
             "max_abs": top, "ulp_apart_share": apart}
 
 
+def flash_lse_tol(q: torch.Tensor, k: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """Each row's lse tolerance [B,K,G,S] (f64): FLASH_LSE_TOL for the
+    f32 sums' rounding, and beside it, for f32 keys by a bf16 q (the
+    kernel's hi / lo split), sc * KEY_SPLIT_DROP * max_j sum_d |q_d k_jd|
+    over the keys j the row reads (causal, in the window)."""
+    B, K, G, S, Dq = q.shape
+    tol = torch.full((B, K, G, S), FLASH_LSE_TOL, dtype=torch.float64,
+                     device=q.device)
+    if k.dtype == q.dtype:
+        return tol
+    mags = torch.matmul(q.float().abs().reshape(B, K, G * S, Dq),
+                        k.abs().transpose(-1, -2)).view(B, K, G, S, -1)
+    gap = torch.arange(S, device=q.device)[:, None] - \
+        torch.arange(k.shape[2], device=q.device)[None, :]
+    reads = (gap >= 0) & ((gap < window) if window > 0 else True)
+    worst = mags.masked_fill(~reads, 0.0).amax(-1)
+    return tol + Dq ** -0.5 * KEY_SPLIT_DROP * worst.double()
+
+
+def lse_err(lse: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
+            k: torch.Tensor, window: int) -> dict:
+    """lse against the plain version's, row by row, in the units of
+    :func:`flash_lse_tol` (at most 1 to pass); raises past it or on a
+    non-finite value."""
+    diff = (lse.double() - want.double()).abs()
+    tol = flash_lse_tol(q, k, window)
+    worst = float((diff / tol).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"flash lse off by {worst:.4g} of its "
+                             f"tolerance (max |diff| {float(diff.max())})")
+    return {"lse_max_abs_diff": float(diff.max()), "lse_err": worst,
+            "lse_max_tol": float(tol.max())}
+
+
 def check_flash_fwd(args) -> dict:
     """`ops.flash_fwd` (the kernel on the card) against `flash_fwd_ref`
-    on the captured inputs (q, k, v, window, block_k): out and lse."""
+    on the captured inputs (q, k, v, window, block_k): out, and lse
+    within :func:`flash_lse_tol`."""
     out, lse = ops.flash_fwd(*args)
     want_out, want_lse = flash_fwd_ref(*args)
     sync(out.device)
-    res = {"shape": list(args[0].shape), "window": args[3],
-           "dtype": str(args[0].dtype).replace("torch.", ""),
-           "out": flash_err(out, want_out, "fwd out"),
-           "lse_max_abs_diff": float((lse - want_lse).abs().max())}
-    if not res["lse_max_abs_diff"] <= FLASH_LSE_TOL:
-        raise AssertionError(f"flash lse off by {res['lse_max_abs_diff']}")
-    return res
+    return {"shape": list(args[0].shape), "window": args[3],
+            "dtype": str(args[0].dtype).replace("torch.", ""),
+            "out": flash_err(out, want_out, "fwd out"),
+            **lse_err(lse, want_lse, args[0], args[1], args[3])}
 
 
 def check_flash_bwd(args) -> dict:
@@ -3896,8 +3970,9 @@ def log_flash(tag: str, which: str, chk: dict, t: dict, smi: str) -> None:
             f"{k} {v['err']:.3g}" + (f", {v['ulp_apart_share']:.4%} > 1 ulp"
                                      if v["ulp_apart_share"] is not None
                                      else "") for k, v in errs.items())
-        + (f"; lse {chk['lse_max_abs_diff']:.3g}" if "lse_max_abs_diff"
-           in chk else "") + f") | kernel {t['ms']:.5f} ms | plain "
+        + (f"; lse {chk['lse_max_abs_diff']:.3g}, {chk['lse_err']:.3g} of "
+           f"its tolerance" if "lse_max_abs_diff" in chk else "")
+        + f") | kernel {t['ms']:.5f} ms | plain "
         f"{t['plain_ms']:.4f} ms | bound {t['bound_ms']:.5f} ms by "
         f"{t['bound_by']} ({t['bytes']} B, {t['ops']:.4g} ops) | library "
         + (f"{t['library_ms']:.5f} ms" if t["library_ms"] is not None
@@ -5018,6 +5093,224 @@ def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
     out = {"serve": serve, "kernels": kernels, "parity": parity,
            "s": time.perf_counter() - t_phase}
     log(f"[moe] phase {out['s']:.2f} s")
+    return out
+
+
+# ----------------------------------------------------------------------
+# mla phase
+# ----------------------------------------------------------------------
+MLA_ARCH = "minicpm3-4b"
+# the attention core of MLA's prefill (flash over the expanded heads) and
+# of its absorbed decode step (plain torch over the latent cache)
+MLA_CORE = ("flash_attention", "mla_decode_attention")
+FLASH_KERNEL_NAMES = ("flash_split_kernel", "flash_fwd_wgmma_kernel")
+
+
+def mla_capture(step) -> dict:
+    """Run `step` (the MLA engine's prefill or decode) and return the
+    first call's inputs of `silu_gate`, `ops.flash_fwd` and the
+    attention core (`MLA_CORE`)."""
+    seen = {}
+    record = first_calls(seen)
+    with patched(att, record, MLA_CORE), \
+            patched(ops, record, ("flash_fwd", "silu_gate")):
+        step()
+    return seen
+
+
+def mla_serve(cfg, paper, dev) -> tuple:
+    """The mla phase's part (1): `serve_counted` with the MLA captures;
+    one silu_gate a layer a step, one flash_fwd a layer a prefill."""
+    def want_of(n_prefill, n_steps):
+        return ({"silu_gate": n_steps * cfg.n_layers,
+                 "flash_fwd": n_prefill * cfg.n_layers, "flash_bwd": 0,
+                 "rf_predict": 1, "ssd_chunk": 0, "silu": 0},
+                f"one silu_gate per layer per step ({n_steps} steps), one "
+                f"flash_fwd per layer per prefill ({n_prefill}) and none "
+                f"in decode (the absorbed step is plain torch), 1 "
+                f"rf_predict, no ssd_chunk or silu")
+    return serve_counted(cfg, paper, dev, mla_capture, DENSE_COUNTED,
+                         want_of)
+
+
+def kernel_ms_by_name(fn, names, calls: int = 10) -> dict:
+    """{name: {"ms": device ms a launch, "seen": launches}} of each
+    kernel in `names` (matched in the kernel's name) over `calls` calls
+    of `fn` under `torch.profiler`: each launch's own duration averaged
+    over the launches the profiler kept (it may drop some), so the
+    average does not depend on how many it kept."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                total[n] += (e.time_range.end - e.time_range.start) / 1e3
+                seen[n] += 1
+    return {n: {"ms": total[n] / seen[n] if seen[n] else None,
+                "seen": seen[n]} for n in names}
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend SDPA's dispatcher picks for causal attention on these
+    inputs (`torch._fused_sdp_choice`); the profiler cannot tell: a
+    cuDNN attention call's kernels do not show in its events."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v,
+                                                  is_causal=True)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as e:
+        return f"not read ({type(e).__name__})"
+
+
+def time_mla_flash(args) -> dict:
+    """`ops.flash_fwd` on MLA's captured inputs (q [B,H,1,S,Dq] bf16, k
+    [B,H,S,Dq] f32, v [B,H,S,Dv] bf16): device ms of the call (the key
+    split and the attention kernel, a CUDA graph of 20 calls, so the
+    wrapper's host work stays out; each kernel's share by the profiler),
+    of its plain version, and of SDPA on the same q, k rounded to bf16
+    and v, in turns with the kernel (the same function rounded
+    otherwise), its backend read from its kernels; beside the bound: q,
+    k (f32, the bytes of hi + lo), v read once, out and lse written once;
+    the products over the causal half, QK^T at Dq and PV at Dv, at the
+    bf16 tensor-core rate (`split_ops`: the kernel's own second QK^T, for
+    lo, which the function does not need)."""
+    q, k, v, window = args[:4]
+    B, H, G, S, Dq = q.shape
+    Dv = v.shape[3]
+    nbytes = q.numel() * 2 + k.numel() * 4 + v.numel() * 2 + \
+        B * H * G * S * (Dv * 2 + 4)
+    used = keys_used(S, window)
+    bms, by, nb, nops = attention_bound(B, H * G, S, used, Dq, nbytes, Dv=Dv)
+    qs, k16 = q[:, :, 0], k.to(torch.bfloat16)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, k16, v, is_causal=True)
+    err, mag, rel = sdpa_diff(ops.flash_fwd(*args)[0][:, :, 0], lib(),
+                              "mla prefill")
+    ms, lib_ms = kernel_and_library_ms(lambda: ops.flash_fwd(*args), lib)
+    return {"ms": ms, "library_ms": lib_ms,
+            "library_backend": sdpa_backend(qs, k16, v),
+            "by_kernel": kernel_ms_by_name(lambda: ops.flash_fwd(*args),
+                                           FLASH_KERNEL_NAMES),
+            "plain_ms": device_ms(lambda: flash_fwd_ref(*args), launches=2,
+                                  reps=3),
+            "sdpa_max_abs_diff": err, "sdpa_max_abs_out": mag,
+            "sdpa_max_row_rel_diff": rel,
+            "bound_ms": bms, "bound_by": by, "bytes": nb, "ops": nops,
+            "split_ops": 2 * B * H * G * S * used * Dq}
+
+
+def mla_phase(paper, dev, smi: str) -> dict:
+    """The mla phase (see the head comment); every check fatal."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    m = cfg.mla
+    serve, caps, eng, groups = mla_serve(cfg, paper, dev)
+    log(f"[mla] {MLA_ARCH} {cfg.n_layers} layers, {cfg.n_heads} heads "
+        f"(kv_lora {m.kv_lora_rank}, q_lora {m.q_lora_rank}, Dq "
+        f"{m.qk_nope_head_dim}+{m.qk_rope_head_dim}, Dv {m.v_head_dim}), "
+        f"{serve['params']} params on the card in {serve['init_s']:.1f} s; "
+        f"{serve['requests']} requests (prompts {serve['prompt_lens']}), "
+        f"{serve['tokens']} tokens in {serve['serve_s']:.3f} s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; launches "
+        f"{serve['launches']} (flash_fwd: {cfg.n_layers} a prefill x "
+        f"{len(groups)}; silu_gate: {cfg.n_layers} a step); replan "
+        f"{serve['replan_s'] * 1e3:.1f} ms, schedule {serve['schedule']} | "
+        f"{smi}")
+    log("[mla] prefill ms per group: " + ", ".join(
+        f"{p:.2f} (S={s})" for p, s in zip(serve["prefill_ms"],
+                                           serve["group_lens"]))
+        + f"; decode ms per step: median {serve['decode_ms_median']:.3f}, "
+        f"p90 {serve['decode_ms_p90']:.3f}; peak device memory "
+        f"{serve['peak_bytes'] / 2**30:.3f} GiB")
+    log("[mla] ids: " + "; ".join(f"{k}: {v[:6]}" for k, v in
+                                  sorted(serve["out"].items())[:3]))
+    # where the device time goes: group 1's prefill and 4 decode steps
+    # again under the profiler, the attention core in ranges
+    toks = eng.batch_tokens(groups[0])
+    prof = {"prefill": dense_profile(lambda: eng.prefill(toks), MLA_CORE)}
+    nxt = eng.prefill(toks)
+    prof["decode"] = dense_profile(lambda: [eng.decode(nxt)
+                                            for _ in range(PARITY_STEPS)],
+                                   MLA_CORE)
+    prof["prefill"]["busy_share"] = prof["prefill"]["device_ms"] / \
+        serve["prefill_ms"][0]
+    prof["decode"]["busy_share"] = prof["decode"]["device_ms"] / \
+        PARITY_STEPS / serve["decode_ms_median"]
+    prof["decode"]["kernels_per_step"] = prof["decode"]["kernels"] / \
+        PARITY_STEPS
+    serve["profile"] = prof
+    for phase, pr in prof.items():
+        log(f"[mla] profile {phase}: {pr['kernels']} device kernels, "
+            f"{pr['device_ms']:.2f} ms ({pr['busy_share']:.1%} of the "
+            f"untraced wall time), {pr['attention_ranges']} attention "
+            f"calls; by kind " + ", ".join(
+                f"{k} {v:.3f}" for k, v in pr["by_kind"].items()) +
+            "; top: " + ", ".join(f"{t['name']} x{t['count']} "
+                                  f"{t['ms']:.2f}" for t in pr["top"]))
+    # (2) the flash kernel on layer 0's inputs of both prefills (q, v
+    # bf16, k f32), twice equal, timed at group 1's
+    fargs = caps[0]["flash_fwd"][0]
+    q, k, v = fargs[:3]
+    if not (q.dtype == v.dtype == torch.bfloat16 and
+            k.dtype == torch.float32 and q.shape[-1] == m.qk_nope_head_dim +
+            m.qk_rope_head_dim and v.shape[-1] == m.v_head_dim):
+        raise AssertionError(f"mla flash inputs: q {q.dtype} "
+                             f"{tuple(q.shape)}, k {k.dtype}, v {v.dtype} "
+                             f"{tuple(v.shape)}")
+    fchecks = [check_flash_fwd(cap["flash_fwd"][0]) for cap in caps[:2]]
+    two_calls_equal(lambda: ops.flash_fwd(*fargs), "flash_fwd (mla)")
+    ft = time_mla_flash(fargs)
+    flash = {"checks": fchecks, "timing": ft,
+             "max_err": max(c["out"]["err"] for c in fchecks)}
+    serve["flash_fwd"] = flash
+    log_flash("mla", "fwd", fchecks[0], ft, smi)
+    log(f"[mla] flash_fwd {fchecks[1]['shape']} (group 2's prefill): out "
+        f"within {fchecks[1]['out']['err']:.3g} of the tolerance "
+        f"({fchecks[1]['out']['ulp_apart_share']:.4%} > 1 ulp), lse "
+        f"{fchecks[1]['lse_max_abs_diff']:.3g} ({fchecks[1]['lse_err']:.3g} "
+        f"of its tolerance, at most {fchecks[1]['lse_max_tol']:.3g} a row); "
+        f"two calls equal")
+    log("[mla] flash_fwd by kernel (ms a launch, the profiler's): " +
+        ", ".join(f"{n} {t['ms']:.5f} ({t['seen']} launches seen of "
+                  f"10)" if t["ms"] is not None else f"{n} not seen"
+                  for n, t in ft["by_kernel"].items()) +
+        f"; the split's second QK^T {ft['split_ops']:.4g} ops beyond the "
+        f"bound's; SDPA "
+        f"(q, bf16(k), v) {ft['library_ms']:.5f} ms by "
+        f"{ft['library_backend']}, largest row off "
+        f"{ft['sdpa_max_row_rel_diff']:.4g} of its max | {smi}")
+    # the SwiGLU gate bit-equal at both prefills and a decode step
+    gate_errs = [check_silu("silu_gate", *cap["silu_gate"]) for cap in caps]
+    serve["silu_gate_max_abs_err"] = max(gate_errs)
+    del eng, caps
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (3) parity: 2 layers in f32 (the f32 kernel at Dq 96, Dv 64)
+    parity = dense_parity(dev, [cfg])[MLA_ARCH]
+    log(f"[mla] parity {PARITY_LAYERS} layers f32, prompt "
+        f"{parity['prompt']} x{SERVE_BATCH}, prefill + {PARITY_STEPS} "
+        f"decode steps: logits within {PARITY_TOL} of the host (max |diff| "
+        f"{parity['max_abs_err']:.3e}, max |logit| "
+        f"{parity['max_abs_logit']:.3f}); ids equal on "
+        f"{parity['ids_compared']} clear top-2 gaps ({parity['ids_equal']} "
+        f"of {(PARITY_STEPS + 1) * SERVE_BATCH} equal in all); the card's "
+        f"first flash_fwd {parity['flash_fwd']['shape']} f32 within "
+        f"{parity['flash_fwd']['out']['err']:.3g} of its tolerance, lse "
+        f"{parity['flash_fwd']['lse_max_abs_diff']:.3g}; {parity['s']:.1f} s")
+    out = {"serve": serve, "parity": parity,
+           "s": time.perf_counter() - t_phase}
+    log(f"[mla] phase {out['s']:.2f} s")
     return out
 
 
@@ -7082,6 +7375,12 @@ def main() -> int:
     moe_res = moe_phase(paper, dev, smi, floor_ms)
     results["moe"] = moe_res
 
+    # 12d. mla: minicpm3-4b served at full size through flash_fwd's MLA
+    # form (Dq 96, Dv 64, f32 keys split hi / lo), the kernel against its
+    # plain version, SDPA and the bound, a 2-layer card-vs-host parity
+    mla = mla_phase(paper, dev, smi)
+    results["mla"] = mla
+
     # 13. train: h2o-danube-1.8b trained at full size through the
     # silu_gate kernels, the three dense archs' card-vs-host train step,
     # the 4-pod WANify Trainer; then mamba2-2.7b, zamba2-2.7b and
@@ -7101,6 +7400,7 @@ def main() -> int:
     ht = train["hybrid"]
     hk = hybrid["kernels"]
     mk = moe_res["kernels"]
+    mf = mla["serve"]["flash_fwd"]
     mt = train["moe"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
@@ -7193,6 +7493,15 @@ def main() -> int:
         "bound_ms": mk["flash_fwd"]["timing"]["bound_ms"],
         "bound_by": mk["flash_fwd"]["timing"]["bound_by"],
         "library_ms": mk["flash_fwd"]["timing"]["library_ms"]}, {
+        "name": "flash_fwd (mla, Dq=96, Dv=64, f32 keys)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:39",
+        "launches": mla["serve"]["launches"]["flash_fwd"],
+        "max_abs_err": max(c["out"]["max_abs_diff"] for c in mf["checks"]),
+        "ms": mf["timing"]["ms"], "plain_ms": mf["timing"]["plain_ms"],
+        "bound_ms": mf["timing"]["bound_ms"],
+        "bound_by": mf["timing"]["bound_by"],
+        "library_ms": mf["timing"]["library_ms"]}, {
         "name": "silu_gate (moe experts)", "route": "cuda",
         "source": "src/repro_torch/csrc/silu.cu",
         "replaces": "src/repro/models/moe.py:104",

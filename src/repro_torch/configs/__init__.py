@@ -15,6 +15,7 @@ _ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
 }
 
 # every architecture of the JAX package, ported or not

@@ -115,6 +115,26 @@
 // flash_fwd_f32_kernel, flash_delta_kernel, flash_bwd_dq_f32_kernel,
 // flash_bwd_dkdv_f32_kernel; every operand read through its strides (b,
 // kv head, g, row; unit stride along D), outputs dense.
+//
+// MLA (minicpm3-4b's prefill, mla_forward at src/repro/models/
+// attention.py:339) runs the forward with q and k of Dq columns and v and
+// out of Dv (96 and 64), and in bf16 runs with f32 keys beside bf16 q and
+// v: the reference's k_nope is an f32 product and the concatenation with
+// the rope key promotes the whole k, so its score product reads f32 keys.
+// flash_split_kernel first splits them, once a call, into hi = bf16(k)
+// and lo = bf16(k - hi) (dense scratch of k's bytes), and the forward
+// forms s = q . hi + q . lo into one f32 accumulator, the split the
+// backward uses for its f32 factors: what is dropped is under 2^-17 |k|
+// (the rope columns' lo is 0 and is multiplied all the same). q and k
+// take one column layout, v and out another: Dq = 96 as a 64-column
+// region and a 32-column tail of 64-byte rows (64-byte swizzle), Dv = 64
+// as one region (any Dq up to 96 beside f32 keys takes this layout, TMA
+// zero-filling the columns past it; at the served shape it took 4.6%
+// less time than the 128-column layout on an H100 80GB HBM3 at 700 W,
+// PERF.md section 6). Any Dq, Dv up to 128 without
+// the split take the 128-column instance for both, with TMA's zero fill
+// (D = 80 alone has its own). The f32 kernel takes Dv apart
+// from Dq as well. The backward keeps Dq == Dv and one dtype.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,7 +154,10 @@ struct View {
 };
 
 struct Shape {
-  int B, K, G, S, D, window;
+  int B, K, G, S;
+  int D;      // q's and k's head dim (Dq)
+  int Dv;     // v's and out's (the backward's D too)
+  int window;
   float sc;
   float sl;   // sc * log2(e)
 };
@@ -162,20 +185,26 @@ constexpr int kKvN = 128, kKvQ = 64;     // dk / dv: keys, query rows
 
 // The shared-memory layout of a tile of R rows of D columns: NR regions
 // of 64 columns (128-byte rows, 128-byte swizzle), region r at
-// r * R * 128 bytes, then TL tail columns (16: 32-byte rows, 32-byte
-// swizzle) at NR * R * 128.
+// r * R * 128 bytes, then TL tail columns at NR * R * 128: 16 (32-byte
+// rows, 32-byte swizzle) or 32 (64-byte rows, 64-byte swizzle; K-major
+// operands only: MLA's Dq = 96 as 64 + 32).
+__host__ __device__ constexpr int row_bytes(int nr, int tl) {
+  return nr * 128 + tl * 2;
+}
 template <int NR, int TL>
 struct Cols {
-  static constexpr int kRow = NR * 128 + TL * 2;      // bytes a row
+  static_assert(TL == 0 || TL == 16 || TL == 32, "a tail of 16 or 32");
+  static constexpr int kRow = row_bytes(NR, TL);       // bytes a row
   static constexpr int kSteps = NR * 4 + TL / 16;     // k16 steps over D
 };
 
 // the tensor maps of the operands and outputs: [op][0] D in boxes of 64
-// columns, [op][1] the tail's box of 16 (D = 80); o0 is out, dq or dk,
-// o1 dv
-enum { kMq = 0, kMk = 1, kMv = 2, kMg = 3, kMo0 = 4, kMo1 = 5 };
+// columns, [op][1] the tail's box (16 columns, D = 80; 32, Dq = 96); o0
+// is out, dq or dk, o1 dv; k2 the lo part of split f32 keys (k is then
+// their hi part)
+enum { kMq = 0, kMk = 1, kMv = 2, kMg = 3, kMo0 = 4, kMo1 = 5, kMk2 = 6 };
 struct Maps {
-  CUtensorMap t[6][2];
+  CUtensorMap t[7][2];
 };
 
 // ---- PTX wrappers ------------------------------------------------------
@@ -296,7 +325,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[NR]) {
 // leading byte offset 1 (unused: one swizzle atom spans the product's K
 // (K-major) or N (MN-major) extent here), stride byte offset `sbo` (the
 // next 8-row group), layout type in bits 62-63.
-constexpr uint64_t kSw128 = 1ull << 62, kSw32 = 3ull << 62;
+constexpr uint64_t kSw128 = 1ull << 62, kSw64 = 2ull << 62,
+                   kSw32 = 3ull << 62;
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
                                               uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
@@ -305,19 +335,23 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
 
 // K-major operand: the rows of a tile of R rows from `row` on (64 of them
 // as A; as B, as many as the product's N), k16 step kk over D. Within a
-// 128-byte swizzle atom a step is the start address plus 32 bytes.
+// 128-byte (64-byte) swizzle atom a step is the start address plus 32
+// bytes.
 template <int NR, int TL>
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int R, int row,
                                            int kk) {
   if (kk < NR * 4)
     return make_desc(tile + (kk >> 2) * R * 128 + row * 128 + (kk & 3) * 32,
                      1024, kSw128);
+  if (TL == 32)
+    return make_desc(tile + NR * R * 128 + row * 64 + (kk - NR * 4) * 32,
+                     512, kSw64);
   return make_desc(tile + NR * R * 128 + row * 32, 256, kSw32);
 }
 
 // MN-major B operand: rows [16 j, 16 j + 16) of a tile of R rows (the
 // product's K), the 64 columns of region r (N), or the 16 tail columns
-// for r == NR
+// for r == NR (a tail of 16 only)
 template <int NR>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int R, int r,
                                             int j) {
@@ -644,18 +678,29 @@ struct FwdArgs {
 // ----------------------------------------------------------------------
 // bf16: forward
 // ----------------------------------------------------------------------
-template <int NR, int TL>
+// q and k laid out as Cols<NRQ, TLQ>, v and out as Cols<NRV, TLV>; with
+// SPLIT, k is read as two bf16 tiles a key tile, hi and lo (f32 keys
+// split by flash_split_kernel), and s = q . hi + q . lo in one f32
+// accumulator. out is staged in the q tile, each consumer in its own rows
+// (so its regions must lie inside q's).
+template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
 __global__ void __launch_bounds__(kThreadsWS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps,
                            const FwdArgs a) {
-  using L = Cols<NR, TL>;
-  constexpr uint32_t kQBytes = kFwdQ * L::kRow, kKVBytes = kFwdN * L::kRow;
+  using LQ = Cols<NRQ, TLQ>;
+  static_assert(TLV == 0 || TLV == 16, "v's tail is 16 columns or none");
+  static_assert(NRV <= NRQ && (TLV == 0 || (NRV == NRQ && TLV == TLQ)),
+                "out's regions must lie inside q's");
+  constexpr int kParts = SPLIT ? 2 : 1;    // k tiles a key tile
+  constexpr uint32_t kQBytes = kFwdQ * LQ::kRow, kKBytes = kFwdN * LQ::kRow,
+                     kVBytes = kFwdN * row_bytes(NRV, TLV);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = align1024(smem_u32(smem_raw));      // [2]
-  const uint32_t sK = sQ + 2 * kQBytes, sV = sK + kStages * kKVBytes;
+  const uint32_t sK = sQ + 2 * kQBytes;                    // [stage][part]
+  const uint32_t sV = sK + kStages * kParts * kKBytes;
   // mbarriers: q full, q empty (a pair each: the next item's q loads
   // during this one), then per stage k full, v full, empty
-  const uint32_t bars = sV + kStages * kKVBytes;
+  const uint32_t bars = sV + kStages * kVBytes;
   const uint32_t q_full = bars, q_empty = bars + 16;
   const uint32_t k_full = bars + 32, v_full = k_full + 8 * kStages,
                  empty = v_full + 8 * kStages;
@@ -685,17 +730,21 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
         const uint32_t qf = q_full + 8 * (it & 1);
         mbar_wait(q_empty + 8 * (it & 1), ((it >> 1) & 1) ^ 1);
         mbar_expect_tx(qf, kQBytes);
-        tma_tile<NR, TL, kFwdQ>(sQ + (it & 1) * kQBytes, maps, kMq, qf, w.q0,
-                                w.g, w.h, w.b);
+        tma_tile<NRQ, TLQ, kFwdQ>(sQ + (it & 1) * kQBytes, maps, kMq, qf,
+                                  w.q0, w.g, w.h, w.b);
         for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
           const int s = c % kStages;
+          const uint32_t kt = sK + s * kParts * kKBytes;
           mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
-          mbar_expect_tx(k_full + 8 * s, kKVBytes);
-          tma_tile<NR, TL, kFwdN>(sK + s * kKVBytes, maps, kMk,
-                                  k_full + 8 * s, t * kFwdN, 0, w.h, w.b);
-          mbar_expect_tx(v_full + 8 * s, kKVBytes);
-          tma_tile<NR, TL, kFwdN>(sV + s * kKVBytes, maps, kMv,
-                                  v_full + 8 * s, t * kFwdN, 0, w.h, w.b);
+          mbar_expect_tx(k_full + 8 * s, kParts * kKBytes);
+          tma_tile<NRQ, TLQ, kFwdN>(kt, maps, kMk, k_full + 8 * s, t * kFwdN,
+                                    0, w.h, w.b);
+          if (SPLIT)
+            tma_tile<NRQ, TLQ, kFwdN>(kt + kKBytes, maps, kMk2,
+                                      k_full + 8 * s, t * kFwdN, 0, w.h, w.b);
+          mbar_expect_tx(v_full + 8 * s, kVBytes);
+          tma_tile<NRV, TLV, kFwdN>(sV + s * kVBytes, maps, kMv,
+                                    v_full + 8 * s, t * kFwdN, 0, w.h, w.b);
         }
       }
     }
@@ -712,9 +761,9 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     const QItem w = q_item(sh, z, rank, a.nqt, kFwdQ, kFwdN);
     const int rlo = w.q0 + cw * 64, rhi = rlo + 63;
     const int r0 = rlo + 16 * warp + (lane >> 2), r1 = r0 + 8;
-    float o[NR][32], ot[8];
+    float o[NRV][32], ot[8];
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
+    for (int r = 0; r < NRV; ++r)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[r][i] = 0.f;
 #pragma unroll
@@ -726,15 +775,21 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
       const int s = c % kStages;
       const unsigned ph = (c / kStages) & 1;
-      const uint32_t kt = sK + s * kKVBytes, vt = sV + s * kKVBytes;
+      const uint32_t kt = sK + s * kParts * kKBytes, vt = sV + s * kVBytes;
       const int k0 = t * kFwdN;
       float x[64];
       mbar_wait(k_full + 8 * s, ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < L::kSteps; ++kk)
-        wgmma_ss_n128(x, kmajor<NR, TL>(qt, kFwdQ, cw * 64, kk),
-                      kmajor<NR, TL>(kt, kFwdN, 0, kk), kk);
+      for (int kk = 0; kk < LQ::kSteps; ++kk)
+        wgmma_ss_n128(x, kmajor<NRQ, TLQ>(qt, kFwdQ, cw * 64, kk),
+                      kmajor<NRQ, TLQ>(kt, kFwdN, 0, kk), kk);
+      if (SPLIT) {
+#pragma unroll
+        for (int kk = 0; kk < LQ::kSteps; ++kk)
+          wgmma_ss_n128(x, kmajor<NRQ, TLQ>(qt, kFwdQ, cw * 64, kk),
+                        kmajor<NRQ, TLQ>(kt + kKBytes, kFwdN, 0, kk), 1);
+      }
       wgmma_commit_wait();
       fence_regs(x);
       // mask a tile that crosses the diagonal or the window's edge: key
@@ -773,7 +828,7 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
       l0 = l0 * c0 + s0;
       l1 = l1 * c1 + s1;
 #pragma unroll
-      for (int r = 0; r < NR; ++r)
+      for (int r = 0; r < NRV; ++r)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[r][i] *= (i & 2) ? c1 : c0;
 #pragma unroll
@@ -783,20 +838,20 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
       to_frags(x, pa);
       mbar_wait(v_full + 8 * s, ph);
 #pragma unroll
-      for (int r = 0; r < NR; ++r) fence_regs(o[r]);
-      if (TL) fence_regs(ot);
+      for (int r = 0; r < NRV; ++r) fence_regs(o[r]);
+      if (TLV) fence_regs(ot);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kFwdN / 16; ++j) {
 #pragma unroll
-        for (int r = 0; r < NR; ++r)
-          wgmma_rs_n64(o[r], pa + 4 * j, mnmajor<NR>(vt, kFwdN, r, j));
-        if (TL) wgmma_rs_n16(ot, pa + 4 * j, mnmajor<NR>(vt, kFwdN, NR, j));
+        for (int r = 0; r < NRV; ++r)
+          wgmma_rs_n64(o[r], pa + 4 * j, mnmajor<NRV>(vt, kFwdN, r, j));
+        if (TLV) wgmma_rs_n16(ot, pa + 4 * j, mnmajor<NRV>(vt, kFwdN, NRV, j));
       }
       wgmma_commit_wait();
 #pragma unroll
-      for (int r = 0; r < NR; ++r) fence_regs(o[r]);
-      if (TL) fence_regs(ot);
+      for (int r = 0; r < NRV; ++r) fence_regs(o[r]);
+      if (TLV) fence_regs(ot);
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
     // the row sums over the quad, then out (acc / l, through the q tile
@@ -804,11 +859,11 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
     const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-    stage_rows<NR, TL, kFwdQ, true>(qt, cw, warp, lane, o, ot, ls0, ls1);
+    stage_rows<NRV, TLV, kFwdQ, true>(qt, cw, warp, lane, o, ot, ls0, ls1);
     fence_async_smem();
     wg_sync(cw);
     if (tid == 0) {
-      store_rows<NR, TL, kFwdQ>(qt, maps, kMo0, cw, w.q0, w.g, w.h, w.b);
+      store_rows<NRV, TLV, kFwdQ>(qt, maps, kMo0, cw, w.q0, w.g, w.h, w.b);
       tma_store_read_wait();
       mbar_arrive(q_empty + 8 * (it & 1));
     }
@@ -816,6 +871,32 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     const long long zrow = static_cast<long long>(w.z) * sh.S;
     if (cp == 0 && r0 < sh.S) a.lse[zrow + r0] = m0 * sh.sc + logf(ls0);
     if (cp == 0 && r1 < sh.S) a.lse[zrow + r1] = m1 * sh.sc + logf(ls1);
+  }
+}
+
+// f32 keys [B,K,S,D] (read through their strides) as two dense bf16
+// arrays, hi = bf16(k) and lo = bf16(k - hi): k - hi is exact in f32, and
+// what lo drops is under 2^-17 |k|. A warp a row, lanes over D.
+__global__ void __launch_bounds__(256)
+    flash_split_kernel(const float* __restrict__ k, View kv,
+                       bf16* __restrict__ hi, bf16* __restrict__ lo,
+                       Shape sh) {
+  const long long rows = static_cast<long long>(sh.B) * sh.K * sh.S;
+  const long long step = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  for (long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x) >> 5;
+       row < rows; row += step) {
+    const int s = static_cast<int>(row % sh.S);
+    const long long bh = row / sh.S;
+    const int h = static_cast<int>(bh % sh.K), b = static_cast<int>(bh / sh.K);
+    const float* src = k + b * kv.b + h * kv.h + s * kv.s;
+    for (int d = lane; d < sh.D; d += 32) {
+      const float x = src[d];
+      const bf16 xh = __float2bfloat16_rn(x);
+      hi[row * sh.D + d] = xh;
+      lo[row * sh.D + d] = __float2bfloat16_rn(x - __bfloat162float(xh));
+    }
   }
 }
 
@@ -1317,12 +1398,12 @@ __global__ void __launch_bounds__(kRows * 32)
                          const float* __restrict__ v, float* __restrict__ out,
                          float* __restrict__ lse, Shape sh, View qv, View kv,
                          View vv) {
-  const int D = sh.D, S = sh.S, SD = D + 1;
+  const int D = sh.D, Dv = sh.Dv, S = sh.S, SD = D + 1, SV = Dv + 1;
   extern __shared__ float fsm[];
   float* Qs = fsm;                   // [kRows][D]
   float* Ks = Qs + kRows * D;        // [kT][SD]
-  float* Vs = Ks + kT * SD;          // [kT][SD]
-  float* Ps = Vs + kT * SD;          // [kRows][kT]
+  float* Vs = Ks + kT * SD;          // [kT][SV]
+  float* Ps = Vs + kT * SV;          // [kRows][kT]
   const int nblk = (S + kRows - 1) / kRows;
   const int i0 = (nblk - 1 - blockIdx.x) * kRows;
   const int z = blockIdx.y;
@@ -1342,7 +1423,7 @@ __global__ void __launch_bounds__(kRows * 32)
   for (int kt0 = (klo / kT) * kT; kt0 < khi; kt0 += kT) {
     __syncthreads();
     load_rows_f32(Ks, kb, kv.s, kt0, kT, S, D, SD);
-    load_rows_f32(Vs, vb, vv.s, kt0, kT, S, D, SD);
+    load_rows_f32(Vs, vb, vv.s, kt0, kT, S, Dv, SV);
     __syncthreads();
     const int kj = kt0 + lane;
     float s = 0.f;
@@ -1358,9 +1439,9 @@ __global__ void __launch_bounds__(kRows * 32)
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) {
+      if (d < Dv) {
         float pv = 0.f;
-        for (int j = 0; j < kT; ++j) pv = fmaf(Ps[w * kT + j], Vs[j * SD + d], pv);
+        for (int j = 0; j < kT; ++j) pv = fmaf(Ps[w * kT + j], Vs[j * SV + d], pv);
         acc[c] = acc[c] * corr + pv;
       }
     }
@@ -1371,7 +1452,7 @@ __global__ void __launch_bounds__(kRows * 32)
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) out[zr * D + d] = acc[c] / l_safe;
+      if (d < Dv) out[zr * Dv + d] = acc[c] / l_safe;
     }
     if (lane == 0) lse[zr] = m + logf(l_safe);
   }
@@ -1577,22 +1658,22 @@ EncodeFn encoder() {
 // Errors of the tensor maps' encoding come back as -(1000 + CUresult).
 constexpr int kMapError = 1000;
 
-// A bf16 operand of G query groups (1 for k and v), element strides `v`,
-// as a rank-5 map (D, row, g, kv head, b) with boxes of 64 rows and
+// A bf16 operand of D columns and G query groups (1 for k and v),
+// element strides `v`, as a rank-5 map (D, row, g, kv head, b) with boxes of 64 rows and
 // `cols` columns swizzled `sw`; a stride of 0 (a dim of size 1) becomes
 // a legal one, never stepped.
-int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int G,
+int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int D, int G,
            const View& v, int cols, CUtensorMapSwizzle sw) {
   EncodeFn fn = encoder();
   if (fn == nullptr) return -kMapError;
   const cuuint64_t dims[5] = {
-      static_cast<cuuint64_t>(sh.D), static_cast<cuuint64_t>(sh.S),
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(sh.S),
       static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(sh.K),
       static_cast<cuuint64_t>(sh.B)};
   const long long el[4] = {v.s, v.g, v.h, v.b};
   cuuint64_t strides[4];
   for (int i = 0; i < 4; ++i)
-    strides[i] = static_cast<cuuint64_t>(el[i] ? el[i] : sh.D) * 2;
+    strides[i] = static_cast<cuuint64_t>(el[i] ? el[i] : D) * 2;
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(cols), kBox, 1, 1, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r =
@@ -1603,30 +1684,35 @@ int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int G,
   return r == CUDA_SUCCESS ? 0 : -(kMapError + static_cast<int>(r));
 }
 
-// both maps of one operand: the 64-column boxes, and the tail's box for
-// TL = 16
+// both maps of one operand of D columns: the 64-column boxes, and the
+// tail's box for TL = 16 (32-byte swizzle) or 32 (64-byte swizzle)
 template <int TL>
 int encode_operand(CUtensorMap (&m)[2], const void* ptr, const Shape& sh,
-                   int G, const View& v) {
-  int err = encode(&m[0], ptr, sh, G, v, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+                   int D, int G, const View& v) {
+  int err = encode(&m[0], ptr, sh, D, G, v, 64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == 0 && TL)
-    err = encode(&m[1], ptr, sh, G, v, TL, CU_TENSOR_MAP_SWIZZLE_32B);
+    err = encode(&m[1], ptr, sh, D, G, v, TL,
+                 TL == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B);
   return err;
 }
 
-// the element strides of a dense output [B,K,G,S,D]
-View dense(const Shape& sh, int G) {
-  const long long row = sh.D, g = row * sh.S, h = g * G, b = h * sh.K;
+// the element strides of a dense [B,K,G,S,D] (G = 1: [B,K,S,D])
+View dense(const Shape& sh, int D, int G) {
+  const long long row = D, g = row * sh.S, h = g * G, b = h * sh.K;
   return View{b, h, G > 1 ? g : 0, row};
 }
 
 constexpr size_t kBarBytes = 128;   // the mbarriers, padded
 constexpr size_t kAlignSlack = 1024;
 
-template <int NR, int TL>
+template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
 size_t fwd_smem() {
-  const size_t row = Cols<NR, TL>::kRow;
-  return kAlignSlack + (2 * kFwdQ + 2 * kStages * kFwdN) * row + kBarBytes;
+  return kAlignSlack +
+         (2 * kFwdQ + (SPLIT ? 2 : 1) * kStages * kFwdN) *
+             static_cast<size_t>(Cols<NRQ, TLQ>::kRow) +
+         kStages * kFwdN * static_cast<size_t>(row_bytes(NRV, TLV)) +
+         kBarBytes;
 }
 template <int NR, int TL>
 size_t dq_smem() {
@@ -1650,20 +1736,28 @@ int grid_for(int items, int* grid) {
   return static_cast<int>(err);
 }
 
-template <int NR, int TL>
-int fwd_bf16(const void* q, const void* k, const void* v, void* out,
-             float* lse, const Shape& sh, const long long* st,
+// q, k (or, with SPLIT, k's hi part and k_lo: dense [B,K,S,Dq] bf16 each)
+// and v into out and lse, one launch
+template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
+int fwd_bf16(const void* q, const void* k, const void* k_lo, const void* v,
+             void* out, float* lse, const Shape& sh, const long long* st,
              cudaStream_t stream) {
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  int err = encode_operand<TL>(maps.t[kMq], q, sh, sh.G, view_of(st));
-  if (!err) err = encode_operand<TL>(maps.t[kMk], k, sh, 1, view_of(st + 4));
-  if (!err) err = encode_operand<TL>(maps.t[kMv], v, sh, 1, view_of(st + 8));
-  if (!err) err = encode_operand<TL>(maps.t[kMo0], out, sh, sh.G, dense(sh, sh.G));
+  int err = encode_operand<TLQ>(maps.t[kMq], q, sh, sh.D, sh.G, view_of(st));
+  const View kview = SPLIT ? dense(sh, sh.D, 1) : view_of(st + 4);
+  if (!err) err = encode_operand<TLQ>(maps.t[kMk], k, sh, sh.D, 1, kview);
+  if (!err && SPLIT)
+    err = encode_operand<TLQ>(maps.t[kMk2], k_lo, sh, sh.D, 1, kview);
+  if (!err)
+    err = encode_operand<TLV>(maps.t[kMv], v, sh, sh.Dv, 1, view_of(st + 8));
+  if (!err)
+    err = encode_operand<TLV>(maps.t[kMo0], out, sh, sh.Dv, sh.G,
+                              dense(sh, sh.Dv, sh.G));
   if (err) return err;
   const FwdArgs a{lse, sh, (sh.S + kFwdQ - 1) / kFwdQ};
-  auto kern = flash_fwd_wgmma_kernel<NR, TL>;
-  const size_t smem = fwd_smem<NR, TL>();
+  auto kern = flash_fwd_wgmma_kernel<NRQ, TLQ, NRV, TLV, SPLIT>;
+  const size_t smem = fwd_smem<NRQ, TLQ, NRV, TLV, SPLIT>();
   int grid = 0;
   err = static_cast<int>(allow_smem(kern, smem));
   if (!err) err = grid_for(a.nqt * sh.B * sh.K * sh.G, &grid);
@@ -1679,16 +1773,20 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* g,
              cudaStream_t stream) {
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  int err = encode_operand<TL>(maps.t[kMq], q, sh, sh.G, view_of(st));
-  if (!err) err = encode_operand<TL>(maps.t[kMk], k, sh, 1, view_of(st + 4));
-  if (!err) err = encode_operand<TL>(maps.t[kMv], v, sh, 1, view_of(st + 8));
+  const int D = sh.D;
+  int err = encode_operand<TL>(maps.t[kMq], q, sh, D, sh.G, view_of(st));
+  if (!err) err = encode_operand<TL>(maps.t[kMk], k, sh, D, 1, view_of(st + 4));
+  if (!err) err = encode_operand<TL>(maps.t[kMv], v, sh, D, 1, view_of(st + 8));
   if (!err)
-    err = encode_operand<TL>(maps.t[kMg], g, sh, sh.G, view_of(st + 12));
-  if (!err) err = encode_operand<TL>(maps.t[kMo0], dq, sh, sh.G, dense(sh, sh.G));
+    err = encode_operand<TL>(maps.t[kMg], g, sh, D, sh.G, view_of(st + 12));
+  if (!err)
+    err = encode_operand<TL>(maps.t[kMo0], dq, sh, D, sh.G,
+                             dense(sh, D, sh.G));
   if (err) return err;
   Maps kv_maps = maps;   // dk and dv as the dk / dv kernel's outputs
-  err = encode_operand<TL>(kv_maps.t[kMo0], dk, sh, 1, dense(sh, 1));
-  if (!err) err = encode_operand<TL>(kv_maps.t[kMo1], dv, sh, 1, dense(sh, 1));
+  err = encode_operand<TL>(kv_maps.t[kMo0], dk, sh, D, 1, dense(sh, D, 1));
+  if (!err)
+    err = encode_operand<TL>(kv_maps.t[kMo1], dv, sh, D, 1, dense(sh, D, 1));
   if (err) return err;
   auto kdq = flash_bwd_dq_wgmma_kernel<NR, TL>;
   auto kkv = flash_bwd_dkdv_wgmma_kernel<NR, TL>;
@@ -1712,27 +1810,51 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. `strides` holds 4 element strides (batch, kv
-// head, query group, row) per operand: q, k, v for the forward; q, k, v,
-// g, out for the backward (k's and v's group stride is unused). Rows
-// are unit-stride along D; for bf16 every row start is 16-byte aligned
-// (the wrapper checks). out [B,K,G,S,D], lse and delta [B,K,G,S], dq
-// [B,K,G,S,D], dk and dv [B,K,S,D] are dense. Each returns
+// dtype: 0 = f32, 1 = bf16 (q's and v's; k's too unless k_hi is given).
+// `strides` holds 4 element strides (batch, kv head, query group, row)
+// per operand: q, k, v for the forward; q, k, v, g, out for the backward
+// (k's and v's group stride is unused). Rows are unit-stride along the
+// head dim; for bf16 every row start is 16-byte aligned (the wrapper
+// checks). The forward's q and k have Dq columns, v and out Dv; the
+// backward's all D. out [B,K,G,S,Dv], lse and delta [B,K,G,S], dq
+// [B,K,G,S,D], dk and dv [B,K,S,D] are dense. k_hi and k_lo, where given
+// (bf16 q and v beside f32 k: MLA's keys), are scratch of [B,K,S,Dq] bf16
+// each, into which the forward first splits k (flash_split_kernel; Dq at
+// most 96, laid out as 64 + 32 columns, and Dv at most 64). Each returns
 // cudaGetLastError() (0 = launched), or below 0 where a tensor map could
 // not be encoded (flash_error_string says which).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, int B, int K, int G,
-                                int S, int D, int window, float sc,
+                                void* out, void* lse, void* k_hi,
+                                void* k_lo, int B, int K, int G, int S,
+                                int Dq, int Dv, int window, float sc,
                                 int dtype, const long long* strides,
                                 void* stream) {
-  const Shape sh{B, K, G, S, D, window, sc, sc * kLog2e};
+  const Shape sh{B, K, G, S, Dq, Dv, window, sc, sc * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1) {
-    if (D == 80) return fwd_bf16<1, 16>(q, k, v, out, l, sh, strides, st);
-    return fwd_bf16<2, 0>(q, k, v, out, l, sh, strides, st);
+  if (dtype == 1 && k_hi != nullptr) {
+    if (Dq > 96 || Dv > 64) return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows = static_cast<long long>(B) * K * S;
+    const unsigned blocks =
+        static_cast<unsigned>(rows / 8 + 1 < (1 << 20) ? rows / 8 + 1
+                                                       : (1 << 20));
+    flash_split_kernel<<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(k), view_of(strides + 4),
+        static_cast<bf16*>(k_hi), static_cast<bf16*>(k_lo), sh);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return fwd_bf16<1, 32, 1, 0, true>(q, k_hi, k_lo, v, out, l, sh,
+                                       strides, st);
   }
-  const size_t smem = (size_t)(kRows * D + 2 * kT * (D + 1) + kRows * kT) * 4;
+  if (dtype == 1) {
+    if (Dq == 80 && Dv == 80)
+      return fwd_bf16<1, 16, 1, 16, false>(q, k, nullptr, v, out, l, sh,
+                                           strides, st);
+    return fwd_bf16<2, 0, 2, 0, false>(q, k, nullptr, v, out, l, sh, strides,
+                                       st);
+  }
+  const size_t smem =
+      (size_t)(kRows * Dq + kT * (Dq + 1) + kT * (Dv + 1) + kRows * kT) * 4;
   cudaError_t err = allow_smem(flash_fwd_f32_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kRows - 1) / kRows, B * K * G);
@@ -1750,7 +1872,7 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
                                 int S, int D, int window, float sc,
                                 int dtype, const long long* strides,
                                 void* stream) {
-  const Shape sh{B, K, G, S, D, window, sc, sc * kLog2e};
+  const Shape sh{B, K, G, S, D, D, window, sc, sc * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);

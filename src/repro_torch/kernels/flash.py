@@ -1,5 +1,6 @@
 """Flash attention of the dense family (the forward and the custom VJP's
-backward): the hand-written CUDA kernels' binding.
+backward; the forward also MLA's, Dq != Dv with f32 keys): the
+hand-written CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/flash_attn.cu`; its head comment
 says which function of the JAX package it replaces, what bounds it and
@@ -21,7 +22,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.silu import _on_device
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-D_STEP, D_MAX = 16, 128        # D a multiple of 16, at most 128
+D_STEP, D_MAX = 16, 128        # head dims a multiple of 16, at most 128
+DQ_MAX_F32_KEYS = 96           # Dq beside f32 keys (the 64 + 32 layout)
+DV_MAX_F32_KEYS = 64           # Dv beside f32 keys (the bf16 kernel's smem)
 MAX_HEADS = 65535              # B * K * G: the f32 kernels' grid y
 
 _P = ctypes.c_void_p
@@ -33,8 +36,8 @@ _STRIDES = ctypes.c_longlong * 20
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     if not getattr(lib, "_typed", False):
-        lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _I, _F, _I, _P, _P]
+        lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _I, _I, _F, _I, _P, _P]
         lib.flash_fwd_launch.restype = _I
         lib.flash_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -44,6 +47,23 @@ def _lib() -> ctypes.CDLL:
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def check_dims(Dq: int, Dv: int, f32_keys: bool) -> None:
+    """Raise unless the card's kernels take head dims Dq (q, k) and Dv
+    (v, out): each a multiple of 16 up to 128, and beside f32 keys
+    (`f32_keys`) Dq at most 96 (the one instance laid out for them, 64 +
+    32 columns) and Dv at most 64 (their hi and lo tiles, q's and v's
+    take two stages of shared memory). The plain versions take any."""
+    for name, d in (("Dq", Dq), ("Dv", Dv)):
+        if d % D_STEP or not 0 < d <= D_MAX:
+            raise ValueError(f"head dim {name} = {d}: the card's kernels "
+                             f"take a multiple of {D_STEP} up to {D_MAX}")
+    for name, d, most in (("Dq", Dq, DQ_MAX_F32_KEYS),
+                          ("Dv", Dv, DV_MAX_F32_KEYS)):
+        if f32_keys and d > most:
+            raise ValueError(f"head dim {name} = {d} beside f32 keys: the "
+                             f"card's kernel takes at most {most}")
 
 
 def operand_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
@@ -80,16 +100,24 @@ def _strides(*views) -> "ctypes.Array":
 def launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, window: int,
                views) -> None:
-    """out [B,K,G,S,D] (dense, v's dtype) and lse [B,K,G,S] (dense, f32)
-    of causal attention, one launch on the current stream of q's device;
-    inputs are checked by the caller (`views`: q's, k's and v's
-    :func:`operand_strides`)."""
-    B, K, G, S, D = q.shape
+    """out [B,K,G,S,Dv] (dense, v's dtype) and lse [B,K,G,S] (dense, f32)
+    of causal attention on the current stream of q's device; inputs are
+    checked by the caller (`views`: q's, k's and v's
+    :func:`operand_strides`). One kernel, or, for f32 keys beside a bf16
+    q, two: the split of k into bf16 hi and lo (dense, into a scratch
+    buffer of k's bytes), then the attention reading both."""
+    B, K, G, S, Dq = q.shape
+    Dv = v.shape[3]
     strides = _strides(*views)
+    hi = lo = None
+    if k.dtype != q.dtype:
+        parts = torch.empty((2,) + tuple(k.shape), dtype=torch.bfloat16,
+                            device=k.device)
+        hi, lo = parts[0].data_ptr(), parts[1].data_ptr()
     _check(_on_device(q.device, _lib().flash_fwd_launch, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), B, K, G, S, D, window, D ** -0.5,
-                      DTYPES[q.dtype], ctypes.addressof(strides)),
+                      lse.data_ptr(), hi, lo, B, K, G, S, Dq, Dv, window,
+                      Dq ** -0.5, DTYPES[q.dtype], ctypes.addressof(strides)),
            "flash_fwd")
 
 

@@ -806,11 +806,15 @@ fill_rates.launches = 0
 # ----------------------------------------------------------------------
 # flash attention
 # ----------------------------------------------------------------------
-def _check_flash(q, k, v, window: int, **more) -> None:
-    """q [B,K,G,S,D], k and v [B,K,S,D] of one dtype (f32 or bf16) and
-    device (cuda or cpu), D a multiple of 16 up to 128, Dq == Dv, Sq ==
-    Sk, window >= 0; `more` (g, out: q's shape and dtype; lse: f32
-    [B,K,G,S]) alike."""
+def _check_flash(q, k, v, window: int, backward: bool = False,
+                 **more) -> None:
+    """q [B,K,G,S,Dq], k [B,K,S,Dq] and v [B,K,S,Dv] of one dtype (f32
+    or bf16), or the MLA form: q and v bf16, k f32; one device (cuda or
+    cpu); Sq == Sk, window >= 0; on the card each head dim a multiple of
+    16 up to 128 (`flash.check_dims`; the plain versions take any).
+    `more` (g, out: q's shape with Dv columns, q's dtype; lse: f32
+    [B,K,G,S]) alike. The backward (`backward`) takes Dq == Dv and one
+    dtype: MLA's is not ported yet."""
     tensors = dict(q=q, k=k, v=v, **more)
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -824,26 +828,35 @@ def _check_flash(q, k, v, window: int, **more) -> None:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         want = torch.float32 if name == "lse" else q.dtype
-        if t.dtype != want:
+        mla_keys = name == "k" and q.dtype == torch.bfloat16 and \
+            t.dtype == torch.float32
+        if t.dtype != want and not mla_keys:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"expected q [B,K,G,S,D], k and v [B,K,S,D]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"expected q [B,K,G,S,Dq], k [B,K,S,Dq] and v "
+                         f"[B,K,S,Dv]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, K, G, S, D = q.shape
-    if tuple(k.shape) != (B, K, S, D) or tuple(v.shape) != (B, K, S, D):
-        raise ValueError(f"k and v must be {(B, K, S, D)} (Sq == Sk, Dq == "
-                         f"Dv); got {tuple(k.shape)}, {tuple(v.shape)}")
-    if D % _flash.D_STEP or not 0 < D <= _flash.D_MAX:
-        raise ValueError(f"head dim {D} must be a multiple of "
-                         f"{_flash.D_STEP} up to {_flash.D_MAX}")
+    Dv = v.shape[3]
+    if tuple(k.shape) != (B, K, S, D) or tuple(v.shape[:3]) != (B, K, S):
+        raise ValueError(f"k must be {(B, K, S, D)} and v {(B, K, S)} + "
+                         f"(Dv,) (Sq == Sk, k's head dim q's); got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if backward and (k.dtype != q.dtype or D != Dv):
+        raise ValueError(
+            f"flash_bwd takes Dq == Dv and one dtype for q, k and v; the MLA "
+            f"form (here Dq {D}, Dv {Dv}, k {k.dtype} beside q {q.dtype}) is "
+            f"not yet ported: its backward comes with MLA's training")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if q.is_cuda and B * K * G > _flash.MAX_HEADS:
-        raise ValueError(f"B*K*G = {B * K * G} query heads: the kernels' "
-                         f"grid takes at most {_flash.MAX_HEADS}")
+    if q.is_cuda:
+        _flash.check_dims(D, Dv, k.dtype != q.dtype)
+        if B * K * G > _flash.MAX_HEADS:
+            raise ValueError(f"B*K*G = {B * K * G} query heads: the "
+                             f"kernels' grid takes at most "
+                             f"{_flash.MAX_HEADS}")
     for name, t in more.items():
-        shape = (B, K, G, S) if name == "lse" else (B, K, G, S, D)
+        shape = (B, K, G, S) if name == "lse" else (B, K, G, S, Dv)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(t.shape)}")
@@ -869,20 +882,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int = 0, block_k: int = 512
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal flash attention's forward (windowed where window > 0):
-    q [B,K,G,S,D], k and v [B,K,S,D] -> (out [B,K,G,S,D] in v's dtype,
-    lse [B,K,G,S] f32), the reference's `flash_attention`
-    (`src/repro/models/attention.py:39`). The inputs may be strided
-    views with unit stride along D.
+    q [B,K,G,S,Dq], k [B,K,S,Dq] and v [B,K,S,Dv] -> (out [B,K,G,S,Dv]
+    in v's dtype, lse [B,K,G,S] f32), the reference's `flash_attention`
+    (`src/repro/models/attention.py:39`), scaled by Dq ** -0.5. The
+    inputs may be strided views with unit stride along the head dim.
+    Dq and Dv may differ, and k may be f32 beside a bf16 q and v (MLA:
+    the reference's k is f32 in bf16 runs, its score product reads it
+    as it is). On the card each head dim is a multiple of 16 up to 128,
+    and beside f32 keys Dq is at most 96 and Dv at most 64.
 
     CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu, one
-    launch; the kernels state their tiles); CPU tensors to
+    launch counted; the kernels state their tiles; f32 keys beside bf16
+    q and v are first split into two bf16 parts, hi = bf16(k) and lo =
+    bf16(k - hi), by a kernel of the same file, and the score product
+    takes q . hi + q . lo in f32); CPU tensors to
     :func:`repro_torch.kernels.ref.flash_fwd_ref`, which walks key blocks
     of `block_k` as the reference does."""
     _check_flash(q, k, v, window)
     if q.is_cpu:
         return flash_fwd_ref(q, k, v, window, block_k)
     (q, k, v), views = _flash_views(q, k, v)
-    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    out = torch.empty(q.shape[:4] + v.shape[3:], dtype=v.dtype,
+                      device=q.device)
     lse = torch.empty(q.shape[:4], dtype=torch.float32, device=q.device)
     if out.numel():
         _flash.launch_fwd(q, k, v, out, lse, window, views)
@@ -905,8 +926,10 @@ def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 
     CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu: dq
     with delta, and dk / dv, counted as one launch); CPU tensors to
-    :func:`repro_torch.kernels.ref.flash_bwd_ref`."""
-    _check_flash(q, k, v, window, g=g, out=out, lse=lse)
+    :func:`repro_torch.kernels.ref.flash_bwd_ref`. Both take Dq == Dv
+    and one dtype: the MLA form of :func:`flash_fwd` raises on either
+    device (its backward comes with MLA's training)."""
+    _check_flash(q, k, v, window, backward=True, g=g, out=out, lse=lse)
     if q.is_cpu:
         return flash_bwd_ref(g, q, k, v, out, lse, window, block_k)
     lse = lse.contiguous()

@@ -369,7 +369,11 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Dq ** -0.5 after the f32 product -> (out in v's dtype, lse
     [B,K,G,Sq] f32): the reference's online softmax over key blocks of
     `block_k` (`src/repro/models/attention.py:39`), in its order and
-    with its roundings (p rounded to v's dtype before PV)."""
+    with its roundings (p rounded to v's dtype before PV). Dq and Dv
+    may differ, and the dtypes may be mixed as MLA's are (q and v bf16,
+    k f32): q and k are upcast with `.float()`, so an f32 k enters the
+    score product as it is, as the reference's `einsum_f32` takes it,
+    and p is rounded to v's dtype."""
     B, K, G, Sq, Dq = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
     sc = Dq ** -0.5

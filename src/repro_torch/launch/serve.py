@@ -8,6 +8,8 @@
       --reduced --device cpu                          # the hybrid family
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-1b-a400m --reduced --device cpu   # the MoE family
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+      --reduced --device cpu                          # MLA
 
 `--arch` takes every ported id (`repro_torch.configs.PORTED`). f32
 products stay in full f32 on the card (TF32 is never turned on: the

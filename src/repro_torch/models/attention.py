@@ -1,10 +1,10 @@
 """Attention of the dense family: GQA with optional qk-norm and sliding
-window; flash (online-softmax) attention for prefill and the full
-forward; cached decode over a [B,KV,S,D] cache (a ring buffer of the
-window's size for SWA archs).
+window, and MLA (multi-head latent attention); flash (online-softmax)
+attention for prefill and the full forward; cached decode over a
+[B,KV,S,D] cache (a ring buffer of the window's size for SWA archs), or
+over MLA's latent cache.
 
-Port of the GQA half of `repro/models/attention.py` (MLA comes with its
-architectures). The reference runs these as jit programs; its comment
+Port of `repro/models/attention.py`. The reference runs these as jit programs; its comment
 names a Pallas kernel as the TPU's production path of flash attention.
 Here flash's forward and its custom VJP's backward are hand-written CUDA
 kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, `csrc/
@@ -33,7 +33,13 @@ reference's roundings:
   group, and `swa_attention`'s banded path differentiates through its
   ops, as the reference's do;
 - KV heads expand with `repeat_interleave` (`jnp.repeat`): query head h
-  reads KV head h // G.
+  reads KV head h // G;
+- MLA: k_nope, the rope scores and o_lat are f32 products (k_nope read
+  from c_kv's unrounded last product, as XLA compiles the reference), v,
+  q_abs and the W_uv product are products in the compute dtype, o_lat
+  is rounded to it, decode's scores are the sum of two f32 products
+  (q_abs . c_kv not rounded) times the f32 scale, and decode's `@ wo`
+  is in the compute dtype (not f32, as `gqa_decode`'s).
 
 The functions take one layer's attention parameters as a dict of
 tensors in the compute dtype (`transformer.DenseLM.compute_params`).
@@ -49,7 +55,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope, dense_init, head_rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, head_rms_norm,
+                                      rms_norm)
 
 FLASH_BLOCK = 512           # the reference's `ShardCtx.flash_block` default
 
@@ -104,14 +111,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention, q: [B,K,G,Sq,Dq]  k: [B,K,Sk,Dq]  v: [B,K,Sk,Dv]
     -> [B,K,G,Sq,Dv], scaled by Dq ** -0.5.
 
-    K = kv heads, G = query group size (Hq = K*G), Sq == Sk, Dq == Dv a
-    multiple of 16 up to 128. Walks the key blocks with a running (m, l,
-    acc) softmax state; never materializes the [Sq, Sk] score matrix.
-    `block_k` is the plain version's key block (the kernel states its
-    own tile). Under autograd its gradient is the reference's custom VJP
-    (`_Flash`), which recomputes each block's probabilities from the
-    saved log-sum-exp. The reference's `causal=False`, `q_offset` and
-    `scale` come with the families that pass them (enc-dec, MLA)."""
+    K = kv heads, G = query group size (Hq = K*G), Sq == Sk. Dq and Dv
+    may differ (MLA: 96 and 64), and k may be f32 beside a bf16 q and v
+    (MLA's keys, `mla_forward`); on the card each head dim is a multiple
+    of 16 up to 128 (`ops.flash_fwd` states the kernel's rule). Walks the
+    key blocks with a running (m, l, acc) softmax state; never
+    materializes the [Sq, Sk] score matrix. `block_k` is the plain
+    version's key block (the kernel states its own tile). Under autograd
+    its gradient is the reference's custom VJP (`_Flash`), which
+    recomputes each block's probabilities from the saved log-sum-exp;
+    its kernel takes Dq == Dv and one dtype, so MLA does not train yet.
+    MLA's scale, (nope + rope) ** -0.5, is Dq ** -0.5. The reference's
+    `causal=False` and `q_offset` come with the family that passes them
+    (enc-dec)."""
     return _Flash.apply(q, k, v, window, block_k)
 
 
@@ -311,3 +323,197 @@ def gqa_decode(p: Dict[str, torch.Tensor], cache_k: torch.Tensor,
     o = decode_attention(q, cache_k, cache_v, pos, window)
     o = o.transpose(1, 2).reshape(B, 1, H * D)
     return (o @ p["wo"].float()).to(x.dtype), cache_k, cache_v
+
+
+# ======================================================================
+# MLA — multi-head latent attention (MiniCPM3)
+# ======================================================================
+class MlaAttention(nn.Module):
+    """One layer's MLA parameters under the reference's names and
+    `[in, out]` layout: wq_a [d, q_lora], q_norm [q_lora] and wq_b
+    [q_lora, H*Dq] (or wq [d, H*Dq] when q_lora_rank is 0), wkv_a [d,
+    R + rope], kv_norm [R], wkv_b [R, H*(nope + v)] and wo [H*v, d], with
+    Dq = nope + rope and R = kv_lora_rank."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+
+        if m.q_lora_rank > 0:
+            self.wq_a = param(d, m.q_lora_rank)
+            self.q_norm = param(m.q_lora_rank)
+            self.wq_b = param(m.q_lora_rank, H * qd)
+        else:
+            self.wq = param(d, H * qd)
+        self.wkv_a = param(d, m.kv_lora_rank + m.qk_rope_head_dim)
+        self.kv_norm = param(m.kv_lora_rank)
+        self.wkv_b = param(m.kv_lora_rank,
+                           H * (m.qk_nope_head_dim + m.v_head_dim))
+        self.wo = param(H * m.v_head_dim, d)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init (`init_mla_params`), drawn from
+        `generator` in its order; the norms' scales are ones."""
+        for name in ("wq_a", "wq_b", "wq", "wkv_a", "wkv_b", "wo"):
+            if hasattr(self, name):
+                w = getattr(self, name)
+                w.copy_(dense_init(generator, w.shape, w.dtype))
+        for name in ("q_norm", "kv_norm"):
+            if hasattr(self, name):
+                getattr(self, name).fill_(1.0)
+
+
+def _mla_dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
+    m = cfg.mla
+    return (cfg.n_heads, m.kv_lora_rank, m.qk_nope_head_dim,
+            m.qk_rope_head_dim, m.v_head_dim)
+
+
+def mla_q(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+          positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [B,H,S,nope], q_rope [B,H,S,rope], rotated): the q-LoRA
+    (wq_a, its rms norm, wq_b) or the full-rank wq, in the compute
+    dtype."""
+    H, _, nd, rd, _ = _mla_dims(cfg)
+    B, S, _ = x.shape
+    if "wq_a" in p:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.view(B, S, H, nd + rd).transpose(1, 2)
+    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def mla_latent(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv [B,S,R] in f32 before its last rounding, k_rope [B,1,S,rope]
+    rotated, in the compute dtype). c_kv is `rms_norm(kv[..., :R])`:
+    x * inv rounded to the compute dtype, then times kv_norm in f32.
+    The reference rounds that last product too, but its compiled CPU
+    program drops the rounding where an f32 product reads it (k_nope's
+    `einsum_f32`) and keeps it everywhere else (v's product, the cache):
+    `.to(dtype)` of this is the rounded c_kv, `mla_ckv`'s."""
+    _, R, _, _, _ = _mla_dims(cfg)
+    kv = x @ p["wkv_a"]
+    c = kv[..., :R]
+    var = torch.mean(torch.square(c.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + cfg.norm_eps).to(c.dtype)
+    c32 = (c * inv).float() * p["kv_norm"].to(c.dtype).float()
+    k_rope = apply_rope(kv[..., None, R:].transpose(1, 2), positions,
+                        cfg.rope_theta)
+    return c32, k_rope
+
+
+def mla_ckv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv [B,S,R], k_rope [B,1,S,rope]) in the compute dtype: the
+    normed latent and the shared rotated rope key."""
+    c32, k_rope = mla_latent(p, x, cfg, positions)
+    return c32.to(x.dtype), k_rope
+
+
+def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: ModelConfig, positions: torch.Tensor,
+                latent: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Full-sequence MLA of prefill and the forward: k_nope and v are
+    expanded from the latent and flash runs over H heads of Dq = nope +
+    rope query / key columns and Dv = v value columns (KV == H). x:
+    [B,S,d], positions: [S]; `latent`, if given, is :func:`mla_latent`
+    of the same (prefill projects it once for the attention and the
+    cache). As the reference: k_nope = c_kv @ W_uk in f32 (from the
+    unrounded c_kv, see `mla_latent`), v = c_kv @ W_uv in the compute
+    dtype, and k = [k_nope, k_rope] in f32 (the concatenation promotes
+    the rope key), so in bf16 runs the flash kernel reads f32 keys
+    beside bf16 q and v."""
+    H, R, nd, rd, vd = _mla_dims(cfg)
+    B, S, _ = x.shape
+    q_nope, q_rope = mla_q(p, x, cfg, positions)
+    c32, k_rope = latent if latent is not None else \
+        mla_latent(p, x, cfg, positions)
+    wkv_b = p["wkv_b"].view(R, H, nd + vd)
+    k_nope = (c32 @ wkv_b[..., :nd].reshape(R, H * nd).float()).view(
+        B, S, H, nd).transpose(1, 2)
+    v = (c32.to(x.dtype) @ wkv_b[..., nd:].reshape(R, H * vd)).view(
+        B, S, H, vd).transpose(1, 2)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.float().expand(B, H, S, rd)], dim=-1)
+    o = flash_attention(q[:, :, None], k, v)
+    o = o[:, :, 0].transpose(1, 2).reshape(B, S, H * vd)
+    return o @ p["wo"]
+
+
+def mla_make_cache(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: ModelConfig, positions: torch.Tensor, S_max: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLA's decode cache from prefill activations x [B,S,d]: the
+    latent c_kv [B,max(S, S_max),R] and the shared rope key k_rope
+    [B,max(S, S_max),rope], zero-padded to S_max."""
+    return pad_latent(*mla_ckv(p, x, cfg, positions), S_max)
+
+
+def pad_latent(c_kv: torch.Tensor, k_rope: torch.Tensor, S_max: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """c_kv [B,S,R] and k_rope [B,1,S,rope] as the cache's [B,S_max,R]
+    and [B,S_max,rope], zero-padded along S, dense."""
+    k_rope = k_rope[:, 0]
+    pad = S_max - c_kv.shape[1]
+    if pad > 0:
+        c_kv = F.pad(c_kv, (0, 0, 0, pad))
+        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+    return c_kv.contiguous(), k_rope.contiguous()
+
+
+def mla_decode_attention(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                         c_kv: torch.Tensor, k_rope: torch.Tensor,
+                         pos: int, scale: float) -> torch.Tensor:
+    """The absorbed decode step's attention over the latent cache: q_abs
+    [B,H,R] (q_nope with W_uk folded in), q_rope [B,H,rope], the cache
+    c_kv [B,S,R] and k_rope [B,S,rope] holding the token already, pos
+    its position -> o_lat [B,H,R] in f32. The scores are the two f32
+    products' sum times the f32 scale (XLA keeps q_abs . c_kv in f32:
+    the reference's bf16 einsum is not rounded before the add); slots up
+    to pos are valid."""
+    S = c_kv.shape[1]
+    s = (_f32_matmul(q_abs, c_kv.transpose(1, 2)) +
+         _f32_matmul(q_rope, k_rope.transpose(1, 2))) * scale
+    s = torch.where(torch.arange(S, device=s.device) <= pos, s, NEG_INF)
+    pr = _softmax(s)
+    return _f32_matmul(pr.to(c_kv.dtype), c_kv)
+
+
+def mla_decode(p: Dict[str, torch.Tensor], c_kv: torch.Tensor,
+               k_rope: torch.Tensor, x: torch.Tensor, pos: int,
+               cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed-matmul MLA decode of one token x [B,1,d] over the latent
+    cache c_kv [B,S,R], k_rope [B,S,rope]: W_uk is folded into q (q_abs,
+    rounded to the compute dtype), the step attends over the latent
+    (`mla_decode_attention`), o_lat is rounded, W_uv is applied after
+    (in the compute dtype) and `@ wo` is taken in the compute dtype.
+    The token's latent and rope key are written into the cache tensors
+    in place at slot min(pos, S-1); returns (out, c_kv, k_rope), the
+    latter two those tensors."""
+    H, R, nd, rd, vd = _mla_dims(cfg)
+    B, S = x.shape[0], c_kv.shape[1]
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q_nope, q_rope = mla_q(p, x, cfg, positions)             # [B,H,1,*]
+    new_c, new_kr = mla_ckv(p, x, cfg, positions)            # [B,1,R]
+    slot = min(pos, S - 1)
+    c_kv[:, slot] = new_c[:, 0]
+    k_rope[:, slot] = new_kr[:, 0, 0]
+    wkv_b = p["wkv_b"].view(R, H, nd + vd)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, :, 0], wkv_b[..., :nd])
+    o_lat = mla_decode_attention(q_abs, q_rope[:, :, 0], c_kv, k_rope, pos,
+                                 (nd + rd) ** -0.5).to(x.dtype)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., nd:])
+    return (o.reshape(B, 1, H * vd) @ p["wo"]).to(x.dtype), c_kv, k_rope

@@ -1,7 +1,8 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
 port runs, each of which serves and trains: `ssm`, `dense` and `hybrid`
-without MoE or MLA, and `moe` without MLA or leading dense layers; the
-others raise "not yet ported".
+without MoE, and `moe` without MLA or leading dense layers; the others
+raise "not yet ported". The `dense` family's MLA (`minicpm3-4b`) serves;
+its training raises "not yet ported" (`loss_fn`).
 
   build_model(cfg, generator, device)          -> MambaLM | DenseLM |
                                                   HybridLM | MoeLM
@@ -55,8 +56,8 @@ def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     "full" or "dots"). The `ssm`, `dense`, `hybrid` and `moe` families
     train (the hybrid's shared block's gradient summed over its
     applications; the MoE's loss carries AUX_LOSS_COEF x its aux loss);
-    the others raise "not yet ported"."""
-    transformer.check_family(cfg)
+    the others, and MLA (which serves), raise "not yet ported"."""
+    transformer.check_train(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")

@@ -1,5 +1,5 @@
 """Decoder-only LM assembly: the `ssm` family (Mamba-2), the `dense`
-family (GQA attention + SwiGLU MLP; qk-norm and sliding window as
+family (GQA or MLA attention + SwiGLU MLP; qk-norm and sliding window as
 flags), the `hybrid` family (Zamba2: Mamba-2 layers and ONE shared
 attention + MLP block, run before every `shared_attn_every`-th layer
 with a KV cache of its own at each application) and the `moe` family
@@ -8,8 +8,10 @@ with a KV cache of its own at each application) and the `moe` family
 Port of the `ssm`, `dense`, `hybrid` and `moe` paths of
 `repro/models/transformer.py`. The reference stacks the layers' leaves
 ([L, ...]) and scans them; here `MambaLM`, `DenseLM`, `HybridLM` and
-`MoeLM` hold one module per layer. MLA and MoE's leading dense layers
-(DeepSeek's prologue) raise "not yet ported" (`check_family`).
+`MoeLM` hold one module per layer. MoE with MLA and MoE's leading
+dense layers (DeepSeek's prologue) raise "not yet ported"
+(`check_family`); MLA serves, and its training raises
+(`check_train`).
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
@@ -26,10 +28,10 @@ is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
 promotes it, and `D` is upcast to f32 before it scales xh, as the
 reference upcasts it (`ssm.ssm_forward`).
 
-All four families train (`lm_loss`) on a per-layer parameter tree:
-the module's own parameters (`param_tree(model)`), or the views of the
-reference's stacked layout that the train step holds (`stack_layers` /
-`layer_views`, also the checkpoints' layout). The hybrid's shared block
+All four families train (`lm_loss`; MLA not yet) on a per-layer
+parameter tree: the module's own parameters (`param_tree(model)`), or
+the views of the reference's stacked layout that the train step holds
+(`stack_layers` / `layer_views`, also the checkpoints' layout). The hybrid's shared block
 is one unstacked subtree, `shared_attn`, in both; its one cast tensor
 per leaf feeds every application, so autograd sums the applications'
 gradients there, in the compute dtype, last application first, as the
@@ -69,12 +71,14 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet. It runs the `ssm`
-    family, the `dense` and `hybrid` families without MoE or MLA, and
-    MoE without MLA or leading dense layers (family `moe`, or `dense`
-    with experts: the reference builds MoE blocks for either)."""
+    """Raise for a family the port does not run yet. It serves the `ssm`
+    family, the `dense` family (MLA included) and the `hybrid` family
+    without MoE, and MoE without MLA or leading dense layers (family
+    `moe`, or `dense` with experts: the reference builds MoE blocks for
+    either). :func:`check_train` gates training."""
     if cfg.family == "ssm" or (cfg.family in ("dense", "hybrid") and
-                               not cfg.is_moe and not cfg.is_mla):
+                               not cfg.is_moe and
+                               not (cfg.is_mla and cfg.family == "hybrid")):
         return
     if cfg.family in ("dense", "moe") and cfg.is_moe and not cfg.is_mla \
             and cfg.moe.first_dense_layers == 0:
@@ -84,9 +88,21 @@ def check_family(cfg: ModelConfig) -> None:
         f"the '{cfg.family}' family ({cfg.arch_id}"
         f"{', MoE' if cfg.is_moe else ''}{', MLA' if cfg.is_mla else ''}"
         f"{', leading dense layers' if prologue else ''}) is not yet "
-        f"ported; the port runs the 'ssm' family, the "
-        f"'dense' and 'hybrid' families without MoE or MLA, and MoE "
+        f"ported; the port runs the 'ssm' family, the 'dense' family "
+        f"(MLA included) and the 'hybrid' family without MoE, and MoE "
         f"without MLA or leading dense layers")
+
+
+def check_train(cfg: ModelConfig) -> None:
+    """:func:`check_family`, and raise for MLA, which serves but does
+    not train yet: its flash backward (Dv != Dq, an f32 dk for the f32
+    keys) is not ported."""
+    check_family(cfg)
+    if cfg.is_mla:
+        raise NotImplementedError(
+            f"training MLA ({cfg.arch_id}) is not yet ported: the port "
+            f"serves it; its flash backward (Dv != Dq, and dk in f32 for "
+            f"the f32 keys) comes with MLA's training")
 
 
 def shared_flags(cfg: ModelConfig) -> List[bool]:
@@ -193,14 +209,16 @@ def _mlp(blk: Dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig
 
 
 class DenseBlock(nn.Module):
-    """One layer: `ln1`, the attention `attn`, `ln2` and the MLP `mlp`;
-    static functions as `MambaBlock`'s."""
+    """One layer: `ln1`, the attention `attn` (GQA, or MLA where the
+    config has a latent: `cfg.is_mla`), `ln2` and the MLP `mlp`; static
+    functions as `MambaBlock`'s."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.ln1 = _param(dtype, device, cfg.d_model)
-        self.attn = att.GqaAttention(cfg, dtype, device)
+        self.attn = (att.MlaAttention if cfg.is_mla else
+                     att.GqaAttention)(cfg, dtype, device)
         self.ln2 = _param(dtype, device, cfg.d_model)
         self.mlp = DenseMlp(cfg, dtype, device)
 
@@ -216,19 +234,26 @@ class DenseBlock(nn.Module):
     def run(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        return _mlp(blk, x, att.gqa_forward(blk["attn"], h, cfg, positions),
-                    cfg)
+        forward = att.mla_forward if cfg.is_mla else att.gqa_forward
+        return _mlp(blk, x, forward(blk["attn"], h, cfg, positions), cfg)
 
     @staticmethod
     def prefill(blk: Dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, S_max: Optional[int]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """k / v are projected once, for the attention and for the cache
-        (zero-padded to S_c; under SWA its last S_c positions only)."""
+        """k / v (MLA: the latent and the rope key) are projected once,
+        for the attention and for the cache (zero-padded to S_c; under
+        SWA its last S_c positions only)."""
         if S_max is None:
             raise ValueError("an attention prefill needs S_max (the "
                              "cache length)")
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if cfg.is_mla:
+            latent = att.mla_latent(blk["attn"], h, cfg, positions)
+            c_kv, k_rope = att.pad_latent(latent[0].to(h.dtype), latent[1],
+                                          S_max)
+            a = att.mla_forward(blk["attn"], h, cfg, positions, latent)
+            return _mlp(blk, x, a, cfg), {"c_kv": c_kv, "k_rope": k_rope}
         k, v = att.project_kv(blk["attn"], h, cfg, positions)
         S_c = attn_cache_len(cfg, S_max)
         ck, cv = att.pad_cache(k[:, :, -S_c:], v[:, :, -S_c:], S_c)
@@ -244,6 +269,10 @@ class DenseBlock(nn.Module):
             raise ValueError("an attention decode needs pos (the "
                              "token's position)")
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if cfg.is_mla:
+            o, ck, kr = att.mla_decode(blk["attn"], c["c_kv"], c["k_rope"],
+                                       h, pos, cfg)
+            return _mlp(blk, x, o, cfg), {"c_kv": ck, "k_rope": kr}
         o, k, v = att.gqa_decode(blk["attn"], c["k"], c["v"], h, pos, cfg)
         return _mlp(blk, x, o, cfg), {"k": k, "v": v}
 
@@ -251,9 +280,15 @@ class DenseBlock(nn.Module):
     def cache_spec(cfg: ModelConfig, B: int, S_max: Optional[int],
                    dtype: torch.dtype) -> Dict:
         """k and v [B,KV,S_c,D] (on one card the KV heads are not
-        replicated: the reference's `kv_eff_heads` at tp=1)."""
+        replicated: the reference's `kv_eff_heads` at tp=1); MLA's
+        latent c_kv [B,S_max,R] and rope key k_rope [B,S_max,rope], the
+        reference's names."""
         if S_max is None:
             raise ValueError("an attention cache needs S_max")
+        if cfg.is_mla:
+            m = cfg.mla
+            return {"c_kv": ((B, S_max, m.kv_lora_rank), dtype),
+                    "k_rope": ((B, S_max, m.qk_rope_head_dim), dtype)}
         shape = (B, cfg.n_kv_heads, attn_cache_len(cfg, S_max),
                  cfg.resolved_head_dim)
         return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -643,7 +678,7 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
     "full" its application is recomputed in the backward, under "dots"
     its products are saved. Its parameters enter each region as an
     argument, so their gradients meet at the one cast tensor."""
-    check_family(cfg)
+    check_train(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
                        device=x.device)
@@ -679,7 +714,7 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     integer tensors. Returns (loss, {ce, aux, expert_load}); aux and
     expert_load are the MoE layers' sums (zeros for the other
     families)."""
-    check_family(cfg)
+    check_train(cfg)
     pc = cast_params(params, torch_dtype(cfg.dtype))
     x = pc["embed"][batch["tokens"]]
     positions = torch.arange(x.shape[1], device=x.device)

@@ -131,18 +131,43 @@ BAD = {
 }
 
 
+# head dims the card's kernels refuse (`flash.check_dims`, which the
+# wrappers call for CUDA tensors); the plain versions, and so the
+# wrappers on the CPU, take any head dim (MLA's reduced config has Dq =
+# 24, Dv = 16)
+CARD_ONLY = {"d_not_multiple_of_16", "d_above_128"}
+# Dq != Dv: the forward takes it on either device (MLA); the backward
+# refuses it
+FWD_TAKES = {"dq_not_dv"}
+
+
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("case", list(BAD))
 def test_wrappers_refuse_what_the_kernels_do_not_take(case, which):
     make, window, err, msg = BAD[case]
     q, k, v = make()
     before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
-    with pytest.raises(err, match=msg):
-        if which == "fwd":
-            ops.flash_fwd(q, k, v, window)
-        else:
-            lse = torch.zeros(q.shape[:4]) if q.dim() == 5 else q
+    lse = torch.zeros(q.shape[:4]) if q.dim() == 5 else q
+    if case in CARD_ONLY:
+        from repro_torch.kernels import flash
+        with pytest.raises(err, match=msg):
+            flash.check_dims(q.shape[-1], v.shape[-1], False)
+        got = ops.flash_fwd(q, k, v, window) if which == "fwd" else \
             ops.flash_bwd(q, q, k, v, q, lse, window)
+        want = flash_fwd_ref(q, k, v, window, 512) if which == "fwd" else \
+            flash_bwd_ref(q, q, k, v, q, lse, window, 512)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif case in FWD_TAKES and which == "fwd":
+        out, lse = ops.flash_fwd(q, k, v, window)
+        want, want_lse = flash_fwd_ref(q, k, v, window, 512)
+        assert out.shape == v.shape[:2] + q.shape[2:4] + v.shape[3:]
+        assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    else:
+        with pytest.raises(err, match=msg):
+            if which == "fwd":
+                ops.flash_fwd(q, k, v, window)
+            else:
+                ops.flash_bwd(q, q, k, v, q, lse, window)
     assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == before
 
 

@@ -358,7 +358,8 @@ def test_ssd_wrapper_counts_no_launch_on_cpu(dtype):
 def test_model_side_gates_not_yet_ported():
     assert PORTED == ["mamba2-2.7b", "llama3-8b", "qwen3-4b",
                       "h2o-danube-1.8b", "zamba2-2.7b",
-                      "granite-moe-1b-a400m"] and len(ARCH_IDS) == 10
+                      "granite-moe-1b-a400m", "minicpm3-4b"] and \
+        len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -367,7 +368,10 @@ def test_model_side_gates_not_yet_ported():
         get_config("gpt-5")
     dense = reduced(get_config("llama3-8b"))
     mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
-    for cfg in (_moe_cfg(), mla, dense.replace(family="vlm")):
+    moe_mla = _moe_cfg().replace(       # MoE with MLA, no prologue
+        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64),
+        mla=MLAConfig(kv_lora_rank=32))
+    for cfg in (_moe_cfg(), moe_mla, dense.replace(family="vlm")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.build_model(cfg, torch.Generator(), device="cpu")
         with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -375,10 +379,16 @@ def test_model_side_gates_not_yet_ported():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.decode_fn(cfg)
     registry.prefill_fn(dense, 8)                 # the dense family builds
+    # dense MLA builds, prefills and decodes (its training is gated below)
+    model = registry.build_model(mla, torch.Generator(), device="cpu")
+    toks = torch.ones((1, 4), dtype=torch.long)
+    _, cache = registry.prefill_fn(mla, 8)(model, toks)
+    logits, cache = registry.decode_fn(mla)(model, cache, toks[:, :1], 4)
+    assert logits.shape == (1, mla.vocab)
+    assert set(cache["blocks"][0]) == {"c_kv", "k_rope"}
     # the hybrid family builds, prefills and decodes
     hybrid = reduced(get_config("zamba2-2.7b"))
     model = registry.build_model(hybrid, torch.Generator(), device="cpu")
-    toks = torch.ones((1, 4), dtype=torch.long)
     _, cache = registry.prefill_fn(hybrid, 8)(model, toks)
     logits, cache = registry.decode_fn(hybrid)(model, cache, toks[:, :1], 4)
     assert logits.shape == (1, hybrid.vocab)
@@ -393,7 +403,7 @@ def test_model_side_gates_not_yet_ported():
     loss, metrics = registry.loss_fn(moe)(
         transformer.param_tree(model), {"tokens": toks, "targets": toks})
     assert torch.isfinite(loss) and metrics["expert_load"].shape == (4,)
-    for cfg in (_moe_cfg(), mla):
+    for cfg in (_moe_cfg(), mla, moe_mla):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.loss_fn(cfg)
 
