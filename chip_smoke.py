@@ -30,9 +30,10 @@ Every phase is fatal: a failure exits non-zero before the result line.
    a fill for N <= 8, and the block kernel) registers and spills,
    failing on a spill, and the block barriers (BAR) in each waterfill
    kernel's SASS, failing if the warp kernel has any or the block
-   kernel none; `flash_attn.cu` builds beside them, and its eight
-   kernels' (the key split of MLA's f32 keys among them) registers,
-   spills and SASS counts are printed, failing if a bf16
+   kernel none; `flash_attn.cu` builds beside them, and its seven
+   kernels' registers, spills and SASS counts (and those of the
+   forward's MLA instance, which splits MLA's f32 keys as it loads
+   them) are printed, failing if a bf16
    kernel (forward, dq, dk / dv) holds no wgmma (HGMMA) or no TMA load
    (UTMALDG), or if any bf16 instance spills; and moe's six kernels'
    (slots, dispatch, combine and the three backwards) registers and
@@ -369,20 +370,28 @@ Every phase is fatal: a failure exits non-zero before the result line.
    `rf_predict`, no backward, `ssd_chunk` or `silu`; ids and logits
    checked as 12b's; prefill ms per group, decode ms median and p90,
    tokens/s, peak memory; group 1's prefill and 4 decode steps under
-   `torch.profiler` (the attention core, `flash_attention` and
+   `torch.profiler` (the decode's attention core,
    `mla_decode_attention`, in ranges) for the device ms by kind (the
    flash kernels, matrix products, the decode attention's plain ops,
-   `silu_gate`, the rest) and the busy share;
-   (2) `flash_fwd`'s MLA form (q [4, 40, 1, S, 96] bf16, k f32, v
-   [4, 40, S, 64] bf16) on layer 0's inputs of both prefills within 2^-7
-   of each row's max of `flash_fwd_ref`, and lse within each row's
-   bound (`flash_lse_tol`: 1e-5 plus what the key split can drop,
-   sc * 2^-17 * max_j sum_d |q_d k_jd|), twice equal; timed at group
-   1's beside its plain version, the bound (bytes: q, k at 4 bytes, v,
-   out, lse; the products QK^T at Dq and PV at Dv, the split's second
-   QK^T printed apart as the kernel's own) and SDPA on q, bf16(k) and v
-   in turns (its backend named by its kernel), each of its two kernels
-   (the key split, the attention) by the profiler; the SwiGLU gate
+   `silu_gate`, the rest) and the busy share; group 1's prefill again
+   with `mla_forward` in ranges: its own body launches no concatenation
+   (`aten::cat`) and no cast beyond its two (c_kv to bf16 for v, W_uk
+   to f32 for k_nope), one flash kernel a layer, no split kernel; the
+   prefill's concatenation kernels counted;
+   (2) `flash_fwd_mla` (MLA's parts: q_nope [4, 40, S, 64] a strided
+   view of the projection and q_rope [4, 40, S, 32] bf16, k_nope f32,
+   the rope key [4, 1, S, 32] bf16, v [4, 40, S, 64] bf16) on layer 0's
+   parts of both prefills within 2^-7 of each row's max of
+   `flash_fwd_mla_ref` (the reference's concatenations), and lse within
+   each row's bound (`flash_lse_tol`: 1e-5 plus what the key split can
+   drop, sc * 2^-17 * max_j sum_d |q_d k_jd|), twice equal; timed at
+   group 1's beside its plain version, the bound (bytes: the parts,
+   k_nope at 4 bytes, the one rope key, v, out, lse; the products QK^T
+   at Dq and PV at Dv, the split's second QK^T over the nope columns
+   printed apart as the kernel's own) and SDPA on the concatenated q,
+   bf16(k) and v, made outside the timing, in turns (its backend named
+   by its kernel); the MLA
+   instance's registers and spills (fatal on a spill); the SwiGLU gate
    bit-equal at both prefills and a decode step;
    (3) parity: the model at full width cut to 2 layers, f32 (the f32
    kernel at Dq 96, Dv 64), on the card and on the host with the same
@@ -585,8 +594,9 @@ from repro_torch.lifecycle import run_lifecycle_comparison  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
-                                     flash_bwd_ref, flash_fwd_ref,
-                                     moe_combine_bwd_ref, moe_combine_ref,
+                                     flash_bwd_ref, flash_fwd_mla_ref,
+                                     flash_fwd_ref, moe_combine_bwd_ref,
+                                     moe_combine_ref,
                                      moe_dispatch_bwd_ref,
                                      moe_dispatch_gather_ref,
                                      moe_dispatch_ref, moe_gates_bwd_ref,
@@ -731,7 +741,10 @@ WF_KERNELS = ("waterfill_warp_kernel", "waterfill_block_kernel")
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
                  "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel", "flash_split_kernel")
+                 "flash_bwd_dkdv_f32_kernel")
+# the forward's MLA instance (flash_fwd_wgmma_kernel<1, 32, 1, 0, true>),
+# by its mangled template arguments
+FLASH_MLA_INSTANCE = "flash_fwd_wgmma_kernelILi1ELi32ELi1ELi0ELb1E"
 FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: wgmma (HGMMA) fed by TMA
                                          # (UTMALDG) in SASS, no spill
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
@@ -3863,6 +3876,32 @@ def check_flash_fwd(args) -> dict:
             **lse_err(lse, want_lse, args[0], args[1], args[3])}
 
 
+def mla_concatenated(args):
+    """q [B,H,1,S,Dq] and k [B,H,S,Dq] (f32) as the reference
+    concatenates MLA's parts (args: `ops.flash_fwd_mla`'s q_nope, q_rope,
+    k_nope, k_rope, v, ...)."""
+    q_nope, q_rope, k_nope, k_rope = args[:4]
+    B, H, S, rd = q_rope.shape
+    return (torch.cat([q_nope, q_rope], dim=-1)[:, :, None],
+            torch.cat([k_nope.float(), k_rope.float().expand(B, H, S, rd)],
+                      dim=-1))
+
+
+def check_flash_mla(args) -> dict:
+    """`ops.flash_fwd_mla` (the kernel on the card) against
+    `flash_fwd_mla_ref` on the captured parts (q_nope, q_rope, k_nope,
+    k_rope, v, block_k): out, and lse within :func:`flash_lse_tol` of the
+    concatenated q and k."""
+    out, lse = ops.flash_fwd_mla(*args)
+    want_out, want_lse = flash_fwd_mla_ref(*args)
+    sync(out.device)
+    q, k = mla_concatenated(args)
+    return {"shape": list(q.shape), "window": 0,
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "out": flash_err(out, want_out, "fwd out"),
+            **lse_err(lse, want_lse, q, k, 0)}
+
+
 def check_flash_bwd(args) -> dict:
     """`ops.flash_bwd` against `flash_bwd_ref` on the captured inputs
     (g, q, k, v, out, lse, window, block_k): dq, dk, dv."""
@@ -4079,15 +4118,17 @@ def dense_parity(dev, cfgs=None) -> dict:
         card = CheckedEngine(pcfg, card_model, sc, device=dev)
         tokens = card.batch_tokens(groups_of(serve_requests(pcfg.vocab))[0])
         seen = {}
-        with patched(ops, first_card_calls(seen), ("flash_fwd",)):
+        fwd = "flash_fwd_mla" if cfg.is_mla else "flash_fwd"
+        with patched(ops, first_card_calls(seen), (fwd,)):
             err, mag, compared, equal = check_parity(
                 card, CheckedEngine(pcfg, host_model, sc, device="cpu"),
                 tokens)
+        check = check_flash_mla if cfg.is_mla else check_flash_fwd
         res[arch] = {"layers": PARITY_LAYERS, "steps": PARITY_STEPS,
                      "prompt": int(tokens.shape[1]), "tol": PARITY_TOL,
                      "max_abs_err": err, "max_abs_logit": mag,
                      "ids_compared": compared, "ids_equal": equal,
-                     "flash_fwd": check_flash_fwd(seen["flash_fwd"][0]),
+                     "flash_fwd": check(seen[fwd][0]),
                      "s": time.perf_counter() - t0}
         del seen
         del card, card_model, host_model
@@ -5100,22 +5141,91 @@ def moe_phase(paper, dev, smi: str, floor_ms: float) -> dict:
 # mla phase
 # ----------------------------------------------------------------------
 MLA_ARCH = "minicpm3-4b"
-# the attention core of MLA's prefill (flash over the expanded heads) and
-# of its absorbed decode step (plain torch over the latent cache)
-MLA_CORE = ("flash_attention", "mla_decode_attention")
-FLASH_KERNEL_NAMES = ("flash_split_kernel", "flash_fwd_wgmma_kernel")
+# the attention core of MLA's absorbed decode step (plain torch over the
+# latent cache); prefill's is the flash kernel, read by name
+MLA_CORE = ("mla_decode_attention",)
+# MLA's prefill: ranges around mla_forward and the functions it calls
+# that are not its own body (the q projection and rope, the latent)
+MLA_BODY, MLA_INNER = "mla_forward", ("mla_q", "mla_latent")
+MLA_BODY_CASTS = 2      # c_kv to the compute dtype (v), W_uk to f32 (k_nope)
 
 
 def mla_capture(step) -> dict:
     """Run `step` (the MLA engine's prefill or decode) and return the
-    first call's inputs of `silu_gate`, `ops.flash_fwd` and the
+    first call's inputs of `silu_gate`, `ops.flash_fwd_mla` and the
     attention core (`MLA_CORE`)."""
     seen = {}
     record = first_calls(seen)
     with patched(att, record, MLA_CORE), \
-            patched(ops, record, ("flash_fwd", "silu_gate")):
+            patched(ops, record, ("flash_fwd_mla", "silu_gate")):
         step()
     return seen
+
+
+def mla_body_ops(fn) -> dict:
+    """Run `fn` (group 1's prefill) under `torch.profiler` with
+    `mla_forward` and the functions it calls (MLA_INNER) in ranges, and
+    count what mla_forward's own body launches: its `aten::cat` ops and
+    casts (`aten::_to_copy`) and their device kernels; over the whole
+    run, the concatenation kernels (CatArrayBatchedCopy), the flash
+    kernels by name and all kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotate(label):
+        def wrap(name, f):
+            def call(*a, **k):
+                with record_function(label):
+                    return f(*a, **k)
+            return call
+        return wrap
+
+    with patched(att, annotate(MLA_BODY), (MLA_BODY,)), \
+            patched(att, annotate("mla_inner"), MLA_INNER), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    res = {"body_calls": 0, "body_cat": 0, "body_cast": 0,
+           "body_cat_cast_kernels": 0}
+    cpu = torch.autograd.DeviceType.CPU
+    for e in events:
+        if e.name != MLA_BODY or e.device_type != cpu:
+            continue
+        res["body_calls"] += 1
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.name == "mla_inner":
+                continue
+            kind = {"aten::cat": "body_cat",
+                    "aten::_to_copy": "body_cast"}.get(c.name)
+            if kind:
+                res[kind] += 1
+                sub = [c]
+                while sub:
+                    d = sub.pop()
+                    res["body_cat_cast_kernels"] += len(d.kernels)
+                    sub.extend(d.cpu_children)
+                continue
+            stack.extend(c.cpu_children)
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and
+               not getattr(e, "is_user_annotation", False) and
+               e.name not in (MLA_BODY, "mla_inner")]
+    res.update(kernels=len(kernels),
+               cat_kernels=sum("CatArrayBatchedCopy" in n for n in kernels),
+               split_kernels=sum("flash_split" in n for n in kernels),
+               flash_kernels=sum("flash_fwd_wgmma" in n for n in kernels))
+    return res
+
+
+def flash_instance_report(instance: str = FLASH_MLA_INSTANCE) -> dict:
+    """ptxas's registers and spills of one instance of flash_attn.cu's
+    kernels, from nvcc's output kept beside the built library."""
+    lib = build.library_path("flash_attn")
+    log_file = lib.with_name(lib.name + ".nvcc.txt")
+    return ptxas_report(log_file.read_text(), (instance,)).get(instance, {})
 
 
 def mla_serve(cfg, paper, dev) -> tuple:
@@ -5133,31 +5243,6 @@ def mla_serve(cfg, paper, dev) -> tuple:
                          want_of)
 
 
-def kernel_ms_by_name(fn, names, calls: int = 10) -> dict:
-    """{name: {"ms": device ms a launch, "seen": launches}} of each
-    kernel in `names` (matched in the kernel's name) over `calls` calls
-    of `fn` under `torch.profiler`: each launch's own duration averaged
-    over the launches the profiler kept (it may drop some), so the
-    average does not depend on how many it kept."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for n in names:
-            if n in e.name:
-                total[n] += (e.time_range.end - e.time_range.start) / 1e3
-                seen[n] += 1
-    return {n: {"ms": total[n] / seen[n] if seen[n] else None,
-                "seen": seen[n]} for n in names}
-
-
 def sdpa_backend(q, k, v) -> str:
     """The backend SDPA's dispatcher picks for causal attention on these
     inputs (`torch._fused_sdp_choice`); the profiler cannot tell: a
@@ -5171,42 +5256,47 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def time_mla_flash(args) -> dict:
-    """`ops.flash_fwd` on MLA's captured inputs (q [B,H,1,S,Dq] bf16, k
-    [B,H,S,Dq] f32, v [B,H,S,Dv] bf16): device ms of the call (the key
-    split and the attention kernel, a CUDA graph of 20 calls, so the
-    wrapper's host work stays out; each kernel's share by the profiler),
-    of its plain version, and of SDPA on the same q, k rounded to bf16
+    """`ops.flash_fwd_mla` on MLA's captured parts (q_nope [B,H,S,nd] a
+    strided view and q_rope [B,H,S,rd] bf16, k_nope [B,H,S,nd] f32, the
+    rope key [B,1,S,rd] bf16, v [B,H,S,Dv] bf16): device ms of the call
+    (one kernel, a CUDA graph of 20 calls, so the wrapper's host work
+    stays out), of its plain version,
+    and of SDPA on the reference's concatenations q = [q_nope, q_rope]
+    and k = [k_nope, k_rope] rounded to bf16, made outside the timing,
     and v, in turns with the kernel (the same function rounded
-    otherwise), its backend read from its kernels; beside the bound: q,
-    k (f32, the bytes of hi + lo), v read once, out and lse written once;
-    the products over the causal half, QK^T at Dq and PV at Dv, at the
-    bf16 tensor-core rate (`split_ops`: the kernel's own second QK^T, for
-    lo, which the function does not need)."""
-    q, k, v, window = args[:4]
-    B, H, G, S, Dq = q.shape
-    Dv = v.shape[3]
-    nbytes = q.numel() * 2 + k.numel() * 4 + v.numel() * 2 + \
-        B * H * G * S * (Dv * 2 + 4)
-    used = keys_used(S, window)
-    bms, by, nb, nops = attention_bound(B, H * G, S, used, Dq, nbytes, Dv=Dv)
+    otherwise), its backend read from its kernels; beside the bound at
+    the parts' bytes: q's parts, k_nope (f32), the one rope key and v
+    read once, out and lse written once; the products over the causal
+    half, QK^T at Dq and PV at Dv, at the bf16 tensor-core rate
+    (`split_ops`: the kernel's own second QK^T, for lo, over the nope
+    columns, which the function does not need)."""
+    q_nope, q_rope, k_nope, k_rope, v = args[:5]
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    Dq = nd + rd
+    nbytes = (B * H * S * Dq + k_rope.numel() + v.numel()) * 2 + \
+        k_nope.numel() * 4 + B * H * S * (Dv * 2 + 4)
+    used = keys_used(S, 0)
+    bms, by, nb, nops = attention_bound(B, H, S, used, Dq, nbytes, Dv=Dv)
+    q, k = mla_concatenated(args)
     qs, k16 = q[:, :, 0], k.to(torch.bfloat16)
+
+    def call():
+        return ops.flash_fwd_mla(*args)
 
     def lib():
         return torch.nn.functional.scaled_dot_product_attention(
             qs, k16, v, is_causal=True)
-    err, mag, rel = sdpa_diff(ops.flash_fwd(*args)[0][:, :, 0], lib(),
-                              "mla prefill")
-    ms, lib_ms = kernel_and_library_ms(lambda: ops.flash_fwd(*args), lib)
+    err, mag, rel = sdpa_diff(call()[0][:, :, 0], lib(), "mla prefill")
+    ms, lib_ms = kernel_and_library_ms(call, lib)
     return {"ms": ms, "library_ms": lib_ms,
             "library_backend": sdpa_backend(qs, k16, v),
-            "by_kernel": kernel_ms_by_name(lambda: ops.flash_fwd(*args),
-                                           FLASH_KERNEL_NAMES),
-            "plain_ms": device_ms(lambda: flash_fwd_ref(*args), launches=2,
-                                  reps=3),
+            "plain_ms": device_ms(lambda: flash_fwd_mla_ref(*args),
+                                  launches=2, reps=3),
             "sdpa_max_abs_diff": err, "sdpa_max_abs_out": mag,
             "sdpa_max_row_rel_diff": rel,
             "bound_ms": bms, "bound_by": by, "bytes": nb, "ops": nops,
-            "split_ops": 2 * B * H * G * S * used * Dq}
+            "split_ops": 2 * B * H * S * used * nd}
 
 
 def mla_phase(paper, dev, smi: str) -> dict:
@@ -5214,7 +5304,13 @@ def mla_phase(paper, dev, smi: str) -> dict:
     t_phase = time.perf_counter()
     cfg = get_config(MLA_ARCH)
     m = cfg.mla
+    ops.flash_fwd.copies = 0
     serve, caps, eng, groups = mla_serve(cfg, paper, dev)
+    # the parts are read where they lie: no operand copied dense
+    serve["flash_fwd_copies"] = ops.flash_fwd.copies
+    if ops.flash_fwd.copies:
+        raise AssertionError(f"mla serve: flash_fwd_mla copied "
+                             f"{ops.flash_fwd.copies} operands dense")
     log(f"[mla] {MLA_ARCH} {cfg.n_layers} layers, {cfg.n_heads} heads "
         f"(kv_lora {m.kv_lora_rank}, q_lora {m.q_lora_rank}, Dq "
         f"{m.qk_nope_head_dim}+{m.qk_rope_head_dim}, Dv {m.v_head_dim}), "
@@ -5257,20 +5353,48 @@ def mla_phase(paper, dev, smi: str) -> dict:
                 f"{k} {v:.3f}" for k, v in pr["by_kind"].items()) +
             "; top: " + ", ".join(f"{t['name']} x{t['count']} "
                                   f"{t['ms']:.2f}" for t in pr["top"]))
-    # (2) the flash kernel on layer 0's inputs of both prefills (q, v
-    # bf16, k f32), twice equal, timed at group 1's
-    fargs = caps[0]["flash_fwd"][0]
-    q, k, v = fargs[:3]
-    if not (q.dtype == v.dtype == torch.bfloat16 and
-            k.dtype == torch.float32 and q.shape[-1] == m.qk_nope_head_dim +
-            m.qk_rope_head_dim and v.shape[-1] == m.v_head_dim):
-        raise AssertionError(f"mla flash inputs: q {q.dtype} "
-                             f"{tuple(q.shape)}, k {k.dtype}, v {v.dtype} "
-                             f"{tuple(v.shape)}")
-    fchecks = [check_flash_fwd(cap["flash_fwd"][0]) for cap in caps[:2]]
-    two_calls_equal(lambda: ops.flash_fwd(*fargs), "flash_fwd (mla)")
+    # what mla_forward's own body launches in group 1's prefill: no
+    # concatenation, no cast for q or k, no split pass; one flash kernel
+    # a layer
+    body = mla_body_ops(lambda: eng.prefill(toks))
+    serve["body_ops"] = body
+    log(f"[mla] group 1's prefill: {body['kernels']} device kernels, "
+        f"{body['cat_kernels']} concatenation kernels "
+        f"(CatArrayBatchedCopy; apply_rope's), {body['flash_kernels']} "
+        f"flash_fwd_wgmma, {body['split_kernels']} flash_split; "
+        f"mla_forward's own body over {body['body_calls']} calls: "
+        f"{body['body_cat']} aten::cat, {body['body_cast']} casts "
+        f"(aten::_to_copy: c_kv to bf16 for v, W_uk to f32 for k_nope), "
+        f"{body['body_cat_cast_kernels']} kernels of them; flash_fwd.copies "
+        f"{serve['flash_fwd_copies']} in the serve | {smi}")
+    # (the profiler may drop kernel events, so the flash kernels are held
+    # to having run, and the launch count to one a layer)
+    if body["body_cat"] or body["split_kernels"] or \
+            body["body_cast"] != MLA_BODY_CASTS * body["body_calls"] or \
+            not body["flash_kernels"] or body["body_calls"] != cfg.n_layers:
+        raise AssertionError(f"mla prefill: mla_forward's body launched "
+                             f"concatenations, casts or splits beyond its "
+                             f"own, or no flash kernel: {body}")
+    # (2) the flash kernel on layer 0's parts of both prefills (q's parts,
+    # the rope key and v bf16, k_nope f32), twice equal, timed at group 1's
+    fargs = caps[0]["flash_fwd_mla"][0]
+    q_nope, q_rope, k_nope, k_rope, v = fargs[:5]
+    if not (q_nope.dtype == q_rope.dtype == k_rope.dtype == v.dtype ==
+            torch.bfloat16 and k_nope.dtype == torch.float32 and
+            q_nope.shape[-1] == m.qk_nope_head_dim and
+            tuple(k_rope.shape[1:]) == (1, q_nope.shape[2],
+                                        m.qk_rope_head_dim) and
+            v.shape[-1] == m.v_head_dim and not q_nope.is_contiguous()):
+        raise AssertionError("mla flash parts: " + ", ".join(
+            f"{t.dtype} {tuple(t.shape)} {t.stride()}" for t in fargs[:5]))
+    fchecks = [check_flash_mla(cap["flash_fwd_mla"][0]) for cap in caps[:2]]
+    two_calls_equal(lambda: ops.flash_fwd_mla(*fargs), "flash_fwd (mla)")
     ft = time_mla_flash(fargs)
-    flash = {"checks": fchecks, "timing": ft,
+    regs = flash_instance_report()
+    if not regs or regs.get("spill_stores") or regs.get("spill_loads"):
+        raise AssertionError(f"flash_fwd's MLA instance {FLASH_MLA_INSTANCE}:"
+                             f" ptxas reports {regs}")
+    flash = {"checks": fchecks, "timing": ft, "ptxas": regs,
              "max_err": max(c["out"]["err"] for c in fchecks)}
     serve["flash_fwd"] = flash
     log_flash("mla", "fwd", fchecks[0], ft, smi)
@@ -5280,15 +5404,13 @@ def mla_phase(paper, dev, smi: str) -> dict:
         f"{fchecks[1]['lse_max_abs_diff']:.3g} ({fchecks[1]['lse_err']:.3g} "
         f"of its tolerance, at most {fchecks[1]['lse_max_tol']:.3g} a row); "
         f"two calls equal")
-    log("[mla] flash_fwd by kernel (ms a launch, the profiler's): " +
-        ", ".join(f"{n} {t['ms']:.5f} ({t['seen']} launches seen of "
-                  f"10)" if t["ms"] is not None else f"{n} not seen"
-                  for n, t in ft["by_kernel"].items()) +
-        f"; the split's second QK^T {ft['split_ops']:.4g} ops beyond the "
-        f"bound's; SDPA "
+    log(f"[mla] flash_fwd (one kernel a call): the split's second QK^T "
+        f"(nope columns) {ft['split_ops']:.4g} ops beyond the bound's; SDPA "
         f"(q, bf16(k), v) {ft['library_ms']:.5f} ms by "
         f"{ft['library_backend']}, largest row off "
-        f"{ft['sdpa_max_row_rel_diff']:.4g} of its max | {smi}")
+        f"{ft['sdpa_max_row_rel_diff']:.4g} of its max; the MLA instance "
+        f"(ptxas): " + ", ".join(f"{k} {v}" for k, v in regs.items()) +
+        f" | {smi}")
     # the SwiGLU gate bit-equal at both prefills and a decode step
     gate_errs = [check_silu("silu_gate", *cap["silu_gate"]) for cap in caps]
     serve["silu_gate_max_abs_err"] = max(gate_errs)
@@ -6923,6 +7045,11 @@ def main() -> int:
             f"{k} {v}" for k, v in fl_report.get(name, {}).items())
             + "; SASS " + ", ".join(f"{k} {v}" for k, v in
                                     fl_sass[name].items() if v))
+    mla_regs = ptxas_report(texts["flash_attn"], (FLASH_MLA_INSTANCE,))
+    results["build_flash"]["mla_instance"] = mla_regs
+    log(f"[build] flash_attn: the forward's MLA instance <1, 32, 1, 0, "
+        f"true>: " + ", ".join(f"{k} {v}" for k, v in mla_regs.get(
+            FLASH_MLA_INSTANCE, {}).items()))
     no_tc = [n for n in FLASH_TC_KERNELS
              if not (fl_sass[n]["HGMMA"] and fl_sass[n]["UTMALDG"])]
     fl_spills = {n: fl_report[n] for n in FLASH_TC_KERNELS
@@ -7493,7 +7620,8 @@ def main() -> int:
         "bound_ms": mk["flash_fwd"]["timing"]["bound_ms"],
         "bound_by": mk["flash_fwd"]["timing"]["bound_by"],
         "library_ms": mk["flash_fwd"]["timing"]["library_ms"]}, {
-        "name": "flash_fwd (mla, Dq=96, Dv=64, f32 keys)", "route": "cuda",
+        "name": "flash_fwd (mla parts, Dq=64+32, Dv=64, f32 keys)",
+        "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/models/attention.py:39",
         "launches": mla["serve"]["launches"]["flash_fwd"],

@@ -61,13 +61,16 @@
 // (a block of 384 threads an SM, walking its list of work items: see
 // Walk) and warp-specialised:
 //  * warpgroup 0 is the producer: setmaxnreg lowers it to 40 registers
-//    (56 in dk / dv, whose producer warp also loads lse and delta) and
-//    one thread issues the TMA loads (UTMALDG) into a ring of 2
-//    shared-memory stages, each completed on an mbarrier with the
-//    transaction's bytes; the consumers release a stage through a
-//    second mbarrier (an arrival a consumer warp);
+//    (56 in dk / dv, whose producer warp also loads lse and delta, and in
+//    MLA's forward, whose warps 1-3 split the f32 keys) and one thread
+//    issues the TMA loads (UTMALDG) into a ring of 2 shared-memory
+//    stages, each completed on an mbarrier with the transaction's bytes
+//    (and in MLA's forward the splitting warps' arrivals); the consumers
+//    release a stage through a second mbarrier (an arrival a consumer
+//    warp);
 //  * warpgroups 1 and 2 are the consumers (setmaxnreg raises them to 232
-//    registers, 224 in dk / dv; no bf16 instance spills), each owning 64
+//    registers, 224 in dk / dv and MLA's forward; no bf16 instance
+//    spills), each owning 64
 //    rows of the item, and run wgmma (HGMMA): s = q k^T with both
 //    operands in shared memory, then the probabilities, converted
 //    pairwise to bf16 in registers, are the register A operand of the
@@ -117,24 +120,37 @@
 // kv head, g, row; unit stride along D), outputs dense.
 //
 // MLA (minicpm3-4b's prefill, mla_forward at src/repro/models/
-// attention.py:339) runs the forward with q and k of Dq columns and v and
-// out of Dv (96 and 64), and in bf16 runs with f32 keys beside bf16 q and
-// v: the reference's k_nope is an f32 product and the concatenation with
-// the rope key promotes the whole k, so its score product reads f32 keys.
-// flash_split_kernel first splits them, once a call, into hi = bf16(k)
-// and lo = bf16(k - hi) (dense scratch of k's bytes), and the forward
-// forms s = q . hi + q . lo into one f32 accumulator, the split the
-// backward uses for its f32 factors: what is dropped is under 2^-17 |k|
-// (the rope columns' lo is 0 and is multiplied all the same). q and k
-// take one column layout, v and out another: Dq = 96 as a 64-column
-// region and a 32-column tail of 64-byte rows (64-byte swizzle), Dv = 64
-// as one region (any Dq up to 96 beside f32 keys takes this layout, TMA
-// zero-filling the columns past it; at the served shape it took 4.6%
-// less time than the 128-column layout on an H100 80GB HBM3 at 700 W,
-// PERF.md section 6). Any Dq, Dv up to 128 without
-// the split take the 128-column instance for both, with TMA's zero fill
-// (D = 80 alone has its own). The f32 kernel takes Dv apart
-// from Dq as well. The backward keeps Dq == Dv and one dtype.
+// attention.py:339) runs the forward with q and k of Dq = nd + rd columns
+// and v and out of Dv (64 + 32 and 64), and in bf16 runs with f32 keys
+// beside bf16 q and v: the reference's k_nope is an f32 product and the
+// concatenation with the rope key promotes the whole k, so its score
+// product reads f32 keys. flash_fwd_mla_launch reads MLA's parts where
+// they lie, with no concatenation: q from q_nope (a strided view of the
+// projection) and q_rope, k from k_nope (f32) and the rope key k_rope
+// [B,1,S,rd] that every head shares (bf16; its map has no head: each
+// head's tile comes from the one tensor, through L2). q's tile is a
+// 64-column region (q_nope's map) and a 32-column tail of 64-byte rows
+// (q_rope's map, 64-byte swizzle); a key tile is the same layout, its
+// region hi = bf16(k_nope) and its tail the rope key, plus a second
+// region lo = bf16(k_nope - hi). The TMA thread loads each f32 k_nope
+// tile (a map of 64 floats a row, no swizzle) into one of two staging
+// slots of shared memory a tile ahead, and the producer warpgroup's
+// warps 1-3 split it into the stage's hi and lo (split_key_tile, which
+// MLA's backward can reuse) while the consumers work on the tile before;
+// the consumers form s = q . hi over the 6 k16 steps, then + q . lo over
+// the nope region's 4, in one f32 accumulator: the split the backward
+// uses for its f32 factors, what is dropped under 2^-17 |k|; the rope key
+// is bf16, so its lo is 0 and is not multiplied (so out and lse are those
+// of a split over all 96 columns, bit for bit). Each key tile is released
+// to the split right after its q . k^T, while its v is still in use.
+// Splitting in a pass of its own over a concatenated k, or loading
+// k_nope with the splitting warps' own 16-byte loads, took more time on
+// an H100 80GB HBM3 at 700 W (PERF.md section 6), as did a 128-column
+// layout of q and k (4.6% more than 64 + 32).
+// Any Dq, Dv up to 128 of one dtype take the 128-column instance for
+// both, with TMA's zero fill (D = 80 alone has its own). The f32 kernel
+// takes Dv apart from Dq and q and k from two parts each (MLA's f32
+// runs). The backward keeps Dq == Dv and one dtype.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,10 +190,14 @@ constexpr int kWG = 128;                 // threads of a warpgroup
 constexpr int kThreadsWS = 3 * kWG;      // the producer + 2 consumers
 constexpr int kStages = 2;               // ring depth
 // registers a thread after setmaxnreg: the producer's, the consumers'
-// (P x 128 + C x 256 <= 64 K)
+// (P x 128 + C x 256 <= 168 x 384, the launch's)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // dk / dv: its producer warp also loads lse and delta
 constexpr int kKvProducerRegs = 56, kKvConsumerRegs = 224;
+// MLA's forward: its producer warpgroup's warps 1-3 split the f32 keys
+// (kSplitWarps), staged in kMlaSlots slots of shared memory by TMA
+constexpr int kMlaProducerRegs = 56, kMlaConsumerRegs = 224;
+constexpr int kSplitWarps = 3, kMlaSlots = 2;
 constexpr int kBox = 64;                 // rows of a TMA box
 constexpr int kFwdQ = 128, kFwdN = 128;  // forward: query rows, keys
 constexpr int kDqQ = 128, kDqN = 64;     // dq: query rows, keys
@@ -199,12 +219,12 @@ struct Cols {
 };
 
 // the tensor maps of the operands and outputs: [op][0] D in boxes of 64
-// columns, [op][1] the tail's box (16 columns, D = 80; 32, Dq = 96); o0
-// is out, dq or dk, o1 dv; k2 the lo part of split f32 keys (k is then
-// their hi part)
-enum { kMq = 0, kMk = 1, kMv = 2, kMg = 3, kMo0 = 4, kMo1 = 5, kMk2 = 6 };
+// columns, [op][1] the tail's box (16 columns, D = 80; 32, MLA's rope
+// part: q_rope's for q, k_rope's for k, whose nope part the kernel loads
+// itself); o0 is out, dq or dk, o1 dv
+enum { kMq = 0, kMk = 1, kMv = 2, kMg = 3, kMo0 = 4, kMo1 = 5 };
 struct Maps {
-  CUtensorMap t[7][2];
+  CUtensorMap t[6][2];
 };
 
 // ---- PTX wrappers ------------------------------------------------------
@@ -297,6 +317,20 @@ __device__ __forceinline__ void wg_sync(int cw) {
 }
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared2(uint32_t addr, uint32_t a,
+                                           uint32_t b) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(a),
+               "r"(b)
+               : "memory");
 }
 
 template <int N>
@@ -505,6 +539,40 @@ __device__ __forceinline__ void to_frags_split(const float (&x)[N],
     split_pair(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
 }
 
+// The f32 keys' nope part as the bf16 K-major tiles wgmma reads: a tile
+// of R rows of 64 floats in shared memory at `keys` (256-byte rows, no
+// swizzle: a TMA box's layout, columns past nd and rows past S zero),
+// split into hi = bf16(k) and lo = bf16(k - hi) (k - hi is exact in f32;
+// what lo drops is under 2^-17 |k|), each a region of R rows of 128
+// bytes with the 128-byte swizzle (the layout a TMA box of 64 bf16
+// columns writes). By the NT threads tid in [0, NT): 16 a row, a float4
+// each (a warp reads 512 contiguous bytes and its stores fill 256),
+// kUnroll loads in flight a thread. The caller fences the tiles for the
+// async proxy (fence_async_smem) before it signals wgmma's threads.
+template <int R, int NT>
+__device__ __forceinline__ void split_key_tile(uint32_t keys, uint32_t hi,
+                                               uint32_t lo, int tid) {
+  constexpr int kUnits = R * 16, kUnroll = 4;
+  for (int u0 = tid; u0 < kUnits; u0 += NT * kUnroll) {
+    float4 x[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j)
+      if (u0 + j * NT < kUnits) x[j] = ld_shared_f4(keys + (u0 + j * NT) * 16);
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int u = u0 + j * NT, r = u >> 4, c4 = u & 15;
+      if (u >= kUnits) break;
+      uint32_t h0, l0, h1, l1;
+      split_pair(x[j].x, x[j].y, h0, l0);
+      split_pair(x[j].z, x[j].w, h1, l1);
+      const uint32_t off =
+          r * 128 + (((c4 >> 1) ^ (r & 7)) << 4) + (c4 & 1) * 8;
+      st_shared2(hi + off, h0, h1);
+      st_shared2(lo + off, l0, l1);
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -553,23 +621,34 @@ __device__ __forceinline__ uint32_t align1024(uint32_t a) {
   return (a + 1023u) & ~1023u;
 }
 
+// R rows of operand `op`'s tail (its map [op][1], from column tc0) from
+// row0 into the tail of a tile at dst, in boxes of 64 rows
+template <int NR, int TL, int R>
+__device__ __forceinline__ void tma_tail(uint32_t dst, const Maps& m,
+                                         int op, uint32_t bar, int tc0,
+                                         int row0, int g, int h, int b) {
+#pragma unroll
+  for (int half = 0; half < R / kBox; ++half)
+    tma_load5(dst + NR * R * 128 + half * kBox * TL * 2, &m.t[op][1], bar,
+              tc0, row0 + half * kBox, g, h, b);
+}
+
 // R rows of operand `op` from row0 (of query group g, kv head h, batch b)
 // into a tile at dst, in boxes of 64 rows: the regions of 64 columns,
-// then the tail
+// then the tail from column tc0 of its map (NR * 64: one tensor; 0: a
+// part of its own, MLA's rope part)
 template <int NR, int TL, int R>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const Maps& m,
                                          int op, uint32_t bar, int row0,
-                                         int g, int h, int b) {
+                                         int g, int h, int b,
+                                         int tc0 = NR * 64) {
 #pragma unroll
-  for (int half = 0; half < R / kBox; ++half) {
+  for (int half = 0; half < R / kBox; ++half)
 #pragma unroll
     for (int r = 0; r < NR; ++r)
       tma_load5(dst + r * R * 128 + half * kBox * 128, &m.t[op][0], bar,
                 r * 64, row0 + half * kBox, g, h, b);
-    if (TL)
-      tma_load5(dst + NR * R * 128 + half * kBox * TL * 2, &m.t[op][1], bar,
-                NR * 64, row0 + half * kBox, g, h, b);
-  }
+  if (TL) tma_tail<NR, TL, R>(dst, m, op, bar, tc0, row0, g, h, b);
 }
 
 // A block's work items: nz heads ((b, kv head, g), or (b, kv head) in
@@ -675,15 +754,40 @@ struct FwdArgs {
   int nqt;
 };
 
+// The key tiles of the forward's work items in the order the block
+// walks them (a cursor the producer's TMA thread runs ahead with)
+struct TileCursor {
+  Walk walk;
+  QItem w;
+  int t = 0;
+  bool ok = false;
+  __device__ void item(const Shape& sh, int nqt) {
+    int z, rank;
+    ok = walk.next(sh.B * sh.K * sh.G, nqt, z, rank);
+    if (ok) {
+      w = q_item(sh, z, rank, nqt, kFwdQ, kFwdN);
+      t = w.t_lo;
+    }
+  }
+  __device__ void next(const Shape& sh, int nqt) {
+    if (++t > w.t_hi) item(sh, nqt);
+  }
+};
+
 // ----------------------------------------------------------------------
 // bf16: forward
 // ----------------------------------------------------------------------
-// q and k laid out as Cols<NRQ, TLQ>, v and out as Cols<NRV, TLV>; with
-// SPLIT, k is read as two bf16 tiles a key tile, hi and lo (f32 keys
-// split by flash_split_kernel), and s = q . hi + q . lo in one f32
-// accumulator. out is staged in the q tile, each consumer in its own rows
-// (so its regions must lie inside q's).
-template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
+// q and k laid out as Cols<NRQ, TLQ>, v and out as Cols<NRV, TLV>. With
+// MLA, q's region and tail come from two maps (q_nope's, q_rope's); a key
+// tile is hi = bf16(k_nope) in the region, the shared rope key in the tail
+// (k_rope's map at head 0), and lo = bf16(k_nope - hi) in a region of its
+// own after it: the TMA thread loads each f32 k_nope tile ([kMk][0])
+// into a staging slot up to kMlaSlots tiles ahead, and the producer's
+// warps 1-3 split it into the stage's hi and lo (split_key_tile); s =
+// q . hi over every k16 step, then + q . lo over the region's, in one
+// f32 accumulator. out is staged in the q tile, each consumer in its own
+// rows (so its regions must lie inside q's).
+template <int NRQ, int TLQ, int NRV, int TLV, bool MLA>
 __global__ void __launch_bounds__(kThreadsWS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps,
                            const FwdArgs a) {
@@ -691,19 +795,30 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
   static_assert(TLV == 0 || TLV == 16, "v's tail is 16 columns or none");
   static_assert(NRV <= NRQ && (TLV == 0 || (NRV == NRQ && TLV == TLQ)),
                 "out's regions must lie inside q's");
-  constexpr int kParts = SPLIT ? 2 : 1;    // k tiles a key tile
+  static_assert(!MLA || (NRQ == 1 && TLQ == 32),
+                "MLA's parts: a nope region of 64 columns, a rope tail of 32");
+  constexpr int kSlots = MLA ? kMlaSlots : 0;
   constexpr uint32_t kQBytes = kFwdQ * LQ::kRow, kKBytes = kFwdN * LQ::kRow,
-                     kVBytes = kFwdN * row_bytes(NRV, TLV);
+                     kLoBytes = MLA ? kFwdN * NRQ * 128 : 0,
+                     kKStage = kKBytes + kLoBytes,
+                     kVBytes = kFwdN * row_bytes(NRV, TLV),
+                     kFBytes = kFwdN * 64 * 4;   // an f32 k_nope tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = align1024(smem_u32(smem_raw));      // [2]
-  const uint32_t sK = sQ + 2 * kQBytes;                    // [stage][part]
-  const uint32_t sV = sK + kStages * kParts * kKBytes;
+  const uint32_t sK = sQ + 2 * kQBytes;                    // [stage]
+  const uint32_t sV = sK + kStages * kKStage;
+  const uint32_t sF = sV + kStages * kVBytes;              // [slot]
   // mbarriers: q full, q empty (a pair each: the next item's q loads
-  // during this one), then per stage k full, v full, empty
-  const uint32_t bars = sV + kStages * kVBytes;
+  // during this one), then per stage k full, v full, empty, then (MLA)
+  // per stage k empty (the key tile read: the split of the next one
+  // starts while the consumers still run the probabilities and PV; the
+  // stage's empty then frees its v) and per slot f full, f empty
+  const uint32_t bars = sF + kSlots * kFBytes;
   const uint32_t q_full = bars, q_empty = bars + 16;
   const uint32_t k_full = bars + 32, v_full = k_full + 8 * kStages,
-                 empty = v_full + 8 * kStages;
+                 empty = v_full + 8 * kStages,
+                 k_empty = MLA ? empty + 8 * kStages : empty,
+                 f_full = empty + 16 * kStages, f_empty = f_full + 8 * kSlots;
   const Shape sh = a.sh;
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
@@ -711,9 +826,15 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
       mbar_init(q_empty + 8 * i, 2);
     }
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full + 8 * s, 1);
+      // MLA: the TMA thread's arrival and one a splitting warp
+      mbar_init(k_full + 8 * s, MLA ? 1 + kSplitWarps : 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);
+      if (MLA) mbar_init(k_empty + 8 * s, 8);
+    }
+    for (int f = 0; f < kSlots; ++f) {
+      mbar_init(f_full + 8 * f, 1);
+      mbar_init(f_empty + 8 * f, kSplitWarps);
     }
     mbar_init_fence();
   }
@@ -721,37 +842,76 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
   const int wg = threadIdx.x / kWG;
 
   if (wg == 0) {  // the producer
-    setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      int c = 0, z, rank;
+    setmaxnreg_dec<MLA ? kMlaProducerRegs : kProducerRegs>();
+    if (threadIdx.x == 0) {   // the TMA loads
+      int c = 0, fc = 0, z, rank;
       Walk walk;
+      TileCursor ahead;   // MLA: the f32 tiles' loads, a slot ahead
+      if (MLA) ahead.item(sh, a.nqt);
       for (int it = 0; walk.next(sh.B * sh.K * sh.G, a.nqt, z, rank); ++it) {
         const QItem w = q_item(sh, z, rank, a.nqt, kFwdQ, kFwdN);
         const uint32_t qf = q_full + 8 * (it & 1);
         mbar_wait(q_empty + 8 * (it & 1), ((it >> 1) & 1) ^ 1);
         mbar_expect_tx(qf, kQBytes);
         tma_tile<NRQ, TLQ, kFwdQ>(sQ + (it & 1) * kQBytes, maps, kMq, qf,
-                                  w.q0, w.g, w.h, w.b);
+                                  w.q0, w.g, w.h, w.b, MLA ? 0 : NRQ * 64);
         for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
           const int s = c % kStages;
-          const uint32_t kt = sK + s * kParts * kKBytes;
+          const uint32_t kt = sK + s * kKStage;
+          for (; MLA && ahead.ok && fc < c + kSlots; ++fc) {
+            const int f = fc % kSlots;
+            mbar_wait(f_empty + 8 * f, ((fc / kSlots) & 1) ^ 1);
+            mbar_expect_tx(f_full + 8 * f, kFBytes);
+#pragma unroll
+            for (int half = 0; half < kFwdN / kBox; ++half)
+              tma_load5(sF + f * kFBytes + half * kBox * 256, &maps.t[kMk][0],
+                        f_full + 8 * f, 0, ahead.t * kFwdN + half * kBox, 0,
+                        ahead.w.h, ahead.w.b);
+            ahead.next(sh, a.nqt);
+          }
+          if (MLA) {   // the rope key's tail; the region is split
+            mbar_wait(k_empty + 8 * s, ((c / kStages) & 1) ^ 1);
+            mbar_expect_tx(k_full + 8 * s, kFwdN * TLQ * 2);
+            tma_tail<NRQ, TLQ, kFwdN>(kt, maps, kMk, k_full + 8 * s, 0,
+                                      t * kFwdN, 0, 0, w.b);
+          }
           mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
-          mbar_expect_tx(k_full + 8 * s, kParts * kKBytes);
-          tma_tile<NRQ, TLQ, kFwdN>(kt, maps, kMk, k_full + 8 * s, t * kFwdN,
-                                    0, w.h, w.b);
-          if (SPLIT)
-            tma_tile<NRQ, TLQ, kFwdN>(kt + kKBytes, maps, kMk2,
-                                      k_full + 8 * s, t * kFwdN, 0, w.h, w.b);
+          if (!MLA) {
+            mbar_expect_tx(k_full + 8 * s, kKBytes);
+            tma_tile<NRQ, TLQ, kFwdN>(kt, maps, kMk, k_full + 8 * s,
+                                      t * kFwdN, 0, w.h, w.b);
+          }
           mbar_expect_tx(v_full + 8 * s, kVBytes);
           tma_tile<NRV, TLV, kFwdN>(sV + s * kVBytes, maps, kMv,
                                     v_full + 8 * s, t * kFwdN, 0, w.h, w.b);
+        }
+      }
+    } else if (MLA && threadIdx.x >= 32) {   // warps 1-3: the key split
+      int c = 0, z, rank;
+      Walk walk;
+      while (walk.next(sh.B * sh.K * sh.G, a.nqt, z, rank)) {
+        const QItem w = q_item(sh, z, rank, a.nqt, kFwdQ, kFwdN);
+        for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+          const int s = c % kStages, f = c % kSlots;
+          const uint32_t kt = sK + s * kKStage;
+          mbar_wait(k_empty + 8 * s, ((c / kStages) & 1) ^ 1);
+          mbar_wait(f_full + 8 * f, (c / kSlots) & 1);
+          split_key_tile<kFwdN, 32 * kSplitWarps>(sF + f * kFBytes, kt,
+                                                  kt + kKBytes,
+                                                  threadIdx.x - 32);
+          fence_async_smem();
+          __syncwarp();
+          if ((threadIdx.x & 31) == 0) {
+            mbar_arrive(k_full + 8 * s);
+            mbar_arrive(f_empty + 8 * f);
+          }
         }
       }
     }
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<MLA ? kMlaConsumerRegs : kConsumerRegs>();
   const int cw = wg - 1, tid = threadIdx.x % kWG;
   const int warp = tid >> 5, lane = tid & 31;
   const int cp = 2 * (lane & 3);
@@ -775,7 +935,7 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
       const int s = c % kStages;
       const unsigned ph = (c / kStages) & 1;
-      const uint32_t kt = sK + s * kParts * kKBytes, vt = sV + s * kVBytes;
+      const uint32_t kt = sK + s * kKStage, vt = sV + s * kVBytes;
       const int k0 = t * kFwdN;
       float x[64];
       mbar_wait(k_full + 8 * s, ph);
@@ -784,14 +944,15 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
       for (int kk = 0; kk < LQ::kSteps; ++kk)
         wgmma_ss_n128(x, kmajor<NRQ, TLQ>(qt, kFwdQ, cw * 64, kk),
                       kmajor<NRQ, TLQ>(kt, kFwdN, 0, kk), kk);
-      if (SPLIT) {
+      if (MLA) {
 #pragma unroll
-        for (int kk = 0; kk < LQ::kSteps; ++kk)
+        for (int kk = 0; kk < NRQ * 4; ++kk)
           wgmma_ss_n128(x, kmajor<NRQ, TLQ>(qt, kFwdQ, cw * 64, kk),
                         kmajor<NRQ, TLQ>(kt + kKBytes, kFwdN, 0, kk), 1);
       }
       wgmma_commit_wait();
       fence_regs(x);
+      if (MLA && lane == 0) mbar_arrive(k_empty + 8 * s);
       // mask a tile that crosses the diagonal or the window's edge: key
       // k0 + cp + off is kept for query r iff off <= r - k0 - cp and,
       // with a window, off > r - k0 - cp - window
@@ -871,32 +1032,6 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
     const long long zrow = static_cast<long long>(w.z) * sh.S;
     if (cp == 0 && r0 < sh.S) a.lse[zrow + r0] = m0 * sh.sc + logf(ls0);
     if (cp == 0 && r1 < sh.S) a.lse[zrow + r1] = m1 * sh.sc + logf(ls1);
-  }
-}
-
-// f32 keys [B,K,S,D] (read through their strides) as two dense bf16
-// arrays, hi = bf16(k) and lo = bf16(k - hi): k - hi is exact in f32, and
-// what lo drops is under 2^-17 |k|. A warp a row, lanes over D.
-__global__ void __launch_bounds__(256)
-    flash_split_kernel(const float* __restrict__ k, View kv,
-                       bf16* __restrict__ hi, bf16* __restrict__ lo,
-                       Shape sh) {
-  const long long rows = static_cast<long long>(sh.B) * sh.K * sh.S;
-  const long long step = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  for (long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x) >> 5;
-       row < rows; row += step) {
-    const int s = static_cast<int>(row % sh.S);
-    const long long bh = row / sh.S;
-    const int h = static_cast<int>(bh % sh.K), b = static_cast<int>(bh / sh.K);
-    const float* src = k + b * kv.b + h * kv.h + s * kv.s;
-    for (int d = lane; d < sh.D; d += 32) {
-      const float x = src[d];
-      const bf16 xh = __float2bfloat16_rn(x);
-      hi[row * sh.D + d] = xh;
-      lo[row * sh.D + d] = __float2bfloat16_rn(x - __bfloat162float(xh));
-    }
   }
 }
 
@@ -1382,22 +1517,33 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // rows [row0, row0 + R) of an f32 operand into shared rows `SD` apart,
-// zero past S
+// zero past S; with a second part (src2, rows ld2 apart: MLA's rope
+// part), columns [nd, D) from it, the first nd from src
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                               long long ld, int row0, int R,
-                                              int S, int D, int SD) {
+                                              int S, int D, int SD,
+                                              const float* src2 = nullptr,
+                                              long long ld2 = 0,
+                                              int nd = 1 << 30) {
   for (int c = threadIdx.x; c < R * D; c += blockDim.x) {
     const int r = c / D, d = c - r * D;
-    dst[r * SD + d] = row0 + r < S ? src[(long long)(row0 + r) * ld + d] : 0.f;
+    const long long row = row0 + r;
+    dst[r * SD + d] = row >= S   ? 0.f
+                      : d < nd ? src[row * ld + d]
+                               : src2[row * ld2 + d - nd];
   }
 }
 
+// q's and k's columns [0, nd) from q and k, [nd, D) from q2 and k2
+// (MLA's nope and rope parts; nd = D: one tensor each)
 __global__ void __launch_bounds__(kRows * 32)
     flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ q2,
                          const float* __restrict__ k,
+                         const float* __restrict__ k2,
                          const float* __restrict__ v, float* __restrict__ out,
-                         float* __restrict__ lse, Shape sh, View qv, View kv,
-                         View vv) {
+                         float* __restrict__ lse, Shape sh, View qv,
+                         View q2v, View kv, View k2v, View vv, int nd) {
   const int D = sh.D, Dv = sh.Dv, S = sh.S, SD = D + 1, SV = Dv + 1;
   extern __shared__ float fsm[];
   float* Qs = fsm;                   // [kRows][D]
@@ -1409,20 +1555,19 @@ __global__ void __launch_bounds__(kRows * 32)
   const int z = blockIdx.y;
   const int gq = z % sh.G, kh = (z / sh.G) % sh.K, b = z / (sh.G * sh.K);
   const float* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
+  const float* q2b = q2 + b * q2v.b + kh * q2v.h + gq * q2v.g;
   const float* kb = k + b * kv.b + kh * kv.h;
+  const float* k2b = k2 + b * k2v.b + kh * k2v.h;
   const float* vb = v + b * vv.b + kh * vv.h;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qi = i0 + w;
   const int klo = sh.window > 0 ? max(0, i0 - sh.window + 1) : 0;
   const int khi = min(S, i0 + kRows);
-  for (int c = threadIdx.x; c < kRows * D; c += blockDim.x) {
-    const int r = c / D, d = c - r * D;
-    Qs[c] = i0 + r < S ? qb[(long long)(i0 + r) * qv.s + d] : 0.f;
-  }
+  load_rows_f32(Qs, qb, qv.s, i0, kRows, S, D, D, q2b, q2v.s, nd);
   float m = kNegInf, l = 0.f, acc[kMaxC] = {0.f, 0.f, 0.f, 0.f};
   for (int kt0 = (klo / kT) * kT; kt0 < khi; kt0 += kT) {
     __syncthreads();
-    load_rows_f32(Ks, kb, kv.s, kt0, kT, S, D, SD);
+    load_rows_f32(Ks, kb, kv.s, kt0, kT, S, D, SD, k2b, k2v.s, nd);
     load_rows_f32(Vs, vb, vv.s, kt0, kT, S, Dv, SV);
     __syncthreads();
     const int kj = kt0 + lane;
@@ -1658,12 +1803,15 @@ EncodeFn encoder() {
 // Errors of the tensor maps' encoding come back as -(1000 + CUresult).
 constexpr int kMapError = 1000;
 
-// A bf16 operand of D columns and G query groups (1 for k and v),
-// element strides `v`, as a rank-5 map (D, row, g, kv head, b) with boxes of 64 rows and
-// `cols` columns swizzled `sw`; a stride of 0 (a dim of size 1) becomes
-// a legal one, never stepped.
+// An operand of D columns and G query groups (1 for k and v), element
+// strides `v`, as a rank-5 map (D, row, g, kv head, b) with boxes of 64
+// rows and `cols` columns swizzled `sw`; a stride of 0 (a dim of size 1)
+// becomes a legal one, never stepped. bf16 unless `type` (of `esize`
+// bytes) says otherwise.
 int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int D, int G,
-           const View& v, int cols, CUtensorMapSwizzle sw) {
+           const View& v, int cols, CUtensorMapSwizzle sw,
+           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+           int esize = 2) {
   EncodeFn fn = encoder();
   if (fn == nullptr) return -kMapError;
   const cuuint64_t dims[5] = {
@@ -1673,11 +1821,11 @@ int encode(CUtensorMap* map, const void* ptr, const Shape& sh, int D, int G,
   const long long el[4] = {v.s, v.g, v.h, v.b};
   cuuint64_t strides[4];
   for (int i = 0; i < 4; ++i)
-    strides[i] = static_cast<cuuint64_t>(el[i] ? el[i] : D) * 2;
+    strides[i] = static_cast<cuuint64_t>(el[i] ? el[i] : D) * esize;
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(cols), kBox, 1, 1, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
+      fn(map, type, 5, const_cast<void*>(ptr),
          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1706,13 +1854,13 @@ View dense(const Shape& sh, int D, int G) {
 constexpr size_t kBarBytes = 128;   // the mbarriers, padded
 constexpr size_t kAlignSlack = 1024;
 
-template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
+template <int NRQ, int TLQ, int NRV, int TLV, bool MLA>
 size_t fwd_smem() {
-  return kAlignSlack +
-         (2 * kFwdQ + (SPLIT ? 2 : 1) * kStages * kFwdN) *
-             static_cast<size_t>(Cols<NRQ, TLQ>::kRow) +
-         kStages * kFwdN * static_cast<size_t>(row_bytes(NRV, TLV)) +
-         kBarBytes;
+  const size_t q_row = Cols<NRQ, TLQ>::kRow;
+  return kAlignSlack + 2 * kFwdQ * q_row +
+         kStages * kFwdN * (q_row + (MLA ? NRQ * 128 : 0) +
+                            static_cast<size_t>(row_bytes(NRV, TLV))) +
+         (MLA ? kMlaSlots * kFwdN * 64 * 4 : 0) + kBarBytes;
 }
 template <int NR, int TL>
 size_t dq_smem() {
@@ -1736,19 +1884,30 @@ int grid_for(int items, int* grid) {
   return static_cast<int>(err);
 }
 
-// q, k (or, with SPLIT, k's hi part and k_lo: dense [B,K,S,Dq] bf16 each)
-// and v into out and lse, one launch
-template <int NRQ, int TLQ, int NRV, int TLV, bool SPLIT>
-int fwd_bf16(const void* q, const void* k, const void* k_lo, const void* v,
-             void* out, float* lse, const Shape& sh, const long long* st,
+// one launch of a forward instance on its maps and arguments
+template <int NRQ, int TLQ, int NRV, int TLV, bool MLA>
+int launch_fwd_kernel(const Maps& maps, const FwdArgs& a,
+                      cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<NRQ, TLQ, NRV, TLV, MLA>;
+  const size_t smem = fwd_smem<NRQ, TLQ, NRV, TLV, MLA>();
+  int grid = 0;
+  int err = static_cast<int>(allow_smem(kern, smem));
+  if (!err) err = grid_for(a.nqt * a.sh.B * a.sh.K * a.sh.G, &grid);
+  if (err) return err;
+  kern<<<grid, kThreadsWS, smem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k and v (one dtype, bf16) into out and lse, one launch
+template <int NRQ, int TLQ, int NRV, int TLV>
+int fwd_bf16(const void* q, const void* k, const void* v, void* out,
+             float* lse, const Shape& sh, const long long* st,
              cudaStream_t stream) {
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   int err = encode_operand<TLQ>(maps.t[kMq], q, sh, sh.D, sh.G, view_of(st));
-  const View kview = SPLIT ? dense(sh, sh.D, 1) : view_of(st + 4);
-  if (!err) err = encode_operand<TLQ>(maps.t[kMk], k, sh, sh.D, 1, kview);
-  if (!err && SPLIT)
-    err = encode_operand<TLQ>(maps.t[kMk2], k_lo, sh, sh.D, 1, kview);
+  if (!err)
+    err = encode_operand<TLQ>(maps.t[kMk], k, sh, sh.D, 1, view_of(st + 4));
   if (!err)
     err = encode_operand<TLV>(maps.t[kMv], v, sh, sh.Dv, 1, view_of(st + 8));
   if (!err)
@@ -1756,13 +1915,60 @@ int fwd_bf16(const void* q, const void* k, const void* k_lo, const void* v,
                               dense(sh, sh.Dv, sh.G));
   if (err) return err;
   const FwdArgs a{lse, sh, (sh.S + kFwdQ - 1) / kFwdQ};
-  auto kern = flash_fwd_wgmma_kernel<NRQ, TLQ, NRV, TLV, SPLIT>;
-  const size_t smem = fwd_smem<NRQ, TLQ, NRV, TLV, SPLIT>();
-  int grid = 0;
-  err = static_cast<int>(allow_smem(kern, smem));
-  if (!err) err = grid_for(a.nqt * sh.B * sh.K * sh.G, &grid);
+  return launch_fwd_kernel<NRQ, TLQ, NRV, TLV, false>(maps, a, stream);
+}
+
+// MLA's parts (bf16 q_nope, q_rope, k_rope and v, f32 k_nope; `st` their
+// strides in that order, k_nope's third) into out and lse, one launch:
+// q's region from q_nope, its tail from q_rope, the keys' f32 nope part
+// in boxes of 64 floats (no swizzle: the split reads it), their tail from
+// k_rope (a map of one head), v and out of one 64-column region
+int fwd_mla(const void* qn, const void* qr, const void* kn, const void* kr,
+            const void* v, void* out, float* lse, const Shape& sh, int nd,
+            int rd, const long long* st, cudaStream_t stream) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  Shape one = sh;   // k_rope: one head, every head's tiles at head 0
+  one.K = 1;
+  int err = encode(&maps.t[kMq][0], qn, sh, nd, 1, view_of(st), 64,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = encode(&maps.t[kMq][1], qr, sh, rd, 1, view_of(st + 4), 32,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!err)
+    err = encode(&maps.t[kMk][0], kn, sh, nd, 1, view_of(st + 8), 64,
+                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                 4);
+  if (!err)
+    err = encode(&maps.t[kMk][1], kr, one, rd, 1, view_of(st + 12), 32,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!err)
+    err = encode_operand<0>(maps.t[kMv], v, sh, sh.Dv, 1, view_of(st + 16));
+  if (!err)
+    err = encode_operand<0>(maps.t[kMo0], out, sh, sh.Dv, 1,
+                            dense(sh, sh.Dv, 1));
   if (err) return err;
-  kern<<<grid, kThreadsWS, smem, stream>>>(maps, a);
+  const FwdArgs a{lse, sh, (sh.S + kFwdQ - 1) / kFwdQ};
+  return launch_fwd_kernel<1, 32, 1, 0, true>(maps, a, stream);
+}
+
+// the f32 forward (FFMA): q's and k's first nd columns from q and k, the
+// rest from q2 and k2 (strides qv, q2v, kv, k2v, vv)
+int fwd_f32(const void* q, const void* q2, const void* k, const void* k2,
+            const void* v, void* out, float* lse, const Shape& sh, int nd,
+            View qv, View q2v, View kv, View k2v, View vv,
+            cudaStream_t stream) {
+  const int Dq = sh.D, Dv = sh.Dv;
+  const size_t smem =
+      (size_t)(kRows * Dq + kT * (Dq + 1) + kT * (Dv + 1) + kRows * kT) * 4;
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((sh.S + kRows - 1) / kRows, sh.B * sh.K * sh.G);
+  flash_fwd_f32_kernel<<<grid, kRows * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(q2),
+      static_cast<const float*>(k), static_cast<const float*>(k2),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, sh, qv,
+      q2v, kv, k2v, vv, nd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1810,59 +2016,62 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q's and v's; k's too unless k_hi is given).
-// `strides` holds 4 element strides (batch, kv head, query group, row)
-// per operand: q, k, v for the forward; q, k, v, g, out for the backward
-// (k's and v's group stride is unused). Rows are unit-stride along the
-// head dim; for bf16 every row start is 16-byte aligned (the wrapper
-// checks). The forward's q and k have Dq columns, v and out Dv; the
-// backward's all D. out [B,K,G,S,Dv], lse and delta [B,K,G,S], dq
-// [B,K,G,S,D], dk and dv [B,K,S,D] are dense. k_hi and k_lo, where given
-// (bf16 q and v beside f32 k: MLA's keys), are scratch of [B,K,S,Dq] bf16
-// each, into which the forward first splits k (flash_split_kernel; Dq at
-// most 96, laid out as 64 + 32 columns, and Dv at most 64). Each returns
-// cudaGetLastError() (0 = launched), or below 0 where a tensor map could
-// not be encoded (flash_error_string says which).
+// dtype: 0 = f32, 1 = bf16 (q, k and v of one dtype). `strides` holds 4
+// element strides (batch, kv head, query group, row) per operand: q, k,
+// v for the forward; q, k, v, g, out for the backward (k's and v's group
+// stride is unused). Rows are unit-stride along the head dim; for bf16
+// every row start is 16-byte aligned (the wrapper checks). The forward's
+// q and k have Dq columns, v and out Dv; the backward's all D. out
+// [B,K,G,S,Dv], lse and delta [B,K,G,S], dq [B,K,G,S,D], dk and dv
+// [B,K,S,D] are dense. Each returns cudaGetLastError() (0 = launched),
+// or below 0 where a tensor map could not be encoded
+// (flash_error_string says which).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, void* k_hi,
-                                void* k_lo, int B, int K, int G, int S,
-                                int Dq, int Dv, int window, float sc,
+                                void* out, void* lse, int B, int K, int G,
+                                int S, int Dq, int Dv, int window, float sc,
                                 int dtype, const long long* strides,
                                 void* stream) {
   const Shape sh{B, K, G, S, Dq, Dv, window, sc, sc * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1 && k_hi != nullptr) {
-    if (Dq > 96 || Dv > 64) return static_cast<int>(cudaErrorInvalidValue);
-    const long long rows = static_cast<long long>(B) * K * S;
-    const unsigned blocks =
-        static_cast<unsigned>(rows / 8 + 1 < (1 << 20) ? rows / 8 + 1
-                                                       : (1 << 20));
-    flash_split_kernel<<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(k), view_of(strides + 4),
-        static_cast<bf16*>(k_hi), static_cast<bf16*>(k_lo), sh);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return fwd_bf16<1, 32, 1, 0, true>(q, k_hi, k_lo, v, out, l, sh,
-                                       strides, st);
-  }
   if (dtype == 1) {
     if (Dq == 80 && Dv == 80)
-      return fwd_bf16<1, 16, 1, 16, false>(q, k, nullptr, v, out, l, sh,
-                                           strides, st);
-    return fwd_bf16<2, 0, 2, 0, false>(q, k, nullptr, v, out, l, sh, strides,
-                                       st);
+      return fwd_bf16<1, 16, 1, 16>(q, k, v, out, l, sh, strides, st);
+    return fwd_bf16<2, 0, 2, 0>(q, k, v, out, l, sh, strides, st);
   }
-  const size_t smem =
-      (size_t)(kRows * Dq + kT * (Dq + 1) + kT * (Dv + 1) + kRows * kT) * 4;
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + kRows - 1) / kRows, B * K * G);
-  flash_fwd_f32_kernel<<<grid, kRows * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), l, sh,
-      view_of(strides), view_of(strides + 4), view_of(strides + 8));
-  return static_cast<int>(cudaGetLastError());
+  const View qv = view_of(strides), kv = view_of(strides + 4);
+  return fwd_f32(q, q, k, k, v, out, l, sh, Dq, qv, qv, kv, kv,
+                 view_of(strides + 8), st);
+}
+
+// MLA's forward (mla_forward, causal, no window) from its parts: q_nope
+// [B,H,S,nd], q_rope [B,H,S,rd], k_nope [B,H,S,nd], k_rope [B,1,S,rd] (the
+// one rope key of every head) and v [B,H,S,Dv] into out [B,H,1,S,Dv] and
+// lse [B,H,1,S] (dense), scaled by sc ((nd + rd)^-0.5). `strides` holds
+// their 4 element strides each (batch, head, 0, row), in that order;
+// rows are unit-stride. dtype 1: k_nope f32, the rest bf16 (all read by
+// TMA: every row start 16-byte aligned), nd <= 64, rd <= 32, Dv <= 64:
+// the wgmma kernel, which splits k_nope into bf16 hi and lo on its way
+// from a staging slot into the key tiles; dtype 0: all f32, the FFMA
+// kernel. Returns as flash_fwd_launch.
+extern "C" int flash_fwd_mla_launch(const void* q_nope, const void* q_rope,
+                                    const void* k_nope, const void* k_rope,
+                                    const void* v, void* out, void* lse,
+                                    int B, int H, int S, int nd, int rd,
+                                    int Dv, float sc, int dtype,
+                                    const long long* strides, void* stream) {
+  const Shape sh{B, H, 1, S, nd + rd, Dv, 0, sc, sc * kLog2e};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 1) {
+    if (nd > 64 || rd > 32 || Dv > 64)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return fwd_mla(q_nope, q_rope, k_nope, k_rope, v, out, l, sh, nd, rd,
+                   strides, st);
+  }
+  return fwd_f32(q_nope, q_rope, k_nope, k_rope, v, out, l, sh, nd,
+                 view_of(strides), view_of(strides + 4), view_of(strides + 8),
+                 view_of(strides + 12), view_of(strides + 16), st);
 }
 
 extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,

@@ -1,13 +1,14 @@
 """Flash attention of the dense family (the forward and the custom VJP's
-backward; the forward also MLA's, Dq != Dv with f32 keys): the
-hand-written CUDA kernels' binding.
+backward) and MLA's forward (Dq != Dv, f32 keys, q and k read from their
+nope and rope parts): the hand-written CUDA kernels' binding.
 
 The kernel source is `repro_torch/csrc/flash_attn.cu`; its head comment
 says which function of the JAX package it replaces, what bounds it and
 how it is laid out. This module reads each operand through its strides
 (`operand_strides`), binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
-:func:`repro_torch.kernels.ops.flash_fwd` and
+:func:`repro_torch.kernels.ops.flash_fwd`,
+:func:`repro_torch.kernels.ops.flash_fwd_mla` and
 :func:`repro_torch.kernels.ops.flash_bwd`, which check the inputs, take
 the plain versions for CPU tensors and count launches.
 """
@@ -23,8 +24,11 @@ from repro_torch.kernels.silu import _on_device
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_STEP, D_MAX = 16, 128        # head dims a multiple of 16, at most 128
-DQ_MAX_F32_KEYS = 96           # Dq beside f32 keys (the 64 + 32 layout)
-DV_MAX_F32_KEYS = 64           # Dv beside f32 keys (the bf16 kernel's smem)
+# MLA's parts (`check_dims` with `parts`): nope and v columns in one
+# 64-column region, rope columns in a 32-column tail, each a multiple of
+# 8 (TMA's 16 bytes of bf16)
+PART_STEP = 8
+PART_MAX = {"nd": 64, "rd": 32, "Dv": 64}
 MAX_HEADS = 65535              # B * K * G: the f32 kernels' grid y
 
 _P = ctypes.c_void_p
@@ -36,9 +40,13 @@ _STRIDES = ctypes.c_longlong * 20
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     if not getattr(lib, "_typed", False):
-        lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _I, _I, _F, _I, _P, _P]
+        lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _I, _I, _F, _I, _P, _P]
         lib.flash_fwd_launch.restype = _I
+        lib.flash_fwd_mla_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I,
+                                             _I, _I, _I, _I, _I, _F, _I, _P,
+                                             _P]
+        lib.flash_fwd_mla_launch.restype = _I
         lib.flash_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _I, _I, _I, _I, _I, _I, _F, _I,
                                          _P, _P]
@@ -49,38 +57,47 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_dims(Dq: int, Dv: int, f32_keys: bool) -> None:
+def check_dims(Dq: int, Dv: int,
+               parts: Optional[Tuple[int, int]] = None) -> None:
     """Raise unless the card's kernels take head dims Dq (q, k) and Dv
-    (v, out): each a multiple of 16 up to 128, and beside f32 keys
-    (`f32_keys`) Dq at most 96 (the one instance laid out for them, 64 +
-    32 columns) and Dv at most 64 (their hi and lo tiles, q's and v's
-    take two stages of shared memory). The plain versions take any."""
-    for name, d in (("Dq", Dq), ("Dv", Dv)):
-        if d % D_STEP or not 0 < d <= D_MAX:
-            raise ValueError(f"head dim {name} = {d}: the card's kernels "
-                             f"take a multiple of {D_STEP} up to {D_MAX}")
-    for name, d, most in (("Dq", Dq, DQ_MAX_F32_KEYS),
-                          ("Dv", Dv, DV_MAX_F32_KEYS)):
-        if f32_keys and d > most:
-            raise ValueError(f"head dim {name} = {d} beside f32 keys: the "
-                             f"card's kernel takes at most {most}")
+    (v, out): each a multiple of 16 up to 128; or, for MLA's parts
+    (`parts` = (nd, rd), Dq = nd + rd), nope columns nd at most 64 (one
+    region, where the kernel splits the f32 keys), rope columns rd at
+    most 32 (the tail) and Dv at most 64 (the shared memory of q, the
+    keys' hi, lo and rope tiles and v), each a positive multiple of 8.
+    The plain versions take any."""
+    if parts is None:
+        for name, d in (("Dq", Dq), ("Dv", Dv)):
+            if d % D_STEP or not 0 < d <= D_MAX:
+                raise ValueError(f"head dim {name} = {d}: the card's "
+                                 f"kernels take a multiple of {D_STEP} up "
+                                 f"to {D_MAX}")
+        return
+    nd, rd = parts
+    for name, d in (("nd", nd), ("rd", rd), ("Dv", Dv)):
+        if d % PART_STEP or not 0 < d <= PART_MAX[name]:
+            raise ValueError(f"MLA's head dim {name} = {d}: the card's "
+                             f"kernel takes a multiple of {PART_STEP} up to "
+                             f"{PART_MAX[name]} (nope 64, rope 32, v 64)")
 
 
-def operand_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
+def operand_strides(t: torch.Tensor, tma: bool = False
+                    ) -> Optional[Tuple[int, int, int, int]]:
     """(batch, kv head, group, row) element strides of q-like [B,K,G,S,D]
     or k-like [B,K,S,D] `t` (group 0 for the latter; a dim of size 1
     counts 0), or None where the kernels cannot read it in place: D not
-    unit-stride, or (bf16, read by TMA, whose tensor maps take 16-byte
-    aligned addresses and non-zero strides of 16-byte multiples) a row
-    start off 16-byte alignment or a broadcast (stride 0 on a dim longer
-    than 1)."""
+    unit-stride, or (read by TMA, whose tensor maps take 16-byte aligned
+    addresses and non-zero strides of 16-byte multiples: bf16, and `tma`
+    for f32, MLA's keys) a row start off 16-byte alignment or a
+    broadcast (stride 0 on a dim longer than 1)."""
     st = [0 if n == 1 else s for n, s in zip(t.shape, t.stride())]
     if t.dim() == 4:
         st.insert(2, 0)
     if t.shape[-1] > 1 and st[-1] != 1:
         return None
-    if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(s % 8 for s in st[:4]) or
+    if (t.dtype == torch.bfloat16 or tma) and (
+            t.data_ptr() % 16 or
+            any(s * t.element_size() % 16 for s in st[:4]) or
             any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))):
         return None
     return tuple(st[:4])
@@ -101,24 +118,39 @@ def launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, window: int,
                views) -> None:
     """out [B,K,G,S,Dv] (dense, v's dtype) and lse [B,K,G,S] (dense, f32)
-    of causal attention on the current stream of q's device; inputs are
-    checked by the caller (`views`: q's, k's and v's
-    :func:`operand_strides`). One kernel, or, for f32 keys beside a bf16
-    q, two: the split of k into bf16 hi and lo (dense, into a scratch
-    buffer of k's bytes), then the attention reading both."""
+    of causal attention on the current stream of q's device, one kernel;
+    inputs (one dtype) are checked by the caller (`views`: q's, k's and
+    v's :func:`operand_strides`)."""
     B, K, G, S, Dq = q.shape
     Dv = v.shape[3]
     strides = _strides(*views)
-    hi = lo = None
-    if k.dtype != q.dtype:
-        parts = torch.empty((2,) + tuple(k.shape), dtype=torch.bfloat16,
-                            device=k.device)
-        hi, lo = parts[0].data_ptr(), parts[1].data_ptr()
     _check(_on_device(q.device, _lib().flash_fwd_launch, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), hi, lo, B, K, G, S, Dq, Dv, window,
+                      lse.data_ptr(), B, K, G, S, Dq, Dv, window,
                       Dq ** -0.5, DTYPES[q.dtype], ctypes.addressof(strides)),
            "flash_fwd")
+
+
+def launch_fwd_mla(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                   k_nope: torch.Tensor, k_rope: torch.Tensor,
+                   v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                   views) -> None:
+    """out [B,H,1,S,Dv] and lse [B,H,1,S] (dense) of MLA's causal
+    attention from its parts, one kernel on the current stream of q's
+    device: bf16 q, k_rope and v beside f32 k_nope (split into bf16 hi
+    and lo inside the kernel), or all f32; inputs are checked by the
+    caller (`views`: the parts' :func:`operand_strides`, k_nope's read
+    by TMA in bf16 runs)."""
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    strides = _strides(*views)
+    _check(_on_device(q_nope.device, _lib().flash_fwd_mla_launch,
+                      q_nope.data_ptr(), q_rope.data_ptr(),
+                      k_nope.data_ptr(), k_rope.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse.data_ptr(), B, H, S, nd, rd, Dv,
+                      (nd + rd) ** -0.5, DTYPES[q_nope.dtype],
+                      ctypes.addressof(strides)),
+           "flash_fwd (mla)")
 
 
 def launch_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -10,9 +10,10 @@ reads to show that its main path went through the kernel. The quantize
 kernel's two forms (per tile, per group) share `quantize.launches`, and
 the dequantize kernel's share `dequantize.launches`; `silu`,
 `silu_gate` and `silu_gate_bwd` count their own, and so does
-`fill_rates`, `flash_fwd` and `flash_bwd` (one count a call, though
-the backward runs two kernels in bf16, dq with delta and dk / dv, and
-three in f32), and `ssd_chunk_bwd` (four kernels, one count), `silu_bwd`,
+`fill_rates`, `flash_fwd` (MLA's form, `flash_fwd_mla`, counts there
+too) and `flash_bwd` (one count a call, though the backward runs two
+kernels in bf16, dq with delta and dk / dv, and three in f32), and
+`ssd_chunk_bwd` (four kernels, one count), `silu_bwd`,
 `silu_gate_prod_bwd`, `moe_slots`, `moe_dispatch`, `moe_combine` and
 the MoE backwards `moe_dispatch_bwd`, `moe_combine_bwd` and
 `moe_gates_bwd`.
@@ -48,7 +49,8 @@ from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
                                      fill_rates_ref, flash_bwd_ref,
-                                     flash_fwd_ref, moe_combine_bwd_ref,
+                                     flash_fwd_mla_ref, flash_fwd_ref,
+                                     moe_combine_bwd_ref,
                                      moe_combine_ref, moe_dispatch_bwd_ref,
                                      moe_dispatch_gather_ref,
                                      moe_gates_bwd_ref, moe_slots_ref,
@@ -809,10 +811,11 @@ fill_rates.launches = 0
 def _check_flash(q, k, v, window: int, backward: bool = False,
                  **more) -> None:
     """q [B,K,G,S,Dq], k [B,K,S,Dq] and v [B,K,S,Dv] of one dtype (f32
-    or bf16), or the MLA form: q and v bf16, k f32; one device (cuda or
-    cpu); Sq == Sk, window >= 0; on the card each head dim a multiple of
-    16 up to 128 (`flash.check_dims`; the plain versions take any).
-    `more` (g, out: q's shape with Dv columns, q's dtype; lse: f32
+    or bf16), or on the CPU the MLA form: q and v bf16, k f32 (the card
+    takes MLA through :func:`flash_fwd_mla`, from its parts); one device
+    (cuda or cpu); Sq == Sk, window >= 0; on the card each head dim a
+    multiple of 16 up to 128 (`flash.check_dims`; the plain versions take
+    any). `more` (g, out: q's shape with Dv columns, q's dtype; lse: f32
     [B,K,G,S]) alike. The backward (`backward`) takes Dq == Dv and one
     dtype: MLA's is not ported yet."""
     tensors = dict(q=q, k=k, v=v, **more)
@@ -850,7 +853,12 @@ def _check_flash(q, k, v, window: int, backward: bool = False,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.is_cuda:
-        _flash.check_dims(D, Dv, k.dtype != q.dtype)
+        if k.dtype != q.dtype:
+            raise ValueError(
+                "f32 keys beside a bf16 q: the card runs MLA's form from "
+                "its parts, through flash_fwd_mla (q_nope, q_rope, k_nope, "
+                "k_rope, v)")
+        _flash.check_dims(D, Dv)
         if B * K * G > _flash.MAX_HEADS:
             raise ValueError(f"B*K*G = {B * K * G} query heads: the "
                              f"kernels' grid takes at most "
@@ -862,16 +870,17 @@ def _check_flash(q, k, v, window: int, backward: bool = False,
                              f"{tuple(t.shape)}")
 
 
-def _flash_views(*tensors):
-    """Each tensor's :func:`repro_torch.kernels.flash.operand_strides`,
-    or a dense copy of it where the kernels cannot read it in place
-    (counted in `flash_fwd.copies`); returns (tensors, views)."""
+def _flash_views(*tensors, tma=()):
+    """Each tensor's :func:`repro_torch.kernels.flash.operand_strides`
+    (`tma` for those at the positions it names: f32 read by TMA), or a
+    dense copy of it where the kernels cannot read it in place (counted
+    in `flash_fwd.copies`); returns (tensors, views)."""
     out, views = [], []
-    for t in tensors:
-        view = _flash.operand_strides(t)
+    for i, t in enumerate(tensors):
+        view = _flash.operand_strides(t, i in tma)
         if view is None:
             t = t.contiguous()
-            view = _flash.operand_strides(t)
+            view = _flash.operand_strides(t, i in tma)
             flash_fwd.copies += 1
         out.append(t)
         views.append(view)
@@ -886,16 +895,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in v's dtype, lse [B,K,G,S] f32), the reference's `flash_attention`
     (`src/repro/models/attention.py:39`), scaled by Dq ** -0.5. The
     inputs may be strided views with unit stride along the head dim.
-    Dq and Dv may differ, and k may be f32 beside a bf16 q and v (MLA:
-    the reference's k is f32 in bf16 runs, its score product reads it
-    as it is). On the card each head dim is a multiple of 16 up to 128,
-    and beside f32 keys Dq is at most 96 and Dv at most 64.
+    Dq and Dv may differ. On the CPU k may be f32 beside a bf16 q and v
+    (MLA's concatenated form, the reference's: its k is f32 in bf16 runs
+    and its score product reads it as it is); the card takes that form
+    from its parts through :func:`flash_fwd_mla`. On the card each head
+    dim is a multiple of 16 up to 128.
 
     CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu, one
-    launch counted; the kernels state their tiles; f32 keys beside bf16
-    q and v are first split into two bf16 parts, hi = bf16(k) and lo =
-    bf16(k - hi), by a kernel of the same file, and the score product
-    takes q . hi + q . lo in f32); CPU tensors to
+    launch counted; the kernels state their tiles); CPU tensors to
     :func:`repro_torch.kernels.ref.flash_fwd_ref`, which walks key blocks
     of `block_k` as the reference does."""
     _check_flash(q, k, v, window)
@@ -912,7 +919,93 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = 0
-flash_fwd.copies = 0       # operands copied dense before a launch (both)
+flash_fwd.copies = 0       # operands copied dense before a launch (all)
+
+
+def _check_mla(q_nope, q_rope, k_nope, k_rope, v) -> None:
+    """q_nope [B,H,S,nd], q_rope [B,H,S,rd], k_nope [B,H,S,nd] f32,
+    k_rope [B,1,S,rd] and v [B,H,S,Dv], all but k_nope of one dtype (bf16
+    or f32); one device (cuda or cpu); on the card `flash.check_dims`'
+    rule for the parts (nd <= 64, rd <= 32, Dv <= 64, multiples of 8).
+    None may need a gradient: MLA's backward is not ported."""
+    parts = dict(q_nope=q_nope, q_rope=q_rope, k_nope=k_nope,
+                 k_rope=k_rope, v=v)
+    for name, t in parts.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+    dt, dev = q_nope.dtype, q_nope.device
+    if dt not in _flash.DTYPES:
+        raise TypeError(f"q_nope must be float32 or bfloat16, got {dt}")
+    if not (q_nope.is_cuda or q_nope.is_cpu):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
+    for name, t in parts.items():
+        want = torch.float32 if name == "k_nope" else dt
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q_nope on {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    want = dict(q_rope=(B, H, S, rd), k_nope=(B, H, S, nd),
+                k_rope=(B, 1, S, rd), v=(B, H, S, Dv))
+    for name, shape in want.items():
+        if tuple(parts[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape} (q_nope "
+                             f"{tuple(q_nope.shape)}), got "
+                             f"{tuple(parts[name].shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in parts.values()):
+        raise ValueError("flash_fwd_mla has no gradient: MLA's backward "
+                         "(Dv != Dq, dk in f32) comes with MLA's training")
+    if q_nope.is_cuda:
+        _flash.check_dims(nd + rd, Dv, (nd, rd))
+        if B * H > _flash.MAX_HEADS:
+            raise ValueError(f"B*H = {B * H} heads: the kernels' grid "
+                             f"takes at most {_flash.MAX_HEADS}")
+
+
+def flash_fwd_mla(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  k_nope: torch.Tensor, k_rope: torch.Tensor,
+                  v: torch.Tensor, block_k: int = 512
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLA's causal flash attention from its parts (the reference's
+    `mla_forward`, `src/repro/models/attention.py:339`, which
+    concatenates q = [q_nope, q_rope] and k = [k_nope, k_rope expanded
+    over the heads], the latter promoted to f32, then calls
+    `flash_attention` scaled by (nd + rd) ** -0.5): q_nope [B,H,S,nd],
+    q_rope [B,H,S,rd], k_nope [B,H,S,nd] f32, k_rope [B,1,S,rd] (one
+    rope key for every head) and v [B,H,S,Dv] -> (out [B,H,1,S,Dv] in
+    v's dtype, lse [B,H,1,S] f32). In bf16 runs q's parts, k_rope and v
+    are bf16; in f32 runs all are f32. The parts may be strided views
+    with unit stride along the head dim (q_nope is one of the
+    projection). On the card nd <= 64, rd <= 32 and Dv <= 64, each a
+    multiple of 8.
+
+    CUDA tensors go to one hand-written kernel (csrc/flash_attn.cu),
+    with no concatenation: bf16 runs take the `wgmma` kernel, which
+    splits k_nope into bf16 hi = bf16(k) and lo = bf16(k - hi) in shared
+    memory and forms s = q . hi + q_nope . lo in f32; f32 runs the FFMA
+    kernel. Its launch counts in `flash_fwd.launches` (flash_fwd's MLA
+    form), its copies in `flash_fwd.copies`. CPU tensors go to
+    :func:`repro_torch.kernels.ref.flash_fwd_mla_ref`: the reference's
+    concatenations, then :func:`flash_fwd_ref` over key blocks of
+    `block_k`."""
+    _check_mla(q_nope, q_rope, k_nope, k_rope, v)
+    if q_nope.is_cpu:
+        return flash_fwd_mla_ref(q_nope, q_rope, k_nope, k_rope, v, block_k)
+    parts, views = _flash_views(
+        q_nope, q_rope, k_nope, k_rope, v,
+        tma=(2,) if q_nope.dtype == torch.bfloat16 else ())
+    B, H, S, _ = q_nope.shape
+    out = torch.empty((B, H, 1, S, v.shape[3]), dtype=v.dtype,
+                      device=v.device)
+    lse = torch.empty((B, H, 1, S), dtype=torch.float32, device=v.device)
+    if out.numel():
+        _flash.launch_fwd_mla(*parts, out, lse, views)
+        flash_fwd.launches += 1
+    return out, lse
 
 
 def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

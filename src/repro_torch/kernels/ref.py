@@ -403,6 +403,24 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_safe[..., None]).to(v.dtype), m + torch.log(l_safe)
 
 
+def flash_fwd_mla_ref(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                      k_nope: torch.Tensor, k_rope: torch.Tensor,
+                      v: torch.Tensor, block_k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLA's flash forward from its parts (q_nope, q_rope [B,H,S,*],
+    k_nope [B,H,S,nd] f32, k_rope [B,1,S,rd], v [B,H,S,Dv]) as the
+    reference's `mla_forward` makes it (`src/repro/models/
+    attention.py:351-359`): q = [q_nope, q_rope], k = [k_nope, k_rope
+    expanded over the heads] (the concatenation promotes the rope key to
+    f32), then :func:`flash_fwd_ref` causal over key blocks of `block_k`
+    -> (out [B,H,1,S,Dv], lse [B,H,1,S])."""
+    B, H, S, rd = q_rope.shape
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope.float(),
+                   k_rope.float().expand(B, H, S, rd)], dim=-1)
+    return flash_fwd_ref(q[:, :, None], k, v, 0, block_k)
+
+
 def flash_bwd_ref(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                   window: int, block_k: int):

@@ -7,9 +7,10 @@ over MLA's latent cache.
 Port of `repro/models/attention.py`. The reference runs these as jit programs; its comment
 names a Pallas kernel as the TPU's production path of flash attention.
 Here flash's forward and its custom VJP's backward are hand-written CUDA
-kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, `csrc/
-flash_attn.cu`) and their plain versions on the host (`kernels/ref.py::
-flash_fwd_ref` / `flash_bwd_ref`, in the reference's block order); the
+kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, and MLA's
+forward from its parts, `ops.flash_fwd_mla`; `csrc/flash_attn.cu`) and
+their plain versions on the host (`kernels/ref.py::flash_fwd_ref` /
+`flash_bwd_ref` / `flash_fwd_mla_ref`, in the reference's block order); the
 banded and decode paths are plain torch on both devices. All keep the
 reference's roundings:
 
@@ -112,8 +113,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     -> [B,K,G,Sq,Dv], scaled by Dq ** -0.5.
 
     K = kv heads, G = query group size (Hq = K*G), Sq == Sk. Dq and Dv
-    may differ (MLA: 96 and 64), and k may be f32 beside a bf16 q and v
-    (MLA's keys, `mla_forward`); on the card each head dim is a multiple
+    may differ, and on the CPU k may be f32 beside a bf16 q and v (MLA's
+    concatenated keys; `mla_forward` runs flash from MLA's parts through
+    `ops.flash_fwd_mla` instead); on the card each head dim is a multiple
     of 16 up to 128 (`ops.flash_fwd` states the kernel's rule). Walks the
     key blocks with a running (m, l, acc) softmax state; never
     materializes the [Sq, Sk] score matrix. `block_k` is the plain
@@ -121,9 +123,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     its gradient is the reference's custom VJP (`_Flash`), which
     recomputes each block's probabilities from the saved log-sum-exp;
     its kernel takes Dq == Dv and one dtype, so MLA does not train yet.
-    MLA's scale, (nope + rope) ** -0.5, is Dq ** -0.5. The reference's
-    `causal=False` and `q_offset` come with the family that passes them
-    (enc-dec)."""
+    The reference's `causal=False` and `q_offset` come with the family
+    that passes them (enc-dec)."""
     return _Flash.apply(q, k, v, window, block_k)
 
 
@@ -432,9 +433,14 @@ def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     of the same (prefill projects it once for the attention and the
     cache). As the reference: k_nope = c_kv @ W_uk in f32 (from the
     unrounded c_kv, see `mla_latent`), v = c_kv @ W_uv in the compute
-    dtype, and k = [k_nope, k_rope] in f32 (the concatenation promotes
-    the rope key), so in bf16 runs the flash kernel reads f32 keys
-    beside bf16 q and v."""
+    dtype, and flash reads k = [k_nope, k_rope] in f32 (the reference's
+    concatenation promotes the rope key), so in bf16 runs the flash
+    kernel reads f32 keys beside bf16 q and v. Flash takes the parts as
+    they are (`ops.flash_fwd_mla`): q_nope a view of the projection,
+    the one rope key [B,1,S,rope] of every head; nothing is
+    concatenated or cast for it (its plain version concatenates as the
+    reference does). MLA does not train yet: flash_fwd_mla has no
+    gradient."""
     H, R, nd, rd, vd = _mla_dims(cfg)
     B, S, _ = x.shape
     q_nope, q_rope = mla_q(p, x, cfg, positions)
@@ -445,9 +451,7 @@ def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         B, S, H, nd).transpose(1, 2)
     v = (c32.to(x.dtype) @ wkv_b[..., nd:].reshape(R, H * vd)).view(
         B, S, H, vd).transpose(1, 2)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.float().expand(B, H, S, rd)], dim=-1)
-    o = flash_attention(q[:, :, None], k, v)
+    o, _ = ops.flash_fwd_mla(q_nope, q_rope, k_nope, k_rope, v, FLASH_BLOCK)
     o = o[:, :, 0].transpose(1, 2).reshape(B, S, H * vd)
     return o @ p["wo"]
 

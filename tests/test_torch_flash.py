@@ -151,7 +151,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, which):
     if case in CARD_ONLY:
         from repro_torch.kernels import flash
         with pytest.raises(err, match=msg):
-            flash.check_dims(q.shape[-1], v.shape[-1], False)
+            flash.check_dims(q.shape[-1], v.shape[-1])
         got = ops.flash_fwd(q, k, v, window) if which == "fwd" else \
             ops.flash_bwd(q, q, k, v, q, lse, window)
         want = flash_fwd_ref(q, k, v, window, 512) if which == "fwd" else \

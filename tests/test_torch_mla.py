@@ -19,9 +19,11 @@ Tolerances (as tests/test_torch_dense.py's):
 
 The flash kernel's MLA form (q and v bf16, k f32, Dq != Dv) is held on
 the CPU through its plain version against the reference's
-`flash_attention`; the `cuda` cases hold the kernel to the plain version
-on the card at the served shape (``python -m pytest -q -m cuda
-tests/test_torch_mla.py``; they import no jax).
+`flash_attention`, and MLA's parts (`ops.flash_fwd_mla`) through theirs,
+the reference's concatenations bit for bit; the `cuda` cases hold the
+parts' kernel to its plain version on the card at the served shape
+(``python -m pytest -q -m cuda tests/test_torch_mla.py``; they import no
+jax).
 """
 import dataclasses
 import json
@@ -40,7 +42,7 @@ from repro_torch.configs import PORTED, get_config
 from repro_torch.configs.base import reduced
 from repro_torch.kernels import flash as _flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_fwd_ref
+from repro_torch.kernels.ref import flash_fwd_mla_ref, flash_fwd_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import attention as att
 from repro_torch.models import registry, transformer
@@ -296,19 +298,32 @@ def test_mla_forward_rounds_as_xla_with_trained_norms(ref, S):
 
 
 def test_mla_forward_keys_are_f32_in_bf16(built, monkeypatch):
-    """The flash call of a bf16 run gets q and v in bf16 and k in f32
-    (the reference's concatenation promotes the rope key), Dq = nope +
-    rope and Dv = v."""
+    """The flash call of a bf16 run gets MLA's parts as they are, with
+    nothing concatenated or cast for it: q_nope a strided view of the
+    projection (its rows H (nope + rope) apart) and q_rope in bf16, k_nope
+    in f32 (the reference's concatenation promotes the rope key, so its
+    score product reads f32 keys), the one rope key [B,1,S,rope] of every
+    head in bf16, and v [B,H,S,v] in bf16; no part holds Dq = nope + rope
+    columns."""
     cfg, model, _, _ = built("qlora", "bfloat16")
+    m, H = cfg.mla, cfg.n_heads
+    nd, rd, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     seen = []
-    fn = ops.flash_fwd
-    monkeypatch.setattr(ops, "flash_fwd", lambda q, k, v, *a: (
-        seen.append((q.dtype, k.dtype, v.dtype, q.shape[-1], v.shape[-1])),
-        fn(q, k, v, *a))[1])
+    fn = ops.flash_fwd_mla
+    monkeypatch.setattr(ops, "flash_fwd_mla", lambda *a: (
+        seen.append(a), fn(*a))[1])
+    monkeypatch.setattr(ops, "flash_fwd", None)       # no other flash call
     pblk = model.compute_params(torch.bfloat16)["blocks"][0]["attn"]
     att.mla_forward(pblk, torch.zeros((1, 8, 128), dtype=torch.bfloat16),
                     cfg, torch.arange(8))
-    assert seen == [(torch.bfloat16, torch.float32, torch.bfloat16, 48, 32)]
+    assert len(seen) == 1
+    q_nope, q_rope, k_nope, k_rope, v = seen[0][:5]
+    assert [(tuple(t.shape), t.dtype) for t in seen[0][:5]] == [
+        ((1, H, 8, nd), torch.bfloat16), ((1, H, 8, rd), torch.bfloat16),
+        ((1, H, 8, nd), torch.float32), ((1, 1, 8, rd), torch.bfloat16),
+        ((1, H, 8, vd), torch.bfloat16)]
+    assert q_nope._base is not None and q_nope.stride()[2] == H * (nd + rd)
+    assert all(t.shape[-1] != nd + rd for t in seen[0][:5])
 
 
 @pytest.mark.parametrize("name", CFGS)
@@ -383,18 +398,120 @@ def test_flash_fwd_ref_takes_dv_apart_and_f32_keys(ref, case, mixed):
     assert ops.flash_fwd.launches == before
 
 
-@pytest.mark.parametrize("Dq,Dv,f32_keys,takes", [
-    (96, 64, True, True), (48, 32, True, True), (112, 64, True, False),
-    (96, 80, True, False), (112, 64, False, True), (128, 128, False, True)])
-def test_card_rule_for_head_dims(Dq, Dv, f32_keys, takes):
-    """The card's rule (`flash.check_dims`): beside f32 keys Dq at most
-    96 (the split's one layout, 64 + 32 columns) and Dv at most 64; else
-    each a multiple of 16 up to 128."""
+# (Dq, Dv, parts (nd, rd) or None, takes, the refusal's words); the ids
+# of the cases before MLA's parts name the f32 keys they stood for
+RULE_CASES = {
+    "96-64-True-True": (96, 64, (64, 32), True, None),
+    "48-32-True-True": (48, 32, (32, 16), True, None),
+    "112-64-True-False": (112, 64, (80, 32), False, "nd = 80"),
+    "96-80-True-False": (96, 80, (64, 32), False, "Dv = 80"),
+    "112-64-False-True": (112, 64, None, True, None),
+    "128-128-False-True": (128, 128, None, True, None),
+    "reduced-parts": (24, 16, (16, 8), True, None),
+    "rope-past-32": (112, 64, (64, 48), False, "rd = 48"),
+    "deepseek-v2": (192, 128, (128, 64), False, "nd = 128"),
+    "nope-off-8": (92, 64, (60, 32), False, "nd = 60"),
+    "dense-off-16": (88, 64, None, False, "Dq = 88"),
+}
+
+
+@pytest.mark.parametrize("case", list(RULE_CASES), ids=list(RULE_CASES))
+def test_card_rule_for_head_dims(case):
+    """The card's rule (`flash.check_dims`): each head dim a multiple of
+    16 up to 128; for MLA's parts (its f32 keys) nope at most 64, rope at
+    most 32 and v at most 64, each a multiple of 8 (TMA's 16 bytes), so
+    `deepseek-v2`'s 128 / 64 / 128 is refused."""
+    Dq, Dv, parts, takes, words = RULE_CASES[case]
     if takes:
-        _flash.check_dims(Dq, Dv, f32_keys)
+        _flash.check_dims(Dq, Dv, parts)
     else:
-        with pytest.raises(ValueError, match="beside f32 keys"):
-            _flash.check_dims(Dq, Dv, f32_keys)
+        with pytest.raises(ValueError, match=words):
+            _flash.check_dims(Dq, Dv, parts)
+
+
+# MLA's parts (B, H, S, nd, rd, Dv, block_k): both reduced configs, the
+# served dims at a small S, and ragged S at the served dims
+MLA_PART_CASES = {"mla_reduced": (2, 4, 40, 16, 8, 16, 16),
+                  "qlora": (2, 2, 40, 32, 16, 32, 16),
+                  "served_dims": (1, 2, 33, 64, 32, 64, 512),
+                  "ragged_129": (1, 2, 129, 64, 32, 64, 64),
+                  "ragged_1": (2, 3, 1, 64, 32, 64, 512)}
+
+
+def _mla_parts(rng, B, H, S, nd, rd, Dv, dtype):
+    """MLA's flash inputs from a seed: q_nope a strided view of a
+    projection [B,S,H,nd + rd] as `mla_q` makes it, q_rope, k_nope (f32
+    as a strided view of [B,S,H,nd]), the one rope key [B,1,S,rd] and v,
+    in `dtype` (k_nope f32)."""
+    dt = TDT[dtype]
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    q = draw(B, S, H, nd + rd).to(dt).transpose(1, 2)
+    return (q[..., :nd], q[..., nd:].contiguous(),
+            draw(B, S, H, nd).transpose(1, 2), draw(B, 1, S, rd).to(dt),
+            draw(B, H, S, Dv).to(dt))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(MLA_PART_CASES))
+def test_flash_fwd_mla_ref_is_the_concatenation(ref, case, dtype):
+    """The parts' plain version (`flash_fwd_mla_ref`) is bit for bit
+    `flash_fwd_ref` on the reference's concatenations (q = [q_nope,
+    q_rope], k = [k_nope, k_rope expanded] in f32), which the parent's
+    `mla_forward` passed to flash; the wrapper on the CPU is the plain
+    version (no launch), and the reference's `flash_attention` on its
+    own concatenations agrees (one bf16 step of the output's max in bf16,
+    1e-5 in f32)."""
+    B, H, S, nd, rd, Dv, bk = MLA_PART_CASES[case]
+    parts = _mla_parts(np.random.default_rng(S + nd), B, H, S, nd, rd, Dv,
+                       dtype)
+    q_nope, q_rope, k_nope, k_rope, v = parts
+    q = torch.cat([q_nope, q_rope], dim=-1)[:, :, None]
+    k = torch.cat([k_nope, k_rope.float().expand(B, H, S, rd)], dim=-1)
+    want, want_lse = flash_fwd_ref(q, k, v, 0, bk)
+    out, lse = flash_fwd_mla_ref(*parts, bk)
+    assert out.dtype == v.dtype and tuple(out.shape) == (B, H, 1, S, Dv)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    before = ops.flash_fwd.launches
+    got, got_lse = ops.flash_fwd_mla(*parts, bk)
+    assert torch.equal(got, out) and torch.equal(got_lse, lse)
+    assert ops.flash_fwd.launches == before
+    jnp = ref.jnp
+    jdt = jnp.dtype(dtype)
+    jq, jqr, jv = (jnp.asarray(t.float().numpy()).astype(jdt)
+                   for t in (q_nope, q_rope, v))
+    jk = jnp.concatenate([jnp.asarray(k_nope.numpy()), jnp.broadcast_to(
+        jnp.asarray(k_rope.float().numpy()).astype(jdt), (B, H, S, rd))],
+        axis=-1)
+    jwant = ref.jax.jit(lambda q, k, v: ref.att.flash_attention(
+        q[:, :, None], k, v, causal=True, block_k=bk,
+        scale=(nd + rd) ** -0.5))(jnp.concatenate([jq, jqr], axis=-1), jk,
+                                  jv)
+    _close(out, jwant, dtype)
+
+
+def test_flash_fwd_mla_refuses_what_it_does_not_take():
+    """The parts' checks on the CPU: shapes (k_rope one head), dtypes
+    (k_nope f32, the rest q's), and no gradient (MLA's backward is not
+    ported)."""
+    parts = list(_mla_parts(np.random.default_rng(0), 1, 2, 8, 32, 16, 32,
+                            "bfloat16"))
+    ops.flash_fwd_mla(*parts)
+    bad = {"k_rope must be \\(1, 1, 8, 16\\)": (3, parts[3].expand(
+        1, 2, 8, 16)),
+        "k_nope must be torch.float32": (2, parts[2].bfloat16()),
+        "v must be torch.bfloat16": (4, parts[4].float()),
+        "q_rope must be \\(1, 2, 8, 16\\)": (1, parts[1][:, :, :4])}
+    for msg, (i, t) in bad.items():
+        with pytest.raises((ValueError, TypeError), match=msg):
+            ops.flash_fwd_mla(*parts[:i], t, *parts[i + 1:])
+    grad = [t.float().requires_grad_() for t in parts]
+    with pytest.raises(ValueError, match="MLA's training"):
+        ops.flash_fwd_mla(*grad)
+    with torch.no_grad():
+        ops.flash_fwd_mla(*grad)
 
 
 def test_flash_bwd_refuses_the_mla_form():
@@ -685,13 +802,26 @@ def smoke(card):
     return _chip_smoke()
 
 
-@pytest.mark.parametrize("k_scale", [1.0, 8.0, 64.0])
-def test_split_keys_stay_within_the_lse_bound(k_scale):
+# (k_scale, keys): "f32", every column an f32 key (the split's bound on
+# its own); "parts", MLA's keys, f32 nope columns beside the bf16 rope
+# key, where the kernel forms q . lo over the nope columns only
+SPLIT_CASES = {"1.0": (1.0, "f32"), "8.0": (8.0, "f32"),
+               "64.0": (64.0, "f32"), "1.0-parts": (1.0, "parts"),
+               "8.0-parts": (8.0, "parts"), "64.0-parts": (64.0, "parts")}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=list(SPLIT_CASES))
+def test_split_keys_stay_within_the_lse_bound(case):
     """The card's key split, hi = bf16(k) and lo = bf16(k - hi), drops
     under 2^-17 |k| an element; the plain version on hi + lo (exact in
-    f32, as the kernel's two products into one f32 accumulator are)
-    holds the f32 keys' lse within `chip_smoke.flash_lse_tol` at every
-    key scale, where keys rounded to bf16 miss it."""
+    f32, as the kernel's products into one f32 accumulator are) holds
+    the f32 keys' lse within `chip_smoke.flash_lse_tol` at every key
+    scale, where keys rounded to bf16 miss it. For MLA's parts (f32
+    nope columns, the bf16 rope key) the kernel leaves out the rope
+    columns' lo product: their lo is exactly 0, so the keys it emulates
+    are bit for bit those of the split over every column (the parent's
+    form, which multiplied it), and so are out and lse."""
+    k_scale, keys = SPLIT_CASES[case]
     smoke = _chip_smoke()
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.standard_normal((2, 4, 1, 256, 96)).astype(
@@ -700,9 +830,21 @@ def test_split_keys_stay_within_the_lse_bound(k_scale):
                           ).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((2, 4, 256, 64)).astype(
         np.float32)).bfloat16()
+    nd = 64
+    if keys == "parts":   # the rope key: one bf16 key of every head
+        k[..., nd:] = k[:, :1, :, nd:].bfloat16().float()
     hi = k.bfloat16()
     lo = (k - hi.float()).bfloat16()
     split = hi.float() + lo.float()
+    if keys == "parts":
+        parts = hi.float() + torch.cat(
+            [lo[..., :nd].float(), torch.zeros_like(lo[..., nd:].float())],
+            dim=-1)
+        assert not lo[..., nd:].float().any()
+        assert torch.equal(parts, split)
+        assert all(torch.equal(a, b) for a, b in zip(
+            flash_fwd_ref(q, parts, v, 0, 512),
+            flash_fwd_ref(q, split, v, 0, 512)))
     assert bool(((k - split).abs() <= smoke.KEY_SPLIT_DROP * k.abs()).all())
     _, want = flash_fwd_ref(q, k, v, 0, 512)
     tol = smoke.flash_lse_tol(q, k, 0)
@@ -715,59 +857,91 @@ def test_split_keys_stay_within_the_lse_bound(k_scale):
                       k, 0)
 
 
-def _mla_inputs(card, B, H, S, Dq, Dv, seed, mixed=True, k_scale=1.0):
-    rng = np.random.default_rng(seed)
-    dt = torch.bfloat16 if mixed else torch.float32
-    q = torch.from_numpy(rng.standard_normal((B, H, 1, S, Dq)).astype(
-        np.float32)).to(dt).to(card)
-    k = torch.from_numpy((k_scale * rng.standard_normal((B, H, S, Dq))
-                          ).astype(np.float32)).to(card)
-    v = torch.from_numpy(rng.standard_normal((B, H, S, Dv)).astype(
-        np.float32)).to(dt).to(card)
-    return q, k, v
+def _mla_inputs(card, B, H, S, nd, rd, Dv, seed, mixed=True, k_scale=1.0):
+    """`_mla_parts` on the card (k_nope times `k_scale`), bf16 beside f32
+    k_nope (`mixed`) or all f32."""
+    parts = list(_mla_parts(np.random.default_rng(seed), B, H, S, nd, rd,
+                            Dv, "bfloat16" if mixed else "float32"))
+    parts[2] = parts[2] * k_scale
+    return [t.to(card) for t in parts]
 
 
-# (B, H, S, Dq, Dv): the served shape (group 1's prefill of minicpm3-4b),
-# ragged tiles, the qlora config's dims, Dv below 64 (v's columns
-# zero-filled by TMA), each with f32 keys by bf16 q and v and all in f32;
-# and Dq past 96, which the f32 kernel takes (the split's layout does not)
-CARD_CASES = [(4, 40, 641, 96, 64), (1, 3, 130, 96, 64), (2, 2, 200, 48, 32),
-              (1, 2, 300, 96, 16), (1, 1, 1, 96, 64)]
+# (B, H, S, nd, rd, Dv): the served shape (group 1's prefill of
+# minicpm3-4b), ragged tiles (S 1, 127, 129, 130), the qlora and reduced
+# configs' dims, Dv below 64 (v's columns zero-filled by TMA), each with
+# f32 k_nope by bf16 q, k_rope and v and all in f32
+CARD_CASES = [(4, 40, 641, 64, 32, 64), (1, 3, 130, 64, 32, 64),
+              (2, 2, 200, 32, 16, 32), (1, 2, 300, 64, 32, 16),
+              (1, 1, 1, 64, 32, 64), (1, 2, 127, 64, 32, 64),
+              (1, 2, 129, 64, 32, 64), (2, 4, 40, 16, 8, 16)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,mixed", [
-    (case, mixed) for case in CARD_CASES for mixed in (True, False)] +
-    [((1, 2, 129, 112, 64), False)])
+    (case, mixed) for case in CARD_CASES for mixed in (True, False)])
 def test_card_kernel_matches_plain(card, smoke, case, mixed):
-    """bf16 q and v beside f32 k (the hi / lo split), or all f32, Dq !=
-    Dv: out within the flash tolerance of the plain version, lse within
-    each row's bound (`chip_smoke.flash_lse_tol`), one launch a call."""
-    B, H, S, Dq, Dv = case
-    q, k, v = _mla_inputs(card, B, H, S, Dq, Dv, seed=S + Dq, mixed=mixed)
-    before = ops.flash_fwd.launches
-    out, lse = ops.flash_fwd(q, k, v)
+    """MLA's parts (q_nope a strided view of the projection, k_nope a
+    strided f32 view, the shared rope key), bf16 beside f32 k_nope (the
+    in-kernel hi / lo split) or all f32: out within the flash tolerance
+    of the plain version (the reference's concatenations), lse within
+    each row's bound (`chip_smoke.flash_lse_tol`), one launch a call, no
+    copy."""
+    B, H, S, nd, rd, Dv = case
+    parts = _mla_inputs(card, B, H, S, nd, rd, Dv, seed=S + nd, mixed=mixed)
+    before = (ops.flash_fwd.launches, ops.flash_fwd.copies)
+    out, lse = ops.flash_fwd_mla(*parts)
     torch.cuda.synchronize()
-    assert ops.flash_fwd.launches == before + 1
-    assert tuple(out.shape) == (B, H, 1, S, Dv) and out.dtype == v.dtype
-    want, want_lse = flash_fwd_ref(q, k, v, 0, 512)
+    assert (ops.flash_fwd.launches, ops.flash_fwd.copies) == \
+        (before[0] + 1, before[1])
+    assert tuple(out.shape) == (B, H, 1, S, Dv) and out.dtype == parts[4].dtype
+    want, want_lse = flash_fwd_mla_ref(*parts, 512)
+    q, k = _concatenated(parts)
     smoke.flash_err(out, want, "mla out")
+    smoke.lse_err(lse, want_lse, q, k, 0)
+
+
+def _concatenated(parts):
+    """q [B,H,1,S,Dq] and k [B,H,S,Dq] (f32) as the reference
+    concatenates MLA's parts (for the lse bound's |q| |k|)."""
+    q_nope, q_rope, k_nope, k_rope, _ = parts
+    B, H, S, rd = q_rope.shape
+    return (torch.cat([q_nope, q_rope], dim=-1)[:, :, None],
+            torch.cat([k_nope, k_rope.float().expand(B, H, S, rd)], dim=-1))
+
+
+@pytest.mark.cuda
+def test_card_dense_f32_takes_dq_past_96(card, smoke):
+    """The dense f32 form (one dtype, ops.flash_fwd) with Dq 112 beside
+    Dv 64, which MLA's parts' rule would refuse."""
+    rng = np.random.default_rng(129)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(card)
+               for s in ((1, 2, 1, 129, 112), (1, 2, 129, 112),
+                         (1, 2, 129, 64)))
+    out, lse = ops.flash_fwd(q, k, v)
+    want, want_lse = flash_fwd_ref(q, k, v, 0, 512)
+    smoke.flash_err(out, want, "f32 out")
     smoke.lse_err(lse, want_lse, q, k, 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_scale", [1.0, 8.0])
 def test_card_split_keeps_what_bf16_keys_lose(card, smoke, k_scale):
-    """The f32 keys' hi / lo split holds the plain version's lse within
-    each row's bound, sc * 2^-17 * max_j sum_d |q_d k_jd| beside the f32
-    sums' 1e-5 (`chip_smoke.flash_lse_tol`), at unit keys and at keys
-    eight times larger (the bound grows with them); the same keys rounded
-    to bf16, which move a score by up to 2^-9 of sum |q k|, miss it."""
-    q, k, v = _mla_inputs(card, 2, 4, 256, 96, 64, seed=3, k_scale=k_scale)
-    want, want_lse = flash_fwd_ref(q, k, v, 0, 512)
-    _, lse = ops.flash_fwd(q, k, v)
-    _, lse16 = ops.flash_fwd(q, k.bfloat16(), v)
+    """The in-kernel hi / lo split of k_nope holds out within the flash
+    tolerance of the plain version and its lse within each row's bound,
+    sc * 2^-17 * max_j sum_d |q_d k_jd| beside the f32 sums' 1e-5
+    (`chip_smoke.flash_lse_tol`), at unit keys and at keys eight times
+    larger (the bound grows with them); the same keys rounded to bf16
+    (the dense bf16 kernel on the concatenation), which move a score by
+    up to 2^-9 of sum |q k|, miss it."""
+    parts = _mla_inputs(card, 2, 4, 256, 64, 32, 64, seed=3,
+                        k_scale=k_scale)
+    want, want_lse = flash_fwd_mla_ref(*parts, 512)
+    q, k = _concatenated(parts)
+    out, lse = ops.flash_fwd_mla(*parts)
+    _, lse16 = ops.flash_fwd(q, k.bfloat16(), parts[4])
     torch.cuda.synchronize()
+    smoke.flash_err(out, want, "mla out")
     tol = smoke.flash_lse_tol(q, k, 0)
     assert float(tol.min()) > smoke.FLASH_LSE_TOL
     split = (lse.double() - want_lse.double()).abs()
@@ -777,20 +951,40 @@ def test_card_split_keeps_what_bf16_keys_lose(card, smoke, k_scale):
 
 
 @pytest.mark.cuda
+def test_card_parts_are_read_in_place(card):
+    """At the served shape: two calls give the same bits, and the
+    strided views (q_nope of the projection, k_nope of its product) give
+    the bits of their dense copies."""
+    parts = _mla_inputs(card, 4, 40, 641, 64, 32, 64, seed=5)
+    assert not parts[0].is_contiguous() and not parts[2].is_contiguous()
+    first = ops.flash_fwd_mla(*parts)
+    second = ops.flash_fwd_mla(*parts)
+    dense = ops.flash_fwd_mla(*[t.contiguous() for t in parts])
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, dense):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
 def test_card_refuses_what_the_kernel_does_not_take(card):
-    q, k, v = _mla_inputs(card, 1, 2, 64, 144, 64, seed=1)
-    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
-        ops.flash_fwd(q, k, v)
-    for Dq, Dv in ((96, 80), (112, 64)):
-        q, k, v = _mla_inputs(card, 1, 2, 64, Dq, Dv, seed=1)
-        with pytest.raises(ValueError, match="beside f32 keys"):
-            ops.flash_fwd(q, k, v)
-    q, k, v = _mla_inputs(card, 1, 2, 64, 96, 64, seed=1)
-    out, lse = ops.flash_fwd(q, k, v)
-    before = ops.flash_bwd.launches
+    """The parts' rule (nope 64, rope 32, v 64), f32 keys beside a bf16 q
+    in the dense form (the card takes MLA from its parts), flash_bwd of
+    the MLA form; no launch."""
+    before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
+    for dims, words in (((80, 32, 64), "nd = 80"), ((64, 32, 80), "Dv = 80"),
+                        ((64, 48, 64), "rd = 48")):
+        parts = _mla_inputs(card, 1, 2, 64, *dims, seed=1)
+        with pytest.raises(ValueError, match=words):
+            ops.flash_fwd_mla(*parts)
+    parts = _mla_inputs(card, 1, 2, 64, 64, 32, 64, seed=1)
+    q, k = _concatenated(parts)
+    with pytest.raises(ValueError, match="from its parts"):
+        ops.flash_fwd(q, k, parts[4])
+    out = torch.zeros((1, 2, 1, 64, 64), dtype=torch.bfloat16, device=card)
+    lse = torch.zeros((1, 2, 1, 64), device=card)
     with pytest.raises(ValueError, match="MLA's training"):
-        ops.flash_bwd(out, q, k, v, out, lse)
-    assert ops.flash_bwd.launches == before
+        ops.flash_bwd(out, q, k, parts[4], out, lse)
+    assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == before
 
 
 @pytest.mark.cuda
