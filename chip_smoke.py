@@ -535,7 +535,25 @@ Every phase is fatal: a failure exits non-zero before the result line.
    (3)'s bounds, the card's first `flash_fwd`, `flash_bwd` and three
    MoE backward calls (f32) held to their plain versions; and (4)'s
    4-pod WANify run cut to 8 of 24 layers (four pods' f32 state at 16 B
-   a parameter: ~34 GB), its checks as (4)'s.
+   a parameter: ~34 GB), its checks as (4)'s;
+   (8) after part (7)'s models are freed, MLA's (`minicpm3-4b`, full
+   width: 40 heads, Dq 64 + 32, Dv 64, f32 keys) through `train_single`
+   at MLA_TRAIN_LAYERS (56 of 62, what the card holds after parts
+   (1)-(7), PERF.md section 4): B=4, S=1,024, bf16 compute, f32 parameters and AdamW, 6 steps,
+   its exact counts (flash's MLA forward twice a layer a step, its
+   backward `flash_bwd_mla` once, the gate's as (1)'s), no operand of
+   flash copied; step ms, tokens/s, peak memory and device ms by kind
+   (each flash kernel by name); on layer 0's inputs of one more step
+   `flash_bwd_mla` against its plain version (`check_flash_bwd_mla`:
+   dq, dv under the flash rule, the whole f32 dk within 1e-5 (f32) or
+   1e-4 (bf16 runs) of its max, dk_rope the heads' sum of the kernels'
+   own dk bit for bit, two calls equal) as captured, at S = 1,000 and
+   both in f32, timed beside its bound, its plain version and
+   `torch.autograd.grad` through SDPA on the concatenated q and bf16(k);
+   one `make_train_step` step cut to 2 layers, f32, on the card and on
+   the host within (3)'s bounds, the card's first `flash_fwd_mla` /
+   `flash_bwd_mla` calls held to their plain versions; and (4)'s 4-pod
+   WANify run cut to 2 of 62 layers, its checks as (4)'s.
 
 Then it prints the `kernels` JSON line, the `nvidia-smi` line, and as
 the last line `{"ok": true, "device": {...}}`. All numbers also go to
@@ -594,8 +612,9 @@ from repro_torch.lifecycle import run_lifecycle_comparison  # noqa: E402
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      dequantize_groups_ref,
                                      dequantize_ref, fill_rates_ref,
-                                     flash_bwd_ref, flash_fwd_mla_ref,
-                                     flash_fwd_ref, moe_combine_bwd_ref,
+                                     flash_bwd_mla_ref, flash_bwd_ref,
+                                     flash_fwd_mla_ref, flash_fwd_ref,
+                                     moe_combine_bwd_ref,
                                      moe_combine_ref,
                                      moe_dispatch_bwd_ref,
                                      moe_dispatch_gather_ref,
@@ -603,7 +622,7 @@ from repro_torch.kernels.ref import (dequantize_groups_add_ref,  # noqa: E402
                                      moe_slots_ref,
                                      quantize_groups_ref,
                                      quantize_ref, rf_predict_ref,
-                                     silu_bwd_ref, silu_gate_bwd_ref,
+                                     rope_head_sum, silu_bwd_ref, silu_gate_bwd_ref,
                                      silu_gate_prod_bwd_ref, silu_gate_ref,
                                      silu_ref, ssd_chunk_bwd_ref,
                                      ssd_chunk_ref)
@@ -738,15 +757,17 @@ SILU_KERNELS = ("silu_kernel", "silu_bwd_kernel", "silu_gate_kernel",
 SILU_STREAM_KERNELS = ("silu_kernel", "silu_bwd_kernel")
 SILU_SLOTS = 2
 WF_KERNELS = ("waterfill_warp_kernel", "waterfill_block_kernel")
-FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                 "flash_bwd_dkdv_wgmma_kernel", "flash_delta_kernel",
-                 "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_bwd_dkdv_f32_kernel")
+# bf16: wgmma (HGMMA) fed by TMA (UTMALDG) in SASS, no spill (the last
+# two: MLA's backward from its parts)
+FLASH_TC_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_mla_kernel",
+                    "flash_bwd_dkdv_mla_kernel")
+FLASH_KERNELS = FLASH_TC_KERNELS + (
+    "flash_delta_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+    "flash_bwd_dkdv_f32_kernel", "flash_rope_sum_kernel")
 # the forward's MLA instance (flash_fwd_wgmma_kernel<1, 32, 1, 0, true>),
 # by its mangled template arguments
 FLASH_MLA_INSTANCE = "flash_fwd_wgmma_kernelILi1ELi32ELi1ELi0ELb1E"
-FLASH_TC_KERNELS = FLASH_KERNELS[:3]     # bf16: wgmma (HGMMA) fed by TMA
-                                         # (UTMALDG) in SASS, no spill
 SWEEP_ROWS = 16 * TICK_ROWS    # a 16-variant sweep (benchmarks/tick_bench.py)
 
 
@@ -3773,6 +3794,12 @@ def time_attention(cap: dict, kv_heads: int) -> dict:
 # (beside f32 keys split into bf16 parts, more: `flash_lse_tol`)
 FLASH_BF16_ROW = 2.0 ** -7
 FLASH_F32_TOL = 1e-5
+# MLA's dk in bf16 runs is f32 (the reference's keys are): the f32 sums of
+# products of bf16 inputs in another order, p by ex2, the keys split into
+# hi and lo (under 2^-17 |k| dropped): within 1e-4 of dk's max (7.5e-6 at
+# minicpm3-4b's train shape), where keys rounded to bf16 move it by 2.0e-3
+# (the split's 8.3e-6; random parts at that shape, PERF.md section 6)
+FLASH_DK_BF16_RUN = 1e-4
 FLASH_LSE_TOL = 1e-5
 # MLA's f32 keys enter the bf16 kernel split into hi = bf16(k) and lo =
 # bf16(k - hi); what that drops is under 2^-17 |k| an element (k - hi is
@@ -3912,6 +3939,60 @@ def check_flash_bwd(args) -> dict:
            "dtype": str(args[1].dtype).replace("torch.", "")}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         res[name] = flash_err(a, b, f"bwd {name}")
+    return res
+
+
+def check_flash_bwd_mla(args) -> dict:
+    """`ops.flash_bwd_mla` against `flash_bwd_mla_ref` on the inputs (g,
+    q_nope, q_rope, k_nope, k_rope, v, out, lse[, block_k]), called
+    twice (every output equal bit for bit): dq_nope, dq_rope and dv
+    under `flash_err`'s rule of their dtype; dk, the kernels' whole f32
+    dk [B,H,S,nd + rd] (k_nope's gradient and each head's rope columns
+    before their sum), against the plain version's on the reference's
+    concatenations within FLASH_F32_TOL of its max in f32 runs and
+    FLASH_DK_BF16_RUN in bf16 runs; dk_rope bit-equal to the plain sum
+    over the heads (`rope_head_sum`) of the kernels' own rope columns
+    (its distance from the plain version's dk_rope, whose terms round
+    to bf16 from other f32 sums, is reported, not held)."""
+    got = ops.flash_bwd_mla(*args)
+    again = ops.flash_bwd_mla(*args)
+    sync(got[0].device)
+    names = ("dq_nope", "dq_rope", "dk_nope", "dk_rope", "dv")
+    apart = [n for n, a, b in zip(names, got, again) if not torch.equal(a, b)]
+    if apart:
+        raise AssertionError(f"flash_bwd (mla): two calls differ in {apart}")
+    g, q_nope, q_rope, k_nope, k_rope, v, out, lse = args[:8]
+    want = flash_bwd_mla_ref(*args[:8], 512)
+    q, k = mla_concatenated(args[1:])
+    dk_want = flash_bwd_ref(g, q, k, v, out, lse, 0, 512)[1]
+    nd = q_nope.shape[3]
+    dk = got[2]._base
+    if dk is None or dk.shape != dk_want.shape or dk.dtype != torch.float32:
+        raise AssertionError(f"flash_bwd (mla): dk_nope is not a view of "
+                             f"an f32 dk {tuple(dk_want.shape)}")
+    bf16_run = q_nope.dtype == torch.bfloat16
+    res = {"shape": [*q_nope.shape[:3], f"{nd}+{q_rope.shape[3]}"],
+           "Dv": v.shape[3], "dtype": str(q_nope.dtype).replace("torch.", ""),
+           "equal_bits": True}
+    for i in (0, 1, 4):
+        res[names[i]] = flash_err(got[i], want[i], f"bwd (mla) {names[i]}")
+    diff = float((dk - dk_want).abs().max())
+    top = float(dk_want.abs().max())
+    tol = FLASH_DK_BF16_RUN if bf16_run else FLASH_F32_TOL
+    res["dk"] = {"err": diff / max(top, 1e-30) / tol, "max_abs_diff": diff,
+                 "max_abs": top, "ulp_apart_share": None}
+    if not res["dk"]["err"] <= 1.0:
+        raise AssertionError(f"flash_bwd (mla) dk: off by "
+                             f"{res['dk']['err']:.4g} of the tolerance")
+    own = rope_head_sum(dk[..., nd:], k_rope.dtype)
+    if not torch.equal(got[3], own):
+        raise AssertionError("flash_bwd (mla): dk_rope is not the heads' "
+                             "sum of the kernels' own rope columns")
+    res["dk_rope"] = {"equal_to_own_sum": True, "max_abs_diff": float(
+        (got[3].float() - want[3].float()).abs().max()),
+        "max_abs": float(want[3].float().abs().max())}
+    res["max_abs_diff"] = max(res[n]["max_abs_diff"] for n in (
+        "dq_nope", "dq_rope", "dk", "dv"))
     return res
 
 
@@ -5454,6 +5535,18 @@ MOE_TRAIN_FWD = MOE_KERNELS + DENSE_FWD
 MOE_TRAIN_BWD = MOE_BWD_KERNELS + DENSE_BWD
 MOE_POD_LAYERS = 8              # of 24: 4 pods' f32 state, ~34 GB
 MOE_TRAIN_PARITY_LAYERS = 2
+# part (8): MLA (minicpm3-4b) trained at full width, cut in depth to
+# what the card holds here with 2 GiB free (PERF.md section 4: f32
+# parameters, gradients and AdamW's moments at 16 B a parameter and the
+# bf16 copy at 2; 58 layers peak at 75.24 GiB of 79.18 in a process of
+# their own but ran out after parts (1)-(7), the allocator's cache
+# fragmented; 56 ran after them at 72.96), the 4-pod run to 2 layers
+# (76.2 GiB: its AdamW temporaries on the 4 pods' [4, 73448, 2560]
+# embeddings; 3 layers ran out)
+MLA_TRAIN_LAYERS = 56           # of 62
+MLA_POD_LAYERS = 2              # of 62
+MLA_TRAIN_PARITY_LAYERS = 2
+MLA_RAGGED_S = 1000             # a ragged S for flash_bwd_mla's check
 LOAD_SUM_TOL = 1e-6             # a step's expert_load over the layers
 # part (5): the ssm family trained as part (1) trains the dense one
 SSM_TRAIN_ARCH = ARCH
@@ -5474,7 +5567,8 @@ PARITY_SEQ_OTHER = 64
 PARITY_CHECKED = {"dense": ("flash_fwd", "flash_bwd"),
                   "ssm": ("ssd_chunk_bwd",),
                   "hybrid": ("flash_fwd", "flash_bwd", "ssd_chunk_bwd"),
-                  "moe": ("flash_fwd", "flash_bwd") + MOE_BWD_KERNELS}
+                  "moe": ("flash_fwd", "flash_bwd") + MOE_BWD_KERNELS,
+                  "mla": ("flash_fwd_mla", "flash_bwd_mla")}
 # the first step's compressed sync is redone on the host for every leaf
 # of at most this many elements a pod (the attention's and the norms':
 # all part layouts of the sync but the largest leaves')
@@ -5524,8 +5618,9 @@ def profile_ranges(cfg) -> tuple:
 def train_profile(fn, ranges=()) -> dict:
     """Device ms by kind of `fn` (one train step) under `torch.profiler`:
     the attention core's forward and backward (`ops.flash_fwd` /
-    `ops.flash_bwd` inside `record_function` ranges: the flash kernels,
-    by name, and what else runs inside), cross-entropy (`chunked_xent`
+    `ops.flash_bwd`, MLA's `ops.flash_fwd_mla` / `ops.flash_bwd_mla`,
+    inside `record_function` ranges: the flash kernels, also each by
+    name, and what else runs inside), cross-entropy (`chunked_xent`
     in a range, and the kernels of its backward nodes: log-sum-exp,
     gather, mean), the optimizer (`adamw_update` in a range), the port's
     gate and SSD kernels and their backwards (KERNEL_KINDS, by kernel
@@ -5554,8 +5649,8 @@ def train_profile(fn, ranges=()) -> dict:
         dict.fromkeys(label for _, _, label in ranges))
     with contextlib.ExitStack() as stack:
         for mod, wrap, names in (
-                (ops, ranged(ATTN_FWD), ("flash_fwd",)),
-                (ops, ranged(ATTN_BWD), ("flash_bwd",)),
+                (ops, ranged(ATTN_FWD), ("flash_fwd", "flash_fwd_mla")),
+                (ops, ranged(ATTN_BWD), ("flash_bwd", "flash_bwd_mla")),
                 (lm_mod, ranged(XENT), ("chunked_xent",)),
                 (train_step_mod, ranged(OPTIM), ("adamw_update",))) + tuple(
                     (mod, ranged(label), names)
@@ -5575,6 +5670,7 @@ def train_profile(fn, ranges=()) -> dict:
     by = dict.fromkeys((k for k, _ in KERNEL_KINDS), 0.0)
     port = {}                           # the port's kernels, by name
     flash = {ATTN_FWD: 0.0, ATTN_BWD: 0.0}
+    flash_names = {}                    # the flash kernels, by name
     n_kernels = 0
     for e in events:
         if e.device_type != cuda or getattr(e, "is_user_annotation", False) \
@@ -5592,6 +5688,10 @@ def train_profile(fn, ranges=()) -> dict:
             port[name] = port.get(name, 0.0) + ms
         elif is_flash(e.name):
             flash[ATTN_FWD if "flash_fwd" in e.name else ATTN_BWD] += ms
+            m = re.search(r"flash_\w+_kernel", e.name)
+            name = m.group(0) if m else e.name
+            flash_names[name] = flash_names.get(name, 0.0) + ms
+
     def subtree(roots, stop=()):
         """CPU ops under `roots`, each once, not entering a range named
         in `stop` (the flash calls' ranges inside the shared block's)."""
@@ -5632,7 +5732,8 @@ def train_profile(fn, ranges=()) -> dict:
     by["matmul_other"] = matmul - ranged_mm
     by["rest"] = total - sum(by.values())
     return {"device_ms": total, "kernels": n_kernels, "by_kind": by,
-            "flash_kernels": flash, "port_kernels": port,
+            "flash_kernels": flash, "flash_by_name": flash_names,
+            "port_kernels": port,
             "shared_port_ms": shared_port}
 
 
@@ -5865,7 +5966,8 @@ def zero_train_counts(names=TRAIN_COUNTED) -> None:
 def train_single(cfg, dev, steps: int = TRAIN_STEPS,
                  batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
     """Part (1), part (5) for the ssm family, part (6) for the hybrid and
-    part (7) for the MoE: `cfg` trained by the Trainer on one pod
+    part (7) for the MoE and part (8) for MLA: `cfg` trained by the
+    Trainer on one pod
     (`sync="psum"`, remat "full", random weights from a generator seeded
     0), counts zeroed just before the run and read just after (the
     MoE's: each step's expert_load, summed over the layers, within
@@ -5873,7 +5975,8 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
     profiler and one capturing the kernels' inputs (dense: the first
     call of each gate and flash kernel; ssm, hybrid and MoE: layer 0's,
     the forwards' first calls and the backwards' last; the hybrid's
-    shared block's likewise: its first application's)."""
+    shared block's likewise: its first application's; MLA: flash's
+    forward and backward from MLA's parts at layer 0)."""
     dcfg = DataConfig(batch=batch, seq=seq, vocab=cfg.vocab)
     tr = Trainer(cfg, 1, dcfg, LoopConfig(steps=steps, sync="psum"),
                  opt=AdamWConfig(total_steps=steps, **TRAIN_OPT),
@@ -5950,6 +6053,12 @@ def train_single(cfg, dev, steps: int = TRAIN_STEPS,
             step_fn(params, state, next(data))
         res["layer0"] = {n: seen[n][0] for n in MOE_KERNELS +
                          MOE_BWD_KERNELS}
+    elif cfg.is_mla:
+        with patched(ops, first_calls(seen), ("flash_fwd_mla",)), \
+                patched(ops, first_calls(seen, "last"), ("flash_bwd_mla",)):
+            step_fn(params, state, next(data))
+        res["layer0"] = {n: seen[n][0] for n in ("flash_fwd_mla",
+                                                 "flash_bwd_mla")}
     elif cfg.family == "dense":
         with patched(ops, first_calls(seen), ("silu_gate", "silu_gate_bwd",
                                               "flash_fwd", "flash_bwd")):
@@ -5983,7 +6092,8 @@ def step_parity(cfg, dev) -> dict:
     (f32) are held to their plain versions: dense `flash_fwd` /
     `flash_bwd`, ssm `ssd_chunk_bwd` (part (5)), the hybrid all three
     (part (6)), the MoE flash's two and its three backward kernels, bit
-    for bit (part (7)))."""
+    for bit (part (7)), MLA's flash forward and backward from its parts
+    (part (8)))."""
     t0 = time.perf_counter()
     seq = PARITY_SEQ.get(cfg.arch_id, PARITY_SEQ_OTHER)
     card = registry.build_model(
@@ -6001,7 +6111,8 @@ def step_parity(cfg, dev) -> dict:
         t1 = time.perf_counter()
         dev_b = as_batch(b, params["embed"].device)
         with patched(ops, first_card_calls(seen), PARITY_CHECKED[
-                "moe" if cfg.is_moe else cfg.family]):
+                "moe" if cfg.is_moe else "mla" if cfg.is_mla
+                else cfg.family]):
             _, _, g = train_step_mod._grads_of(cfg, 1, torch.float32,
                                                "full")(params, dev_b)
         grads[name] = tree_map(lambda t: t.cpu(), g)
@@ -6045,6 +6156,10 @@ def step_parity(cfg, dev) -> dict:
     if "flash_bwd" in seen:
         checks["flash"] = {"fwd": check_flash_fwd(seen["flash_fwd"][0]),
                            "bwd": check_flash_bwd(seen["flash_bwd"][0])}
+    if "flash_bwd_mla" in seen:
+        checks["flash_mla"] = {
+            "fwd": check_flash_mla(seen["flash_fwd_mla"][0]),
+            "bwd": check_flash_bwd_mla(seen["flash_bwd_mla"][0])}
     if "ssd_chunk_bwd" in seen:
         checks["ssd_chunk_bwd"] = check_ssd_bwd(seen["ssd_chunk_bwd"][0])
     for name in MOE_BWD_KERNELS:
@@ -6370,6 +6485,14 @@ def log_parity(p: dict) -> None:
             f"against plain: out {p['flash']['fwd']['out']['err']:.3g}, " +
             ", ".join(f"{n} {p['flash']['bwd'][n]['err']:.3g}"
                       for n in ("dq", "dk", "dv")))
+    if "flash_mla" in p:
+        f, b = p["flash_mla"]["fwd"], p["flash_mla"]["bwd"]
+        checked.append(
+            f"flash_fwd_mla / flash_bwd_mla {b['shape']} f32 against plain: "
+            f"out {f['out']['err']:.3g}, " + ", ".join(
+                f"{n} {b[n]['err']:.3g}" for n in ("dq_nope", "dq_rope",
+                                                   "dk", "dv")) +
+            ", dk_rope the heads' sum of dk")
     if "ssd_chunk_bwd" in p:
         c = p["ssd_chunk_bwd"]
         checked.append(f"ssd_chunk_bwd {c['shape']} f32 against plain: " +
@@ -6688,15 +6811,160 @@ def moe_train(cfg, dev, smi: str, forest, parity_cfg=None,
     return single
 
 
+def time_flash_bwd_mla(args) -> dict:
+    """Device ms of `ops.flash_bwd_mla` (dq with delta, dk / dv, the
+    heads' sum) on MLA's captured train-step inputs (g, q_nope, q_rope,
+    k_nope, k_rope, v, out, lse, ...), of its plain version and of
+    `torch.autograd.grad` through SDPA (`is_causal`) on the reference's
+    concatenations q and bf16(k), and v, the last two read in turns
+    with the kernel (events over 10 calls each); beside the bound at the
+    function's bytes: q's parts, k_nope (f32), the one rope key, v, g,
+    out and lse read once, dq (q's dtype), dk_nope (f32), dk_rope and dv
+    written once; five products over the causal half, QK^T, dS K and
+    dS^T Q at Dq and g V^T and P^T g at Dv, at the bf16 tensor-core
+    rate."""
+    g, q_nope, q_rope, k_nope, k_rope, v, out, lse = args[:8]
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    Dq, e, bhs = nd + rd, q_nope.element_size(), B * H * S
+    nbytes = e * (2 * bhs * Dq + 2 * k_rope.numel() + 4 * bhs * Dv) + \
+        4 * (2 * bhs * nd + bhs)
+    nops = 2 * bhs * keys_used(S, 0) * (3 * Dq + 2 * Dv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_TC_OPS_PER_S
+    q, k = mla_concatenated(args[1:])
+    qr, kr, vr = (t.detach().requires_grad_() for t in
+                  (q[:, :, 0], k.to(q.dtype), v))
+    o = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr,
+                                                         is_causal=True)
+    go = g[:, :, 0]
+
+    def lib():
+        return torch.autograd.grad(o, (qr, kr, vr), go, retain_graph=True)
+    ms, lib_ms = kernel_and_library_ms(
+        lambda: ops.flash_bwd_mla(*args), lib,
+        timer=lambda f: device_ms(f, launches=10))
+    res = {"ms": ms, "library_ms": lib_ms,
+           "library_backend": sdpa_backend(qr, kr, vr),
+           "plain_ms": device_ms(lambda: flash_bwd_mla_ref(*args[:8], 512),
+                                 launches=2, reps=3),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ops": nops}
+    del o
+    return res
+
+
+def mla_cases(args) -> list:
+    """(label, args) of flash_bwd_mla's checks on layer 0's captured
+    inputs of a train step: as captured (bf16, g a strided view), a
+    ragged S (the first MLA_RAGGED_S rows of every operand: causal, so
+    their out and lse are the whole S's), and both in f32 (out and lse
+    by the f32 forward kernel on the upcast parts)."""
+    g, q_nope, q_rope, k_nope, k_rope, v = args[:6]
+    # g, out [B,H,1,S,*] and lse [B,H,1,S] along their dim 3, the parts
+    # [B,*,S,*] along dim 2
+    cut = tuple(t.narrow(3 if i in (0, 6, 7) else 2, 0, MLA_RAGGED_S)
+                for i, t in enumerate(args[:8]))
+    out = [("train", args[:8]), (f"S = {MLA_RAGGED_S}", cut)]
+    for label, a in (("train f32", args[:8]),
+                     (f"S = {MLA_RAGGED_S} f32", cut)):
+        parts = [t.float() for t in a[1:6]]
+        o, lse = ops.flash_fwd_mla(*parts)
+        out.append((label, (a[0].float(), *parts, o, lse)))
+    return out
+
+
+def mla_train(cfg, dev, smi: str, forest, parity_cfg=None,
+              pod_cfg=None) -> dict:
+    """Part (8): MLA (minicpm3-4b) trained as part (7) trains the MoE
+    (`train_single` at MLA_TRAIN_LAYERS: its exact counts, flash's MLA
+    forward and backward once a layer a step and the forward again in
+    the recompute), then on layer 0's inputs of one more step
+    `flash_bwd_mla` against its plain version (`check_flash_bwd_mla`) as
+    captured, at a ragged S and both in f32 (`mla_cases`), two calls
+    equal, and timed beside its bound, its plain version and SDPA's
+    backward (`time_flash_bwd_mla`); one card-against-host step
+    (`step_parity`) of `parity_cfg` (default: cfg at
+    MLA_TRAIN_PARITY_LAYERS, f32) and the 4-pod WANify run (`train_pods`)
+    of `pod_cfg` (default: cfg at MLA_POD_LAYERS)."""
+    t0 = time.perf_counter()
+    if MLA_TRAIN_LAYERS:
+        cfg = cfg.replace(n_layers=MLA_TRAIN_LAYERS)
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    ops.flash_fwd.copies = 0
+    single = train_single(cfg, dev)
+    single["flash_copies"] = ops.flash_fwd.copies
+    single["resident_before_bytes"] = resident
+    log_single(single, smi)
+    if single["flash_copies"]:
+        raise AssertionError(f"mla train: flash's MLA wrappers copied "
+                             f"{single['flash_copies']} operands dense")
+    log(f"[train] {cfg.arch_id}: {cfg.n_layers} of "
+        f"{get_config(MLA_ARCH).n_layers} layers; device memory held "
+        f"before the run {resident / 2**30:.3f} GiB")
+    if "profile" in single:
+        names = single["profile"]["flash_by_name"]
+        log(f"[train] {cfg.arch_id} flash kernels in the profiled step "
+            f"(device ms, {cfg.n_layers} layers; the forward's twice a "
+            f"layer): " + ", ".join(f"{n} {v:.3f}" for n, v in
+                                    names.items()) + f"; copies of flash's "
+            f"operands in the run: {single['flash_copies']}")
+    calls = single.pop("layer0")
+    bargs = calls.pop("flash_bwd_mla")
+    checks = []
+    for label, a in mla_cases(bargs):
+        c = check_flash_bwd_mla(a)
+        c["case"] = label
+        checks.append(c)
+    k = single["flash_bwd_mla"] = {"checks": checks, "max_abs_err": max(
+        c["max_abs_diff"] for c in checks)}
+    for c in checks:
+        log(f"[train] flash_bwd (mla) {c['case']} {c['shape']} Dv {c['Dv']} "
+            f"{c['dtype']}: within tolerance (" + ", ".join(
+                f"{n} {c[n]['err']:.3g}" for n in ("dq_nope", "dq_rope",
+                                                   "dk", "dv")) +
+            f" of it; dk_rope the heads' sum of the kernels' own dk, "
+            f"{c['dk_rope']['max_abs_diff']:.3g} from plain's, max "
+            f"{c['dk_rope']['max_abs']:.3g}), two calls equal bit for bit")
+    if dev.type == "cuda":
+        t = k["timing"] = time_flash_bwd_mla(bargs)
+        per_call = {n: v / cfg.n_layers for n, v in single["profile"][
+            "flash_by_name"].items() if "mla" in n or "rope_sum" in n}
+        t["kernels_ms"] = per_call
+        log(f"[train] flash_bwd (mla) at layer 0: kernels {t['ms']:.5f} ms "
+            f"(device, events over 10 calls; in the profiled step a call: "
+            + ", ".join(f"{n} {v:.5f}" for n, v in per_call.items()) +
+            f") | plain {t['plain_ms']:.4f} ms | bound {t['bound_ms']:.5f} "
+            f"ms by {t['bound_by']} ({t['bytes']} B, {t['ops']:.4g} ops) | "
+            f"library (autograd.grad through SDPA on q, bf16(k), v) "
+            f"{t['library_ms']:.5f} ms by {t['library_backend']} | {smi}")
+    del bargs, calls
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = single["parity"] = step_parity(
+        parity_cfg or cfg.replace(n_layers=MLA_TRAIN_PARITY_LAYERS,
+                                  dtype="float32"), dev)
+    log_parity({**p, "arch": cfg.arch_id})
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pod_cfg = pod_cfg or cfg.replace(n_layers=MLA_POD_LAYERS)
+    pods = single["pods"] = train_pods(pod_cfg, dev, forest)
+    log_pods(pods, pod_cfg, get_config(MLA_ARCH), smi)
+    single["s"] = time.perf_counter() - t0
+    log(f"[train] part (8) {cfg.arch_id}: {single['s']:.1f} s")
+    return single
+
+
 def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
                 ssm_cfg=None, ssm_parity_cfg=None, hybrid_cfg=None,
-                moe_cfg=None) -> dict:
+                moe_cfg=None, mla_cfg=None) -> dict:
     """The train phase (see the head comment); every check fatal. The
     configs default to the full ones (`cfg`: TRAIN_ARCH; `pod_cfg`: it at
     POD_LAYERS; `parity_cfgs`: DENSE_ARCHS at PARITY_LAYERS, f32;
     `ssm_cfg`: SSM_TRAIN_ARCH; `ssm_parity_cfg`: it at PARITY_LAYERS,
     f32; `hybrid_cfg`: HYBRID_ARCH, cut by `hybrid_train`; `moe_cfg`:
-    MOE_ARCH, cut by `moe_train`)."""
+    MOE_ARCH, cut by `moe_train`; `mla_cfg`: MLA_ARCH, cut by
+    `mla_train`)."""
     t_phase = time.perf_counter()
     # the reference training CLI's forest (src/repro/launch/train.py)
     forest, _, _ = train_default_forest(n_samples=150, n_trees=40)
@@ -6763,9 +7031,12 @@ def train_phase(dev, smi: str, cfg=None, pod_cfg=None, parity_cfgs=None,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     moe_part = moe_train(moe_cfg or get_config(MOE_ARCH), dev, smi, forest)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mla_part = mla_train(mla_cfg or get_config(MLA_ARCH), dev, smi, forest)
     out = {"single": single, "parity": parity, "pods": pods,
            "ssm": ssm_part, "hybrid": hybrid_part, "moe": moe_part,
-           "s": time.perf_counter() - t_phase}
+           "mla": mla_part, "s": time.perf_counter() - t_phase}
     log(f"[train] phase {out['s']:.2f} s")
     return out
 
@@ -7510,8 +7781,8 @@ def main() -> int:
 
     # 13. train: h2o-danube-1.8b trained at full size through the
     # silu_gate kernels, the three dense archs' card-vs-host train step,
-    # the 4-pod WANify Trainer; then mamba2-2.7b, zamba2-2.7b and
-    # granite-moe-1b-a400m trained (parts (5)-(7))
+    # the 4-pod WANify Trainer; then mamba2-2.7b, zamba2-2.7b,
+    # granite-moe-1b-a400m and minicpm3-4b trained (parts (5)-(8))
     train = train_phase(dev, smi)
     results["train"] = train
 
@@ -7529,6 +7800,8 @@ def main() -> int:
     mk = moe_res["kernels"]
     mf = mla["serve"]["flash_fwd"]
     mt = train["moe"]
+    ml = train["mla"]
+    mb = ml["flash_bwd_mla"]["timing"]
     kernels = {"kernels": [{
         "name": "rf_predict", "route": "cuda",
         "source": "src/repro_torch/csrc/rf_predict.cu",
@@ -7662,7 +7935,15 @@ def main() -> int:
         "ms": fb["timing"]["ms"], "plain_ms": fb["timing"]["plain_ms"],
         "bound_ms": fb["timing"]["bound_ms"],
         "bound_by": fb["timing"]["bound_by"],
-        "library_ms": fb["timing"]["library_ms"]}] + [{
+        "library_ms": fb["timing"]["library_ms"]}, {
+        "name": "flash_bwd (MLA)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/models/attention.py:99",
+        "launches": ml["launches"]["flash_bwd"],
+        "max_abs_err": ml["flash_bwd_mla"]["max_abs_err"],
+        "ms": mb["ms"], "plain_ms": mb["plain_ms"],
+        "bound_ms": mb["bound_ms"], "bound_by": mb["bound_by"],
+        "library_ms": mb["library_ms"]}] + [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/csrc/{src}",
         "replaces": f"src/repro/models/ssm.py:{line}",

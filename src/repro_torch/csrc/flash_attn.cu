@@ -119,8 +119,9 @@
 // flash_bwd_dkdv_f32_kernel; every operand read through its strides (b,
 // kv head, g, row; unit stride along D), outputs dense.
 //
-// MLA (minicpm3-4b's prefill, mla_forward at src/repro/models/
-// attention.py:339) runs the forward with q and k of Dq = nd + rd columns
+// MLA (minicpm3-4b's prefill and training, mla_forward at src/repro/
+// models/attention.py:339) runs the forward with q and k of Dq = nd + rd
+// columns
 // and v and out of Dv (64 + 32 and 64), and in bf16 runs with f32 keys
 // beside bf16 q and v: the reference's k_nope is an f32 product and the
 // concatenation with the rope key promotes the whole k, so its score
@@ -136,7 +137,7 @@
 // tile (a map of 64 floats a row, no swizzle) into one of two staging
 // slots of shared memory a tile ahead, and the producer warpgroup's
 // warps 1-3 split it into the stage's hi and lo (split_key_tile, which
-// MLA's backward can reuse) while the consumers work on the tile before;
+// MLA's backward reuses) while the consumers work on the tile before;
 // the consumers form s = q . hi over the 6 k16 steps, then + q . lo over
 // the nope region's 4, in one f32 accumulator: the split the backward
 // uses for its f32 factors, what is dropped under 2^-17 |k|; the rope key
@@ -148,9 +149,35 @@
 // an H100 80GB HBM3 at 700 W (PERF.md section 6), as did a 128-column
 // layout of q and k (4.6% more than 64 + 32).
 // Any Dq, Dv up to 128 of one dtype take the 128-column instance for
-// both, with TMA's zero fill (D = 80 alone has its own). The f32 kernel
-// takes Dv apart from Dq and q and k from two parts each (MLA's f32
-// runs). The backward keeps Dq == Dv and one dtype.
+// both, with TMA's zero fill (D = 80 alone has its own). The f32 kernels
+// (forward and backward) take Dv apart from Dq and q and k from two parts
+// each (MLA's f32 runs). The dense bf16 backward keeps Dq == Dv and one
+// dtype.
+//
+// MLA's backward (mla_forward's gradient, the custom VJP at :99 on the
+// reference's concatenations, then their transposes) runs from the parts
+// too, through flash_bwd_mla_launch: flash_bwd_dq_mla_kernel and
+// flash_bwd_dkdv_mla_kernel lay q, k and dq out as the forward's q and k
+// (Cols<1, 32>: 64 + 32 columns), v, g and out as one 64-column region
+// (Cols<1, 0>). Each kernel's producer stages the f32 k_nope tiles by TMA
+// (a slot a stage in dq, one a key tile in dk / dv) and its warps 1-3
+// split them into hi and lo (split_key_tile); the rope key comes from
+// k_rope's head-less map. s = q . hi + q_nope . lo as in the forward;
+// dq += ds . k splits both f32 factors over the nope columns (ds_hi k_hi
+// + ds_lo k_hi + ds_hi k_lo) and ds alone over the bf16 rope columns; dk
+// = ds^T q and dv = p^T g with p^T and ds^T split; delta = sum g . out
+// over Dv. dk leaves in f32 (the reference's keys are f32) straight from
+// the accumulator fragments, as do dq and dv (bf16), a pair of columns a
+// store; flash_rope_sum_kernel then sums each head's rope columns of dk
+// into the one rope key's gradient as XLA's CPU program sums the
+// broadcast's transpose (windows of 32 heads, in the key's dtype, every
+// add rounded). Shared memory, counted as fwd_smem counts it (1 KB of
+// alignment slack, the barriers): dq 2 (q, g) pairs of 40 KB and 2
+// stages of 44 KB (the key tile's 12 + 8 KB, v 8 KB, the f32 slot 16
+// KB): 169.1 KB; dk / dv the key tile's 40 KB, v 16 KB, the f32 slot 32
+// KB and 2 stages of 20.5 KB: 130.1 KB; both under 227 KB, one block an
+// SM. A first form, right before fast: its times beside the bound and
+// SDPA's backward are in PERF.md section 6.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -503,6 +530,29 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// the same, m64n32k16 (MLA's backward: the 32-column rope tail)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// MN-major B operand of a 32-column tail of 64-byte rows (64-byte
+// swizzle) at `tail`: rows [16 j, 16 j + 16) (the product's K), its 32
+// columns (N)
+__device__ __forceinline__ uint64_t mnmajor_t32(uint32_t tail, int j) {
+  return make_desc(tail + j * 1024, 512, kSw64);
 }
 
 // ---- helpers -------------------------------------------------------------
@@ -1470,7 +1520,483 @@ __global__ void __launch_bounds__(kThreadsWS, 1)
 }
 
 // ----------------------------------------------------------------------
-// f32: delta = sum(g * out) over D; a warp a row (bf16: in the dq kernel)
+// bf16: MLA's backward, from its parts
+// ----------------------------------------------------------------------
+// q, k and dq are laid out as MLA's forward lays out q and k (Cols<1, 32>:
+// the nope region from q_nope's map or the split key, the rope tail from
+// q_rope's map or the head-less k_rope map at head 0), a key tile's lo =
+// bf16(k_nope - hi) in a region of its own after it; v and g as one
+// 64-column region (Cols<1, 0>). Each f32 k_nope tile lands by TMA in a
+// staging slot of its stage (no swizzle), and the producer warpgroup's
+// warps 1-3 split it (split_key_tile) once it has landed; the stage's
+// consumers release the slot and the key tile together. Outputs go from
+// the accumulator fragments straight to device memory (dq bf16, dk f32,
+// dv bf16, dense), a pair of columns a store: dk must leave in f32, which
+// the bf16 TMA stores through the tiles cannot carry.
+using LMq = Cols<1, 32>;   // q, k: nope region + rope tail
+using LMv = Cols<1, 0>;    // v, g: one region
+
+struct MlaBwdArgs {
+  const float* lse;     // [B,H,1,S]
+  float* delta;         // [B,H,1,S]: written by dq, read by dk / dv
+  const bf16* out;      // [B,H,1,S,Dv] through ov
+  View ov;
+  bf16* dq;             // [B,H,S,nd + rd] (dense)
+  float* dk;            // [B,H,S,nd + rd] (dense, f32)
+  bf16* dv;             // [B,H,S,Dv] (dense)
+  Shape sh;             // K = H, G = 1, D = nd + rd
+  int nd, rd;
+  int nt;               // q-tiles (dq) or key tiles (dk / dv)
+};
+
+// rows r and r + 8 (h = 0, 1) of an m64nN accumulator x, times `sc`, into
+// columns [c0, c0 + n) of rows `row0` / `row1` (at most `rows`) of a dense
+// output of `ld` columns at `base`: element 4 jj + 2 h + e is column
+// 8 jj + cp + e; bf16 pairs (T = bf16) or f32 pairs
+template <typename T, int N>
+__device__ __forceinline__ void store_frag(T* base, long long ld, int row0,
+                                           int row1, int rows, int c0, int n,
+                                           int cp, const float (&x)[N],
+                                           float sc) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    if (row >= rows) continue;
+    T* r = base + row * ld + c0;
+#pragma unroll
+    for (int jj = 0; jj < N / 4; ++jj) {
+      const int col = 8 * jj + cp;
+      if (col >= n) continue;
+      const float a = x[4 * jj + 2 * h] * sc, b = x[4 * jj + 2 * h + 1] * sc;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(r + col) = pack_bf16(a, b);
+      else
+        *reinterpret_cast<float2*>(r + col) = make_float2(a, b);
+    }
+  }
+}
+
+// dq of MLA: items (b, head, q-tile of 128 rows) with g beside q; delta
+// of the item's rows first; per key tile of 64 keys s = q . hi + q_nope .
+// lo (10 k16 steps) and dp = g . v^T (4), then ds split hi / lo and dq +=
+// ds . k over k's f32 nope columns as the file splits f32 factors (ds_hi
+// k_hi + ds_lo k_hi + ds_hi k_lo) and over its bf16 rope columns (ds_hi
+// kr + ds_lo kr), k read MN-major from the key tile the split wrote.
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_bwd_dq_mla_kernel(const __grid_constant__ Maps maps,
+                            const MlaBwdArgs a) {
+  constexpr uint32_t kQBytes = kDqQ * LMq::kRow, kGBytes = kDqQ * LMv::kRow,
+                     kPair = kQBytes + kGBytes,
+                     kKBytes = kDqN * LMq::kRow, kLoBytes = kDqN * 128,
+                     kKStage = kKBytes + kLoBytes,
+                     kVBytes = kDqN * LMv::kRow,
+                     kFBytes = kDqN * 64 * 4;   // an f32 k_nope tile
+  extern __shared__ unsigned char smem_raw[];
+  // two (q, g) pairs, item by item; per stage a key tile (hi, rope, lo),
+  // a v tile and the f32 staging slot
+  const uint32_t sQ = align1024(smem_u32(smem_raw));
+  const uint32_t sK = sQ + 2 * kPair;
+  const uint32_t sV = sK + kStages * kKStage;
+  const uint32_t sF = sV + kStages * kVBytes;
+  const uint32_t bars = sF + kStages * kFBytes;
+  const uint32_t q_full = bars, q_empty = bars + 16;
+  const uint32_t k_full = bars + 32, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages, f_full = empty + 8 * kStages;
+  const Shape sh = a.sh;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, 2);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival (the rope tail) and one a splitting warp
+      mbar_init(k_full + 8 * s, 1 + kSplitWarps);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+      mbar_init(f_full + 8 * s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWG;
+  const int nz = sh.B * sh.K;
+
+  if (wg == 0) {  // the producer
+    setmaxnreg_dec<kMlaProducerRegs>();
+    if (threadIdx.x == 0) {   // the TMA loads
+      int c = 0, z, rank;
+      Walk walk;
+      for (int it = 0; walk.next(nz, a.nt, z, rank); ++it) {
+        const QItem w = q_item(sh, z, rank, a.nt, kDqQ, kDqN);
+        const uint32_t qf = q_full + 8 * (it & 1), qt = sQ + (it & 1) * kPair;
+        mbar_wait(q_empty + 8 * (it & 1), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, kPair);
+        tma_tile<1, 32, kDqQ>(qt, maps, kMq, qf, w.q0, 0, w.h, w.b, 0);
+        tma_tile<1, 0, kDqQ>(qt + kQBytes, maps, kMg, qf, w.q0, 0, w.h, w.b);
+        for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+          const int s = c % kStages;
+          const uint32_t kt = sK + s * kKStage;
+          // the slot and the key tile are free once the stage is
+          mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
+          mbar_expect_tx(f_full + 8 * s, kFBytes);
+          tma_load5(sF + s * kFBytes, &maps.t[kMk][0], f_full + 8 * s, 0,
+                    t * kDqN, 0, w.h, w.b);
+          mbar_expect_tx(k_full + 8 * s, kDqN * 32 * 2);
+          tma_tail<1, 32, kDqN>(kt, maps, kMk, k_full + 8 * s, 0, t * kDqN,
+                                0, 0, w.b);
+          mbar_expect_tx(v_full + 8 * s, kVBytes);
+          tma_tile<1, 0, kDqN>(sV + s * kVBytes, maps, kMv, v_full + 8 * s,
+                               t * kDqN, 0, w.h, w.b);
+        }
+      }
+    } else if (threadIdx.x >= 32) {   // warps 1-3: the key split
+      int c = 0, z, rank;
+      Walk walk;
+      while (walk.next(nz, a.nt, z, rank)) {
+        const QItem w = q_item(sh, z, rank, a.nt, kDqQ, kDqN);
+        for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+          const int s = c % kStages;
+          const uint32_t kt = sK + s * kKStage;
+          mbar_wait(f_full + 8 * s, (c / kStages) & 1);
+          split_key_tile<kDqN, 32 * kSplitWarps>(sF + s * kFBytes, kt,
+                                                 kt + kKBytes,
+                                                 threadIdx.x - 32);
+          fence_async_smem();
+          __syncwarp();
+          if ((threadIdx.x & 31) == 0) mbar_arrive(k_full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kMlaConsumerRegs>();
+  const int cw = wg - 1, tid = threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cp = 2 * (lane & 3);
+  const int Dq = sh.D;
+  int c = 0, z, rank;
+  Walk walk;
+  for (int it = 0; walk.next(nz, a.nt, z, rank); ++it) {
+    const QItem w = q_item(sh, z, rank, a.nt, kDqQ, kDqN);
+    const int rlo = w.q0 + cw * 64;
+    const int r0 = rlo + 16 * warp + (lane >> 2), r1 = r0 + 8;
+    const long long zrow = static_cast<long long>(w.z) * sh.S;
+    // rows past S: zero q and g rows, so s = dp = 0 and ds = 0 there
+    const float lse0 = r0 < sh.S ? a.lse[zrow + r0] * kLog2e : 0.f;
+    const float lse1 = r1 < sh.S ? a.lse[zrow + r1] * kLog2e : 0.f;
+    float acc[32], acct[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acct[i] = 0.f;
+    const uint32_t qt = sQ + (it & 1) * kPair, gt = qt + kQBytes;
+    mbar_wait(q_full + 8 * (it & 1), (it >> 1) & 1);
+    const bf16* ob = a.out + w.b * a.ov.b + w.h * a.ov.h;
+    const int q4 = lane & 3;
+    const float del0 = row_delta<1, 0, kDqQ>(
+        gt, r0 - w.q0, ob + min(r0, sh.S - 1) * a.ov.s, q4, sh.Dv);
+    const float del1 = row_delta<1, 0, kDqQ>(
+        gt, r1 - w.q0, ob + min(r1, sh.S - 1) * a.ov.s, q4, sh.Dv);
+    if (q4 == 0 && r0 < sh.S) a.delta[zrow + r0] = del0;
+    if (q4 == 0 && r1 < sh.S) a.delta[zrow + r1] = del1;
+    for (int t = w.t_lo; t <= w.t_hi; ++t, ++c) {
+      const int s = c % kStages;
+      const unsigned ph = (c / kStages) & 1;
+      const uint32_t kt = sK + s * kKStage, vt = sV + s * kVBytes;
+      const int k0 = t * kDqN;
+      float x[32], dp[32];
+      mbar_wait(k_full + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < LMq::kSteps; ++kk)
+        wgmma_ss_n64(x, kmajor<1, 32>(qt, kDqQ, cw * 64, kk),
+                     kmajor<1, 32>(kt, kDqN, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(x, kmajor<1, 32>(qt, kDqQ, cw * 64, kk),
+                     kmajor<1, 32>(kt + kKBytes, kDqN, 0, kk), 1);
+      mbar_wait(v_full + 8 * s, ph);
+#pragma unroll
+      for (int kk = 0; kk < LMv::kSteps; ++kk)
+        wgmma_ss_n64(dp, kmajor<1, 0>(gt, kDqQ, cw * 64, kk),
+                     kmajor<1, 0>(vt, kDqN, 0, kk), kk);
+      wgmma_commit_wait();
+      fence_regs(x);
+      fence_regs(dp);
+      // ds = p (dp - delta), p = 2^(x sl - lse log2 e) (0 where masked)
+      if (k0 + kDqN - 1 > rlo) {
+        const int h0 = r0 - k0 - cp, h1 = r1 - k0 - cp;
+        mask_tile(x, h0 - kNoBound, h0, h1 - kNoBound, h1, kMaskRaw);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hr = i & 2;
+        const float p = ex2(fmaf(x[i], sh.sl, -(hr ? lse1 : lse0)));
+        x[i] = p * (dp[i] - (hr ? del1 : del0));
+      }
+      // dq += ds . k: ds split into bf16 hi + lo, k (hi, lo, rope) read
+      // MN-major
+      uint32_t hi[16], lo[16];
+      to_frags_split(x, hi, lo);
+      fence_regs(acc);
+      fence_regs(acct);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kDqN / 16; ++j) {
+        const uint64_t dh = mnmajor<1>(kt, kDqN, 0, j);
+        const uint64_t dl = mnmajor<1>(kt + kKBytes, kDqN, 0, j);
+        const uint64_t dr = mnmajor_t32(kt + kDqN * 128, j);
+        wgmma_rs_n64(acc, hi + 4 * j, dh);
+        wgmma_rs_n64(acc, lo + 4 * j, dh);
+        wgmma_rs_n64(acc, hi + 4 * j, dl);
+        wgmma_rs_n32(acct, hi + 4 * j, dr);
+        wgmma_rs_n32(acct, lo + 4 * j, dr);
+      }
+      wgmma_commit_wait();
+      fence_regs(acc);
+      fence_regs(acct);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    // dq = acc * sc in bf16: nope columns, then rope columns
+    bf16* dqz = a.dq + zrow * Dq;
+    store_frag<bf16, 32>(dqz, Dq, r0, r1, sh.S, 0, a.nd, cp, acc, sh.sc);
+    store_frag<bf16, 16>(dqz, Dq, r0, r1, sh.S, a.nd, a.rd, cp, acct,
+                         sh.sc);
+    wg_sync(cw);
+    if (tid == 0) mbar_arrive(q_empty + 8 * (it & 1));
+    __syncwarp();
+  }
+}
+
+// dk and dv of MLA: items (b, head, key tile of 128): the key tile (its f32
+// nope part split by the producer's warps 1-3, the rope tail) and v stay in
+// shared memory while q, g, lse and delta tiles of 64 queries stream
+// through the ring, each in two halves of 32: s^T = k . q^T (k hi and its
+// rope tail over 6 k16 steps, then lo . q_nope over 4) and dp^T = v . g^T
+// with keys as rows, then dv += p^T g and dk += ds^T q (q's nope region,
+// its rope tail), p^T and ds^T split hi / lo.
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    flash_bwd_dkdv_mla_kernel(const __grid_constant__ Maps maps,
+                              const MlaBwdArgs a) {
+  constexpr uint32_t kKBytes = kKvN * LMq::kRow, kLoBytes = kKvN * 128,
+                     kVBytes = kKvN * LMv::kRow, kFBytes = kKvN * 64 * 4,
+                     kQBytes = kKvQ * LMq::kRow, kGBytes = kKvQ * LMv::kRow;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gbase = smem_raw + (align1024(smem_u32(smem_raw)) -
+                                     smem_u32(smem_raw));
+  const uint32_t sK = smem_u32(gbase), sLo = sK + kKBytes;
+  const uint32_t sV = sLo + kLoBytes, sF = sV + kVBytes;
+  const uint32_t sQ = sF + kFBytes;                  // [kStages]
+  const uint32_t sG = sQ + kStages * kQBytes;        // [kStages]
+  const uint32_t sRows = sG + kStages * kGBytes;     // lse, delta [kStages]
+  float* rows = reinterpret_cast<float*>(gbase + (sRows - sK));
+  const uint32_t bars = sRows + kStages * 2 * kKvQ * 4;
+  const uint32_t kv_full = bars, kv_empty = bars + 8, f_full = bars + 16;
+  const uint32_t full = bars + 24, empty = full + 8 * kStages;
+  const Shape sh = a.sh;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1 + kSplitWarps);
+    mbar_init(kv_empty, 2);
+    mbar_init(f_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWG;
+  const int nz = sh.B * sh.K;
+
+  if (wg == 0) {  // the producer
+    setmaxnreg_dec<kMlaProducerRegs>();
+    if (threadIdx.x < 32) {   // warp 0: TMA, lse and delta
+      const int lane = threadIdx.x;
+      int c = 0, zk, rank;
+      Walk walk;
+      for (int it = 0; walk.next(nz, a.nt, zk, rank); ++it) {
+        const KItem w = k_item(sh, zk, rank);
+        if (lane == 0) {
+          mbar_wait(kv_empty, (it & 1) ^ 1);
+          mbar_expect_tx(f_full, kFBytes);
+#pragma unroll
+          for (int half = 0; half < kKvN / kBox; ++half)
+            tma_load5(sF + half * kBox * 256, &maps.t[kMk][0], f_full, 0,
+                      w.k0 + half * kBox, 0, w.h, w.b);
+          mbar_expect_tx(kv_full, kKvN * 32 * 2 + kVBytes);
+          tma_tail<1, 32, kKvN>(sK, maps, kMk, kv_full, 0, w.k0, 0, 0, w.b);
+          tma_tile<1, 0, kKvN>(sV, maps, kMv, kv_full, w.k0, 0, w.h, w.b);
+        }
+        const long long zq = static_cast<long long>(w.zk) * sh.S;
+        for (int n = 0; n < w.nq; ++n, ++c) {
+          const int s = c % kStages, q0 = (w.qt_lo + n) * kKvQ;
+          mbar_wait(empty + 8 * s, ((c / kStages) & 1) ^ 1);
+          float* lr = rows + s * 2 * kKvQ;
+          for (int e = lane; e < kKvQ; e += 32) {
+            const int qi = q0 + e;
+            lr[e] = qi < sh.S ? a.lse[zq + qi] * kLog2e : 0.f;
+            lr[kKvQ + e] = qi < sh.S ? a.delta[zq + qi] : 0.f;
+          }
+          __syncwarp();
+          if (lane == 0) {   // its arrival releases the lanes' stores
+            mbar_expect_tx(full + 8 * s, kQBytes + kGBytes);
+            tma_tile<1, 32, kKvQ>(sQ + s * kQBytes, maps, kMq, full + 8 * s,
+                                  q0, 0, w.h, w.b, 0);
+            tma_tile<1, 0, kKvQ>(sG + s * kGBytes, maps, kMg, full + 8 * s,
+                                 q0, 0, w.h, w.b);
+          }
+        }
+      }
+    } else {   // warps 1-3: the key split, once an item
+      int zk, rank;
+      Walk walk;
+      for (int it = 0; walk.next(nz, a.nt, zk, rank); ++it) {
+        mbar_wait(f_full, it & 1);
+        split_key_tile<kKvN, 32 * kSplitWarps>(sF, sK, sLo,
+                                               threadIdx.x - 32);
+        fence_async_smem();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(kv_full);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kMlaConsumerRegs>();
+  const int cw = wg - 1, tid = threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cp = 2 * (lane & 3);
+  const int Dq = sh.D;
+  int c = 0, zk, rank;
+  Walk walk;
+  for (int it = 0; walk.next(nz, a.nt, zk, rank); ++it) {
+    const KItem w = k_item(sh, zk, rank);
+    const int klo = w.k0 + cw * 64, khi = klo + 63;
+    const int kr0 = klo + 16 * warp + (lane >> 2), kr1 = kr0 + 8;
+    float dk[32], dkt[16], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dkt[i] = 0.f;
+    mbar_wait(kv_full, it & 1);
+    for (int n = 0; n < w.nq; ++n, ++c) {
+      const int s = c % kStages, q0 = (w.qt_lo + n) * kKvQ;
+      const uint32_t qt = sQ + s * kQBytes, gt = sG + s * kGBytes;
+      const float* lr = rows + s * 2 * kKvQ;
+      mbar_wait(full + 8 * s, (c / kStages) & 1);
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq) {
+        const int qh = q0 + 32 * hq;
+        float st[16], dpt[16];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < LMq::kSteps; ++kk)
+          wgmma_ss_n32(st, kmajor<1, 32>(sK, kKvN, cw * 64, kk),
+                       kmajor<1, 32>(qt, kKvQ, 32 * hq, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n32(st, kmajor<1, 32>(sLo, kKvN, cw * 64, kk),
+                       kmajor<1, 32>(qt, kKvQ, 32 * hq, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < LMv::kSteps; ++kk)
+          wgmma_ss_n32(dpt, kmajor<1, 0>(sV, kKvN, cw * 64, kk),
+                       kmajor<1, 0>(gt, kKvQ, 32 * hq, kk), kk);
+        wgmma_commit_wait();
+        fence_regs(st);
+        fence_regs(dpt);
+        // p^T and ds^T: rows are keys, columns the queries qh + cp + off;
+        // query qi is kept for key j iff j <= qi < S
+        if (qh < khi || qh + 32 > sh.S) {
+          const int e0 = kr0 - qh - cp, e1 = kr1 - qh - cp;
+          const int top = sh.S - qh - cp - 1;
+          mask_tile(st, e0 - 1, top, e1 - 1, top, kMaskRaw);
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int col = 32 * hq + 8 * (i >> 2) + cp + (i & 1);
+          const float p = ex2(fmaf(st[i], sh.sl, -lr[col]));
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - lr[kKvQ + col]);
+        }
+        uint32_t ph[8], pl[8], dh[8], dl[8];
+        to_frags_split(st, ph, pl);
+        to_frags_split(dpt, dh, dl);
+        fence_regs(dk);
+        fence_regs(dkt);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint64_t dg = mnmajor<1>(gt, kKvQ, 0, 2 * hq + j);
+          const uint64_t dq = mnmajor<1>(qt, kKvQ, 0, 2 * hq + j);
+          const uint64_t dr = mnmajor_t32(qt + kKvQ * 128, 2 * hq + j);
+          wgmma_rs_n64(dv, ph + 4 * j, dg);
+          wgmma_rs_n64(dv, pl + 4 * j, dg);
+          wgmma_rs_n64(dk, dh + 4 * j, dq);
+          wgmma_rs_n64(dk, dl + 4 * j, dq);
+          wgmma_rs_n32(dkt, dh + 4 * j, dr);
+          wgmma_rs_n32(dkt, dl + 4 * j, dr);
+        }
+        wgmma_commit_wait();
+        fence_regs(dk);
+        fence_regs(dkt);
+        fence_regs(dv);
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    // dk = acc * sc in f32 (nope, then rope columns) and dv in bf16
+    const long long zrow = static_cast<long long>(w.zk) * sh.S;
+    float* dkz = a.dk + zrow * Dq;
+    store_frag<float, 32>(dkz, Dq, kr0, kr1, sh.S, 0, a.nd, cp, dk, sh.sc);
+    store_frag<float, 16>(dkz, Dq, kr0, kr1, sh.S, a.nd, a.rd, cp, dkt,
+                          sh.sc);
+    store_frag<bf16, 32>(a.dv + zrow * sh.Dv, sh.Dv, kr0, kr1, sh.S, 0,
+                         sh.Dv, cp, dv, 1.f);
+    wg_sync(cw);
+    if (tid == 0) mbar_arrive(kv_empty);
+    __syncwarp();
+  }
+}
+
+// dk_rope [B,1,S,rd]: the rope columns of dk [B,H,S,Dq] (f32) summed over
+// the heads as XLA's CPU program sums the reference's broadcast's
+// transpose (kernels/ref.py::gate_window_sum): in windows of 32 heads (the
+// heads padded with zeros to a multiple of 32, half the pad first), each
+// window in order, then the windows in order; in bf16 runs each term
+// rounded to bf16 first and every add rounded to bf16. A thread a (b, row,
+// column); the columns of a row are adjacent threads.
+__global__ void flash_rope_sum_kernel(const float* __restrict__ dk,
+                                      void* __restrict__ out, int B, int H,
+                                      int S, int Dq, int nd, int rd,
+                                      int to_bf16) {
+  const long long n = (long long)B * S * rd;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int col = i % rd, row = (i / rd) % S, b = i / ((long long)rd * S);
+  const float* p = dk + ((long long)b * H * S + row) * Dq + nd + col;
+  const long long hstep = (long long)S * Dq;
+  auto rnd = [to_bf16](float x) {
+    return to_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  };
+  const int nw = (H + 31) / 32, before = (nw * 32 - H) / 2;
+  float total = 0.f;
+  for (int wdx = 0; wdx < nw; ++wdx) {
+    float acc = 0.f;
+    for (int j = 0; j < 32; ++j) {
+      const int h = wdx * 32 + j - before;
+      if (h >= 0 && h < H) acc = rnd(acc + rnd(p[h * hstep]));
+    }
+    total = wdx == 0 ? acc : rnd(total + acc);
+  }
+  if (to_bf16)
+    static_cast<bf16*>(out)[i] = __float2bfloat16_rn(total);
+  else
+    static_cast<float*>(out)[i] = total;
+}
+
+// ----------------------------------------------------------------------
+// f32: delta = sum(g * out) over Dv; a warp a row (bf16: in the dq kernel)
 // ----------------------------------------------------------------------
 __global__ void flash_delta_kernel(const float* __restrict__ g,
                                    const float* __restrict__ o,
@@ -1488,7 +2014,7 @@ __global__ void flash_delta_kernel(const float* __restrict__ g,
   const float* gr = g + b * gv.b + kh * gv.h + gq * gv.g + qi * gv.s;
   const float* orow = o + b * ov.b + kh * ov.h + gq * ov.g + qi * ov.s;
   float acc = 0.f;
-  for (int d = lane; d < sh.D; d += 32) acc += gr[d] * orow[d];
+  for (int d = lane; d < sh.Dv; d += 32) acc += gr[d] * orow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -1603,29 +2129,38 @@ __global__ void __launch_bounds__(kRows * 32)
   }
 }
 
+// The backward's f32 kernels: q's and k's columns [0, nd) from q and k,
+// [nd, D) from q2 and k2 (MLA's nope and rope parts; nd = D: one tensor
+// each), v, g and out of Dv columns; dq [B,K,G,S,D], dk [B,K,S,D] and dv
+// [B,K,S,Dv] dense
 __global__ void __launch_bounds__(kRows * 32)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ q2,
                             const float* __restrict__ k,
+                            const float* __restrict__ k2,
                             const float* __restrict__ v,
                             const float* __restrict__ g,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             float* __restrict__ dq, Shape sh, View qv,
-                            View kv, View vv, View gv) {
-  const int D = sh.D, S = sh.S, SD = D + 1;
+                            View q2v, View kv, View k2v, View vv, View gv,
+                            int nd) {
+  const int D = sh.D, Dv = sh.Dv, S = sh.S, SD = D + 1, SV = Dv + 1;
   extern __shared__ float fsm[];
   float* Qs = fsm;                   // [kRows][D]
-  float* Gs = Qs + kRows * D;        // [kRows][D]
-  float* Ks = Gs + kRows * D;        // [kT][SD]
-  float* Vs = Ks + kT * SD;          // [kT][SD]
-  float* Ps = Vs + kT * SD;          // [kRows][kT]
+  float* Gs = Qs + kRows * D;        // [kRows][Dv]
+  float* Ks = Gs + kRows * Dv;       // [kT][SD]
+  float* Vs = Ks + kT * SD;          // [kT][SV]
+  float* Ps = Vs + kT * SV;          // [kRows][kT]
   const int nblk = (S + kRows - 1) / kRows;
   const int i0 = (nblk - 1 - blockIdx.x) * kRows;
   const int z = blockIdx.y;
   const int gq = z % sh.G, kh = (z / sh.G) % sh.K, b = z / (sh.G * sh.K);
   const float* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
+  const float* q2b = q2 + b * q2v.b + kh * q2v.h + gq * q2v.g;
   const float* gb = g + b * gv.b + kh * gv.h + gq * gv.g;
   const float* kb = k + b * kv.b + kh * kv.h;
+  const float* k2b = k2 + b * k2v.b + kh * k2v.h;
   const float* vb = v + b * vv.b + kh * vv.h;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qi = i0 + w;
@@ -1634,24 +2169,19 @@ __global__ void __launch_bounds__(kRows * 32)
   const float del_i = qi < S ? delta[zr] : 0.f;
   const int klo = sh.window > 0 ? max(0, i0 - sh.window + 1) : 0;
   const int khi = min(S, i0 + kRows);
-  for (int c = threadIdx.x; c < kRows * D; c += blockDim.x) {
-    const int r = c / D, d = c - r * D;
-    const bool ok = i0 + r < S;
-    Qs[c] = ok ? qb[(long long)(i0 + r) * qv.s + d] : 0.f;
-    Gs[c] = ok ? gb[(long long)(i0 + r) * gv.s + d] : 0.f;
-  }
+  load_rows_f32(Qs, qb, qv.s, i0, kRows, S, D, D, q2b, q2v.s, nd);
+  load_rows_f32(Gs, gb, gv.s, i0, kRows, S, Dv, Dv);
   float acc[kMaxC] = {0.f, 0.f, 0.f, 0.f};
   for (int kt0 = (klo / kT) * kT; kt0 < khi; kt0 += kT) {
     __syncthreads();
-    load_rows_f32(Ks, kb, kv.s, kt0, kT, S, D, SD);
-    load_rows_f32(Vs, vb, vv.s, kt0, kT, S, D, SD);
+    load_rows_f32(Ks, kb, kv.s, kt0, kT, S, D, SD, k2b, k2v.s, nd);
+    load_rows_f32(Vs, vb, vv.s, kt0, kT, S, Dv, SV);
     __syncthreads();
     const int kj = kt0 + lane;
     float s = 0.f, dp = 0.f;
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(Qs[w * D + d], Ks[lane * SD + d], s);
-      dp = fmaf(Gs[w * D + d], Vs[lane * SD + d], dp);
-    }
+    for (int d = 0; d < D; ++d) s = fmaf(Qs[w * D + d], Ks[lane * SD + d], s);
+    for (int d = 0; d < Dv; ++d)
+      dp = fmaf(Gs[w * Dv + d], Vs[lane * SV + d], dp);
     const float p = valid_key(qi, kj, S, sh.window) && kj < S
                         ? expf(s * sh.sc - lse_i)
                         : 0.f;
@@ -1676,20 +2206,23 @@ __global__ void __launch_bounds__(kRows * 32)
 
 __global__ void __launch_bounds__(kRows * 32)
     flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ q2,
                               const float* __restrict__ k,
+                              const float* __restrict__ k2,
                               const float* __restrict__ v,
                               const float* __restrict__ g,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              Shape sh, View qv, View kv, View vv, View gv) {
-  const int D = sh.D, S = sh.S, SD = D + 1;
+                              Shape sh, View qv, View q2v, View kv, View k2v,
+                              View vv, View gv, int nd) {
+  const int D = sh.D, Dv = sh.Dv, S = sh.S, SD = D + 1, SV = Dv + 1;
   extern __shared__ float fsm[];
   float* Ks = fsm;                   // [kRows][D]
-  float* Vs = Ks + kRows * D;        // [kRows][D]
-  float* Qs = Vs + kRows * D;        // [kT][SD]
-  float* Gs = Qs + kT * SD;          // [kT][SD]
-  float* Ls = Gs + kT * SD;          // [kT]
+  float* Vs = Ks + kRows * D;        // [kRows][Dv]
+  float* Qs = Vs + kRows * Dv;       // [kT][SD]
+  float* Gs = Qs + kT * SD;          // [kT][SV]
+  float* Ls = Gs + kT * SV;          // [kT]
   float* Dl = Ls + kT;               // [kT]
   float* Ps = Dl + kT;               // [kRows][kT]
   float* Ss = Ps + kRows * kT;       // [kRows][kT]
@@ -1698,25 +2231,23 @@ __global__ void __launch_bounds__(kRows * 32)
   const int z = blockIdx.y;                 // b * K + kv head
   const int kh = z % sh.K, b = z / sh.K;
   const float* kb = k + b * kv.b + kh * kv.h;
+  const float* k2b = k2 + b * k2v.b + kh * k2v.h;
   const float* vb = v + b * vv.b + kh * vv.h;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kj = j0 + w;
   const int qend = sh.window > 0 ? min(S, j0 + kRows - 1 + sh.window) : S;
-  for (int c = threadIdx.x; c < kRows * D; c += blockDim.x) {
-    const int r = c / D, d = c - r * D;
-    const bool ok = j0 + r < S;
-    Ks[c] = ok ? kb[(long long)(j0 + r) * kv.s + d] : 0.f;
-    Vs[c] = ok ? vb[(long long)(j0 + r) * vv.s + d] : 0.f;
-  }
+  load_rows_f32(Ks, kb, kv.s, j0, kRows, S, D, D, k2b, k2v.s, nd);
+  load_rows_f32(Vs, vb, vv.s, j0, kRows, S, Dv, Dv);
   float ak[kMaxC] = {0.f, 0.f, 0.f, 0.f}, av[kMaxC] = {0.f, 0.f, 0.f, 0.f};
   for (int gq = 0; gq < sh.G; ++gq) {
     const float* qb = q + b * qv.b + kh * qv.h + gq * qv.g;
+    const float* q2b = q2 + b * q2v.b + kh * q2v.h + gq * q2v.g;
     const float* gb = g + b * gv.b + kh * gv.h + gq * gv.g;
     const long long zq = (long long)(z * sh.G + gq) * S;
     for (int qt0 = (j0 / kT) * kT; qt0 < qend; qt0 += kT) {
       __syncthreads();
-      load_rows_f32(Qs, qb, qv.s, qt0, kT, S, D, SD);
-      load_rows_f32(Gs, gb, gv.s, qt0, kT, S, D, SD);
+      load_rows_f32(Qs, qb, qv.s, qt0, kT, S, D, SD, q2b, q2v.s, nd);
+      load_rows_f32(Gs, gb, gv.s, qt0, kT, S, Dv, SV);
       if (threadIdx.x < kT) {
         const int qi = qt0 + threadIdx.x;
         Ls[threadIdx.x] = qi < S ? lse[zq + qi] : 0.f;
@@ -1725,10 +2256,9 @@ __global__ void __launch_bounds__(kRows * 32)
       __syncthreads();
       const int qi = qt0 + lane;
       float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(Qs[lane * SD + d], Ks[w * D + d], s);
-        dp = fmaf(Gs[lane * SD + d], Vs[w * D + d], dp);
-      }
+      for (int d = 0; d < D; ++d) s = fmaf(Qs[lane * SD + d], Ks[w * D + d], s);
+      for (int d = 0; d < Dv; ++d)
+        dp = fmaf(Gs[lane * SV + d], Vs[w * Dv + d], dp);
       const float p = valid_key(qi, kj, S, sh.window) && kj < S
                           ? expf(s * sh.sc - Ls[lane])
                           : 0.f;
@@ -1738,11 +2268,9 @@ __global__ void __launch_bounds__(kRows * 32)
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) {
         const int d = lane + 32 * c;
-        if (d < D) {
-          for (int i = 0; i < kT; ++i) {
-            av[c] = fmaf(Ps[w * kT + i], Gs[i * SD + d], av[c]);
-            ak[c] = fmaf(Ss[w * kT + i], Qs[i * SD + d], ak[c]);
-          }
+        for (int i = 0; i < kT; ++i) {
+          if (d < Dv) av[c] = fmaf(Ps[w * kT + i], Gs[i * SV + d], av[c]);
+          if (d < D) ak[c] = fmaf(Ss[w * kT + i], Qs[i * SD + d], ak[c]);
         }
       }
     }
@@ -1752,10 +2280,8 @@ __global__ void __launch_bounds__(kRows * 32)
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) {
-        dk[zr * D + d] = ak[c] * sh.sc;
-        dv[zr * D + d] = av[c];
-      }
+      if (d < D) dk[zr * D + d] = ak[c] * sh.sc;
+      if (d < Dv) dv[zr * Dv + d] = av[c];
     }
   }
 }
@@ -2014,6 +2540,116 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the f32 backward (FFMA): delta, dq, then dk and dv; q's and k's first
+// nd columns from q and k, the rest from q2 and k2
+int bwd_f32(const void* g, const void* q, const void* q2, const void* k,
+            const void* k2, const void* v, const void* out, const float* lse,
+            float* delta, void* dq, void* dk, void* dv, const Shape& sh,
+            int nd, View qv, View q2v, View kv, View k2v, View vv, View gv,
+            View ov, cudaStream_t stream) {
+  const int D = sh.D, Dv = sh.Dv;
+  const long long rows = (long long)sh.B * sh.K * sh.G * sh.S;
+  const unsigned dblocks = static_cast<unsigned>((rows + 7) / 8);
+  flash_delta_kernel<<<dblocks, 256, 0, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out), delta,
+      sh, gv, ov);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t sdq = (size_t)(kRows * (D + Dv) + kT * (D + 1) +
+                              kT * (Dv + 1) + kRows * kT) * 4;
+  err = allow_smem(flash_bwd_dq_f32_kernel, sdq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((sh.S + kRows - 1) / kRows, sh.B * sh.K * sh.G);
+  flash_bwd_dq_f32_kernel<<<grid, kRows * 32, sdq, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(q2),
+      static_cast<const float*>(k), static_cast<const float*>(k2),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dq), sh, qv, q2v, kv, k2v, vv, gv, nd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t skv = (size_t)(kRows * (D + Dv) + kT * (D + 1) +
+                              kT * (Dv + 1) + 2 * kT + 2 * kRows * kT) * 4;
+  err = allow_smem(flash_bwd_dkdv_f32_kernel, skv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 gk((sh.S + kRows - 1) / kRows, sh.B * sh.K);
+  flash_bwd_dkdv_f32_kernel<<<gk, kRows * 32, skv, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(q2),
+      static_cast<const float*>(k), static_cast<const float*>(k2),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), sh, qv, q2v, kv, k2v,
+      vv, gv, nd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+size_t dq_mla_smem() {
+  return kAlignSlack +
+         2 * kDqQ * static_cast<size_t>(LMq::kRow + LMv::kRow) +
+         kStages * kDqN * static_cast<size_t>(LMq::kRow + 128 + LMv::kRow +
+                                               64 * 4) +
+         kBarBytes;
+}
+size_t dkdv_mla_smem() {
+  return kAlignSlack +
+         kKvN * static_cast<size_t>(LMq::kRow + 128 + LMv::kRow + 64 * 4) +
+         kStages * kKvQ * static_cast<size_t>(LMq::kRow + LMv::kRow + 2 * 4) +
+         kBarBytes;
+}
+
+// MLA's bf16 backward from its parts (the strides of q_nope, q_rope,
+// k_nope, k_rope, v, g and out in `st`): dq with delta, then dk and dv
+int bwd_mla(const void* g, const void* qn, const void* qr, const void* kn,
+            const void* kr, const void* v, const void* out, const float* lse,
+            float* delta, void* dq, void* dk, void* dv, const Shape& sh,
+            int nd, int rd, const long long* st, cudaStream_t stream) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  Shape one = sh;   // k_rope: one head, every head's tiles at head 0
+  one.K = 1;
+  int err = encode(&maps.t[kMq][0], qn, sh, nd, 1, view_of(st), 64,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = encode(&maps.t[kMq][1], qr, sh, rd, 1, view_of(st + 4), 32,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!err)
+    err = encode(&maps.t[kMk][0], kn, sh, nd, 1, view_of(st + 8), 64,
+                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                 4);
+  if (!err)
+    err = encode(&maps.t[kMk][1], kr, one, rd, 1, view_of(st + 12), 32,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!err)
+    err = encode_operand<0>(maps.t[kMv], v, sh, sh.Dv, 1, view_of(st + 16));
+  if (!err)
+    err = encode_operand<0>(maps.t[kMg], g, sh, sh.Dv, 1, view_of(st + 20));
+  if (err) return err;
+  const size_t sdq = dq_mla_smem(), skv = dkdv_mla_smem();
+  err = static_cast<int>(allow_smem(flash_bwd_dq_mla_kernel, sdq));
+  if (!err) err = static_cast<int>(allow_smem(flash_bwd_dkdv_mla_kernel, skv));
+  if (err) return err;
+  MlaBwdArgs a{lse,
+               delta,
+               static_cast<const bf16*>(out),
+               view_of(st + 24),
+               static_cast<bf16*>(dq),
+               static_cast<float*>(dk),
+               static_cast<bf16*>(dv),
+               sh,
+               nd,
+               rd,
+               (sh.S + kDqQ - 1) / kDqQ};
+  int grid = 0;
+  err = grid_for(a.nt * sh.B * sh.K, &grid);
+  if (err) return err;
+  flash_bwd_dq_mla_kernel<<<grid, kThreadsWS, sdq, stream>>>(maps, a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  a.nt = (sh.S + kKvN - 1) / kKvN;
+  err = grid_for(a.nt * sh.B * sh.K, &grid);
+  if (err) return err;
+  flash_bwd_dkdv_mla_kernel<<<grid, kThreadsWS, skv, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k and v of one dtype). `strides` holds 4
@@ -2086,8 +2722,6 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const View gv = view_of(strides + 12), ov = view_of(strides + 16);
-  const long long rows = (long long)B * K * G * S;
-  const unsigned dblocks = static_cast<unsigned>((rows + 7) / 8);
   if (dtype == 1) {
     if (D == 80)
       return bwd_bf16<1, 16>(q, k, v, g, out, l, dl, dq, dk, dv, sh, strides,
@@ -2095,33 +2729,54 @@ extern "C" int flash_bwd_launch(const void* g, const void* q, const void* k,
     return bwd_bf16<2, 0>(q, k, v, g, out, l, dl, dq, dk, dv, sh, strides,
                           st);
   }
-  flash_delta_kernel<<<dblocks, 256, 0, st>>>(
-      static_cast<const float*>(g), static_cast<const float*>(out), dl, sh,
-      gv, ov);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const View qv = view_of(strides), kv = view_of(strides + 4),
-             vv = view_of(strides + 8);
-  const size_t sdq =
-      (size_t)(2 * kRows * D + 2 * kT * (D + 1) + kRows * kT) * 4;
-  err = allow_smem(flash_bwd_dq_f32_kernel, sdq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + kRows - 1) / kRows, B * K * G);
-  flash_bwd_dq_f32_kernel<<<grid, kRows * 32, sdq, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(g), l, dl,
-      static_cast<float*>(dq), sh, qv, kv, vv, gv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t skv =
-      (size_t)(2 * kRows * D + 2 * kT * (D + 1) + 2 * kT + 2 * kRows * kT) * 4;
-  err = allow_smem(flash_bwd_dkdv_f32_kernel, skv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 gk((S + kRows - 1) / kRows, B * K);
-  flash_bwd_dkdv_f32_kernel<<<gk, kRows * 32, skv, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(g), l, dl,
-      static_cast<float*>(dk), static_cast<float*>(dv), sh, qv, kv, vv, gv);
+  return bwd_f32(g, q, q, k, k, v, out, l, dl, dq, dk, dv, sh, D,
+                 view_of(strides), view_of(strides), view_of(strides + 4),
+                 view_of(strides + 4), view_of(strides + 8), gv, ov, st);
+}
+
+// MLA's backward (mla_forward's flash, causal, no window) from its parts:
+// g [B,H,1,S,Dv] the cotangent of out, q_nope [B,H,S,nd], q_rope
+// [B,H,S,rd], k_nope [B,H,S,nd], k_rope [B,1,S,rd] (the one rope key of
+// every head), v [B,H,S,Dv], out [B,H,1,S,Dv] and lse [B,H,1,S] (the
+// forward's) into dq [B,H,S,nd + rd] (q's dtype), dk [B,H,S,nd + rd] (f32,
+// the reference's: its k is f32), dv [B,H,S,Dv] and dk_rope [B,1,S,rd]
+// (k_rope's dtype: dk's rope columns summed over the heads), all dense;
+// delta [B,H,1,S] f32 scratch. `strides` holds the 4 element strides
+// (batch, head, 0, row) of q_nope, q_rope, k_nope, k_rope, v, g and out,
+// in that order. dtype 1: k_nope f32, the rest bf16 (read by TMA: row
+// starts 16-byte aligned), nd <= 64, rd <= 32, Dv <= 64: the wgmma
+// kernels, which split k_nope into bf16 hi and lo on its way from a
+// staging slot into the key tiles; dtype 0: all f32, the FFMA kernels.
+// Three launches in bf16 (dq with delta, dk / dv, the head sum), four in
+// f32 (delta first). Returns as flash_bwd_launch.
+extern "C" int flash_bwd_mla_launch(
+    const void* g, const void* q_nope, const void* q_rope,
+    const void* k_nope, const void* k_rope, const void* v, const void* out,
+    const void* lse, void* delta, void* dq, void* dk, void* dv,
+    void* dk_rope, int B, int H, int S, int nd, int rd, int Dv, float sc,
+    int dtype, const long long* strides, void* stream) {
+  const Shape sh{B, H, 1, S, nd + rd, Dv, 0, sc, sc * kLog2e};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  int err;
+  if (dtype == 1) {
+    if (nd > 64 || rd > 32 || Dv > 64)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = bwd_mla(g, q_nope, q_rope, k_nope, k_rope, v, out, l, dl, dq, dk,
+                  dv, sh, nd, rd, strides, st);
+  } else {
+    err = bwd_f32(g, q_nope, q_rope, k_nope, k_rope, v, out, l, dl, dq, dk,
+                  dv, sh, nd, view_of(strides), view_of(strides + 4),
+                  view_of(strides + 8), view_of(strides + 12),
+                  view_of(strides + 16), view_of(strides + 20),
+                  view_of(strides + 24), st);
+  }
+  if (err) return err;
+  const long long n = (long long)B * S * rd;
+  flash_rope_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                          st>>>(static_cast<const float*>(dk), dk_rope, B, H,
+                                S, nd + rd, nd, rd, dtype);
   return static_cast<int>(cudaGetLastError());
 }
 

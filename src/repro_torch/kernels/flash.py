@@ -1,6 +1,7 @@
 """Flash attention of the dense family (the forward and the custom VJP's
-backward) and MLA's forward (Dq != Dv, f32 keys, q and k read from their
-nope and rope parts): the hand-written CUDA kernels' binding.
+backward) and MLA's (Dq != Dv, f32 keys, q and k read from their nope
+and rope parts, forward and backward): the hand-written CUDA kernels'
+binding.
 
 The kernel source is `repro_torch/csrc/flash_attn.cu`; its head comment
 says which function of the JAX package it replaces, what bounds it and
@@ -8,8 +9,9 @@ how it is laid out. This module reads each operand through its strides
 (`operand_strides`), binds the library (built at first use by
 :mod:`repro_torch.kernels.build`) and launches it. Call it through
 :func:`repro_torch.kernels.ops.flash_fwd`,
-:func:`repro_torch.kernels.ops.flash_fwd_mla` and
-:func:`repro_torch.kernels.ops.flash_bwd`, which check the inputs, take
+:func:`repro_torch.kernels.ops.flash_fwd_mla`,
+:func:`repro_torch.kernels.ops.flash_bwd` and
+:func:`repro_torch.kernels.ops.flash_bwd_mla`, which check the inputs, take
 the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ MAX_HEADS = 65535              # B * K * G: the f32 kernels' grid y
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_STRIDES = ctypes.c_longlong * 20
+_STRIDES = ctypes.c_longlong * 28   # 4 a view, 7 views at most
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,6 +53,9 @@ def _lib() -> ctypes.CDLL:
                                          _P, _I, _I, _I, _I, _I, _I, _F, _I,
                                          _P, _P]
         lib.flash_bwd_launch.restype = _I
+        lib.flash_bwd_mla_launch.argtypes = [_P] * 13 + [_I] * 6 + [
+            _F, _I, _P, _P]
+        lib.flash_bwd_mla_launch.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -64,8 +69,8 @@ def check_dims(Dq: int, Dv: int,
     (`parts` = (nd, rd), Dq = nd + rd), nope columns nd at most 64 (one
     region, where the kernel splits the f32 keys), rope columns rd at
     most 32 (the tail) and Dv at most 64 (the shared memory of q, the
-    keys' hi, lo and rope tiles and v), each a positive multiple of 8.
-    The plain versions take any."""
+    keys' hi, lo and rope tiles and v), each a positive multiple of 8,
+    forward and backward alike. The plain versions take any."""
     if parts is None:
         for name, d in (("Dq", Dq), ("Dv", Dv)):
             if d % D_STEP or not 0 < d <= D_MAX:
@@ -111,7 +116,7 @@ def _check(err: int, what: str) -> None:
 
 def _strides(*views) -> "ctypes.Array":
     return _STRIDES(*[s for v in views for s in v],
-                    *([0] * (20 - 4 * len(views))))
+                    *([0] * (len(_STRIDES()) - 4 * len(views))))
 
 
 def launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,3 +177,31 @@ def launch_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                       S, D, window, D ** -0.5, DTYPES[q.dtype],
                       ctypes.addressof(strides)),
            "flash_bwd")
+
+
+def launch_bwd_mla(g: torch.Tensor, q_nope: torch.Tensor,
+                   q_rope: torch.Tensor, k_nope: torch.Tensor,
+                   k_rope: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   lse: torch.Tensor, delta: torch.Tensor, dq: torch.Tensor,
+                   dk: torch.Tensor, dv: torch.Tensor, dk_rope: torch.Tensor,
+                   views) -> None:
+    """MLA's backward from its parts on the current stream of q_nope's
+    device: dq [B,H,S,nd + rd] (q's dtype), dk [B,H,S,nd + rd] (f32), dv
+    [B,H,S,Dv] and dk_rope [B,1,S,rd] (dk's rope columns summed over the
+    heads, k_rope's dtype), all dense, given the cotangent g of out;
+    `delta` [B,H,1,S] f32 scratch. bf16 q, k_rope, v, g and out beside
+    f32 k_nope (split into bf16 hi and lo inside the kernels), or all
+    f32. Inputs are checked by the caller (`views`: the parts', g's and
+    out's :func:`operand_strides`, k_nope's read by TMA in bf16 runs)."""
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    strides = _strides(*views)
+    _check(_on_device(q_nope.device, _lib().flash_bwd_mla_launch,
+                      g.data_ptr(), q_nope.data_ptr(), q_rope.data_ptr(),
+                      k_nope.data_ptr(), k_rope.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                      dk_rope.data_ptr(), B, H, S, nd, rd, Dv,
+                      (nd + rd) ** -0.5, DTYPES[q_nope.dtype],
+                      ctypes.addressof(strides)),
+           "flash_bwd (mla)")

@@ -48,8 +48,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import waterfill as _wf
 from repro_torch.kernels.ref import (dequantize_groups_add_ref,
                                      dequantize_groups_ref, dequantize_ref,
-                                     fill_rates_ref, flash_bwd_ref,
-                                     flash_fwd_mla_ref, flash_fwd_ref,
+                                     fill_rates_ref, flash_bwd_mla_ref,
+                                     flash_bwd_ref, flash_fwd_mla_ref,
+                                     flash_fwd_ref,
                                      moe_combine_bwd_ref,
                                      moe_combine_ref, moe_dispatch_bwd_ref,
                                      moe_dispatch_gather_ref,
@@ -812,12 +813,13 @@ def _check_flash(q, k, v, window: int, backward: bool = False,
                  **more) -> None:
     """q [B,K,G,S,Dq], k [B,K,S,Dq] and v [B,K,S,Dv] of one dtype (f32
     or bf16), or on the CPU the MLA form: q and v bf16, k f32 (the card
-    takes MLA through :func:`flash_fwd_mla`, from its parts); one device
-    (cuda or cpu); Sq == Sk, window >= 0; on the card each head dim a
-    multiple of 16 up to 128 (`flash.check_dims`; the plain versions take
-    any). `more` (g, out: q's shape with Dv columns, q's dtype; lse: f32
-    [B,K,G,S]) alike. The backward (`backward`) takes Dq == Dv and one
-    dtype: MLA's is not ported yet."""
+    takes MLA through :func:`flash_fwd_mla` and :func:`flash_bwd_mla`,
+    from its parts); one device (cuda or cpu); Sq == Sk, window >= 0; on
+    the card each head dim a multiple of 16 up to 128
+    (`flash.check_dims`; the plain versions take any), and the backward
+    (`backward`) Dq == Dv there: its bf16 kernels lay every operand out
+    alike. `more` (g, out: q's shape with Dv columns, q's dtype; lse:
+    f32 [B,K,G,S]) alike."""
     tensors = dict(q=q, k=k, v=v, **more)
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -845,20 +847,20 @@ def _check_flash(q, k, v, window: int, backward: bool = False,
         raise ValueError(f"k must be {(B, K, S, D)} and v {(B, K, S)} + "
                          f"(Dv,) (Sq == Sk, k's head dim q's); got "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if backward and (k.dtype != q.dtype or D != Dv):
-        raise ValueError(
-            f"flash_bwd takes Dq == Dv and one dtype for q, k and v; the MLA "
-            f"form (here Dq {D}, Dv {Dv}, k {k.dtype} beside q {q.dtype}) is "
-            f"not yet ported: its backward comes with MLA's training")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.is_cuda:
         if k.dtype != q.dtype:
             raise ValueError(
                 "f32 keys beside a bf16 q: the card runs MLA's form from "
-                "its parts, through flash_fwd_mla (q_nope, q_rope, k_nope, "
-                "k_rope, v)")
+                "its parts, through flash_fwd_mla and flash_bwd_mla "
+                "(q_nope, q_rope, k_nope, k_rope, v)")
         _flash.check_dims(D, Dv)
+        if backward and D != Dv:
+            raise ValueError(
+                f"flash_bwd on the card takes Dq == Dv (here {D}, {Dv}); "
+                f"MLA's backward runs from its parts, through "
+                f"flash_bwd_mla")
         if B * K * G > _flash.MAX_HEADS:
             raise ValueError(f"B*K*G = {B * K * G} query heads: the "
                              f"kernels' grid takes at most "
@@ -922,26 +924,29 @@ flash_fwd.launches = 0
 flash_fwd.copies = 0       # operands copied dense before a launch (all)
 
 
-def _check_mla(q_nope, q_rope, k_nope, k_rope, v) -> None:
+def _check_mla(q_nope, q_rope, k_nope, k_rope, v, **more) -> None:
     """q_nope [B,H,S,nd], q_rope [B,H,S,rd], k_nope [B,H,S,nd] f32,
     k_rope [B,1,S,rd] and v [B,H,S,Dv], all but k_nope of one dtype (bf16
     or f32); one device (cuda or cpu); on the card `flash.check_dims`'
     rule for the parts (nd <= 64, rd <= 32, Dv <= 64, multiples of 8).
-    None may need a gradient: MLA's backward is not ported."""
+    `more` (the backward's g and out [B,H,1,S,Dv] in q's dtype, lse
+    [B,H,1,S] f32) alike."""
     parts = dict(q_nope=q_nope, q_rope=q_rope, k_nope=k_nope,
-                 k_rope=k_rope, v=v)
+                 k_rope=k_rope, v=v, **more)
     for name, t in parts.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+        ndim = 5 if name in ("g", "out") else 4
+        if t.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-d, got "
+                             f"{tuple(t.shape)}")
     dt, dev = q_nope.dtype, q_nope.device
     if dt not in _flash.DTYPES:
         raise TypeError(f"q_nope must be float32 or bfloat16, got {dt}")
     if not (q_nope.is_cuda or q_nope.is_cpu):
         raise ValueError(f"flash attention runs on cuda or cpu, not {dev}")
     for name, t in parts.items():
-        want = torch.float32 if name == "k_nope" else dt
+        want = torch.float32 if name in ("k_nope", "lse") else dt
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q_nope on {dev}")
         if t.dtype != want:
@@ -949,16 +954,13 @@ def _check_mla(q_nope, q_rope, k_nope, k_rope, v) -> None:
     B, H, S, nd = q_nope.shape
     rd, Dv = q_rope.shape[3], v.shape[3]
     want = dict(q_rope=(B, H, S, rd), k_nope=(B, H, S, nd),
-                k_rope=(B, 1, S, rd), v=(B, H, S, Dv))
-    for name, shape in want.items():
-        if tuple(parts[name].shape) != shape:
-            raise ValueError(f"{name} must be {shape} (q_nope "
+                k_rope=(B, 1, S, rd), v=(B, H, S, Dv),
+                g=(B, H, 1, S, Dv), out=(B, H, 1, S, Dv), lse=(B, H, 1, S))
+    for name in parts:
+        if name != "q_nope" and tuple(parts[name].shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]} (q_nope "
                              f"{tuple(q_nope.shape)}), got "
                              f"{tuple(parts[name].shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in parts.values()):
-        raise ValueError("flash_fwd_mla has no gradient: MLA's backward "
-                         "(Dv != Dq, dk in f32) comes with MLA's training")
     if q_nope.is_cuda:
         _flash.check_dims(nd + rd, Dv, (nd, rd))
         if B * H > _flash.MAX_HEADS:
@@ -991,7 +993,8 @@ def flash_fwd_mla(q_nope: torch.Tensor, q_rope: torch.Tensor,
     form), its copies in `flash_fwd.copies`. CPU tensors go to
     :func:`repro_torch.kernels.ref.flash_fwd_mla_ref`: the reference's
     concatenations, then :func:`flash_fwd_ref` over key blocks of
-    `block_k`."""
+    `block_k`. Its gradient is :func:`flash_bwd_mla`'s
+    (`attention._FlashMla`)."""
     _check_mla(q_nope, q_rope, k_nope, k_rope, v)
     if q_nope.is_cpu:
         return flash_fwd_mla_ref(q_nope, q_rope, k_nope, k_rope, v, block_k)
@@ -1018,10 +1021,12 @@ def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     recomputed from the saved lse and kept in f32.
 
     CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu: dq
-    with delta, and dk / dv, counted as one launch); CPU tensors to
-    :func:`repro_torch.kernels.ref.flash_bwd_ref`. Both take Dq == Dv
-    and one dtype: the MLA form of :func:`flash_fwd` raises on either
-    device (its backward comes with MLA's training)."""
+    with delta, and dk / dv, counted as one launch), which take Dq == Dv
+    and one dtype (MLA's backward runs from its parts, through
+    :func:`flash_bwd_mla`); CPU tensors to
+    :func:`repro_torch.kernels.ref.flash_bwd_ref`, which also takes the
+    concatenated MLA form (Dq != Dv, k f32 beside a bf16 q and v: dk in
+    f32, as the reference's)."""
     _check_flash(q, k, v, window, backward=True, g=g, out=out, lse=lse)
     if q.is_cpu:
         return flash_bwd_ref(g, q, k, v, out, lse, window, block_k)
@@ -1039,6 +1044,51 @@ def flash_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 
 
 flash_bwd.launches = 0
+
+
+def flash_bwd_mla(g: torch.Tensor, q_nope: torch.Tensor,
+                  q_rope: torch.Tensor, k_nope: torch.Tensor,
+                  k_rope: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, block_k: int = 512):
+    """The backward of :func:`flash_fwd_mla` (the reference's custom VJP
+    on its concatenations, then the concatenations' transposes) given
+    the cotangent g [B,H,1,S,Dv] of out and the forward's out and lse:
+    (dq_nope [B,H,S,nd], dq_rope [B,H,S,rd] in q's dtype, dk_nope
+    [B,H,S,nd] in f32, dk_rope [B,1,S,rd] in k_rope's dtype, dv
+    [B,H,S,Dv] in v's dtype). dq is rounded once and sliced; dk stays f32
+    (the reference's keys are f32); dk_rope is dk's rope columns summed
+    over the heads as the reference's broadcast's transpose sums them
+    (`ref.rope_head_sum`: in the key's dtype, windows of 32 heads). The
+    dq and dk parts are views of one dense [.., nd + rd] tensor each.
+
+    CUDA tensors go to the hand-written kernels (csrc/flash_attn.cu: in
+    bf16 dq with delta, then dk and dv, each splitting the f32 k_nope
+    tiles into bf16 hi and lo in shared memory, then the heads' sum; in
+    f32 the FFMA kernels), counted as one launch in `flash_bwd.launches`,
+    copies in `flash_fwd.copies`; CPU tensors to
+    :func:`repro_torch.kernels.ref.flash_bwd_mla_ref`."""
+    _check_mla(q_nope, q_rope, k_nope, k_rope, v, g=g, out=out, lse=lse)
+    if q_nope.is_cpu:
+        return flash_bwd_mla_ref(g, q_nope, q_rope, k_nope, k_rope, v, out,
+                                 lse, block_k)
+    B, H, S, nd = q_nope.shape
+    rd, Dv = q_rope.shape[3], v.shape[3]
+    lse = lse.contiguous()
+    parts, views = _flash_views(
+        q_nope, q_rope, k_nope, k_rope, v, g, out,
+        tma=(2,) if q_nope.dtype == torch.bfloat16 else ())
+    dev = q_nope.device
+    dq = torch.empty((B, H, S, nd + rd), dtype=q_nope.dtype, device=dev)
+    dk = torch.empty((B, H, S, nd + rd), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, H, S, Dv), dtype=v.dtype, device=dev)
+    dk_rope = torch.empty((B, 1, S, rd), dtype=k_rope.dtype, device=dev)
+    delta = torch.empty((B, H, 1, S), dtype=torch.float32, device=dev)
+    if dq.numel():
+        q_nope, q_rope, k_nope, k_rope, v, g, out = parts
+        _flash.launch_bwd_mla(g, q_nope, q_rope, k_nope, k_rope, v, out, lse,
+                              delta, dq, dk, dv, dk_rope, views)
+        flash_bwd.launches += 1
+    return dq[..., :nd], dq[..., nd:], dk[..., :nd], dk_rope, dv
 
 
 # ----------------------------------------------------------------------

@@ -459,6 +459,40 @@ def flash_bwd_ref(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def rope_head_sum(dk_rope: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of MLA's one rope key from each head's: dk_rope
+    [B,H,S,rd] (f32) -> [B,1,S,rd] in `dtype`. The reference's
+    concatenation promotes the broadcast rope key to f32, so its
+    transpose converts each head's cotangent to the key's dtype and then
+    sums over the heads in that dtype, which XLA's CPU program does as
+    :func:`gate_window_sum` (windows of 32 heads, every add rounded in
+    bf16)."""
+    t = dk_rope.to(dtype).permute(0, 2, 3, 1)                # [B,S,rd,H]
+    return gate_window_sum(t).to(dtype)[:, None]
+
+
+def flash_bwd_mla_ref(g: torch.Tensor, q_nope: torch.Tensor,
+                      q_rope: torch.Tensor, k_nope: torch.Tensor,
+                      k_rope: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, block_k: int):
+    """MLA's flash backward from its parts: :func:`flash_bwd_ref` on the
+    reference's concatenations (:func:`flash_fwd_mla_ref`'s), then the
+    concatenations' transposes -> (dq_nope, dq_rope in q's dtype, dk_nope
+    f32, dk_rope [B,1,S,rd] in k_rope's dtype, dv in v's dtype). dq is
+    cast once and sliced; dk stays f32 (the reference's k is), its nope
+    columns are k_nope's gradient and its rope columns summed over the
+    heads (:func:`rope_head_sum`) the rope key's."""
+    B, H, S, nd = q_nope.shape
+    rd = q_rope.shape[3]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope.float(),
+                   k_rope.float().expand(B, H, S, rd)], dim=-1)
+    dq, dk, dv = flash_bwd_ref(g, q[:, :, None], k, v, out, lse, 0, block_k)
+    dq = dq[:, :, 0]
+    return (dq[..., :nd], dq[..., nd:], dk[..., :nd],
+            rope_head_sum(dk[..., nd:], k_rope.dtype), dv)
+
+
 # ----------------------------------------------------------------------
 # MoE slots, dispatch and combine (the reference's one-hot cumulative
 # count, k sequential scatters and k gathers, src/repro/models/moe.py)

@@ -34,7 +34,7 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.core.predictor import BwPredictor
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import check_train
+from repro_torch.models.transformer import check_family
 from repro_torch.train.loop import LoopConfig, Trainer
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.wan.dataset import train_default_forest
@@ -68,7 +68,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    check_train(cfg)
+    check_family(cfg)
     dev = resolve_device(args.device)
     dcfg = DataConfig(batch=args.batch, seq=args.seq, vocab=cfg.vocab,
                       n_pods=max(args.pods, 1), skew=args.skew,

@@ -7,10 +7,11 @@ over MLA's latent cache.
 Port of `repro/models/attention.py`. The reference runs these as jit programs; its comment
 names a Pallas kernel as the TPU's production path of flash attention.
 Here flash's forward and its custom VJP's backward are hand-written CUDA
-kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, and MLA's
-forward from its parts, `ops.flash_fwd_mla`; `csrc/flash_attn.cu`) and
-their plain versions on the host (`kernels/ref.py::flash_fwd_ref` /
-`flash_bwd_ref` / `flash_fwd_mla_ref`, in the reference's block order); the
+kernels on the card (`ops.flash_fwd` / `ops.flash_bwd`, and MLA's from
+its parts, `ops.flash_fwd_mla` / `ops.flash_bwd_mla`; `csrc/flash_attn.cu`)
+and their plain versions on the host (`kernels/ref.py::flash_fwd_ref` /
+`flash_bwd_ref` / `flash_fwd_mla_ref` / `flash_bwd_mla_ref`, in the
+reference's block order); the
 banded and decode paths are plain torch on both devices. All keep the
 reference's roundings:
 
@@ -106,6 +107,28 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _FlashMla(torch.autograd.Function):
+    """MLA's flash attention from its parts, with the reference's custom
+    VJP on its concatenations: the forward saves the parts, out and lse,
+    the backward (`ops.flash_bwd_mla`) gives each part its cotangent
+    (dk_nope in f32, dk_rope summed over the heads)."""
+
+    @staticmethod
+    def forward(ctx, q_nope, q_rope, k_nope, k_rope, v, block_k: int):
+        out, lse = ops.flash_fwd_mla(q_nope, q_rope, k_nope, k_rope, v,
+                                     block_k)
+        ctx.save_for_backward(q_nope, q_rope, k_nope, k_rope, v, out, lse)
+        ctx.block_k = block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_nope, q_rope, k_nope, k_rope, v, out, lse = ctx.saved_tensors
+        grads = ops.flash_bwd_mla(g, q_nope, q_rope, k_nope, k_rope, v, out,
+                                  lse, ctx.block_k)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0, block_k: int = FLASH_BLOCK
                     ) -> torch.Tensor:
@@ -122,9 +145,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version's key block (the kernel states its own tile). Under autograd
     its gradient is the reference's custom VJP (`_Flash`), which
     recomputes each block's probabilities from the saved log-sum-exp;
-    its kernel takes Dq == Dv and one dtype, so MLA does not train yet.
-    The reference's `causal=False` and `q_offset` come with the family
-    that passes them (enc-dec)."""
+    on the CPU it takes the concatenated MLA form too (dk in f32), on
+    the card the dense form (Dq == Dv, one dtype): MLA trains from its
+    parts (`_FlashMla`). The reference's `causal=False` and `q_offset`
+    come with the family that passes them (enc-dec)."""
     return _Flash.apply(q, k, v, window, block_k)
 
 
@@ -439,8 +463,10 @@ def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     they are (`ops.flash_fwd_mla`): q_nope a view of the projection,
     the one rope key [B,1,S,rope] of every head; nothing is
     concatenated or cast for it (its plain version concatenates as the
-    reference does). MLA does not train yet: flash_fwd_mla has no
-    gradient."""
+    reference does). Under autograd the gradient is the reference's
+    (`_FlashMla`, `ops.flash_bwd_mla`): each part's cotangent, k_nope's
+    in f32 into its f32 product of the unrounded c_kv, the rope key's
+    summed over the heads."""
     H, R, nd, rd, vd = _mla_dims(cfg)
     B, S, _ = x.shape
     q_nope, q_rope = mla_q(p, x, cfg, positions)
@@ -451,7 +477,7 @@ def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
         B, S, H, nd).transpose(1, 2)
     v = (c32.to(x.dtype) @ wkv_b[..., nd:].reshape(R, H * vd)).view(
         B, S, H, vd).transpose(1, 2)
-    o, _ = ops.flash_fwd_mla(q_nope, q_rope, k_nope, k_rope, v, FLASH_BLOCK)
+    o = _FlashMla.apply(q_nope, q_rope, k_nope, k_rope, v, FLASH_BLOCK)
     o = o[:, :, 0].transpose(1, 2).reshape(B, S, H * vd)
     return o @ p["wo"]
 

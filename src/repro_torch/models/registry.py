@@ -1,8 +1,7 @@
 """Family dispatch, as `repro/models/registry.py`, for the families the
-port runs, each of which serves and trains: `ssm`, `dense` and `hybrid`
-without MoE, and `moe` without MLA or leading dense layers; the others
-raise "not yet ported". The `dense` family's MLA (`minicpm3-4b`) serves;
-its training raises "not yet ported" (`loss_fn`).
+port runs, each of which serves and trains: `ssm`, `dense` (MLA,
+`minicpm3-4b`, included) and `hybrid` without MoE, and `moe` without MLA
+or leading dense layers; the others raise "not yet ported".
 
   build_model(cfg, generator, device)          -> MambaLM | DenseLM |
                                                   HybridLM | MoeLM
@@ -55,9 +54,10 @@ def loss_fn(cfg: ModelConfig, remat: str = "full") -> Callable:
     :func:`repro_torch.models.transformer.lm_loss` with `remat` ("none",
     "full" or "dots"). The `ssm`, `dense`, `hybrid` and `moe` families
     train (the hybrid's shared block's gradient summed over its
-    applications; the MoE's loss carries AUX_LOSS_COEF x its aux loss);
-    the others, and MLA (which serves), raise "not yet ported"."""
-    transformer.check_train(cfg)
+    applications; the MoE's loss carries AUX_LOSS_COEF x its aux loss;
+    the dense family's MLA through its flash backward from MLA's parts);
+    the others raise "not yet ported"."""
+    transformer.check_family(cfg)
     if remat not in transformer.REMAT_MODES:
         raise ValueError(f"unknown remat '{remat}'; one of "
                          f"{transformer.REMAT_MODES}")

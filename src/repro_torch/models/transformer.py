@@ -8,10 +8,9 @@ with a KV cache of its own at each application) and the `moe` family
 Port of the `ssm`, `dense`, `hybrid` and `moe` paths of
 `repro/models/transformer.py`. The reference stacks the layers' leaves
 ([L, ...]) and scans them; here `MambaLM`, `DenseLM`, `HybridLM` and
-`MoeLM` hold one module per layer. MoE with MLA and MoE's leading
-dense layers (DeepSeek's prologue) raise "not yet ported"
-(`check_family`); MLA serves, and its training raises
-(`check_train`).
+`MoeLM` hold one module per layer. MoE with MLA, MoE's leading dense
+layers (DeepSeek's prologue) and MLA in the hybrid family raise "not yet
+ported" (`check_family`); the dense family's MLA serves and trains.
 
 The reference casts every parameter leaf with ndim >= 2 to the compute
 dtype (`_cast_params`). Its per-layer vectors are stacked [L, ·], so
@@ -28,7 +27,7 @@ is taken in bf16, `dt * a` (f32 times bf16) promotes to f32 as jnp
 promotes it, and `D` is upcast to f32 before it scales xh, as the
 reference upcasts it (`ssm.ssm_forward`).
 
-All four families train (`lm_loss`; MLA not yet) on a per-layer
+All four families train (`lm_loss`; the dense family's MLA too) on a per-layer
 parameter tree: the module's own parameters (`param_tree(model)`), or
 the views of the reference's stacked layout that the train step holds
 (`stack_layers` / `layer_views`, also the checkpoints' layout). The hybrid's shared block
@@ -75,7 +74,8 @@ def check_family(cfg: ModelConfig) -> None:
     family, the `dense` family (MLA included) and the `hybrid` family
     without MoE, and MoE without MLA or leading dense layers (family
     `moe`, or `dense` with experts: the reference builds MoE blocks for
-    either). :func:`check_train` gates training."""
+    either). Every family it runs also trains, the dense family's MLA
+    included."""
     if cfg.family == "ssm" or (cfg.family in ("dense", "hybrid") and
                                not cfg.is_moe and
                                not (cfg.is_mla and cfg.family == "hybrid")):
@@ -91,18 +91,6 @@ def check_family(cfg: ModelConfig) -> None:
         f"ported; the port runs the 'ssm' family, the 'dense' family "
         f"(MLA included) and the 'hybrid' family without MoE, and MoE "
         f"without MLA or leading dense layers")
-
-
-def check_train(cfg: ModelConfig) -> None:
-    """:func:`check_family`, and raise for MLA, which serves but does
-    not train yet: its flash backward (Dv != Dq, an f32 dk for the f32
-    keys) is not ported."""
-    check_family(cfg)
-    if cfg.is_mla:
-        raise NotImplementedError(
-            f"training MLA ({cfg.arch_id}) is not yet ported: the port "
-            f"serves it; its flash backward (Dv != Dq, and dk in f32 for "
-            f"the f32 keys) comes with MLA's training")
 
 
 def shared_flags(cfg: ModelConfig) -> List[bool]:
@@ -678,7 +666,7 @@ def lm_backbone(pc: Dict[str, Any], x: torch.Tensor,
     "full" its application is recomputed in the backward, under "dots"
     its products are saved. Its parameters enter each region as an
     argument, so their gradients meet at the one cast tensor."""
-    check_train(cfg)
+    check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     load = torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
                        device=x.device)
@@ -714,7 +702,7 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     integer tensors. Returns (loss, {ce, aux, expert_load}); aux and
     expert_load are the MoE layers' sums (zeros for the other
     families)."""
-    check_train(cfg)
+    check_family(cfg)
     pc = cast_params(params, torch_dtype(cfg.dtype))
     x = pc["embed"][batch["tokens"]]
     positions = torch.arange(x.shape[1], device=x.device)

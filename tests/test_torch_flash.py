@@ -136,9 +136,11 @@ BAD = {
 # wrappers on the CPU, take any head dim (MLA's reduced config has Dq =
 # 24, Dv = 16)
 CARD_ONLY = {"d_not_multiple_of_16", "d_above_128"}
-# Dq != Dv: the forward takes it on either device (MLA); the backward
-# refuses it
-FWD_TAKES = {"dq_not_dv"}
+# Dq != Dv: the forward takes it on either device (MLA); the backward's
+# plain version takes it too (MLA's concatenated form on the CPU), the
+# card's kernels refuse it (MLA trains from its parts there,
+# `ops.flash_bwd_mla`; tests/test_torch_mla_train.py holds the refusal)
+CPU_TAKES = {"dq_not_dv"}
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
@@ -157,11 +159,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, which):
         want = flash_fwd_ref(q, k, v, window, 512) if which == "fwd" else \
             flash_bwd_ref(q, q, k, v, q, lse, window, 512)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    elif case in FWD_TAKES and which == "fwd":
+    elif case in CPU_TAKES:
         out, lse = ops.flash_fwd(q, k, v, window)
         want, want_lse = flash_fwd_ref(q, k, v, window, 512)
         assert out.shape == v.shape[:2] + q.shape[2:4] + v.shape[3:]
         assert torch.equal(out, want) and torch.equal(lse, want_lse)
+        if which == "bwd":
+            got = ops.flash_bwd(out, q, k, v, out, lse, window)
+            want = flash_bwd_ref(out, q, k, v, out, lse, window, 512)
+            assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
     else:
         with pytest.raises(err, match=msg):
             if which == "fwd":

@@ -379,7 +379,7 @@ def test_model_side_gates_not_yet_ported():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.decode_fn(cfg)
     registry.prefill_fn(dense, 8)                 # the dense family builds
-    # dense MLA builds, prefills and decodes (its training is gated below)
+    # dense MLA builds, prefills, decodes and trains (below)
     model = registry.build_model(mla, torch.Generator(), device="cpu")
     toks = torch.ones((1, 4), dtype=torch.long)
     _, cache = registry.prefill_fn(mla, 8)(model, toks)
@@ -394,7 +394,8 @@ def test_model_side_gates_not_yet_ported():
     assert logits.shape == (1, hybrid.vocab)
     assert len(cache["blocks"]) == 4 and len(cache["shared_attn"]) == 2
     # the MoE family without a prologue builds, prefills, decodes and
-    # trains; with one (and MLA) it still raises at the loss
+    # trains, as dense MLA does; MoE with a prologue or with MLA still
+    # raises at the loss
     moe = reduced(get_config("granite-moe-1b-a400m"))
     model = registry.build_model(moe, torch.Generator(), device="cpu")
     _, cache = registry.prefill_fn(moe, 8)(model, toks)
@@ -403,7 +404,11 @@ def test_model_side_gates_not_yet_ported():
     loss, metrics = registry.loss_fn(moe)(
         transformer.param_tree(model), {"tokens": toks, "targets": toks})
     assert torch.isfinite(loss) and metrics["expert_load"].shape == (4,)
-    for cfg in (_moe_cfg(), mla, moe_mla):
+    model = registry.build_model(mla, torch.Generator(), device="cpu")
+    loss, _ = registry.loss_fn(mla)(transformer.param_tree(model),
+                                    {"tokens": toks, "targets": toks})
+    assert torch.isfinite(loss)
+    for cfg in (_moe_cfg(), moe_mla):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             registry.loss_fn(cfg)
 

@@ -493,9 +493,10 @@ def test_flash_fwd_mla_ref_is_the_concatenation(ref, case, dtype):
 
 
 def test_flash_fwd_mla_refuses_what_it_does_not_take():
-    """The parts' checks on the CPU: shapes (k_rope one head), dtypes
-    (k_nope f32, the rest q's), and no gradient (MLA's backward is not
-    ported)."""
+    """The parts' checks on the CPU: shapes (k_rope one head) and dtypes
+    (k_nope f32, the rest q's); parts that need a gradient train through
+    MLA's custom VJP (`attention._FlashMla`), each part's gradient
+    `ops.flash_bwd_mla`'s, in the part's dtype."""
     parts = list(_mla_parts(np.random.default_rng(0), 1, 2, 8, 32, 16, 32,
                             "bfloat16"))
     ops.flash_fwd_mla(*parts)
@@ -508,31 +509,72 @@ def test_flash_fwd_mla_refuses_what_it_does_not_take():
         with pytest.raises((ValueError, TypeError), match=msg):
             ops.flash_fwd_mla(*parts[:i], t, *parts[i + 1:])
     grad = [t.float().requires_grad_() for t in parts]
-    with pytest.raises(ValueError, match="MLA's training"):
-        ops.flash_fwd_mla(*grad)
+    out = att._FlashMla.apply(*grad, 512)
+    g = torch.ones_like(out)
+    out.backward(g)
+    o, lse = ops.flash_fwd_mla(*[t.detach() for t in grad])
+    want = ops.flash_bwd_mla(g, *[t.detach() for t in grad], o, lse)
+    for t, w in zip(grad, want):
+        assert t.grad.dtype == t.dtype and torch.equal(t.grad, w)
     with torch.no_grad():
         ops.flash_fwd_mla(*grad)
 
 
-def test_flash_bwd_refuses_the_mla_form():
-    """The backward takes Dq == Dv and one dtype, on the CPU as on the
-    card: MLA's comes with its training."""
-    q = torch.zeros((1, 2, 1, 8, 48), dtype=torch.bfloat16)
-    k = torch.zeros((1, 2, 8, 48))
-    v = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)
-    out, lse = ops.flash_fwd(q, k, v)
-    for kk, vv, oo in ((k, v, out), (k, q[:, :, 0], q),
-                       (k.bfloat16(), v, out)):
-        with pytest.raises(ValueError, match="MLA's training"):
-            ops.flash_bwd(oo, q, kk, vv, oo, lse)
+def _ref_flash_vjp(ref, q, k, v, g):
+    """jax.vjp of the reference's `flash_attention` at the tensors'
+    dtypes (causal, Dq ** -0.5, blocks of 512)."""
+    jnp = ref.jnp
+
+    def j(t):
+        return jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+    return ref.jax.vjp(lambda a, b, c: ref.att.flash_attention(
+        a, b, c, causal=True), j(q), j(k), j(v))[1](j(g))
 
 
-def test_flash_attention_under_autograd_refuses_mla():
-    q = torch.zeros((1, 1, 1, 8, 48), requires_grad=True)
-    k, v = torch.zeros((1, 1, 8, 48)), torch.zeros((1, 1, 8, 32))
-    o = att.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="MLA's training"):
-        o.sum().backward()
+def test_flash_bwd_refuses_the_mla_form(ref):
+    """The backward's plain version takes the concatenated MLA form on
+    the CPU (the card runs it from MLA's parts, `ops.flash_bwd_mla`):
+    f32 keys beside bf16 q and v, Dq != Dv, and the one-dtype Dq != Dv
+    form, each giving the reference's gradients (dk in k's dtype, f32
+    for f32 keys; bf16 within one bf16 step of each output's max, f32
+    within 1e-4 of it)."""
+    rng = np.random.default_rng(11)
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+    q = draw(1, 2, 1, 8, 48)
+    k = draw(1, 2, 8, 48, dtype=torch.float32)
+    v = draw(1, 2, 8, 32)
+    for kk, vv in ((k, v), (k, q[:, :, 0].contiguous()),
+                   (k.bfloat16(), v)):
+        out, lse = ops.flash_fwd(q, kk, vv)
+        g = draw(*out.shape)
+        got = ops.flash_bwd(g, q, kk, vv, out, lse)
+        want = _ref_flash_vjp(ref, q, kk, vv, g)
+        for a, w, t in zip(got, want, (q, kk, vv)):
+            w = np.asarray(w.astype(ref.jnp.float32))
+            assert a.dtype == t.dtype and tuple(a.shape) == w.shape
+            tol = BF16_STEP if a.dtype == torch.bfloat16 else 1e-4
+            np.testing.assert_allclose(a.float().numpy(), w, rtol=0,
+                                       atol=tol * np.abs(w).max())
+
+
+def test_flash_attention_under_autograd_refuses_mla(ref):
+    """`flash_attention` under autograd with Dq != Dv (f32) gives the
+    reference's gradients (within 1e-5 of each one's max)."""
+    rng = np.random.default_rng(12)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((1, 1, 1, 8, 48), (1, 1, 8, 48),
+                               (1, 1, 8, 32), (1, 1, 1, 8, 32)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    att.flash_attention(*leaves).backward(g)
+    want = _ref_flash_vjp(ref, q, k, v, g)
+    for t, w in zip(leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
 
 
 # ----------------------------------------------------------------------
@@ -623,17 +665,30 @@ def test_decode_matches_own_full_forward(built, name):
                                rtol=1e-4)
 
 
-def test_training_mla_is_not_yet_ported(built):
-    cfg, model, _, _ = built("reduced", "float32")
+def test_training_mla_is_not_yet_ported(built, capsys):
+    """MLA trains now (`tests/test_torch_mla_train.py` holds it to the
+    reference): `loss_fn` and `lm_loss` give a finite loss whose
+    backward reaches every leaf, and the launcher trains it on the
+    host."""
+    cfg, _, _, rparams = built("reduced", "float32")
+    model = registry.build_model(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    registry.load_reference_params(model, compat.tree_map(np.asarray,
+                                                          rparams))
+    model.requires_grad_(True)
     toks = torch.ones((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer.lm_loss(transformer.param_tree(model),
-                            {"tokens": toks, "targets": toks}, cfg)
+    batch = {"tokens": toks, "targets": toks}
+    tree = transformer.param_tree(model)
+    loss, _ = registry.loss_fn(cfg)(tree, batch)
+    again, _ = transformer.lm_loss(tree, batch, cfg)
+    assert torch.isfinite(loss) and torch.equal(loss, again)
+    loss.backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
     from repro_torch.launch import train as train_cli
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu"])
+    train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert "[train] step     1 loss" in capsys.readouterr().out
 
 
 def test_moe_with_mla_is_still_refused():
@@ -968,8 +1023,8 @@ def test_card_parts_are_read_in_place(card):
 @pytest.mark.cuda
 def test_card_refuses_what_the_kernel_does_not_take(card):
     """The parts' rule (nope 64, rope 32, v 64), f32 keys beside a bf16 q
-    in the dense form (the card takes MLA from its parts), flash_bwd of
-    the MLA form; no launch."""
+    in the dense form (the card takes MLA from its parts, forward and
+    backward), flash_bwd of the MLA form; no launch."""
     before = (ops.flash_fwd.launches, ops.flash_bwd.launches)
     for dims, words in (((80, 32, 64), "nd = 80"), ((64, 32, 80), "Dv = 80"),
                         ((64, 48, 64), "rd = 48")):
@@ -982,7 +1037,7 @@ def test_card_refuses_what_the_kernel_does_not_take(card):
         ops.flash_fwd(q, k, parts[4])
     out = torch.zeros((1, 2, 1, 64, 64), dtype=torch.bfloat16, device=card)
     lse = torch.zeros((1, 2, 1, 64), device=card)
-    with pytest.raises(ValueError, match="MLA's training"):
+    with pytest.raises(ValueError, match="from its parts"):
         ops.flash_bwd(out, q, k, parts[4], out, lse)
     assert (ops.flash_fwd.launches, ops.flash_bwd.launches) == before
 

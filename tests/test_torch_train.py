@@ -41,14 +41,12 @@ Tolerances:
   rounding is held by the bit-equal op tests, the run by f32.
 
 The reference's 4-pod Trainer runs in a subprocess with 4 host
-devices, as `tests/test_system.py` runs its multi-pod script.
+devices, as `tests/test_system.py` runs its multi-pod script; those
+runs are `tests/test_torch_train_pods.py`, and the 8-step psum
+histories `tests/test_torch_train_history.py` (files of their own, so
+that the test workers share the suite's longest runs).
 """
 import dataclasses
-import json
-import os
-import subprocess
-import sys
-import textwrap
 import types
 from pathlib import Path
 
@@ -65,7 +63,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
 from repro_torch.models import attention as att
 from repro_torch.models import layers, registry, transformer
-from repro_torch.train import optimizer, train_step
+from repro_torch.train import optimizer
 from repro_torch.train.loop import LoopConfig, Trainer
 from repro_torch.train.train_step import (_grads_of, broadcast_to_pods,
                                           make_train_step, strip_pods)
@@ -561,24 +559,23 @@ def test_pods_step_broadcast_and_strip():
 
 
 def test_loss_fn_gates():
-    """The four ported families train, the hybrid `zamba2-2.7b` and an
-    MoE config built from a ported one included; MoE with a leading
-    dense layer and MLA raise "not yet ported", and an unknown remat
-    raises for every family."""
+    """The four ported families train, the hybrid `zamba2-2.7b`, an MoE
+    config built from a ported one and the dense family's MLA included;
+    MoE with a leading dense layer raises "not yet ported", and an
+    unknown remat raises for every family."""
     ssm = reduced(get_config(SSM_ARCH))
     dense = reduced(get_config("llama3-8b"))
     hybrid = reduced(get_config("zamba2-2.7b"))
     moe = dense.replace(moe=dataclasses.replace(dense.moe, n_experts=4,
                                                 top_k=2, d_ff_expert=64))
-    for cfg in (ssm, dense, hybrid, moe):
+    mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
+    for cfg in (ssm, dense, hybrid, moe, mla):
         assert callable(registry.loss_fn(cfg, remat="dots"))
     prologue = moe.replace(moe=dataclasses.replace(moe.moe,
                                                    first_dense_layers=1))
-    mla = dense.replace(mla=MLAConfig(kv_lora_rank=32))
-    for cfg in (prologue, mla):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.loss_fn(cfg)
-    for cfg in (ssm, dense, hybrid, moe):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.loss_fn(prologue)
+    for cfg in (ssm, dense, hybrid, moe, mla):
         with pytest.raises(ValueError, match="unknown remat"):
             registry.loss_fn(cfg, remat="some")
 
@@ -629,168 +626,12 @@ def test_failure_injection_recovers(tmp_path):
     assert tr.history[-1]["step"] == 6       # completed all steps
 
 
-@pytest.mark.parametrize("arch,dtype", [
-    pytest.param("llama3-8b", "float32", id="float32"),
-    pytest.param("llama3-8b", "bfloat16", id="bfloat16"),
-    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32"),
-    pytest.param(SSM_ARCH, "bfloat16", id=f"{SSM_ARCH}-bfloat16")])
-def test_psum_history_matches_reference(ref, built, from_reference, arch,
-                                        dtype):
-    """test_training_reduces_loss's run (lr 1e-3, warm-up 2, 8 steps)
-    from the reference's init: every step's loss and grad norm against
-    the reference Trainer's (f32 within 1e-4; bf16 within
-    BF16_LOSS_RTOL)."""
-    cfg, rcfg, rparams = built(arch, dtype)
-    dcfg = dict(batch=4, seq=32, vocab=cfg.vocab)
-    kw = dict(lr=1e-3, warmup_steps=2, total_steps=8)
-    rtr = ref.loop.Trainer(rcfg, ref.compat.make_mesh((1,), ("data",)),
-                           ref.pipeline.DataConfig(**dcfg),
-                           ref.loop.LoopConfig(steps=8, sync="psum"),
-                           opt=ref.opt.AdamWConfig(**kw))
-    rtr.run(ref.jax.random.key(0))
-    from_reference(rparams)
-    tr = Trainer(cfg, 1, pipeline.DataConfig(**dcfg),
-                 LoopConfig(steps=8, sync="psum"),
-                 opt=optimizer.AdamWConfig(**kw), device="cpu")
-    tr.run(0)
-    tol = TRAIN_RTOL if dtype == "float32" else BF16_LOSS_RTOL
-    assert [h["step"] for h in tr.history] == list(range(8))
-    for got, want in zip(tr.history, rtr.history):
-        assert _rel(got["loss"], want["loss"]) <= tol, (got, want)
-    assert tr.events == rtr.events == []
-
-
 # ----------------------------------------------------------------------
 # the Trainer, 4 pods: WANify replans with skew weights, compressed sync
 # ----------------------------------------------------------------------
-_REFERENCE_PODS = textwrap.dedent("""
-    import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import jax
-    from repro import compat
-    from repro.configs import get_config
-    from repro.configs.base import reduced
-    from repro.core.predictor import BwPredictor
-    from repro.data.pipeline import DataConfig
-    from repro.train.loop import LoopConfig, Trainer
-    from repro.wan.dataset import train_default_forest
-    from repro.wan.simulator import WanSimulator
-
-    rf, _, _ = train_default_forest(n_samples=150, n_trees=40)
-    out = {}
-    for key, arch, dtype in (("float32", "h2o-danube-1.8b", "float32"),
-                             ("bfloat16", "h2o-danube-1.8b", "bfloat16"),
-                             ("mamba2-2.7b-float32", "mamba2-2.7b",
-                              "float32"),
-                             ("zamba2-2.7b-float32", "zamba2-2.7b",
-                              "float32")):
-        cfg = reduced(get_config(arch)).replace(dtype=dtype)
-        tr = Trainer(cfg, compat.make_mesh((4,), ("pod",)),
-                     DataConfig(batch=8, seq=32, vocab=cfg.vocab, n_pods=4,
-                                skew=0.5),
-                     LoopConfig(steps=5, sync="wanify", compress=True,
-                                replan_every=2, straggler_factor=1e9),
-                     sim=WanSimulator(seed=0), predictor=BwPredictor(rf))
-        first = (tr.plan.conns, tr.plan.compress_bits)
-        tr.run(jax.random.key(0))
-        out[key] = {"history": tr.history, "events": tr.events,
-                      "first": first, "conns": tr.plan.conns,
-                      "bits": tr.plan.compress_bits,
-                      "signature": repr(tr.plan.signature())}
-    json.dump(out, open(sys.argv[1], "w"))
-    print("REFERENCE_OK")
-""")
-
-
-@pytest.fixture(scope="module")
-def ref_pods(tmp_path_factory):
-    path = tmp_path_factory.mktemp("train_ref") / "pods.json"
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", _REFERENCE_PODS, str(path)],
-                       capture_output=True, text=True, env=env,
-                       timeout=DEADLINE)
-    assert "REFERENCE_OK" in r.stdout, r.stdout + r.stderr[-3000:]
-    return json.loads(path.read_text())
-
-
 @pytest.fixture(scope="module")
 def forest():
     return train_default_forest(n_samples=150, n_trees=40)[0]
-
-
-def _four_pod_trainer(cfg, forest):
-    return Trainer(cfg, 4, pipeline.DataConfig(batch=8, seq=32,
-                                               vocab=cfg.vocab, n_pods=4,
-                                               skew=0.5),
-                   LoopConfig(steps=5, sync="wanify", compress=True,
-                              replan_every=2, straggler_factor=1e9),
-                   sim=WanSimulator(seed=0),
-                   predictor=BwPredictor(forest, device="cpu"),
-                   device="cpu")
-
-
-def _loss_gaps(history, want) -> list:
-    assert len(history) == len(want["history"]) == 5
-    assert [h["step"] for h in history] == [w["step"] for w in
-                                            want["history"]]
-    return [_rel(g["loss"], w["loss"]) for g, w in zip(history,
-                                                       want["history"])]
-
-
-@pytest.mark.parametrize("arch,dtype", [
-    pytest.param("h2o-danube-1.8b", "float32", id="float32"),
-    pytest.param("h2o-danube-1.8b", "bfloat16", id="bfloat16"),
-    pytest.param(SSM_ARCH, "float32", id=f"{SSM_ARCH}-float32"),
-    pytest.param(HYBRID_ARCH, "float32", id=f"{HYBRID_ARCH}-float32")])
-def test_four_pod_wanify_trainer_matches_reference(request, ref, built,
-                                                   ref_pods, forest,
-                                                   from_reference, arch,
-                                                   dtype):
-    """The run quoted in the slice's motivation: 4 pods, skew 0.5,
-    `sync="wanify"`, `compress=True`, a replan every 2 steps fed the
-    skew weights, the forest on the host (`rf_predict`'s plain
-    version). Events and plans identical to the reference's live run;
-    losses within FOUR_POD_F32_RTOL relative in f32
-    (FOUR_POD_BF16_RTOL in bf16). `h2o-danube-1.8b` in both dtypes,
-    `mamba2-2.7b` and `zamba2-2.7b` in f32 (the reference's run keyed by
-    the test's id; the hybrid's shared block synchronised as an
-    unstacked subtree, its matrices split along their rows)."""
-    cfg, _, rparams = built(arch, dtype)
-    want = ref_pods[request.node.callspec.id]
-    from_reference(rparams)
-    tr = _four_pod_trainer(cfg, forest)
-    assert [list(map(list, tr.plan.conns)), list(tr.plan.compress_bits)] \
-        == want["first"]
-    tr.run(0)
-    assert tr.events == want["events"] == ["replanned at step 1",
-                                           "replanned at step 3"]
-    assert [list(r) for r in tr.plan.conns] == want["conns"]
-    assert list(tr.plan.compress_bits) == want["bits"]
-    assert repr(tr.plan.signature()) == want["signature"]
-    tol = FOUR_POD_F32_RTOL if dtype == "float32" else FOUR_POD_BF16_RTOL
-    gaps = _loss_gaps(tr.history, want)
-    assert max(gaps) <= tol, gaps
-    assert all(np.isfinite(h["grad_norm"]) for h in tr.history)
-
-
-def test_four_pod_loss_bound_catches_dropped_compression(
-        ref, built, ref_pods, forest, from_reference, monkeypatch):
-    """A control of the f32 bound: with the sync's compression dropped
-    (the port's step syncs uncompressed where the reference's
-    compresses) the same run keeps its events and plans, and its losses
-    part from the reference's by more than FOUR_POD_F32_RTOL."""
-    cfg, _, rparams = built("h2o-danube-1.8b", "float32")
-    want = ref_pods["float32"]
-    from_reference(rparams)
-    sync = train_step.wan_allreduce_batched
-    monkeypatch.setattr(train_step, "wan_allreduce_batched",
-                        lambda tree, plan, compress=False, mean=True:
-                        sync(tree, plan, compress=False, mean=mean))
-    tr = _four_pod_trainer(cfg, forest)
-    tr.run(0)
-    assert tr.events == want["events"]
-    gaps = _loss_gaps(tr.history, want)
-    assert max(gaps) > FOUR_POD_F32_RTOL, gaps
 
 
 def test_four_pod_checkpoint_failure_and_rescale(tmp_path, forest):
